@@ -1,0 +1,125 @@
+"""Dependency engine: MXNET read/write tags → explicit issue order.
+
+MXNET's engine (paper §3.1) orders tasks with read/mutate tags on
+objects; DepCha (§4.3) serializes collectives by making each one *write*
+a shared dummy variable.  The reference reproduces that in XLA with
+tokens threaded through optimization barriers (``repro/core/
+dependency.py``).  PyTorch runs eagerly, so the port states the order
+directly:
+
+  - every schedule chain gets its own communicator (``chain_groups``:
+    one ``dist.new_group`` over the same ranks per chain — the paper's
+    per-channel communicator).  Collectives on one communicator complete
+    in issue order; those on different communicators may overlap.
+  - an issued collective is a ``Handle``; ``gate`` waits on the handles
+    of an op's ``depends_on`` before the op is issued (the read-tag).
+    On NCCL a wait orders the current CUDA stream after the collective
+    without blocking the host; on gloo it blocks until the collective
+    is done.
+  - on CUDA each chain stages its buckets on its own stream
+    (``ChainStreams``), so a wait in one chain never holds up the
+    staging of another.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Iterable, Mapping
+
+import torch
+import torch.distributed as dist
+
+
+class Handle:
+    """One issued collective (the write to the paper's dummy variable).
+
+    ``wait()`` orders the caller after the collective and returns its
+    output, multiplied once by ``scale`` (a reducer's data-parallel
+    mean) the first time it is waited on.
+    """
+
+    def __init__(self, work, out: torch.Tensor, scale: float = 1.0):
+        self._work = work
+        self._out = out
+        self._scale = scale
+
+    @property
+    def out(self) -> torch.Tensor:
+        """The output tensor; its value is defined once waited on."""
+        return self._out
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        if self._scale != 1.0:
+            self._out.mul_(self._scale)
+            self._scale = 1.0
+        return self._out
+
+
+def gate(handles: Mapping[int, Handle], deps: Iterable[int]) -> None:
+    """Read-dependency: wait on every dependency's collective."""
+    for d in deps:
+        handles[d].wait()
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if CUDA is asked for and
+    absent — the port never falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def backend_for(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def chain_groups(chains: Iterable[int], device: torch.device
+                 ) -> dict[int, dist.ProcessGroup]:
+    """One communicator per chain, each over every rank.  Collective:
+    every rank must call it with the same chains in the same order."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "torch.distributed is not initialized: call "
+            "repro_torch.launch.mesh.init_dist(device) first")
+    ranks = list(range(dist.get_world_size()))
+    return {c: dist.new_group(ranks, backend=backend_for(device))
+            for c in sorted(set(chains))}
+
+
+class ChainStreams:
+    """Per-chain CUDA streams for one schedule's execution.
+
+    Entering makes every chain stream wait for the current stream (the
+    gradients are ready); ``on(chain)`` runs staging on that chain's
+    stream; leaving makes the current stream wait for every chain (the
+    reduced gradients are ready).  On the CPU every method is a no-op.
+    """
+
+    def __init__(self, chains: Iterable[int], device: torch.device):
+        self.device = device
+        self.streams = ({c: torch.cuda.Stream(device) for c in sorted(set(chains))}
+                        if device.type == "cuda" else {})
+
+    def __enter__(self) -> "ChainStreams":
+        if self.streams:
+            cur = torch.cuda.current_stream(self.device)
+            for s in self.streams.values():
+                s.wait_stream(cur)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.streams:
+            cur = torch.cuda.current_stream(self.device)
+            for s in self.streams.values():
+                cur.wait_stream(s)
+
+    def on(self, chain: int):
+        if not self.streams:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.streams[chain])

@@ -1,0 +1,465 @@
+"""CommSchedule IR: the dependency structure handed to the scheduler, as
+inspectable data — the port of ``repro/core/schedule.py``.
+
+  ``CollectiveOp``  — one collective: a bucket, the chain it rides, the
+                      ops it depends on, its kind and an optional
+                      reducer tag.
+  ``CommSchedule``  — a topologically ordered tuple of ops, with chain /
+                      ordering accessors.
+  ``execute``       — the ONE emitter: walks the ops and issues each as
+                      an async collective on its chain's communicator,
+                      after waiting on its dependencies
+                      (``repro_torch.core.dependency``).
+
+The IR half is the reference's unchanged, so planners here and in
+``repro`` produce equal schedules.  The emitter runs the ALLREDUCE,
+REDUCE_SCATTER and ALL_GATHER kinds; the full-step, elastic, serving and
+pipeline kinds raise ``NotImplementedError`` until their ROADMAP items
+port them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.core import dependency as dep
+from repro_torch.core.buckets import Bucket, BucketPlan, pack, unpack
+from repro_torch.kernels.collectives import ops as coll_ops
+from repro_torch.kernels.collectives import ref as coll_ref
+from repro_torch.utils.trees import tree_leaves, tree_unflatten
+
+# (buf, bucket, chain communicator) -> issued collective
+Reducer = Callable[[torch.Tensor, Bucket, dist.ProcessGroup], dep.Handle]
+
+# op kinds
+ALLREDUCE = "allreduce"
+REDUCE_SCATTER = "reduce_scatter"
+ALL_GATHER = "all_gather"
+UPDATE = "update"    # sharded optimizer update of one bucket's RS shard
+NORM = "norm"        # scalar sum of local squared grad norms (clipping)
+RESHARD = "reshard"  # elastic: move one state bucket across a mesh change
+REGROUP = "regroup"  # elastic: the group-rebuild barrier
+DECODE = "decode"    # serving: local decode math for one layer group
+SEND = "send"        # pipeline: pack the boundary payload
+RECV = "recv"        # pipeline: the hop, delivered into the leaves
+
+KINDS = (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER, UPDATE, NORM,
+         RESHARD, REGROUP, DECODE, SEND, RECV)
+# kinds that move a bucket's payload over the wire exactly once (RS/AG
+# pairs are counted at the RS; SEND/RECV pairs at the SEND)
+_WIRE_KINDS = (ALLREDUCE, REDUCE_SCATTER)
+_PAYLOAD_KINDS = _WIRE_KINDS + (SEND,)
+# the ROADMAP queue 1 item that ports each kind the emitter cannot run
+_NOT_PORTED = {UPDATE: 8, NORM: 8, RESHARD: 14, REGROUP: 14, DECODE: 11,
+               SEND: 13, RECV: 13}
+
+# execution phases: POST ops run after this step's backward; PRE ops are
+# deferred to the top of the next step
+POST = "post"
+PRE = "pre"
+PHASES = (POST, PRE)
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveOp:
+    """One staged collective in the schedule."""
+
+    op_id: int
+    bucket: Bucket
+    chain: int                          # which dependency chain it rides
+    depends_on: tuple[int, ...] = ()    # op_ids that must complete first
+    kind: str = ALLREDUCE
+    reducer: str = ""                   # registered reducer tag; "" = default
+    phase: str = POST                   # POST (same step) | PRE (next step)
+    shift: int = 1                      # SEND/RECV only: hop along the stage axis
+
+
+@dataclasses.dataclass(frozen=True)
+class CommSchedule:
+    """Topologically ordered collective ops (op i may only depend on j<i)."""
+
+    ops: tuple[CollectiveOp, ...]
+
+    def chains(self) -> dict[int, list[CollectiveOp]]:
+        out: dict[int, list[CollectiveOp]] = {}
+        for op in self.ops:
+            out.setdefault(op.chain, []).append(op)
+        return out
+
+    @property
+    def num_chains(self) -> int:
+        return len({op.chain for op in self.ops})
+
+    def chain_lengths(self) -> dict[int, int]:
+        return {ch: len(ops) for ch, ops in self.chains().items()}
+
+    def bucket_order(self, chain: int | None = None) -> tuple[int, ...]:
+        """bucket_ids in emission order (optionally for one chain),
+        counting each reduce-scatter/all-gather pair once (at the RS)."""
+        return tuple(
+            op.bucket.bucket_id for op in self.ops
+            if op.kind in _WIRE_KINDS
+            and (chain is None or op.chain == chain))
+
+    def leaf_names(self) -> frozenset[str]:
+        return frozenset(l.name for op in self.ops for l in op.bucket.leaves)
+
+    def comm_bytes(self, itemsize: int = 4) -> int:
+        """Total payload bytes moved (RS/AG pairs counted once)."""
+        return sum(op.bucket.size * itemsize for op in self.ops
+                   if op.kind in _PAYLOAD_KINDS)
+
+    def chain_bytes(self, itemsize: int = 4) -> dict[int, int]:
+        """Payload bytes per dependency chain."""
+        out: dict[int, int] = {}
+        for op in self.ops:
+            if op.kind in _PAYLOAD_KINDS:
+                out[op.chain] = out.get(op.chain, 0) + op.bucket.size * itemsize
+        return out
+
+    def axes_used(self) -> frozenset[tuple[str, ...]]:
+        """Distinct reduction-axis groups (the communicators involved)."""
+        return frozenset(op.bucket.reduce_axes for op in self.ops)
+
+    def phase_counts(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for op in self.ops:
+            out[op.phase] = out.get(op.phase, 0) + 1
+        return out
+
+    def deferred_bytes(self, itemsize: int = 4) -> int:
+        """Payload bytes whose materialization crosses the step boundary
+        (the PRE ops' buckets)."""
+        return sum(op.bucket.size * itemsize_of(op.bucket.comm_dtype, itemsize)
+                   for op in self.ops if op.phase == PRE)
+
+    def split_phases(self) -> tuple["CommSchedule", "CommSchedule"]:
+        """(post, pre) sub-schedules for pipelined execution.  POST ops
+        keep their ids and deps — nothing may depend on a PRE op inside
+        one step; PRE ops drop every dep on a POST op (those producers
+        ran in the previous step)."""
+        pre_ids = {op.op_id for op in self.ops if op.phase == PRE}
+        for op in self.ops:
+            if op.phase != PRE and pre_ids.intersection(op.depends_on):
+                raise ValueError(
+                    f"post op {op.op_id} depends on deferred (PRE) op(s) "
+                    f"{sorted(pre_ids.intersection(op.depends_on))} — a "
+                    f"deferred result does not exist until the next step")
+        post = tuple(op for op in self.ops if op.phase != PRE)
+        pre = tuple(
+            dataclasses.replace(
+                op, depends_on=tuple(d for d in op.depends_on if d in pre_ids))
+            for op in self.ops if op.phase == PRE)
+        return CommSchedule(post).validate(), CommSchedule(pre).validate()
+
+    def split_regroup(self) -> tuple["CommSchedule", "CommSchedule"]:
+        """(old, new) sub-schedules of an elastic transition, split at the
+        first REGROUP op (which stays on the old side); new-side deps on
+        old-side ops are dropped."""
+        cut = next((i for i, op in enumerate(self.ops)
+                    if op.kind == REGROUP), None)
+        if cut is None:
+            raise ValueError("split_regroup: schedule has no REGROUP op")
+        old = self.ops[:cut + 1]
+        old_ids = {op.op_id for op in old}
+        new_ids = {op.op_id for op in self.ops[cut + 1:]}
+        new = tuple(
+            dataclasses.replace(
+                op, depends_on=tuple(d for d in op.depends_on if d in new_ids))
+            for op in self.ops[cut + 1:])
+        for op in old:
+            if not old_ids.issuperset(op.depends_on):
+                raise ValueError(
+                    f"old-side op {op.op_id} depends on post-regroup "
+                    f"op(s) {sorted(set(op.depends_on) - old_ids)}")
+        return CommSchedule(old).validate(), CommSchedule(new).validate()
+
+    def update_ops(self) -> tuple[CollectiveOp, ...]:
+        """The StepProgram's optimizer-update nodes (empty for pure-sync
+        schedules)."""
+        return tuple(op for op in self.ops if op.kind == UPDATE)
+
+    def stats(self) -> dict[str, Any]:
+        lengths = self.chain_lengths()
+        kinds: dict[str, int] = {}
+        for op in self.ops:
+            kinds[op.kind] = kinds.get(op.kind, 0) + 1
+        return {
+            "num_ops": len(self.ops),
+            "num_chains": self.num_chains,
+            "max_chain_len": max(lengths.values()) if lengths else 0,
+            "kinds": kinds,
+            "phases": self.phase_counts(),
+        }
+
+    def validate(self) -> "CommSchedule":
+        """Structural soundness: op_id uniqueness, no dangling / forward
+        chain-dep references, known kinds/phases/bucket indices
+        (``repro_torch.analysis.passes.structural_findings``).  Returns
+        self so planners can end with ``return CommSchedule(ops).validate()``.
+        """
+        from repro_torch.analysis.passes import structural_findings
+
+        findings = structural_findings(self)
+        if findings:
+            raise ValueError(findings[0].message)
+        return self
+
+
+def itemsize_of(dtype: Any, fallback: int) -> int:
+    """Wire bytes per element for a bucket's pinned comm dtype (the
+    schedule-level itemsize when the bucket has no pin)."""
+    return fallback if dtype is None else dtype.itemsize
+
+
+def group_size(axes: tuple[str, ...], mesh_shape: Mapping[str, int]) -> int:
+    """Ranks participating in a collective over ``axes`` (the MPI
+    communicator size)."""
+    g = 1
+    for a in axes:
+        g *= mesh_shape[a]
+    return g
+
+
+def mean_scale(axes: tuple[str, ...], mesh_shape: Mapping[str, int],
+               mean_axes: tuple[str, ...]) -> float:
+    """1/size over the ``mean_axes`` subset of ``axes`` (data-parallel
+    mean; the paper's rescale=1/mini_batch_size lives in the loss when
+    ``mean_axes`` is empty)."""
+    n = 1
+    for a in axes:
+        if a in mean_axes:
+            n *= mesh_shape[a]
+    return 1.0 / n
+
+
+def live_buckets(plan: BucketPlan,
+                 skip_names: frozenset[str] = frozenset()) -> list[Bucket]:
+    """Buckets in creation order with ``skip_names`` leaves dropped;
+    buckets left empty disappear entirely."""
+    out: list[Bucket] = []
+    for bucket in plan.buckets:
+        keep = [l for l in bucket.leaves if l.name not in skip_names]
+        if not keep:
+            continue
+        if len(keep) != len(bucket.leaves):
+            bucket = dataclasses.replace(bucket, leaves=tuple(keep))
+        out.append(bucket)
+    return out
+
+
+def live_channels(plan: BucketPlan, skip_names: frozenset[str] = frozenset()
+                  ) -> dict[int, list[Bucket]]:
+    """``live_buckets`` grouped by channel (the ConCom communicator)."""
+    out: dict[int, list[Bucket]] = {}
+    for bucket in live_buckets(plan, skip_names):
+        out.setdefault(bucket.channel, []).append(bucket)
+    return out
+
+
+def emit_gated(buf: torch.Tensor, deps: tuple[int, ...],
+               handles: Mapping[int, dep.Handle],
+               reduce_fn: Callable[[torch.Tensor], dep.Handle]) -> dep.Handle:
+    """THE collective emitter (MXNET engine-thread analogue).
+
+    Wait on the collectives of ``deps`` (read-dependency), issue
+    ``reduce_fn(buf)`` and return its handle (the write to the dummy
+    variable).  The schedule executor and ``KVStore`` both issue every
+    collective through here.
+    """
+    dep.gate(handles, deps)
+    return reduce_fn(buf)
+
+
+def op_scope_name(op: CollectiveOp) -> str:
+    """Profiler label for one op, as the reference names its scopes."""
+    return f"comm.{op.kind}.b{op.bucket.bucket_id}.op{op.op_id}.{op.phase}"
+
+
+class _OpEmitter:
+    """Per-op emission engine behind ``execute``: holds the handles of
+    issued collectives and reduce-scatter shards, and emits ONE op at a
+    time into a flat leaf list."""
+
+    def __init__(
+        self,
+        schedule: CommSchedule,
+        plan: BucketPlan,
+        *,
+        reducer: Reducer,
+        groups: Mapping[int, dist.ProcessGroup],
+        mesh_shape: Mapping[str, int] | None = None,
+        mean_axes: tuple[str, ...] = (),
+        use_fused_staging: bool = True,
+        loss_scale: float = 1.0,
+    ):
+        self.plan = plan
+        self.reducer = reducer
+        self.groups = groups
+        self.mesh_shape = mesh_shape
+        self.mean_axes = mean_axes
+        self.use_fused_staging = use_fused_staging
+        self.loss_scale = loss_scale
+        self.by_id = {op.op_id: op for op in schedule.ops}
+        self.handles: dict[int, dep.Handle] = {}
+        self.shards: dict[int, tuple[dep.Handle, int]] = {}
+
+    # -- staging helpers ---------------------------------------------
+
+    def _dtype_of(self, bucket: Bucket):
+        return (bucket.comm_dtype if bucket.comm_dtype is not None
+                else self.plan.comm_dtype)
+
+    def _fused_ok(self, bucket: Bucket) -> bool:
+        return self.use_fused_staging and coll_ops.staging_supported(
+            (l.dtype for l in bucket.leaves), self._dtype_of(bucket))
+
+    def _stage_in(self, bucket: Bucket, flat_out: list) -> torch.Tensor:
+        """CopyFromTo(g, comm_buf): pack + cast (+ loss-scale), fused."""
+        if self._fused_ok(bucket):
+            return coll_ops.fused_pack(bucket, flat_out, self._dtype_of(bucket),
+                                       scale=self.loss_scale)
+        if self.loss_scale != 1.0:
+            # scale in f32 BEFORE the comm-dtype cast, as the fused path
+            return coll_ref.leafwise_pack(
+                [flat_out[l.index] for l in bucket.leaves],
+                self._dtype_of(bucket), scale=self.loss_scale)
+        return pack(bucket, flat_out, self._dtype_of(bucket))
+
+    def _stage_out(self, bucket: Bucket, buf: torch.Tensor,
+                   inv_scale: float, flat_out: list) -> None:
+        """CopyFromTo(recv_buf, g): unscale + cast back + scatter, fused
+        (the fused path writes into the gradient tensors in place)."""
+        if self._fused_ok(bucket):
+            coll_ops.fused_unpack(bucket, buf, flat_out, scale=inv_scale)
+            return
+        if inv_scale != 1.0:
+            pieces = coll_ref.leafwise_unpack(
+                buf, [l.size for l in bucket.leaves],
+                [l.dtype for l in bucket.leaves], scale=inv_scale)
+            for l, piece in zip(bucket.leaves, pieces):
+                flat_out[l.index] = piece.reshape(l.shape)
+            return
+        unpack(bucket, buf, flat_out)
+
+    def _scale_of(self, bucket: Bucket) -> float:
+        if self.mesh_shape is None:
+            return 1.0
+        return mean_scale(bucket.reduce_axes, self.mesh_shape, self.mean_axes)
+
+    def _shard_src(self, op: CollectiveOp) -> int:
+        """The dep producing this op's same-bucket shard."""
+        srcs = [d for d in op.depends_on if d in self.shards
+                and self.by_id[d].bucket.bucket_id == op.bucket.bucket_id]
+        if not srcs:
+            raise ValueError(
+                f"{op.kind} op {op.op_id} has no reduce_scatter dep for "
+                f"bucket {op.bucket.bucket_id}")
+        return srcs[0]
+
+    # -- the per-op body ---------------------------------------------
+
+    def emit(self, op: CollectiveOp, flat_out: list) -> None:
+        """Issue one op on its chain's communicator after its deps,
+        reading/writing leaves in ``flat_out``."""
+        bucket = op.bucket
+        group = self.groups[op.chain]
+
+        if op.kind == ALLREDUCE:
+            send_buf = self._stage_in(bucket, flat_out)
+            h = emit_gated(send_buf, op.depends_on, self.handles,
+                           lambda b: self.reducer(b, bucket, group))
+            self.handles[op.op_id] = h
+            self._stage_out(bucket, h.wait(), 1.0 / self.loss_scale, flat_out)
+
+        elif op.kind == REDUCE_SCATTER:
+            g = dist.get_world_size(group)
+            send_buf = self._stage_in(bucket, flat_out)
+            n = send_buf.numel()
+            if (-n) % g:
+                send_buf = F.pad(send_buf, (0, (-n) % g))
+
+            def rs(b):
+                shard = torch.empty(b.numel() // g, dtype=b.dtype, device=b.device)
+                work = dist.reduce_scatter_tensor(shard, b, group=group,
+                                                  async_op=True)
+                return dep.Handle(work, shard)
+
+            h = emit_gated(send_buf, op.depends_on, self.handles, rs)
+            self.handles[op.op_id] = h
+            self.shards[op.op_id] = (h, n)
+
+        elif op.kind == ALL_GATHER:
+            src, n = self.shards[self._shard_src(op)]
+            g = dist.get_world_size(group)
+
+            def ag(shard):
+                full = torch.empty(shard.numel() * g, dtype=shard.dtype,
+                                   device=shard.device)
+                work = dist.all_gather_into_tensor(full, shard, group=group,
+                                                   async_op=True)
+                return dep.Handle(work, full)
+
+            # the producing RS is among the deps: gated before ag reads it
+            h = emit_gated(src.out, op.depends_on, self.handles, ag)
+            self.handles[op.op_id] = h
+            full = h.wait()[:n]
+            s = self._scale_of(bucket)
+            if s != 1.0:
+                full = full * s
+            self._stage_out(bucket, full, 1.0 / self.loss_scale, flat_out)
+
+        elif op.kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"op kind {op.kind!r} is not ported yet (ROADMAP queue 1 "
+                f"item {_NOT_PORTED[op.kind]})")
+        else:
+            raise ValueError(f"unknown op kind {op.kind!r}")
+
+
+def execute(
+    schedule: CommSchedule,
+    grads: Any,
+    plan: BucketPlan,
+    *,
+    reducer: Reducer,
+    groups: Mapping[int, dist.ProcessGroup],
+    streams: dep.ChainStreams,
+    mesh_shape: Mapping[str, int] | None = None,
+    mean_axes: tuple[str, ...] = (),
+    use_fused_staging: bool = True,
+    loss_scale: float = 1.0,
+) -> Any:
+    """Materialize a CommSchedule over a gradient tree.
+
+    ``reducer`` runs every allreduce op.  ``groups`` maps each chain to
+    its communicator and ``streams`` gives each chain its staging stream.
+    ``mesh_shape`` and ``mean_axes`` apply the data-parallel mean on the
+    reduce-scatter/all-gather path (the reducer carries its own).
+
+    ``use_fused_staging`` stages each bucket through the fused pack /
+    unpack kernels (``repro_torch.kernels.collectives``): one pass each
+    way with the comm-dtype cast and the optional ``loss_scale`` folded
+    in.  Buckets with non-float dtypes go the leafwise way.
+
+    Ops are issued in schedule order; each waits on its ``depends_on``
+    before it is issued.  The fused path writes reduced values into the
+    gradient tensors in place; the returned tree holds the results.
+    """
+    flat_out = tree_leaves(grads)
+    if len(flat_out) != plan.num_leaves:
+        raise ValueError(
+            f"plan built for {plan.num_leaves} leaves, got {len(flat_out)}")
+    em = _OpEmitter(
+        schedule, plan, reducer=reducer, groups=groups, mesh_shape=mesh_shape, mean_axes=mean_axes,
+        use_fused_staging=use_fused_staging, loss_scale=loss_scale)
+    with streams:
+        for op in schedule.ops:
+            with streams.on(op.chain), torch.profiler.record_function(
+                    op_scope_name(op)):
+                em.emit(op, flat_out)
+    return tree_unflatten(plan.treedef, flat_out)

@@ -1,0 +1,163 @@
+"""Collective-embedding strategies as pure CommSchedule planners — the
+port of ``repro/core/strategies.py``.
+
+Every strategy computes the identical reduction (a sum of each bucket
+over its reduction axes); they differ ONLY in the dependency structure:
+which collective waits on which — the direct analogue of which MXNET
+thread issues the MPI call.  A strategy is a pure
+
+    plan(bucket_plan, *, skip_names=frozenset()) -> CommSchedule
+
+function registered in ``repro_torch.core.registry``.
+
+Paper strategies (§4):
+  funnel  — ONE chain through every collective.  Paper §4.1.
+  concom  — buckets hashed to ``num_channels`` independent chains, one
+            communicator each.  Paper §4.2.
+  depcha  — in-scan leaves were reduced inside the backward; the rest
+            ride independent chains like concom.  Paper §4.3.
+Beyond-paper:
+  priority — concom's chains with each chain's buckets reversed.
+  rsag     — each bucket's allreduce split into reduce-scatter →
+             all-gather, RS ops chained per channel.
+
+Reducers: ``flat`` (an async ``dist.all_reduce`` on the chain's
+communicator) is ported; the others are registered under their
+reference names and raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import registry
+from repro_torch.core.buckets import Bucket, BucketPlan
+from repro_torch.core.dependency import Handle
+from repro_torch.core.registry import register_reducer, register_strategy
+from repro_torch.core.schedule import (
+    ALL_GATHER,
+    REDUCE_SCATTER,
+    CollectiveOp,
+    CommSchedule,
+    Reducer,
+    live_buckets,
+    live_channels,
+    mean_scale,
+)
+
+
+# ---------------------------------------------------------------- reducers
+
+@register_reducer("flat")
+def _flat_factory(mesh_shape: dict[str, int], *,
+                  mean_axes: tuple[str, ...] = ()) -> Reducer:
+    """Plain sum over all reduction axes (the paper's primitive).  It
+    always issues ``dist.all_reduce`` on the chain's communicator, at
+    world size 1 too."""
+
+    def reduce_flat(buf: torch.Tensor, bucket: Bucket,
+                    group: dist.ProcessGroup) -> Handle:
+        work = dist.all_reduce(buf, group=group, async_op=True)
+        return Handle(work, buf,
+                      mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
+
+    return reduce_flat
+
+
+def _not_ported(name: str, item: int):
+    def factory(mesh_shape: dict[str, int], *,
+                mean_axes: tuple[str, ...] = ()) -> Reducer:
+        raise NotImplementedError(
+            f"reducer {name!r} is not ported yet (ROADMAP queue 1 item {item})")
+    factory.__doc__ = f"Not ported yet: ROADMAP queue 1 item {item}."
+    return factory
+
+
+for _name, _item in (("hierarchical", 6), ("hierarchical_ring", 6),
+                     ("compressed", 7), ("compressed_ring", 7), ("ring", 6)):
+    register_reducer(_name)(_not_ported(_name, _item))
+
+
+def make_reducer(name: str, mesh_shape: dict[str, int], *,
+                 mean_axes: tuple[str, ...] = ()) -> Reducer:
+    """Build the per-bucket collective from the registered factory."""
+    return registry.get_reducer(name)(mesh_shape, mean_axes=mean_axes)
+
+
+# --------------------------------------------------------------- planners
+
+def _chain(buckets: list[Bucket], chain_id: int, start_id: int,
+           ops: list[CollectiveOp]) -> int:
+    """Append one serialized chain (op i+1 waits on op i); returns next id."""
+    prev: int | None = None
+    oid = start_id
+    for bucket in buckets:
+        ops.append(CollectiveOp(
+            op_id=oid, bucket=bucket, chain=chain_id,
+            depends_on=(prev,) if prev is not None else ()))
+        prev = oid
+        oid += 1
+    return oid
+
+
+@register_strategy("funnel", single_chain=True)
+def plan_funnel(plan: BucketPlan, *,
+                skip_names: frozenset[str] = frozenset()) -> CommSchedule:
+    """One chain through ALL buckets in creation order (paper §4.1)."""
+    ops: list[CollectiveOp] = []
+    _chain(live_buckets(plan, skip_names), 0, 0, ops)
+    return CommSchedule(tuple(ops)).validate()
+
+
+@register_strategy("concom")
+def plan_concom(plan: BucketPlan, *,
+                skip_names: frozenset[str] = frozenset()) -> CommSchedule:
+    """Independent chain per channel → up to num_channels in flight (§4.2)."""
+    ops: list[CollectiveOp] = []
+    oid = 0
+    for ch, buckets in sorted(live_channels(plan, skip_names).items()):
+        oid = _chain(buckets, ch, oid, ops)
+    return CommSchedule(tuple(ops)).validate()
+
+
+@register_strategy("depcha", uses_in_scan=True, deferred_pull=True)
+def plan_depcha(plan: BucketPlan, *,
+                skip_names: frozenset[str] = frozenset()) -> CommSchedule:
+    """In-scan leaves (``skip_names``) were reduced inside the backward
+    scan; leftover buckets ride independent chains like concom (§4.3)."""
+    return plan_concom(plan, skip_names=skip_names)
+
+
+@register_strategy("priority")
+def plan_priority(plan: BucketPlan, *,
+                  skip_names: frozenset[str] = frozenset()) -> CommSchedule:
+    """concom chains with each chain's buckets in REVERSE creation order:
+    front-of-model gradients (needed first next step) finish first."""
+    ops: list[CollectiveOp] = []
+    oid = 0
+    for ch, buckets in sorted(live_channels(plan, skip_names).items()):
+        oid = _chain(list(reversed(buckets)), ch, oid, ops)
+    return CommSchedule(tuple(ops)).validate()
+
+
+@register_strategy("rsag", two_phase=True)
+def plan_rsag(plan: BucketPlan, *,
+              skip_names: frozenset[str] = frozenset()) -> CommSchedule:
+    """Per-bucket reduce-scatter→all-gather pipelined over channels: RS
+    ops chain serially per channel; each AG depends only on its own RS."""
+    ops: list[CollectiveOp] = []
+    oid = 0
+    for ch, buckets in sorted(live_channels(plan, skip_names).items()):
+        prev_rs: int | None = None
+        for bucket in buckets:
+            rs_id, ag_id = oid, oid + 1
+            ops.append(CollectiveOp(
+                op_id=rs_id, bucket=bucket, chain=ch, kind=REDUCE_SCATTER,
+                depends_on=(prev_rs,) if prev_rs is not None else ()))
+            ops.append(CollectiveOp(
+                op_id=ag_id, bucket=bucket, chain=ch, kind=ALL_GATHER,
+                depends_on=(rs_id,)))
+            prev_rs = rs_id
+            oid += 2
+    return CommSchedule(tuple(ops)).validate()

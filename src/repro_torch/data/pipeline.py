@@ -1,0 +1,52 @@
+"""Deterministic synthetic data (``repro/data/pipeline.py``).
+
+Batches are a pure function of (seed, step): the same
+``np.random.default_rng((seed, step))`` draws as the reference, so both
+packages see identical batches.  Each rank takes its contiguous
+``local_batch`` slice of the global batch, as the reference's batch
+sharding gives each device.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.parallel.sharding import local_batch
+
+
+class ImagePipeline:
+    """Synthetic image classification stream (paper's CIFAR/ImageNet).
+
+    ``mesh`` gives the data-parallel size (``None`` = one rank holding
+    the whole batch) and ``rank`` this process's slice; tensors are put
+    on ``device``.
+    """
+
+    def __init__(self, img_size: int, num_classes: int, global_batch: int,
+                 *, seed: int = 0, mesh=None, rank: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.img_size = img_size
+        self.num_classes = num_classes
+        self.global_batch = global_batch
+        self.seed = seed
+        self.local = (global_batch if mesh is None
+                      else local_batch(global_batch, mesh))
+        self.rank = rank
+        self.device = torch.device(device)
+
+    def batch_at(self, step: int) -> dict[str, Any]:
+        rng = np.random.default_rng((self.seed, step))
+        images = rng.standard_normal(
+            (self.global_batch, self.img_size, self.img_size, 3)
+        ).astype(np.float32)
+        labels = rng.integers(0, self.num_classes, (self.global_batch,),
+                              dtype=np.int32)
+        lo = self.rank * self.local
+        return {
+            "images": torch.from_numpy(images[lo:lo + self.local]).to(self.device),
+            "labels": torch.from_numpy(labels[lo:lo + self.local]).to(self.device),
+            "global_tokens": torch.tensor(float(self.global_batch),
+                                          dtype=torch.float32, device=self.device),
+        }

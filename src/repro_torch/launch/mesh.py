@@ -1,0 +1,74 @@
+"""Meshes and process-group setup (``repro/launch/mesh.py``).
+
+The port's ``Mesh`` is the reference mesh's shape alone: axis names and
+sizes.  Data parallelism spans every rank of the process group; the
+"model" axis has extent 1 until tensor parallelism is ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.dependency import backend_for, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    axis_names: tuple[str, ...]
+    shape: dict[str, int]
+
+
+def make_smoke_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """The reference's two-axis ("data", "model") mesh; both axes always
+    present so every collective path runs."""
+    if model != 1:
+        raise NotImplementedError(
+            "a model axis > 1 is tensor parallelism: ROADMAP queue 1 item 9")
+    return Mesh(("data", "model"), {"data": data, "model": model})
+
+
+def make_dp_mesh() -> Mesh:
+    """Data parallelism over every rank of the initialized process group."""
+    return make_smoke_mesh(dist.get_world_size() if dist.is_initialized() else 1)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init_dist(device: str | torch.device = "cuda", *,
+              init_method: str | None = None, rank: int | None = None,
+              world_size: int | None = None) -> tuple[int, int]:
+    """Initialize the default process group once; returns (rank, world).
+
+    NCCL for ``cuda``, gloo for ``cpu``.  Rank and world come from the
+    arguments, else from the environment (``RANK``/``WORLD_SIZE``/
+    ``MASTER_ADDR``, as ``torchrun`` sets them), else a one-rank group on
+    a free localhost port.  A second call returns the existing group's
+    rank and world.  The port's communicators name their backend
+    themselves, so a CPU run can share a process with an NCCL default
+    group.
+    """
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    device = resolve_device(device)
+    if init_method is None:
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            init_method = "env://"
+            rank = int(os.environ["RANK"])
+            world_size = int(os.environ["WORLD_SIZE"])
+        else:
+            init_method = f"tcp://127.0.0.1:{_free_port()}"
+            rank, world_size = 0, 1
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank or 0)) % torch.cuda.device_count()
+        torch.cuda.set_device(local)
+    dist.init_process_group(backend_for(device), init_method=init_method,
+                            rank=rank, world_size=world_size)
+    return dist.get_rank(), dist.get_world_size()

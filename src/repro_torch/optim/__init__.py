@@ -1,0 +1,19 @@
+"""Optimizers and LR schedules (``repro/optim``)."""
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    adamw,
+    apply_updates,
+    clip_by_global_norm,
+    sgd,
+)
+from repro_torch.optim.schedules import cosine_warmup, linear_scaling_rule
+
+__all__ = [
+    "Optimizer",
+    "adamw",
+    "apply_updates",
+    "clip_by_global_norm",
+    "cosine_warmup",
+    "linear_scaling_rule",
+    "sgd",
+]

@@ -1,0 +1,90 @@
+"""Optimizers as (init, update) pairs over flat name → tensor dicts
+(``repro/optim/optimizers.py``).
+
+SGD + momentum is the paper's optimizer (§2.1); AdamW for the LM archs.
+State is f32 whatever the param dtype, as in the reference.  ``update``
+returns new tensors; ``apply_updates`` writes the params in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+Tensors = dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Tensors], dict]
+    update: Callable[[Tensors, dict, Tensors, int], tuple[Tensors, dict]]
+    # update(grads, state, params, step) -> (updates, new_state)
+
+
+def sgd(lr: Callable[[int], float] | float, momentum: float = 0.9,
+        nesterov: bool = False) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params: Tensors) -> dict:
+        return {"mom": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device)
+                        for k, p in params.items()}}
+
+    def update(grads, state, params, step):
+        mom = {k: momentum * state["mom"][k] + g.to(torch.float32)
+               for k, g in grads.items()}
+        if nesterov:
+            eff = {k: momentum * mom[k] + g.to(torch.float32)
+                   for k, g in grads.items()}
+        else:
+            eff = mom
+        lr_t = lr_fn(step)
+        return {k: -lr_t * e for k, e in eff.items()}, {"mom": mom}
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: Callable[[int], float] | float, b1: float = 0.9,
+          b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params: Tensors) -> dict:
+        def z(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": {k: z(p) for k, p in params.items()},
+                "v": {k: z(p) for k, p in params.items()}}
+
+    def update(grads, state, params, step):
+        t = step + 1.0
+        lr_t = lr_fn(step)
+        m, v, updates = {}, {}, {}
+        for k, g in grads.items():
+            g32 = g.to(torch.float32)
+            m[k] = b1 * state["m"][k] + (1 - b1) * g32
+            v[k] = b2 * state["v"][k] + (1 - b2) * g32 * g32
+            mh = m[k] / (1 - b1 ** t)
+            vh = v[k] / (1 - b2 ** t)
+            updates[k] = -lr_t * (mh / (torch.sqrt(vh) + eps)
+                                  + weight_decay * params[k].to(torch.float32))
+        return updates, {"m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float
+                        ) -> tuple[Tensors, torch.Tensor]:
+    """Clip by the global grad norm (summed in the dict's order)."""
+    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads.values())
+    norm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return {k: (g.to(torch.float32) * scale).to(g.dtype)
+            for k, g in grads.items()}, norm
+
+
+@torch.no_grad()
+def apply_updates(params: Tensors, updates: Tensors) -> None:
+    """p ← (p in f32 + u) cast back to p's dtype, in place."""
+    for k, p in params.items():
+        p.copy_(p.to(torch.float32) + updates[k])

@@ -19,6 +19,11 @@ import pytest
 jax.config.update("jax_platform_name", "cpu")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
+
+
 @pytest.fixture(scope="session")
 def smoke_mesh():
     from repro.launch.mesh import make_smoke_mesh
