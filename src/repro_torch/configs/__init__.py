@@ -2,10 +2,17 @@
 
 ``--arch <id>`` resolves through ``get_arch``.
 """
-from repro_torch.configs.base import ArchSpec, ShapeSpec, param_structs
+from repro_torch.configs.base import (
+    FULL_ATTN_NOTE,
+    ArchSpec,
+    ShapeSpec,
+    lm_shapes,
+    param_structs,
+)
+from repro_torch.configs.qwen3_1_7b import ARCH as _qwen3
 from repro_torch.configs.resnet50_cifar import ARCH as _resnet
 
-ARCHS = {a.arch_id: a for a in (_resnet,)}
+ARCHS = {a.arch_id: a for a in (_qwen3, _resnet)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -15,4 +22,5 @@ def get_arch(arch_id: str) -> ArchSpec:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "ArchSpec", "ShapeSpec", "get_arch", "param_structs"]
+__all__ = ["ARCHS", "FULL_ATTN_NOTE", "ArchSpec", "ShapeSpec", "get_arch",
+           "lm_shapes", "param_structs"]

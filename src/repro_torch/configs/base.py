@@ -14,6 +14,25 @@ class ShapeSpec:
     kind: str            # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+    applicable: bool = True
+    note: str = ""
+
+
+def lm_shapes(long_ok: bool, long_note: str = "") -> tuple[ShapeSpec, ...]:
+    """The reference's standard LM shape grid."""
+    return (
+        ShapeSpec("train_4k", "train", 4096, 256),
+        ShapeSpec("prefill_32k", "prefill", 32768, 32),
+        ShapeSpec("decode_32k", "decode", 32768, 128),
+        ShapeSpec("long_500k", "decode", 524288, 1,
+                  applicable=long_ok, note=long_note),
+    )
+
+
+FULL_ATTN_NOTE = ("pure full attention: 512k decode KV cache is "
+                  "O(seq x layers) with no sub-quadratic structure in the "
+                  "assigned config — skipped per assignment rules "
+                  "(DESIGN.md §6)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,10 +6,9 @@ names; ``csrc/staging.cu`` says what they replace, what bounds them and
 how they are laid out.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, in ``build/repro_torch/``
-under the repository root, named by a hash of the source and the flags —
-so a changed source rebuilds and an unchanged one loads at once.  It is
-loaded with ``ctypes``.  Nothing here runs when the module is imported.
+library with a plain C interface at first use (``kernels/_build.py``)
+and loaded with ``ctypes``.  Nothing here runs when the module is
+imported.
 
 The wrappers take CUDA tensors only: they check device, dtype, size and
 contiguity and raise on anything else, launch on the current stream,
@@ -21,14 +20,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Iterator, Sequence
 
 import torch
+
+from repro_torch.kernels import _build
 
 PACK_LAUNCHES = 0
 UNPACK_LAUNCHES = 0
@@ -37,51 +34,13 @@ MAX_LEAVES = 64   # kMaxLeaves in csrc/staging.cu
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float64: 3}
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("staging.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-
-def build_dir() -> Path:
-    """``build/repro_torch/`` under the repository root."""
-    return Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the "
-            "staging kernels cannot be built")
-    return found
+_SOURCES = (Path(__file__).resolve().parent / "csrc" / "staging.cu",)
 
 
 def build() -> Path:
-    """Compile the kernels if this source has not been built yet; return
-    the library's path.  Concurrent builders each compile to their own
-    temporary file and rename it into place."""
-    srcs = [_CSRC / s for s in _SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    out = build_dir() / f"libstaging-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n"
-            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile the staging kernels unless this source is built; return
+    the library's path."""
+    return _build.build("staging", _SOURCES)
 
 
 @functools.cache

@@ -50,6 +50,9 @@ def main(argv=None):
         else:
             cfg, batch = arch.make_config(), arch.shapes[0].global_batch
         api = family_of(cfg)
+        if api.module is None:
+            raise NotImplementedError(
+                f"{api.family} training: ROADMAP queue 1 item 5")
         model = api.module(cfg, api.init(cfg, seed=args.seed, device=args.device))
         pipe = ImagePipeline(cfg.img_size, cfg.num_classes, batch,
                              seed=args.seed, mesh=mesh, rank=rank,

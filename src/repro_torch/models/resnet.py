@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.dependency import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
@@ -40,11 +42,12 @@ class ResNetConfig:
 
 
 def init_params(cfg: ResNetConfig, *, seed: int = 0,
-                device: str | torch.device = "cpu") -> dict:
+                device: str | torch.device = "cuda") -> dict:
     """The reference's parameter tree, drawn from a CPU ``torch.Generator``
     seeded with ``seed`` (so every device gets the same weights) and then
-    moved to ``device``.  On the ``meta`` device only shapes are made."""
-    device = torch.device(device)
+    moved to ``device``: CUDA unless the caller asks for the CPU.  On the
+    ``meta`` device only shapes are made."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     dt = cfg.dtype
 

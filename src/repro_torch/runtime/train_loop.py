@@ -71,6 +71,9 @@ def make_train_step(
         raise NotImplementedError("pipeline stages: ROADMAP queue 1 item 13")
     device = resolve_device(device)
     api = family_of(cfg)
+    if api.train_forward is None:
+        raise NotImplementedError(
+            f"{api.family} training: ROADMAP queue 1 item 5")
     params_like = model.params_tree()
     # skip leaves from the post-backward schedule ONLY when the model
     # really sums them inside the backward (no ported family does yet)

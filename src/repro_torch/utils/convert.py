@@ -36,9 +36,19 @@ def unflatten_names(named: Mapping[str, Any]) -> Any:
     return listify(root)
 
 
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a torch tensor of the same dtype and bits.  A
+    bf16 JAX leaf comes out of ``np.asarray`` as an ``ml_dtypes``
+    bfloat16 array, which torch does not read: its bits are viewed as
+    int16 and reinterpreted as ``torch.bfloat16``, exactly."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_numpy(named: Mapping[str, np.ndarray],
                       device: str | torch.device = "cpu") -> Any:
     """Reference params (name → numpy array) → the port's param tree."""
-    return unflatten_names({
-        n: torch.from_numpy(np.array(a, copy=True)).to(device)
-        for n, a in named.items()})
+    return unflatten_names({n: tensor_from_numpy(a).to(device)
+                            for n, a in named.items()})

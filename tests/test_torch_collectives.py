@@ -16,6 +16,7 @@ import torch
 from repro.kernels.collectives.kernel import pack_bucket_kernel, unpack_bucket_kernel
 from repro.kernels.collectives.ops import staging_supported as ref_staging_supported
 from repro_torch.core.buckets import Bucket, LeafInfo
+from repro_torch.kernels import _build
 from repro_torch.kernels.collectives import kernel, ops, ref
 
 SIZES = (5, 128, 1, 300, 77, 1024)
@@ -124,8 +125,8 @@ def test_kernel_wrappers_take_cuda_tensors_only():
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No fallback: without a CUDA compiler the build fails loudly."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(kernel.shutil, "which", lambda _name: None)
-    monkeypatch.setattr(kernel, "build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel.build()
 

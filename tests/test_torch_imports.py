@@ -10,9 +10,25 @@ from pathlib import Path
 
 import pytest
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 PKG = SRC / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py"))
+# the serving slice's modules, which the checks below must reach
+SERVING = (
+    "repro_torch.configs.qwen3_1_7b",
+    "repro_torch.kernels._build",
+    "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.launch.serve",
+    "repro_torch.models.attention",
+    "repro_torch.models.common",
+    "repro_torch.models.transformer",
+    "repro_torch.obs.metrics",
+    "repro_torch.runtime.kvcache",
+    "repro_torch.runtime.serve_loop",
+)
 
 
 def _module_name(path: Path) -> str:
@@ -40,7 +56,14 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert res.stdout.splitlines()[0] == "0", res.stdout
 
 
-@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
+def test_serving_modules_are_checked():
+    assert set(SERVING) <= {_module_name(p) for p in SOURCES}
+
+
+@pytest.mark.parametrize("path", SOURCES + [ROOT / "chip_smoke.py",
+                                            ROOT / "tests" / "test_torch_cuda.py"],
+                         ids=lambda p: (str(p.relative_to(PKG))
+                                        if PKG in p.parents else p.name))
 def test_source_imports_no_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = []

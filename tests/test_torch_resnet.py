@@ -57,7 +57,7 @@ def test_loss_and_grads_match_reference(batch):
 
 def test_module_forward_is_the_functional_forward():
     cfg = make_smoke()
-    model = resnet.ResNet(cfg, resnet.init_params(cfg, seed=3))
+    model = resnet.ResNet(cfg, resnet.init_params(cfg, seed=3, device="cpu"))
     images = torch.randn(4, cfg.img_size, cfg.img_size, 3,
                          generator=torch.Generator().manual_seed(0))
     assert torch.equal(model(images),

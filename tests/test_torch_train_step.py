@@ -225,7 +225,7 @@ def test_cuda_requested_without_a_card_raises(group):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; nothing to refuse")
     cfg = make_smoke()
-    model = ResNet(cfg, init_params(cfg))
+    model = ResNet(cfg, init_params(cfg, device="cpu"))
     with pytest.raises(RuntimeError, match="cuda"):
         make_train_step(cfg, group, GradSyncConfig(), sgd(0.1), model=model)
 
