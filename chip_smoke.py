@@ -50,6 +50,31 @@ Phases, in order; any failure raises and exits non-zero:
   serve_cpu_vs_gpu  the qwen3 smoke config, the same weights, greedy,
               through both engines on the CPU (plain versions) and on the
               GPU (kernel): tokens equal, prefill logits close in f32.
+  wkv         Qwen3's weights freed first.  The WKV chunk kernel against
+              its plain version on the three tests/test_kernels.py shapes
+              (one with bf16 inputs), RWKV-6 7B's prefill chunk (B 4, C 32,
+              64 heads of 64), its decode step (C 1), a short prompt (C 7)
+              and the smoke head size (N 16): tolerance 5e-4 in f32, 5e-2
+              with bf16 inputs.  Then kernel and plain times at the prefill
+              and decode shapes (CUDA events; the kernel's device time per
+              launch from torch.profiler) beside the byte bound.
+  rwkv_serve  RWKV-6 7B at full width, bf16, tp=1, random weights from a
+              seeded generator on the card with the reference's constant
+              leaves perturbed: the same 8 prompts through the static
+              engine (RequestQueue, batch 4: 2 prefills), 32 new tokens
+              each.  WKV launches must be exactly 32 x ceil(S/32) a
+              prefill plus 32 a decode step; the continuous engine must
+              refuse the family.  Then in f32 at full width, one prompt at
+              B 1: every layer's block on the kernel path against the
+              plain path on the same input (1e-3), the last logits against
+              the plain path and prefill(S-2) + 2 decode steps against
+              prefill(S) (1e-3 and 2e-3, or the plain path's own B 1 vs
+              B 2 difference where that is larger: the random-weight model
+              is chaotic in f32).  Then report-only prefill and decode
+              times, tokens/s, peak memory and a profile as serve's.
+  rwkv_cpu_vs_gpu  the rwkv smoke config, the same weights, greedy
+              through Server.generate on the CPU (plain versions) and on
+              the GPU (kernel): tokens equal, prefill logits within 1e-4.
 
 The build compiles every kernel source at once (one nvcc each, in
 parallel).  Then it prints the ``{"kernels": [...]}`` line, the card's
@@ -58,8 +83,10 @@ name and power limit as nvidia-smi reports them, and last
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
+import gc
 import json
 import math
 import os
@@ -120,14 +147,16 @@ def phase_build() -> None:
 
     from repro_torch.kernels.collectives import kernel as staging
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rwkv6 import kernel as wkv
 
     def timed(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(timed, k.build) for k in (staging, flash)]
+    kernels = (staging, flash, wkv)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        futures = [pool.submit(timed, k.build) for k in kernels]
         built = [f.result() for f in futures]
     for lib, dt in built:
         log(f"[build] {lib.relative_to(ROOT)} in {dt:.1f} s")
@@ -513,6 +542,48 @@ def _results(handles, what: str) -> list:
     return out
 
 
+class DecodeLoopTimer:
+    """Wraps a server's serve hooks (a tool of this script): CUDA events
+    from each generate's first decode step's start to its last one's end,
+    the decode loop's time on the device's clock with no extra sync."""
+
+    def __init__(self, server):
+        self.server, self.api, self.loops = server, server.api, []
+
+        def prefill(*a, **kw):
+            self.loops.append([torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True), 0])
+            return self.api.prefill(*a, **kw)
+
+        def decode_step(*a):
+            loop = self.loops[-1]
+            if loop[2] == 0:
+                loop[0].record()
+            out = self.api.decode_step(*a)
+            loop[1].record()
+            loop[2] += 1
+            return out
+
+        server.api = dataclasses.replace(self.api, prefill=prefill,
+                                         decode_step=decode_step)
+
+    def close(self, steps: int) -> list:
+        """Restore the hooks; ms per decode step of each generate, each of
+        which must have run ``steps`` decode steps."""
+        self.server.api = self.api
+        torch.cuda.synchronize()
+        if any(n != steps for *_, n in self.loops):
+            raise AssertionError(f"decode steps per generate: "
+                                 f"{[n for *_, n in self.loops]}, expected {steps}")
+        return [a.elapsed_time(b) / n for a, b, n in self.loops]
+
+
+def tree_to(tree, device=None, dtype=None):
+    if isinstance(tree, dict):
+        return {n: tree_to(t, device, dtype) for n, t in tree.items()}
+    return tree.to(device=device, dtype=dtype)
+
+
 def phase_serve(smi: str) -> dict:
     import numpy as np
 
@@ -546,30 +617,17 @@ def phase_serve(smi: str) -> dict:
         return attention(q, k, v, **kw)
 
     generate, gen_ms = server.generate, []
-    api, loops = server.api, []        # per generate: [start, end, steps]
+    api = server.api
 
     def timed_generate(*a, **kw):
         torch.cuda.synchronize()
-        loops.append([torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True), 0])
         t = time.perf_counter()
         out = generate(*a, **kw)                 # ends in a host copy
         gen_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
-    def timed_decode_step(*a):
-        # CUDA events from the first decode step's start to the last one's
-        # end: the decode loop's time on the device's clock, no extra sync
-        loop = loops[-1]
-        if loop[2] == 0:
-            loop[0].record()
-        out = api.decode_step(*a)
-        loop[1].record()
-        loop[2] += 1
-        return out
-
     server.generate = timed_generate
-    server.api = dataclasses.replace(api, decode_step=timed_decode_step)
+    timer = DecodeLoopTimer(server)
     runs = {}
     flash.FLASH_LAUNCHES = 0
     tf.attn_lib.attention = capture
@@ -586,7 +644,7 @@ def phase_serve(smi: str) -> dict:
         runs["static"] = dict(wall_s=time.perf_counter() - t0, prefills=2,
                               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                               flash_launches=flash.FLASH_LAUNCHES)
-        server.api = api
+        decode_ms = timer.close(SERVE_MAX_NEW - 1)
 
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -633,8 +691,7 @@ def phase_serve(smi: str) -> dict:
     # logits of order 1 and report the difference.
     torch.backends.cuda.matmul.allow_tf32 = False
     toks = left_pad(prompts[:4]).cuda()
-    p32 = {n: (p.float() if not isinstance(p, dict) else
-               {m: w.float() for m, w in p.items()}) for n, p in params.items()}
+    p32 = tree_to(params, dtype=torch.float32)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     lf, _ = tf.prefill(p32, toks, dataclasses.replace(cfg32, use_flash=True))
     lc, _ = tf.prefill(p32, toks, dataclasses.replace(cfg32, use_flash=False))
@@ -659,9 +716,6 @@ def phase_serve(smi: str) -> dict:
     agree = float(np.mean([np.mean(a == b) for a, b in zip(static_out, cont_out)]))
     tokens = SERVE_REQUESTS * SERVE_MAX_NEW
     steps = len(chunk_ms) * 8
-    if any(n != SERVE_MAX_NEW - 1 for *_, n in loops):
-        raise AssertionError(f"decode steps per generate: {[n for *_, n in loops]}")
-    decode_ms = [a.elapsed_time(b) / n for a, b, n in loops]
     report = {
         "card": smi, "model": cfg.name, "params": n_params,
         "requests": SERVE_REQUESTS, "prompt_lens": [len(p) for p in prompts],
@@ -805,36 +859,38 @@ def bf16_witness(server, params, cfg, prompts, cont_out) -> dict:
     return out
 
 
-def phase_serve_profile(params, cfg) -> None:
+def phase_serve_profile(params, cfg, tag: str = "serve_profile") -> dict:
     """One static prefill (B 4, S 512) and three decode steps of the
-    full-width model: their wall time without the profiler (host clock
-    around synchronized work, median of 3), then one run of each under
-    ``torch.profiler`` for kernel time, launches and the kernels that take
-    the most.  The device's idle share is 1 - kernel time / the
-    unprofiled wall time (the profiler slows the host, not the kernels).
-    Runs after the main path's launch counts were read."""
+    full-width model, through its family's serve hooks: their wall time
+    without the profiler (host clock around synchronized work, median of
+    3), then one run of each under ``torch.profiler`` for kernel time,
+    launches and the kernels that take the most.  The device's idle share
+    is 1 - kernel time / the unprofiled wall time (the profiler slows the
+    host, not the kernels).  Runs after the main path's launch counts were
+    read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import transformer as tf
-    from repro_torch.runtime import sharded_argmax
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime import Server, sharded_argmax
 
+    server = Server(cfg, make_smoke_mesh(1, 1), params, max_len=SERVE_MAX_LEN)
+    api = server.api
     gen = torch.Generator().manual_seed(3)
     toks = torch.randint(1, cfg.vocab, (4, 512), generator=gen,
                          dtype=torch.int32).cuda()
-    logits, cache = tf.prefill(params, toks, cfg)     # warm-up
-    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 512))
-             for n, c in cache.items()}
+    logits, cache = api.prefill(params, toks, cfg)     # warm-up
+    cache = server._pad_cache(cache, 512)              # a KV cache grows to 1024
     tok = sharded_argmax(logits.float(), 1)
     torch.cuda.synchronize()
 
     def prefill():
-        tf.prefill(params, toks, cfg)
+        api.prefill(params, toks, cfg)
 
     def decode():
         nonlocal tok
         for pos in range(512, 515):
-            lg, _ = tf.decode_step(params, cache, tok, pos, cfg)
+            lg, _ = api.decode_step(params, cache, tok, pos, cfg)
             tok = sharded_argmax(lg.float(), 1)
 
     def wall_ms(fn) -> float:
@@ -846,7 +902,8 @@ def phase_serve_profile(params, cfg) -> None:
 
     out = {}
     for name, fn in (("prefill B4 S512", prefill),
-                     ("decode B4, 3 steps at 512-514, cache 1024", decode)):
+                     (f"decode B4, 3 steps at 512-514, max_len {SERVE_MAX_LEN}",
+                      decode)):
         plain_ms = sorted(wall_ms(fn) for _ in range(3))[1]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prof_ms = wall_ms(fn)
@@ -867,7 +924,8 @@ def phase_serve_profile(params, cfg) -> None:
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "ms": round(_device_ms(e, self_only=True), 3)}
                             for e in top]}
-    log("[serve_profile] " + json.dumps(out))
+    log(f"[{tag}] " + json.dumps(out))
+    return out
 
 
 def phase_serve_cpu_vs_gpu() -> None:
@@ -886,8 +944,7 @@ def phase_serve_cpu_vs_gpu() -> None:
     toks = left_pad(prompts)
     got = {}
     for device in ("cpu", "cuda"):
-        p = {n: (w.to(device) if not isinstance(w, dict) else
-                 {m: x.to(device) for m, x in w.items()}) for n, w in params.items()}
+        p = tree_to(params, device)
         server = Server(cfg, make_smoke_mesh(1, 1), p, max_len=64)
         eng = ContinuousScheduler(server, slots=4, block_size=16, chunk=4)
         logits, _ = tf.prefill(p, toks.to(device), cfg)
@@ -905,6 +962,310 @@ def phase_serve_cpu_vs_gpu() -> None:
     log(f"[serve_cpu_vs_gpu] {cfg.name}: static and continuous greedy tokens "
         f"equal on CPU and GPU ({len(prompts)} prompts x 8); prefill logits "
         f"max abs diff {diff} (rtol = atol = 1e-4, f32)")
+
+
+# ------------------------------------------------------------- rwkv serving
+WKV_SHAPES = (   # (B, C, H, N, dtype of r, k, v)
+    (2, 32, 4, 64, torch.float32),      # tests/test_kernels.py
+    (1, 64, 2, 64, torch.float32),
+    (2, 16, 8, 64, torch.bfloat16),
+    (4, 32, 64, 64, torch.float32),     # RWKV-6 7B prefill chunk (static, B 4)
+    (4, 1, 64, 64, torch.float32),      # its decode step
+    (1, 7, 64, 64, torch.float32),      # a prompt shorter than the chunk
+    (2, 16, 4, 16, torch.float32),      # the smoke config's head size
+)
+WKV_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}   # test_kernels.py:80
+WKV_TIMED = {"prefill": (4, 32, 64, 64), "decode": (4, 1, 64, 64)}
+WKV_LIBRARY = "none: no single PyTorch call computes a WKV chunk"
+
+
+def wkv_inputs(B, C, H, N, dtype, seed):
+    """The kernel's rows (BH, C, N), drawn as tests/test_kernels.py draws
+    them, with u (H, N) and the state (BH, N, N)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    r, k, v = (normal(B * H, C, N).to(dtype) for _ in range(3))
+    logw = -torch.exp(normal(B * H, C, N) * 0.5 - 2.0)
+    return r, k, v, logw, normal(H, N) * 0.1, normal(B * H, N, N) * 0.1
+
+
+def wkv_bound(r, k, v, logw, u, state):
+    """Least time for one chunk on this card: every input read once and y,
+    s1 written once (f32) against the memory rate; the chunk's products
+    (the inter-chunk read and the state update, 2·C·N² each, the scores
+    and their product with v, 2·C²·N each, dense as the TPU kernel
+    computes them) against the f32 peak."""
+    BH, C, N = r.shape
+    nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, logw, u, state))
+              + (BH * C * N + BH * N * N) * 4)
+    flops = BH * (4 * C * N * N + 4 * C * C * N)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def phase_wkv() -> dict:
+    """The WKV kernel against its plain version on the card, then its time
+    (CUDA events, back to back, and the device's own time per launch from
+    torch.profiler) beside the plain version's and the bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rwkv6 import kernel, ref
+
+    errs = {}
+    for i, (B, C, H, N, dt) in enumerate(WKV_SHAPES):
+        ins = wkv_inputs(B, C, H, N, dt, seed=i)
+        y, s1 = kernel.wkv_chunk_kernel(*ins)
+        y_want, s_want = ref.wkv_chunk_rows_ref(*ins)
+        torch.cuda.synchronize()
+        what = f"B{B} C{C} H{H} N{N} {dt}"
+        tol = WKV_TOL[dt]
+        err = max((y - y_want).abs().max().item(), (s1 - s_want).abs().max().item())
+        if not (torch.allclose(y, y_want, atol=tol, rtol=tol)
+                and torch.allclose(s1, s_want, atol=tol, rtol=tol)):
+            raise AssertionError(f"wkv {what}: kernel vs plain max abs err {err} "
+                                 f"beyond atol=rtol={tol}")
+        errs[(B, C, H, N, dt)] = err
+        log(f"[wkv] {what}: max abs err {err} (tol {tol})")
+    rows = {}
+    for name, (B, C, H, N) in WKV_TIMED.items():
+        ins = wkv_inputs(B, C, H, N, torch.float32, seed=100)
+        bound, by, nbytes, flops = wkv_bound(*ins)
+        reps = 50
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kernel.wkv_chunk_kernel(*ins)
+            torch.cuda.synchronize()
+        device_ms = sum(_device_ms(e, self_only=True) for e in prof.key_averages()
+                        if getattr(e, "device_type", None) == DeviceType.CUDA
+                        and "wkv_chunk_kernel" in e.key) / reps
+        rows[name] = dict(
+            shape=f"B{B} C{C} H{H} N{N} f32",
+            max_abs_err=errs[(B, C, H, N, torch.float32)],
+            ms=cuda_ms(lambda: kernel.wkv_chunk_kernel(*ins)),
+            device_ms_per_launch=device_ms,
+            plain_ms=cuda_ms(lambda: ref.wkv_chunk_rows_ref(*ins)),
+            library_ms=None, library=WKV_LIBRARY,
+            bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+        log(f"[wkv] {name} shape: " + json.dumps(rows[name]))
+    return rows
+
+
+@contextlib.contextmanager
+def plain_wkv():
+    """Route the model's WKV chunks to the plain version on the card (a
+    tool of this script: the package never sends CUDA tensors there)."""
+    from repro_torch.kernels.rwkv6 import ops, ref
+
+    rows = ops.wkv_chunk_rows
+    ops.wkv_chunk_rows = ref.wkv_chunk_rows_ref
+    try:
+        yield
+    finally:
+        ops.wkv_chunk_rows = rows
+
+
+def check_rwkv_f32(params, cfg, prompt) -> dict:
+    """Full width in f32 (TF32 off), one unpadded prompt at B 1.
+
+    With random weights this model is chaotic in f32: a last-bit change
+    grows about tenfold every four layers, so the plain path against
+    itself at B 1 and B 2 (other GEMM shapes, the same math) already
+    differs by more than 1e-3 in the last logits.  Hence:
+    - every layer's block on the kernel path is held to rtol = atol =
+      1e-3 against the same block with the plain WKV on the same input
+      (teacher-forced: its output and its state);
+    - the kernel path's last-position logits against the plain path's
+      within rtol = atol = 1e-3, or within that B 1 / B 2 difference of
+      the plain path when it is larger;
+    - prefill of S - 2 tokens plus 2 decode steps against a prefill of S
+      (the state hand-off), within 2e-3 or that difference."""
+    from repro_torch.kernels.rwkv6 import kernel as wkv
+    from repro_torch.models import rwkv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_to(params, dtype=torch.float32)
+    seq = torch.as_tensor(prompt, dtype=torch.int32, device="cuda")[None]
+    S = seq.shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    before = wkv.WKV_LAUNCHES
+    with plain_wkv():
+        plain, _ = rwkv.prefill(p32, seq, cfg32)
+        plain2, _ = rwkv.prefill(p32, seq.repeat(2, 1), cfg32)
+    if wkv.WKV_LAUNCHES != before:
+        raise AssertionError("the plain path launched the kernel")
+    noise = (plain - plain2[:1]).abs().max().item()
+
+    block, layer_diffs = rwkv.block, []
+
+    def forced(p, x, cfg, state=None, lasts=None):
+        out = block(p, x, cfg, state, lasts)
+        with plain_wkv():
+            want = block(p, x, cfg, state, lasts)
+        for got, ref, what in ((out[0], want[0], "output"), (out[1], want[1], "state")):
+            if not torch.allclose(got, ref, rtol=1e-3, atol=1e-3):
+                raise AssertionError(f"f32 layer {len(layer_diffs)} {what}: kernel "
+                                     f"vs plain differ by {(got - ref).abs().max().item()}")
+        layer_diffs.append(max((out[i] - want[i]).abs().max().item() for i in (0, 1)))
+        return out
+
+    rwkv.block = forced
+    try:
+        kern, _ = rwkv.prefill(p32, seq, cfg32)
+    finally:
+        rwkv.block = block
+    launched = wkv.WKV_LAUNCHES - before
+    if launched != cfg.n_layers * -(-S // cfg.chunk):
+        raise AssertionError(f"f32 prefill: {launched} kernel launches")
+    kern_vs_plain = (kern - plain).abs().max().item()
+    if not (torch.allclose(kern, plain, rtol=1e-3, atol=1e-3) or kern_vs_plain <= noise):
+        raise AssertionError(f"f32 prefill: kernel vs plain logits differ by "
+                             f"{kern_vs_plain} (plain B1 vs B2: {noise})")
+    _, state = rwkv.prefill(p32, seq[:, :S - 2], cfg32)
+    _, state = rwkv.decode_step(p32, state, seq[:, S - 2], S - 2, cfg32)
+    inc, _ = rwkv.decode_step(p32, state, seq[:, S - 1], S - 1, cfg32)
+    torch.cuda.synchronize()
+    inc_vs_full = (inc - kern).abs().max().item()
+    if not (torch.allclose(inc, kern, rtol=2e-3, atol=2e-3) or inc_vs_full <= noise):
+        raise AssertionError(f"f32: prefill(S-2) + 2 decode steps vs prefill(S) "
+                             f"logits differ by {inc_vs_full} (plain B1 vs B2: {noise})")
+    out = dict(prompt_len=S, layer_kernel_vs_plain_max_abs_diff=layer_diffs,
+               kernel_vs_plain_logits_max_abs_diff=kern_vs_plain,
+               plain_B1_vs_B2_logits_max_abs_diff=noise,
+               decode_vs_prefill_logits_max_abs_diff=inc_vs_full,
+               logits_max_abs=plain.abs().max().item(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("[rwkv_serve_f32] " + json.dumps(out))
+    return out
+
+
+def phase_rwkv_serve(smi: str) -> dict:
+    """RWKV-6 7B at full width, bf16, tp=1, from seeded random weights on
+    the card with the reference's constant leaves perturbed: the 8 serve
+    prompts through the static engine (RequestQueue, batch 4: 2
+    prefills), 32 new tokens each.  The WKV launch count must be exactly
+    32·ceil(S/32) a prefill and 32 a decode step; the continuous engine
+    must refuse the family.  Then the f32 checks at full width
+    (``check_rwkv_f32``), then report-only times and a profile."""
+    from repro_torch.configs.rwkv6_7b import make_config
+    from repro_torch.kernels.rwkv6 import kernel as wkv
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import rwkv
+    from repro_torch.runtime import ContinuousScheduler, RequestQueue, Server
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = make_config()
+    t0 = time.perf_counter()
+    params = rwkv.perturb_constant_leaves(rwkv.init_params(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in flatten_with_names(params)[0])
+    log(f"[rwkv_serve] {cfg.name}: {n_params} params, {cfg.dtype}, chunk "
+        f"{cfg.chunk}, init on the card in {time.perf_counter() - t0:.1f} s")
+    server = Server(cfg, make_smoke_mesh(1, 1), params, max_len=SERVE_MAX_LEN)
+    prompts = serve_prompts(cfg.vocab)
+
+    timer = DecodeLoopTimer(server)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wkv.WKV_LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        rq = RequestQueue(server, batch=4)
+        handles = [rq.submit(p, SERVE_MAX_NEW) for p in prompts]
+        done = 0
+        while done < len(prompts):
+            done += rq.serve_once()
+        _results(handles, "rwkv static")
+        wall_s = time.perf_counter() - t0
+        launches = wkv.WKV_LAUNCHES
+    finally:
+        server.api = timer.api
+    decode_ms = timer.close(SERVE_MAX_NEW - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # RequestQueue serves the prompts in order, 4 a batch, left-padded to
+    # the batch's longest
+    lens = [max(len(p) for p in prompts[i:i + 4]) for i in range(0, len(prompts), 4)]
+    per_prefill = [cfg.n_layers * -(-S // cfg.chunk) for S in lens]
+    per_step = cfg.n_layers
+    expected = sum(per_prefill) + len(lens) * (SERVE_MAX_NEW - 1) * per_step
+    if launches != expected:
+        raise AssertionError(f"{launches} WKV launches, expected {expected} "
+                             f"({per_prefill} for the prefills, {per_step} a "
+                             f"decode step)")
+    if len(decode_ms) != len(lens):
+        raise AssertionError(f"{len(decode_ms)} generates timed, expected {len(lens)}")
+    try:
+        ContinuousScheduler(server, slots=8, block_size=128, chunk=8)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("ContinuousScheduler accepted the rwkv family")
+
+    f32 = check_rwkv_f32(params, cfg, prompts[0])
+    torch.cuda.empty_cache()
+
+    # report only: times of the pieces, after the counted run
+    toks = left_pad(prompts[:4]).cuda()
+    toks = torch.nn.functional.pad(toks, (512 - toks.shape[1], 0))   # S = 512
+    prefill_ms = cuda_ms(lambda: rwkv.prefill(params, toks, cfg), reps=3, warmup=1)
+    tokens = SERVE_REQUESTS * SERVE_MAX_NEW
+    report = {
+        "card": smi, "model": cfg.name, "params": n_params,
+        "requests": SERVE_REQUESTS, "prompt_lens": [len(p) for p in prompts],
+        "max_new": SERVE_MAX_NEW, "engine": "static, batch 4",
+        "wkv_launches": launches, "wkv_launches_per_prefill": per_prefill,
+        "wkv_launches_per_decode_step": per_step,
+        "continuous_refused": refused, "f32": f32,
+        "wall_s": wall_s, "tokens_per_s": tokens / wall_s, "peak_mem_gb": peak_gb,
+        "prefill_ms_B4_S512": prefill_ms,
+        "decode_ms_per_token_step_per_generate": decode_ms,
+        "decode_ms_per_token_step": sum(decode_ms) / len(decode_ms),
+    }
+    log("[rwkv_serve] " + json.dumps(report))
+    report["profile"] = phase_serve_profile(params, cfg, tag="rwkv_serve_profile")
+    return {"launches": launches, "per_prefill": per_prefill, "per_step": per_step,
+            "report": report}
+
+
+def phase_rwkv_cpu_vs_gpu() -> None:
+    """The rwkv smoke config, the same weights, greedy through
+    ``Server.generate`` on the CPU (plain versions) and on the GPU (the
+    kernel): tokens equal, f32 prefill logits within 1e-4."""
+    import numpy as np
+
+    from repro_torch.configs.rwkv6_7b import make_smoke
+    from repro_torch.kernels.rwkv6 import kernel as wkv
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import rwkv
+    from repro_torch.runtime import Server
+
+    cfg = make_smoke()
+    params = rwkv.perturb_constant_leaves(rwkv.init_params(cfg, seed=0, device="cpu"))
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab, (3, 23)).astype(np.int32)
+    got = {}
+    for device in ("cpu", "cuda"):
+        p = tree_to(params, device)
+        before = wkv.WKV_LAUNCHES
+        toks = Server(cfg, make_smoke_mesh(1, 1), p, max_len=64).generate(prompts, 8)
+        logits, _ = rwkv.prefill(p, torch.as_tensor(prompts, device=device), cfg)
+        got[device] = (toks, logits.cpu(), wkv.WKV_LAUNCHES - before)
+    (t_cpu, l_cpu, n_cpu), (t_gpu, l_gpu, n_gpu) = got["cpu"], got["cuda"]
+    # 23 tokens in chunks of 16: 2 a layer per prefill, 1 a decode step
+    if n_cpu != 0 or n_gpu != cfg.n_layers * (2 + 7 + 2):
+        raise AssertionError(f"WKV launches cpu {n_cpu} gpu {n_gpu}")
+    if not np.array_equal(t_cpu, t_gpu):
+        raise AssertionError(f"rwkv tokens differ: cpu {t_cpu} gpu {t_gpu}")
+    diff = (l_cpu - l_gpu).abs().max().item()
+    if not torch.allclose(l_cpu, l_gpu, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"rwkv prefill logits cpu vs gpu differ by {diff}")
+    log(f"[rwkv_cpu_vs_gpu] {cfg.name}: greedy tokens equal on CPU and GPU "
+        f"({prompts.shape[0]} prompts x 8); prefill logits max abs diff {diff} "
+        f"(rtol = atol = 1e-4, f32); {n_gpu} WKV launches on the GPU")
 
 
 def main() -> int:
@@ -937,6 +1298,12 @@ def main() -> int:
     flash_rows = phase_flash()
     serve = phase_serve(smi)
     phase_serve_cpu_vs_gpu()
+    gc.collect()                     # Qwen3's weights go before RWKV's
+    torch.cuda.empty_cache()
+    log(f"[env] {torch.cuda.memory_allocated() / 1e9} GB held before RWKV")
+    wkv_rows = phase_wkv()
+    rwkv_serve = phase_rwkv_serve(smi)
+    phase_rwkv_cpu_vs_gpu()
 
     src = "src/repro_torch/kernels/collectives/csrc/staging.cu"
     replaces = {"pack": "src/repro/kernels/collectives/kernel.py:76",
@@ -960,6 +1327,19 @@ def main() -> int:
         "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
         "bound_by": fr["bound_by"], "library_ms": fr["library_ms"],
         "shape": fr["shape"], "continuous_shape": flash_rows["continuous"]})
+    wr = wkv_rows["prefill"]
+    kernels.append({
+        "name": "wkv_chunk_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:59",
+        "launches": rwkv_serve["launches"],
+        "launches_per_prefill": rwkv_serve["per_prefill"],
+        "launches_per_decode_step": rwkv_serve["per_step"],
+        "max_abs_err": wr["max_abs_err"], "ms": wr["ms"],
+        "device_ms_per_launch": wr["device_ms_per_launch"],
+        "plain_ms": wr["plain_ms"], "bound_ms": wr["bound_ms"],
+        "bound_by": wr["bound_by"], "library_ms": None, "library": WKV_LIBRARY,
+        "shape": wr["shape"], "decode_shape": wkv_rows["decode"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     faulthandler.cancel_dump_traceback_later()

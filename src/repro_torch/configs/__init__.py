@@ -11,8 +11,9 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.qwen3_1_7b import ARCH as _qwen3
 from repro_torch.configs.resnet50_cifar import ARCH as _resnet
+from repro_torch.configs.rwkv6_7b import ARCH as _rwkv6
 
-ARCHS = {a.arch_id: a for a in (_qwen3, _resnet)}
+ARCHS = {a.arch_id: a for a in (_qwen3, _resnet, _rwkv6)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

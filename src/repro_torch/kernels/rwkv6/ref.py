@@ -1,0 +1,63 @@
+"""Plain-torch versions of the RWKV-6 WKV chunk
+(``repro/kernels/rwkv6/kernel.py::_wkv_kernel`` and ``ref.py``).
+
+``wkv_chunk_ref`` is the chunk math of the TPU kernel, with its factored
+exponentials (``r·exp(Lprev)`` times ``k·exp(−L)``, not
+``exp(Lprev − L)``), on the TPU kernel's layout; ``wkv_chunk_rows_ref``
+takes the CUDA kernel's (u per head): what ``ops`` runs on CPU tensors
+and what ``chip_smoke.py`` holds the CUDA kernel against on the card.
+``wkv_ref`` is the step-by-step recurrence, a second oracle for the
+tests.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """r, k, v, logw: (BH, C, N); u: (BH, 1, N); state: (BH, N, N).
+    Returns (y (BH, C, N) f32, new state (BH, N, N) f32); f32 math."""
+    r, k, v, lw, u, s0 = (t.float() for t in (r, k, v, logw, u, state))
+    C = r.shape[1]
+    L = torch.cumsum(lw, dim=1)
+    Lprev = L - lw
+    r_dec = r * torch.exp(Lprev)
+    y = r_dec @ s0                                        # inter-chunk read
+    att = r_dec @ (k * torch.exp(-L)).transpose(1, 2)     # intra-chunk scores
+    mask = torch.ones(C, C, dtype=torch.bool, device=r.device).tril(-1)
+    att = torch.where(mask, att, 0.0)
+    diag = (r * (u * k)).sum(dim=2)                       # bonus
+    y = y + att @ v
+    y = y + diag[:, :, None] * v
+    wc = L[:, C - 1]                                      # (BH, N)
+    k_dec = k * torch.exp(wc[:, None, :] - L)
+    s1 = s0 * torch.exp(wc)[:, :, None] + k_dec.transpose(1, 2) @ v
+    return y, s1
+
+
+def wkv_chunk_rows_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """``wkv_chunk_ref`` with u given per head, (H, N), as the CUDA kernel
+    takes it: row bh = b·H + h reads u[h]."""
+    BH, _, N = r.shape
+    H = u.shape[0]
+    return wkv_chunk_ref(r, k, v, logw, u[None].expand(BH // H, H, N).reshape(BH, 1, N),
+                         state)
+
+
+def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """Step-by-step recurrence.  r, k, v, logw: (BH, C, N); u: (BH, 1, N);
+    state: (BH, N, N).  Returns (y (BH, C, N) f32, final state)."""
+    r, k, v, lw = (t.float() for t in (r, k, v, logw))
+    u = u.float()[:, 0]
+    S = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, lwt = r[:, t], k[:, t], v[:, t], lw[:, t]
+        # y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+        kv = kt[:, :, None] * vt[:, None, :]
+        ys.append(torch.einsum("bn,bnm->bm", rt, S + u[:, :, None] * kv))
+        S = S * torch.exp(lwt)[:, :, None] + kv
+    return torch.stack(ys, dim=1), S

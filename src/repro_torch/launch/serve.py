@@ -9,7 +9,10 @@ Runs on CUDA unless ``--device cpu``.  Without ``--smoke`` the arch's
 full config is served from random weights made from a seeded generator
 on the device.  Greedy decoding (temperature 0) and the continuous
 engine are the defaults; ``--engine static`` runs the ``RequestQueue``
-batcher.
+batcher, and so does a family without a paged decode hook (rwkv):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --engine static --max-len 1024
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4,
                     help="static batcher width / continuous in-flight slots")
     ap.add_argument("--engine", choices=("continuous", "static"),
-                    default="continuous")
+                    default="continuous",
+                    help="continuous falls back to static for families "
+                         "without a paged decode hook")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged KV-cache block size (must divide max-len)")
     ap.add_argument("--max-len", type=int, default=64)
@@ -63,8 +68,14 @@ def main(argv=None):
                             size=rng.integers(4, 12), dtype=np.int32)
                for _ in range(args.requests)]
 
+    use_continuous = (args.engine == "continuous"
+                      and api.decode_paged is not None)
+    if args.engine == "continuous" and not use_continuous:
+        print(f"[serve] {cfg.name}'s family has no paged decode hook; "
+              f"falling back to the static batcher")
+
     t0 = time.perf_counter()
-    if args.engine == "continuous":
+    if use_continuous:
         eng = ContinuousScheduler(
             server, slots=args.batch, block_size=args.block_size,
             chunk=args.chunk)
@@ -85,7 +96,7 @@ def main(argv=None):
         if isinstance(out, Exception):
             raise out
         print(f"req {i}: {out.tolist()}")
-    print(f"[serve] engine={args.engine} "
+    print(f"[serve] engine={'continuous' if use_continuous else 'static'} "
           f"{args.requests} requests in {dt:.2f}s "
           f"({args.requests * args.max_new / dt:.1f} tok/s)")
 

@@ -1,7 +1,7 @@
 """Uniform model-family API (``repro/models/registry.py``): each family
 exposes the same hooks so the launchers and loops are family-agnostic.
-Ported so far: ``resnet`` (training) and ``transformer`` (serving at
-tp=1).  A hook a family does not have yet is None."""
+Ported so far: ``resnet`` (training), ``transformer`` and ``rwkv``
+(serving at tp=1).  A hook a family does not have yet is None."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +10,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.models import resnet as resnet_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import transformer as tf_lib
 
 
@@ -29,6 +30,9 @@ class ModelAPI:
     make_decode_state: Optional[Callable[..., Any]] = None
     # paged (block-table) decode for the continuous-batching engine
     decode_paged: Optional[Callable[..., Any]] = None
+    # cache leaves laid out (L, B, S, ...) that the static batcher grows
+    # from the prompt length to max_len; recurrent state is not listed
+    seq_cache_leaves: tuple[str, ...] = ()
 
 
 def _tf_make_state(cfg, batch, max_len, device="cuda"):
@@ -36,6 +40,10 @@ def _tf_make_state(cfg, batch, max_len, device="cuda"):
     if getattr(cfg, "swa_window", None):
         max_len = min(max_len, cfg.swa_window)
     return tf_lib.make_cache(cfg, batch, max_len, device)
+
+
+def _rwkv_make_state(cfg, batch, max_len, device="cuda"):
+    return rwkv_lib.make_state(cfg, batch, device)
 
 
 FAMILIES: dict[str, ModelAPI] = {
@@ -47,6 +55,15 @@ FAMILIES: dict[str, ModelAPI] = {
         decode_step=tf_lib.decode_step,
         make_decode_state=_tf_make_state,
         decode_paged=tf_lib.decode_step_paged,
+        seq_cache_leaves=("k", "v"),
+    ),
+    "rwkv": ModelAPI(
+        family="rwkv",
+        init=rwkv_lib.init_params,
+        in_scan_names=rwkv_lib.in_scan_param_names,
+        prefill=rwkv_lib.prefill,
+        decode_step=rwkv_lib.decode_step,
+        make_decode_state=_rwkv_make_state,
     ),
     "resnet": ModelAPI(
         family="resnet",
@@ -62,6 +79,8 @@ FAMILIES: dict[str, ModelAPI] = {
 def family_of(cfg) -> ModelAPI:
     if isinstance(cfg, tf_lib.TransformerConfig):
         return FAMILIES["transformer"]
+    if isinstance(cfg, rwkv_lib.RWKVConfig):
+        return FAMILIES["rwkv"]
     if isinstance(cfg, resnet_lib.ResNetConfig):
         return FAMILIES["resnet"]
     raise TypeError(f"no ported model family for config type {type(cfg)}")

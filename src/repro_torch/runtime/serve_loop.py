@@ -163,11 +163,14 @@ class Server:
                 f"rank only (ROADMAP queue 1 item 11)")
 
     def _pad_cache(self, cache: dict, prompt_len: int) -> dict:
-        """Grow the prefill cache (seq dim = prompt_len) to max_len slots."""
+        """Grow the family's sequence-laid cache leaves (dim 2 =
+        prompt_len) to max_len slots; every other leaf, such as a
+        recurrent state, passes through untouched."""
         pad_n = self.max_len - prompt_len
         if pad_n <= 0:
             return cache
-        return {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad_n))
+        return {n: (torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad_n))
+                    if n in self.api.seq_cache_leaves else c)
                 for n, c in cache.items()}
 
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:

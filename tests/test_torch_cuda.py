@@ -1,4 +1,4 @@
-"""The serving slice's CUDA kernel and engines on the card.
+"""The serving slices' CUDA kernels and engines on the card.
 
 This module imports neither ``jax`` nor ``repro``, so it runs on a
 machine with a GPU and no JAX; there ``tests/conftest.py`` (which imports
@@ -7,7 +7,7 @@ JAX) is left out:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Without a card every case skips.  ``chip_smoke.py`` checks the same
-kernel at the full-width shapes on every run.
+kernels at the full-width shapes on every run.
 """
 import dataclasses
 
@@ -16,8 +16,13 @@ import pytest
 import torch
 
 from repro_torch.configs.qwen3_1_7b import make_smoke as qwen3_smoke
+from repro_torch.configs.rwkv6_7b import make_smoke as rwkv_smoke
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.launch.mesh import make_smoke_mesh
+from repro_torch.models import rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.runtime import ContinuousScheduler, Server
 
@@ -75,6 +80,62 @@ def test_cuda_engines_match_cpu(cuda):
         assert launched == (0 if dev == "cpu" else 2 * cfg.n_layers * len(prompts))
     for a, b in zip(outs["cpu"][0] + outs["cpu"][1], outs["cuda"][0] + outs["cuda"][1]):
         np.testing.assert_array_equal(b, a)
+
+
+WKV_TOL = {"float32": 5e-4, "bfloat16": 5e-2}    # tests/test_kernels.py:80
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,H,N,dtype", [
+    (2, 32, 4, 64, "float32"),     # tests/test_kernels.py
+    (1, 64, 2, 64, "float32"),
+    (2, 16, 8, 64, "bfloat16"),
+    (4, 32, 64, 64, "float32"),    # RWKV-6 7B prefill chunk
+    (4, 1, 64, 64, "float32"),     # its decode step
+    (1, 7, 64, 64, "float32"),     # a short prompt
+    (2, 16, 4, 16, "float32"),     # the smoke config
+])
+def test_cuda_wkv_kernel_matches_plain(cuda, B, C, H, N, dtype):
+    rng = np.random.default_rng(3)
+
+    def normal(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32).to(cuda)
+
+    r, k, v = (normal(B, C, H, N).to(getattr(torch, dtype)) for _ in range(3))
+    logw = -torch.exp(normal(B, C, H, N) * 0.5 - 2.0)
+    u, state = normal(H, N, scale=0.1), normal(B, H, N, N, scale=0.1)
+    before = wkv_kernel.WKV_LAUNCHES
+    y, s1 = wkv_ops.wkv_chunk(r, k, v, logw, u, state)
+    torch.cuda.synchronize()
+    assert wkv_kernel.WKV_LAUNCHES == before + 1
+
+    def rows(t):
+        return t.transpose(1, 2).reshape(B * H, C, N)
+
+    y_want, s_want = wkv_ref.wkv_chunk_rows_ref(
+        rows(r), rows(k), rows(v), rows(logw), u, state.reshape(B * H, N, N))
+    tol = WKV_TOL[dtype]
+    torch.testing.assert_close(rows(y), y_want, atol=tol, rtol=tol)
+    torch.testing.assert_close(s1.reshape(B * H, N, N), s_want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_static_engine_matches_cpu(cuda):
+    """The rwkv smoke config with the WKV kernel on the card gives the CPU
+    run's greedy tokens through the static engine."""
+    cfg = rwkv_smoke()
+    params = rwkv.perturb_constant_leaves(rwkv.init_params(cfg, seed=0, device="cpu"))
+    prompts = np.random.default_rng(11).integers(1, cfg.vocab, (3, 23)).astype(np.int32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        srv = Server(cfg, make_smoke_mesh(1, 1), _to(params, dev), max_len=64)
+        before = wkv_kernel.WKV_LAUNCHES
+        outs[dev] = srv.generate(prompts, 6)
+        launched = wkv_kernel.WKV_LAUNCHES - before
+        # 23 tokens in chunks of 16: 2 a layer, then 1 a layer per decode step
+        assert launched == (0 if dev == "cpu" else cfg.n_layers * (2 + 5))
+    np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
 
 
 def _to(tree, device):

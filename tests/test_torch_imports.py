@@ -14,16 +14,21 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PKG = SRC / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py"))
-# the serving slice's modules, which the checks below must reach
+# the serving slices' modules, which the checks below must reach
 SERVING = (
     "repro_torch.configs.qwen3_1_7b",
+    "repro_torch.configs.rwkv6_7b",
     "repro_torch.kernels._build",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.rwkv6.kernel",
+    "repro_torch.kernels.rwkv6.ops",
+    "repro_torch.kernels.rwkv6.ref",
     "repro_torch.launch.serve",
     "repro_torch.models.attention",
     "repro_torch.models.common",
+    "repro_torch.models.rwkv",
     "repro_torch.models.transformer",
     "repro_torch.obs.metrics",
     "repro_torch.runtime.kvcache",

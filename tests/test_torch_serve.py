@@ -20,13 +20,17 @@ import pytest
 import torch
 
 from repro.configs.qwen3_1_7b import make_smoke as ref_qwen3_smoke
+from repro.configs.rwkv6_7b import make_smoke as ref_rwkv_smoke
+from repro.models import rwkv as ref_rwkv
 from repro.models import transformer as ref_tf
 from repro.runtime import RequestQueue as RefRequestQueue
 from repro.runtime import Server as RefServer
 from repro.utils.trees import flatten_with_names as ref_flatten
 from repro_torch.configs.qwen3_1_7b import make_smoke as qwen3_smoke
+from repro_torch.configs.rwkv6_7b import make_smoke as rwkv_smoke
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch.mesh import make_smoke_mesh
+from repro_torch.models import rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.obs import MetricsRegistry
 from repro_torch.runtime import (
@@ -41,6 +45,7 @@ from repro_torch.runtime import (
 from repro_torch.runtime.kvcache import SCRATCH_BLOCK, blocks_for
 from repro_torch.runtime.serve_loop import draw_generator
 from repro_torch.utils.convert import params_from_numpy
+from repro_torch.utils.trees import flatten_with_names
 
 MESH = make_smoke_mesh(1, 1)
 
@@ -71,6 +76,23 @@ def qwen3(smoke_mesh):
     cfg = dataclasses.replace(qwen3_smoke(), use_flash=True)
     ref_srv, srv = _pair(ref_qwen3_smoke(), cfg, smoke_mesh, max_len=64)
     return cfg, ref_srv, srv
+
+
+@pytest.fixture(scope="module")
+def rwkv6(smoke_mesh):
+    """The rwkv smoke config on both sides, its constant leaves perturbed
+    (``models/rwkv.py::perturb_constant_leaves``) before the JAX side gets
+    the same values."""
+    params = ref_rwkv.init_params(jax.random.PRNGKey(0), ref_rwkv_smoke())
+    named, treedef = ref_flatten(params)
+    tree = rwkv.perturb_constant_leaves(
+        params_from_numpy({n: np.asarray(p) for n, p in named}))
+    port = dict(flatten_with_names(tree)[0])
+    jparams = jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(port[n].numpy()) for n, _ in named])
+    cfg = rwkv_smoke()
+    return (cfg, RefServer(ref_rwkv_smoke(), smoke_mesh, jparams, max_len=64),
+            Server(cfg, MESH, tree, max_len=64))
 
 
 def _prompts(n, vocab, seed=0):
@@ -173,6 +195,52 @@ def test_server_refuses_more_than_one_rank(setup):
     cfg, _, srv, _ = setup
     with pytest.raises(NotImplementedError, match="one rank"):
         Server(cfg, make_smoke_mesh(2, 1), srv.params)
+
+
+# Prompt lengths of the rwkv tests stay off H (4) and d_model (64): the
+# reference's ``_pad_cache`` pads every cache leaf whose dim 2 equals the
+# prompt length, which at those lengths would be the recurrent state.
+def test_rwkv_static_greedy_matches_reference(rwkv6):
+    cfg, ref_srv, srv = rwkv6
+    prompts = np.random.default_rng(11).integers(1, cfg.vocab, (3, 23)).astype(np.int32)
+    np.testing.assert_array_equal(srv.generate(prompts, 8),
+                                  ref_srv.generate(prompts, 8))
+
+
+def test_rwkv_request_queue_matches_reference(rwkv6):
+    cfg, ref_srv, srv = rwkv6
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32) for n in (7, 13, 9)]
+    outs = []
+    for q in (RefRequestQueue(ref_srv, batch=4), RequestQueue(srv, batch=4)):
+        handles = [q.submit(p, 6) for p in prompts]
+        assert q.serve_once() == 3
+        outs.append([h.get(timeout=5) for h in handles])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("S", [4, 64])
+def test_rwkv_static_engine_leaves_the_state_unpadded(rwkv6, S):
+    """At a prompt length equal to H or to d_model the static engine
+    passes the recurrent state through untouched: its tokens are those of
+    the port's own prefill and decode loop."""
+    cfg, _, srv = rwkv6
+    srv = Server(cfg, MESH, srv.params, max_len=128)     # room to pad at S 64
+    prompts = np.random.default_rng(S).integers(1, cfg.vocab, (2, S)).astype(np.int32)
+    logits, state = rwkv.prefill(srv.params, torch.from_numpy(prompts), cfg)
+    assert srv._pad_cache(state, S) == state
+    want = [torch.argmax(logits, -1).int()]
+    for pos in range(S, S + 5):
+        logits, state = rwkv.decode_step(srv.params, state, want[-1], pos, cfg)
+        want.append(torch.argmax(logits, -1).int())
+    np.testing.assert_array_equal(srv.generate(prompts, 6), torch.stack(want, 1).numpy())
+
+
+def test_continuous_refuses_rwkv(rwkv6):
+    _, _, srv = rwkv6
+    with pytest.raises(ValueError, match="no paged decode hook"):
+        ContinuousScheduler(srv, slots=2, block_size=16, chunk=4)
 
 
 # ------------------------------------------- continuous-batching engine
@@ -328,4 +396,17 @@ def test_launcher_smoke_on_cpu(engine):
     reqs = [ln for ln in lines if ln.startswith("req ")]
     assert len(reqs) == 5 and all(len(eval(ln.split(": ", 1)[1])) == 4 for ln in reqs)
     assert lines[-1].startswith(f"[serve] engine={engine} 5 requests")
+
+
+def test_launcher_falls_back_to_static_for_rwkv_on_cpu():
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_launcher.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu",
+                             "--requests", "3", "--max-new", "4"])
+    lines = buf.getvalue().splitlines()
+    assert lines[0] == ("[serve] rwkv6-smoke's family has no paged decode hook; "
+                        "falling back to the static batcher")
+    reqs = [ln for ln in lines if ln.startswith("req ")]
+    assert len(reqs) == 3 and all(len(eval(ln.split(": ", 1)[1])) == 4 for ln in reqs)
+    assert lines[-1].startswith("[serve] engine=static 3 requests")
 

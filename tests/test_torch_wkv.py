@@ -1,0 +1,143 @@
+"""The port's WKV chunk against the JAX package's.
+
+On CPU tensors ``ops.wkv_chunk`` runs the plain version (``ref.py``); it
+is held against the Pallas kernel run in interpret mode, as the JAX
+package's own tests run it, and against the JAX sequential recurrence
+(``repro/kernels/rwkv6/ref.py::wkv_ref``), at the shapes of
+``tests/test_kernels.py`` plus a decode chunk (C 1) and a short prompt
+(C 7, N 16), with its tolerances (5e-4 in f32, 5e-2 with bf16 inputs).
+The model's chunked WKV is held against the JAX model's to 1e-4, with S
+not a multiple of the chunk and S below it.  The CUDA kernel is held
+against the plain version by ``tests/test_torch_cuda.py`` and by
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rwkv6.ops import wkv_chunk as ref_wkv_chunk
+from repro.kernels.rwkv6.ref import wkv_ref as ref_wkv_ref
+from repro.models.rwkv import wkv_chunked as ref_wkv_chunked
+from repro_torch.kernels.rwkv6 import kernel, ops, ref
+from repro_torch.models import rwkv
+from repro_torch.utils.convert import tensor_from_numpy
+
+SHAPES = [   # (B, C, H, N, dtype of r/k/v)
+    (2, 32, 4, 64, "float32"),     # tests/test_kernels.py
+    (1, 64, 2, 64, "float32"),
+    (2, 16, 8, 64, "bfloat16"),
+    (3, 1, 4, 64, "float32"),      # a decode step
+    (2, 7, 4, 16, "float32"),      # a short prompt, the smoke head size
+]
+TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+
+
+def _inputs(B, S, H, N, dtype="float32", seed=0):
+    """The same values on both sides, as ``tests/test_kernels.py`` draws
+    them: r, k, v normal (rounded once by JAX to ``dtype``), log-decay
+    −exp(0.5·normal − 2), u and the state 0.1·normal, all carried over
+    bit for bit."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    js = dict(r=jnp.asarray(normal(B, S, H, N)).astype(dtype),
+              k=jnp.asarray(normal(B, S, H, N)).astype(dtype),
+              v=jnp.asarray(normal(B, S, H, N)).astype(dtype),
+              logw=jnp.asarray(-np.exp(normal(B, S, H, N) * 0.5 - 2.0)),
+              u=jnp.asarray(normal(H, N) * 0.1),
+              state=jnp.asarray(normal(B, H, N, N) * 0.1))
+    return js, {n: tensor_from_numpy(np.asarray(a)) for n, a in js.items()}
+
+
+def _rows(t, B, C, H, N):
+    """(B, C, H, N) → the kernel's (BH, C, N)."""
+    return t.transpose(1, 2).reshape(B * H, C, N)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,C,H,N,dtype", SHAPES)
+def test_wkv_chunk_matches_pallas_interpret(B, C, H, N, dtype):
+    js, ts = _inputs(B, C, H, N, dtype)
+    y_want, s_want = ref_wkv_chunk(*js.values(), interpret=True)
+    before = kernel.WKV_LAUNCHES
+    y, s1 = ops.wkv_chunk(*ts.values())
+    assert kernel.WKV_LAUNCHES == before            # CPU: the plain version
+    assert y.dtype == s1.dtype == torch.float32
+    assert y.shape == (B, C, H, N) and s1.shape == (B, H, N, N)
+    _close(y, y_want, TOL[dtype])
+    _close(s1, s_want, TOL[dtype])
+
+
+@pytest.mark.parametrize("B,C,H,N,dtype", SHAPES)
+def test_wkv_chunk_ref_matches_sequential_recurrence(B, C, H, N, dtype):
+    """The chunk math against the JAX step-by-step recurrence, on the
+    kernel's (BH, C, N) layout with u broadcast to (BH, 1, N)."""
+    js, ts = _inputs(B, C, H, N, dtype, seed=1)
+    jrows = [js[n].transpose(0, 2, 1, 3).reshape(B * H, C, N)
+             for n in ("r", "k", "v", "logw")]
+    ju = jnp.broadcast_to(js["u"][None], (B, H, N)).reshape(B * H, 1, N)
+    y_want, s_want = ref_wkv_ref(*jrows, ju, js["state"].reshape(B * H, N, N))
+    rows = [_rows(ts[n], B, C, H, N) for n in ("r", "k", "v", "logw")]
+    u = ts["u"][None].expand(B, H, N).reshape(B * H, 1, N)
+    state = ts["state"].reshape(B * H, N, N)
+    y, s1 = ref.wkv_chunk_ref(*rows, u, state)
+    _close(y, y_want, TOL[dtype])
+    _close(s1, s_want, TOL[dtype])
+    # the port's own recurrence is the same oracle: the same f32 products
+    # as JAX's, summed by another einsum (a last-bit difference per step,
+    # 1.2e-5 on values of 5 after 16 steps), so held to 1e-4
+    y_seq, s_seq = ref.wkv_ref(*rows, u, state)
+    _close(y_seq, y_want, 1e-4)
+    _close(s_seq, s_want, 1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk", [
+    (2, 40, 4, 16, 16),     # S not a multiple of the chunk (zero-padded)
+    (2, 5, 4, 16, 16),      # S below the chunk: one chunk of C = S
+    (1, 70, 2, 64, 32),     # three chunks at the full-width head size
+    (2, 1, 4, 16, 16),      # a decode step
+])
+def test_wkv_chunked_matches_reference(B, S, H, N, chunk):
+    js, ts = _inputs(B, S, H, N, seed=2)
+    y_want, s_want = ref_wkv_chunked(*js.values(), chunk)
+    y, s1 = rwkv.wkv_chunked(*ts.values(), chunk)
+    assert y.shape == (B, S, H, N) and y.dtype == torch.float32
+    _close(y, y_want, 1e-4)
+    _close(s1, s_want, 1e-4)
+
+
+def test_wkv_chunked_keeps_the_input_dtype():
+    _, ts = _inputs(2, 9, 4, 16, seed=3)
+    ts = {n: (t.bfloat16() if n in ("r", "k", "v") else t) for n, t in ts.items()}
+    y, s1 = rwkv.wkv_chunked(*ts.values(), 4)
+    assert y.dtype == torch.bfloat16 and s1.dtype == torch.float32
+
+
+def test_wkv_chunk_rejects_mixed_devices():
+    _, ts = _inputs(1, 4, 2, 16)
+    ts["state"] = ts["state"].to("meta")
+    with pytest.raises(ValueError, match="devices"):
+        ops.wkv_chunk(*ts.values())
+
+
+def test_wkv_chunk_rows_rejects_rows_off_the_heads():
+    _, ts = _inputs(1, 4, 3, 16)
+    rows = [_rows(ts[n], 1, 4, 3, 16) for n in ("r", "k", "v", "logw")]
+    with pytest.raises(ValueError, match="heads"):
+        ops.wkv_chunk_rows(*rows, ts["u"][:2], ts["state"].reshape(3, 16, 16))
+
+
+def test_kernel_wrapper_takes_cuda_tensors_only():
+    _, ts = _inputs(1, 4, 2, 16)
+    rows = [_rows(ts[n], 1, 4, 2, 16) for n in ("r", "k", "v", "logw")]
+    before = kernel.WKV_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.wkv_chunk_kernel(*rows, ts["u"], ts["state"].reshape(2, 16, 16))
+    assert kernel.WKV_LAUNCHES == before
