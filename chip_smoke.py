@@ -5,13 +5,24 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-  build       compile the staging kernels from ``csrc/`` for sm_90a.
+  build       compile every kernel source from ``csrc/`` for sm_90a.
   kernels     ``fused_pack``/``fused_unpack`` against their plain versions
               on the 24 full-width ResNet-50 buckets (comm dtype f32, bf16,
               f16; scale 1 and 64), one mixed-dtype bucket and one bucket of
               more leaves than one launch takes: bit-exact.  Then each
               kernel is timed over a whole step's buckets with CUDA events,
               beside its plain version and one PyTorch call doing the same.
+  ring_quant  the ring-hop combine against torch.add (f32, bf16, f16; the
+              tests/test_collectives.py lengths 100 and 4096, an odd
+              length and the half-chunks of the 24 ResNet-50 buckets at a
+              ring of 4; aligned and misaligned; into a new tensor and in
+              place) and the int8 quantize/dequantize kernels against their
+              plain versions (the 24 buckets padded to 256·4 and their
+              shards at magnitudes 1e-3, 1 and 1e3, zero blocks, blocks of
+              exact .5 ties): bit for bit.  Then each timed over one rank's
+              training step of launches (144 combines, 48 quantizes, 48
+              dequantizes) with CUDA events and torch.profiler, beside its
+              byte bound, its plain version and one PyTorch call.
   train       full-width ResNet-50/CIFAR, global batch 256 at 32x32, SGD
               with momentum 0.9, clip 1.0, on a one-rank NCCL group:
               funnel, concom and depcha from the same seeded weights, 1
@@ -23,6 +34,21 @@ Phases, in order; any failure raises and exits non-zero:
   cpu_vs_gpu  the smoke config for 3 steps on the CPU (plain versions) and
               on the GPU (kernels) from the same weights and batches:
               params agree to rtol 1e-3 / atol 1e-5.
+  reducers    four rank processes spawned on the one card, each with all
+              its compute on cuda:0 and gloo communicators staged through
+              pinned host memory (NCCL refuses two ranks on one device;
+              this measures the kernels and the schedule's order, not a
+              wire).  Full-width ResNet-50, global batch 256 (64 a rank),
+              the same seeded weights, TF32 off: 1 warm-up + 2 steps of
+              funnel x {flat, ring, compressed, compressed_ring}, concom x
+              ring and rsag x ring.  Params bit-identical across the ranks
+              after every step; the first step's ring gradients within
+              rtol 1e-5 of flat's; compressed_ring = compressed bit for bit;
+              compressed within the int8 quantization bound of the flat
+              sum on every block; one captured bucket's ring allreduce with
+              the kernel = with the plain add, bit for bit; the launch
+              counts of the three kernels exactly as ``step_launches``
+              predicts from the plan.
   flash       the flash-attention kernel against its plain version on the
               five tests/test_kernels.py shapes, Qwen3-1.7B's static
               prefill shape (B 4, S 512, 16/8 heads, D 128, bf16) and a
@@ -112,7 +138,8 @@ def log(msg: str) -> None:
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
@@ -145,8 +172,9 @@ def phase_build() -> None:
     """Compile every kernel source at once: one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.kernels.collectives import kernel as staging
+    from repro_torch.kernels.collectives import kernel as collectives
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.quantize import kernel as quantize
     from repro_torch.kernels.rwkv6 import kernel as wkv
 
     def timed(build):
@@ -154,9 +182,10 @@ def phase_build() -> None:
         return build(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    kernels = (staging, flash, wkv)
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        futures = [pool.submit(timed, k.build) for k in kernels]
+    builds = (collectives.build, collectives.build_ring_accum, flash.build,
+              wkv.build, quantize.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futures = [pool.submit(timed, b) for b in builds]
         built = [f.result() for f in futures]
     for lib, dt in built:
         log(f"[build] {lib.relative_to(ROOT)} in {dt:.1f} s")
@@ -427,6 +456,358 @@ def phase_cpu_vs_gpu() -> None:
     log(f"[cpu_vs_gpu] {len(final['cpu'][0])} params agree after 3 steps "
         f"(max abs diff {worst}); losses cpu {final['cpu'][1]} "
         f"gpu {final['cuda'][1]}")
+
+
+# ------------------------------------------------- ring and int8 kernels
+
+ACCUM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+RING = 4                       # ranks of the reducers phase, on one card
+QBLOCK = 256                   # elements a quantization block
+REDUCER_RUNS = (("funnel", "flat"), ("funnel", "ring"), ("funnel", "compressed"),
+                ("funnel", "compressed_ring"), ("concom", "ring"), ("rsag", "ring"))
+REDUCER_STEPS = 3              # 1 warm-up + 2 timed
+RING_QUANT_SOURCES = {
+    "ring_accum_kernel": "src/repro_torch/kernels/collectives/csrc/ring_accum.cu",
+    "quantize_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
+    "dequantize_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu"}
+RING_QUANT_REPLACES = {
+    "ring_accum_kernel": "src/repro/kernels/collectives/kernel.py:117",
+    "quantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:33",
+    "dequantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:54"}
+QUANTIZE_LIBRARY = "none: no single PyTorch call computes an int8 block quantization"
+
+
+def ring_halves(size: int) -> tuple[int, int]:
+    """The two half-chunks a bidirectional ring of ``RING`` combines for a
+    bucket of ``size`` elements (padded to a multiple of ``RING``)."""
+    c = -(-size // RING)
+    return c // 2, c - c // 2
+
+
+def padded(size: int) -> int:
+    """A bucket's buffer as the compressed reducer pads it (256 · RING)."""
+    return -(-size // (QBLOCK * RING)) * QBLOCK * RING
+
+
+def step_launches(sizes, reducer: str) -> dict:
+    """Kernel launches of one training step on one rank, from the plan's
+    bucket sizes: a ring reduce-scatter (the ring reducer's, or rsag's)
+    combines twice a hop (once when a half-chunk is empty) over RING - 1
+    hops; the compressed reducers quantize and dequantize twice a bucket
+    of at least 256 · RING elements."""
+    accum = sum((RING - 1) * (2 if min(ring_halves(n)) else 1)
+                for n in sizes) if reducer == "ring" else 0
+    big = (sum(n >= QBLOCK * RING for n in sizes)
+           if reducer.startswith("compressed") else 0)
+    return {"accum": accum, "quantize": 2 * big, "dequantize": 2 * big}
+
+
+def tie_blocks() -> torch.Tensor:
+    """An all-zero block, then blocks of scale 1 and 2 whose x/scale lands
+    on exact .5 ties, then blocks at magnitudes 1e-3, 1 and 1e3."""
+    ties1 = torch.arange(-127, 129, dtype=torch.float32).clamp(max=126) + 0.5
+    ties1[0] = 127.0                                   # amax 127: scale 1
+    ties2 = 2 * (torch.arange(256, dtype=torch.float32) % 254 - 127) + 1
+    ties2[0] = -254.0                                  # amax 254: scale 2
+    gen = torch.Generator().manual_seed(3)
+    mags = [torch.randn(256, generator=gen) * m for m in (1e-3, 1.0, 1e3)]
+    return torch.stack([torch.zeros(256), ties1, ties2, *mags]).cuda()
+
+
+def check_quantize(x: torch.Tensor, what: str) -> None:
+    """Kernel against plain version, bit for bit: q, scales, dequantized."""
+    from repro_torch.kernels.quantize import kernel, ref
+
+    xb = x.reshape(-1, QBLOCK)
+    q, s = kernel.quantize_blocks_kernel(xb)
+    q_p, s_p = ref.quantize_ref(xb)
+    same_bits(q, q_p, f"quantize {what}: q")
+    same_bits(s, s_p, f"quantize {what}: scales")
+    same_bits(kernel.dequantize_blocks_kernel(q, s), ref.dequantize_ref(q, s),
+              f"dequantize {what}")
+
+
+def phase_ring_quant() -> dict:
+    """Rows 3, 6 and 7 against their plain versions on the card, bit for
+    bit, then each timed over one training step's launches on one rank of
+    a ring of 4 (CUDA events back to back, and the device's own time from
+    torch.profiler) beside its byte bound and one PyTorch call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.collectives import ref as cr
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.kernels.quantize import ref as qr
+
+    plan, _ = resnet50_plan()
+    sizes = [b.size for b in plan.buckets]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    halves = sorted({h for n in sizes for h in ring_halves(n)})
+    lengths = [100, 4 * 1024, 131071, *halves]        # test_collectives.py:141, odd, buckets
+    n_checks = 0
+    for dt in ACCUM_DTYPES:
+        for n in lengths:
+            for off in (0, 1):                        # aligned, and not 16-byte aligned
+                a, b = (torch.randn(n + off, generator=gen, device="cuda").to(dt)[off:]
+                        for _ in range(2))
+                want = cr.ring_accum_ref(a, b)
+                same_bits(ck.ring_accum_kernel(a, b), want, f"accum {dt} n={n} +{off}")
+                same_bits(ck.ring_accum_kernel(a.clone(), b, out=a.clone()), want,
+                          f"accum {dt} n={n} +{off}")
+                inplace = a.clone()
+                ck.ring_accum_kernel(inplace, b, out=inplace)
+                same_bits(inplace, want, f"accum in place {dt} n={n} +{off}")
+                n_checks += 1
+    log(f"[ring_quant] ring_accum_kernel bit-exact with torch.add in {n_checks} "
+        f"cases: f32/bf16/f16, lengths {lengths[:3]} and the {len(halves)} "
+        f"half-chunk lengths of the 24 ResNet-50 buckets at g = {RING}, "
+        f"aligned and misaligned, into a new tensor and in place")
+    n_checks = 0
+    for i, n in enumerate(sizes):
+        m = padded(n)
+        mag = (1e-3, 1.0, 1e3)[i % 3]
+        for what, k in (("bucket", m), ("shard", m // RING)):
+            x = torch.randn(k, generator=gen, device="cuda") * mag
+            x[:QBLOCK] = 0.0                          # a zero block in every buffer
+            check_quantize(x, f"b{i} {what} {k}")
+            n_checks += 1
+    check_quantize(tie_blocks(), "ties, zero and magnitude blocks")
+    torch.cuda.synchronize()
+    log(f"[ring_quant] quantize/dequantize bit-exact with the plain versions on "
+        f"{n_checks} buffers (the 24 buckets padded to 256·{RING} and their "
+        f"shards, magnitudes 1e-3/1/1e3, a zero block each) and on the tie blocks")
+
+    # one rank's step of the main path: 6 combines a bucket (3 hops x 2
+    # halves), 2 quantizes (m, m/4) and 2 dequantizes (m, m) a bucket
+    pairs = [tuple(torch.randn(h, generator=gen, device="cuda") for _ in range(2))
+             for n in sizes for h in ring_halves(n) for _hop in range(RING - 1)]
+    qin = [torch.randn(k, generator=gen, device="cuda").view(-1, QBLOCK)
+           for n in sizes for k in (padded(n), padded(n) // RING)]
+    qs = [qk.quantize_blocks_kernel(torch.randn(padded(n), generator=gen,
+                                                device="cuda").view(-1, QBLOCK))
+          for n in sizes for _ in range(2)]
+    work = {
+        "ring_accum_kernel": dict(
+            kernel=lambda: [ck.ring_accum_kernel(a, b, out=a) for a, b in pairs],
+            plain=lambda: [cr.ring_accum_ref(a, b) for a, b in pairs],
+            library=lambda: [torch.add(a, b, out=a) for a, b in pairs],
+            library_call="torch.add", launches=len(pairs),
+            nbytes=sum(3 * a.numel() * 4 for a, _ in pairs)),
+        "quantize_blocks_kernel": dict(
+            kernel=lambda: [qk.quantize_blocks_kernel(x) for x in qin],
+            plain=lambda: [qr.quantize_ref(x) for x in qin],
+            library=None, library_call=QUANTIZE_LIBRARY, launches=len(qin),
+            nbytes=sum(x.numel() * (4 + 1) + x.shape[0] * 4 for x in qin)),
+        "dequantize_blocks_kernel": dict(
+            kernel=lambda: [qk.dequantize_blocks_kernel(q, s) for q, s in qs],
+            plain=lambda: [qr.dequantize_ref(q, s) for q, s in qs],
+            library=lambda: [torch.mul(q.view(-1, QBLOCK), s[:, None]) for q, s in qs],
+            library_call="torch.mul(q.view(-1, 256), s[:, None])", launches=len(qs),
+            nbytes=sum(q.numel() * (1 + 4) + s.numel() * 4 for q, s in qs)),
+    }
+    rows = {}
+    for name, w in work.items():
+        reps = 10
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                w["kernel"]()
+            torch.cuda.synchronize()
+        device_ms = sum(_device_ms(e, self_only=True) for e in prof.key_averages()
+                        if getattr(e, "device_type", None) == DeviceType.CUDA
+                        and name in e.key) / reps
+        rows[name] = dict(
+            ms=cuda_ms(w["kernel"]), device_ms=device_ms,
+            plain_ms=cuda_ms(w["plain"]),
+            library_ms=cuda_ms(w["library"]) if w["library"] else None,
+            library=w["library_call"], max_abs_err=0.0,
+            bound_ms=w["nbytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            step_bytes=w["nbytes"], launches_per_step=w["launches"])
+        log(f"[ring_quant] {name}: " + json.dumps(rows[name]))
+    return rows
+
+
+def _same_on_every_rank(tensors, what: str, group) -> None:
+    """Raise unless ``tensors`` hold the same bits on every rank: rank 0's
+    are broadcast (host copies, on the gloo ``group``) and compared."""
+    import torch.distributed as dist
+
+    mine = torch.cat([t.detach().reshape(-1) for t in tensors]).view(torch.int32).cpu()
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0, group=group)
+    ok = torch.tensor([int(torch.equal(mine, theirs))])
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+    if not ok.item():
+        raise AssertionError(f"{what}: not bit-identical across the {RING} ranks")
+
+
+def _capturing(reducer, store: dict):
+    """``reducer`` that keeps each bucket's first input and output."""
+    def wrapped(buf, bucket, group):
+        first = bucket.bucket_id not in store
+        inp = buf.clone() if first else None
+        h = reducer(buf, bucket, group)
+        if first:
+            store[bucket.bucket_id] = (bucket, inp, h.out)
+        return h
+    return wrapped
+
+
+def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
+    """One rank of the reducers phase: every run of ``REDUCER_RUNS`` from
+    the same seeded weights; checks; results to ``workdir/rank<r>.json``.
+    Rank r computes on card r % device_count."""
+    import datetime
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs.resnet50_cifar import make_config
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import ImagePipeline
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.collectives import ops as co
+    from repro_torch.kernels.collectives import ref as cr
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.kernels.quantize import ref as qr
+    from repro_torch.launch.mesh import init_dist, make_dp_mesh
+    from repro_torch.models.resnet import ResNet, init_params
+    from repro_torch.optim import linear_scaling_rule, sgd
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store",
+              rank=rank, world_size=RING, timeout=datetime.timedelta(seconds=300))
+    host = dist.new_group(backend="gloo")     # the checks' own host collectives
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda _m: None)
+    cfg = make_config()
+    mesh = make_dp_mesh()
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, 256, seed=0, mesh=mesh,
+                         rank=rank, device="cuda")
+    out = {"runs": {}}
+    grads0, params_end, captured = {}, {}, {}
+    for strategy, reducer in REDUCER_RUNS:
+        run = f"{strategy}x{reducer}"
+        model = ResNet(cfg, init_params(cfg, seed=0, device="cuda"))
+        opt = sgd(linear_scaling_rule(0.1, 256, 256), momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strategy, reducer=reducer),
+                             opt, model=model, clip_norm=1.0, device="cuda")
+        if strategy == "funnel" and reducer in ("ring", "compressed"):
+            captured[reducer] = {}
+            ts.gradsync.reducer = _capturing(ts.gradsync.reducer, captured[reducer])
+        named = flatten_with_names(model.params_tree())[0]
+        opt_state = opt.init(dict(named))
+        predicted = {k: v * REDUCER_STEPS for k, v in step_launches(
+            [b.size for b in ts.gradsync.plan.buckets], reducer).items()}
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+        ck.ACCUM_LAUNCHES = qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = 0
+        for step in range(REDUCER_STEPS):
+            model, opt_state, hist = trainer.run(model, opt_state, step + 1,
+                                                 start_step=step)
+            if step == 0:
+                grads0[run] = [p.grad.detach().clone() for _, p in named]
+            _same_on_every_rank([p for _, p in named], f"{run} params after step {step}",
+                                host)
+        launches = {"accum": ck.ACCUM_LAUNCHES, "quantize": qk.QUANTIZE_LAUNCHES,
+                    "dequantize": qk.DEQUANTIZE_LAUNCHES}
+        if launches != predicted:
+            raise AssertionError(f"{run}: launches {launches}, predicted {predicted}")
+        params_end[run] = [p.detach().clone() for _, p in named]
+        out["runs"][run] = {
+            "launches": launches, "buckets": len(ts.gradsync.plan.buckets),
+            "first_step_ms": trainer.first_step_time * 1e3,
+            "step_ms": [t * 1e3 for t in trainer.step_times],
+            "loss": hist["losses"][-1]}
+        say(f"[reducers] {run}: launches {launches} (= prediction), params "
+            f"bit-identical on the {RING} ranks after each of {REDUCER_STEPS} steps; "
+            f"first step {trainer.first_step_time * 1e3:.1f} ms, then "
+            f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms")
+        del ts, model, opt_state, trainer
+
+    # ring and flat: the same sums in another order
+    worst = 0.0
+    for a, b in zip(grads0["funnelxring"], grads0["funnelxflat"]):
+        tol = 1e-5 * b.abs().max().item()
+        if not torch.allclose(a, b, rtol=1e-5, atol=tol):
+            raise AssertionError(f"ring vs flat grads differ by {(a - b).abs().max().item()}")
+        worst = max(worst, (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+    out["ring_vs_flat_max_diff_over_leaf_absmax"] = worst
+    # compressed_ring and compressed: the same int8 values, gathered otherwise
+    for a, b in zip(grads0["funnelxcompressed_ring"] + params_end["funnelxcompressed_ring"],
+                    grads0["funnelxcompressed"] + params_end["funnelxcompressed"]):
+        same_bits(a, b, "compressed_ring vs compressed")
+    # compressed against the flat sum of the same inputs, per block of each bucket
+    ratio = 0.0
+    for bid, (bucket, inp, got) in sorted(captured["compressed"].items()):
+        pad = padded(inp.numel()) - inp.numel()
+        buf = F.pad(inp.cpu(), (0, pad))
+        flat_sum = buf.clone()
+        dist.all_reduce(flat_sum, group=host)
+        scales = qr.quantize_ref(buf.view(-1, QBLOCK))[1]
+        dist.all_reduce(scales, group=host)           # sum over the ranks
+        out_b = F.pad(got.cpu(), (0, pad))
+        s2 = out_b.view(-1, QBLOCK).abs().amax(1) / 127
+        # + a millionth of the summed amax for the two sums' own rounding
+        bound = (scales / 2 + s2 * (1 + 1e-6) / 2
+                 + 1e-6 * scales * 127).repeat_interleave(QBLOCK)
+        err = (out_b - flat_sum).abs()
+        if not torch.all(err <= bound):
+            raise AssertionError(f"bucket {bid}: compressed beyond the quantization bound")
+        ratio = max(ratio, (err / bound).max().item())
+    out["compressed_err_over_bound_max"] = ratio
+    # one captured bucket: the ring with the kernel against the plain add
+    bucket, inp, _ = max(captured["ring"].values(), key=lambda c: c[1].numel())
+    group = dist.group.WORLD
+    with_kernel = co.ring_allreduce(inp.clone(), bucket.reduce_axes, mesh.shape, group)
+    buf = F.pad(inp, (0, (-inp.numel()) % RING))
+    plain = cr.ring_all_gather_ref(
+        cr.ring_reduce_scatter_ref(buf, group, accum=cr.ring_accum_ref), group)
+    same_bits(with_kernel, plain[:inp.numel()], f"ring allreduce of bucket "
+              f"{bucket.bucket_id}: kernel vs plain add")
+    out["captured_bucket"] = {"bucket": bucket.bucket_id, "elements": inp.numel()}
+    say(f"[reducers] ring vs flat first-step grads within rtol 1e-5 (max diff / leaf "
+        f"absmax {worst}); compressed_ring = compressed bit for bit (grads and params); "
+        f"compressed within the quantization bound of the flat sum (max err/bound "
+        f"{ratio}); ring allreduce of bucket {bucket.bucket_id} ({inp.numel()} "
+        f"elements) with the kernel = with the plain add, bit for bit")
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_reducers(backend: str = "gloo") -> dict:
+    """Four rank processes: the ring, compressed and compressed_ring
+    reducers under GradSync at full ResNet-50/CIFAR width.  With gloo (as
+    ``main`` runs it) all four share the one card and their communicators
+    stage through pinned host memory; ``backend="nccl"`` needs four cards,
+    one a rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="reducers-") as wd:
+        mp.spawn(_reducers_rank, args=(wd, backend), nprocs=RING, join=True)
+        ranks = []
+        for r in range(RING):
+            with open(os.path.join(wd, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        if {k: v["launches"] for k, v in res["runs"].items()} != \
+                {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
+            raise AssertionError(f"rank {r} launched other counts than rank 0")
+    res = ranks[0]
+    res["wall_s"] = time.perf_counter() - t0
+    res["transport"] = (
+        f"gloo over pinned host memory, {RING} processes on one card: times the "
+        f"kernels and the schedule's order, not a wire" if backend == "gloo"
+        else f"{backend}, {RING} processes on {torch.cuda.device_count()} cards")
+    log("[reducers] " + json.dumps(res))
+    return res
 
 
 # ------------------------------------------------------------------ serving
@@ -1289,12 +1670,16 @@ def main() -> int:
     init_dist("cuda")
     try:
         rows = phase_kernels()
+        ring_quant = phase_ring_quant()
         train = phase_train()
         phase_profile(*train["live"])
         phase_cpu_vs_gpu()
     finally:
         dist.destroy_process_group()
     del train["live"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    reducers = phase_reducers()
     flash_rows = phase_flash()
     serve = phase_serve(smi)
     phase_serve_cpu_vs_gpu()
@@ -1340,6 +1725,17 @@ def main() -> int:
         "plain_ms": wr["plain_ms"], "bound_ms": wr["bound_ms"],
         "bound_by": wr["bound_by"], "library_ms": None, "library": WKV_LIBRARY,
         "shape": wr["shape"], "decode_shape": wkv_rows["decode"]})
+    runs = reducers["runs"]
+    for name, counter in (("ring_accum_kernel", "accum"),
+                          ("quantize_blocks_kernel", "quantize"),
+                          ("dequantize_blocks_kernel", "dequantize")):
+        r = ring_quant[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": RING_QUANT_SOURCES[name],
+            "replaces": RING_QUANT_REPLACES[name],
+            "launches": sum(run["launches"][counter] for run in runs.values()),
+            "launches_by_run": {k: run["launches"][counter] for k, run in runs.items()},
+            **r})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     faulthandler.cancel_dump_traceback_later()

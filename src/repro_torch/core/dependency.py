@@ -19,14 +19,31 @@ directly:
   - on CUDA each chain stages its buckets on its own stream
     (``ChainStreams``), so a wait in one chain never holds up the
     staging of another.
+  - every collective the port issues goes through ``collective`` or
+    ``exchange``.  On NCCL they pass device tensors straight through.
+    On a gloo group with CUDA tensors they stage through pinned host
+    memory: gloo reads ``data_ptr()`` as host memory.  The backend is
+    the caller's choice (``launch/mesh.py::init_dist``); nothing falls
+    back from one to the other.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+class Done:
+    """The work of a collective that already ran to its end: a
+    host-staged one, or a reducer that is a sequence of collectives."""
+
+    def wait(self) -> bool:
+        return True
+
+
+DONE = Done()
 
 
 class Handle:
@@ -34,7 +51,8 @@ class Handle:
 
     ``wait()`` orders the caller after the collective and returns its
     output, multiplied once by ``scale`` (a reducer's data-parallel
-    mean) the first time it is waited on.
+    mean) the first time it is waited on.  ``work`` is the collective's
+    ``torch.distributed`` work, or ``DONE``.
     """
 
     def __init__(self, work, out: torch.Tensor, scale: float = 1.0):
@@ -76,13 +94,79 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def backend_for(device: torch.device) -> str:
-    return "nccl" if device.type == "cuda" else "gloo"
+    """The backend of communicators for tensors on ``device``: gloo on
+    the CPU; on CUDA the default group's (NCCL unless ``init_dist`` was
+    asked for gloo), or NCCL before a default group exists."""
+    if device.type != "cuda":
+        return "gloo"
+    return dist.get_backend() if dist.is_initialized() else "nccl"
+
+
+def _host_staged(group: dist.ProcessGroup, tensors: Sequence[torch.Tensor]) -> bool:
+    return (dist.get_backend(group) == "gloo"
+            and any(t.device.type == "cuda" for t in tensors))
+
+
+def _pinned(t: torch.Tensor, copy: bool) -> torch.Tensor:
+    """A pinned host tensor like ``t``, holding ``t``'s values if ``copy``
+    (a synchronous copy: the device work that produced ``t`` is done)."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    if copy:
+        h.copy_(t)
+    return h
+
+
+def collective(fn, group: dist.ProcessGroup, out: torch.Tensor,
+               *ins: torch.Tensor):
+    """Issue ``fn(out, *ins, group=group, async_op=True)`` — a
+    ``torch.distributed`` collective that writes ``out`` (in place when
+    there are no ``ins``) — and return its work.
+
+    On a gloo group with CUDA tensors the collective runs on pinned host
+    copies to its end and ``out`` is written back before this returns
+    (the work is ``DONE``).  Any other group gets the tensors as they
+    are."""
+    if not _host_staged(group, (out, *ins)):
+        return fn(out, *ins, group=group, async_op=True)
+    h_out = _pinned(out, copy=not ins)
+    fn(h_out, *[_pinned(t, copy=True) for t in ins], group=group,
+       async_op=True).wait()
+    out.copy_(h_out)
+    return DONE
+
+
+def exchange(group: dist.ProcessGroup,
+             sends: Sequence[tuple[torch.Tensor, int, int]],
+             recvs: Sequence[tuple[torch.Tensor, int, int]]) -> None:
+    """One batch of point-to-point transfers on ``group``, waited on.
+    ``sends`` and ``recvs`` are ``(tensor, peer, tag)``, peers given as
+    ranks of ``group``.  Transfers between one pair of ranks match in
+    the order they are listed (NCCL) and by tag (gloo), so every rank
+    must list them alike.  On NCCL the wait orders the current stream
+    after the transfers; on a gloo group with CUDA tensors they run on
+    pinned host copies and the received values are written back."""
+    staged = _host_staged(group, [t for t, _, _ in (*sends, *recvs)])
+    ops, back = [], []
+    for t, peer, tag in sends:
+        ops.append(dist.P2POp(dist.isend, _pinned(t, True) if staged else t,
+                              dist.get_global_rank(group, peer), group, tag))
+    for t, peer, tag in recvs:
+        h = _pinned(t, False) if staged else t
+        back.append((t, h))
+        ops.append(dist.P2POp(dist.irecv, h, dist.get_global_rank(group, peer),
+                              group, tag))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        for t, h in back:
+            t.copy_(h)
 
 
 def chain_groups(chains: Iterable[int], device: torch.device
                  ) -> dict[int, dist.ProcessGroup]:
-    """One communicator per chain, each over every rank.  Collective:
-    every rank must call it with the same chains in the same order."""
+    """One communicator per chain, each over every rank, on
+    ``backend_for(device)``.  Collective: every rank must call it with
+    the same chains in the same order."""
     if not dist.is_initialized():
         raise RuntimeError(
             "torch.distributed is not initialized: call "

@@ -118,6 +118,13 @@ class GradSync:
                     f"need sub-communicators: tensor parallelism, ROADMAP "
                     f"queue 1 item 9")
 
+    def _two_phase_impl(self) -> str:
+        """The reduce-scatter/all-gather transport: ring-family reducers
+        carry the RS/AG ops of two-phase strategies on the rings."""
+        ring_family = (self.cfg.reducer == "ring"
+                       or self.cfg.reducer.endswith("_ring"))
+        return "ring" if ring_family and self.info.two_phase else "psum"
+
     def __call__(self, grads: Any) -> Any:
         """Execute the planned schedule over ``grads``; returns the
         reduced gradients (written into ``grads`` in place on the fused
@@ -130,7 +137,8 @@ class GradSync:
             mesh_shape=self.mesh_shape,
             mean_axes=self.cfg.mean_axes,
             use_fused_staging=self.cfg.use_fused_staging,
-            loss_scale=self.cfg.loss_scale)
+            loss_scale=self.cfg.loss_scale,
+            two_phase_impl=self._two_phase_impl())
 
 
 class KVStore:
@@ -230,16 +238,15 @@ class KVStore:
 
         def issue(b: torch.Tensor) -> dep.Handle:
             if kind == ALLREDUCE:                            # MPI_Allreduce
-                return dep.Handle(
-                    dist.all_reduce(b, group=group, async_op=True), b)
+                return dep.Handle(dep.collective(dist.all_reduce, group, b), b)
             if kind == REDUCE_SCATTER:
                 out = torch.empty(b.numel() // g, dtype=b.dtype, device=b.device)
-                return dep.Handle(dist.reduce_scatter_tensor(
-                    out, b, group=group, async_op=True), out)
+                return dep.Handle(dep.collective(
+                    dist.reduce_scatter_tensor, group, out, b), out)
             if kind == ALL_GATHER:
                 out = torch.empty(b.numel() * g, dtype=b.dtype, device=b.device)
-                return dep.Handle(dist.all_gather_into_tensor(
-                    out, b, group=group, async_op=True), out)
+                return dep.Handle(dep.collective(
+                    dist.all_gather_into_tensor, group, out, b), out)
             raise ValueError(kind)
 
         h = emit_gated(buf, op.depends_on, self._handles, issue)

@@ -296,8 +296,12 @@ class _OpEmitter:
         mean_axes: tuple[str, ...] = (),
         use_fused_staging: bool = True,
         loss_scale: float = 1.0,
+        two_phase_impl: str = "psum",
     ):
+        if two_phase_impl not in ("psum", "ring"):
+            raise ValueError(f"unknown two_phase_impl {two_phase_impl!r}")
         self.plan = plan
+        self.two_phase_impl = two_phase_impl
         self.reducer = reducer
         self.groups = groups
         self.mesh_shape = mesh_shape
@@ -384,10 +388,12 @@ class _OpEmitter:
                 send_buf = F.pad(send_buf, (0, (-n) % g))
 
             def rs(b):
+                if self.two_phase_impl == "ring":
+                    return dep.Handle(dep.DONE, coll_ops.ring_reduce_scatter(
+                        b, bucket.reduce_axes, self.mesh_shape, group))
                 shard = torch.empty(b.numel() // g, dtype=b.dtype, device=b.device)
-                work = dist.reduce_scatter_tensor(shard, b, group=group,
-                                                  async_op=True)
-                return dep.Handle(work, shard)
+                return dep.Handle(dep.collective(
+                    dist.reduce_scatter_tensor, group, shard, b), shard)
 
             h = emit_gated(send_buf, op.depends_on, self.handles, rs)
             self.handles[op.op_id] = h
@@ -398,11 +404,13 @@ class _OpEmitter:
             g = dist.get_world_size(group)
 
             def ag(shard):
+                if self.two_phase_impl == "ring":
+                    return dep.Handle(dep.DONE, coll_ops.ring_all_gather(
+                        shard, bucket.reduce_axes, self.mesh_shape, group))
                 full = torch.empty(shard.numel() * g, dtype=shard.dtype,
                                    device=shard.device)
-                work = dist.all_gather_into_tensor(full, shard, group=group,
-                                                   async_op=True)
-                return dep.Handle(work, full)
+                return dep.Handle(dep.collective(
+                    dist.all_gather_into_tensor, group, full, shard), full)
 
             # the producing RS is among the deps: gated before ag reads it
             h = emit_gated(src.out, op.depends_on, self.handles, ag)
@@ -433,6 +441,7 @@ def execute(
     mean_axes: tuple[str, ...] = (),
     use_fused_staging: bool = True,
     loss_scale: float = 1.0,
+    two_phase_impl: str = "psum",
 ) -> Any:
     """Materialize a CommSchedule over a gradient tree.
 
@@ -446,6 +455,10 @@ def execute(
     way with the comm-dtype cast and the optional ``loss_scale`` folded
     in.  Buckets with non-float dtypes go the leafwise way.
 
+    ``two_phase_impl`` is the reduce-scatter/all-gather transport:
+    ``"psum"`` (``reduce_scatter_tensor``/``all_gather_into_tensor``) or
+    ``"ring"`` (the chunked rings of ``kernels/collectives``).
+
     Ops are issued in schedule order; each waits on its ``depends_on``
     before it is issued.  The fused path writes reduced values into the
     gradient tensors in place; the returned tree holds the results.
@@ -456,7 +469,8 @@ def execute(
             f"plan built for {plan.num_leaves} leaves, got {len(flat_out)}")
     em = _OpEmitter(
         schedule, plan, reducer=reducer, groups=groups, mesh_shape=mesh_shape, mean_axes=mean_axes,
-        use_fused_staging=use_fused_staging, loss_scale=loss_scale)
+        use_fused_staging=use_fused_staging, loss_scale=loss_scale,
+        two_phase_impl=two_phase_impl)
     with streams:
         for op in schedule.ops:
             with streams.on(op.chain), torch.profiler.record_function(

@@ -21,18 +21,26 @@ Beyond-paper:
   rsag     — each bucket's allreduce split into reduce-scatter →
              all-gather, RS ops chained per channel.
 
-Reducers: ``flat`` (an async ``dist.all_reduce`` on the chain's
-communicator) is ported; the others are registered under their
-reference names and raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Reducers, each a ``(buf, bucket, communicator) -> Handle``:
+  flat            — an async ``dist.all_reduce`` on the chain's communicator.
+  ring            — the chunked bidirectional ring (``kernels/collectives``).
+  compressed      — int8 block-quantized two-phase allreduce
+                    (``core/compression.py``); flat below 256·g elements.
+  compressed_ring — compressed with its gather phase on the ring.
+A ring or compressed reducer is a sequence of collectives run to its end,
+so its handle holds a finished result.  ``hierarchical`` and
+``hierarchical_ring`` are registered under their reference names and
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import dependency as dep
 from repro_torch.core import registry
 from repro_torch.core.buckets import Bucket, BucketPlan
+from repro_torch.core.compression import compressed_allreduce
 from repro_torch.core.dependency import Handle
 from repro_torch.core.registry import register_reducer, register_strategy
 from repro_torch.core.schedule import (
@@ -41,10 +49,12 @@ from repro_torch.core.schedule import (
     CollectiveOp,
     CommSchedule,
     Reducer,
+    group_size,
     live_buckets,
     live_channels,
     mean_scale,
 )
+from repro_torch.kernels.collectives import ops as coll_ops
 
 
 # ---------------------------------------------------------------- reducers
@@ -58,25 +68,72 @@ def _flat_factory(mesh_shape: dict[str, int], *,
 
     def reduce_flat(buf: torch.Tensor, bucket: Bucket,
                     group: dist.ProcessGroup) -> Handle:
-        work = dist.all_reduce(buf, group=group, async_op=True)
+        work = dep.collective(dist.all_reduce, group, buf)
         return Handle(work, buf,
                       mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
 
     return reduce_flat
 
 
-def _not_ported(name: str, item: int):
+def _not_ported(name: str):
     def factory(mesh_shape: dict[str, int], *,
                 mean_axes: tuple[str, ...] = ()) -> Reducer:
         raise NotImplementedError(
-            f"reducer {name!r} is not ported yet (ROADMAP queue 1 item {item})")
-    factory.__doc__ = f"Not ported yet: ROADMAP queue 1 item {item}."
+            f"reducer {name!r} is not ported yet (ROADMAP queue 1 item 6: "
+            f"it needs a pod axis and intra- and inter-pod communicators)")
+    factory.__doc__ = "Not ported yet: ROADMAP queue 1 item 6."
     return factory
 
 
-for _name, _item in (("hierarchical", 6), ("hierarchical_ring", 6),
-                     ("compressed", 7), ("compressed_ring", 7), ("ring", 6)):
-    register_reducer(_name)(_not_ported(_name, _item))
+for _name in ("hierarchical", "hierarchical_ring"):
+    register_reducer(_name)(_not_ported(_name))
+
+
+def _comp_impl(mesh_shape: dict[str, int], *,
+               mean_axes: tuple[str, ...] = (),
+               use_ring: bool = False) -> Reducer:
+    flat = _flat_factory(mesh_shape, mean_axes=mean_axes)
+
+    def reduce_comp(buf: torch.Tensor, bucket: Bucket,
+                    group: dist.ProcessGroup) -> Handle:
+        g = group_size(bucket.reduce_axes, mesh_shape)
+        if g == 1 or buf.shape[0] < 256 * g:
+            return flat(buf, bucket, group)
+        out = compressed_allreduce(buf, bucket.reduce_axes, mesh_shape, group,
+                                   use_ring=use_ring)
+        return Handle(dep.DONE, out,
+                      mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
+
+    return reduce_comp
+
+
+@register_reducer("compressed")
+def _comp_factory(mesh_shape: dict[str, int], *,
+                  mean_axes: tuple[str, ...] = ()) -> Reducer:
+    """int8 block-quantized wire format for large buffers."""
+    return _comp_impl(mesh_shape, mean_axes=mean_axes)
+
+
+@register_reducer("compressed_ring")
+def _comp_ring_factory(mesh_shape: dict[str, int], *,
+                       mean_axes: tuple[str, ...] = ()) -> Reducer:
+    """compressed with the int8 gather phase on the ring all-gather."""
+    return _comp_impl(mesh_shape, mean_axes=mean_axes, use_ring=True)
+
+
+@register_reducer("ring")
+def _ring_factory(mesh_shape: dict[str, int], *,
+                  mean_axes: tuple[str, ...] = ()) -> Reducer:
+    """Chunked bidirectional ring allreduce (ring RS → ring AG), each
+    hop's combine on the ring-accumulate kernel."""
+
+    def reduce_ring(buf: torch.Tensor, bucket: Bucket,
+                    group: dist.ProcessGroup) -> Handle:
+        out = coll_ops.ring_allreduce(buf, bucket.reduce_axes, mesh_shape, group)
+        return Handle(dep.DONE, out,
+                      mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
+
+    return reduce_ring
 
 
 def make_reducer(name: str, mesh_shape: dict[str, int], *,

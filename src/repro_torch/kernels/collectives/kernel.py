@@ -1,11 +1,13 @@
-"""Build and binding of the Hopper staging kernels (``csrc/staging.cu``).
+"""Build and binding of the Hopper collectives kernels: the staging
+kernels (``csrc/staging.cu``) and the ring-hop combine
+(``csrc/ring_accum.cu``).
 
-``pack_bucket_kernel``/``unpack_bucket_kernel`` are the CUDA counterparts
-of ``repro/kernels/collectives/kernel.py``'s Pallas kernels of the same
-names; ``csrc/staging.cu`` says what they replace, what bounds them and
-how they are laid out.
+``pack_bucket_kernel``/``unpack_bucket_kernel``/``ring_accum_kernel``
+are the CUDA counterparts of ``repro/kernels/collectives/kernel.py``'s
+Pallas kernels of the same names; each source says what it replaces,
+what bounds it and how it is laid out.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface at first use (``kernels/_build.py``)
 and loaded with ``ctypes``.  Nothing here runs when the module is
 imported.
@@ -13,8 +15,8 @@ imported.
 The wrappers take CUDA tensors only: they check device, dtype, size and
 contiguity and raise on anything else, launch on the current stream,
 never synchronize, and count their launches in ``PACK_LAUNCHES`` /
-``UNPACK_LAUNCHES``.  There is no fallback: a failed build or launch
-raises.
+``UNPACK_LAUNCHES`` / ``ACCUM_LAUNCHES``.  There is no fallback: a
+failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -29,18 +31,43 @@ from repro_torch.kernels import _build
 
 PACK_LAUNCHES = 0
 UNPACK_LAUNCHES = 0
+ACCUM_LAUNCHES = 0
 
 MAX_LEAVES = 64   # kMaxLeaves in csrc/staging.cu
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float64: 3}
 
-_SOURCES = (Path(__file__).resolve().parent / "csrc" / "staging.cu",)
+ACCUM_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = (_CSRC / "staging.cu",)
+_ACCUM_SOURCES = (_CSRC / "ring_accum.cu",)
 
 
 def build() -> Path:
     """Compile the staging kernels unless this source is built; return
     the library's path."""
     return _build.build("staging", _SOURCES)
+
+
+def build_ring_accum() -> Path:
+    """Compile the ring-hop combine unless this source is built; return
+    the library's path."""
+    return _build.build("ring_accum", _ACCUM_SOURCES)
+
+
+@functools.cache
+def _accum_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_ring_accum()))
+    lib.ring_accum.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # msg, chunk, out
+        ctypes.c_int64,                                      # elements
+        ctypes.c_int,                                        # dtype code
+        ctypes.c_int,                                        # device index
+        ctypes.c_void_p,                                     # cudaStream_t
+    ]
+    lib.ring_accum.restype = ctypes.c_int
+    return lib
 
 
 @functools.cache
@@ -155,3 +182,36 @@ def unpack_bucket_kernel(buf: torch.Tensor, outs: Sequence[torch.Tensor], *,
         raise ValueError(f"outputs hold {off} elements, buffer {buf.numel()}")
     UNPACK_LAUNCHES += _stage(_lib().staging_unpack, "unpack_bucket_kernel",
                               outs, offsets, buf, scale)
+
+
+def ring_accum_kernel(msg: torch.Tensor, chunk: torch.Tensor, *,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """One ring hop's combine: ``msg + chunk`` (1-D, one dtype of f32,
+    bf16, f16, contiguous CUDA tensors), written into ``out`` — a new
+    tensor by default; the ring passes the received buffer ``msg``."""
+    global ACCUM_LAUNCHES
+    device = msg.device
+    if device.type != "cuda":
+        raise ValueError(f"ring_accum_kernel takes CUDA tensors, got {device}")
+    if out is None:
+        out = torch.empty_like(msg)
+    for what, t in (("msg", msg), ("chunk", chunk), ("out", out)):
+        if t.device != device:
+            raise ValueError(f"{what} is on {t.device}, expected {device}")
+        if t.dtype != msg.dtype or t.dtype not in ACCUM_DTYPE_CODES:
+            raise ValueError(
+                f"{what} has dtype {t.dtype}; ring_accum_kernel takes one of "
+                f"{sorted(map(str, ACCUM_DTYPE_CODES))} for all three")
+        if t.dim() != 1 or t.numel() != msg.numel() or not t.is_contiguous():
+            raise ValueError(f"{what} must be 1-D, contiguous, of "
+                             f"{msg.numel()} elements; got {tuple(t.shape)}")
+    if msg.numel() == 0:
+        return out
+    rc = _accum_lib().ring_accum(
+        msg.data_ptr(), chunk.data_ptr(), out.data_ptr(), msg.numel(),
+        ACCUM_DTYPE_CODES[msg.dtype], device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_accum_kernel launch failed: CUDA error {rc}")
+    ACCUM_LAUNCHES += 1
+    return out

@@ -1,4 +1,5 @@
-"""Fused comm staging: the public API (``repro/kernels/collectives/ops.py``).
+"""Fused comm staging and the ring collectives: the public API
+(``repro/kernels/collectives/ops.py``).
 
 ``fused_pack``/``fused_unpack`` stage one bucket in one pass each way:
 on CUDA tensors through the hand-written kernels (``kernel.py``), on CPU
@@ -9,12 +10,25 @@ The reference's ``xla`` tier has no counterpart.
 Buckets holding a dtype the kernels do not take (``staging_supported``
 is False: integer or complex leaves) never come here — the emitter
 stages them leafwise, as the reference does.
+
+``ring_reduce_scatter``/``ring_all_gather``/``ring_allreduce`` run the
+chunked, bidirectional rings of ``ref.py`` over a bucket's communicator.
+Each hop's combine is the CUDA ``ring_accum_kernel`` on CUDA tensors and
+its plain version ``ref.ring_accum_ref`` (``torch.add``) on CPU tensors:
+the two round alike, so no result differs.
+(The reference runs its Pallas combine only when asked,
+``use_accum_kernel``; here the device decides, as for staging.)  Rank
+``r`` owns chunk ``r`` after the reduce-scatter, so they stand in for
+``reduce_scatter_tensor``/``all_gather_into_tensor``: the ``ring``
+reducer, rsag's two-phase ops and compressed_ring's gather phase.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.kernels.collectives import kernel, ref
 
@@ -68,3 +82,82 @@ def fused_unpack(bucket, buf: torch.Tensor, flat_out: list[torch.Tensor], *,
                                  [l.dtype for l in bucket.leaves], scale=scale)
     for t, piece in zip(outs, pieces):
         t.view(-1).copy_(piece)
+
+
+# ---------------------------------------------------------------- rings
+
+def _ring_axes(axes: Sequence[str],
+               mesh_shape: Mapping[str, int]) -> list[tuple[str, int]]:
+    return [(a, int(mesh_shape[a])) for a in axes
+            if int(mesh_shape.get(a, 1)) > 1]
+
+
+def group_size(axes: Sequence[str], mesh_shape: Mapping[str, int]) -> int:
+    g = 1
+    for _, s in _ring_axes(axes, mesh_shape):
+        g *= s
+    return g
+
+
+def _ring_size(axes: Sequence[str], mesh_shape: Mapping[str, int],
+               group: dist.ProcessGroup) -> int:
+    """The ring's size, checked against ``group``.  The reference
+    decomposes a group over several axes of size > 1 axis by axis; that
+    needs a communicator per axis, which comes with tensor parallelism."""
+    ring = _ring_axes(axes, mesh_shape)
+    if len(ring) > 1:
+        raise NotImplementedError(
+            f"a ring over several mesh axes {ring} needs a communicator per "
+            f"axis: ROADMAP queue 1 item 9")
+    g = ring[0][1] if ring else 1
+    if g > 1 and dist.get_world_size(group) != g:
+        raise ValueError(f"axes {tuple(axes)} make a ring of {g}, the "
+                         f"communicator holds {dist.get_world_size(group)} ranks")
+    return g
+
+
+def _accum(device: torch.device):
+    """The per-hop combine for tensors on ``device``; on CUDA it writes
+    into the received buffer."""
+    if device.type == "cuda":
+        return lambda msg, chunk: kernel.ring_accum_kernel(msg, chunk, out=msg)
+    return ref.ring_accum_ref
+
+
+def ring_reduce_scatter(buf: torch.Tensor, axes: tuple[str, ...],
+                        mesh_shape: Mapping[str, int],
+                        group: dist.ProcessGroup, *,
+                        bidirectional: bool = True) -> torch.Tensor:
+    """(n,) buffer, n divisible by the group size → (n/g,) shard."""
+    if _ring_size(axes, mesh_shape, group) == 1:
+        return buf
+    return ref.ring_reduce_scatter_ref(buf, group, bidirectional=bidirectional,
+                                       accum=_accum(buf.device))
+
+
+def ring_all_gather(shard: torch.Tensor, axes: tuple[str, ...],
+                    mesh_shape: Mapping[str, int],
+                    group: dist.ProcessGroup, *,
+                    bidirectional: bool = True) -> torch.Tensor:
+    """(n/g,) owned shard → (n,) full buffer."""
+    if _ring_size(axes, mesh_shape, group) == 1:
+        return shard
+    return ref.ring_all_gather_ref(shard, group, bidirectional=bidirectional)
+
+
+def ring_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
+                   mesh_shape: Mapping[str, int], group: dist.ProcessGroup, *,
+                   bidirectional: bool = True) -> torch.Tensor:
+    """Chunked ring allreduce = ring RS → ring AG (pads internally)."""
+    g = _ring_size(axes, mesh_shape, group)
+    if g == 1:
+        return buf
+    n = buf.numel()
+    pad = (-n) % g
+    if pad:
+        buf = F.pad(buf, (0, pad))
+    shard = ring_reduce_scatter(buf, axes, mesh_shape, group,
+                                bidirectional=bidirectional)
+    full = ring_all_gather(shard, axes, mesh_shape, group,
+                           bidirectional=bidirectional)
+    return full[:n] if pad else full

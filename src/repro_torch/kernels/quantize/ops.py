@@ -1,0 +1,39 @@
+"""int8 block quantize / dequantize on 1-D buffers: the public API
+(``repro/kernels/quantize/ops.py``), in the comm-buffer layout the
+compressed reducer uses.
+
+On CUDA tensors both launch the hand-written kernels (``kernel.py``); on
+CPU tensors they run the plain versions (``ref.py``).  The device of the
+tensors decides; a CUDA tensor never reaches the plain version here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.quantize import kernel, ref
+from repro_torch.kernels.quantize.kernel import BLOCK
+
+
+def quantize_blocks(buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """buf: (n,) f32, n % 256 == 0 → (q (n,) int8, scales (n/256,) f32)."""
+    if buf.dim() != 1 or buf.numel() % BLOCK:
+        raise ValueError(f"expected a 1-D buffer of a multiple of {BLOCK} "
+                         f"elements, got {tuple(buf.shape)}")
+    x = buf.reshape(-1, BLOCK)
+    if x.device.type == "cuda":
+        q, s = kernel.quantize_blocks_kernel(x)
+    else:
+        q, s = ref.quantize_ref(x)
+    return q.reshape(-1), s
+
+
+def dequantize_blocks(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """q: (n,) int8, s: (n/256,) f32 → (n,) f32."""
+    if q.device != s.device:
+        raise ValueError(f"q is on {q.device}, scales on {s.device}")
+    qb = q.reshape(-1, BLOCK)
+    if qb.device.type == "cuda":
+        x = kernel.dequantize_blocks_kernel(qb, s)
+    else:
+        x = ref.dequantize_ref(qb, s)
+    return x.reshape(-1)

@@ -7,6 +7,7 @@ sizes.  Data parallelism spans every rank of the process group; the
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import socket
 
@@ -43,17 +44,24 @@ def _free_port() -> int:
 
 
 def init_dist(device: str | torch.device = "cuda", *,
+              backend: str | None = None,
               init_method: str | None = None, rank: int | None = None,
-              world_size: int | None = None) -> tuple[int, int]:
+              world_size: int | None = None,
+              timeout: datetime.timedelta | None = None) -> tuple[int, int]:
     """Initialize the default process group once; returns (rank, world).
 
-    NCCL for ``cuda``, gloo for ``cpu``.  Rank and world come from the
-    arguments, else from the environment (``RANK``/``WORLD_SIZE``/
-    ``MASTER_ADDR``, as ``torchrun`` sets them), else a one-rank group on
-    a free localhost port.  A second call returns the existing group's
-    rank and world.  The port's communicators name their backend
-    themselves, so a CPU run can share a process with an NCCL default
-    group.
+    ``backend`` None is NCCL for ``cuda`` and gloo for ``cpu``.  Naming
+    gloo for ``cuda`` runs every rank's compute on its card and the
+    collectives through pinned host memory (``core/dependency.py``):
+    several ranks can then share one card, which NCCL refuses.  The
+    communicators the port creates later take the default group's
+    backend, except that CPU tensors always get gloo ones: a CPU run can
+    share a process with an NCCL default group.  Rank ``r`` uses card
+    ``r % device_count``.  Rank and world come from the arguments, else
+    from the environment (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``, as
+    ``torchrun`` sets them), else a one-rank group on a free localhost
+    port.  A second call returns the existing group's rank and world.
+    ``timeout`` bounds every collective's wait (torch's default if None).
     """
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
@@ -69,6 +77,7 @@ def init_dist(device: str | torch.device = "cuda", *,
     if device.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", rank or 0)) % torch.cuda.device_count()
         torch.cuda.set_device(local)
-    dist.init_process_group(backend_for(device), init_method=init_method,
-                            rank=rank, world_size=world_size)
+    dist.init_process_group(backend or backend_for(device),
+                            init_method=init_method, rank=rank,
+                            world_size=world_size, timeout=timeout)
     return dist.get_rank(), dist.get_world_size()

@@ -23,6 +23,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core import GradSync, GradSyncConfig, get_strategy
+from repro_torch.core import dependency as dep
 from repro_torch.core.dependency import chain_groups, resolve_device
 from repro_torch.models.registry import family_of
 from repro_torch.optim.optimizers import (
@@ -109,7 +110,7 @@ def make_train_step(
             apply_updates(params, updates)
         with record_function("step.loss_allreduce"):
             loss = loss.detach()
-            dist.all_reduce(loss, group=loss_group)
+            dep.collective(dist.all_reduce, loss_group, loss).wait()
         return model, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return TrainStep(step, gs, device)

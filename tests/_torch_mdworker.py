@@ -1,16 +1,33 @@
-"""One rank of the port's multi-rank checks (tests/test_torch_multirank.py).
+"""Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
-    python tests/_torch_mdworker.py <workdir> <rank> <world>
+    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed]
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed>
 
-Meets the other ranks on a gloo FileStore in ``workdir``, reads the
-carried weights from ``workdir/params.npz``, and for each strategy
-computes its shard's ResNet smoke gradients, reduces them through the
-port's ``GradSync`` and writes them to ``workdir/<strategy>_rank<r>.npz``.
-Then the paper's KVStore depcha push/pull round trip: each rank pushes a
-power-of-two share of the values, so the pulled sums are exact; the
-pulled values, and what ``init`` broadcast from rank 0, go to
-``workdir/kvstore_rank<r>.npz``.
+A port rank meets the other ranks on a gloo FileStore in ``workdir``:
+
+  grads       (tests/test_torch_multirank.py, the default) reads the
+              carried weights from ``workdir/params.npz`` and, for each
+              (strategy, reducer) of ``CONFIGS``, computes its shard's
+              ResNet smoke gradients, reduces them through the port's
+              ``GradSync`` and writes them to ``<name>_rank<r>.npz``; for
+              the compressed reducers also the local gradients before the
+              reduction (``<name>_local_rank<r>.npz``) and, from rank 0,
+              the leaves of each bucket (``<name>_buckets.json``).  Then
+              the paper's KVStore depcha push/pull round trip: each rank
+              pushes a power-of-two share of the values, so the pulled
+              sums are exact; the pulled values, and what ``init``
+              broadcast from rank 0, go to ``kvstore_rank<r>.npz``.
+  rings       (tests/test_torch_ring.py) the ring reduce-scatter,
+  compressed  all-gather and allreduce, or the compressed allreduce, over
+              the seeded buffers of ``workdir/inputs.npz`` (row r is rank
+              r's buffer); results to ``<mode>_rank<r>.npz``.
+
+``jax`` runs the JAX package's functions on the same inputs on 4 fake CPU
+devices (as ``tests/_mdworker.py`` does with 8) and writes
+``<mode>_jax.npz`` with rank r's result in row r.  Only that mode imports
+JAX.
 """
+import json
 import os
 import sys
 
@@ -18,57 +35,205 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
-import torch.distributed as dist  # noqa: E402
 
-from repro_torch.configs.resnet50_cifar import make_smoke  # noqa: E402
-from repro_torch.core import GradSync, GradSyncConfig, KVStore  # noqa: E402
-from repro_torch.data import ImagePipeline  # noqa: E402
-from repro_torch.launch.mesh import init_dist, make_dp_mesh  # noqa: E402
-from repro_torch.models import resnet  # noqa: E402
-from repro_torch.utils.convert import params_from_numpy  # noqa: E402
-from repro_torch.utils.trees import flatten_with_names, tree_unflatten  # noqa: E402
-
-STRATEGIES = ("funnel", "concom", "depcha", "rsag")
+WORLD = 4
 GLOBAL_BATCH = 8
 SHARES = (0.125, 0.25, 0.125, 0.5)   # sum to 1 exactly, in any order
+# (strategy, reducer) -> output name; the flat ones keep their strategy's name
+CONFIGS = {
+    ("funnel", "flat"): "funnel", ("concom", "flat"): "concom",
+    ("depcha", "flat"): "depcha", ("rsag", "flat"): "rsag",
+    ("funnel", "ring"): "funnel-ring", ("concom", "ring"): "concom-ring",
+    ("depcha", "ring"): "depcha-ring", ("rsag", "ring"): "rsag-ring",
+    ("funnel", "compressed"): "funnel-compressed",
+    ("funnel", "compressed_ring"): "funnel-compressed_ring",
+}
+# ring cases: name -> (input key, ring of 4 or pairs of 2, bidirectional)
+RING_CASES = {
+    "rs_bidi": ("rs", 4, True), "rs_uni": ("rs", 4, False),
+    "rs_c1": ("rs_c1", 4, True),           # half-chunk 0: the one-way path
+    "ag_bidi": ("ag", 4, True), "ag_uni": ("ag", 4, False),
+    "ar_bidi": ("ar", 4, True), "ar_uni": ("ar", 4, False),
+    "rs2_bidi": ("rs2", 2, True), "rs2_uni": ("rs2", 2, False),
+    "ag2_bidi": ("ag2", 2, True), "ar2_bidi": ("ar2", 2, True),
+}
+COMPRESSED_CASES = {"compressed": False, "compressed_ring": True}
 
 
-def main(workdir: str, rank: int, world: int) -> None:
+def _grads(workdir: str, rank: int) -> None:
+    import torch
+
+    from repro_torch.configs.resnet50_cifar import make_smoke
+    from repro_torch.core import GradSync, GradSyncConfig, KVStore
+    from repro_torch.data import ImagePipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models import resnet
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    cfg = make_smoke()
+    mesh = make_dp_mesh()
+    named = dict(np.load(os.path.join(workdir, "params.npz")))
+    batch = ImagePipeline(cfg.img_size, cfg.num_classes, GLOBAL_BATCH,
+                          mesh=mesh, rank=rank, device="cpu").batch_at(0)
+    for (strategy, reducer), name in CONFIGS.items():
+        tree = params_from_numpy(named, "cpu")
+        leaves, treedef = flatten_with_names(tree)
+        for _, p in leaves:
+            p.requires_grad_(True)
+        resnet.train_forward(tree, batch, cfg).backward()
+        gs = GradSync(GradSyncConfig(strategy=strategy, reducer=reducer,
+                                     num_channels=4, bucket_bytes=64 * 1024),
+                      mesh, resnet.param_specs(tree), tree, device="cpu")
+        if reducer.startswith("compressed"):
+            np.savez(os.path.join(workdir, f"{name}_local_rank{rank}.npz"),
+                     **{n: p.grad.numpy().copy() for n, p in leaves})
+            if rank == 0:
+                with open(os.path.join(workdir, f"{name}_buckets.json"), "w") as f:
+                    json.dump([[l.name for l in b.leaves]
+                               for b in gs.plan.buckets], f)
+        reduced = gs(tree_unflatten(treedef, [p.grad for _, p in leaves]))
+        np.savez(os.path.join(workdir, f"{name}_rank{rank}.npz"),
+                 **{n: g.numpy() for n, g in flatten_with_names(reduced)[0]})
+
+    kv = KVStore.create("depcha", reduce_axes=("data",), num_channels=2,
+                        mesh_shape=mesh.shape, device="cpu")
+    values = {k: torch.ones(8, 8) * (k + 1) for k in range(4)}
+    for key in range(4):
+        kv.push(key, values[key] * SHARES[rank])
+    pulled = {str(key): kv.pull(key).numpy() for key in range(4)}
+    # paper Fig 4: every rank ends with rank 0's initial value
+    pulled["init"] = kv.init(7, torch.full((3, 5), float(rank + 1))).numpy()
+    np.savez(os.path.join(workdir, f"kvstore_rank{rank}.npz"), **pulled)
+
+
+def _rings(workdir: str, rank: int) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.collectives import ops
+
+    inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    groups = {4: dist.new_group(list(range(WORLD)), backend="gloo")}
+    pairs = [dist.new_group([0, 1], backend="gloo"),
+             dist.new_group([2, 3], backend="gloo")]
+    groups[2] = pairs[rank // 2]
+    fns = {"rs": ops.ring_reduce_scatter, "ag": ops.ring_all_gather,
+           "ar": ops.ring_allreduce}
+    out = {}
+    for case, (key, g, bidi) in RING_CASES.items():
+        axis = "data" if g == 4 else "ring"
+        x = torch.from_numpy(inputs[key][rank])
+        out[case] = fns[key[:2]](x, (axis,), {axis: g}, groups[g],
+                                 bidirectional=bidi).numpy()
+    return out
+
+
+def _compressed(workdir: str, rank: int) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.compression import compressed_allreduce
+
+    x = np.load(os.path.join(workdir, "inputs.npz"))["compressed"][rank]
+    group = dist.new_group(list(range(WORLD)), backend="gloo")
+    return {case: compressed_allreduce(torch.from_numpy(x), ("data",),
+                                       {"data": WORLD}, group,
+                                       use_ring=use_ring).numpy()
+            for case, use_ring in COMPRESSED_CASES.items()}
+
+
+def run_all(workdir, mode: str, *, reference_too: bool = False,
+            timeout: int = 300) -> None:
+    """Run the 4 port ranks of ``mode`` (and the JAX reference of it) in
+    ``workdir`` at once; raise with a failing process's output."""
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    cmds = [[sys.executable, __file__, str(workdir), str(r), str(WORLD), mode]
+            for r in range(WORLD)]
+    if reference_too:
+        cmds.append([sys.executable, __file__, str(workdir), "jax", mode])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(c[2:])} failed:\n{out[-3000:]}")
+
+
+def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_dist
+
     torch.set_num_threads(1)
     init_dist("cpu", init_method=f"file://{workdir}/store", rank=rank,
               world_size=world)
     try:
-        cfg = make_smoke()
-        mesh = make_dp_mesh()
-        named = dict(np.load(os.path.join(workdir, "params.npz")))
-        batch = ImagePipeline(cfg.img_size, cfg.num_classes, GLOBAL_BATCH,
-                              mesh=mesh, rank=rank, device="cpu").batch_at(0)
-        for strategy in STRATEGIES:
-            tree = params_from_numpy(named, "cpu")
-            leaves, treedef = flatten_with_names(tree)
-            for _, p in leaves:
-                p.requires_grad_(True)
-            resnet.train_forward(tree, batch, cfg).backward()
-            gs = GradSync(GradSyncConfig(strategy=strategy, num_channels=4,
-                                         bucket_bytes=64 * 1024),
-                          mesh, resnet.param_specs(tree), tree, device="cpu")
-            reduced = gs(tree_unflatten(treedef, [p.grad for _, p in leaves]))
-            np.savez(os.path.join(workdir, f"{strategy}_rank{rank}.npz"),
-                     **{n: g.numpy() for n, g in flatten_with_names(reduced)[0]})
-
-        kv = KVStore.create("depcha", reduce_axes=("data",), num_channels=2,
-                            mesh_shape=mesh.shape, device="cpu")
-        values = {k: torch.ones(8, 8) * (k + 1) for k in range(4)}
-        for key in range(4):
-            kv.push(key, values[key] * SHARES[rank])
-        pulled = {str(key): kv.pull(key).numpy() for key in range(4)}
-        # paper Fig 4: every rank ends with rank 0's initial value
-        pulled["init"] = kv.init(7, torch.full((3, 5), float(rank + 1))).numpy()
-        np.savez(os.path.join(workdir, f"kvstore_rank{rank}.npz"), **pulled)
+        if mode == "grads":
+            _grads(workdir, rank)
+        else:
+            out = {"rings": _rings, "compressed": _compressed}[mode](workdir, rank)
+            np.savez(os.path.join(workdir, f"{mode}_rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
 
 
+def reference(workdir: str, mode: str) -> None:
+    """The JAX package's rings or compressed allreduce on 4 fake devices."""
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
+    import repro  # noqa: F401  (applies the jaxcompat shim before jax imports)
+    import jax
+    from jax.sharding import AxisType
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core.compression import compressed_allreduce
+    from repro.kernels.collectives import ops
+
+    inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    mesh4 = jax.make_mesh((WORLD,), ("data",), axis_types=(AxisType.Auto,))
+    mesh22 = jax.make_mesh((2, 2), ("pair", "ring"),
+                           axis_types=(AxisType.Auto,) * 2)
+
+    def per_rank(fn, x, mesh, spec):
+        """Row r of ``x`` to device r, ``fn`` on each, rows back."""
+        run = jax.jit(lambda v: jax.shard_map(
+            fn, mesh=mesh, in_specs=(spec,), out_specs=spec,
+            check_vma=False)(v))
+        return np.asarray(run(x.reshape(-1))).reshape(WORLD, -1)
+
+    out = {}
+    if mode == "rings":
+        fns = {"rs": ops.ring_reduce_scatter, "ag": ops.ring_all_gather,
+               "ar": ops.ring_allreduce}
+        for case, (key, g, bidi) in RING_CASES.items():
+            axis = "data" if g == 4 else "ring"
+            mesh, spec = ((mesh4, P("data")) if g == 4
+                          else (mesh22, P(("pair", "ring"))))
+            fn = (lambda v, _f=fns[key[:2]], _a=axis, _g=g, _b=bidi:
+                  _f(v, (_a,), {_a: _g}, bidirectional=_b))
+            out[case] = per_rank(fn, inputs[key], mesh, spec)
+    else:
+        for case, use_ring in COMPRESSED_CASES.items():
+            fn = (lambda v, _r=use_ring: compressed_allreduce(
+                v, ("data",), group_size=WORLD, use_ring=_r))
+            out[case] = per_rank(fn, inputs["compressed"], mesh4, P("data"))
+    np.savez(os.path.join(workdir, f"{mode}_jax.npz"), **out)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[2] == "jax":
+        reference(sys.argv[1], sys.argv[3])
+    else:
+        main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:])

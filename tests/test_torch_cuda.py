@@ -1,4 +1,5 @@
-"""The serving slices' CUDA kernels and engines on the card.
+"""The port's CUDA kernels and engines on the card: the serving slices'
+kernels and engines, and the ring-hop combine and int8 block kernels.
 
 This module imports neither ``jax`` nor ``repro``, so it runs on a
 machine with a GPU and no JAX; there ``tests/conftest.py`` (which imports
@@ -17,7 +18,12 @@ import torch
 
 from repro_torch.configs.qwen3_1_7b import make_smoke as qwen3_smoke
 from repro_torch.configs.rwkv6_7b import make_smoke as rwkv_smoke
+from repro_torch.kernels.collectives import kernel as coll_kernel
+from repro_torch.kernels.collectives import ref as coll_ref
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.kernels.quantize import kernel as quant_kernel
+from repro_torch.kernels.quantize import ops as quant_ops
+from repro_torch.kernels.quantize import ref as quant_ref
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
@@ -136,6 +142,58 @@ def test_cuda_rwkv_static_engine_matches_cpu(cuda):
         # 23 tokens in chunks of 16: 2 a layer, then 1 a layer per decode step
         assert launched == (0 if dev == "cpu" else cfg.n_layers * (2 + 5))
     np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n,offset", [(100, 0), (4096, 0), (131072, 0),
+                                      (131071, 1), (294912, 0), (1, 0)])
+def test_cuda_ring_accum_matches_plain(cuda, dtype, n, offset):
+    """Bit for bit with torch.add, aligned or not, into a new tensor and
+    into the received buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    a, b = (torch.randn(n + offset, generator=gen, device=cuda)
+            .to(getattr(torch, dtype))[offset:] for _ in range(2))
+    want = coll_ref.ring_accum_ref(a, b)
+    before = coll_kernel.ACCUM_LAUNCHES
+    got = coll_kernel.ring_accum_kernel(a, b)
+    inplace = a.clone()
+    coll_kernel.ring_accum_kernel(inplace, b, out=inplace)
+    torch.cuda.synchronize()
+    assert coll_kernel.ACCUM_LAUNCHES == before + 2
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(inplace), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [1, 7, 64, 1024, 9216])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_cuda_quantize_matches_plain(cuda, n_blocks, scale):
+    """q, scales and dequantized values bit for bit, with a zero block and
+    blocks of exact .5 ties (scale 1 and 2)."""
+    rng = np.random.default_rng(n_blocks)
+    x = (rng.standard_normal((n_blocks + 3, 256)) * scale).astype(np.float32)
+    x[0] = 0.0
+    x[1] = np.clip(np.arange(-127, 129), None, 126) + 0.5
+    x[1, 0] = 127.0
+    x[2] = 2 * (np.arange(256) % 254 - 127) + 1
+    x[2, 0] = -254.0
+    xt = torch.from_numpy(x).to(cuda)
+    before = (quant_kernel.QUANTIZE_LAUNCHES, quant_kernel.DEQUANTIZE_LAUNCHES)
+    q, s = quant_ops.quantize_blocks(xt.reshape(-1))
+    d = quant_ops.dequantize_blocks(q, s)
+    torch.cuda.synchronize()
+    assert (quant_kernel.QUANTIZE_LAUNCHES, quant_kernel.DEQUANTIZE_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    q_p, s_p = quant_ref.quantize_ref(xt)
+    assert torch.equal(q.reshape(-1, 256), q_p)
+    assert torch.equal(_bits(s), _bits(s_p))
+    assert torch.equal(_bits(d), _bits(quant_ref.dequantize_ref(q_p, s_p).reshape(-1)))
+    assert s[1].item() == 1.0 and s[2].item() == 2.0
 
 
 def _to(tree, device):

@@ -14,14 +14,19 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PKG = SRC / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py"))
-# the serving slices' modules, which the checks below must reach
+# the serving and reducer slices' modules, which the checks below must reach
 SERVING = (
     "repro_torch.configs.qwen3_1_7b",
     "repro_torch.configs.rwkv6_7b",
+    "repro_torch.core.compression",
     "repro_torch.kernels._build",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.quantize",
+    "repro_torch.kernels.quantize.kernel",
+    "repro_torch.kernels.quantize.ops",
+    "repro_torch.kernels.quantize.ref",
     "repro_torch.kernels.rwkv6.kernel",
     "repro_torch.kernels.rwkv6.ops",
     "repro_torch.kernels.rwkv6.ref",

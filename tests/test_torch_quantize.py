@@ -1,0 +1,119 @@
+"""The port's int8 block quantize/dequantize against the JAX package.
+
+``quantize_ref``/``dequantize_ref`` (the plain versions the CUDA kernels
+are held against on the card, and what ``ops.quantize_blocks``/
+``dequantize_blocks`` run on CPU tensors) must agree BIT-exactly with the
+Pallas kernels run in interpret mode, as the JAX package's own tests run
+them, and with ``repro/core/compression.py::quantize_blockwise`` compiled
+as the reference's reducer runs it (under ``jax.jit``, where XLA turns
+``amax / 127.0`` into a product with the f32 reciprocal, as the port
+does): an amax, that product, one IEEE division, round-half-even and one
+product round the same way in both.  The CUDA kernels are held against
+the plain versions by ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.compression import dequantize_blockwise as ref_dequantize_blockwise
+from repro.core.compression import quantize_blockwise as ref_quantize_blockwise
+from repro.kernels.quantize.kernel import dequantize_blocks_kernel, quantize_blocks_kernel
+from repro_torch.kernels.quantize import kernel, ops, ref
+
+BLOCK = 256
+
+
+def _blocks(n_blocks: int, scale: float, seed: int = 1) -> np.ndarray:
+    """Seeded normal blocks, with an all-zero block and blocks whose
+    x/scale lands on exact .5 ties (scale 1 and scale 2)."""
+    x = np.random.default_rng(seed).standard_normal((n_blocks, BLOCK))
+    x = (x * scale).astype(np.float32)
+    x[0] = 0.0
+    x[1, :] = np.linspace(-126.5, 126.5, BLOCK, dtype=np.float32).round() + 0.5
+    x[1, 0] = 127.0                                   # amax 127: scale 1
+    x[2, :] = 2 * (np.arange(BLOCK, dtype=np.float32) % 254 - 127) + 1
+    x[2, 0] = -254.0                                  # amax 254: scale 2
+    return x
+
+
+@pytest.mark.parametrize("n_blocks", [64, 128, 1024])     # tests/test_kernels.py:42
+@pytest.mark.parametrize("scale", [1e-4, 1.0, 1e3])
+def test_plain_versions_match_pallas_kernels_bit_exactly(n_blocks, scale):
+    x = _blocks(n_blocks, scale)
+    q_j, s_j = quantize_blocks_kernel(jnp.asarray(x), interpret=True)
+    q_t, s_t = ref.quantize_ref(torch.from_numpy(x))
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy().view(np.uint32),
+                                  np.asarray(s_j).view(np.uint32))
+    d_j = dequantize_blocks_kernel(q_j, s_j, interpret=True)
+    d_t = ref.dequantize_ref(q_t, s_t)
+    np.testing.assert_array_equal(d_t.numpy().view(np.uint32),
+                                  np.asarray(d_j).view(np.uint32))
+
+
+@pytest.mark.parametrize("n_blocks", [3, 64, 1024])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_ops_match_compression_quantize_blockwise(n_blocks, scale):
+    """The 1-D API the compressed reducer calls, against the jnp math the
+    reference's reducer calls, compiled as it runs there."""
+    x = _blocks(n_blocks, scale, seed=2).reshape(-1)
+    q_j, s_j = jax.jit(ref_quantize_blockwise)(jnp.asarray(x))
+    q_t, s_t = ops.quantize_blocks(torch.from_numpy(x))
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy().view(np.uint32),
+                                  np.asarray(s_j).view(np.uint32))
+    d_t = ops.dequantize_blocks(q_t, s_t)
+    d_j = jax.jit(ref_dequantize_blockwise)(q_j, s_j)
+    np.testing.assert_array_equal(d_t.numpy().view(np.uint32),
+                                  np.asarray(d_j).view(np.uint32))
+
+
+def test_zero_block_and_ties():
+    """Scale 1 for an all-zero block; x/scale on .5 rounds half to even."""
+    x = _blocks(4, 1.0)
+    q, s = ref.quantize_ref(torch.from_numpy(x))
+    assert s[0].item() == 1.0 and not q[0].any()
+    assert s[1].item() == 1.0 and s[2].item() == 2.0
+    for row in (1, 2):
+        y = x[row] / s[row].item()
+        ties = y != np.trunc(y)
+        assert ties.sum() > 100
+        np.testing.assert_array_equal(q[row].numpy()[ties], np.round(y[ties]))
+        assert np.all(q[row].numpy()[ties] % 2 == 0)
+
+
+def test_scale_is_the_compiled_reciprocal_product():
+    """amax · fl(1/127), as XLA compiles the reference's amax / 127.0 —
+    which is not always the IEEE quotient."""
+    amax = np.abs(np.random.default_rng(4).standard_normal(4096)).astype(np.float32)
+    x = np.zeros((amax.size, BLOCK), np.float32)
+    x[:, 7] = amax
+    _, s = ref.quantize_ref(torch.from_numpy(x))
+    want = amax * (np.float32(1) / np.float32(127))
+    np.testing.assert_array_equal(s.numpy().view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(
+        s.numpy().view(np.uint32),
+        np.asarray(jax.jit(lambda a: a / 127.0)(amax)).view(np.uint32))
+    assert np.any(want != amax / np.float32(127))
+
+
+def test_quantization_error_is_within_half_a_step():
+    x = _blocks(64, 1.0, seed=3)
+    q, s = ref.quantize_ref(torch.from_numpy(x))
+    err = np.abs(x - ref.dequantize_ref(q, s).numpy())
+    assert np.all(err <= s.numpy()[:, None] * 0.5 + 1e-7)
+
+
+def test_ops_refuse_a_ragged_buffer():
+    with pytest.raises(ValueError, match="multiple of 256"):
+        ops.quantize_blocks(torch.zeros(300))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.quantize_blocks_kernel(torch.zeros(2, BLOCK))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.dequantize_blocks_kernel(torch.zeros(2, BLOCK, dtype=torch.int8),
+                                        torch.ones(2))
