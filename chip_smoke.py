@@ -49,6 +49,24 @@ Phases, in order; any failure raises and exits non-zero:
               the kernel = with the plain add, bit for bit; the launch
               counts of the three kernels exactly as ``step_launches``
               predicts from the plan.
+  hierarchical four rank processes on the one card as ``reducers``, on
+              pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
+              reduce-scatter and all-gather (the intra-pod rings, through
+              CUDA IPC) against the plain rings, bit for bit: f32 and bf16,
+              uni- and bidirectional, the 24 bucket sizes padded to the
+              ring, c = 1 and an odd c, back to back with no host sync,
+              and on two chains (streams, rings) at once; each timed over
+              a ResNet-50 step (24 calls) with CUDA events and
+              torch.profiler beside the plain ring and the byte bound.
+              Then full-width ResNet-50 at global batch 256, 1 warm-up + 2
+              steps of funnel x {flat, hierarchical, hierarchical_ring}
+              and concom x hierarchical_ring on pod 2 x data 2 and funnel
+              x hierarchical_ring on pod 1 x data 4: params bit-identical
+              across the ranks after every step, first-step gradients
+              within rtol 1e-5 of flat's, one captured bucket through
+              hierarchical_ring on the kernels = through the plain rings,
+              peer-ring launches exactly as ``hier_launches`` predicts
+              and none of rows 3, 6, 7.
   flash       the flash-attention kernel against its plain version on the
               five tests/test_kernels.py shapes, Qwen3-1.7B's static
               prefill shape (B 4, S 512, 16/8 heads, D 128, bf16) and a
@@ -182,8 +200,8 @@ def phase_build() -> None:
         return build(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    builds = (collectives.build, collectives.build_ring_accum, flash.build,
-              wkv.build, quantize.build)
+    builds = (collectives.build, collectives.build_ring_accum,
+              collectives.build_ring_p2p, flash.build, wkv.build, quantize.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(timed, b) for b in builds]
         built = [f.result() for f in futures]
@@ -807,6 +825,348 @@ def phase_reducers(backend: str = "gloo") -> dict:
         f"kernels and the schedule's order, not a wire" if backend == "gloo"
         else f"{backend}, {RING} processes on {torch.cuda.device_count()} cards")
     log("[reducers] " + json.dumps(res))
+    return res
+
+
+# ------------------------------------------------------- hierarchical reducers
+
+HIER_LAYOUTS = ((2, 2), (1, 4))        # (pods, data ranks a pod) over the RING ranks
+HIER_RUNS = (("funnel", "flat", (2, 2)), ("funnel", "hierarchical", (2, 2)),
+             ("funnel", "hierarchical_ring", (2, 2)),
+             ("concom", "hierarchical_ring", (2, 2)),
+             ("funnel", "hierarchical_ring", (1, 4)))
+HIER_DTYPES = (torch.float32, torch.bfloat16)
+NVLINK_BYTES_PER_S = 450e9     # one direction of one H100's NVLink (data sheet)
+P2P_SOURCE = "src/repro_torch/kernels/collectives/csrc/ring_p2p.cu"
+P2P_REPLACES = {"ring_reduce_scatter_kernel": "src/repro/kernels/collectives/kernel.py:208",
+                "ring_all_gather_kernel": "src/repro/kernels/collectives/kernel.py:227"}
+P2P_NO_LIBRARY = ("none on one card: NCCL refuses two ranks on one device, and the four "
+                  "ranks of this phase share cuda:0")
+
+
+def hier_launches(sizes, reducer: str, data: int) -> dict:
+    """Peer-ring launches of one training step on one rank, from the
+    plan's bucket sizes: ``hierarchical_ring`` reduce-scatters and
+    all-gathers every bucket over the pod's ``data`` ranks, each call one
+    launch a hop plus the hop-0 send, ``data`` in all."""
+    calls = len(sizes) if reducer == "hierarchical_ring" and data > 1 else 0
+    return {"rs": calls * data, "ag": calls * data}
+
+
+def _plain_hier(buf, comm):
+    """``hierarchical_allreduce(use_ring=True)`` through the plain rings."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.core import dependency as dep
+    from repro_torch.kernels.collectives import ref as cr
+
+    n, g = buf.numel(), dist.get_world_size(comm.intra)
+    x = F.pad(buf, (0, (-n) % g))
+    shard = cr.ring_reduce_scatter_ref(x, comm.intra)
+    if dist.get_world_size(comm.inter) > 1:
+        dep.collective(dist.all_reduce, comm.inter, shard).wait()
+    return cr.ring_all_gather_ref(shard, comm.intra)[:n]
+
+
+def _peer_kernel_checks(sizes, layout, gen, say) -> int:
+    """Both peer-ring kernels against the plain rings, bit for bit: every
+    bucket size (padded to the ring), c = 1 and an odd c, f32 and bf16,
+    uni- and bidirectional, back to back with no host sync, then two
+    chains at once on two streams."""
+    import torch.distributed as dist
+
+    from repro_torch.core import dependency as dep
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.collectives import ref as cr
+
+    pods, data = layout
+    comms = dep.pod_comms({0: dist.group.WORLD, 1: dist.group.WORLD}, pods, data,
+                          torch.device("cuda"))
+    lengths = [-(-n // data) * data for n in sizes] + [data, data * 131071]
+    slot = max(lengths) // data * 4
+    rings = [ck.PeerRing(comms[c].intra, slot, chain=c) for c in (0, 1)]
+    intra = comms[0].intra
+    n_checks = 0
+    for dt in HIER_DTYPES:
+        for bidi in (True, False):
+            xs = [torch.randn(n, generator=gen, device="cuda").to(dt) for n in lengths]
+            got = []
+            for x in xs:                          # back to back: no host sync
+                shard = ck.ring_reduce_scatter_kernel(rings[0], x, bidirectional=bidi)
+                got.append((shard, ck.ring_all_gather_kernel(rings[0], shard,
+                                                             bidirectional=bidi)))
+            for x, (shard, full) in zip(xs, got):
+                want = cr.ring_reduce_scatter_ref(x, intra, bidirectional=bidi)
+                same_bits(shard, want, f"peer RS {layout} {dt} bidi={bidi} n={x.numel()}")
+                same_bits(full, cr.ring_all_gather_ref(want, intra, bidirectional=bidi),
+                          f"peer AG {layout} {dt} bidi={bidi} n={x.numel()}")
+                n_checks += 2
+    # two chains at once: buckets alternate between two streams and two rings
+    streams = [torch.cuda.Stream() for _ in rings]
+    xs = [torch.randn(n, generator=gen, device="cuda") for n in lengths]
+    cur = torch.cuda.current_stream()
+    outs = []
+    for i, x in enumerate(xs):
+        c = i % 2
+        streams[c].wait_stream(cur)
+        with torch.cuda.stream(streams[c]):
+            shard = ck.ring_reduce_scatter_kernel(rings[c], x)
+            outs.append((shard, ck.ring_all_gather_kernel(rings[c], shard)))
+            x.record_stream(streams[c])
+    for s in streams:
+        cur.wait_stream(s)
+    for x, (shard, full) in zip(xs, outs):
+        want = cr.ring_reduce_scatter_ref(x, intra)
+        same_bits(shard, want, f"peer RS two chains {layout} n={x.numel()}")
+        same_bits(full, cr.ring_all_gather_ref(want, intra),
+                  f"peer AG two chains {layout} n={x.numel()}")
+        n_checks += 2
+    for ring in rings:
+        ring.close()
+    say(f"[hierarchical] peer rings bit-exact with the plain rings in {n_checks} checks on "
+        f"pod {pods} x data {data}: f32/bf16, uni/bidi, the 24 bucket sizes padded to "
+        f"{data}, c = 1 and c = 131071, back to back, and on two chains at once")
+    return n_checks
+
+
+def _peer_timing(sizes, layout, gen, host, backend: str) -> dict:
+    """One ResNet-50 step of each peer-ring kernel on this rank (24 calls
+    each, f32, bidirectional): CUDA events back to back, device time from
+    torch.profiler, the plain ring's time, the bound and (over NCCL) one
+    library call's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import dependency as dep
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.collectives import ref as cr
+
+    pods, data = layout
+    comm = dep.pod_comms({0: dist.group.WORLD}, pods, data, torch.device("cuda"))[0]
+    xs = [torch.randn(-(-n // data) * data, generator=gen, device="cuda") for n in sizes]
+    shards = [torch.randn(x.numel() // data, generator=gen, device="cuda") for x in xs]
+    ring = ck.PeerRing(comm.intra, max(x.numel() for x in xs) // data * 4, chain=0)
+    c_total = sum(s.numel() for s in shards)
+    hops = data - 1
+    work = {
+        "ring_reduce_scatter_kernel": dict(
+            kernel=lambda: [ck.ring_reduce_scatter_kernel(ring, x) for x in xs],
+            plain=lambda: [cr.ring_reduce_scatter_ref(x, comm.intra) for x in xs],
+            library=lambda: [dist.reduce_scatter_tensor(s, x, group=comm.intra)
+                             for s, x in zip(shards, xs)],
+            library_call="dist.reduce_scatter_tensor (NCCL)",
+            hop_bytes=hops * 3 * c_total * 4),
+        "ring_all_gather_kernel": dict(
+            kernel=lambda: [ck.ring_all_gather_kernel(ring, s) for s in shards],
+            plain=lambda: [cr.ring_all_gather_ref(s, comm.intra) for s in shards],
+            library=lambda: [dist.all_gather_into_tensor(x, s, group=comm.intra)
+                             for s, x in zip(shards, xs)],
+            library_call="dist.all_gather_into_tensor (NCCL)",
+            hop_bytes=hops * 2 * c_total * 4),
+    }
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier(group=host)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    rows = {}
+    for name, w in work.items():
+        reps = 5
+        dist.barrier(group=host)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                w["kernel"]()
+            torch.cuda.synchronize()
+        device_ms = sum(_device_ms(e, self_only=True) for e in prof.key_averages()
+                        if getattr(e, "device_type", None) == DeviceType.CUDA
+                        and "ring_hop_kernel" in e.key) / reps
+        one_card = backend == "gloo"
+        # the function's own bytes on a rank: reduce-scatter reads (g, c)
+        # and writes (c,), all-gather reads (c,) and writes (g, c). One
+        # card: the RING ranks' bytes share one HBM. Four cards: the
+        # larger of a rank's HBM bytes and the (g - 1) c it must send over
+        # NVLink, one direction.
+        rank_bytes = (data + 1) * c_total * 4
+        wire_s = hops * c_total * 4 / NVLINK_BYTES_PER_S
+        if one_card:
+            bound_s, basis = RING * rank_bytes / HBM_BYTES_PER_S, "HBM, the four ranks' bytes"
+        elif wire_s > rank_bytes / HBM_BYTES_PER_S:
+            bound_s, basis = wire_s, "NVLink, the bytes one rank sends"
+        else:
+            bound_s, basis = rank_bytes / HBM_BYTES_PER_S, "HBM, one rank's bytes"
+        rows[name] = dict(
+            ms=timed(w["kernel"], 10), device_ms=device_ms,
+            plain_ms=timed(w["plain"], 2),
+            library_ms=None if one_card else timed(w["library"], 10),
+            library=P2P_NO_LIBRARY if one_card else w["library_call"],
+            max_abs_err=0.0, bound_ms=bound_s * 1e3, bound_by="bytes",
+            bound_basis=basis,
+            bytes=RING * rank_bytes if one_card else rank_bytes,
+            hop_bytes=w["hop_bytes"],
+            launches_per_step=len(xs) * data, layout=list(layout))
+    ring.close()
+    return rows
+
+
+def _hier_rank(rank: int, workdir: str, backend: str) -> None:
+    """One rank of the hierarchical phase: the peer-ring kernels against
+    the plain rings and timed, then every run of ``HIER_RUNS`` from the
+    same seeded weights, checked; results to ``workdir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.resnet50_cifar import make_config
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import ImagePipeline
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.launch.mesh import init_dist, make_pod_mesh
+    from repro_torch.models.resnet import ResNet, init_params
+    from repro_torch.optim import linear_scaling_rule, sgd
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store",
+              rank=rank, world_size=RING, timeout=datetime.timedelta(seconds=300))
+    host = dist.new_group(backend="gloo")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda _m: None)
+    plan, _ = resnet50_plan()
+    sizes = [b.size for b in plan.buckets]
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    out = {"kernel_checks": 0, "timing": {}, "runs": {}}
+    for layout in HIER_LAYOUTS:
+        out["kernel_checks"] += _peer_kernel_checks(sizes, layout, gen, say)
+    for layout in HIER_LAYOUTS:
+        out["timing"][str(layout)] = _peer_timing(sizes, layout, gen, host, backend)
+        say(f"[hierarchical] peer rings on pod {layout[0]} x data {layout[1]}: "
+            + json.dumps(out["timing"][str(layout)]))
+
+    cfg = make_config()
+    grads0 = {}
+    for strategy, reducer, (pods, data) in HIER_RUNS:
+        run = f"{strategy}x{reducer}@{pods}x{data}"
+        mesh = make_pod_mesh(pods, data)
+        pipe = ImagePipeline(cfg.img_size, cfg.num_classes, 256, seed=0, mesh=mesh,
+                             rank=rank, device="cuda")
+        model = ResNet(cfg, init_params(cfg, seed=0, device="cuda"))
+        opt = sgd(linear_scaling_rule(0.1, 256, 256), momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strategy, reducer=reducer),
+                             opt, model=model, clip_norm=1.0, device="cuda")
+        captured = {}
+        if run == "funnelxhierarchical_ring@2x2":
+            ts.gradsync.reducer = _capturing(ts.gradsync.reducer, captured)
+        named = flatten_with_names(model.params_tree())[0]
+        opt_state = opt.init(dict(named))
+        step_sizes = [b.size for b in ts.gradsync.plan.buckets]
+        predicted = {k: v * REDUCER_STEPS for k, v in
+                     hier_launches(step_sizes, reducer, data).items()}
+        predicted.update(accum=0, quantize=0, dequantize=0)
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+        ck.RS_LAUNCHES = ck.AG_LAUNCHES = ck.ACCUM_LAUNCHES = 0
+        qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = 0
+        for step in range(REDUCER_STEPS):
+            model, opt_state, hist = trainer.run(model, opt_state, step + 1,
+                                                 start_step=step)
+            if step == 0:
+                grads0[run] = [p.grad.detach().clone() for _, p in named]
+            _same_on_every_rank([p for _, p in named], f"{run} params after step {step}",
+                                host)
+        launches = {"rs": ck.RS_LAUNCHES, "ag": ck.AG_LAUNCHES,
+                    "accum": ck.ACCUM_LAUNCHES, "quantize": qk.QUANTIZE_LAUNCHES,
+                    "dequantize": qk.DEQUANTIZE_LAUNCHES}
+        if launches != predicted:
+            raise AssertionError(f"{run}: launches {launches}, predicted {predicted}")
+        out["runs"][run] = {
+            "launches": launches, "buckets": len(step_sizes),
+            "chains": len(ts.gradsync.groups),
+            "first_step_ms": trainer.first_step_time * 1e3,
+            "step_ms": [t * 1e3 for t in trainer.step_times],
+            "loss": hist["losses"][-1]}
+        if captured:
+            # one captured bucket: the kernels against the plain rings, bit for bit
+            from repro_torch.core.hierarchical import hierarchical_allreduce
+
+            bucket, inp, _ = max(captured.values(), key=lambda c: c[1].numel())
+            comm = ts.gradsync.groups[0]
+            with_kernels = hierarchical_allreduce(inp.clone(), comm, use_ring=True)
+            same_bits(with_kernels, _plain_hier(inp.clone(), comm),
+                      f"hierarchical_ring of bucket {bucket.bucket_id}: kernels vs plain")
+            comm.ring.check()
+            out["captured_bucket"] = {"bucket": bucket.bucket_id, "elements": inp.numel()}
+        ts.gradsync.close()
+        say(f"[hierarchical] {run}: launches {launches} (= prediction), params "
+            f"bit-identical on the {RING} ranks after each of {REDUCER_STEPS} steps; "
+            f"first step {trainer.first_step_time * 1e3:.1f} ms, then "
+            f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms")
+        del ts, model, opt_state, trainer
+
+    # the same sums in another order: within rtol 1e-5 of flat's first-step grads
+    worst = {}
+    flat = grads0["funnelxflat@2x2"]
+    for run, grads in grads0.items():
+        w = 0.0
+        for a, b in zip(grads, flat):
+            tol = 1e-5 * b.abs().max().item()
+            if not torch.allclose(a, b, rtol=1e-5, atol=tol):
+                raise AssertionError(f"{run} vs flat grads differ by "
+                                     f"{(a - b).abs().max().item()}")
+            w = max(w, (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+        worst[run] = w
+    out["vs_flat_max_diff_over_leaf_absmax"] = worst
+    say(f"[hierarchical] first-step grads within rtol 1e-5 of flat's: {worst}; "
+        f"bucket {out['captured_bucket']['bucket']} through hierarchical_ring on the "
+        f"kernels = through the plain rings, bit for bit")
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_hierarchical(backend: str = "gloo") -> dict:
+    """Four rank processes: the peer-ring kernels and the hierarchical
+    reducers under GradSync at full ResNet-50/CIFAR width, on pod 2 x
+    data 2 and pod 1 x data 4.  With gloo (as ``main`` runs it) all four
+    share the one card; ``backend="nccl"`` needs four cards, one a rank,
+    and the intra-pod rings then cross NVLink."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hierarchical-") as wd:
+        mp.spawn(_hier_rank, args=(wd, backend), nprocs=RING, join=True)
+        ranks = []
+        for r in range(RING):
+            with open(os.path.join(wd, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        if {k: v["launches"] for k, v in res["runs"].items()} != \
+                {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
+            raise AssertionError(f"rank {r} launched other counts than rank 0")
+    res = ranks[0]
+    res["wall_s"] = time.perf_counter() - t0
+    res["transport"] = (
+        f"gloo over pinned host memory for the stock collectives, {RING} processes on "
+        f"one card; the intra-pod rings through CUDA IPC on that card"
+        if backend == "gloo" else
+        f"{backend}, {RING} processes on {torch.cuda.device_count()} cards; the "
+        f"intra-pod rings over NVLink")
+    log("[hierarchical] " + json.dumps(res))
     return res
 
 
@@ -1680,6 +2040,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     reducers = phase_reducers()
+    hier = phase_hierarchical()
     flash_rows = phase_flash()
     serve = phase_serve(smi)
     phase_serve_cpu_vs_gpu()
@@ -1736,6 +2097,16 @@ def main() -> int:
             "launches": sum(run["launches"][counter] for run in runs.values()),
             "launches_by_run": {k: run["launches"][counter] for k, run in runs.items()},
             **r})
+    hier_runs = {k: v for k, v in hier["runs"].items() if "hierarchical_ring" in k}
+    for name, counter in (("ring_reduce_scatter_kernel", "rs"),
+                          ("ring_all_gather_kernel", "ag")):
+        r = hier["timing"][str(HIER_LAYOUTS[0])][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": P2P_SOURCE,
+            "replaces": P2P_REPLACES[name],
+            "launches": sum(run["launches"][counter] for run in hier_runs.values()),
+            "launches_by_run": {k: run["launches"][counter] for k, run in hier_runs.items()},
+            **r, "timing_pod1x4": hier["timing"][str(HIER_LAYOUTS[1])][name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     faulthandler.cancel_dump_traceback_later()

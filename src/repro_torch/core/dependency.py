@@ -11,6 +11,10 @@ directly:
     one ``dist.new_group`` over the same ranks per chain — the paper's
     per-channel communicator).  Collectives on one communicator complete
     in issue order; those on different communicators may overlap.
+  - on a ("pod", "data") mesh the hierarchical reducers take a
+    ``PodComm`` per chain instead (``pod_comms``): the chain's world
+    communicator plus its own intra-pod and inter-pod sub-communicators,
+    so concom's chains still overlap stage by stage.
   - an issued collective is a ``Handle``; ``gate`` waits on the handles
     of an op's ``depends_on`` before the op is issued (the read-tag).
     On NCCL a wait orders the current CUDA stream after the collective
@@ -29,7 +33,8 @@ directly:
 from __future__ import annotations
 
 import contextlib
-from typing import Iterable, Mapping, Sequence
+import dataclasses
+from typing import Any, Iterable, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
@@ -174,6 +179,48 @@ def chain_groups(chains: Iterable[int], device: torch.device
     ranks = list(range(dist.get_world_size()))
     return {c: dist.new_group(ranks, backend=backend_for(device))
             for c in sorted(set(chains))}
+
+
+@dataclasses.dataclass
+class PodComm:
+    """One chain's communicators on a ("pod", "data") mesh, handed to a
+    reducer as its ``group`` (the reducer signature stays
+    ``(buf, bucket, group) -> Handle``; the hierarchical reducers read
+    the sub-groups from it, every other reducer is never given one).
+
+    ``world`` spans every rank (the chain's ``chain_groups`` entry);
+    ``intra`` holds this rank's pod, ranks p·D .. p·D + D − 1 (group
+    rank d); ``inter`` holds the ranks of this rank's data index d in
+    every pod (group rank p).  ``ring`` is the intra-pod peer-memory ring
+    of ``hierarchical_ring`` on CUDA (``kernels/collectives/kernel.py::
+    PeerRing``), None otherwise."""
+
+    world: dist.ProcessGroup
+    intra: dist.ProcessGroup
+    inter: dist.ProcessGroup
+    ring: Any = None
+
+
+def pod_comms(world_groups: Mapping[int, dist.ProcessGroup], pods: int,
+              data: int, device: torch.device) -> dict[int, PodComm]:
+    """A ``PodComm`` per chain of ``world_groups``: one intra-pod group
+    per pod and one inter-pod group per data index, created anew for
+    each chain on ``backend_for(device)``.  Collective: every rank
+    creates every group (``new_group`` is), chains in sorted order, the
+    pods' groups before the data indices'."""
+    if pods * data != dist.get_world_size():
+        raise ValueError(f"a mesh of {pods} pods x {data} ranks does not fit a "
+                         f"world of {dist.get_world_size()}")
+    p, d = divmod(dist.get_rank(), data)
+    backend = backend_for(device)
+    out = {}
+    for c in sorted(world_groups):
+        intra = [dist.new_group([q * data + j for j in range(data)], backend=backend)
+                 for q in range(pods)][p]
+        inter = [dist.new_group([q * data + j for q in range(pods)], backend=backend)
+                 for j in range(data)][d]
+        out[c] = PodComm(world_groups[c], intra, inter)
+    return out
 
 
 class ChainStreams:

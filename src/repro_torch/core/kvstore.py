@@ -6,7 +6,10 @@ from the gradient tree and param specs, it plans the configured
 strategy's ``CommSchedule`` once (inspectable as ``.schedule``), creates
 one communicator and one staging stream per chain, and executes the
 schedule over each step's gradients via
-``repro_torch.core.schedule.execute``.
+``repro_torch.core.schedule.execute``.  With a hierarchical reducer on a
+mesh with a pod axis each chain gets its intra- and inter-pod
+sub-communicators (``dependency.pod_comms``) and, for
+``hierarchical_ring`` on CUDA, its intra-pod ``PeerRing``.
 
 ``KVStore`` reproduces the paper's python API (Figs 3, 5, 8, 10): "push"
 copies a gradient into its comm buffer and issues (or, for depcha,
@@ -38,6 +41,7 @@ from repro_torch.core.schedule import (
     group_size,
 )
 from repro_torch.core.strategies import make_reducer
+from repro_torch.kernels.collectives.kernel import PeerRing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,16 +111,42 @@ class GradSync:
             self.schedule.validate()
 
         chains = [op.chain for op in self.schedule.ops]
-        self.groups = dep.chain_groups(chains, self.device)
-        self.streams = dep.ChainStreams(chains, self.device)
         world = dist.get_world_size()
         for axes in self.schedule.axes_used():
+            # a pod mesh's ("pod", "data", "model") buckets span the world too
             if group_size(axes, self.mesh_shape) != world:
                 raise NotImplementedError(
                     f"buckets reducing over {axes} (a group of "
                     f"{group_size(axes, self.mesh_shape)} of {world} ranks) "
                     f"need sub-communicators: tensor parallelism, ROADMAP "
                     f"queue 1 item 9")
+        self.groups = dep.chain_groups(chains, self.device)
+        self.streams = dep.ChainStreams(chains, self.device)
+        self.rings: list[PeerRing] = []
+        if cfg.reducer.startswith("hierarchical") and "pod" in self.mesh_shape:
+            self.groups = dep.pod_comms(self.groups, self.mesh_shape["pod"],
+                                        self.mesh_shape["data"], self.device)
+            if (cfg.reducer == "hierarchical_ring" and self.device.type == "cuda"
+                    and self.mesh_shape["data"] > 1):
+                slot = self._chunk_bytes(self.mesh_shape["data"])
+                for c, comm in sorted(self.groups.items()):
+                    comm.ring = PeerRing(comm.intra, slot, chain=c)
+                    self.rings.append(comm.ring)
+
+    def _chunk_bytes(self, g: int) -> int:
+        """The largest intra-pod chunk of the schedule, in bytes: a peer
+        ring's message slot."""
+        def itemsize(bucket):
+            dt = bucket.comm_dtype if bucket.comm_dtype is not None else self.plan.comm_dtype
+            return dt.itemsize
+        return max(-(-op.bucket.size // g) * itemsize(op.bucket)
+                   for op in self.schedule.ops)
+
+    def close(self) -> None:
+        """Collective: free the peer rings' buffers (a no-op without them)."""
+        rings, self.rings = self.rings, []
+        for ring in rings:
+            ring.close()
 
     def _two_phase_impl(self) -> str:
         """The reduce-scatter/all-gather transport: ring-family reducers
@@ -129,7 +159,7 @@ class GradSync:
         """Execute the planned schedule over ``grads``; returns the
         reduced gradients (written into ``grads`` in place on the fused
         staging path)."""
-        return execute(
+        out = execute(
             self.schedule, grads, self.plan,
             reducer=self.reducer,
             groups=self.groups,
@@ -139,6 +169,10 @@ class GradSync:
             use_fused_staging=self.cfg.use_fused_staging,
             loss_scale=self.cfg.loss_scale,
             two_phase_impl=self._two_phase_impl())
+        # a peer ring's wait that ran out voids the step: no result returned
+        for ring in self.rings:
+            ring.check()
+        return out
 
 
 class KVStore:

@@ -27,10 +27,16 @@ Reducers, each a ``(buf, bucket, communicator) -> Handle``:
   compressed      — int8 block-quantized two-phase allreduce
                     (``core/compression.py``); flat below 256·g elements.
   compressed_ring — compressed with its gather phase on the ring.
-A ring or compressed reducer is a sequence of collectives run to its end,
-so its handle holds a finished result.  ``hierarchical`` and
-``hierarchical_ring`` are registered under their reference names and
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+  hierarchical    — on a ("pod", "data") mesh the three stages of
+                    ``core/hierarchical.py``: intra-pod reduce-scatter,
+                    inter-pod allreduce of the shard, intra-pod
+                    all-gather; flat otherwise.  Its ``group`` is the
+                    chain's ``dependency.PodComm`` (``GradSync`` builds it).
+  hierarchical_ring — hierarchical with stages 1 and 3 on the intra-pod
+                    ring: the peer-memory ring kernels on CUDA.
+A ring, compressed or hierarchical reducer is a sequence of collectives
+ordered on the current stream (run to its end on the host where the
+transport is host-staged), so its handle needs no work of its own.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ from repro_torch.core import dependency as dep
 from repro_torch.core import registry
 from repro_torch.core.buckets import Bucket, BucketPlan
 from repro_torch.core.compression import compressed_allreduce
-from repro_torch.core.dependency import Handle
+from repro_torch.core.dependency import Handle, PodComm
+from repro_torch.core.hierarchical import flat_allreduce, hierarchical_allreduce
 from repro_torch.core.registry import register_reducer, register_strategy
 from repro_torch.core.schedule import (
     ALL_GATHER,
@@ -68,25 +75,50 @@ def _flat_factory(mesh_shape: dict[str, int], *,
 
     def reduce_flat(buf: torch.Tensor, bucket: Bucket,
                     group: dist.ProcessGroup) -> Handle:
-        work = dep.collective(dist.all_reduce, group, buf)
-        return Handle(work, buf,
+        return Handle(flat_allreduce(buf, group), buf,
                       mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
 
     return reduce_flat
 
 
-def _not_ported(name: str):
-    def factory(mesh_shape: dict[str, int], *,
-                mean_axes: tuple[str, ...] = ()) -> Reducer:
-        raise NotImplementedError(
-            f"reducer {name!r} is not ported yet (ROADMAP queue 1 item 6: "
-            f"it needs a pod axis and intra- and inter-pod communicators)")
-    factory.__doc__ = "Not ported yet: ROADMAP queue 1 item 6."
-    return factory
+def _hier_impl(mesh_shape: dict[str, int], *,
+               mean_axes: tuple[str, ...] = (),
+               use_ring: bool = False) -> Reducer:
+    def reduce_hier(buf: torch.Tensor, bucket: Bucket, group) -> Handle:
+        axes = bucket.reduce_axes
+        scale = mean_scale(axes, mesh_shape, mean_axes)
+        if "pod" in axes and "data" in axes:
+            rest = [(a, mesh_shape[a]) for a in axes
+                    if a not in ("pod", "data") and mesh_shape[a] > 1]
+            if rest:
+                raise NotImplementedError(
+                    f"a hierarchical reduction also over {rest} needs a "
+                    f"communicator per axis: ROADMAP queue 1 item 9")
+            if not isinstance(group, PodComm):
+                raise ValueError(
+                    "the hierarchical reducers take a dependency.PodComm per chain "
+                    "(GradSync builds them on a mesh with a pod axis)")
+            return Handle(dep.DONE, hierarchical_allreduce(buf, group, use_ring=use_ring),
+                          scale)
+        world = group.world if isinstance(group, PodComm) else group
+        return Handle(flat_allreduce(buf, world), buf, scale)
+
+    return reduce_hier
 
 
-for _name in ("hierarchical", "hierarchical_ring"):
-    register_reducer(_name)(_not_ported(_name))
+@register_reducer("hierarchical")
+def _hier_factory(mesh_shape: dict[str, int], *,
+                  mean_axes: tuple[str, ...] = ()) -> Reducer:
+    """3-stage RS(data) → AR(pod) → AG(data) when both axes are present."""
+    return _hier_impl(mesh_shape, mean_axes=mean_axes)
+
+
+@register_reducer("hierarchical_ring")
+def _hier_ring_factory(mesh_shape: dict[str, int], *,
+                       mean_axes: tuple[str, ...] = ()) -> Reducer:
+    """hierarchical with stages 1 and 3 on the intra-pod ring (the
+    peer-memory ring kernels on CUDA, the plain ring on the CPU)."""
+    return _hier_impl(mesh_shape, mean_axes=mean_axes, use_ring=True)
 
 
 def _comp_impl(mesh_shape: dict[str, int], *,

@@ -4,7 +4,9 @@ Batches are a pure function of (seed, step): the same
 ``np.random.default_rng((seed, step))`` draws as the reference, so both
 packages see identical batches.  Each rank takes its contiguous
 ``local_batch`` slice of the global batch, as the reference's batch
-sharding gives each device.
+sharding gives each device.  On a pod mesh the data-parallel size is
+pods × data and rank p·data + d is the mesh's device (p, d), so slice
+``rank`` is the one the reference's ("pod", "data") sharding gives it.
 """
 from __future__ import annotations
 

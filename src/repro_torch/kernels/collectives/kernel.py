@@ -1,11 +1,15 @@
 """Build and binding of the Hopper collectives kernels: the staging
-kernels (``csrc/staging.cu``) and the ring-hop combine
-(``csrc/ring_accum.cu``).
+kernels (``csrc/staging.cu``), the ring-hop combine
+(``csrc/ring_accum.cu``) and the peer-memory rings (``csrc/ring_p2p.cu``).
 
 ``pack_bucket_kernel``/``unpack_bucket_kernel``/``ring_accum_kernel``
 are the CUDA counterparts of ``repro/kernels/collectives/kernel.py``'s
-Pallas kernels of the same names; each source says what it replaces,
-what bounds it and how it is laid out.
+Pallas kernels of the same names, ``ring_reduce_scatter_kernel``/
+``ring_all_gather_kernel`` those of ``ring_reduce_scatter_tpu``/
+``ring_all_gather_tpu``; each source says what it replaces, what bounds
+it and how it is laid out.  The rings run over a ``PeerRing``: one
+rank's buffer of an intra-pod group, opened by its ring neighbours
+through CUDA IPC, so the group's ranks must share one host.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface at first use (``kernels/_build.py``)
@@ -15,23 +19,29 @@ imported.
 The wrappers take CUDA tensors only: they check device, dtype, size and
 contiguity and raise on anything else, launch on the current stream,
 never synchronize, and count their launches in ``PACK_LAUNCHES`` /
-``UNPACK_LAUNCHES`` / ``ACCUM_LAUNCHES``.  There is no fallback: a
+``UNPACK_LAUNCHES`` / ``ACCUM_LAUNCHES`` / ``RS_LAUNCHES`` /
+``AG_LAUNCHES`` (a ring call launches once a hop, g times).  There is no fallback: a
 failed build or launch raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import socket
+import weakref
 from pathlib import Path
 from typing import Iterator, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import _build
 
 PACK_LAUNCHES = 0
 UNPACK_LAUNCHES = 0
 ACCUM_LAUNCHES = 0
+RS_LAUNCHES = 0
+AG_LAUNCHES = 0
 
 MAX_LEAVES = 64   # kMaxLeaves in csrc/staging.cu
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
@@ -42,6 +52,13 @@ ACCUM_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = (_CSRC / "staging.cu",)
 _ACCUM_SOURCES = (_CSRC / "ring_accum.cu",)
+_P2P_SOURCES = (_CSRC / "ring_p2p.cu",)
+PEER_TIMEOUT_S = 120.0   # the longest a peer ring's stream waits on a neighbour
+# return codes of csrc/ring_p2p.cu besides cudaError_t
+_P2P_ERRORS = {90001: "the driver's stream memory operations are missing",
+               90002: "a chunk larger than the ring's message slots",
+               90003: "the ring has failed"}
+_P2P_DRIVER = 100000
 
 
 def build() -> Path:
@@ -54,6 +71,177 @@ def build_ring_accum() -> Path:
     """Compile the ring-hop combine unless this source is built; return
     the library's path."""
     return _build.build("ring_accum", _ACCUM_SOURCES)
+
+
+def build_ring_p2p() -> Path:
+    """Compile the peer-memory rings unless this source is built; return
+    the library's path."""
+    return _build.build("ring_p2p", _P2P_SOURCES)
+
+
+@functools.cache
+def _p2p_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_ring_p2p()))
+    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.p2p_create.argtypes = [I, I, I, I, I64, ctypes.c_double,
+                               ctypes.POINTER(P), ctypes.c_char_p]
+    lib.p2p_open.argtypes = [P, ctypes.c_char_p, ctypes.c_char_p]
+    for fn in (lib.p2p_reduce_scatter, lib.p2p_all_gather):
+        fn.argtypes = [P, P, P, I64, I, I, P]   # ring, in, out, c, dtype, bidi, stream
+    for fn in (lib.p2p_check, lib.p2p_message):
+        fn.argtypes = [P, ctypes.c_char_p, I]
+    lib.p2p_destroy.argtypes = [P]
+    for fn in (lib.p2p_create, lib.p2p_open, lib.p2p_reduce_scatter,
+               lib.p2p_all_gather, lib.p2p_check, lib.p2p_message, lib.p2p_destroy):
+        fn.restype = I
+    return lib
+
+
+class PeerRingError(RuntimeError):
+    """A peer ring's wait ran out (here or on a neighbour), or its set-up
+    or a launch failed."""
+
+
+def _p2p_error(rc: int, what: str, msg: bytes = b"") -> PeerRingError:
+    if rc >= _P2P_DRIVER:
+        op, err = divmod(rc - _P2P_DRIVER, 1000)
+        why = (f"CUDA driver error {err} in "
+               f"{('cuStreamWaitValue32', 'cuStreamWriteValue32')[min(op, 1)]}")
+    else:
+        why = _P2P_ERRORS.get(rc, f"CUDA error {rc}")
+    detail = msg.decode(errors="replace").strip()
+    return PeerRingError(f"{what}: {why}" + (f": {detail}" if detail else ""))
+
+
+def _free_ring(lib: ctypes.CDLL, ptr: int) -> None:
+    lib.p2p_check(ptr, ctypes.create_string_buffer(8), 8)   # the ring's work first
+    lib.p2p_destroy(ptr)
+
+
+class PeerRing:
+    """This rank's peer buffer of one intra-pod ring (one per chain).
+
+    Collective over ``group`` (every rank of it constructs one, in the
+    same order): each rank allocates a header of flag words and two
+    message slots per direction of ``slot_bytes`` each (``cudaMalloc``,
+    not PyTorch's allocator, whose IPC handle names a whole segment),
+    the 64-byte IPC handles travel over ``group`` with the host names,
+    and each rank opens its two ring neighbours' buffers.  Ranks on
+    different hosts, or a handle that does not open, raise: nothing
+    falls back to another transport.  ``timeout_s`` bounds every wait
+    of the ring's streams.  ``close()`` (collective) frees the buffers;
+    a ring that is garbage-collected unclosed frees its own after its
+    work, without waiting for the neighbours.
+    """
+
+    def __init__(self, group: dist.ProcessGroup, slot_bytes: int, *,
+                 chain: int = 0, timeout_s: float = PEER_TIMEOUT_S):
+        self.group = group
+        self.g = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.chain = chain
+        self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.g < 2:
+            raise ValueError("a peer ring needs at least two ranks")
+        lib = _p2p_lib()
+        ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(64)
+        rc = lib.p2p_create(self.device.index, self.g, self.rank, chain,
+                            int(slot_bytes), float(timeout_s), ctypes.byref(ptr), handle)
+        if rc:
+            raise _p2p_error(rc, f"peer ring set-up (rank {self.rank}, chain {chain})")
+        self._ptr = ptr.value
+        self._finalizer = weakref.finalize(self, _free_ring, lib, self._ptr)
+        self.slot_bytes = int(slot_bytes)
+        mine = (socket.gethostname(), handle.raw)
+        every = [None] * self.g
+        dist.all_gather_object(every, mine, group=group)
+        right, left = every[(self.rank + 1) % self.g], every[(self.rank - 1) % self.g]
+        for who, (host, _) in ((self.rank + 1, right), (self.rank - 1, left)):
+            if host != mine[0]:
+                raise PeerRingError(
+                    f"peer ring set-up: rank {who % self.g} of the intra-pod group is "
+                    f"on host {host!r}, this rank on {mine[0]!r}; a pod's ranks "
+                    f"must share one host")
+        rc = lib.p2p_open(self._ptr, right[1], left[1])
+        if rc:
+            raise _p2p_error(rc, f"peer ring set-up: opening the neighbours' buffers "
+                                 f"(rank {self.rank}, chain {chain})")
+
+    def _message(self) -> bytes:
+        buf = ctypes.create_string_buffer(1024)
+        _p2p_lib().p2p_message(self._ptr, buf, len(buf))
+        return buf.value
+
+    def check(self) -> None:
+        """Wait for the ring's last call; raise ``PeerRingError`` if a
+        wait of this ring ran out, here or on a neighbour."""
+        buf = ctypes.create_string_buffer(1024)
+        rc = _p2p_lib().p2p_check(self._ptr, buf, len(buf))
+        if rc:
+            raise _p2p_error(rc, f"peer ring (rank {self.rank}, chain {self.chain})",
+                             buf.value)
+
+    def close(self) -> None:
+        """Collective: wait for every rank's ring work, then close the
+        neighbours' buffers and free this rank's."""
+        if not self._finalizer.alive:
+            return
+        err = None
+        try:
+            self.check()
+        except PeerRingError as e:
+            err = e
+        dist.barrier(group=self.group)
+        self._finalizer()
+        if err is not None:
+            raise err
+
+
+def _peer_call(ring: PeerRing, fn, what: str, x: torch.Tensor, out: torch.Tensor,
+               c: int, bidirectional: bool) -> None:
+    if x.device != ring.device:
+        raise ValueError(f"{what} takes tensors on {ring.device}, got {x.device}")
+    if x.dtype not in ACCUM_DTYPE_CODES:
+        raise ValueError(f"{what} takes one of {sorted(map(str, ACCUM_DTYPE_CODES))}, "
+                         f"got {x.dtype}")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous 1-D tensor, got {tuple(x.shape)}")
+    rc = fn(ring._ptr, x.data_ptr(), out.data_ptr(), c, ACCUM_DTYPE_CODES[x.dtype],
+            int(bidirectional), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc:
+        raise _p2p_error(rc, f"{what} (rank {ring.rank}, chain {ring.chain})",
+                         ring._message())
+
+
+def ring_reduce_scatter_kernel(ring: PeerRing, x: torch.Tensor, *,
+                               bidirectional: bool = True) -> torch.Tensor:
+    """(g·c,) per-rank buffer → (c,) chunk ``ring.rank`` of the sum over
+    the ring's ranks, through the neighbours' memory: g launches on the
+    current stream, none waited for on the host."""
+    global RS_LAUNCHES
+    if x.numel() % ring.g:
+        raise ValueError(f"{x.numel()} elements do not split into {ring.g} chunks")
+    c = x.numel() // ring.g
+    out = torch.empty(c, dtype=x.dtype, device=x.device)
+    if c:
+        _peer_call(ring, _p2p_lib().p2p_reduce_scatter, "ring_reduce_scatter_kernel",
+                   x, out, c, bidirectional)
+        RS_LAUNCHES += ring.g
+    return out
+
+
+def ring_all_gather_kernel(ring: PeerRing, shard: torch.Tensor, *,
+                           bidirectional: bool = True) -> torch.Tensor:
+    """(c,) chunk ``ring.rank`` → (g·c,) every rank's chunk in rank order,
+    through the neighbours' memory: g launches on the current stream."""
+    global AG_LAUNCHES
+    c = shard.numel()
+    out = torch.empty(c * ring.g, dtype=shard.dtype, device=shard.device)
+    if c:
+        _peer_call(ring, _p2p_lib().p2p_all_gather, "ring_all_gather_kernel",
+                   shard, out, c, bidirectional)
+        AG_LAUNCHES += ring.g
+    return out
 
 
 @functools.cache

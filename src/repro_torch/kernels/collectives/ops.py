@@ -21,6 +21,14 @@ the two round alike, so no result differs.
 ``r`` owns chunk ``r`` after the reduce-scatter, so they stand in for
 ``reduce_scatter_tensor``/``all_gather_into_tensor``: the ``ring``
 reducer, rsag's two-phase ops and compressed_ring's gather phase.
+
+``pod_ring_reduce_scatter``/``pod_ring_all_gather`` are the intra-pod
+rings of ``hierarchical_ring`` (stages 1 and 3).  On CUDA tensors they
+run the peer-memory kernels ``ring_reduce_scatter_kernel``/
+``ring_all_gather_kernel`` over the pod's ``PeerRing``: each hop goes
+straight into the neighbour's memory and is signalled in the stream,
+with no host round trip.  On CPU tensors they run the plain rings of
+``ref.py`` over the intra-pod gloo group.  The two are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -161,3 +169,34 @@ def ring_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
     full = ring_all_gather(shard, axes, mesh_shape, group,
                            bidirectional=bidirectional)
     return full[:n] if pad else full
+
+
+def pod_ring_reduce_scatter(buf: torch.Tensor, group: dist.ProcessGroup,
+                            ring: "kernel.PeerRing | None" = None) -> torch.Tensor:
+    """Intra-pod bidirectional ring reduce-scatter of a (g·c,) buffer over
+    ``group``: rank d of the pod gets chunk d of the sum.  CUDA tensors go
+    through ``ring`` (the pod's ``PeerRing``), CPU tensors through the
+    plain ring."""
+    if dist.get_world_size(group) == 1:
+        return buf
+    if buf.device.type == "cuda":
+        return kernel.ring_reduce_scatter_kernel(_need(ring), buf)
+    return ref.ring_reduce_scatter_ref(buf, group)
+
+
+def pod_ring_all_gather(shard: torch.Tensor, group: dist.ProcessGroup,
+                        ring: "kernel.PeerRing | None" = None) -> torch.Tensor:
+    """Intra-pod bidirectional ring all-gather of rank d's chunk d → (g·c,)."""
+    if dist.get_world_size(group) == 1:
+        return shard
+    if shard.device.type == "cuda":
+        return kernel.ring_all_gather_kernel(_need(ring), shard)
+    return ref.ring_all_gather_ref(shard, group)
+
+
+def _need(ring):
+    if ring is None:
+        raise ValueError(
+            "the intra-pod ring of CUDA tensors runs on a PeerRing (GradSync builds "
+            "one per chain for reducer='hierarchical_ring'); none was given")
+    return ring

@@ -3,6 +3,13 @@
 The port's ``Mesh`` is the reference mesh's shape alone: axis names and
 sizes.  Data parallelism spans every rank of the process group; the
 "model" axis has extent 1 until tensor parallelism is ported.
+
+A multi-pod mesh (``make_pod_mesh``; ``make_dp_mesh(multi_pod=True)``,
+the counterpart of ``make_production_mesh(multi_pod=True)``) is
+("pod", "data", "model") over a world of pods × data ranks, rank
+p·data + d at (p, d): the device order of the reference's mesh.  A pod's
+ranks are meant to share one host: the hierarchical reducers' intra-pod
+rings write into each other's memory (``core/dependency.py::pod_comms``).
 """
 from __future__ import annotations
 
@@ -32,9 +39,26 @@ def make_smoke_mesh(data: int = 1, model: int = 1) -> Mesh:
     return Mesh(("data", "model"), {"data": data, "model": model})
 
 
-def make_dp_mesh() -> Mesh:
-    """Data parallelism over every rank of the initialized process group."""
-    return make_smoke_mesh(dist.get_world_size() if dist.is_initialized() else 1)
+def make_pod_mesh(pods: int, data: int) -> Mesh:
+    """The reference's ("pod", "data", "model") mesh: ``pods`` pods of
+    ``data`` ranks each, rank p·data + d at (p, d), model extent 1."""
+    if pods < 1 or data < 1:
+        raise ValueError(f"a pod mesh needs pods, data >= 1; got {pods} x {data}")
+    return Mesh(("pod", "data", "model"), {"pod": pods, "data": data, "model": 1})
+
+
+def make_dp_mesh(multi_pod: bool = False) -> Mesh:
+    """Data parallelism over every rank of the initialized process group;
+    with ``multi_pod`` as two pods of half the world each (the reference's
+    multi-pod production mesh has two pods).  A world that does not split
+    into two pods raises."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not multi_pod:
+        return make_smoke_mesh(world)
+    if world < 2 or world % 2:
+        raise ValueError(f"--multi-pod needs a world of two equal pods; "
+                         f"{world} rank(s) do not split into two")
+    return make_pod_mesh(2, world // 2)
 
 
 def _free_port() -> int:

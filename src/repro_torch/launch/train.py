@@ -6,6 +6,8 @@
 Runs on CUDA unless ``--device cpu``; one rank by default, or as many
 as ``torchrun --nproc-per-node N`` starts (rank and world come from its
 environment).  ``--smoke`` runs the arch's reduced config.
+``--multi-pod`` lays the world out as two pods (``launch/mesh.py``),
+which the hierarchical reducers reduce in three stages.
 """
 from __future__ import annotations
 
@@ -39,12 +41,14 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="two pods over the world: a (pod, data, model) mesh")
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
     rank, _ = init_dist(args.device)
     try:
-        mesh = make_dp_mesh()
+        mesh = make_dp_mesh(multi_pod=args.multi_pod)
         if args.smoke:
             cfg, batch = arch.make_smoke(), args.batch
         else:
@@ -67,6 +71,7 @@ def main(argv=None):
         trainer = Trainer(ts, pipe, log_every=1,
                           printer=print if rank == 0 else (lambda _s: None))
         _, _, hist = trainer.run(model, opt.init(params), args.steps)
+        ts.gradsync.close()
         if rank == 0:
             times = hist["step_times"]
             avg = sum(times) / len(times) * 1e3 if times else float("nan")

@@ -1,7 +1,7 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
-    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed]
-    python tests/_torch_mdworker.py <workdir> jax <rings|compressed>
+    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier]
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier>
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -21,6 +21,17 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
   compressed  all-gather and allreduce, or the compressed allreduce, over
               the seeded buffers of ``workdir/inputs.npz`` (row r is rank
               r's buffer); results to ``<mode>_rank<r>.npz``.
+
+  hier        (tests/test_torch_hierarchical.py) on the ("pod", "data",
+              "model") meshes of ``HIER_MESHES``: the flat, hierarchical
+              and hierarchical_ring reducers over rank r's (1 + r) x
+              ``inputs.npz["base"]``, as ``tests/_mdworker.py`` runs them,
+              to ``hier_rank<r>.npz``; then GradSync's reduced smoke
+              gradients for each of ``HIER_GRADS`` to ``<name>_rank<r>.npz``.
+
+``peer_rank`` is one of 2 or 4 processes on ``cuda:0`` for
+tests/test_torch_cuda.py (spawned with torch.multiprocessing): the
+peer-memory ring kernels against the plain rings, or a wait that runs out.
 
 ``jax`` runs the JAX package's functions on the same inputs on 4 fake CPU
 devices (as ``tests/_mdworker.py`` does with 8) and writes
@@ -58,6 +69,14 @@ RING_CASES = {
     "ag2_bidi": ("ag2", 2, True), "ar2_bidi": ("ar2", 2, True),
 }
 COMPRESSED_CASES = {"compressed": False, "compressed_ring": True}
+HIER_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}            # (pods, data ranks a pod)
+HIER_REDUCERS = ("flat", "hierarchical", "hierarchical_ring")
+# (strategy, reducer, mesh) -> output name
+HIER_GRADS = {(st, red, m): f"{st}-{red}-{m}"
+              for st in ("funnel", "concom", "depcha")
+              for red in ("hierarchical", "hierarchical_ring") for m in ("2x2",)}
+HIER_GRADS.update({("funnel", red, "1x4"): f"funnel-{red}-1x4"
+                   for red in ("hierarchical", "hierarchical_ring")})
 
 
 def _grads(workdir: str, rank: int) -> None:
@@ -143,6 +162,124 @@ def _compressed(workdir: str, rank: int) -> dict:
             for case, use_ring in COMPRESSED_CASES.items()}
 
 
+def _hier(workdir: str, rank: int) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.resnet50_cifar import make_smoke
+    from repro_torch.core import Bucket, GradSync, GradSyncConfig, LeafInfo, make_reducer
+    from repro_torch.core import dependency as dep
+    from repro_torch.data import ImagePipeline
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import resnet
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    base = np.load(os.path.join(workdir, "inputs.npz"))["base"]
+    x = base * np.float32(1 + rank)
+    axes = ("pod", "data", "model")
+    bucket = Bucket(leaves=(LeafInfo(name="x", index=0, shape=x.shape,
+                                     dtype=torch.float32, size=x.size),),
+                    reduce_axes=axes, channel=0, bucket_id=0)
+    out = {}
+    for m, (pods, data) in HIER_MESHES.items():
+        shape = {"pod": pods, "data": data, "model": 1}
+        comm = dep.pod_comms({0: dist.group.WORLD}, pods, data, torch.device("cpu"))[0]
+        for red in HIER_REDUCERS:
+            fn = make_reducer(red, shape, mean_axes=("pod", "data"))
+            group = comm if red.startswith("hierarchical") else dist.group.WORLD
+            out[f"{red}_{m}"] = fn(torch.from_numpy(x.copy()), bucket, group).wait().numpy()
+    np.savez(os.path.join(workdir, f"hier_rank{rank}.npz"), **out)
+
+    cfg = make_smoke()
+    named = dict(np.load(os.path.join(workdir, "params.npz")))
+    for (strategy, reducer, m), name in HIER_GRADS.items():
+        mesh = make_pod_mesh(*HIER_MESHES[m])
+        batch = ImagePipeline(cfg.img_size, cfg.num_classes, GLOBAL_BATCH,
+                              mesh=mesh, rank=rank, device="cpu").batch_at(0)
+        tree = params_from_numpy(named, "cpu")
+        leaves, treedef = flatten_with_names(tree)
+        for _, p in leaves:
+            p.requires_grad_(True)
+        resnet.train_forward(tree, batch, cfg).backward()
+        gs = GradSync(GradSyncConfig(strategy=strategy, reducer=reducer,
+                                     num_channels=4, bucket_bytes=64 * 1024),
+                      mesh, resnet.param_specs(tree), tree, device="cpu")
+        reduced = gs(tree_unflatten(treedef, [p.grad for _, p in leaves]))
+        np.savez(os.path.join(workdir, f"{name}_rank{rank}.npz"),
+                 **{n: g.numpy() for n, g in flatten_with_names(reduced)[0]})
+
+
+def peer_rank(rank: int, world: int, workdir: str, case: str) -> None:
+    """``check``: both peer-ring kernels against the plain rings bit for
+    bit (f32, bf16, f16; uni- and bidirectional; c = 1, 37 and 131071,
+    back to back).  ``timeout``: rank 0 alone calls the reduce-scatter
+    on a ring whose waits run out after 2 s; every rank writes what its
+    check raised to ``peer_<rank>.txt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.collectives import kernel, ref
+    from repro_torch.launch.mesh import init_dist
+
+    init_dist("cuda", backend="gloo", init_method=f"file://{workdir}/store", rank=rank,
+              world_size=world, timeout=datetime.timedelta(seconds=120))
+    group = dist.group.WORLD
+
+    def bits(t):
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    try:
+        if case == "check":
+            ring = kernel.PeerRing(group, 131071 * 4)
+            gen = torch.Generator(device="cuda").manual_seed(rank)
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                for bidi in (True, False):
+                    xs = [torch.randn(world * c, generator=gen, device="cuda").to(dt)
+                          for c in (1, 37, 131071)]
+                    got = []
+                    for x in xs:
+                        shard = kernel.ring_reduce_scatter_kernel(ring, x, bidirectional=bidi)
+                        got.append((shard, kernel.ring_all_gather_kernel(
+                            ring, shard, bidirectional=bidi)))
+                    for x, (shard, full) in zip(xs, got):
+                        want = ref.ring_reduce_scatter_ref(x, group, bidirectional=bidi)
+                        assert torch.equal(bits(shard), bits(want)), (dt, bidi, x.numel())
+                        want = ref.ring_all_gather_ref(want, group, bidirectional=bidi)
+                        assert torch.equal(bits(full), bits(want)), (dt, bidi, x.numel())
+            ring.check()
+            ring.close()
+            with open(os.path.join(workdir, f"peer_{rank}.txt"), "w") as f:
+                f.write("ok")
+            return
+        ring = kernel.PeerRing(group, 64 * 4, chain=3, timeout_s=2.0)
+        said = []
+
+        def attempt(fn):
+            try:
+                fn()
+                said.append("no error")
+            except kernel.PeerRingError as e:
+                said.append(str(e))
+
+        x = torch.ones(world * 64, device="cuda")
+        if rank == 0:      # hop 1 waits for rank world - 1, which never calls
+            kernel.ring_reduce_scatter_kernel(ring, x)
+            attempt(ring.check)
+            dist.barrier()
+            attempt(lambda: kernel.ring_reduce_scatter_kernel(ring, x))
+        else:
+            dist.barrier()
+            attempt(ring.check)
+        with open(os.path.join(workdir, f"peer_{rank}.txt"), "w") as f:
+            f.write("\n".join(said))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 def run_all(workdir, mode: str, *, reference_too: bool = False,
             timeout: int = 300) -> None:
     """Run the 4 port ranks of ``mode`` (and the JAX reference of it) in
@@ -183,6 +320,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
     try:
         if mode == "grads":
             _grads(workdir, rank)
+        elif mode == "hier":
+            _hier(workdir, rank)
         else:
             out = {"rings": _rings, "compressed": _compressed}[mode](workdir, rank)
             np.savez(os.path.join(workdir, f"{mode}_rank{rank}.npz"), **out)
@@ -191,7 +330,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
 
 
 def reference(workdir: str, mode: str) -> None:
-    """The JAX package's rings or compressed allreduce on 4 fake devices."""
+    """The JAX package's rings, compressed allreduce or hierarchical
+    reducers on 4 fake devices."""
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
     import repro  # noqa: F401  (applies the jaxcompat shim before jax imports)
     import jax
@@ -214,7 +354,29 @@ def reference(workdir: str, mode: str) -> None:
         return np.asarray(run(x.reshape(-1))).reshape(WORLD, -1)
 
     out = {}
-    if mode == "rings":
+    if mode == "hier":
+        import jax.numpy as jnp
+
+        from repro.core.buckets import Bucket, LeafInfo
+        from repro.core.strategies import make_reducer
+
+        # rank r's (1 + r) x base made here, not inside the program: XLA's
+        # CPU build would fuse that product into the ring's first add (FMA)
+        base = inputs["base"]
+        rows = np.stack([base * np.float32(1 + r) for r in range(WORLD)])
+        axes = ("pod", "data", "model")
+        bucket = Bucket(leaves=(LeafInfo(name="x", index=0, shape=base.shape,
+                                         dtype=jnp.float32, size=base.size),),
+                        reduce_axes=axes, channel=0, bucket_id=0)
+        for m, (pods, data) in HIER_MESHES.items():
+            mesh = jax.make_mesh((pods, data, 1), axes,
+                                 axis_types=(AxisType.Auto,) * 3)
+            for red in HIER_REDUCERS:
+                fn = make_reducer(red, {"pod": pods, "data": data, "model": 1},
+                                  mean_axes=("pod", "data"))
+                out[f"{red}_{m}"] = per_rank(lambda v, _f=fn: _f(v, bucket),
+                                             rows, mesh, P(("pod", "data")))
+    elif mode == "rings":
         fns = {"rs": ops.ring_reduce_scatter, "ag": ops.ring_all_gather,
                "ar": ops.ring_allreduce}
         for case, (key, g, bidi) in RING_CASES.items():

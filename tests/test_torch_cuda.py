@@ -1,5 +1,7 @@
 """The port's CUDA kernels and engines on the card: the serving slices'
-kernels and engines, and the ring-hop combine and int8 block kernels.
+kernels and engines, the ring-hop combine and int8 block kernels, and the
+peer-memory ring reduce-scatter/all-gather (2 and 4 rank processes on
+``cuda:0``, spawned through ``tests/_torch_mdworker.py::peer_rank``).
 
 This module imports neither ``jax`` nor ``repro``, so it runs on a
 machine with a GPU and no JAX; there ``tests/conftest.py`` (which imports
@@ -200,3 +202,33 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _spawn_peers(world: int, case: str, tmp_path) -> list[str]:
+    import torch.multiprocessing as mp
+
+    from _torch_mdworker import peer_rank
+
+    mp.spawn(peer_rank, args=(world, str(tmp_path), case), nprocs=world, join=True)
+    return [(tmp_path / f"peer_{r}.txt").read_text() for r in range(world)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_cuda_peer_rings_match_plain(cuda, world, tmp_path):
+    """Both peer-ring kernels against the plain rings, bit for bit, on a
+    ring of 2 and of 4 processes sharing the card."""
+    assert _spawn_peers(world, "check", tmp_path) == ["ok"] * world
+
+
+@pytest.mark.cuda
+def test_cuda_peer_ring_wait_that_runs_out_raises(cuda, tmp_path):
+    """Rank 0 calls alone: its wait runs out after 2 s and its check raises
+    naming the rank, the hop and the chain; its next call raises at once;
+    the neighbour's check raises too.  No result is returned."""
+    said = _spawn_peers(2, "timeout", tmp_path)
+    first, again = said[0].split("\n")
+    assert "timed out" in first and "rank 0" in first and "hop 1" in first
+    assert "chain 3" in first
+    assert "has failed" in again
+    assert "rank 0 of the ring" in said[1] and "timed out" in said[1]

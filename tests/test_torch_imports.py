@@ -14,11 +14,14 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PKG = SRC / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py"))
-# the serving and reducer slices' modules, which the checks below must reach
+# the serving, reducer and hierarchical slices' modules, which the checks below must reach
 SERVING = (
     "repro_torch.configs.qwen3_1_7b",
     "repro_torch.configs.rwkv6_7b",
     "repro_torch.core.compression",
+    "repro_torch.core.hierarchical",
+    "repro_torch.kernels.collectives.kernel",
+    "repro_torch.kernels.collectives.ops",
     "repro_torch.kernels._build",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops",

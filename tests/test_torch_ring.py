@@ -93,8 +93,14 @@ def test_rank_r_owns_chunk_r(results, case):
 
 @pytest.mark.parametrize("name", ["hierarchical", "hierarchical_ring"])
 def test_hierarchical_reducers_are_registered_and_refused(name):
-    from repro_torch.core import make_reducer, reducer_names
+    """Ported (tests/test_torch_hierarchical.py); what they still refuse is
+    a pod reduction that also spans another axis of size > 1 (item 9)."""
+    from repro_torch.core import Bucket, LeafInfo, make_reducer, reducer_names
 
     assert name in reducer_names()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_reducer(name, {"data": 4, "model": 1})
+    shape = {"pod": 2, "data": 2, "model": 2}
+    bucket = Bucket(leaves=(LeafInfo(name="x", index=0, shape=(8,),
+                                     dtype=torch.float32, size=8),),
+                    reduce_axes=("pod", "data", "model"), channel=0, bucket_id=0)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_reducer(name, shape)(torch.zeros(8), bucket, None)
