@@ -67,12 +67,19 @@ Phases, in order; any failure raises and exits non-zero:
               hierarchical_ring on the kernels = through the plain rings,
               peer-ring launches exactly as ``hier_launches`` predicts
               and none of rows 3, 6, 7.
-  flash       the flash-attention kernel against its plain version on the
-              five tests/test_kernels.py shapes, Qwen3-1.7B's static
-              prefill shape (B 4, S 512, 16/8 heads, D 128, bf16) and a
-              ragged S = 200: tolerance 2e-5 in f32, 2e-2 in bf16.  Then
-              kernel, plain and F.scaled_dot_product_attention times with
-              CUDA events at the static and the continuous prefill shape.
+  flash       cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA) code in
+              the bf16 library.  The flash-attention kernels against
+              their plain version:
+              bf16 on the tensor-core kernel (TMA, wgmma) at 2e-2, f32 on
+              the CUDA-core kernel at 2e-5, on the five tests/test_kernels.py
+              shapes, Qwen3-1.7B's static prefill shape (B 4, S 512, 16/8
+              heads, D 128, bf16), a ragged S = 200 and the smoke config's
+              head dim 16; each error logged as a share of the check's
+              bound, atol + rtol |plain|.
+              Then kernel, plain and F.scaled_dot_product_attention times
+              with CUDA events, and the kernel's device time from
+              torch.profiler, at the static and the continuous prefill
+              shape in bf16 and at the static shape in f32.
   serve       Qwen3-1.7B at full width, bf16, use_flash, random weights
               from a seeded generator on the card: 8 prompts of 384-512
               tokens, max_len 1024, 32 new tokens each, through the static
@@ -90,7 +97,8 @@ Phases, in order; any failure raises and exits non-zero:
               static engine against the continuous engine's tokens.
               Then one prefill and three decode steps timed without and
               then under torch.profiler (device idle share = 1 - kernel
-              time / unprofiled wall time).
+              time / unprofiled wall time; the flash kernels' share of
+              the kernel time).
   serve_cpu_vs_gpu  the qwen3 smoke config, the same weights, greedy,
               through both engines on the CPU (plain versions) and on the
               GPU (kernel): tokens equal, prefill logits close in f32.
@@ -201,7 +209,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     builds = (collectives.build, collectives.build_ring_accum,
-              collectives.build_ring_p2p, flash.build, wkv.build, quantize.build)
+              collectives.build_ring_p2p, flash.build, flash.build_tc, wkv.build,
+              quantize.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(timed, b) for b in builds]
         built = [f.result() for f in futures]
@@ -1179,8 +1188,13 @@ FLASH_SHAPES = (   # (B, S, Hq, Hkv, D, dtype, causal)
     (2, 128, 2, 2, 256, torch.bfloat16, False),
     (4, 512, 16, 8, 128, torch.bfloat16, True),    # Qwen3-1.7B static prefill
     (1, 200, 16, 8, 128, torch.bfloat16, True),    # ragged last tile
+    (2, 77, 4, 2, 16, torch.bfloat16, True),       # the smoke config's head dim
 )
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py:34
+# bf16 runs on the tensor-core kernel, f32 on the CUDA-core one (kernel.py)
+FLASH_SOURCES = {torch.bfloat16: "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
+                 torch.float32: "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"}
+FLASH_KERNEL_NAMES = {torch.bfloat16: "flash_fwd_tc_kernel", torch.float32: "flash_fwd_kernel"}
 PREFILL_SHAPES = {"static": (4, 512, 16, 8, 128),        # B, S, Hq, Hkv, D
                   "continuous": (1, 512, 16, 8, 128)}
 SERVE_REQUESTS = 8
@@ -1209,7 +1223,8 @@ def flash_inputs(B, S, Hq, Hkv, D, dtype, seed):
 
 def check_flash(q, k, v, causal: bool, what: str) -> float:
     """Kernel against its plain version on the same inputs; returns the
-    max abs error, raises beyond the dtype's tolerance."""
+    max abs error, raises beyond the dtype's tolerance, logs the error as
+    a share of it."""
     from repro_torch.kernels.flash_attention import kernel, ref
 
     got = kernel.flash_attention_fwd(q, k, v, causal=causal)
@@ -1219,39 +1234,109 @@ def check_flash(q, k, v, causal: bool, what: str) -> float:
         raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
                              f"{want.dtype}{tuple(want.shape)}")
     tol = FLASH_TOL[q.dtype]
-    err = (got.float() - want.float()).abs().max().item()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
     if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
         raise AssertionError(f"{what}: kernel vs plain max abs err {err} "
                              f"beyond atol=rtol={tol}")
+    # the check's bound is tol + tol * |want|: the share of it, and of tol alone
+    share = (diff / (tol + tol * want.float().abs())).max().item()
+    ulps = ""
+    if q.dtype == torch.bfloat16:
+        # both sides against the f32 result of the same bf16 inputs, in
+        # bf16 ulps of that result (8 significant bits)
+        exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -40))) - 7)
+        ulps = (f"; mean bf16 ulps from the f32 result: kernel "
+                f"{((got.float() - exact).abs() / ulp).mean().item()}, plain "
+                f"{((want.float() - exact).abs() / ulp).mean().item()}")
+    log(f"[flash] {what} ({FLASH_KERNEL_NAMES[q.dtype]}): max abs err {err} = "
+        f"{share} of the bound atol + rtol |plain| ({err / tol} of atol = {tol}){ulps}")
     return err
 
 
+def device_ms_per_launch(fn, kernel_name: str, reps: int = 50) -> float:
+    """The device time per call of ``fn`` of the kernels whose name holds
+    ``kernel_name``, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_ms(e, self_only=True) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and kernel_name in e.key) / reps
+
+
+def flash_sass_counts() -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the built
+    bf16 flash library, by cuobjdump; raises unless both are there."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(kernel.build_tc())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()):
+        raise AssertionError(f"bf16 flash library lacks tensor-core or TMA code: {counts}")
+    log(f"[flash] {FLASH_KERNEL_NAMES[torch.bfloat16]} SASS: {counts}")
+    return counts
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host time to enqueue one call of ``fn`` (host clock around ``reps``
+    calls with no sync between them; the device drains after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def phase_flash() -> dict:
+    """Both flash kernels against the plain version on FLASH_SHAPES, then
+    kernel, plain and SDPA times at both prefill shapes in bf16 (the
+    tensor-core kernel) and at the static shape in f32 (the CUDA-core
+    kernel), with each kernel's device time from torch.profiler."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
 
-    errs = {}
+    sass = flash_sass_counts()
     for i, (B, S, Hq, Hkv, D, dt, causal) in enumerate(FLASH_SHAPES):
         q, k, v = flash_inputs(B, S, Hq, Hkv, D, dt, seed=i)
-        what = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} {dt} causal={causal}"
-        errs[(B, S, Hq, Hkv, D, dt)] = check_flash(q, k, v, causal, what)
-        log(f"[flash] {what}: max abs err {errs[(B, S, Hq, Hkv, D, dt)]} "
-            f"(tol {FLASH_TOL[dt]})")
+        check_flash(q, k, v, causal, f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} {dt} causal={causal}")
     rows = {}
-    for name, (B, S, Hq, Hkv, D) in PREFILL_SHAPES.items():
-        q, k, v = flash_inputs(B, S, Hq, Hkv, D, torch.bfloat16, seed=100)
+    timed = [(name, shape, torch.bfloat16) for name, shape in PREFILL_SHAPES.items()]
+    timed.append(("static_f32", PREFILL_SHAPES["static"], torch.float32))
+    for name, (B, S, Hq, Hkv, D), dt in timed:
+        q, k, v = flash_inputs(B, S, Hq, Hkv, D, dt, seed=100)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        bound, by, nbytes, flops = flash_bound(B, S, Hq, Hkv, D, torch.bfloat16)
+        bound, by, nbytes, flops = flash_bound(B, S, Hq, Hkv, D, dt)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+
+        shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} {str(dt)[6:]} causal"
         rows[name] = dict(
-            shape=f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16 causal",
+            shape=shape, kernel=FLASH_KERNEL_NAMES[dt],
+            max_abs_err=check_flash(q, k, v, True, f"{name} {shape}"),
             ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+            device_ms_per_launch=device_ms_per_launch(
+                lambda: ops.flash_attention(q, k, v, causal=True), FLASH_KERNEL_NAMES[dt]),
+            host_ms_per_launch=host_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
             plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=True)),
+            library_ms=cuda_ms(sdpa),
+            library_host_ms_per_launch=host_ms(sdpa),
             bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
         log(f"[flash] {name} prefill shape: " + json.dumps(rows[name]))
-    rows["static"]["max_abs_err"] = errs[(4, 512, 16, 8, 128, torch.bfloat16)]
+    rows["static"]["sass"] = sass
     return rows
 
 
@@ -1431,6 +1516,7 @@ def phase_serve(smi: str) -> dict:
     # well under 1e-3 relative, so hold them to rtol = atol = 1e-3 on
     # logits of order 1 and report the difference.
     torch.backends.cuda.matmul.allow_tf32 = False
+    f32_before = flash.FLASH_LAUNCHES        # the f32 checks run the CUDA-core kernel
     toks = left_pad(prompts[:4]).cuda()
     p32 = tree_to(params, dtype=torch.float32)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1444,6 +1530,7 @@ def phase_serve(smi: str) -> dict:
                              f"{logit_diff} (max |logit| {logit_max})")
     del lf, lc
     decode32 = check_decode_f32(p32, cfg32, prompts[:2])
+    f32_launches = flash.FLASH_LAUNCHES - f32_before
     del p32
     witness = bf16_witness(server, params, cfg, prompts, cont_out)
 
@@ -1461,7 +1548,8 @@ def phase_serve(smi: str) -> dict:
         "card": smi, "model": cfg.name, "params": n_params,
         "requests": SERVE_REQUESTS, "prompt_lens": [len(p) for p in prompts],
         "max_new": SERVE_MAX_NEW, "max_len": SERVE_MAX_LEN,
-        "flash_launches": launches, "greedy_agreement_static_vs_continuous": agree,
+        "flash_launches": launches, "flash_launches_f32_checks": f32_launches,
+        "greedy_agreement_static_vs_continuous": agree,
         "kernel_vs_plain_err_layers_0_27": errs,
         "f32_logits_flash_vs_chunked_max_abs_diff": logit_diff,
         "f32_logits_max_abs": logit_max,
@@ -1479,7 +1567,7 @@ def phase_serve(smi: str) -> dict:
     }
     log("[serve] " + json.dumps(report))
     phase_serve_profile(params, cfg)
-    return {"launches": launches, "report": report}
+    return {"launches": launches, "f32_launches": f32_launches, "report": report}
 
 
 class LogitsRecorder:
@@ -1655,7 +1743,11 @@ def phase_serve_profile(params, cfg, tag: str = "serve_profile") -> dict:
         busy_ms = sum(_device_ms(e, self_only=True) for e in kernels)
         top = sorted(kernels, key=lambda e: _device_ms(e, self_only=True),
                      reverse=True)[:12]
+        flash_ms = sum(_device_ms(e, self_only=True) for e in kernels
+                       if "flash_fwd" in e.key)
         out[name] = {
+            "flash_kernel_ms": flash_ms,
+            "flash_share_of_kernel_ms": flash_ms / busy_ms,
             "wall_ms": plain_ms,
             "wall_ms_under_profiler": prof_ms,
             "kernel_ms": busy_ms,
@@ -1752,9 +1844,6 @@ def phase_wkv() -> dict:
     """The WKV kernel against its plain version on the card, then its time
     (CUDA events, back to back, and the device's own time per launch from
     torch.profiler) beside the plain version's and the bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.rwkv6 import kernel, ref
 
     errs = {}
@@ -1776,14 +1865,8 @@ def phase_wkv() -> dict:
     for name, (B, C, H, N) in WKV_TIMED.items():
         ins = wkv_inputs(B, C, H, N, torch.float32, seed=100)
         bound, by, nbytes, flops = wkv_bound(*ins)
-        reps = 50
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                kernel.wkv_chunk_kernel(*ins)
-            torch.cuda.synchronize()
-        device_ms = sum(_device_ms(e, self_only=True) for e in prof.key_averages()
-                        if getattr(e, "device_type", None) == DeviceType.CUDA
-                        and "wkv_chunk_kernel" in e.key) / reps
+        device_ms = device_ms_per_launch(lambda: kernel.wkv_chunk_kernel(*ins),
+                                         "wkv_chunk_kernel")
         rows[name] = dict(
             shape=f"B{B} C{C} H{H} N{N} f32",
             max_abs_err=errs[(B, C, H, N, torch.float32)],
@@ -2063,16 +2146,28 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "step_bytes": r["step_bytes"]})
-    fr = flash_rows["static"]
+    fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": FLASH_SOURCES[torch.bfloat16],
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
         "launches": serve["launches"], "launches_per_prefill": 28,
         "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
+        "device_ms_per_launch": fr["device_ms_per_launch"],
         "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
         "bound_by": fr["bound_by"], "library_ms": fr["library_ms"],
-        "shape": fr["shape"], "continuous_shape": flash_rows["continuous"]})
+        "shape": fr["shape"], "continuous_shape": flash_rows["continuous"],
+        "sass": fr["sass"],
+        # f32 inputs: the CUDA-core kernel, launched by serve's f32 checks
+        "f32_kernel": {
+            "name": "flash_attention_fwd (f32)", "route": "cuda",
+            "source": FLASH_SOURCES[torch.float32],
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+            "launches": serve["f32_launches"], "max_abs_err": f32r["max_abs_err"],
+            "ms": f32r["ms"], "device_ms_per_launch": f32r["device_ms_per_launch"],
+            "plain_ms": f32r["plain_ms"], "bound_ms": f32r["bound_ms"],
+            "bound_by": f32r["bound_by"], "library_ms": f32r["library_ms"],
+            "shape": f32r["shape"]}})
     wr = wkv_rows["prefill"]
     kernels.append({
         "name": "wkv_chunk_kernel", "route": "cuda",

@@ -1,9 +1,12 @@
-// Flash-attention forward for Hopper (sm_90a): causal or full online-softmax
-// attention, one (batch, q head, 64-row q tile) per thread block.
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores, f32 q, k,
+// v: causal or full online-softmax attention, one (batch, q head, 64-row q
+// tile) per thread block.
 //
-// Replaces the TPU kernel of the reference:
+// Replaces the TPU kernel of the reference, for f32 inputs:
 //   flash_attention_fwd  <- src/repro/kernels/flash_attention/kernel.py:78
 //                           (flash_attention_fwd, body _fwd_kernel :25)
+// bf16 inputs go to the tensor-core kernel of csrc/flash_attention_tc.cu;
+// kernel.py dispatches by dtype.
 //
 // What it computes.  For each q row: q is cast to f32 and multiplied by
 // scale = 1/sqrt(D) before the product with k (f32); scores the causal mask
@@ -14,21 +17,18 @@
 // q's dtype.  These are the TPU kernel's numerics; the wrapper's plain
 // version (ref.py) computes the same function with a dense softmax.
 //
-// What bounds it on this card.  Moving q, k, v and o once is the byte
-// bound (Qwen3-1.7B's static prefill, B 4, S 512, 16 q / 8 kv heads, D 128,
-// bf16: 25.2 MB, 7.5 us at 3.35 TB/s); its 4.3 GFLOP of causal scores and
-// P.V are below that only on the tensor cores.  This design keeps the TPU
-// kernel's f32 arithmetic on the CUDA cores (67 TFLOP/s f32: at least 64 us
-// at that shape), so it is bound by operations, and far above the byte
-// bound.  Rounding P to bf16 for wgmma, TMA loads and a pipelined k loop
-// are later work.
+// What bounds it on this card.  It keeps the TPU kernel's f32 arithmetic
+// on the CUDA cores (67 TFLOP/s f32): at Qwen3-1.7B's static prefill shape
+// (B 4, S 512, 16 q / 8 kv heads, D 128) its 4.3 GFLOP of causal scores and
+// P.V take at least 64 us, above the 15 us of moving q, k, v and o once in
+// f32, so it is bound by operations.
 //
 // What the design does.  The TPU's sequential k grid axis becomes a loop
 // inside the block that stops at the diagonal tile.  The q tile (scaled,
 // f32) and each k tile are staged transposed in shared memory, the v tile
-// row-major, in the input dtype (64 x 128 bf16 is 16 KB).  256 threads form
-// a 16 x 16 grid: each computes a 4 x 4 block of the 64 x 64 score tile
-// from float4 reads of the q tile, and the row max and row sum are reduced
+// row-major.  256 threads form a 16 x 16 grid: each computes a 4 x 4 block
+// of the 64 x 64 score tile from float4 reads of the q tile, and the row
+// max and row sum are reduced
 // over the 16 threads that share a row with warp shuffles.  The
 // probabilities go through shared memory (transposed) to P.V, where each
 // thread owns 4 rows x D/16 output columns of the accumulator, in
@@ -42,7 +42,6 @@
 // returns cudaGetLastError() after its launch; the wrapper raises if it is
 // not 0.  The launch goes to the caller's stream and never synchronizes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,18 +54,10 @@ constexpr int kThreads = 256;   // 16 x 16: a 4 x 4 score block each
 constexpr int kPad = 68;        // row stride of the transposed tiles (16-byte rows)
 constexpr float kNegInf = -1e30f;
 
-// dtype codes shared with kernel.py
-constexpr int kF32 = 0;
-constexpr int kBF16 = 1;
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Element strides of a (B, S, H, D) tensor whose last dim is contiguous.
 struct Strides {
@@ -267,13 +258,13 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q (B, S, Hq, D), k/v (B, S, Hkv, D) through their (b, s, h) element
-// strides, last dim contiguous -> o (B, S, Hq, D) contiguous.
+// q (B, S, Hq, D), k/v (B, S, Hkv, D) f32 through their (b, s, h) element
+// strides, last dim contiguous -> o (B, S, Hq, D) contiguous f32.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Hq, int Hkv, int D,
                         const int64_t* q_strides, const int64_t* k_strides,
-                        const int64_t* v_strides, int dtype, int causal,
-                        float scale, int device, void* stream) {
+                        const int64_t* v_strides, int causal, float scale,
+                        int device, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -281,18 +272,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides qs{q_strides[0], q_strides[1], q_strides[2]};
   const Strides ks{k_strides[0], k_strides[1], k_strides[2]};
   const Strides vs{v_strides[0], v_strides[1], v_strides[2]};
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return static_cast<int>(dispatch_d<float>(D, q, k, v, o, B, S, Hq, Hkv, qs,
-                                                ks, vs, scale, causal != 0, st));
-    case kBF16:
-      return static_cast<int>(dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, S, Hq,
-                                                        Hkv, qs, ks, vs, scale,
-                                                        causal != 0, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(dispatch_d<float>(D, q, k, v, o, B, S, Hq, Hkv, qs, ks,
+                                            vs, scale, causal != 0,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,21 +1,31 @@
-"""Build and binding of the Hopper flash-attention forward kernel
-(``csrc/flash_attention.cu``).
+"""Build and binding of the Hopper flash-attention forward kernels.
 
 ``flash_attention_fwd`` is the CUDA counterpart of
 ``repro/kernels/flash_attention/kernel.py``'s Pallas kernel of the same
-name; ``csrc/flash_attention.cu`` says what it replaces, what bounds it
-and how it is laid out.  It takes the GQA layout of ``ops.py`` directly
-— q ``(B, S, Hq, D)``, k/v ``(B, S, Hkv, D)``, read through their
-strides — so neither the kv-head repeat nor the transposes of the JAX
-wrapper happen here.
+name.  It dispatches by dtype, explicitly:
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+- bf16 goes to the tensor-core kernel (``csrc/flash_attention_tc.cu``:
+  TMA loads, ``wgmma`` for Q·Kᵀ and P·V, P carried as two bf16 parts);
+- f32 goes to the CUDA-core kernel (``csrc/flash_attention.cu``), which
+  keeps the TPU kernel's f32 arithmetic;
+- any other dtype raises.  Neither kernel stands in for the other.
+
+Each source says what it replaces, what bounds it and how it is laid
+out.  Both take the GQA layout of ``ops.py`` directly — q
+``(B, S, Hq, D)``, k/v ``(B, S, Hkv, D)``, read through their strides —
+so neither the kv-head repeat nor the transposes of the JAX wrapper
+happen here.  The tensor-core kernel reads through TMA tensor maps, so
+its base pointers and strides must be 16-byte aligned.
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface at first use (``kernels/_build.py``)
 and loaded with ``ctypes``.  Nothing here runs when the module is
-imported.  The wrapper takes CUDA tensors only, checks them and raises
-on anything the kernel does not take, launches on the current stream,
-never synchronizes, and counts its launches in ``FLASH_LAUNCHES``.
-There is no fallback: a failed build or launch raises.
+imported, and every check of dtype, shape and stride runs before a
+build.  The wrapper takes CUDA tensors only, raises on anything the
+kernel does not take, launches on the current stream, never
+synchronizes, allocates nothing but the output, and counts its launches
+in ``FLASH_LAUNCHES``.  There is no fallback: a failed build or launch
+raises.
 """
 from __future__ import annotations
 
@@ -29,83 +39,119 @@ from repro_torch.kernels import _build
 
 FLASH_LAUNCHES = 0
 
-HEAD_DIMS = (16, 64, 128, 256)         # instantiated in csrc/flash_attention.cu
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GRID_YZ = 65535                    # q heads (grid y) and batch (grid z)
+HEAD_DIMS = (16, 64, 128, 256)         # instantiated in both sources
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_GRID_YZ = 65535                    # grid y and z
+BLOCK_Q = 64                           # q rows per block, both kernels
+TMA_ALIGN = 16                         # bytes: TMA base and stride alignment
 
-_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = (_CSRC / "flash_attention.cu",)
+_TC_SOURCES = (_CSRC / "flash_attention_tc.cu",)
 
 
 def build() -> Path:
-    """Compile the kernel unless this source is built; return the
-    library's path."""
+    """Compile the f32 (CUDA-core) kernel unless this source is built;
+    return the library's path."""
     return _build.build("flash_attention", _SOURCES)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    fn = lib.flash_attention_fwd
+def build_tc() -> Path:
+    """Compile the bf16 (tensor-core) kernel unless this source is built;
+    return the library's path."""
+    return _build.build("flash_attention_tc", _TC_SOURCES)
+
+
+def _bind(lib_path: Path, name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(lib_path))
     i64p = ctypes.POINTER(ctypes.c_int64)
+    fn = getattr(lib, name)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
         ctypes.c_void_p,                                     # o
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, S, Hq
         ctypes.c_int, ctypes.c_int,                          # Hkv, D
         i64p, i64p, i64p,                                    # (b, s, h) strides
-        ctypes.c_int,                                        # dtype code
         ctypes.c_int,                                        # causal
         ctypes.c_float,                                      # scale
         ctypes.c_int,                                        # device index
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _strides(t: torch.Tensor, what: str):
-    if t.stride(3) != 1:
-        raise ValueError(f"{what}: the head dim must be contiguous, "
-                         f"strides {t.stride()}")
-    return (ctypes.c_int64 * 3)(t.stride(0), t.stride(1), t.stride(2))
+@functools.cache
+def _f32_fn():
+    return _bind(build(), "flash_attention_fwd")
+
+
+@functools.cache
+def _bf16_fn():
+    return _bind(build_tc(), "flash_attention_tc_fwd")
+
+
+def _strides(t: torch.Tensor, what: str, tma: bool):
+    """(b, s, h) element strides for the kernel.  A dim of size 1 is
+    never stepped, so its stride is given as D.  For TMA (bf16, 2-byte
+    elements) the base pointer and every stride must be 16-byte
+    aligned."""
+    shape, st = t.shape, t.stride()
+    if st[3] != 1:
+        raise ValueError(f"{what}: the head dim must be contiguous, strides {st}")
+    D = shape[3]
+    b = st[0] if shape[0] > 1 else D
+    s = st[1] if shape[1] > 1 else D
+    h = st[2] if shape[2] > 1 else D
+    if tma and (t.data_ptr() % TMA_ALIGN or (b | s | h) % (TMA_ALIGN // 2)):
+        raise ValueError(
+            f"{what}: the tensor-core kernel loads through TMA, which needs "
+            f"a {TMA_ALIGN}-byte-aligned base and strides; got address "
+            f"{t.data_ptr():#x}, strides {st} of 2-byte elements")
+    return (ctypes.c_int64 * 3)(b, s, h)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
     """q (B, S, Hq, D), k/v (B, S, Hkv, D) CUDA tensors of one dtype
-    (f32 or bf16) → (B, S, Hq, D) contiguous, in q's dtype."""
+    (bf16: tensor-core kernel; f32: CUDA-core kernel) → (B, S, Hq, D)
+    contiguous, in q's dtype."""
     global FLASH_LAUNCHES
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd takes CUDA tensors, got {q.device}")
+    dev, dt = q.device, q.dtype
     for t, what in ((k, "k"), (v, "v")):
-        if t.device != q.device:
-            raise ValueError(f"{what} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{what} has dtype {t.dtype}, q {q.dtype}")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"flash_attention_fwd takes {sorted(map(str, DTYPE_CODES))}, "
-                         f"got {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        if t.device != dev:
+            raise ValueError(f"{what} is on {t.device}, q on {dev}")
+        if t.dtype != dt:
+            raise ValueError(f"{what} has dtype {t.dtype}, q {dt}")
+    if dt not in DTYPES:
+        raise ValueError(f"flash_attention_fwd takes {sorted(map(str, DTYPES))}, got {dt}")
+    shape, kshape = q.shape, k.shape
+    if len(shape) != 4 or len(kshape) != 4 or kshape != v.shape:
+        raise ValueError(f"shapes q {tuple(shape)}, k {tuple(kshape)}, "
                          f"v {tuple(v.shape)}: want (B, S, H, D) each")
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, D) or Hq % Hkv:
-        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    B, S, Hq, D = shape
+    Hkv = kshape[2]
+    if kshape[0] != B or kshape[1] != S or kshape[3] != D or Hq % Hkv:
+        raise ValueError(f"k/v {tuple(kshape)} do not fit q {tuple(shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not built; the kernel takes {HEAD_DIMS}")
-    if B > MAX_GRID_YZ or Hq > MAX_GRID_YZ:
-        raise ValueError(f"batch {B} or q heads {Hq} above {MAX_GRID_YZ}")
-    o = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+        raise ValueError(f"head dim {D} not built; the kernels take {HEAD_DIMS}")
+    tc = dt == torch.bfloat16
+    # grid: f32 (q tiles, Hq, B); bf16 (Hq, B, q tiles)
+    yz = (B, -(-S // BLOCK_Q)) if tc else (Hq, B)
+    if max(yz) > MAX_GRID_YZ:
+        raise ValueError(f"grid y/z {yz} above {MAX_GRID_YZ}")
+    qs, ks, vs = _strides(q, "q", tc), _strides(k, "k", tc), _strides(v, "v", tc)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_fwd takes CUDA tensors, got {dev}")
+    o = torch.empty((B, S, Hq, D), dtype=dt, device=dev)
     if o.numel() == 0:
         return o
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, S, Hq, Hkv, D, _strides(q, "q"), _strides(k, "k"), _strides(v, "v"),
-        DTYPE_CODES[q.dtype], int(causal), 1.0 / (D ** 0.5), q.device.index,
-        stream)
+    fn = _bf16_fn() if tc else _f32_fn()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, S, Hq, Hkv, D, qs, ks, vs, int(causal), 1.0 / (D ** 0.5),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention_fwd ({'bf16 tensor-core' if tc else 'f32'} "
+                           f"kernel) launch failed: error {rc}")
     FLASH_LAUNCHES += 1
     return o

@@ -35,8 +35,8 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, N, N) → (y (B, C, H, N) f32, new state (B, H, N, N) f32)."""
     B, C, H, N = r.shape
 
-    def rows(t):
-        return t.transpose(1, 2).reshape(B * H, C, N)
+    def rows(t):   # a copy: at B 1 the reshape is a strided view
+        return t.transpose(1, 2).reshape(B * H, C, N).contiguous()
 
     y, s1 = wkv_chunk_rows(rows(r), rows(k), rows(v), rows(logw), u,
                            state.reshape(B * H, N, N))

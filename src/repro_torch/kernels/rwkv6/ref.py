@@ -3,37 +3,63 @@
 
 ``wkv_chunk_ref`` is the chunk math of the TPU kernel, with its factored
 exponentials (``r·exp(Lprev)`` times ``k·exp(−L)``, not
-``exp(Lprev − L)``), on the TPU kernel's layout; ``wkv_chunk_rows_ref``
-takes the CUDA kernel's (u per head): what ``ops`` runs on CPU tensors
-and what ``chip_smoke.py`` holds the CUDA kernel against on the card.
+``exp(Lprev − L)``), on the TPU kernel's layout, in float64 rounded once
+to f32; ``wkv_chunk_rows_ref`` takes the CUDA kernel's (u per head):
+what ``ops`` runs on CPU tensors and what ``chip_smoke.py`` holds the
+CUDA kernel against on the card.
 ``wkv_ref`` is the step-by-step recurrence, a second oracle for the
 tests.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+_LOG2E = 1.0 / math.log(2.0)
 
 
 def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
     """r, k, v, logw: (BH, C, N); u: (BH, 1, N); state: (BH, N, N).
-    Returns (y (BH, C, N) f32, new state (BH, N, N) f32); f32 math."""
-    r, k, v, lw, u, s0 = (t.float() for t in (r, k, v, logw, u, state))
+    Returns (y (BH, C, N) f32, new state (BH, N, N) f32).
+
+    The math runs in float64 and is rounded once to f32, and each
+    exponential is taken as ``exp2(x · log2 e)``.  Two reasons, both about
+    the same result in every process:
+
+    - The factored form cancels large terms: ``exp(−L)`` reaches several
+      hundred within a chunk, so an error in one factor comes out about
+      100× larger in ``y``.  In float64 the f32 result is correct to its
+      last bits whatever order the products are summed in.
+    - ``torch.exp`` on a CPU tensor is MKL's VML (``vsExp``/``vdExp``,
+      called per 2048-element grain on every OpenMP thread).  In some
+      processes the first such call runs one thread's grain at reduced
+      accuracy (1.5e-4 relative in f32, 3.3e-9 in float64), and ``y``
+      then moves by up to 4e-3 in f32.  ``torch.exp2`` is ATen's own
+      vectorised code, the same in every process; the product with
+      log2 e costs float64 nothing that shows in f32.
+    """
+    r, k, v, lw, u, s0 = (t.double() for t in (r, k, v, logw, u, state))
+
+    def exp(x):
+        return torch.exp2(x * _LOG2E)
+
     C = r.shape[1]
     L = torch.cumsum(lw, dim=1)
     Lprev = L - lw
-    r_dec = r * torch.exp(Lprev)
+    r_dec = r * exp(Lprev)
     y = r_dec @ s0                                        # inter-chunk read
-    att = r_dec @ (k * torch.exp(-L)).transpose(1, 2)     # intra-chunk scores
+    att = r_dec @ (k * exp(-L)).transpose(1, 2)           # intra-chunk scores
     mask = torch.ones(C, C, dtype=torch.bool, device=r.device).tril(-1)
     att = torch.where(mask, att, 0.0)
     diag = (r * (u * k)).sum(dim=2)                       # bonus
     y = y + att @ v
     y = y + diag[:, :, None] * v
     wc = L[:, C - 1]                                      # (BH, N)
-    k_dec = k * torch.exp(wc[:, None, :] - L)
-    s1 = s0 * torch.exp(wc)[:, :, None] + k_dec.transpose(1, 2) @ v
-    return y, s1
+    k_dec = k * exp(wc[:, None, :] - L)
+    s1 = s0 * exp(wc)[:, :, None] + k_dec.transpose(1, 2) @ v
+    return y.float(), s1.float()
 
 
 def wkv_chunk_rows_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

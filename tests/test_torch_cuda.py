@@ -68,6 +68,80 @@ def test_cuda_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, dtype, causal):
                                rtol=TOL[dtype])
 
 
+def _bf16_qkv(cuda, B, S, Hq, Hkv, D, seed=4):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal((B, S, h, D)), dtype=torch.float32)
+            .to(torch.bfloat16).to(cuda) for h in (Hq, Hkv, Hkv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+    (2, 128, 4, 1, 64, True),       # the bf16 shapes of test_torch_flash_attention.py
+    (2, 128, 2, 2, 256, False),
+    (1, 200, 16, 8, 128, True),     # S 200, ragged last tile
+    (2, 200, 4, 2, 64, False),
+    (4, 512, 16, 8, 128, True),     # S 512, Qwen3-1.7B static prefill
+    (2, 77, 4, 2, 16, True),        # one per head dim the wrapper builds
+    (1, 256, 4, 4, 64, True),
+    (1, 192, 4, 2, 128, False),
+    (1, 160, 2, 1, 256, True),
+    (3, 1, 2, 1, 16, True),         # one row: a box taller than the tensor
+])
+def test_cuda_tensor_core_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal):
+    q, k, v = _bf16_qkv(cuda, B, S, Hq, Hkv, D)
+    before = kernel.FLASH_LAUNCHES
+    got = kernel.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.FLASH_LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused qkv", "heads first"])
+def test_cuda_tensor_core_kernel_reads_strided_views(cuda, layout):
+    B, S, Hq, Hkv, D = 2, 200, 8, 2, 128
+    rng = np.random.default_rng(5)
+    if layout == "fused qkv":     # one (B, S, Hq + 2 Hkv, D) projection, sliced
+        qkv = torch.as_tensor(rng.standard_normal((B, S, Hq + 2 * Hkv, D)),
+                              dtype=torch.bfloat16).to(cuda)
+        q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    else:                         # (B, H, S, D) tensors seen as (B, S, H, D)
+        q, k, v = (torch.as_tensor(rng.standard_normal((B, h, S, D)), dtype=torch.bfloat16)
+                   .to(cuda).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    assert not q.is_contiguous()
+    got = kernel.flash_attention_fwd(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_kernel_refuses_a_misaligned_view(cuda):
+    base = torch.zeros(1, 64, 4, 72, dtype=torch.bfloat16, device=cuda)
+    q = base[..., 1:65]              # 2 bytes past an aligned base
+    kv = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    before = kernel.FLASH_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.flash_attention_fwd(q, kv, kv)
+    assert kernel.FLASH_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_call_reaches_neither_plain_nor_f32_kernel(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a bf16 call fell back")
+
+    q, k, v = _bf16_qkv(cuda, 1, 128, 4, 2, 128)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    monkeypatch.setattr(ref, "flash_attention_ref", refuse)
+    monkeypatch.setattr(kernel, "_f32_fn", refuse)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
 @pytest.mark.cuda
 def test_cuda_engines_match_cpu(cuda):
     """The qwen3 smoke config with the flash kernel on the card gives the

@@ -79,3 +79,82 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
         kernel.flash_attention_fwd(t, t, t)
     assert kernel.FLASH_LAUNCHES == before
 
+
+
+def _no_build(monkeypatch):
+    """Make any kernel build fail loudly: what follows must not reach one."""
+    from repro_torch.kernels import _build
+
+    def refuse(*a, **kw):
+        raise AssertionError("a kernel build was reached")
+
+    monkeypatch.setattr(_build, "build", refuse)
+
+
+def test_bf16_cpu_call_reaches_only_the_plain_version(monkeypatch):
+    _no_build(monkeypatch)
+    _, (q, k, v) = _qkv(2, 128, 4, 2, 64, "bfloat16", seed=3)
+    before = kernel.FLASH_LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert kernel.FLASH_LAUNCHES == before
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=True),
+                               atol=0, rtol=0)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("float16", "takes"),
+    ("mixed dtypes", "dtype"),
+    ("head dim 32", "head dim 32"),
+    ("head dim 32 f32", "head dim 32"),
+    ("heads do not group", "do not fit"),
+    ("k shape", "do not fit"),
+    ("three dims", "want"),
+    ("head dim strided", "contiguous"),
+    ("misaligned base", "16-byte"),
+    ("misaligned stride", "16-byte"),
+    ("grid", "grid"),
+])
+def test_kernel_wrapper_checks_raise_before_any_build(monkeypatch, case, match):
+    """The wrapper's dtype, shape and TMA alignment checks run on any
+    device, before the device check and before a build."""
+    _no_build(monkeypatch)
+    q, kv = _bf16(1, 64, 4, 64), _bf16(1, 64, 2, 64)
+    args = {
+        "float16": lambda: (q.half(), kv.half(), kv.half()),
+        "mixed dtypes": lambda: (q, kv.float(), kv),
+        "head dim 32": lambda: (_bf16(1, 64, 4, 32), _bf16(1, 64, 2, 32),
+                                _bf16(1, 64, 2, 32)),
+        "head dim 32 f32": lambda: (_bf16(1, 64, 4, 32).float(), _bf16(1, 64, 2, 32).float(),
+                                    _bf16(1, 64, 2, 32).float()),
+        "heads do not group": lambda: (q, _bf16(1, 64, 3, 64), _bf16(1, 64, 3, 64)),
+        "k shape": lambda: (q, _bf16(1, 32, 2, 64), _bf16(1, 32, 2, 64)),
+        "three dims": lambda: (q[0], kv[0], kv[0]),
+        "head dim strided": lambda: (_bf16(1, 64, 4, 128)[..., ::2], kv, kv),
+        # one element (2 bytes) past a 16-byte-aligned base
+        "misaligned base": lambda: (_bf16(1, 64, 4, 65)[..., 1:], kv, kv),
+        # rows of 68 elements: 136 bytes, not a multiple of 16
+        "misaligned stride": lambda: (_bf16(1, 64, 4, 68)[..., :64],
+                                      _bf16(1, 64, 2, 68)[..., :64],
+                                      _bf16(1, 64, 2, 68)[..., :64]),
+        # batch on grid y, above 65535
+        "grid": lambda: (_bf16(65536, 1, 1, 16),) * 3,
+    }[case]()
+    before = kernel.FLASH_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        kernel.flash_attention_fwd(*args)
+    assert kernel.FLASH_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_wrapper_refuses_cpu_tensors_of_either_kernel(monkeypatch, dtype):
+    """Valid inputs of both dtypes pass every check, then the wrapper
+    refuses the CPU device: it never runs a plain version itself."""
+    _no_build(monkeypatch)
+    q, kv = torch.zeros(2, 200, 4, 128, dtype=dtype), torch.zeros(2, 200, 2, 128, dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_fwd(q, kv, kv)

@@ -9,8 +9,15 @@ package's own tests run it, and against the JAX sequential recurrence
 The model's chunked WKV is held against the JAX model's to 1e-4, with S
 not a multiple of the chunk and S below it.  The CUDA kernel is held
 against the plain version by ``tests/test_torch_cuda.py`` and by
-``chip_smoke.py``.
+``chip_smoke.py``.  The plain version gives the same result in every
+process: fresh interpreters, run side by side, are held against a float64
+numpy evaluation of the same factored math and against each other.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,3 +148,66 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.wkv_chunk_kernel(*rows, ts["u"], ts["state"].reshape(2, 16, 16))
     assert kernel.WKV_LAUNCHES == before
+
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PROBE = Path(__file__).resolve().parent / "_torch_exp_probe.py"
+
+
+def _wkv_chunk_f64(r, k, v, logw, u, state):
+    """The factored chunk math of ``ref.wkv_chunk_ref`` in float64 numpy,
+    on the (B, C, H, N) layout."""
+    r, k, v, lw, u, s0 = (np.asarray(a, np.float64) for a in (r, k, v, logw, u, state))
+    C = r.shape[1]
+    L = np.cumsum(lw, axis=1)
+    r_dec = r * np.exp(L - lw)
+    scores = np.einsum("bthn,bshn->bhts", r_dec, k * np.exp(-L))
+    scores *= np.tril(np.ones((C, C)), -1)
+    y = (np.einsum("bthn,bhnm->bthm", r_dec, s0)
+         + np.einsum("bhts,bshm->bthm", scores, v)
+         + (r * u * k).sum(-1, keepdims=True) * v)
+    wc = L[:, -1]                                            # (B, H, N)
+    s1 = (s0 * np.exp(wc)[..., None]
+          + np.einsum("bshn,bshm->bhnm", k * np.exp(wc[:, None] - L), v))
+    return y, s1
+
+
+def test_wkv_chunk_is_the_same_in_every_process(tmp_path):
+    """The case of ``SHAPES[0]`` in 8 fresh interpreters at once.  CPU
+    ``torch.exp`` is MKL's VML, whose first call in a process can run one
+    thread's grain at reduced accuracy; the f32 plain version then moved
+    ``att @ v`` by up to 5.4e-3 in about one process in 20
+    (``_torch_exp_probe.py``)."""
+    js, _ = _inputs(*SHAPES[0])
+    y_want, s_want = _wkv_chunk_f64(*(np.asarray(a) for a in js.values()))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    outs = [tmp_path / f"wkv{i}.npz" for i in range(8)]
+    # each child runs ops.wkv_chunk on these inputs, loading torch and not JAX
+    procs = [subprocess.Popen([sys.executable, str(PROBE), "--child", "wkv", "--out", str(out)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for out in outs]
+    for p in procs:
+        log = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, log.decode()[-3000:]
+    got = [np.load(out) for out in outs]
+    tol = TOL["float32"]
+    for g in got:
+        _close(g["y"], y_want, tol)
+        _close(g["s1"], s_want, tol)
+        _close(g["y"], got[0]["y"], tol)
+        _close(g["s1"], got[0]["s1"], tol)
+
+
+def test_wkv_chunk_hands_contiguous_rows_at_batch_one(monkeypatch):
+    """At B 1 the (B, C, H, N) → (BH, C, N) reshape is a strided view; the
+    kernel takes contiguous rows only, so ``wkv_chunk`` copies."""
+    _, ts = _inputs(1, 7, 4, 16)
+    seen = []
+
+    def capture(r, k, v, logw, u, state):
+        seen.extend(t.is_contiguous() for t in (r, k, v, logw))
+        return ref.wkv_chunk_rows_ref(r, k, v, logw, u, state)
+
+    monkeypatch.setattr(ops, "wkv_chunk_rows", capture)
+    ops.wkv_chunk(*ts.values())
+    assert seen == [True] * 4
