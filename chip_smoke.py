@@ -8,21 +8,28 @@ Phases, in order; any failure raises and exits non-zero:
   build       compile every kernel source from ``csrc/`` for sm_90a.
   kernels     ``fused_pack``/``fused_unpack`` against their plain versions
               on the 24 full-width ResNet-50 buckets (comm dtype f32, bf16,
-              f16; scale 1 and 64), one mixed-dtype bucket and one bucket of
-              more leaves than one launch takes: bit-exact.  Then each
-              kernel is timed over a whole step's buckets with CUDA events,
-              beside its plain version and one PyTorch call doing the same.
+              f16; scale 1, 4 and 64, so unpack at 1, 1/4 and 1/64; one
+              unpack launch a bucket), one mixed-dtype bucket and one bucket
+              of more leaves than one launch takes (4 and 3 launches each
+              way): bit-exact.  Then each kernel is timed over a whole
+              step's buckets with CUDA events, torch.profiler's device time
+              and the host's enqueue time, beside its plain version and one
+              PyTorch call doing the same; unpack also at scale 1/4.
   ring_quant  the ring-hop combine against torch.add (f32, bf16, f16; the
               tests/test_collectives.py lengths 100 and 4096, an odd
               length and the half-chunks of the 24 ResNet-50 buckets at a
               ring of 4; aligned and misaligned; into a new tensor and in
-              place) and the int8 quantize/dequantize kernels against their
-              plain versions (the 24 buckets padded to 256·4 and their
-              shards at magnitudes 1e-3, 1 and 1e3, zero blocks, blocks of
-              exact .5 ties): bit for bit.  Then each timed over one rank's
-              training step of launches (144 combines, 48 quantizes, 48
-              dequantizes) with CUDA events and torch.profiler, beside its
-              byte bound, its plain version and one PyTorch call.
+              place), its pair entry (each bucket's two half-chunk pairs as
+              the ring forms them, an empty second half, 8 pairs; one
+              launch a call) and the int8 quantize/dequantize kernels
+              against their plain versions (the 24 buckets padded to 256·4
+              and their shards at magnitudes 1e-3, 1 and 1e3, zero blocks,
+              blocks of exact .5 ties): bit for bit.  Then each timed over
+              one rank's training step of launches (72 combines of two
+              pairs, 48 quantizes, 48 dequantizes) with CUDA events,
+              torch.profiler and the host's enqueue time, beside its byte
+              bound, its plain version and one PyTorch call
+              (``torch._foreach_add_`` a hop, and ``torch.add`` a pair).
   train       full-width ResNet-50/CIFAR, global batch 256 at 32x32, SGD
               with momentum 0.9, clip 1.0, on a one-rank NCCL group:
               funnel, concom and depcha from the same seeded weights, 1
@@ -48,7 +55,7 @@ Phases, in order; any failure raises and exits non-zero:
               sum on every block; one captured bucket's ring allreduce with
               the kernel = with the plain add, bit for bit; the launch
               counts of the three kernels exactly as ``step_launches``
-              predicts from the plan.
+              predicts from the plan (one combine a ring hop: 72 a step).
   hierarchical four rank processes on the one card as ``reducers``, on
               pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
               reduce-scatter and all-gather (the intra-pod rings, through
@@ -194,6 +201,17 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_in_turns(fns: dict) -> dict:
+    """``cuda_ms`` of each function, twice, in turns (a, b, c, c, b, a):
+    the host's launch rate drifts within a run, so versions are compared
+    within one pass.  Returns each name's two times."""
+    turns = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            turns[k].append(cuda_ms(fns[k]))
+    return turns
+
+
 def phase_build() -> None:
     """Compile every kernel source at once: one nvcc each, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -251,8 +269,8 @@ def check_bucket(bucket, flat, comm, scale) -> float:
     err = same_bits(got, want, f"pack b{bucket.bucket_id} {comm} x{scale}")
     out_k = list(flat)
     out_p = list(flat)
-    for l in bucket.leaves:
-        out_k[l.index] = torch.empty(l.shape, dtype=l.dtype, device="cuda")
+    for l in bucket.leaves:      # NaN first: an element the kernel misses shows
+        out_k[l.index] = torch.full(l.shape, float("nan"), dtype=l.dtype, device="cuda")
         out_p[l.index] = torch.empty(l.shape, dtype=l.dtype, device="cuda")
     ops.fused_unpack(bucket, want, out_k, scale=1.0 / scale)
     plain_unpack(bucket, want, out_p, scale=1.0 / scale)
@@ -275,9 +293,12 @@ def phase_kernels() -> dict:
     err = 0.0
     n_checks = 0
     for comm in (torch.float32, torch.bfloat16, torch.float16):
-        for scale in (1.0, 64.0):
+        for scale in (1.0, 4.0, 64.0):      # unpack at 1, 1/4 (the 4-rank mean), 1/64
             for b in plan.buckets:
+                before = kernel.UNPACK_LAUNCHES
                 err = max(err, check_bucket(b, flat, comm, scale))
+                if kernel.UNPACK_LAUNCHES - before != 1:
+                    raise AssertionError(f"bucket {b.bucket_id}: expected 1 unpack launch")
                 n_checks += 1
 
     # one mixed-dtype bucket and one of more leaves than a launch takes
@@ -293,55 +314,80 @@ def phase_kernels() -> dict:
     flat_x = flat + extra
     for comm in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
         for scale in (1.0, 64.0):
-            before = kernel.PACK_LAUNCHES
+            before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
             err = max(err, check_bucket(mixed, flat_x, comm, scale))
-            if kernel.PACK_LAUNCHES - before != 4:   # one launch per dtype
-                raise AssertionError("mixed bucket: expected 4 pack launches")
-            before = kernel.PACK_LAUNCHES
+            if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (4, 4):
+                raise AssertionError("mixed bucket: expected 4 pack and 4 unpack launches")
+            before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
             err = max(err, check_bucket(many, flat_x, comm, scale))
-            if kernel.PACK_LAUNCHES - before != 3:   # 150 leaves / 64
-                raise AssertionError("150-leaf bucket: expected 3 pack launches")
+            if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (3, 3):
+                raise AssertionError("150-leaf bucket: expected 3 pack and 3 unpack launches")
             n_checks += 2
     torch.cuda.synchronize()
     log(f"[kernels] {n_checks} bucket checks bit-exact "
         f"(max abs err {err}); 24 buckets, "
         f"{sum(len(b.leaves) for b in plan.buckets)} leaves, "
-        f"{sum(b.size for b in plan.buckets)} elements")
+        f"{sum(b.size for b in plan.buckets)} elements; one unpack launch a bucket")
 
     # timing over a whole step's buckets: f32 wire, scale 1 (the main path)
+    # and, for unpack, 1/4 (the four-rank mean's inverse scale)
     f32 = torch.float32
     bufs = [ops.fused_pack(b, flat, f32) for b in plan.buckets]
     outs = [torch.empty_like(t) for t in flat]
     step_bytes = 2 * sum(b.size for b in plan.buckets) * f32.itemsize
     bound = step_bytes / HBM_BYTES_PER_S * 1e3
     sizes_of = [[l.size for l in b.leaves] for b in plan.buckets]
+    n_buckets = len(plan.buckets)
+
+    def pack():
+        for b in plan.buckets:
+            ops.fused_pack(b, flat, f32)
+
+    def unpack(scale=1.0):
+        for b, buf in zip(plan.buckets, bufs):
+            ops.fused_unpack(b, buf, outs, scale=scale)
+
+    def lib_pack():
+        for b in plan.buckets:
+            torch.cat([flat[l.index].reshape(-1).to(f32) for l in b.leaves])
 
     def lib_unpack():
         for b, buf, sz in zip(plan.buckets, bufs, sizes_of):
             torch._foreach_copy_([outs[l.index].view(-1) for l in b.leaves],
                                  list(torch.split(buf, sz)))
 
+    pack_turns = cuda_ms_in_turns({"ms": pack, "library_ms": lib_pack})
+    unpack_turns = cuda_ms_in_turns({"ms": unpack, "library_ms": lib_unpack})
     rows = {
         "pack": dict(
-            ms=cuda_ms(lambda: [ops.fused_pack(b, flat, f32) for b in plan.buckets]),
+            ms=sum(pack_turns["ms"]) / 2,
+            device_ms=device_ms_per_launch(pack, "pack_bucket_kernel", reps=10),
+            host_ms_per_bucket=host_ms(pack, reps=20) / n_buckets,
             plain_ms=cuda_ms(lambda: [ref.leafwise_pack(
                 [flat[l.index] for l in b.leaves], f32) for b in plan.buckets]),
-            library_ms=cuda_ms(lambda: [torch.cat(
-                [flat[l.index].reshape(-1).to(f32) for l in b.leaves])
-                for b in plan.buckets])),
+            library_ms=sum(pack_turns["library_ms"]) / 2, library="torch.cat",
+            library_host_ms_per_bucket=host_ms(lib_pack, reps=20) / n_buckets,
+            turns=pack_turns),
         "unpack": dict(
-            ms=cuda_ms(lambda: [ops.fused_unpack(b, buf, outs)
-                                for b, buf in zip(plan.buckets, bufs)]),
+            ms=sum(unpack_turns["ms"]) / 2,
+            device_ms=device_ms_per_launch(unpack, "unpack_bucket_kernel", reps=10),
+            host_ms_per_bucket=host_ms(unpack, reps=20) / n_buckets,
             plain_ms=cuda_ms(lambda: [plain_unpack(b, buf, outs)
                                       for b, buf in zip(plan.buckets, bufs)]),
-            library_ms=(cuda_ms(lib_unpack)
-                        if hasattr(torch, "_foreach_copy_") else None)),
+            library_ms=sum(unpack_turns["library_ms"]) / 2, library="torch._foreach_copy_",
+            library_host_ms_per_bucket=host_ms(lib_unpack, reps=20) / n_buckets,
+            turns=unpack_turns,
+            scale_quarter=dict(
+                ms=cuda_ms(lambda: unpack(0.25)),
+                device_ms=device_ms_per_launch(lambda: unpack(0.25), "unpack_bucket_kernel",
+                                               reps=10),
+                plain_ms=cuda_ms(lambda: [plain_unpack(b, buf, outs, 0.25)
+                                          for b, buf in zip(plan.buckets, bufs)]))),
     }
     for name, r in rows.items():
         r.update(bound_ms=bound, bound_by="bytes", max_abs_err=err,
                  step_bytes=step_bytes)
-        log(f"[kernels] {name}: {r['ms']:.4f} ms/step (24 launches), plain "
-            f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound {bound:.4f}")
+        log(f"[kernels] {name} ({n_buckets} launches a step): " + json.dumps(r))
     return rows
 
 
@@ -372,6 +418,7 @@ def phase_train() -> dict:
     steps: list = []
     kernel.PACK_LAUNCHES = 0
     kernel.UNPACK_LAUNCHES = 0
+    kernel.UNPACK_RECORDS_BUILT = 0
     hists = {}
     live = None
     for strat in STRATEGIES:
@@ -405,8 +452,13 @@ def phase_train() -> dict:
                     f"{strat} losses {hist['losses']} differ from "
                     f"{STRATEGIES[0]} {ref_losses} beyond rtol 1e-5")
     log(f"[train] launch counters {launches} = 24 x {TRAIN_STEPS} steps x "
-        f"{len(STRATEGIES)} strategies; losses agree across strategies")
-    return {"launches": launches, "hists": hists, "live": live}
+        f"{len(STRATEGIES)} strategies; losses agree across strategies; "
+        f"{kernel.UNPACK_RECORDS_BUILT} unpack layouts built for "
+        f"{launches['unpack']} unpacks (at most one a bucket: the .grad tensors "
+        f"are new each step, their layout is not, and the kernels phase may have "
+        f"built it already)")
+    return {"launches": launches, "hists": hists, "live": live,
+            "unpack_records_built": kernel.UNPACK_RECORDS_BUILT}
 
 
 def _device_ms(e, self_only: bool = False) -> float:
@@ -519,11 +571,10 @@ def padded(size: int) -> int:
 def step_launches(sizes, reducer: str) -> dict:
     """Kernel launches of one training step on one rank, from the plan's
     bucket sizes: a ring reduce-scatter (the ring reducer's, or rsag's)
-    combines twice a hop (once when a half-chunk is empty) over RING - 1
+    combines once a hop, both directions in one launch, over RING - 1
     hops; the compressed reducers quantize and dequantize twice a bucket
     of at least 256 · RING elements."""
-    accum = sum((RING - 1) * (2 if min(ring_halves(n)) else 1)
-                for n in sizes) if reducer == "ring" else 0
+    accum = (RING - 1) * len(sizes) if reducer == "ring" else 0
     big = (sum(n >= QBLOCK * RING for n in sizes)
            if reducer.startswith("compressed") else 0)
     return {"accum": accum, "quantize": 2 * big, "dequantize": 2 * big}
@@ -559,9 +610,6 @@ def phase_ring_quant() -> dict:
     bit, then each timed over one training step's launches on one rank of
     a ring of 4 (CUDA events back to back, and the device's own time from
     torch.profiler) beside its byte bound and one PyTorch call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.collectives import kernel as ck
     from repro_torch.kernels.collectives import ref as cr
     from repro_torch.kernels.quantize import kernel as qk
@@ -590,6 +638,11 @@ def phase_ring_quant() -> dict:
         f"cases: f32/bf16/f16, lengths {lengths[:3]} and the {len(halves)} "
         f"half-chunk lengths of the 24 ResNet-50 buckets at g = {RING}, "
         f"aligned and misaligned, into a new tensor and in place")
+    n_checks = check_accum_pairs(sizes, gen)
+    log(f"[ring_quant] ring_accum_pairs_kernel bit-exact with torch.add in {n_checks} "
+        f"launches (one each): f32/bf16/f16, each bucket's two half-chunk pairs as "
+        f"a ring of {RING} forms them (own chunks the rows of x2d[:, :h] and "
+        f"x2d[:, h:]), an empty second half (c = 1: one pair), and 8 pairs")
     n_checks = 0
     for i, n in enumerate(sizes):
         m = padded(n)
@@ -605,10 +658,10 @@ def phase_ring_quant() -> dict:
         f"{n_checks} buffers (the 24 buckets padded to 256·{RING} and their "
         f"shards, magnitudes 1e-3/1/1e3, a zero block each) and on the tie blocks")
 
-    # one rank's step of the main path: 6 combines a bucket (3 hops x 2
+    # one rank's step of the main path: 3 combines a bucket (one a hop, both
     # halves), 2 quantizes (m, m/4) and 2 dequantizes (m, m) a bucket
-    pairs = [tuple(torch.randn(h, generator=gen, device="cuda") for _ in range(2))
-             for n in sizes for h in ring_halves(n) for _hop in range(RING - 1)]
+    hops = ring_step_hops(sizes, gen)
+    pairs = [(m, c) for msgs, chunks in hops for m, c in zip(msgs, chunks)]
     qin = [torch.randn(k, generator=gen, device="cuda").view(-1, QBLOCK)
            for n in sizes for k in (padded(n), padded(n) // RING)]
     qs = [qk.quantize_blocks_kernel(torch.randn(padded(n), generator=gen,
@@ -616,10 +669,10 @@ def phase_ring_quant() -> dict:
           for n in sizes for _ in range(2)]
     work = {
         "ring_accum_kernel": dict(
-            kernel=lambda: [ck.ring_accum_kernel(a, b, out=a) for a, b in pairs],
-            plain=lambda: [cr.ring_accum_ref(a, b) for a, b in pairs],
-            library=lambda: [torch.add(a, b, out=a) for a, b in pairs],
-            library_call="torch.add", launches=len(pairs),
+            kernel=lambda: [ck.ring_accum_pairs_kernel(m, c) for m, c in hops],
+            plain=lambda: [cr.ring_accum_pairs_ref(m, c) for m, c in hops],
+            library=lambda: [torch._foreach_add_(m, c) for m, c in hops],
+            library_call="torch._foreach_add_ (one call a hop)", launches=len(hops),
             nbytes=sum(3 * a.numel() * 4 for a, _ in pairs)),
         "quantize_blocks_kernel": dict(
             kernel=lambda: [qk.quantize_blocks_kernel(x) for x in qin],
@@ -633,25 +686,79 @@ def phase_ring_quant() -> dict:
             library_call="torch.mul(q.view(-1, 256), s[:, None])", launches=len(qs),
             nbytes=sum(q.numel() * (1 + 4) + s.numel() * 4 for q, s in qs)),
     }
+    def add():                      # torch.add a pair: the floor for row 3
+        for a, b in pairs:
+            torch.add(a, b, out=a)
+
     rows = {}
     for name, w in work.items():
-        reps = 10
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                w["kernel"]()
-            torch.cuda.synchronize()
-        device_ms = sum(_device_ms(e, self_only=True) for e in prof.key_averages()
-                        if getattr(e, "device_type", None) == DeviceType.CUDA
-                        and name in e.key) / reps
+        device_ms = device_ms_per_launch(w["kernel"], name, reps=10)
+        # back to back in turns (kernel, yardsticks, yardsticks reversed, kernel):
+        # the host's launch rate drifts within a run
+        fns = {"ms": w["kernel"], "library_ms": w["library"]}
+        if name == "ring_accum_kernel":
+            fns["add_ms"] = add
+        turns = cuda_ms_in_turns({k: f for k, f in fns.items() if f is not None})
         rows[name] = dict(
-            ms=cuda_ms(w["kernel"]), device_ms=device_ms,
+            ms=sum(turns["ms"]) / 2, device_ms=device_ms,
             plain_ms=cuda_ms(w["plain"]),
-            library_ms=cuda_ms(w["library"]) if w["library"] else None,
+            library_ms=sum(turns["library_ms"]) / 2 if w["library"] else None,
             library=w["library_call"], max_abs_err=0.0,
             bound_ms=w["nbytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            step_bytes=w["nbytes"], launches_per_step=w["launches"])
+            step_bytes=w["nbytes"], launches_per_step=w["launches"], turns=turns)
+        if name == "ring_accum_kernel":
+            rows[name].update(
+                entry="ring_accum_pairs_kernel", add_ms=sum(turns["add_ms"]) / 2,
+                add_calls=len(pairs), pairs=len(pairs),
+                host_ms_per_launch=host_ms(w["kernel"], reps=20) / len(hops),
+                library_host_ms_per_call=host_ms(w["library"], reps=20) / len(hops),
+                add_host_ms_per_call=host_ms(add, reps=20) / len(pairs))
         log(f"[ring_quant] {name}: " + json.dumps(rows[name]))
     return rows
+
+
+def ring_step_hops(sizes, gen, dtype=torch.float32) -> list:
+    """One rank's ring reduce-scatter combines over a step, as the ring
+    forms them: per bucket (padded to RING · c) and hop, the received
+    messages of the two half-chunks and this rank's own rows of
+    ``x2d[:, :h]`` and ``x2d[:, h:]`` (one pair when h = 0)."""
+    from repro_torch.kernels.collectives import ref as cr
+
+    hops = []
+    for n in sizes:
+        c = -(-n // RING)
+        x2d = torch.randn(RING * c, generator=gen, device="cuda").to(dtype).view(RING, c)
+        rings = cr._rings(x2d, True)
+        for s in range(1, RING):
+            own = [part[(0 - sgn * (s + 1)) % RING] for part, sgn in rings]
+            hops.append(([torch.randn(o.numel(), generator=gen, device="cuda").to(dtype)
+                          for o in own], own))
+    return hops
+
+
+def check_accum_pairs(sizes, gen) -> int:
+    """The pair kernel against torch.add, bit for bit, one launch a call."""
+    from repro_torch.kernels.collectives import kernel as ck
+
+    cases = []
+    for dt in ACCUM_DTYPES:
+        cases += ring_step_hops(sizes, gen, dt)[::RING - 1]      # a hop a bucket
+        cases.append(([torch.randn(1, generator=gen, device="cuda").to(dt)],
+                      [torch.randn(RING, generator=gen, device="cuda").to(dt)[1:2]]))
+        x = torch.randn(9 * 4099, generator=gen, device="cuda").to(dt)
+        cases.append(([torch.randn(4097 - i, generator=gen, device="cuda").to(dt)
+                       for i in range(8)],
+                      [x[i * 4099 + i % 3:][:4097 - i] for i in range(8)]))
+    for msgs, own in cases:
+        want = [torch.add(m, o) for m, o in zip(msgs, own)]
+        before = ck.ACCUM_LAUNCHES
+        got = ck.ring_accum_pairs_kernel(msgs, own)
+        if ck.ACCUM_LAUNCHES != before + 1:
+            raise AssertionError("ring_accum_pairs_kernel: expected one launch a call")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_bits(g, w, f"accum pairs {g.dtype} {len(msgs)} pairs, pair {i} "
+                            f"n={g.numel()}")
+    return len(cases)
 
 
 def _same_on_every_rank(tensors, what: str, group) -> None:
@@ -792,7 +899,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
     with_kernel = co.ring_allreduce(inp.clone(), bucket.reduce_axes, mesh.shape, group)
     buf = F.pad(inp, (0, (-inp.numel()) % RING))
     plain = cr.ring_all_gather_ref(
-        cr.ring_reduce_scatter_ref(buf, group, accum=cr.ring_accum_ref), group)
+        cr.ring_reduce_scatter_ref(buf, group, accum=cr.ring_accum_pairs_ref), group)
     same_bits(with_kernel, plain[:inp.numel()], f"ring allreduce of bucket "
               f"{bucket.bucket_id}: kernel vs plain add")
     out["captured_bucket"] = {"bucket": bucket.bucket_id, "elements": inp.numel()}
@@ -1256,18 +1363,23 @@ def check_flash(q, k, v, causal: bool, what: str) -> float:
 
 
 def device_ms_per_launch(fn, kernel_name: str, reps: int = 50) -> float:
-    """The device time per call of ``fn`` of the kernels whose name holds
-    ``kernel_name``, from torch.profiler."""
+    """The device time per call of ``fn`` of the kernels named
+    ``kernel_name`` (a whole word of the profiler's name, so that
+    ``pack_bucket_kernel`` does not count ``unpack_bucket_kernel``), from
+    torch.profiler."""
+    import re
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    word = re.compile(rf"(?<![A-Za-z0-9_]){kernel_name}(?![A-Za-z0-9_])")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     return sum(_device_ms(e, self_only=True) for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
-               and kernel_name in e.key) / reps
+               and word.search(e.key)) / reps
 
 
 def flash_sass_counts() -> dict:
@@ -2142,10 +2254,8 @@ def main() -> int:
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": train["launches"][name],
-            "launches_per_step": 24, "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "step_bytes": r["step_bytes"]})
+            "launches_per_step": 24, **r})
+    kernels[-1]["records_built_in_train"] = train["unpack_records_built"]
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",

@@ -27,14 +27,31 @@
 // What the design does about it.  One launch covers a whole bucket: the
 // leaf table (pointer, offset, size of up to kMaxLeaves leaves) travels by
 // value in the kernel's argument space, so no host-to-device copy and no
-// per-leaf launch is needed.  blockIdx.y picks the leaf and a grid-stride
-// loop over blockIdx.x/threadIdx.x walks its elements, so neighbouring
-// threads touch neighbouring addresses.  The leaf and comm dtypes are
-// template parameters (one instantiation per pair); a bucket whose leaves
-// differ in dtype, or that holds more than kMaxLeaves leaves, is split by
-// the wrapper into consecutive launches.  Launch latency rather than
-// bandwidth may dominate the many small buckets of a step; 16-byte
-// vector access, a persistent grid and CUDA graphs are left for later.
+// per-leaf launch is needed.  The leaf and comm dtypes are template
+// parameters (one instantiation per pair); a bucket whose leaves differ in
+// dtype, or that holds more than kMaxLeaves leaves, is split by the
+// wrapper into consecutive launches.
+//
+// Pack: blockIdx.y picks the leaf and a grid-stride loop over
+// blockIdx.x/threadIdx.x walks its elements, scalar, so neighbouring
+// threads touch neighbouring addresses.
+//
+// Unpack: a flat grid of fixed-size tiles over the bucket's elements.
+// Each leaf owns ceil(size / tile) consecutive tiles; a block finds its
+// leaf by a binary search of the table's first-tile column, so no block
+// idles (a longest-leaf x leaves grid left most blocks of a bucket of
+// small leaves with nothing to do).  A tile is kThreads x kUnroll 16-byte
+// vectors of the buffer: when the leaf's pointer and buf + offset are both
+// 16-byte aligned, a thread loads its kUnroll vectors before its first
+// store and stores each as the widest aligned access its kV destination
+// values fill (8 bytes for f32 -> bf16, 32 for bf16 -> f32); the leaf's
+// tail (size % kV) goes to its last tile.  A misaligned leaf walks the
+// same tile in scalars, kUnroll x kV a thread, loads first.  The wrapper
+// keeps a bucket's layout (offsets, sizes, launch groups) and reuses it
+// while the leaves' dtypes and sizes and the buffer's dtype stay the
+// same, so a call passes only the leaves' pointers (one packed column:
+// the training loop's .grad tensors are new each step), the buffer's
+// pointer, the scale and the stream.
 //
 // Interface: plain C, loaded with ctypes (kernel.py).  Each entry point
 // returns cudaGetLastError() after its launch; the wrapper raises if it is
@@ -50,8 +67,10 @@
 namespace {
 
 constexpr int kMaxLeaves = 64;   // kernel.py MAX_LEAVES
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;    // pack
 constexpr int kMaxBlocksX = 1024;
+constexpr int kTileThreads = 128;   // unpack
+constexpr int kUnroll = 2;          // unpack: 16-byte vectors in flight a thread
 
 // dtype codes shared with kernel.py
 constexpr int kF32 = 0;
@@ -60,9 +79,27 @@ constexpr int kF16 = 2;
 constexpr int kF64 = 3;
 
 struct LeafTable {
-  void* ptr[kMaxLeaves];         // pack: source leaves; unpack: destinations
+  void* ptr[kMaxLeaves];         // pack: source leaves
   int64_t offset[kMaxLeaves];    // element offset of the leaf in the buffer
   int64_t size[kMaxLeaves];      // elements
+};
+
+// A bucket's unpack layout, built once by kernel.py (ctypes _UnpackArgs):
+// leaf i, of size[i] >= 1 elements, is buf[offset[i] ...].  The leaves'
+// pointers come with each call.
+struct UnpackArgs {
+  int64_t offset[kMaxLeaves];
+  int64_t size[kMaxLeaves];
+  int32_t count;
+};
+
+// What the unpack kernel receives, by value.
+struct TileTable {
+  void* ptr[kMaxLeaves];
+  int64_t offset[kMaxLeaves];
+  int64_t size[kMaxLeaves];
+  int64_t first_tile[kMaxLeaves + 1];   // leaf i owns tiles [first_tile[i], first_tile[i + 1])
+  int32_t count;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -114,75 +151,135 @@ pack_bucket_kernel(const LeafTable table, D* __restrict__ buf, float scale,
             table.size[leaf], scale, scaled);
 }
 
-// Comm buffer (type S) -> leaves (type D).
 template <typename S, typename D>
-__global__ void __launch_bounds__(kThreads)
-unpack_bucket_kernel(const LeafTable table, const S* __restrict__ buf,
-                     float scale, bool scaled) {
-  const int leaf = blockIdx.y;
-  cast_copy(buf + table.offset[leaf], static_cast<D*>(table.ptr[leaf]),
-            table.size[leaf], scale, scaled);
-}
-
-template <bool kPack, typename S, typename D>
-cudaError_t launch(const LeafTable& table, dim3 grid, void* buf, float scale,
-                   bool scaled, cudaStream_t stream) {
-  if constexpr (kPack) {
-    pack_bucket_kernel<S, D><<<grid, kThreads, 0, stream>>>(
-        table, static_cast<D*>(buf), scale, scaled);
-  } else {
-    unpack_bucket_kernel<S, D><<<grid, kThreads, 0, stream>>>(
-        table, static_cast<const S*>(buf), scale, scaled);
-  }
+cudaError_t launch_pack(const LeafTable& table, dim3 grid, void* buf, float scale,
+                        bool scaled, cudaStream_t stream) {
+  pack_bucket_kernel<S, D><<<grid, kThreads, 0, stream>>>(
+      table, static_cast<D*>(buf), scale, scaled);
   return cudaGetLastError();
 }
 
-template <bool kPack, typename S>
-cudaError_t dispatch_dst(int dst, const LeafTable& table, dim3 grid, void* buf,
-                         float scale, bool scaled, cudaStream_t stream) {
+template <typename S>
+cudaError_t pack_dst(int dst, const LeafTable& table, dim3 grid, void* buf,
+                     float scale, bool scaled, cudaStream_t stream) {
   switch (dst) {
-    case kF32: return launch<kPack, S, float>(table, grid, buf, scale, scaled, stream);
-    case kBF16: return launch<kPack, S, __nv_bfloat16>(table, grid, buf, scale, scaled, stream);
-    case kF16: return launch<kPack, S, __half>(table, grid, buf, scale, scaled, stream);
-    case kF64: return launch<kPack, S, double>(table, grid, buf, scale, scaled, stream);
+    case kF32: return launch_pack<S, float>(table, grid, buf, scale, scaled, stream);
+    case kBF16: return launch_pack<S, __nv_bfloat16>(table, grid, buf, scale, scaled, stream);
+    case kF16: return launch_pack<S, __half>(table, grid, buf, scale, scaled, stream);
+    case kF64: return launch_pack<S, double>(table, grid, buf, scale, scaled, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kPack>
-cudaError_t dispatch(int src, int dst, const LeafTable& table, dim3 grid,
-                     void* buf, float scale, bool scaled, cudaStream_t stream) {
-  switch (src) {
-    case kF32: return dispatch_dst<kPack, float>(dst, table, grid, buf, scale, scaled, stream);
-    case kBF16: return dispatch_dst<kPack, __nv_bfloat16>(dst, table, grid, buf, scale, scaled, stream);
-    case kF16: return dispatch_dst<kPack, __half>(dst, table, grid, buf, scale, scaled, stream);
-    case kF64: return dispatch_dst<kPack, double>(dst, table, grid, buf, scale, scaled, stream);
-    default: return cudaErrorInvalidValue;
+// One value of an unpack: bits unchanged for a same-type copy at scale 1,
+// else through f32 (times the scale when scaled) into D.
+template <typename S, typename D>
+__device__ __forceinline__ D convert(S x, float scale, bool scaled) {
+  if constexpr (std::is_same<S, D>::value) {
+    if (!scaled) return x;
+  }
+  return from_f32<D>(scaled ? to_f32(x) * scale : to_f32(x));
+}
+
+// kV destination values, aligned as widely as their bytes allow (at most
+// 16), so that one assignment stores them in the fewest accesses.
+template <typename T, int N>
+struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Pack {
+  T v[N];
+};
+
+template <typename S>
+__host__ __device__ constexpr int64_t tile_elems() {
+  return static_cast<int64_t>(kTileThreads) * kUnroll * (16 / sizeof(S));
+}
+
+// Comm buffer (type S) -> leaves (type D), one tile a block.
+template <typename S, typename D>
+__global__ void __launch_bounds__(kTileThreads)
+unpack_bucket_kernel(const __grid_constant__ TileTable t, const S* __restrict__ buf,
+                     float scale, bool scaled) {
+  constexpr int kV = 16 / sizeof(S);
+  const int64_t tile = blockIdx.x;
+  int lo = 0, hi = t.count - 1;   // the last leaf whose first tile is <= tile
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.first_tile[mid] <= tile) lo = mid; else hi = mid - 1;
+  }
+  const S* src = buf + t.offset[lo];
+  D* dst = static_cast<D*>(t.ptr[lo]);
+  const int64_t n = t.size[lo];
+  const int64_t base = (tile - t.first_tile[lo]) * tile_elems<S>();
+  const bool vec = (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) % 16 == 0;
+
+  if (vec) {
+    const int64_t nv = n / kV;
+    const int64_t v0 = base / kV + threadIdx.x;
+    uint4 r[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t v = v0 + j * kTileThreads;
+      if (v < nv) r[j] = reinterpret_cast<const uint4*>(src)[v];
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t v = v0 + j * kTileThreads;
+      if (v < nv) {
+        const S* ps = reinterpret_cast<const S*>(&r[j]);
+        Pack<D, kV> o;
+#pragma unroll
+        for (int e = 0; e < kV; ++e) o.v[e] = convert<S, D>(ps[e], scale, scaled);
+        reinterpret_cast<Pack<D, kV>*>(dst)[v] = o;
+      }
+    }
+    // the last (n % kV) elements, in the leaf's last tile
+    const int64_t i = nv * kV + threadIdx.x;
+    if (tile + 1 == t.first_tile[lo + 1] && i < n) dst[i] = convert<S, D>(src[i], scale, scaled);
+    return;
+  }
+  constexpr int kS = kUnroll * kV;
+  S r[kS];
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    const int64_t i = base + j * kTileThreads + threadIdx.x;
+    if (i < n) r[j] = src[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    const int64_t i = base + j * kTileThreads + threadIdx.x;
+    if (i < n) dst[i] = convert<S, D>(r[j], scale, scaled);
   }
 }
 
-template <bool kPack>
-int stage(void* const* ptrs, const int64_t* offsets, const int64_t* sizes,
-          int n, int src, int dst, void* buf, float scale, int scaled,
-          int device, void* stream) {
-  if (n < 1 || n > kMaxLeaves) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  LeafTable table;
-  int64_t longest = 0;
-  for (int i = 0; i < n; ++i) {
-    table.ptr[i] = ptrs[i];
-    table.offset[i] = offsets[i];
-    table.size[i] = sizes[i];
-    if (sizes[i] > longest) longest = sizes[i];
+template <typename S, typename D>
+cudaError_t launch_unpack(const UnpackArgs& args, void* const* leaves, const void* buf,
+                          float scale, bool scaled, cudaStream_t stream) {
+  TileTable t;
+  t.count = args.count;
+  t.first_tile[0] = 0;
+  for (int i = 0; i < args.count; ++i) {
+    if (args.size[i] < 1 || args.offset[i] < 0) return cudaErrorInvalidValue;
+    t.ptr[i] = leaves[i];
+    t.offset[i] = args.offset[i];
+    t.size[i] = args.size[i];
+    t.first_tile[i + 1] = t.first_tile[i] + (args.size[i] + tile_elems<S>() - 1) / tile_elems<S>();
   }
-  int64_t bx = (longest + 4 * kThreads - 1) / (4 * kThreads);
-  if (bx < 1) bx = 1;
-  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(n));
-  return static_cast<int>(dispatch<kPack>(src, dst, table, grid, buf, scale,
-                                          scaled != 0,
-                                          static_cast<cudaStream_t>(stream)));
+  const int64_t tiles = t.first_tile[args.count];
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  unpack_bucket_kernel<S, D><<<static_cast<unsigned>(tiles), kTileThreads, 0, stream>>>(
+      t, static_cast<const S*>(buf), scale, scaled);
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t unpack_dst(int dst, const UnpackArgs& args, void* const* leaves,
+                       const void* buf, float scale, bool scaled, cudaStream_t stream) {
+  switch (dst) {
+    case kF32: return launch_unpack<S, float>(args, leaves, buf, scale, scaled, stream);
+    case kBF16: return launch_unpack<S, __nv_bfloat16>(args, leaves, buf, scale, scaled, stream);
+    case kF16: return launch_unpack<S, __half>(args, leaves, buf, scale, scaled, stream);
+    case kF64: return launch_unpack<S, double>(args, leaves, buf, scale, scaled, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -194,17 +291,54 @@ int staging_pack(void* const* leaves, const int64_t* offsets,
                  const int64_t* sizes, int n, int leaf_dtype, void* buf,
                  int comm_dtype, float scale, int scaled, int device,
                  void* stream) {
-  return stage<true>(leaves, offsets, sizes, n, leaf_dtype, comm_dtype, buf,
-                     scale, scaled, device, stream);
+  if (n < 1 || n > kMaxLeaves) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  LeafTable table;
+  int64_t longest = 0;
+  for (int i = 0; i < n; ++i) {
+    table.ptr[i] = leaves[i];
+    table.offset[i] = offsets[i];
+    table.size[i] = sizes[i];
+    if (sizes[i] > longest) longest = sizes[i];
+  }
+  int64_t bx = (longest + 4 * kThreads - 1) / (4 * kThreads);
+  if (bx < 1) bx = 1;
+  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
+  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(n));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool sc = scaled != 0;
+  switch (leaf_dtype) {
+    case kF32: err = pack_dst<float>(comm_dtype, table, grid, buf, scale, sc, s); break;
+    case kBF16: err = pack_dst<__nv_bfloat16>(comm_dtype, table, grid, buf, scale, sc, s); break;
+    case kF16: err = pack_dst<__half>(comm_dtype, table, grid, buf, scale, sc, s); break;
+    case kF64: err = pack_dst<double>(comm_dtype, table, grid, buf, scale, sc, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
-// buf[offsets[i] ...] (comm_dtype) -> leaves[i] (leaf_dtype, sizes[i] elements)
-int staging_unpack(void* const* leaves, const int64_t* offsets,
-                   const int64_t* sizes, int n, int leaf_dtype, void* buf,
-                   int comm_dtype, float scale, int scaled, int device,
-                   void* stream) {
-  return stage<false>(leaves, offsets, sizes, n, comm_dtype, leaf_dtype, buf,
-                      scale, scaled, device, stream);
+// For each leaf i of the UnpackArgs at ``table``: buf[offset[i] ...]
+// (comm_dtype) -> leaves[i] (leaf_dtype, size[i] elements).  One launch.
+int staging_unpack(const void* table, void* const* leaves, int leaf_dtype,
+                   const void* buf, int comm_dtype, float scale, int scaled,
+                   int device, void* stream) {
+  const auto* args = static_cast<const UnpackArgs*>(table);
+  if (args == nullptr || leaves == nullptr || args->count < 1 || args->count > kMaxLeaves) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool sc = scaled != 0;
+  switch (comm_dtype) {
+    case kF32: err = unpack_dst<float>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
+    case kBF16: err = unpack_dst<__nv_bfloat16>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
+    case kF16: err = unpack_dst<__half>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
+    case kF64: err = unpack_dst<double>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

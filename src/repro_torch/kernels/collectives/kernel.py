@@ -4,7 +4,9 @@ kernels (``csrc/staging.cu``), the ring-hop combine
 
 ``pack_bucket_kernel``/``unpack_bucket_kernel``/``ring_accum_kernel``
 are the CUDA counterparts of ``repro/kernels/collectives/kernel.py``'s
-Pallas kernels of the same names, ``ring_reduce_scatter_kernel``/
+Pallas kernels of the same names (``ring_accum_pairs_kernel`` is the
+combine's entry for a whole ring hop, up to ``MAX_PAIRS`` pairs in one
+launch), ``ring_reduce_scatter_kernel``/
 ``ring_all_gather_kernel`` those of ``ring_reduce_scatter_tpu``/
 ``ring_all_gather_tpu``; each source says what it replaces, what bounds
 it and how it is laid out.  The rings run over a ``PeerRing``: one
@@ -22,12 +24,23 @@ never synchronize, and count their launches in ``PACK_LAUNCHES`` /
 ``UNPACK_LAUNCHES`` / ``ACCUM_LAUNCHES`` / ``RS_LAUNCHES`` /
 ``AG_LAUNCHES`` (a ring call launches once a hop, g times).  There is no fallback: a
 failed build or launch raises.
+
+The combine and the unpack keep their host path short, since a ring hop
+or a bucket moves only a few MB: the combine packs the pairs' pointers
+and lengths into a preallocated buffer (one a thread) with one
+``struct`` call, and the unpack keeps each bucket's layout (offsets,
+sizes, launch groups), keyed by the leaves' dtypes and sizes and the
+buffer's dtype, so that a call packs only the leaves' pointers — the
+training loop's ``.grad`` tensors are new each step.  Both read the
+current stream's raw handle without building a ``Stream``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import socket
+import struct
+import threading
 import weakref
 from pathlib import Path
 from typing import Iterator, Sequence
@@ -42,8 +55,11 @@ UNPACK_LAUNCHES = 0
 ACCUM_LAUNCHES = 0
 RS_LAUNCHES = 0
 AG_LAUNCHES = 0
+UNPACK_RECORDS_BUILT = 0   # unpack layouts built (the rest of the calls reused one)
 
 MAX_LEAVES = 64   # kMaxLeaves in csrc/staging.cu
+MAX_PAIRS = 8     # kMaxPairs in csrc/ring_accum.cu
+MAX_UNPACK_RECORDS = 256   # bucket layouts kept for reuse, oldest dropped first
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float64: 3}
 
@@ -244,37 +260,92 @@ def ring_all_gather_kernel(ring: PeerRing, shard: torch.Tensor, *,
     return out
 
 
+# ``AccumArgs`` of csrc/ring_accum.cu, packed in one call: the count, then
+# (a, b, out, n) a pair, out = a + b over n elements; one format a count.
+_ACCUM_ARGS = [struct.Struct("<q" + "QQQq" * k) for k in range(MAX_PAIRS + 1)]
+
+
+class _UnpackArgs(ctypes.Structure):
+    """``UnpackArgs`` of ``csrc/staging.cu``: leaf i is
+    ``buf[offset[i]:offset[i] + size[i]]``; its pointer comes per call."""
+    _fields_ = [("offset", ctypes.c_int64 * MAX_LEAVES),
+                ("size", ctypes.c_int64 * MAX_LEAVES), ("count", ctypes.c_int32)]
+
+
+# the leaves' pointers of one unpack launch, packed in one call
+_LEAF_PTRS = [struct.Struct(f"<{k}Q") for k in range(MAX_LEAVES + 1)]
+
+_local = threading.local()
+
+
+def _leaf_ptr_table() -> tuple[ctypes.Array, int]:
+    """This thread's column of leaf pointers for an unpack and its
+    address; the launch copies it into the kernel's arguments."""
+    try:
+        return _local.leaf_ptrs
+    except AttributeError:
+        buf = ctypes.create_string_buffer(_LEAF_PTRS[MAX_LEAVES].size)
+        _local.leaf_ptrs = (buf, ctypes.addressof(buf))
+        return _local.leaf_ptrs
+
+
+def _accum_table() -> tuple[ctypes.Array, int]:
+    """This thread's combine table and its address; a launch copies it
+    into the kernel's arguments, so one table serves every call."""
+    try:
+        return _local.accum
+    except AttributeError:
+        buf = ctypes.create_string_buffer(_ACCUM_ARGS[MAX_PAIRS].size)
+        _local.accum = (buf, ctypes.addressof(buf))
+        return _local.accum
+
+
+def _stream(index: int) -> int:
+    """The current stream's raw handle on card ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 @functools.cache
 def _accum_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_ring_accum()))
-    lib.ring_accum.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # msg, chunk, out
-        ctypes.c_int64,                                      # elements
+    lib.ring_accum_pairs.argtypes = [
+        ctypes.c_void_p,                                     # AccumArgs*
         ctypes.c_int,                                        # dtype code
         ctypes.c_int,                                        # device index
         ctypes.c_void_p,                                     # cudaStream_t
     ]
-    lib.ring_accum.restype = ctypes.c_int
+    lib.ring_accum_pairs.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
+    lib.staging_pack.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),   # leaf pointers
+        ctypes.POINTER(ctypes.c_int64),    # offsets in the buffer
+        ctypes.POINTER(ctypes.c_int64),    # sizes
+        ctypes.c_int,                      # number of leaves
+        ctypes.c_int,                      # leaf dtype code
+        ctypes.c_void_p,                   # comm buffer
+        ctypes.c_int,                      # comm dtype code
+        ctypes.c_float,                    # scale
+        ctypes.c_int,                      # scale != 1
+        ctypes.c_int,                      # device index
+        ctypes.c_void_p,                   # cudaStream_t
+    ]
+    lib.staging_unpack.argtypes = [
+        ctypes.c_void_p,                   # UnpackArgs*
+        ctypes.c_void_p,                   # leaf pointers
+        ctypes.c_int,                      # leaf dtype code
+        ctypes.c_void_p,                   # comm buffer
+        ctypes.c_int,                      # comm dtype code
+        ctypes.c_float,                    # scale
+        ctypes.c_int,                      # scale != 1
+        ctypes.c_int,                      # device index
+        ctypes.c_void_p,                   # cudaStream_t
+    ]
     for fn in (lib.staging_pack, lib.staging_unpack):
-        fn.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p),   # leaf pointers
-            ctypes.POINTER(ctypes.c_int64),    # offsets in the buffer
-            ctypes.POINTER(ctypes.c_int64),    # sizes
-            ctypes.c_int,                      # number of leaves
-            ctypes.c_int,                      # leaf dtype code
-            ctypes.c_void_p,                   # comm buffer
-            ctypes.c_int,                      # comm dtype code
-            ctypes.c_float,                    # scale
-            ctypes.c_int,                      # scale != 1
-            ctypes.c_int,                      # device index
-            ctypes.c_void_p,                   # cudaStream_t
-        ]
         fn.restype = ctypes.c_int
     return lib
 
@@ -290,11 +361,11 @@ def _check(t: torch.Tensor, what: str, device: torch.device) -> None:
         raise ValueError(f"{what} is not contiguous")
 
 
-def _launch_groups(leaves: Sequence[torch.Tensor], offsets: Sequence[int]
+def _launch_groups(leaves: Sequence[torch.Tensor], offsets: Sequence
                    ) -> Iterator[tuple[torch.dtype, list, list]]:
     """(dtype, leaves, offsets) per launch: leaves grouped by dtype (the
     kernel's template parameter), at most MAX_LEAVES per launch; empty
-    leaves need no launch."""
+    leaves need no launch.  Each offset travels with its leaf as given."""
     by_dtype: dict[torch.dtype, list[tuple[torch.Tensor, int]]] = {}
     for t, off in zip(leaves, offsets):
         if t.numel():
@@ -347,13 +418,41 @@ def pack_bucket_kernel(leaves: Sequence[torch.Tensor], comm_dtype, *,
     return buf
 
 
+_UNPACK_RECORDS: dict[tuple, tuple[int, tuple]] = {}
+
+
+def _unpack_record(key: tuple, outs: Sequence[torch.Tensor]) -> tuple[int, tuple]:
+    """A bucket's layout: (elements, one (table, its address, leaf dtype
+    code, the group's indexes into ``outs``) per launch group).  Kept
+    under ``key`` for reuse."""
+    global UNPACK_RECORDS_BUILT
+    UNPACK_RECORDS_BUILT += 1
+    offsets, off = [], 0
+    for t in outs:
+        offsets.append(off)
+        off += t.numel()
+    groups = []
+    for dt, ts, where in _launch_groups(outs, list(enumerate(offsets))):
+        args = _UnpackArgs()
+        for j, (t, (_, o)) in enumerate(zip(ts, where)):
+            args.offset[j], args.size[j] = o, t.numel()
+        args.count = len(ts)
+        groups.append((args, ctypes.addressof(args), DTYPE_CODES[dt],
+                       tuple(i for i, _ in where)))
+    if len(_UNPACK_RECORDS) >= MAX_UNPACK_RECORDS:
+        del _UNPACK_RECORDS[next(iter(_UNPACK_RECORDS))]
+    rec = _UNPACK_RECORDS[key] = (off, tuple(groups))
+    return rec
+
+
 def unpack_bucket_kernel(buf: torch.Tensor, outs: Sequence[torch.Tensor], *,
                          scale: float = 1.0) -> None:
     """Inverse of ``pack_bucket_kernel``: write ``buf``'s consecutive
     slices, times ``scale`` and cast to each output's dtype, into
     ``outs``.  The outputs are written in place — on the training path
     they are the ``.grad`` tensors themselves, which saves a copy and the
-    memory of a second gradient set."""
+    memory of a second gradient set.  One launch per group of at most
+    ``MAX_LEAVES`` leaves of one dtype."""
     global UNPACK_LAUNCHES
     device = buf.device
     if device.type != "cuda":
@@ -361,45 +460,104 @@ def unpack_bucket_kernel(buf: torch.Tensor, outs: Sequence[torch.Tensor], *,
     _check(buf, "buffer", device)
     if buf.dim() != 1:
         raise ValueError(f"buffer must be 1-D, got shape {tuple(buf.shape)}")
-    offsets, off = [], 0
-    for i, t in enumerate(outs):
-        _check(t, f"output {i}", device)
-        offsets.append(off)
-        off += t.numel()
-    if off != buf.numel():
-        raise ValueError(f"outputs hold {off} elements, buffer {buf.numel()}")
-    UNPACK_LAUNCHES += _stage(_lib().staging_unpack, "unpack_bucket_kernel",
-                              outs, offsets, buf, scale)
+    key, ptrs = [buf.dtype], []
+    for t in outs:
+        if t.device != device or t.dtype not in DTYPE_CODES or not t.is_contiguous():
+            for i, u in enumerate(outs):
+                _check(u, f"output {i}", device)
+        key += (t.dtype, t.numel())
+        ptrs.append(t.data_ptr())
+    key = tuple(key)
+    total, groups = _UNPACK_RECORDS.get(key) or _unpack_record(key, outs)
+    if total != buf.numel():
+        raise ValueError(f"outputs hold {total} elements, buffer {buf.numel()}")
+    fn, index = _lib().staging_unpack, device.index
+    stream, ptr, comm = _stream(index), buf.data_ptr(), DTYPE_CODES[buf.dtype]
+    column, column_addr = _leaf_ptr_table()
+    for _, addr, code, idx in groups:
+        _LEAF_PTRS[len(idx)].pack_into(column, 0, *[ptrs[i] for i in idx])
+        rc = fn(addr, column_addr, code, ptr, comm, float(scale), int(scale != 1.0),
+                index, stream)
+        if rc != 0:
+            raise RuntimeError(f"unpack_bucket_kernel launch failed: CUDA error {rc}")
+    UNPACK_LAUNCHES += len(groups)
+
+
+def _check_accum(t: torch.Tensor, what: str, name: str, device: torch.device,
+                 dtype: torch.dtype, n: int) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype or dtype not in ACCUM_DTYPE_CODES:
+        raise ValueError(
+            f"{what} has dtype {t.dtype}; {name} takes one of "
+            f"{sorted(map(str, ACCUM_DTYPE_CODES))} for all its operands")
+    if t.dim() != 1 or t.numel() != n or not t.is_contiguous():
+        raise ValueError(f"{what} must be 1-D, contiguous, of {n} elements; "
+                         f"got {tuple(t.shape)}")
+
+
+def _launch_accum(pairs: list, dtype: torch.dtype, device: torch.device, name: str) -> None:
+    """One launch over ``pairs``, (a, b, out, n) flattened."""
+    buf, addr = _accum_table()
+    k = len(pairs) // 4
+    _ACCUM_ARGS[k].pack_into(buf, 0, k, *pairs)
+    rc = _accum_lib().ring_accum_pairs(addr, ACCUM_DTYPE_CODES[dtype], device.index,
+                                       _stream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def ring_accum_kernel(msg: torch.Tensor, chunk: torch.Tensor, *,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """One ring hop's combine: ``msg + chunk`` (1-D, one dtype of f32,
     bf16, f16, contiguous CUDA tensors), written into ``out`` — a new
-    tensor by default; the ring passes the received buffer ``msg``."""
+    tensor by default, or ``msg`` itself."""
     global ACCUM_LAUNCHES
     device = msg.device
     if device.type != "cuda":
         raise ValueError(f"ring_accum_kernel takes CUDA tensors, got {device}")
     if out is None:
         out = torch.empty_like(msg)
+    n = msg.numel()
     for what, t in (("msg", msg), ("chunk", chunk), ("out", out)):
-        if t.device != device:
-            raise ValueError(f"{what} is on {t.device}, expected {device}")
-        if t.dtype != msg.dtype or t.dtype not in ACCUM_DTYPE_CODES:
-            raise ValueError(
-                f"{what} has dtype {t.dtype}; ring_accum_kernel takes one of "
-                f"{sorted(map(str, ACCUM_DTYPE_CODES))} for all three")
-        if t.dim() != 1 or t.numel() != msg.numel() or not t.is_contiguous():
-            raise ValueError(f"{what} must be 1-D, contiguous, of "
-                             f"{msg.numel()} elements; got {tuple(t.shape)}")
-    if msg.numel() == 0:
+        _check_accum(t, what, "ring_accum_kernel", device, msg.dtype, n)
+    if n == 0:
         return out
-    rc = _accum_lib().ring_accum(
-        msg.data_ptr(), chunk.data_ptr(), out.data_ptr(), msg.numel(),
-        ACCUM_DTYPE_CODES[msg.dtype], device.index,
-        torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ring_accum_kernel launch failed: CUDA error {rc}")
+    _launch_accum([msg.data_ptr(), chunk.data_ptr(), out.data_ptr(), n], msg.dtype,
+                  device, "ring_accum_kernel")
     ACCUM_LAUNCHES += 1
     return out
+
+
+def ring_accum_pairs_kernel(msgs: Sequence[torch.Tensor],
+                            chunks: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    """One ring hop's combine for every direction at once:
+    ``msgs[i] += chunks[i]`` in place for 1 to ``MAX_PAIRS`` pairs (each
+    1-D and contiguous, all of one dtype of f32, bf16, f16, on one card),
+    in one launch; returns ``msgs``.  Empty pairs are skipped."""
+    global ACCUM_LAUNCHES
+    name = "ring_accum_pairs_kernel"
+    if len(msgs) != len(chunks) or not 1 <= len(msgs) <= MAX_PAIRS:
+        raise ValueError(f"{name} takes 1 to {MAX_PAIRS} pairs, got {len(msgs)} "
+                         f"messages and {len(chunks)} chunks")
+    device, dtype = msgs[0].device, msgs[0].dtype
+    if device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {device}")
+    if dtype not in ACCUM_DTYPE_CODES:
+        _check_accum(msgs[0], "msgs[0]", name, device, dtype, 0)
+    pairs = []
+    for m, c in zip(msgs, chunks):
+        n = m.numel()
+        if (m.device != device or c.device != device or m.dtype != dtype
+                or c.dtype != dtype or m.dim() != 1 or c.dim() != 1
+                or c.numel() != n or not m.is_contiguous() or not c.is_contiguous()):
+            for i, (m_i, c_i) in enumerate(zip(msgs, chunks)):   # raises
+                _check_accum(m_i, f"msgs[{i}]", name, device, dtype, m_i.numel())
+                _check_accum(c_i, f"chunks[{i}]", name, device, dtype, m_i.numel())
+        if n:
+            p = m.data_ptr()
+            pairs += (p, c.data_ptr(), p, n)      # in place
+    if pairs:
+        _launch_accum(pairs, dtype, device, name)
+        ACCUM_LAUNCHES += 1
+    return msgs

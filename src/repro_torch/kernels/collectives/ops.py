@@ -13,9 +13,10 @@ stages them leafwise, as the reference does.
 
 ``ring_reduce_scatter``/``ring_all_gather``/``ring_allreduce`` run the
 chunked, bidirectional rings of ``ref.py`` over a bucket's communicator.
-Each hop's combine is the CUDA ``ring_accum_kernel`` on CUDA tensors and
-its plain version ``ref.ring_accum_ref`` (``torch.add``) on CPU tensors:
-the two round alike, so no result differs.
+Each hop's combine, both ring directions at once, is one launch of the
+CUDA ``ring_accum_pairs_kernel`` on CUDA tensors and its plain version
+``ref.ring_accum_pairs_ref`` (``torch.add`` a pair) on CPU tensors: the
+two round alike, so no result differs.
 (The reference runs its Pallas combine only when asked,
 ``use_accum_kernel``; here the device decides, as for staging.)  Rank
 ``r`` owns chunk ``r`` after the reduce-scatter, so they stand in for
@@ -79,13 +80,14 @@ def fused_unpack(bucket, buf: torch.Tensor, flat_out: list[torch.Tensor], *,
     and dtype on ``buf``'s device."""
     outs = [flat_out[l.index] for l in bucket.leaves]
     for l, t in zip(bucket.leaves, outs):
-        if tuple(t.shape) != l.shape or t.dtype != l.dtype:
+        if t.shape != l.shape or t.dtype != l.dtype:
             raise ValueError(
                 f"leaf {l.name}: target is {tuple(t.shape)} {t.dtype}, the "
                 f"plan says {l.shape} {l.dtype}")
-    if _device_of([buf, *outs]).type == "cuda":
+    if buf.device.type == "cuda":      # the kernel checks every leaf's device
         kernel.unpack_bucket_kernel(buf, outs, scale=scale)
         return
+    _device_of([buf, *outs])
     pieces = ref.leafwise_unpack(buf, [l.size for l in bucket.leaves],
                                  [l.dtype for l in bucket.leaves], scale=scale)
     for t, piece in zip(outs, pieces):
@@ -125,11 +127,11 @@ def _ring_size(axes: Sequence[str], mesh_shape: Mapping[str, int],
 
 
 def _accum(device: torch.device):
-    """The per-hop combine for tensors on ``device``; on CUDA it writes
-    into the received buffer."""
+    """The per-hop combine of every direction's pair for tensors on
+    ``device``; on CUDA one launch that adds into the received buffers."""
     if device.type == "cuda":
-        return lambda msg, chunk: kernel.ring_accum_kernel(msg, chunk, out=msg)
-    return ref.ring_accum_ref
+        return kernel.ring_accum_pairs_kernel
+    return ref.ring_accum_pairs_ref
 
 
 def ring_reduce_scatter(buf: torch.Tensor, axes: tuple[str, ...],

@@ -13,10 +13,12 @@ dtypes).
 chunked rings over one process group: g-1 neighbour hops, each hop one
 batch of point-to-point transfers (``core/dependency.py::exchange``, the
 counterpart of one ``lax.ppermute``) plus, for the reduce-scatter, a
-combine (``accum``: ``ring_accum_ref`` here, the CUDA
-``ring_accum_kernel`` on CUDA tensors when driven from ``ops``).  ``bidirectional=True`` splits every chunk in
-half and runs a clockwise ring on ``[:h]`` and a counter-clockwise one
-on ``[h:]`` in the same batches: two messages in flight per hop.  Rank
+combine of every direction's pair at once (``accum``:
+``ring_accum_pairs_ref`` here, the CUDA ``ring_accum_pairs_kernel`` on
+CUDA tensors when driven from ``ops``: one launch a hop).
+``bidirectional=True`` splits every chunk in half and runs a clockwise
+ring on ``[:h]`` and a counter-clockwise one on ``[h:]`` in the same
+batches: two messages in flight per hop.  Rank
 ``r`` ends owning chunk ``r``, as ``reduce_scatter_tensor`` /
 ``all_gather_into_tensor`` lay them out, and each chunk's adds happen in
 the reference's order.
@@ -64,6 +66,13 @@ def ring_accum_ref(msg: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
     return torch.add(msg, chunk)
 
 
+def ring_accum_pairs_ref(msgs: Sequence[torch.Tensor],
+                         chunks: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """One ring hop's combine for every direction
+    (``ring_accum_pairs_kernel``'s plain version): ``torch.add`` a pair."""
+    return [ring_accum_ref(m, c) for m, c in zip(msgs, chunks, strict=True)]
+
+
 def _hop(msgs: Sequence[torch.Tensor], signs: Sequence[int],
          group: dist.ProcessGroup, r: int, g: int) -> list[torch.Tensor]:
     """One hop of every ring at once: ring i sends ``msgs[i]`` to rank
@@ -87,11 +96,12 @@ def _rings(x2d: torch.Tensor, bidirectional: bool) -> list[tuple[torch.Tensor, i
 def ring_reduce_scatter_ref(
     x: torch.Tensor, group: dist.ProcessGroup, *,
     bidirectional: bool = True,
-    accum: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = ring_accum_ref,
+    accum: Callable[[list, list], list] = ring_accum_pairs_ref,
 ) -> torch.Tensor:
     """(n,) per-rank buffer (n % g == 0) → (n/g,) reduced shard.
 
-    ``accum(received, own)`` is the per-hop combine."""
+    ``accum(received, own)`` is the per-hop combine, called once a hop
+    with one pair per ring direction (one when a half-chunk is empty)."""
     g = dist.get_world_size(group)
     if g == 1:
         return x
@@ -101,9 +111,9 @@ def ring_reduce_scatter_ref(
     # hop 0's payload: our own value of chunk r ∓ 1
     msgs = [part[(r - sgn) % g] for part, sgn in rings]
     for s in range(1, g):
-        # received the partial of chunk r ∓ (s+1); add our contribution
-        msgs = [accum(m, part[(r - sgn * (s + 1)) % g])
-                for m, (part, sgn) in zip(_hop(msgs, signs, group, r, g), rings)]
+        # received the partials of chunks r ∓ (s+1); add our contributions
+        msgs = accum(_hop(msgs, signs, group, r, g),
+                     [part[(r - sgn * (s + 1)) % g] for part, sgn in rings])
     return msgs[0] if len(msgs) == 1 else torch.cat(msgs)
 
 

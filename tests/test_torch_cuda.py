@@ -221,7 +221,8 @@ def test_cuda_rwkv_static_engine_matches_cpu(cuda):
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 @pytest.mark.cuda
@@ -243,6 +244,91 @@ def test_cuda_ring_accum_matches_plain(cuda, dtype, n, offset):
     assert coll_kernel.ACCUM_LAUNCHES == before + 2
     assert torch.equal(_bits(got), _bits(want))
     assert torch.equal(_bits(inplace), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n_pairs", [1, 2, 8])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_ring_accum_pairs_matches_add(cuda, dtype, n_pairs, aligned):
+    """One launch a call, in place, bit for bit with torch.add per pair:
+    lengths from 1 to 300,000 elements, chunks taken as the rows of a
+    bidirectional ring's halves (``x2d[:, h:]`` starts at row · c + h, so
+    the misaligned case's chunks are not 16-byte aligned)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(n_pairs)
+    lengths = [1, 294912, 4097, 37, 131071, 8, 100, 65536][:n_pairs]
+    msgs, chunks = [], []
+    for n in lengths:
+        off = 0 if aligned else 1 + n % 7
+        x = torch.randn(2 * n + off, generator=gen, device=cuda).to(dt)
+        chunks.append(x[off:off + n])
+        msgs.append(torch.randn(n, generator=gen, device=cuda).to(dt))
+    want = [torch.add(m, c) for m, c in zip(msgs, chunks)]
+    ptrs = [m.data_ptr() for m in msgs]
+    before = coll_kernel.ACCUM_LAUNCHES
+    got = coll_kernel.ring_accum_pairs_kernel(msgs, chunks)
+    torch.cuda.synchronize()
+    assert coll_kernel.ACCUM_LAUNCHES == before + 1
+    assert [t.data_ptr() for t in got] == ptrs
+    for t, w in zip(got, want):
+        assert torch.equal(_bits(t), _bits(w))
+
+
+STAGING_DTYPES = ("float32", "bfloat16", "float16", "float64")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comm", STAGING_DTYPES)
+@pytest.mark.parametrize("leaf", STAGING_DTYPES)
+@pytest.mark.parametrize("scale", [1.0, 0.25, 1.0 / 64])
+def test_cuda_unpack_matches_plain(cuda, comm, leaf, scale):
+    """Bit for bit with ``ref.leafwise_unpack``: odd leaf sizes put most
+    leaves at offsets that are not 16-byte aligned; every output element
+    is written (outputs start as NaN); one launch for one leaf dtype."""
+    sizes = [5, 1024, 1, 300, 77, 4096, 3, 65536, 2, 9]
+    gen = torch.Generator(device=cuda).manual_seed(len(sizes))
+    buf = (torch.randn(sum(sizes), generator=gen, device=cuda) * 3).to(getattr(torch, comm))
+    dt = getattr(torch, leaf)
+    outs = [torch.full((n,), float("nan"), dtype=dt, device=cuda) for n in sizes]
+    before = coll_kernel.UNPACK_LAUNCHES
+    coll_kernel.unpack_bucket_kernel(buf, outs, scale=scale)
+    torch.cuda.synchronize()
+    assert coll_kernel.UNPACK_LAUNCHES == before + 1
+    for t, w in zip(outs, coll_ref.leafwise_unpack(buf, sizes, [dt] * len(sizes),
+                                                   scale=scale)):
+        assert torch.equal(_bits(t), _bits(w))
+
+
+@pytest.mark.cuda
+def test_cuda_unpack_reuses_its_layout_for_new_outputs(cuda):
+    """Two leaf dtypes, 75 leaves each, so 64 + 11 a dtype: 4 launches.
+    The bucket's layout is built once and serves the same outputs again
+    and new outputs of the same dtypes and sizes (new pointers, as the
+    training loop's ``.grad`` tensors are); every call is right, and
+    refusals still raise."""
+    built = coll_kernel.UNPACK_RECORDS_BUILT
+    sizes = [int(n) for n in np.random.default_rng(4).integers(1, 5000, 150)]
+    dts = [torch.float32, torch.bfloat16] * 75
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    buf = torch.randn(sum(sizes), generator=gen, device=cuda)
+    want = coll_ref.leafwise_unpack(buf, sizes, dts)
+    for _ in range(2):
+        outs = [torch.full((n,), float("nan"), dtype=d, device=cuda)
+                for n, d in zip(sizes, dts)]
+        for _ in range(2):
+            before = coll_kernel.UNPACK_LAUNCHES
+            coll_kernel.unpack_bucket_kernel(buf, outs)
+            torch.cuda.synchronize()
+            assert coll_kernel.UNPACK_LAUNCHES == before + 4
+            for t, w in zip(outs, want):
+                assert torch.equal(_bits(t), _bits(w))
+            outs[0].fill_(float("nan"))
+    assert coll_kernel.UNPACK_RECORDS_BUILT == built + 1
+    with pytest.raises(ValueError, match="outputs hold"):
+        coll_kernel.unpack_bucket_kernel(buf[1:], outs)
+    with pytest.raises(ValueError, match="output 3"):
+        coll_kernel.unpack_bucket_kernel(buf, outs[:3] + [outs[3].cpu()] + outs[4:])
 
 
 @pytest.mark.cuda

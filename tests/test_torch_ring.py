@@ -1,9 +1,11 @@
 """The port's ring collectives and ring-hop combine against the JAX package.
 
-The combine's plain version (``ref.ring_accum_ref``: ``torch.add``, which
-the CUDA ``ring_accum_kernel`` is held against on the card) must agree
-BIT-exactly with the Pallas ``ring_accum_kernel`` in interpret mode, as
-the JAX package's tests run it.  The rings run on 4 gloo ranks (spawned
+The combine's plain versions (``ref.ring_accum_ref``: ``torch.add``, and
+``ref.ring_accum_pairs_ref``, ``torch.add`` a pair, which the CUDA
+``ring_accum_kernel``/``ring_accum_pairs_kernel`` are held against on the
+card) must agree BIT-exactly with the Pallas ``ring_accum_kernel`` in
+interpret mode, as the JAX package's tests run it.  The ring calls its
+combine once a hop with every direction's pair.  The rings run on 4 gloo ranks (spawned
 processes, ``tests/_torch_mdworker.py``) and the reference's on 4 fake
 CPU devices in a subprocess, on the same seeded buffers: a ring of 4 and
 two rings of 2, uni- and bidirectional, the one-way path of a half-chunk
@@ -30,15 +32,68 @@ def test_accum_plain_version_matches_pallas_kernel(n):
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
 
 
+@pytest.mark.parametrize("sizes", [(100,), (4 * RING_CHUNK, 4 * RING_CHUNK + 1),
+                                   (1, 7, 100, 4096, 37, 5, 2, 131)])
+def test_accum_pairs_plain_version_matches_add_and_pallas(sizes):
+    """A pair each: torch.add, and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(len(sizes))
+    a = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    b = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    got = ref.ring_accum_pairs_ref([torch.from_numpy(x) for x in a],
+                                   [torch.from_numpy(x) for x in b])
+    assert len(got) == len(sizes)
+    for x, y, t in zip(a, b, got):
+        want = np.asarray(ring_accum_kernel(jnp.asarray(x), jnp.asarray(y), interpret=True))
+        np.testing.assert_array_equal(t.numpy().view(np.uint32), want.view(np.uint32))
+        assert torch.equal(t, torch.add(torch.from_numpy(x), torch.from_numpy(y)))
+
+
 def test_accum_on_cpu_is_the_plain_version():
     accum = ops._accum(torch.device("cpu"))
-    a, b = torch.randn(7), torch.randn(7)
-    assert torch.equal(accum(a, b), ref.ring_accum_ref(a, b))
+    a, b = [torch.randn(7), torch.randn(3)], [torch.randn(7), torch.randn(3)]
+    assert accum is ref.ring_accum_pairs_ref
+    for got, want in zip(accum(a, b), ref.ring_accum_pairs_ref(a, b)):
+        assert torch.equal(got, want)
 
 
 def test_accum_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.ring_accum_kernel(torch.zeros(4), torch.zeros(4))
+
+
+@pytest.mark.parametrize("msgs,chunks,match", [
+    ([torch.zeros(4)], [torch.zeros(4)], "CUDA"),
+    ([], [], "1 to 8 pairs"),
+    ([torch.zeros(4)] * 9, [torch.zeros(4)] * 9, "1 to 8 pairs"),
+    ([torch.zeros(4)] * 2, [torch.zeros(4)], "1 to 8 pairs"),
+])
+def test_accum_pairs_kernel_refuses_what_it_cannot_take(msgs, chunks, match):
+    before = kernel.ACCUM_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        kernel.ring_accum_pairs_kernel(msgs, chunks)
+    assert kernel.ACCUM_LAUNCHES == before
+
+
+@pytest.mark.parametrize("g,c,bidirectional,pairs", [
+    (4, 37, True, 2), (4, 37, False, 1), (4, 1, True, 1), (2, 6, True, 2), (3, 2, True, 2)])
+def test_ring_reduce_scatter_combines_once_a_hop(monkeypatch, g, c, bidirectional, pairs):
+    """g - 1 calls of ``accum``, each with one pair per ring direction (one
+    when unidirectional or when a half-chunk is empty); the pairs are the
+    received message and this rank's own row of its half."""
+    monkeypatch.setattr(ref.dist, "get_world_size", lambda group: g)
+    monkeypatch.setattr(ref.dist, "get_rank", lambda group: 1)
+    monkeypatch.setattr(ref, "_hop", lambda msgs, signs, group, r, g: [m + 0 for m in msgs])
+    calls = []
+
+    def accum(received, own):
+        calls.append(([m.numel() for m in received], [m.numel() for m in own]))
+        assert all(o.is_contiguous() for o in own)
+        return ref.ring_accum_pairs_ref(received, own)
+
+    x = torch.arange(g * c, dtype=torch.float32)
+    ref.ring_reduce_scatter_ref(x, None, bidirectional=bidirectional, accum=accum)
+    halves = [c // 2, c - c // 2] if pairs == 2 else [c]
+    assert calls == [(halves, halves)] * (g - 1)
 
 
 def test_ring_of_one_is_the_identity():
