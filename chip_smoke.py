@@ -6,15 +6,18 @@
 Phases, in order; any failure raises and exits non-zero:
 
   build       compile every kernel source from ``csrc/`` for sm_90a.
-  kernels     ``fused_pack``/``fused_unpack`` against their plain versions
+  kernels     the pack kernel (into a buffer started as NaN, through
+              ``out=``) and ``fused_unpack`` against their plain versions
               on the 24 full-width ResNet-50 buckets (comm dtype f32, bf16,
               f16; scale 1, 4 and 64, so unpack at 1, 1/4 and 1/64; one
-              unpack launch a bucket), one mixed-dtype bucket and one bucket
-              of more leaves than one launch takes (4 and 3 launches each
-              way): bit-exact.  Then each kernel is timed over a whole
-              step's buckets with CUDA events, torch.profiler's device time
-              and the host's enqueue time, beside its plain version and one
-              PyTorch call doing the same; unpack also at scale 1/4.
+              launch a bucket each way), one mixed-dtype bucket and one
+              bucket of more leaves than one launch takes (4 and 3 launches
+              each way): bit-exact.  Logs the bucket layouts built (pack and
+              unpack share them) and the leaves that take the scalar path.
+              Then each kernel is timed over a whole step's buckets with
+              CUDA events (in turns with one PyTorch call doing the same),
+              torch.profiler's device time and the host's enqueue time,
+              beside its plain version; unpack also at scale 1/4.
   ring_quant  the ring-hop combine against torch.add (f32, bf16, f16; the
               tests/test_collectives.py lengths 100 and 4096, an odd
               length and the half-chunks of the 24 ResNet-50 buckets at a
@@ -24,12 +27,18 @@ Phases, in order; any failure raises and exits non-zero:
               launch a call) and the int8 quantize/dequantize kernels
               against their plain versions (the 24 buckets padded to 256·4
               and their shards at magnitudes 1e-3, 1 and 1e3, zero blocks,
-              blocks of exact .5 ties): bit for bit.  Then each timed over
-              one rank's training step of launches (72 combines of two
-              pairs, 48 quantizes, 48 dequantizes) with CUDA events,
-              torch.profiler and the host's enqueue time, beside its byte
-              bound, its plain version and one PyTorch call
-              (``torch._foreach_add_`` a hop, and ``torch.add`` a pair).
+              blocks of exact .5 ties; outputs started as NaN) and the
+              dequantize's peer-sum entry (the 24 buckets' shards at g = 4
+              and the tie blocks) against theirs: bit for bit.  Then each
+              timed over one rank's training step of launches (72 combines
+              of two pairs, 48 quantizes, 48 dequantizes, 24 peer sums)
+              with CUDA events, torch.profiler and the host's enqueue time,
+              beside its byte bound, its plain version and one PyTorch call
+              (``torch._foreach_add_`` a hop, and ``torch.add`` a pair;
+              ``torch.mul``).  The main path's dequantize work a step (24
+              peer sums + 24 dequantizes) is timed in turns against what it
+              replaces (48 dequantizes + 72 ``torch.add``) and against
+              ``torch.mul`` + ``torch.add``.
   train       full-width ResNet-50/CIFAR, global batch 256 at 32x32, SGD
               with momentum 0.9, clip 1.0, on a one-rank NCCL group:
               funnel, concom and depcha from the same seeded weights, 1
@@ -54,8 +63,9 @@ Phases, in order; any failure raises and exits non-zero:
               compressed within the int8 quantization bound of the flat
               sum on every block; one captured bucket's ring allreduce with
               the kernel = with the plain add, bit for bit; the launch
-              counts of the three kernels exactly as ``step_launches``
-              predicts from the plan (one combine a ring hop: 72 a step).
+              counts of the four kernels exactly as ``step_launches``
+              predicts from the plan (one combine a ring hop: 72 a step;
+              one peer sum and one dequantize a compressed bucket).
   hierarchical four rank processes on the one card as ``reducers``, on
               pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
               reduce-scatter and all-gather (the intra-pod rings, through
@@ -73,7 +83,7 @@ Phases, in order; any failure raises and exits non-zero:
               within rtol 1e-5 of flat's, one captured bucket through
               hierarchical_ring on the kernels = through the plain rings,
               peer-ring launches exactly as ``hier_launches`` predicts
-              and none of rows 3, 6, 7.
+              and none of rows 3, 6, 7 (nor the peer sum).
   flash       cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA) code in
               the bf16 library.  The flash-attention kernels against
               their plain version:
@@ -261,10 +271,11 @@ def plain_unpack(bucket, buf, flat_out, scale=1.0) -> None:
 
 
 def check_bucket(bucket, flat, comm, scale) -> float:
-    from repro_torch.kernels.collectives import ops, ref
+    from repro_torch.kernels.collectives import kernel, ops, ref
 
     leaves = [flat[l.index] for l in bucket.leaves]
-    got = ops.fused_pack(bucket, flat, comm, scale=scale)
+    nan = torch.full((bucket.size,), float("nan"), dtype=comm, device="cuda")
+    got = kernel.pack_bucket_kernel(leaves, comm, scale=scale, out=nan)   # NaN first
     want = ref.leafwise_pack(leaves, comm, scale=scale)
     err = same_bits(got, want, f"pack b{bucket.bucket_id} {comm} x{scale}")
     out_k = list(flat)
@@ -290,15 +301,17 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flat = [torch.randn(p.shape, generator=gen, device="cuda") for _, p in named]
 
+    kernel.LAYOUTS_BUILT = 0
     err = 0.0
     n_checks = 0
     for comm in (torch.float32, torch.bfloat16, torch.float16):
         for scale in (1.0, 4.0, 64.0):      # unpack at 1, 1/4 (the 4-rank mean), 1/64
             for b in plan.buckets:
-                before = kernel.UNPACK_LAUNCHES
+                before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
                 err = max(err, check_bucket(b, flat, comm, scale))
-                if kernel.UNPACK_LAUNCHES - before != 1:
-                    raise AssertionError(f"bucket {b.bucket_id}: expected 1 unpack launch")
+                if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (1, 1):
+                    raise AssertionError(f"bucket {b.bucket_id}: expected 1 pack and 1 "
+                                         f"unpack launch")
                 n_checks += 1
 
     # one mixed-dtype bucket and one of more leaves than a launch takes
@@ -324,10 +337,14 @@ def phase_kernels() -> dict:
                 raise AssertionError("150-leaf bucket: expected 3 pack and 3 unpack launches")
             n_checks += 2
     torch.cuda.synchronize()
+    scalar = {str(c): scalar_path_leaves(plan, flat, c) for c in (torch.float32, torch.bfloat16)}
     log(f"[kernels] {n_checks} bucket checks bit-exact "
-        f"(max abs err {err}); 24 buckets, "
+        f"(max abs err {err}; pack into a buffer started as NaN); 24 buckets, "
         f"{sum(len(b.leaves) for b in plan.buckets)} leaves, "
-        f"{sum(b.size for b in plan.buckets)} elements; one unpack launch a bucket")
+        f"{sum(b.size for b in plan.buckets)} elements; one pack and one unpack launch a "
+        f"bucket; {kernel.LAYOUTS_BUILT} bucket layouts built (pack and unpack share "
+        f"one a bucket, dtypes and scale); ResNet-50 leaves on the scalar path "
+        f"(leaf or buffer slice not 16-byte aligned), by comm dtype: {scalar}")
 
     # timing over a whole step's buckets: f32 wire, scale 1 (the main path)
     # and, for unpack, 1/4 (the four-rank mean's inverse scale)
@@ -388,7 +405,21 @@ def phase_kernels() -> dict:
         r.update(bound_ms=bound, bound_by="bytes", max_abs_err=err,
                  step_bytes=step_bytes)
         log(f"[kernels] {name} ({n_buckets} launches a step): " + json.dumps(r))
+    rows["pack"]["scalar_path_leaves"] = scalar
     return rows
+
+
+def scalar_path_leaves(plan, flat, comm) -> int:
+    """Leaves of the plan whose pack or unpack walks scalars: the leaf's
+    pointer or its slice of a ``comm`` buffer (at a 16-byte aligned base)
+    not 16-byte aligned."""
+    n = 0
+    for b in plan.buckets:
+        off = 0
+        for l in b.leaves:
+            n += bool((flat[l.index].data_ptr() | off * comm.itemsize) % 16)
+            off += l.size
+    return n
 
 
 def phase_train() -> dict:
@@ -418,7 +449,7 @@ def phase_train() -> dict:
     steps: list = []
     kernel.PACK_LAUNCHES = 0
     kernel.UNPACK_LAUNCHES = 0
-    kernel.UNPACK_RECORDS_BUILT = 0
+    kernel.LAYOUTS_BUILT = 0
     hists = {}
     live = None
     for strat in STRATEGIES:
@@ -453,12 +484,12 @@ def phase_train() -> dict:
                     f"{STRATEGIES[0]} {ref_losses} beyond rtol 1e-5")
     log(f"[train] launch counters {launches} = 24 x {TRAIN_STEPS} steps x "
         f"{len(STRATEGIES)} strategies; losses agree across strategies; "
-        f"{kernel.UNPACK_RECORDS_BUILT} unpack layouts built for "
-        f"{launches['unpack']} unpacks (at most one a bucket: the .grad tensors "
-        f"are new each step, their layout is not, and the kernels phase may have "
-        f"built it already)")
+        f"{kernel.LAYOUTS_BUILT} bucket layouts built for {launches['pack']} packs and "
+        f"{launches['unpack']} unpacks (at most one a bucket, shared by pack and "
+        f"unpack: the .grad tensors are new each step, their layout is not, and the "
+        f"kernels phase may have built it already)")
     return {"launches": launches, "hists": hists, "live": live,
-            "unpack_records_built": kernel.UNPACK_RECORDS_BUILT}
+            "layouts_built": kernel.LAYOUTS_BUILT}
 
 
 def _device_ms(e, self_only: bool = False) -> float:
@@ -548,12 +579,17 @@ REDUCER_STEPS = 3              # 1 warm-up + 2 timed
 RING_QUANT_SOURCES = {
     "ring_accum_kernel": "src/repro_torch/kernels/collectives/csrc/ring_accum.cu",
     "quantize_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
-    "dequantize_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu"}
+    "dequantize_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
+    "dequantize_sum_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu"}
 RING_QUANT_REPLACES = {
     "ring_accum_kernel": "src/repro/kernels/collectives/kernel.py:117",
     "quantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:33",
-    "dequantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:54"}
+    "dequantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:54",
+    # the dequantize's second entry: phase 2 of src/repro/core/compression.py:79-83
+    "dequantize_sum_blocks_kernel": "src/repro/kernels/quantize/kernel.py:54"}
 QUANTIZE_LIBRARY = "none: no single PyTorch call computes an int8 block quantization"
+PEER_SUM_LIBRARY = ("none: no single PyTorch call dequantizes and sums the peers' shards; "
+                    "composite_ms times torch.mul over the g shards + g - 1 torch.add")
 
 
 def ring_halves(size: int) -> tuple[int, int]:
@@ -572,12 +608,13 @@ def step_launches(sizes, reducer: str) -> dict:
     """Kernel launches of one training step on one rank, from the plan's
     bucket sizes: a ring reduce-scatter (the ring reducer's, or rsag's)
     combines once a hop, both directions in one launch, over RING - 1
-    hops; the compressed reducers quantize and dequantize twice a bucket
-    of at least 256 · RING elements."""
+    hops; the compressed reducers, for each bucket of at least 256 · RING
+    elements, quantize twice, sum the peers' shards once (phase 2) and
+    dequantize once (phase 3)."""
     accum = (RING - 1) * len(sizes) if reducer == "ring" else 0
     big = (sum(n >= QBLOCK * RING for n in sizes)
            if reducer.startswith("compressed") else 0)
-    return {"accum": accum, "quantize": 2 * big, "dequantize": 2 * big}
+    return {"accum": accum, "quantize": 2 * big, "dequantize": big, "dequantize_sum": big}
 
 
 def tie_blocks() -> torch.Tensor:
@@ -593,7 +630,8 @@ def tie_blocks() -> torch.Tensor:
 
 
 def check_quantize(x: torch.Tensor, what: str) -> None:
-    """Kernel against plain version, bit for bit: q, scales, dequantized."""
+    """Kernel against plain version, bit for bit: q, scales, dequantized
+    (into an output started as NaN)."""
     from repro_torch.kernels.quantize import kernel, ref
 
     xb = x.reshape(-1, QBLOCK)
@@ -601,8 +639,32 @@ def check_quantize(x: torch.Tensor, what: str) -> None:
     q_p, s_p = ref.quantize_ref(xb)
     same_bits(q, q_p, f"quantize {what}: q")
     same_bits(s, s_p, f"quantize {what}: scales")
-    same_bits(kernel.dequantize_blocks_kernel(q, s), ref.dequantize_ref(q, s),
+    nan = torch.full(xb.shape, float("nan"), device="cuda")
+    same_bits(kernel.dequantize_blocks_kernel(q, s, out=nan), ref.dequantize_ref(q, s),
               f"dequantize {what}")
+
+
+def peer_shards(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (g, k·256) f32, one row a peer, quantized as the peers do:
+    (q (g, k·256) int8, s (g, k) f32), as phase 2 receives them."""
+    from repro_torch.kernels.quantize import kernel
+
+    q, s = kernel.quantize_blocks_kernel(x.reshape(-1, QBLOCK))
+    return q.view(x.shape[0], -1), s.view(x.shape[0], -1)
+
+
+def check_peer_sum(x: torch.Tensor, what: str) -> None:
+    """The peer-sum entry against its plain version on the peers' shards
+    of ``x`` (g, k·256), bit for bit, into an output started as NaN."""
+    from repro_torch.kernels.quantize import kernel, ref
+
+    q, s = peer_shards(x)
+    nan = torch.full((q.shape[1],), float("nan"), device="cuda")
+    before = kernel.DEQUANTIZE_SUM_LAUNCHES
+    got = kernel.dequantize_sum_blocks_kernel(q, s, out=nan)
+    if kernel.DEQUANTIZE_SUM_LAUNCHES != before + 1:
+        raise AssertionError("dequantize_sum_blocks_kernel: expected one launch a call")
+    same_bits(got, ref.dequantize_sum_ref(q, s), f"peer sum {what}")
 
 
 def phase_ring_quant() -> dict:
@@ -657,6 +719,18 @@ def phase_ring_quant() -> dict:
     log(f"[ring_quant] quantize/dequantize bit-exact with the plain versions on "
         f"{n_checks} buffers (the 24 buckets padded to 256·{RING} and their "
         f"shards, magnitudes 1e-3/1/1e3, a zero block each) and on the tie blocks")
+    for i, n in enumerate(sizes):                     # phase 2's shards of each bucket
+        x = torch.randn(RING, padded(n) // RING, generator=gen, device="cuda")
+        x *= torch.tensor([1e-3, 1.0, 1e3, 1.0], device="cuda")[:, None]
+        x[i % RING, :QBLOCK] = 0.0                    # a zero block on one peer
+        check_peer_sum(x, f"b{i} ({RING} x {x.shape[1]})")
+    ties = tie_blocks().reshape(1, -1)
+    check_peer_sum(torch.cat([ties, -ties, 2 * ties, ties.flip(1)]), "tie blocks")
+    torch.cuda.synchronize()
+    log(f"[ring_quant] dequantize_sum_blocks_kernel bit-exact with the plain peer sum "
+        f"(dequantize, then the adds in peer order) on the {len(sizes)} buckets' "
+        f"phase-2 shards at g = {RING} (peers at 1e-3/1/1e3/1, a zero block each) "
+        f"and on the tie blocks; one launch a call, output started as NaN")
 
     # one rank's step of the main path: 3 combines a bucket (one a hop, both
     # halves), 2 quantizes (m, m/4) and 2 dequantizes (m, m) a bucket
@@ -667,13 +741,22 @@ def phase_ring_quant() -> dict:
     qs = [qk.quantize_blocks_kernel(torch.randn(padded(n), generator=gen,
                                                 device="cuda").view(-1, QBLOCK))
           for n in sizes for _ in range(2)]
+    # the main path's dequantize work a step: a peer sum of the received
+    # shards (phase 2) and a dequantize of the gathered buffer (phase 3)
+    recv = [(q.view(RING, -1), s.view(RING, -1)) for q, s in qs[0::2]]
+    gathered = qs[1::2]
+
+    def add():                      # torch.add a pair: the floor for row 3
+        for a, b in pairs:
+            torch.add(a, b, out=a)
+
     work = {
         "ring_accum_kernel": dict(
             kernel=lambda: [ck.ring_accum_pairs_kernel(m, c) for m, c in hops],
             plain=lambda: [cr.ring_accum_pairs_ref(m, c) for m, c in hops],
             library=lambda: [torch._foreach_add_(m, c) for m, c in hops],
             library_call="torch._foreach_add_ (one call a hop)", launches=len(hops),
-            nbytes=sum(3 * a.numel() * 4 for a, _ in pairs)),
+            nbytes=sum(3 * a.numel() * 4 for a, _ in pairs), yardsticks={"add_ms": add}),
         "quantize_blocks_kernel": dict(
             kernel=lambda: [qk.quantize_blocks_kernel(x) for x in qin],
             plain=lambda: [qr.quantize_ref(x) for x in qin],
@@ -685,19 +768,20 @@ def phase_ring_quant() -> dict:
             library=lambda: [torch.mul(q.view(-1, QBLOCK), s[:, None]) for q, s in qs],
             library_call="torch.mul(q.view(-1, 256), s[:, None])", launches=len(qs),
             nbytes=sum(q.numel() * (1 + 4) + s.numel() * 4 for q, s in qs)),
+        "dequantize_sum_blocks_kernel": dict(
+            kernel=lambda: [qk.dequantize_sum_blocks_kernel(q, s) for q, s in recv],
+            plain=lambda: [qr.dequantize_sum_ref(q, s) for q, s in recv],
+            library=None, library_call=PEER_SUM_LIBRARY, launches=len(recv),
+            nbytes=sum(q.numel() + s.numel() * 4 + q.shape[1] * 4 for q, s in recv),
+            yardsticks={"composite_ms": lambda: [composite_peer_sum(q, s) for q, s in recv]}),
     }
-    def add():                      # torch.add a pair: the floor for row 3
-        for a, b in pairs:
-            torch.add(a, b, out=a)
 
     rows = {}
     for name, w in work.items():
         device_ms = device_ms_per_launch(w["kernel"], name, reps=10)
         # back to back in turns (kernel, yardsticks, yardsticks reversed, kernel):
         # the host's launch rate drifts within a run
-        fns = {"ms": w["kernel"], "library_ms": w["library"]}
-        if name == "ring_accum_kernel":
-            fns["add_ms"] = add
+        fns = {"ms": w["kernel"], "library_ms": w["library"], **w.get("yardsticks", {})}
         turns = cuda_ms_in_turns({k: f for k, f in fns.items() if f is not None})
         rows[name] = dict(
             ms=sum(turns["ms"]) / 2, device_ms=device_ms,
@@ -705,16 +789,82 @@ def phase_ring_quant() -> dict:
             library_ms=sum(turns["library_ms"]) / 2 if w["library"] else None,
             library=w["library_call"], max_abs_err=0.0,
             bound_ms=w["nbytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            step_bytes=w["nbytes"], launches_per_step=w["launches"], turns=turns)
+            step_bytes=w["nbytes"], launches_per_step=w["launches"], turns=turns,
+            **{k: sum(turns[k]) / 2 for k in w.get("yardsticks", {})})
         if name == "ring_accum_kernel":
             rows[name].update(
-                entry="ring_accum_pairs_kernel", add_ms=sum(turns["add_ms"]) / 2,
-                add_calls=len(pairs), pairs=len(pairs),
+                entry="ring_accum_pairs_kernel", add_calls=len(pairs), pairs=len(pairs),
                 host_ms_per_launch=host_ms(w["kernel"], reps=20) / len(hops),
                 library_host_ms_per_call=host_ms(w["library"], reps=20) / len(hops),
                 add_host_ms_per_call=host_ms(add, reps=20) / len(pairs))
+        if name.startswith("dequantize"):
+            rows[name]["host_ms_per_launch"] = host_ms(w["kernel"], reps=20) / w["launches"]
         log(f"[ring_quant] {name}: " + json.dumps(rows[name]))
+    rows["dequantize_step"] = dequantize_step(recv, gathered)
     return rows
+
+
+def composite_peer_sum(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The peer sum by library calls: ``torch.mul`` over the g shards, then
+    ``torch.add`` in peer order."""
+    d = torch.mul(q.view(q.shape[0], -1, QBLOCK), s[:, :, None]).view(q.shape[0], -1)
+    red = d[0]
+    for j in range(1, q.shape[0]):
+        red = torch.add(red, d[j])
+    return red
+
+
+def dequantize_step(recv, gathered) -> dict:
+    """One rank's dequantize work of a compressed step on the main path
+    (a peer sum a bucket for phase 2, a dequantize a bucket for phase 3),
+    timed in turns against the composition it replaced (phase 2 as a
+    dequantize of the g shards and g - 1 ``torch.add``) and against
+    library calls (``torch.mul`` + ``torch.add``, ``torch.mul``), with its
+    device time and byte bound."""
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.kernels.quantize import ref as qr
+
+    def main_path():
+        for q, s in recv:
+            qk.dequantize_sum_blocks_kernel(q, s)
+        for q, s in gathered:
+            qk.dequantize_blocks_kernel(q, s)
+
+    def replaced():
+        for q, s in recv:
+            d = qk.dequantize_blocks_kernel(q.view(-1, QBLOCK), s.view(-1)).view(RING, -1)
+            red = d[0]
+            for j in range(1, RING):
+                red = red + d[j]
+        for q, s in gathered:
+            qk.dequantize_blocks_kernel(q, s)
+
+    def library():
+        for q, s in recv:
+            composite_peer_sum(q, s)
+        for q, s in gathered:
+            torch.mul(q.view(-1, QBLOCK), s[:, None])
+
+    turns = cuda_ms_in_turns({"ms": main_path, "replaced_ms": replaced,
+                              "library_ms": library})
+    nbytes = (sum(q.numel() + s.numel() * 4 + q.shape[1] * 4 for q, s in recv)
+              + sum(q.numel() * (1 + 4) + s.numel() * 4 for q, s in gathered))
+    row = dict(
+        ms=sum(turns["ms"]) / 2, replaced_ms=sum(turns["replaced_ms"]) / 2,
+        library_ms=sum(turns["library_ms"]) / 2,
+        library="torch.mul + torch.add (phase 2), torch.mul (phase 3)",
+        device_ms=device_ms_per_launch(main_path, r"dequantize(?:_sum)?_blocks_kernel",
+                                       reps=10),
+        replaced_device_ms=device_ms_per_launch(
+            replaced, r"(?:dequantize_blocks_kernel|\w*elementwise_kernel)", reps=10),
+        plain_ms=cuda_ms(lambda: ([qr.dequantize_sum_ref(q, s) for q, s in recv],
+                                  [qr.dequantize_ref(q, s) for q, s in gathered])),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", step_bytes=nbytes,
+        launches_per_step=len(recv) + len(gathered),
+        replaced_launches_per_step=len(recv) * RING + len(gathered), turns=turns)
+    log("[ring_quant] dequantize work a step (24 peer sums + 24 dequantizes): "
+        + json.dumps(row))
+    return row
 
 
 def ring_step_hops(sizes, gen, dtype=torch.float32) -> list:
@@ -839,6 +989,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
             [b.size for b in ts.gradsync.plan.buckets], reducer).items()}
         trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
         ck.ACCUM_LAUNCHES = qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = 0
+        qk.DEQUANTIZE_SUM_LAUNCHES = 0
         for step in range(REDUCER_STEPS):
             model, opt_state, hist = trainer.run(model, opt_state, step + 1,
                                                  start_step=step)
@@ -847,7 +998,8 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
             _same_on_every_rank([p for _, p in named], f"{run} params after step {step}",
                                 host)
         launches = {"accum": ck.ACCUM_LAUNCHES, "quantize": qk.QUANTIZE_LAUNCHES,
-                    "dequantize": qk.DEQUANTIZE_LAUNCHES}
+                    "dequantize": qk.DEQUANTIZE_LAUNCHES,
+                    "dequantize_sum": qk.DEQUANTIZE_SUM_LAUNCHES}
         if launches != predicted:
             raise AssertionError(f"{run}: launches {launches}, predicted {predicted}")
         params_end[run] = [p.detach().clone() for _, p in named]
@@ -1192,10 +1344,10 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
         step_sizes = [b.size for b in ts.gradsync.plan.buckets]
         predicted = {k: v * REDUCER_STEPS for k, v in
                      hier_launches(step_sizes, reducer, data).items()}
-        predicted.update(accum=0, quantize=0, dequantize=0)
+        predicted.update(accum=0, quantize=0, dequantize=0, dequantize_sum=0)
         trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
         ck.RS_LAUNCHES = ck.AG_LAUNCHES = ck.ACCUM_LAUNCHES = 0
-        qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = 0
+        qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = qk.DEQUANTIZE_SUM_LAUNCHES = 0
         for step in range(REDUCER_STEPS):
             model, opt_state, hist = trainer.run(model, opt_state, step + 1,
                                                  start_step=step)
@@ -1205,7 +1357,8 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
                                 host)
         launches = {"rs": ck.RS_LAUNCHES, "ag": ck.AG_LAUNCHES,
                     "accum": ck.ACCUM_LAUNCHES, "quantize": qk.QUANTIZE_LAUNCHES,
-                    "dequantize": qk.DEQUANTIZE_LAUNCHES}
+                    "dequantize": qk.DEQUANTIZE_LAUNCHES,
+                    "dequantize_sum": qk.DEQUANTIZE_SUM_LAUNCHES}
         if launches != predicted:
             raise AssertionError(f"{run}: launches {launches}, predicted {predicted}")
         out["runs"][run] = {
@@ -2254,8 +2407,8 @@ def main() -> int:
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": train["launches"][name],
-            "launches_per_step": 24, **r})
-    kernels[-1]["records_built_in_train"] = train["unpack_records_built"]
+            "launches_per_step": 24, **r,
+            "layouts_built_in_train": train["layouts_built"]})   # shared by both
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
@@ -2294,7 +2447,8 @@ def main() -> int:
     runs = reducers["runs"]
     for name, counter in (("ring_accum_kernel", "accum"),
                           ("quantize_blocks_kernel", "quantize"),
-                          ("dequantize_blocks_kernel", "dequantize")):
+                          ("dequantize_blocks_kernel", "dequantize"),
+                          ("dequantize_sum_blocks_kernel", "dequantize_sum")):
         r = ring_quant[name]
         kernels.append({
             "name": name, "route": "cuda", "source": RING_QUANT_SOURCES[name],
@@ -2302,6 +2456,10 @@ def main() -> int:
             "launches": sum(run["launches"][counter] for run in runs.values()),
             "launches_by_run": {k: run["launches"][counter] for k, run in runs.items()},
             **r})
+    kernels[-2]["row"] = kernels[-1]["row"] = 7           # the dequantize and its peer sum
+    kernels[-1].update(entry_of="dequantize_blocks_kernel",
+                       also_replaces="src/repro/core/compression.py:79 (phase 2's sum)",
+                       main_path_step=ring_quant["dequantize_step"])
     hier_runs = {k: v for k, v in hier["runs"].items() if "hierarchical_ring" in k}
     for name, counter in (("ring_reduce_scatter_kernel", "rs"),
                           ("ring_all_gather_kernel", "ag")):

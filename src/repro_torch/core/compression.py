@@ -13,7 +13,9 @@ Wire bytes: 2 × size × 1 byte against 2 × size × 4 bytes in f32.  The
 quantize and dequantize steps run through ``repro_torch.kernels.quantize``:
 the hand-written CUDA kernels on the card, their plain versions on the
 CPU, bit for bit alike and alike to the reference's jnp math compiled.
-Every collective goes through ``core/dependency.py::collective``.
+Phase 2 is one pass, ``dequantize_sum_blocks`` (one launch a bucket on the
+card), as XLA fuses the reference's into one loop.  Every collective goes
+through ``core/dependency.py::collective``.
 
 Rounding: the peer sum adds dequantized shards, each product rounded
 once before its add.  XLA's CPU build of the reference fuses the
@@ -37,7 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import dependency as dep
 from repro_torch.kernels.collectives import ops as coll_ops
-from repro_torch.kernels.quantize import dequantize_blocks, quantize_blocks
+from repro_torch.kernels.quantize import (dequantize_blocks, dequantize_sum_blocks,
+                                          quantize_blocks)
 
 BLOCK = 256
 
@@ -81,10 +84,7 @@ def compressed_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
     dep.collective(dist.all_to_all_single, group, q_recv, q).wait()
     dep.collective(dist.all_to_all_single, group, s_recv, s).wait()
     # phase 2: dequantize each peer's shard and sum them in peer order
-    deq = dequantize_blockwise(q_recv, s_recv).reshape(g, m // g)
-    red = deq[0]
-    for j in range(1, g):
-        red = red + deq[j]                         # (m/g,) f32
+    red = dequantize_sum_blocks(q_recv, s_recv, g)     # (m/g,) f32
     # phase 3: requantize the reduced shard, all-gather
     q2, s2 = quantize_blockwise(red)
     if use_ring and len(coll_ops._ring_axes(axes, mesh_shape)) == 1:

@@ -32,26 +32,23 @@
 // dtype, or that holds more than kMaxLeaves leaves, is split by the
 // wrapper into consecutive launches.
 //
-// Pack: blockIdx.y picks the leaf and a grid-stride loop over
-// blockIdx.x/threadIdx.x walks its elements, scalar, so neighbouring
-// threads touch neighbouring addresses.
-//
-// Unpack: a flat grid of fixed-size tiles over the bucket's elements.
-// Each leaf owns ceil(size / tile) consecutive tiles; a block finds its
-// leaf by a binary search of the table's first-tile column, so no block
-// idles (a longest-leaf x leaves grid left most blocks of a bucket of
-// small leaves with nothing to do).  A tile is kThreads x kUnroll 16-byte
-// vectors of the buffer: when the leaf's pointer and buf + offset are both
-// 16-byte aligned, a thread loads its kUnroll vectors before its first
-// store and stores each as the widest aligned access its kV destination
-// values fill (8 bytes for f32 -> bf16, 32 for bf16 -> f32); the leaf's
-// tail (size % kV) goes to its last tile.  A misaligned leaf walks the
-// same tile in scalars, kUnroll x kV a thread, loads first.  The wrapper
-// keeps a bucket's layout (offsets, sizes, launch groups) and reuses it
-// while the leaves' dtypes and sizes and the buffer's dtype stay the
-// same, so a call passes only the leaves' pointers (one packed column:
-// the training loop's .grad tensors are new each step), the buffer's
-// pointer, the scale and the stream.
+// Both directions run on one flat grid of fixed-size tiles over the
+// bucket's elements.  Each leaf owns ceil(size / tile) consecutive tiles;
+// a block finds its leaf by a binary search of the table's first-tile
+// column, so no block idles (a longest-leaf x leaves grid leaves most blocks
+// of a bucket of small leaves with nothing to do).  A
+// tile is kThreads x kUnroll 16-byte vectors of the SOURCE type (the
+// leaf's for pack, the buffer's for unpack): when the source and the
+// destination of a leaf are both 16-byte aligned, a thread loads its
+// kUnroll vectors before its first store and stores each as the widest
+// aligned access its kV destination values fill (8 bytes for f32 -> bf16,
+// 32 for bf16 -> f32); the leaf's tail (size % kV) goes to its last tile.
+// A misaligned leaf walks the same tile in scalars, kUnroll x kV a
+// thread, loads first.  A bucket's layout (offsets, sizes, launch groups)
+// is the same in both directions: the wrapper keeps it under the leaves'
+// dtypes and sizes and the buffer's dtype, so a call passes only the
+// leaves' pointers (one packed column: the training loop's .grad tensors
+// are new each step), the buffer's pointer, the scale and the stream.
 //
 // Interface: plain C, loaded with ctypes (kernel.py).  Each entry point
 // returns cudaGetLastError() after its launch; the wrapper raises if it is
@@ -67,10 +64,8 @@
 namespace {
 
 constexpr int kMaxLeaves = 64;   // kernel.py MAX_LEAVES
-constexpr int kThreads = 256;    // pack
-constexpr int kMaxBlocksX = 1024;
-constexpr int kTileThreads = 128;   // unpack
-constexpr int kUnroll = 2;          // unpack: 16-byte vectors in flight a thread
+constexpr int kThreads = 128;
+constexpr int kUnroll = 2;       // 16-byte vectors in flight a thread
 
 // dtype codes shared with kernel.py
 constexpr int kF32 = 0;
@@ -78,22 +73,16 @@ constexpr int kBF16 = 1;
 constexpr int kF16 = 2;
 constexpr int kF64 = 3;
 
-struct LeafTable {
-  void* ptr[kMaxLeaves];         // pack: source leaves
-  int64_t offset[kMaxLeaves];    // element offset of the leaf in the buffer
-  int64_t size[kMaxLeaves];      // elements
-};
-
-// A bucket's unpack layout, built once by kernel.py (ctypes _UnpackArgs):
-// leaf i, of size[i] >= 1 elements, is buf[offset[i] ...].  The leaves'
-// pointers come with each call.
-struct UnpackArgs {
+// A bucket's layout, built once by kernel.py (ctypes _Layout) and used by
+// both directions: leaf i, of size[i] >= 1 elements, is buf[offset[i] ...].
+// The leaves' pointers come with each call.
+struct Layout {
   int64_t offset[kMaxLeaves];
   int64_t size[kMaxLeaves];
   int32_t count;
 };
 
-// What the unpack kernel receives, by value.
+// What a staging kernel receives, by value.
 struct TileTable {
   void* ptr[kMaxLeaves];
   int64_t offset[kMaxLeaves];
@@ -119,59 +108,7 @@ template <> __device__ __forceinline__ double from_f32<double>(float v) {
   return static_cast<double>(v);
 }
 
-// One leaf's elements, src[0, n) -> dst[0, n), grid-strided over x.
-// ``scaled`` is the caller's (scale != 1) in double precision, so a
-// scale that rounds to 1.0f still takes the f32 path, as ref.py does.
-template <typename S, typename D>
-__device__ __forceinline__ void cast_copy(const S* __restrict__ src,
-                                          D* __restrict__ dst, int64_t n,
-                                          float scale, bool scaled) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if constexpr (std::is_same<S, D>::value) {
-    if (!scaled) {
-      for (; i < n; i += stride) dst[i] = src[i];
-      return;
-    }
-  }
-  if (!scaled) {
-    for (; i < n; i += stride) dst[i] = from_f32<D>(to_f32(src[i]));
-  } else {
-    for (; i < n; i += stride) dst[i] = from_f32<D>(to_f32(src[i]) * scale);
-  }
-}
-
-// Leaves (type S) -> comm buffer (type D).
-template <typename S, typename D>
-__global__ void __launch_bounds__(kThreads)
-pack_bucket_kernel(const LeafTable table, D* __restrict__ buf, float scale,
-                   bool scaled) {
-  const int leaf = blockIdx.y;
-  cast_copy(static_cast<const S*>(table.ptr[leaf]), buf + table.offset[leaf],
-            table.size[leaf], scale, scaled);
-}
-
-template <typename S, typename D>
-cudaError_t launch_pack(const LeafTable& table, dim3 grid, void* buf, float scale,
-                        bool scaled, cudaStream_t stream) {
-  pack_bucket_kernel<S, D><<<grid, kThreads, 0, stream>>>(
-      table, static_cast<D*>(buf), scale, scaled);
-  return cudaGetLastError();
-}
-
-template <typename S>
-cudaError_t pack_dst(int dst, const LeafTable& table, dim3 grid, void* buf,
-                     float scale, bool scaled, cudaStream_t stream) {
-  switch (dst) {
-    case kF32: return launch_pack<S, float>(table, grid, buf, scale, scaled, stream);
-    case kBF16: return launch_pack<S, __nv_bfloat16>(table, grid, buf, scale, scaled, stream);
-    case kF16: return launch_pack<S, __half>(table, grid, buf, scale, scaled, stream);
-    case kF64: return launch_pack<S, double>(table, grid, buf, scale, scaled, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// One value of an unpack: bits unchanged for a same-type copy at scale 1,
+// One value: bits unchanged for a same-type copy at scale 1,
 // else through f32 (times the scale when scaled) into D.
 template <typename S, typename D>
 __device__ __forceinline__ D convert(S x, float scale, bool scaled) {
@@ -190,39 +127,39 @@ struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Pack {
 
 template <typename S>
 __host__ __device__ constexpr int64_t tile_elems() {
-  return static_cast<int64_t>(kTileThreads) * kUnroll * (16 / sizeof(S));
+  return static_cast<int64_t>(kThreads) * kUnroll * (16 / sizeof(S));
 }
 
-// Comm buffer (type S) -> leaves (type D), one tile a block.
-template <typename S, typename D>
-__global__ void __launch_bounds__(kTileThreads)
-unpack_bucket_kernel(const __grid_constant__ TileTable t, const S* __restrict__ buf,
-                     float scale, bool scaled) {
-  constexpr int kV = 16 / sizeof(S);
-  const int64_t tile = blockIdx.x;
-  int lo = 0, hi = t.count - 1;   // the last leaf whose first tile is <= tile
+// The leaf that owns ``tile``: the last whose first tile is <= tile.
+__device__ __forceinline__ int leaf_of(const TileTable& t, int64_t tile) {
+  int lo = 0, hi = t.count - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) / 2;
     if (t.first_tile[mid] <= tile) lo = mid; else hi = mid - 1;
   }
-  const S* src = buf + t.offset[lo];
-  D* dst = static_cast<D*>(t.ptr[lo]);
-  const int64_t n = t.size[lo];
-  const int64_t base = (tile - t.first_tile[lo]) * tile_elems<S>();
-  const bool vec = (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) % 16 == 0;
+  return lo;
+}
 
+// One tile of one leaf: src[base ...] (type S) -> dst[base ...] (type D),
+// of the leaf's n elements; ``last`` when this is the leaf's last tile.
+template <typename S, typename D>
+__device__ __forceinline__ void stage_tile(const S* __restrict__ src, D* __restrict__ dst,
+                                           int64_t n, int64_t base, bool last,
+                                           float scale, bool scaled) {
+  constexpr int kV = 16 / sizeof(S);
+  const bool vec = (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) % 16 == 0;
   if (vec) {
     const int64_t nv = n / kV;
     const int64_t v0 = base / kV + threadIdx.x;
     uint4 r[kUnroll];
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
-      const int64_t v = v0 + j * kTileThreads;
+      const int64_t v = v0 + j * kThreads;
       if (v < nv) r[j] = reinterpret_cast<const uint4*>(src)[v];
     }
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
-      const int64_t v = v0 + j * kTileThreads;
+      const int64_t v = v0 + j * kThreads;
       if (v < nv) {
         const S* ps = reinterpret_cast<const S*>(&r[j]);
         Pack<D, kV> o;
@@ -233,26 +170,52 @@ unpack_bucket_kernel(const __grid_constant__ TileTable t, const S* __restrict__ 
     }
     // the last (n % kV) elements, in the leaf's last tile
     const int64_t i = nv * kV + threadIdx.x;
-    if (tile + 1 == t.first_tile[lo + 1] && i < n) dst[i] = convert<S, D>(src[i], scale, scaled);
+    if (last && i < n) dst[i] = convert<S, D>(src[i], scale, scaled);
     return;
   }
   constexpr int kS = kUnroll * kV;
   S r[kS];
 #pragma unroll
   for (int j = 0; j < kS; ++j) {
-    const int64_t i = base + j * kTileThreads + threadIdx.x;
+    const int64_t i = base + j * kThreads + threadIdx.x;
     if (i < n) r[j] = src[i];
   }
 #pragma unroll
   for (int j = 0; j < kS; ++j) {
-    const int64_t i = base + j * kTileThreads + threadIdx.x;
+    const int64_t i = base + j * kThreads + threadIdx.x;
     if (i < n) dst[i] = convert<S, D>(r[j], scale, scaled);
   }
 }
 
+// Leaves (type S) -> comm buffer (type D), one tile a block.
 template <typename S, typename D>
-cudaError_t launch_unpack(const UnpackArgs& args, void* const* leaves, const void* buf,
-                          float scale, bool scaled, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+pack_bucket_kernel(const __grid_constant__ TileTable t, D* __restrict__ buf, float scale,
+                   bool scaled) {
+  const int64_t tile = blockIdx.x;
+  const int i = leaf_of(t, tile);
+  stage_tile<S, D>(static_cast<const S*>(t.ptr[i]), buf + t.offset[i], t.size[i],
+                   (tile - t.first_tile[i]) * tile_elems<S>(), tile + 1 == t.first_tile[i + 1],
+                   scale, scaled);
+}
+
+// Comm buffer (type S) -> leaves (type D), one tile a block.
+template <typename S, typename D>
+__global__ void __launch_bounds__(kThreads)
+unpack_bucket_kernel(const __grid_constant__ TileTable t, const S* __restrict__ buf,
+                     float scale, bool scaled) {
+  const int64_t tile = blockIdx.x;
+  const int i = leaf_of(t, tile);
+  stage_tile<S, D>(buf + t.offset[i], static_cast<D*>(t.ptr[i]), t.size[i],
+                   (tile - t.first_tile[i]) * tile_elems<S>(), tile + 1 == t.first_tile[i + 1],
+                   scale, scaled);
+}
+
+// One launch over a layout: kPack moves leaves (S) into buf (D), else buf
+// (S) into the leaves (D).  Tiles are counted in the source type.
+template <bool kPack, typename S, typename D>
+cudaError_t launch(const Layout& args, void* const* leaves, void* buf, float scale,
+                   bool scaled, cudaStream_t stream) {
   TileTable t;
   t.count = args.count;
   t.first_tile[0] = 0;
@@ -265,65 +228,35 @@ cudaError_t launch_unpack(const UnpackArgs& args, void* const* leaves, const voi
   }
   const int64_t tiles = t.first_tile[args.count];
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  unpack_bucket_kernel<S, D><<<static_cast<unsigned>(tiles), kTileThreads, 0, stream>>>(
-      t, static_cast<const S*>(buf), scale, scaled);
+  const auto grid = static_cast<unsigned>(tiles);
+  if constexpr (kPack) {
+    pack_bucket_kernel<S, D><<<grid, kThreads, 0, stream>>>(t, static_cast<D*>(buf), scale,
+                                                            scaled);
+  } else {
+    unpack_bucket_kernel<S, D><<<grid, kThreads, 0, stream>>>(
+        t, static_cast<const S*>(buf), scale, scaled);
+  }
   return cudaGetLastError();
 }
 
-template <typename S>
-cudaError_t unpack_dst(int dst, const UnpackArgs& args, void* const* leaves,
-                       const void* buf, float scale, bool scaled, cudaStream_t stream) {
+template <bool kPack, typename S>
+cudaError_t launch_to(int dst, const Layout& args, void* const* leaves, void* buf,
+                      float scale, bool scaled, cudaStream_t stream) {
   switch (dst) {
-    case kF32: return launch_unpack<S, float>(args, leaves, buf, scale, scaled, stream);
-    case kBF16: return launch_unpack<S, __nv_bfloat16>(args, leaves, buf, scale, scaled, stream);
-    case kF16: return launch_unpack<S, __half>(args, leaves, buf, scale, scaled, stream);
-    case kF64: return launch_unpack<S, double>(args, leaves, buf, scale, scaled, stream);
+    case kF32: return launch<kPack, S, float>(args, leaves, buf, scale, scaled, stream);
+    case kBF16: return launch<kPack, S, __nv_bfloat16>(args, leaves, buf, scale, scaled, stream);
+    case kF16: return launch<kPack, S, __half>(args, leaves, buf, scale, scaled, stream);
+    case kF64: return launch<kPack, S, double>(args, leaves, buf, scale, scaled, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// leaves[i] (leaf_dtype, sizes[i] elements) -> buf[offsets[i] ...] (comm_dtype)
-int staging_pack(void* const* leaves, const int64_t* offsets,
-                 const int64_t* sizes, int n, int leaf_dtype, void* buf,
-                 int comm_dtype, float scale, int scaled, int device,
-                 void* stream) {
-  if (n < 1 || n > kMaxLeaves) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  LeafTable table;
-  int64_t longest = 0;
-  for (int i = 0; i < n; ++i) {
-    table.ptr[i] = leaves[i];
-    table.offset[i] = offsets[i];
-    table.size[i] = sizes[i];
-    if (sizes[i] > longest) longest = sizes[i];
-  }
-  int64_t bx = (longest + 4 * kThreads - 1) / (4 * kThreads);
-  if (bx < 1) bx = 1;
-  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(n));
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool sc = scaled != 0;
-  switch (leaf_dtype) {
-    case kF32: err = pack_dst<float>(comm_dtype, table, grid, buf, scale, sc, s); break;
-    case kBF16: err = pack_dst<__nv_bfloat16>(comm_dtype, table, grid, buf, scale, sc, s); break;
-    case kF16: err = pack_dst<__half>(comm_dtype, table, grid, buf, scale, sc, s); break;
-    case kF64: err = pack_dst<double>(comm_dtype, table, grid, buf, scale, sc, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
-}
-
-// For each leaf i of the UnpackArgs at ``table``: buf[offset[i] ...]
-// (comm_dtype) -> leaves[i] (leaf_dtype, size[i] elements).  One launch.
-int staging_unpack(const void* table, void* const* leaves, int leaf_dtype,
-                   const void* buf, int comm_dtype, float scale, int scaled,
-                   int device, void* stream) {
-  const auto* args = static_cast<const UnpackArgs*>(table);
+// Checks the layout, selects the card and dispatches on the source (src)
+// and destination (dst) dtype codes.
+template <bool kPack>
+int stage(const void* layout, void* const* leaves, int src, int dst, void* buf, float scale,
+          int scaled, int device, void* stream) {
+  const auto* args = static_cast<const Layout*>(layout);
   if (args == nullptr || leaves == nullptr || args->count < 1 || args->count > kMaxLeaves) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -331,14 +264,34 @@ int staging_unpack(const void* table, void* const* leaves, int leaf_dtype,
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   const bool sc = scaled != 0;
-  switch (comm_dtype) {
-    case kF32: err = unpack_dst<float>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
-    case kBF16: err = unpack_dst<__nv_bfloat16>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
-    case kF16: err = unpack_dst<__half>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
-    case kF64: err = unpack_dst<double>(leaf_dtype, *args, leaves, buf, scale, sc, s); break;
+  switch (src) {
+    case kF32: err = launch_to<kPack, float>(dst, *args, leaves, buf, scale, sc, s); break;
+    case kBF16: err = launch_to<kPack, __nv_bfloat16>(dst, *args, leaves, buf, scale, sc, s); break;
+    case kF16: err = launch_to<kPack, __half>(dst, *args, leaves, buf, scale, sc, s); break;
+    case kF64: err = launch_to<kPack, double>(dst, *args, leaves, buf, scale, sc, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// For each leaf i of the Layout at ``layout``: leaves[i] (leaf_dtype,
+// size[i] elements) -> buf[offset[i] ...] (comm_dtype).  One launch.
+int staging_pack(const void* layout, void* const* leaves, int leaf_dtype, void* buf,
+                 int comm_dtype, float scale, int scaled, int device, void* stream) {
+  return stage<true>(layout, leaves, leaf_dtype, comm_dtype, buf, scale, scaled, device,
+                     stream);
+}
+
+// For each leaf i of the Layout at ``layout``: buf[offset[i] ...]
+// (comm_dtype) -> leaves[i] (leaf_dtype, size[i] elements).  One launch.
+int staging_unpack(const void* layout, void* const* leaves, int leaf_dtype, const void* buf,
+                   int comm_dtype, float scale, int scaled, int device, void* stream) {
+  return stage<false>(layout, leaves, comm_dtype, leaf_dtype, const_cast<void*>(buf), scale,
+                      scaled, device, stream);
 }
 
 }  // extern "C"

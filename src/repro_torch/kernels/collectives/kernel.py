@@ -25,14 +25,16 @@ never synchronize, and count their launches in ``PACK_LAUNCHES`` /
 ``AG_LAUNCHES`` (a ring call launches once a hop, g times).  There is no fallback: a
 failed build or launch raises.
 
-The combine and the unpack keep their host path short, since a ring hop
-or a bucket moves only a few MB: the combine packs the pairs' pointers
-and lengths into a preallocated buffer (one a thread) with one
-``struct`` call, and the unpack keeps each bucket's layout (offsets,
-sizes, launch groups), keyed by the leaves' dtypes and sizes and the
-buffer's dtype, so that a call packs only the leaves' pointers — the
-training loop's ``.grad`` tensors are new each step.  Both read the
-current stream's raw handle without building a ``Stream``.
+The combine and the staging kernels keep their host path short, since a
+ring hop or a bucket moves only a few MB: the combine packs the pairs'
+pointers and lengths into a preallocated buffer (one a thread) with one
+``struct`` call, and pack and unpack share each bucket's layout
+(offsets, sizes, launch groups: ``bucket_layout``), keyed by the
+leaves' dtypes and sizes and the buffer's dtype, so that a call packs
+only the leaves' pointers — the training loop's ``.grad`` tensors are
+new each step.  Each tensor is checked by one condition; the detailed
+checks run only to word a refusal.  All read the current stream's raw
+handle without building a ``Stream``.
 """
 from __future__ import annotations
 
@@ -55,11 +57,11 @@ UNPACK_LAUNCHES = 0
 ACCUM_LAUNCHES = 0
 RS_LAUNCHES = 0
 AG_LAUNCHES = 0
-UNPACK_RECORDS_BUILT = 0   # unpack layouts built (the rest of the calls reused one)
+LAYOUTS_BUILT = 0   # bucket layouts built by pack or unpack (the rest of the calls reused one)
 
 MAX_LEAVES = 64   # kMaxLeaves in csrc/staging.cu
 MAX_PAIRS = 8     # kMaxPairs in csrc/ring_accum.cu
-MAX_UNPACK_RECORDS = 256   # bucket layouts kept for reuse, oldest dropped first
+MAX_LAYOUTS = 256   # bucket layouts kept for reuse, oldest dropped first
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float64: 3}
 
@@ -265,22 +267,22 @@ def ring_all_gather_kernel(ring: PeerRing, shard: torch.Tensor, *,
 _ACCUM_ARGS = [struct.Struct("<q" + "QQQq" * k) for k in range(MAX_PAIRS + 1)]
 
 
-class _UnpackArgs(ctypes.Structure):
-    """``UnpackArgs`` of ``csrc/staging.cu``: leaf i is
+class _Layout(ctypes.Structure):
+    """``Layout`` of ``csrc/staging.cu``: leaf i is
     ``buf[offset[i]:offset[i] + size[i]]``; its pointer comes per call."""
     _fields_ = [("offset", ctypes.c_int64 * MAX_LEAVES),
                 ("size", ctypes.c_int64 * MAX_LEAVES), ("count", ctypes.c_int32)]
 
 
-# the leaves' pointers of one unpack launch, packed in one call
+# the leaves' pointers of one staging launch, packed in one call
 _LEAF_PTRS = [struct.Struct(f"<{k}Q") for k in range(MAX_LEAVES + 1)]
 
 _local = threading.local()
 
 
 def _leaf_ptr_table() -> tuple[ctypes.Array, int]:
-    """This thread's column of leaf pointers for an unpack and its
-    address; the launch copies it into the kernel's arguments."""
+    """This thread's column of leaf pointers for a staging launch and
+    its address; the launch copies it into the kernel's arguments."""
     try:
         return _local.leaf_ptrs
     except AttributeError:
@@ -321,31 +323,18 @@ def _accum_lib() -> ctypes.CDLL:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    lib.staging_pack.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p),   # leaf pointers
-        ctypes.POINTER(ctypes.c_int64),    # offsets in the buffer
-        ctypes.POINTER(ctypes.c_int64),    # sizes
-        ctypes.c_int,                      # number of leaves
-        ctypes.c_int,                      # leaf dtype code
-        ctypes.c_void_p,                   # comm buffer
-        ctypes.c_int,                      # comm dtype code
-        ctypes.c_float,                    # scale
-        ctypes.c_int,                      # scale != 1
-        ctypes.c_int,                      # device index
-        ctypes.c_void_p,                   # cudaStream_t
-    ]
-    lib.staging_unpack.argtypes = [
-        ctypes.c_void_p,                   # UnpackArgs*
-        ctypes.c_void_p,                   # leaf pointers
-        ctypes.c_int,                      # leaf dtype code
-        ctypes.c_void_p,                   # comm buffer
-        ctypes.c_int,                      # comm dtype code
-        ctypes.c_float,                    # scale
-        ctypes.c_int,                      # scale != 1
-        ctypes.c_int,                      # device index
-        ctypes.c_void_p,                   # cudaStream_t
-    ]
     for fn in (lib.staging_pack, lib.staging_unpack):
+        fn.argtypes = [
+            ctypes.c_void_p,               # Layout*
+            ctypes.c_void_p,               # leaf pointers
+            ctypes.c_int,                  # leaf dtype code
+            ctypes.c_void_p,               # comm buffer
+            ctypes.c_int,                  # comm dtype code
+            ctypes.c_float,                # scale
+            ctypes.c_int,                  # scale != 1
+            ctypes.c_int,                  # device index
+            ctypes.c_void_p,               # cudaStream_t
+        ]
         fn.restype = ctypes.c_int
     return lib
 
@@ -361,88 +350,107 @@ def _check(t: torch.Tensor, what: str, device: torch.device) -> None:
         raise ValueError(f"{what} is not contiguous")
 
 
-def _launch_groups(leaves: Sequence[torch.Tensor], offsets: Sequence
-                   ) -> Iterator[tuple[torch.dtype, list, list]]:
-    """(dtype, leaves, offsets) per launch: leaves grouped by dtype (the
+def _launch_groups(dtypes: Sequence[torch.dtype], sizes: Sequence[int]
+                   ) -> Iterator[tuple[torch.dtype, list[int]]]:
+    """(dtype, leaf indexes) per launch: leaves grouped by dtype (the
     kernel's template parameter), at most MAX_LEAVES per launch; empty
-    leaves need no launch.  Each offset travels with its leaf as given."""
-    by_dtype: dict[torch.dtype, list[tuple[torch.Tensor, int]]] = {}
-    for t, off in zip(leaves, offsets):
-        if t.numel():
-            by_dtype.setdefault(t.dtype, []).append((t, off))
-    for dt, items in by_dtype.items():
-        for i in range(0, len(items), MAX_LEAVES):
-            chunk = items[i:i + MAX_LEAVES]
-            yield dt, [t for t, _ in chunk], [o for _, o in chunk]
+    leaves need no launch."""
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, (dt, n) in enumerate(zip(dtypes, sizes)):
+        if n:
+            by_dtype.setdefault(dt, []).append(i)
+    for dt, idx in by_dtype.items():
+        for i in range(0, len(idx), MAX_LEAVES):
+            yield dt, idx[i:i + MAX_LEAVES]
 
 
-def _stage(fn, name: str, leaves, offsets, buf: torch.Tensor,
-           scale: float) -> int:
-    """Launch ``fn`` once per group; returns the number of launches."""
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    launches = 0
-    for dt, ts, offs in _launch_groups(leaves, offsets):
-        n = len(ts)
-        rc = fn((ctypes.c_void_p * n)(*[t.data_ptr() for t in ts]),
-                (ctypes.c_int64 * n)(*offs),
-                (ctypes.c_int64 * n)(*[t.numel() for t in ts]),
-                n, DTYPE_CODES[dt], buf.data_ptr(), DTYPE_CODES[buf.dtype],
-                float(scale), int(scale != 1.0), buf.device.index, stream)
+_LAYOUTS: dict[tuple, tuple[int, tuple]] = {}
+
+
+def bucket_layout(key: tuple) -> tuple[int, tuple]:
+    """The layout of a bucket, from its ``key``: the buffer's dtype, then
+    each leaf's dtype and size, flattened.  Returns (elements, one
+    (``_Layout``, its address, leaf dtype code, the group's leaf indexes)
+    per launch group).  Built from the key alone, once, and kept under it
+    for pack and unpack alike."""
+    global LAYOUTS_BUILT
+    rec = _LAYOUTS.get(key)
+    if rec is not None:
+        return rec
+    LAYOUTS_BUILT += 1
+    dtypes, sizes = key[1::2], key[2::2]
+    offsets, off = [], 0
+    for n in sizes:
+        offsets.append(off)
+        off += n
+    groups = []
+    for dt, idx in _launch_groups(dtypes, sizes):
+        args = _Layout()
+        for j, i in enumerate(idx):
+            args.offset[j], args.size[j] = offsets[i], sizes[i]
+        args.count = len(idx)
+        groups.append((args, ctypes.addressof(args), DTYPE_CODES[dt], tuple(idx)))
+    if len(_LAYOUTS) >= MAX_LAYOUTS:
+        del _LAYOUTS[next(iter(_LAYOUTS))]
+    rec = _LAYOUTS[key] = (off, tuple(groups))
+    return rec
+
+
+def _key(buf_dtype: torch.dtype, leaves: Sequence[torch.Tensor], device: torch.device,
+         what: str) -> tuple[tuple, list[int]]:
+    """A bucket's layout key and its leaves' pointers; each leaf is
+    checked by one condition, and ``_check`` words a refusal."""
+    key, ptrs = [buf_dtype], []
+    for t in leaves:
+        if t.device != device or t.dtype not in DTYPE_CODES or not t.is_contiguous():
+            for i, u in enumerate(leaves):
+                _check(u, f"{what} {i}", device)
+        key += (t.dtype, t.numel())
+        ptrs.append(t.data_ptr())
+    return tuple(key), ptrs
+
+
+def _launch(fn, name: str, groups: tuple, ptrs: list[int], buf: torch.Tensor,
+            scale: float) -> None:
+    """One launch of ``fn`` per launch group of a layout."""
+    index = buf.device.index
+    stream, ptr, comm = _stream(index), buf.data_ptr(), DTYPE_CODES[buf.dtype]
+    column, column_addr = _leaf_ptr_table()
+    for _, addr, code, idx in groups:
+        _LEAF_PTRS[len(idx)].pack_into(column, 0, *[ptrs[i] for i in idx])
+        rc = fn(addr, column_addr, code, ptr, comm, float(scale), int(scale != 1.0),
+                index, stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-        launches += 1
-    return launches
 
 
 def pack_bucket_kernel(leaves: Sequence[torch.Tensor], comm_dtype, *,
-                       scale: float = 1.0) -> torch.Tensor:
+                       scale: float = 1.0, out: torch.Tensor | None = None) -> torch.Tensor:
     """Leaves (contiguous CUDA tensors, any shapes) → one 1-D
-    ``comm_dtype`` buffer holding them back to back, times ``scale``."""
+    ``comm_dtype`` buffer holding them back to back, times ``scale``:
+    a new tensor, or ``out`` (1-D, contiguous, of the leaves' total
+    size).  One launch per group of at most ``MAX_LEAVES`` leaves of one
+    dtype."""
     global PACK_LAUNCHES
     if not leaves:
         raise ValueError("pack_bucket_kernel needs at least one leaf")
     device = leaves[0].device
     if device.type != "cuda":
         raise ValueError(f"pack_bucket_kernel takes CUDA tensors, got {device}")
-    for i, t in enumerate(leaves):
-        _check(t, f"leaf {i}", device)
     if comm_dtype not in DTYPE_CODES:
         raise ValueError(f"comm dtype {comm_dtype} is not supported")
-    offsets, off = [], 0
-    for t in leaves:
-        offsets.append(off)
-        off += t.numel()
-    buf = torch.empty(off, dtype=comm_dtype, device=device)
-    PACK_LAUNCHES += _stage(_lib().staging_pack, "pack_bucket_kernel",
-                            leaves, offsets, buf, scale)
-    return buf
-
-
-_UNPACK_RECORDS: dict[tuple, tuple[int, tuple]] = {}
-
-
-def _unpack_record(key: tuple, outs: Sequence[torch.Tensor]) -> tuple[int, tuple]:
-    """A bucket's layout: (elements, one (table, its address, leaf dtype
-    code, the group's indexes into ``outs``) per launch group).  Kept
-    under ``key`` for reuse."""
-    global UNPACK_RECORDS_BUILT
-    UNPACK_RECORDS_BUILT += 1
-    offsets, off = [], 0
-    for t in outs:
-        offsets.append(off)
-        off += t.numel()
-    groups = []
-    for dt, ts, where in _launch_groups(outs, list(enumerate(offsets))):
-        args = _UnpackArgs()
-        for j, (t, (_, o)) in enumerate(zip(ts, where)):
-            args.offset[j], args.size[j] = o, t.numel()
-        args.count = len(ts)
-        groups.append((args, ctypes.addressof(args), DTYPE_CODES[dt],
-                       tuple(i for i, _ in where)))
-    if len(_UNPACK_RECORDS) >= MAX_UNPACK_RECORDS:
-        del _UNPACK_RECORDS[next(iter(_UNPACK_RECORDS))]
-    rec = _UNPACK_RECORDS[key] = (off, tuple(groups))
-    return rec
+    key, ptrs = _key(comm_dtype, leaves, device, "leaf")
+    total, groups = bucket_layout(key)
+    if out is None:
+        out = torch.empty(total, dtype=comm_dtype, device=device)
+    elif (out.device != device or out.dtype != comm_dtype or out.dim() != 1
+          or out.numel() != total or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous 1-D {comm_dtype} tensor of {total} "
+                         f"elements on {device}; got {out.dtype}{tuple(out.shape)} on "
+                         f"{out.device}")
+    _launch(_lib().staging_pack, "pack_bucket_kernel", groups, ptrs, out, scale)
+    PACK_LAUNCHES += len(groups)
+    return out
 
 
 def unpack_bucket_kernel(buf: torch.Tensor, outs: Sequence[torch.Tensor], *,
@@ -460,26 +468,11 @@ def unpack_bucket_kernel(buf: torch.Tensor, outs: Sequence[torch.Tensor], *,
     _check(buf, "buffer", device)
     if buf.dim() != 1:
         raise ValueError(f"buffer must be 1-D, got shape {tuple(buf.shape)}")
-    key, ptrs = [buf.dtype], []
-    for t in outs:
-        if t.device != device or t.dtype not in DTYPE_CODES or not t.is_contiguous():
-            for i, u in enumerate(outs):
-                _check(u, f"output {i}", device)
-        key += (t.dtype, t.numel())
-        ptrs.append(t.data_ptr())
-    key = tuple(key)
-    total, groups = _UNPACK_RECORDS.get(key) or _unpack_record(key, outs)
+    key, ptrs = _key(buf.dtype, outs, device, "output")
+    total, groups = bucket_layout(key)
     if total != buf.numel():
         raise ValueError(f"outputs hold {total} elements, buffer {buf.numel()}")
-    fn, index = _lib().staging_unpack, device.index
-    stream, ptr, comm = _stream(index), buf.data_ptr(), DTYPE_CODES[buf.dtype]
-    column, column_addr = _leaf_ptr_table()
-    for _, addr, code, idx in groups:
-        _LEAF_PTRS[len(idx)].pack_into(column, 0, *[ptrs[i] for i in idx])
-        rc = fn(addr, column_addr, code, ptr, comm, float(scale), int(scale != 1.0),
-                index, stream)
-        if rc != 0:
-            raise RuntimeError(f"unpack_bucket_kernel launch failed: CUDA error {rc}")
+    _launch(_lib().staging_unpack, "unpack_bucket_kernel", groups, ptrs, buf, scale)
     UNPACK_LAUNCHES += len(groups)
 
 

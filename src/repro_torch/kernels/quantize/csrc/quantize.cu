@@ -5,6 +5,10 @@
 //                                (quantize_blocks_kernel, body _quant_kernel :19)
 //   dequantize_blocks_kernel  <- src/repro/kernels/quantize/kernel.py:54
 //                                (dequantize_blocks_kernel, body _dequant_kernel :28)
+// and, as a second entry of the dequantize, the compressed reducer's
+// phase 2 (src/repro/core/compression.py:79-83, jnp.sum over the peers of
+// the vmapped dequantize, which XLA fuses into one loop):
+//   dequantize_sum_blocks_kernel: g peers' shards, dequantized and summed.
 //
 // What they compute.  The wire format of the compressed reducer
 // (core/compression.py), per block of 256 f32 elements:
@@ -18,27 +22,47 @@
 // _build.py passes none, and nothing here uses __fdividef), the product
 // is IEEE f32 and rintf rounds half to even, so on finite inputs every q,
 // scale and dequantized value equals the plain PyTorch version's (ref.py)
-// bit for bit.
+// bit for bit.  The peer sum adds the g dequantized shards in peer order,
+// deq[0] + deq[1] + ... + deq[g-1], each product rounded once and each add
+// rounded once, as the plain version does: __fmul_rn and __fadd_rn, since
+// nvcc would otherwise contract a product and an add into one FMA, which
+// rounds once (as XLA's CPU build of the reference does).
 //
 // What bounds them.  Bytes: quantize reads 4 bytes and writes 1 per
-// element plus 4 per block; dequantize the reverse.  A few operations an
+// element plus 4 per block; dequantize the reverse; the peer sum reads g
+// int8 values and writes one f32 an element, where a dequantize and g - 1
+// adds would write g f32 values and read them back.  A few operations an
 // element are far below the card's rate.  At ResNet-50's bucket sizes
-// (0.5-9.4 MB of f32) one launch moves less than its launch overhead
-// costs, so at these sizes the count of launches (2 quantize and 2
-// dequantize a bucket a step) is what costs.
+// (0.5-9.4 MB of f32) one launch moves about as much as its launch
+// overhead costs, so the count of launches (2 quantize, 1 peer sum and 1
+// dequantize a bucket a step) matters as much as the bytes.
 //
 // What the design does about it.  On the TPU a grid step took 64 rows of
-// 256 in VMEM.  Here one warp owns one block: lane l loads elements
+// 256 in VMEM.  Quantize: one warp owns one block: lane l loads elements
 // [4l, 4l + 4) and [128 + 4l, 128 + 4l + 4) as two 16-byte loads, so a
 // warp's loads cover 512 contiguous bytes twice, the block's amax is a
 // butterfly of __shfl_xor_sync with no shared memory, and each lane stores
 // its 8 int8 values as two 4-byte words.  Eight warps (eight blocks of
-// 256) make a thread block.
+// 256) make a thread block.  Dequantize and peer sum: a flat grid over
+// 4-byte words of int8 (four values each; a quantization block is 64
+// words).  A thread loads its words at a stride of the thread block, so a
+// warp's load covers 128 contiguous bytes, with each word's block scale
+// (one 4-byte load, the same word for 64 threads, which the L1
+// broadcasts), and stores each word's four values as one float4, so a
+// warp's store covers 512 contiguous bytes.  Loads come first: the
+// dequantize keeps kDqWords words in flight a thread; the peer sum loads
+// the same word of up to kPeerChunk peers at once (a loop over the peers
+// that waited for each peer's load before the next was measured far
+// slower), then adds them in peer order.  (A thread that takes 16 values
+// with one 16-byte load writes them as four float4 stores 64 bytes apart
+// across the warp, half of every 32-byte sector an instruction touches;
+// on the H100 that was slower than one warp a block with 4-byte loads.)
 //
 // Interface: plain C, loaded with ctypes (kernel.py).  Each entry point
 // returns cudaGetLastError() after its launch; the wrapper raises if it is
 // not 0.  Launches go to the caller's stream and never synchronize.  The
-// wrapper checks that every pointer is 16-byte aligned.
+// wrapper checks that the int8 and f32 element pointers are 16-byte
+// aligned (scales are read one word at a time).
 
 #include <cuda_runtime.h>
 
@@ -82,22 +106,81 @@ quantize_blocks_kernel(const float* __restrict__ x, signed char* __restrict__ q,
   if (lane == 0) scales[blk] = scale;
 }
 
-__global__ void __launch_bounds__(kThreads)
-dequantize_blocks_kernel(const signed char* __restrict__ q,
-                         const float* __restrict__ scales,
-                         float* __restrict__ x, int64_t n_blocks) {
-  const int lane = threadIdx.x & 31;
-  const int64_t blk = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (blk >= n_blocks) return;
-  const float s = scales[blk];        // one word, broadcast to the warp
-  const char4* qb = reinterpret_cast<const char4*>(q + blk * kBlock);
-  const char4 a = qb[lane];
-  const char4 b = qb[32 + lane];
-  float4* xb = reinterpret_cast<float4*>(x + blk * kBlock);
-  xb[lane] = make_float4(static_cast<float>(a.x) * s, static_cast<float>(a.y) * s,
-                         static_cast<float>(a.z) * s, static_cast<float>(a.w) * s);
-  xb[32 + lane] = make_float4(static_cast<float>(b.x) * s, static_cast<float>(b.y) * s,
-                              static_cast<float>(b.z) * s, static_cast<float>(b.w) * s);
+constexpr int kDqThreads = 128;            // dequantize
+constexpr int kDqWords = 4;                // int8 words in flight a thread
+constexpr int kSumThreads = 256;           // peer sum
+constexpr int kPeerChunk = 8;              // peers whose words a thread loads at once
+constexpr int kWordsPerBlock = kBlock / 4;  // 64 words a quantization block
+
+// The signed byte e (0-3) of a 32-bit word, as f32 (exact).
+template <int e>
+__device__ __forceinline__ float byte_f32(unsigned w) {
+  return __int2float_rn(static_cast<int>(w << (24 - 8 * e)) >> 24);
+}
+
+// A word's four int8 values times their block's scale, each product rounded once.
+__device__ __forceinline__ float4 dequant4(unsigned w, float s) {
+  return make_float4(__fmul_rn(byte_f32<0>(w), s), __fmul_rn(byte_f32<1>(w), s),
+                     __fmul_rn(byte_f32<2>(w), s), __fmul_rn(byte_f32<3>(w), s));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// q (n_words words of four int8), scales (n_words / 64) -> x (n_words float4)
+__global__ void __launch_bounds__(kDqThreads)
+dequantize_blocks_kernel(const unsigned* __restrict__ q, const float* __restrict__ scales,
+                         float4* __restrict__ x, int64_t n_words) {
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * (kDqThreads * kDqWords) + threadIdx.x;
+  unsigned r[kDqWords];
+  float s[kDqWords];
+#pragma unroll
+  for (int j = 0; j < kDqWords; ++j) {
+    const int64_t w = w0 + j * kDqThreads;
+    if (w < n_words) {
+      r[j] = q[w];
+      s[j] = scales[w / kWordsPerBlock];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kDqWords; ++j) {
+    const int64_t w = w0 + j * kDqThreads;
+    if (w < n_words) x[w] = dequant4(r[j], s[j]);
+  }
+}
+
+// q (g rows of n_words words), scales (g rows of n_words / 64), row p
+// peer p's shard -> x (n_words float4) = sum over the rows, in row order,
+// of q * scale.
+__global__ void __launch_bounds__(kSumThreads)
+dequantize_sum_blocks_kernel(const unsigned* __restrict__ q, const float* __restrict__ scales,
+                             float4* __restrict__ x, int64_t n_words, int g) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (w >= n_words) return;
+  const int64_t n_blocks = n_words / kWordsPerBlock;
+  const int64_t b = w / kWordsPerBlock;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p0 = 0; p0 < g; p0 += kPeerChunk) {
+    unsigned r[kPeerChunk];
+    float s[kPeerChunk];
+#pragma unroll
+    for (int p = 0; p < kPeerChunk; ++p) {
+      if (p0 + p < g) {
+        r[p] = q[(p0 + p) * n_words + w];
+        s[p] = scales[(p0 + p) * n_blocks + b];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kPeerChunk; ++p) {
+      if (p0 + p < g) {
+        const float4 o = dequant4(r[p], s[p]);
+        acc = p0 + p == 0 ? o : add4(acc, o);
+      }
+    }
+  }
+  x[w] = acc;
 }
 
 unsigned grid_for(int64_t n_blocks) {
@@ -127,10 +210,28 @@ int dequantize_blocks(const void* q, const void* scales, void* x,
   if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dequantize_blocks_kernel<<<grid_for(n_blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const signed char*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(x), n_blocks);
+  const int64_t n_words = n_blocks * kWordsPerBlock;
+  constexpr int64_t kTile = kDqThreads * kDqWords;
+  dequantize_blocks_kernel<<<static_cast<unsigned>((n_words + kTile - 1) / kTile), kDqThreads,
+                             0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(q), static_cast<const float*>(scales),
+      static_cast<float4*>(x), n_words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (g x n_blocks * 256 int8), scales (g x n_blocks f32), row p peer p's
+// shard -> x (n_blocks * 256 f32), the peers' dequantized values summed in
+// peer order.
+int dequantize_sum_blocks(const void* q, const void* scales, void* x, int64_t n_blocks,
+                          int g, int device, void* stream) {
+  if (n_blocks < 1 || g < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_words = n_blocks * kWordsPerBlock;
+  dequantize_sum_blocks_kernel<<<static_cast<unsigned>((n_words + kSumThreads - 1) / kSumThreads),
+                                 kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(q), static_cast<const float*>(scales),
+      static_cast<float4*>(x), n_words, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,8 +2,8 @@
 (``repro/kernels/quantize/ops.py``), in the comm-buffer layout the
 compressed reducer uses.
 
-On CUDA tensors both launch the hand-written kernels (``kernel.py``); on
-CPU tensors they run the plain versions (``ref.py``).  The device of the
+On CUDA tensors each launches its hand-written kernel (``kernel.py``); on
+CPU tensors it runs the plain version (``ref.py``).  The device of the
 tensors decides; a CUDA tensor never reaches the plain version here.
 """
 from __future__ import annotations
@@ -37,3 +37,18 @@ def dequantize_blocks(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     else:
         x = ref.dequantize_ref(qb, s)
     return x.reshape(-1)
+
+
+def dequantize_sum_blocks(q: torch.Tensor, s: torch.Tensor, g: int) -> torch.Tensor:
+    """The compressed reducer's phase 2: q (n,) int8 and s (n/256,) f32,
+    the shards of g peers back to back (n % (256·g) == 0) → (n/g,) f32,
+    the peers' dequantized shards summed in peer order."""
+    if q.device != s.device:
+        raise ValueError(f"q is on {q.device}, scales on {s.device}")
+    if q.dim() != 1 or q.numel() % (BLOCK * g):
+        raise ValueError(f"expected a 1-D buffer of a multiple of {BLOCK} x {g} "
+                         f"elements, got {tuple(q.shape)}")
+    qg, sg = q.reshape(g, -1), s.reshape(g, -1)
+    if q.device.type == "cuda":
+        return kernel.dequantize_sum_blocks_kernel(qg, sg)
+    return ref.dequantize_sum_ref(qg, sg)

@@ -2,7 +2,9 @@
 (``repro/kernels/quantize/ref.py``).
 
 Per block of 256 f32 elements: scale = amax/127 (1 when amax = 0),
-q = clip(round(x/scale), ±127) as int8; dequantize is q·scale.
+q = clip(round(x/scale), ±127) as int8; dequantize is q·scale.  The
+peer sum dequantizes g peers' shards and adds them in peer order, each
+product and each add rounded once (the compressed reducer's phase 2).
 
 The reference writes ``amax / 127.0``, and compiled — the Pallas kernel,
 and the compressed reducer inside the jitted train step — XLA rewrites a
@@ -12,8 +14,9 @@ blocks.  The port keeps the compiled arithmetic: ``amax * INV_127``.
 ``x / scale`` is an IEEE division on both sides and ``torch.round``
 rounds half to even, as ``jnp.round`` does, so q, the scales and the
 dequantized values equal the compiled reference's bit for bit.  These
-are what ``ops.quantize_blocks``/``dequantize_blocks`` run for tensors on
-the CPU and the oracle the CUDA kernels are held against on the card.
+are what ``ops.quantize_blocks``/``dequantize_blocks``/
+``dequantize_sum_blocks`` run for tensors on the CPU and the oracle the
+CUDA kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -33,3 +36,14 @@ def quantize_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def dequantize_ref(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """q: (n_blocks, 256) int8, s: (n_blocks,) f32 → (n_blocks, 256) f32."""
     return q.to(torch.float32) * s[:, None]
+
+
+def dequantize_sum_ref(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """q: (g, k·256) int8, s: (g, k) f32, row p peer p's shard → (k·256,)
+    f32: ``dequantize_ref`` of every shard, then the shards added in peer
+    order."""
+    deq = dequantize_ref(q.reshape(-1, 256), s.reshape(-1)).reshape(q.shape[0], -1)
+    red = deq[0]
+    for j in range(1, q.shape[0]):
+        red = red + deq[j]
+    return red

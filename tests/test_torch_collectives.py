@@ -8,6 +8,8 @@ tests run them: a copy, a cast and one f32 multiply round the same way in
 both.  The CUDA kernels themselves are held against the plain versions
 by ``chip_smoke.py`` and by the ``cuda``-marked test below.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,6 +122,48 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.unpack_bucket_kernel(t, [torch.empty(4)])
     assert (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case", ["uniform", "mixed_150", "empty_leaves"])
+def test_bucket_layout_is_built_from_dtypes_and_sizes_alone(monkeypatch, case):
+    """The layout pack and unpack share: leaves grouped by dtype, at most
+    MAX_LEAVES a launch, each at its offset in the buffer, empty leaves
+    in no group; built from the key alone (no library, no tensor) and
+    reused under the same key."""
+    monkeypatch.setattr(kernel, "_lib", lambda: pytest.fail("the layout loaded the library"))
+    monkeypatch.setattr(kernel, "_LAYOUTS", {})
+    rng = np.random.default_rng(len(case))
+    if case == "uniform":
+        dtypes = [torch.float32] * 10
+    elif case == "mixed_150":
+        dtypes = [torch.float32, torch.bfloat16] * 75
+    else:
+        dtypes = [torch.float16, torch.float64, torch.float16] * 4
+    sizes = [int(n) for n in rng.integers(1, 5000, len(dtypes))]
+    if case == "empty_leaves":
+        sizes[::3] = [0] * len(sizes[::3])
+    key = (torch.bfloat16, *[x for pair in zip(dtypes, sizes) for x in pair])
+    built = kernel.LAYOUTS_BUILT
+    total, groups = kernel.bucket_layout(key)
+    assert kernel.LAYOUTS_BUILT == built + 1 and total == sum(sizes)
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    seen = []
+    for args, addr, code, idx in groups:
+        assert 1 <= len(idx) == args.count <= kernel.MAX_LEAVES
+        assert addr == ctypes.addressof(args)
+        assert {dtypes[i] for i in idx} == {dt for dt, c in kernel.DTYPE_CODES.items()
+                                           if c == code}
+        assert [args.offset[j] for j in range(args.count)] == [offsets[i] for i in idx]
+        assert [args.size[j] for j in range(args.count)] == [sizes[i] for i in idx]
+        seen += idx
+    assert sorted(seen) == [i for i, n in enumerate(sizes) if n]
+    n_groups = sum(-(-sum(1 for d, n in zip(dtypes, sizes) if d == dt and n) // 64)
+                   for dt in set(dtypes))
+    assert len(groups) == n_groups
+    assert kernel.bucket_layout(tuple(key)) == (total, groups)      # reused
+    assert kernel.LAYOUTS_BUILT == built + 1
+    kernel.bucket_layout((torch.float32, *key[1:]))                 # another buffer dtype
+    assert kernel.LAYOUTS_BUILT == built + 2
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

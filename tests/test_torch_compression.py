@@ -16,17 +16,23 @@ model of each scheme reproduces each side bit for bit; the outputs
 differ in 3,972 of 16,784 elements (4 ranks × 4,196) on these buffers,
 each by less than one quantization step of its block.
 ``error_feedback_step`` differs likewise: XLA contracts ``g − q · s``
-into one fused multiply-add.
+into one fused multiply-add.  Phase 2 is one call of the peer-sum op a
+bucket (``dequantize_sum_blocks``), whose plain version is the
+dequantize and the adds in peer order.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from _torch_mdworker import COMPRESSED_CASES, WORLD, run_all
 from repro.core import compression as ref_compression
 from repro_torch.core import compression
+from repro_torch.kernels.quantize import ops as quant_ops
 
 N = 4 * 1024 + 100        # pads to M = 5,120 = 5 · 256 · 4
 M = 5 * 256 * WORLD
@@ -142,6 +148,42 @@ def test_quantize_blockwise_round_trip():
     assert q.dtype == torch.int8 and s.shape == (2,)
     err = (compression.dequantize_blockwise(q, s) - x).abs().reshape(2, 256)
     assert torch.all(err <= s[:, None] / 2 + 1e-7)
+
+
+@pytest.mark.parametrize("n", [4 * 1024 + 100, 256 * WORLD, 70000])
+def test_phase_two_is_one_peer_sum_a_bucket(monkeypatch, n):
+    """One process standing in for every rank (its collectives faked:
+    each peer sends this rank's own shards): ``compressed_allreduce``
+    calls the peer-sum op once, at g = 4, and computes what the
+    dequantize followed by the adds in peer order computes."""
+    def collective(fn, group, out, *ins):
+        if fn is dist.all_to_all_single:
+            out.copy_(ins[0])
+        elif fn is dist.all_gather_into_tensor:
+            out.copy_(ins[0].repeat(out.numel() // ins[0].numel()))
+        else:
+            raise AssertionError(f"unexpected collective {fn}")
+        return types.SimpleNamespace(wait=lambda: None)
+
+    calls = []
+
+    def peer_sum(q, s, g):
+        calls.append(g)
+        return quant_ops.dequantize_sum_blocks(q, s, g)
+
+    monkeypatch.setattr(compression.dep, "collective", collective)
+    monkeypatch.setattr(compression, "dequantize_sum_blocks", peer_sum)
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    got = compression.compressed_allreduce(x.clone(), ("data",), {"data": WORLD}, None)
+    assert calls == [WORLD]
+    m = -(-n // (256 * WORLD)) * 256 * WORLD
+    q, s = compression.quantize_blockwise(torch.nn.functional.pad(x, (0, m - n)))
+    deq = compression.dequantize_blockwise(q, s).reshape(WORLD, -1)
+    red = deq[0]
+    for j in range(1, WORLD):
+        red = red + deq[j]
+    want = compression.dequantize_blockwise(*compression.quantize_blockwise(red))
+    assert torch.equal(got.view(torch.int32), want.repeat(WORLD)[:n].view(torch.int32))
 
 
 def test_non_f32_comm_buffers_are_refused():

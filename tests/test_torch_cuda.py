@@ -1,5 +1,6 @@
 """The port's CUDA kernels and engines on the card: the serving slices'
-kernels and engines, the ring-hop combine and int8 block kernels, and the
+kernels and engines, the staging kernels, the ring-hop combine and int8
+block kernels (with the dequantize's peer-sum entry), and the
 peer-memory ring reduce-scatter/all-gather (2 and 4 rank processes on
 ``cuda:0``, spawned through ``tests/_torch_mdworker.py::peer_rank``).
 
@@ -307,7 +308,7 @@ def test_cuda_unpack_reuses_its_layout_for_new_outputs(cuda):
     and new outputs of the same dtypes and sizes (new pointers, as the
     training loop's ``.grad`` tensors are); every call is right, and
     refusals still raise."""
-    built = coll_kernel.UNPACK_RECORDS_BUILT
+    built = coll_kernel.LAYOUTS_BUILT
     sizes = [int(n) for n in np.random.default_rng(4).integers(1, 5000, 150)]
     dts = [torch.float32, torch.bfloat16] * 75
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -324,11 +325,115 @@ def test_cuda_unpack_reuses_its_layout_for_new_outputs(cuda):
             for t, w in zip(outs, want):
                 assert torch.equal(_bits(t), _bits(w))
             outs[0].fill_(float("nan"))
-    assert coll_kernel.UNPACK_RECORDS_BUILT == built + 1
+    assert coll_kernel.LAYOUTS_BUILT == built + 1
     with pytest.raises(ValueError, match="outputs hold"):
         coll_kernel.unpack_bucket_kernel(buf[1:], outs)
     with pytest.raises(ValueError, match="output 3"):
         coll_kernel.unpack_bucket_kernel(buf, outs[:3] + [outs[3].cpu()] + outs[4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comm", STAGING_DTYPES)
+@pytest.mark.parametrize("leaf", STAGING_DTYPES)
+@pytest.mark.parametrize("scale", [1.0, 4.0, 64.0])
+def test_cuda_pack_matches_plain(cuda, comm, leaf, scale):
+    """Bit for bit with ``ref.leafwise_pack``: odd leaf sizes put most
+    leaves at offsets that are not 16-byte aligned; every buffer element
+    is written (the buffer starts as NaN, through ``out=``); one launch
+    for one leaf dtype."""
+    sizes = [5, 1024, 1, 300, 77, 4096, 3, 65536, 2, 9]
+    gen = torch.Generator(device=cuda).manual_seed(len(sizes) + 1)
+    dt = getattr(torch, leaf)
+    leaves = [(torch.randn(n, generator=gen, device=cuda) * 3).to(dt) for n in sizes]
+    buf = torch.full((sum(sizes),), float("nan"), dtype=getattr(torch, comm), device=cuda)
+    before = coll_kernel.PACK_LAUNCHES
+    got = coll_kernel.pack_bucket_kernel(leaves, buf.dtype, scale=scale, out=buf)
+    torch.cuda.synchronize()
+    assert got is buf and coll_kernel.PACK_LAUNCHES == before + 1
+    want = coll_ref.leafwise_pack(leaves, buf.dtype, scale=scale)
+    assert torch.equal(_bits(buf), _bits(want))
+
+
+@pytest.mark.cuda
+def test_cuda_pack_reuses_its_layout_for_new_leaves(cuda):
+    """Two leaf dtypes, 75 leaves each, so 64 + 11 a dtype: 4 launches.
+    The bucket's layout is built once and serves the same leaves again
+    and new leaves of the same dtypes and sizes (new pointers, as the
+    training loop's ``.grad`` tensors are), and the unpack of the same
+    bucket; every call is right, and refusals still raise."""
+    built = coll_kernel.LAYOUTS_BUILT
+    sizes = [int(n) for n in np.random.default_rng(5).integers(1, 5000, 150)]
+    dts = [torch.float32, torch.bfloat16] * 75
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for _ in range(2):
+        leaves = [torch.randn(n, generator=gen, device=cuda).to(d) for n, d in zip(sizes, dts)]
+        want = coll_ref.leafwise_pack(leaves, torch.float32)
+        for _ in range(2):
+            buf = torch.full((sum(sizes),), float("nan"), device=cuda)
+            before = coll_kernel.PACK_LAUNCHES
+            coll_kernel.pack_bucket_kernel(leaves, torch.float32, out=buf)
+            torch.cuda.synchronize()
+            assert coll_kernel.PACK_LAUNCHES == before + 4
+            assert torch.equal(_bits(buf), _bits(want))
+    assert coll_kernel.LAYOUTS_BUILT == built + 1
+    coll_kernel.unpack_bucket_kernel(buf, [torch.empty_like(t) for t in leaves])
+    assert coll_kernel.LAYOUTS_BUILT == built + 1      # the same layout, the other way
+    with pytest.raises(ValueError, match="leaf 3"):
+        coll_kernel.pack_bucket_kernel(leaves[:3] + [leaves[3].cpu()] + leaves[4:],
+                                       torch.float32)
+    with pytest.raises(ValueError, match="out must be"):
+        coll_kernel.pack_bucket_kernel(leaves, torch.float32, out=buf[1:])
+
+
+def _tie_peers(g: int, k: int, scale: float, seed: int) -> np.ndarray:
+    """(g, k·256) f32, one row a peer at ``scale`` times a factor of its
+    own, each with a zero block and the blocks of exact .5 ties."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((g, k, 256)) * scale
+         * rng.uniform(0.5, 2.0, (g, 1, 1))).astype(np.float32)
+    x[:, 0] = 0.0
+    x[:, 1] = np.clip(np.arange(-127, 129), None, 126) + 0.5
+    x[:, 1, 0] = 127.0
+    x[:, 2] = 2 * (np.arange(256) % 254 - 127) + 1
+    x[:, 2, 0] = -254.0
+    return x.reshape(g, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_cuda_dequantize_sum_matches_plain(cuda, g, scale):
+    """The peer-sum entry bit for bit with the plain version (dequantize,
+    then the adds in peer order), into an output started as NaN; one
+    launch a call."""
+    x = torch.from_numpy(_tie_peers(g, 37, scale, seed=g)).to(cuda)
+    q, s = quant_kernel.quantize_blocks_kernel(x.reshape(-1, 256))
+    q, s = q.view(g, -1), s.view(g, -1)
+    out = torch.full((q.shape[1],), float("nan"), device=cuda)
+    before = quant_kernel.DEQUANTIZE_SUM_LAUNCHES
+    got = quant_kernel.dequantize_sum_blocks_kernel(q, s, out=out)
+    via_ops = quant_ops.dequantize_sum_blocks(q.reshape(-1), s.reshape(-1), g)
+    torch.cuda.synchronize()
+    assert got is out and quant_kernel.DEQUANTIZE_SUM_LAUNCHES == before + 2
+    want = quant_ref.dequantize_sum_ref(q, s)
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.equal(_bits(via_ops), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [1, 7, 64, 1024, 9216])
+def test_cuda_dequantize_matches_plain(cuda, n_blocks):
+    """The dequantize alone, bit for bit, into an output started as NaN
+    (a flat grid of 16-byte vectors: n_blocks not a multiple of a tile)."""
+    rng = np.random.default_rng(n_blocks + 1)
+    q = torch.from_numpy(rng.integers(-127, 128, (n_blocks, 256)).astype(np.int8)).to(cuda)
+    s = torch.from_numpy(np.exp(rng.normal(0, 3, n_blocks)).astype(np.float32)).to(cuda)
+    out = torch.full((n_blocks, 256), float("nan"), device=cuda)
+    before = quant_kernel.DEQUANTIZE_LAUNCHES
+    quant_kernel.dequantize_blocks_kernel(q, s, out=out)
+    torch.cuda.synchronize()
+    assert quant_kernel.DEQUANTIZE_LAUNCHES == before + 1
+    assert torch.equal(_bits(out), _bits(quant_ref.dequantize_ref(q, s)))
 
 
 @pytest.mark.cuda

@@ -10,6 +10,10 @@ as the reference's reducer runs it (under ``jax.jit``, where XLA turns
 does): an amax, that product, one IEEE division, round-half-even and one
 product round the same way in both.  The CUDA kernels are held against
 the plain versions by ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``.
+
+The peer sum (``dequantize_sum_ref``, the compressed reducer's phase 2)
+must equal the Pallas dequantize applied to each peer's shard and the
+shards added in peer order by eager ``jnp`` adds, each rounded once.
 """
 import jax
 import jax.numpy as jnp
@@ -117,3 +121,57 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.dequantize_blocks_kernel(torch.zeros(2, BLOCK, dtype=torch.int8),
                                         torch.ones(2))
+
+
+def _peers(g: int, k: int, scale: float, seed: int = 5) -> tuple[np.ndarray, np.ndarray]:
+    """g peers' shards of k blocks as the compressed reducer receives them
+    (q (g, k·256) int8, s (g, k) f32): each peer's values quantized by the
+    plain version, at ``scale`` times a factor of its own, with the zero
+    and tie blocks of ``_blocks`` on every peer."""
+    rng = np.random.default_rng(seed)
+    qs, ss = [], []
+    for p in range(g):
+        x = _blocks(k, scale * float(rng.uniform(0.5, 2.0)), seed=seed + p)
+        q, s = ref.quantize_ref(torch.from_numpy(x))
+        qs.append(q.numpy().reshape(-1))
+        ss.append(s.numpy())
+    return np.stack(qs), np.stack(ss)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_plain_peer_sum_matches_pallas_dequantize_and_eager_adds(g, scale):
+    q, s = _peers(g, 6, scale)
+    want = None
+    for p in range(g):
+        d = dequantize_blocks_kernel(jnp.asarray(q[p].reshape(-1, BLOCK)),
+                                     jnp.asarray(s[p]), interpret=True).reshape(-1)
+        want = d if want is None else want + d          # eager: one rounding an add
+    got = ref.dequantize_sum_ref(torch.from_numpy(q), torch.from_numpy(s))
+    assert got.dtype == torch.float32 and got.shape == (6 * BLOCK,)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want).view(np.uint32))
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_ops_peer_sum_on_cpu_is_the_plain_version(g):
+    """The 1-D API phase 2 calls: the peers' shards back to back."""
+    q, s = _peers(g, 3, 1.0, seed=9)
+    got = ops.dequantize_sum_blocks(torch.from_numpy(q.reshape(-1)),
+                                    torch.from_numpy(s.reshape(-1)), g)
+    want = ref.dequantize_sum_ref(torch.from_numpy(q), torch.from_numpy(s))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_peer_sum_refuses_cpu_tensors_and_ragged_shapes():
+    q, s = torch.zeros(4, 2 * BLOCK, dtype=torch.int8), torch.ones(4, 2)
+    before = kernel.DEQUANTIZE_SUM_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.dequantize_sum_blocks_kernel(q, s)
+    for bad in (torch.zeros(4, 300, dtype=torch.int8), torch.zeros(2 * BLOCK, dtype=torch.int8),
+                torch.zeros(0, BLOCK, dtype=torch.int8)):
+        with pytest.raises(ValueError, match="peers >= 1"):
+            kernel.dequantize_sum_blocks_kernel(bad, s)
+    with pytest.raises(ValueError, match="multiple of 256 x 4"):
+        ops.dequantize_sum_blocks(torch.zeros(3 * BLOCK, dtype=torch.int8), torch.ones(3), 4)
+    assert kernel.DEQUANTIZE_SUM_LAUNCHES == before
