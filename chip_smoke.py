@@ -72,9 +72,14 @@ Phases, in order; any failure raises and exits non-zero:
               CUDA IPC) against the plain rings, bit for bit: f32 and bf16,
               uni- and bidirectional, the 24 bucket sizes padded to the
               ring, c = 1 and an odd c, back to back with no host sync,
-              and on two chains (streams, rings) at once; each timed over
-              a ResNet-50 step (24 calls) with CUDA events and
-              torch.profiler beside the plain ring and the byte bound.
+              and on two chains (streams, rings) at once; then 3·K + 2
+              calls of each back to back (K message slots a direction, so
+              every slot is rewritten), the chunk alternating between the
+              largest bucket's and one element, with the stream waits
+              counted.  Each timed over a ResNet-50 step (24 calls) with
+              CUDA events, torch.profiler and the host's enqueue time
+              beside the plain ring and the byte bound, its stream waits
+              counted by the library and held to ``hier_memops``.
               Then full-width ResNet-50 at global batch 256, 1 warm-up + 2
               steps of funnel x {flat, hierarchical, hierarchical_ring}
               and concom x hierarchical_ring on pod 2 x data 2 and funnel
@@ -82,8 +87,11 @@ Phases, in order; any failure raises and exits non-zero:
               across the ranks after every step, first-step gradients
               within rtol 1e-5 of flat's, one captured bucket through
               hierarchical_ring on the kernels = through the plain rings,
-              peer-ring launches exactly as ``hier_launches`` predicts
-              and none of rows 3, 6, 7 (nor the peer sum).
+              peer-ring launches exactly as ``hier_launches`` predicts and
+              their stream waits as ``hier_memops`` does, and none of
+              rows 3, 6, 7 (nor the peer sum).  (By hand:
+              ``peer_rings_in_turns`` times another tree's rings in turns
+              with these.)
   flash       cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA) code in
               the bf16 library.  The flash-attention kernels against
               their plain version:
@@ -1121,6 +1129,18 @@ def hier_launches(sizes, reducer: str, data: int) -> dict:
     return {"rs": calls * data, "ag": calls * data}
 
 
+def hier_memops(sizes, reducer: str, data: int) -> dict:
+    """Stream memory operations the peer rings enqueue in one training
+    step on one rank: ``peer_memops`` a call, one call of each kernel a
+    bucket, bidirectional unless the bucket's chunk is one element."""
+    from repro_torch.kernels.collectives.kernel import peer_memops
+
+    if reducer != "hierarchical_ring" or data == 1:
+        return {"rs": 0, "ag": 0}
+    n = sum(peer_memops(data, -(-size // data) > 1) for size in sizes)
+    return {"rs": n, "ag": n}
+
+
 def _plain_hier(buf, comm):
     """``hierarchical_allreduce(use_ring=True)`` through the plain rings."""
     import torch.distributed as dist
@@ -1137,11 +1157,11 @@ def _plain_hier(buf, comm):
     return cr.ring_all_gather_ref(shard, comm.intra)[:n]
 
 
-def _peer_kernel_checks(sizes, layout, gen, say) -> int:
+def _peer_kernel_checks(sizes, layout, gen, say) -> dict:
     """Both peer-ring kernels against the plain rings, bit for bit: every
     bucket size (padded to the ring), c = 1 and an odd c, f32 and bf16,
     uni- and bidirectional, back to back with no host sync, then two
-    chains at once on two streams."""
+    chains at once on two streams, then ``_peer_wrap_checks``."""
     import torch.distributed as dist
 
     from repro_torch.core import dependency as dep
@@ -1155,6 +1175,8 @@ def _peer_kernel_checks(sizes, layout, gen, say) -> int:
     slot = max(lengths) // data * 4
     rings = [ck.PeerRing(comms[c].intra, slot, chain=c) for c in (0, 1)]
     intra = comms[0].intra
+    say(f"[hierarchical] peer rings on pod {pods} x data {data}: signals at "
+        f"{'system' if rings[0].system_scope else 'GPU'} scope")
     n_checks = 0
     for dt in HIER_DTYPES:
         for bidi in (True, False):
@@ -1190,12 +1212,80 @@ def _peer_kernel_checks(sizes, layout, gen, say) -> int:
         same_bits(full, cr.ring_all_gather_ref(want, intra),
                   f"peer AG two chains {layout} n={x.numel()}")
         n_checks += 2
+    n_wrap = _peer_wrap_checks(rings[0], intra, lengths, gen)
     for ring in rings:
         ring.close()
     say(f"[hierarchical] peer rings bit-exact with the plain rings in {n_checks} checks on "
         f"pod {pods} x data {data}: f32/bf16, uni/bidi, the 24 bucket sizes padded to "
-        f"{data}, c = 1 and c = 131071, back to back, and on two chains at once")
-    return n_checks
+        f"{data}, c = 1 and c = 131071, back to back, and on two chains at once; "
+        f"{n_wrap} wrap-around checks ({rings[0].slots} slots a direction); "
+        f"a ring of {rings[0].bytes} bytes a rank")
+    return {"checks": n_checks, "wrap_checks": n_wrap}
+
+
+def _peer_wrap_checks(ring, intra, lengths, gen) -> int:
+    """3·K + 2 calls of each peer-ring kernel back to back with no host
+    sync (K slots a direction, so every slot is rewritten at least three
+    times), the chunk alternating between the largest bucket's and one
+    element, f32, bidirectional: each result bit for bit against the
+    plain rings, and the stream waits enqueued exactly as predicted."""
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.collectives import ref as cr
+
+    g = ring.g
+    big = max(lengths[:-2])                    # the largest bucket, padded
+    ns = [(big, g)[i % 2] for i in range(3 * ring.slots + 2)]
+    xs = [torch.randn(n, generator=gen, device="cuda") for n in ns]
+    before = ck.stream_memops()
+    got = []
+    for x in xs:
+        shard = ck.ring_reduce_scatter_kernel(ring, x)
+        got.append((shard, ck.ring_all_gather_kernel(ring, shard)))
+    after = ck.stream_memops()
+    want = sum(ck.peer_memops(g, n // g > 1) for n in ns)
+    if {k: after[k] - before[k] for k in after} != {"rs": want, "ag": want}:
+        raise AssertionError(f"wrap-around: stream waits {before} -> {after}, "
+                             f"predicted {want} a kernel")
+    for x, (shard, full) in zip(xs, got):
+        plain = cr.ring_reduce_scatter_ref(x, intra)
+        same_bits(shard, plain, f"peer RS wrap-around g={g} n={x.numel()}")
+        same_bits(full, cr.ring_all_gather_ref(plain, intra),
+                  f"peer AG wrap-around g={g} n={x.numel()}")
+    return 2 * len(xs)
+
+
+def _peer_host_ms(sizes, layout, gen, host, reps: int = 5) -> dict:
+    """The host's time to enqueue one call of each peer-ring kernel: a
+    ResNet-50 step's 24 calls, each run started on an idle card with the
+    ranks in step, the median of ``reps`` runs.  It uses whichever
+    ``repro_torch`` this process imports, so that ``peer_rings_in_turns``
+    times every tree's host path alike."""
+    import torch.distributed as dist
+
+    from repro_torch.core import dependency as dep
+    from repro_torch.kernels.collectives import kernel as ck
+
+    pods, data = layout
+    comm = dep.pod_comms({0: dist.group.WORLD}, pods, data, torch.device("cuda"))[0]
+    xs = [torch.randn(-(-n // data) * data, generator=gen, device="cuda") for n in sizes]
+    shards = [torch.randn(x.numel() // data, generator=gen, device="cuda") for x in xs]
+    ring = ck.PeerRing(comm.intra, max(x.numel() for x in xs) // data * 4, chain=0)
+    ms = {}
+    for name, fn in (("ring_reduce_scatter_kernel",
+                      lambda: [ck.ring_reduce_scatter_kernel(ring, x) for x in xs]),
+                     ("ring_all_gather_kernel",
+                      lambda: [ck.ring_all_gather_kernel(ring, s) for s in shards])):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            dist.barrier(group=host)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3 / len(xs))
+        torch.cuda.synchronize()
+        ms[name] = sorted(times)[reps // 2]
+    ring.close()
+    return ms
 
 
 def _peer_timing(sizes, layout, gen, host, backend: str) -> dict:
@@ -1252,13 +1342,27 @@ def _peer_timing(sizes, layout, gen, host, backend: str) -> dict:
     for name, w in work.items():
         reps = 5
         dist.barrier(group=host)
+        ops0 = ck.stream_memops()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 w["kernel"]()
             torch.cuda.synchronize()
+        key = "rs" if name == "ring_reduce_scatter_kernel" else "ag"
+        memops = (ck.stream_memops()[key] - ops0[key]) // reps
+        predicted = hier_memops([x.numel() for x in xs], "hierarchical_ring", data)[key]
+        if memops != predicted:
+            raise AssertionError(f"{name}: {memops} stream waits a step, predicted "
+                                 f"{predicted}")
         device_ms = sum(_device_ms(e, self_only=True) for e in prof.key_averages()
                         if getattr(e, "device_type", None) == DeviceType.CUDA
                         and "ring_hop_kernel" in e.key) / reps
+        # each launch's device time: a context switch inside a launch (four
+        # processes time-share the card) lands in its time, not in others'
+        each = sorted(_device_ms(e) for e in prof.events()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA
+                      and "ring_hop_kernel" in e.name)
+        launch_ms = {q: each[min(int(q * len(each)), len(each) - 1)]
+                     for q in (0.0, 0.5, 0.9, 0.99)} if each else {}
         one_card = backend == "gloo"
         # the function's own bytes on a rank: reduce-scatter reads (g, c)
         # and writes (c,), all-gather reads (c,) and writes (g, c). One
@@ -1282,7 +1386,11 @@ def _peer_timing(sizes, layout, gen, host, backend: str) -> dict:
             bound_basis=basis,
             bytes=RING * rank_bytes if one_card else rank_bytes,
             hop_bytes=w["hop_bytes"],
-            launches_per_step=len(xs) * data, layout=list(layout))
+            launch_ms_quantiles=launch_ms,
+            launches_per_step=len(xs) * data, memops_per_step=memops,
+            memops_per_call=ck.peer_memops(data, True),
+            ring_bytes=ring.bytes,
+            layout=list(layout))
     ring.close()
     return rows
 
@@ -1317,11 +1425,15 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
     plan, _ = resnet50_plan()
     sizes = [b.size for b in plan.buckets]
     gen = torch.Generator(device="cuda").manual_seed(100 + rank)
-    out = {"kernel_checks": 0, "timing": {}, "runs": {}}
+    out = {"kernel_checks": 0, "wrap_checks": 0, "timing": {}, "runs": {}}
     for layout in HIER_LAYOUTS:
-        out["kernel_checks"] += _peer_kernel_checks(sizes, layout, gen, say)
+        checks = _peer_kernel_checks(sizes, layout, gen, say)
+        out["kernel_checks"] += checks["checks"]
+        out["wrap_checks"] += checks["wrap_checks"]
     for layout in HIER_LAYOUTS:
         out["timing"][str(layout)] = _peer_timing(sizes, layout, gen, host, backend)
+        for name, ms in _peer_host_ms(sizes, layout, gen, host).items():
+            out["timing"][str(layout)][name]["host_ms_per_call"] = ms
         say(f"[hierarchical] peer rings on pod {layout[0]} x data {layout[1]}: "
             + json.dumps(out["timing"][str(layout)]))
 
@@ -1345,9 +1457,12 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
         predicted = {k: v * REDUCER_STEPS for k, v in
                      hier_launches(step_sizes, reducer, data).items()}
         predicted.update(accum=0, quantize=0, dequantize=0, dequantize_sum=0)
+        memops_predicted = {k: v * REDUCER_STEPS for k, v in
+                            hier_memops(step_sizes, reducer, data).items()}
         trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
         ck.RS_LAUNCHES = ck.AG_LAUNCHES = ck.ACCUM_LAUNCHES = 0
         qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = qk.DEQUANTIZE_SUM_LAUNCHES = 0
+        memops0 = ck.stream_memops()
         for step in range(REDUCER_STEPS):
             model, opt_state, hist = trainer.run(model, opt_state, step + 1,
                                                  start_step=step)
@@ -1359,10 +1474,14 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
                     "accum": ck.ACCUM_LAUNCHES, "quantize": qk.QUANTIZE_LAUNCHES,
                     "dequantize": qk.DEQUANTIZE_LAUNCHES,
                     "dequantize_sum": qk.DEQUANTIZE_SUM_LAUNCHES}
+        memops = {k: v - memops0[k] for k, v in ck.stream_memops().items()}
         if launches != predicted:
             raise AssertionError(f"{run}: launches {launches}, predicted {predicted}")
+        if memops != memops_predicted:
+            raise AssertionError(f"{run}: stream waits {memops}, predicted "
+                                 f"{memops_predicted}")
         out["runs"][run] = {
-            "launches": launches, "buckets": len(step_sizes),
+            "launches": launches, "memops": memops, "buckets": len(step_sizes),
             "chains": len(ts.gradsync.groups),
             "first_step_ms": trainer.first_step_time * 1e3,
             "step_ms": [t * 1e3 for t in trainer.step_times],
@@ -1379,7 +1498,8 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
             comm.ring.check()
             out["captured_bucket"] = {"bucket": bucket.bucket_id, "elements": inp.numel()}
         ts.gradsync.close()
-        say(f"[hierarchical] {run}: launches {launches} (= prediction), params "
+        say(f"[hierarchical] {run}: launches {launches} and stream waits {memops} "
+            f"(= predictions), params "
             f"bit-identical on the {RING} ranks after each of {REDUCER_STEPS} steps; "
             f"first step {trainer.first_step_time * 1e3:.1f} ms, then "
             f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms")
@@ -1404,6 +1524,72 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+def _turn_rank(rank: int, workdir: str, tree: str) -> None:
+    """One rank of ``peer_rings_in_turns``: the ``_peer_timing`` of the
+    tree at ``tree`` (its own chip_smoke.py and src/) on both layouts;
+    rank 0 writes the rows to ``workdir/turn.json``."""
+    import datetime
+    import importlib.util
+
+    sys.path.insert(0, os.path.join(tree, "src"))
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_tree",
+                                                  os.path.join(tree, "chip_smoke.py"))
+    tcs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tcs)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_dist
+
+    init_dist("cuda", backend="gloo", init_method=f"file://{workdir}/store",
+              rank=rank, world_size=tcs.RING, timeout=datetime.timedelta(seconds=300))
+    host = dist.new_group(backend="gloo")
+    plan, _ = tcs.resnet50_plan()
+    sizes = [b.size for b in plan.buckets]
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    rows = {}
+    for layout in tcs.HIER_LAYOUTS:
+        rows[str(layout)] = tcs._peer_timing(sizes, layout, gen, host, "gloo")
+        for name, ms in _peer_host_ms(sizes, layout, gen, host).items():
+            rows[str(layout)][name]["host_ms_per_call"] = ms
+    if rank == 0:
+        with open(os.path.join(workdir, "turn.json"), "w") as f:
+            json.dump(rows, f)
+    dist.destroy_process_group()
+
+
+def peer_rings_in_turns(parent: str) -> list:
+    """By hand, on one card: the peer rings' step timing (``_peer_timing``,
+    both layouts, four rank processes as in ``hierarchical``) of the tree
+    at ``parent`` (a checkout of another commit, e.g. ``git archive``
+    unpacked under build/) and of this tree, in turns: parent, this,
+    this, parent.  Each tree runs its own code and builds its own
+    library; the host's enqueue time a call is measured alike for both
+    (``_peer_host_ms``).  Logs and returns each turn's rows."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    parent = os.path.abspath(parent)
+    for tree in (parent, ROOT):
+        subprocess.run([sys.executable, "-c",
+                        "import sys; sys.path.insert(0, 'src'); from "
+                        "repro_torch.kernels.collectives import kernel; kernel.build_ring_p2p()"],
+                       cwd=tree, check=True)
+    turns = []
+    for name, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                       ("parent", parent)):
+        with tempfile.TemporaryDirectory(prefix="turn-") as wd:
+            mp.spawn(_turn_rank, args=(wd, tree), nprocs=RING, join=True)
+            with open(os.path.join(wd, "turn.json")) as f:
+                rows = json.load(f)
+        turns.append({"tree": name, "rows": rows})
+        log(f"[peer turns] {name}: " + json.dumps(
+            {lay: {k: {f: r[f] for f in ("ms", "device_ms", "host_ms_per_call", "bound_ms")}
+                   for k, r in rr.items()} for lay, rr in rows.items()}))
+    log("[peer turns] " + json.dumps(turns))
+    return turns
 
 
 def phase_hierarchical(backend: str = "gloo") -> dict:
@@ -2469,6 +2655,8 @@ def main() -> int:
             "replaces": P2P_REPLACES[name],
             "launches": sum(run["launches"][counter] for run in hier_runs.values()),
             "launches_by_run": {k: run["launches"][counter] for k, run in hier_runs.items()},
+            "memops": sum(run["memops"][counter] for run in hier_runs.values()),
+            "wrap_checks": hier["wrap_checks"],
             **r, "timing_pod1x4": hier["timing"][str(HIER_LAYOUTS[1])][name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -22,46 +22,78 @@
 // Transport.  The TPU kernel copied each hop into the neighbour's VMEM by
 // RDMA.  Here each rank owns one buffer from cudaMalloc, exported with
 // cudaIpcGetMemHandle and opened by its two ring neighbours (once when
-// they are one rank, g = 2): a header of flag words, then two message
-// slots per direction.  A hop's kernel reads the message in this rank's
-// slot, adds its own chunk, and stores the sum straight into the right
-// neighbour's other slot (same card: the same HBM through another
-// process's mapping; across cards: NVLink P2P stores).
+// they are one rank, g = 2): a header of flag words, then K message slots
+// per direction (K = 2g, chosen by kernel.py).  A hop's kernel reads the
+// message in this rank's slot, adds its own chunk, and stores the sum
+// straight into the right neighbour's slot (same card: the same HBM
+// through another process's mapping; across cards: NVLink P2P stores).
+// The slots rotate across calls: a link (this rank to one neighbour)
+// numbers its messages from the ring's start, and message m goes into slot
+// m % K, so a slot is written again only K messages later.
 //
-// Signalling.  Every wait is in the stream, not on an SM: four processes
-// time-sliced on one card make a spinning kernel hold the card for a whole
-// time slice, while a stream wait lets the other contexts run (a hop then
-// costs about a context switch; PERF.md has the times).  Per direction
-// and slot k a rank keeps
-//   ready[d][k]     written by the left neighbour after its data stores:
-//                   the count of messages it has put into slot k;
-//   consumed[d][k]  written by the right neighbour after it read its slot
-//                   k: the credit before this rank writes that slot again.
-// A hop is: cuStreamWaitValue32 (GEQ) on ready of the slot it reads and on
-// the credit of the slot it writes; the kernel; cuStreamWriteValue32 of
-// consumed to the left neighbour and of ready to the right one.  The
-// writes carry the driver's system-scope fence before the store, so the
-// data stores of the kernel are visible before the flag; the reading
-// kernel loads the slot with ld.global.cg.  Counts grow across calls and
-// are never reset (cyclic GEQ), so back-to-back calls need no host sync;
-// every rank issues the same calls in the same order, which keeps the
-// counts of both ends of a slot equal.
+// Signalling.  Per neighbour, not per direction and slot, a rank's header
+// keeps two counts, both monotone across calls:
+//   ready[i]     blocks of neighbour i's hop kernels that stored into this
+//                rank's slots;
+//   consumed[i]  blocks of neighbour i's hop kernels that read this rank's
+//                messages
+// (i = 0 the right neighbour, 1 the left; at g = 2 both are one rank, and
+// index 0 carries both directions).  A hop's grid depends only on the
+// chunk's length, the directions and the dtype, so both ends of a message
+// count its blocks alike: a message is ready, or consumed, when the count
+// has grown by its blocks.  A hop enqueues, per neighbour it reads from,
+// one cuStreamWaitValue32 (GEQ, cyclic) on ready for this hop's message,
+// and per neighbour it writes to, one on consumed for the message that
+// last held the slot it writes (the credit); then its kernel.  The kernel
+// signals for itself: each block, after a block barrier and one fence,
+// adds one to the flag of each neighbour it signals (red.add, no return)
+// and to this rank's progress word.  No block waits for another, so the
+// signals add no round trip to the kernel's tail.  The fence is at GPU
+// scope when every neighbour's buffer is on this card (four processes
+// sharing it), at system scope when one is on another card (NVLink; the
+// set-up compares the cards' UUIDs): a system-scope fence costs a few
+// microseconds a block on one card.  The reading kernel loads the slot
+// with ld.global.cg.  So a call at g = 2
+// enqueues two stream operations (the credit at hop 0, the ready wait at
+// hop 1), at g > 2 up to four a hop, and no stream write at all.
+//
+// Why the credit wait no longer blocks.  A link carries at most g - 1
+// messages a call, so with K = 2g the credit of call n refers to a
+// message of call n - 2 or earlier.  The neighbour read that message
+// before it sent anything of call n - 1 (its stream is in order), and this
+// rank's hops of call n - 1 already waited, through the ring, for what
+// the neighbour sent in call n - 1.  So the ranks no longer move in
+// lockstep: one cross-process wait a hop remains, for the data itself.
+// (2(g - 1) slots would do; the two more keep the credit clear of the
+// order in which two flag stores from one neighbour land.)
+//
+// Why the waits stay in the stream.  Four processes time-sliced on one
+// card make a spinning kernel hold the card for a whole time slice, while
+// a stream wait lets the other contexts run (a hop then costs about a
+// context switch; PERF.md has the times).  A call's hops in one launch
+// with the waits on an SM suits separate cards only.
 //
 // Bounded waits.  A stream wait has no timeout of its own.  A host thread
-// per ring reads a header word that the stream bumps after each hop's
-// waits; if it stops short of the hops issued for longer than the
+// per ring reads the progress word, which every block of a hop's kernel
+// bumps; if it stops short of the blocks issued for longer than the
 // timeout, the thread records which rank, chain, call, hop and flag it
 // stuck on, sets the abort word in this rank's and its neighbours'
-// headers (the kernels then store nothing), and releases the waits by
-// writing past every expected count.  The wrapper raises with that
-// message at the next call or check; a neighbour raises at its check.
+// headers, and releases the waits by writing past every expected count.
+// A block that finds the abort word set stores no data and signals no
+// neighbour (it still bumps progress, so the watchdog sees the stream
+// drain).  The wrapper raises with that message at the next call or
+// check; a neighbour raises at its check.
 //
 // What bounds them.  No arithmetic: per hop a rank reads the received
 // message and its own chunk and writes the sum (reduce-scatter), or reads
 // and writes a chunk (all-gather).  At ResNet-50's bucket sizes the hop's
 // cross-process latency (a context switch on one card) dominates the
 // bytes; across cards the bytes each rank sends over NVLink at 450 GB/s a
-// direction.
+// direction.  So a hop's kernel is built for latency: each thread moves
+// kUnroll 16-byte vectors with every load issued before the first add, so
+// that the largest ResNet-50 chunk is one pass of the grid (one memory
+// latency), and the blocks signal with adds that return nothing, behind
+// one fence each.
 //
 // Interface: plain C, loaded with ctypes (kernel.py).  Entry points return
 // 0, a cudaError_t, kErrDriver + a CUresult, or one of the codes below.
@@ -85,10 +117,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 4;   // per direction
+constexpr int kUnroll = 4;             // 16-byte vectors of each operand in flight a thread
+constexpr int kMaxBlocks = 132 * 2;   // per direction
 constexpr int64_t kHeaderBytes = 4096;
 constexpr uint32_t kRecords = 1u << 14;
 constexpr uint32_t kReleaseAhead = 0x40000000u;
+constexpr int kMaxSignals = 4;         // ready and consumed to each of two neighbours
+constexpr int kMaxSlots = 64;          // K, a direction
 
 // dtype codes shared with kernel.py
 constexpr int kF32 = 0;
@@ -99,64 +134,74 @@ constexpr int kF16 = 2;
 constexpr int kErrEntryPoint = 90001;   // the driver's stream-memory ops are missing
 constexpr int kErrTooLarge = 90002;     // a chunk larger than a slot
 constexpr int kErrFailed = 90003;       // the ring has failed: see p2p_message
-constexpr int kErrDriver = 100000;      // + 1000 x the stream op (0 wait, 1 write) + CUresult
+constexpr int kErrDriver = 100000;      // + CUresult of cuStreamWaitValue32
 
 struct Header {
-  uint32_t ready[2][2];
-  uint32_t consumed[2][2];
+  uint32_t ready[2];       // [i]: neighbour i's blocks that stored into this rank's slots
+  uint32_t consumed[2];    // [i]: neighbour i's blocks that read this rank's messages
   uint32_t abort;          // 0, or 1 + the rank that timed out
-  uint32_t progress;       // hops of this rank whose waits passed (its own stream)
+  uint32_t progress;       // blocks of this rank's hop kernels that finished
 };
 
-typedef CUresult (*StreamValue32)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
-StreamValue32 g_wait_value = nullptr;
-StreamValue32 g_write_value = nullptr;
+typedef CUresult (*StreamWaitValue32)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
+StreamWaitValue32 g_wait_value = nullptr;
 std::once_flag g_once;
 int g_entry_rc = 0;
-
-int entry_point(const char* name, void** fn) {
-  cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-  cudaError_t e = cudaGetDriverEntryPointByVersion(name, fn, 12000, cudaEnableDefault, &q);
-#else
-  cudaError_t e = cudaGetDriverEntryPoint(name, fn, cudaEnableDefault, &q);
-#endif
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return q == cudaDriverEntryPointSuccess ? 0 : kErrEntryPoint;
-}
+std::atomic<uint64_t> g_memops[2];     // stream memory operations enqueued, per op
 
 int load_entry_points() {
   std::call_once(g_once, [] {
-    g_entry_rc = entry_point("cuStreamWaitValue32", reinterpret_cast<void**>(&g_wait_value));
-    if (!g_entry_rc)
-      g_entry_rc = entry_point("cuStreamWriteValue32", reinterpret_cast<void**>(&g_write_value));
+    cudaDriverEntryPointQueryResult q;
+    void** fn = reinterpret_cast<void**>(&g_wait_value);
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuStreamWaitValue32", fn, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuStreamWaitValue32", fn, cudaEnableDefault, &q);
+#endif
+    g_entry_rc = e != cudaSuccess ? static_cast<int>(e)
+                 : q == cudaDriverEntryPointSuccess ? 0 : kErrEntryPoint;
   });
   return g_entry_rc;
 }
 
-// What one hop waits for, kept for the watchdog's message.
+// One stream wait of a hop, kept for the watchdog's message.
+struct Wait {
+  uint32_t want;
+  uint8_t credit;         // 0: ready, 1: consumed
+  uint8_t link;           // neighbour index
+};
+
+// What one hop waits for: fixed size, written per hop.
 struct HopRecord {
   uint64_t call;
-  int op;                 // 0 reduce-scatter, 1 all-gather
-  int hop;
-  int ndir;
-  int ready_slot;         // -1: no ready wait (hop 0)
-  int credit_slot;        // -1: no credit wait (last hop)
-  uint32_t ready[2];
-  uint32_t credit[2];
+  uint32_t end;           // this rank's progress once the hop's kernel is done
+  uint16_t op;            // 0 reduce-scatter, 1 all-gather
+  uint16_t hop;
+  uint16_t n;
+  Wait wait[kMaxSignals];
+};
+
+// This rank and one neighbour: messages and their blocks, each way.
+struct Link {
+  uint64_t sent = 0, sent_blocks = 0;      // written to the neighbour
+  uint64_t recvd = 0, recvd_blocks = 0;    // read from the neighbour
+  uint64_t sent_end[kMaxSlots] = {};       // sent_blocks after message m, at m % K
 };
 
 struct Ring {
-  int device = 0, g = 0, rank = 0, chain = 0;
+  int device = 0, g = 0, rank = 0, chain = 0, slots = 0;
   int64_t slot_bytes = 0;
   double timeout_s = 0;
   char* local = nullptr;
-  char* peer[2] = {nullptr, nullptr};   // [d]: right neighbour of direction d
+  char* peer[2] = {nullptr, nullptr};   // [i]: neighbour i (0 right, 1 left)
   int n_opened = 0;
   char* opened[2] = {nullptr, nullptr};
-  uint32_t writes[2][2] = {};           // messages written into peer[d]'s slot k
+  bool sys = false;                     // a neighbour's buffer is on another card
+  Link links[2];                        // [i]: neighbour i
   uint64_t calls = 0;
-  std::atomic<uint32_t> issued{0};         // hops enqueued
+  uint32_t blocks = 0;                  // this rank's hop blocks enqueued (cyclic)
+  std::atomic<uint32_t> issued{0};      // hops enqueued
   HopRecord* records = nullptr;
   cudaStream_t aux = nullptr;
   cudaEvent_t last = nullptr;
@@ -170,8 +215,21 @@ struct Ring {
 
 Header* header(char* base) { return reinterpret_cast<Header*>(base); }
 
-char* slot(const Ring& R, char* base, int d, int k) {
-  return base + kHeaderBytes + static_cast<int64_t>(d * 2 + k) * R.slot_bytes;
+// The index in this rank's header of the neighbour that direction d sends
+// to (d) or receives from (1 - d): at g = 2 both neighbours are index 0.
+int side(const Ring& R, int i) { return R.g == 2 ? 0 : i; }
+
+// This rank's index in neighbour i's header: its left neighbour's right.
+int mirror(const Ring& R, int i) { return R.g == 2 ? 0 : 1 - i; }
+
+int neighbour_rank(const Ring& R, int i) {
+  return ((R.rank + (i == 0 ? 1 : -1)) % R.g + R.g) % R.g;
+}
+
+template <typename T>
+T* slot(const Ring& R, char* base, int d, uint64_t message) {
+  const int64_t k = d * R.slots + static_cast<int64_t>(message % R.slots);
+  return reinterpret_cast<T*>(base + kHeaderBytes + k * R.slot_bytes);
 }
 
 CUdeviceptr dptr(const void* p) {
@@ -184,15 +242,12 @@ double now_s() {
   return ts.tv_sec + ts.tv_nsec * 1e-9;
 }
 
-int wait_geq(cudaStream_t s, const uint32_t* word, uint32_t v) {
+int wait_geq(cudaStream_t s, const uint32_t* word, uint32_t v, int op) {
   const CUresult r = g_wait_value(reinterpret_cast<CUstream>(s), dptr(word), v,
                                   CU_STREAM_WAIT_VALUE_GEQ);
-  return r == CUDA_SUCCESS ? 0 : kErrDriver + static_cast<int>(r);
-}
-
-int write_value(cudaStream_t s, uint32_t* word, uint32_t v) {
-  const CUresult r = g_write_value(reinterpret_cast<CUstream>(s), dptr(word), v, 0);
-  return r == CUDA_SUCCESS ? 0 : kErrDriver + 1000 + static_cast<int>(r);
+  if (r != CUDA_SUCCESS) return kErrDriver + static_cast<int>(r);
+  g_memops[op].fetch_add(1, std::memory_order_relaxed);
+  return 0;
 }
 
 // ------------------------------------------------------------------ kernel
@@ -215,6 +270,28 @@ __device__ __forceinline__ T add(T a, T b) {
   return from_f32<T>(to_f32(a) + to_f32(b));
 }
 
+// A release fence: what this thread did before it (and, through a block
+// barrier before it, its block) is ordered before what it does after it,
+// for every thread of the card (gpu) or of the system, other cards
+// included (sys).  Followed by relaxed adds, it makes them release adds.
+__device__ __forceinline__ void fence(bool sys) {
+  if (sys)
+    asm volatile("fence.acq_rel.sys;" ::: "memory");
+  else
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void add_one(uint32_t* p, bool sys) {
+  if (sys)
+    asm volatile("red.relaxed.sys.add.u32 [%0], 1;" ::"l"(p) : "memory");
+  else
+    asm volatile("red.relaxed.gpu.add.u32 [%0], 1;" ::"l"(p) : "memory");
+}
+
+__device__ __forceinline__ uint32_t load_volatile(const uint32_t* p) {
+  return *reinterpret_cast<const volatile uint32_t*>(p);
+}
+
 // One direction's part of a hop: v = recv (+ own), or v = own; stored to
 // dst0 and, if set, dst1.  recv is this rank's slot, written by another
 // process or card: loaded at L2 (.cg), never from a stale L1 line.
@@ -228,48 +305,81 @@ struct Seg {
   int vec;
 };
 
+// What every block of a hop adds one to: the neighbours' flags, then this
+// rank's progress word.
+struct Signals {
+  uint32_t* word[kMaxSignals];
+  int n;
+  int sys;
+  const uint32_t* abort;
+  uint32_t* progress;
+};
+
 template <typename T>
 struct HopArgs {
   Seg<T> seg[2];
-  const uint32_t* abort;
+  Signals sig;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ring_hop_kernel(HopArgs<T> args) {
-  if (*reinterpret_cast<const volatile uint32_t*>(args.abort)) return;
-  const Seg<T> sg = blockIdx.y == 0 ? args.seg[0] : args.seg[1];
-  constexpr int kV = 16 / sizeof(T);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t nv = sg.vec ? sg.n / kV : 0;
-  for (int64_t i = tid; i < nv; i += stride) {
-    uint4 v;
-    if (sg.recv) {
-      v = __ldcg(reinterpret_cast<const uint4*>(sg.recv) + i);
-      if (sg.own) {
-        const uint4 o = reinterpret_cast<const uint4*>(sg.own)[i];
-        T* pv = reinterpret_cast<T*>(&v);
-        const T* po = reinterpret_cast<const T*>(&o);
+  const Signals& sig = args.sig;
+  const bool aborted = load_volatile(sig.abort) != 0;
+  if (!aborted) {
+    const Seg<T> sg = blockIdx.y == 0 ? args.seg[0] : args.seg[1];
+    constexpr int kV = 16 / sizeof(T);
+    constexpr int64_t kTile = static_cast<int64_t>(kThreads) * kUnroll;
+    const uint4* recv = reinterpret_cast<const uint4*>(sg.recv);
+    const uint4* own = reinterpret_cast<const uint4*>(sg.own);
+    const int64_t nv = sg.vec ? sg.n / kV : 0;
+    // a tile of kUnroll vectors a thread: every load issued before the
+    // first add, so that a tile costs one memory latency
+    for (int64_t base = blockIdx.x * kTile; base < nv; base += gridDim.x * kTile) {
+      uint4 v[kUnroll], o[kUnroll];
 #pragma unroll
-        for (int j = 0; j < kV; ++j) pv[j] = add(pv[j], po[j]);
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t i = base + u * kThreads + threadIdx.x;
+        if (i < nv) {
+          v[u] = recv ? __ldcg(recv + i) : own[i];
+          if (recv && own) o[u] = own[i];
+        }
       }
-    } else {
-      v = reinterpret_cast<const uint4*>(sg.own)[i];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t i = base + u * kThreads + threadIdx.x;
+        if (i >= nv) continue;
+        if (recv && own) {
+          T* pv = reinterpret_cast<T*>(&v[u]);
+          const T* po = reinterpret_cast<const T*>(&o[u]);
+#pragma unroll
+          for (int j = 0; j < kV; ++j) pv[j] = add(pv[j], po[j]);
+        }
+        reinterpret_cast<uint4*>(sg.dst0)[i] = v[u];
+        if (sg.dst1) reinterpret_cast<uint4*>(sg.dst1)[i] = v[u];
+      }
     }
-    reinterpret_cast<uint4*>(sg.dst0)[i] = v;
-    if (sg.dst1) reinterpret_cast<uint4*>(sg.dst1)[i] = v;
-  }
-  for (int64_t i = nv * kV + tid; i < sg.n; i += stride) {
-    T v;
-    if (sg.recv) {
-      v = __ldcg(sg.recv + i);
-      if (sg.own) v = add(v, sg.own[i]);
-    } else {
-      v = sg.own[i];
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    for (int64_t i = nv * kV + tid; i < sg.n; i += stride) {
+      T v;
+      if (sg.recv) {
+        v = __ldcg(sg.recv + i);
+        if (sg.own) v = add(v, sg.own[i]);
+      } else {
+        v = sg.own[i];
+      }
+      sg.dst0[i] = v;
+      if (sg.dst1) sg.dst1[i] = v;
     }
-    sg.dst0[i] = v;
-    if (sg.dst1) sg.dst1[i] = v;
   }
+  // The block's stores (and loads), ordered by the barrier and one fence
+  // before its adds, are done before a neighbour sees them counted.
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  fence(sig.sys);
+  if (!aborted)
+    for (int k = 0; k < sig.n; ++k) add_one(sig.word[k], sig.sys);
+  add_one(sig.progress, false);
 }
 
 template <typename T>
@@ -277,20 +387,23 @@ bool aligned16(const T* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// A hop's blocks a direction: from the longer direction's length and the
+// dtype alone, so that both ends of a message count the same blocks.
+int grid_x(int64_t n, int64_t elem) {
+  const int64_t vectors = (n * elem + 15) / 16;
+  const int64_t tile = static_cast<int64_t>(kThreads) * kUnroll;
+  const int64_t blocks = (vectors + tile - 1) / tile;
+  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
 template <typename T>
-cudaError_t launch_hop(HopArgs<T>& a, int ndir, cudaStream_t s) {
-  constexpr int kV = 16 / sizeof(T);
-  int64_t work = 1;
+cudaError_t launch_hop(HopArgs<T>& a, int ndir, int bx, cudaStream_t s) {
   for (int d = 0; d < ndir; ++d) {
     Seg<T>& sg = a.seg[d];
     sg.vec = aligned16(sg.recv) && aligned16(sg.own) && aligned16(sg.dst0) &&
              aligned16(sg.dst1);
-    const int64_t w = sg.vec ? sg.n / kV + sg.n % kV : sg.n;
-    if (w > work) work = w;
   }
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  ring_hop_kernel<T><<<dim3(static_cast<unsigned>(blocks), ndir), kThreads, 0, s>>>(a);
+  ring_hop_kernel<T><<<dim3(static_cast<unsigned>(bx), ndir), kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -312,121 +425,95 @@ int64_t wrap(int64_t j, int g) { return ((j % g) + g) % g; }
 
 constexpr int kSign[2] = {1, -1};
 
-// Waits of hop s, then the progress bump the watchdog reads.
-int enqueue_waits(Ring& R, const Split& sp, int op, int s, uint64_t call, cudaStream_t st) {
-  const int k = s % 2, k2 = (s + 1) % 2;
-  const bool last = s == R.g - 1;
+// One call, g hops.  op 0: x (g, c) -> out (c,), this rank's reduced
+// chunk; op 1: shard (c,) -> out (g, c).
+template <typename T>
+int ring_call(Ring& R, int op, const T* in, T* out, int64_t c, bool bidi, cudaStream_t st) {
+  const int g = R.g, r = R.rank, K = R.slots;
+  const Split sp = split(c, bidi);
+  const int bx = grid_x(sp.len[sp.ndir - 1], sizeof(T));
+  const uint32_t blocks = static_cast<uint32_t>(bx * sp.ndir);
+  const uint64_t call = ++R.calls;
   Header* mine = header(R.local);
-  HopRecord rec{call, op, s, sp.ndir, s > 0 ? k : -1, last ? -1 : k2, {0, 0}, {0, 0}};
-  int rc = 0;
-  for (int d = 0; d < sp.ndir && !rc; ++d) {
-    if (s > 0) {
-      rec.ready[d] = R.writes[d][k];
-      rc = wait_geq(st, &mine->ready[d][k], R.writes[d][k]);
-    }
-    if (!rc && !last) {
-      rec.credit[d] = R.writes[d][k2];
-      rc = wait_geq(st, &mine->consumed[d][k2], R.writes[d][k2]);
-    }
-  }
-  if (rc) return rc;
-  const uint32_t idx = R.issued.load(std::memory_order_relaxed);
-  R.records[idx % kRecords] = rec;
-  R.issued.store(idx + 1, std::memory_order_release);
-  return write_value(st, &mine->progress, idx + 1);
-}
-
-// Signals of hop s: slot k consumed (to the left neighbour), slot k2 ready
-// (to the right one).
-int enqueue_signals(Ring& R, const Split& sp, int s, cudaStream_t st) {
-  const int k = s % 2, k2 = (s + 1) % 2;
-  const bool last = s == R.g - 1;
-  int rc = 0;
-  for (int d = 0; d < sp.ndir && !rc; ++d) {
-    if (s > 0)
-      rc = write_value(st, &header(R.peer[1 - d])->consumed[d][k], R.writes[d][k]);
-    if (!rc && !last) {
-      ++R.writes[d][k2];
-      rc = write_value(st, &header(R.peer[d])->ready[d][k2], R.writes[d][k2]);
-    }
-  }
-  return rc;
-}
-
-template <typename T>
-int reduce_scatter(Ring& R, const T* x, T* out, int64_t c, bool bidi, cudaStream_t st) {
-  const int g = R.g, r = R.rank;
-  const Split sp = split(c, bidi);
-  const uint64_t call = ++R.calls;
   for (int s = 0; s < g; ++s) {
-    const int k = s % 2, k2 = (s + 1) % 2;
-    const bool last = s == g - 1;
-    int rc = enqueue_waits(R, sp, 0, s, call, st);
-    if (rc) return rc;
+    const bool first = s == 0, last = s == g - 1;
+    // the neighbours this hop reads from and writes to
+    bool reads[2] = {false, false}, writes[2] = {false, false};
+    for (int d = 0; d < sp.ndir; ++d) {
+      if (!first) reads[side(R, 1 - d)] = true;
+      if (!last) writes[side(R, d)] = true;
+    }
+    const uint32_t idx = R.issued.load(std::memory_order_relaxed);
+    HopRecord rec{call, R.blocks + blocks, static_cast<uint16_t>(op), static_cast<uint16_t>(s),
+                  0, {}};
     HopArgs<T> a{};
-    a.abort = &header(R.local)->abort;
+    Signals& sig = a.sig;
+    int rc = 0;
+    for (int i = 0; i < 2 && !rc; ++i) {
+      const Link& L = R.links[i];
+      if (reads[i]) {           // this hop's message, all its blocks
+        const uint32_t want = static_cast<uint32_t>(L.recvd_blocks + blocks);
+        rec.wait[rec.n++] = Wait{want, 0, static_cast<uint8_t>(i)};
+        rc = wait_geq(st, &mine->ready[i], want, op);
+        sig.word[sig.n++] = &header(R.peer[i])->consumed[mirror(R, i)];
+      }
+      if (!rc && writes[i]) {   // the slot's last message, L.sent - K, read
+        const uint32_t want =
+            L.sent >= static_cast<uint64_t>(K) ? static_cast<uint32_t>(L.sent_end[L.sent % K]) : 0u;
+        rec.wait[rec.n++] = Wait{want, 1, static_cast<uint8_t>(i)};
+        rc = wait_geq(st, &mine->consumed[i], want, op);
+        sig.word[sig.n++] = &header(R.peer[i])->ready[mirror(R, i)];
+      }
+    }
+    if (rc) return rc;
+    sig.sys = R.sys;
+    sig.abort = &mine->abort;
+    sig.progress = &mine->progress;
     for (int d = 0; d < sp.ndir; ++d) {
       Seg<T>& sg = a.seg[d];
-      // hop s combines chunk r - sign (s + 1): hop 0 sends chunk r - sign
-      sg.own = x + wrap(r - kSign[d] * (s + 1), g) * c + sp.lo[d];
-      sg.recv = s > 0 ? reinterpret_cast<const T*>(slot(R, R.local, d, k)) : nullptr;
-      sg.dst0 = last ? out + sp.lo[d] : reinterpret_cast<T*>(slot(R, R.peer[d], d, k2));
-      sg.dst1 = nullptr;
-      sg.n = sp.len[d];
-    }
-    rc = static_cast<int>(launch_hop(a, sp.ndir, st));
-    if (rc) return rc;
-    rc = enqueue_signals(R, sp, s, st);
-    if (rc) return rc;
-  }
-  return 0;
-}
-
-template <typename T>
-int all_gather(Ring& R, const T* shard, T* out, int64_t c, bool bidi, cudaStream_t st) {
-  const int g = R.g, r = R.rank;
-  const Split sp = split(c, bidi);
-  const uint64_t call = ++R.calls;
-  for (int s = 0; s < g; ++s) {
-    const int k = s % 2, k2 = (s + 1) % 2;
-    const bool last = s == g - 1;
-    int rc = enqueue_waits(R, sp, 1, s, call, st);
-    if (rc) return rc;
-    HopArgs<T> a{};
-    a.abort = &header(R.local)->abort;
-    for (int d = 0; d < sp.ndir; ++d) {
-      Seg<T>& sg = a.seg[d];
-      T* next = last ? nullptr : reinterpret_cast<T*>(slot(R, R.peer[d], d, k2));
-      if (s == 0) {             // own chunk into place and on to the right
+      const int64_t lo = sp.lo[d];
+      const T* recv = first ? nullptr : slot<T>(R, R.local, d, R.links[side(R, 1 - d)].recvd);
+      T* next = last ? nullptr : slot<T>(R, R.peer[d], d, R.links[side(R, d)].sent);
+      if (op == 0) {            // hop s combines chunk r - sign (s + 1)
+        sg.own = in + wrap(r - kSign[d] * (s + 1), g) * c + lo;
+        sg.recv = recv;
+        sg.dst0 = last ? out + lo : next;
+        sg.dst1 = nullptr;
+      } else if (first) {       // own chunk into place and on to the neighbour
         sg.recv = nullptr;
-        sg.own = shard + sp.lo[d];
-        sg.dst0 = out + static_cast<int64_t>(r) * c + sp.lo[d];
+        sg.own = in + lo;
+        sg.dst0 = out + static_cast<int64_t>(r) * c + lo;
         sg.dst1 = next;
       } else {                  // hop s delivers chunk r - sign s
-        sg.recv = reinterpret_cast<const T*>(slot(R, R.local, d, k));
+        sg.recv = recv;
         sg.own = nullptr;
-        sg.dst0 = out + wrap(r - kSign[d] * s, g) * c + sp.lo[d];
+        sg.dst0 = out + wrap(r - kSign[d] * s, g) * c + lo;
         sg.dst1 = next;
       }
       sg.n = sp.len[d];
     }
-    rc = static_cast<int>(launch_hop(a, sp.ndir, st));
+    rc = static_cast<int>(launch_hop(a, sp.ndir, bx, st));
     if (rc) return rc;
-    rc = enqueue_signals(R, sp, s, st);
-    if (rc) return rc;
+    for (int i = 0; i < 2; ++i) {
+      Link& L = R.links[i];
+      if (reads[i]) {
+        ++L.recvd;
+        L.recvd_blocks += blocks;
+      }
+      if (writes[i]) {
+        L.sent_blocks += blocks;
+        L.sent_end[L.sent % K] = L.sent_blocks;
+        ++L.sent;
+      }
+    }
+    R.blocks += blocks;
+    R.records[idx % kRecords] = rec;
+    R.issued.store(idx + 1, std::memory_order_release);
   }
   return 0;
 }
 
 // --------------------------------------------------------------- watchdog
-
-uint32_t release_value(const Ring& R) {
-  uint32_t m = 0;
-  for (int d = 0; d < 2; ++d)
-    for (int k = 0; k < 2; ++k)
-      if (R.writes[d][k] > m) m = R.writes[d][k];
-  return m + kReleaseAhead;
-}
 
 void set_abort(Ring& R, char* base, uint32_t code) {
   cudaMemcpyAsync(&header(base)->abort, &code, sizeof(code), cudaMemcpyHostToDevice, R.aux);
@@ -434,9 +521,13 @@ void set_abort(Ring& R, char* base, uint32_t code) {
 
 // Write past every expected count so that the stalled waits pass.
 void release_waits(Ring& R) {
-  uint32_t flags[8];
-  const uint32_t v = release_value(R);
-  for (uint32_t& f : flags) f = v;
+  uint64_t m = 0;
+  for (const Link& L : R.links) {
+    m = L.sent_blocks > m ? L.sent_blocks : m;
+    m = L.recvd_blocks > m ? L.recvd_blocks : m;
+  }
+  uint32_t flags[4];   // ready[2], consumed[2]
+  for (uint32_t& f : flags) f = static_cast<uint32_t>(m) + kReleaseAhead;
   cudaMemcpyAsync(R.local, flags, sizeof(flags), cudaMemcpyHostToDevice, R.aux);
   cudaStreamSynchronize(R.aux);
 }
@@ -452,43 +543,44 @@ void time_out(Ring& R, uint32_t hop_index, double waited) {
                    waited, R.rank, R.g, R.chain, h.hop,
                    h.op == 0 ? "reduce-scatter" : "all-gather",
                    static_cast<unsigned long long>(h.call));
-  for (int d = 0; d < h.ndir && n < static_cast<int>(sizeof(R.message)); ++d) {
-    const int left = static_cast<int>(wrap(R.rank - kSign[d], R.g));
-    const int right = static_cast<int>(wrap(R.rank + kSign[d], R.g));
-    if (h.ready_slot >= 0 && n < static_cast<int>(sizeof(R.message)))
-      n += snprintf(R.message + n, sizeof(R.message) - n,
-                    " dir %d ready[%d] from rank %d: want >= %u, holds %u;", d,
-                    h.ready_slot, left, h.ready[d], seen.ready[d][h.ready_slot]);
-    if (h.credit_slot >= 0 && n < static_cast<int>(sizeof(R.message)))
-      n += snprintf(R.message + n, sizeof(R.message) - n,
-                    " dir %d credit[%d] from rank %d: want >= %u, holds %u;", d,
-                    h.credit_slot, right, h.credit[d], seen.consumed[d][h.credit_slot]);
+  for (int k = 0; k < h.n && n < static_cast<int>(sizeof(R.message)); ++k) {
+    const Wait& w = h.wait[k];
+    n += snprintf(R.message + n, sizeof(R.message) - n,
+                  " %s from rank %d: want >= %u, holds %u;", w.credit ? "credit" : "ready",
+                  neighbour_rank(R, w.link), w.want,
+                  w.credit ? seen.consumed[w.link] : seen.ready[w.link]);
   }
   const uint32_t code = 1u + static_cast<uint32_t>(R.rank);
   set_abort(R, R.local, code);
-  set_abort(R, R.peer[0], code);
-  if (R.peer[1] != R.peer[0]) set_abort(R, R.peer[1], code);
+  for (int i = 0; i < R.n_opened; ++i) set_abort(R, R.opened[i], code);
   cudaStreamSynchronize(R.aux);
   R.failed.store(1, std::memory_order_release);
+}
+
+// Whether progress (cyclic) has reached a hop's end.
+bool reached(uint32_t progress, uint32_t end) {
+  return static_cast<int32_t>(progress - end) >= 0;
 }
 
 void* watchdog_main(void* arg) {
   Ring& R = *static_cast<Ring*>(arg);
   cudaSetDevice(R.device);
-  uint32_t seen = 0;
+  uint32_t done = 0;          // hops whose kernel finished
+  uint32_t seen = 0;          // the progress word at the last change
   double since = now_s();
   while (!R.stop.load(std::memory_order_acquire)) {
     usleep(5000);
     const uint32_t issued = R.issued.load(std::memory_order_acquire);
-    if (issued == seen && !R.failed.load(std::memory_order_acquire)) {
-      since = now_s();     // nothing issued since the last poll found it all passed
+    if (issued == done && !R.failed.load(std::memory_order_acquire)) {
+      since = now_s();     // nothing issued since the last poll found it all done
       continue;
     }
     uint32_t passed = 0;
     cudaMemcpyAsync(&passed, &header(R.local)->progress, sizeof(passed),
                     cudaMemcpyDeviceToHost, R.aux);
     cudaStreamSynchronize(R.aux);
-    if (passed == issued) {
+    while (done != issued && reached(passed, R.records[done % kRecords].end)) ++done;
+    if (done == issued) {
       seen = passed;
       since = now_s();
       continue;
@@ -503,7 +595,7 @@ void* watchdog_main(void* arg) {
       continue;
     }
     if (now_s() - since > R.timeout_s) {
-      time_out(R, passed, now_s() - since);
+      time_out(R, done, now_s() - since);
       release_waits(R);
     }
   }
@@ -522,15 +614,22 @@ int dispatch(int dtype, F&& f) {
 
 int element_size(int dtype) { return dtype == kF32 ? 4 : 2; }
 
-int begin_call(Ring& R, int64_t c, int dtype, void* stream) {
+int run(void* ring, int op, const void* in, void* out, int64_t c, int dtype, int bidi,
+        void* stream) {
+  Ring& R = *static_cast<Ring*>(ring);
   if (R.failed.load(std::memory_order_acquire)) return kErrFailed;
-  if (c < 1 || dtype < kF32 || dtype > kF16)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1 || dtype < kF32 || dtype > kF16) return static_cast<int>(cudaErrorInvalidValue);
   if (c * element_size(dtype) > R.slot_bytes) return kErrTooLarge;
-  return static_cast<int>(cudaSetDevice(R.device));
-}
-
-int end_call(Ring& R, cudaStream_t st) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (!e && cur != R.device) e = cudaSetDevice(R.device);
+  if (e) return static_cast<int>(e);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int rc = dispatch(dtype, [&](auto t) {
+    using T = decltype(t);
+    return ring_call<T>(R, op, static_cast<const T*>(in), static_cast<T*>(out), c, bidi != 0, st);
+  });
+  if (rc) return rc;
   R.any_call = true;
   return static_cast<int>(cudaEventRecord(R.last, st));
 }
@@ -539,11 +638,12 @@ int end_call(Ring& R, cudaStream_t st) {
 
 extern "C" {
 
-// Allocate this rank's buffer (header + 2 directions x 2 slots of
-// slot_bytes) and start its watchdog; write the IPC handle (64 bytes).
-int p2p_create(int device, int g, int rank, int chain, int64_t slot_bytes,
+// Allocate this rank's buffer (header + 2 directions x slots x slot_bytes)
+// and start its watchdog; write the IPC handle (64 bytes).
+int p2p_create(int device, int g, int rank, int chain, int64_t slot_bytes, int slots,
                double timeout_s, void** out, void* handle) {
-  if (g < 2 || rank < 0 || rank >= g || slot_bytes < 1 || timeout_s <= 0)
+  if (g < 2 || rank < 0 || rank >= g || slot_bytes < 1 || slots < 1 || slots > kMaxSlots ||
+      timeout_s <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int rc = load_entry_points();
   if (rc) return rc;
@@ -554,10 +654,11 @@ int p2p_create(int device, int g, int rank, int chain, int64_t slot_bytes,
   R->g = g;
   R->rank = rank;
   R->chain = chain;
+  R->slots = slots;
   R->slot_bytes = (slot_bytes + 255) / 256 * 256;
   R->timeout_s = timeout_s;
   R->records = new HopRecord[kRecords]();
-  const int64_t bytes = kHeaderBytes + 4 * R->slot_bytes;
+  const int64_t bytes = kHeaderBytes + 2 * static_cast<int64_t>(slots) * R->slot_bytes;
   if ((e = cudaMalloc(reinterpret_cast<void**>(&R->local), bytes)) ||
       (e = cudaMemset(R->local, 0, kHeaderBytes)) ||
       (e = cudaStreamCreateWithFlags(&R->aux, cudaStreamNonBlocking)) ||
@@ -577,8 +678,10 @@ int p2p_create(int device, int g, int rank, int chain, int64_t slot_bytes,
 }
 
 // Open the neighbours' buffers: right of the clockwise ring (rank + 1) and
-// left (rank - 1); one peer, opened once, in a ring of two.
-int p2p_open(void* ring, const void* right_handle, const void* left_handle) {
+// left (rank - 1); one peer, opened once, in a ring of two.  sys: a
+// neighbour's buffer is on another card, so the hop kernels fence and
+// signal at system scope (else at GPU scope).
+int p2p_open(void* ring, const void* right_handle, const void* left_handle, int sys) {
   Ring& R = *static_cast<Ring*>(ring);
   cudaError_t e = cudaSetDevice(R.device);
   if (e) return static_cast<int>(e);
@@ -595,37 +698,28 @@ int p2p_open(void* ring, const void* right_handle, const void* left_handle) {
   }
   R.peer[0] = R.opened[0];
   R.peer[1] = R.opened[n - 1];
+  R.sys = sys != 0;
   return 0;
 }
 
 // x (g, c) -> out (c,): this rank's reduced chunk.  g launches.
 int p2p_reduce_scatter(void* ring, const void* x, void* out, int64_t c, int dtype,
                        int bidi, void* stream) {
-  Ring& R = *static_cast<Ring*>(ring);
-  int rc = begin_call(R, c, dtype, stream);
-  if (rc) return rc;
-  const auto st = static_cast<cudaStream_t>(stream);
-  rc = dispatch(dtype, [&](auto t) {
-    using T = decltype(t);
-    return reduce_scatter<T>(R, static_cast<const T*>(x), static_cast<T*>(out), c,
-                             bidi != 0, st);
-  });
-  return rc ? rc : end_call(R, st);
+  return run(ring, 0, x, out, c, dtype, bidi, stream);
 }
 
 // shard (c,) -> out (g, c): every rank's chunk.  g launches.
 int p2p_all_gather(void* ring, const void* shard, void* out, int64_t c, int dtype,
                    int bidi, void* stream) {
-  Ring& R = *static_cast<Ring*>(ring);
-  int rc = begin_call(R, c, dtype, stream);
-  if (rc) return rc;
-  const auto st = static_cast<cudaStream_t>(stream);
-  rc = dispatch(dtype, [&](auto t) {
-    using T = decltype(t);
-    return all_gather<T>(R, static_cast<const T*>(shard), static_cast<T*>(out), c,
-                         bidi != 0, st);
-  });
-  return rc ? rc : end_call(R, st);
+  return run(ring, 1, shard, out, c, dtype, bidi, stream);
+}
+
+// The stream memory operations this process's rings have enqueued:
+// out[0] by reduce-scatters, out[1] by all-gathers.
+int p2p_memops(int64_t* out) {
+  for (int op = 0; op < 2; ++op)
+    out[op] = static_cast<int64_t>(g_memops[op].load(std::memory_order_relaxed));
+  return 0;
 }
 
 // Wait for the ring's last call (a stalled wait is released by the

@@ -11,7 +11,10 @@ launch), ``ring_reduce_scatter_kernel``/
 ``ring_all_gather_tpu``; each source says what it replaces, what bounds
 it and how it is laid out.  The rings run over a ``PeerRing``: one
 rank's buffer of an intra-pod group, opened by its ring neighbours
-through CUDA IPC, so the group's ranks must share one host.
+through CUDA IPC, so the group's ranks must share one host.  A ring call
+enqueues ``peer_memops(g, bidirectional)`` stream waits and g launches,
+whose blocks signal the neighbours themselves; ``stream_memops`` counts
+the waits the library enqueued.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface at first use (``kernels/_build.py``)
@@ -33,8 +36,8 @@ pointers and lengths into a preallocated buffer (one a thread) with one
 leaves' dtypes and sizes and the buffer's dtype, so that a call packs
 only the leaves' pointers — the training loop's ``.grad`` tensors are
 new each step.  Each tensor is checked by one condition; the detailed
-checks run only to word a refusal.  All read the current stream's raw
-handle without building a ``Stream``.
+checks run only to word a refusal (the peer rings' input likewise).
+All read the current stream's raw handle without building a ``Stream``.
 """
 from __future__ import annotations
 
@@ -77,6 +80,7 @@ _P2P_ERRORS = {90001: "the driver's stream memory operations are missing",
                90002: "a chunk larger than the ring's message slots",
                90003: "the ring has failed"}
 _P2P_DRIVER = 100000
+_P2P_HEADER_BYTES = 4096   # kHeaderBytes
 
 
 def build() -> Path:
@@ -101,16 +105,18 @@ def build_ring_p2p() -> Path:
 def _p2p_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_ring_p2p()))
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.p2p_create.argtypes = [I, I, I, I, I64, ctypes.c_double,
+    lib.p2p_create.argtypes = [I, I, I, I, I64, I, ctypes.c_double,
                                ctypes.POINTER(P), ctypes.c_char_p]
-    lib.p2p_open.argtypes = [P, ctypes.c_char_p, ctypes.c_char_p]
+    lib.p2p_open.argtypes = [P, ctypes.c_char_p, ctypes.c_char_p, I]
     for fn in (lib.p2p_reduce_scatter, lib.p2p_all_gather):
         fn.argtypes = [P, P, P, I64, I, I, P]   # ring, in, out, c, dtype, bidi, stream
     for fn in (lib.p2p_check, lib.p2p_message):
         fn.argtypes = [P, ctypes.c_char_p, I]
     lib.p2p_destroy.argtypes = [P]
+    lib.p2p_memops.argtypes = [ctypes.POINTER(I64)]
     for fn in (lib.p2p_create, lib.p2p_open, lib.p2p_reduce_scatter,
-               lib.p2p_all_gather, lib.p2p_check, lib.p2p_message, lib.p2p_destroy):
+               lib.p2p_all_gather, lib.p2p_check, lib.p2p_message, lib.p2p_destroy,
+               lib.p2p_memops):
         fn.restype = I
     return lib
 
@@ -122,9 +128,7 @@ class PeerRingError(RuntimeError):
 
 def _p2p_error(rc: int, what: str, msg: bytes = b"") -> PeerRingError:
     if rc >= _P2P_DRIVER:
-        op, err = divmod(rc - _P2P_DRIVER, 1000)
-        why = (f"CUDA driver error {err} in "
-               f"{('cuStreamWaitValue32', 'cuStreamWriteValue32')[min(op, 1)]}")
+        why = f"CUDA driver error {rc - _P2P_DRIVER} in cuStreamWaitValue32"
     else:
         why = _P2P_ERRORS.get(rc, f"CUDA error {rc}")
     detail = msg.decode(errors="replace").strip()
@@ -140,16 +144,17 @@ class PeerRing:
     """This rank's peer buffer of one intra-pod ring (one per chain).
 
     Collective over ``group`` (every rank of it constructs one, in the
-    same order): each rank allocates a header of flag words and two
-    message slots per direction of ``slot_bytes`` each (``cudaMalloc``,
-    not PyTorch's allocator, whose IPC handle names a whole segment),
-    the 64-byte IPC handles travel over ``group`` with the host names,
-    and each rank opens its two ring neighbours' buffers.  Ranks on
-    different hosts, or a handle that does not open, raise: nothing
-    falls back to another transport.  ``timeout_s`` bounds every wait
-    of the ring's streams.  ``close()`` (collective) frees the buffers;
-    a ring that is garbage-collected unclosed frees its own after its
-    work, without waiting for the neighbours.
+    same order): each rank allocates a header of flag words and
+    ``peer_slots(g)`` message slots per direction of ``slot_bytes`` each,
+    ``bytes`` in all (``cudaMalloc``, not PyTorch's allocator, whose IPC
+    handle names a whole segment), the 64-byte IPC handles travel over
+    ``group`` with the host names, and each rank opens its two ring
+    neighbours' buffers.  Ranks on different hosts, or a handle that
+    does not open, raise: nothing falls back to another transport.
+    ``timeout_s`` bounds every wait of the ring's streams.  ``close()``
+    (collective) frees the buffers; a ring that is garbage-collected
+    unclosed frees its own after its work, without waiting for the
+    neighbours.
     """
 
     def __init__(self, group: dist.ProcessGroup, slot_bytes: int, *,
@@ -162,25 +167,32 @@ class PeerRing:
         if self.g < 2:
             raise ValueError("a peer ring needs at least two ranks")
         lib = _p2p_lib()
+        self.slots = peer_slots(self.g)
         ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(64)
-        rc = lib.p2p_create(self.device.index, self.g, self.rank, chain,
-                            int(slot_bytes), float(timeout_s), ctypes.byref(ptr), handle)
+        rc = lib.p2p_create(self.device.index, self.g, self.rank, chain, int(slot_bytes),
+                            self.slots, float(timeout_s), ctypes.byref(ptr), handle)
         if rc:
             raise _p2p_error(rc, f"peer ring set-up (rank {self.rank}, chain {chain})")
         self._ptr = ptr.value
         self._finalizer = weakref.finalize(self, _free_ring, lib, self._ptr)
         self.slot_bytes = int(slot_bytes)
-        mine = (socket.gethostname(), handle.raw)
+        # the header's page, then the slots, each rounded up to 256 bytes
+        self.bytes = _P2P_HEADER_BYTES + 2 * self.slots * (-(-self.slot_bytes // 256) * 256)
+        card = str(torch.cuda.get_device_properties(self.device).uuid)
+        mine = (socket.gethostname(), card, handle.raw)
         every = [None] * self.g
         dist.all_gather_object(every, mine, group=group)
         right, left = every[(self.rank + 1) % self.g], every[(self.rank - 1) % self.g]
-        for who, (host, _) in ((self.rank + 1, right), (self.rank - 1, left)):
+        for who, (host, _, _) in ((self.rank + 1, right), (self.rank - 1, left)):
             if host != mine[0]:
                 raise PeerRingError(
                     f"peer ring set-up: rank {who % self.g} of the intra-pod group is "
                     f"on host {host!r}, this rank on {mine[0]!r}; a pod's ranks "
                     f"must share one host")
-        rc = lib.p2p_open(self._ptr, right[1], left[1])
+        # the hop kernels fence and signal at system scope when a neighbour's
+        # buffer is on another card, at GPU scope when all share this one
+        self.system_scope = right[1] != card or left[1] != card
+        rc = lib.p2p_open(self._ptr, right[2], left[2], int(self.system_scope))
         if rc:
             raise _p2p_error(rc, f"peer ring set-up: opening the neighbours' buffers "
                                  f"(rank {self.rank}, chain {chain})")
@@ -215,17 +227,48 @@ class PeerRing:
             raise err
 
 
+def peer_slots(g: int) -> int:
+    """Message slots a direction of a peer ring of ``g`` ranks (K).
+
+    A link carries at most g - 1 messages a call and a slot is written
+    again K messages later, so at K = 2(g - 1) a hop's credit wait refers
+    to a message of the call before last, which the ring's ready waits of
+    the last call already show read: the wait is enqueued but does not
+    block.  K = 2g keeps two messages more of margin (csrc/ring_p2p.cu)."""
+    return 2 * g
+
+
+def peer_memops(g: int, bidirectional: bool) -> int:
+    """Stream memory operations (``cuStreamWaitValue32``) one peer-ring
+    call enqueues on a ring of ``g`` ranks: per hop, one ready wait per
+    neighbour it reads from (not at hop 0) and one credit wait per
+    neighbour it writes to (not at the last hop).  Both directions share
+    the one neighbour at g = 2.  A chunk of one element runs one
+    direction: pass ``bidirectional=False`` for it."""
+    neighbours = 2 if bidirectional and g > 2 else 1
+    return 2 * (g - 1) * neighbours
+
+
+def stream_memops() -> dict:
+    """The stream memory operations this process's peer rings have
+    enqueued so far, by kernel: ``{"rs": n, "ag": n}``."""
+    out = (ctypes.c_int64 * 2)()
+    _p2p_lib().p2p_memops(out)
+    return {"rs": out[0], "ag": out[1]}
+
+
 def _peer_call(ring: PeerRing, fn, what: str, x: torch.Tensor, out: torch.Tensor,
                c: int, bidirectional: bool) -> None:
-    if x.device != ring.device:
-        raise ValueError(f"{what} takes tensors on {ring.device}, got {x.device}")
-    if x.dtype not in ACCUM_DTYPE_CODES:
-        raise ValueError(f"{what} takes one of {sorted(map(str, ACCUM_DTYPE_CODES))}, "
-                         f"got {x.dtype}")
-    if x.dim() != 1 or not x.is_contiguous():
+    if (x.device != ring.device or x.dtype not in ACCUM_DTYPE_CODES or x.dim() != 1
+            or not x.is_contiguous()):
+        if x.device != ring.device:
+            raise ValueError(f"{what} takes tensors on {ring.device}, got {x.device}")
+        if x.dtype not in ACCUM_DTYPE_CODES:
+            raise ValueError(f"{what} takes one of {sorted(map(str, ACCUM_DTYPE_CODES))}, "
+                             f"got {x.dtype}")
         raise ValueError(f"{what} takes a contiguous 1-D tensor, got {tuple(x.shape)}")
     rc = fn(ring._ptr, x.data_ptr(), out.data_ptr(), c, ACCUM_DTYPE_CODES[x.dtype],
-            int(bidirectional), torch.cuda.current_stream(x.device).cuda_stream)
+            int(bidirectional), _stream(ring.device.index))
     if rc:
         raise _p2p_error(rc, f"{what} (rank {ring.rank}, chain {ring.chain})",
                          ring._message())
@@ -240,7 +283,7 @@ def ring_reduce_scatter_kernel(ring: PeerRing, x: torch.Tensor, *,
     if x.numel() % ring.g:
         raise ValueError(f"{x.numel()} elements do not split into {ring.g} chunks")
     c = x.numel() // ring.g
-    out = torch.empty(c, dtype=x.dtype, device=x.device)
+    out = x.new_empty(c)
     if c:
         _peer_call(ring, _p2p_lib().p2p_reduce_scatter, "ring_reduce_scatter_kernel",
                    x, out, c, bidirectional)
@@ -254,7 +297,7 @@ def ring_all_gather_kernel(ring: PeerRing, shard: torch.Tensor, *,
     through the neighbours' memory: g launches on the current stream."""
     global AG_LAUNCHES
     c = shard.numel()
-    out = torch.empty(c * ring.g, dtype=shard.dtype, device=shard.device)
+    out = shard.new_empty(c * ring.g)
     if c:
         _peer_call(ring, _p2p_lib().p2p_all_gather, "ring_all_gather_kernel",
                    shard, out, c, bidirectional)

@@ -213,7 +213,11 @@ def _hier(workdir: str, rank: int) -> None:
 def peer_rank(rank: int, world: int, workdir: str, case: str) -> None:
     """``check``: both peer-ring kernels against the plain rings bit for
     bit (f32, bf16, f16; uni- and bidirectional; c = 1, 37 and 131071,
-    back to back).  ``timeout``: rank 0 alone calls the reduce-scatter
+    back to back).  ``wrap``: 3·K + 2 calls of each kernel back to back
+    (K slots a direction), c alternating between 131071 and 1, so that
+    every slot is rewritten at least three times, each result bit for bit
+    against the plain rings, and the stream waits enqueued exactly as
+    ``peer_memops`` counts them.  ``timeout``: rank 0 alone calls the reduce-scatter
     on a ring whose waits run out after 2 s; every rank writes what its
     check raised to ``peer_<rank>.txt``."""
     import datetime
@@ -249,6 +253,30 @@ def peer_rank(rank: int, world: int, workdir: str, case: str) -> None:
                         assert torch.equal(bits(shard), bits(want)), (dt, bidi, x.numel())
                         want = ref.ring_all_gather_ref(want, group, bidirectional=bidi)
                         assert torch.equal(bits(full), bits(want)), (dt, bidi, x.numel())
+            ring.check()
+            ring.close()
+            with open(os.path.join(workdir, f"peer_{rank}.txt"), "w") as f:
+                f.write("ok")
+            return
+        if case == "wrap":
+            ring = kernel.PeerRing(group, 131071 * 4)
+            gen = torch.Generator(device="cuda").manual_seed(rank)
+            cs = [(131071, 1)[i % 2] for i in range(3 * ring.slots + 2)]
+            xs = [torch.randn(world * c, generator=gen, device="cuda") for c in cs]
+            before = kernel.stream_memops()
+            got = []
+            for x in xs:                          # back to back: no host sync
+                shard = kernel.ring_reduce_scatter_kernel(ring, x)
+                got.append((shard, kernel.ring_all_gather_kernel(ring, shard)))
+            after = kernel.stream_memops()
+            want_ops = sum(kernel.peer_memops(world, c > 1) for c in cs)
+            assert {k: after[k] - before[k] for k in after} == \
+                {"rs": want_ops, "ag": want_ops}, (before, after, want_ops)
+            for x, (shard, full) in zip(xs, got):
+                want = ref.ring_reduce_scatter_ref(x, group)
+                assert torch.equal(bits(shard), bits(want)), x.numel()
+                want = ref.ring_all_gather_ref(want, group)
+                assert torch.equal(bits(full), bits(want)), x.numel()
             ring.check()
             ring.close()
             with open(os.path.join(workdir, f"peer_{rank}.txt"), "w") as f:

@@ -479,11 +479,14 @@ def _spawn_peers(world: int, case: str, tmp_path) -> list[str]:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["check", "wrap"])
 @pytest.mark.parametrize("world", [2, 4])
-def test_cuda_peer_rings_match_plain(cuda, world, tmp_path):
+def test_cuda_peer_rings_match_plain(cuda, world, case, tmp_path):
     """Both peer-ring kernels against the plain rings, bit for bit, on a
-    ring of 2 and of 4 processes sharing the card."""
-    assert _spawn_peers(world, "check", tmp_path) == ["ok"] * world
+    ring of 2 and of 4 processes sharing the card; ``wrap``: enough calls
+    back to back that every message slot is rewritten three times, with
+    the stream waits counted."""
+    assert _spawn_peers(world, case, tmp_path) == ["ok"] * world
 
 
 @pytest.mark.cuda

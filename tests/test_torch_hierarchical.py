@@ -186,6 +186,19 @@ def test_hierarchical_ring_on_cuda_tensors_needs_a_peer_ring():
         ops._need(None)
 
 
+@pytest.mark.parametrize("g, bidirectional, per_call", [
+    # hop 0: a credit wait a neighbour written; middle hops: a ready wait a
+    # neighbour read and a credit wait a neighbour written; last hop: a
+    # ready wait a neighbour read.  At g = 2 both directions share the peer.
+    (2, True, 1 + 1), (2, False, 1 + 1),
+    (3, True, 2 + (2 + 2) + 2), (3, False, 1 + (1 + 1) + 1),
+    (4, True, 2 + 2 * (2 + 2) + 2), (4, False, 1 + 2 * (1 + 1) + 1)])
+def test_peer_ring_stream_waits_per_call(g, bidirectional, per_call):
+    from repro_torch.kernels.collectives import kernel
+
+    assert kernel.peer_memops(g, bidirectional) == per_call
+
+
 def test_peer_ring_kernels_refuse_cpu_tensors():
     from repro_torch.kernels.collectives import kernel
 
