@@ -127,20 +127,33 @@ Phases, in order; any failure raises and exits non-zero:
   serve_cpu_vs_gpu  the qwen3 smoke config, the same weights, greedy,
               through both engines on the CPU (plain versions) and on the
               GPU (kernel): tokens equal, prefill logits close in f32.
-  wkv         Qwen3's weights freed first.  The WKV chunk kernel against
-              its plain version on the three tests/test_kernels.py shapes
-              (one with bf16 inputs), RWKV-6 7B's prefill chunk (B 4, C 32,
-              64 heads of 64), its decode step (C 1), a short prompt (C 7)
-              and the smoke head size (N 16): tolerance 5e-4 in f32, 5e-2
-              with bf16 inputs.  Then kernel and plain times at the prefill
-              and decode shapes (CUDA events; the kernel's device time per
-              launch from torch.profiler) beside the byte bound.
+  wkv         Qwen3's weights freed first.  The WKV kernel's one-chunk
+              entry against its plain version on the three
+              tests/test_kernels.py shapes (one with bf16 inputs), RWKV-6
+              7B's prefill chunk (B 4, C 32, 64 heads of 64), its decode
+              step (C 1), a short prompt (C 7) and the smoke head size
+              (N 16): tolerance 5e-4 in f32, 5e-2 with bf16 inputs.  Then
+              its sequence entry, one launch a layer, against
+              wkv_sequence_ref: RWKV-6 7B's prefill layer (B 4, S 512,
+              chunk 32) in bf16 and in f32, a ragged S 481, S 7 below the
+              chunk (B 1: 2 column splits), the decode step (S 1) and the
+              smoke config (B 2, S 23, H 4, N 16, chunk 16); the state and
+              f32 y at atol = rtol = 5e-4, bf16 y within one bf16 rounding
+              (rtol 2^-7, atol 5e-4); one launch a call.  The prefill
+              layer also at every column split built, at B 4 and at B 1.
+              Then, at the prefill layer in bf16 and the decode step: ms a
+              layer back to back (CUDA events) for the kernel and for
+              rwkv.wkv_chunked, device ms (torch.profiler), the host's
+              enqueue time, the plain version's ms, launches a call and
+              the split, beside the bound by bytes and by operations; the
+              one-chunk entry timed at the prefill chunk and decode shapes
+              as before.
   rwkv_serve  RWKV-6 7B at full width, bf16, tp=1, random weights from a
               seeded generator on the card with the reference's constant
               leaves perturbed: the same 8 prompts through the static
               engine (RequestQueue, batch 4: 2 prefills), 32 new tokens
-              each.  WKV launches must be exactly 32 x ceil(S/32) a
-              prefill plus 32 a decode step; the continuous engine must
+              each.  WKV launches must be exactly 32 a prefill (one a
+              layer) plus 32 a decode step; the continuous engine must
               refuse the family.  Then in f32 at full width, one prompt at
               B 1: every layer's block on the kernel path against the
               plain path on the same input (1e-3), the last logits against
@@ -151,7 +164,8 @@ Phases, in order; any failure raises and exits non-zero:
               times, tokens/s, peak memory and a profile as serve's.
   rwkv_cpu_vs_gpu  the rwkv smoke config, the same weights, greedy
               through Server.generate on the CPU (plain versions) and on
-              the GPU (kernel): tokens equal, prefill logits within 1e-4.
+              the GPU (kernel): tokens equal, prefill logits within 1e-4,
+              one WKV launch a layer a prefill and a decode step.
 
 The build compiles every kernel source at once (one nvcc each, in
 parallel).  Then it prints the ``{"kernels": [...]}`` line, the card's
@@ -1577,18 +1591,32 @@ def peer_rings_in_turns(parent: str) -> list:
                         "import sys; sys.path.insert(0, 'src'); from "
                         "repro_torch.kernels.collectives import kernel; kernel.build_ring_p2p()"],
                        cwd=tree, check=True)
-    turns = []
-    for name, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
-                       ("parent", parent)):
+
+    def turn(tree):
         with tempfile.TemporaryDirectory(prefix="turn-") as wd:
             mp.spawn(_turn_rank, args=(wd, tree), nprocs=RING, join=True)
             with open(os.path.join(wd, "turn.json")) as f:
-                rows = json.load(f)
-        turns.append({"tree": name, "rows": rows})
-        log(f"[peer turns] {name}: " + json.dumps(
-            {lay: {k: {f: r[f] for f in ("ms", "device_ms", "host_ms_per_call", "bound_ms")}
-                   for k, r in rr.items()} for lay, rr in rows.items()}))
+                return json.load(f)
+
+    turns = trees_in_turns(parent, turn, "peer", brief=lambda rows: {
+        lay: {k: {f: r[f] for f in ("ms", "device_ms", "host_ms_per_call", "bound_ms")}
+              for k, r in rr.items()} for lay, rr in rows.items()})
     log("[peer turns] " + json.dumps(turns))
+    return turns
+
+
+def trees_in_turns(parent: str, turn, what: str, brief=None) -> list:
+    """``turn(tree)`` on the tree at ``parent`` (a checkout of another
+    commit, e.g. ``git archive`` unpacked under build/) and on this tree,
+    in turns: parent, this, this, parent.  Logs each turn's rows (through
+    ``brief`` where given) and returns [{"tree": ..., "rows": ...}]."""
+    parent = os.path.abspath(parent)
+    turns = []
+    for name, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                       ("parent", parent)):
+        rows = turn(tree)
+        turns.append({"tree": name, "rows": rows})
+        log(f"[{what} turns] {name}: " + json.dumps(brief(rows) if brief else rows))
     return turns
 
 
@@ -1719,6 +1747,39 @@ def device_ms_per_launch(fn, kernel_name: str, reps: int = 50) -> float:
     return sum(_device_ms(e, self_only=True) for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
                and word.search(e.key)) / reps
+
+
+def device_ms_clock_checked(fn, kernel_name: str, reps: int = 50) -> dict:
+    """``device_ms_per_launch`` of one profiled loop, with a check of the
+    profiler's clock: CUDA events around the same loop, and the span from
+    the first of its kernels to the last on the profiler's clock.  Where
+    the device runs the loop back to back, ``span_over_events`` is near 1;
+    a smaller one says that the profiler's timestamps, and so its device
+    times, read low by about that factor."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    word = re.compile(rf"(?<![A-Za-z0-9_]){kernel_name}(?![A-Za-z0-9_])")
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA and word.search(e.key)]
+    events_ms = start.elapsed_time(end)
+    span_ms = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) / 1e3
+    return dict(device_ms_per_launch=sum(e.time_range.elapsed_us() for e in kernels)
+                / 1e3 / reps, events_ms_per_launch=events_ms / reps,
+                span_over_events=span_ms / events_ms)
 
 
 def flash_sass_counts() -> dict:
@@ -2196,9 +2257,12 @@ def phase_serve_profile(params, cfg, tag: str = "serve_profile") -> dict:
                      reverse=True)[:12]
         flash_ms = sum(_device_ms(e, self_only=True) for e in kernels
                        if "flash_fwd" in e.key)
+        wkv = [e for e in kernels if "wkv_" in e.key]
         out[name] = {
             "flash_kernel_ms": flash_ms,
             "flash_share_of_kernel_ms": flash_ms / busy_ms,
+            "wkv_kernel_ms": sum(_device_ms(e, self_only=True) for e in wkv),
+            "wkv_kernel_launches": sum(e.count for e in wkv),
             "wall_ms": plain_ms,
             "wall_ms_under_profiler": prof_ms,
             "kernel_ms": busy_ms,
@@ -2249,7 +2313,7 @@ def phase_serve_cpu_vs_gpu() -> None:
 
 
 # ------------------------------------------------------------- rwkv serving
-WKV_SHAPES = (   # (B, C, H, N, dtype of r, k, v)
+WKV_SHAPES = (   # (B, C, H, N, dtype of r, k, v): the one-chunk entry
     (2, 32, 4, 64, torch.float32),      # tests/test_kernels.py
     (1, 64, 2, 64, torch.float32),
     (2, 16, 8, 64, torch.bfloat16),
@@ -2260,42 +2324,129 @@ WKV_SHAPES = (   # (B, C, H, N, dtype of r, k, v)
 )
 WKV_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}   # test_kernels.py:80
 WKV_TIMED = {"prefill": (4, 32, 64, 64), "decode": (4, 1, 64, 64)}
-WKV_LIBRARY = "none: no single PyTorch call computes a WKV chunk"
+WKV_SEQ_SHAPES = (   # (B, S, H, N, chunk, dtype of r, k, v): one launch a layer
+    (4, 512, 64, 64, 32, torch.bfloat16),   # RWKV-6 7B prefill layer (static, B 4)
+    (4, 512, 64, 64, 32, torch.float32),
+    (4, 481, 64, 64, 32, torch.bfloat16),   # a ragged last chunk
+    (1, 7, 64, 64, 32, torch.float32),      # below the chunk; B 1: 2 column splits
+    (4, 1, 64, 64, 32, torch.bfloat16),     # a decode step
+    (2, 23, 4, 16, 16, torch.float32),      # the smoke config
+)
+WKV_SEQ_TIMED = {"prefill": WKV_SEQ_SHAPES[0], "decode": WKV_SEQ_SHAPES[4]}
+# (atol, rtol) of y; the state and f32 y as the chunk checks, bf16 y within
+# one bf16 rounding of the plain version's f32 value
+WKV_Y_TOL = {torch.float32: (5e-4, 5e-4), torch.bfloat16: (5e-4, 2 ** -7)}
+WKV_LIBRARY = "none: no single PyTorch call computes a WKV chunk or sequence"
 
 
-def wkv_inputs(B, C, H, N, dtype, seed):
-    """The kernel's rows (BH, C, N), drawn as tests/test_kernels.py draws
-    them, with u (H, N) and the state (BH, N, N)."""
+def _wkv_draw(rows: tuple, state: tuple, H, N, dtype, seed):
+    """r, k, v (in ``dtype``) and logw of shape ``rows``, u (H, N) and a
+    state of shape ``state``, drawn as tests/test_kernels.py draws them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def normal(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    r, k, v = (normal(B * H, C, N).to(dtype) for _ in range(3))
-    logw = -torch.exp(normal(B * H, C, N) * 0.5 - 2.0)
-    return r, k, v, logw, normal(H, N) * 0.1, normal(B * H, N, N) * 0.1
+    r, k, v = (normal(*rows).to(dtype) for _ in range(3))
+    logw = -torch.exp(normal(*rows) * 0.5 - 2.0)
+    return r, k, v, logw, normal(H, N) * 0.1, normal(*state) * 0.1
+
+
+def wkv_inputs(B, C, H, N, dtype, seed):
+    """The one-chunk entry's rows (BH, C, N), u and the state (BH, N, N)."""
+    return _wkv_draw((B * H, C, N), (B * H, N, N), H, N, dtype, seed)
+
+
+def wkv_seq_inputs(B, S, H, N, dtype, seed):
+    """A layer's r, k, v, logw (B, S, H, N), u and the state (B, H, N, N)."""
+    return _wkv_draw((B, S, H, N), (B, H, N, N), H, N, dtype, seed)
+
+
+def wkv_chunk_flops(c: int, n: int) -> int:
+    """The products one (b, h) row of a chunk of ``c`` rows needs at head
+    size ``n``: the inter-chunk read and the state update in full (2·c·n²
+    each), the scores and their product with v on the strictly lower
+    triangle only (c·(c − 1)·n each), since the rest is masked to zero."""
+    return 4 * c * n * n + 2 * c * (c - 1) * n
 
 
 def wkv_bound(r, k, v, logw, u, state):
     """Least time for one chunk on this card: every input read once and y,
     s1 written once (f32) against the memory rate; the chunk's products
-    (the inter-chunk read and the state update, 2·C·N² each, the scores
-    and their product with v, 2·C²·N each, dense as the TPU kernel
-    computes them) against the f32 peak."""
+    (``wkv_chunk_flops``) against the f32 peak."""
     BH, C, N = r.shape
     nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, logw, u, state))
               + (BH * C * N + BH * N * N) * 4)
-    flops = BH * (4 * C * N * N + 4 * C * C * N)
+    flops = BH * wkv_chunk_flops(C, N)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, flops)
 
 
-def phase_wkv() -> dict:
-    """The WKV kernel against its plain version on the card, then its time
-    (CUDA events, back to back, and the device's own time per launch from
-    torch.profiler) beside the plain version's and the bound."""
+def wkv_seq_bound(r, k, v, logw, u, state, chunk) -> dict:
+    """Least time for one layer on this card: r, k, v, logw, u and the
+    state read once, y (r's dtype) and the state written once, against the
+    memory rate; every chunk's products (``wkv_chunk_flops`` a row, the
+    ragged last chunk at its own length), against the f32 peak."""
+    B, S, H, N = r.shape
+    C = min(chunk, S)
+    nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, logw, u, state))
+              + r.numel() * r.element_size() + state.numel() * 4)
+    flops = B * H * ((S // C) * wkv_chunk_flops(C, N) + wkv_chunk_flops(S % C, N))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=flops, bytes_ms=bytes_ms, operations_ms=ops_ms)
+
+
+@contextlib.contextmanager
+def wkv_splits(splits: int):
+    """Make the WKV kernel's wrapper take ``splits`` column splits for every
+    shape (a tool of this script, to time the splits it does not pick)."""
+    from repro_torch.kernels.rwkv6 import kernel
+
+    choose = kernel.choose_splits
+    kernel.choose_splits = lambda rows, n, c, sms: splits
+    try:
+        yield
+    finally:
+        kernel.choose_splits = choose
+
+
+def check_wkv_seq(ins, chunk: int, what: str) -> tuple:
+    """The sequence entry (one launch) against ``wkv_sequence_ref`` at the
+    tolerances of WKV_Y_TOL; returns the max abs errors of y and the state."""
     from repro_torch.kernels.rwkv6 import kernel, ref
+
+    before = kernel.WKV_LAUNCHES
+    y, s1 = kernel.wkv_sequence_kernel(*ins, chunk)
+    launched = kernel.WKV_LAUNCHES - before
+    y_want, s_want = ref.wkv_sequence_ref(*ins, chunk)
+    torch.cuda.synchronize()
+    if launched != 1 or y.dtype != ins[0].dtype or s1.dtype != torch.float32:
+        raise AssertionError(f"wkv {what}: {launched} launches, y {y.dtype}, state {s1.dtype}")
+    atol, rtol = WKV_Y_TOL[ins[0].dtype]
+    err_y = (y.float() - y_want.float()).abs().max().item()
+    err_s = (s1 - s_want).abs().max().item()
+    if not (torch.allclose(y.float(), y_want.float(), atol=atol, rtol=rtol)
+            and torch.allclose(s1, s_want, atol=5e-4, rtol=5e-4)):
+        raise AssertionError(f"wkv {what}: kernel vs plain max abs err y {err_y}, "
+                             f"state {err_s}, beyond y atol {atol} rtol {rtol}, "
+                             f"state 5e-4")
+    log(f"[wkv] {what}: max abs err y {err_y} (atol {atol}, rtol {rtol}), state "
+        f"{err_s} (5e-4); one launch")
+    return err_y, err_s
+
+
+def phase_wkv() -> dict:
+    """The WKV kernel against its plain version on the card, its one-chunk
+    entry and its sequence entry (one launch a layer), then their times
+    (CUDA events, back to back, the device's own time per launch from
+    torch.profiler, the host's enqueue time) beside the plain version's
+    and the bounds."""
+    from repro_torch.kernels.rwkv6 import kernel, ref
+    from repro_torch.models import rwkv
 
     errs = {}
     for i, (B, C, H, N, dt) in enumerate(WKV_SHAPES):
@@ -2303,7 +2454,7 @@ def phase_wkv() -> dict:
         y, s1 = kernel.wkv_chunk_kernel(*ins)
         y_want, s_want = ref.wkv_chunk_rows_ref(*ins)
         torch.cuda.synchronize()
-        what = f"B{B} C{C} H{H} N{N} {dt}"
+        what = f"chunk B{B} C{C} H{H} N{N} {dt}"
         tol = WKV_TOL[dt]
         err = max((y - y_want).abs().max().item(), (s1 - s_want).abs().max().item())
         if not (torch.allclose(y, y_want, atol=tol, rtol=tol)
@@ -2312,13 +2463,63 @@ def phase_wkv() -> dict:
                                  f"beyond atol=rtol={tol}")
         errs[(B, C, H, N, dt)] = err
         log(f"[wkv] {what}: max abs err {err} (tol {tol})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seq_errs = {}
+    for i, (B, S, H, N, chunk, dt) in enumerate(WKV_SEQ_SHAPES):
+        ins = wkv_seq_inputs(B, S, H, N, dt, seed=50 + i)
+        splits = kernel.choose_splits(B * H, N, min(chunk, S), sms)
+        seq_errs[(B, S, H, N, chunk, dt)] = check_wkv_seq(
+            ins, chunk, f"sequence B{B} S{S} H{H} N{N} chunk {chunk} {dt}, "
+                        f"{splits} split(s)")
     rows = {}
+    by_split = {}       # the prefill layer at B 4 and at B 1, each split built
+    for B, S, H, N, chunk, dt in (WKV_SEQ_TIMED["prefill"], (1, 512, 64, 64, 32,
+                                                            torch.bfloat16)):
+        ins = wkv_seq_inputs(B, S, H, N, dt, seed=100)
+        picked = kernel.choose_splits(B * H, N, min(chunk, S), sms)
+        for splits in kernel.SPLITS[N]:
+            with wkv_splits(splits):
+                check_wkv_seq(ins, chunk, f"B{B} S{S} layer at {splits} split(s)")
+
+                def fn():
+                    kernel.wkv_sequence_kernel(*ins, chunk)
+
+                by_split[f"B{B} S{S} splits {splits}"] = dict(
+                    ms=cuda_ms(fn), picked=splits == picked,
+                    **device_ms_clock_checked(fn, "wkv_kernel"))
+    log("[wkv] prefill layer by column split: " + json.dumps(by_split))
+    for name, (B, S, H, N, chunk, dt) in WKV_SEQ_TIMED.items():
+        ins = wkv_seq_inputs(B, S, H, N, dt, seed=100)
+        C = min(chunk, S)
+
+        def kern():
+            kernel.wkv_sequence_kernel(*ins, chunk)
+
+        def layer():
+            rwkv.wkv_chunked(*ins, chunk)
+
+        before = kernel.WKV_LAUNCHES
+        layer()
+        launches = kernel.WKV_LAUNCHES - before
+        err_y, err_s = seq_errs[(B, S, H, N, chunk, dt)]
+        rows[name] = dict(
+            shape=f"B{B} S{S} H{H} N{N} chunk {chunk} {dt}",
+            splits=kernel.choose_splits(B * H, N, C, sms),
+            launches_per_call=launches, max_abs_err=max(err_y, err_s),
+            ms=cuda_ms(kern), layer_ms=cuda_ms(layer),
+            **device_ms_clock_checked(kern, "wkv_kernel"),
+            host_ms=host_ms(kern),
+            plain_ms=cuda_ms(lambda: ref.wkv_sequence_ref(*ins, chunk), reps=3, warmup=1),
+            library_ms=None, library=WKV_LIBRARY, **wkv_seq_bound(*ins, chunk))
+        if name == "prefill":
+            rows[name]["by_split"] = by_split
+        log(f"[wkv] {name} layer: " + json.dumps(rows[name]))
     for name, (B, C, H, N) in WKV_TIMED.items():
         ins = wkv_inputs(B, C, H, N, torch.float32, seed=100)
         bound, by, nbytes, flops = wkv_bound(*ins)
         device_ms = device_ms_per_launch(lambda: kernel.wkv_chunk_kernel(*ins),
-                                         "wkv_chunk_kernel")
-        rows[name] = dict(
+                                         "wkv_kernel")
+        rows[f"chunk_{name}"] = dict(
             shape=f"B{B} C{C} H{H} N{N} f32",
             max_abs_err=errs[(B, C, H, N, torch.float32)],
             ms=cuda_ms(lambda: kernel.wkv_chunk_kernel(*ins)),
@@ -2326,22 +2527,77 @@ def phase_wkv() -> dict:
             plain_ms=cuda_ms(lambda: ref.wkv_chunk_rows_ref(*ins)),
             library_ms=None, library=WKV_LIBRARY,
             bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
-        log(f"[wkv] {name} shape: " + json.dumps(rows[name]))
+        log(f"[wkv] {name} chunk: " + json.dumps(rows[f"chunk_{name}"]))
     return rows
+
+
+def wkv_layer_probe() -> dict:
+    """The prefill layer's WKV (``WKV_SEQ_TIMED["prefill"]``) through
+    ``rwkv.wkv_chunked`` of whichever ``repro_torch`` is imported (this
+    tree's, or another's in ``wkv_layers_in_turns``): ms a layer back to
+    back (CUDA events), the host's enqueue time, and from torch.profiler
+    the device time and launches of all its kernels and of the WKV
+    kernel's alone, per layer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rwkv6 import kernel
+    from repro_torch.models import rwkv
+
+    B, S, H, N, chunk, dt = WKV_SEQ_TIMED["prefill"]
+    ins = wkv_seq_inputs(B, S, H, N, dt, seed=100)
+
+    def layer():
+        rwkv.wkv_chunked(*ins, chunk)
+
+    ms = cuda_ms(layer)
+    before = kernel.WKV_LAUNCHES
+    layer()
+    wkv_launches = kernel.WKV_LAUNCHES - before
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            layer()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    wkv = [e for e in kernels if "wkv_" in e.key]
+    return dict(ms=ms, host_ms=host_ms(layer), wkv_launches=wkv_launches,
+                device_ms=sum(_device_ms(e, self_only=True) for e in kernels) / reps,
+                kernel_launches=sum(e.count for e in kernels) / reps,
+                wkv_device_ms=sum(_device_ms(e, self_only=True) for e in wkv) / reps)
+
+
+def wkv_layers_in_turns(parent: str) -> list:
+    """By hand, on one card: ``wkv_layer_probe`` of the tree at ``parent``
+    and of this tree, through ``trees_in_turns``.  Each turn is a process
+    that imports its tree's ``repro_torch`` first (so it runs that tree's
+    WKV and builds that tree's library) and this script's probe after."""
+    code = ("import sys; sys.path.insert(0, 'src'); import repro_torch.models.rwkv; "
+            f"sys.path.insert(0, {ROOT!r}); import json, chip_smoke as cs; "
+            "print('WKV_LAYER ' + json.dumps(cs.wkv_layer_probe()), flush=True)")
+
+    def turn(tree):
+        out = subprocess.run([sys.executable, "-c", code], cwd=tree, check=True,
+                             capture_output=True, text=True, timeout=600).stdout
+        return json.loads(out.split("WKV_LAYER ", 1)[1].splitlines()[0])
+
+    return trees_in_turns(parent, turn, "wkv")
 
 
 @contextlib.contextmanager
 def plain_wkv():
-    """Route the model's WKV chunks to the plain version on the card (a
-    tool of this script: the package never sends CUDA tensors there)."""
+    """Route the model's WKV (``ops.wkv_sequence``) to its plain version on
+    the card (a tool of this script: the package never sends CUDA tensors
+    there)."""
     from repro_torch.kernels.rwkv6 import ops, ref
 
-    rows = ops.wkv_chunk_rows
-    ops.wkv_chunk_rows = ref.wkv_chunk_rows_ref
+    sequence = ops.wkv_sequence
+    ops.wkv_sequence = ref.wkv_sequence_ref
     try:
         yield
     finally:
-        ops.wkv_chunk_rows = rows
+        ops.wkv_sequence = sequence
 
 
 def check_rwkv_f32(params, cfg, prompt) -> dict:
@@ -2378,16 +2634,17 @@ def check_rwkv_f32(params, cfg, prompt) -> dict:
 
     block, layer_diffs = rwkv.block, []
 
-    def forced(p, x, cfg, state=None, lasts=None):
-        out = block(p, x, cfg, state, lasts)
+    def forced(p, x, cfg, state=None, lasts=None, out=None):
+        # both on the same input state, each to a new one; then into ``out``
+        got = block(p, x, cfg, state, lasts)
         with plain_wkv():
             want = block(p, x, cfg, state, lasts)
-        for got, ref, what in ((out[0], want[0], "output"), (out[1], want[1], "state")):
-            if not torch.allclose(got, ref, rtol=1e-3, atol=1e-3):
+        for a, b, what in ((got[0], want[0], "output"), (got[1], want[1], "state")):
+            if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
                 raise AssertionError(f"f32 layer {len(layer_diffs)} {what}: kernel "
-                                     f"vs plain differ by {(got - ref).abs().max().item()}")
-        layer_diffs.append(max((out[i] - want[i]).abs().max().item() for i in (0, 1)))
-        return out
+                                     f"vs plain differ by {(a - b).abs().max().item()}")
+        layer_diffs.append(max((got[i] - want[i]).abs().max().item() for i in (0, 1)))
+        return got if out is None else (got[0], out.copy_(got[1]), got[2])
 
     rwkv.block = forced
     try:
@@ -2395,8 +2652,9 @@ def check_rwkv_f32(params, cfg, prompt) -> dict:
     finally:
         rwkv.block = block
     launched = wkv.WKV_LAUNCHES - before
-    if launched != cfg.n_layers * -(-S // cfg.chunk):
-        raise AssertionError(f"f32 prefill: {launched} kernel launches")
+    if launched != cfg.n_layers:                   # one a layer
+        raise AssertionError(f"f32 prefill: {launched} kernel launches, expected "
+                             f"{cfg.n_layers}")
     kern_vs_plain = (kern - plain).abs().max().item()
     if not (torch.allclose(kern, plain, rtol=1e-3, atol=1e-3) or kern_vs_plain <= noise):
         raise AssertionError(f"f32 prefill: kernel vs plain logits differ by "
@@ -2424,7 +2682,7 @@ def phase_rwkv_serve(smi: str) -> dict:
     the card with the reference's constant leaves perturbed: the 8 serve
     prompts through the static engine (RequestQueue, batch 4: 2
     prefills), 32 new tokens each.  The WKV launch count must be exactly
-    32·ceil(S/32) a prefill and 32 a decode step; the continuous engine
+    32 a prefill and 32 a decode step (one a layer); the continuous engine
     must refuse the family.  Then the f32 checks at full width
     (``check_rwkv_f32``), then report-only times and a profile."""
     from repro_torch.configs.rwkv6_7b import make_config
@@ -2465,7 +2723,7 @@ def phase_rwkv_serve(smi: str) -> dict:
     # RequestQueue serves the prompts in order, 4 a batch, left-padded to
     # the batch's longest
     lens = [max(len(p) for p in prompts[i:i + 4]) for i in range(0, len(prompts), 4)]
-    per_prefill = [cfg.n_layers * -(-S // cfg.chunk) for S in lens]
+    per_prefill = [cfg.n_layers for _ in lens]          # one launch a layer
     per_step = cfg.n_layers
     expected = sum(per_prefill) + len(lens) * (SERVE_MAX_NEW - 1) * per_step
     if launches != expected:
@@ -2530,8 +2788,8 @@ def phase_rwkv_cpu_vs_gpu() -> None:
         logits, _ = rwkv.prefill(p, torch.as_tensor(prompts, device=device), cfg)
         got[device] = (toks, logits.cpu(), wkv.WKV_LAUNCHES - before)
     (t_cpu, l_cpu, n_cpu), (t_gpu, l_gpu, n_gpu) = got["cpu"], got["cuda"]
-    # 23 tokens in chunks of 16: 2 a layer per prefill, 1 a decode step
-    if n_cpu != 0 or n_gpu != cfg.n_layers * (2 + 7 + 2):
+    # one launch a layer for each prefill (23 tokens) and each decode step
+    if n_cpu != 0 or n_gpu != cfg.n_layers * (1 + 7 + 1):
         raise AssertionError(f"WKV launches cpu {n_cpu} gpu {n_gpu}")
     if not np.array_equal(t_cpu, t_gpu):
         raise AssertionError(f"rwkv tokens differ: cpu {t_cpu} gpu {t_gpu}")
@@ -2619,7 +2877,7 @@ def main() -> int:
             "shape": f32r["shape"]}})
     wr = wkv_rows["prefill"]
     kernels.append({
-        "name": "wkv_chunk_kernel", "route": "cuda",
+        "name": "wkv_sequence_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:59",
         "launches": rwkv_serve["launches"],
@@ -2627,9 +2885,13 @@ def main() -> int:
         "launches_per_decode_step": rwkv_serve["per_step"],
         "max_abs_err": wr["max_abs_err"], "ms": wr["ms"],
         "device_ms_per_launch": wr["device_ms_per_launch"],
+        "profiler_span_over_events": wr["span_over_events"],
         "plain_ms": wr["plain_ms"], "bound_ms": wr["bound_ms"],
         "bound_by": wr["bound_by"], "library_ms": None, "library": WKV_LIBRARY,
-        "shape": wr["shape"], "decode_shape": wkv_rows["decode"]})
+        "shape": wr["shape"], "decode_shape": wkv_rows["decode"],
+        # the same kernel's one-chunk entry, on the TPU kernel's layout
+        "chunk_entry": {"name": "wkv_chunk_kernel", "prefill_chunk": wkv_rows["chunk_prefill"],
+                        "decode_chunk": wkv_rows["chunk_decode"]}})
     runs = reducers["runs"]
     for name, counter in (("ring_accum_kernel", "accum"),
                           ("quantize_blocks_kernel", "quantize"),

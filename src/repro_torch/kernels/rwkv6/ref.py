@@ -1,20 +1,25 @@
-"""Plain-torch versions of the RWKV-6 WKV chunk
-(``repro/kernels/rwkv6/kernel.py::_wkv_kernel`` and ``ref.py``).
+"""Plain-torch versions of the RWKV-6 WKV
+(``repro/kernels/rwkv6/kernel.py::_wkv_kernel`` and ``ref.py``, and the
+scan of ``repro/models/rwkv.py::wkv_chunked``).
 
 ``wkv_chunk_ref`` is the chunk math of the TPU kernel, with its factored
 exponentials (``r·exp(Lprev)`` times ``k·exp(−L)``, not
 ``exp(Lprev − L)``), on the TPU kernel's layout, in float64 rounded once
-to f32; ``wkv_chunk_rows_ref`` takes the CUDA kernel's (u per head):
-what ``ops`` runs on CPU tensors and what ``chip_smoke.py`` holds the
-CUDA kernel against on the card.
-``wkv_ref`` is the step-by-step recurrence, a second oracle for the
-tests.
+to f32; ``wkv_chunk_rows_ref`` takes the CUDA kernel's (u per head).
+``wkv_sequence_ref`` is a whole layer's WKV on the model's
+``(B, S, H, N)`` layout: the sequence zero-padded to whole chunks and
+``wkv_chunk_rows_ref`` run over them in order, the state rounded to f32
+between chunks, y in r's dtype.  These are what ``ops`` runs on CPU
+tensors and what ``chip_smoke.py`` holds the CUDA kernel against on the
+card.  ``wkv_ref`` is the step-by-step recurrence, a second oracle for
+the tests.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 _LOG2E = 1.0 / math.log(2.0)
 
@@ -70,6 +75,40 @@ def wkv_chunk_rows_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H = u.shape[0]
     return wkv_chunk_ref(r, k, v, logw, u[None].expand(BH // H, H, N).reshape(BH, 1, N),
                          state)
+
+
+def wkv_sequence_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                     chunk: int, out: torch.Tensor | None = None):
+    """One layer's WKV in chunks of C = min(chunk, S).  r, k, v, logw:
+    (B, S, H, N) (logw ≤ 0); u: (H, N); state: (B, H, N, N) [state[b, h,
+    i, j] ~ k-dim i, v-dim j].  Returns (y (B, S, H, N) in r's dtype, the
+    final state (B, H, N, N) f32, copied into ``out`` where given)."""
+    B, S, H, N = r.shape
+    C = min(chunk, S)
+    pad = (-S) % C
+    if pad:
+        # zero-pad: k = 0 adds nothing to the state; logw = 0 (w = 1)
+        # leaves the decay product unchanged — exact for the valid positions
+        r, k, v, logw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, logw))
+    T = (S + pad) // C
+
+    def chunks(t):                     # (T, B, H, C, N): chunk i is (BH, C, N)
+        out = torch.empty((T, B, H, C, N), dtype=torch.float32, device=t.device)
+        return out.copy_(t.reshape(B, T, C, H, N).permute(1, 0, 3, 2, 4))
+
+    rc, kc, vc, lw = chunks(r), chunks(k), chunks(v), chunks(logw)
+    st = state.float().reshape(B * H, N, N)
+    u = u.float()
+    ys = []
+    for i in range(T):
+        y, st = wkv_chunk_rows_ref(
+            rc[i].view(B * H, C, N), kc[i].view(B * H, C, N),
+            vc[i].view(B * H, C, N), lw[i].view(B * H, C, N), u, st)
+        ys.append(y.view(B, H, C, N))
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, T * C, H, N)
+    st = st.view(B, H, N, N)
+    return y[:, :S].to(r.dtype), st if out is None else out.copy_(st)
 
 
 def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,10 +4,13 @@ attention-free LM with data-dependent per-channel decay, serving at tp=1.
 The WKV recurrence is evaluated in chunked-parallel form (chunk C):
   S_t = diag(w_t) S_{t-1} + k_t v_t^T          (per head, S: (N, N))
   y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
-``wkv_chunked`` runs the chunks in order, each through
-``kernels/rwkv6/ops.py::wkv_chunk_rows``: the hand-written CUDA kernel on
-the card, its plain version on the CPU.  (The reference's scan body is
-the same chunk math in jnp.)
+``wkv_chunked`` is one call of ``kernels/rwkv6/ops.py::wkv_sequence`` a
+layer: on the card one launch of the hand-written CUDA kernel, which
+reads r, k, v and logw in their (B, S, H, N) layout, runs every chunk in
+order with the state on chip and writes y in r's dtype; on the CPU its
+plain version, the chunks in order.  ``prefill`` and ``decode_step`` have
+it write each layer's final state straight into the decode state.  (The
+reference scans the same chunk math in jnp.)
 
 Parameters are the reference's tree — the same names, shapes, dtypes and
 stacked ``(n_layers, ...)`` block leaves — so weights carry over by name
@@ -199,38 +202,16 @@ def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                chunk: int):
+                chunk: int, out: Optional[torch.Tensor] = None):
     """Chunked WKV.  r, k, v, logw: (B, S, H, N) (logw ≤ 0); u: (H, N);
     state: (B, H, N, N) [state[b, h, i, j] ~ k-dim i, v-dim j].  Returns
-    (y (B, S, H, N) in r's dtype, final state f32)."""
-    B, S, H, N = r.shape
-    dtype = r.dtype
-    C = min(chunk, S)
-    pad = (-S) % C
-    if pad:
-        # zero-pad: k = 0 adds nothing to the state; logw = 0 (w = 1)
-        # leaves the decay product unchanged — exact for the valid positions
-        r, k, v, logw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, logw))
-    T = (S + pad) // C
-
-    def chunks(t):                     # (T, B, H, C, N): chunk i is (BH, C, N)
-        out = torch.empty((T, B, H, C, N), dtype=torch.float32, device=t.device)
-        return out.copy_(t.reshape(B, T, C, H, N).permute(1, 0, 3, 2, 4))
-
-    rc, kc, vc, lw = chunks(r), chunks(k), chunks(v), chunks(logw)
-    st = state.float().reshape(B * H, N, N)
-    ys = []
-    for i in range(T):
-        y, st = wkv_ops.wkv_chunk_rows(
-            rc[i].view(B * H, C, N), kc[i].view(B * H, C, N),
-            vc[i].view(B * H, C, N), lw[i].view(B * H, C, N), u, st)
-        ys.append(y.view(B, H, C, N))
-    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, T * C, H, N)
-    return y[:, :S].to(dtype), st.view(B, H, N, N)
+    (y (B, S, H, N) in r's dtype, final state f32, in ``out`` where given:
+    it may be ``state`` itself)."""
+    return wkv_ops.wkv_sequence(r, k, v, logw, u, state, chunk, out=out)
 
 
 def _time_mix(p: dict, x: torch.Tensor, cfg: RWKVConfig, state: torch.Tensor,
-              last_x: Optional[torch.Tensor]):
+              last_x: Optional[torch.Tensor], out: Optional[torch.Tensor] = None):
     """Returns (out, new_state, new_last_x)."""
     B, S, _ = x.shape
     H, N = cfg.heads_local, cfg.head_size
@@ -243,7 +224,7 @@ def _time_mix(p: dict, x: torch.Tensor, cfg: RWKVConfig, state: torch.Tensor,
     g = F.silu(xg @ p["wg"])
     logw = _decay(p, xw).reshape(B, S, H, N)
     u = p["u"].reshape(H, N)
-    y, new_state = wkv_chunked(r, k, v, logw, u, state, cfg.chunk)
+    y, new_state = wkv_chunked(r, k, v, logw, u, state, cfg.chunk, out=out)
     # per-head groupnorm
     yf = y.float()
     mean = yf.mean(dim=-1, keepdim=True)
@@ -262,15 +243,17 @@ def _channel_mix(p: dict, x: torch.Tensor, last_x: Optional[torch.Tensor]):
 
 
 def block(p: dict, x: torch.Tensor, cfg: RWKVConfig,
-          state: Optional[torch.Tensor] = None, lasts: Optional[dict] = None):
+          state: Optional[torch.Tensor] = None, lasts: Optional[dict] = None,
+          out: Optional[torch.Tensor] = None):
     """One RWKV block.  state: (B, H, N, N) or None (zeros); lasts: the
-    decode token shifts {"tm", "cm"}.  Returns (x, new_state, new lasts)."""
+    decode token shifts {"tm", "cm"}; out: where the new state goes (it may
+    be ``state``), else a new tensor.  Returns (x, new_state, new lasts)."""
     if state is None:
         state = torch.zeros((x.shape[0], cfg.heads_local, cfg.head_size,
                              cfg.head_size), dtype=torch.float32, device=x.device)
     l_tm = lasts["tm"] if lasts else None
     l_cm = lasts["cm"] if lasts else None
-    a, new_state, new_ltm = _time_mix(p, rms_norm(x, p["ln1"]), cfg, state, l_tm)
+    a, new_state, new_ltm = _time_mix(p, rms_norm(x, p["ln1"]), cfg, state, l_tm, out)
     x = x + a
     m, new_lcm = _channel_mix(p, rms_norm(x, p["ln2"]), l_cm)
     return x + m, new_state, {"tm": new_ltm, "cm": new_lcm}
@@ -300,9 +283,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: RWKVConfig):
     check_supported(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
     state = make_state(cfg, tokens.shape[0], tokens.device)
-    for li in range(cfg.n_layers):
-        x, st, lasts = block(_layer(params, li), x, cfg)
-        state["wkv"][li] = st
+    for li in range(cfg.n_layers):   # each layer's WKV from its zero state, in place
+        st = state["wkv"][li]
+        x, _, lasts = block(_layer(params, li), x, cfg, state=st, out=st)
         state["tm"][li] = lasts["tm"]
         state["cm"][li] = lasts["cm"]
     return _head(params, x[:, -1:]), state
@@ -316,9 +299,9 @@ def decode_step(params: dict, state: dict, token: torch.Tensor, pos: int,
     check_supported(cfg)
     x = embed_lookup(params["embed"], token[:, None], cfg.tp).to(cfg.dtype)
     for li in range(cfg.n_layers):
-        x, st, lasts = block(_layer(params, li), x, cfg, state=state["wkv"][li],
-                             lasts={"tm": state["tm"][li], "cm": state["cm"][li]})
-        state["wkv"][li] = st
+        st = state["wkv"][li]
+        x, _, lasts = block(_layer(params, li), x, cfg, state=st, out=st,
+                            lasts={"tm": state["tm"][li], "cm": state["cm"][li]})
         state["tm"][li] = lasts["tm"]
         state["cm"][li] = lasts["cm"]
     return _head(params, x), state

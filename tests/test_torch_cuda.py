@@ -203,6 +203,77 @@ def test_cuda_wkv_kernel_matches_plain(cuda, B, C, H, N, dtype):
     torch.testing.assert_close(s1.reshape(B * H, N, N), s_want, atol=tol, rtol=tol)
 
 
+WKV_SEQ_Y_TOL = {"float32": (5e-4, 5e-4), "bfloat16": (5e-4, 2 ** -7)}   # (atol, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,chunk,dtype,splits", [
+    (4, 512, 64, 64, 32, "bfloat16", None),   # RWKV-6 7B prefill layer
+    (4, 512, 64, 64, 32, "float32", None),
+    (4, 481, 64, 64, 32, "bfloat16", None),   # a ragged last chunk
+    (2, 70, 64, 64, 32, "float32", None),     # 128 rows: 1 column split
+    (1, 7, 64, 64, 32, "float32", None),      # below the chunk; 64 rows: 2 splits
+    (4, 1, 64, 64, 32, "bfloat16", None),     # a decode step
+    (1, 1, 64, 64, 32, "float32", None),
+    (1, 130, 2, 64, 64, "float32", None),     # chunks of 64 rows
+    (2, 23, 4, 16, 16, "float32", None),      # the smoke config
+    (1, 40, 3, 16, 16, "bfloat16", None),
+    (2, 100, 8, 64, 32, "bfloat16", 1),       # every split, forced
+    (2, 100, 8, 64, 32, "bfloat16", 2),
+])
+def test_cuda_wkv_sequence_matches_plain(cuda, monkeypatch, B, S, H, N, chunk, dtype,
+                                         splits):
+    """One launch a layer against the plain version: the state and f32 y
+    at 5e-4, bf16 y within one bf16 rounding.  ``splits`` forces the
+    column split where the wrapper would pick another."""
+    rng = np.random.default_rng(4)
+
+    def normal(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32).to(cuda)
+
+    r, k, v = (normal(B, S, H, N).to(getattr(torch, dtype)) for _ in range(3))
+    logw = -torch.exp(normal(B, S, H, N) * 0.5 - 2.0)
+    u, state = normal(H, N, scale=0.1), normal(B, H, N, N, scale=0.1)
+    if splits is not None:
+        monkeypatch.setattr(wkv_kernel, "choose_splits", lambda rows, n, c, sms: splits)
+    before = wkv_kernel.WKV_LAUNCHES
+    y, s1 = wkv_ops.wkv_sequence(r, k, v, logw, u, state, chunk)
+    torch.cuda.synchronize()
+    assert wkv_kernel.WKV_LAUNCHES == before + 1
+    assert y.dtype == r.dtype and s1.dtype == torch.float32
+    y_want, s_want = wkv_ref.wkv_sequence_ref(r, k, v, logw, u, state, chunk)
+    atol, rtol = WKV_SEQ_Y_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(s1, s_want, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,splits", [(4, None), (1, None), (2, 2)])
+def test_cuda_wkv_sequence_updates_the_state_in_place(cuda, monkeypatch, B, splits):
+    """``out=state``: the kernel writes the final state over its input
+    state (each block reads its slice before it writes it), as the model's
+    decode and prefill do, with the values of a new-tensor run."""
+    rng = np.random.default_rng(5)
+    H, N, S = 64, 64, 37
+
+    def normal(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32).to(cuda)
+
+    r, k, v = (normal(B, S, H, N).to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(normal(B, S, H, N) * 0.5 - 2.0)
+    u, state = normal(H, N, scale=0.1), normal(B, H, N, N, scale=0.1)
+    if splits is not None:
+        monkeypatch.setattr(wkv_kernel, "choose_splits", lambda rows, n, c, sms: splits)
+    y_new, s_new = wkv_ops.wkv_sequence(r, k, v, logw, u, state, 32)
+    before = wkv_kernel.WKV_LAUNCHES
+    y, s1 = wkv_ops.wkv_sequence(r, k, v, logw, u, state, 32, out=state)
+    torch.cuda.synchronize()
+    assert wkv_kernel.WKV_LAUNCHES == before + 1 and s1 is state
+    assert torch.equal(y, y_new) and torch.equal(s1, s_new)
+
+
 @pytest.mark.cuda
 def test_cuda_rwkv_static_engine_matches_cpu(cuda):
     """The rwkv smoke config with the WKV kernel on the card gives the CPU
@@ -216,8 +287,8 @@ def test_cuda_rwkv_static_engine_matches_cpu(cuda):
         before = wkv_kernel.WKV_LAUNCHES
         outs[dev] = srv.generate(prompts, 6)
         launched = wkv_kernel.WKV_LAUNCHES - before
-        # 23 tokens in chunks of 16: 2 a layer, then 1 a layer per decode step
-        assert launched == (0 if dev == "cpu" else cfg.n_layers * (2 + 5))
+        # one a layer for the prefill, then one a layer per decode step
+        assert launched == (0 if dev == "cpu" else cfg.n_layers * (1 + 5))
     np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
 
 

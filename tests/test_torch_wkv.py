@@ -1,4 +1,4 @@
-"""The port's WKV chunk against the JAX package's.
+"""The port's WKV against the JAX package's.
 
 On CPU tensors ``ops.wkv_chunk`` runs the plain version (``ref.py``); it
 is held against the Pallas kernel run in interpret mode, as the JAX
@@ -6,12 +6,18 @@ package's own tests run it, and against the JAX sequential recurrence
 (``repro/kernels/rwkv6/ref.py::wkv_ref``), at the shapes of
 ``tests/test_kernels.py`` plus a decode chunk (C 1) and a short prompt
 (C 7, N 16), with its tolerances (5e-4 in f32, 5e-2 with bf16 inputs).
-The model's chunked WKV is held against the JAX model's to 1e-4, with S
-not a multiple of the chunk and S below it.  The CUDA kernel is held
-against the plain version by ``tests/test_torch_cuda.py`` and by
-``chip_smoke.py``.  The plain version gives the same result in every
-process: fresh interpreters, run side by side, are held against a float64
-numpy evaluation of the same factored math and against each other.
+``ops.wkv_sequence``, a whole layer's WKV (one kernel launch a layer on
+the card), runs ``wkv_sequence_ref`` on CPU tensors; it is held against
+the JAX model's ``wkv_chunked`` to 1e-4 and against a chunk-by-chunk scan
+of the Pallas kernel in interpret mode to 5e-4, with S a multiple of the
+chunk, ragged, below it and 1, at the full-width head size, and with bf16
+r, k, v (y then in bf16, held within one bf16 rounding: rtol 2^-7).  The
+model's chunked WKV is held against the JAX model's to 1e-4 and makes one
+``ops.wkv_sequence`` call a layer.  The CUDA kernel is held against the
+plain version by ``tests/test_torch_cuda.py`` and by ``chip_smoke.py``.
+The plain version gives the same result in every process: fresh
+interpreters, run side by side, are held against a float64 numpy
+evaluation of the same factored math and against each other.
 """
 import os
 import subprocess
@@ -26,6 +32,7 @@ import torch
 from repro.kernels.rwkv6.ops import wkv_chunk as ref_wkv_chunk
 from repro.kernels.rwkv6.ref import wkv_ref as ref_wkv_ref
 from repro.models.rwkv import wkv_chunked as ref_wkv_chunked
+from repro_torch.configs.rwkv6_7b import make_smoke as rwkv_smoke
 from repro_torch.kernels.rwkv6 import kernel, ops, ref
 from repro_torch.models import rwkv
 from repro_torch.utils.convert import tensor_from_numpy
@@ -118,6 +125,144 @@ def test_wkv_chunked_matches_reference(B, S, H, N, chunk):
     assert y.shape == (B, S, H, N) and y.dtype == torch.float32
     _close(y, y_want, 1e-4)
     _close(s1, s_want, 1e-4)
+
+
+SEQUENCES = [   # (B, S, H, N, chunk, dtype of r/k/v)
+    (2, 32, 4, 16, 16, "float32"),     # S a multiple of the chunk
+    (2, 40, 4, 16, 16, "float32"),     # ragged: the last chunk zero-padded
+    (2, 5, 4, 16, 16, "float32"),      # S below the chunk: one chunk of C = S
+    (3, 1, 4, 16, 16, "float32"),      # S 1, a decode step
+    (1, 70, 2, 64, 32, "float32"),     # the full-width head size
+    (2, 40, 4, 16, 16, "bfloat16"),    # y comes back in bf16
+]
+BF16_ROUNDING = 2.0 ** -7     # one bf16 rounding, relative
+
+
+def _close_y(got, want, dtype, tol):
+    """y at ``tol``; bf16 y within one bf16 rounding as well, since the
+    two sides round f32 values that differ in their last bits."""
+    _close_rtol(got, want, tol, BF16_ROUNDING if dtype == "bfloat16" else tol)
+
+
+def _close_rtol(got, want, atol, rtol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk,dtype", SEQUENCES)
+def test_wkv_sequence_matches_reference(B, S, H, N, chunk, dtype):
+    """``ops.wkv_sequence`` on CPU tensors (the plain version) against the
+    JAX model's ``wkv_chunked`` (a ``lax.scan`` of the chunk math)."""
+    js, ts = _inputs(B, S, H, N, dtype, seed=4)
+    y_want, s_want = ref_wkv_chunked(*js.values(), chunk)
+    before = kernel.WKV_LAUNCHES
+    y, s1 = ops.wkv_sequence(*ts.values(), chunk)
+    assert kernel.WKV_LAUNCHES == before
+    assert y.shape == (B, S, H, N) and y.dtype == ts["r"].dtype
+    assert s1.shape == (B, H, N, N) and s1.dtype == torch.float32
+    assert str(np.asarray(y_want).dtype) == dtype
+    _close_y(y.float(), np.asarray(y_want, np.float32), dtype, 1e-4)
+    _close(s1, s_want, 1e-4)
+
+
+def _pallas_scan(js, chunk):
+    """The TPU kernel's function, scanned: the sequence zero-padded to
+    whole chunks of C = min(chunk, S), each chunk through the Pallas
+    kernel in interpret mode, the state handed on; y in f32."""
+    B, S, H, N = js["r"].shape
+    C = min(chunk, S)
+    pad = (-S) % C
+    seq = [jnp.pad(js[n], ((0, 0), (0, pad), (0, 0), (0, 0)))
+           for n in ("r", "k", "v", "logw")]
+    state, ys = js["state"], []
+    for i in range(0, S + pad, C):
+        y, state = ref_wkv_chunk(*(t[:, i:i + C] for t in seq), js["u"], state,
+                                 interpret=True)
+        ys.append(np.asarray(y))
+    return np.concatenate(ys, axis=1)[:, :S], np.asarray(state)
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk,dtype", SEQUENCES)
+def test_wkv_sequence_matches_pallas_chunk_scan(B, S, H, N, chunk, dtype):
+    """The one-launch-a-layer function held to the TPU kernel's function,
+    scanned over the chunks, at the chunk tests' 5e-4."""
+    js, ts = _inputs(B, S, H, N, dtype, seed=5)
+    y_want, s_want = _pallas_scan(js, chunk)
+    y, s1 = ops.wkv_sequence(*ts.values(), chunk)
+    _close_y(y.float(), y_want, dtype, TOL["float32"])
+    _close(s1, s_want, TOL["float32"])
+
+
+def test_wkv_sequence_kernel_takes_cuda_tensors_only():
+    _, ts = _inputs(1, 5, 2, 16)
+    before = kernel.WKV_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.wkv_sequence_kernel(*ts.values(), 16)
+    assert kernel.WKV_LAUNCHES == before
+
+
+def test_wkv_sequence_rejects_mixed_devices():
+    _, ts = _inputs(1, 4, 2, 16)
+    ts["u"] = ts["u"].to("meta")
+    with pytest.raises(ValueError, match="devices"):
+        ops.wkv_sequence(*ts.values(), 16)
+
+
+def test_wkv_chunked_is_one_sequence_call_a_layer(monkeypatch):
+    """The model's prefill and decode step each call ``ops.wkv_sequence``
+    once a layer (on the card: one kernel launch a layer), and nothing
+    else of the WKV ops."""
+    cfg = rwkv_smoke()
+    params = rwkv.perturb_constant_leaves(rwkv.init_params(cfg, seed=0, device="cpu"))
+    calls = []
+
+    def count(r, k, v, logw, u, state, chunk, out=None):
+        calls.append((tuple(r.shape), chunk, out is not None
+                      and out.data_ptr() == state.data_ptr()))
+        return ref.wkv_sequence_ref(r, k, v, logw, u, state, chunk, out=out)
+
+    def refuse(*args):
+        raise AssertionError("the model called the one-chunk entry")
+
+    monkeypatch.setattr(ops, "wkv_sequence", count)
+    monkeypatch.setattr(ops, "wkv_chunk_rows", refuse)
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(1, cfg.vocab, (3, 23)))
+    _, state = rwkv.prefill(params, tokens, cfg)
+    H, N = cfg.n_heads, cfg.head_size
+    assert calls == [((3, 23, H, N), cfg.chunk, True)] * cfg.n_layers
+    calls.clear()
+    rwkv.decode_step(params, state, tokens[:, -1], 23, cfg)
+    assert calls == [((3, 1, H, N), cfg.chunk, True)] * cfg.n_layers
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_wkv_sequence_writes_the_state_to_out(in_place):
+    """``out=`` takes the final state (in place when it is the input
+    state): the same values as a new tensor, and y unchanged."""
+    _, ts = _inputs(2, 21, 4, 16, seed=8)
+    y_want, s_want = ops.wkv_sequence(*ts.values(), 8)
+    state = ts["state"].clone()
+    out = state if in_place else torch.full_like(state, float("nan"))
+    y, s1 = ops.wkv_sequence(*(t if n != "state" else state for n, t in ts.items()), 8,
+                             out=out)
+    assert s1 is out
+    torch.testing.assert_close(s1, s_want, atol=0, rtol=0)
+    torch.testing.assert_close(y, y_want, atol=0, rtol=0)
+
+
+def test_decode_step_updates_the_state_tensors_in_place():
+    """``decode_step`` writes every layer's WKV state into the tensor it was
+    given, and gives what a step on a copy of the state gives."""
+    cfg = rwkv_smoke()
+    params = rwkv.perturb_constant_leaves(rwkv.init_params(cfg, seed=0, device="cpu"))
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(1, cfg.vocab, (2, 9)))
+    _, state = rwkv.prefill(params, tokens[:, :-1], cfg)
+    copy = {n: t.clone() for n, t in state.items()}
+    wkv = state["wkv"]
+    logits, new = rwkv.decode_step(params, state, tokens[:, -1], 8, cfg)
+    assert new["wkv"] is wkv and not torch.equal(wkv, copy["wkv"])
+    want, _ = rwkv.prefill(params, tokens, cfg)
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
 
 
 def test_wkv_chunked_keeps_the_input_dtype():
