@@ -24,21 +24,34 @@ Phases, in order; any failure raises and exits non-zero:
               ring of 4; aligned and misaligned; into a new tensor and in
               place), its pair entry (each bucket's two half-chunk pairs as
               the ring forms them, an empty second half, 8 pairs; one
-              launch a call) and the int8 quantize/dequantize kernels
-              against their plain versions (the 24 buckets padded to 256·4
-              and their shards at magnitudes 1e-3, 1 and 1e3, zero blocks,
-              blocks of exact .5 ties; outputs started as NaN) and the
-              dequantize's peer-sum entry (the 24 buckets' shards at g = 4
-              and the tie blocks) against theirs: bit for bit.  Then each
-              timed over one rank's training step of launches (72 combines
-              of two pairs, 48 quantizes, 48 dequantizes, 24 peer sums)
-              with CUDA events, torch.profiler and the host's enqueue time,
+              launch a call) and the int8 kernels against their plain
+              versions, bit for bit: the quantize/dequantize on the 24
+              buckets padded to 256·4 and their shards (magnitudes 1e-3, 1
+              and 1e3, zero blocks, blocks of exact .5 ties; outputs
+              started as NaN); the quantize of an unpadded buffer, as
+              phase 1 runs it, on the 24 buckets at their real lengths (4
+              ragged), n = 1001, n = 255 + 256·k and a bucket of fewer than
+              256 elements, with NaN past n in memory; the fused
+              sum-requantize (phases 2-3) and the dequantize's peer-sum
+              entry on the 24 buckets' shards at
+              g = 4, on the tie blocks, and the fused entry at g = 1, 2, 3,
+              8 and 9; outputs started as poison (scales NaN, q 0x7f), one
+              launch a call.  Then each timed over one rank's training
+              step of launches (72 combines of two pairs, 48 quantizes, 24
+              fused sum-requantizes, 48 dequantizes, 24 peer sums) with
+              CUDA events, torch.profiler and the host's enqueue time,
               beside its byte bound, its plain version and one PyTorch call
               (``torch._foreach_add_`` a hop, and ``torch.add`` a pair;
-              ``torch.mul``).  The main path's dequantize work a step (24
-              peer sums + 24 dequantizes) is timed in turns against what it
-              replaces (48 dequantizes + 72 ``torch.add``) and against
-              ``torch.mul`` + ``torch.add``.
+              ``torch.mul``).  The main path's quantize work a step (24
+              quantizes of the unpadded buckets + 24 fused launches) in
+              turns against what it replaces (F.pad of the 4 ragged
+              buckets, 48 quantizes at the parent's launch path, 24 peer
+              sums), with device time (and the profiler's
+              span over CUDA events) beside both bounds; the dequantize
+              work of the peer-sum path (24 peer sums + 24 dequantizes)
+              against 48 dequantizes + 72 ``torch.add`` and ``torch.mul``
+              + ``torch.add``.  (By hand: ``ring_quant_in_turns`` runs
+              another tree's ``phase_ring_quant`` in turns with this one.)
   train       full-width ResNet-50/CIFAR, global batch 256 at 32x32, SGD
               with momentum 0.9, clip 1.0, on a one-rank NCCL group:
               funnel, concom and depcha from the same seeded weights, 1
@@ -63,9 +76,10 @@ Phases, in order; any failure raises and exits non-zero:
               compressed within the int8 quantization bound of the flat
               sum on every block; one captured bucket's ring allreduce with
               the kernel = with the plain add, bit for bit; the launch
-              counts of the four kernels exactly as ``step_launches``
-              predicts from the plan (one combine a ring hop: 72 a step;
-              one peer sum and one dequantize a compressed bucket).
+              counts of the five kernel entries exactly as
+              ``step_launches`` predicts from the plan (one combine a ring
+              hop: 72 a step; one quantize, one fused sum-requantize and
+              one dequantize a compressed bucket, no peer sum).
   hierarchical four rank processes on the one card as ``reducers``, on
               pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
               reduce-scatter and all-gather (the intra-pod rings, through
@@ -89,7 +103,7 @@ Phases, in order; any failure raises and exits non-zero:
               hierarchical_ring on the kernels = through the plain rings,
               peer-ring launches exactly as ``hier_launches`` predicts and
               their stream waits as ``hier_memops`` does, and none of
-              rows 3, 6, 7 (nor the peer sum).  (By hand:
+              rows 3, 6, 7 (nor the peer sum or the fused entry).  (By hand:
               ``peer_rings_in_turns`` times another tree's rings in turns
               with these.)
   flash       cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA) code in
@@ -602,16 +616,22 @@ RING_QUANT_SOURCES = {
     "ring_accum_kernel": "src/repro_torch/kernels/collectives/csrc/ring_accum.cu",
     "quantize_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
     "dequantize_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
-    "dequantize_sum_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu"}
+    "dequantize_sum_blocks_kernel": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
+    "dequantize_sum_quantize_blocks_kernel":
+        "src/repro_torch/kernels/quantize/csrc/quantize.cu"}
 RING_QUANT_REPLACES = {
     "ring_accum_kernel": "src/repro/kernels/collectives/kernel.py:117",
     "quantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:33",
     "dequantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:54",
     # the dequantize's second entry: phase 2 of src/repro/core/compression.py:79-83
-    "dequantize_sum_blocks_kernel": "src/repro/kernels/quantize/kernel.py:54"}
+    "dequantize_sum_blocks_kernel": "src/repro/kernels/quantize/kernel.py:54",
+    # the quantize's second entry: phases 2 and 3 of src/repro/core/compression.py:79-89
+    "dequantize_sum_quantize_blocks_kernel": "src/repro/kernels/quantize/kernel.py:33"}
 QUANTIZE_LIBRARY = "none: no single PyTorch call computes an int8 block quantization"
 PEER_SUM_LIBRARY = ("none: no single PyTorch call dequantizes and sums the peers' shards; "
                     "composite_ms times torch.mul over the g shards + g - 1 torch.add")
+SUM_QUANTIZE_LIBRARY = ("none: no single PyTorch call dequantizes, sums and requantizes "
+                        "the peers' shards")
 
 
 def ring_halves(size: int) -> tuple[int, int]:
@@ -631,12 +651,14 @@ def step_launches(sizes, reducer: str) -> dict:
     bucket sizes: a ring reduce-scatter (the ring reducer's, or rsag's)
     combines once a hop, both directions in one launch, over RING - 1
     hops; the compressed reducers, for each bucket of at least 256 · RING
-    elements, quantize twice, sum the peers' shards once (phase 2) and
-    dequantize once (phase 3)."""
+    elements, quantize the unpadded bucket once (phase 1), sum the peers'
+    shards and requantize the sum in one launch (phases 2-3) and
+    dequantize once (after the gather); the peer sum alone never runs."""
     accum = (RING - 1) * len(sizes) if reducer == "ring" else 0
     big = (sum(n >= QBLOCK * RING for n in sizes)
            if reducer.startswith("compressed") else 0)
-    return {"accum": accum, "quantize": 2 * big, "dequantize": big, "dequantize_sum": big}
+    return {"accum": accum, "quantize": big, "sum_quantize": big, "dequantize": big,
+            "dequantize_sum": 0}
 
 
 def tie_blocks() -> torch.Tensor:
@@ -657,7 +679,8 @@ def check_quantize(x: torch.Tensor, what: str) -> None:
     from repro_torch.kernels.quantize import kernel, ref
 
     xb = x.reshape(-1, QBLOCK)
-    q, s = kernel.quantize_blocks_kernel(xb)
+    q, s = kernel.quantize_blocks_kernel(x.reshape(-1))
+    q = q.view(-1, QBLOCK)
     q_p, s_p = ref.quantize_ref(xb)
     same_bits(q, q_p, f"quantize {what}: q")
     same_bits(s, s_p, f"quantize {what}: scales")
@@ -671,7 +694,7 @@ def peer_shards(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (q (g, k·256) int8, s (g, k) f32), as phase 2 receives them."""
     from repro_torch.kernels.quantize import kernel
 
-    q, s = kernel.quantize_blocks_kernel(x.reshape(-1, QBLOCK))
+    q, s = kernel.quantize_blocks_kernel(x.reshape(-1))
     return q.view(x.shape[0], -1), s.view(x.shape[0], -1)
 
 
@@ -689,11 +712,62 @@ def check_peer_sum(x: torch.Tensor, what: str) -> None:
     same_bits(got, ref.dequantize_sum_ref(q, s), f"peer sum {what}")
 
 
+def nan_tail(n: int, gen, scale: float = 1.0) -> torch.Tensor:
+    """(n,) f32 random values, a view of a longer tensor whose elements
+    past n are NaN: a kernel that uses one of them makes a NaN scale."""
+    x = torch.full((n + 64,), float("nan"), device="cuda")
+    x[:n] = torch.randn(n, generator=gen, device="cuda") * scale
+    if n >= QBLOCK:
+        x[:QBLOCK] = 0.0                              # a zero block
+    return x[:n]
+
+
+def check_unpadded_quantize(buf: torch.Tensor, m: int, what: str) -> None:
+    """The quantize of ``buf`` (n,) read as zero-padded to m elements, as
+    phase 1 runs it, against the plain version of
+    the zero-padded buffer, bit for bit, into outputs started as poison
+    (q 0x7f, scales NaN); one launch a call."""
+    from repro_torch.kernels.quantize import kernel, ref
+
+    q = torch.full((m,), 0x7f, dtype=torch.int8, device="cuda")
+    s = torch.full((m // QBLOCK,), float("nan"), device="cuda")
+    before = kernel.QUANTIZE_LAUNCHES
+    kernel.quantize_blocks_kernel(buf, n_blocks=m // QBLOCK, q_out=q, s_out=s)
+    if kernel.QUANTIZE_LAUNCHES != before + 1:
+        raise AssertionError("quantize_blocks_kernel: expected one launch a call")
+    q_p, s_p = ref.quantize_ref(ref.zero_padded(buf, m).view(-1, QBLOCK))
+    same_bits(q, q_p.reshape(-1), f"unpadded quantize {what}: q")
+    same_bits(s, s_p, f"unpadded quantize {what}: scales")
+
+
+def check_sum_quantize(x: torch.Tensor, what: str) -> None:
+    """The fused sum-requantize against its plain version (the peer sum,
+    then the quantize) on the peers' shards of ``x`` (g, k·256), bit for
+    bit, into outputs started as poison (q 0x7f, scales NaN); one launch
+    a call."""
+    from repro_torch.kernels.quantize import kernel, ref
+
+    q, s = peer_shards(x)
+    k = s.shape[1]
+    q2 = torch.full((k * QBLOCK,), 0x7f, dtype=torch.int8, device="cuda")
+    s2 = torch.full((k,), float("nan"), device="cuda")
+    before = kernel.SUM_QUANTIZE_LAUNCHES
+    kernel.dequantize_sum_quantize_blocks_kernel(q, s, q_out=q2, s_out=s2)
+    if kernel.SUM_QUANTIZE_LAUNCHES != before + 1:
+        raise AssertionError("dequantize_sum_quantize_blocks_kernel: expected one launch "
+                             "a call")
+    q_p, s_p = ref.dequantize_sum_quantize_ref(q, s)
+    same_bits(q2, q_p, f"sum-requantize {what}: q")
+    same_bits(s2, s_p, f"sum-requantize {what}: scales")
+
+
 def phase_ring_quant() -> dict:
     """Rows 3, 6 and 7 against their plain versions on the card, bit for
     bit, then each timed over one training step's launches on one rank of
     a ring of 4 (CUDA events back to back, and the device's own time from
-    torch.profiler) beside its byte bound and one PyTorch call."""
+    torch.profiler) beside its byte bound and one PyTorch call; the
+    main path's quantize work a step and the peer-sum path's dequantize work a step, each in
+    turns against the composition it replaced."""
     from repro_torch.kernels.collectives import kernel as ck
     from repro_torch.kernels.collectives import ref as cr
     from repro_torch.kernels.quantize import kernel as qk
@@ -741,28 +815,57 @@ def phase_ring_quant() -> dict:
     log(f"[ring_quant] quantize/dequantize bit-exact with the plain versions on "
         f"{n_checks} buffers (the 24 buckets padded to 256·{RING} and their "
         f"shards, magnitudes 1e-3/1/1e3, a zero block each) and on the tie blocks")
+    ragged = [n for n in sizes if n != padded(n)]
+    lengths = [(n, padded(n)) for n in sizes] + [
+        (1001, 1024), *[(255 + QBLOCK * k, padded(255 + QBLOCK * k)) for k in (1, 2, 5)],
+        (100, padded(100))]
+    n_checks = 0
+    for i, (n, m) in enumerate(lengths):
+        check_unpadded_quantize(nan_tail(n, gen, (1e-3, 1.0, 1e3)[i % 3]), m,
+                                f"n={n} m={m}")
+        n_checks += 1
+    torch.cuda.synchronize()
+    log(f"[ring_quant] quantize of unpadded buffers bit-exact with the plain version of "
+        f"the zero-padded buffer in {n_checks} launches (one a call): the {len(sizes)} "
+        f"buckets at their real lengths ({len(ragged)} ragged: {ragged}), n = 1001, "
+        f"n = 255 + 256·k and n = 100, NaN past n in memory, outputs started as poison")
+    peer_checks = qk.DEQUANTIZE_SUM_LAUNCHES
     for i, n in enumerate(sizes):                     # phase 2's shards of each bucket
         x = torch.randn(RING, padded(n) // RING, generator=gen, device="cuda")
         x *= torch.tensor([1e-3, 1.0, 1e3, 1.0], device="cuda")[:, None]
         x[i % RING, :QBLOCK] = 0.0                    # a zero block on one peer
         check_peer_sum(x, f"b{i} ({RING} x {x.shape[1]})")
+        check_sum_quantize(x, f"b{i} ({RING} x {x.shape[1]})")
     ties = tie_blocks().reshape(1, -1)
-    check_peer_sum(torch.cat([ties, -ties, 2 * ties, ties.flip(1)]), "tie blocks")
+    ties = torch.cat([ties, -ties, 2 * ties, ties.flip(1)])
+    check_peer_sum(ties, "tie blocks")
+    check_sum_quantize(ties, "tie blocks")
+    peer_checks = qk.DEQUANTIZE_SUM_LAUNCHES - peer_checks
+    for g in (1, 2, 3, 8, 9):                         # across kPeerChunk (8)
+        x = torch.randn(g, 37 * QBLOCK, generator=gen, device="cuda")
+        x *= torch.logspace(-3, 3, g, device="cuda")[:, None]
+        x[:, :QBLOCK] = 0.0
+        check_sum_quantize(x, f"g={g} (37 blocks)")
     torch.cuda.synchronize()
     log(f"[ring_quant] dequantize_sum_blocks_kernel bit-exact with the plain peer sum "
-        f"(dequantize, then the adds in peer order) on the {len(sizes)} buckets' "
+        f"(dequantize, then the adds in peer order) and dequantize_sum_quantize_blocks_"
+        f"kernel with the plain peer sum quantized, on the {len(sizes)} buckets' "
         f"phase-2 shards at g = {RING} (peers at 1e-3/1/1e3/1, a zero block each) "
-        f"and on the tie blocks; one launch a call, output started as NaN")
+        f"and on the tie blocks, the fused entry also at g = 1, 2, 3, 8, 9; one launch "
+        f"a call, outputs started as NaN (and q as 0x7f)")
 
     # one rank's step of the main path: 3 combines a bucket (one a hop, both
     # halves), 2 quantizes (m, m/4) and 2 dequantizes (m, m) a bucket
     hops = ring_step_hops(sizes, gen)
     pairs = [(m, c) for msgs, chunks in hops for m, c in zip(msgs, chunks)]
-    qin = [torch.randn(k, generator=gen, device="cuda").view(-1, QBLOCK)
+    qin = [torch.randn(k, generator=gen, device="cuda")
            for n in sizes for k in (padded(n), padded(n) // RING)]
-    qs = [qk.quantize_blocks_kernel(torch.randn(padded(n), generator=gen,
-                                                device="cuda").view(-1, QBLOCK))
-          for n in sizes for _ in range(2)]
+    qin2d = [x.view(-1, QBLOCK) for x in qin]        # the parent's and the plain form
+    qs = [(q.view(-1, QBLOCK), s) for q, s in (
+        qk.quantize_blocks_kernel(torch.randn(padded(n), generator=gen, device="cuda"))
+        for n in sizes for _ in range(2))]
+    # phase 1's inputs: each bucket at its real length, and its padded length
+    p1 = [(torch.randn(n, generator=gen, device="cuda"), padded(n)) for n in sizes]
     # the main path's dequantize work a step: a peer sum of the received
     # shards (phase 2) and a dequantize of the gathered buffer (phase 3)
     recv = [(q.view(RING, -1), s.view(RING, -1)) for q, s in qs[0::2]]
@@ -781,9 +884,10 @@ def phase_ring_quant() -> dict:
             nbytes=sum(3 * a.numel() * 4 for a, _ in pairs), yardsticks={"add_ms": add}),
         "quantize_blocks_kernel": dict(
             kernel=lambda: [qk.quantize_blocks_kernel(x) for x in qin],
-            plain=lambda: [qr.quantize_ref(x) for x in qin],
+            plain=lambda: [qr.quantize_ref(x) for x in qin2d],
             library=None, library_call=QUANTIZE_LIBRARY, launches=len(qin),
-            nbytes=sum(x.numel() * (4 + 1) + x.shape[0] * 4 for x in qin)),
+            nbytes=sum(x.numel() * (4 + 1) + x.shape[0] * 4 for x in qin2d),
+            yardsticks={"parent_path_ms": lambda: [parent_launch_quantize(x) for x in qin2d]}),
         "dequantize_blocks_kernel": dict(
             kernel=lambda: [qk.dequantize_blocks_kernel(q, s) for q, s in qs],
             plain=lambda: [qr.dequantize_ref(q, s) for q, s in qs],
@@ -796,6 +900,12 @@ def phase_ring_quant() -> dict:
             library=None, library_call=PEER_SUM_LIBRARY, launches=len(recv),
             nbytes=sum(q.numel() + s.numel() * 4 + q.shape[1] * 4 for q, s in recv),
             yardsticks={"composite_ms": lambda: [composite_peer_sum(q, s) for q, s in recv]}),
+        "dequantize_sum_quantize_blocks_kernel": dict(
+            kernel=lambda: [qk.dequantize_sum_quantize_blocks_kernel(q, s) for q, s in recv],
+            plain=lambda: [qr.dequantize_sum_quantize_ref(q, s) for q, s in recv],
+            library=None, library_call=SUM_QUANTIZE_LIBRARY, launches=len(recv),
+            nbytes=sum(q.numel() + s.numel() * 4 + q.shape[1] + s.shape[1] * 4
+                       for q, s in recv)),
     }
 
     rows = {}
@@ -819,11 +929,108 @@ def phase_ring_quant() -> dict:
                 host_ms_per_launch=host_ms(w["kernel"], reps=20) / len(hops),
                 library_host_ms_per_call=host_ms(w["library"], reps=20) / len(hops),
                 add_host_ms_per_call=host_ms(add, reps=20) / len(pairs))
-        if name.startswith("dequantize"):
+        else:
             rows[name]["host_ms_per_launch"] = host_ms(w["kernel"], reps=20) / w["launches"]
+        if name == "quantize_blocks_kernel":
+            rows[name]["parent_path_host_ms_per_launch"] = host_ms(
+                w["yardsticks"]["parent_path_ms"], reps=20) / w["launches"]
         log(f"[ring_quant] {name}: " + json.dumps(rows[name]))
+    rows["quantize_step"] = quantize_step(p1, recv)
     rows["dequantize_step"] = dequantize_step(recv, gathered)
+    rows["peer_sum_check_launches"] = peer_checks
     return rows
+
+
+def parent_launch_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quantize of x (n_blocks, 256) f32 as the parent's wrapper
+    launched it, the yardstick of ``quantize_step``: the shape and the full
+    ``_check`` of x, two ``torch.empty``, the stream read through
+    ``torch.cuda.current_stream``, then the same kernel at one block a warp
+    (x a whole number of blocks).  Not counted: it is no wrapper of the
+    port."""
+    from repro_torch.kernels.quantize import kernel as qk
+
+    n = qk._blocks(x, "x")
+    qk._check(x, "x", torch.float32, (n, QBLOCK), x.device)
+    q = torch.empty((n, QBLOCK), dtype=torch.int8, device=x.device)
+    s = torch.empty(n, dtype=torch.float32, device=x.device)
+    rc = qk._lib().quantize_blocks(x.data_ptr(), q.data_ptr(), s.data_ptr(), n, n * QBLOCK,
+                                   x.device.index,
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quantize launch failed: CUDA error {rc}")
+    return q, s
+
+
+def quantize_step(p1, recv) -> dict:
+    """One rank's quantize work of a compressed step as the main path runs
+    it: 24 quantizes of the unpadded buckets (phase 1) and 24 fused
+    sum-requantizes (phases 2-3), timed in turns against the composition
+    it replaced (F.pad of a ragged bucket, a quantize, the peer sum and a
+    quantize of the sum, the quantizes at the parent's launch path), with
+    device time (torch.profiler, and its span over CUDA events), host time,
+    both byte bounds (each input read once, each output written once) and
+    the plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.kernels.quantize import ref as qr
+
+    def main_path():
+        for buf, m in p1:
+            qk.quantize_blocks_kernel(buf, n_blocks=m // QBLOCK)
+        for q, s in recv:
+            qk.dequantize_sum_quantize_blocks_kernel(q, s)
+
+    def replaced():
+        for buf, m in p1:
+            x = F.pad(buf, (0, m - buf.numel())) if m != buf.numel() else buf
+            parent_launch_quantize(x.view(-1, QBLOCK))
+        for q, s in recv:
+            parent_launch_quantize(qk.dequantize_sum_blocks_kernel(q, s).view(-1, QBLOCK))
+
+    def plain():
+        for buf, m in p1:
+            qr.quantize_ref(qr.zero_padded(buf, m).view(-1, QBLOCK))
+        for q, s in recv:
+            qr.dequantize_sum_quantize_ref(q, s)
+
+    turns = cuda_ms_in_turns({"ms": main_path, "replaced_ms": replaced})
+    dev = device_ms_clock_checked(main_path, r"(?:dequantize_sum_)?quantize_blocks_kernel",
+                                  reps=10)
+    rdev = device_ms_clock_checked(replaced, None, reps=10)
+    launches = len(p1) + len(recv)
+    ragged = sum(m != b.numel() for b, m in p1)
+    nbytes = (sum(b.numel() * 4 + m + m // QBLOCK * 4 for b, m in p1)
+              + sum(q.numel() + s.numel() * 4 + q.shape[1] + s.shape[1] * 4
+                    for q, s in recv))
+    pad_bytes = sum(b.numel() * 4 + m * 4 for b, m in p1 if m != b.numel())
+    replaced_bytes = (pad_bytes + sum(m * 4 + m + m // QBLOCK * 4 for _, m in p1)
+                      + sum(q.numel() + s.numel() * 4 + q.shape[1] * 4 for q, s in recv)
+                      + sum(q.shape[1] * (4 + 1) + s.shape[1] * 4 for q, s in recv))
+    row = dict(
+        ms=sum(turns["ms"]) / 2, replaced_ms=sum(turns["replaced_ms"]) / 2,
+        device_ms=dev["device_ms_per_launch"], events_ms=dev["events_ms_per_launch"],
+        profiler_span_over_events=dev["span_over_events"],
+        device_launches_per_step=dev["device_events_per_call"],
+        replaced_device_ms=rdev["device_ms_per_launch"],
+        replaced_profiler_span_over_events=rdev["span_over_events"],
+        replaced_device_events_per_step=rdev["device_events_per_call"],
+        host_ms_per_launch=host_ms(main_path, reps=20) / launches,
+        replaced_host_ms_per_step=host_ms(replaced, reps=20),
+        plain_ms=cuda_ms(plain, reps=3, warmup=1),
+        library_ms=None, library=SUM_QUANTIZE_LIBRARY,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", step_bytes=nbytes,
+        replaced_bound_ms=replaced_bytes / HBM_BYTES_PER_S * 1e3,
+        replaced_step_bytes=replaced_bytes, launches_per_step=launches,
+        replaced_counted_launches_per_step=len(p1) + 2 * len(recv),
+        replaced_pad_copies_per_step=ragged, turns=turns)
+    row["ms_over_replaced"] = row["ms"] / row["replaced_ms"]
+    row["device_over_replaced"] = row["device_ms"] / row["replaced_device_ms"]
+    row["device_over_bound"] = row["device_ms"] / row["bound_ms"]
+    log("[ring_quant] quantize work a step (24 unpadded quantizes + 24 fused "
+        "sum-requantizes): " + json.dumps(row))
+    return row
 
 
 def composite_peer_sum(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -837,9 +1044,10 @@ def composite_peer_sum(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def dequantize_step(recv, gathered) -> dict:
-    """One rank's dequantize work of a compressed step on the main path
-    (a peer sum a bucket for phase 2, a dequantize a bucket for phase 3),
-    timed in turns against the composition it replaced (phase 2 as a
+    """One rank's dequantize work of a compressed step on the peer-sum
+    path (a peer sum a bucket for phase 2, a dequantize a bucket after the
+    gather; the main path now fuses phase 2 into the requantize and runs
+    only the dequantizes), timed in turns against the composition it replaced (phase 2 as a
     dequantize of the g shards and g - 1 ``torch.add``) and against
     library calls (``torch.mul`` + ``torch.add``, ``torch.mul``), with its
     device time and byte bound."""
@@ -1011,7 +1219,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
             [b.size for b in ts.gradsync.plan.buckets], reducer).items()}
         trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
         ck.ACCUM_LAUNCHES = qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = 0
-        qk.DEQUANTIZE_SUM_LAUNCHES = 0
+        qk.DEQUANTIZE_SUM_LAUNCHES = qk.SUM_QUANTIZE_LAUNCHES = 0
         for step in range(REDUCER_STEPS):
             model, opt_state, hist = trainer.run(model, opt_state, step + 1,
                                                  start_step=step)
@@ -1020,6 +1228,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
             _same_on_every_rank([p for _, p in named], f"{run} params after step {step}",
                                 host)
         launches = {"accum": ck.ACCUM_LAUNCHES, "quantize": qk.QUANTIZE_LAUNCHES,
+                    "sum_quantize": qk.SUM_QUANTIZE_LAUNCHES,
                     "dequantize": qk.DEQUANTIZE_LAUNCHES,
                     "dequantize_sum": qk.DEQUANTIZE_SUM_LAUNCHES}
         if launches != predicted:
@@ -1470,12 +1679,13 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
         step_sizes = [b.size for b in ts.gradsync.plan.buckets]
         predicted = {k: v * REDUCER_STEPS for k, v in
                      hier_launches(step_sizes, reducer, data).items()}
-        predicted.update(accum=0, quantize=0, dequantize=0, dequantize_sum=0)
+        predicted.update(accum=0, quantize=0, sum_quantize=0, dequantize=0, dequantize_sum=0)
         memops_predicted = {k: v * REDUCER_STEPS for k, v in
                             hier_memops(step_sizes, reducer, data).items()}
         trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
         ck.RS_LAUNCHES = ck.AG_LAUNCHES = ck.ACCUM_LAUNCHES = 0
         qk.QUANTIZE_LAUNCHES = qk.DEQUANTIZE_LAUNCHES = qk.DEQUANTIZE_SUM_LAUNCHES = 0
+        qk.SUM_QUANTIZE_LAUNCHES = 0
         memops0 = ck.stream_memops()
         for step in range(REDUCER_STEPS):
             model, opt_state, hist = trainer.run(model, opt_state, step + 1,
@@ -1486,6 +1696,7 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
                                 host)
         launches = {"rs": ck.RS_LAUNCHES, "ag": ck.AG_LAUNCHES,
                     "accum": ck.ACCUM_LAUNCHES, "quantize": qk.QUANTIZE_LAUNCHES,
+                    "sum_quantize": qk.SUM_QUANTIZE_LAUNCHES,
                     "dequantize": qk.DEQUANTIZE_LAUNCHES,
                     "dequantize_sum": qk.DEQUANTIZE_SUM_LAUNCHES}
         memops = {k: v - memops0[k] for k, v in ck.stream_memops().items()}
@@ -1620,6 +1831,34 @@ def trees_in_turns(parent: str, turn, what: str, brief=None) -> list:
     return turns
 
 
+def ring_quant_in_turns(parent: str) -> list:
+    """By hand, on one card: ``phase_build`` and ``phase_ring_quant`` of
+    the tree at ``parent`` and of this tree, each turn a fresh process
+    that runs its tree's own script (so its own kernels and launch paths),
+    through ``trees_in_turns``; logs each turn's row 6 and 7 times."""
+    code = ("import json, chip_smoke as cs; cs.phase_build(); "
+            "print('RING_QUANT ' + json.dumps(cs.phase_ring_quant()), flush=True)")
+
+    def turn(tree):
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"ring_quant turn in {tree} failed:\n"
+                               f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+        return json.loads(res.stdout.split("RING_QUANT ", 1)[1].splitlines()[0])
+
+    keys = ("ms", "device_ms", "host_ms_per_launch", "replaced_ms", "replaced_device_ms",
+            "parent_path_ms", "parent_path_host_ms_per_launch")
+
+    def brief(rows):
+        return {name: {k: r[k] for k in keys if k in r} for name, r in rows.items()
+                if name in ("quantize_blocks_kernel", "dequantize_sum_blocks_kernel",
+                            "dequantize_sum_quantize_blocks_kernel", "quantize_step",
+                            "dequantize_step")}
+
+    return trees_in_turns(parent, turn, "ring_quant", brief=brief)
+
+
 def phase_hierarchical(backend: str = "gloo") -> dict:
     """Four rank processes: the peer-ring kernels and the hierarchical
     reducers under GradSync at full ResNet-50/CIFAR width, on pod 2 x
@@ -1749,19 +1988,21 @@ def device_ms_per_launch(fn, kernel_name: str, reps: int = 50) -> float:
                and word.search(e.key)) / reps
 
 
-def device_ms_clock_checked(fn, kernel_name: str, reps: int = 50) -> dict:
+def device_ms_clock_checked(fn, kernel_name: str | None, reps: int = 50) -> dict:
     """``device_ms_per_launch`` of one profiled loop, with a check of the
     profiler's clock: CUDA events around the same loop, and the span from
     the first of its kernels to the last on the profiler's clock.  Where
     the device runs the loop back to back, ``span_over_events`` is near 1;
     a smaller one says that the profiler's timestamps, and so its device
-    times, read low by about that factor."""
+    times, read low by about that factor.  ``kernel_name`` None takes
+    every device event; ``device_events_per_call`` counts those taken."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    word = re.compile(rf"(?<![A-Za-z0-9_]){kernel_name}(?![A-Za-z0-9_])")
+    word = (re.compile(rf"(?<![A-Za-z0-9_]){kernel_name}(?![A-Za-z0-9_])")
+            if kernel_name is not None else re.compile(""))
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1779,7 +2020,8 @@ def device_ms_clock_checked(fn, kernel_name: str, reps: int = 50) -> dict:
                - min(e.time_range.start for e in kernels)) / 1e3
     return dict(device_ms_per_launch=sum(e.time_range.elapsed_us() for e in kernels)
                 / 1e3 / reps, events_ms_per_launch=events_ms / reps,
-                span_over_events=span_ms / events_ms)
+                span_over_events=span_ms / events_ms,
+                device_events_per_call=len(kernels) / reps)
 
 
 def flash_sass_counts() -> dict:
@@ -2893,21 +3135,28 @@ def main() -> int:
         "chunk_entry": {"name": "wkv_chunk_kernel", "prefill_chunk": wkv_rows["chunk_prefill"],
                         "decode_chunk": wkv_rows["chunk_decode"]}})
     runs = reducers["runs"]
-    for name, counter in (("ring_accum_kernel", "accum"),
-                          ("quantize_blocks_kernel", "quantize"),
-                          ("dequantize_blocks_kernel", "dequantize"),
-                          ("dequantize_sum_blocks_kernel", "dequantize_sum")):
+    for name, counter, row in (("ring_accum_kernel", "accum", 3),
+                               ("quantize_blocks_kernel", "quantize", 6),
+                               ("dequantize_sum_quantize_blocks_kernel", "sum_quantize", 6),
+                               ("dequantize_blocks_kernel", "dequantize", 7),
+                               ("dequantize_sum_blocks_kernel", "dequantize_sum", 7)):
         r = ring_quant[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": RING_QUANT_SOURCES[name],
+            "name": name, "row": row, "route": "cuda", "source": RING_QUANT_SOURCES[name],
             "replaces": RING_QUANT_REPLACES[name],
             "launches": sum(run["launches"][counter] for run in runs.values()),
             "launches_by_run": {k: run["launches"][counter] for k, run in runs.items()},
             **r})
-    kernels[-2]["row"] = kernels[-1]["row"] = 7           # the dequantize and its peer sum
+    kernels[-3].update(entry_of="quantize_blocks_kernel",
+                       also_replaces="src/repro/core/compression.py:79-89 (phases 2 and 3)",
+                       main_path_step=ring_quant["quantize_step"])
     kernels[-1].update(entry_of="dequantize_blocks_kernel",
                        also_replaces="src/repro/core/compression.py:79 (phase 2's sum)",
-                       main_path_step=ring_quant["dequantize_step"])
+                       main_path=False,
+                       off_main_path="the fused entry runs phases 2-3 of the compressed "
+                                     "reducers: 0 launches in the reducers runs",
+                       check_launches=ring_quant["peer_sum_check_launches"],
+                       peer_sum_path_step=ring_quant["dequantize_step"])
     hier_runs = {k: v for k, v in hier["runs"].items() if "hierarchical_ring" in k}
     for name, counter in (("ring_reduce_scatter_kernel", "rs"),
                           ("ring_all_gather_kernel", "ag")):

@@ -13,9 +13,15 @@ Wire bytes: 2 × size × 1 byte against 2 × size × 4 bytes in f32.  The
 quantize and dequantize steps run through ``repro_torch.kernels.quantize``:
 the hand-written CUDA kernels on the card, their plain versions on the
 CPU, bit for bit alike and alike to the reference's jnp math compiled.
-Phase 2 is one pass, ``dequantize_sum_blocks`` (one launch a bucket on the
-card), as XLA fuses the reference's into one loop.  Every collective goes
-through ``core/dependency.py::collective``.
+Phase 1 quantizes the bucket as it is, read as if zero-padded to a
+multiple of 256 × g (``quantize_blocks(buf, pad_to=m)``): no padded copy
+is made.  Phases 2 and 3 are one call a bucket,
+``dequantize_sum_quantize_blocks`` (one launch on the card): the peer sum
+is quantized where it is made and never reaches device memory, bit for
+bit the quantize of what ``dequantize_sum_blocks`` computes.  The
+reference's ``inter_axes`` sum between the two phases is reached only
+from ``core/overlap.py``, which is not ported (ROADMAP queue 1 item 5).
+Every collective goes through ``core/dependency.py::collective``.
 
 Rounding: the peer sum adds dequantized shards, each product rounded
 once before its add.  XLA's CPU build of the reference fuses the
@@ -39,7 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import dependency as dep
 from repro_torch.kernels.collectives import ops as coll_ops
-from repro_torch.kernels.quantize import (dequantize_blocks, dequantize_sum_blocks,
+from repro_torch.kernels.quantize import (dequantize_blocks, dequantize_sum_quantize_blocks,
                                           quantize_blocks)
 
 BLOCK = 256
@@ -71,22 +77,21 @@ def compressed_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
             f"kernels take f32 (ROADMAP queue 1 item 7)")
     g = coll_ops.group_size(axes, mesh_shape)
     n = buf.shape[0]
-    buf_p, pad = _pad_to(buf, BLOCK * g)
-    m = buf_p.shape[0]
+    m = -(-n // (BLOCK * g)) * BLOCK * g           # the buffer padded to 256 · g
     if m < BLOCK * g:
         dep.collective(dist.all_reduce, group, buf).wait()
         return buf
 
-    # phase 1: every rank quantizes its local gradient, shards go to owners
-    q, s = quantize_blockwise(buf_p)
+    # phase 1: every rank quantizes its local gradient (read as zero-padded
+    # to m), shards go to owners
+    q, s = quantize_blockwise(buf, pad_to=m)
     q_recv = torch.empty_like(q)                   # (g · m/g,) int8
     s_recv = torch.empty_like(s)
     dep.collective(dist.all_to_all_single, group, q_recv, q).wait()
     dep.collective(dist.all_to_all_single, group, s_recv, s).wait()
-    # phase 2: dequantize each peer's shard and sum them in peer order
-    red = dequantize_sum_blocks(q_recv, s_recv, g)     # (m/g,) f32
-    # phase 3: requantize the reduced shard, all-gather
-    q2, s2 = quantize_blockwise(red)
+    # phases 2 and 3: dequantize each peer's shard, sum them in peer order
+    # and requantize the reduced shard, in one call; then all-gather
+    q2, s2 = dequantize_sum_quantize_blocks(q_recv, s_recv, g)   # (m/g,) int8
     if use_ring and len(coll_ops._ring_axes(axes, mesh_shape)) == 1:
         q_all = coll_ops.ring_all_gather(q2, axes, mesh_shape, group)
         s_all = coll_ops.ring_all_gather(s2, axes, mesh_shape, group)
@@ -96,7 +101,7 @@ def compressed_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
         dep.collective(dist.all_gather_into_tensor, group, q_all, q2).wait()
         dep.collective(dist.all_gather_into_tensor, group, s_all, s2).wait()
     out = dequantize_blockwise(q_all, s_all)
-    return out[:n] if pad else out
+    return out[:n] if m != n else out
 
 
 def error_feedback_step(grad: torch.Tensor, residual: torch.Tensor, sync_fn

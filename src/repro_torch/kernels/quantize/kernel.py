@@ -2,22 +2,27 @@
 
 ``quantize_blocks_kernel``/``dequantize_blocks_kernel`` are the CUDA
 counterparts of ``repro/kernels/quantize/kernel.py``'s Pallas kernels of
-the same names; ``dequantize_sum_blocks_kernel`` is the dequantize's
-entry for the compressed reducer's phase 2, g peers' shards dequantized
-and summed in peer order in one pass.  ``csrc/quantize.cu`` says what
-they replace, what bounds them and how they are laid out.  Like the TPU
-kernels they take f32 only.
+the same names.  The quantize reads an unpadded buffer as if it were
+zero-padded to its block count, so the compressed reducer makes no padded
+copy.  Two more entries serve the compressed reducer:
+``dequantize_sum_blocks_kernel`` (phase 2: g peers' shards dequantized
+and summed in peer order in one pass) and
+``dequantize_sum_quantize_blocks_kernel`` (phases 2 and 3: that sum,
+quantized where it is made, in one launch a bucket).
+``csrc/quantize.cu`` says what they replace, what bounds them and how
+they are laid out.  Like the TPU kernels they take f32 only.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface at first use (``kernels/_build.py``)
 and loaded with ``ctypes``.  Nothing here runs when the module is
 imported.  The wrappers take contiguous CUDA tensors only (int8 and f32
-elements 16-byte aligned), check them and raise on anything else,
-launch on the current stream, never synchronize, and count their
-launches in ``QUANTIZE_LAUNCHES``/``DEQUANTIZE_LAUNCHES``/
-``DEQUANTIZE_SUM_LAUNCHES``.  The dequantize entries check each tensor
-by one condition (``_check`` words a refusal) and read the current
-stream's raw handle, since a launch moves only a few MB.  There is no
+elements 16-byte aligned, scales 4-byte aligned), launch on the current
+stream, never synchronize, and count their launches in
+``QUANTIZE_LAUNCHES``/``DEQUANTIZE_LAUNCHES``/``DEQUANTIZE_SUM_LAUNCHES``/
+``SUM_QUANTIZE_LAUNCHES``.  A launch moves only a few MB, so the launch
+path is lean: each tensor is checked by one condition (``_check`` only
+words a refusal), the current stream's raw handle is read, and outputs
+may be passed in (``out=``, ``q_out=``/``s_out=``).  There is no
 fallback: a failed build or launch raises.
 """
 from __future__ import annotations
@@ -33,6 +38,7 @@ from repro_torch.kernels import _build
 QUANTIZE_LAUNCHES = 0
 DEQUANTIZE_LAUNCHES = 0
 DEQUANTIZE_SUM_LAUNCHES = 0
+SUM_QUANTIZE_LAUNCHES = 0
 
 BLOCK = 256      # kBlock in csrc/quantize.cu
 
@@ -48,20 +54,23 @@ def build() -> Path:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    for fn in (lib.quantize_blocks, lib.dequantize_blocks):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # in, in/out, out
-            ctypes.c_int64,                                     # blocks
-            ctypes.c_int,                                       # device index
-            ctypes.c_void_p,                                    # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.quantize_blocks.argtypes = [
+        ptr, ptr, ptr,          # x, q, scales
+        i64, i64,               # blocks, valid elements
+        i32, ptr]               # device index, cudaStream_t
+    lib.dequantize_blocks.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
     lib.dequantize_sum_blocks.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # q, scales, out
-        ctypes.c_int64, ctypes.c_int,                           # blocks a peer, peers
-        ctypes.c_int, ctypes.c_void_p,                          # device index, stream
-    ]
-    lib.dequantize_sum_blocks.restype = ctypes.c_int
+        ptr, ptr, ptr,          # q, scales, out
+        i64, i32,               # blocks a peer, peers
+        i32, ptr]
+    lib.dequantize_sum_quantize_blocks.argtypes = [
+        ptr, ptr, ptr, ptr,     # q, scales, q2, s2
+        i64, i32,               # blocks a peer, peers
+        i32, ptr]
+    for fn in (lib.quantize_blocks, lib.dequantize_blocks, lib.dequantize_sum_blocks,
+               lib.dequantize_sum_quantize_blocks):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -84,6 +93,23 @@ def _fits(t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.devic
             and t.is_contiguous() and not t.data_ptr() % align)
 
 
+def _out(t: torch.Tensor | None, what: str, dtype: torch.dtype, shape: tuple,
+         device: torch.device, align: int = 16) -> torch.Tensor:
+    """An output: ``t`` checked by one condition, or a new tensor (which
+    is contiguous and aligned)."""
+    if t is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if not _fits(t, dtype, shape, device, align):
+        _check(t, what, dtype, shape, device, align)
+    return t
+
+
+def _cuda(t: torch.Tensor, name: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {t.device}")
+    return t.device
+
+
 def _blocks(t: torch.Tensor, what: str) -> int:
     if t.dim() != 2 or t.shape[1] != BLOCK or t.shape[0] < 1:
         raise ValueError(f"{what} must be (n_blocks >= 1, {BLOCK}), got "
@@ -91,39 +117,50 @@ def _blocks(t: torch.Tensor, what: str) -> int:
     return t.shape[0]
 
 
-def quantize_blocks_kernel(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (n_blocks, 256) f32 → (q int8 (n_blocks, 256), scales (n_blocks,))."""
+def _peers(q: torch.Tensor, name: str) -> tuple[int, int]:
+    if q.dim() != 2 or q.shape[0] < 1 or q.shape[1] < BLOCK or q.shape[1] % BLOCK:
+        raise ValueError(f"{name}: q must be (peers >= 1, n_blocks >= 1 times {BLOCK}), "
+                         f"got {tuple(q.shape)}")
+    return q.shape[0], q.shape[1] // BLOCK
+
+
+def quantize_blocks_kernel(x: torch.Tensor, *, n_blocks: int | None = None,
+                           q_out: torch.Tensor | None = None,
+                           s_out: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (n,) f32 → (q int8 (n_blocks·256,), scales (n_blocks,)), x read
+    as zero-padded to ``n_blocks``·256 elements (default: n rounded up to
+    a block), with no padded copy.  New tensors, or ``q_out``/``s_out``."""
     global QUANTIZE_LAUNCHES
-    n = _blocks(x, "x")
-    _check(x, "x", torch.float32, (n, BLOCK), x.device)
-    q = torch.empty((n, BLOCK), dtype=torch.int8, device=x.device)
-    s = torch.empty(n, dtype=torch.float32, device=x.device)
-    rc = _lib().quantize_blocks(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), n, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    name = "quantize_blocks_kernel"
+    device = _cuda(x, name)
+    n = x.numel()
+    if n_blocks is None:
+        n_blocks = -(-n // BLOCK)
+    if x.dim() != 1 or n_blocks < 1 or n > n_blocks * BLOCK:
+        raise ValueError(f"{name}: x must be 1-D and fit {n_blocks} blocks of {BLOCK}, "
+                         f"got {tuple(x.shape)}")
+    if not _fits(x, torch.float32, x.shape, device):
+        _check(x, "x", torch.float32, tuple(x.shape), device)
+    q_out = _out(q_out, "q_out", torch.int8, (n_blocks * BLOCK,), device)
+    s_out = _out(s_out, "s_out", torch.float32, (n_blocks,), device, align=4)
+    index = device.index
+    rc = _lib().quantize_blocks(x.data_ptr(), q_out.data_ptr(), s_out.data_ptr(),
+                                n_blocks, n, index,
+                                torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        raise RuntimeError(f"quantize_blocks_kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     QUANTIZE_LAUNCHES += 1
-    return q, s
+    return q_out, s_out
 
 
-def _dequantize_out(q: torch.Tensor, s: torch.Tensor, out: torch.Tensor | None,
-                    shapes: tuple, name: str) -> tuple[torch.Tensor, int]:
-    """Check q (int8), s (f32) and ``out`` (f32; made when None) against
-    ``shapes``, one condition each; return ``out`` and the card's index."""
-    device = q.device
-    if device.type != "cuda":
-        raise ValueError(f"{name} takes CUDA tensors, got q on {device}")
-    q_shape, s_shape, out_shape = shapes
-    if out is None:              # a new tensor is contiguous and aligned
-        out = q.new_empty(out_shape, dtype=torch.float32)
-    elif not _fits(out, torch.float32, out_shape, device):
-        _check(out, "out", torch.float32, out_shape, device)
+def _check_in(q: torch.Tensor, s: torch.Tensor, q_shape: tuple, s_shape: tuple,
+              device: torch.device) -> None:
+    """q (int8) and s (f32) against their shapes, one condition each."""
     if not (_fits(q, torch.int8, q_shape, device)
             and _fits(s, torch.float32, s_shape, device, align=4)):
         _check(q, "q", torch.int8, q_shape, device)
         _check(s, "scales", torch.float32, s_shape, device, align=4)
-    return out, device.index
 
 
 def dequantize_blocks_kernel(q: torch.Tensor, s: torch.Tensor, *,
@@ -133,7 +170,10 @@ def dequantize_blocks_kernel(q: torch.Tensor, s: torch.Tensor, *,
     global DEQUANTIZE_LAUNCHES
     name = "dequantize_blocks_kernel"
     n = _blocks(q, "q")
-    out, index = _dequantize_out(q, s, out, ((n, BLOCK), (n,), (n, BLOCK)), name)
+    device = _cuda(q, name)
+    out = _out(out, "out", torch.float32, (n, BLOCK), device)
+    _check_in(q, s, (n, BLOCK), (n,), device)
+    index = device.index
     rc = _lib().dequantize_blocks(q.data_ptr(), s.data_ptr(), out.data_ptr(), n, index,
                                   torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
@@ -150,14 +190,40 @@ def dequantize_sum_blocks_kernel(q: torch.Tensor, s: torch.Tensor, *,
     and each add rounded once; a new tensor, or ``out``.  Any g ≥ 1."""
     global DEQUANTIZE_SUM_LAUNCHES
     name = "dequantize_sum_blocks_kernel"
-    if q.dim() != 2 or q.shape[0] < 1 or q.shape[1] < BLOCK or q.shape[1] % BLOCK:
-        raise ValueError(f"{name}: q must be (peers >= 1, n_blocks >= 1 times {BLOCK}), "
-                         f"got {tuple(q.shape)}")
-    g, k = q.shape[0], q.shape[1] // BLOCK
-    out, index = _dequantize_out(q, s, out, ((g, k * BLOCK), (g, k), (k * BLOCK,)), name)
+    g, k = _peers(q, name)
+    device = _cuda(q, name)
+    out = _out(out, "out", torch.float32, (k * BLOCK,), device)
+    _check_in(q, s, (g, k * BLOCK), (g, k), device)
+    index = device.index
     rc = _lib().dequantize_sum_blocks(q.data_ptr(), s.data_ptr(), out.data_ptr(), k, g,
                                       index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     DEQUANTIZE_SUM_LAUNCHES += 1
     return out
+
+
+def dequantize_sum_quantize_blocks_kernel(q: torch.Tensor, s: torch.Tensor, *,
+                                          q_out: torch.Tensor | None = None,
+                                          s_out: torch.Tensor | None = None
+                                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compressed reducer's phases 2 and 3 in one launch: q (g, k·256)
+    int8 and s (g, k) f32, row p peer p's shard → (q2 (k·256,) int8,
+    s2 (k,) f32), the quantize of ``dequantize_sum_blocks_kernel``'s peer
+    sum, bit for bit, without the sum ever reaching device memory; new
+    tensors, or ``q_out``/``s_out``.  Any g ≥ 1."""
+    global SUM_QUANTIZE_LAUNCHES
+    name = "dequantize_sum_quantize_blocks_kernel"
+    g, k = _peers(q, name)
+    device = _cuda(q, name)
+    q_out = _out(q_out, "q_out", torch.int8, (k * BLOCK,), device)
+    s_out = _out(s_out, "s_out", torch.float32, (k,), device, align=4)
+    _check_in(q, s, (g, k * BLOCK), (g, k), device)
+    index = device.index
+    rc = _lib().dequantize_sum_quantize_blocks(
+        q.data_ptr(), s.data_ptr(), q_out.data_ptr(), s_out.data_ptr(), k, g, index,
+        torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    SUM_QUANTIZE_LAUNCHES += 1
+    return q_out, s_out

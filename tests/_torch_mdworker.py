@@ -20,7 +20,9 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
   rings       (tests/test_torch_ring.py) the ring reduce-scatter,
   compressed  all-gather and allreduce, or the compressed allreduce, over
               the seeded buffers of ``workdir/inputs.npz`` (row r is rank
-              r's buffer); results to ``<mode>_rank<r>.npz``.
+              r's buffer); results to ``<mode>_rank<r>.npz``, for the
+              compressed allreduce with the calls of ``CALLS`` counted a
+              case (``calls_<case>``).
 
   hier        (tests/test_torch_hierarchical.py) on the ("pod", "data",
               "model") meshes of ``HIER_MESHES``: the flat, hierarchical
@@ -69,6 +71,9 @@ RING_CASES = {
     "ag2_bidi": ("ag2", 2, True), "ar2_bidi": ("ar2", 2, True),
 }
 COMPRESSED_CASES = {"compressed": False, "compressed_ring": True}
+# what the compressed mode counts a case: the calls of phases 2-3, and the
+# calls the reducer no longer makes (the phase-2 sum alone, a padded copy)
+CALLS = ("dequantize_sum_quantize_blocks", "dequantize_sum_blocks", "pad")
 HIER_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}            # (pods, data ranks a pod)
 HIER_REDUCERS = ("flat", "hierarchical", "hierarchical_ring")
 # (strategy, reducer, mesh) -> output name
@@ -152,14 +157,36 @@ def _compressed(workdir: str, rank: int) -> dict:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core.compression import compressed_allreduce
+    from repro_torch.core import compression
+    from repro_torch.kernels import quantize
+    from repro_torch.kernels.quantize import ops as quant_ops
 
     x = np.load(os.path.join(workdir, "inputs.npz"))["compressed"][rank]
     group = dist.new_group(list(range(WORLD)), backend="gloo")
-    return {case: compressed_allreduce(torch.from_numpy(x), ("data",),
-                                       {"data": WORLD}, group,
-                                       use_ring=use_ring).numpy()
-            for case, use_ring in COMPRESSED_CASES.items()}
+    counts = dict.fromkeys(CALLS, 0)
+
+    def counted(module, name, key):
+        fn = getattr(module, name)
+
+        def wrapped(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        setattr(module, name, wrapped)
+
+    # every name the reducer could reach them by (the plain version on the
+    # CPU zero-fills its own buffer, without F.pad)
+    counted(compression, "dequantize_sum_quantize_blocks", "dequantize_sum_quantize_blocks")
+    for module in (quantize, quant_ops):
+        counted(module, "dequantize_sum_blocks", "dequantize_sum_blocks")
+    counted(torch.nn.functional, "pad", "pad")
+    out = {}
+    for case, use_ring in COMPRESSED_CASES.items():
+        counts.update(dict.fromkeys(CALLS, 0))
+        out[case] = compression.compressed_allreduce(
+            torch.from_numpy(x), ("data",), {"data": WORLD}, group,
+            use_ring=use_ring).numpy()
+        out[f"calls_{case}"] = np.array([counts[k] for k in CALLS])
+    return out
 
 
 def _hier(workdir: str, rank: int) -> None:

@@ -16,9 +16,12 @@ model of each scheme reproduces each side bit for bit; the outputs
 differ in 3,972 of 16,784 elements (4 ranks × 4,196) on these buffers,
 each by less than one quantization step of its block.
 ``error_feedback_step`` differs likewise: XLA contracts ``g − q · s``
-into one fused multiply-add.  Phase 2 is one call of the peer-sum op a
-bucket (``dequantize_sum_blocks``), whose plain version is the
-dequantize and the adds in peer order.
+into one fused multiply-add.  Phase 1 quantizes the unpadded bucket (read
+as zero-padded); phases 2 and 3 are one call a bucket
+(``dequantize_sum_quantize_blocks``), whose plain version is the
+dequantize, the adds in peer order and the quantize of the sum.  The
+worker counts, on every rank, that call and the ones the reducer no
+longer makes (``dequantize_sum_blocks``, ``F.pad``).
 """
 import types
 
@@ -29,7 +32,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from _torch_mdworker import COMPRESSED_CASES, WORLD, run_all
+from _torch_mdworker import CALLS, COMPRESSED_CASES, WORLD, run_all
 from repro.core import compression as ref_compression
 from repro_torch.core import compression
 from repro_torch.kernels.quantize import ops as quant_ops
@@ -105,6 +108,17 @@ def test_compressed_allreduce_is_within_a_step_of_the_reference(results, case):
     assert np.sum(got != want) == DIFFERING
 
 
+@pytest.mark.parametrize("case", sorted(COMPRESSED_CASES))
+def test_phases_two_and_three_are_one_call_a_bucket_on_every_rank(results, case):
+    """Each rank's one sharded bucket: one ``dequantize_sum_quantize_blocks``
+    call, no ``dequantize_sum_blocks`` and no ``F.pad`` (phase 1 reads the
+    unpadded buffer; N is not a multiple of 256 · 4)."""
+    _, port, _ = results
+    for r in range(WORLD):
+        assert dict(zip(CALLS, port[r][f"calls_{case}"].tolist())) == {
+            "dequantize_sum_quantize_blocks": 1, "dequantize_sum_blocks": 0, "pad": 0}
+
+
 def test_compressed_ring_equals_compressed(results):
     _, port, _ = results
     for r in range(WORLD):
@@ -154,8 +168,9 @@ def test_quantize_blockwise_round_trip():
 def test_phase_two_is_one_peer_sum_a_bucket(monkeypatch, n):
     """One process standing in for every rank (its collectives faked:
     each peer sends this rank's own shards): ``compressed_allreduce``
-    calls the peer-sum op once, at g = 4, and computes what the
-    dequantize followed by the adds in peer order computes."""
+    calls the peer-sum-and-requantize op once, at g = 4, and computes what
+    the quantize of the zero-padded buffer, the dequantize followed by the
+    adds in peer order and the requantize of the sum compute."""
     def collective(fn, group, out, *ins):
         if fn is dist.all_to_all_single:
             out.copy_(ins[0])
@@ -169,10 +184,10 @@ def test_phase_two_is_one_peer_sum_a_bucket(monkeypatch, n):
 
     def peer_sum(q, s, g):
         calls.append(g)
-        return quant_ops.dequantize_sum_blocks(q, s, g)
+        return quant_ops.dequantize_sum_quantize_blocks(q, s, g)
 
     monkeypatch.setattr(compression.dep, "collective", collective)
-    monkeypatch.setattr(compression, "dequantize_sum_blocks", peer_sum)
+    monkeypatch.setattr(compression, "dequantize_sum_quantize_blocks", peer_sum)
     x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
     got = compression.compressed_allreduce(x.clone(), ("data",), {"data": WORLD}, None)
     assert calls == [WORLD]

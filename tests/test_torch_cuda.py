@@ -1,6 +1,7 @@
 """The port's CUDA kernels and engines on the card: the serving slices'
 kernels and engines, the staging kernels, the ring-hop combine and int8
-block kernels (with the dequantize's peer-sum entry), and the
+block kernels (the quantize of an unpadded buffer, the dequantize's
+peer-sum entry and the fused sum-requantize), and the
 peer-memory ring reduce-scatter/all-gather (2 and 4 rank processes on
 ``cuda:0``, spawned through ``tests/_torch_mdworker.py::peer_rank``).
 
@@ -478,7 +479,7 @@ def test_cuda_dequantize_sum_matches_plain(cuda, g, scale):
     then the adds in peer order), into an output started as NaN; one
     launch a call."""
     x = torch.from_numpy(_tie_peers(g, 37, scale, seed=g)).to(cuda)
-    q, s = quant_kernel.quantize_blocks_kernel(x.reshape(-1, 256))
+    q, s = quant_kernel.quantize_blocks_kernel(x.reshape(-1))
     q, s = q.view(g, -1), s.view(g, -1)
     out = torch.full((q.shape[1],), float("nan"), device=cuda)
     before = quant_kernel.DEQUANTIZE_SUM_LAUNCHES
@@ -532,6 +533,89 @@ def test_cuda_quantize_matches_plain(cuda, n_blocks, scale):
     assert torch.equal(_bits(s), _bits(s_p))
     assert torch.equal(_bits(d), _bits(quant_ref.dequantize_ref(q_p, s_p).reshape(-1)))
     assert s[1].item() == 1.0 and s[2].item() == 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1001, 1024), (1003, 1024), (4196, 5120), (100, 1024),
+                                 (1856, 2048), (148992, 149504), (1024, 1024)])
+def test_cuda_quantize_of_an_unpadded_buffer_matches_plain(cuda, n, m):
+    """Phase 1's quantize reads the buffer as it is (n ragged, n % 4 != 0):
+    bit for bit the plain version of the zero-padded buffer, into outputs
+    started as poison, with NaN past n in memory; one launch a call."""
+    rng = np.random.default_rng(n)
+    x = torch.full((n + 64,), float("nan"), device=cuda)
+    x[:n] = torch.from_numpy((rng.standard_normal(n) * 10.0 ** (n % 7 - 3))
+                             .astype(np.float32)).to(cuda)
+    buf = x[:n]
+    q = torch.full((m,), 0x7f, dtype=torch.int8, device=cuda)
+    s = torch.full((m // 256,), float("nan"), device=cuda)
+    before = quant_kernel.QUANTIZE_LAUNCHES
+    got = quant_kernel.quantize_blocks_kernel(buf, n_blocks=m // 256, q_out=q, s_out=s)
+    via_ops = quant_ops.quantize_blocks(buf, pad_to=m)
+    torch.cuda.synchronize()
+    assert got[0] is q and got[1] is s and quant_kernel.QUANTIZE_LAUNCHES == before + 2
+    q_p, s_p = quant_ref.quantize_ref(quant_ref.zero_padded(buf, m).view(-1, 256))
+    for qq, ss in (got, via_ops):
+        assert torch.equal(qq, q_p.reshape(-1))
+        assert torch.equal(_bits(ss), _bits(s_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 9])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_cuda_sum_quantize_matches_plain(cuda, g, scale):
+    """The fused sum-requantize bit for bit with the plain version (the
+    peer sum, then the quantize) and with the two kernels it replaces,
+    into outputs started as poison; exactly one launch a call."""
+    x = torch.from_numpy(_tie_peers(g, 37, scale, seed=10 + g)).to(cuda)
+    q, s = quant_kernel.quantize_blocks_kernel(x.reshape(-1))
+    q, s = q.view(g, -1), s.view(g, -1)
+    q2 = torch.full((q.shape[1],), 0x7f, dtype=torch.int8, device=cuda)
+    s2 = torch.full((37,), float("nan"), device=cuda)
+    before = quant_kernel.SUM_QUANTIZE_LAUNCHES
+    got = quant_kernel.dequantize_sum_quantize_blocks_kernel(q, s, q_out=q2, s_out=s2)
+    torch.cuda.synchronize()
+    assert got[0] is q2 and got[1] is s2
+    assert quant_kernel.SUM_QUANTIZE_LAUNCHES == before + 1
+    via_ops = quant_ops.dequantize_sum_quantize_blocks(q.reshape(-1), s.reshape(-1), g)
+    two_kernels = quant_kernel.quantize_blocks_kernel(
+        quant_kernel.dequantize_sum_blocks_kernel(q, s))
+    torch.cuda.synchronize()
+    assert quant_kernel.SUM_QUANTIZE_LAUNCHES == before + 2
+    q_p, s_p = quant_ref.dequantize_sum_quantize_ref(q, s)
+    for qq, ss in (got, via_ops, two_kernels):
+        assert torch.equal(qq, q_p)
+        assert torch.equal(_bits(ss), _bits(s_p))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_entries_refuse_misaligned_or_misshapen_outputs(cuda):
+    """A misaligned or wrongly shaped ``q_out``/``s_out``, and a strided,
+    misaligned or 2-D buffer to quantize, are refused before any launch."""
+    x = torch.randn(1001, device=cuda)
+    q, s = quant_kernel.quantize_blocks_kernel(torch.randn(2048, device=cuda))
+    q, s = q.view(4, -1), s.view(4, -1)
+    qbuf = torch.zeros(1024 + 16, dtype=torch.int8, device=cuda)
+    sbuf = torch.zeros(4 + 1, device=cuda)
+    before = (quant_kernel.QUANTIZE_LAUNCHES, quant_kernel.SUM_QUANTIZE_LAUNCHES)
+    for bad in (dict(q_out=qbuf[1:1025]), dict(q_out=qbuf[:1000]),
+                dict(s_out=sbuf[:3]), dict(q_out=qbuf[:1024].view(4, 256))):
+        with pytest.raises(ValueError, match="q_out|s_out"):
+            quant_kernel.quantize_blocks_kernel(x, n_blocks=4, **bad)
+    for bad in (dict(q_out=qbuf[1:513]), dict(q_out=qbuf[:256]), dict(s_out=sbuf[:3])):
+        with pytest.raises(ValueError, match="q_out|s_out"):
+            quant_kernel.dequantize_sum_quantize_blocks_kernel(q, s, **bad)
+    with pytest.raises(ValueError, match="fit"):
+        quant_kernel.quantize_blocks_kernel(x, n_blocks=3)
+    with pytest.raises(ValueError, match="fit"):
+        quant_kernel.quantize_blocks_kernel(torch.randn(4, 256, device=cuda))
+    wide = torch.randn(2 * 1024 + 4, device=cuda)
+    for buf in (wide[:2048:2], wide[1:1025]):
+        with pytest.raises(ValueError, match="contiguous"):
+            quant_kernel.quantize_blocks_kernel(buf, n_blocks=4)
+        with pytest.raises(ValueError, match="contiguous"):
+            quant_ops.quantize_blocks(buf, pad_to=1024)
+    assert (quant_kernel.QUANTIZE_LAUNCHES, quant_kernel.SUM_QUANTIZE_LAUNCHES) == before
 
 
 def _to(tree, device):

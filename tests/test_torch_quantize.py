@@ -13,7 +13,11 @@ the plain versions by ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``.
 
 The peer sum (``dequantize_sum_ref``, the compressed reducer's phase 2)
 must equal the Pallas dequantize applied to each peer's shard and the
-shards added in peer order by eager ``jnp`` adds, each rounded once.
+shards added in peer order by eager ``jnp`` adds, each rounded once; the
+sum-requantize (``dequantize_sum_quantize_blocks``, phases 2 and 3) that
+sum quantized by the Pallas quantize.  Phase 1's quantize of an unpadded
+buffer (``quantize_blocks(buf, pad_to=m)``) must equal the reference's
+quantize of the buffer zero-padded in jnp.
 """
 import jax
 import jax.numpy as jnp
@@ -110,17 +114,58 @@ def test_quantization_error_is_within_half_a_step():
     assert np.all(err <= s.numpy()[:, None] * 0.5 + 1e-7)
 
 
-def test_ops_refuse_a_ragged_buffer():
+@pytest.mark.parametrize("n,m", [(4196, 5120), (1001, 1024), (100, 256), (1024, 1024),
+                                 (4096, 5120)])
+@pytest.mark.parametrize("scale", [1e-3, 1e3])
+def test_ops_quantize_of_an_unpadded_buffer_is_the_padded_reference(n, m, scale):
+    """Phase 1 as the compressed reducer calls it, ``pad_to=m``: the
+    reference's compiled quantize of the buffer zero-padded in jnp, bit
+    for bit (n ragged, or already a multiple of 256)."""
+    x = (np.random.default_rng(n).standard_normal(n) * scale).astype(np.float32)
+    x[:min(n, BLOCK)] = 0.0                        # a zero block
+    q_j, s_j = jax.jit(ref_quantize_blockwise)(jnp.pad(jnp.asarray(x), (0, m - n)))
+    q_t, s_t = ops.quantize_blocks(torch.from_numpy(x), pad_to=m)
+    assert q_t.shape == (m,) and s_t.shape == (m // BLOCK,)
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy().view(np.uint32),
+                                  np.asarray(s_j).view(np.uint32))
+
+
+@pytest.mark.parametrize("pad_to", [None, 2048])
+def test_ops_quantize_of_a_strided_cpu_buffer_is_its_contiguous_copy(pad_to):
+    """On the CPU a strided buffer is quantized as its contiguous copy
+    (the CUDA kernel refuses one: tests/test_torch_cuda.py)."""
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(4096).astype(np.float32))
+    strided = x[::2]
+    assert not strided.is_contiguous()
+    q_t, s_t = ops.quantize_blocks(strided, pad_to=pad_to)
+    q_c, s_c = ops.quantize_blocks(strided.contiguous(), pad_to=pad_to)
+    torch.testing.assert_close(q_t, q_c, rtol=0, atol=0)
+    torch.testing.assert_close(s_t, s_c, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("buf,pad_to", [(torch.zeros(300), None), (torch.zeros(300), 200),
+                                        (torch.zeros(300), 500), (torch.zeros(2, 256), None)])
+def test_ops_refuse_a_ragged_buffer(buf, pad_to):
     with pytest.raises(ValueError, match="multiple of 256"):
-        ops.quantize_blocks(torch.zeros(300))
+        ops.quantize_blocks(buf, pad_to=pad_to)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
+    before = (kernel.QUANTIZE_LAUNCHES, kernel.DEQUANTIZE_LAUNCHES,
+              kernel.SUM_QUANTIZE_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.quantize_blocks_kernel(torch.zeros(2, BLOCK))
     with pytest.raises(ValueError, match="CUDA"):
+        kernel.quantize_blocks_kernel(torch.zeros(1001), n_blocks=4)
+    with pytest.raises(ValueError, match="CUDA"):
         kernel.dequantize_blocks_kernel(torch.zeros(2, BLOCK, dtype=torch.int8),
                                         torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.dequantize_sum_quantize_blocks_kernel(
+            torch.zeros(4, 2 * BLOCK, dtype=torch.int8), torch.ones(4, 2))
+    assert (kernel.QUANTIZE_LAUNCHES, kernel.DEQUANTIZE_LAUNCHES,
+            kernel.SUM_QUANTIZE_LAUNCHES) == before
 
 
 def _peers(g: int, k: int, scale: float, seed: int = 5) -> tuple[np.ndarray, np.ndarray]:
@@ -163,15 +208,38 @@ def test_ops_peer_sum_on_cpu_is_the_plain_version(g):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-def test_peer_sum_refuses_cpu_tensors_and_ragged_shapes():
+@pytest.mark.parametrize("entry,op", [
+    (kernel.dequantize_sum_blocks_kernel, ops.dequantize_sum_blocks),
+    (kernel.dequantize_sum_quantize_blocks_kernel, ops.dequantize_sum_quantize_blocks)])
+def test_peer_sum_refuses_cpu_tensors_and_ragged_shapes(entry, op):
     q, s = torch.zeros(4, 2 * BLOCK, dtype=torch.int8), torch.ones(4, 2)
-    before = kernel.DEQUANTIZE_SUM_LAUNCHES
+    before = (kernel.DEQUANTIZE_SUM_LAUNCHES, kernel.SUM_QUANTIZE_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.dequantize_sum_blocks_kernel(q, s)
+        entry(q, s)
     for bad in (torch.zeros(4, 300, dtype=torch.int8), torch.zeros(2 * BLOCK, dtype=torch.int8),
                 torch.zeros(0, BLOCK, dtype=torch.int8)):
         with pytest.raises(ValueError, match="peers >= 1"):
-            kernel.dequantize_sum_blocks_kernel(bad, s)
+            entry(bad, s)
     with pytest.raises(ValueError, match="multiple of 256 x 4"):
-        ops.dequantize_sum_blocks(torch.zeros(3 * BLOCK, dtype=torch.int8), torch.ones(3), 4)
-    assert kernel.DEQUANTIZE_SUM_LAUNCHES == before
+        op(torch.zeros(3 * BLOCK, dtype=torch.int8), torch.ones(3), 4)
+    assert (kernel.DEQUANTIZE_SUM_LAUNCHES, kernel.SUM_QUANTIZE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 9])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_sum_quantize_matches_pallas_dequantize_adds_and_quantize(g, scale):
+    """Phases 2 and 3 through the 1-D API: the Pallas dequantize of each
+    peer's shard, added in peer order by eager adds, then the Pallas
+    quantize of the sum, bit for bit."""
+    q, s = _peers(g, 6, scale, seed=11)
+    red = None
+    for p in range(g):
+        d = dequantize_blocks_kernel(jnp.asarray(q[p].reshape(-1, BLOCK)),
+                                     jnp.asarray(s[p]), interpret=True)
+        red = d if red is None else red + d            # eager: one rounding an add
+    q2_j, s2_j = quantize_blocks_kernel(red, interpret=True)
+    q2, s2 = ops.dequantize_sum_quantize_blocks(torch.from_numpy(q.reshape(-1)),
+                                                torch.from_numpy(s.reshape(-1)), g)
+    assert q2.shape == (6 * BLOCK,) and q2.dtype == torch.int8 and s2.shape == (6,)
+    np.testing.assert_array_equal(q2.numpy(), np.asarray(q2_j).reshape(-1))
+    np.testing.assert_array_equal(s2.numpy().view(np.uint32), np.asarray(s2_j).view(np.uint32))
