@@ -63,6 +63,40 @@ Phases, in order; any failure raises and exits non-zero:
   cpu_vs_gpu  the smoke config for 3 steps on the CPU (plain versions) and
               on the GPU (kernels) from the same weights and batches:
               params agree to rtol 1e-3 / atol 1e-5.
+  lm_kernels  the pack and unpack kernels bit for bit against their plain
+              versions at the LM's layouts: the 10 buckets of Qwen3-1.7B's
+              post-backward plan (bf16 leaves, f32 comm) and the 28
+              in-backward slots of depcha (a layer's 11 bf16 leaves into a
+              bf16 slot, scale 1), one launch each way a bucket or slot.
+              Then a step's worth of each timed with CUDA events in turns
+              with torch.cat / torch._foreach_copy_, beside the plain
+              version and the byte bound.
+  lm_train    Qwen3-1.7B at full width (28 layers, bf16, random seeded
+              weights) on a one-rank NCCL group: seq 1024 x global batch 4,
+              AdamW with cosine warm-up, clip 1.0, remat "dots", the
+              chunked attention; funnel, concom and depcha (in-scan) from
+              the same weights, 1 warm-up + 2 timed steps each, under
+              torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG
+              set before the first CUDA context; the setting restored
+              after).  Step times, tokens/s and peak memory (under 80 GB);
+              pack and unpack launches exactly the schedule's buckets a
+              step plus one slot a layer under depcha; 28 in-backward
+              collectives a depcha step and none under the others; losses
+              bit-identical across the strategies (an op reported
+              nondeterministic would be named and the later steps held to
+              rtol 1e-3).  Then one more depcha step under torch.profiler
+              (kernel time against the timed steps' wall time: the device
+              idle share; the kernels that take the most) and one with a
+              CUDA event at each step stage's entry and exit (each stage's
+              span on the device).  (By hand, on four cards:
+              ``phase_lm_cards()`` trains the same model data-parallel
+              over NCCL, one rank a card, the strategies in turns.)
+  lm_cpu_vs_gpu  the quickstart LM's widths (4 layers, d 128, 8/4 heads,
+              ff 256, vocab 512, f32, attn_chunk 64), 3 steps of depcha
+              in-scan on the CPU (plain versions) and on the card
+              (kernels) from the same weights and batches, TF32 off:
+              losses within rtol 1e-5, 4 in-backward collectives a step
+              on each.
   reducers    four rank processes spawned on the one card, each with all
               its compute on cuda:0 and gloo communicators staged through
               pinned host memory (NCCL refuses two ranks on one device;
@@ -79,7 +113,13 @@ Phases, in order; any failure raises and exits non-zero:
               counts of the five kernel entries exactly as
               ``step_launches`` predicts from the plan (one combine a ring
               hop: 72 a step; one quantize, one fused sum-requantize and
-              one dequantize a compressed bucket, no peer sum).
+              one dequantize a compressed bucket, no peer sum).  Then the
+              quickstart LM (f32) for 3 steps of funnel and of depcha
+              in-scan (its in-backward collectives through the same pinned
+              host memory): params bit-identical across the ranks after
+              every step, depcha's first-step gradients within rtol 1e-5 /
+              atol 1e-6 of funnel's, 4 in-backward collectives a depcha
+              step.
   hierarchical four rank processes on the one card as ``reducers``, on
               pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
               reduce-scatter and all-gather (the intra-pod rings, through
@@ -189,6 +229,7 @@ name and power limit as nvidia-smi reports them, and last
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import faulthandler
 import gc
@@ -602,6 +643,439 @@ def phase_cpu_vs_gpu() -> None:
     log(f"[cpu_vs_gpu] {len(final['cpu'][0])} params agree after 3 steps "
         f"(max abs diff {worst}); losses cpu {final['cpu'][1]} "
         f"gpu {final['cuda'][1]}")
+
+
+# ------------------------------------------------------- the transformer LM
+
+LM_SEQ, LM_BATCH = 1024, 4     # tokens a sequence, global batch: 4,096 tokens a step
+LM_STEPS = 3                   # 1 warm-up + 2 timed
+LM_STAGES = ("step.forward", "step.backward", "step.gradsync", "step.depcha_wait",
+             "step.optimizer", "step.loss_allreduce")
+
+
+def lm_config(strategy: str = "funnel"):
+    """Qwen3-1.7B at full width (28 layers, bf16), depcha's in-backward
+    sync on exactly under the strategies that use it."""
+    from repro_torch.configs.qwen3_1_7b import make_config
+    from repro_torch.core import get_strategy
+
+    return make_config(depcha_in_scan=get_strategy(strategy).uses_in_scan)
+
+
+def lm_plan():
+    """Qwen3-1.7B's post-backward bucket plan as GradSync builds it (4 MiB
+    buckets, 4 channels, f32 comm) and its named leaves, on ``meta``."""
+    from repro_torch.core import make_bucket_plan
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = lm_config()
+    params = init_params(cfg, device="meta")
+    plan = make_bucket_plan(params, param_specs(params, cfg), make_smoke_mesh(1),
+                            bucket_bytes=4 * 1024 * 1024, num_channels=4)
+    return plan, flatten_with_names(params)[0]
+
+
+def phase_lm_kernels() -> dict:
+    """Rows 1-2 at the LM's layouts, bit for bit against their plain
+    versions: every bucket of Qwen3-1.7B's post-backward plan (bf16 leaves,
+    f32 comm) and every layer's in-backward slot (its 11 bf16 leaves into
+    a bf16 slot, scale 1: a bit copy), one launch each way a bucket or a
+    slot.  Then one step's worth of each (the plan's buckets; the 28
+    slots) timed with CUDA events in turns with one PyTorch call doing the
+    same, beside the plain version and the byte bound."""
+    from repro_torch.core.overlap import LayerSync
+    from repro_torch.kernels.collectives import kernel, ops, ref
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import _depcha_axes, init_params
+
+    plan, named = lm_plan()
+    cfg = lm_config("depcha")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flat = [torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype) for _, p in named]
+    f32 = torch.float32
+    err, n_checks = 0.0, 0
+    for b in plan.buckets:
+        before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+        err = max(err, check_bucket(b, flat, f32, 1.0))
+        if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (1, 1):
+            raise AssertionError(f"LM bucket {b.bucket_id}: expected 1 pack and 1 unpack launch")
+        n_checks += 1
+    blocks = {n[len("blocks/"):]: t for (n, _), t in zip(named, flat) if n.startswith("blocks/")}
+    meta_blocks = init_params(cfg, device="meta")["blocks"]
+    sync = LayerSync(meta_blocks, _depcha_axes(cfg, meta_blocks, "blocks/"), make_dp_mesh(),
+                     device="cuda")
+    if len(sync.buckets) != 1:
+        raise AssertionError(f"expected one slot a layer, got {len(sync.buckets)}")
+    slot_bucket, _, slot_dtype = sync.buckets[0]
+    names = sorted(blocks)
+    rows = [[blocks[n][li] for n in names] for li in range(cfg.n_layers)]
+    for li in range(cfg.n_layers):
+        before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+        err = max(err, check_bucket(slot_bucket, rows[li], slot_dtype, 1.0))
+        if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (1, 1):
+            raise AssertionError(f"slot of layer {li}: expected 1 pack and 1 unpack launch")
+        n_checks += 1
+    torch.cuda.synchronize()
+    log(f"[lm_kernels] {n_checks} checks bit-exact (max abs err {err}): "
+        f"{len(plan.buckets)} post-backward buckets ({plan.num_leaves} bf16 leaves, "
+        f"{sum(b.size for b in plan.buckets)} elements, f32 comm) and {cfg.n_layers} "
+        f"in-backward slots ({len(slot_bucket.leaves)} leaves, {slot_bucket.size} elements, "
+        f"{slot_dtype}); one pack and one unpack launch each")
+
+    def timed(buckets_and_leaves, comm):
+        bufs = [ops.fused_pack(b, lv, comm) for b, lv in buckets_and_leaves]
+        targets = {}      # one set of outputs for each leaf list
+        for _, lv in buckets_and_leaves:
+            if id(lv) not in targets:
+                targets[id(lv)] = [torch.empty_like(t) for t in lv]
+        outs = [targets[id(lv)] for _, lv in buckets_and_leaves]
+        elems = sum(b.size for b, _ in buckets_and_leaves)
+        leaf_bytes = sum(sum(lv[l.index].numel() * lv[l.index].element_size()
+                             for l in b.leaves) for b, lv in buckets_and_leaves)
+        bound = (leaf_bytes + elems * comm.itemsize) / HBM_BYTES_PER_S * 1e3
+
+        def pack():
+            for b, lv in buckets_and_leaves:
+                ops.fused_pack(b, lv, comm)
+
+        def unpack():
+            for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
+                ops.fused_unpack(b, buf, out)
+
+        def lib_pack():
+            for b, lv in buckets_and_leaves:
+                torch.cat([lv[l.index].reshape(-1).to(comm) for l in b.leaves])
+
+        def lib_unpack():
+            for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
+                torch._foreach_copy_([out[l.index].view(-1) for l in b.leaves],
+                                     list(torch.split(buf, [l.size for l in b.leaves])))
+
+        def plain_unpack_all():
+            for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
+                plain_unpack(b, buf, out)
+
+        res = {}
+        for name, fn, lib, plain in (
+                ("pack", pack, lib_pack, lambda: [ref.leafwise_pack(
+                    [lv[l.index] for l in b.leaves], comm) for b, lv in buckets_and_leaves]),
+                ("unpack", unpack, lib_unpack, plain_unpack_all)):
+            turns = cuda_ms_in_turns({"ms": fn, "library_ms": lib})
+            res[name] = dict(ms=sum(turns["ms"]) / 2, library_ms=sum(turns["library_ms"]) / 2,
+                             plain_ms=cuda_ms(plain, reps=5), bound_ms=bound, bound_by="bytes",
+                             launches=len(buckets_and_leaves), turns=turns)
+        return res
+
+    out = {"post_backward": timed([(b, flat) for b in plan.buckets], f32),
+           "slots": timed([(slot_bucket, r) for r in rows], slot_dtype),
+           "max_abs_err": err, "checks": n_checks}
+    log("[lm_kernels] " + json.dumps(out))
+    return out
+
+
+def lm_profile(ts, model, opt_state, pipe, wall_ms: float) -> dict:
+    """One more step under torch.profiler: the device time of its kernels
+    (device events other than the ``step.*``/``comm.*`` annotations)
+    against ``wall_ms`` (the mean wall time of the timed steps without the
+    profiler) gives the device idle share; and the kernels that take the
+    most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = pipe.batch_at(LM_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.fn(model, opt_state, batch, LM_STEPS)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not e.name.startswith(("step.", "comm."))]
+    if not kernels:
+        raise AssertionError("the profiler saw no device time in the LM step")
+    kernel_ms = sum(k.time_range.elapsed_us() for k in kernels) / 1e3
+    by_name: dict = {}
+    for k in kernels:
+        calls, ms = by_name.get(k.name, (0, 0.0))
+        by_name[k.name] = (calls + 1, ms + k.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
+    return {
+        "wall_ms_unprofiled": wall_ms, "wall_ms_under_profiler": profiled_ms,
+        "kernel_ms_summed": kernel_ms, "device_kernels": len(kernels),
+        "idle_share": 1 - kernel_ms / wall_ms,
+        "top_kernels": [{"name": n[:90], "calls": c, "ms": ms} for n, (c, ms) in top],
+        "staging_kernels": [{"name": n[:90], "calls": c, "ms": ms}
+                            for n, (c, ms) in by_name.items() if "_bucket_kernel<" in n]}
+
+
+def lm_stage_spans(ts, model, opt_state, pipe) -> dict:
+    """One more step, unprofiled, with a CUDA event recorded on the
+    current stream at the entry and the exit of each ``step.*`` label of
+    the train loop: each stage's span on the device (ms), which holds its
+    kernels and the device's idle gaps between them.  The backward's
+    kernels are launched from autograd's engine thread, but on the same
+    stream, and ``loss.backward()`` returns only once they are all
+    enqueued, so the label's events bracket them; GradSync's chain streams
+    are joined to the current stream before its label ends."""
+    from repro_torch.runtime import train_loop
+
+    real, marks = train_loop.record_function, []
+
+    @contextlib.contextmanager
+    def marked(name):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        with real(name):
+            yield
+        end.record()
+        marks.append((name, start, end))
+
+    batch = pipe.batch_at(LM_STEPS + 1)
+    torch.cuda.synchronize()
+    train_loop.record_function = marked
+    try:
+        t0 = time.perf_counter()
+        ts.fn(model, opt_state, batch, LM_STEPS + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        train_loop.record_function = real
+    spans = {name: start.elapsed_time(end) for name, start, end in marks}
+    return {"wall_ms": wall_ms, "stage_ms": spans,
+            "first_to_last_event_ms": marks[0][1].elapsed_time(marks[-1][2]),
+            "stages_in_order": [name for name, _, _ in marks]}
+
+
+def lm_run(strat: str, mesh, pipe, after=None) -> dict:
+    """One strategy's run of Qwen3-1.7B from the seeded weights: AdamW
+    (cosine warm-up), clip 1.0, 1 warm-up + ``LM_STEPS`` - 1 timed steps
+    over ``pipe``.  Pack and unpack must launch exactly the schedule's
+    buckets (plus one slot a layer under depcha) a step, and depcha must
+    issue one in-backward collective a layer a step, the others none.
+    ``after(ts, model, opt_state, run)`` runs before the run's state is
+    freed; its result is kept under "after"."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = lm_config(strat)
+    model = Transformer(cfg, init_params(cfg, seed=0, device="cuda"))
+    opt = adamw(cosine_warmup(3e-4, 10, 100))
+    ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
+                         clip_norm=1.0, device="cuda")
+    opt_state = opt.init(dict(flatten_with_names(model.params_tree())[0]))
+    trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+    collectives, losses = [], []
+    for step in range(LM_STEPS):
+        model, opt_state, hist = trainer.run(model, opt_state, step + 1, start_step=step)
+        losses.append(hist["losses"][-1])
+        collectives.append(ts.layer_sync.collectives if ts.layer_sync is not None else 0)
+    launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
+    per_step = len(ts.gradsync.schedule.ops) + (
+        cfg.n_layers if ts.layer_sync is not None else 0)
+    if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
+        raise AssertionError(f"lm {strat}: launches {launches}, expected "
+                             f"{per_step} a step x {LM_STEPS}")
+    want = cfg.n_layers if strat == "depcha" else 0
+    if collectives != [want] * LM_STEPS:
+        raise AssertionError(f"lm {strat}: in-backward collectives {collectives}, "
+                             f"expected {want} a step")
+    times = trainer.step_times
+    run = {"losses": losses, "first_step_ms": trainer.first_step_time * 1e3,
+           "step_ms": [t * 1e3 for t in times],
+           "tokens_per_s": [pipe.global_batch * LM_SEQ / t for t in times],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_per_step": per_step,
+           "buckets": len(ts.gradsync.schedule.ops),
+           "in_backward_collectives_per_step": collectives}
+    if after is not None:
+        run["after"] = after(ts, model, opt_state, run)
+    del ts, model, opt_state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_lm_train() -> dict:
+    """Qwen3-1.7B at full width on a one-rank NCCL group, seq 1024 x batch
+    4, under funnel, concom and depcha (in-scan): ``lm_run`` each, under
+    torch.use_deterministic_algorithms (restored after).  The losses must
+    be bit-identical across the strategies.  Then one more depcha step
+    under the profiler and one with CUDA events around its stages."""
+    import warnings
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+
+    def profiled(ts, model, opt_state, run):
+        out = lm_profile(ts, model, opt_state, pipe, sum(run["step_ms"]) / len(run["step_ms"]))
+        out["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
+        return out
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_dp_mesh()
+    pipe = TokenPipeline(lm_config().vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh,
+                         device="cuda")
+    runs = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for strat in STRATEGIES:
+                runs[strat] = lm_run(strat, mesh, pipe,
+                                     after=profiled if strat == "depcha" else None)
+                log(f"[lm_train] {strat}: " + json.dumps(
+                    {k: v for k, v in runs[strat].items() if k != "after"}))
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    profile_out = runs["depcha"].pop("after")
+    nondeterministic = sorted({str(w.message)[:200] for w in caught
+                               if "deterministic" in str(w.message)})
+    base = runs[STRATEGIES[0]]["losses"]
+    for strat, r in runs.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"lm {strat}: non-finite loss {r['losses']}")
+        if r["peak_gb"] >= 80:
+            raise AssertionError(f"lm {strat}: peak {r['peak_gb']} GB")
+        if nondeterministic:         # named below; later steps to rtol 1e-3
+            if r["losses"][0] != base[0] or any(
+                    abs(a - b) > 1e-3 * abs(b) for a, b in zip(r["losses"], base)):
+                raise AssertionError(f"lm {strat} losses {r['losses']} vs {base}")
+        elif r["losses"] != base:
+            raise AssertionError(f"lm {strat} losses {r['losses']} are not bit-identical "
+                                 f"to {STRATEGIES[0]}'s {base}")
+    out = {"runs": runs, "profile": profile_out, "nondeterministic_ops": nondeterministic,
+           "losses_bit_identical": not nondeterministic,
+           "launches": {k: sum(r["launches"][k] for r in runs.values())
+                        for k in ("pack", "unpack")},
+           "shape": {"seq": LM_SEQ, "global_batch": LM_BATCH, "layers": lm_config().n_layers}}
+    log("[lm_train] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
+LM_CARD_TURNS = ("funnel", "concom", "depcha", "depcha", "concom", "funnel")
+
+
+def _lm_card_rank(rank: int, workdir: str, backend: str) -> None:
+    """One rank of ``phase_lm_cards``: Qwen3-1.7B at full width, seq 1024 x
+    batch 4 a rank, each strategy of ``LM_CARD_TURNS`` in turn through
+    ``lm_run``, then a step with CUDA events around its stages; params
+    bit-identical across the ranks after every run (rank 0's broadcast on
+    the default group and compared on the card)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import init_dist, make_dp_mesh
+    from repro_torch.utils.trees import flatten_with_names
+
+    world = torch.cuda.device_count()
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store", rank=rank,
+              world_size=world, timeout=datetime.timedelta(seconds=300))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda _m: None)
+    mesh = make_dp_mesh()
+    pipe = TokenPipeline(lm_config().vocab, LM_SEQ, LM_BATCH * world, seed=0, mesh=mesh,
+                         rank=rank, device="cuda")
+
+    def checked(ts, model, opt_state, run):
+        mine = torch.cat([p.detach().reshape(-1) for _, p in
+                          flatten_with_names(model.params_tree())[0]])
+        theirs = mine.clone()
+        dist.broadcast(theirs, 0)        # a copy: rank 0's bits, bf16 as they are
+        ok = torch.tensor([int(torch.equal(mine.view(torch.int16), theirs.view(torch.int16)))],
+                          device="cuda")
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        if not ok.item():
+            raise AssertionError("lm params are not bit-identical across the ranks")
+        del mine, theirs
+        return lm_stage_spans(ts, model, opt_state, pipe)
+
+    out = []
+    for strat in LM_CARD_TURNS:
+        run = lm_run(strat, mesh, pipe, after=checked)
+        out.append({"strategy": strat, **run})
+        say(f"[lm_cards] {strat}: " + json.dumps(out[-1]))
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_lm_cards(backend: str = "nccl") -> list:
+    """By hand, on a host of several cards (four H100s of one host): one rank
+    a card, Qwen3-1.7B data-parallel at seq 1024 x batch 4 a rank (global
+    batch 4 x cards), funnel / concom / depcha (in-scan) in turns (funnel,
+    concom, depcha, depcha, concom, funnel), 1 warm-up + 2 timed steps
+    each and a step with its stages timed by CUDA events: whether depcha's
+    in-backward collectives hide behind the backward shows in the step
+    time and in what is left to ``step.depcha_wait`` against funnel's
+    ``step.gradsync``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="lm-cards-") as wd:
+        mp.spawn(_lm_card_rank, args=(wd, backend), nprocs=torch.cuda.device_count(),
+                 join=True)
+        with open(os.path.join(wd, "rank0.json")) as f:
+            res = json.load(f)
+    log("[lm_cards] " + json.dumps(res))
+    return res
+
+
+def phase_lm_cpu_vs_gpu() -> None:
+    """The quickstart LM's widths (4 layers, d 128, 8/4 heads, ff 256,
+    vocab 512, f32, attn_chunk 64), 3 steps of depcha in-scan from the
+    same weights and batches on the CPU (plain versions) and on the card
+    (kernels), TF32 off: losses within rtol 1e-5."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import Transformer, TransformerConfig, init_params
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(name="quickstart-lm", n_layers=4, d_model=128, n_heads=8,
+                            kv_heads=4, d_ff=256, vocab=512, tp=1, attn_chunk=64,
+                            dtype=torch.float32, depcha_in_scan=True)
+    weights = init_params(cfg, seed=0, device="cpu")
+    mesh = make_dp_mesh()
+    final = {}
+    for device in ("cpu", "cuda"):
+        model = Transformer(cfg, tree_to(copy.deepcopy(weights), device))   # trained in place
+        opt = adamw(cosine_warmup(1e-3, 20, 200))
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="depcha"), opt,
+                             model=model, clip_norm=1.0, device=device)
+        pipe = TokenPipeline(cfg.vocab, 64, 8, seed=0, mesh=mesh, device=device)
+        params = dict(flatten_with_names(model.params_tree())[0])
+        _, _, hist = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None).run(
+            model, opt.init(params), 3)
+        final[device] = ({n: p.detach().cpu() for n, p in params.items()}, hist["losses"],
+                         ts.layer_sync.collectives)
+    (p_cpu, l_cpu, c_cpu), (p_gpu, l_gpu, c_gpu) = final["cpu"], final["cuda"]
+    for a, b in zip(l_gpu, l_cpu):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"lm_cpu_vs_gpu: losses gpu {l_gpu} cpu {l_cpu} beyond rtol 1e-5")
+    if c_cpu != c_gpu or c_gpu != cfg.n_layers:
+        raise AssertionError(f"lm_cpu_vs_gpu: in-backward collectives in the last step: "
+                             f"cpu {c_cpu}, gpu {c_gpu}")
+    worst = max((p_gpu[n] - p).abs().max().item() for n, p in p_cpu.items())
+    log(f"[lm_cpu_vs_gpu] losses cpu {l_cpu} gpu {l_gpu} (rtol 1e-5); {c_gpu} in-backward "
+        f"collectives in the last step on each; max param diff after 3 steps {worst} "
+        f"(reported)")
 
 
 # ------------------------------------------------- ring and int8 kernels
@@ -1286,6 +1760,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
     same_bits(with_kernel, plain[:inp.numel()], f"ring allreduce of bucket "
               f"{bucket.bucket_id}: kernel vs plain add")
     out["captured_bucket"] = {"bucket": bucket.bucket_id, "elements": inp.numel()}
+    out["lm"] = _lm_ranks(rank, host, say)
     say(f"[reducers] ring vs flat first-step grads within rtol 1e-5 (max diff / leaf "
         f"absmax {worst}); compressed_ring = compressed bit for bit (grads and params); "
         f"compressed within the quantization bound of the flat sum (max err/bound "
@@ -1294,6 +1769,65 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+def _lm_ranks(rank: int, host, say) -> dict:
+    """The quickstart LM (4 layers, d 128, f32) on the RING ranks, on the
+    default group's transport: 3 steps of funnel and of depcha in-scan from
+    the same weights, global batch 8 of 64 tokens.  Params bit-identical
+    across the ranks after every step; depcha's first-step reduced
+    gradients within rtol 1e-5 / atol 1e-6 of funnel's; 4 in-backward
+    collectives a depcha step, none a funnel step."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import Transformer, TransformerConfig, init_params
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    mesh = make_dp_mesh()
+    weights = init_params(TransformerConfig(
+        name="quickstart-lm", n_layers=4, d_model=128, n_heads=8, kv_heads=4, d_ff=256,
+        vocab=512, tp=1, attn_chunk=64, dtype=torch.float32), seed=0, device="cpu")
+    grads0, out = {}, {}
+    for strat in ("funnel", "depcha"):
+        cfg = TransformerConfig(name="quickstart-lm", n_layers=4, d_model=128, n_heads=8,
+                                kv_heads=4, d_ff=256, vocab=512, tp=1, attn_chunk=64,
+                                dtype=torch.float32, depcha_in_scan=strat == "depcha")
+        model = Transformer(cfg, tree_to(weights, "cuda"))
+        opt = adamw(cosine_warmup(1e-3, 20, 200))
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
+                             clip_norm=1.0, device="cuda")
+        pipe = TokenPipeline(cfg.vocab, 64, 8, seed=0, mesh=mesh, rank=rank, device="cuda")
+        named = flatten_with_names(model.params_tree())[0]
+        opt_state = opt.init(dict(named))
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+        losses, collectives = [], []
+        for step in range(3):
+            model, opt_state, hist = trainer.run(model, opt_state, step + 1, start_step=step)
+            losses.append(hist["losses"][-1])
+            collectives.append(ts.layer_sync.collectives if ts.layer_sync is not None else 0)
+            if step == 0:
+                grads0[strat] = [p.grad.detach().clone() for _, p in named]
+            _same_on_every_rank([p for _, p in named], f"lm {strat} params after step {step}",
+                                host)
+        want = cfg.n_layers if strat == "depcha" else 0
+        if collectives != [want] * 3:
+            raise AssertionError(f"lm {strat}: in-backward collectives {collectives}")
+        out[strat] = {"losses": losses, "in_backward_collectives_per_step": collectives,
+                      "step_ms": [t * 1e3 for t in trainer.step_times]}
+    worst = 0.0
+    for (n, _), a, b in zip(named, grads0["depcha"], grads0["funnel"]):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"lm depcha vs funnel grads of {n} differ by "
+                                 f"{(a - b).abs().max().item()}")
+        worst = max(worst, (a - b).abs().max().item())
+    out["depcha_vs_funnel_grads_max_abs_diff"] = worst
+    say(f"[reducers] lm quickstart on {RING} ranks: params bit-identical after each of 3 "
+        f"steps; depcha vs funnel first-step grads within rtol 1e-5 / atol 1e-6 (max abs "
+        f"diff {worst}); " + json.dumps(out))
+    return out
 
 
 def phase_reducers(backend: str = "gloo") -> dict:
@@ -3053,6 +3587,9 @@ def main() -> int:
     from repro_torch.launch.mesh import init_dist
 
     faulthandler.dump_traceback_later(HANG_LIMIT_S, exit=True)
+    # deterministic cuBLAS for lm_train's bit-identical losses: read when
+    # the first CUDA context is made, so set before any
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3068,9 +3605,16 @@ def main() -> int:
         train = phase_train()
         phase_profile(*train["live"])
         phase_cpu_vs_gpu()
+        del train["live"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_rows = phase_lm_kernels()
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = phase_lm_train()
+        phase_lm_cpu_vs_gpu()
     finally:
         dist.destroy_process_group()
-    del train["live"]
     gc.collect()
     torch.cuda.empty_cache()
     reducers = phase_reducers()
@@ -3090,11 +3634,19 @@ def main() -> int:
                 "unpack": "src/repro/kernels/collectives/kernel.py:99"}
     kernels = []
     for name, r in rows.items():
+        by_path = {"train": train["launches"][name], "lm_train": lm["launches"][name]}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
-            "replaces": replaces[name], "launches": train["launches"][name],
-            "launches_per_step": 24, **r,
-            "layouts_built_in_train": train["layouts_built"]})   # shared by both
+            "replaces": replaces[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "launches_per_step": 24, **r,
+            "layouts_built_in_train": train["layouts_built"],   # shared by both
+            # the LM's layouts: the post-backward buckets (bf16 leaves, f32
+            # comm) and depcha's in-backward slots, one step's worth each
+            "lm_train": {"launches_per_step": {k: v["launches_per_step"]
+                                               for k, v in lm["runs"].items()},
+                         "max_abs_err": lm_rows["max_abs_err"],
+                         "post_backward": lm_rows["post_backward"][name],
+                         "slots": lm_rows["slots"][name]}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",

@@ -43,6 +43,8 @@ class ArchSpec:
     make_config: Callable[..., Any]               # (tp, dp_axes, **overrides)
     make_smoke: Callable[[], Any]                 # tiny, tp=1
     shapes: tuple[ShapeSpec, ...]
+    # extra per-batch inputs: name -> (per-sample shape fn(cfg, S), dtype)
+    extra_inputs: tuple[tuple[str, Callable[[Any, int], tuple[int, ...]], Any], ...] = ()
 
 
 def param_structs(cfg) -> Any:

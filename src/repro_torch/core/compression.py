@@ -18,10 +18,12 @@ multiple of 256 × g (``quantize_blocks(buf, pad_to=m)``): no padded copy
 is made.  Phases 2 and 3 are one call a bucket,
 ``dequantize_sum_quantize_blocks`` (one launch on the card): the peer sum
 is quantized where it is made and never reaches device memory, bit for
-bit the quantize of what ``dequantize_sum_blocks`` computes.  The
-reference's ``inter_axes`` sum between the two phases is reached only
-from ``core/overlap.py``, which is not ported (ROADMAP queue 1 item 5).
-Every collective goes through ``core/dependency.py::collective``.
+bit the quantize of what ``dequantize_sum_blocks`` computes.  With
+``inter`` (the reference's ``inter_axes``, reached from the in-backward
+sync of ``core/overlap.py`` on a pod mesh) the reduced shard is summed in
+f32 over that group between the two phases, so phases 2 and 3 are then
+the peer sum, the ``inter`` all-reduce and a quantize.  Every collective
+goes through ``core/dependency.py::collective``.
 
 Rounding: the peer sum adds dequantized shards, each product rounded
 once before its add.  XLA's CPU build of the reference fuses the
@@ -45,8 +47,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import dependency as dep
 from repro_torch.kernels.collectives import ops as coll_ops
-from repro_torch.kernels.quantize import (dequantize_blocks, dequantize_sum_quantize_blocks,
-                                          quantize_blocks)
+from repro_torch.kernels.quantize import (dequantize_blocks, dequantize_sum_blocks,
+                                          dequantize_sum_quantize_blocks, quantize_blocks)
 
 BLOCK = 256
 
@@ -66,11 +68,13 @@ dequantize_blockwise = dequantize_blocks
 def compressed_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
                          mesh_shape: Mapping[str, int],
                          group: dist.ProcessGroup, *,
-                         use_ring: bool = False) -> torch.Tensor:
+                         use_ring: bool = False,
+                         inter: dist.ProcessGroup | None = None) -> torch.Tensor:
     """Quantized allreduce of ``buf`` over ``group``, the ranks of
-    ``axes``.  Falls back to a flat sum when the buffer is too small to
-    shard.  f32 only: the reference computes in the comm dtype, the
-    kernels take f32."""
+    ``axes``, and then over ``inter`` (the other pods' ranks of the same
+    data index) if given.  Falls back to a flat sum when the buffer is too
+    small to shard.  f32 only: the reference computes in the comm dtype,
+    the kernels take f32."""
     if buf.dtype != torch.float32:
         raise NotImplementedError(
             f"compressed allreduce of a {buf.dtype} comm buffer: the int8 "
@@ -91,7 +95,13 @@ def compressed_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
     dep.collective(dist.all_to_all_single, group, s_recv, s).wait()
     # phases 2 and 3: dequantize each peer's shard, sum them in peer order
     # and requantize the reduced shard, in one call; then all-gather
-    q2, s2 = dequantize_sum_quantize_blocks(q_recv, s_recv, g)   # (m/g,) int8
+    if inter is None:
+        q2, s2 = dequantize_sum_quantize_blocks(q_recv, s_recv, g)   # (m/g,) int8
+    else:
+        # hierarchical-compressed: the f32 shard crosses the pods, 1/g of the bytes
+        red = dequantize_sum_blocks(q_recv, s_recv, g)
+        dep.collective(dist.all_reduce, inter, red).wait()
+        q2, s2 = quantize_blocks(red)
     if use_ring and len(coll_ops._ring_axes(axes, mesh_shape)) == 1:
         q_all = coll_ops.ring_all_gather(q2, axes, mesh_shape, group)
         s_all = coll_ops.ring_all_gather(s2, axes, mesh_shape, group)

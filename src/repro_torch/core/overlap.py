@@ -1,0 +1,263 @@
+"""DepCha's compute/comm overlap: each layer's gradient collective issued
+INSIDE the backward pass — the port of ``repro/core/overlap.py``.
+
+Paper §4.3: the push (the copy into the comm buffer) is scheduled the
+moment a gradient is produced, and the allreduce runs while the rest of
+back-propagation goes on.  The reference puts each layer's psum inside
+the backward scan body (a ``custom_vjp`` around the layer function) and
+lets XLA overlap it.  PyTorch runs eagerly, so the port does it directly:
+
+  - ``scan_layers`` runs the layer function over the stacked layer
+    params, unbound ONCE a forward: ``unbind``'s backward is one
+    ``stack``, where indexing ``w[li]`` would make every layer's backward
+    write a zero tensor of the whole stack.
+  - with a ``LayerSync``, each layer's param slices first pass through
+    ``sync_in_backward``, an identity ``torch.autograd.Function``.
+    Autograd sums every use of a tensor before it runs the node that made
+    it, so the Function's backward receives the layer's whole parameter
+    cotangent, exactly once.  It copies the cotangents into the layer's
+    slot of a buffer the syncer owns (the pack kernel, row 1: one launch,
+    at scale 1 into a buffer of the cotangents' own dtype, a bit copy),
+    issues the layer's collective on the syncer's stream, ordered after
+    the copy by a stream wait, and returns no gradient for the params.
+    The compute stream never waits on the collective, and a transport
+    never reads a tensor that autograd may free or reuse.
+  - after the backward, ``LayerSync.finish`` waits on every layer's
+    collective and unpacks (row 2) each reduced slot into the layer's
+    rows of the stacked ``.grad`` tensors (rows of the outermost dim:
+    contiguous).
+  - ``remat`` checkpoints the layer body: ``"full"`` recomputes all of
+    it in the backward, ``"dots"`` keeps the matmul outputs (``aten.mm``,
+    ``bmm``, ``addmm``: ``jax.checkpoint_policies.dots_saveable``) and
+    recomputes the rest.  The identity sits outside the checkpoint, so
+    its backward still fires once a layer.
+
+The reduction runs in the cotangent's dtype, as the reference's psum
+does, and sums (the loss is already divided by the global token count).
+Its branches are the reference's (``overlap.py:61–90``): the flat sum;
+``hierarchical`` (the three stages of ``core/hierarchical.py``) when a
+leaf reduces over both "pod" and "data"; ``compressed`` (the int8
+two-phase allreduce of ``core/compression.py`` over "data", in f32, with
+an f32 sum across the pods) when ``intra_size > 1`` and the leaf reduces
+over "data".
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.distributed as dist
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.core import dependency as dep
+from repro_torch.core.buckets import Bucket, LeafInfo
+from repro_torch.core.compression import compressed_allreduce
+from repro_torch.core.hierarchical import hierarchical_allreduce
+from repro_torch.core.schedule import group_size
+from repro_torch.kernels.collectives import ops as coll_ops
+from repro_torch.utils.trees import flatten_with_names
+
+REMATS = ("none", "dots", "full")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+class LayerSync:
+    """The in-backward gradient sync of one stack of layers, set up once
+    per step function.
+
+    ``stacked``: the stack's leaves (name → tensor of shape (L, ...);
+    shapes and dtypes only, ``meta`` works), named ``prefix + name`` in
+    the port's tree.  ``axes``: each leaf's reduce axes, in the stack's
+    leaf order (``parallel/sharding.py::reduce_axes_tree``).  A layer's
+    leaves are grouped by (axes, dtype) into one slot each: one
+    collective a group a layer (at tp=1 one a layer).  ``reducer`` is
+    ``cfg.depcha_reducer``, ``intra_size`` the "data" size the compressed
+    branch shards over.
+
+    Construction is collective: it creates the syncer's communicator (and
+    on a pod mesh for ``hierarchical`` or ``compressed`` its intra- and
+    inter-pod groups) on every rank in the same order.
+    """
+
+    def __init__(self, stacked: dict, axes: Sequence[tuple[str, ...]], mesh, *,
+                 prefix: str = "blocks/", reducer: str = "flat",
+                 intra_size: int = 0, device: str | torch.device = "cuda"):
+        named = flatten_with_names(stacked)[0]
+        if len(axes) != len(named):
+            raise ValueError(f"{len(named)} leaves but {len(axes)} axis groups")
+        self.names = tuple(prefix + n for n, _ in named)
+        self.n_layers = int(named[0][1].shape[0])
+        self.device = dep.resolve_device(device)
+        self.mesh_shape = dict(mesh.shape)
+        self.reducer = reducer
+        self.intra_size = intra_size
+        world = dist.get_world_size()
+        groups: dict[tuple, list[int]] = {}
+        for j, ((_, w), ax) in enumerate(zip(named, axes)):
+            if int(w.shape[0]) != self.n_layers:
+                raise ValueError(f"{self.names[j]} stacks {w.shape[0]} layers, "
+                                 f"not {self.n_layers}")
+            if ax and group_size(ax, self.mesh_shape) != world:
+                raise NotImplementedError(
+                    f"{self.names[j]} reduces over {tuple(ax)}, a group of "
+                    f"{group_size(ax, self.mesh_shape)} of {world} ranks: "
+                    f"tensor parallelism, ROADMAP queue 1 item 9")
+            groups.setdefault((tuple(ax), w.dtype), []).append(j)
+        # (bucket over the layer's cotangent list, reduce axes, slot dtype)
+        self.buckets: list[tuple[Bucket, tuple[str, ...], torch.dtype]] = []
+        for k, ((ax, dt), idx) in enumerate(groups.items()):
+            leaves = tuple(LeafInfo(self.names[j], j, tuple(named[j][1].shape[1:]), dt,
+                                    named[j][1][0].numel()) for j in idx)
+            slot_dt = torch.float32 if self._compressed(ax) else dt
+            self.buckets.append((Bucket(leaves, ax, 0, k), ax, slot_dt))
+        self.world = dep.chain_groups([0], self.device)[0]
+        self.pod = None
+        if "pod" in self.mesh_shape and reducer in ("hierarchical", "compressed"):
+            self.pod = dep.pod_comms({0: self.world}, self.mesh_shape["pod"],
+                                     self.mesh_shape["data"], self.device)[0]
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self._slots: dict[int, torch.Tensor] = {}
+        self.pending: dict[int, list] = {}
+        self.collectives = 0          # issued in the current step's backward
+
+    def _compressed(self, ax: tuple[str, ...]) -> bool:
+        return self.reducer == "compressed" and self.intra_size > 1 and "data" in ax
+
+    def _reduce(self, slot: torch.Tensor, ax: tuple[str, ...]):
+        """Issue one slot's reduction on the current stream: (work, the
+        tensor that holds the result once the work is waited on)."""
+        if not ax:
+            return dep.DONE, slot
+        # every axis besides "pod" and "data" has size 1 here (the
+        # constructor refuses a group smaller than the world)
+        if self.reducer == "hierarchical" and "pod" in ax and "data" in ax:
+            return dep.DONE, hierarchical_allreduce(slot, self.pod)
+        if self._compressed(ax):
+            if self.intra_size != self.mesh_shape["data"]:
+                raise ValueError(f"intra_size {self.intra_size} is not the mesh's "
+                                 f"data size {self.mesh_shape['data']}")
+            intra = self.pod.intra if self.pod is not None else self.world
+            inter = self.pod.inter if "pod" in ax and self.pod is not None else None
+            return dep.DONE, compressed_allreduce(slot, ("data",), self.mesh_shape,
+                                                  intra, inter=inter)
+        return dep.collective(dist.all_reduce, self.world, slot), slot
+
+    def _slot(self, k: int, li: int) -> torch.Tensor:
+        bucket, _, dt = self.buckets[k]
+        if k not in self._slots:      # kept across steps: the syncer owns it
+            self._slots[k] = torch.empty(self.n_layers * bucket.size, dtype=dt,
+                                         device=self.device)
+        return self._slots[k][li * bucket.size:(li + 1) * bucket.size]
+
+    def begin(self) -> None:
+        """Start a step: no layer has issued its collective yet."""
+        self.pending = {}
+        self.collectives = 0
+
+    def issue(self, li: int, grads: Sequence[torch.Tensor]) -> None:
+        """Layer ``li``'s backward: stage its cotangents and issue its
+        collectives, never waiting on one."""
+        if li in self.pending:
+            raise RuntimeError(f"layer {li}'s cotangent arrived twice in one backward")
+        issued = []
+        for k, (bucket, ax, dt) in enumerate(self.buckets):
+            slot = coll_ops.fused_pack(bucket, grads, dt, out=self._slot(k, li))
+            ctx = contextlib.nullcontext()
+            if self.stream is not None:
+                self.stream.wait_stream(torch.cuda.current_stream(self.device))
+                ctx = torch.cuda.stream(self.stream)
+            with ctx:
+                issued.append((k, *self._reduce(slot, ax)))
+            self.collectives += 1
+        self.pending[li] = issued
+
+    def finish(self, stacked: Sequence[torch.Tensor]) -> None:
+        """After the backward: wait on every layer's collectives and write
+        the reduced cotangents into the ``.grad`` of the stacked leaves
+        (``stacked``: the leaves of ``self.names``, in order), which the
+        backward left unset."""
+        missing = [li for li in range(self.n_layers) if li not in self.pending]
+        if missing:
+            raise RuntimeError(f"no in-backward gradient for layers {missing} of "
+                               f"{self.names}")
+        if len(stacked) != len(self.names):
+            raise ValueError(f"expected {len(self.names)} stacked leaves, got {len(stacked)}")
+        for name, w in zip(self.names, stacked):
+            if w.grad is not None:
+                raise RuntimeError(f"{name} got a gradient outside the in-backward sync")
+            w.grad = torch.empty_like(w)
+        for issued in self.pending.values():
+            for _, work, _ in issued:
+                work.wait()
+        if self.stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_stream(self.stream)
+        for li, issued in self.pending.items():
+            rows = [w.grad[li] for w in stacked]
+            for k, _, out in issued:
+                if self.stream is not None:
+                    out.record_stream(cur)
+                coll_ops.fused_unpack(self.buckets[k][0], out, rows)
+
+
+class _SyncInBackward(torch.autograd.Function):
+    """Identity on a layer's parameter slices; its backward hands the
+    layer's cotangents to the ``LayerSync`` and returns none."""
+
+    @staticmethod
+    def forward(ctx, sync: LayerSync, li: int, *params: torch.Tensor):
+        ctx.sync, ctx.li = sync, li
+        return tuple(p.view_as(p) for p in params)
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        ctx.sync.issue(ctx.li, grads)
+        return (None, None) + (None,) * len(grads)
+
+
+def sync_in_backward(params: dict, li: int, sync: LayerSync) -> dict:
+    """Layer ``li``'s params (name → slice, in the stack's leaf order), as
+    views whose gradient ``sync`` reduces inside the backward."""
+    names = list(params)
+    return dict(zip(names, _SyncInBackward.apply(sync, li, *params.values())))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def rematted(fn: Callable, remat: str) -> Callable:
+    """``fn(params, x)`` under the activation-checkpointing policy ``remat``."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat {remat!r}, want one of {REMATS}")
+
+
+def scan_layers(layer_fn: Callable[[dict, Any], Any], stacked: dict, x: Any, *,
+                sync: LayerSync | None = None, remat: str = "none") -> Any:
+    """``layer_fn(params_i, x) -> x`` over the layers of ``stacked`` (a
+    flat dict of (L, ...) leaves), in order; returns the last ``x``.  With
+    ``sync`` each layer's gradient is reduced inside the backward."""
+    names = sorted(stacked)            # the stack's leaf order
+    rows = {n: stacked[n].unbind(0) for n in names}
+    f = rematted(layer_fn, remat)
+    for li in range(len(rows[names[0]])):
+        p = {n: rows[n][li] for n in names}
+        if sync is not None:
+            p = sync_in_backward(p, li, sync)
+        x = f(p, x)
+    return x

@@ -1,4 +1,4 @@
 """Deterministic synthetic data pipelines."""
-from repro_torch.data.pipeline import ImagePipeline
+from repro_torch.data.pipeline import ImagePipeline, TokenPipeline
 
-__all__ = ["ImagePipeline"]
+__all__ = ["ImagePipeline", "TokenPipeline"]

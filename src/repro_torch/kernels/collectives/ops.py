@@ -58,17 +58,25 @@ def _device_of(tensors: Sequence[torch.Tensor]) -> torch.device:
 
 
 def fused_pack(bucket, flat_leaves: Sequence[torch.Tensor], comm_dtype, *,
-               scale: float = 1.0) -> torch.Tensor:
+               scale: float = 1.0, out: torch.Tensor | None = None) -> torch.Tensor:
     """CopyFromTo(g, comm_buf), fused: one staging pass over the bucket.
 
     ``bucket``: a ``repro_torch.core.buckets.Bucket``; ``flat_leaves``:
     the flat gradient list it indexes into.  ``scale`` is the optional
-    loss-scale folded into the cast.
+    loss-scale folded into the cast.  The buffer is new, or ``out`` (a
+    contiguous 1-D ``comm_dtype`` tensor of the bucket's size).
     """
     leaves = [flat_leaves[l.index] for l in bucket.leaves]
     if _device_of(leaves).type == "cuda":
-        return kernel.pack_bucket_kernel(leaves, comm_dtype, scale=scale)
-    return ref.leafwise_pack(leaves, comm_dtype, scale=scale)
+        return kernel.pack_bucket_kernel(leaves, comm_dtype, scale=scale, out=out)
+    packed = ref.leafwise_pack(leaves, comm_dtype, scale=scale)
+    if out is None:
+        return packed
+    if out.dtype != comm_dtype or out.shape != packed.shape or out.device != packed.device:
+        raise ValueError(f"out must be a 1-D {comm_dtype} tensor of {packed.numel()} "
+                         f"elements on {packed.device}; got {out.dtype}"
+                         f"{tuple(out.shape)} on {out.device}")
+    return out.copy_(packed)
 
 
 def fused_unpack(bucket, buf: torch.Tensor, flat_out: list[torch.Tensor], *,

@@ -2,11 +2,11 @@
 
 The reference writes these for execution inside ``shard_map`` with
 explicit tensor-parallel collectives.  The port has no model axis yet,
-so ``embed_lookup`` takes tp=1 only; ``col_parallel``, ``row_parallel``
-and ``sharded_softmax_xent`` come with tensor parallelism and training
-(ROADMAP queue 1 items 5 and 9).  The numerics are the reference's:
-norms in f32 and cast back, RoPE products promoted to f32 before the
-cast back.
+so ``embed_lookup`` and ``sharded_softmax_xent`` take tp=1 only;
+``col_parallel`` and ``row_parallel`` come with tensor parallelism
+(ROADMAP queue 1 item 9).  The numerics are the reference's: norms in
+f32 and cast back, RoPE products promoted to f32 before the cast back,
+the cross-entropy in f32.
 """
 from __future__ import annotations
 
@@ -89,6 +89,26 @@ def embed_lookup(emb: torch.Tensor, ids: torch.Tensor, tp: int) -> torch.Tensor:
     out = emb[ids.clamp(0, v - 1)]
     return torch.where(in_range[..., None], out, torch.zeros((), dtype=emb.dtype,
                                                              device=emb.device))
+
+
+def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
+                         tp: int) -> torch.Tensor:
+    """Per-token cross-entropy (B, S) of logits (B, S, V) against labels
+    (B, S), in f32, as the reference at tp=1: the max shift is held with
+    no gradient (the loss does not depend on it), and a label outside
+    [0, V) scores its true logit as 0."""
+    if tp != 1:
+        raise NotImplementedError(
+            "vocab-sharded cross-entropy (tp > 1): ROADMAP queue 1 item 9")
+    logits = logits_local.float()
+    v = logits.shape[-1]
+    shifted = logits - logits.amax(dim=-1).detach()[..., None]
+    sumexp = torch.exp(shifted).sum(dim=-1)
+    ids = labels.long()
+    in_range = (ids >= 0) & (ids < v)
+    true_logit = shifted.gather(-1, torch.where(in_range, ids, 0)[..., None])[..., 0]
+    true_logit = torch.where(in_range, true_logit, 0.0)
+    return torch.log(sumexp) - true_logit
 
 
 # ------------------------------------------------------------ GQA helpers

@@ -1,7 +1,8 @@
 """Uniform model-family API (``repro/models/registry.py``): each family
 exposes the same hooks so the launchers and loops are family-agnostic.
-Ported so far: ``resnet`` (training), ``transformer`` and ``rwkv``
-(serving at tp=1).  A hook a family does not have yet is None."""
+Ported so far: ``resnet`` (training), ``transformer`` (training and
+serving at tp=1) and ``rwkv`` (serving at tp=1).  A hook a family does
+not have yet is None."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,8 +21,11 @@ class ModelAPI:
     init: Callable[..., Any]              # (cfg, *, seed, device) -> params tree
     in_scan_names: Callable[[Any], frozenset[str]]
     module: Optional[Callable[..., torch.nn.Module]] = None  # (cfg, params tree) -> module
-    param_specs: Optional[Callable[[Any], Any]] = None      # params tree -> specs tree
+    param_specs: Optional[Callable[[Any, Any], Any]] = None  # (params tree, cfg) -> specs tree
     train_forward: Optional[Callable[..., torch.Tensor]] = None
+    # (cfg, params tree, mesh, device) -> core.overlap.LayerSync | None: the
+    # in-backward sync of the leaves ``in_scan_names`` gives (depcha)
+    layer_sync: Optional[Callable[..., Any]] = None
     # serving hooks: (params, tokens, cfg, *, last_pos) -> (logits, cache)
     prefill: Optional[Callable[..., Any]] = None
     # (params, cache, token, pos, cfg) -> (logits, cache), cache in place
@@ -51,6 +55,10 @@ FAMILIES: dict[str, ModelAPI] = {
         family="transformer",
         init=tf_lib.init_params,
         in_scan_names=tf_lib.in_scan_param_names,
+        module=tf_lib.Transformer,
+        param_specs=tf_lib.param_specs,
+        train_forward=tf_lib.train_forward,
+        layer_sync=tf_lib.layer_sync,
         prefill=tf_lib.prefill,
         decode_step=tf_lib.decode_step,
         make_decode_state=_tf_make_state,

@@ -88,7 +88,7 @@ def init_params(cfg: ResNetConfig, *, seed: int = 0,
     return params
 
 
-def param_specs(params: dict) -> dict:
+def param_specs(params: dict, cfg: ResNetConfig | None = None) -> dict:
     """Every leaf replicated (DP only): the spec ``()``."""
     from repro_torch.utils.trees import tree_map_with_names
 

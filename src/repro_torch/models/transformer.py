@@ -1,17 +1,20 @@
 """Decoder-only transformer LM (``repro/models/transformer.py``): the
-dense serving path at tp=1.
+dense training and serving paths at tp=1.
 
 Parameters are the reference's tree — the same nesting, leaf names and
 stacked ``(n_layers, ...)`` block leaves — so weights carry over by name
 (``utils/convert.py::params_from_numpy``).  Layers run as a Python loop
-over the stack where the reference scans.
+over the stack where the reference scans (``core/overlap.py::
+scan_layers``: the stack unbound once a forward).
 
 Ported: ``TransformerConfig`` (every field), ``init_params``,
-``prefill`` (with ``last_pos``), ``decode_step`` (ring-buffer slot),
-``decode_step_paged`` and ``make_cache``.  A config that needs MoE,
+``param_rules`` (with ``_FSDP_DIM``) and ``param_specs``,
+``self_block``, ``backbone``, ``train_forward`` (with ``frame_embeds``
+and depcha's in-backward sync through a ``LayerSync``), ``prefill`` (with
+``last_pos``), ``decode_step`` (ring-buffer slot), ``decode_step_paged``,
+``make_cache`` and the ``Transformer`` module.  A config that needs MoE,
 cross-attention, FSDP or tp > 1 raises ``NotImplementedError`` naming its
-ROADMAP item; ``train_forward`` and ``backbone`` come with ROADMAP queue 1
-item 5.
+ROADMAP item.
 
 The reference's serve functions return new caches (JAX donates the old
 ones).  Here ``decode_step`` and ``decode_step_paged`` write the new
@@ -24,8 +27,10 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch import nn
 
 from repro_torch.core.dependency import resolve_device
+from repro_torch.core.overlap import LayerSync, scan_layers
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (
     ACTIVATIONS,
@@ -36,8 +41,10 @@ from repro_torch.models.common import (
     pad_heads,
     rms_norm,
     rope_angles,
+    sharded_softmax_xent,
     swiglu,
 )
+from repro_torch.parallel.sharding import MODEL_AXIS, ShardingRules, reduce_axes_tree
 
 
 def _round_up(x: int, m: int) -> int:
@@ -165,6 +172,56 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
     }
 
 
+# FSDP storage: the big per-layer matrices get "data" on a second dim
+# (the reference's table; FSDP itself is ROADMAP queue 1 item 8)
+_FSDP_DIM = {
+    "wq": 1, "wo": 2, "wi": 1, "wg": 1, "wu": 1, "wdown": 2,
+    "w_gate": 3, "w_up": 3, "w_down": 2, "ws_g": 1, "ws_u": 1,
+    "ws_down": 2,
+}
+
+
+def param_rules(cfg: TransformerConfig) -> ShardingRules:
+    """The reference's regex → spec table: which dim of each leaf is
+    sharded over "model" (and over the DP axes under FSDP)."""
+    dp = tuple(cfg.dp_axes)
+    dp_entry = dp if len(dp) > 1 else dp[0]
+
+    def spec(rank: int, model_dim: int, name: str) -> tuple:
+        entries = [None] * rank
+        entries[model_dim] = MODEL_AXIS
+        if cfg.fsdp and name in _FSDP_DIM:
+            entries[_FSDP_DIM[name]] = dp_entry
+        return tuple(entries)
+
+    rules = [
+        (r"embed", (MODEL_AXIS, None)),
+        (r"lm_head", (None, MODEL_AXIS)),
+        (r"/wq$", spec(3, 2, "wq")),
+        (r"/wo$", spec(3, 1, "wo")),
+        (r"/wi$", spec(3, 2, "wi")),
+        (r"/wg$", spec(3, 2, "wg")),
+        (r"/wu$", spec(3, 2, "wu")),
+        (r"/wdown$", spec(3, 1, "wdown")),
+        (r"/w_gate$", spec(4, 1, "w_gate")),
+        (r"/w_up$", spec(4, 1, "w_up")),
+        (r"/w_down$", spec(4, 1, "w_down")),
+        (r"/ws_g$", spec(3, 2, "ws_g")),
+        (r"/ws_u$", spec(3, 2, "ws_u")),
+        (r"/ws_down$", spec(3, 1, "ws_down")),
+    ]
+    if cfg.layout.kv_sharded:
+        rules += [(r"/wk$", (None, None, MODEL_AXIS)),
+                  (r"/wv$", (None, None, MODEL_AXIS))]
+    # else: wk/wv replicated, sliced per device (HeadLayout)
+    return ShardingRules(rules=tuple(rules))
+
+
+def param_specs(params: dict, cfg: TransformerConfig) -> dict:
+    """The params' specs tree under ``param_rules(cfg)``."""
+    return param_rules(cfg).tree_specs(params)
+
+
 def in_scan_param_names(params: dict) -> frozenset[str]:
     """Leaves whose gradient the reference sums inside the backward scan
     (depcha)."""
@@ -176,6 +233,28 @@ def in_scan_param_names(params: dict) -> frozenset[str]:
 
 def _layer(params: dict, li: int) -> dict:
     return {n: w[li] for n, w in params["blocks"].items()}
+
+
+def _depcha_axes(cfg: TransformerConfig, stacked: dict, prefix: str):
+    """Per-leaf gradient-reduction axes for the in-backward sync: the DP
+    axes (plus "model" for leaves replicated over it at tp > 1)."""
+    if not cfg.depcha_in_scan:
+        return ()
+    mesh_axes = tuple(cfg.dp_axes) + ((MODEL_AXIS,) if cfg.tp > 1 else ())
+    return reduce_axes_tree(param_rules(cfg), stacked, prefix, mesh_axes)
+
+
+def layer_sync(cfg: TransformerConfig, params: dict, mesh,
+               device: str | torch.device = "cuda") -> Optional[LayerSync]:
+    """The in-backward sync of the ``blocks`` stack (the reference's
+    ``_stack_scan`` with ``depcha_axes``), or None without
+    ``depcha_in_scan``.  Collective: it creates communicators."""
+    axes = _depcha_axes(cfg, params["blocks"], "blocks/")
+    if not axes:
+        return None
+    return LayerSync(params["blocks"], axes, mesh, prefix="blocks/",
+                     reducer=cfg.depcha_reducer, intra_size=cfg.intra_size,
+                     device=device)
 
 
 # ----------------------------------------------------------------- blocks
@@ -210,6 +289,72 @@ def _mlp_residual(p: dict, x: torch.Tensor, o: torch.Tensor,
     return x + _ffn(p, rms_norm(x, p["ln2"]), cfg)
 
 
+def self_block(p: dict, x: torch.Tensor, cfg: TransformerConfig, rope):
+    """One decoder block over the whole sequence; rope = (cos, sin).
+    Returns (x out, k, v), k after RoPE (prefill caches k and v)."""
+    cos, sin = rope
+    q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = attn_lib.attention(q, k, v, causal=True, window=cfg.swa_window,
+                           chunk=cfg.attn_chunk, use_flash=cfg.use_flash)
+    return _mlp_residual(p, x, o.reshape(*x.shape[:2], -1), cfg), k, v
+
+
+def backbone(params: dict, x: torch.Tensor, cfg: TransformerConfig, rope, *,
+             sync: Optional[LayerSync] = None) -> torch.Tensor:
+    """Every block, x: (B, S, d) → (B, S, d), under ``cfg.remat``; with
+    ``sync`` each layer's gradient is reduced inside the backward."""
+    check_supported(cfg)
+    return scan_layers(lambda p, h: self_block(p, h, cfg, rope)[0],
+                       params["blocks"], x, sync=sync, remat=cfg.remat)
+
+
+# ------------------------------------------------------------------ train
+def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
+                  layer_sync: Optional[LayerSync] = None) -> torch.Tensor:
+    """Local-shard loss: the summed token cross-entropy over the GLOBAL
+    token count (``batch["global_tokens"]``), so a sum of the gradients
+    over the data-parallel ranks is the global mean.  ``frame_embeds``
+    (musicgen's stub conditioning, (B, S, d)) is added to the token
+    embeddings when the config asks for it and the batch has it."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
+    if cfg.frame_embeds and "frame_embeds" in batch:
+        x = x + batch["frame_embeds"].to(cfg.dtype)
+    rope = rope_angles(torch.arange(S, device=tokens.device), cfg.hd, cfg.rope_theta)
+    h = rms_norm(backbone(params, x, cfg, rope, sync=layer_sync), params["ln_f"])
+    per_tok = sharded_softmax_xent(h @ params["lm_head"], batch["labels"], cfg.tp)
+    return per_tok.sum() / batch["global_tokens"]
+
+
+class Transformer(nn.Module):
+    """The parameter tree as an ``nn.Module``: ``params_tree()`` gives the
+    reference's nesting (``embed``, ``blocks/<leaf>`` stacked over the
+    layers, ``ln_f``, ``lm_head``); ``forward(batch)`` is the training
+    loss over it."""
+
+    def __init__(self, cfg: TransformerConfig, params: dict):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = nn.Parameter(params["embed"])
+        self.blocks = nn.ParameterDict({k: nn.Parameter(v)
+                                        for k, v in params["blocks"].items()})
+        self.ln_f = nn.Parameter(params["ln_f"])
+        self.lm_head = nn.Parameter(params["lm_head"])
+
+    def params_tree(self) -> dict:
+        return {"embed": self.embed, "blocks": dict(self.blocks.items()),
+                "ln_f": self.ln_f, "lm_head": self.lm_head}
+
+    def forward(self, batch: dict, layer_sync: Optional[LayerSync] = None
+                ) -> torch.Tensor:
+        return train_forward(self.params_tree(), batch, self.cfg,
+                             layer_sync=layer_sync)
+
+
 # ------------------------------------------------------------------ serve
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
             last_pos: Optional[int] = None):
@@ -230,13 +375,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=tokens.device),
              "v": torch.empty(shape, dtype=cfg.dtype, device=tokens.device)}
     for li in range(cfg.n_self):
-        p = _layer(params, li)
-        q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        o = attn_lib.attention(q, k, v, causal=True, window=cfg.swa_window,
-                               chunk=cfg.attn_chunk, use_flash=cfg.use_flash)
-        x = _mlp_residual(p, x, o.reshape(B, S, -1), cfg)
+        x, k, v = self_block(_layer(params, li), x, cfg, (cos, sin))
         cache["k"][li] = k
         cache["v"][li] = v
     sel = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]

@@ -3,7 +3,11 @@
 
 SGD + momentum is the paper's optimizer (§2.1); AdamW for the LM archs.
 State is f32 whatever the param dtype, as in the reference.  ``update``
-returns new tensors; ``apply_updates`` writes the params in place.
+returns the updates as new tensors; SGD's momentum is new tensors too,
+AdamW writes m and v into its state tensors in place (with the same
+elementwise ops in the same order, so each product and sum rounds as
+before) and returns the same state dicts.  ``apply_updates`` writes the
+params in place.
 """
 from __future__ import annotations
 
@@ -59,16 +63,21 @@ def adamw(lr: Callable[[int], float] | float, b1: float = 0.9,
     def update(grads, state, params, step):
         t = step + 1.0
         lr_t = lr_fn(step)
-        m, v, updates = {}, {}, {}
+        updates = {}
         for k, g in grads.items():
             g32 = g.to(torch.float32)
-            m[k] = b1 * state["m"][k] + (1 - b1) * g32
-            v[k] = b2 * state["v"][k] + (1 - b2) * g32 * g32
-            mh = m[k] / (1 - b1 ** t)
-            vh = v[k] / (1 - b2 ** t)
+            m, v = state["m"][k], state["v"][k]
+            # m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g, in place
+            tmp = torch.mul(g32, 1 - b1)
+            torch.add(torch.mul(m, b1, out=m), tmp, out=m)
+            torch.mul(torch.mul(g32, 1 - b2, out=tmp), g32, out=tmp)
+            torch.add(torch.mul(v, b2, out=v), tmp, out=v)
+            del tmp
+            mh = m / (1 - b1 ** t)
+            vh = v / (1 - b2 ** t)
             updates[k] = -lr_t * (mh / (torch.sqrt(vh) + eps)
                                   + weight_decay * params[k].to(torch.float32))
-        return updates, {"m": m, "v": v}
+        return updates, state
 
     return Optimizer(init, update)
 

@@ -7,10 +7,18 @@ through the fused pack/unpack kernels), ``clip_by_global_norm``, the
 optimizer update, and an all-reduce of the loss for logging.  The loss
 divides by the GLOBAL batch, so the summed gradients are the mean.
 
+Under a strategy that ``uses_in_scan`` (depcha) with a config that asks
+for it (``depcha_in_scan``), the family's stacked layer leaves are
+summed inside the backward, one collective a layer (``core/overlap.py::
+LayerSync``, set up once here), and the post-backward schedule skips
+them; the step waits on those collectives, after the post-backward
+schedule is issued and before the clip.
+
 Each stage runs under a profiler label (``step.forward``,
-``step.backward``, ``step.gradsync``, ``step.optimizer``,
-``step.loss_allreduce``; GradSync's ops nest as ``comm.<kind>...``), so
-a ``torch.profiler`` trace splits the step by layer.
+``step.backward``, ``step.gradsync``, ``step.depcha_wait``,
+``step.optimizer``, ``step.loss_allreduce``; GradSync's ops nest as
+``comm.<kind>...``), so a ``torch.profiler`` trace splits the step by
+layer.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ class TrainStep:
     fn: Callable[..., Any]   # (model, opt_state, batch, step) -> (model, opt_state, metrics)
     gradsync: GradSync
     device: torch.device
+    layer_sync: Any = None   # core.overlap.LayerSync under depcha in-scan, else None
 
 
 def make_train_step(
@@ -74,31 +83,49 @@ def make_train_step(
     api = family_of(cfg)
     if api.train_forward is None:
         raise NotImplementedError(
-            f"{api.family} training: ROADMAP queue 1 item 5")
+            f"{api.family} training: ROADMAP queue 1 item 12")
     params_like = model.params_tree()
-    # skip leaves from the post-backward schedule ONLY when the model
-    # really sums them inside the backward (no ported family does yet)
+    # sum leaves inside the backward, and skip them from the post-backward
+    # schedule, ONLY when the strategy and the config both ask for it
     in_scan = (api.in_scan_names(params_like)
                if get_strategy(sync.strategy).uses_in_scan
                and getattr(cfg, "depcha_in_scan", False) else frozenset())
-    gs = GradSync(sync, mesh, api.param_specs(params_like), params_like,
+    layer_sync = None
+    if in_scan:
+        if api.layer_sync is None:
+            raise NotImplementedError(
+                f"{api.family}: in-backward sync, ROADMAP queue 1 item 12")
+        layer_sync = api.layer_sync(cfg, params_like, mesh, device)
+        if layer_sync is None or set(layer_sync.names) != set(in_scan):
+            raise ValueError(f"{api.family}: the in-backward sync does not cover "
+                             f"the in-scan leaves")
+    gs = GradSync(sync, mesh, api.param_specs(params_like, cfg), params_like,
                   in_scan_names=in_scan, device=device)
     loss_group = chain_groups([0], device)[0]
+    fwd_kw = {"layer_sync": layer_sync} if layer_sync is not None else {}
 
     def step(model, opt_state, batch, step_idx: int):
         model.zero_grad(set_to_none=True)
         tree = model.params_tree()
+        if layer_sync is not None:
+            layer_sync.begin()
         with record_function("step.forward"):
-            loss = api.train_forward(tree, batch, cfg)
+            loss = api.train_forward(tree, batch, cfg, **fwd_kw)
         with record_function("step.backward"):
             loss.backward()
         named, treedef = flatten_with_names(tree)
-        missing = [n for n, p in named if p.grad is None]
+        # the in-scan leaves' gradients come from the in-backward sync
+        missing = [n for n, p in named if p.grad is None and n not in in_scan]
         if missing:
             raise RuntimeError(f"no gradient for {missing}")
         with record_function("step.gradsync"):
             grads_tree = gs(tree_unflatten(treedef, [p.grad for _, p in named]))
         grads = dict(flatten_with_names(grads_tree)[0])
+        if layer_sync is not None:
+            stacked = dict(named)
+            with record_function("step.depcha_wait"):
+                layer_sync.finish([stacked[n] for n in layer_sync.names])
+            grads.update({n: stacked[n].grad for n in layer_sync.names})
         with record_function("step.optimizer"):
             if clip_norm:
                 grads, gnorm = clip_by_global_norm(grads, clip_norm)
@@ -113,7 +140,7 @@ def make_train_step(
             dep.collective(dist.all_reduce, loss_group, loss).wait()
         return model, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    return TrainStep(step, gs, device)
+    return TrainStep(step, gs, device, layer_sync)
 
 
 class Trainer:

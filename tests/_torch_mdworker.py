@@ -1,6 +1,6 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
-    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier]
+    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier|lm]
     python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier>
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
@@ -30,6 +30,19 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               ``inputs.npz["base"]``, as ``tests/_mdworker.py`` runs them,
               to ``hier_rank<r>.npz``; then GradSync's reduced smoke
               gradients for each of ``HIER_GRADS`` to ``<name>_rank<r>.npz``.
+
+  lm          (tests/test_torch_overlap.py) the quickstart LM (``lm_config``)
+              from ``workdir/lm_params.npz``: for each run of ``LM_RUNS``
+              ``LM_STEPS`` (or 1) steps of ``make_train_step`` with AdamW
+              and clip 1.0 over the rank's slice of ``TokenPipeline``;
+              the losses, the in-backward collectives and the reduced
+              gradients of each step, and the final params, to
+              ``<run>_rank<r>.npz``; then the rank's local gradients at
+              step 0, unreduced, to ``lm-local_rank<r>.npz``.
+
+``layer_sync_rank`` is one of 2 processes on ``cuda:0`` for
+tests/test_torch_cuda.py: depcha's in-backward slot staging and the
+order of its copy, collective and unpack.
 
 ``peer_rank`` is one of 2 or 4 processes on ``cuda:0`` for
 tests/test_torch_cuda.py (spawned with torch.multiprocessing): the
@@ -82,6 +95,27 @@ HIER_GRADS = {(st, red, m): f"{st}-{red}-{m}"
               for red in ("hierarchical", "hierarchical_ring") for m in ("2x2",)}
 HIER_GRADS.update({("funnel", red, "1x4"): f"funnel-{red}-1x4"
                    for red in ("hierarchical", "hierarchical_ring")})
+LM_STEPS, LM_SEQ, LM_BATCH = 3, 64, 8
+# run -> (strategy, GradSync reducer, (pods, data) or None, depcha_reducer, steps)
+LM_RUNS = {
+    "lm-funnel": ("funnel", "flat", None, "flat", LM_STEPS),
+    "lm-concom": ("concom", "flat", None, "flat", LM_STEPS),
+    "lm-depcha": ("depcha", "flat", None, "flat", LM_STEPS),
+    "lm-depcha-hierarchical": ("depcha", "hierarchical", (2, 2), "hierarchical", 1),
+    "lm-depcha-compressed": ("depcha", "flat", None, "compressed", 1),
+    "lm-depcha-compressed-pods": ("depcha", "hierarchical", (2, 2), "compressed", 1),
+}
+
+
+def lm_config(**over):
+    """The quickstart LM's widths (examples/quickstart.py), f32."""
+    import torch
+
+    from repro_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(name="quickstart-lm", n_layers=4, d_model=128, n_heads=8,
+                             kv_heads=4, d_ff=256, vocab=512, tp=1, attn_chunk=64,
+                             dtype=torch.float32, **over)
 
 
 def _grads(workdir: str, rank: int) -> None:
@@ -237,6 +271,137 @@ def _hier(workdir: str, rank: int) -> None:
                  **{n: g.numpy() for n, g in flatten_with_names(reduced)[0]})
 
 
+def _lm(workdir: str, rank: int) -> None:
+    from repro_torch.core import GradSyncConfig, get_strategy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh, make_pod_mesh
+    from repro_torch.models.transformer import Transformer, train_forward
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.parallel.sharding import dp_axes_of
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names
+
+    named = dict(np.load(os.path.join(workdir, "lm_params.npz")))
+    for run, (strategy, reducer, layout, depcha_reducer, steps) in LM_RUNS.items():
+        mesh = make_pod_mesh(*layout) if layout else make_dp_mesh()
+        cfg = lm_config(dp_axes=dp_axes_of(mesh),
+                        depcha_in_scan=get_strategy(strategy).uses_in_scan,
+                        depcha_reducer=depcha_reducer, intra_size=mesh.shape["data"])
+        model = Transformer(cfg, params_from_numpy(named, "cpu"))
+        opt = adamw(cosine_warmup(1e-3, 20, 200))
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strategy, reducer=reducer,
+                                                       num_channels=4, bucket_bytes=1 << 16),
+                             opt, model=model, clip_norm=1.0, device="cpu")
+        pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, mesh=mesh, rank=rank, device="cpu")
+        params = flatten_with_names(model.params_tree())[0]
+        state = opt.init(dict(params))
+        out = {}
+        for step in range(steps):
+            model, state, m = ts.fn(model, state, pipe.batch_at(step), step)
+            out[f"loss/{step}"] = m["loss"].numpy()
+            out[f"collectives/{step}"] = np.array(
+                ts.layer_sync.collectives if ts.layer_sync is not None else 0)
+            out.update({f"grad{step}/{n}": p.grad.numpy().copy() for n, p in params})
+        out.update({f"param/{n}": p.detach().numpy() for n, p in params})
+        np.savez(os.path.join(workdir, f"{run}_rank{rank}.npz"), **out)
+
+    # the rank's own gradients, unreduced (the compressed bound's inputs)
+    cfg = lm_config()
+    tree = params_from_numpy(named, "cpu")
+    leaves = flatten_with_names(tree)[0]
+    for _, p in leaves:
+        p.requires_grad_(True)
+    batch = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, mesh=make_dp_mesh(), rank=rank,
+                          device="cpu").batch_at(0)
+    train_forward(tree, batch, cfg).backward()
+    np.savez(os.path.join(workdir, f"lm-local_rank{rank}.npz"),
+             **{n: p.grad.numpy() for n, p in leaves})
+
+
+def layer_sync_rank(rank: int, world: int, workdir: str, case: str) -> None:
+    """One of ``world`` processes on ``cuda:0`` (gloo through pinned host
+    memory) for tests/test_torch_cuda.py: the qwen3 smoke config in f32
+    under depcha's in-backward sync, the stacked layers' reduced gradients
+    against the plain backward's summed over the ranks by one
+    ``all_reduce`` a leaf,
+    bit for bit (a sum of two f32 values has one rounding, in any order),
+    with one pack and one unpack launch and one collective a layer.
+    ``order`` first puts a 50 ms sleep on the stream before every slot's
+    copy and before every collective, with the slots started as NaN: a
+    collective that read its slot before the copy, or an unpack that read
+    it before the collective's result came back, would show.  Writes "ok"
+    or the failure to ``sync_<rank>.txt``."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.qwen3_1_7b import make_smoke
+    from repro_torch.core import dependency as dep
+    from repro_torch.core import overlap
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import init_dist, make_dp_mesh
+    from repro_torch.models import transformer
+    from repro_torch.utils.trees import flatten_with_names
+
+    init_dist("cuda", backend="gloo", init_method=f"file://{workdir}/store", rank=rank,
+              world_size=world, timeout=datetime.timedelta(seconds=120))
+    said = "ok"
+    try:
+        cfg = dataclasses.replace(make_smoke(), depcha_in_scan=True)
+        mesh = make_dp_mesh()
+        batch = TokenPipeline(cfg.vocab, 40, 2 * world, mesh=mesh, rank=rank,
+                              device="cuda").batch_at(0)
+
+        def grads(sync: bool):
+            model = transformer.Transformer(cfg, transformer.init_params(cfg, seed=3))
+            layer_sync = transformer.layer_sync(cfg, model.params_tree(), mesh) if sync else None
+            if layer_sync is not None:
+                layer_sync.begin()
+                if case == "order":       # slots allocated, then poisoned
+                    for k in range(len(layer_sync.buckets)):
+                        layer_sync._slot(k, 0)
+                        layer_sync._slots[k].fill_(float("nan"))
+            model(batch, layer_sync).backward()
+            named = flatten_with_names(model.params_tree())[0]
+            if layer_sync is not None:
+                stacked = dict(named)
+                layer_sync.finish([stacked[n] for n in layer_sync.names])
+            torch.cuda.synchronize()
+            return {n: p.grad for n, p in named}, layer_sync
+
+        want, _ = grads(False)
+        for g in want.values():
+            dep.collective(dist.all_reduce, dist.group.WORLD, g).wait()
+        if case == "order":
+            pack, collective = overlap.coll_ops.fused_pack, dep.collective
+
+            def slow_pack(*a, **k):
+                torch.cuda._sleep(50_000_000)
+                return pack(*a, **k)
+
+            def slow_collective(*a, **k):
+                torch.cuda._sleep(50_000_000)
+                return collective(*a, **k)
+            overlap.coll_ops.fused_pack, dep.collective = slow_pack, slow_collective
+        before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+        got, layer_sync = grads(True)
+        launches = (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1])
+        if launches != (cfg.n_layers, cfg.n_layers) or layer_sync.collectives != cfg.n_layers:
+            said = f"launches {launches}, collectives {layer_sync.collectives}"
+        for n in layer_sync.names:      # the other leaves stay local here
+            if not torch.equal(got[n].view(torch.int32), want[n].view(torch.int32)):
+                said = f"{n}: max abs err {(got[n] - want[n]).abs().max().item()}"
+    except Exception as e:   # reported to the test, which fails on it
+        said = f"{type(e).__name__}: {e}"
+    with open(os.path.join(workdir, f"sync_{rank}.txt"), "w") as f:
+        f.write(said)
+    dist.destroy_process_group()
+
+
 def peer_rank(rank: int, world: int, workdir: str, case: str) -> None:
     """``check``: both peer-ring kernels against the plain rings bit for
     bit (f32, bf16, f16; uni- and bidirectional; c = 1, 37 and 131071,
@@ -377,6 +542,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _grads(workdir, rank)
         elif mode == "hier":
             _hier(workdir, rank)
+        elif mode == "lm":
+            _lm(workdir, rank)
         else:
             out = {"rings": _rings, "compressed": _compressed}[mode](workdir, rank)
             np.savez(os.path.join(workdir, f"{mode}_rank{rank}.npz"), **out)

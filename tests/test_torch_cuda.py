@@ -1,9 +1,11 @@
 """The port's CUDA kernels and engines on the card: the serving slices'
 kernels and engines, the staging kernels, the ring-hop combine and int8
 block kernels (the quantize of an unpadded buffer, the dequantize's
-peer-sum entry and the fused sum-requantize), and the
+peer-sum entry and the fused sum-requantize), the
 peer-memory ring reduce-scatter/all-gather (2 and 4 rank processes on
-``cuda:0``, spawned through ``tests/_torch_mdworker.py::peer_rank``).
+``cuda:0``, spawned through ``tests/_torch_mdworker.py::peer_rank``), and
+depcha's in-backward sync (2 rank processes,
+``tests/_torch_mdworker.py::layer_sync_rank``).
 
 This module imports neither ``jax`` nor ``repro``, so it runs on a
 machine with a GPU and no JAX; there ``tests/conftest.py`` (which imports
@@ -655,3 +657,20 @@ def test_cuda_peer_ring_wait_that_runs_out_raises(cuda, tmp_path):
     assert "chain 3" in first
     assert "has failed" in again
     assert "rank 0 of the ring" in said[1] and "timed out" in said[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stage", "order"])
+def test_cuda_layer_sync_stages_and_orders_its_collectives(cuda, case, tmp_path):
+    """Depcha's in-backward sync on 2 ranks sharing the card: the reduced
+    gradients equal the plain backward's summed over the ranks bit for
+    bit, one pack and one unpack launch and one collective a layer;
+    ``order`` with a sleep before every slot copy and collective and NaN
+    slots, so a collective that reads its slot early, or an unpack that
+    reads the slot before the collective's result, shows."""
+    import torch.multiprocessing as mp
+
+    from _torch_mdworker import layer_sync_rank
+
+    mp.spawn(layer_sync_rank, args=(2, str(tmp_path), case), nprocs=2, join=True)
+    assert [(tmp_path / f"sync_{r}.txt").read_text() for r in range(2)] == ["ok"] * 2

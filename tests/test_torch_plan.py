@@ -198,3 +198,55 @@ def test_phase_and_regroup_splits_match_reference():
     got = _from_reference(want)
     for g, w in zip(got.split_regroup(), want.split_regroup()):
         assert _op_fields(g) == _op_fields(w)
+
+
+# ------------------------------------------------ the transformer LM (Qwen3-1.7B)
+
+def _lm_plans(which, **kw):
+    """(the port's, the reference's) bucket plan of Qwen3-1.7B's smoke or
+    full-width config at tp=1 on a one-rank ("data", "model") mesh, from
+    the models' own sharding rules."""
+    from repro.configs import qwen3_1_7b as ref_qwen3
+    from repro.models import transformer as ref_tf
+    from repro_torch.configs import qwen3_1_7b as qwen3
+    from repro_torch.models import transformer
+
+    if which == "smoke":
+        ref_cfg, cfg = ref_qwen3.make_smoke(), qwen3.make_smoke()
+    else:
+        ref_cfg, cfg = ref_qwen3.make_config(tp=1), qwen3.make_config()
+    ref_params = jax.eval_shape(lambda: ref_tf.init_params(jax.random.PRNGKey(0), ref_cfg))
+    ref_plan = ref_make_bucket_plan(ref_params, ref_tf.param_rules(ref_cfg).tree_specs(
+        ref_params), ref_smoke_mesh(1, 1), **kw)
+    params = transformer.init_params(cfg, device="meta")
+    plan = make_bucket_plan(params, transformer.param_specs(params, cfg),
+                            make_smoke_mesh(1), **kw)
+    return plan, ref_plan, transformer.in_scan_param_names(params), \
+        ref_tf.in_scan_param_names(ref_params)
+
+
+@pytest.mark.parametrize("bucket_bytes", [0, 4 * 1024 * 1024])
+@pytest.mark.parametrize("which", CONFIGS)
+def test_lm_bucket_plan_matches_reference(which, bucket_bytes):
+    plan, ref_plan, _, _ = _lm_plans(which, bucket_bytes=bucket_bytes, num_channels=4)
+    assert _plan_fields(plan) == _plan_fields(ref_plan)
+
+
+@pytest.mark.parametrize("in_scan", [False, True])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("which", CONFIGS)
+def test_lm_schedule_matches_reference_op_for_op(which, strategy, in_scan):
+    """With ``in_scan`` the strategies that sum inside the backward (depcha)
+    drop the ``blocks/`` leaves: their schedule carries only embed,
+    lm_head and the final norm."""
+    plan, ref_plan, names, ref_names = _lm_plans(which, num_channels=4)
+    assert names == ref_names and names
+    skip = names if in_scan and get_strategy(strategy).uses_in_scan else frozenset()
+    got = get_strategy(strategy).plan(plan, skip_names=skip)
+    want = ref_get_strategy(strategy).plan(ref_plan, skip_names=skip)
+    assert _op_fields(got) == _op_fields(want)
+    assert got.stats() == want.stats()
+    if skip:
+        assert got.leaf_names() == {"embed", "lm_head", "ln_f"}
+    else:
+        assert names <= got.leaf_names()

@@ -283,7 +283,7 @@ def test_registry_serves_transformer():
     api = family_of(qwen3_smoke())
     assert api.family == "transformer"
     assert api.prefill is tf.prefill and api.decode_paged is tf.decode_step_paged
-    assert api.train_forward is None               # ROADMAP queue 1 item 5
+    assert api.train_forward is tf.train_forward and api.module is tf.Transformer
     cache = api.make_decode_state(qwen3_smoke(), 2, 12, "cpu")
     assert cache["k"].shape == (2, 2, 12, 2, 16)
 
