@@ -97,6 +97,31 @@ Phases, in order; any failure raises and exits non-zero:
               (kernels) from the same weights and batches, TF32 off:
               losses within rtol 1e-5, 4 in-backward collectives a step
               on each.
+  inception_kernels  the pack and unpack kernels bit for bit against
+              their plain versions at Inception-BN's layouts: the 2
+              buckets of its full-width plan (57 f32 leaves and the head;
+              f32 and bf16 comm, scale 1 and 4), one launch each way a
+              bucket; then a step's worth timed in turns with torch.cat /
+              torch._foreach_copy_, on the device, beside the plain
+              version and the byte bound.
+  inception   Inception-BN/ImageNet at full width (width 1.0, 224x224,
+              1000 classes, random seeded weights), global batch 256, SGD
+              with momentum 0.9, clip 1.0, TF32 off, deterministic cuDNN,
+              on a one-rank NCCL group: funnel, concom and depcha through
+              ``Trainer`` with a ``MetricsRegistry``, 1 warm-up + 2 timed
+              steps each.  Losses equal across the strategies (rtol
+              1e-5); pack and unpack launches exactly the plan's (2 a
+              step); the ``comm_bytes.*`` counters the schedule's bytes.
+              Step ms, images/s, peak memory, the host ms of one
+              ``batch_at``, a profiled depcha step (idle share, top
+              kernels) and its stages by CUDA events.
+  inception_cpu_vs_gpu  the Inception smoke config, 3 steps of depcha on
+              the CPU (plain versions) and on the card: losses within
+              rtol 1e-5.
+  verify      host ms of the six analysis passes that GradSync runs
+              while planning (ResNet-50, Qwen3-1.7B depcha in-scan,
+              Inception-BN; 1 and 8 ranks), and the port analyzer's
+              cross-product summary: every planned cell clean.
   reducers    four rank processes spawned on the one card, each with all
               its compute on cuda:0 and gloo communicators staged through
               pinned host memory (NCCL refuses two ranks on one device;
@@ -543,7 +568,7 @@ def phase_train() -> dict:
         st = ts.gradsync.schedule.stats()
         log(f"[train] {strat}: {st['num_ops']} ops on {st['num_chains']} "
             f"chains (longest {st['max_chain_len']}); losses {hist['losses']}; "
-            f"first step {hist['first_step_time'] * 1e3:.1f} ms, timed steps "
+            f"first step {hist['compile_time'] * 1e3:.1f} ms, timed steps "
             f"{[round(t * 1e3, 2) for t in hist['step_times']]} ms")
     launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
     if launches != {"pack": sum(steps), "unpack": sum(steps)} or sum(steps) != 24 * 12:
@@ -677,6 +702,60 @@ def lm_plan():
     return plan, flatten_with_names(params)[0]
 
 
+def time_staging(buckets_and_leaves, comm) -> dict:
+    """A step's worth of pack and of unpack launches (each bucket with its
+    leaf list) timed with CUDA events in turns with one PyTorch call doing
+    the same (``torch.cat``, ``torch._foreach_copy_``), and by
+    torch.profiler on the device; beside the plain version and the byte
+    bound (each leaf read or written once, each buffer written or read
+    once)."""
+    from repro_torch.kernels.collectives import ops, ref
+
+    bufs = [ops.fused_pack(b, lv, comm) for b, lv in buckets_and_leaves]
+    targets = {}      # one set of outputs for each leaf list
+    for _, lv in buckets_and_leaves:
+        if id(lv) not in targets:
+            targets[id(lv)] = [torch.empty_like(t) for t in lv]
+    outs = [targets[id(lv)] for _, lv in buckets_and_leaves]
+    elems = sum(b.size for b, _ in buckets_and_leaves)
+    leaf_bytes = sum(sum(lv[l.index].numel() * lv[l.index].element_size()
+                         for l in b.leaves) for b, lv in buckets_and_leaves)
+    bound = (leaf_bytes + elems * comm.itemsize) / HBM_BYTES_PER_S * 1e3
+
+    def pack():
+        for b, lv in buckets_and_leaves:
+            ops.fused_pack(b, lv, comm)
+
+    def unpack():
+        for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
+            ops.fused_unpack(b, buf, out)
+
+    def lib_pack():
+        for b, lv in buckets_and_leaves:
+            torch.cat([lv[l.index].reshape(-1).to(comm) for l in b.leaves])
+
+    def lib_unpack():
+        for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
+            torch._foreach_copy_([out[l.index].view(-1) for l in b.leaves],
+                                 list(torch.split(buf, [l.size for l in b.leaves])))
+
+    def plain_unpack_all():
+        for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
+            plain_unpack(b, buf, out)
+
+    res = {}
+    for name, fn, lib, plain in (
+            ("pack", pack, lib_pack, lambda: [ref.leafwise_pack(
+                [lv[l.index] for l in b.leaves], comm) for b, lv in buckets_and_leaves]),
+            ("unpack", unpack, lib_unpack, plain_unpack_all)):
+        turns = cuda_ms_in_turns({"ms": fn, "library_ms": lib})
+        res[name] = dict(ms=sum(turns["ms"]) / 2, library_ms=sum(turns["library_ms"]) / 2,
+                         device_ms=device_ms_per_launch(fn, f"{name}_bucket_kernel", reps=10),
+                         plain_ms=cuda_ms(plain, reps=5), bound_ms=bound, bound_by="bytes",
+                         launches=len(buckets_and_leaves), turns=turns)
+    return res
+
+
 def phase_lm_kernels() -> dict:
     """Rows 1-2 at the LM's layouts, bit for bit against their plain
     versions: every bucket of Qwen3-1.7B's post-backward plan (bf16 leaves,
@@ -686,7 +765,7 @@ def phase_lm_kernels() -> dict:
     slots) timed with CUDA events in turns with one PyTorch call doing the
     same, beside the plain version and the byte bound."""
     from repro_torch.core.overlap import LayerSync
-    from repro_torch.kernels.collectives import kernel, ops, ref
+    from repro_torch.kernels.collectives import kernel
     from repro_torch.launch.mesh import make_dp_mesh
     from repro_torch.models.transformer import _depcha_axes, init_params
 
@@ -724,59 +803,15 @@ def phase_lm_kernels() -> dict:
         f"in-backward slots ({len(slot_bucket.leaves)} leaves, {slot_bucket.size} elements, "
         f"{slot_dtype}); one pack and one unpack launch each")
 
-    def timed(buckets_and_leaves, comm):
-        bufs = [ops.fused_pack(b, lv, comm) for b, lv in buckets_and_leaves]
-        targets = {}      # one set of outputs for each leaf list
-        for _, lv in buckets_and_leaves:
-            if id(lv) not in targets:
-                targets[id(lv)] = [torch.empty_like(t) for t in lv]
-        outs = [targets[id(lv)] for _, lv in buckets_and_leaves]
-        elems = sum(b.size for b, _ in buckets_and_leaves)
-        leaf_bytes = sum(sum(lv[l.index].numel() * lv[l.index].element_size()
-                             for l in b.leaves) for b, lv in buckets_and_leaves)
-        bound = (leaf_bytes + elems * comm.itemsize) / HBM_BYTES_PER_S * 1e3
-
-        def pack():
-            for b, lv in buckets_and_leaves:
-                ops.fused_pack(b, lv, comm)
-
-        def unpack():
-            for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
-                ops.fused_unpack(b, buf, out)
-
-        def lib_pack():
-            for b, lv in buckets_and_leaves:
-                torch.cat([lv[l.index].reshape(-1).to(comm) for l in b.leaves])
-
-        def lib_unpack():
-            for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
-                torch._foreach_copy_([out[l.index].view(-1) for l in b.leaves],
-                                     list(torch.split(buf, [l.size for l in b.leaves])))
-
-        def plain_unpack_all():
-            for (b, _), buf, out in zip(buckets_and_leaves, bufs, outs):
-                plain_unpack(b, buf, out)
-
-        res = {}
-        for name, fn, lib, plain in (
-                ("pack", pack, lib_pack, lambda: [ref.leafwise_pack(
-                    [lv[l.index] for l in b.leaves], comm) for b, lv in buckets_and_leaves]),
-                ("unpack", unpack, lib_unpack, plain_unpack_all)):
-            turns = cuda_ms_in_turns({"ms": fn, "library_ms": lib})
-            res[name] = dict(ms=sum(turns["ms"]) / 2, library_ms=sum(turns["library_ms"]) / 2,
-                             plain_ms=cuda_ms(plain, reps=5), bound_ms=bound, bound_by="bytes",
-                             launches=len(buckets_and_leaves), turns=turns)
-        return res
-
-    out = {"post_backward": timed([(b, flat) for b in plan.buckets], f32),
-           "slots": timed([(slot_bucket, r) for r in rows], slot_dtype),
+    out = {"post_backward": time_staging([(b, flat) for b in plan.buckets], f32),
+           "slots": time_staging([(slot_bucket, r) for r in rows], slot_dtype),
            "max_abs_err": err, "checks": n_checks}
     log("[lm_kernels] " + json.dumps(out))
     return out
 
 
-def lm_profile(ts, model, opt_state, pipe, wall_ms: float) -> dict:
-    """One more step under torch.profiler: the device time of its kernels
+def lm_profile(ts, model, opt_state, pipe, wall_ms: float, step: int = LM_STEPS) -> dict:
+    """One more step (``step``) under torch.profiler: the device time of its kernels
     (device events other than the ``step.*``/``comm.*`` annotations)
     against ``wall_ms`` (the mean wall time of the timed steps without the
     profiler) gives the device idle share; and the kernels that take the
@@ -784,17 +819,17 @@ def lm_profile(ts, model, opt_state, pipe, wall_ms: float) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch = pipe.batch_at(LM_STEPS)
+    batch = pipe.batch_at(step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ts.fn(model, opt_state, batch, LM_STEPS)
+        ts.fn(model, opt_state, batch, step)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA
                and not e.name.startswith(("step.", "comm."))]
     if not kernels:
-        raise AssertionError("the profiler saw no device time in the LM step")
+        raise AssertionError("the profiler saw no device time in the step")
     kernel_ms = sum(k.time_range.elapsed_us() for k in kernels) / 1e3
     by_name: dict = {}
     for k in kernels:
@@ -810,8 +845,8 @@ def lm_profile(ts, model, opt_state, pipe, wall_ms: float) -> dict:
                             for n, (c, ms) in by_name.items() if "_bucket_kernel<" in n]}
 
 
-def lm_stage_spans(ts, model, opt_state, pipe) -> dict:
-    """One more step, unprofiled, with a CUDA event recorded on the
+def lm_stage_spans(ts, model, opt_state, pipe, step: int = LM_STEPS + 1) -> dict:
+    """One more step (``step``), unprofiled, with a CUDA event recorded on the
     current stream at the entry and the exit of each ``step.*`` label of
     the train loop: each stage's span on the device (ms), which holds its
     kernels and the device's idle gaps between them.  The backward's
@@ -832,12 +867,12 @@ def lm_stage_spans(ts, model, opt_state, pipe) -> dict:
         end.record()
         marks.append((name, start, end))
 
-    batch = pipe.batch_at(LM_STEPS + 1)
+    batch = pipe.batch_at(step)
     torch.cuda.synchronize()
     train_loop.record_function = marked
     try:
         t0 = time.perf_counter()
-        ts.fn(model, opt_state, batch, LM_STEPS + 1)
+        ts.fn(model, opt_state, batch, step)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -1076,6 +1111,276 @@ def phase_lm_cpu_vs_gpu() -> None:
     log(f"[lm_cpu_vs_gpu] losses cpu {l_cpu} gpu {l_gpu} (rtol 1e-5); {c_gpu} in-backward "
         f"collectives in the last step on each; max param diff after 3 steps {worst} "
         f"(reported)")
+
+
+# ------------------------------------------------------- Inception-BN / ImageNet
+
+INCEPTION_BATCH = 256          # the arch's training shape: global batch 256 at 224x224
+INCEPTION_STEPS = 3            # 1 warm-up + 2 timed
+
+
+def inception_plan():
+    """Inception-BN's bucket plan at full width as GradSync builds it (4 MiB
+    buckets, 4 channels, f32 comm) and its named leaves, on ``meta``."""
+    from repro_torch.configs.inception_bn_imagenet import make_config
+    from repro_torch.core import make_bucket_plan
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.resnet import init_inception, param_specs
+    from repro_torch.utils.trees import flatten_with_names
+
+    params = init_inception(make_config(), device="meta")
+    plan = make_bucket_plan(params, param_specs(params), make_smoke_mesh(1),
+                            bucket_bytes=4 * 1024 * 1024, num_channels=4)
+    return plan, flatten_with_names(params)[0]
+
+
+def staging_launches(bucket) -> int:
+    """Launches of one pack (or one unpack) of ``bucket``: one a group of
+    at most ``MAX_LEAVES`` leaves of one dtype."""
+    from repro_torch.kernels.collectives.kernel import MAX_LEAVES
+
+    per_dtype: dict = {}
+    for l in bucket.leaves:
+        per_dtype[l.dtype] = per_dtype.get(l.dtype, 0) + 1
+    return sum(-(-n // MAX_LEAVES) for n in per_dtype.values())
+
+
+def phase_inception_kernels() -> dict:
+    """Rows 1-2 at Inception-BN's layouts, bit for bit against their plain
+    versions: every bucket of the full-width plan (f32 leaves; f32 and bf16
+    comm; scale 1 and 4, so unpack at 1 and 1/4), the pack into a buffer
+    started as NaN, the unpack into outputs started as NaN, with the
+    launches each bucket takes.  Then a step's worth of each (f32 comm,
+    scale 1: the main path) timed back to back with CUDA events in turns
+    with ``torch.cat`` / ``torch._foreach_copy_``, on the device by
+    torch.profiler, beside the plain version and the byte bound."""
+    from repro_torch.kernels.collectives import kernel
+
+    plan, named = inception_plan()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flat = [torch.randn(p.shape, generator=gen, device="cuda") for _, p in named]
+    err, n_checks = 0.0, 0
+    for comm in (torch.float32, torch.bfloat16):
+        for scale in (1.0, 4.0):
+            for b in plan.buckets:
+                before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+                err = max(err, check_bucket(b, flat, comm, scale))
+                want = staging_launches(b)
+                if (kernel.PACK_LAUNCHES - before[0],
+                        kernel.UNPACK_LAUNCHES - before[1]) != (want, want):
+                    raise AssertionError(f"inception bucket {b.bucket_id}: expected {want} "
+                                         f"pack and {want} unpack launches")
+                n_checks += 1
+    torch.cuda.synchronize()
+    layout = [{"bucket": b.bucket_id, "leaves": len(b.leaves), "elements": b.size,
+               "launches": staging_launches(b)} for b in plan.buckets]
+    log(f"[inception_kernels] {n_checks} checks bit-exact (max abs err {err}): "
+        f"{len(plan.buckets)} buckets, {plan.num_leaves} f32 leaves, "
+        f"{sum(b.size for b in plan.buckets)} elements: {json.dumps(layout)}")
+    out = time_staging([(b, flat) for b in plan.buckets], torch.float32)
+    out.update(max_abs_err=err, checks=n_checks, buckets=layout)
+    log("[inception_kernels] " + json.dumps(out))
+    return out
+
+
+def phase_inception() -> dict:
+    """Inception-BN at full width (width 1.0, 224x224, 1000 classes,
+    random seeded weights) on a one-rank NCCL group, global batch 256, SGD
+    with momentum 0.9, clip 1.0, TF32 off and deterministic cuDNN: funnel,
+    concom and depcha through ``Trainer`` with a ``MetricsRegistry``, 1
+    warm-up + 2 timed steps each.  Losses finite and equal across the
+    strategies (rtol 1e-5); pack and unpack launches exactly the plan's a
+    step; the ``comm_bytes.*`` counters the schedule's bytes.  Reports step
+    ms, images/s, peak memory and the host ms of one ``batch_at``; then one
+    more depcha step under torch.profiler (device idle share, the kernels
+    that take the most) and one with CUDA events at each step stage."""
+    from repro_torch.configs.inception_bn_imagenet import make_config
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import ImagePipeline
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.resnet import Inception, init_inception
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.optim import linear_scaling_rule, sgd
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = make_config()
+    mesh = make_dp_mesh()
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, INCEPTION_BATCH, seed=0, mesh=mesh,
+                         device="cuda")
+    batch_ms = []
+    for step in range(2):
+        t0 = time.perf_counter()
+        pipe.batch_at(step)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    lr = linear_scaling_rule(0.1, 256, 256)
+    runs, live, expected = {}, None, 0
+    kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+    for strat in STRATEGIES:
+        model = Inception(cfg, init_inception(cfg, seed=0, device="cuda"))
+        opt = sgd(lr, momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
+                             clip_norm=1.0, device="cuda")
+        params = dict(flatten_with_names(model.params_tree())[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None,
+                          metrics=MetricsRegistry())
+        model, opt_state, hist = trainer.run(model, opt.init(params), INCEPTION_STEPS)
+        ops = ts.gradsync.schedule.ops
+        per_step = sum(staging_launches(op.bucket) for op in ops)
+        expected += per_step * INCEPTION_STEPS
+        snap = hist["metrics"]
+        comm_bytes = {k: v for k, v in snap.items() if k.startswith("comm_bytes.")}
+        want_bytes = ts.gradsync.schedule.comm_bytes(4)
+        if comm_bytes != {"comm_bytes.allreduce.default.post": want_bytes}:
+            raise AssertionError(f"inception {strat}: comm byte counters {comm_bytes}, "
+                                 f"the schedule moves {want_bytes} bytes a step")
+        st = ts.gradsync.schedule.stats()
+        runs[strat] = {
+            "losses": hist["losses"], "first_step_ms": hist["compile_time"] * 1e3,
+            "step_ms": [t * 1e3 for t in hist["step_times"]],
+            "images_per_s": [INCEPTION_BATCH / t for t in hist["step_times"]],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "buckets": len(ops), "chains": st["num_chains"],
+            "launches_per_step": per_step, "comm_bytes": comm_bytes,
+            "metrics": {k: snap[k] for k in ("steps_total", "mem.state_bytes",
+                                              "compile_time_s", "loss", "grad_norm",
+                                              "step_time_s")}}
+        log(f"[inception] {strat}: " + json.dumps(runs[strat]))
+        live = (ts, model, opt_state)
+    launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
+    if launches != {"pack": expected, "unpack": expected}:
+        raise AssertionError(f"inception launch counters {launches}, expected {expected} "
+                             f"each (the plans' launches x {INCEPTION_STEPS} steps x "
+                             f"{len(STRATEGIES)} strategies)")
+    base = runs[STRATEGIES[0]]["losses"]
+    for strat, r in runs.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"inception {strat}: non-finite loss {r['losses']}")
+        if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(r["losses"], base)):
+            raise AssertionError(f"inception {strat} losses {r['losses']} differ from "
+                                 f"{STRATEGIES[0]}'s {base} beyond rtol 1e-5")
+    ts, model, opt_state = live
+    step_ms = runs[STRATEGIES[-1]]["step_ms"]
+    prof = lm_profile(ts, model, opt_state, pipe, sum(step_ms) / len(step_ms),
+                      step=INCEPTION_STEPS)
+    prof["stages"] = lm_stage_spans(ts, model, opt_state, pipe, step=INCEPTION_STEPS + 1)
+    out = {"runs": runs, "launches": launches, "batch_at_host_ms": batch_ms,
+           "profile": prof, "shape": {"global_batch": INCEPTION_BATCH,
+                                      "img_size": cfg.img_size, "classes": cfg.num_classes,
+                                      "width_mult": cfg.width_mult}}
+    log("[inception] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    del live, ts, model, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_inception_cpu_vs_gpu() -> None:
+    """Inception-BN's smoke config (width 0.25, 32x32, 10 classes), 3 steps
+    of depcha from the same weights and batches (global batch 8) on the
+    CPU (plain versions) and on the card (kernels), TF32 off: losses within
+    rtol 1e-5."""
+    from repro_torch.configs.inception_bn_imagenet import make_smoke
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import ImagePipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.resnet import Inception, init_inception
+    from repro_torch.optim import linear_scaling_rule, sgd
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = make_smoke()
+    mesh = make_dp_mesh()
+    final = {}
+    for device in ("cpu", "cuda"):
+        model = Inception(cfg, init_inception(cfg, seed=0, device=device))
+        opt = sgd(linear_scaling_rule(0.1, 256, 256), momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="depcha"), opt,
+                             model=model, clip_norm=1.0, device=device)
+        pipe = ImagePipeline(cfg.img_size, cfg.num_classes, 8, seed=0, mesh=mesh,
+                             device=device)
+        params = dict(flatten_with_names(model.params_tree())[0])
+        _, _, hist = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None).run(
+            model, opt.init(params), 3)
+        final[device] = ({n: p.detach().cpu() for n, p in params.items()}, hist["losses"])
+    (p_cpu, l_cpu), (p_gpu, l_gpu) = final["cpu"], final["cuda"]
+    for a, b in zip(l_gpu, l_cpu):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"inception_cpu_vs_gpu: losses gpu {l_gpu} cpu {l_cpu} "
+                                 f"beyond rtol 1e-5")
+    worst = max((p_gpu[n] - p).abs().max().item() for n, p in p_cpu.items())
+    log(f"[inception_cpu_vs_gpu] losses cpu {l_cpu} gpu {l_gpu} (rtol 1e-5); max param "
+        f"diff after 3 steps {worst} (reported)")
+
+
+def phase_verify() -> dict:
+    """The six analysis passes that ``GradSync`` now runs while planning,
+    timed on the host (median of 5): ``plan_sync`` without and with them,
+    and ``verify_schedule`` alone, for ResNet-50 (concom, 24 buckets),
+    Qwen3-1.7B (depcha in-scan) and Inception-BN (concom), on the one-rank
+    mesh of the main path and on an 8-rank stand-in (the spmd pass
+    simulates every rank).  Then the port analyzer's cross-product: its
+    summary, and no planned cell with a finding."""
+    from repro_torch.analysis import verify_schedule
+    from repro_torch.analysis.cli import iter_cells, lint_cell, static_mesh, summarize
+    from repro_torch.configs.inception_bn_imagenet import make_config as inception_config
+    from repro_torch.configs.resnet50_cifar import make_config as resnet_config
+    from repro_torch.core import GradSyncConfig, plan_sync
+    from repro_torch.models import resnet, transformer
+
+    def median_ms(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[reps // 2]
+
+    r50 = resnet.init_params(resnet_config(), device="meta")
+    inc = resnet.init_inception(inception_config(), device="meta")
+    lm_cfg = lm_config("depcha")
+    lm = transformer.init_params(lm_cfg, device="meta")
+    cases = {
+        "resnet50-cifar concom": (r50, resnet.param_specs(r50), "concom", frozenset()),
+        "qwen3-1.7b depcha in-scan": (lm, transformer.param_specs(lm, lm_cfg), "depcha",
+                                      transformer.in_scan_param_names(lm)),
+        "inception-bn-imagenet concom": (inc, resnet.param_specs(inc), "concom",
+                                         frozenset()),
+    }
+    out = {}
+    for name, (params, specs, strat, names) in cases.items():
+        for ranks in (1, 8):
+            mesh = static_mesh({"data": ranks, "model": 1})
+            row = {}
+            for verify in (False, True):
+                cfg = GradSyncConfig(strategy=strat, verify=verify)
+                row[f"plan_ms_verify_{verify}"] = median_ms(
+                    lambda: plan_sync(cfg, mesh, specs, params, in_scan_names=names))
+            planned = plan_sync(GradSyncConfig(strategy=strat), mesh, specs, params,
+                                in_scan_names=names)
+            row["verify_schedule_ms"] = median_ms(lambda: verify_schedule(
+                planned.schedule, mesh_shape=planned.mesh_shape, default_reducer="flat",
+                plan_comm_dtype=torch.float32, expect_defer=False))
+            row["ops"] = len(planned.schedule.ops)
+            out[f"{name}, {ranks} rank(s)"] = row
+    t0 = time.perf_counter()
+    summary = summarize([lint_cell(*c) for c in iter_cells()])
+    summary["host_s"] = time.perf_counter() - t0
+    if summary["errors"] or summary["planned"] == 0:
+        raise AssertionError(f"analyzer: {summary}")
+    out["analyzer"] = summary
+    log("[verify] " + json.dumps(out))
+    return out
 
 
 # ------------------------------------------------- ring and int8 kernels
@@ -3613,6 +3918,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm = phase_lm_train()
         phase_lm_cpu_vs_gpu()
+        gc.collect()
+        torch.cuda.empty_cache()
+        inception_rows = phase_inception_kernels()
+        inception = phase_inception()
+        phase_inception_cpu_vs_gpu()
+        phase_verify()
     finally:
         dist.destroy_process_group()
     gc.collect()
@@ -3634,7 +3945,8 @@ def main() -> int:
                 "unpack": "src/repro/kernels/collectives/kernel.py:99"}
     kernels = []
     for name, r in rows.items():
-        by_path = {"train": train["launches"][name], "lm_train": lm["launches"][name]}
+        by_path = {"train": train["launches"][name], "lm_train": lm["launches"][name],
+                   "inception": inception["launches"][name]}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -3646,7 +3958,13 @@ def main() -> int:
                                                for k, v in lm["runs"].items()},
                          "max_abs_err": lm_rows["max_abs_err"],
                          "post_backward": lm_rows["post_backward"][name],
-                         "slots": lm_rows["slots"][name]}})
+                         "slots": lm_rows["slots"][name]},
+            # Inception-BN's layouts: its full-width plan's buckets (f32)
+            "inception": {"launches_per_step": {k: v["launches_per_step"]
+                                                for k, v in inception["runs"].items()},
+                          "max_abs_err": inception_rows["max_abs_err"],
+                          "buckets": inception_rows["buckets"],
+                          "step": inception_rows[name]}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",

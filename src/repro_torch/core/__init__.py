@@ -1,7 +1,7 @@
 """Gradient-sync core: bucket plans, the CommSchedule IR and its emitter,
 strategies, GradSync and the paper's KVStore (``repro/core``)."""
 from repro_torch.core.buckets import Bucket, BucketPlan, LeafInfo, make_bucket_plan
-from repro_torch.core.kvstore import GradSync, GradSyncConfig, KVStore
+from repro_torch.core.kvstore import GradSync, GradSyncConfig, KVStore, SyncPlan, plan_sync
 from repro_torch.core.registry import (
     get_reducer,
     get_strategy,
@@ -22,11 +22,13 @@ __all__ = [
     "GradSyncConfig",
     "KVStore",
     "LeafInfo",
+    "SyncPlan",
     "execute",
     "get_reducer",
     "get_strategy",
     "make_bucket_plan",
     "make_reducer",
+    "plan_sync",
     "reducer_names",
     "register_reducer",
     "register_strategy",

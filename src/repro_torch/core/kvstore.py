@@ -3,10 +3,11 @@
 
 ``GradSync`` is the production entry point: built once per train setup
 from the gradient tree and param specs, it plans the configured
-strategy's ``CommSchedule`` once (inspectable as ``.schedule``), creates
-one communicator and one staging stream per chain, and executes the
-schedule over each step's gradients via
-``repro_torch.core.schedule.execute``.  With a hierarchical reducer on a
+strategy's ``CommSchedule`` once (``plan_sync``: bucket plan, reducer,
+schedule and the six ``repro_torch.analysis`` passes, no process group
+needed; inspectable as ``.schedule``), creates one communicator and one
+staging stream per chain, and executes the schedule over each step's
+gradients via ``repro_torch.core.schedule.execute``.  With a hierarchical reducer on a
 mesh with a pod axis each chain gets its intra- and inter-pod
 sub-communicators (``dependency.pod_comms``) and, for
 ``hierarchical_ring`` on CUDA, its intra-pod ``PeerRing``.
@@ -48,7 +49,7 @@ from repro_torch.kernels.collectives.kernel import PeerRing
 class GradSyncConfig:
     """The reference's sync knobs that the data-parallel slice runs.  The
     ZeRO-1 StepProgram, pipeline and simulator fields come with ROADMAP
-    queue 1 items 8, 13 and 15."""
+    queue 1 items 8, 13 and 15b."""
 
     strategy: str = "depcha"         # any registered strategy name
     reducer: str = "flat"            # any registered reducer name
@@ -59,7 +60,64 @@ class GradSyncConfig:
     exclude_axes: tuple[str, ...] = ()  # reduced elsewhere
     use_fused_staging: bool = True   # fused pack/unpack kernels
     loss_scale: float = 1.0          # folded into pack; unpack divides
-    verify: bool = True              # validate() the planned schedule
+    # static analysis: validate() and the six repro_torch.analysis passes
+    # over the planned schedule, raising ScheduleError (with a printable
+    # witness) before any communicator sees it
+    verify: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class SyncPlan:
+    """Everything ``GradSync`` plans before it touches a process group."""
+
+    info: StrategyInfo
+    mesh_shape: dict[str, int]
+    plan: BucketPlan
+    reducer: Any                     # (buf, bucket, communicator) -> Handle
+    skip_names: frozenset[str]
+    schedule: CommSchedule
+
+
+def plan_sync(cfg: GradSyncConfig, mesh, param_specs: Any, grads_like: Any, *,
+              in_scan_names: frozenset[str] = frozenset()) -> SyncPlan:
+    """Plan ``cfg``'s strategy over ``grads_like`` on ``mesh`` (anything
+    with a ``shape`` dict and ``axis_names``: a stand-in mesh will do) and,
+    under ``cfg.verify``, verify the schedule as the reference's
+    ``GradSync`` does.  Needs no process group.  Raises ``ValueError`` for
+    a strategy/reducer pair the constructor contract refuses,
+    ``NotImplementedError`` for a meta strategy and ``ScheduleError`` for a
+    schedule that fails a pass."""
+    info = get_strategy(cfg.strategy)  # fail fast
+    if info.meta:
+        raise NotImplementedError(
+            f"meta strategy {cfg.strategy!r} plans by simulation: "
+            f"ROADMAP queue 1 item 15b")
+    if info.two_phase and cfg.reducer not in ("flat", "ring"):
+        raise ValueError(
+            f"strategy {cfg.strategy!r} emits raw reduce-scatter/"
+            f"all-gather ops and would silently ignore "
+            f"reducer={cfg.reducer!r}; use reducer='flat'/'ring' or "
+            f"a non-two-phase strategy")
+    mesh_shape = dict(mesh.shape)
+    plan = make_bucket_plan(
+        grads_like, param_specs, mesh,
+        bucket_bytes=cfg.bucket_bytes,
+        num_channels=1 if info.single_chain else cfg.num_channels,
+        comm_dtype=cfg.comm_dtype,
+        exclude_axes=cfg.exclude_axes)
+    reducer = make_reducer(cfg.reducer, mesh_shape, mean_axes=cfg.mean_axes)
+    # leaves whose sum already happened inside the backward scan
+    skip_names = in_scan_names if info.uses_in_scan else frozenset()
+    # the strategy's dependency structure, planned once, inspectable
+    schedule = info.plan(plan, skip_names=skip_names)
+    if cfg.verify:
+        from repro_torch.analysis import verify_schedule
+
+        schedule.validate()
+        verify_schedule(schedule, mesh_shape=mesh_shape,
+                        default_reducer=cfg.reducer,
+                        plan_comm_dtype=cfg.comm_dtype, expect_defer=False)
+    return SyncPlan(info, mesh_shape, plan, reducer, skip_names, schedule)
 
 
 class GradSync:
@@ -81,34 +139,14 @@ class GradSync:
     ):
         self.cfg = cfg
         self.device = dep.resolve_device(device)
-        self.info: StrategyInfo = get_strategy(cfg.strategy)  # fail fast
-        if self.info.meta:
-            raise NotImplementedError(
-                f"meta strategy {cfg.strategy!r} plans by simulation: "
-                f"ROADMAP queue 1 item 15")
-        if self.info.two_phase and cfg.reducer not in ("flat", "ring"):
-            raise ValueError(
-                f"strategy {cfg.strategy!r} emits raw reduce-scatter/"
-                f"all-gather ops and would silently ignore "
-                f"reducer={cfg.reducer!r}; use reducer='flat'/'ring' or "
-                f"a non-two-phase strategy")
-        self.mesh_shape = dict(mesh.shape)
-        self.plan: BucketPlan = make_bucket_plan(
-            grads_like, param_specs, mesh,
-            bucket_bytes=cfg.bucket_bytes,
-            num_channels=1 if self.info.single_chain else cfg.num_channels,
-            comm_dtype=cfg.comm_dtype,
-            exclude_axes=cfg.exclude_axes)
-        self.reducer = make_reducer(cfg.reducer, self.mesh_shape,
-                                    mean_axes=cfg.mean_axes)
-        # leaves whose sum already happened inside the backward scan
-        self.skip_names = (in_scan_names if self.info.uses_in_scan
-                           else frozenset())
-        # the strategy's dependency structure, planned once, inspectable
-        self.schedule: CommSchedule = self.info.plan(
-            self.plan, skip_names=self.skip_names)
-        if cfg.verify:
-            self.schedule.validate()
+        planned = plan_sync(cfg, mesh, param_specs, grads_like,
+                            in_scan_names=in_scan_names)
+        self.info: StrategyInfo = planned.info
+        self.mesh_shape = planned.mesh_shape
+        self.plan: BucketPlan = planned.plan
+        self.reducer = planned.reducer
+        self.skip_names = planned.skip_names
+        self.schedule: CommSchedule = planned.schedule
 
         chains = [op.chain for op in self.schedule.ops]
         world = dist.get_world_size()
@@ -321,6 +359,16 @@ class KVStore:
         self._barrier_join = tuple(sorted(self._last_op.values()))
         self._last_op = {}
 
-    def schedule(self) -> CommSchedule:
-        """The IR of every collective this store has issued so far."""
-        return CommSchedule(tuple(self._ops)).validate()
+    def schedule(self, verify: bool = True) -> CommSchedule:
+        """The IR of every collective this store has issued so far.
+
+        ``verify`` runs ``validate()`` and the six ``repro_torch.analysis``
+        passes over it (rank simulation only when ``mesh_shape`` was
+        given), raising ``ScheduleError`` on a finding; False skips both."""
+        s = CommSchedule(tuple(self._ops))
+        if verify:
+            from repro_torch.analysis import verify_schedule
+
+            s.validate()
+            verify_schedule(s, mesh_shape=self.mesh_shape, expect_defer=False)
+        return s

@@ -4,11 +4,14 @@
         --strategy depcha --steps 5 [--device cpu] [--smoke]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --seq 1024 --batch 4 --steps 3 --strategy depcha
+    PYTHONPATH=src python -m repro_torch.launch.train --arch inception-bn-imagenet \\
+        --steps 3 --strategy depcha
 
 Runs on CUDA unless ``--device cpu``; one rank by default, or as many
 as ``torchrun --nproc-per-node N`` starts (rank and world come from its
 environment).  ``--smoke`` runs the arch's reduced config.  An image
-arch trains with SGD over ``ImagePipeline``; a language model with AdamW
+arch (the ``resnet`` and ``inception`` families) trains with SGD over
+``ImagePipeline``; a language model with AdamW
 over ``TokenPipeline`` (with the arch's extra inputs), ``--seq`` tokens
 a sequence.  ``--seq`` and ``--batch`` default to the reference's smoke
 sizes with ``--smoke`` and to the arch's training shape without.  The
@@ -34,6 +37,9 @@ from repro_torch.optim import adamw, cosine_warmup, sgd
 from repro_torch.parallel.sharding import dp_axes_of
 from repro_torch.runtime import Trainer, make_train_step
 from repro_torch.utils.trees import flatten_with_names
+
+
+IMAGE_FAMILIES = ("resnet", "inception")   # SGD over ImagePipeline
 
 
 def main(argv=None):
@@ -76,7 +82,7 @@ def main(argv=None):
             raise NotImplementedError(
                 f"{api.family} training: ROADMAP queue 1 item 12")
         model = api.module(cfg, api.init(cfg, seed=args.seed, device=args.device))
-        if arch.family == "resnet":
+        if arch.family in IMAGE_FAMILIES:
             pipe = ImagePipeline(cfg.img_size, cfg.num_classes, batch,
                                  seed=args.seed, mesh=mesh, rank=rank,
                                  device=args.device)
@@ -102,7 +108,7 @@ def main(argv=None):
             avg = sum(times) / len(times) * 1e3 if times else float("nan")
             print(f"[train] {args.arch} {args.strategy}: loss "
                   f"{hist['losses'][0]:.4f} -> {hist['losses'][-1]:.4f}; "
-                  f"first step {hist['first_step_time'] * 1e3:.1f} ms, "
+                  f"first step {hist['compile_time'] * 1e3:.1f} ms, "
                   f"then {avg:.1f} ms/step")
     finally:
         dist.destroy_process_group()

@@ -1,7 +1,7 @@
 """Uniform model-family API (``repro/models/registry.py``): each family
 exposes the same hooks so the launchers and loops are family-agnostic.
-Ported so far: ``resnet`` (training), ``transformer`` (training and
-serving at tp=1) and ``rwkv`` (serving at tp=1).  A hook a family does
+Ported so far: ``resnet`` and ``inception`` (training), ``transformer``
+(training and serving at tp=1) and ``rwkv`` (serving at tp=1).  A hook a family does
 not have yet is None."""
 from __future__ import annotations
 
@@ -81,6 +81,14 @@ FAMILIES: dict[str, ModelAPI] = {
         param_specs=resnet_lib.param_specs,
         train_forward=resnet_lib.train_forward,
     ),
+    "inception": ModelAPI(
+        family="inception",
+        init=resnet_lib.init_inception,
+        in_scan_names=resnet_lib.in_scan_param_names,
+        module=resnet_lib.Inception,
+        param_specs=resnet_lib.param_specs,
+        train_forward=resnet_lib.inception_train_forward,
+    ),
 }
 
 
@@ -91,4 +99,6 @@ def family_of(cfg) -> ModelAPI:
         return FAMILIES["rwkv"]
     if isinstance(cfg, resnet_lib.ResNetConfig):
         return FAMILIES["resnet"]
+    if isinstance(cfg, resnet_lib.InceptionConfig):
+        return FAMILIES["inception"]
     raise TypeError(f"no ported model family for config type {type(cfg)}")

@@ -1,6 +1,6 @@
-"""The paper's ResNet-50 (He et al. 2015) for the CIFAR reproduction — the
-port of ``repro/models/resnet.py`` (ResNet only; Inception-BN comes in a
-later slice).
+"""The paper's evaluation models — the port of ``repro/models/resnet.py``:
+ResNet-50 (He et al. 2015) for the CIFAR reproduction (paper §5.1) and
+the compact Inception-BN-style net for ImageNet (§5.2, Fig 14).
 
 Pure data-parallel: params replicated, gradients summed over the DP
 axes by the strategy under test, the paper's setting.  BatchNorm always
@@ -41,15 +41,11 @@ class ResNetConfig:
     depcha_in_scan: bool = False                 # convnets: no layer scan
 
 
-def init_params(cfg: ResNetConfig, *, seed: int = 0,
-                device: str | torch.device = "cuda") -> dict:
-    """The reference's parameter tree, drawn from a CPU ``torch.Generator``
-    seeded with ``seed`` (so every device gets the same weights) and then
-    moved to ``device``: CUDA unless the caller asks for the CPU.  On the
-    ``meta`` device only shapes are made."""
-    device = resolve_device(device)
+def _initializers(dt, device: torch.device, seed: int):
+    """(dense, conv) drawers over one CPU ``torch.Generator`` seeded with
+    ``seed`` (so every device gets the same weights), each result moved to
+    ``device``; on the ``meta`` device only shapes are made."""
     gen = torch.Generator().manual_seed(seed)
-    dt = cfg.dtype
 
     def dense(shape, in_dim):
         if device.type == "meta":
@@ -59,6 +55,19 @@ def init_params(cfg: ResNetConfig, *, seed: int = 0,
 
     def conv(k, cin, cout):
         return dense((k, k, cin, cout), k * k * cin)
+
+    return dense, conv
+
+
+def init_params(cfg: ResNetConfig, *, seed: int = 0,
+                device: str | torch.device = "cuda") -> dict:
+    """The reference's parameter tree, drawn from a CPU ``torch.Generator``
+    seeded with ``seed`` (so every device gets the same weights) and then
+    moved to ``device``: CUDA unless the caller asks for the CPU.  On the
+    ``meta`` device only shapes are made."""
+    device = resolve_device(device)
+    dt = cfg.dtype
+    dense, conv = _initializers(dt, device, seed)
 
     def ones(n):
         return torch.ones(n, dtype=dt, device=device)
@@ -150,13 +159,17 @@ def forward(params: dict, images: torch.Tensor, cfg: ResNetConfig) -> torch.Tens
     return x @ params["head"]
 
 
-def train_forward(params: dict, batch: dict, cfg: ResNetConfig) -> torch.Tensor:
+def _global_nll(logits: torch.Tensor, batch: dict) -> torch.Tensor:
     """Summed NLL over the local batch divided by the GLOBAL batch size,
     so a sum-allreduce of the gradients is their mean."""
-    logits = forward(params, batch["images"], cfg).to(torch.float32)
-    logp = F.log_softmax(logits, dim=-1)
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -logp.gather(1, batch["labels"].long()[:, None])[:, 0]
     return nll.sum() / batch["global_tokens"]
+
+
+def train_forward(params: dict, batch: dict, cfg: ResNetConfig) -> torch.Tensor:
+    """The loss of ``forward`` over the batch (``_global_nll``)."""
+    return _global_nll(forward(params, batch["images"], cfg), batch)
 
 
 class ResNet(nn.Module):
@@ -188,3 +201,109 @@ class ResNet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return forward(self.params_tree(), images, self.cfg)
+
+
+# ------------------------------------------------------- Inception-BN-ish
+@dataclasses.dataclass(frozen=True)
+class InceptionConfig:
+    name: str
+    num_classes: int = 1000
+    img_size: int = 224
+    width_mult: float = 1.0
+    dtype: Any = torch.float32
+    tp: int = 1
+    dp_axes: tuple[str, ...] = ("data",)
+    depcha_in_scan: bool = False
+
+
+MIX_WIDTHS = (64, 128, 128, 256, 256, 512)   # each mixed block's nominal width
+
+
+def init_inception(cfg: InceptionConfig, *, seed: int = 0,
+                   device: str | torch.device = "cuda") -> dict:
+    """A compact Inception-BN-style net: stem + 6 mixed blocks of four
+    branches (1×1; 1×1 → 3×3; 1×1 → 3×3 → 3×3; a 1×1 "pool" branch), one
+    BatchNorm over the concatenated branches.  Drawn as ``init_params``
+    draws, in the reference's order (stem, the blocks, head)."""
+    device = resolve_device(device)
+    dt = cfg.dtype
+    dense, conv = _initializers(dt, device, seed)
+
+    def w(c):
+        return int(c * cfg.width_mult)
+
+    params: dict[str, Any] = {
+        "stem": conv(3, 3, w(64)),
+        "stem_bn_s": torch.ones(w(64), dtype=dt, device=device),
+        "stem_bn_b": torch.zeros(w(64), dtype=dt, device=device),
+    }
+    cin = w(64)
+    for bi, cout in enumerate(MIX_WIDTHS):
+        c = w(cout)
+        cat = c // 4 + c // 2 + c // 8 + c // 8
+        params[f"mix{bi}"] = {
+            "b1": conv(1, cin, c // 4),
+            "b3a": conv(1, cin, c // 4),
+            "b3b": conv(3, c // 4, c // 2),
+            "b5a": conv(1, cin, c // 8),
+            "b5b": conv(3, c // 8, c // 8),
+            "b5c": conv(3, c // 8, c // 8),
+            "bp": conv(1, cin, c // 8),
+            "bn_s": torch.ones(cat, dtype=dt, device=device),
+            "bn_b": torch.zeros(cat, dtype=dt, device=device),
+        }
+        cin = cat
+    params["head"] = dense((cin, cfg.num_classes), cin)
+    return params
+
+
+def inception_forward(params: dict, images: torch.Tensor,
+                      cfg: InceptionConfig) -> torch.Tensor:
+    """images: (B, H, W, 3) → logits (B, classes).  The even blocks
+    downsample (stride 2 on every branch's last conv)."""
+    x = images.permute(0, 3, 1, 2)
+    x = F.relu(_bn(conv2d_same(x, params["stem"], 2),
+                   params["stem_bn_s"], params["stem_bn_b"]))
+    for bi in range(len(MIX_WIDTHS)):
+        p = params[f"mix{bi}"]
+        stride = 2 if bi % 2 == 0 else 1
+        b1 = conv2d_same(x, p["b1"], stride)
+        b3 = conv2d_same(F.relu(conv2d_same(x, p["b3a"])), p["b3b"], stride)
+        b5 = F.relu(conv2d_same(x, p["b5a"]))
+        b5 = F.relu(conv2d_same(b5, p["b5b"]))
+        b5 = conv2d_same(b5, p["b5c"], stride)
+        bp = conv2d_same(x, p["bp"], stride)
+        x = F.relu(_bn(torch.cat([b1, b3, b5, bp], dim=1), p["bn_s"], p["bn_b"]))
+    x = x.mean(dim=(2, 3))
+    return x @ params["head"]
+
+
+def inception_train_forward(params: dict, batch: dict,
+                            cfg: InceptionConfig) -> torch.Tensor:
+    """The loss of ``inception_forward`` over the batch (``_global_nll``)."""
+    return _global_nll(inception_forward(params, batch["images"], cfg), batch)
+
+
+class Inception(nn.Module):
+    """The Inception tree as an ``nn.Module``, as ``ResNet``: the reference's
+    leaf names through ``params_tree()``, ``forward(images)`` the
+    functional ``inception_forward``."""
+
+    def __init__(self, cfg: InceptionConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        for k in ("stem", "stem_bn_s", "stem_bn_b", "head"):
+            setattr(self, k, nn.Parameter(params[k]))
+        for bi in range(len(MIX_WIDTHS)):
+            setattr(self, f"mix{bi}", nn.ParameterDict(
+                {k: nn.Parameter(v) for k, v in params[f"mix{bi}"].items()}))
+
+    def params_tree(self) -> dict:
+        tree: dict[str, Any] = {k: getattr(self, k) for k in
+                                ("stem", "stem_bn_s", "stem_bn_b", "head")}
+        for bi in range(len(MIX_WIDTHS)):
+            tree[f"mix{bi}"] = dict(getattr(self, f"mix{bi}").items())
+        return tree
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return inception_forward(self.params_tree(), images, self.cfg)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable
+from typing import IO, Any, Callable
 
 import torch
 import torch.distributed as dist
@@ -34,12 +34,13 @@ from repro_torch.core import GradSync, GradSyncConfig, get_strategy
 from repro_torch.core import dependency as dep
 from repro_torch.core.dependency import chain_groups, resolve_device
 from repro_torch.models.registry import family_of
+from repro_torch.obs import EventLog, MetricsRegistry, comm_byte_counters, heartbeat_line
 from repro_torch.optim.optimizers import (
     Optimizer,
     apply_updates,
     clip_by_global_norm,
 )
-from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+from repro_torch.utils.trees import flatten_with_names, tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -145,26 +146,64 @@ def make_train_step(
 
 class Trainer:
     """Training driver: runs the step over the pipeline's batches, times
-    each step (the first reported apart: it carries one-time set-up such
-    as kernel loading and communicator creation) and keeps the losses.
-    Checkpointing, fault injection and ``repro.obs`` metrics come in
-    later slices."""
+    each step and keeps the losses, with the reference's ``repro.obs``
+    accounting (``repro/runtime/train_loop.py::Trainer``).
+
+    The first step is reported apart, as ``compile_time`` (the gauge
+    ``compile_time_s`` and a ``compile`` event, the reference's names):
+    it carries one-time set-up such as kernel loading and communicator
+    creation.  Into ``metrics`` (a ``MetricsRegistry``, new if None) go
+    ``mem.state_bytes`` (params + optimizer state) and one step's
+    ``comm_bytes.<kind>.<reducer>.<phase>`` counters from the planned
+    schedule, once a run; then a ``step_time_s`` histogram of the later
+    steps, ``steps_total``, ``loss`` and ``grad_norm`` (and
+    ``tokens_total`` / ``tokens_per_s`` for token batches) each step.
+    ``events_path`` (a path or file object) gets one JSONL ``step`` event
+    a step.  Each logged step prints the trainer line and the heartbeat.
+
+    Not here: the reference's simulator gauges (``sim.step_time_s``,
+    ``sim.exposed_comm_s``; ROADMAP queue 1 item 15b), and its
+    checkpoint, retry, straggler and fault-injection rungs with their
+    events (items 10 and 14)."""
 
     def __init__(self, step_fn: TrainStep, pipeline, *, log_every: int = 10,
-                 printer: Callable[[str], None] = print):
+                 printer: Callable[[str], None] = print,
+                 metrics: MetricsRegistry | None = None,
+                 events_path: str | IO[str] | None = None):
         self.step_fn = step_fn
         self.pipeline = pipeline
         self.log_every = log_every
         self.printer = printer
         self.step_times: list[float] = []
         self.first_step_time: float | None = None
+        self.events: list[dict] = []
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.events_path = events_path
+
+    def _account_static(self, model, opt_state) -> None:
+        """The per-run gauges and counters: resident state bytes and one
+        execution of the planned schedule's comm bytes."""
+        leaves = list(model.parameters()) + [
+            t for t in tree_leaves(opt_state) if isinstance(t, torch.Tensor)]
+        self.metrics.gauge("mem.state_bytes").set(
+            sum(t.numel() * t.element_size() for t in leaves))
+        gs = self.step_fn.gradsync
+        comm_byte_counters(gs.schedule, self.metrics,
+                           itemsize=gs.cfg.comm_dtype.itemsize)
 
     def run(self, model, opt_state, num_steps: int, start_step: int = 0
             ) -> tuple[Any, Any, dict]:
+        with EventLog(self.events_path) as event_log:
+            return self._run(model, opt_state, num_steps, start_step, event_log)
+
+    def _run(self, model, opt_state, num_steps: int, start_step: int,
+             event_log: EventLog) -> tuple[Any, Any, dict]:
         device = self.step_fn.device
+        self._account_static(model, opt_state)
         losses: list[float] = []
         for step in range(start_step, num_steps):
             batch = self.pipeline.batch_at(step)
+            tokens = batch["tokens"].numel() if "tokens" in batch else 0
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
@@ -175,14 +214,37 @@ class Trainer:
             dt = time.perf_counter() - t0
             if self.first_step_time is None:
                 self.first_step_time = dt
+                self.metrics.gauge("compile_time_s").set(dt)
+                self.events.append({"kind": "compile", "step": step, "dt": dt})
+                event_log.emit("compile", step=step, dt=dt)
             else:
                 self.step_times.append(dt)
-            losses.append(float(metrics["loss"]))
+                self.metrics.histogram("step_time_s").observe(dt)
+                if tokens:
+                    self.metrics.counter("tokens_total").inc(tokens)
+                    self.metrics.gauge("tokens_per_s").set(tokens / dt)
+            loss = float(metrics["loss"])
+            gnorm = float(metrics.get("grad_norm", 0.0))
+            losses.append(loss)
+            self.metrics.counter("steps_total").inc()
+            self.metrics.gauge("loss").set(loss)
+            self.metrics.gauge("grad_norm").set(gnorm)
+            event_log.emit(
+                "step", step=step, loss=loss, dt=dt, grad_norm=gnorm,
+                tokens=tokens, compile_step=self.first_step_time == dt)
             if step % self.log_every == 0:
-                self.printer(f"[trainer] step {step} loss {losses[-1]:.4f} "
+                self.printer(f"[trainer] step {step} loss {loss:.4f} "
                              f"({dt * 1e3:.1f} ms)")
+                recent = self.step_times[-50:]
+                self.printer(heartbeat_line(
+                    step, loss=loss, step_ms=dt * 1e3,
+                    avg_ms=sum(recent) / len(recent) * 1e3 if recent else None,
+                    tokens_per_s=tokens / dt if tokens else None,
+                    grad_norm=gnorm, compile_s=self.first_step_time))
         return model, opt_state, {
             "losses": losses,
             "step_times": list(self.step_times),
-            "first_step_time": self.first_step_time,
+            "compile_time": self.first_step_time,
+            "events": self.events,
+            "metrics": self.metrics.snapshot(),
         }

@@ -1,7 +1,7 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
-    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier|lm]
-    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier>
+    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier|lm|inception]
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception>
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -39,6 +39,17 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               gradients of each step, and the final params, to
               ``<run>_rank<r>.npz``; then the rank's local gradients at
               step 0, unreduced, to ``lm-local_rank<r>.npz``.
+
+  inception   (tests/test_torch_multirank.py) the Inception-BN smoke
+              config from ``workdir/inception_params.npz``: for each of
+              ``INCEPTION_STRATEGIES``, ``INCEPTION_STEPS`` steps of
+              ``make_train_step`` (SGD with momentum, clip 1.0) over the
+              rank's slice of ``ImagePipeline``, each step's loss and
+              params to ``inception-<strategy>_rank<r>.npz``; then the
+              loss-scale round trip: the rank's ResNet smoke gradients
+              (weights from ``params.npz``, as ``grads``) through
+              ``GradSync`` at each of ``LOSS_SCALES``, to
+              ``loss-scale-<scale>_rank<r>.npz``.
 
 ``layer_sync_rank`` is one of 2 processes on ``cuda:0`` for
 tests/test_torch_cuda.py: depcha's in-backward slot staging and the
@@ -105,6 +116,18 @@ LM_RUNS = {
     "lm-depcha-compressed": ("depcha", "flat", None, "compressed", 1),
     "lm-depcha-compressed-pods": ("depcha", "hierarchical", (2, 2), "compressed", 1),
 }
+
+
+INCEPTION_STRATEGIES = ("funnel", "concom", "depcha")
+INCEPTION_STEPS, INCEPTION_LR = 3, 0.1
+LOSS_SCALES = (1.0, 1024.0, 1000.0)
+
+
+def inception_sync(strategy: str = "concom", loss_scale: float = 1.0) -> dict:
+    """GradSyncConfig's fields of the inception mode, on both sides:
+    several buckets a channel at the smoke configs' sizes."""
+    return dict(strategy=strategy, num_channels=4, bucket_bytes=1 << 12,
+                loss_scale=loss_scale)
 
 
 def lm_config(**over):
@@ -317,6 +340,55 @@ def _lm(workdir: str, rank: int) -> None:
     train_forward(tree, batch, cfg).backward()
     np.savez(os.path.join(workdir, f"lm-local_rank{rank}.npz"),
              **{n: p.grad.numpy() for n, p in leaves})
+
+
+def _inception(workdir: str, rank: int) -> None:
+    from repro_torch.configs.inception_bn_imagenet import make_smoke
+    from repro_torch.configs.resnet50_cifar import make_smoke as make_resnet_smoke
+    from repro_torch.core import GradSync, GradSyncConfig
+    from repro_torch.data import ImagePipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models import resnet
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    cfg = make_smoke()
+    mesh = make_dp_mesh()
+    named = dict(np.load(os.path.join(workdir, "inception_params.npz")))
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, GLOBAL_BATCH, mesh=mesh,
+                         rank=rank, device="cpu")
+    for strategy in INCEPTION_STRATEGIES:
+        model = resnet.Inception(cfg, params_from_numpy(named, "cpu"))
+        opt = sgd(INCEPTION_LR, momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(**inception_sync(strategy)),
+                             opt, model=model, clip_norm=1.0, device="cpu")
+        params = flatten_with_names(model.params_tree())[0]
+        state = opt.init(dict(params))
+        out = {}
+        for step in range(INCEPTION_STEPS):
+            model, state, m = ts.fn(model, state, pipe.batch_at(step), step)
+            out[f"loss/{step}"] = m["loss"].numpy()
+            out.update({f"param{step}/{n}": p.detach().numpy().copy() for n, p in params})
+        np.savez(os.path.join(workdir, f"inception-{strategy}_rank{rank}.npz"), **out)
+
+    # the loss-scale round trip: the same local gradients at every scale
+    cfg = make_resnet_smoke()
+    tree = params_from_numpy(dict(np.load(os.path.join(workdir, "params.npz"))), "cpu")
+    leaves, treedef = flatten_with_names(tree)
+    for _, p in leaves:
+        p.requires_grad_(True)
+    batch = ImagePipeline(cfg.img_size, cfg.num_classes, GLOBAL_BATCH, mesh=mesh,
+                          rank=rank, device="cpu").batch_at(0)
+    resnet.train_forward(tree, batch, cfg).backward()
+    for scale in LOSS_SCALES:
+        grads = tree_unflatten(treedef, [p.grad.clone() for _, p in leaves])
+        gs = GradSync(GradSyncConfig(**inception_sync(loss_scale=scale)), mesh,
+                      resnet.param_specs(tree), tree, device="cpu")
+        reduced = gs(grads)
+        np.savez(os.path.join(workdir, f"loss-scale-{scale}_rank{rank}.npz"),
+                 **{n: g.numpy() for n, g in flatten_with_names(reduced)[0]})
 
 
 def layer_sync_rank(rank: int, world: int, workdir: str, case: str) -> None:
@@ -544,6 +616,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _hier(workdir, rank)
         elif mode == "lm":
             _lm(workdir, rank)
+        elif mode == "inception":
+            _inception(workdir, rank)
         else:
             out = {"rings": _rings, "compressed": _compressed}[mode](workdir, rank)
             np.savez(os.path.join(workdir, f"{mode}_rank{rank}.npz"), **out)
@@ -551,9 +625,68 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
         dist.destroy_process_group()
 
 
+def _inception_reference(workdir: str, mesh) -> dict:
+    """The JAX package's data-parallel Inception smoke steps on the 4
+    devices (batch statistics local to each), and its GradSync over each
+    device's ResNet smoke gradients at each loss scale."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs.inception_bn_imagenet import make_smoke
+    from repro.configs.resnet50_cifar import make_smoke as make_resnet_smoke
+    from repro.core import GradSync, GradSyncConfig
+    from repro.data import ImagePipeline
+    from repro.models import resnet
+    from repro.optim import sgd
+    from repro.runtime import make_train_step
+    from repro.utils.trees import flatten_with_names
+
+    cfg = make_smoke()
+    params = resnet.init_inception(jax.random.PRNGKey(0), cfg)
+    saved = np.load(os.path.join(workdir, "inception_params.npz"))
+    for n, p in flatten_with_names(params)[0]:
+        np.testing.assert_array_equal(np.asarray(p), saved[n], err_msg=n)
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, GLOBAL_BATCH, mesh=mesh)
+    out = {}
+    for strategy in INCEPTION_STRATEGIES:
+        opt = sgd(INCEPTION_LR, momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(**inception_sync(strategy)), opt,
+                             batch_like=pipe.batch_at(0), params_like=params,
+                             clip_norm=1.0)
+        p, state = params, opt.init(params)
+        for step in range(INCEPTION_STEPS):
+            p, state, m = ts.fn(p, state, pipe.batch_at(step), jnp.int32(step))
+            out[f"{strategy}/loss/{step}"] = np.asarray(m["loss"])
+            out.update({f"{strategy}/param{step}/{n}": np.asarray(v)
+                        for n, v in flatten_with_names(p)[0]})
+
+    cfg = make_resnet_smoke()
+    params = resnet.init_params(jax.random.PRNGKey(0), cfg)
+    saved = np.load(os.path.join(workdir, "params.npz"))
+    for n, p in flatten_with_names(params)[0]:
+        np.testing.assert_array_equal(np.asarray(p), saved[n], err_msg=n)
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, GLOBAL_BATCH, mesh=mesh)
+    specs = resnet.param_rules(cfg).tree_specs(params)
+    pspecs = jax.tree.map(lambda _: P(), params)
+    bspecs = {"images": P("data"), "labels": P("data"), "global_tokens": P()}
+    for scale in LOSS_SCALES:
+        def sync(q, b, _s=scale):
+            g = jax.grad(lambda x: resnet.train_forward(x, b, cfg))(q)
+            gs = GradSync(GradSyncConfig(**inception_sync(loss_scale=_s)), mesh, specs,
+                          jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), g))
+            return gs(g)
+
+        run = jax.jit(jax.shard_map(sync, mesh=mesh, in_specs=(pspecs, bspecs),
+                                    out_specs=pspecs, check_vma=False))
+        out.update({f"loss-scale-{scale}/{n}": np.asarray(v) for n, v in
+                    flatten_with_names(run(params, pipe.batch_at(0)))[0]})
+    return out
+
+
 def reference(workdir: str, mode: str) -> None:
-    """The JAX package's rings, compressed allreduce or hierarchical
-    reducers on 4 fake devices."""
+    """The JAX package's rings, compressed allreduce, hierarchical
+    reducers or Inception steps on 4 fake devices."""
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
     import repro  # noqa: F401  (applies the jaxcompat shim before jax imports)
     import jax
@@ -563,7 +696,8 @@ def reference(workdir: str, mode: str) -> None:
     from repro.core.compression import compressed_allreduce
     from repro.kernels.collectives import ops
 
-    inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    inputs = ({} if mode == "inception"
+              else dict(np.load(os.path.join(workdir, "inputs.npz"))))
     mesh4 = jax.make_mesh((WORLD,), ("data",), axis_types=(AxisType.Auto,))
     mesh22 = jax.make_mesh((2, 2), ("pair", "ring"),
                            axis_types=(AxisType.Auto,) * 2)
@@ -576,7 +710,10 @@ def reference(workdir: str, mode: str) -> None:
         return np.asarray(run(x.reshape(-1))).reshape(WORLD, -1)
 
     out = {}
-    if mode == "hier":
+    if mode == "inception":
+        out = _inception_reference(workdir, jax.make_mesh(
+            (WORLD, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2))
+    elif mode == "hier":
         import jax.numpy as jnp
 
         from repro.core.buckets import Bucket, LeafInfo

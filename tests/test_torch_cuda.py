@@ -674,3 +674,91 @@ def test_cuda_layer_sync_stages_and_orders_its_collectives(cuda, case, tmp_path)
 
     mp.spawn(layer_sync_rank, args=(2, str(tmp_path), case), nprocs=2, join=True)
     assert [(tmp_path / f"sync_{r}.txt").read_text() for r in range(2)] == ["ok"] * 2
+
+
+# ------------------------------------------------- Inception-BN (ImageNet)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_cuda_staging_at_inception_layouts(cuda, comm, scale):
+    """Rows 1-2 at the full-width Inception-BN plan's layouts (4 MiB
+    buckets: 57 leaves and the head), bit for bit with their plain
+    versions; the pack into a buffer started as NaN, the unpack into
+    outputs started as NaN (at 1 / scale); one launch each way a bucket."""
+    from repro_torch.configs.inception_bn_imagenet import make_config
+    from repro_torch.core import make_bucket_plan
+    from repro_torch.kernels.collectives import ops as coll_ops
+    from repro_torch.models import resnet
+    from repro_torch.utils.trees import flatten_with_names
+
+    params = resnet.init_inception(make_config(), device="meta")
+    plan = make_bucket_plan(params, resnet.param_specs(params), make_smoke_mesh(1),
+                            num_channels=4)
+    assert [len(b.leaves) for b in plan.buckets] == [57, 1]
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    flat = [torch.randn(p.shape, generator=gen, device=cuda)
+            for _, p in flatten_with_names(params)[0]]
+    dt = getattr(torch, comm)
+    for b in plan.buckets:
+        leaves = [flat[l.index] for l in b.leaves]
+        buf = torch.full((b.size,), float("nan"), dtype=dt, device=cuda)
+        before = (coll_kernel.PACK_LAUNCHES, coll_kernel.UNPACK_LAUNCHES)
+        coll_kernel.pack_bucket_kernel(leaves, dt, scale=scale, out=buf)
+        want = coll_ref.leafwise_pack(leaves, dt, scale=scale)
+        outs = list(flat)
+        for l in b.leaves:
+            outs[l.index] = torch.full(l.shape, float("nan"), device=cuda)
+        coll_ops.fused_unpack(b, want, outs, scale=1.0 / scale)
+        torch.cuda.synchronize()
+        assert (coll_kernel.PACK_LAUNCHES - before[0],
+                coll_kernel.UNPACK_LAUNCHES - before[1]) == (1, 1)
+        assert torch.equal(_bits(buf), _bits(want))
+        pieces = coll_ref.leafwise_unpack(want, [l.size for l in b.leaves],
+                                          [torch.float32] * len(b.leaves), scale=1.0 / scale)
+        for l, w in zip(b.leaves, pieces):
+            assert torch.equal(_bits(outs[l.index].reshape(-1)), _bits(w))
+
+
+@pytest.mark.cuda
+def test_cuda_inception_step_matches_cpu(cuda):
+    """One Inception-BN smoke step of depcha on the card (kernels) against
+    the CPU (plain versions), from the same weights and batch, TF32 off:
+    the loss within rtol 1e-5, the updated params within rtol 1e-4 /
+    atol 1e-5 (cuDNN's convolutions sum in another order)."""
+    from repro_torch.configs.inception_bn_imagenet import make_smoke
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import ImagePipeline
+    from repro_torch.launch.mesh import init_dist, make_dp_mesh
+    from repro_torch.models import resnet
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    init_dist("cpu")
+    was = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, mesh = make_smoke(), make_dp_mesh()
+        out = {}
+        for device in ("cpu", "cuda"):
+            # drawn anew for each device: the step updates its weights in place
+            model = resnet.Inception(cfg, resnet.init_inception(cfg, seed=0, device=device))
+            opt = sgd(0.1, momentum=0.9)
+            ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="depcha"), opt,
+                                 model=model, clip_norm=1.0, device=device)
+            params = dict(flatten_with_names(model.params_tree())[0])
+            batch = ImagePipeline(cfg.img_size, cfg.num_classes, 8, mesh=mesh,
+                                  device=device).batch_at(0)
+            before = coll_kernel.PACK_LAUNCHES
+            _, _, m = ts.fn(model, opt.init(params), batch, 0)
+            out[device] = (m["loss"].item(), {n: p.detach().cpu() for n, p in params.items()},
+                           coll_kernel.PACK_LAUNCHES - before)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+    (l_cpu, p_cpu, k_cpu), (l_gpu, p_gpu, k_gpu) = out["cpu"], out["cuda"]
+    assert (k_cpu, k_gpu) == (0, 1)
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for n, p in p_cpu.items():
+        np.testing.assert_allclose(p_gpu[n].numpy(), p.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=n)

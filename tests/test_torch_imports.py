@@ -1,7 +1,9 @@
 """Import hygiene of the port: ``repro_torch`` imports neither ``jax`` nor
 the JAX package ``repro``, so it installs on a GPU host without JAX.
 Checked twice: by importing every module in a fresh interpreter, and by
-reading every import statement of its sources."""
+reading every import statement of its sources, of ``chip_smoke.py``, of
+``examples/paper_repro_torch.py`` and of the pure-Python
+``benchmarks/paper_figures.py`` that the example prints from."""
 import ast
 import os
 import subprocess
@@ -74,7 +76,9 @@ def test_serving_modules_are_checked():
 
 
 @pytest.mark.parametrize("path", SOURCES + [ROOT / "chip_smoke.py",
-                                            ROOT / "tests" / "test_torch_cuda.py"],
+                                            ROOT / "tests" / "test_torch_cuda.py",
+                                            ROOT / "examples" / "paper_repro_torch.py",
+                                            ROOT / "benchmarks" / "paper_figures.py"],
                          ids=lambda p: (str(p.relative_to(PKG))
                                         if PKG in p.parents else p.name))
 def test_source_imports_no_jax_or_repro(path):

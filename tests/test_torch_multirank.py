@@ -9,6 +9,17 @@ the per-shard gradients come from two convolution libraries, and the
 4-way sum is taken in another order.  The flat and ring reducers are
 held to it; the compressed reducers to the int8 quantization bound, and
 compressed_ring to compressed bit for bit.
+
+The worker's ``inception`` mode trains the Inception-BN smoke config on
+the 4 ranks (funnel, concom, depcha; SGD with momentum, clip 1.0) beside
+the JAX package's data-parallel step on 4 fake devices (batch statistics
+local to each device, as on the ranks): every step's loss and params
+within the same rtol 1e-5 / atol 1e-6, params bit-identical across the
+ranks and across the strategies.  Then the loss-scale round trip across
+the ranks (the counterpart of tests/test_collectives.py's
+``test_gradsync_loss_scale_is_transparent``): a power-of-two
+``loss_scale`` (1024) reduces to the bits of 1.0, and 1000.0 to within
+rtol 1e-5 / atol 1e-6 of the JAX package's GradSync at the same scale.
 """
 import json
 
@@ -22,7 +33,13 @@ from repro.data import ImagePipeline as RefImagePipeline
 from repro.models import resnet as ref_resnet
 from repro.utils.trees import flatten_with_names as ref_flatten
 
-from _torch_mdworker import CONFIGS, run_all
+from _torch_mdworker import (
+    CONFIGS,
+    INCEPTION_STEPS,
+    INCEPTION_STRATEGIES,
+    LOSS_SCALES,
+    run_all,
+)
 from repro_torch.kernels.quantize import ref as quantize_ref
 
 WORLD = 4
@@ -160,3 +177,68 @@ def test_compressed_ring_equals_compressed_bit_for_bit(workdir):
         for n in a:
             np.testing.assert_array_equal(a[n].view(np.uint32),
                                           b[n].view(np.uint32), err_msg=n)
+
+
+# ------------------------------------------------- Inception-BN, loss scale
+
+@pytest.fixture(scope="module")
+def inception_dir(tmp_path_factory):
+    """The reference's Inception and ResNet smoke weights in; the 4 ranks
+    and the JAX reference on 4 fake devices run at once."""
+    from repro.configs.inception_bn_imagenet import make_smoke as ref_inception_smoke
+
+    d = tmp_path_factory.mktemp("torch_inception")
+    params = ref_resnet.init_inception(jax.random.PRNGKey(0), ref_inception_smoke())
+    np.savez(d / "inception_params.npz",
+             **{n: np.asarray(p) for n, p in ref_flatten(params)[0]})
+    params = ref_resnet.init_params(jax.random.PRNGKey(0), ref_make_smoke())
+    np.savez(d / "params.npz", **{n: np.asarray(p) for n, p in ref_flatten(params)[0]})
+    run_all(d, "inception", reference_too=True)
+    return d, dict(np.load(d / "inception_jax.npz"))
+
+
+def _bits(a):
+    return a.view(np.uint32)
+
+
+@pytest.mark.parametrize("strategy", INCEPTION_STRATEGIES)
+def test_inception_steps_match_the_reference(inception_dir, strategy):
+    d, ref = inception_dir
+    for rank in range(WORLD):
+        got = dict(np.load(d / f"inception-{strategy}_rank{rank}.npz"))
+        for step in range(INCEPTION_STEPS):
+            np.testing.assert_allclose(got[f"loss/{step}"], ref[f"{strategy}/loss/{step}"],
+                                       rtol=1e-5)
+            names = [k for k in got if k.startswith(f"param{step}/")]
+            assert len(names) == 58
+            for k in names:
+                np.testing.assert_allclose(got[k], ref[f"{strategy}/{k}"], rtol=1e-5,
+                                           atol=1e-6, err_msg=f"rank {rank} {k}")
+
+
+def test_inception_params_are_bit_identical_across_ranks_and_strategies(inception_dir):
+    d, _ = inception_dir
+    base = dict(np.load(d / f"inception-{INCEPTION_STRATEGIES[0]}_rank0.npz"))
+    for strategy in INCEPTION_STRATEGIES:
+        for rank in range(WORLD):
+            got = dict(np.load(d / f"inception-{strategy}_rank{rank}.npz"))
+            assert sorted(got) == sorted(base)
+            for k in base:
+                np.testing.assert_array_equal(_bits(got[k]), _bits(base[k]),
+                                              err_msg=f"{strategy} rank {rank} {k}")
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_loss_scale_round_trip_across_ranks(inception_dir, rank):
+    d, ref = inception_dir
+    got = {s: dict(np.load(d / f"loss-scale-{s}_rank{rank}.npz")) for s in LOSS_SCALES}
+    assert len(got[1.0]) == 24
+    for k, one in got[1.0].items():
+        np.testing.assert_array_equal(_bits(got[1024.0][k]), _bits(one), err_msg=k)
+        for s in LOSS_SCALES:
+            np.testing.assert_allclose(got[s][k], ref[f"loss-scale-{s}/{k}"], rtol=1e-5,
+                                       atol=1e-6, err_msg=f"scale {s} {k}")
+    # 1000 is not a power of two: the scale and unscale round, so the
+    # round trip is held to the reference, not to the bits of 1.0
+    assert any(not np.array_equal(_bits(got[1000.0][k]), _bits(v))
+               for k, v in got[1.0].items())
