@@ -97,6 +97,27 @@ Phases, in order; any failure raises and exits non-zero:
               (kernels) from the same weights and batches, TF32 off:
               losses within rtol 1e-5, 4 in-backward collectives a step
               on each.
+  lm_zero1    Qwen3-1.7B at full width as lm_train (seq 1024 x global
+              batch 4, AdamW, remat dots, deterministic algorithms), 4
+              microbatches a step (f32 accumulators), one rank: ZeRO-1
+              scheduled and deferred (concom, clip 1.0; the optimizer runs
+              inside GradSync's StepProgram, clipped by its NORM op),
+              scheduled and monolithic at clip 0 (the monolithic optimizer
+              does not clip, as the reference), and the plain step under
+              funnel at clip 1.0; 1 warm-up + 2 timed steps each.  Pack and
+              unpack launches exactly the plan's a step
+              (``zero1_staging_launches``); deferred (flushed by
+              ``finalize``) = scheduled and monolithic = scheduled at clip
+              0, losses and every param bit for bit; the plain run's first
+              loss equal to scheduled's, the others within rtol 1e-4 (its
+              sync rounds the summed gradients to bf16 before AdamW, the
+              zero1 runs update from the f32 sums).  Step ms, tokens/s, peak GB,
+              ``mem.state_bytes``, each stage's device span (CUDA events),
+              and one profiled scheduled step: the device spans of the
+              UPDATE, NORM, RS and AG ops and the idle share.
+  lm_zero1_cpu_vs_gpu  the quickstart LM's widths, scheduled zero1 under
+              concom with 2 microbatches, clip 1.0, 3 steps on the CPU
+              (plain versions) and on the card: losses within rtol 1e-5.
   inception_kernels  the pack and unpack kernels bit for bit against
               their plain versions at Inception-BN's layouts: the 2
               buckets of its full-width plan (57 f32 leaves and the head;
@@ -145,6 +166,20 @@ Phases, in order; any failure raises and exits non-zero:
               every step, depcha's first-step gradients within rtol 1e-5 /
               atol 1e-6 of funnel's, 4 in-backward collectives a depcha
               step.
+  zero1       four rank processes on the one card as ``reducers``:
+              full-width ResNet-50/CIFAR at global batch 256, SGD with
+              momentum 0.9, TF32 off, 1 warm-up + 2 steps of: the flat
+              allreduce (concom x flat), ZeRO-1 scheduled under concom x
+              flat, concom x ring and rsag x ring, deferred, all at clip
+              1.0, and scheduled and monolithic at clip 0.  Params
+              bit-identical across the ranks after every step; deferred
+              (flushed) = scheduled and monolithic = scheduled at clip 0
+              bit for bit; scheduled's params after one step within rtol
+              1e-5 of flat's (atol 1e-5 of each leaf's largest value, as
+              ``reducers`` holds the gradients), after three reported;
+              pack, unpack and ring-combine launches exactly the plan's;
+              each rank's ``mem.state_bytes``, its optimizer state the flat
+              run's / 4 plus the buckets' padding.
   hierarchical four rank processes on the one card as ``reducers``, on
               pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
               reduce-scatter and all-gather (the intra-pod rings, through
@@ -292,7 +327,10 @@ def same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
     if a.dtype != b.dtype or a.shape != b.shape:
         raise AssertionError(f"{what}: {a.dtype}{tuple(a.shape)} vs "
                              f"{b.dtype}{tuple(b.shape)}")
-    err = (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+    a1, b1 = a.reshape(-1), b.reshape(-1)
+    step = 1 << 26          # in slices: a bucket of the LM's one-bucket plan is 8 GB
+    err = max(((a1[i:i + step].double() - b1[i:i + step].double()).abs().max().item()
+               for i in range(0, a1.numel(), step)), default=0.0)
     if not torch.equal(bits(a), bits(b)):
         raise AssertionError(f"{what}: not bit-exact (max abs err {err})")
     return err
@@ -712,10 +750,13 @@ def time_staging(buckets_and_leaves, comm) -> dict:
     from repro_torch.kernels.collectives import ops, ref
 
     bufs = [ops.fused_pack(b, lv, comm) for b, lv in buckets_and_leaves]
-    targets = {}      # one set of outputs for each leaf list
-    for _, lv in buckets_and_leaves:
+    targets = {}      # one set of outputs for each leaf list, in the plan's dtypes
+    for b, lv in buckets_and_leaves:
         if id(lv) not in targets:
             targets[id(lv)] = [torch.empty_like(t) for t in lv]
+        for l in b.leaves:
+            if targets[id(lv)][l.index].dtype != l.dtype:
+                targets[id(lv)][l.index] = torch.empty(l.shape, dtype=l.dtype, device="cuda")
     outs = [targets[id(lv)] for _, lv in buckets_and_leaves]
     elems = sum(b.size for b, _ in buckets_and_leaves)
     leaf_bytes = sum(sum(lv[l.index].numel() * lv[l.index].element_size()
@@ -836,7 +877,15 @@ def lm_profile(ts, model, opt_state, pipe, wall_ms: float, step: int = LM_STEPS)
         calls, ms = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (calls + 1, ms + k.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
+    # the schedule's ops on the device: each op's annotation span, by kind
+    comm: dict = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA and e.name.startswith("comm."):
+            kind = e.name.split(".")[1]
+            calls, ms = comm.get(kind, (0, 0.0))
+            comm[kind] = (calls + 1, ms + e.time_range.elapsed_us() / 1e3)
     return {
+        "comm_device_ms": {k: {"ops": c, "ms": ms} for k, (c, ms) in sorted(comm.items())},
         "wall_ms_unprofiled": wall_ms, "wall_ms_under_profiler": profiled_ms,
         "kernel_ms_summed": kernel_ms, "device_kernels": len(kernels),
         "idle_share": 1 - kernel_ms / wall_ms,
@@ -877,10 +926,12 @@ def lm_stage_spans(ts, model, opt_state, pipe, step: int = LM_STEPS + 1) -> dict
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         train_loop.record_function = real
-    spans = {name: start.elapsed_time(end) for name, start, end in marks}
+    spans: dict = {}
+    for name, start, end in marks:      # a stage run once a microbatch: summed
+        spans[name] = spans.get(name, 0.0) + start.elapsed_time(end)
     return {"wall_ms": wall_ms, "stage_ms": spans,
             "first_to_last_event_ms": marks[0][1].elapsed_time(marks[-1][2]),
-            "stages_in_order": [name for name, _, _ in marks]}
+            "stages_in_order": list(dict.fromkeys(name for name, _, _ in marks))}
 
 
 def lm_run(strat: str, mesh, pipe, after=None) -> dict:
@@ -1111,6 +1162,716 @@ def phase_lm_cpu_vs_gpu() -> None:
     log(f"[lm_cpu_vs_gpu] losses cpu {l_cpu} gpu {l_gpu} (rtol 1e-5); {c_gpu} in-backward "
         f"collectives in the last step on each; max param diff after 3 steps {worst} "
         f"(reported)")
+
+
+# ------------------------------------------------------- ZeRO-1 and accumulation
+
+LM_ZERO1_MB = 4                # microbatches a step: 1,024 tokens each
+STATE_STRIDE = 64              # the moments sampled to check the clip: 32M of 2G elements
+# (run, zero1 plan or None for the plain step, strategy, clip)
+LM_ZERO1_RUNS = (("scheduled", "scheduled", "concom", 1.0),
+                 ("deferred", "deferred", "concom", 1.0),
+                 ("scheduled_noclip", "scheduled", "concom", 0.0),
+                 ("monolithic", "monolithic", "concom", 0.0),
+                 ("plain", None, "funnel", 1.0))
+
+
+def zero1_staging_launches(gs, plan: str | None, named, microbatch: int = 1) -> dict:
+    """Pack and unpack launches of one step of ``gs``'s schedule, one a
+    group of at most ``MAX_LEAVES`` leaves of one dtype, with each leaf's
+    dtype when it is staged: a gradient enters f32 under accumulation,
+    else in its param's dtype; a sync op writes it back in its plan
+    dtype; the zero1 updates are f32.  A pack and an unpack an allreduce,
+    a pack a reduce-scatter (the gradients) and an UPDATE (the param
+    shard), an unpack an all-gather; the monolithic optimizer's one
+    bucket packs the gradients and the params and unpacks the updates.
+    An allreduce over a group of one in a larger world (the model axis
+    at tp=1) whose leaves are in the comm dtype, at loss scale 1, stages
+    nothing."""
+    import torch.distributed as dist
+
+    from repro_torch.core.schedule import group_size
+    from repro_torch.kernels.collectives.kernel import MAX_LEAVES
+
+    params = dict(named)
+    held = {n: torch.float32 if microbatch > 1 else p.dtype for n, p in named}
+
+    def alone_bit_copy(op) -> bool:
+        comm = op.bucket.comm_dtype or gs.plan.comm_dtype
+        return (op.kind == "allreduce" and gs.cfg.loss_scale == 1.0
+                and group_size(op.bucket.reduce_axes, gs.mesh_shape) == 1
+                < dist.get_world_size()
+                and all(l.dtype == comm for l in op.bucket.leaves))
+
+    def groups(dtypes) -> int:
+        count: dict = {}
+        for d in dtypes:
+            count[d] = count.get(d, 0) + 1
+        return sum(-(-c // MAX_LEAVES) for c in count.values())
+
+    pack = unpack = 0
+    for op in gs.schedule.ops:
+        names = [l.name for l in op.bucket.leaves]
+        if alone_bit_copy(op):
+            continue
+        if op.kind in ("allreduce", "reduce_scatter"):
+            pack += groups(held[n] for n in names)
+        if op.kind == "update":
+            pack += groups(params[n].dtype for n in names)
+        if op.kind in ("allreduce", "all_gather"):
+            unpack += groups(l.dtype for l in op.bucket.leaves)
+            held.update({l.name: l.dtype for l in op.bucket.leaves})
+    if plan == "monolithic":
+        pack += groups(held.values()) + groups(p.dtype for p in params.values())
+        unpack += groups(torch.float32 for _ in params)
+    return {"pack": pack, "unpack": unpack}
+
+
+def bit_sums(named) -> list:
+    """Each leaf's bit patterns summed as integers: equal tensors give equal
+    sums (a digest to compare runs by without keeping their params)."""
+    return [int(bits(p.detach()).to(torch.int64).sum()) for _, p in named]
+
+
+def optimizer_bytes(state) -> int:
+    from repro_torch.utils.trees import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state)
+               if isinstance(t, torch.Tensor))
+
+
+def lm_zero1_run(run: str, plan, strat: str, clip: float, mesh, pipe, after=None) -> dict:
+    """One run of Qwen3-1.7B with ``LM_ZERO1_MB`` microbatches a step from
+    the seeded weights, 1 warm-up + ``LM_STEPS`` - 1 timed steps; pack and
+    unpack must launch exactly the plan's a step.  A deferred run is
+    flushed by ``finalize`` before its params are digested."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw, cosine_warmup, zero1
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = lm_config(strat)
+    model = Transformer(cfg, init_params(cfg, seed=0, device="cuda"))
+    opt = adamw(cosine_warmup(3e-4, 10, 100))
+    if plan is not None:
+        opt = zero1(opt, ("data",), 1)
+    ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
+                         clip_norm=clip, zero1_mode=plan is not None,
+                         zero1_plan=plan or "scheduled", microbatch=LM_ZERO1_MB,
+                         device="cuda")
+    opt_state = ts.init_opt()
+    trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+    named = flatten_with_names(model.params_tree())[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+    losses, norms = [], []
+    sample = None
+    for step in range(LM_STEPS):
+        model, opt_state, hist = trainer.run(model, opt_state, step + 1, start_step=step)
+        losses.append(hist["losses"][-1])
+        norms.append(hist["metrics"]["grad_norm"])
+        if step == 0 and plan == "scheduled":
+            # every STATE_STRIDE-th element of the first step's AdamW moments
+            sample = {k: {mv: st[mv]["shard"][::STATE_STRIDE].cpu() for mv in ("m", "v")}
+                      for k, st in opt_state["inner"].items()}
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            bad = [n for n, p in named if not bool(torch.isfinite(p).all())]
+            bad += [f"state {n}" for n, t in flatten_with_names(opt_state)[0]
+                    if isinstance(t, torch.Tensor) and not bool(torch.isfinite(t).all())]
+            raise AssertionError(f"lm_zero1 {run}: step {step} loss {losses[-1]} grad norm "
+                                 f"{norms[-1]}; non-finite after it: {bad}")
+    launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
+    per_step = zero1_staging_launches(ts.gradsync, plan, named, LM_ZERO1_MB)
+    if launches != {k: v * LM_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"lm_zero1 {run}: launches {launches}, expected {per_step} "
+                             f"a step x {LM_STEPS}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    times = trainer.step_times
+    out = {"losses": losses, "grad_norms": norms,
+           "first_step_ms": trainer.first_step_time * 1e3,
+           "step_ms": [t * 1e3 for t in times],
+           "tokens_per_s": [pipe.global_batch * LM_SEQ / t for t in times],
+           "peak_gb": peak, "launches": launches, "launches_per_step": per_step,
+           "state_bytes": hist["metrics"]["mem.state_bytes"],
+           "optimizer_state_bytes": optimizer_bytes(opt_state),
+           "ops": ts.gradsync.schedule.stats()["kinds"],
+           "dp_bucket_sizes": [b.size for b in ts.gradsync.dp_plan.buckets]
+           if ts.gradsync.dp_plan is not None else None,
+           "state_sample": sample}
+    if ts.finalize is not None:
+        ts.finalize(model, opt_state)
+    out["bit_sums"] = bit_sums(named)      # before ``after`` trains on
+    if after is not None:
+        out["after"] = after(ts, model, opt_state, out)
+    del ts, model, opt_state, trainer, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_zero1_layouts():
+    """What lm_zero1's packs and unpacks see, on ``meta``: Qwen3-1.7B's
+    zero1 dp plan as its scheduled runs plan it (concom, 4 MiB buckets, f32
+    leaves and wire), the monolithic optimizer's one bucket of every leaf,
+    the named params, and each leaf's dtype when the reduce-scatter packs
+    it: the f32 accumulator, or the params' dtype where the model-axis
+    sync (a group of one at world 1) wrote it back."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core.buckets import Bucket, LeafInfo
+    from repro_torch.core.kvstore import plan_sync
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = lm_config("concom")
+    params = init_params(cfg, device="meta")
+    planned = plan_sync(GradSyncConfig(strategy="concom", exclude_axes=("data",),
+                                       zero1_dp_axes=("data",), zero1_clip=True),
+                        make_dp_mesh(), param_specs(params, cfg), params)
+    named = flatten_with_names(params)[0]
+    held = [torch.float32] * len(named)
+    for op in planned.schedule.ops:
+        if op.kind == "allreduce":
+            for l in op.bucket.leaves:
+                held[l.index] = l.dtype
+    f32 = torch.float32
+    mono = Bucket(tuple(LeafInfo(n, i, tuple(p.shape), f32, p.numel())
+                        for i, (n, p) in enumerate(named)), ("data",), 0, 0, comm_dtype=f32)
+    return planned.program.dp_plan, mono, named, held
+
+
+def check_pack(leaves, comm, what: str) -> float:
+    """Row 1 alone (a pack whose buffer no unpack reads: the UPDATE's param
+    shard) into a buffer started as NaN, bit for bit against the plain
+    version."""
+    from repro_torch.kernels.collectives import kernel, ref
+
+    total = sum(t.numel() for t in leaves)
+    nan = torch.full((total,), float("nan"), dtype=comm, device="cuda")
+    got = kernel.pack_bucket_kernel(leaves, comm, out=nan)
+    return same_bits(got, ref.leafwise_pack(leaves, comm), what)
+
+
+def phase_lm_zero1_kernels() -> dict:
+    """Rows 1-2 at the layouts lm_zero1 gives them, bit for bit against
+    their plain versions (outputs started as NaN): every bucket of the
+    zero1 dp plan (the accumulated gradients, f32 but for the model-axis
+    sync's bf16 leaves, packed to f32; the gathered f32 updates unpacked
+    into fresh f32 tensors) and its bf16 params packed to f32 (the
+    UPDATE's param shard); then the monolithic optimizer's one bucket of
+    all 2,031,739,904 elements the same three ways (8.13 GB of f32: byte
+    offsets past 2^31).  One step's worth of the dp plan's packs and
+    unpacks timed as lm_kernels times its layouts."""
+    from repro_torch.kernels.collectives import kernel
+
+    dp_plan, mono, named, held = lm_zero1_layouts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda").to(dt)
+             for (_, p), dt in zip(named, held)]
+    params = [torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype) for _, p in named]
+    f32 = torch.float32
+    err, n_checks = 0.0, 0
+    before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+    for b in dp_plan.buckets:
+        err = max(err, check_bucket(b, grads, f32, 1.0),
+                  check_pack([params[l.index] for l in b.leaves], f32,
+                             f"param shard pack b{b.bucket_id}"))
+        n_checks += 2
+    dp_launches = (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1])
+    timing = time_staging([(b, grads) for b in dp_plan.buckets], f32)
+    torch.cuda.synchronize()
+    err = max(err, check_bucket(mono, grads, f32, 1.0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = max(err, check_pack(params, f32, "monolithic param pack"))
+    n_checks += 2
+    torch.cuda.synchronize()
+    out = {"max_abs_err": err, "checks": n_checks, "dp_buckets": len(dp_plan.buckets),
+           "dp_bucket_sizes": [b.size for b in dp_plan.buckets],
+           "dp_check_launches": {"pack": dp_launches[0], "unpack": dp_launches[1]},
+           "monolithic_elements": mono.size, "monolithic_bytes": mono.size * f32.itemsize,
+           "bf16_grad_leaves": sum(dt == torch.bfloat16 for dt in held),
+           "step": timing}
+    log(f"[lm_zero1_kernels] {n_checks} checks bit-exact (max abs err {err}): "
+        f"{len(dp_plan.buckets)} dp buckets (gradients f32 -> f32 with "
+        f"{out['bf16_grad_leaves']} bf16 leaves, updates f32 -> fresh f32, params "
+        f"bf16 -> f32) and the monolithic bucket of {mono.size} elements "
+        f"({mono.size * 4} bytes of f32) the same three ways; " + json.dumps(out))
+    del grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def clip_check(runs: dict) -> dict:
+    """The NORM op and the clip at full width.  Scheduled's first grad
+    norm is the plain run's clip norm (rtol 1e-5: the plain sync rounds
+    the summed gradients to bf16 before its norm: 2.6e-6 apart on an
+    H100).  It binds (above 1.0), and the first step's
+    AdamW moments, from zero, are the unclipped run's times the clip scale
+    c = min(1, 1/(norm + 1e-9)): m · c and v · c² (rtol 2e-6, a few f32
+    roundings), on every ``STATE_STRIDE``-th element of every bucket."""
+    n0, p0 = runs["scheduled"]["grad_norms"][0], runs["plain"]["grad_norms"][0]
+    if abs(n0 - p0) > 1e-5 * p0:
+        raise AssertionError(f"lm_zero1: scheduled's first grad norm {n0} vs the plain "
+                             f"run's clip norm {p0}: beyond rtol 1e-5")
+    if not n0 > 1.0:
+        raise AssertionError(f"lm_zero1: the clip 1.0 does not bind at norm {n0}")
+    c = min(1.0, 1.0 / (n0 + 1e-9))
+    clipped, free = runs["scheduled"]["state_sample"], runs["scheduled_noclip"]["state_sample"]
+    worst = {"m": 0.0, "v": 0.0}
+    n = 0
+    for k, st in clipped.items():
+        for mv, scale in (("m", c), ("v", c * c)):
+            got, want = st[mv].double(), free[k][mv].double() * scale
+            if not torch.allclose(got, want, rtol=2e-6, atol=1e-30):
+                raise AssertionError(f"lm_zero1: bucket {k}'s clipped {mv} is not the "
+                                     f"unclipped one times {scale}: max diff "
+                                     f"{(got - want).abs().max().item()}")
+            rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+            worst[mv] = max(worst[mv], rel)
+            n += got.numel()
+    if not any(float(st["m"].abs().max()) > 0 for st in free.values()):
+        raise AssertionError("lm_zero1: the sampled moments are all zero")
+    res = {"grad_norm": n0, "plain_clip_norm": p0, "rel_diff": abs(n0 - p0) / p0,
+           "clip_scale": c, "moments_max_rel_err": worst, "elements": n}
+    log("[lm_zero1] clip: " + json.dumps(res))
+    return res
+
+
+def phase_lm_zero1(lm_zero1_kernels: dict) -> dict:
+    """Qwen3-1.7B under ZeRO-1 and accumulation on a one-rank NCCL group
+    (``LM_ZERO1_RUNS``), deterministic algorithms on as in lm_train, on
+    the dp plan ``lm_zero1_kernels`` checked.  Then one more scheduled
+    step under the profiler and one with CUDA events around its stages."""
+    import warnings
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+
+    def profiled(ts, model, opt_state, run):
+        wall = sum(run["step_ms"]) / len(run["step_ms"])
+        res = lm_profile(ts, model, opt_state, pipe, wall)
+        res["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
+        return res
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_dp_mesh()
+    pipe = TokenPipeline(lm_config().vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh,
+                         device="cuda")
+    runs = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for run, plan, strat, clip in LM_ZERO1_RUNS:
+                runs[run] = lm_zero1_run(run, plan, strat, clip, mesh, pipe,
+                                         after=profiled if run == "scheduled" else None)
+                log(f"[lm_zero1] {run}: " + json.dumps(
+                    {k: v for k, v in runs[run].items()
+                     if k not in ("after", "bit_sums", "state_sample")}))
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    profile_out = runs["scheduled"].pop("after")
+    nondeterministic = sorted({str(w.message)[:200] for w in caught
+                               if "deterministic" in str(w.message)})
+    for run, r in runs.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"lm_zero1 {run}: non-finite loss {r['losses']}")
+        if r["peak_gb"] >= 80:
+            raise AssertionError(f"lm_zero1 {run}: peak {r['peak_gb']} GB")
+    for a, b in (("deferred", "scheduled"), ("monolithic", "scheduled_noclip")):
+        if runs[a]["losses"] != runs[b]["losses"] or runs[a]["bit_sums"] != runs[b]["bit_sums"]:
+            raise AssertionError(f"lm_zero1: {a} is not bit-identical to {b}: losses "
+                                 f"{runs[a]['losses']} vs {runs[b]['losses']}")
+    if runs["scheduled"]["losses"][0] != runs["scheduled_noclip"]["losses"][0]:
+        raise AssertionError("lm_zero1: the first step's loss depends on the clip")
+    for run in ("scheduled", "deferred", "scheduled_noclip"):
+        if runs[run]["dp_bucket_sizes"] != lm_zero1_kernels["dp_bucket_sizes"]:
+            raise AssertionError(f"lm_zero1 {run}: dp plan {runs[run]['dp_bucket_sizes']} is "
+                                 f"not the one lm_zero1_kernels checked")
+    clip = clip_check(runs)
+    # the plain step's sync writes the summed gradients back in the params'
+    # dtype (bf16, as the reference's unpack does) before AdamW; the zero1
+    # steps reduce-scatter the f32 sums: the same first loss, then apart by
+    # what AdamW makes of that rounding (1.6e-5 at the third step).  The
+    # NORM op and the clip are held above at 1e-5 and by the moments.
+    plain, sched = runs["plain"]["losses"], runs["scheduled"]["losses"]
+    if plain[0] != sched[0] or any(abs(a - b) > 1e-4 * abs(b) for a, b in zip(plain, sched)):
+        raise AssertionError(f"lm_zero1: plain losses {plain} vs scheduled {sched}: not "
+                             f"the same first loss, or beyond rtol 1e-4")
+    for r in runs.values():
+        del r["bit_sums"], r["state_sample"]
+    out = {"runs": runs, "profile": profile_out, "nondeterministic_ops": nondeterministic,
+           "clip": clip,
+           "launches": {k: sum(r["launches"][k] for r in runs.values())
+                        for k in ("pack", "unpack")},
+           "shape": {"seq": LM_SEQ, "global_batch": LM_BATCH, "microbatch": LM_ZERO1_MB,
+                     "layers": lm_config().n_layers}}
+    log("[lm_zero1] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
+def phase_lm_zero1_cpu_vs_gpu() -> None:
+    """The quickstart LM's widths, 3 steps of scheduled zero1 under concom
+    with 2 microbatches, clip 1.0, from the same weights and batches on the
+    CPU (plain versions) and on the card (kernels), TF32 off: losses within
+    rtol 1e-5."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import Transformer, TransformerConfig, init_params
+    from repro_torch.optim import adamw, cosine_warmup, zero1
+    from repro_torch.runtime import Trainer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(name="quickstart-lm", n_layers=4, d_model=128, n_heads=8,
+                            kv_heads=4, d_ff=256, vocab=512, tp=1, attn_chunk=64,
+                            dtype=torch.float32)
+    weights = init_params(cfg, seed=0, device="cpu")
+    mesh = make_dp_mesh()
+    final = {}
+    for device in ("cpu", "cuda"):
+        model = Transformer(cfg, tree_to(copy.deepcopy(weights), device))
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="concom"),
+                             zero1(adamw(cosine_warmup(1e-3, 20, 200)), ("data",), 1),
+                             model=model, clip_norm=1.0, zero1_mode=True,
+                             zero1_plan="scheduled", microbatch=2, device=device)
+        pipe = TokenPipeline(cfg.vocab, 64, 8, seed=0, mesh=mesh, device=device)
+        _, _, hist = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None).run(
+            model, ts.init_opt(), 3)
+        final[device] = ({n: p.detach().cpu() for n, p in model.named_parameters()},
+                         hist["losses"])
+    (p_cpu, l_cpu), (p_gpu, l_gpu) = final["cpu"], final["cuda"]
+    for a, b in zip(l_gpu, l_cpu):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"lm_zero1_cpu_vs_gpu: losses gpu {l_gpu} cpu {l_cpu} "
+                                 f"beyond rtol 1e-5")
+    worst = max((p_gpu[n] - p).abs().max().item() for n, p in p_cpu.items())
+    log(f"[lm_zero1_cpu_vs_gpu] losses cpu {l_cpu} gpu {l_gpu} (rtol 1e-5); max param "
+        f"diff after 3 steps {worst} (reported)")
+
+
+# a zero1 run's params after REDUCER_STEPS steps stay within this many times
+# the witness's distance from the flat run: a last-bit sum-order difference
+# grows chaotically through BatchNorm, so the two readings agree in order
+# of magnitude, not in digits
+ZERO1_WITNESS_FACTOR = 10.0
+# (run, zero1 plan or None for the flat allreduce, strategy, reducer, clip)
+ZERO1_RANK_RUNS = (("flat", None, "concom", "flat", 1.0),
+                   # the witness: the flat allreduce's sums in the ring's order
+                   ("flat_ring", None, "concom", "ring", 1.0),
+                   ("scheduled", "scheduled", "concom", "flat", 1.0),
+                   ("scheduled_ring", "scheduled", "concom", "ring", 1.0),
+                   ("rsag_ring", "scheduled", "rsag", "ring", 1.0),
+                   ("deferred", "deferred", "concom", "flat", 1.0),
+                   ("scheduled_noclip", "scheduled", "concom", "flat", 0.0),
+                   ("monolithic", "monolithic", "concom", "flat", 0.0))
+
+
+def _zero1_rank(rank: int, workdir: str, backend: str) -> None:
+    """One rank of the zero1 phase: every run of ``ZERO1_RANK_RUNS`` from
+    the same seeded weights; checks; results to ``workdir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.resnet50_cifar import make_config
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core.schedule import group_size
+    from repro_torch.data import ImagePipeline
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.launch.mesh import init_dist, make_dp_mesh
+    from repro_torch.models.resnet import ResNet, init_params
+    from repro_torch.optim import linear_scaling_rule, sgd, zero1
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store",
+              rank=rank, world_size=RING, timeout=datetime.timedelta(seconds=300))
+    host = dist.new_group(backend="gloo")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda _m: None)
+    cfg = make_config()
+    mesh = make_dp_mesh()
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, 256, seed=0, mesh=mesh,
+                         rank=rank, device="cuda")
+    out, params_first, params_end = {"runs": {}}, {}, {}
+    for run, plan, strategy, reducer, clip in ZERO1_RANK_RUNS:
+        model = ResNet(cfg, init_params(cfg, seed=0, device="cuda"))
+        opt = sgd(linear_scaling_rule(0.1, 256, 256), momentum=0.9)
+        if plan is not None:
+            opt = zero1(opt, ("data",), RING)
+        sync = GradSyncConfig(strategy=strategy, reducer=reducer,
+                              exclude_axes=("data",) if plan else ())
+        ts = make_train_step(cfg, mesh, sync, opt, model=model, clip_norm=clip,
+                             zero1_mode=plan is not None, zero1_plan=plan or "scheduled",
+                             device="cuda")
+        named = flatten_with_names(model.params_tree())[0]
+        opt_state = ts.init_opt()
+        staging = zero1_staging_launches(ts.gradsync, plan, named)
+        dp_buckets = ts.gradsync.dp_plan.buckets if ts.gradsync.dp_plan is not None else ()
+        # the ring combines once a hop, in each reduce-scatter or allreduce
+        # of more than one rank (not the model axis's group of one)
+        rings = sum(op.kind in ("reduce_scatter", "allreduce") and group_size(
+            op.bucket.reduce_axes, ts.gradsync.mesh_shape) > 1
+            for op in ts.gradsync.schedule.ops)
+        predicted = {"pack": staging["pack"] * REDUCER_STEPS,
+                     "unpack": staging["unpack"] * REDUCER_STEPS,
+                     "accum": (RING - 1) * rings * REDUCER_STEPS if reducer == "ring" else 0}
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+        ck.PACK_LAUNCHES = ck.UNPACK_LAUNCHES = ck.ACCUM_LAUNCHES = 0
+        norms = []
+        for step in range(REDUCER_STEPS):
+            model, opt_state, hist = trainer.run(model, opt_state, step + 1, start_step=step)
+            norms.append(hist["metrics"]["grad_norm"])
+            _same_on_every_rank([p for _, p in named], f"zero1 {run} params after step "
+                                f"{step}", host)
+            if step == 0:
+                params_first[run] = [p.detach().clone() for _, p in named]
+        launches = {"pack": ck.PACK_LAUNCHES, "unpack": ck.UNPACK_LAUNCHES,
+                    "accum": ck.ACCUM_LAUNCHES}
+        if launches != predicted:
+            raise AssertionError(f"zero1 {run}: launches {launches}, predicted {predicted}")
+        state_bytes = hist["metrics"]["mem.state_bytes"]
+        opt_bytes = optimizer_bytes(opt_state)
+        if ts.finalize is not None:
+            ts.finalize(model, opt_state)
+        params_end[run] = [p.detach().clone() for _, p in named]
+        want_opt = (4 * sum(-(-b.size // RING) for b in dp_buckets)
+                    * (2 if plan == "deferred" else 1))
+        if plan == "monolithic":
+            want_opt = 4 * -(-sum(p.numel() for _, p in named) // RING)
+        if plan is not None and opt_bytes != want_opt:
+            raise AssertionError(f"zero1 {run}: optimizer state {opt_bytes} bytes, "
+                                 f"expected {want_opt}")
+        out["runs"][run] = {
+            "launches": launches, "dp_buckets": len(dp_buckets),
+            "ops": ts.gradsync.schedule.stats()["kinds"],
+            "state_bytes": state_bytes, "optimizer_state_bytes": opt_bytes,
+            "first_step_ms": trainer.first_step_time * 1e3,
+            "step_ms": [t * 1e3 for t in trainer.step_times],
+            "losses": hist["losses"], "grad_norms": norms}
+        say(f"[zero1] {run}: launches {launches} (= prediction), params bit-identical "
+            f"on the {RING} ranks after each of {REDUCER_STEPS} steps; state "
+            f"{state_bytes} bytes a rank (optimizer {opt_bytes}); first step "
+            f"{trainer.first_step_time * 1e3:.1f} ms, then "
+            f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms")
+        del ts, model, opt_state, trainer
+        gc.collect()
+    for a, b in (("deferred", "scheduled"), ("monolithic", "scheduled_noclip")):
+        for x, y in zip(params_end[a], params_end[b]):
+            same_bits(x, y, f"zero1 {a} vs {b}")
+
+    def apart(a, b) -> float:
+        """Max over leaves of max |a - b| / the leaf's absmax in b."""
+        return max((x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+                   for x, y in zip(a, b))
+
+    # one step: the same sums in another order (the reducers phase's
+    # tolerance).  After three, BatchNorm at lr 0.1 carries a last-bit
+    # difference on; the witness, the flat allreduce with the ring's sum
+    # order and no zero1 in it, says how far: each zero1 run stays within
+    # ZERO1_WITNESS_FACTOR times the witness's distance from flat
+    witness = {"after_one_step": apart(params_first["flat_ring"], params_first["flat"]),
+               f"after_{REDUCER_STEPS}_steps": apart(params_end["flat_ring"],
+                                                     params_end["flat"])}
+    bound = ZERO1_WITNESS_FACTOR * witness[f"after_{REDUCER_STEPS}_steps"]
+    worst, worst_end = 0.0, 0.0
+    for run in ("scheduled", "scheduled_ring", "rsag_ring"):
+        for x, y in zip(params_first[run], params_first["flat"]):
+            absmax = max(y.abs().max().item(), 1e-30)
+            if not torch.allclose(x, y, rtol=1e-5, atol=1e-5 * absmax):
+                raise AssertionError(f"zero1 {run} vs flat params after one step differ "
+                                     f"by {(x - y).abs().max().item()}")
+        worst = max(worst, apart(params_first[run], params_first["flat"]))
+        end = apart(params_end[run], params_end["flat"])
+        if not end <= bound:
+            raise AssertionError(f"zero1 {run} vs flat after {REDUCER_STEPS} steps: {end} "
+                                 f"of a leaf's absmax, beyond {ZERO1_WITNESS_FACTOR} x the "
+                                 f"witness's {witness}")
+        worst_end = max(worst_end, end)
+    # and each step's grad norm (the clip's input, before that step's
+    # update) within the same factor of the witness's distance from
+    # flat's, or 1e-5 where the witness has none (step 0: the NORM sums
+    # the shards in another order than the flat run's clip)
+    norms = {k: v["grad_norms"] for k, v in out["runs"].items()}
+    apart_norms = {k: [abs(a - b) / b for a, b in zip(v, norms["flat"])]
+                   for k, v in norms.items() if k in ("flat_ring", "scheduled", "scheduled_ring",
+                                                      "rsag_ring", "deferred")}
+    for run in ("scheduled", "scheduled_ring", "rsag_ring", "deferred"):
+        for step, (d, w) in enumerate(zip(apart_norms[run], apart_norms["flat_ring"])):
+            if not d <= max(ZERO1_WITNESS_FACTOR * w, 1e-5):
+                raise AssertionError(f"zero1 {run}: step {step}'s grad norm {norms[run][step]} "
+                                     f"is {d} from flat's {norms['flat'][step]}, beyond "
+                                     f"{ZERO1_WITNESS_FACTOR} x the witness's {w}")
+    flat_opt = out["runs"]["flat"]["optimizer_state_bytes"]
+    out["flat_optimizer_state_over_4"] = flat_opt / RING
+    out["scheduled_vs_flat_params_max_diff_over_leaf_absmax"] = {
+        "after_one_step": worst, f"after_{REDUCER_STEPS}_steps": worst_end}
+    out["witness_flat_ring_vs_flat_params_max_diff_over_leaf_absmax"] = witness
+    out["grad_norm_rel_diff_from_flat"] = apart_norms
+    say(f"[zero1] deferred = scheduled and monolithic = scheduled (clip 0) bit for bit; "
+        f"scheduled (flat, ring, rsag ring) within rtol 1e-5 of the flat allreduce "
+        f"after one step (max diff / leaf absmax {worst}); after {REDUCER_STEPS} steps "
+        f"{worst_end}, within {ZERO1_WITNESS_FACTOR} x the witness's (the flat allreduce "
+        f"in the ring's sum order) {witness}; grad norms apart from flat's, each step "
+        f"within {ZERO1_WITNESS_FACTOR} x the witness's: {apart_norms}; optimizer state a rank "
+        f"{out['runs']['scheduled']['optimizer_state_bytes']} bytes against the flat "
+        f"run's {flat_opt} / {RING} = {flat_opt / RING}")
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_zero1(backend: str = "gloo") -> dict:
+    """Four rank processes on the one card (as ``reducers``): ZeRO-1 at
+    full ResNet-50/CIFAR width (``ZERO1_RANK_RUNS``)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="zero1-") as wd:
+        mp.spawn(_zero1_rank, args=(wd, backend), nprocs=RING, join=True)
+        ranks = []
+        for r in range(RING):
+            with open(os.path.join(wd, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        if {k: v["launches"] for k, v in res["runs"].items()} != \
+                {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
+            raise AssertionError(f"rank {r} launched other counts than rank 0")
+    res = ranks[0]
+    res["state_bytes_by_rank"] = {k: [rk["runs"][k]["state_bytes"] for rk in ranks]
+                                  for k in res["runs"]}
+    res["wall_s"] = time.perf_counter() - t0
+    res["transport"] = (
+        f"gloo over pinned host memory, {RING} processes on one card" if backend == "gloo"
+        else f"{backend}, {RING} processes on {torch.cuda.device_count()} cards")
+    log("[zero1] " + json.dumps(res))
+    return res
+
+
+def zero1_bucket_sizes(arch: str) -> list:
+    """The zero1 dp plan's bucket sizes of ``arch`` (``resnet50-cifar`` or
+    ``qwen3-1.7b``) under concom, as its zero1 runs plan them, on ``meta``."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core.kvstore import plan_sync
+    from repro_torch.launch.mesh import make_dp_mesh
+
+    if arch == "resnet50-cifar":
+        from repro_torch.configs.resnet50_cifar import make_config
+        from repro_torch.models.resnet import init_params, param_specs
+        params = init_params(make_config(), device="meta")
+        specs = param_specs(params)
+    else:
+        from repro_torch.models.transformer import init_params, param_specs
+        cfg = lm_config("concom")
+        params = init_params(cfg, device="meta")
+        specs = param_specs(params, cfg)
+    planned = plan_sync(GradSyncConfig(strategy="concom", exclude_axes=("data",),
+                                       zero1_dp_axes=("data",), zero1_clip=True),
+                        make_dp_mesh(), specs, params)
+    return [b.size for b in planned.program.dp_plan.buckets]
+
+
+def _rs_transport_rank(rank: int, workdir: str, backend: str) -> None:
+    """One rank of ``phase_rs_transport``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import dependency as dep
+    from repro_torch.core.schedule import _rank_ordered_reduce_scatter
+    from repro_torch.launch.mesh import init_dist
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store",
+              rank=rank, world_size=RING, timeout=datetime.timedelta(seconds=300))
+    out = {}
+    for arch in ("resnet50-cifar", "qwen3-1.7b"):
+        sizes = [-(-n // RING) * RING for n in zero1_bucket_sizes(arch)]
+        bufs = [torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(
+            1000 * rank + i), device="cuda") for i, n in enumerate(sizes)]
+
+        def a2a():
+            return [_rank_ordered_reduce_scatter(b, dist.group.WORLD, RING).wait()
+                    for b in bufs]
+
+        def rst():
+            shards = []
+            for b in bufs:
+                shards.append(torch.empty(b.numel() // RING, device="cuda"))
+                dep.collective(dist.reduce_scatter_tensor, dist.group.WORLD,
+                               shards[-1], b).wait()
+            return shards
+
+        # the first bucket's shard against the plain sum over the ranks in
+        # rank order (every rank's buffer made again from its seed)
+        n0 = sizes[0] // RING
+        plain = None
+        for r in range(RING):
+            x = torch.randn(sizes[0], generator=torch.Generator(device="cuda").manual_seed(
+                1000 * r), device="cuda")[rank * n0:(rank + 1) * n0]
+            plain = x.clone() if plain is None else plain.add_(x)
+        errs = {"a2a": (a2a()[0] - plain).abs().max().item(),
+                "reduce_scatter_tensor": (rst()[0] - plain).abs().max().item()}
+        if errs["a2a"] != 0.0:
+            raise AssertionError(f"{arch}: the all-to-all reduce-scatter is not the rank-order "
+                                 f"sum: max abs err {errs['a2a']}")
+        times = {"a2a": [], "reduce_scatter_tensor": []}
+        for name in ("a2a", "reduce_scatter_tensor", "reduce_scatter_tensor", "a2a"):
+            fn = a2a if name == "a2a" else rst
+            reps = []
+            for _ in range(5):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t0) * 1e3)
+            times[name].append(sorted(reps)[len(reps) // 2])
+        out[arch] = {"buckets": len(sizes), "bytes": 4 * sum(sizes), "max_abs_err": errs,
+                     "ms_per_step_median_of_5_in_turns": times,
+                     "a2a_over_reduce_scatter_tensor": sum(times["a2a"])
+                     / sum(times["reduce_scatter_tensor"])}
+        del bufs
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(workdir, "rank0.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_rs_transport(backend: str = "nccl") -> dict:
+    """By hand, on four cards of one host: the zero1
+    reduce-scatter's two transports over one step's buckets of each zero1
+    dp plan (ResNet-50/CIFAR's, Qwen3-1.7B's; f32, padded to a multiple of
+    4), one rank a card: the all-to-all plus rank-ordered adds
+    (``core/schedule.py::_rank_ordered_reduce_scatter``, bit-identical
+    wherever the plan cuts the buckets) against ``reduce_scatter_tensor``,
+    in turns (a, b, b, a), each the median of 5 barrier-aligned wall
+    times."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="rs-transport-") as wd:
+        mp.spawn(_rs_transport_rank, args=(wd, backend), nprocs=RING, join=True)
+        with open(os.path.join(wd, "rank0.json")) as f:
+            res = json.load(f)
+    res["transport"] = f"{backend}, {RING} processes on {torch.cuda.device_count()} cards"
+    log("[rs_transport] " + json.dumps(res))
+    return res
 
 
 # ------------------------------------------------------- Inception-BN / ImageNet
@@ -3920,6 +4681,11 @@ def main() -> int:
         phase_lm_cpu_vs_gpu()
         gc.collect()
         torch.cuda.empty_cache()
+        lm_zero1_rows = phase_lm_zero1_kernels()
+        lm_zero1 = phase_lm_zero1(lm_zero1_rows)
+        phase_lm_zero1_cpu_vs_gpu()
+        gc.collect()
+        torch.cuda.empty_cache()
         inception_rows = phase_inception_kernels()
         inception = phase_inception()
         phase_inception_cpu_vs_gpu()
@@ -3929,6 +4695,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     reducers = phase_reducers()
+    zero1 = phase_zero1()
     hier = phase_hierarchical()
     flash_rows = phase_flash()
     serve = phase_serve(smi)
@@ -3946,11 +4713,16 @@ def main() -> int:
     kernels = []
     for name, r in rows.items():
         by_path = {"train": train["launches"][name], "lm_train": lm["launches"][name],
-                   "inception": inception["launches"][name]}
+                   "inception": inception["launches"][name],
+                   "lm_zero1": lm_zero1["launches"][name],
+                   "zero1": sum(r["launches"][name] for r in zero1["runs"].values())}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "launches_per_step": 24, **r,
+            # every layout's check: ResNet-50's, the LM's, Inception's, lm_zero1's
+            "max_abs_err": max(r["max_abs_err"], lm_rows["max_abs_err"],
+                               inception_rows["max_abs_err"], lm_zero1_rows["max_abs_err"]),
             "layouts_built_in_train": train["layouts_built"],   # shared by both
             # the LM's layouts: the post-backward buckets (bf16 leaves, f32
             # comm) and depcha's in-backward slots, one step's worth each
@@ -3964,7 +4736,16 @@ def main() -> int:
                                                 for k, v in inception["runs"].items()},
                           "max_abs_err": inception_rows["max_abs_err"],
                           "buckets": inception_rows["buckets"],
-                          "step": inception_rows[name]}})
+                          "step": inception_rows[name]},
+            # ZeRO-1 and accumulation: the gradients' and the param shards'
+            # packs, the updates' unpacks (rank 0's count on four ranks)
+            "lm_zero1": {"launches_per_step": {k: v["launches_per_step"]
+                                               for k, v in lm_zero1["runs"].items()},
+                         "max_abs_err": lm_zero1_rows["max_abs_err"],
+                         "checks": lm_zero1_rows["checks"],
+                         "monolithic_elements": lm_zero1_rows["monolithic_elements"],
+                         "dp_step": lm_zero1_rows["step"][name]},
+            "zero1": {"launches": {k: v["launches"] for k, v in zero1["runs"].items()}}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4011,12 +4792,14 @@ def main() -> int:
                                ("dequantize_blocks_kernel", "dequantize", 7),
                                ("dequantize_sum_blocks_kernel", "dequantize_sum", 7)):
         r = ring_quant[name]
+        by_run = {k: run["launches"][counter] for k, run in runs.items()}
+        if counter == "accum":       # the zero1 reduce-scatters on the ring
+            by_run.update({f"zero1 {k}": run["launches"]["accum"]
+                           for k, run in zero1["runs"].items()})
         kernels.append({
             "name": name, "row": row, "route": "cuda", "source": RING_QUANT_SOURCES[name],
             "replaces": RING_QUANT_REPLACES[name],
-            "launches": sum(run["launches"][counter] for run in runs.values()),
-            "launches_by_run": {k: run["launches"][counter] for k, run in runs.items()},
-            **r})
+            "launches": sum(by_run.values()), "launches_by_run": by_run, **r})
     kernels[-3].update(entry_of="quantize_blocks_kernel",
                        also_replaces="src/repro/core/compression.py:79-89 (phases 2 and 3)",
                        main_path_step=ring_quant["quantize_step"])

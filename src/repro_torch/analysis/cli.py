@@ -10,13 +10,11 @@ smoke mesh) and plans each cell through the port's planning path
 process group, no device), then runs the six analysis passes on the
 schedule and reports.  Cells the constructor contract refuses (a
 two-phase strategy with a hierarchical or compressed reducer) are
-counted as rejected.  Cells the port cannot plan yet are counted as not
-ported, each with the ROADMAP queue 1 item that brings it — never as
-clean:
-
-  zero1 plan other than none, or accum > 1 — item 8 (ZeRO-1 StepProgram,
-                                              accumulation);
-  the ``auto`` strategy                   — item 15b (the simulator).
+counted as rejected.  A zero1 cell plans the StepProgram (the dp-axes
+RS→UPDATE→AG triples with the NORM op, deferred or not) as the
+reference's cell does.  Cells the port cannot plan yet are counted as
+not ported, with the ROADMAP queue 1 item that brings it — never as
+clean: the ``auto`` strategy, item 15b (the simulator).
 
 Every dp2×tp4 cell plans (the "model" axis only shapes the reduce sets);
 running one needs a communicator per axis, item 9.
@@ -81,11 +79,7 @@ MESHES: dict[str, tuple[dict[str, int], str | None]] = {
 
 def not_ported_item(strategy: str, zero1: str, accum: int) -> str | None:
     """The ROADMAP queue 1 item a cell waits on, or None if it plans."""
-    if strategy in NOT_PORTED_STRATEGIES:
-        return NOT_PORTED_STRATEGIES[strategy]
-    if zero1 != "none" or accum > 1:
-        return "8"
-    return None
+    return NOT_PORTED_STRATEGIES.get(strategy)
 
 
 def lint_cell(mesh_name: str, strategy: str, reducer: str,
@@ -100,11 +94,16 @@ def lint_cell(mesh_name: str, strategy: str, reducer: str,
         return {**cell, "status": "not_ported", "item": item}
     mesh_shape, model_axis = MESHES[mesh_name]
     grads, specs = _model(model_axis)
+    dp_axes = ("data",) if zero1 != "none" else ()
     cfg = GradSyncConfig(
         strategy=strategy,
         reducer=reducer,
         bucket_bytes=256 * 1024,
         num_channels=num_channels,
+        exclude_axes=dp_axes,
+        zero1_dp_axes=dp_axes,
+        zero1_clip=zero1 != "none",
+        zero1_defer_ag=zero1 == "deferred",
         verify=False,            # run_passes below collects ALL findings
     )
     try:
@@ -118,7 +117,7 @@ def lint_cell(mesh_name: str, strategy: str, reducer: str,
         mesh_shape=planned.mesh_shape,
         default_reducer=cfg.reducer,
         plan_comm_dtype=cfg.comm_dtype,
-        expect_defer=False,
+        expect_defer=cfg.zero1_defer_ag,
     )
     return {**cell, "status": "ok" if report.ok else "error", **report.to_dict()}
 

@@ -9,23 +9,17 @@ produced (or the hand-rolled equivalent) and applies one
 ``dataclasses.replace``-style edit.
 
 This module holds every mutation and valid case that the port's
-planners can build: 15 of the reference's 24 mutations and 6 of its 13
-valid cases.  The rest build their schedules through planners not
-ported yet:
-
-  ROADMAP queue 1 item 8 (``core/stepprogram.py::zero1_schedule``):
-    mutations mis-tagged-phase, orphaned-pre-gather, half-written-carry,
-    mixed-defer, post-reads-pre, update-bucket-not-f32, donated-pre-read;
-    valid cases zero1-concom-defer0, zero1-concom-defer1,
-    zero1-rsag-defer0, zero1-rsag-defer1.
-  ROADMAP queue 1 item 13 (``core/pipeline_program.py::plan_pipeline``,
-  ``compose_step``):
-    mutations pp-unmatched-send, pp-boundary-bytes; valid cases
-    pp-gpipe, pp-1f1b, pp-1f1b-zero1-joint (which needs item 8 too).
+planners can build: 22 of the reference's 24 mutations and 10 of its 13
+valid cases (the ZeRO-1 ones from the port's own
+``core/stepprogram.py::zero1_schedule``).  The rest build their
+schedules through the pipeline planner (``core/pipeline_program.py::
+plan_pipeline``, ``compose_step``), ROADMAP queue 1 item 13: mutations
+pp-unmatched-send, pp-boundary-bytes; valid cases pp-gpipe, pp-1f1b,
+pp-1f1b-zero1-joint.
 
 The tests hold the port's passes to the reference's findings on all 24,
-building those 9 with the reference and converting them into the port's
-IR.
+building those 2 and 3 with the reference and converting them into the
+port's IR.
 """
 from __future__ import annotations
 
@@ -38,6 +32,8 @@ from repro_torch.core.buckets import Bucket, BucketPlan, LeafInfo
 from repro_torch.core.registry import get_strategy
 from repro_torch.core.schedule import (
     ALL_GATHER,
+    ALLREDUCE,
+    POST,
     PRE,
     RECV,
     REDUCE_SCATTER,
@@ -47,6 +43,7 @@ from repro_torch.core.schedule import (
     CollectiveOp,
     CommSchedule,
 )
+from repro_torch.core.stepprogram import zero1_schedule
 
 MESH = {"data": 8}
 PP_MESH = {"data": 8, "stage": 2}
@@ -70,6 +67,14 @@ def synthetic_plan(n_buckets: int = 4, num_channels: int = 2,
             channel=bid % num_channels, bucket_id=bid, comm_dtype=pin))
     return BucketPlan(buckets=tuple(buckets), treedef=None,
                       num_leaves=idx, comm_dtype=torch.float32)
+
+
+def _zero1(strategy: str = "concom", *, defer: bool,
+           clip: bool = False) -> CommSchedule:
+    plan = synthetic_plan(pin=torch.float32)
+    base = get_strategy(strategy).plan(plan)
+    return zero1_schedule(base, dp_axes=("data",), clip=clip,
+                          defer_ag=defer)
 
 
 def _replace_op(s: CommSchedule, op_id: int, **changes) -> CommSchedule:
@@ -115,6 +120,47 @@ def _unknown_axis():
     return _replace_op(s, op.op_id, bucket=bad), {"mesh_shape": MESH}
 
 
+def _mis_tagged_phase():
+    # an UPDATE tagged PRE has no carried input to read next step
+    s = _zero1(defer=True)
+    upd = next(op for op in s.ops if op.kind == "update")
+    return _replace_op(s, upd.op_id, phase=PRE), {"expect_defer": True}
+
+
+def _orphaned_pre_gather():
+    # a deferred gather for a bucket no UPDATE produces: the carry slot
+    # it reads was never written
+    s = _zero1(defer=True)
+    ghost = Bucket(
+        leaves=(LeafInfo(name="ghost", index=99, shape=(4,),
+                         dtype=torch.float32, size=4),),
+        reduce_axes=("data",), channel=0, bucket_id=77,
+        comm_dtype=torch.float32)
+    extra = CollectiveOp(
+        op_id=max(op.op_id for op in s.ops) + 1, bucket=ghost,
+        chain=0, kind=ALL_GATHER, phase=PRE)
+    return CommSchedule(s.ops + (extra,)), {"expect_defer": True}
+
+
+def _half_written_carry():
+    # one bucket's gather dropped while the rest defer: its UPDATE lands
+    # in the carry but nothing ever gathers it
+    s = _zero1(defer=True)
+    victim = next(op.op_id for op in s.ops
+                  if op.kind == ALL_GATHER and op.phase == PRE)
+    ops = tuple(op for op in s.ops if op.op_id != victim)
+    return CommSchedule(ops), {"expect_defer": True}
+
+
+def _mixed_defer():
+    # one gather flipped back to POST while its siblings defer: that
+    # bucket is applied in-step AND re-applied from the carry
+    s = _zero1(defer=True)
+    victim = next(op.op_id for op in s.ops
+                  if op.kind == ALL_GATHER and op.phase == PRE)
+    return _replace_op(s, victim, phase=POST), {"expect_defer": True}
+
+
 def _duplicate_op_id():
     s = get_strategy("concom").plan(synthetic_plan())
     dup = dataclasses.replace(s.ops[-1], op_id=s.ops[0].op_id)
@@ -125,6 +171,19 @@ def _dependency_cycle():
     s = get_strategy("funnel").plan(synthetic_plan(num_channels=1))
     first, second = s.ops[0].op_id, s.ops[1].op_id
     return _replace_op(s, first, depends_on=(second,)), {}
+
+
+def _post_reads_pre():
+    # unrolled across steps this is a cycle: the POST op waits on a
+    # result that only exists after the step it belongs to finishes
+    s = _zero1(defer=True)
+    pre_ag = next(op for op in s.ops
+                  if op.kind == ALL_GATHER and op.phase == PRE)
+    extra = CollectiveOp(
+        op_id=max(op.op_id for op in s.ops) + 1, bucket=pre_ag.bucket,
+        chain=pre_ag.chain, depends_on=(pre_ag.op_id,),
+        kind=ALLREDUCE, phase=POST)
+    return CommSchedule(s.ops + (extra,)), {"expect_defer": True}
 
 
 def _missing_data_edge():
@@ -163,6 +222,13 @@ def _compressed_int_wire():
     ops = tuple(dataclasses.replace(op, reducer="compressed")
                 for op in s.ops)
     return CommSchedule(ops), {"mesh_shape": MESH}
+
+
+def _update_bucket_not_f32():
+    s = _zero1(defer=False)
+    upd = next(op for op in s.ops if op.kind == "update")
+    bad = dataclasses.replace(upd.bucket, comm_dtype=torch.bfloat16)
+    return _replace_op(s, upd.op_id, bucket=bad), {}
 
 
 def _unknown_reducer():
@@ -262,6 +328,13 @@ def _pp_crossed_pairs():
     return CommSchedule(ops), {"mesh_shape": PP_MESH}
 
 
+def _donated_pre_read():
+    s = _zero1(defer=True)
+    pre = next(op for op in s.ops if op.phase == PRE)
+    return s, {"expect_defer": True,
+               "donated_buckets": frozenset({pre.bucket.bucket_id})}
+
+
 MUTATIONS: tuple[Mutation, ...] = (
     Mutation("dropped-chain-edge", "spmd", "concurrent-collectives",
              "funnel chain edge removed → two allreduces race on one "
@@ -272,11 +345,26 @@ MUTATIONS: tuple[Mutation, ...] = (
     Mutation("unknown-axis", "spmd", "unknown-axis",
              "op reduces over an axis the mesh does not have",
              _unknown_axis),
+    Mutation("mis-tagged-phase", "carry", "mis-tagged-phase",
+             "an UPDATE op tagged PRE (only gathers may defer)",
+             _mis_tagged_phase),
+    Mutation("orphaned-pre-gather", "carry", "orphaned-pre-gather",
+             "deferred gather whose bucket no UPDATE produces",
+             _orphaned_pre_gather),
+    Mutation("half-written-carry", "carry", "half-written-carry",
+             "one bucket's gather dropped while the rest defer",
+             _half_written_carry),
+    Mutation("mixed-defer", "carry", "mixed-defer",
+             "one gather flipped POST while its siblings defer "
+             "(double-apply)", _mixed_defer),
     Mutation("duplicate-op-id", "deadlock", "duplicate-op-id",
              "two ops share an op_id", _duplicate_op_id),
     Mutation("dependency-cycle", "deadlock", "cycle",
              "first funnel op made to depend on the second",
              _dependency_cycle),
+    Mutation("post-reads-pre", "deadlock", "cross-step-cycle",
+             "a POST op depends on a deferred (PRE) result",
+             _post_reads_pre),
     Mutation("missing-data-edge", "deadlock", "missing-data-edge",
              "two ops stage the same leaf with no dependency path",
              _missing_data_edge),
@@ -293,12 +381,18 @@ MUTATIONS: tuple[Mutation, ...] = (
     Mutation("compressed-int-wire", "accounting", "comm-dtype-illegal",
              "compressed reducer on an int8 wire (quantizer needs "
              "floats)", _compressed_int_wire),
+    Mutation("update-bucket-not-f32", "accounting", "update-dtype",
+             "UPDATE bucket not pinned to f32 shard math",
+             _update_bucket_not_f32),
     Mutation("unknown-reducer", "accounting", "unknown-reducer",
              "op tagged with an unregistered reducer",
              _unknown_reducer),
     Mutation("pp-crossed-pairs", "deadlock", "crossed-send-recv",
              "two SEND/RECV pairs crossed recv-first on both chains "
              "(mutual rendezvous wait)", _pp_crossed_pairs),
+    Mutation("donated-pre-read", "donation", "donated-pre-read",
+             "deferred gather reads a bucket whose buffer is donated",
+             _donated_pre_read),
     Mutation("pre-crosses-regroup", "reshard", "pre-crosses-regroup",
              "an op tagged PRE inside an elastic transition schedule "
              "(deferred carry crossing the regroup barrier)",
@@ -323,6 +417,13 @@ def valid_cases() -> list[tuple[str, CommSchedule, dict[str, Any]]]:
         out.append((name, get_strategy(name).plan(plan),
                     {"mesh_shape": MESH, "expect_defer": False,
                      "plan_comm_dtype": torch.float32}))
+    for strat in ("concom", "rsag"):
+        for defer in (False, True):
+            out.append((
+                f"zero1-{strat}-defer{int(defer)}",
+                _zero1(strat, defer=defer, clip=True),
+                {"mesh_shape": MESH, "expect_defer": defer,
+                 "plan_comm_dtype": torch.float32}))
     out.append(("reshard-transition", synthetic_reshard_schedule(),
                 dict(_RS_CTX)))
     return out

@@ -1,5 +1,6 @@
 """Gradient-sync core: bucket plans, the CommSchedule IR and its emitter,
-strategies, GradSync and the paper's KVStore (``repro/core``)."""
+strategies, the ZeRO-1 StepProgram, GradSync and the paper's KVStore
+(``repro/core``)."""
 from repro_torch.core.buckets import Bucket, BucketPlan, LeafInfo, make_bucket_plan
 from repro_torch.core.kvstore import GradSync, GradSyncConfig, KVStore, SyncPlan, plan_sync
 from repro_torch.core.registry import (
@@ -11,6 +12,12 @@ from repro_torch.core.registry import (
     strategy_names,
 )
 from repro_torch.core.schedule import CollectiveOp, CommSchedule, execute
+from repro_torch.core.stepprogram import (
+    StepProgram,
+    build_step_program,
+    zero1_bucket_plan,
+    zero1_schedule,
+)
 from repro_torch.core.strategies import make_reducer
 
 __all__ = [
@@ -22,7 +29,9 @@ __all__ = [
     "GradSyncConfig",
     "KVStore",
     "LeafInfo",
+    "StepProgram",
     "SyncPlan",
+    "build_step_program",
     "execute",
     "get_reducer",
     "get_strategy",
@@ -33,4 +42,6 @@ __all__ = [
     "register_reducer",
     "register_strategy",
     "strategy_names",
+    "zero1_bucket_plan",
+    "zero1_schedule",
 ]

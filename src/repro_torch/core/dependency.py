@@ -51,6 +51,25 @@ class Done:
 DONE = Done()
 
 
+class Recorded:
+    """The work of kernels issued on the current CUDA stream (a group of
+    one, the ring collectives, a shard update): waiting on it orders the
+    caller's current stream after them, without blocking the host.  On
+    the CPU the work is done when it returns."""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._event = None
+        if device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+
+    def wait(self) -> bool:
+        if self._event is not None:
+            torch.cuda.current_stream(self._device).wait_event(self._event)
+        return True
+
+
 class Handle:
     """One issued collective (the write to the paper's dummy variable).
 
@@ -76,6 +95,12 @@ class Handle:
             self._out.mul_(self._scale)
             self._scale = 1.0
         return self._out
+
+    def release(self) -> None:
+        """Drop the output once its consumer has read it: later waits
+        still order the caller after the work, and return None."""
+        self.wait()
+        self._out = None
 
 
 def gate(handles: Mapping[int, Handle], deps: Iterable[int]) -> None:

@@ -43,13 +43,14 @@ from repro_torch.core.schedule import (
 )
 from repro_torch.core.strategies import make_reducer
 from repro_torch.kernels.collectives.kernel import PeerRing
+from repro_torch.utils.trees import tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
 class GradSyncConfig:
-    """The reference's sync knobs that the data-parallel slice runs.  The
-    ZeRO-1 StepProgram, pipeline and simulator fields come with ROADMAP
-    queue 1 items 8, 13 and 15b."""
+    """The reference's sync knobs that the port runs: the strategies and
+    reducers, and the ZeRO-1 StepProgram (``zero1_*``).  The pipeline and
+    simulator fields come with ROADMAP queue 1 items 13 and 15b."""
 
     strategy: str = "depcha"         # any registered strategy name
     reducer: str = "flat"            # any registered reducer name
@@ -60,6 +61,15 @@ class GradSyncConfig:
     exclude_axes: tuple[str, ...] = ()  # reduced elsewhere
     use_fused_staging: bool = True   # fused pack/unpack kernels
     loss_scale: float = 1.0          # folded into pack; unpack divides
+    # StepProgram: non-empty → plan the ZeRO-1 step as per-bucket
+    # RS→UPDATE→AG ops over these axes, appended to the sync schedule
+    # (set exclude_axes to the same axes — the RS *is* their reduction)
+    zero1_dp_axes: tuple[str, ...] = ()
+    zero1_clip: bool = False         # plan the NORM op (grad clipping)
+    # pipelined StepProgram: tag the zero1 all-gathers PRE so they run at
+    # the NEXT step's top (``GradSync.apply_pending``, with the carried
+    # update shards) instead of closing this step
+    zero1_defer_ag: bool = False
     # static analysis: validate() and the six repro_torch.analysis passes
     # over the planned schedule, raising ScheduleError (with a printable
     # witness) before any communicator sees it
@@ -75,7 +85,8 @@ class SyncPlan:
     plan: BucketPlan
     reducer: Any                     # (buf, bucket, communicator) -> Handle
     skip_names: frozenset[str]
-    schedule: CommSchedule
+    schedule: CommSchedule           # the StepProgram's, under zero1_dp_axes
+    program: Any = None              # core.stepprogram.StepProgram, or None
 
 
 def plan_sync(cfg: GradSyncConfig, mesh, param_specs: Any, grads_like: Any, *,
@@ -110,14 +121,34 @@ def plan_sync(cfg: GradSyncConfig, mesh, param_specs: Any, grads_like: Any, *,
     skip_names = in_scan_names if info.uses_in_scan else frozenset()
     # the strategy's dependency structure, planned once, inspectable
     schedule = info.plan(plan, skip_names=skip_names)
+    # StepProgram: the ZeRO-1 RS→UPDATE→AG triples, planned by the SAME
+    # strategy over the dp-axes bucket plan, appended to the sync ops
+    program = None
+    if cfg.zero1_dp_axes:
+        from repro_torch.core.stepprogram import build_step_program, zero1_bucket_plan
+
+        id_offset = (max(b.bucket_id for b in plan.buckets) + 1
+                     if plan.buckets else 0)
+        dp_plan = zero1_bucket_plan(
+            grads_like, param_specs, mesh, dp_axes=tuple(cfg.zero1_dp_axes),
+            bucket_bytes=cfg.bucket_bytes,
+            num_channels=1 if info.single_chain else cfg.num_channels,
+            id_offset=id_offset)
+        base = info.plan(dp_plan, skip_names=frozenset())
+        program = build_step_program(
+            schedule, plan, base, dp_plan, dp_axes=tuple(cfg.zero1_dp_axes),
+            dp_size=group_size(cfg.zero1_dp_axes, mesh_shape),
+            clip=cfg.zero1_clip, defer_ag=cfg.zero1_defer_ag)
+        schedule = program.schedule
     if cfg.verify:
         from repro_torch.analysis import verify_schedule
 
         schedule.validate()
         verify_schedule(schedule, mesh_shape=mesh_shape,
                         default_reducer=cfg.reducer,
-                        plan_comm_dtype=cfg.comm_dtype, expect_defer=False)
-    return SyncPlan(info, mesh_shape, plan, reducer, skip_names, schedule)
+                        plan_comm_dtype=cfg.comm_dtype,
+                        expect_defer=program is not None and program.defer_ag)
+    return SyncPlan(info, mesh_shape, plan, reducer, skip_names, schedule, program)
 
 
 class GradSync:
@@ -147,12 +178,15 @@ class GradSync:
         self.reducer = planned.reducer
         self.skip_names = planned.skip_names
         self.schedule: CommSchedule = planned.schedule
+        self.program = planned.program
+        self.dp_plan = planned.program.dp_plan if planned.program is not None else None
 
         chains = [op.chain for op in self.schedule.ops]
         world = dist.get_world_size()
         for axes in self.schedule.axes_used():
-            # a pod mesh's ("pod", "data", "model") buckets span the world too
-            if group_size(axes, self.mesh_shape) != world:
+            # a pod mesh's ("pod", "data", "model") buckets span the world
+            # too; a group of one (the model axis at tp=1) reduces nothing
+            if group_size(axes, self.mesh_shape) not in (1, world):
                 raise NotImplementedError(
                     f"buckets reducing over {axes} (a group of "
                     f"{group_size(axes, self.mesh_shape)} of {world} ranks) "
@@ -188,29 +222,63 @@ class GradSync:
 
     def _two_phase_impl(self) -> str:
         """The reduce-scatter/all-gather transport: ring-family reducers
-        carry the RS/AG ops of two-phase strategies on the rings."""
+        carry the RS/AG ops of two-phase strategies, and the zero1
+        triples, on the rings."""
         ring_family = (self.cfg.reducer == "ring"
                        or self.cfg.reducer.endswith("_ring"))
-        return "ring" if ring_family and self.info.two_phase else "psum"
+        emits_rs_ag = self.info.two_phase or self.program is not None
+        return "ring" if ring_family and emits_rs_ag else "psum"
 
-    def __call__(self, grads: Any) -> Any:
-        """Execute the planned schedule over ``grads``; returns the
-        reduced gradients (written into ``grads`` in place on the fused
-        staging path)."""
+    def _execute(self, schedule: CommSchedule, tree: Any, **kw) -> Any:
         out = execute(
-            self.schedule, grads, self.plan,
+            schedule, tree, self.plan,
             reducer=self.reducer,
             groups=self.groups,
             streams=self.streams,
             mesh_shape=self.mesh_shape,
             mean_axes=self.cfg.mean_axes,
             use_fused_staging=self.cfg.use_fused_staging,
-            loss_scale=self.cfg.loss_scale,
-            two_phase_impl=self._two_phase_impl())
+            two_phase_impl=self._two_phase_impl(), **kw)
         # a peer ring's wait that ran out voids the step: no result returned
         for ring in self.rings:
             ring.check()
         return out
+
+    def __call__(self, grads: Any, *, update_fn=None, clip_norm: float = 0.0,
+                 aux: dict | None = None,
+                 schedule: CommSchedule | None = None) -> Any:
+        """Execute the planned schedule over ``grads``.
+
+        For a sync schedule this returns the reduced gradients (written
+        into ``grads`` in place on the fused staging path).  A StepProgram
+        (``zero1_dp_axes``) also needs ``update_fn`` (see
+        ``repro_torch.optim.zero.scheduled_update``); the returned tree
+        then holds the gathered f32 *updates*, and ``aux`` gets
+        ``grad_norm`` (with ``zero1_clip``) and ``update_shards``.
+        ``schedule`` overrides the planned one: the deferred step passes
+        ``program.post_schedule()`` and gathers last step's shards with
+        ``apply_pending``."""
+        return self._execute(
+            self.schedule if schedule is None else schedule, grads,
+            loss_scale=self.cfg.loss_scale, update_fn=update_fn,
+            clip_norm=clip_norm, aux=aux)
+
+    def apply_pending(self, pending: dict[int, torch.Tensor],
+                      updates_like: Any = None) -> Any:
+        """Run the deferred PRE program: all-gather the update shards
+        carried from the previous step (``pending``: bucket_id → local
+        shard) into ``updates_like`` (a tree shaped like the params; by
+        default all None, and each leaf becomes a new f32 tensor).  The
+        gathers free-fly."""
+        if self.program is None or not self.program.defer_ag:
+            raise ValueError(
+                "apply_pending requires a StepProgram planned with "
+                "zero1_defer_ag=True")
+        if updates_like is None:
+            updates_like = tree_unflatten(self.plan.treedef,
+                                          [None] * self.plan.num_leaves)
+        return self._execute(self.program.pre_schedule(), updates_like,
+                             pending=pending)
 
 
 class KVStore:

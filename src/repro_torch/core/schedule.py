@@ -12,10 +12,10 @@ inspectable data — the port of ``repro/core/schedule.py``.
                       (``repro_torch.core.dependency``).
 
 The IR half is the reference's unchanged, so planners here and in
-``repro`` produce equal schedules.  The emitter runs the ALLREDUCE,
-REDUCE_SCATTER and ALL_GATHER kinds; the full-step, elastic, serving and
-pipeline kinds raise ``NotImplementedError`` until their ROADMAP items
-port them.
+``repro`` produce equal schedules.  The emitter runs the sync kinds
+(ALLREDUCE, REDUCE_SCATTER, ALL_GATHER) and the StepProgram's UPDATE and
+NORM (``core/stepprogram.py``); the elastic, serving and pipeline kinds
+raise ``NotImplementedError`` until their ROADMAP items port them.
 """
 from __future__ import annotations
 
@@ -54,8 +54,7 @@ KINDS = (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER, UPDATE, NORM,
 _WIRE_KINDS = (ALLREDUCE, REDUCE_SCATTER)
 _PAYLOAD_KINDS = _WIRE_KINDS + (SEND,)
 # the ROADMAP queue 1 item that ports each kind the emitter cannot run
-_NOT_PORTED = {UPDATE: 8, NORM: 8, RESHARD: 14, REGROUP: 14, DECODE: 11,
-               SEND: 13, RECV: 13}
+_NOT_PORTED = {RESHARD: 14, REGROUP: 14, DECODE: 11, SEND: 13, RECV: 13}
 
 # execution phases: POST ops run after this step's backward; PRE ops are
 # deferred to the top of the next step
@@ -280,10 +279,32 @@ def op_scope_name(op: CollectiveOp) -> str:
     return f"comm.{op.kind}.b{op.bucket.bucket_id}.op{op.op_id}.{op.phase}"
 
 
+def _rank_ordered_reduce_scatter(buf: torch.Tensor, comm: dist.ProcessGroup,
+                                 g: int) -> dep.Handle:
+    """The zero1 reduce-scatter: an all-to-all of the g chunks, then this
+    rank's chunk summed over the peers in rank order.  Every element is
+    summed in the same order wherever the bucket plan puts it, so the
+    per-bucket StepProgram and the monolithic optimizer's one bucket
+    agree bit for bit (as the reference's psum_scatter does); the wire
+    bytes are the reduce-scatter's."""
+    chunks = torch.empty_like(buf)
+    dep.collective(dist.all_to_all_single, comm, chunks, buf).wait()
+    rows = chunks.view(g, -1)
+    shard = rows[0].clone()
+    for i in range(1, g):
+        shard.add_(rows[i])
+    return dep.Handle(dep.Recorded(shard.device), shard)
+
+
+def _comm(group) -> dist.ProcessGroup:
+    """A chain's communicator over every rank (a ``PodComm``'s world)."""
+    return group.world if isinstance(group, dep.PodComm) else group
+
+
 class _OpEmitter:
     """Per-op emission engine behind ``execute``: holds the handles of
-    issued collectives and reduce-scatter shards, and emits ONE op at a
-    time into a flat leaf list."""
+    issued ops, the reduce-scatter and update shards not yet consumed and
+    the clip scales, and emits ONE op at a time into a flat leaf list."""
 
     def __init__(
         self,
@@ -297,6 +318,10 @@ class _OpEmitter:
         use_fused_staging: bool = True,
         loss_scale: float = 1.0,
         two_phase_impl: str = "psum",
+        update_fn: Callable[[CollectiveOp, torch.Tensor], torch.Tensor] | None = None,
+        clip_norm: float = 0.0,
+        aux: dict | None = None,
+        pending: Mapping[int, torch.Tensor] | None = None,
     ):
         if two_phase_impl not in ("psum", "ring"):
             raise ValueError(f"unknown two_phase_impl {two_phase_impl!r}")
@@ -308,9 +333,22 @@ class _OpEmitter:
         self.mean_axes = mean_axes
         self.use_fused_staging = use_fused_staging
         self.loss_scale = loss_scale
+        self.update_fn = update_fn
+        self.clip_norm = clip_norm
+        self.aux = aux
+        self.pending = pending
         self.by_id = {op.op_id: op for op in schedule.ops}
         self.handles: dict[int, dep.Handle] = {}
+        # op_id -> (handle of the op that made the shard, unpadded size);
+        # a consumer pops its shard and releases it
         self.shards: dict[int, tuple[dep.Handle, int]] = {}
+        self.clip_scales: dict[int, torch.Tensor] = {}
+        # reduce-scatters whose shard an UPDATE consumes: nothing reads
+        # their leaves again, so the staged gradients are let go at once
+        self.feeds_update = {
+            d for op in schedule.ops if op.kind == UPDATE for d in op.depends_on
+            if d in self.by_id and self.by_id[d].kind == REDUCE_SCATTER
+            and self.by_id[d].bucket.bucket_id == op.bucket.bucket_id}
 
     # -- staging helpers ---------------------------------------------
 
@@ -336,9 +374,18 @@ class _OpEmitter:
 
     def _stage_out(self, bucket: Bucket, buf: torch.Tensor,
                    inv_scale: float, flat_out: list) -> None:
-        """CopyFromTo(recv_buf, g): unscale + cast back + scatter, fused
-        (the fused path writes into the gradient tensors in place)."""
+        """CopyFromTo(recv_buf, g): unscale + cast back + scatter, fused.
+        The fused path writes into the leaves of ``flat_out`` in place
+        where they hold a contiguous tensor of the plan's shape and dtype
+        (the gradients), else into new tensors (the f32 updates of a
+        StepProgram, whose gradients were bf16 or were let go)."""
         if self._fused_ok(bucket):
+            for l in bucket.leaves:
+                t = flat_out[l.index]
+                if (t is None or t.dtype != l.dtype or tuple(t.shape) != tuple(l.shape)
+                        or t.device != buf.device or not t.is_contiguous()):
+                    flat_out[l.index] = torch.empty(l.shape, dtype=l.dtype,
+                                                    device=buf.device)
             coll_ops.fused_unpack(bucket, buf, flat_out, scale=inv_scale)
             return
         if inv_scale != 1.0:
@@ -355,15 +402,38 @@ class _OpEmitter:
             return 1.0
         return mean_scale(bucket.reduce_axes, self.mesh_shape, self.mean_axes)
 
-    def _shard_src(self, op: CollectiveOp) -> int:
-        """The dep producing this op's same-bucket shard."""
+    def _group_size(self, bucket: Bucket, comm: dist.ProcessGroup) -> int:
+        """Ranks in the bucket's reduce group: from the mesh (axes of size
+        1, as the model axis at tp=1, make a group of one however many
+        ranks the communicator holds), else the communicator's."""
+        if self.mesh_shape is None:
+            return dist.get_world_size(comm)
+        return group_size(bucket.reduce_axes, self.mesh_shape)
+
+    def _shard_src(self, op: CollectiveOp, want: str,
+                   optional: bool = False) -> int | None:
+        """The dep producing this op's same-bucket shard (deps may also
+        carry chain-ordering edges to other buckets' ops).  ``optional``
+        returns None instead of raising: a deferred gather whose shard
+        arrives through ``pending`` has no producer in the schedule."""
         srcs = [d for d in op.depends_on if d in self.shards
                 and self.by_id[d].bucket.bucket_id == op.bucket.bucket_id]
         if not srcs:
+            if optional:
+                return None
             raise ValueError(
-                f"{op.kind} op {op.op_id} has no reduce_scatter dep for "
+                f"{op.kind} op {op.op_id} has no {want} dep for "
                 f"bucket {op.bucket.bucket_id}")
         return srcs[0]
+
+    def _gate_data(self, op: CollectiveOp) -> None:
+        """Wait on the deps that wrote this op's leaves (a zero1
+        reduce-scatter after the model-axis sync of the same leaves)
+        before staging reads them; the other deps only order the
+        collective, and gate it (``emit_gated``)."""
+        names = set(op.bucket.names)
+        dep.gate(self.handles, [d for d in op.depends_on
+                                if names.intersection(self.by_id[d].bucket.names)])
 
     # -- the per-op body ---------------------------------------------
 
@@ -374,52 +444,162 @@ class _OpEmitter:
         group = self.groups[op.chain]
 
         if op.kind == ALLREDUCE:
+            comm = _comm(group)
+            alone = self._group_size(bucket, comm) == 1 < dist.get_world_size(comm)
+            if alone and self.loss_scale == 1.0 and all(
+                    l.dtype == self._dtype_of(bucket) for l in bucket.leaves):
+                # a group of one whose round trip through the buffer is a
+                # bit copy: nothing to stage, sum or write back
+                dep.gate(self.handles, op.depends_on)
+                self.handles[op.op_id] = dep.Handle(
+                    dep.Recorded(flat_out[bucket.leaves[0].index].device), None)
+                return
+            self._gate_data(op)
             send_buf = self._stage_in(bucket, flat_out)
-            h = emit_gated(send_buf, op.depends_on, self.handles,
-                           lambda b: self.reducer(b, bucket, group))
-            self.handles[op.op_id] = h
+            if alone:
+                # a group of one inside a larger world: nothing to sum
+                def reduce(b):
+                    return dep.Handle(dep.Recorded(b.device), b)
+            else:
+                def reduce(b):
+                    return self.reducer(b, bucket, group)
+            h = emit_gated(send_buf, op.depends_on, self.handles, reduce)
             self._stage_out(bucket, h.wait(), 1.0 / self.loss_scale, flat_out)
+            # done once its leaves are written: a dependent on another chain
+            # (a zero1 reduce-scatter of these leaves) reads them
+            self.handles[op.op_id] = dep.Handle(dep.Recorded(send_buf.device), None)
 
         elif op.kind == REDUCE_SCATTER:
-            g = dist.get_world_size(group)
+            comm = _comm(group)
+            g = self._group_size(bucket, comm)
+            self._gate_data(op)
             send_buf = self._stage_in(bucket, flat_out)
+            if op.op_id in self.feeds_update:
+                for l in bucket.leaves:
+                    flat_out[l.index] = None
             n = send_buf.numel()
             if (-n) % g:
                 send_buf = F.pad(send_buf, (0, (-n) % g))
 
             def rs(b):
+                if g == 1:
+                    return dep.Handle(dep.Recorded(b.device), b)
                 if self.two_phase_impl == "ring":
-                    return dep.Handle(dep.DONE, coll_ops.ring_reduce_scatter(
-                        b, bucket.reduce_axes, self.mesh_shape, group))
+                    # the event after the ring's kernels: a NORM on another
+                    # chain's stream reads the shard once it has fired
+                    shard = coll_ops.ring_reduce_scatter(b, bucket.reduce_axes,
+                                                         self.mesh_shape, comm)
+                    return dep.Handle(dep.Recorded(b.device), shard)
+                if op.op_id in self.feeds_update:
+                    return _rank_ordered_reduce_scatter(b, comm, g)
                 shard = torch.empty(b.numel() // g, dtype=b.dtype, device=b.device)
                 return dep.Handle(dep.collective(
-                    dist.reduce_scatter_tensor, group, shard, b), shard)
+                    dist.reduce_scatter_tensor, comm, shard, b), shard)
 
             h = emit_gated(send_buf, op.depends_on, self.handles, rs)
             self.handles[op.op_id] = h
             self.shards[op.op_id] = (h, n)
 
+        elif op.kind == NORM:
+            # the global squared norm: each gradient element lives in one
+            # shard across the group, so the sum of every producing RS
+            # shard's local sum of squares is the whole norm.  The shards
+            # are still loss-scaled and pre-mean (UPDATE applies both
+            # later): undone here, so the clip sees the true gradients.
+            dep.gate(self.handles, op.depends_on)
+            sq = None
+            for d in op.depends_on:
+                if d in self.shards and self.by_id[d].kind == REDUCE_SCATTER:
+                    s = self.shards[d][0].out
+                    g_scale = self._scale_of(self.by_id[d].bucket) / self.loss_scale
+                    term = g_scale * g_scale * torch.sum(torch.square(s.to(torch.float32)))
+                    sq = term if sq is None else sq + term
+            if sq is None:
+                raise ValueError(f"norm op {op.op_id} has no reduce_scatter dep")
+            comm = _comm(group)
+            red = emit_gated(sq, op.depends_on, self.handles, lambda v: dep.Handle(
+                dep.collective(dist.all_reduce, comm, v), v)).wait()
+            norm = torch.sqrt(red)
+            if self.clip_norm > 0:
+                # on the device: no host sync
+                self.clip_scales[op.op_id] = torch.clamp(
+                    self.clip_norm / (norm + 1e-9), max=1.0)
+            if self.aux is not None:
+                self.aux["grad_norm"] = norm
+            # UPDATEs on other chains read the scale: they wait on this
+            self.handles[op.op_id] = dep.Handle(dep.Recorded(norm.device), norm)
+
+        elif op.kind == UPDATE:
+            if self.update_fn is None:
+                raise ValueError(
+                    f"schedule contains UPDATE op {op.op_id} but no "
+                    f"update_fn was supplied")
+            src = self._shard_src(op, "reduce_scatter")
+            dep.gate(self.handles, op.depends_on)
+            h, n = self.shards.pop(src)
+            g_shard = h.out.to(torch.float32)
+            h.release()
+            # dp mean + loss unscale
+            s = self._scale_of(bucket) / self.loss_scale
+            if s != 1.0:
+                g_shard = g_shard * s
+            for d in op.depends_on:             # clip on shards, pre-update
+                if d in self.clip_scales:
+                    g_shard = g_shard * self.clip_scales[d]
+            upd = self.update_fn(op, g_shard)
+            del g_shard
+            self.handles[op.op_id] = dep.Handle(dep.Recorded(upd.device), upd)
+            self.shards[op.op_id] = (self.handles[op.op_id], n)
+            if self.aux is not None:
+                self.aux.setdefault("update_shards", {})[bucket.bucket_id] = upd
+
         elif op.kind == ALL_GATHER:
-            src, n = self.shards[self._shard_src(op)]
-            g = dist.get_world_size(group)
+            has_pending = (self.pending is not None
+                           and bucket.bucket_id in self.pending)
+            src = self._shard_src(op, "reduce_scatter", optional=has_pending)
+            h_src = None
+            if src is not None:
+                h_src, n = self.shards.pop(src)
+                shard = h_src.out
+                gathers_updates = self.by_id[src].kind == UPDATE
+            else:
+                # a PRE program: last step's UPDATE made the shard, carried
+                # across the boundary (dp mean and loss unscale applied)
+                shard, n = self.pending[bucket.bucket_id], bucket.size
+                gathers_updates = True
+            comm = _comm(group)
+            g = self._group_size(bucket, comm)
 
-            def ag(shard):
+            def ag(b):
+                if g == 1:
+                    return dep.Handle(dep.Recorded(b.device), b)
                 if self.two_phase_impl == "ring":
-                    return dep.Handle(dep.DONE, coll_ops.ring_all_gather(
-                        shard, bucket.reduce_axes, self.mesh_shape, group))
-                full = torch.empty(shard.numel() * g, dtype=shard.dtype,
-                                   device=shard.device)
+                    full = coll_ops.ring_all_gather(b, bucket.reduce_axes,
+                                                    self.mesh_shape, comm)
+                    return dep.Handle(dep.Recorded(b.device), full)
+                full = torch.empty(b.numel() * g, dtype=b.dtype, device=b.device)
                 return dep.Handle(dep.collective(
-                    dist.all_gather_into_tensor, group, full, shard), full)
+                    dist.all_gather_into_tensor, comm, full, b), full)
 
-            # the producing RS is among the deps: gated before ag reads it
-            h = emit_gated(src.out, op.depends_on, self.handles, ag)
+            # the producer is among the deps: gated before ag reads it
+            h = emit_gated(shard, op.depends_on, self.handles, ag)
             self.handles[op.op_id] = h
             full = h.wait()[:n]
-            s = self._scale_of(bucket)
-            if s != 1.0:
-                full = full * s
-            self._stage_out(bucket, full, 1.0 / self.loss_scale, flat_out)
+            del shard
+            if h_src is not None:
+                h_src.release()
+            if gathers_updates:
+                # optimizer updates: the dp mean and loss unscale were
+                # applied to the grad shard
+                self._stage_out(bucket, full, 1.0, flat_out)
+            else:
+                s = self._scale_of(bucket)
+                if s != 1.0:
+                    full = full * s
+                self._stage_out(bucket, full, 1.0 / self.loss_scale, flat_out)
+            # done once its leaves are written (as an allreduce)
+            self.handles[op.op_id] = dep.Handle(dep.Recorded(full.device), None)
+            del full
 
         elif op.kind in _NOT_PORTED:
             raise NotImplementedError(
@@ -442,6 +622,10 @@ def execute(
     use_fused_staging: bool = True,
     loss_scale: float = 1.0,
     two_phase_impl: str = "psum",
+    update_fn: Callable[[CollectiveOp, torch.Tensor], torch.Tensor] | None = None,
+    clip_norm: float = 0.0,
+    aux: dict | None = None,
+    pending: Mapping[int, torch.Tensor] | None = None,
 ) -> Any:
     """Materialize a CommSchedule over a gradient tree.
 
@@ -457,11 +641,30 @@ def execute(
 
     ``two_phase_impl`` is the reduce-scatter/all-gather transport:
     ``"psum"`` (``reduce_scatter_tensor``/``all_gather_into_tensor``) or
-    ``"ring"`` (the chunked rings of ``kernels/collectives``).
+    ``"ring"`` (the chunked rings of ``kernels/collectives``).  A group
+    of one moves nothing: its shard is the buffer.
+
+    Full-step (StepProgram) ops, as the reference's ``execute``:
+      UPDATE — ``update_fn(op, g_shard) -> upd_shard`` runs the sharded
+        optimizer on the producing reduce-scatter's shard, cast to f32
+        with the dp mean, ``1/loss_scale`` and the clip scale applied;
+        the ALL_GATHER after it gathers updates (no mean, no unscale).
+      NORM — sums the squares of every producing RS shard (mean and loss
+        scale undone) and all-reduces the 0-d f32 sum on its chain; with
+        ``clip_norm > 0`` the dependent UPDATEs see their shards times
+        ``min(1, clip/(norm + 1e-9))``, computed on the device.  The norm
+        lands in ``aux["grad_norm"]`` when ``aux`` is given.
+      ``pending`` maps bucket_id → the update shard carried from the
+        previous step: an ALL_GATHER with no producer in the schedule (a
+        PRE program's) gathers it.  UPDATEs record their shards in
+        ``aux["update_shards"]`` (bucket_id-keyed) for the next step.
 
     Ops are issued in schedule order; each waits on its ``depends_on``
     before it is issued.  The fused path writes reduced values into the
-    gradient tensors in place; the returned tree holds the results.
+    gradient tensors in place; gathered updates go into new f32 tensors,
+    and a reduce-scatter that feeds an UPDATE lets its leaves go once
+    packed.  Each shard is released once its consumer has read it.  The
+    returned tree holds the results.
     """
     flat_out = tree_leaves(grads)
     if len(flat_out) != plan.num_leaves:
@@ -470,7 +673,8 @@ def execute(
     em = _OpEmitter(
         schedule, plan, reducer=reducer, groups=groups, mesh_shape=mesh_shape, mean_axes=mean_axes,
         use_fused_staging=use_fused_staging, loss_scale=loss_scale,
-        two_phase_impl=two_phase_impl)
+        two_phase_impl=two_phase_impl, update_fn=update_fn, clip_norm=clip_norm,
+        aux=aux, pending=pending)
     with streams:
         for op in schedule.ops:
             with streams.on(op.chain), torch.profiler.record_function(

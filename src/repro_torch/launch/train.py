@@ -19,6 +19,18 @@ config gets the mesh's DP axes and ``depcha_in_scan`` exactly when the
 strategy sums inside the backward (depcha), with ``--smoke`` too.
 ``--multi-pod`` lays the world out as two pods (``launch/mesh.py``),
 which the hierarchical reducers reduce in three stages.
+
+``--zero1`` shards the optimizer state over the dp ranks (the optimizer
+wrapped in ``optim.zero1``, the dp axes excluded from the sync):
+``--zero1-plan scheduled`` (per-bucket RS→UPDATE→AG in GradSync's
+StepProgram, clipped by its NORM op), ``deferred`` (the all-gathers at
+the next step's top) or ``monolithic`` (one bucket after the sync).
+``--microbatch M`` accumulates M microbatches a step into f32
+accumulators, the adds running inside each backward.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
+        --device cpu --strategy concom --zero1 --zero1-plan deferred \\
+        --microbatch 4 --steps 3 --seq 32 --batch 8
 """
 from __future__ import annotations
 
@@ -33,10 +45,9 @@ from repro_torch.core import GradSyncConfig, get_strategy, reducer_names, strate
 from repro_torch.data import ImagePipeline, TokenPipeline
 from repro_torch.launch.mesh import init_dist, make_dp_mesh
 from repro_torch.models.registry import family_of
-from repro_torch.optim import adamw, cosine_warmup, sgd
+from repro_torch.optim import adamw, cosine_warmup, sgd, zero1
 from repro_torch.parallel.sharding import dp_axes_of
 from repro_torch.runtime import Trainer, make_train_step
-from repro_torch.utils.trees import flatten_with_names
 
 
 IMAGE_FAMILIES = ("resnet", "inception")   # SGD over ImagePipeline
@@ -51,6 +62,17 @@ def main(argv=None):
     ap.add_argument("--channels", type=int, default=4)
     ap.add_argument("--bucket-mb", type=float, default=4.0)
     ap.add_argument("--clip-norm", type=float, default=1.0)
+    ap.add_argument("--zero1", action="store_true",
+                    help="shard the optimizer state over the dp ranks")
+    ap.add_argument("--zero1-plan", default="scheduled",
+                    choices=["scheduled", "deferred", "monolithic"],
+                    help="scheduled = StepProgram (per-bucket RS→UPDATE→AG "
+                         "planned by the strategy, clipped by the NORM op); "
+                         "deferred = its all-gathers at the next step's top, "
+                         "the update shards carried in opt_state; monolithic "
+                         "= one bucket after the sync, no clipping")
+    ap.add_argument("--microbatch", type=int, default=1,
+                    help="gradient-accumulation microbatches a step")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--batch", type=int, default=None,
                     help="global batch (default: 8 with --smoke, else the arch's shape)")
@@ -93,15 +115,22 @@ def main(argv=None):
             pipe = TokenPipeline(cfg.vocab, seq, batch, seed=args.seed, mesh=mesh,
                                  rank=rank, extra_specs=extras, device=args.device)
             opt = adamw(cosine_warmup(args.lr, 10, args.steps))
+        dp = dp_axes_of(mesh)
+        if args.zero1:
+            opt = zero1(opt, dp, int(np.prod([mesh.shape[a] for a in dp])))
         sync = GradSyncConfig(strategy=args.strategy, reducer=args.reducer,
                               bucket_bytes=int(args.bucket_mb * 1024 * 1024),
-                              num_channels=args.channels)
+                              num_channels=args.channels,
+                              exclude_axes=dp if args.zero1 else ())
         ts = make_train_step(cfg, mesh, sync, opt, model=model,
-                             clip_norm=args.clip_norm, device=args.device)
-        params = dict(flatten_with_names(model.params_tree())[0])
+                             clip_norm=args.clip_norm, zero1_mode=args.zero1,
+                             zero1_plan=args.zero1_plan, microbatch=args.microbatch,
+                             device=args.device)
         trainer = Trainer(ts, pipe, log_every=1,
                           printer=print if rank == 0 else (lambda _s: None))
-        _, _, hist = trainer.run(model, opt.init(params), args.steps)
+        model, opt_state, hist = trainer.run(model, ts.init_opt(), args.steps)
+        if ts.finalize is not None:
+            ts.finalize(model, opt_state)     # the last step's deferred updates
         ts.gradsync.close()
         if rank == 0:
             times = hist["step_times"]

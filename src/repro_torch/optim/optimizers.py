@@ -4,9 +4,10 @@
 SGD + momentum is the paper's optimizer (§2.1); AdamW for the LM archs.
 State is f32 whatever the param dtype, as in the reference.  ``update``
 returns the updates as new tensors; SGD's momentum is new tensors too,
-AdamW writes m and v into its state tensors in place (with the same
-elementwise ops in the same order, so each product and sum rounds as
-before) and returns the same state dicts.  ``apply_updates`` writes the
+AdamW writes m and v into its state tensors in place and computes the
+update in two buffers (with the same elementwise ops in the same order
+as the plain expressions, so each product and sum rounds as before) and
+returns the same state dicts.  ``apply_updates`` writes the
 params in place.
 """
 from __future__ import annotations
@@ -24,6 +25,8 @@ class Optimizer:
     init: Callable[[Tensors], dict]
     update: Callable[[Tensors, dict, Tensors, int], tuple[Tensors, dict]]
     # update(grads, state, params, step) -> (updates, new_state)
+    # (inner optimizer, dp size, dp axes) of a ``zero1`` wrapper, else None
+    zero1_meta: tuple | None = None
 
 
 def sgd(lr: Callable[[int], float] | float, momentum: float = 0.9,
@@ -73,10 +76,14 @@ def adamw(lr: Callable[[int], float] | float, b1: float = 0.9,
             torch.mul(torch.mul(g32, 1 - b2, out=tmp), g32, out=tmp)
             torch.add(torch.mul(v, b2, out=v), tmp, out=v)
             del tmp
-            mh = m / (1 - b1 ** t)
-            vh = v / (1 - b2 ** t)
-            updates[k] = -lr_t * (mh / (torch.sqrt(vh) + eps)
-                                  + weight_decay * params[k].to(torch.float32))
+            # -lr (m̂ / (sqrt(v̂) + eps) + wd p), in two buffers: the same
+            # ops in the same order as the expression
+            u = torch.div(m, 1 - b1 ** t)
+            w = torch.div(v, 1 - b2 ** t)
+            w.sqrt_().add_(eps)
+            u.div_(w)
+            torch.mul(params[k].to(torch.float32), weight_decay, out=w)
+            updates[k] = u.add_(w).mul_(-lr_t)
         return updates, state
 
     return Optimizer(init, update)

@@ -1,7 +1,7 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
-    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier|lm|inception]
-    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception>
+    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier|lm|inception|zero1]
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1>
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -50,6 +50,17 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               (weights from ``params.npz``, as ``grads``) through
               ``GradSync`` at each of ``LOSS_SCALES``, to
               ``loss-scale-<scale>_rank<r>.npz``.
+
+  zero1       (tests/test_torch_zero1_ranks.py) the reference's ZeRO-1
+              parity model (``ZERO1_CFG``) from ``workdir/zero1_params.npz``:
+              for each run of ``ZERO1_RUNS`` ``ZERO1_STEPS`` steps of
+              ``make_train_step`` through ``Trainer`` (SGD with momentum)
+              over the rank's slice of ``TokenPipeline``; the losses, grad
+              norms, final params (a deferred run's flushed by
+              ``finalize``), ``mem.state_bytes``, the params' bytes and
+              the dp plan's bucket sizes to ``zero1-<run>_rank<r>.npz``;
+              then whether ``make_train_step`` refuses zero1 with
+              depcha's in-backward sum at dp 4 (``zero1-in-scan_rank<r>.npz``).
 
 ``layer_sync_rank`` is one of 2 processes on ``cuda:0`` for
 tests/test_torch_cuda.py: depcha's in-backward slot staging and the
@@ -116,6 +127,30 @@ LM_RUNS = {
     "lm-depcha-compressed": ("depcha", "flat", None, "compressed", 1),
     "lm-depcha-compressed-pods": ("depcha", "hierarchical", (2, 2), "compressed", 1),
 }
+
+
+# the reference's ZeRO-1 parity model (tests/test_pipelined.py), f32
+ZERO1_CFG = dict(name="pipelined", n_layers=2, d_model=32, n_heads=4, kv_heads=2,
+                 d_ff=64, vocab=64, tp=1, attn_chunk=16)
+ZERO1_STEPS, ZERO1_SEQ, ZERO1_LR = 3, 16, 0.1
+# run -> (zero1 plan or None, strategy, reducer, clip, microbatch)
+ZERO1_RUNS = {
+    "flat": (None, "concom", "flat", 0.0, 1),
+    "scheduled": ("scheduled", "concom", "flat", 0.0, 1),
+    "scheduled-ring": ("scheduled", "concom", "ring", 0.0, 1),
+    "rsag-ring": ("scheduled", "rsag", "ring", 0.0, 1),
+    "deferred": ("deferred", "concom", "flat", 0.0, 1),
+    "monolithic": ("monolithic", "concom", "flat", 0.0, 1),
+    "scheduled-clip": ("scheduled", "concom", "flat", 0.05, 1),
+    "deferred-clip-m2": ("deferred", "concom", "flat", 0.05, 2),
+}
+
+
+def zero1_sync(strategy: str, reducer: str, zero1: bool) -> dict:
+    """GradSyncConfig's fields of a zero1 run, on both sides: several
+    buckets a channel at the model's size."""
+    return dict(strategy=strategy, reducer=reducer, num_channels=4, bucket_bytes=1 << 12,
+                exclude_axes=("data",) if zero1 else ())
 
 
 INCEPTION_STRATEGIES = ("funnel", "concom", "depcha")
@@ -391,6 +426,61 @@ def _inception(workdir: str, rank: int) -> None:
                  **{n: g.numpy() for n, g in flatten_with_names(reduced)[0]})
 
 
+def _zero1(workdir: str, rank: int) -> None:
+    import copy
+
+    import torch
+
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import Transformer, TransformerConfig
+    from repro_torch.optim import sgd, zero1
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names
+
+    named = dict(np.load(os.path.join(workdir, "zero1_params.npz")))
+    mesh = make_dp_mesh()
+    cfg = TransformerConfig(**ZERO1_CFG, dtype=torch.float32)
+    for run, (plan, strategy, reducer, clip, mb) in ZERO1_RUNS.items():
+        model = Transformer(cfg, params_from_numpy(named, "cpu"))
+        opt = sgd(ZERO1_LR, momentum=0.9)
+        if plan is not None:
+            opt = zero1(opt, ("data",), WORLD)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(**zero1_sync(strategy, reducer, plan)),
+                             opt, model=model, clip_norm=clip, zero1_mode=plan is not None,
+                             zero1_plan=plan or "scheduled", microbatch=mb, device="cpu")
+        pipe = TokenPipeline(cfg.vocab, ZERO1_SEQ, GLOBAL_BATCH, seed=7, mesh=mesh, rank=rank,
+                             device="cpu")
+        trainer = Trainer(ts, pipe, log_every=ZERO1_STEPS, printer=lambda _s: None)
+        model, state, hist = trainer.run(model, ts.init_opt(), ZERO1_STEPS)
+        if ts.finalize is not None:
+            model = ts.finalize(copy.deepcopy(model), copy.deepcopy(state))
+        params = flatten_with_names(model.params_tree())[0]
+        out = {f"param/{n}": p.detach().numpy() for n, p in params}
+        out.update({f"loss/{k}": np.float32(v) for k, v in enumerate(hist["losses"])})
+        out["grad_norm"] = np.float32(hist["metrics"]["grad_norm"])
+        out["state_bytes"] = np.int64(hist["metrics"]["mem.state_bytes"])
+        out["param_bytes"] = np.int64(sum(p.numel() * p.element_size() for _, p in params))
+        if ts.gradsync.dp_plan is not None:
+            out["bucket_sizes"] = np.array([b.size for b in ts.gradsync.dp_plan.buckets])
+        ts.gradsync.close()
+        np.savez(os.path.join(workdir, f"zero1-{run}_rank{rank}.npz"), **out)
+
+    # zero1 with depcha's in-backward sum at dp 4: the port refuses
+    model = Transformer(TransformerConfig(**ZERO1_CFG, dtype=torch.float32,
+                                          depcha_in_scan=True), params_from_numpy(named, "cpu"))
+    try:
+        make_train_step(model.cfg, mesh, GradSyncConfig(**zero1_sync("depcha", "flat", True)),
+                        zero1(sgd(ZERO1_LR), ("data",), WORLD), model=model, zero1_mode=True,
+                        device="cpu")
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    np.savez(os.path.join(workdir, f"zero1-in-scan_rank{rank}.npz"), refused=np.array(refused))
+
+
 def layer_sync_rank(rank: int, world: int, workdir: str, case: str) -> None:
     """One of ``world`` processes on ``cuda:0`` (gloo through pinned host
     memory) for tests/test_torch_cuda.py: the qwen3 smoke config in f32
@@ -618,6 +708,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _lm(workdir, rank)
         elif mode == "inception":
             _inception(workdir, rank)
+        elif mode == "zero1":
+            _zero1(workdir, rank)
         else:
             out = {"rings": _rings, "compressed": _compressed}[mode](workdir, rank)
             np.savez(os.path.join(workdir, f"{mode}_rank{rank}.npz"), **out)
@@ -684,9 +776,67 @@ def _inception_reference(workdir: str, mesh) -> dict:
     return out
 
 
+def _zero1_reference(workdir: str, mesh) -> dict:
+    """The JAX package's runs of ``ZERO1_RUNS`` on the 4 devices (a
+    deferred run as the reference's scheduled one: its own deferred step
+    misses its scheduled one at seed), and the update of one step of
+    zero1 with depcha's in-backward sum against zero1 under concom."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import GradSyncConfig
+    from repro.data import TokenPipeline
+    from repro.models import transformer as tf
+    from repro.optim import sgd, zero1
+    from repro.runtime import make_train_step
+    from repro.utils.trees import flatten_with_names
+
+    def setup(**over):
+        cfg = tf.TransformerConfig(**ZERO1_CFG, dtype=jnp.float32, **over)
+        return cfg, tf.init_params(jax.random.PRNGKey(0), cfg)
+
+    cfg, params = setup()
+    saved = np.load(os.path.join(workdir, "zero1_params.npz"))
+    for n, p in flatten_with_names(params)[0]:
+        np.testing.assert_array_equal(np.asarray(p), saved[n], err_msg=n)
+    pipe = TokenPipeline(cfg.vocab, ZERO1_SEQ, GLOBAL_BATCH, seed=7, mesh=mesh)
+
+    def make(cfg, params, plan, strategy, reducer, clip, mb):
+        opt = sgd(ZERO1_LR, momentum=0.9)
+        kw = {}
+        if plan is not None:
+            opt = zero1(opt, ("data",), WORLD)
+            kw = dict(zero1_mode=True, zero1_plan=plan)
+        return make_train_step(cfg, mesh, GradSyncConfig(**zero1_sync(strategy, reducer, plan)),
+                               opt, batch_like=pipe.batch_at(0), params_like=params,
+                               clip_norm=clip, microbatch=mb, **kw)
+
+    out = {}
+    for run, (plan, *rest) in ZERO1_RUNS.items():
+        ts = make(cfg, params, "scheduled" if plan == "deferred" else plan, *rest)
+        p, state = params, ts.init_opt()
+        for step in range(ZERO1_STEPS):
+            p, state, m = ts.fn(p, state, pipe.batch_at(step), jnp.int32(step))
+            out[f"{run}/loss/{step}"] = np.asarray(m["loss"])
+        out.update({f"{run}/param/{n}": np.asarray(v) for n, v in flatten_with_names(p)[0]})
+
+    # one step's update under depcha in-scan + zero1, over concom + zero1
+    steps = {}
+    for strategy, in_scan in (("concom", False), ("depcha", True)):
+        cfg_s, params_s = setup(depcha_in_scan=in_scan)
+        ts = make(cfg_s, params_s, "scheduled", strategy, "flat", 0.0, 1)
+        p, _, _ = ts.fn(params_s, ts.init_opt(), pipe.batch_at(0), jnp.int32(0))
+        steps[strategy] = {n: np.asarray(a) - np.asarray(b) for (n, a), (_, b) in
+                           zip(flatten_with_names(p)[0], flatten_with_names(params_s)[0])}
+    for n, d in steps["concom"].items():
+        out[f"in_scan_ratio/{n}"] = np.float64(
+            np.sum(steps["depcha"][n] * d, dtype=np.float64) / np.sum(d * d, dtype=np.float64))
+    return out
+
+
 def reference(workdir: str, mode: str) -> None:
     """The JAX package's rings, compressed allreduce, hierarchical
-    reducers or Inception steps on 4 fake devices."""
+    reducers, Inception steps or ZeRO-1 runs on 4 fake devices."""
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
     import repro  # noqa: F401  (applies the jaxcompat shim before jax imports)
     import jax
@@ -696,7 +846,7 @@ def reference(workdir: str, mode: str) -> None:
     from repro.core.compression import compressed_allreduce
     from repro.kernels.collectives import ops
 
-    inputs = ({} if mode == "inception"
+    inputs = ({} if mode in ("inception", "zero1")
               else dict(np.load(os.path.join(workdir, "inputs.npz"))))
     mesh4 = jax.make_mesh((WORLD,), ("data",), axis_types=(AxisType.Auto,))
     mesh22 = jax.make_mesh((2, 2), ("pair", "ring"),
@@ -710,9 +860,10 @@ def reference(workdir: str, mode: str) -> None:
         return np.asarray(run(x.reshape(-1))).reshape(WORLD, -1)
 
     out = {}
-    if mode == "inception":
-        out = _inception_reference(workdir, jax.make_mesh(
-            (WORLD, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2))
+    if mode in ("inception", "zero1"):
+        fn = _inception_reference if mode == "inception" else _zero1_reference
+        out = fn(workdir, jax.make_mesh((WORLD, 1), ("data", "model"),
+                                        axis_types=(AxisType.Auto,) * 2))
     elif mode == "hier":
         import jax.numpy as jnp
 

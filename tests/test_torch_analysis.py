@@ -1,11 +1,12 @@
 """The port's static verifier against the JAX package's: the six passes
 give the reference's exact findings (pass, code, message, ops and the
 witness's rendering) on all 24 mutations of its corpus, pass all 13 of
-its valid cases clean, and the port's own corpus, planning hook and CLI
-agree with it.  Tolerance: exact — the passes are pure functions of the
-IR.  The reference builds the schedules the port cannot plan yet (its
-ZeRO-1 and pipeline planners) and ``_from_reference`` carries them into
-the port's IR, torch dtypes and all.
+its valid cases clean, and the port's own corpus (22 mutations and 10
+valid cases, the ZeRO-1 ones built by the port's ``zero1_schedule``),
+planning hook and CLI agree with it.  Tolerance: exact — the passes are
+pure functions of the IR.  The reference builds the schedules the port
+cannot plan yet (its pipeline planner) and ``_from_reference`` carries
+them into the port's IR, torch dtypes and all.
 """
 import dataclasses
 import json
@@ -53,7 +54,7 @@ def _findings(report) -> list:
 
 def test_corpus_sizes():
     assert len(ref_mutations.MUTATIONS) == 24 and len(REF_VALID) == 13
-    assert len(mutations.MUTATIONS) == 15 and len(mutations.valid_cases()) == 6
+    assert len(mutations.MUTATIONS) == 22 and len(mutations.valid_cases()) == 10
     assert PASS_NAMES == ("deadlock", "spmd", "carry", "accounting", "donation",
                           "reshard")
 
@@ -213,8 +214,7 @@ def test_cli_matches_the_reference_on_every_cell_both_plan(tmp_path, capsys):
     for c in cells:
         r = ref_by[tuple(c[k] for k in key)]
         if c["status"] == "not_ported":
-            assert c["item"] == ("15b" if c["strategy"] == "auto" else "8")
-            assert c["zero1"] != "none" or c["accum"] > 1 or c["strategy"] == "auto"
+            assert (c["item"], c["strategy"]) == ("15b", "auto")
             continue
         assert c["status"] == r["status"], c
         if c["status"] == "rejected":
@@ -224,10 +224,10 @@ def test_cli_matches_the_reference_on_every_cell_both_plan(tmp_path, capsys):
         assert (c["ok"], c["num_ops"], c["findings"]) == (
             r["ok"], r["num_ops"], r["findings"]), c
     s = port["summary"]
-    assert both == s["planned"] == s["clean"] == 104
+    assert both == s["planned"] == s["clean"] == 624
     assert (s["rejected"], s["not_ported"], s["not_ported_by_item"]) == (
-        16, 744, {"8": 600, "15b": 144})
-    assert "104 planned (104 clean, 0 with findings)" in out
+        96, 144, {"15b": 144})
+    assert "624 planned (624 clean, 0 with findings)" in out
 
 
 def test_cli_module_entry_points(tmp_path):

@@ -5,7 +5,8 @@ peer-sum entry and the fused sum-requantize), the
 peer-memory ring reduce-scatter/all-gather (2 and 4 rank processes on
 ``cuda:0``, spawned through ``tests/_torch_mdworker.py::peer_rank``), and
 depcha's in-backward sync (2 rank processes,
-``tests/_torch_mdworker.py::layer_sync_rank``).
+``tests/_torch_mdworker.py::layer_sync_rank``), and the ZeRO-1 and
+gradient-accumulation steps against the CPU.
 
 This module imports neither ``jax`` nor ``repro``, so it runs on a
 machine with a GPU and no JAX; there ``tests/conftest.py`` (which imports
@@ -761,4 +762,98 @@ def test_cuda_inception_step_matches_cpu(cuda):
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
     for n, p in p_cpu.items():
         np.testing.assert_allclose(p_gpu[n].numpy(), p.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=n)
+
+
+def _zero1_lm_steps(device, plan, microbatch):
+    """Two steps of the reference's ZeRO-1 parity LM (2 layers, d 32, f32)
+    on ``device``: scheduled / deferred (flushed) / monolithic zero1, or
+    the plain step (``plan`` None), SGD with momentum, clip 0.05 (bound
+    at these weights), ``microbatch`` microbatches a step.  Returns the
+    losses, the grad norms, the params and the pack launches."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import init_dist, make_dp_mesh
+    from repro_torch.optim import sgd, zero1
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.trees import flatten_with_names, tree_map_with_names
+
+    init_dist("cpu")
+    cfg = tf.TransformerConfig(name="pipelined", n_layers=2, d_model=32, n_heads=4,
+                               kv_heads=2, d_ff=64, vocab=64, tp=1, attn_chunk=16,
+                               dtype=torch.float32)
+    mesh = make_dp_mesh()
+    # drawn on the CPU on both sides (a generator on the card draws others)
+    weights = tree_map_with_names(lambda _n, t: t.to(device),
+                                  tf.init_params(cfg, seed=0, device="cpu"))
+    model = tf.Transformer(cfg, weights)
+    opt = sgd(0.1, momentum=0.9)
+    if plan is not None:
+        opt = zero1(opt, ("data",), 1)
+    ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="concom", bucket_bytes=1 << 14),
+                         opt, model=model, clip_norm=0.05, zero1_mode=plan is not None,
+                         zero1_plan=plan or "scheduled", microbatch=microbatch,
+                         device=device)
+    pipe = TokenPipeline(64, 16, 4, seed=7, mesh=mesh, device=device)
+    state = ts.init_opt()
+    before = coll_kernel.PACK_LAUNCHES
+    losses, norms = [], []
+    # deterministic mode fills every new tensor with NaN: a read that
+    # outruns its writer on another chain's stream shows as a NaN
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for k in range(2):
+            model, state, m = ts.fn(model, state, pipe.batch_at(k), k)
+            losses.append(m["loss"].item())
+            norms.append(float(m["grad_norm"]))
+        if ts.finalize is not None:
+            ts.finalize(model, state)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    params = {n: p.detach().cpu() for n, p in flatten_with_names(model.params_tree())[0]}
+    return losses, norms, params, coll_kernel.PACK_LAUNCHES - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["scheduled", "deferred", "monolithic"])
+def test_cuda_zero1_step_matches_cpu(cuda, plan):
+    """The ZeRO-1 step on the card (rows 1-2 stage the gradients, the param
+    shards and the updates; the NORM and UPDATE on the chain streams)
+    against the CPU (plain versions): losses and grad norms within rtol
+    1e-5, params within rtol 1e-5 / atol 1e-6, TF32 off."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        l_cpu, g_cpu, p_cpu, k_cpu = _zero1_lm_steps("cpu", plan, 1)
+        l_gpu, g_gpu, p_gpu, k_gpu = _zero1_lm_steps("cuda", plan, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    assert k_cpu == 0 and k_gpu > 0
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    np.testing.assert_allclose(g_gpu, g_cpu, rtol=1e-5)
+    if plan != "monolithic":
+        assert g_gpu[0] > 0.05
+    for n, p in p_cpu.items():
+        np.testing.assert_allclose(p_gpu[n].numpy(), p.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, "scheduled"])
+def test_cuda_accumulation_step_matches_cpu(cuda, plan):
+    """Four microbatches a step on the card against the CPU (same
+    tolerances)."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        l_cpu, g_cpu, p_cpu, _ = _zero1_lm_steps("cpu", plan, 4)
+        l_gpu, g_gpu, p_gpu, _ = _zero1_lm_steps("cuda", plan, 4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    np.testing.assert_allclose(g_gpu, g_cpu, rtol=1e-5)
+    for n, p in p_cpu.items():
+        np.testing.assert_allclose(p_gpu[n].numpy(), p.numpy(), rtol=1e-5, atol=1e-6,
                                    err_msg=n)
