@@ -143,6 +143,34 @@ Phases, in order; any failure raises and exits non-zero:
               while planning (ResNet-50, Qwen3-1.7B depcha in-scan,
               Inception-BN; 1 and 8 ranks), and the port analyzer's
               cross-product summary: every planned cell clean.
+  lm_tp_kernels  rows 1-2 at the tensor-parallel layout, bit for bit
+              against their plain versions: every bucket of rank 0's
+              shards of Qwen3-1.7B at data 1 x model 4 (reduce sets
+              ("data",) and ("data", "model"), bf16 → f32) and each
+              layer's two depcha slots (bf16), a step's worth timed; row
+              3's pair kernel on the hops of the two-axis ring of data 2 x
+              model 2 (rings of 2 on each replicated bucket and its half).
+  lm_tp       tensor parallelism: four rank processes on the one card
+              (gloo, every collective staged through pinned host memory),
+              Qwen3-1.7B at full width on data 1 x model 4 (16/4 q heads,
+              8/4 kv heads sharded, ff 6144/4, vocab 151,936/4; seq 1024 x
+              batch 4, AdamW, clip 1, remat dots, bf16), funnel / concom /
+              depcha from the seeded weights (each rank draws the global
+              tree and keeps its shards), 1 warm-up + 2 timed steps: step
+              ms, tokens/s, peak GB a rank, the model-axis collectives a
+              step counted, sized and timed against ``lm_tp_collectives``,
+              pack/unpack launches = the schedule's (+ two slots a layer
+              under depcha), the replicated leaves bit-identical across
+              the ranks, the first loss and the first (global) grad norm
+              against lm_train's tp = 1 funnel (``LM_TP_FIRST_*_RTOL``),
+              one funnel step's stages by CUDA events.  Then the
+              reference's f32 ``mk_dense``, one step through
+              ``make_train_step`` with a binding clip (SGD at lr 0: its new
+              state is the clipped gradients), at data 1 x model 4 against
+              tp = 1 for every strategy and ring / compressed /
+              hierarchical, and at data 2 x model 2 under ring (row 3 on
+              the two-axis ring): loss, grad norm and clipped gradients at
+              compare_tp's tolerances.
   reducers    four rank processes spawned on the one card, each with all
               its compute on cuda:0 and gloo communicators staged through
               pinned host memory (NCCL refuses two ranks on one device;
@@ -959,10 +987,11 @@ def lm_run(strat: str, mesh, pipe, after=None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
-    collectives, losses = [], []
+    collectives, losses, norms = [], [], []
     for step in range(LM_STEPS):
         model, opt_state, hist = trainer.run(model, opt_state, step + 1, start_step=step)
         losses.append(hist["losses"][-1])
+        norms.append(hist["metrics"]["grad_norm"])
         collectives.append(ts.layer_sync.collectives if ts.layer_sync is not None else 0)
     launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
     per_step = len(ts.gradsync.schedule.ops) + (
@@ -975,7 +1004,8 @@ def lm_run(strat: str, mesh, pipe, after=None) -> dict:
         raise AssertionError(f"lm {strat}: in-backward collectives {collectives}, "
                              f"expected {want} a step")
     times = trainer.step_times
-    run = {"losses": losses, "first_step_ms": trainer.first_step_time * 1e3,
+    run = {"losses": losses, "grad_norms": norms,
+           "first_step_ms": trainer.first_step_time * 1e3,
            "step_ms": [t * 1e3 for t in times],
            "tokens_per_s": [pipe.global_batch * LM_SEQ / t for t in times],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1572,6 +1602,374 @@ ZERO1_RANK_RUNS = (("flat", None, "concom", "flat", 1.0),
                    ("deferred", "deferred", "concom", "flat", 1.0),
                    ("scheduled_noclip", "scheduled", "concom", "flat", 0.0),
                    ("monolithic", "monolithic", "concom", "flat", 0.0))
+
+
+# ------------------------------------------------- tensor parallelism (LM)
+
+LM_TP = 4                      # the model axis of lm_tp: 4 rank processes on the card
+# lm_tp's first loss and first (global) grad norm against lm_train's funnel
+# (tp = 1, the same seeded weights and batch), bf16 at full width
+LM_TP_FIRST_LOSS_RTOL = 5e-4
+LM_TP_FIRST_NORM_RTOL = 5e-3
+# the f32 mk_dense equivalence on the card: compare_tp's (loss, gradient)
+# tolerances (tests/_mdworker.py), and the reducers it runs
+TP_EQ_TOL = {"compressed": (5e-2, 0.35), "ring": (3e-4, 5e-3)}
+TP_EQ_REDUCERS = ("ring", "compressed", "hierarchical")
+
+
+class _CountingDep:
+    """``core.dependency`` as ``models/common.py`` sees it, counting the
+    model-axis collectives (each ``collective`` call: its bytes, and its
+    host time, the gloo staging being synchronous)."""
+
+    def __init__(self, dep):
+        self._dep = dep
+        self.calls, self.bytes, self.ms = 0, 0, 0.0
+
+    def collective(self, fn, group, out, *ins):
+        t0 = time.perf_counter()
+        work = self._dep.collective(fn, group, out, *ins)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self.calls += 1
+        self.bytes += out.numel() * out.element_size()
+        return work
+
+    def __getattr__(self, name):
+        return getattr(self._dep, name)
+
+
+def lm_tp_collectives(cfg, tokens: int) -> dict:
+    """The model-axis collectives of one training step of a tp > 1
+    transformer, counted from the code: in the forward the embedding's
+    psum, two a layer (after wo and after wdown) and three in the
+    cross-entropy (the pmax, the psums of the exponentials' sum and of
+    the true logit); in the backward each psum's transpose (the pmax has
+    none); and the remat's recompute of each layer's first (after wo:
+    its sum feeds the second norm, whose input the backward needs; the
+    recompute stops there, non-reentrant checkpoint's early stop, so the
+    last psum is not made again).  Bytes: the (tokens, d) activations in
+    the model dtype, (tokens,) f32 in the cross-entropy."""
+    L = cfg.n_layers
+    recompute = L if cfg.remat in ("dots", "full") else 0
+    act = tokens * cfg.d_model * cfg.dtype.itemsize
+    calls = {"forward": 1 + 2 * L + 3, "backward": 1 + 2 * L + 2, "remat": recompute}
+    nbytes = {"forward": (1 + 2 * L) * act + 3 * tokens * 4,
+              "backward": (1 + 2 * L) * act + 2 * tokens * 4, "remat": recompute * act}
+    return {"calls": calls, "bytes": nbytes, "calls_per_step": sum(calls.values()),
+            "bytes_per_step": sum(nbytes.values())}
+
+
+def _tp_equivalence(rank: int, say) -> dict:
+    """The reference's f32 ``mk_dense`` (tests/_mdworker.py: 2 layers, d 64,
+    8/2 heads, ff 128, vocab 96) on the card, one step through
+    ``make_train_step``: at data 1 x model 4 for every registered strategy
+    (flat) and for ring, compressed and hierarchical, then at data 2 x
+    model 2 under ring (its replicated leaves' ring over ("data",
+    "model") a ring an axis, row 3 on every hop).  The optimizer is SGD
+    at learning rate 0 without momentum, whose new state is the step's
+    gradients as the optimizer sees them (divided by tp, synced, clipped),
+    and the clip binds (half the tp = 1 norm).  Each rank's loss, its
+    grad norm and its clipped gradient shards are held against the tp = 1
+    model on the full batch with the plain clip, at compare_tp's
+    tolerances (the norm at the gradients')."""
+    from repro_torch.core import GradSyncConfig, get_strategy, strategy_names
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import sgd
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    def cfg_at(tp, **over):
+        return tf.TransformerConfig(name="dense", n_layers=2, d_model=64, n_heads=8,
+                                    kv_heads=2, d_ff=128, vocab=96, attn_chunk=16, tp=tp,
+                                    dtype=torch.float32, **over)
+
+    seq, batch = 32, 4
+    full = tf.init_params(cfg_at(1), seed=1, device="cuda")
+    # tp = 1 on the whole batch, the plain clip: the oracle, on every rank alike
+    tree = {n: p.clone().requires_grad_(True) for n, p in flatten_with_names(full)[0]}
+    one = tree_unflatten(flatten_with_names(full)[1], list(tree.values()))
+    want_loss = tf.train_forward(one, TokenPipeline(96, seq, batch, seed=3, device="cuda")
+                                 .batch_at(0), cfg_at(1))
+    want_loss.backward()
+    want_norm = math.sqrt(sum(float(torch.sum(p.grad.double() ** 2)) for p in tree.values()))
+    clip = want_norm / 2
+    want = {n: p.grad * (clip / want_norm) for n, p in tree.items()}
+    out = {"tp1_grad_norm": want_norm, "clip_norm": clip, "cases": {}}
+    cases = [(st, "flat") for st in strategy_names()] + [("concom", r) for r in TP_EQ_REDUCERS]
+    for data, model, runs in ((1, LM_TP, cases), (2, LM_TP // 2, [("concom", "ring")])):
+        mesh = make_smoke_mesh(data, model)
+        pipe = TokenPipeline(96, seq, batch, seed=3, mesh=mesh, rank=rank, device="cuda")
+        for strategy, reducer in runs:
+            cfg = cfg_at(model, depcha_in_scan=get_strategy(strategy).uses_in_scan)
+            specs = tf.param_specs(full, cfg)
+            local, treedef = flatten_with_names(shard_tree(full, specs, mesh, rank))
+            net = tf.Transformer(cfg, tree_unflatten(treedef, [p.clone() for _, p in local]))
+            opt = sgd(0.0, momentum=0.0)
+            ts = make_train_step(cfg, mesh, GradSyncConfig(
+                strategy=strategy, reducer=reducer, bucket_bytes=1 << 12, num_channels=3),
+                opt, model=net, clip_norm=clip, device="cuda")
+            accum0 = ck.ACCUM_LAUNCHES
+            int80 = (qk.QUANTIZE_LAUNCHES, qk.SUM_QUANTIZE_LAUNCHES, qk.DEQUANTIZE_LAUNCHES)
+            _, state, metrics = ts.fn(net, ts.init_opt(), pipe.batch_at(0), 0)
+            torch.cuda.synchronize()
+            accum = ck.ACCUM_LAUNCHES - accum0
+            int8 = [a - b for a, b in zip((qk.QUANTIZE_LAUNCHES, qk.SUM_QUANTIZE_LAUNCHES,
+                                           qk.DEQUANTIZE_LAUNCHES), int80)]
+            got = state["mom"]               # the clipped gradients the update saw
+            tol, grad_tol = TP_EQ_TOL.get(reducer, (3e-4, 2e-3))
+            dloss = abs(float(metrics["loss"]) - want_loss.item())
+            dnorm = abs(float(metrics["grad_norm"]) - want_norm) / want_norm
+            cut = dict(flatten_with_names(shard_tree(want, specs, mesh, rank))[0])
+            worst = max(((got[n] - cut[n]).abs().max() / (want[n].abs().max() + 1e-8)).item()
+                        for n in got)
+            if dloss >= tol or dnorm >= grad_tol or worst >= grad_tol:
+                raise AssertionError(f"tp equivalence {strategy}/{reducer} at {data}x{model}: "
+                                     f"dloss {dloss} (< {tol}), grad norm {dnorm} and "
+                                     f"clipped grads {worst} (< {grad_tol})")
+            if reducer == "ring" and accum == 0:
+                raise AssertionError(f"ring at {data}x{model}: no ring_accum launch")
+            if reducer == "compressed" and 0 in int8:
+                raise AssertionError(f"compressed at {data}x{model}: int8 launches {int8}")
+            out["cases"][f"{strategy}/{reducer}@{data}x{model}"] = {
+                "dloss": dloss, "grad_norm_rel": dnorm, "clipped_grad_rel": worst,
+                "accum_launches": accum, "quantize_launches": int8[0],
+                "sum_quantize_launches": int8[1], "dequantize_launches": int8[2]}
+            ts.gradsync.close()
+            del ts, net, state
+    say(f"[lm_tp] f32 mk_dense on the card through make_train_step, tp > 1 against "
+        f"tp = 1 (compare_tp's tolerances): " + json.dumps(out))
+    return out
+
+
+def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
+    """One rank of ``phase_lm_tp``: Qwen3-1.7B at full width on data 1 x
+    model ``LM_TP`` (seq 1024 x global batch 4, AdamW, clip 1.0, remat
+    dots, bf16), each of funnel, concom and depcha (in-backward) from
+    the seeded weights (each rank draws the global tree and keeps its
+    shards), 1 warm-up + 2 timed steps; the model-axis collectives of
+    each step counted and timed (``_CountingDep``) against
+    ``lm_tp_collectives``; pack/unpack launches against the schedule
+    (plus depcha's two slots a layer); the replicated leaves
+    bit-identical across the ranks after every run; the first loss and
+    the first grad norm (the global one the clip uses) against
+    lm_train's tp = 1 funnel's (``tp1``: (loss, norm)); one more funnel
+    step with CUDA events around its stages.  Then the f32 equivalence
+    (``_tp_equivalence``).  Results to ``workdir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import init_dist, make_mesh
+    from repro_torch.models import common
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store", rank=rank,
+              world_size=LM_TP, timeout=datetime.timedelta(seconds=600))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda _m: None)
+    host = dist.new_group(backend="gloo")
+    mesh = make_mesh(LM_TP)
+    pipe = TokenPipeline(lm_config().vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh, rank=rank,
+                         device="cuda")
+    counting = _CountingDep(common.dep)
+    common.dep = counting
+    out = {"runs": {}}
+    try:
+        for strat in STRATEGIES:
+            cfg = dataclasses.replace(lm_config(strat), tp=LM_TP)
+            model = Transformer(cfg, init_params(cfg, seed=0, device="cuda", mesh=mesh,
+                                                 rank=rank))
+            opt = adamw(cosine_warmup(3e-4, 10, 100))
+            ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
+                                 clip_norm=1.0, device="cuda")
+            named = flatten_with_names(model.params_tree())[0]
+            opt_state = opt.init(dict(named))
+            trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+            losses, norms, calls, nbytes, coll_ms = [], [], [], [], []
+            for step in range(LM_STEPS):
+                c0, b0, m0 = counting.calls, counting.bytes, counting.ms
+                model, opt_state, hist = trainer.run(model, opt_state, step + 1,
+                                                     start_step=step)
+                losses.append(hist["losses"][-1])
+                norms.append(hist["metrics"]["grad_norm"])
+                calls.append(counting.calls - c0)
+                nbytes.append(counting.bytes - b0)
+                coll_ms.append(counting.ms - m0)
+            predicted = lm_tp_collectives(cfg, LM_SEQ * LM_BATCH)
+            if calls != [predicted["calls_per_step"]] * LM_STEPS or \
+                    nbytes != [predicted["bytes_per_step"]] * LM_STEPS:
+                raise AssertionError(f"lm_tp {strat}: model-axis collectives {calls} "
+                                     f"({nbytes} B), predicted {predicted}")
+            slots = (cfg.n_layers * len(ts.layer_sync.buckets)
+                     if ts.layer_sync is not None else 0)
+            per_step = len(ts.gradsync.schedule.ops) + slots
+            launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
+            if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
+                raise AssertionError(f"lm_tp {strat}: launches {launches}, expected "
+                                     f"{per_step} a step x {LM_STEPS}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"lm_tp {strat}: non-finite loss {losses}")
+            rep = [p for n, p in named if n not in ts.gradsync.model_sharded]
+            _same_on_every_rank(rep, f"lm_tp {strat} replicated leaves", host)
+            times = trainer.step_times
+            run = {"losses": losses, "grad_norms": norms,
+                   "first_step_ms": trainer.first_step_time * 1e3,
+                   "step_ms": [t * 1e3 for t in times],
+                   "tokens_per_s": [pipe.global_batch * LM_SEQ / t for t in times],
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": launches, "launches_per_step": per_step,
+                   "buckets": len(ts.gradsync.schedule.ops), "slots_per_step": slots,
+                   "model_collectives_per_step": calls, "model_collective_bytes": nbytes,
+                   "model_collective_host_ms": coll_ms, "predicted": predicted,
+                   "replicated_leaves": len(rep)}
+            if strat == "funnel":
+                run["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
+            out["runs"][strat] = run
+            say(f"[lm_tp] {strat}: " + json.dumps(run))
+            del ts, model, opt_state, trainer, named, rep
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        common.dep = counting._dep
+    if tp1 is not None:
+        for i, (what, key, rtol) in enumerate((
+                ("loss", "losses", LM_TP_FIRST_LOSS_RTOL),
+                ("grad_norm", "grad_norms", LM_TP_FIRST_NORM_RTOL))):
+            first = [r[key][0] for r in out["runs"].values()]
+            worst = max(abs(x - tp1[i]) / abs(tp1[i]) for x in first)
+            out[f"first_{what}_vs_tp1"] = {"tp1": tp1[i], "tp": first, "max_rel": worst,
+                                           "rtol": rtol}
+            if worst > rtol:
+                raise AssertionError(f"lm_tp first {what} {first} vs tp = 1 {tp1[i]}: "
+                                     f"rel {worst} > {rtol}")
+    out["equivalence"] = _tp_equivalence(rank, say)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_lm_tp(tp1=None, backend: str = "gloo") -> dict:
+    """Tensor parallelism on the card: ``LM_TP`` rank processes (with gloo,
+    as ``main`` runs it, all on the one card, every collective staged
+    through pinned host memory, since NCCL refuses two ranks on one
+    device; ``backend="nccl"`` needs ``LM_TP`` cards, one a rank), each
+    running ``_lm_tp_rank``.  ``tp1``: lm_train's first funnel loss and
+    grad norm (tp = 1, the same seeded weights and batch)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    log(f"[lm_tp] {backend} on {cards}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lm-tp-") as wd:
+        mp.spawn(_lm_tp_rank, args=(wd, backend, tp1), nprocs=LM_TP, join=True)
+        with open(os.path.join(wd, "rank0.json")) as f:
+            res = json.load(f)
+    res["wall_s"] = time.perf_counter() - t0
+    res["cards"] = cards
+    res["transport"] = (
+        f"gloo over pinned host memory, {LM_TP} processes on one card: the model-axis "
+        f"psums and the sync's all-reduces are host copies, not a wire" if backend == "gloo"
+        else f"{backend}, {LM_TP} processes on {torch.cuda.device_count()} cards")
+    log("[lm_tp] " + json.dumps({k: v for k, v in res.items() if k != "runs"}))
+    return res
+
+
+def lm_tp_plan():
+    """Rank 0's post-backward bucket plan of Qwen3-1.7B at data 1 x model
+    ``LM_TP`` (its shards' shapes; 4 MiB buckets, 4 channels, f32 comm)
+    and its depcha syncer's slots (the model-sharded leaves' and the
+    replicated leaves'), on ``meta``."""
+    from repro_torch.core import make_bucket_plan
+    from repro_torch.core.overlap import LayerSync
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import _depcha_axes, init_params, param_specs
+    from repro_torch.parallel.sharding import localize_structs
+    from repro_torch.utils.trees import flatten_with_names
+
+    mesh = make_smoke_mesh(1, LM_TP)
+    cfg = dataclasses.replace(lm_config("depcha"), tp=LM_TP)
+    full = init_params(cfg, device="meta")
+    local = localize_structs(full, param_specs(full, cfg), mesh)
+    plan = make_bucket_plan(local, param_specs(local, cfg), mesh,
+                            bucket_bytes=4 * 1024 * 1024, num_channels=4)
+    axes = _depcha_axes(cfg, local["blocks"], "blocks/")
+    return plan, flatten_with_names(local)[0], local["blocks"], axes, cfg
+
+
+def phase_lm_tp_kernels() -> dict:
+    """Rows 1-2 at the tp layout, bit for bit against their plain versions
+    (outputs started as NaN): every bucket of rank 0's post-backward plan
+    at data 1 x model 4 (two reduce sets: ("data",) for the model-sharded
+    leaves, ("data", "model") for the replicated ones; bf16 leaves, f32
+    comm) and each layer's two depcha slots (bf16, a bit copy); one step's
+    worth of each timed.  Row 3 at the two-axis ring of data 2 x model 2:
+    the pair kernel on the hops of the replicated buckets' ring, the
+    "data" ring's on the whole bucket and the "model" ring's on its half,
+    against torch.add."""
+    from repro_torch.kernels.collectives import kernel
+
+    plan, named, blocks_meta, axes, cfg = lm_tp_plan()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flat = [torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype) for _, p in named]
+    f32 = torch.float32
+    err, n_checks = 0.0, 0
+    sets = sorted({b.reduce_axes for b in plan.buckets})
+    for b in plan.buckets:
+        before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+        err = max(err, check_bucket(b, flat, f32, 1.0))
+        if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (1, 1):
+            raise AssertionError(f"tp bucket {b.bucket_id}: expected 1 pack and 1 unpack launch")
+        n_checks += 1
+    from repro_torch.core.buckets import Bucket, LeafInfo
+    from repro_torch.utils.trees import flatten_with_names
+
+    stack = flatten_with_names(blocks_meta)[0]
+    blocks = {n[len("blocks/"):]: t for (n, _), t in zip(named, flat) if n.startswith("blocks/")}
+    groups: dict = {}
+    for j, ((n, w), ax) in enumerate(zip(stack, axes)):
+        groups.setdefault((tuple(ax), w.dtype), []).append(j)
+    slots = [Bucket(tuple(LeafInfo(stack[j][0], j, tuple(stack[j][1].shape[1:]), dt,
+                                   stack[j][1][0].numel()) for j in idx), ax, 0, k)
+             for k, ((ax, dt), idx) in enumerate(groups.items())]
+    rows = [[blocks[n][li] for n, _ in stack] for li in range(cfg.n_layers)]
+    for slot in slots:
+        for li in range(cfg.n_layers):
+            err = max(err, check_bucket(slot, rows[li], cfg.dtype, 1.0))
+            n_checks += 1
+    # the two-axis ring at data 2 x model 2 (a bucket padded to 4 chunks):
+    # the "data" ring of 2 on the bucket, the "model" ring of 2 on its half
+    replicated = [-(-b.size // 4) * 4 for b in plan.buckets if "model" in b.reduce_axes]
+    hops = check_accum_pairs(replicated + [n // 2 for n in replicated],
+                             torch.Generator(device="cuda").manual_seed(1), g=2)
+    torch.cuda.synchronize()
+    out = {"post_backward": time_staging([(b, flat) for b in plan.buckets], f32),
+           "slots": time_staging([(s, r) for s in slots for r in rows], cfg.dtype),
+           "max_abs_err": err, "checks": n_checks, "accum_pair_checks": hops,
+           "buckets": {str(ax): sum(1 for b in plan.buckets if b.reduce_axes == ax)
+                       for ax in sets},
+           "slot_sizes": [s.size for s in slots]}
+    log(f"[lm_tp_kernels] {n_checks} checks bit-exact (max abs err {err}): "
+        f"{len(plan.buckets)} buckets of rank 0's tp={LM_TP} shards over {sets} and "
+        f"{len(slots)} slots a layer; {hops} ring-hop pair checks; " + json.dumps(out))
+    return out
 
 
 def _zero1_rank(rank: int, workdir: str, backend: str) -> None:
@@ -2637,32 +3035,33 @@ def dequantize_step(recv, gathered) -> dict:
     return row
 
 
-def ring_step_hops(sizes, gen, dtype=torch.float32) -> list:
-    """One rank's ring reduce-scatter combines over a step, as the ring
-    forms them: per bucket (padded to RING · c) and hop, the received
+def ring_step_hops(sizes, gen, dtype=torch.float32, g: int = RING) -> list:
+    """One rank's ring reduce-scatter combines over a step, as a ring of
+    ``g`` forms them: per bucket (padded to g · c) and hop, the received
     messages of the two half-chunks and this rank's own rows of
     ``x2d[:, :h]`` and ``x2d[:, h:]`` (one pair when h = 0)."""
     from repro_torch.kernels.collectives import ref as cr
 
     hops = []
     for n in sizes:
-        c = -(-n // RING)
-        x2d = torch.randn(RING * c, generator=gen, device="cuda").to(dtype).view(RING, c)
+        c = -(-n // g)
+        x2d = torch.randn(g * c, generator=gen, device="cuda").to(dtype).view(g, c)
         rings = cr._rings(x2d, True)
-        for s in range(1, RING):
-            own = [part[(0 - sgn * (s + 1)) % RING] for part, sgn in rings]
+        for s in range(1, g):
+            own = [part[(0 - sgn * (s + 1)) % g] for part, sgn in rings]
             hops.append(([torch.randn(o.numel(), generator=gen, device="cuda").to(dtype)
                           for o in own], own))
     return hops
 
 
-def check_accum_pairs(sizes, gen) -> int:
-    """The pair kernel against torch.add, bit for bit, one launch a call."""
+def check_accum_pairs(sizes, gen, g: int = RING) -> int:
+    """The pair kernel against torch.add, bit for bit, one launch a call
+    (the hops of a ring of ``g`` over ``sizes``)."""
     from repro_torch.kernels.collectives import kernel as ck
 
     cases = []
     for dt in ACCUM_DTYPES:
-        cases += ring_step_hops(sizes, gen, dt)[::RING - 1]      # a hop a bucket
+        cases += ring_step_hops(sizes, gen, dt, g)[::g - 1]      # a hop a bucket
         cases.append(([torch.randn(1, generator=gen, device="cuda").to(dt)],
                       [torch.randn(RING, generator=gen, device="cuda").to(dt)[1:2]]))
         x = torch.randn(9 * 4099, generator=gen, device="cuda").to(dt)
@@ -2718,6 +3117,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
 
     from repro_torch.configs.resnet50_cifar import make_config
     from repro_torch.core import GradSyncConfig
+    from repro_torch.core import dependency as dep
     from repro_torch.data import ImagePipeline
     from repro_torch.kernels.collectives import kernel as ck
     from repro_torch.kernels.collectives import ops as co
@@ -2819,7 +3219,8 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
     # one captured bucket: the ring with the kernel against the plain add
     bucket, inp, _ = max(captured["ring"].values(), key=lambda c: c[1].numel())
     group = dist.group.WORLD
-    with_kernel = co.ring_allreduce(inp.clone(), bucket.reduce_axes, mesh.shape, group)
+    comms = dep.mesh_comms([0], [bucket.reduce_axes], mesh, inp.device)[0]
+    with_kernel = co.ring_allreduce(inp.clone(), bucket.reduce_axes, mesh.shape, comms)
     buf = F.pad(inp, (0, (-inp.numel()) % RING))
     plain = cr.ring_all_gather_ref(
         cr.ring_reduce_scatter_ref(buf, group, accum=cr.ring_accum_pairs_ref), group)
@@ -2992,7 +3393,7 @@ def _peer_kernel_checks(sizes, layout, gen, say) -> dict:
     from repro_torch.kernels.collectives import ref as cr
 
     pods, data = layout
-    comms = dep.pod_comms({0: dist.group.WORLD, 1: dist.group.WORLD}, pods, data,
+    comms = dep.pod_comms([0, 1], pods, data,
                           torch.device("cuda"))
     lengths = [-(-n // data) * data for n in sizes] + [data, data * 131071]
     slot = max(lengths) // data * 4
@@ -3089,7 +3490,7 @@ def _peer_host_ms(sizes, layout, gen, host, reps: int = 5) -> dict:
     from repro_torch.kernels.collectives import kernel as ck
 
     pods, data = layout
-    comm = dep.pod_comms({0: dist.group.WORLD}, pods, data, torch.device("cuda"))[0]
+    comm = dep.pod_comms([0], pods, data, torch.device("cuda"))[0]
     xs = [torch.randn(-(-n // data) * data, generator=gen, device="cuda") for n in sizes]
     shards = [torch.randn(x.numel() // data, generator=gen, device="cuda") for x in xs]
     ring = ck.PeerRing(comm.intra, max(x.numel() for x in xs) // data * 4, chain=0)
@@ -3126,7 +3527,7 @@ def _peer_timing(sizes, layout, gen, host, backend: str) -> dict:
     from repro_torch.kernels.collectives import ref as cr
 
     pods, data = layout
-    comm = dep.pod_comms({0: dist.group.WORLD}, pods, data, torch.device("cuda"))[0]
+    comm = dep.pod_comms([0], pods, data, torch.device("cuda"))[0]
     xs = [torch.randn(-(-n // data) * data, generator=gen, device="cuda") for n in sizes]
     shards = [torch.randn(x.numel() // data, generator=gen, device="cuda") for x in xs]
     ring = ck.PeerRing(comm.intra, max(x.numel() for x in xs) // data * 4, chain=0)
@@ -3316,7 +3717,7 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
             from repro_torch.core.hierarchical import hierarchical_allreduce
 
             bucket, inp, _ = max(captured.values(), key=lambda c: c[1].numel())
-            comm = ts.gradsync.groups[0]
+            comm = ts.gradsync.groups[0].pod
             with_kernels = hierarchical_allreduce(inp.clone(), comm, use_ring=True)
             same_bits(with_kernels, _plain_hier(inp.clone(), comm),
                       f"hierarchical_ring of bucket {bucket.bucket_id}: kernels vs plain")
@@ -4690,10 +5091,15 @@ def main() -> int:
         inception = phase_inception()
         phase_inception_cpu_vs_gpu()
         phase_verify()
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_tp_rows = phase_lm_tp_kernels()
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    lm_tp = phase_lm_tp((lm["runs"]["funnel"]["losses"][0],
+                         lm["runs"]["funnel"]["grad_norms"][0]))
     reducers = phase_reducers()
     zero1 = phase_zero1()
     hier = phase_hierarchical()
@@ -4715,14 +5121,16 @@ def main() -> int:
         by_path = {"train": train["launches"][name], "lm_train": lm["launches"][name],
                    "inception": inception["launches"][name],
                    "lm_zero1": lm_zero1["launches"][name],
-                   "zero1": sum(r["launches"][name] for r in zero1["runs"].values())}
+                   "zero1": sum(r["launches"][name] for r in zero1["runs"].values()),
+                   "lm_tp": sum(r["launches"][name] for r in lm_tp["runs"].values())}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "launches_per_step": 24, **r,
             # every layout's check: ResNet-50's, the LM's, Inception's, lm_zero1's
             "max_abs_err": max(r["max_abs_err"], lm_rows["max_abs_err"],
-                               inception_rows["max_abs_err"], lm_zero1_rows["max_abs_err"]),
+                               inception_rows["max_abs_err"], lm_zero1_rows["max_abs_err"],
+                               lm_tp_rows["max_abs_err"]),
             "layouts_built_in_train": train["layouts_built"],   # shared by both
             # the LM's layouts: the post-backward buckets (bf16 leaves, f32
             # comm) and depcha's in-backward slots, one step's worth each
@@ -4745,7 +5153,15 @@ def main() -> int:
                          "checks": lm_zero1_rows["checks"],
                          "monolithic_elements": lm_zero1_rows["monolithic_elements"],
                          "dp_step": lm_zero1_rows["step"][name]},
-            "zero1": {"launches": {k: v["launches"] for k, v in zero1["runs"].items()}}})
+            "zero1": {"launches": {k: v["launches"] for k, v in zero1["runs"].items()}},
+            # tensor parallelism: rank 0's shards at data 1 x model 4 (two
+            # reduce sets) and depcha's two slots a layer
+            "lm_tp": {"launches_per_step": {k: v["launches_per_step"]
+                                            for k, v in lm_tp["runs"].items()},
+                      "max_abs_err": lm_tp_rows["max_abs_err"],
+                      "checks": lm_tp_rows["checks"], "buckets": lm_tp_rows["buckets"],
+                      "post_backward": lm_tp_rows["post_backward"][name],
+                      "slots": lm_tp_rows["slots"][name]}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4796,20 +5212,30 @@ def main() -> int:
         if counter == "accum":       # the zero1 reduce-scatters on the ring
             by_run.update({f"zero1 {k}": run["launches"]["accum"]
                            for k, run in zero1["runs"].items()})
+        # tensor parallelism's f32 equivalence (rank 0's): the rings over
+        # "model" at 1 x 4 and over ("data", "model") at 2 x 2, the int8
+        # kernels of compressed over the world at 1 x 4
+        by_run.update({f"lm_tp {k}": v[f"{counter}_launches"]
+                       for k, v in lm_tp["equivalence"]["cases"].items()
+                       if f"{counter}_launches" in v})
         kernels.append({
             "name": name, "row": row, "route": "cuda", "source": RING_QUANT_SOURCES[name],
             "replaces": RING_QUANT_REPLACES[name],
             "launches": sum(by_run.values()), "launches_by_run": by_run, **r})
-    kernels[-3].update(entry_of="quantize_blocks_kernel",
-                       also_replaces="src/repro/core/compression.py:79-89 (phases 2 and 3)",
-                       main_path_step=ring_quant["quantize_step"])
-    kernels[-1].update(entry_of="dequantize_blocks_kernel",
-                       also_replaces="src/repro/core/compression.py:79 (phase 2's sum)",
-                       main_path=False,
-                       off_main_path="the fused entry runs phases 2-3 of the compressed "
-                                     "reducers: 0 launches in the reducers runs",
-                       check_launches=ring_quant["peer_sum_check_launches"],
-                       peer_sum_path_step=ring_quant["dequantize_step"])
+    by_name = {k["name"]: k for k in kernels}
+    by_name["ring_accum_kernel"].update(lm_tp_pair_checks=lm_tp_rows["accum_pair_checks"])
+    by_name["dequantize_sum_quantize_blocks_kernel"].update(
+        entry_of="quantize_blocks_kernel",
+        also_replaces="src/repro/core/compression.py:79-89 (phases 2 and 3)",
+        main_path_step=ring_quant["quantize_step"])
+    by_name["dequantize_sum_blocks_kernel"].update(
+        entry_of="dequantize_blocks_kernel",
+        also_replaces="src/repro/core/compression.py:79 (phase 2's sum)",
+        main_path=False,
+        off_main_path="the fused entry runs phases 2-3 of the compressed "
+                      "reducers: 0 launches in the reducers runs",
+        check_launches=ring_quant["peer_sum_check_launches"],
+        peer_sum_path_step=ring_quant["dequantize_step"])
     hier_runs = {k: v for k, v in hier["runs"].items() if "hierarchical_ring" in k}
     for name, counter in (("ring_reduce_scatter_kernel", "rs"),
                           ("ring_all_gather_kernel", "ag")):

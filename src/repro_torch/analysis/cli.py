@@ -16,8 +16,10 @@ reference's cell does.  Cells the port cannot plan yet are counted as
 not ported, with the ROADMAP queue 1 item that brings it — never as
 clean: the ``auto`` strategy, item 15b (the simulator).
 
-Every dp2×tp4 cell plans (the "model" axis only shapes the reduce sets);
-running one needs a communicator per axis, item 9.
+Every dp2×tp4 cell plans (the "model" axis only shapes the reduce sets).
+To run one, ``GradSync`` gives each chain a communicator per reduce set
+(``core/dependency.py::mesh_comms``); tests/test_torch_tp.py runs the
+same schedules at data 2 × model 2 and data 1 × model 4 on 4 gloo ranks.
 
 Exit code 0 iff every planned cell is clean.  ``--json PATH`` writes
 the machine-readable report there (nowhere by default).
@@ -34,7 +36,7 @@ import torch
 from repro_torch.analysis.verifier import run_passes
 from repro_torch.core.kvstore import GradSyncConfig, plan_sync
 from repro_torch.core.registry import reducer_names, strategy_names
-from repro_torch.launch.mesh import Mesh
+from repro_torch.parallel.sharding import Mesh
 
 # the reference's strategies that the port has not registered, with the
 # ROADMAP queue 1 item that ports them

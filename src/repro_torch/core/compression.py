@@ -67,18 +67,20 @@ dequantize_blockwise = dequantize_blocks
 
 def compressed_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
                          mesh_shape: Mapping[str, int],
-                         group: dist.ProcessGroup, *,
+                         comms: dep.ChainComms, *,
                          use_ring: bool = False,
                          inter: dist.ProcessGroup | None = None) -> torch.Tensor:
-    """Quantized allreduce of ``buf`` over ``group``, the ranks of
-    ``axes``, and then over ``inter`` (the other pods' ranks of the same
-    data index) if given.  Falls back to a flat sum when the buffer is too
-    small to shard.  f32 only: the reference computes in the comm dtype,
-    the kernels take f32."""
+    """Quantized allreduce of ``buf`` over the ranks of ``axes`` (their
+    communicator in ``comms``, a chain's ``ChainComms``), and then over
+    ``inter`` (the other pods' ranks of the same data index) if given.
+    Falls back to a flat sum when the buffer is too small to shard.  f32
+    only: the reference computes in the comm dtype, the kernels take
+    f32."""
     if buf.dtype != torch.float32:
         raise NotImplementedError(
             f"compressed allreduce of a {buf.dtype} comm buffer: the int8 "
             f"kernels take f32 (ROADMAP queue 1 item 7)")
+    group = comms.get(axes)
     g = coll_ops.group_size(axes, mesh_shape)
     n = buf.shape[0]
     m = -(-n // (BLOCK * g)) * BLOCK * g           # the buffer padded to 256 · g
@@ -103,8 +105,8 @@ def compressed_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
         dep.collective(dist.all_reduce, inter, red).wait()
         q2, s2 = quantize_blocks(red)
     if use_ring and len(coll_ops._ring_axes(axes, mesh_shape)) == 1:
-        q_all = coll_ops.ring_all_gather(q2, axes, mesh_shape, group)
-        s_all = coll_ops.ring_all_gather(s2, axes, mesh_shape, group)
+        q_all = coll_ops.ring_all_gather(q2, axes, mesh_shape, comms)
+        s_all = coll_ops.ring_all_gather(s2, axes, mesh_shape, comms)
     else:
         q_all = q2.new_empty(m)
         s_all = s2.new_empty(m // BLOCK)

@@ -7,14 +7,19 @@ tokens threaded through optimization barriers (``repro/core/
 dependency.py``).  PyTorch runs eagerly, so the port states the order
 directly:
 
-  - every schedule chain gets its own communicator (``chain_groups``:
-    one ``dist.new_group`` over the same ranks per chain — the paper's
-    per-channel communicator).  Collectives on one communicator complete
-    in issue order; those on different communicators may overlap.
-  - on a ("pod", "data") mesh the hierarchical reducers take a
-    ``PodComm`` per chain instead (``pod_comms``): the chain's world
-    communicator plus its own intra-pod and inter-pod sub-communicators,
-    so concom's chains still overlap stage by stage.
+  - every schedule chain gets its own communicators (``mesh_comms``, a
+    ``ChainComms`` per chain — the paper's per-channel communicator): one
+    for each set of mesh axes a reduction of the chain spans.  The group
+    of a reduce set is the ranks that share the coordinates of every
+    other axis (``coset_ranks``): ("data",) groups the ranks of one model
+    coordinate, ("data", "model") is the world.  Collectives on one
+    communicator complete in issue order; those on different
+    communicators may overlap.
+  - on a ("pod", "data", "model") mesh the hierarchical reducers also
+    read the chain's ``PodComm`` (``ChainComms.pod``, from
+    ``pod_comms``): its intra-pod and inter-pod communicators, both at
+    the rank's model coordinate, so concom's chains still overlap stage
+    by stage.
   - an issued collective is a ``Handle``; ``gate`` waits on the handles
     of an op's ``depends_on`` before the op is issued (the read-tag).
     On NCCL a wait orders the current CUDA stream after the collective
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Iterable, Mapping, Sequence
 
 import torch
@@ -192,59 +198,132 @@ def exchange(group: dist.ProcessGroup,
             t.copy_(h)
 
 
-def chain_groups(chains: Iterable[int], device: torch.device
-                 ) -> dict[int, dist.ProcessGroup]:
-    """One communicator per chain, each over every rank, on
-    ``backend_for(device)``.  Collective: every rank must call it with
-    the same chains in the same order."""
+def reduce_key(axes: Iterable[str], mesh) -> tuple[str, ...]:
+    """The axes of ``axes`` with a size above 1, in the mesh's order: a
+    reduction over ``axes`` needs exactly their communicator (an axis of
+    size 1 adds no rank)."""
+    axes = set(axes)
+    return tuple(a for a in mesh.axis_names if a in axes and mesh.shape[a] > 1)
+
+
+def coset_ranks(axes: Iterable[str], mesh) -> list[list[int]]:
+    """The rank groups of a reduction over ``axes``: the ranks that share
+    the coordinates of every other axis, each group in rank order, the
+    groups by their first rank.  Ranks are row-major over the mesh's
+    axes (``parallel/sharding.py::Mesh``)."""
+    names = tuple(mesh.axis_names)
+    sizes = [mesh.shape[a] for a in names]
+    axes = set(axes)
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(names))]
+    red = [i for i, a in enumerate(names) if a in axes]
+    groups: dict[int, list[int]] = {}
+    for r in range(math.prod(sizes)):
+        base = r - sum(((r // strides[i]) % sizes[i]) * strides[i] for i in red)
+        groups.setdefault(base, []).append(r)
+    return [groups[b] for b in sorted(groups)]
+
+
+def coset_groups(keys: Iterable[tuple[str, ...]], mesh, device: torch.device
+                 ) -> dict[tuple[str, ...], dist.ProcessGroup | None]:
+    """For each reduce set of ``keys``, under its ``reduce_key``, this
+    rank's communicator on ``backend_for(device)``, or None for a group
+    of one in a larger world (nothing to reduce).  Collective: every rank
+    creates the group of every coset (``new_group`` is), the sets in
+    sorted order, the cosets by first rank, and keeps its own."""
     if not dist.is_initialized():
         raise RuntimeError(
             "torch.distributed is not initialized: call "
             "repro_torch.launch.mesh.init_dist(device) first")
-    ranks = list(range(dist.get_world_size()))
-    return {c: dist.new_group(ranks, backend=backend_for(device))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    size = math.prod(mesh.shape[a] for a in mesh.axis_names)
+    if size != world:
+        raise ValueError(f"a mesh of {size} ranks ({dict(mesh.shape)}) does not "
+                         f"fit a world of {world}")
+    backend = backend_for(device)
+    out: dict[tuple[str, ...], dist.ProcessGroup | None] = {}
+    for key in sorted({reduce_key(k, mesh) for k in keys}):
+        out[key] = None
+        if not key and world > 1:
+            continue
+        for ranks in coset_ranks(key, mesh):
+            g = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                out[key] = g
+    return out
+
+
+class ChainComms:
+    """One chain's communicators, one per reduce set (``get(axes)``), on
+    a mesh; ``pod`` is the chain's ``PodComm`` for the hierarchical
+    reducers on a mesh with a pod axis, else None."""
+
+    def __init__(self, groups: Mapping[tuple[str, ...], dist.ProcessGroup | None],
+                 mesh, pod: "PodComm | None" = None):
+        self.groups = dict(groups)
+        self.mesh = mesh
+        self.pod = pod
+
+    def get(self, axes: Iterable[str]) -> dist.ProcessGroup | None:
+        """The communicator of a reduction over ``axes``; None for a
+        group of one in a larger world."""
+        key = reduce_key(axes, self.mesh)
+        if key not in self.groups:
+            raise KeyError(f"no communicator over {key} on this chain "
+                           f"(it holds {sorted(self.groups)})")
+        return self.groups[key]
+
+
+def mesh_comms(chains: Iterable[int], reduce_sets: Iterable[Iterable[str]], mesh,
+               device: torch.device) -> dict[int, ChainComms]:
+    """A ``ChainComms`` per chain, each with a communicator for every
+    reduce set of ``reduce_sets`` and for the whole world.  Collective:
+    chains in sorted order, then ``coset_groups``'s order."""
+    keys = {reduce_key(ax, mesh) for ax in reduce_sets}
+    keys.add(reduce_key(mesh.axis_names, mesh))
+    return {c: ChainComms(coset_groups(keys, mesh, device), mesh)
             for c in sorted(set(chains))}
 
 
 @dataclasses.dataclass
 class PodComm:
-    """One chain's communicators on a ("pod", "data") mesh, handed to a
-    reducer as its ``group`` (the reducer signature stays
-    ``(buf, bucket, group) -> Handle``; the hierarchical reducers read
-    the sub-groups from it, every other reducer is never given one).
+    """One chain's stage communicators on a ("pod", "data") mesh, the
+    ``pod`` of its ``ChainComms`` (the hierarchical reducers read them).
 
-    ``world`` spans every rank (the chain's ``chain_groups`` entry);
-    ``intra`` holds this rank's pod, ranks p·D .. p·D + D − 1 (group
-    rank d); ``inter`` holds the ranks of this rank's data index d in
-    every pod (group rank p).  ``ring`` is the intra-pod peer-memory ring
-    of ``hierarchical_ring`` on CUDA (``kernels/collectives/kernel.py::
-    PeerRing``), None otherwise."""
+    ``intra`` holds this rank's pod at its model coordinate m, the ranks
+    (p, d', m) (group rank d); ``inter`` holds the ranks (p', d, m) of
+    every pod (group rank p).  ``ring`` is the intra-pod peer-memory
+    ring of ``hierarchical_ring`` on CUDA
+    (``kernels/collectives/kernel.py::PeerRing``), None otherwise."""
 
-    world: dist.ProcessGroup
     intra: dist.ProcessGroup
     inter: dist.ProcessGroup
     ring: Any = None
 
 
-def pod_comms(world_groups: Mapping[int, dist.ProcessGroup], pods: int,
-              data: int, device: torch.device) -> dict[int, PodComm]:
-    """A ``PodComm`` per chain of ``world_groups``: one intra-pod group
-    per pod and one inter-pod group per data index, created anew for
-    each chain on ``backend_for(device)``.  Collective: every rank
-    creates every group (``new_group`` is), chains in sorted order, the
-    pods' groups before the data indices'."""
-    if pods * data != dist.get_world_size():
-        raise ValueError(f"a mesh of {pods} pods x {data} ranks does not fit a "
-                         f"world of {dist.get_world_size()}")
-    p, d = divmod(dist.get_rank(), data)
+def pod_comms(chains: Iterable[int], pods: int, data: int, device: torch.device,
+              model: int = 1) -> dict[int, PodComm]:
+    """A ``PodComm`` per chain: one intra-pod group per (pod, model
+    coordinate) and one inter-pod group
+    per (data, model coordinate), created anew for each chain on
+    ``backend_for(device)``, rank (p·data + d)·model + m at (p, d, m).
+    Collective: every rank creates every group (``new_group`` is),
+    chains in sorted order, the intra-pod groups before the inter-pod
+    ones, each by first rank."""
+    if pods * data * model != dist.get_world_size():
+        raise ValueError(f"a mesh of {pods} pods x {data} x {model} ranks does not "
+                         f"fit a world of {dist.get_world_size()}")
+    p, rem = divmod(dist.get_rank(), data * model)
+    d, m = divmod(rem, model)
     backend = backend_for(device)
     out = {}
-    for c in sorted(world_groups):
-        intra = [dist.new_group([q * data + j for j in range(data)], backend=backend)
-                 for q in range(pods)][p]
-        inter = [dist.new_group([q * data + j for q in range(pods)], backend=backend)
-                 for j in range(data)][d]
-        out[c] = PodComm(world_groups[c], intra, inter)
+    for c in sorted(set(chains)):
+        intra = [[dist.new_group([(q * data + j) * model + mm for j in range(data)],
+                                 backend=backend) for mm in range(model)]
+                 for q in range(pods)][p][m]
+        inter = [[dist.new_group([(q * data + j) * model + mm for q in range(pods)],
+                                 backend=backend) for mm in range(model)]
+                 for j in range(data)][d][m]
+        out[c] = PodComm(intra, inter)
     return out
 
 

@@ -5,10 +5,13 @@
 from the gradient tree and param specs, it plans the configured
 strategy's ``CommSchedule`` once (``plan_sync``: bucket plan, reducer,
 schedule and the six ``repro_torch.analysis`` passes, no process group
-needed; inspectable as ``.schedule``), creates one communicator and one
-staging stream per chain, and executes the schedule over each step's
-gradients via ``repro_torch.core.schedule.execute``.  With a hierarchical reducer on a
-mesh with a pod axis each chain gets its intra- and inter-pod
+needed; inspectable as ``.schedule``), creates per chain a communicator
+for each set of mesh axes its buckets reduce over
+(``dependency.mesh_comms``: under tensor parallelism ("data",) for the
+model-sharded leaves, ("data", "model") for the replicated ones) and one
+staging stream, and executes the schedule over each step's gradients via
+``repro_torch.core.schedule.execute``.  With a hierarchical reducer on a
+mesh with a pod axis each chain also gets its intra- and inter-pod
 sub-communicators (``dependency.pod_comms``) and, for
 ``hierarchical_ring`` on CUDA, its intra-pod ``PeerRing``.
 
@@ -43,7 +46,8 @@ from repro_torch.core.schedule import (
 )
 from repro_torch.core.strategies import make_reducer
 from repro_torch.kernels.collectives.kernel import PeerRing
-from repro_torch.utils.trees import tree_unflatten
+from repro_torch.parallel.sharding import Mesh, flat_spec_axes
+from repro_torch.utils.trees import flatten_with_names, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,28 +186,34 @@ class GradSync:
         self.dp_plan = planned.program.dp_plan if planned.program is not None else None
 
         chains = [op.chain for op in self.schedule.ops]
-        world = dist.get_world_size()
-        for axes in self.schedule.axes_used():
-            # a pod mesh's ("pod", "data", "model") buckets span the world
-            # too; a group of one (the model axis at tp=1) reduces nothing
-            if group_size(axes, self.mesh_shape) not in (1, world):
-                raise NotImplementedError(
-                    f"buckets reducing over {axes} (a group of "
-                    f"{group_size(axes, self.mesh_shape)} of {world} ranks) "
-                    f"need sub-communicators: tensor parallelism, ROADMAP "
-                    f"queue 1 item 9")
-        self.groups = dep.chain_groups(chains, self.device)
+        # one communicator a reduce set, on every chain (the model axis's
+        # for the NORM's sum over it; each axis's for a ring over several)
+        sets = set(self.schedule.axes_used())
+        self.model_sharded = frozenset()
+        if self.mesh_shape.get("model", 1) > 1:
+            sets.add(("model",))
+            specs = dict(flatten_with_names(param_specs)[0])
+            self.model_sharded = frozenset(
+                n for n, spec in specs.items() if "model" in flat_spec_axes(spec))
+        hier = cfg.reducer.startswith("hierarchical") and "pod" in self.mesh_shape
+        if hier:
+            sets |= {tuple(a for a in ax if a not in ("pod", "data")) for ax in list(sets)}
+        if cfg.reducer == "ring" or cfg.reducer.endswith("_ring"):
+            sets |= {(a,) for ax in list(sets) for a in ax}
+        self.groups = dep.mesh_comms(chains, sets, mesh, self.device)
         self.streams = dep.ChainStreams(chains, self.device)
         self.rings: list[PeerRing] = []
-        if cfg.reducer.startswith("hierarchical") and "pod" in self.mesh_shape:
-            self.groups = dep.pod_comms(self.groups, self.mesh_shape["pod"],
-                                        self.mesh_shape["data"], self.device)
+        if hier:
+            pods = dep.pod_comms(self.groups, self.mesh_shape["pod"], self.mesh_shape["data"],
+                                 self.device, self.mesh_shape.get("model", 1))
+            for c, comms in self.groups.items():
+                comms.pod = pods[c]
             if (cfg.reducer == "hierarchical_ring" and self.device.type == "cuda"
                     and self.mesh_shape["data"] > 1):
                 slot = self._chunk_bytes(self.mesh_shape["data"])
-                for c, comm in sorted(self.groups.items()):
-                    comm.ring = PeerRing(comm.intra, slot, chain=c)
-                    self.rings.append(comm.ring)
+                for c, comms in sorted(self.groups.items()):
+                    comms.pod.ring = PeerRing(comms.pod.intra, slot, chain=c)
+                    self.rings.append(comms.pod.ring)
 
     def _chunk_bytes(self, g: int) -> int:
         """The largest intra-pod chunk of the schedule, in bytes: a peer
@@ -238,7 +248,8 @@ class GradSync:
             mesh_shape=self.mesh_shape,
             mean_axes=self.cfg.mean_axes,
             use_fused_staging=self.cfg.use_fused_staging,
-            two_phase_impl=self._two_phase_impl(), **kw)
+            two_phase_impl=self._two_phase_impl(),
+            model_sharded=self.model_sharded, **kw)
         # a peer ring's wait that ran out voids the step: no result returned
         for ring in self.rings:
             ring.check()
@@ -293,7 +304,9 @@ class KVStore:
       rsag     (two_phase)     — push issues the reduce-scatter, pull the
                all-gather.
 
-    Each channel is its own communicator over every rank.  Every op
+    Each channel is its own communicator over the ranks of
+    ``reduce_axes`` (with ``mesh_shape``, the ranks that share this
+    rank's coordinates on the other axes; else every rank).  Every op
     issued is recorded as CommSchedule IR — ``.schedule()``.
     """
 
@@ -307,12 +320,17 @@ class KVStore:
         self.num_channels = 1 if self.info.single_chain else num_channels
         self.mesh_shape = mesh_shape
         self.device = dep.resolve_device(device)
-        self._groups = dep.chain_groups(range(self.num_channels), self.device)
-        if mesh_shape is not None and group_size(
-                self.reduce_axes, mesh_shape) != dist.get_world_size():
-            raise NotImplementedError(
-                "a KVStore over a subset of ranks needs sub-communicators: "
-                "ROADMAP queue 1 item 9")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if mesh_shape is not None:
+            mesh, axes = Mesh(tuple(mesh_shape), dict(mesh_shape)), self.reduce_axes
+        else:
+            # without a mesh every channel spans every rank: one data axis
+            mesh, axes = Mesh(("data",), {"data": world}), ("data",)
+        if group_size(axes, mesh.shape) == 1 < world:
+            raise ValueError(f"a KVStore over {self.reduce_axes} of {mesh_shape} "
+                             f"would reduce over one rank of {world}")
+        comms = dep.mesh_comms(range(self.num_channels), [axes], mesh, self.device)
+        self._groups = {c: cc.get(axes) for c, cc in comms.items()}
         self._handles: dict[int, dep.Handle] = {}
         self._staged: dict[int, torch.Tensor] = {}
         self._reduced: dict[int, tuple[dep.Handle, int]] = {}

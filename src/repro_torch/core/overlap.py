@@ -39,7 +39,8 @@ Its branches are the reference's (``overlap.py:61–90``): the flat sum;
 leaf reduces over both "pod" and "data"; ``compressed`` (the int8
 two-phase allreduce of ``core/compression.py`` over "data", in f32, with
 an f32 sum across the pods) when ``intra_size > 1`` and the leaf reduces
-over "data".
+over "data".  In both, a replicated leaf's sum over "model" follows on
+its own communicator.
 """
 from __future__ import annotations
 
@@ -56,7 +57,6 @@ from repro_torch.core import dependency as dep
 from repro_torch.core.buckets import Bucket, LeafInfo
 from repro_torch.core.compression import compressed_allreduce
 from repro_torch.core.hierarchical import hierarchical_allreduce
-from repro_torch.core.schedule import group_size
 from repro_torch.kernels.collectives import ops as coll_ops
 from repro_torch.utils.trees import flatten_with_names
 
@@ -74,13 +74,16 @@ class LayerSync:
     the port's tree.  ``axes``: each leaf's reduce axes, in the stack's
     leaf order (``parallel/sharding.py::reduce_axes_tree``).  A layer's
     leaves are grouped by (axes, dtype) into one slot each: one
-    collective a group a layer (at tp=1 one a layer).  ``reducer`` is
-    ``cfg.depcha_reducer``, ``intra_size`` the "data" size the compressed
-    branch shards over.
+    collective a group a layer (at tp=1 one a layer; at tp > 1 the
+    model-sharded leaves reduce over the dp axes and the replicated ones
+    over the dp axes and "model", each group on its own communicator).
+    ``reducer`` is ``cfg.depcha_reducer``, ``intra_size`` the "data"
+    size the compressed branch shards over.
 
-    Construction is collective: it creates the syncer's communicator (and
-    on a pod mesh for ``hierarchical`` or ``compressed`` its intra- and
-    inter-pod groups) on every rank in the same order.
+    Construction is collective: it creates the syncer's communicators,
+    one a reduce set (and on a pod mesh for ``hierarchical`` or
+    ``compressed`` its intra- and inter-pod groups), on every rank in the
+    same order.
     """
 
     def __init__(self, stacked: dict, axes: Sequence[tuple[str, ...]], mesh, *,
@@ -95,17 +98,11 @@ class LayerSync:
         self.mesh_shape = dict(mesh.shape)
         self.reducer = reducer
         self.intra_size = intra_size
-        world = dist.get_world_size()
         groups: dict[tuple, list[int]] = {}
         for j, ((_, w), ax) in enumerate(zip(named, axes)):
             if int(w.shape[0]) != self.n_layers:
                 raise ValueError(f"{self.names[j]} stacks {w.shape[0]} layers, "
                                  f"not {self.n_layers}")
-            if ax and group_size(ax, self.mesh_shape) != world:
-                raise NotImplementedError(
-                    f"{self.names[j]} reduces over {tuple(ax)}, a group of "
-                    f"{group_size(ax, self.mesh_shape)} of {world} ranks: "
-                    f"tensor parallelism, ROADMAP queue 1 item 9")
             groups.setdefault((tuple(ax), w.dtype), []).append(j)
         # (bucket over the layer's cotangent list, reduce axes, slot dtype)
         self.buckets: list[tuple[Bucket, tuple[str, ...], torch.dtype]] = []
@@ -114,11 +111,16 @@ class LayerSync:
                                     named[j][1][0].numel()) for j in idx)
             slot_dt = torch.float32 if self._compressed(ax) else dt
             self.buckets.append((Bucket(leaves, ax, 0, k), ax, slot_dt))
-        self.world = dep.chain_groups([0], self.device)[0]
+        # a communicator for each reduce set, and for the stages the
+        # hierarchical and compressed branches split a set into
+        sets = {ax for _, ax, _ in self.buckets}
+        if reducer in ("hierarchical", "compressed"):
+            sets |= {_rest(ax) for ax in sets} | {("data",)}
+        self.comms = dep.mesh_comms([0], sets, mesh, self.device)[0]
         self.pod = None
         if "pod" in self.mesh_shape and reducer in ("hierarchical", "compressed"):
-            self.pod = dep.pod_comms({0: self.world}, self.mesh_shape["pod"],
-                                     self.mesh_shape["data"], self.device)[0]
+            self.pod = dep.pod_comms([0], self.mesh_shape["pod"], self.mesh_shape["data"],
+                                     self.device, self.mesh_shape.get("model", 1))[0]
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self._slots: dict[int, torch.Tensor] = {}
@@ -128,24 +130,31 @@ class LayerSync:
     def _compressed(self, ax: tuple[str, ...]) -> bool:
         return self.reducer == "compressed" and self.intra_size > 1 and "data" in ax
 
+    def _psum_rest(self, out: torch.Tensor, ax: tuple[str, ...]) -> torch.Tensor:
+        """Sum ``out`` over the axes of ``ax`` besides "pod" and "data"
+        (the model axis of a replicated leaf), on their communicator."""
+        group = self.comms.get(_rest(ax))
+        if group is not None and _rest(ax):
+            dep.collective(dist.all_reduce, group, out).wait()
+        return out
+
     def _reduce(self, slot: torch.Tensor, ax: tuple[str, ...]):
         """Issue one slot's reduction on the current stream: (work, the
         tensor that holds the result once the work is waited on)."""
-        if not ax:
+        group = self.comms.get(ax)
+        if not ax or group is None:          # a group of one: nothing to sum
             return dep.DONE, slot
-        # every axis besides "pod" and "data" has size 1 here (the
-        # constructor refuses a group smaller than the world)
         if self.reducer == "hierarchical" and "pod" in ax and "data" in ax:
-            return dep.DONE, hierarchical_allreduce(slot, self.pod)
+            return dep.DONE, self._psum_rest(hierarchical_allreduce(slot, self.pod), ax)
         if self._compressed(ax):
             if self.intra_size != self.mesh_shape["data"]:
                 raise ValueError(f"intra_size {self.intra_size} is not the mesh's "
                                  f"data size {self.mesh_shape['data']}")
-            intra = self.pod.intra if self.pod is not None else self.world
             inter = self.pod.inter if "pod" in ax and self.pod is not None else None
-            return dep.DONE, compressed_allreduce(slot, ("data",), self.mesh_shape,
-                                                  intra, inter=inter)
-        return dep.collective(dist.all_reduce, self.world, slot), slot
+            out = compressed_allreduce(slot, ("data",), self.mesh_shape, self.comms,
+                                       inter=inter)
+            return dep.DONE, self._psum_rest(out, ax)
+        return dep.collective(dist.all_reduce, group, slot), slot
 
     def _slot(self, k: int, li: int) -> torch.Tensor:
         bucket, _, dt = self.buckets[k]
@@ -203,6 +212,10 @@ class LayerSync:
                 if self.stream is not None:
                     out.record_stream(cur)
                 coll_ops.fused_unpack(self.buckets[k][0], out, rows)
+
+
+def _rest(ax: tuple[str, ...]) -> tuple[str, ...]:
+    return tuple(a for a in ax if a not in ("pod", "data"))
 
 
 class _SyncInBackward(torch.autograd.Function):

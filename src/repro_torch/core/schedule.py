@@ -296,11 +296,6 @@ def _rank_ordered_reduce_scatter(buf: torch.Tensor, comm: dist.ProcessGroup,
     return dep.Handle(dep.Recorded(shard.device), shard)
 
 
-def _comm(group) -> dist.ProcessGroup:
-    """A chain's communicator over every rank (a ``PodComm``'s world)."""
-    return group.world if isinstance(group, dep.PodComm) else group
-
-
 class _OpEmitter:
     """Per-op emission engine behind ``execute``: holds the handles of
     issued ops, the reduce-scatter and update shards not yet consumed and
@@ -322,6 +317,7 @@ class _OpEmitter:
         clip_norm: float = 0.0,
         aux: dict | None = None,
         pending: Mapping[int, torch.Tensor] | None = None,
+        model_sharded: frozenset[str] = frozenset(),
     ):
         if two_phase_impl not in ("psum", "ring"):
             raise ValueError(f"unknown two_phase_impl {two_phase_impl!r}")
@@ -337,6 +333,7 @@ class _OpEmitter:
         self.clip_norm = clip_norm
         self.aux = aux
         self.pending = pending
+        self.model_sharded = model_sharded
         self.by_id = {op.op_id: op for op in schedule.ops}
         self.handles: dict[int, dep.Handle] = {}
         # op_id -> (handle of the op that made the shard, unpadded size);
@@ -402,13 +399,48 @@ class _OpEmitter:
             return 1.0
         return mean_scale(bucket.reduce_axes, self.mesh_shape, self.mean_axes)
 
-    def _group_size(self, bucket: Bucket, comm: dist.ProcessGroup) -> int:
+    def _group_size(self, bucket: Bucket, group) -> int:
         """Ranks in the bucket's reduce group: from the mesh (axes of size
         1, as the model axis at tp=1, make a group of one however many
         ranks the communicator holds), else the communicator's."""
         if self.mesh_shape is None:
-            return dist.get_world_size(comm)
+            return dist.get_world_size(group.get(bucket.reduce_axes))
         return group_size(bucket.reduce_axes, self.mesh_shape)
+
+    def _norm_parts(self, d: int) -> torch.Tensor:
+        """Reduce-scatter ``d``'s shard's sums of squares (mean and loss
+        scale undone) split as [model-sharded leaves, replicated leaves]:
+        the shard of group rank k covers elements [k·c, (k+1)·c) of the
+        packed bucket, each element in the leaf that packed it.  Each
+        run of adjacent leaves of one kind is summed at once, the last
+        with the shard's padding: without model-sharded leaves, the
+        whole shard in one sum."""
+        op = self.by_id[d]
+        s = self.shards[d][0].out.to(torch.float32)
+        g_scale = self._scale_of(op.bucket) / self.loss_scale
+        group = self.groups[op.chain]
+        c = s.numel()
+        lo = 0
+        if self._group_size(op.bucket, group) > 1:
+            lo = dist.get_rank(group.get(op.bucket.reduce_axes)) * c
+        runs: list[list[int]] = []          # [kind, start, end] in the bucket
+        off = 0
+        for leaf in op.bucket.leaves:
+            a, b = max(off, lo), min(off + leaf.size, lo + c)
+            if a < b:
+                i = 0 if leaf.name in self.model_sharded else 1
+                if runs and runs[-1][0] == i:
+                    runs[-1][2] = b
+                else:
+                    runs.append([i, a, b])
+            off += leaf.size
+        if not runs:
+            runs.append([1, lo, lo + c])
+        runs[-1][2] = lo + c
+        parts = torch.zeros(2, dtype=torch.float32, device=s.device)
+        for i, a, b in runs:
+            parts[i] += g_scale * g_scale * torch.sum(torch.square(s[a - lo:b - lo]))
+        return parts
 
     def _shard_src(self, op: CollectiveOp, want: str,
                    optional: bool = False) -> int | None:
@@ -444,8 +476,7 @@ class _OpEmitter:
         group = self.groups[op.chain]
 
         if op.kind == ALLREDUCE:
-            comm = _comm(group)
-            alone = self._group_size(bucket, comm) == 1 < dist.get_world_size(comm)
+            alone = self._group_size(bucket, group) == 1 < dist.get_world_size()
             if alone and self.loss_scale == 1.0 and all(
                     l.dtype == self._dtype_of(bucket) for l in bucket.leaves):
                 # a group of one whose round trip through the buffer is a
@@ -470,8 +501,8 @@ class _OpEmitter:
             self.handles[op.op_id] = dep.Handle(dep.Recorded(send_buf.device), None)
 
         elif op.kind == REDUCE_SCATTER:
-            comm = _comm(group)
-            g = self._group_size(bucket, comm)
+            g = self._group_size(bucket, group)
+            comm = group.get(bucket.reduce_axes) if g > 1 else None
             self._gate_data(op)
             send_buf = self._stage_in(bucket, flat_out)
             if op.op_id in self.feeds_update:
@@ -488,7 +519,7 @@ class _OpEmitter:
                     # the event after the ring's kernels: a NORM on another
                     # chain's stream reads the shard once it has fired
                     shard = coll_ops.ring_reduce_scatter(b, bucket.reduce_axes,
-                                                         self.mesh_shape, comm)
+                                                         self.mesh_shape, group)
                     return dep.Handle(dep.Recorded(b.device), shard)
                 if op.op_id in self.feeds_update:
                     return _rank_ordered_reduce_scatter(b, comm, g)
@@ -507,19 +538,29 @@ class _OpEmitter:
             # are still loss-scaled and pre-mean (UPDATE applies both
             # later): undone here, so the clip sees the true gradients.
             dep.gate(self.handles, op.depends_on)
-            sq = None
-            for d in op.depends_on:
-                if d in self.shards and self.by_id[d].kind == REDUCE_SCATTER:
-                    s = self.shards[d][0].out
-                    g_scale = self._scale_of(self.by_id[d].bucket) / self.loss_scale
-                    term = g_scale * g_scale * torch.sum(torch.square(s.to(torch.float32)))
-                    sq = term if sq is None else sq + term
-            if sq is None:
+            srcs = [d for d in op.depends_on
+                    if d in self.shards and self.by_id[d].kind == REDUCE_SCATTER]
+            if not srcs:
                 raise ValueError(f"norm op {op.op_id} has no reduce_scatter dep")
-            comm = _comm(group)
-            red = emit_gated(sq, op.depends_on, self.handles, lambda v: dep.Handle(
-                dep.collective(dist.all_reduce, comm, v), v)).wait()
-            norm = torch.sqrt(red)
+            # [model-sharded, replicated]: under tensor parallelism the
+            # model-sharded leaves' squares are summed over "model" too,
+            # the replicated ones (equal on every model rank after their
+            # sync) counted once
+            sq = sum(self._norm_parts(d) for d in srcs)
+            comm = (group.get(bucket.reduce_axes)
+                    if self._group_size(bucket, group) > 1 else None)
+
+            def psum(v):
+                if comm is None:
+                    return dep.Handle(dep.Recorded(v.device), v)
+                return dep.Handle(dep.collective(dist.all_reduce, comm, v), v)
+
+            red = emit_gated(sq, op.depends_on, self.handles, psum).wait()
+            sharded = red[:1]
+            if self.model_sharded:
+                sharded = sharded.clone()
+                dep.collective(dist.all_reduce, group.get(("model",)), sharded).wait()
+            norm = torch.sqrt(sharded[0] + red[1])
             if self.clip_norm > 0:
                 # on the device: no host sync
                 self.clip_scales[op.op_id] = torch.clamp(
@@ -567,15 +608,15 @@ class _OpEmitter:
                 # across the boundary (dp mean and loss unscale applied)
                 shard, n = self.pending[bucket.bucket_id], bucket.size
                 gathers_updates = True
-            comm = _comm(group)
-            g = self._group_size(bucket, comm)
+            g = self._group_size(bucket, group)
+            comm = group.get(bucket.reduce_axes) if g > 1 else None
 
             def ag(b):
                 if g == 1:
                     return dep.Handle(dep.Recorded(b.device), b)
                 if self.two_phase_impl == "ring":
                     full = coll_ops.ring_all_gather(b, bucket.reduce_axes,
-                                                    self.mesh_shape, comm)
+                                                    self.mesh_shape, group)
                     return dep.Handle(dep.Recorded(b.device), full)
                 full = torch.empty(b.numel() * g, dtype=b.dtype, device=b.device)
                 return dep.Handle(dep.collective(
@@ -626,11 +667,14 @@ def execute(
     clip_norm: float = 0.0,
     aux: dict | None = None,
     pending: Mapping[int, torch.Tensor] | None = None,
+    model_sharded: frozenset[str] = frozenset(),
 ) -> Any:
     """Materialize a CommSchedule over a gradient tree.
 
     ``reducer`` runs every allreduce op.  ``groups`` maps each chain to
-    its communicator and ``streams`` gives each chain its staging stream.
+    its communicators (a ``dependency.ChainComms``: one a reduce set; or
+    a single communicator over the ranks of every bucket) and ``streams``
+    gives each chain its staging stream.
     ``mesh_shape`` and ``mean_axes`` apply the data-parallel mean on the
     reduce-scatter/all-gather path (the reducer carries its own).
 
@@ -650,10 +694,14 @@ def execute(
         with the dp mean, ``1/loss_scale`` and the clip scale applied;
         the ALL_GATHER after it gathers updates (no mean, no unscale).
       NORM — sums the squares of every producing RS shard (mean and loss
-        scale undone) and all-reduces the 0-d f32 sum on its chain; with
+        scale undone), split [model-sharded leaves, the rest], and
+        all-reduces the two f32 sums on its chain; with
         ``clip_norm > 0`` the dependent UPDATEs see their shards times
         ``min(1, clip/(norm + 1e-9))``, computed on the device.  The norm
-        lands in ``aux["grad_norm"]`` when ``aux`` is given.
+        lands in ``aux["grad_norm"]`` when ``aux`` is given.  Under tensor
+        parallelism ``model_sharded`` names the leaves sharded over
+        "model": their squares are summed over the model axis too, the
+        replicated leaves' counted once, so the norm is the global one.
       ``pending`` maps bucket_id → the update shard carried from the
         previous step: an ALL_GATHER with no producer in the schedule (a
         PRE program's) gathers it.  UPDATEs record their shards in
@@ -674,7 +722,7 @@ def execute(
         schedule, plan, reducer=reducer, groups=groups, mesh_shape=mesh_shape, mean_axes=mean_axes,
         use_fused_staging=use_fused_staging, loss_scale=loss_scale,
         two_phase_impl=two_phase_impl, update_fn=update_fn, clip_norm=clip_norm,
-        aux=aux, pending=pending)
+        aux=aux, pending=pending, model_sharded=model_sharded)
     with streams:
         for op in schedule.ops:
             with streams.on(op.chain), torch.profiler.record_function(

@@ -21,17 +21,22 @@ Beyond-paper:
   rsag     — each bucket's allreduce split into reduce-scatter →
              all-gather, RS ops chained per channel.
 
-Reducers, each a ``(buf, bucket, communicator) -> Handle``:
-  flat            — an async ``dist.all_reduce`` on the chain's communicator.
-  ring            — the chunked bidirectional ring (``kernels/collectives``).
+Reducers, each a ``(buf, bucket, comms) -> Handle``, given the chain's
+``dependency.ChainComms`` and running on the communicator of the
+bucket's reduce axes:
+  flat            — an async ``dist.all_reduce`` on that communicator.
+  ring            — the chunked bidirectional ring (``kernels/collectives``),
+                    over several axes a ring an axis.
   compressed      — int8 block-quantized two-phase allreduce
                     (``core/compression.py``); flat below 256·g elements.
   compressed_ring — compressed with its gather phase on the ring.
   hierarchical    — on a ("pod", "data") mesh the three stages of
                     ``core/hierarchical.py``: intra-pod reduce-scatter,
                     inter-pod allreduce of the shard, intra-pod
-                    all-gather; flat otherwise.  Its ``group`` is the
-                    chain's ``dependency.PodComm`` (``GradSync`` builds it).
+                    all-gather, then a psum over the bucket's other axes
+                    (a replicated leaf's "model"); flat otherwise.  The
+                    stages run on the ``PodComm`` of the chain's
+                    ``ChainComms`` (``GradSync`` builds both).
   hierarchical_ring — hierarchical with stages 1 and 3 on the intra-pod
                     ring: the peer-memory ring kernels on CUDA.
 A ring, compressed or hierarchical reducer is a sequence of collectives
@@ -47,7 +52,7 @@ from repro_torch.core import dependency as dep
 from repro_torch.core import registry
 from repro_torch.core.buckets import Bucket, BucketPlan
 from repro_torch.core.compression import compressed_allreduce
-from repro_torch.core.dependency import Handle, PodComm
+from repro_torch.core.dependency import ChainComms, Handle
 from repro_torch.core.hierarchical import flat_allreduce, hierarchical_allreduce
 from repro_torch.core.registry import register_reducer, register_strategy
 from repro_torch.core.schedule import (
@@ -73,9 +78,8 @@ def _flat_factory(mesh_shape: dict[str, int], *,
     always issues ``dist.all_reduce`` on the chain's communicator, at
     world size 1 too."""
 
-    def reduce_flat(buf: torch.Tensor, bucket: Bucket,
-                    group: dist.ProcessGroup) -> Handle:
-        return Handle(flat_allreduce(buf, group), buf,
+    def reduce_flat(buf: torch.Tensor, bucket: Bucket, comms: ChainComms) -> Handle:
+        return Handle(flat_allreduce(buf, comms.get(bucket.reduce_axes)), buf,
                       mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
 
     return reduce_flat
@@ -84,24 +88,23 @@ def _flat_factory(mesh_shape: dict[str, int], *,
 def _hier_impl(mesh_shape: dict[str, int], *,
                mean_axes: tuple[str, ...] = (),
                use_ring: bool = False) -> Reducer:
-    def reduce_hier(buf: torch.Tensor, bucket: Bucket, group) -> Handle:
+    def reduce_hier(buf: torch.Tensor, bucket: Bucket, comms: ChainComms) -> Handle:
         axes = bucket.reduce_axes
         scale = mean_scale(axes, mesh_shape, mean_axes)
         if "pod" in axes and "data" in axes:
-            rest = [(a, mesh_shape[a]) for a in axes
-                    if a not in ("pod", "data") and mesh_shape[a] > 1]
-            if rest:
-                raise NotImplementedError(
-                    f"a hierarchical reduction also over {rest} needs a "
-                    f"communicator per axis: ROADMAP queue 1 item 9")
-            if not isinstance(group, PodComm):
+            if comms.pod is None:
                 raise ValueError(
-                    "the hierarchical reducers take a dependency.PodComm per chain "
-                    "(GradSync builds them on a mesh with a pod axis)")
-            return Handle(dep.DONE, hierarchical_allreduce(buf, group, use_ring=use_ring),
-                          scale)
-        world = group.world if isinstance(group, PodComm) else group
-        return Handle(flat_allreduce(buf, world), buf, scale)
+                    "the hierarchical reducers need the chain's PodComm "
+                    "(GradSync builds it on a mesh with a pod axis)")
+            # the pod/data stages at this rank's model coordinate, then a
+            # psum over the remaining axes (a replicated leaf's "model")
+            rest = tuple(a for a in axes if a not in ("pod", "data")
+                         and mesh_shape[a] > 1)
+            out = hierarchical_allreduce(buf, comms.pod, use_ring=use_ring)
+            if rest:
+                dep.collective(dist.all_reduce, comms.get(rest), out).wait()
+            return Handle(dep.DONE, out, scale)
+        return Handle(flat_allreduce(buf, comms.get(axes)), buf, scale)
 
     return reduce_hier
 
@@ -126,12 +129,11 @@ def _comp_impl(mesh_shape: dict[str, int], *,
                use_ring: bool = False) -> Reducer:
     flat = _flat_factory(mesh_shape, mean_axes=mean_axes)
 
-    def reduce_comp(buf: torch.Tensor, bucket: Bucket,
-                    group: dist.ProcessGroup) -> Handle:
+    def reduce_comp(buf: torch.Tensor, bucket: Bucket, comms: ChainComms) -> Handle:
         g = group_size(bucket.reduce_axes, mesh_shape)
         if g == 1 or buf.shape[0] < 256 * g:
-            return flat(buf, bucket, group)
-        out = compressed_allreduce(buf, bucket.reduce_axes, mesh_shape, group,
+            return flat(buf, bucket, comms)
+        out = compressed_allreduce(buf, bucket.reduce_axes, mesh_shape, comms,
                                    use_ring=use_ring)
         return Handle(dep.DONE, out,
                       mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
@@ -159,9 +161,8 @@ def _ring_factory(mesh_shape: dict[str, int], *,
     """Chunked bidirectional ring allreduce (ring RS → ring AG), each
     hop's combine on the ring-accumulate kernel."""
 
-    def reduce_ring(buf: torch.Tensor, bucket: Bucket,
-                    group: dist.ProcessGroup) -> Handle:
-        out = coll_ops.ring_allreduce(buf, bucket.reduce_axes, mesh_shape, group)
+    def reduce_ring(buf: torch.Tensor, bucket: Bucket, comms: ChainComms) -> Handle:
+        out = coll_ops.ring_allreduce(buf, bucket.reduce_axes, mesh_shape, comms)
         return Handle(dep.DONE, out,
                       mean_scale(bucket.reduce_axes, mesh_shape, mean_axes))
 

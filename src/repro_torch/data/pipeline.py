@@ -4,9 +4,9 @@ Batches are a pure function of (seed, step): the same
 ``np.random.default_rng((seed, step))`` draws as the reference, so both
 packages see identical batches.  Each rank takes its contiguous
 ``local_batch`` slice of the global batch, as the reference's batch
-sharding gives each device.  On a pod mesh the data-parallel size is
-pods × data and rank p·data + d is the mesh's device (p, d), so slice
-``rank`` is the one the reference's ("pod", "data") sharding gives it.
+sharding gives each device: slice ``dp_index(rank, mesh)``, the rank's
+coordinates on the dp axes ("pod", "data"), so every rank of a model
+group reads the same rows (``parallel/sharding.py::batch_spec``).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.parallel.sharding import local_batch
+from repro_torch.parallel.sharding import dp_index, local_batch
 
 
 def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -44,7 +44,7 @@ class TokenPipeline:
         self.seed = seed
         self.local = (global_batch if mesh is None
                       else local_batch(global_batch, mesh))
-        self.rank = rank
+        self.rank = rank if mesh is None else dp_index(rank, mesh)
         self.extra = extra_specs or {}
         self.device = torch.device(device)
 
@@ -69,8 +69,8 @@ class ImagePipeline:
     """Synthetic image classification stream (paper's CIFAR/ImageNet).
 
     ``mesh`` gives the data-parallel size (``None`` = one rank holding
-    the whole batch) and ``rank`` this process's slice; tensors are put
-    on ``device``.
+    the whole batch) and ``rank`` this process's rank, whose data-parallel
+    index picks its slice; tensors are put on ``device``.
     """
 
     def __init__(self, img_size: int, num_classes: int, global_batch: int,
@@ -82,7 +82,7 @@ class ImagePipeline:
         self.seed = seed
         self.local = (global_batch if mesh is None
                       else local_batch(global_batch, mesh))
-        self.rank = rank
+        self.rank = rank if mesh is None else dp_index(rank, mesh)
         self.device = torch.device(device)
 
     def batch_at(self, step: int) -> dict[str, Any]:

@@ -12,7 +12,9 @@ is False: integer or complex leaves) never come here — the emitter
 stages them leafwise, as the reference does.
 
 ``ring_reduce_scatter``/``ring_all_gather``/``ring_allreduce`` run the
-chunked, bidirectional rings of ``ref.py`` over a bucket's communicator.
+chunked, bidirectional rings of ``ref.py``, a ring an axis of the
+bucket's reduce axes, each on that axis's communicator of the chain's
+``ChainComms``.
 Each hop's combine, both ring directions at once, is one launch of the
 CUDA ``ring_accum_pairs_kernel`` on CUDA tensors and its plain version
 ``ref.ring_accum_pairs_ref`` (``torch.add`` a pair) on CPU tensors: the
@@ -117,21 +119,20 @@ def group_size(axes: Sequence[str], mesh_shape: Mapping[str, int]) -> int:
     return g
 
 
-def _ring_size(axes: Sequence[str], mesh_shape: Mapping[str, int],
-               group: dist.ProcessGroup) -> int:
-    """The ring's size, checked against ``group``.  The reference
-    decomposes a group over several axes of size > 1 axis by axis; that
-    needs a communicator per axis, which comes with tensor parallelism."""
-    ring = _ring_axes(axes, mesh_shape)
-    if len(ring) > 1:
-        raise NotImplementedError(
-            f"a ring over several mesh axes {ring} needs a communicator per "
-            f"axis: ROADMAP queue 1 item 9")
-    g = ring[0][1] if ring else 1
-    if g > 1 and dist.get_world_size(group) != g:
-        raise ValueError(f"axes {tuple(axes)} make a ring of {g}, the "
-                         f"communicator holds {dist.get_world_size(group)} ranks")
-    return g
+def _ring_hops(axes: Sequence[str], mesh_shape: Mapping[str, int],
+               comms) -> list[tuple[int, dist.ProcessGroup]]:
+    """The rings a group over ``axes`` decomposes into, one an axis of
+    size > 1 in the given order (the reference's decomposition), each
+    with its size and its axis's communicator in ``comms`` (a chain's
+    ``core.dependency.ChainComms``)."""
+    out = []
+    for a, g in _ring_axes(axes, mesh_shape):
+        comm = comms.get((a,))
+        if dist.get_world_size(comm) != g:
+            raise ValueError(f"axis {a!r} makes a ring of {g}, the communicator "
+                             f"holds {dist.get_world_size(comm)} ranks")
+        out.append((g, comm))
+    return out
 
 
 def _accum(device: torch.device):
@@ -143,40 +144,44 @@ def _accum(device: torch.device):
 
 
 def ring_reduce_scatter(buf: torch.Tensor, axes: tuple[str, ...],
-                        mesh_shape: Mapping[str, int],
-                        group: dist.ProcessGroup, *,
+                        mesh_shape: Mapping[str, int], comms, *,
                         bidirectional: bool = True) -> torch.Tensor:
-    """(n,) buffer, n divisible by the group size → (n/g,) shard."""
-    if _ring_size(axes, mesh_shape, group) == 1:
-        return buf
-    return ref.ring_reduce_scatter_ref(buf, group, bidirectional=bidirectional,
-                                       accum=_accum(buf.device))
+    """(n,) buffer, n divisible by the group size → (n/g,) shard.  A
+    group over several axes runs a ring an axis, in order, each on the
+    previous one's shard (so the rank at row-major index i of the group
+    owns chunk i); every hop's combine is the ring-accumulate kernel."""
+    for _, comm in _ring_hops(axes, mesh_shape, comms):
+        buf = ref.ring_reduce_scatter_ref(buf, comm, bidirectional=bidirectional,
+                                          accum=_accum(buf.device))
+    return buf
 
 
 def ring_all_gather(shard: torch.Tensor, axes: tuple[str, ...],
-                    mesh_shape: Mapping[str, int],
-                    group: dist.ProcessGroup, *,
+                    mesh_shape: Mapping[str, int], comms, *,
                     bidirectional: bool = True) -> torch.Tensor:
-    """(n/g,) owned shard → (n,) full buffer."""
-    if _ring_size(axes, mesh_shape, group) == 1:
-        return shard
-    return ref.ring_all_gather_ref(shard, group, bidirectional=bidirectional)
+    """(n/g,) owned shard → (n,) full buffer: the rings of
+    ``ring_reduce_scatter`` in the reverse order."""
+    for _, comm in reversed(_ring_hops(axes, mesh_shape, comms)):
+        shard = ref.ring_all_gather_ref(shard, comm, bidirectional=bidirectional)
+    return shard
 
 
 def ring_allreduce(buf: torch.Tensor, axes: tuple[str, ...],
-                   mesh_shape: Mapping[str, int], group: dist.ProcessGroup, *,
+                   mesh_shape: Mapping[str, int], comms, *,
                    bidirectional: bool = True) -> torch.Tensor:
     """Chunked ring allreduce = ring RS → ring AG (pads internally)."""
-    g = _ring_size(axes, mesh_shape, group)
+    g = 1
+    for size, _ in _ring_hops(axes, mesh_shape, comms):
+        g *= size
     if g == 1:
         return buf
     n = buf.numel()
     pad = (-n) % g
     if pad:
         buf = F.pad(buf, (0, pad))
-    shard = ring_reduce_scatter(buf, axes, mesh_shape, group,
+    shard = ring_reduce_scatter(buf, axes, mesh_shape, comms,
                                 bidirectional=bidirectional)
-    full = ring_all_gather(shard, axes, mesh_shape, group,
+    full = ring_all_gather(shard, axes, mesh_shape, comms,
                            bidirectional=bidirectional)
     return full[:n] if pad else full
 

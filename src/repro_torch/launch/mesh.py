@@ -1,19 +1,21 @@
 """Meshes and process-group setup (``repro/launch/mesh.py``).
 
-The port's ``Mesh`` is the reference mesh's shape alone: axis names and
-sizes.  Data parallelism spans every rank of the process group; the
-"model" axis has extent 1 until tensor parallelism is ported.
+The meshes are ``parallel/sharding.py::Mesh``es: axis names and sizes,
+ranks row-major over the axes (``Mesh.coords``/``Mesh.rank_of``).  The
+ranks of one model group (the same data coordinates) hold the shards of
+one replica and read the same rows of the batch
+(``parallel/sharding.py::dp_index``).
 
-A multi-pod mesh (``make_pod_mesh``; ``make_dp_mesh(multi_pod=True)``,
-the counterpart of ``make_production_mesh(multi_pod=True)``) is
-("pod", "data", "model") over a world of pods × data ranks, rank
-p·data + d at (p, d): the device order of the reference's mesh.  A pod's
-ranks are meant to share one host: the hierarchical reducers' intra-pod
-rings write into each other's memory (``core/dependency.py::pod_comms``).
+``make_mesh`` lays the initialized process group out as the production
+mesh: a "model" axis of the given extent (tensor parallelism, the
+reference's ``make_config(tp=mesh.shape["model"])``) and the rest of
+the world on "data", or on two pods with ``multi_pod`` (the counterpart
+of ``make_production_mesh(multi_pod=True)``).  A pod's ranks are meant
+to share one host: the hierarchical reducers' intra-pod rings write into
+each other's memory (``core/dependency.py::pod_comms``).
 """
 from __future__ import annotations
 
-import dataclasses
 import datetime
 import os
 import socket
@@ -22,43 +24,48 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.dependency import backend_for, resolve_device
-
-
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    axis_names: tuple[str, ...]
-    shape: dict[str, int]
+from repro_torch.parallel.sharding import Mesh
 
 
 def make_smoke_mesh(data: int = 1, model: int = 1) -> Mesh:
     """The reference's two-axis ("data", "model") mesh; both axes always
     present so every collective path runs."""
-    if model != 1:
-        raise NotImplementedError(
-            "a model axis > 1 is tensor parallelism: ROADMAP queue 1 item 9")
+    if data < 1 or model < 1:
+        raise ValueError(f"a mesh needs data, model >= 1; got {data} x {model}")
     return Mesh(("data", "model"), {"data": data, "model": model})
 
 
-def make_pod_mesh(pods: int, data: int) -> Mesh:
+def make_pod_mesh(pods: int, data: int, model: int = 1) -> Mesh:
     """The reference's ("pod", "data", "model") mesh: ``pods`` pods of
-    ``data`` ranks each, rank p·data + d at (p, d), model extent 1."""
-    if pods < 1 or data < 1:
-        raise ValueError(f"a pod mesh needs pods, data >= 1; got {pods} x {data}")
-    return Mesh(("pod", "data", "model"), {"pod": pods, "data": data, "model": 1})
+    ``data`` × ``model`` ranks each, rank (p·data + d)·model + m at
+    (p, d, m)."""
+    if pods < 1 or data < 1 or model < 1:
+        raise ValueError(f"a pod mesh needs pods, data, model >= 1; got "
+                         f"{pods} x {data} x {model}")
+    return Mesh(("pod", "data", "model"), {"pod": pods, "data": data, "model": model})
+
+
+def make_mesh(model: int = 1, multi_pod: bool = False) -> Mesh:
+    """The initialized process group as the production mesh: a "model"
+    axis of extent ``model`` and the rest of the world on "data" (with
+    ``multi_pod`` on two pods of equal "data" extent).  A world that
+    does not split so raises."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide a world of {world}")
+    dp = world // model
+    if not multi_pod:
+        return make_smoke_mesh(dp, model)
+    if dp < 2 or dp % 2:
+        raise ValueError(f"--multi-pod needs two equal pods; {dp} data-parallel "
+                         f"rank(s) do not split into two")
+    return make_pod_mesh(2, dp // 2, model)
 
 
 def make_dp_mesh(multi_pod: bool = False) -> Mesh:
-    """Data parallelism over every rank of the initialized process group;
-    with ``multi_pod`` as two pods of half the world each (the reference's
-    multi-pod production mesh has two pods).  A world that does not split
-    into two pods raises."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if not multi_pod:
-        return make_smoke_mesh(world)
-    if world < 2 or world % 2:
-        raise ValueError(f"--multi-pod needs a world of two equal pods; "
-                         f"{world} rank(s) do not split into two")
-    return make_pod_mesh(2, world // 2)
+    """Data parallelism over every rank of the process group (model
+    extent 1): ``make_mesh(1, multi_pod)``."""
+    return make_mesh(1, multi_pod)
 
 
 def _free_port() -> int:

@@ -18,7 +18,15 @@ sizes with ``--smoke`` and to the arch's training shape without.  The
 config gets the mesh's DP axes and ``depcha_in_scan`` exactly when the
 strategy sums inside the backward (depcha), with ``--smoke`` too.
 ``--multi-pod`` lays the world out as two pods (``launch/mesh.py``),
-which the hierarchical reducers reduce in three stages.
+which the hierarchical reducers reduce in three stages.  ``--model N``
+gives the mesh a "model" axis of extent N (tensor parallelism; the rest
+of the world is data-parallel) and the config ``tp=N``, as the reference
+sets ``make_config(tp=mesh.shape["model"])``; each rank draws the
+global weights from the seed and keeps its shards:
+
+    RANK=r WORLD_SIZE=4 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \
+        PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --smoke --device cpu --model 2 --strategy depcha --steps 2 --seq 32 --batch 4
 
 ``--zero1`` shards the optimizer state over the dp ranks (the optimizer
 wrapped in ``optim.zero1``, the dp axes excluded from the sync):
@@ -43,7 +51,7 @@ import torch.distributed as dist
 from repro_torch.configs import get_arch
 from repro_torch.core import GradSyncConfig, get_strategy, reducer_names, strategy_names
 from repro_torch.data import ImagePipeline, TokenPipeline
-from repro_torch.launch.mesh import init_dist, make_dp_mesh
+from repro_torch.launch.mesh import init_dist, make_mesh
 from repro_torch.models.registry import family_of
 from repro_torch.optim import adamw, cosine_warmup, sgd, zero1
 from repro_torch.parallel.sharding import dp_axes_of
@@ -84,26 +92,35 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--multi-pod", action="store_true",
                     help="two pods over the world: a (pod, data, model) mesh")
+    ap.add_argument("--model", type=int, default=1,
+                    help="extent of the mesh's model axis (tensor parallelism)")
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
     rank, _ = init_dist(args.device)
     try:
-        mesh = make_dp_mesh(multi_pod=args.multi_pod)
+        mesh = make_mesh(args.model, multi_pod=args.multi_pod)
         if args.smoke:
             cfg, batch, seq = arch.make_smoke(), args.batch or 8, args.seq or 64
         else:
             shape = arch.shapes[0]
             cfg = arch.make_config()
             batch, seq = args.batch or shape.global_batch, args.seq or shape.seq_len
-        cfg = dataclasses.replace(
-            cfg, dp_axes=dp_axes_of(mesh),
-            depcha_in_scan=get_strategy(args.strategy).uses_in_scan)
+        over = dict(dp_axes=dp_axes_of(mesh),
+                    depcha_in_scan=get_strategy(args.strategy).uses_in_scan)
+        if mesh.shape["model"] > 1:
+            if not hasattr(cfg, "tp"):
+                raise ValueError(f"{args.arch} has no model axis to shard over "
+                                 f"(--model {args.model})")
+            over["tp"] = mesh.shape["model"]
+        cfg = dataclasses.replace(cfg, **over)
         api = family_of(cfg)
         if api.module is None:
             raise NotImplementedError(
                 f"{api.family} training: ROADMAP queue 1 item 12")
-        model = api.module(cfg, api.init(cfg, seed=args.seed, device=args.device))
+        init_kw = dict(mesh=mesh, rank=rank) if mesh.shape["model"] > 1 else {}
+        model = api.module(cfg, api.init(cfg, seed=args.seed, device=args.device,
+                                         **init_kw))
         if arch.family in IMAGE_FAMILIES:
             pipe = ImagePipeline(cfg.img_size, cfg.num_classes, batch,
                                  seed=args.seed, mesh=mesh, rank=rank,

@@ -1,21 +1,104 @@
-"""Shared model building blocks (``repro/models/common.py``) at tp=1.
+"""Shared model building blocks (``repro/models/common.py``).
 
-The reference writes these for execution inside ``shard_map`` with
-explicit tensor-parallel collectives.  The port has no model axis yet,
-so ``embed_lookup`` and ``sharded_softmax_xent`` take tp=1 only;
-``col_parallel`` and ``row_parallel`` come with tensor parallelism
-(ROADMAP queue 1 item 9).  The numerics are the reference's: norms in
-f32 and cast back, RoPE products promoted to f32 before the cast back,
-the cross-entropy in f32.
+The reference writes these for execution inside ``shard_map`` on local
+shards, with explicit tensor-parallel collectives over the "model" axis.
+Here each rank holds its shards and the collectives run on a
+``ModelAxis``: the communicator of the rank's model group, its
+coordinate on the axis and the axis's extent, built from the mesh
+(``model_axis``) and passed down.
+
+``model_psum`` is the reference's ``psum`` over "model" under
+``shard_map(check_vma=False)``: an all-reduce whose backward is the same
+all-reduce of the cotangent (psum's transpose there is psum).  So every
+gradient comes out tp × its per-shard value, as the reference's does, and
+the train step divides by tp; a leaf replicated over "model" holds a
+partial gradient on each model rank, which the gradient sync sums over
+"model".  ``pmax`` runs on detached values only.
+
+The numerics are the reference's: norms in f32 and cast back, RoPE
+products promoted to f32 before the cast back, the cross-entropy in f32.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.core import dependency as dep
+from repro_torch.parallel.sharding import MODEL_AXIS
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The "model" mesh axis as one rank sees it: ``group`` the
+    communicator of its model group (None at extent 1), ``index`` its
+    coordinate (the reference's ``axis_index("model")``), ``size`` the
+    extent (tp)."""
+
+    group: dist.ProcessGroup | None
+    index: int
+    size: int
+
+
+NO_MODEL_AXIS = ModelAxis(None, 0, 1)
+
+
+def model_axis(mesh, device: str | torch.device = "cuda") -> ModelAxis:
+    """This rank's ``ModelAxis``: the communicator of its model group
+    (the ranks that share its other coordinates), its coordinate on
+    "model" and the axis's extent.  Collective: every rank creates every
+    model group (none at extent 1)."""
+    tp = mesh.shape.get(MODEL_AXIS, 1)
+    if tp == 1:
+        return NO_MODEL_AXIS
+    group = dep.coset_groups([(MODEL_AXIS,)], mesh, dep.resolve_device(device))[(MODEL_AXIS,)]
+    return ModelAxis(group, mesh.coords(dist.get_rank())[MODEL_AXIS], tp)
+
+
+class _ModelPsum(torch.autograd.Function):
+    """psum over "model" with psum as its transpose."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.contiguous().clone()
+        dep.collective(dist.all_reduce, group, out).wait()
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        out = g.contiguous().clone()
+        dep.collective(dist.all_reduce, ctx.group, out).wait()
+        return out, None
+
+
+def model_psum(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Sum ``x`` over the model group (identity at tp=1); its backward
+    sums the cotangent over the group too."""
+    if axis.size == 1:
+        return x
+    return _ModelPsum.apply(x, axis.group)
+
+
+def model_pmax(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Max of a detached ``x`` over the model group (no gradient)."""
+    if axis.size == 1:
+        return x
+    out = x.detach().contiguous().clone()
+    dep.collective(functools.partial(dist.all_reduce, op=dist.ReduceOp.MAX),
+                   axis.group, out).wait()
+    return out
+
+
+def _check_axis(tp: int, axis: ModelAxis) -> None:
+    if axis.size != tp:
+        raise ValueError(f"tp={tp} but the model axis has extent {axis.size}: pass "
+                         f"the rank's ModelAxis (models/common.py::model_axis)")
 
 
 # ---------------------------------------------------------------- numerics
@@ -77,45 +160,63 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
 
-# ------------------------------------------------------- vocab embedding
-def embed_lookup(emb: torch.Tensor, ids: torch.Tensor, tp: int) -> torch.Tensor:
-    """emb: (V, d); ids: (B, S) vocab ids → (B, S, d).  As the reference
-    at tp=1: an id outside [0, V) looks up a zero row."""
-    if tp != 1:
-        raise NotImplementedError(
-            "vocab-sharded embedding (tp > 1): ROADMAP queue 1 item 9")
-    v = emb.shape[0]
-    in_range = (ids >= 0) & (ids < v)
-    out = emb[ids.clamp(0, v - 1)]
-    return torch.where(in_range[..., None], out, torch.zeros((), dtype=emb.dtype,
-                                                             device=emb.device))
+# -------------------------------------------------- TP matmuls (explicit)
+def col_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x replicated, w column-sharded → output sharded (no collective)."""
+    return x @ w
+
+
+def row_parallel(x_sharded: torch.Tensor, w: torch.Tensor,
+                 axis: ModelAxis) -> torch.Tensor:
+    """x sharded on the contraction dim, w row-sharded → psum over model."""
+    return model_psum(x_sharded @ w, axis)
+
+
+# ------------------------------------------- vocab-sharded embedding/loss
+def embed_lookup(emb_local: torch.Tensor, ids: torch.Tensor, tp: int,
+                 axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+    """emb_local: (V/tp, d), this rank's vocab shard; ids: (B, S) global
+    vocab ids → (B, S, d).  Each rank looks up the ids inside its shard
+    (others → a zero row) and the psum over model rebuilds the full
+    embedding; at tp=1 an id outside [0, V) looks up a zero row."""
+    _check_axis(tp, axis)
+    v_local = emb_local.shape[0]
+    local_ids = ids - axis.index * v_local
+    in_shard = (local_ids >= 0) & (local_ids < v_local)
+    out = emb_local[local_ids.clamp(0, v_local - 1)]
+    out = torch.where(in_shard[..., None], out,
+                      torch.zeros((), dtype=emb_local.dtype, device=emb_local.device))
+    return model_psum(out, axis)
 
 
 def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
-                         tp: int) -> torch.Tensor:
-    """Per-token cross-entropy (B, S) of logits (B, S, V) against labels
-    (B, S), in f32, as the reference at tp=1: the max shift is held with
-    no gradient (the loss does not depend on it), and a label outside
-    [0, V) scores its true logit as 0."""
-    if tp != 1:
-        raise NotImplementedError(
-            "vocab-sharded cross-entropy (tp > 1): ROADMAP queue 1 item 9")
+                         tp: int, axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+    """Per-token cross-entropy (B, S) over a vocab sharded on the model
+    axis: logits_local (B, S, V/tp), labels (B, S) global ids, in f32.
+    The max shift is held with no gradient (the loss does not depend on
+    it; the pmax over model runs on detached values); the sum of
+    exponentials and the true logit are psums over model.  A label
+    outside the vocab scores its true logit as 0."""
+    _check_axis(tp, axis)
     logits = logits_local.float()
-    v = logits.shape[-1]
-    shifted = logits - logits.amax(dim=-1).detach()[..., None]
-    sumexp = torch.exp(shifted).sum(dim=-1)
-    ids = labels.long()
-    in_range = (ids >= 0) & (ids < v)
-    true_logit = shifted.gather(-1, torch.where(in_range, ids, 0)[..., None])[..., 0]
-    true_logit = torch.where(in_range, true_logit, 0.0)
+    v_local = logits.shape[-1]
+    gmax = model_pmax(logits.amax(dim=-1).detach(), axis)
+    shifted = logits - gmax[..., None]
+    sumexp = model_psum(torch.exp(shifted).sum(dim=-1), axis)
+    local_ids = labels.long() - axis.index * v_local
+    in_shard = (local_ids >= 0) & (local_ids < v_local)
+    true_logit = shifted.gather(-1, torch.where(in_shard, local_ids, 0)[..., None])[..., 0]
+    true_logit = model_psum(torch.where(in_shard, true_logit, 0.0), axis)
     return torch.log(sumexp) - true_logit
 
 
 # ------------------------------------------------------------ GQA helpers
 @dataclasses.dataclass(frozen=True)
 class HeadLayout:
-    """How q and kv heads distribute over the TP axis.  At tp=1 every
-    head is local; the fields keep the reference's meaning for tp > 1."""
+    """How q and kv heads distribute over the TP axis.  When kv_heads <
+    tp, each rank slices the replicated kv projection to the kv head(s)
+    its local q heads read (its gradient: the slice's transpose, summed
+    over model by the gradient sync of a replicated leaf)."""
 
     n_heads: int          # possibly padded up to a multiple of tp
     kv_heads: int
@@ -139,6 +240,11 @@ class HeadLayout:
         if self.kv_sharded:
             return self.kv_heads // self.tp
         return max(self.q_local // self.group, 1)
+
+    def kv_slice_start(self, index: int) -> int:
+        """First kv head the rank at model coordinate ``index`` needs
+        (only when not kv_sharded)."""
+        return (index * self.q_local) // self.group
 
 
 def pad_heads(n_heads: int, tp: int) -> int:

@@ -75,7 +75,8 @@ class RWKVConfig:
 def check_supported(cfg: RWKVConfig) -> None:
     if cfg.tp != 1:
         raise NotImplementedError(
-            f"{cfg.name}: tp={cfg.tp} — tensor parallelism, ROADMAP queue 1 item 9")
+            f"{cfg.name}: tp={cfg.tp} — rwkv's tensor parallelism comes with its "
+            f"training, ROADMAP queue 1 item 12")
 
 
 # ------------------------------------------------------------------ params

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM (``repro/models/transformer.py``): the
-dense training and serving paths at tp=1.
+dense training path at any tp and the serving paths at tp=1.
 
 Parameters are the reference's tree — the same nesting, leaf names and
 stacked ``(n_layers, ...)`` block leaves — so weights carry over by name
@@ -13,8 +13,17 @@ Ported: ``TransformerConfig`` (every field), ``init_params``,
 and depcha's in-backward sync through a ``LayerSync``), ``prefill`` (with
 ``last_pos``), ``decode_step`` (ring-buffer slot), ``decode_step_paged``,
 ``make_cache`` and the ``Transformer`` module.  A config that needs MoE,
-cross-attention, FSDP or tp > 1 raises ``NotImplementedError`` naming its
-ROADMAP item.
+cross-attention or FSDP raises ``NotImplementedError`` naming its
+ROADMAP item, and so do the serve functions at tp > 1.
+
+Tensor parallelism: each rank holds its shards of the "model"-sharded
+leaves (``param_rules``; ``init_params`` with a mesh and a rank draws
+the global tree and keeps the rank's blocks) and runs the reference's
+local-shard forward: q and the FFN's gate/up column-parallel, wo and
+wdown row-parallel with a psum over model after each, the vocab-sharded
+embedding and cross-entropy (``models/common.py``, on the ``ModelAxis``
+the caller passes).  When kv_heads < tp the replicated wk and wv are
+sliced at the rank's ``kv_slice_start``.
 
 The reference's serve functions return new caches (JAX donates the old
 ones).  Here ``decode_step`` and ``decode_step_paged`` write the new
@@ -27,6 +36,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core.dependency import resolve_device
@@ -34,17 +44,22 @@ from repro_torch.core.overlap import LayerSync, scan_layers
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (
     ACTIVATIONS,
+    NO_MODEL_AXIS,
     HeadLayout,
+    ModelAxis,
     apply_rope,
     dense_init,
     embed_lookup,
     pad_heads,
+    model_psum,
     rms_norm,
     rope_angles,
     sharded_softmax_xent,
     swiglu,
 )
-from repro_torch.parallel.sharding import MODEL_AXIS, ShardingRules, reduce_axes_tree
+from repro_torch.parallel.sharding import (MODEL_AXIS, ShardingRules, reduce_axes_tree,
+                                           shard_tree)
+from repro_torch.utils.trees import tree_map_with_names
 
 
 def _round_up(x: int, m: int) -> int:
@@ -119,21 +134,52 @@ def check_supported(cfg: TransformerConfig) -> None:
             f"{cfg.name}: cross-attention layers — ROADMAP queue 1 item 12")
     if cfg.fsdp:
         raise NotImplementedError(f"{cfg.name}: FSDP — ROADMAP queue 1 item 8")
+
+
+def check_serving(cfg: TransformerConfig) -> None:
+    """``check_supported``, and serving runs on one rank only."""
+    check_supported(cfg)
     if cfg.tp != 1:
         raise NotImplementedError(
-            f"{cfg.name}: tp={cfg.tp} — tensor parallelism, ROADMAP queue 1 item 9")
+            f"{cfg.name}: serving at tp={cfg.tp} — serving beyond one rank, "
+            f"ROADMAP queue 1 item 11")
 
 
 # ------------------------------------------------------------------ params
 def init_params(cfg: TransformerConfig, *, seed: int = 0,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda", mesh=None,
+                rank: int | None = None) -> dict:
     """The reference's parameter tree (``transformer.py::init_params``),
     drawn from a ``torch.Generator`` on ``device`` seeded with ``seed``
     (the draws differ from ``jax.random``'s; tests carry the reference's
-    weights over instead).  On the ``meta`` device only shapes are made.
-    CUDA unless the caller asks for the CPU; raises without a card."""
+    weights over instead).  With a ``mesh`` (and this process's ``rank``,
+    by default the process group's) the global tree is drawn and only
+    the rank's blocks are kept (``parallel/sharding.py::shard_tree``), so
+    a leaf replicated over "model" is equal on every model rank and the
+    shards of any tp put together are the tp=1 tree of the same seed.  On
+    the ``meta`` device only shapes are made.  CUDA unless the caller
+    asks for the CPU; raises without a card."""
     check_supported(cfg)
     device = resolve_device(device)
+    if mesh is not None:
+        if rank is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        if mesh.shape.get(MODEL_AXIS, 1) != cfg.tp:
+            raise ValueError(f"tp={cfg.tp} on a mesh with model extent "
+                             f"{mesh.shape.get(MODEL_AXIS, 1)}")
+        full = _draw_params(cfg, seed, device)
+        local = shard_tree(full, param_specs(full, cfg), mesh, rank)
+        out = tree_map_with_names(lambda _n, t: t.contiguous().clone(), local)
+        del full, local
+        return out
+    if cfg.tp != 1 and device.type != "meta":
+        raise ValueError(f"tp={cfg.tp}: pass the mesh and the rank, whose shards "
+                         f"init_params keeps")
+    return _draw_params(cfg, seed, device)
+
+
+def _draw_params(cfg: TransformerConfig, seed: int, device: torch.device) -> dict:
+    """The global tree of ``init_params``, drawn in its order."""
     gen = None
     if device.type != "meta":
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -258,24 +304,33 @@ def layer_sync(cfg: TransformerConfig, params: dict, mesh,
 
 
 # ----------------------------------------------------------------- blocks
-def _attn_qkv(p: dict, h: torch.Tensor, cfg: TransformerConfig):
-    """Project to q, k, v heads: (B, S, Hq, hd), (B, S, Hkv, hd) × 2."""
+def _attn_qkv(p: dict, h: torch.Tensor, cfg: TransformerConfig,
+              axis: ModelAxis = NO_MODEL_AXIS):
+    """Project to the rank's q, k, v heads: (B, S, q_local, hd),
+    (B, S, kv_local, hd) × 2.  With kv_heads < tp the replicated wk, wv
+    are sliced to the kv head(s) the rank's q heads read."""
     lay, hd = cfg.layout, cfg.hd
     q = (h @ p["wq"]).reshape(*h.shape[:2], lay.q_local, hd)
-    k = (h @ p["wk"]).reshape(*h.shape[:2], lay.kv_local, hd)
-    v = (h @ p["wv"]).reshape(*h.shape[:2], lay.kv_local, hd)
+    wk, wv = p["wk"], p["wv"]
+    if not lay.kv_sharded and cfg.tp > 1:
+        start = lay.kv_slice_start(axis.index) * hd
+        wk = wk.narrow(-1, start, lay.kv_local * hd)
+        wv = wv.narrow(-1, start, lay.kv_local * hd)
+    k = (h @ wk).reshape(*h.shape[:2], lay.kv_local, hd)
+    v = (h @ wv).reshape(*h.shape[:2], lay.kv_local, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"])
         k = rms_norm(k, p["knorm"])
     return q, k, v
 
 
-def _ffn(p: dict, h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def _ffn(p: dict, h: torch.Tensor, cfg: TransformerConfig,
+         axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
     if cfg.gated:
         a = swiglu(h @ p["wg"], h @ p["wu"])
     else:
         a = ACTIVATIONS[cfg.act](h @ p["wi"])
-    return a @ p["wdown"]
+    return model_psum(a @ p["wdown"], axis)
 
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -284,48 +339,58 @@ def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_residual(p: dict, x: torch.Tensor, o: torch.Tensor,
-                  cfg: TransformerConfig) -> torch.Tensor:
-    x = x + o @ p["wo"]
-    return x + _ffn(p, rms_norm(x, p["ln2"]), cfg)
+                  cfg: TransformerConfig, axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+    x = x + model_psum(o @ p["wo"], axis)
+    return x + _ffn(p, rms_norm(x, p["ln2"]), cfg, axis)
 
 
-def self_block(p: dict, x: torch.Tensor, cfg: TransformerConfig, rope):
+def self_block(p: dict, x: torch.Tensor, cfg: TransformerConfig, rope,
+               axis: ModelAxis = NO_MODEL_AXIS):
     """One decoder block over the whole sequence; rope = (cos, sin).
     Returns (x out, k, v), k after RoPE (prefill caches k and v)."""
     cos, sin = rope
-    q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg)
+    q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg, axis)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = attn_lib.attention(q, k, v, causal=True, window=cfg.swa_window,
                            chunk=cfg.attn_chunk, use_flash=cfg.use_flash)
-    return _mlp_residual(p, x, o.reshape(*x.shape[:2], -1), cfg), k, v
+    return _mlp_residual(p, x, o.reshape(*x.shape[:2], -1), cfg, axis), k, v
 
 
 def backbone(params: dict, x: torch.Tensor, cfg: TransformerConfig, rope, *,
-             sync: Optional[LayerSync] = None) -> torch.Tensor:
+             sync: Optional[LayerSync] = None,
+             axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
     """Every block, x: (B, S, d) → (B, S, d), under ``cfg.remat``; with
     ``sync`` each layer's gradient is reduced inside the backward."""
     check_supported(cfg)
-    return scan_layers(lambda p, h: self_block(p, h, cfg, rope)[0],
+    return scan_layers(lambda p, h: self_block(p, h, cfg, rope, axis)[0],
                        params["blocks"], x, sync=sync, remat=cfg.remat)
 
 
 # ------------------------------------------------------------------ train
 def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
-                  layer_sync: Optional[LayerSync] = None) -> torch.Tensor:
+                  layer_sync: Optional[LayerSync] = None,
+                  model_axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
     """Local-shard loss: the summed token cross-entropy over the GLOBAL
     token count (``batch["global_tokens"]``), so a sum of the gradients
     over the data-parallel ranks is the global mean.  ``frame_embeds``
     (musicgen's stub conditioning, (B, S, d)) is added to the token
-    embeddings when the config asks for it and the batch has it."""
+    embeddings when the config asks for it and the batch has it.
+
+    At tp > 1 ``params`` are the rank's shards and ``model_axis`` the
+    rank's ``ModelAxis``; the loss is then the same on every rank of a
+    model group, and (the reference's psum transpose) each gradient comes
+    out tp × its per-shard value."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.tp, model_axis).to(cfg.dtype)
     if cfg.frame_embeds and "frame_embeds" in batch:
         x = x + batch["frame_embeds"].to(cfg.dtype)
     rope = rope_angles(torch.arange(S, device=tokens.device), cfg.hd, cfg.rope_theta)
-    h = rms_norm(backbone(params, x, cfg, rope, sync=layer_sync), params["ln_f"])
-    per_tok = sharded_softmax_xent(h @ params["lm_head"], batch["labels"], cfg.tp)
+    h = rms_norm(backbone(params, x, cfg, rope, sync=layer_sync, axis=model_axis),
+                 params["ln_f"])
+    per_tok = sharded_softmax_xent(h @ params["lm_head"], batch["labels"], cfg.tp,
+                                   model_axis)
     return per_tok.sum() / batch["global_tokens"]
 
 
@@ -349,10 +414,10 @@ class Transformer(nn.Module):
         return {"embed": self.embed, "blocks": dict(self.blocks.items()),
                 "ln_f": self.ln_f, "lm_head": self.lm_head}
 
-    def forward(self, batch: dict, layer_sync: Optional[LayerSync] = None
-                ) -> torch.Tensor:
+    def forward(self, batch: dict, layer_sync: Optional[LayerSync] = None,
+                model_axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
         return train_forward(self.params_tree(), batch, self.cfg,
-                             layer_sync=layer_sync)
+                             layer_sync=layer_sync, model_axis=model_axis)
 
 
 # ------------------------------------------------------------------ serve
@@ -366,7 +431,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     last token; causality keeps every earlier position independent of the
     padding).  None returns the last position's.
     """
-    check_supported(cfg)
+    check_serving(cfg)
     B, S = tokens.shape
     lay, hd = cfg.layout, cfg.hd
     x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
@@ -391,7 +456,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
     window).  The new k/v are written into ``cache`` in place.  Returns
     (next_logits (B, V), cache).
     """
-    check_supported(cfg)
+    check_serving(cfg)
     B = token.shape[0]
     smax = cache["k"].shape[2]
     slot = pos % smax
@@ -427,7 +492,7 @@ def decode_step_paged(params: dict, pool_k: torch.Tensor, pool_v: torch.Tensor,
     are written into the pools in place.  Returns (logits (W, V), pool_k,
     pool_v).
     """
-    check_supported(cfg)
+    check_serving(cfg)
     W = tokens.shape[0]
     bs = pool_k.shape[2]
     MB = block_tables.shape[1]

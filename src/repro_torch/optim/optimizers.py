@@ -16,6 +16,9 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed
+
+from repro_torch.core import dependency as dep
 
 Tensors = dict[str, torch.Tensor]
 
@@ -89,11 +92,24 @@ def adamw(lr: Callable[[int], float] | float, b1: float = 0.9,
     return Optimizer(init, update)
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float
-                        ) -> tuple[Tensors, torch.Tensor]:
-    """Clip by the global grad norm (summed in the dict's order)."""
-    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads.values())
-    norm = torch.sqrt(sq)
+def clip_by_global_norm(grads: Tensors, max_norm: float, *,
+                        model_sharded: frozenset[str] = frozenset(),
+                        model_group=None) -> tuple[Tensors, torch.Tensor]:
+    """Clip by the global grad norm (summed in the dict's order).
+
+    Under tensor parallelism (``model_group``, the rank's model group)
+    ``model_sharded`` names the leaves sharded over "model": their
+    squares are summed over the group too, and the replicated leaves'
+    (equal on every model rank after the sync) counted once, so every
+    model rank clips by the same, global norm.  (The reference clips by
+    the squares of each model rank's own shards; ROADMAP queue 3.)"""
+    parts = [torch.sum(torch.square(g.to(torch.float32))) for g in grads.values()]
+    sharded = sum((p for k, p in zip(grads, parts) if k in model_sharded),
+                  torch.zeros(1, device=parts[0].device))
+    if model_group is not None:
+        dep.collective(torch.distributed.all_reduce, model_group, sharded).wait()
+    norm = torch.sqrt(sharded[0] + sum(p for k, p in zip(grads, parts)
+                                       if k not in model_sharded))
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {k: (g.to(torch.float32) * scale).to(g.dtype)
             for k, g in grads.items()}, norm

@@ -41,6 +41,7 @@ from repro_torch.core.schedule import (
 )
 from repro_torch.kernels.collectives import ops as coll_ops
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.parallel.sharding import MODEL_AXIS, Mesh
 from repro_torch.utils.trees import flatten_with_names, tree_leaves
 
 SHARD = "shard"     # the inner optimizer's one key
@@ -114,10 +115,15 @@ def zero1(inner: Optimizer, dp_axes: tuple[str, ...], dp_size: int) -> Optimizer
         mesh_shape = {a: 1 for a in dp_axes}
         mesh_shape[dp_axes[0]] = dp_size
         if device not in comms:
-            comms[device] = (dep.chain_groups([0], device),
+            # the dp group: the ranks of this rank's model coordinate
+            # (ranks are row-major with "model" last: tp = world / dp)
+            mesh = Mesh((*dp_axes, MODEL_AXIS),
+                        {**mesh_shape, MODEL_AXIS: dist.get_world_size() // dp_size})
+            comms[device] = (dep.mesh_comms([0], [dp_axes], mesh, device),
                              dep.ChainStreams([0], device))
         groups, streams = comms[device]
-        rank = dist.get_rank(groups[0])
+        dp_group = groups[0].get(dp_axes)
+        rank = dist.get_rank(dp_group) if dp_group is not None else 0
         params_flat = [params[n] for n in names]
         carry: dict[str, Any] = {}
 

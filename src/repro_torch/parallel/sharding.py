@@ -1,4 +1,4 @@
-"""Sharding rules, the subset the data-parallel slice uses.
+"""Sharding rules, and the cut of a global tree into one rank's shards.
 
 A param spec is a tuple with one entry per dim: the mesh axis (or tuple
 of axes) the dim is sharded over, or None (``()`` = replicated) — the
@@ -9,15 +9,53 @@ grad-sync strategy in ``repro_torch.core`` follows
 (``repro/parallel/sharding.py``).  ``ShardingRules`` maps leaf names to
 specs by regex, first match wins, so the bucket plans group leaves by
 the reference's reduce axes.
+
+``shard_tree`` is the port's counterpart of ``jax.device_put(tree,
+NamedSharding(mesh, spec))``: it keeps the block of each leaf that a
+rank holds, by the rank's coordinates (``Mesh.coords``).
+
+``Mesh`` is the reference mesh's shape alone: axis names and sizes.  Its
+ranks follow the reference mesh's device order, row-major over the axes
+(the last fastest): on ("data", "model") rank d·tp + m is at (d, m); on
+("pod", "data", "model") rank (p·data + d)·tp + m is at (p, d, m).
+``localize_structs`` gives the shapes of those blocks, as the
+reference's does for its ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Iterable
 
 MODEL_AXIS = "model"
 DP_AXES = ("pod", "data")  # subset actually present in the mesh is used
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    axis_names: tuple[str, ...]
+    shape: dict[str, int]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape[a] for a in self.axis_names)
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """Rank → its coordinate on every axis (row-major, the last axis
+        fastest: the reference mesh's device order)."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is outside a mesh of {self.size}")
+        out = {}
+        for a in reversed(self.axis_names):
+            rank, out[a] = divmod(rank, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords.get(a, 0)
+        return r
 
 
 def dp_axes_of(mesh) -> tuple[str, ...]:
@@ -40,6 +78,87 @@ def missing_axes(spec: Iterable, mesh) -> tuple[str, ...]:
     """Mesh axes NOT appearing in ``spec`` — grads are summed over these."""
     have = flat_spec_axes(spec)
     return tuple(a for a in mesh.axis_names if a not in have)
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def local_shape(shape: Iterable[int], spec: Iterable, mesh) -> tuple[int, ...]:
+    """A leaf's global shape → the shape of one rank's block under
+    ``spec``: each dim divided by the sizes of the axes it is sharded
+    over (the reference's ``localize_structs`` of one leaf)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        for a in _entry_axes(entry):
+            if out[dim] % mesh.shape[a]:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                                 f"over {a!r} of {mesh.shape[a]}")
+            out[dim] //= mesh.shape[a]
+    return tuple(out)
+
+
+def localize_structs(tree: Any, specs: Any, mesh) -> Any:
+    """Global leaves (anything with ``shape`` and ``dtype``: tensors,
+    ``meta`` tensors) → ``meta`` tensors of each rank's block shape
+    (``repro/parallel/sharding.py::localize_structs``)."""
+    import torch
+
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    named, treedef = flatten_with_names(tree)
+    spec_of = dict(flatten_with_names(specs)[0])
+    return tree_unflatten(treedef, [
+        torch.empty(local_shape(l.shape, spec_of[n], mesh), dtype=l.dtype, device="meta")
+        for n, l in named])
+
+
+def shard_leaf(x, spec: Iterable, mesh, coords: dict[str, int]):
+    """The block of ``x`` that the rank at ``coords`` holds under
+    ``spec`` (a view; a dim sharded over several axes is split
+    row-major over them, as the reference's mesh lays them out)."""
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        n = 1
+        idx = 0
+        for a in axes:
+            n *= mesh.shape[a]
+            idx = idx * mesh.shape[a] + coords[a]
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, idx * size, size)
+    return x
+
+
+def shard_tree(tree: Any, specs: Any, mesh, rank: int) -> Any:
+    """Rank ``rank``'s blocks of a global tree (``shard_leaf`` of every
+    leaf by its spec; replicated leaves whole).  The counterpart of
+    ``jax.device_put(tree, NamedSharding(mesh, specs))`` for one device."""
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    coords = mesh.coords(rank)
+    named, treedef = flatten_with_names(tree)
+    spec_of = dict(flatten_with_names(specs)[0])
+    return tree_unflatten(treedef, [shard_leaf(l, spec_of[n], mesh, coords)
+                                    for n, l in named])
+
+
+def batch_spec(mesh) -> tuple:
+    """Batch dim sharded over every data-parallel axis present."""
+    dp = dp_axes_of(mesh)
+    return (dp if len(dp) > 1 else (dp[0] if dp else None),)
+
+
+def dp_index(rank: int, mesh) -> int:
+    """The rank's data-parallel index: its coordinates on the dp axes,
+    row-major (the batch slice ``batch_spec`` gives it; every rank of a
+    model group reads the same one)."""
+    return rank // mesh.shape.get(MODEL_AXIS, 1)
 
 
 def local_batch(global_batch: int, mesh) -> int:

@@ -52,7 +52,8 @@ from repro_torch.utils.trees import flatten_with_names
 def _tp1(tp: int) -> None:
     if tp != 1:
         raise NotImplementedError(
-            "vocab-sharded sampling (tp > 1): ROADMAP queue 1 item 9")
+            "vocab-sharded sampling (tp > 1): serving beyond one rank, "
+            "ROADMAP queue 1 item 11")
 
 
 # ------------------------------------------------------------- samplers

@@ -1,5 +1,5 @@
-"""Training runtime: the data-parallel step factory and the loop
-(``repro/runtime/train_loop.py``).
+"""Training runtime: the data × model parallel step factory and the
+loop (``repro/runtime/train_loop.py``).
 
 One step: forward and backward on the local batch (split into
 ``microbatch`` microbatches whose gradients are summed into f32
@@ -25,6 +25,19 @@ summed inside the backward, one collective a layer (``core/overlap.py::
 LayerSync``, set up once here, begun and finished around each
 microbatch), and the post-backward schedule skips them.
 
+Tensor parallelism (a mesh with a "model" extent tp > 1, the config's
+``tp``): each rank holds its shards, the forward runs on the rank's
+``ModelAxis`` (``models/common.py::model_axis``), and, as the reference's
+``shard_map(check_vma=False)`` step, every gradient comes out tp × its
+per-shard value and is divided by tp: here the loss is divided by tp
+before the backward, which for tp a power of two is bit-identical.  The
+bucket plan is built on the local shard shapes; a replicated leaf's
+partial gradient is summed over "model" by the sync (its reduce axes
+include "model").  The loss is summed over the dp axes only.  Clipping
+takes the global norm: the model-sharded leaves' squares summed over
+"model", the replicated leaves' counted once (the reference clips by
+each model rank's own shards: ROADMAP queue 3).
+
 Each stage runs under a profiler label (``step.gather_pending``,
 ``step.forward``, ``step.backward``, ``step.gradsync``,
 ``step.depcha_wait``, ``step.optimizer``, ``step.loss_allreduce``;
@@ -44,7 +57,8 @@ from torch.profiler import record_function
 
 from repro_torch.core import GradSync, GradSyncConfig, get_strategy
 from repro_torch.core import dependency as dep
-from repro_torch.core.dependency import chain_groups, resolve_device
+from repro_torch.core.dependency import coset_groups, reduce_key, resolve_device
+from repro_torch.models.common import model_axis
 from repro_torch.models.registry import family_of
 from repro_torch.obs import EventLog, MetricsRegistry, comm_byte_counters, heartbeat_line
 from repro_torch.optim.optimizers import (
@@ -53,7 +67,7 @@ from repro_torch.optim.optimizers import (
     clip_by_global_norm,
 )
 from repro_torch.optim.zero import scheduled_update, zero1_pending, zero1_state
-from repro_torch.parallel.sharding import dp_axes_of
+from repro_torch.parallel.sharding import MODEL_AXIS, dp_axes_of, dp_index, flat_spec_axes
 from repro_torch.utils.trees import flatten_with_names, tree_leaves, tree_unflatten
 
 ZERO1_PLANS = ("scheduled", "deferred", "monolithic")
@@ -112,7 +126,7 @@ def make_train_step(
     pp_stages: int = 1,
     device: str | torch.device = "cuda",
 ) -> TrainStep:
-    """Build the data-parallel train step for one (arch, mesh, sync).
+    """Build the train step for one (arch, mesh, sync).
 
     ``model`` gives the parameter shapes (its ``params_tree()`` is the
     reference's tree).  The step updates the model's parameters and
@@ -154,6 +168,10 @@ def make_train_step(
     params_like = model.params_tree()
     dp = dp_axes_of(mesh)
     dp_size = math.prod(mesh.shape[a] for a in dp)
+    tp = mesh.shape.get(MODEL_AXIS, 1)
+    if getattr(cfg, "tp", 1) != tp:
+        raise ValueError(f"the config's tp={getattr(cfg, 'tp', 1)} is not the mesh's "
+                         f"model extent {tp}")
     # sum leaves inside the backward, and skip them from the post-backward
     # schedule, ONLY when the strategy and the config both ask for it
     in_scan = (api.in_scan_names(params_like)
@@ -186,11 +204,18 @@ def make_train_step(
         if layer_sync is None or set(layer_sync.names) != set(in_scan):
             raise ValueError(f"{api.family}: the in-backward sync does not cover "
                              f"the in-scan leaves")
-    gs = GradSync(sync, mesh, api.param_specs(params_like, cfg), params_like,
-                  in_scan_names=in_scan, device=device)
-    loss_group = chain_groups([0], device)[0]
-    rank = dist.get_rank()
+    specs = api.param_specs(params_like, cfg)
+    gs = GradSync(sync, mesh, specs, params_like, in_scan_names=in_scan, device=device)
+    # the loss is summed over the dp axes (None: a dp group of one)
+    loss_group = coset_groups([dp], mesh, device)[reduce_key(dp, mesh)]
+    rank = dp_index(dist.get_rank(), mesh)
     fwd_kw = {"layer_sync": layer_sync} if layer_sync is not None else {}
+    clip_kw = {}
+    if tp > 1:
+        axis = model_axis(mesh, device)
+        fwd_kw["model_axis"] = axis
+        clip_kw = dict(model_group=axis.group, model_sharded=frozenset(
+            n for n, sp in flatten_with_names(specs)[0] if MODEL_AXIS in flat_spec_axes(sp)))
 
     def init_opt():
         if zero1_scheduled:
@@ -244,7 +269,8 @@ def make_train_step(
             with record_function("step.forward"):
                 loss = api.train_forward(tree, batch, cfg, **fwd_kw)
             with record_function("step.backward"):
-                loss.backward()
+                # tp > 1: the gradients come out tp x (psum's transpose)
+                (loss / tp if tp > 1 else loss).backward()
         finally:
             for h in hooks:
                 h.remove()
@@ -334,13 +360,14 @@ def make_train_step(
                 if clip_norm and not zero1_mode:
                     # (monolithic zero1 does not clip: its gradients are
                     # not yet summed over dp here, as in the reference)
-                    grads, gnorm = clip_by_global_norm(grads, clip_norm)
+                    grads, gnorm = clip_by_global_norm(grads, clip_norm, **clip_kw)
                 updates, opt_state = optimizer.update(grads, opt_state, params,
                                                       step_idx)
                 del grads
                 apply_updates(params, updates)
         with record_function("step.loss_allreduce"):
-            dep.collective(dist.all_reduce, loss_group, loss).wait()
+            if loss_group is not None:
+                dep.collective(dist.all_reduce, loss_group, loss).wait()
         return model, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return TrainStep(step, gs, device, layer_sync, init_opt,

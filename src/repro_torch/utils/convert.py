@@ -4,7 +4,11 @@
 by reference leaf name (``repro.utils.trees.flatten_with_names`` of a
 JAX param tree, each leaf through ``np.asarray``) and gives the port's
 parameter tree: the same nesting, the same names, torch tensors on
-``device``.  Both packages then compute the same function.
+``device``.  Both packages then compute the same function.  With a
+``mesh`` and a ``rank`` it keeps only that rank's block of each leaf
+(``parallel/sharding.py::shard_leaf`` by the leaf's spec under
+``rules``): what the reference's ``device_put`` with a ``NamedSharding``
+puts on that device.
 """
 from __future__ import annotations
 
@@ -48,7 +52,16 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
 
 
 def params_from_numpy(named: Mapping[str, np.ndarray],
-                      device: str | torch.device = "cpu") -> Any:
-    """Reference params (name → numpy array) → the port's param tree."""
-    return unflatten_names({n: tensor_from_numpy(a).to(device)
-                            for n, a in named.items()})
+                      device: str | torch.device = "cpu", *, mesh=None,
+                      rank: int = 0, rules=None) -> Any:
+    """Reference params (name → numpy array) → the port's param tree; with
+    ``mesh`` (and ``rules``, a ``ShardingRules``) rank ``rank``'s blocks."""
+    if mesh is None:
+        return unflatten_names({n: tensor_from_numpy(a).to(device)
+                                for n, a in named.items()})
+    from repro_torch.parallel.sharding import shard_leaf
+
+    coords = mesh.coords(rank)
+    return unflatten_names({
+        n: shard_leaf(tensor_from_numpy(a), rules.spec(n), mesh, coords)
+        .contiguous().to(device) for n, a in named.items()})

@@ -1,7 +1,10 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
-    python tests/_torch_mdworker.py <workdir> <rank> <world> [grads|rings|compressed|hier|lm|inception|zero1]
-    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1>
+    python tests/_torch_mdworker.py <workdir> <rank> <world> [MODE]
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*>
+
+MODE: grads (the default), rings, compressed, hier, lm, inception, zero1,
+tp-2x2, tp-1x4 or tp-ops.
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -61,6 +64,25 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               the dp plan's bucket sizes to ``zero1-<run>_rank<r>.npz``;
               then whether ``make_train_step`` refuses zero1 with
               depcha's in-backward sum at dp 4 (``zero1-in-scan_rank<r>.npz``).
+
+  tp-<mesh>   (tests/test_torch_tp.py) tensor parallelism on the
+              ("data", "model") mesh ``TP_MESHES[<mesh>]``, the f32
+              ``TP_CFG`` (the reference's ``mk_dense``) from
+              ``workdir/tp_params.npz``, each rank holding its shards: for
+              each (strategy, reducer) of ``TP_GRADS`` the loss (summed
+              over "data") and the rank's reduced gradient shards, as
+              ``tests/_mdworker.py::loss_and_grads`` computes them; one
+              SGD step clipped at ``TP_CLIP`` (params, grad norm); on
+              2x2 also ``TP_STEPS`` AdamW steps through ``Trainer``
+              (depcha in-backward), the ZeRO-1 runs of ``TP_ZERO1``, and
+              the hierarchical reducer's gradients on the pod mesh
+              ``TP_POD_MESH``; to ``tp-<mesh>_rank<r>.npz``.
+  tp-ops      (tests/test_torch_tp.py, test_torch_lm_train.py,
+              test_torch_transformer.py) the vocab-sharded embedding and
+              cross-entropy and the column/row-parallel matmuls over a
+              model axis of ``world`` ranks, with their gradients, on
+              the inputs of ``workdir/tp_ops.npz``, to
+              ``tp-ops_rank<r>.npz``.
 
 ``layer_sync_rank`` is one of 2 processes on ``cuda:0`` for
 tests/test_torch_cuda.py: depcha's in-backward slot staging and the
@@ -146,6 +168,65 @@ ZERO1_RUNS = {
 }
 
 
+# tensor parallelism: the reference's mk_dense (tests/_mdworker.py), f32
+TP_CFG = dict(name="dense", n_layers=2, d_model=64, n_heads=8, kv_heads=2, d_ff=128,
+              vocab=96, attn_chunk=16)
+TP_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}          # (data, model): kv 2 >= tp / < tp
+TP_POD_MESH = (2, 1, 2)                            # (pod, data, model)
+TP_SEQ, TP_BATCH, TP_SEED = 32, 4, 3
+TP_SYNC = dict(bucket_bytes=1 << 12, num_channels=3)   # compare_tp's
+# (strategy, reducer) -> run name; every registered strategy with flat
+TP_GRADS = {(st, "flat"): st for st in ("funnel", "concom", "depcha", "priority", "rsag")}
+TP_GRADS.update({("concom", red): red for red in ("ring", "compressed", "hierarchical")})
+TP_STEPS, TP_LR, TP_CLIP = 3, 0.1, 0.05
+# run -> zero1 plan (SGD with momentum, 2 steps), the last clipped at TP_CLIP
+TP_ZERO1 = {"zero1-scheduled": "scheduled", "zero1-monolithic": "monolithic",
+            "zero1-scheduled-clip": "scheduled"}
+
+
+def tp_config(tp: int, **over):
+    """``TP_CFG`` at ``tp``, f32, in either package (``ref=True``)."""
+    ref = over.pop("ref", False)
+    if ref:
+        import jax.numpy as jnp
+
+        from repro.models.transformer import TransformerConfig
+        return TransformerConfig(**TP_CFG, tp=tp, dtype=jnp.float32, **over)
+    import torch
+
+    from repro_torch.models.transformer import TransformerConfig
+    return TransformerConfig(**TP_CFG, tp=tp, dtype=torch.float32, **over)
+
+
+def tp_ops_inputs(seed: int = 0, **over) -> dict:
+    """The ``tp-ops`` mode's inputs (``over`` replaces any): a 12-row
+    vocab and 12 hidden units, so a model axis of 2, 3 or 4 splits them;
+    ids and labels partly outside the vocab."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    out = dict(
+        emb=rng.standard_normal((12, 8)).astype(f32),
+        ids=rng.integers(-2, 14, (2, 5)).astype(np.int32),
+        emb_cot=rng.standard_normal((2, 5, 8)).astype(f32),
+        logits=(rng.standard_normal((2, 5, 12)) * 4).astype(f32),
+        labels=rng.integers(-2, 14, (2, 5)).astype(np.int32),
+        x=rng.standard_normal((2, 5, 8)).astype(f32),
+        w1=(rng.standard_normal((8, 12)) / 3).astype(f32),
+        w2=(rng.standard_normal((12, 8)) / 3).astype(f32),
+        mlp_cot=rng.standard_normal((2, 5, 8)).astype(f32))
+    out.update(over)
+    return out
+
+
+def run_tp_ops(workdir, world: int, **over) -> list[dict]:
+    """``tp-ops`` over a model axis of ``world`` gloo ranks on
+    ``tp_ops_inputs(**over)``; each rank's results."""
+    np.savez(os.path.join(workdir, "tp_ops.npz"), **tp_ops_inputs(**over))
+    run_all(workdir, "tp-ops", world=world)
+    return [dict(np.load(os.path.join(workdir, f"tp-ops_rank{r}.npz")))
+            for r in range(world)]
+
+
 def zero1_sync(strategy: str, reducer: str, zero1: bool) -> dict:
     """GradSyncConfig's fields of a zero1 run, on both sides: several
     buckets a channel at the model's size."""
@@ -225,15 +306,18 @@ def _grads(workdir: str, rank: int) -> None:
 
 def _rings(workdir: str, rank: int) -> dict:
     import torch
-    import torch.distributed as dist
 
+    from repro_torch.core import dependency as dep
     from repro_torch.kernels.collectives import ops
+    from repro_torch.parallel.sharding import Mesh
 
     inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
-    groups = {4: dist.new_group(list(range(WORLD)), backend="gloo")}
-    pairs = [dist.new_group([0, 1], backend="gloo"),
-             dist.new_group([2, 3], backend="gloo")]
-    groups[2] = pairs[rank // 2]
+    cpu = torch.device("cpu")
+    # a ring of 4 over "data"; rings of 2 over "ring" (ranks {0, 1}, {2, 3})
+    groups = {4: dep.mesh_comms([0], [("data",)], Mesh(("data",), {"data": WORLD}), cpu)[0],
+              2: dep.mesh_comms([0], [("ring",)],
+                                Mesh(("pair", "ring"), {"pair": WORLD // 2, "ring": 2}),
+                                cpu)[0]}
     fns = {"rs": ops.ring_reduce_scatter, "ag": ops.ring_all_gather,
            "ar": ops.ring_allreduce}
     out = {}
@@ -247,14 +331,16 @@ def _rings(workdir: str, rank: int) -> dict:
 
 def _compressed(workdir: str, rank: int) -> dict:
     import torch
-    import torch.distributed as dist
 
     from repro_torch.core import compression
+    from repro_torch.core import dependency as dep
     from repro_torch.kernels import quantize
     from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.parallel.sharding import Mesh
 
     x = np.load(os.path.join(workdir, "inputs.npz"))["compressed"][rank]
-    group = dist.new_group(list(range(WORLD)), backend="gloo")
+    comms = dep.mesh_comms([0], [("data",)], Mesh(("data",), {"data": WORLD}),
+                           torch.device("cpu"))[0]
     counts = dict.fromkeys(CALLS, 0)
 
     def counted(module, name, key):
@@ -275,7 +361,7 @@ def _compressed(workdir: str, rank: int) -> dict:
     for case, use_ring in COMPRESSED_CASES.items():
         counts.update(dict.fromkeys(CALLS, 0))
         out[case] = compression.compressed_allreduce(
-            torch.from_numpy(x), ("data",), {"data": WORLD}, group,
+            torch.from_numpy(x), ("data",), {"data": WORLD}, comms,
             use_ring=use_ring).numpy()
         out[f"calls_{case}"] = np.array([counts[k] for k in CALLS])
     return out
@@ -302,12 +388,12 @@ def _hier(workdir: str, rank: int) -> None:
                     reduce_axes=axes, channel=0, bucket_id=0)
     out = {}
     for m, (pods, data) in HIER_MESHES.items():
-        shape = {"pod": pods, "data": data, "model": 1}
-        comm = dep.pod_comms({0: dist.group.WORLD}, pods, data, torch.device("cpu"))[0]
+        mesh = make_pod_mesh(pods, data)
+        comms = dep.mesh_comms([0], [axes], mesh, torch.device("cpu"))[0]
+        comms.pod = dep.pod_comms([0], pods, data, torch.device("cpu"))[0]
         for red in HIER_REDUCERS:
-            fn = make_reducer(red, shape, mean_axes=("pod", "data"))
-            group = comm if red.startswith("hierarchical") else dist.group.WORLD
-            out[f"{red}_{m}"] = fn(torch.from_numpy(x.copy()), bucket, group).wait().numpy()
+            fn = make_reducer(red, dict(mesh.shape), mean_axes=("pod", "data"))
+            out[f"{red}_{m}"] = fn(torch.from_numpy(x.copy()), bucket, comms).wait().numpy()
     np.savez(os.path.join(workdir, f"hier_rank{rank}.npz"), **out)
 
     cfg = make_smoke()
@@ -479,6 +565,157 @@ def _zero1(workdir: str, rank: int) -> None:
     except ValueError as e:
         refused = str(e)
     np.savez(os.path.join(workdir, f"zero1-in-scan_rank{rank}.npz"), refused=np.array(refused))
+
+
+def _tp(workdir: str, rank: int, mesh_name: str) -> None:
+    import copy
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import GradSync, GradSyncConfig, get_strategy
+    from repro_torch.core import dependency as dep
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_pod_mesh, make_smoke_mesh
+    from repro_torch.models.common import model_axis
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw, sgd, zero1
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    data, model = TP_MESHES[mesh_name]
+    mesh = make_smoke_mesh(data, model)
+    named = dict(np.load(os.path.join(workdir, "tp_params.npz")))
+    axis = model_axis(mesh, "cpu")
+    dp_group = dep.coset_groups([("data",)], mesh, torch.device("cpu"))[
+        dep.reduce_key(("data",), mesh)]
+    out = {}
+
+    def local_params(cfg, m=mesh):
+        return params_from_numpy(named, "cpu", mesh=m, rank=rank, rules=tf.param_rules(cfg))
+
+    def pipe(m=mesh):
+        return TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m,
+                             rank=rank, device="cpu")
+
+    def grads(strategy, reducer, m, ax, dp, cfg):
+        in_scan = get_strategy(strategy).uses_in_scan
+        cfg = dataclasses.replace(cfg, depcha_in_scan=in_scan)
+        tree = local_params(cfg, m)
+        leaves, treedef = flatten_with_names(tree)
+        for _, p in leaves:
+            p.requires_grad_(True)
+        ls = tf.layer_sync(cfg, tree, m, "cpu") if in_scan else None
+        gs = GradSync(GradSyncConfig(strategy=strategy, reducer=reducer, **TP_SYNC), m,
+                      tf.param_specs(tree, cfg), tree, device="cpu",
+                      in_scan_names=tf.in_scan_param_names(tree) if in_scan else frozenset())
+        if ls is not None:
+            ls.begin()
+        loss = tf.train_forward(tree, pipe(m).batch_at(0), cfg, layer_sync=ls, model_axis=ax)
+        (loss / cfg.tp).backward()
+        if ls is not None:
+            ls.finish([dict(leaves)[n] for n in ls.names])
+        reduced = gs(tree_unflatten(treedef, [p.grad for _, p in leaves]))
+        loss = loss.detach()
+        if dp is not None:
+            dep.collective(dist.all_reduce, dp, loss).wait()
+        return loss, reduced
+
+    cfg = tp_config(model, dp_axes=("data",))
+    out["batch"] = pipe().batch_at(0)["tokens"].numpy()
+    out.update({f"shard/{n}": p.numpy()
+                for n, p in flatten_with_names(local_params(cfg))[0]})
+    for (strategy, reducer), name in TP_GRADS.items():
+        loss, reduced = grads(strategy, reducer, mesh, axis, dp_group, cfg)
+        out[f"{name}/loss"] = loss.numpy()
+        out.update({f"{name}/grad/{n}": g.numpy() for n, g in flatten_with_names(reduced)[0]})
+
+    def train(run, opt, *, clip, steps, strategy="concom", plan=None):
+        c = dataclasses.replace(cfg, depcha_in_scan=get_strategy(strategy).uses_in_scan)
+        m = tf.Transformer(c, local_params(c))
+        sync = GradSyncConfig(strategy=strategy, exclude_axes=("data",) if plan else (),
+                              **TP_SYNC)
+        ts = make_train_step(c, mesh, sync, opt, model=m, clip_norm=clip,
+                             zero1_mode=plan is not None, zero1_plan=plan or "scheduled",
+                             device="cpu")
+        trainer = Trainer(ts, pipe(), log_every=steps, printer=lambda _s: None)
+        m, state, hist = trainer.run(m, ts.init_opt(), steps)
+        if ts.finalize is not None:
+            m = ts.finalize(copy.deepcopy(m), copy.deepcopy(state))
+        ts.gradsync.close()
+        out.update({f"{run}/loss/{k}": np.float32(v) for k, v in enumerate(hist["losses"])})
+        out[f"{run}/grad_norm"] = np.float32(hist["metrics"]["grad_norm"])
+        out.update({f"{run}/param/{n}": p.detach().numpy()
+                    for n, p in flatten_with_names(m.params_tree())[0]})
+
+    train("clip", sgd(TP_LR), clip=TP_CLIP, steps=1)
+    # the paper's KVStore over the ranks of this rank's data coordinate
+    from repro_torch.core import KVStore
+
+    kv = KVStore("depcha", reduce_axes=("model",), mesh_shape=dict(mesh.shape), device="cpu")
+    kv.push(0, torch.full((5,), float(rank + 1)))
+    out["kvstore"] = kv.pull(0).numpy()
+    if mesh_name == "2x2":
+        train("adamw", adamw(1e-3), clip=0.0, steps=TP_STEPS, strategy="depcha")
+        for run, plan in TP_ZERO1.items():
+            clip = TP_CLIP if run.endswith("-clip") else 0.0
+            opt = sgd(TP_LR) if clip else sgd(TP_LR, momentum=0.9)
+            train(run, zero1(opt, ("data",), data), clip=clip, steps=1 if clip else 2,
+                  plan=plan)
+        # the hierarchical reducer on pod 2 x data 1 x model 2: the pod
+        # stages at the rank's model coordinate, then a psum over "model"
+        pm = make_pod_mesh(*TP_POD_MESH)
+        out["pod/batch"] = pipe(pm).batch_at(0)["tokens"].numpy()
+        pax = model_axis(pm, "cpu")
+        pdp = dep.coset_groups([("pod", "data")], pm, torch.device("cpu"))[
+            dep.reduce_key(("pod", "data"), pm)]
+        for strategy in ("concom", "depcha"):
+            pcfg = tp_config(TP_POD_MESH[2], dp_axes=("pod", "data"),
+                             depcha_reducer="hierarchical", intra_size=TP_POD_MESH[1])
+            loss, reduced = grads(strategy, "hierarchical", pm, pax, pdp, pcfg)
+            run = f"pod-{strategy}"
+            out[f"{run}/loss"] = loss.numpy()
+            out.update({f"{run}/grad/{n}": g.numpy() for n, g in flatten_with_names(reduced)[0]})
+        out.update({f"pod/shard/{n}": p.numpy()
+                    for n, p in flatten_with_names(local_params(pcfg, pm))[0]})
+    np.savez(os.path.join(workdir, f"tp-{mesh_name}_rank{rank}.npz"), **out)
+
+
+def _tp_ops(workdir: str, rank: int, world: int) -> None:
+    """The model-axis building blocks over a model axis of ``world`` ranks
+    (mesh data 1 x model world), each with its gradient."""
+    import torch
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.common import model_axis
+    from repro_torch.models import common
+
+    inp = dict(np.load(os.path.join(workdir, "tp_ops.npz")))
+    axis = model_axis(make_smoke_mesh(1, world), "cpu")
+    out = {}
+
+    def shard(a, dim):
+        n = a.shape[dim] // world
+        return torch.from_numpy(np.ascontiguousarray(
+            np.take(a, range(rank * n, (rank + 1) * n), axis=dim))).requires_grad_(True)
+
+    emb = shard(inp["emb"], 0)
+    y = common.embed_lookup(emb, torch.from_numpy(inp["ids"]), world, axis)
+    (y * torch.from_numpy(inp["emb_cot"])).sum().backward()
+    out["embed"], out["embed_grad"] = y.detach().numpy(), emb.grad.numpy()
+    logits = shard(inp["logits"], 2)
+    loss = common.sharded_softmax_xent(logits, torch.from_numpy(inp["labels"]), world, axis)
+    loss.sum().backward()
+    out["xent"], out["xent_grad"] = loss.detach().numpy(), logits.grad.numpy()
+    x = torch.from_numpy(inp["x"]).requires_grad_(True)
+    w1, w2 = shard(inp["w1"], 1), shard(inp["w2"], 0)
+    y = common.row_parallel(torch.tanh(common.col_parallel(x, w1)), w2, axis)
+    (y * torch.from_numpy(inp["mlp_cot"])).sum().backward()
+    out.update(mlp=y.detach().numpy(), mlp_x_grad=x.grad.numpy(), mlp_w1_grad=w1.grad.numpy(),
+               mlp_w2_grad=w2.grad.numpy())
+    np.savez(os.path.join(workdir, f"tp-ops_rank{rank}.npz"), **out)
 
 
 def layer_sync_rank(rank: int, world: int, workdir: str, case: str) -> None:
@@ -663,15 +900,15 @@ def peer_rank(rank: int, world: int, workdir: str, case: str) -> None:
 
 
 def run_all(workdir, mode: str, *, reference_too: bool = False,
-            timeout: int = 300) -> None:
-    """Run the 4 port ranks of ``mode`` (and the JAX reference of it) in
-    ``workdir`` at once; raise with a failing process's output."""
+            timeout: int = 300, world: int = WORLD) -> None:
+    """Run the ``world`` port ranks of ``mode`` (and the JAX reference of
+    it) in ``workdir`` at once; raise with a failing process's output."""
     import subprocess
 
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
-    cmds = [[sys.executable, __file__, str(workdir), str(r), str(WORLD), mode]
-            for r in range(WORLD)]
+    cmds = [[sys.executable, __file__, str(workdir), str(r), str(world), mode]
+            for r in range(world)]
     if reference_too:
         cmds.append([sys.executable, __file__, str(workdir), "jax", mode])
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -697,7 +934,7 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
     from repro_torch.launch.mesh import init_dist
 
     torch.set_num_threads(1)
-    init_dist("cpu", init_method=f"file://{workdir}/store", rank=rank,
+    init_dist("cpu", init_method=f"file://{workdir}/store-{mode}", rank=rank,
               world_size=world)
     try:
         if mode == "grads":
@@ -710,6 +947,10 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _inception(workdir, rank)
         elif mode == "zero1":
             _zero1(workdir, rank)
+        elif mode.startswith("tp-") and mode != "tp-ops":
+            _tp(workdir, rank, mode[len("tp-"):])
+        elif mode == "tp-ops":
+            _tp_ops(workdir, rank, world)
         else:
             out = {"rings": _rings, "compressed": _compressed}[mode](workdir, rank)
             np.savez(os.path.join(workdir, f"{mode}_rank{rank}.npz"), **out)
@@ -834,6 +1075,160 @@ def _zero1_reference(workdir: str, mesh) -> dict:
     return out
 
 
+def _tp_reference(workdir: str, mesh_name: str) -> dict:
+    """The JAX package's tensor parallelism on ``TP_MESHES[mesh_name]``
+    (4 fake devices): ``tests/_mdworker.py::loss_and_grads`` for each run
+    of ``TP_GRADS``, the clipped SGD step, on 2x2 the AdamW steps, the
+    ZeRO-1 runs and the pod mesh's hierarchical gradients, and the tp=1
+    oracles on one device.  On 1x4 also each model rank's own clip norm
+    and replicated leaves after its clipped step (``fault/...``)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import GradSync, GradSyncConfig, get_strategy
+    from repro.data import TokenPipeline
+    from repro.models import transformer as tf
+    from repro.optim import adamw, sgd, zero1
+    from repro.optim.optimizers import apply_updates, clip_by_global_norm
+    from repro.parallel.sharding import batch_spec
+    from repro.runtime import make_train_step
+    from repro.utils.trees import flatten_with_names
+
+    auto = AxisType.Auto
+    params = tf.init_params(jax.random.PRNGKey(1), tp_config(1, ref=True))
+    saved = np.load(os.path.join(workdir, "tp_params.npz"))
+    for n, p in flatten_with_names(params)[0]:
+        np.testing.assert_array_equal(np.asarray(p), saved[n], err_msg=n)
+    data, model = TP_MESHES[mesh_name]
+    mesh = jax.make_mesh((data, model), ("data", "model"), axis_types=(auto,) * 2)
+    mesh1 = jax.make_mesh((1, 1), ("data", "model"), axis_types=(auto,) * 2,
+                          devices=jax.devices()[:1])
+    out = {}
+
+    def structs(t):
+        return jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), t)
+
+    def loss_and_grads(cfg, m, strategy, reducer):
+        rules = tf.param_rules(cfg)
+        pspecs = rules.tree_specs(params)
+        pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m)
+        batch = pipe.batch_at(0)
+        bspecs = {k: (P() if np.ndim(v) == 0 else batch_spec(m)) for k, v in batch.items()}
+        dp = tuple(a for a in ("pod", "data") if a in m.axis_names)
+        in_scan = tf.in_scan_param_names(params) if cfg.depcha_in_scan else frozenset()
+        sync = GradSyncConfig(strategy=strategy, reducer=reducer, **TP_SYNC)
+
+        def step(p, b):
+            loss, g = jax.value_and_grad(lambda q: tf.train_forward(q, b, cfg))(p)
+            if cfg.tp > 1:
+                g = jax.tree.map(lambda x: x / cfg.tp, g)
+            g = GradSync(sync, m, pspecs, structs(g), in_scan_names=in_scan)(g)
+            return jax.lax.psum(loss, dp), g
+
+        f = jax.jit(jax.shard_map(step, mesh=m, in_specs=(pspecs, bspecs),
+                                  out_specs=(P(), pspecs), check_vma=False))
+        ps = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(m, s), pspecs))
+        return f(ps, batch)
+
+    def save_grads(run, lg):
+        out[f"{run}/loss"] = np.asarray(lg[0])
+        out.update({f"{run}/grad/{n}": np.asarray(v) for n, v in flatten_with_names(lg[1])[0]})
+
+    for (strategy, reducer), name in TP_GRADS.items():
+        cfg = tp_config(model, ref=True, depcha_in_scan=get_strategy(strategy).uses_in_scan)
+        save_grads(name, loss_and_grads(cfg, mesh, strategy, reducer))
+    save_grads("tp1", loss_and_grads(tp_config(1, ref=True), mesh1, "concom", "flat"))
+
+    def train(run, m, cfg, opt, *, clip, steps, strategy="concom", plan=None):
+        pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m)
+        kw = dict(zero1_mode=True, zero1_plan=plan) if plan else {}
+        sync = GradSyncConfig(strategy=strategy, exclude_axes=("data",) if plan else (),
+                              **TP_SYNC)
+        ts = make_train_step(cfg, m, sync, opt, batch_like=pipe.batch_at(0),
+                             params_like=params, clip_norm=clip, **kw)
+        p = jax.device_put(params, ts.shardings(ts.param_specs))
+        state = ts.init_opt() if plan else opt.init(params)
+        for step in range(steps):
+            p, state, met = ts.fn(p, state, pipe.batch_at(step), jnp.int32(step))
+            out[f"{run}/loss/{step}"] = np.asarray(met["loss"])
+        out[f"{run}/grad_norm"] = np.asarray(met["grad_norm"])
+        out.update({f"{run}/param/{n}": np.asarray(v) for n, v in flatten_with_names(p)[0]})
+
+    # the clipped step's oracle: tp = 1 on one device
+    train("tp1-clip", mesh1, tp_config(1, ref=True), sgd(TP_LR), clip=TP_CLIP, steps=1)
+    train("clip", mesh, tp_config(model, ref=True), sgd(TP_LR), clip=TP_CLIP, steps=1)
+    if mesh_name == "2x2":
+        train("adamw", mesh, tp_config(model, ref=True, depcha_in_scan=True), adamw(1e-3),
+              clip=0.0, steps=TP_STEPS, strategy="depcha")
+        for run, plan in TP_ZERO1.items():
+            if run.endswith("-clip"):
+                continue          # held to tp1-clip: the reference's own clips per rank
+            train(run, mesh, tp_config(model, ref=True),
+                  zero1(sgd(TP_LR, momentum=0.9), ("data",), data), clip=0.0, steps=2,
+                  plan=plan)
+        pods, pdata, pmodel = TP_POD_MESH
+        pm = jax.make_mesh(TP_POD_MESH, ("pod", "data", "model"), axis_types=(auto,) * 3)
+        for strategy in ("concom", "depcha"):
+            cfg = tp_config(pmodel, ref=True, dp_axes=("pod", "data"),
+                            depcha_in_scan=get_strategy(strategy).uses_in_scan,
+                            depcha_reducer="hierarchical", intra_size=pdata)
+            save_grads(f"pod-{strategy}", loss_and_grads(cfg, pm, strategy, "hierarchical"))
+    else:
+        # the reference's plain clipped step inside shard_map, each model
+        # rank's norm and replicated leaves kept apart (stacked on "model")
+        cfg = tp_config(model, ref=True)
+        pspecs = tf.param_rules(cfg).tree_specs(params)
+        named_specs = dict(flatten_with_names(pspecs)[0])
+        rep = sorted(n for n, sp in named_specs.items() if sp == P())
+        pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=mesh)
+        batch = pipe.batch_at(0)
+        bspecs = {k: (P() if np.ndim(v) == 0 else batch_spec(mesh)) for k, v in batch.items()}
+        opt = sgd(TP_LR)
+
+        def step(p, b):
+            _, g = jax.value_and_grad(lambda q: tf.train_forward(q, b, cfg))(p)
+            g = jax.tree.map(lambda x: x / cfg.tp, g)
+            g = GradSync(GradSyncConfig(strategy="concom", **TP_SYNC), mesh, pspecs,
+                         structs(g))(g)
+            g, gnorm = clip_by_global_norm(g, TP_CLIP)
+            upd, _ = opt.update(g, opt.init(p), p, 0)
+            new = dict(flatten_with_names(apply_updates(p, upd))[0])
+            return gnorm[None], {n: new[n][None] for n in rep}
+
+        f = jax.jit(jax.shard_map(step, mesh=mesh, in_specs=(pspecs, bspecs),
+                                  out_specs=(P("model"), {n: P("model") for n in rep}),
+                                  check_vma=False))
+        ps = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(mesh, s), pspecs))
+        norms, leaves = f(ps, batch)
+        out["fault/norms"] = np.asarray(norms)
+        out.update({f"fault/param/{n}": np.asarray(v) for n, v in leaves.items()})
+
+    # the device order and what device_put gives each device: the
+    # params' blocks under their specs and the batch's rows
+    meshes = {"": mesh}
+    if mesh_name == "2x2":
+        meshes["pod/"] = jax.make_mesh(TP_POD_MESH, ("pod", "data", "model"),
+                                       axis_types=(auto,) * 3)
+    for tag, m in meshes.items():
+        out[f"{tag}device_ids"] = np.vectorize(lambda d: d.id)(m.devices)
+        cfg = tp_config(m.shape["model"], ref=True,
+                        dp_axes=tuple(a for a in ("pod", "data") if a in m.axis_names))
+        pspecs = tf.param_rules(cfg).tree_specs(params)
+        placed = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(m, s), pspecs))
+        for n, x in flatten_with_names(placed)[0]:
+            for sh in x.addressable_shards:
+                out[f"{tag}shard/{n}/{sh.device.id}"] = np.asarray(sh.data)
+        batch = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED,
+                              mesh=m).batch_at(0)
+        for sh in batch["tokens"].addressable_shards:
+            out[f"{tag}batch/{sh.device.id}"] = np.asarray(sh.data)
+    return out
+
+
 def reference(workdir: str, mode: str) -> None:
     """The JAX package's rings, compressed allreduce, hierarchical
     reducers, Inception steps or ZeRO-1 runs on 4 fake devices."""
@@ -846,7 +1241,7 @@ def reference(workdir: str, mode: str) -> None:
     from repro.core.compression import compressed_allreduce
     from repro.kernels.collectives import ops
 
-    inputs = ({} if mode in ("inception", "zero1")
+    inputs = ({} if mode in ("inception", "zero1") or mode.startswith("tp-")
               else dict(np.load(os.path.join(workdir, "inputs.npz"))))
     mesh4 = jax.make_mesh((WORLD,), ("data",), axis_types=(AxisType.Auto,))
     mesh22 = jax.make_mesh((2, 2), ("pair", "ring"),
@@ -860,7 +1255,9 @@ def reference(workdir: str, mode: str) -> None:
         return np.asarray(run(x.reshape(-1))).reshape(WORLD, -1)
 
     out = {}
-    if mode in ("inception", "zero1"):
+    if mode.startswith("tp-"):
+        out = _tp_reference(workdir, mode[len("tp-"):])
+    elif mode in ("inception", "zero1"):
         fn = _inception_reference if mode == "inception" else _zero1_reference
         out = fn(workdir, jax.make_mesh((WORLD, 1), ("data", "model"),
                                         axis_types=(AxisType.Auto,) * 2))

@@ -35,7 +35,9 @@ import torch.distributed as dist
 from _torch_mdworker import CALLS, COMPRESSED_CASES, WORLD, run_all
 from repro.core import compression as ref_compression
 from repro_torch.core import compression
+from repro_torch.core import dependency as dep
 from repro_torch.kernels.quantize import ops as quant_ops
+from repro_torch.parallel.sharding import Mesh
 
 N = 4 * 1024 + 100        # pads to M = 5,120 = 5 · 256 · 4
 M = 5 * 256 * WORLD
@@ -189,7 +191,8 @@ def test_phase_two_is_one_peer_sum_a_bucket(monkeypatch, n):
     monkeypatch.setattr(compression.dep, "collective", collective)
     monkeypatch.setattr(compression, "dequantize_sum_quantize_blocks", peer_sum)
     x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
-    got = compression.compressed_allreduce(x.clone(), ("data",), {"data": WORLD}, None)
+    comms = dep.ChainComms({("data",): "world"}, Mesh(("data",), {"data": WORLD}))
+    got = compression.compressed_allreduce(x.clone(), ("data",), {"data": WORLD}, comms)
     assert calls == [WORLD]
     m = -(-n // (256 * WORLD)) * 256 * WORLD
     q, s = compression.quantize_blockwise(torch.nn.functional.pad(x, (0, m - n)))

@@ -33,6 +33,7 @@ from repro.models import common as ref_common
 from repro.models import transformer as ref_tf
 from repro.parallel import sharding as ref_sharding
 from repro.utils.trees import flatten_with_names as ref_flatten
+from _torch_mdworker import run_tp_ops
 from repro_torch.configs import get_arch, param_structs
 from repro_torch.data import TokenPipeline
 from repro_torch.launch.mesh import make_smoke_mesh
@@ -151,7 +152,7 @@ def test_fsdp_rules_match_reference():
             ref_tf.param_rules(ref_cfg).spec(name)), name
 
 
-def test_xent_matches_reference():
+def test_xent_matches_reference(tmp_path):
     rng = np.random.default_rng(0)
     logits = (rng.standard_normal((2, 5, 33)) * 4).astype(np.float32)
     labels = rng.integers(-2, 36, (2, 5)).astype(np.int32)    # some out of range
@@ -169,8 +170,15 @@ def test_xent_matches_reference():
     got.sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad), rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        common.sharded_softmax_xent(x, torch.from_numpy(labels), 2)
+    # vocab-sharded over a model axis of 3 gloo ranks (33 = 3 x 11): every
+    # rank's loss is the full one, its logits' gradient 3 x its shard's
+    # (psum's transpose is psum, as in the reference's shard_map)
+    ranks = run_tp_ops(tmp_path, 3, logits=logits, labels=labels)
+    for r, got3 in enumerate(ranks):
+        np.testing.assert_allclose(got3["xent"], np.asarray(want), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got3["xent_grad"] / 3,
+                                   np.asarray(want_grad)[..., r * 11:(r + 1) * 11],
+                                   rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)

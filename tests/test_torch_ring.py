@@ -102,10 +102,44 @@ def test_ring_of_one_is_the_identity():
     assert out is buf
 
 
-def test_ring_over_two_axes_is_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ops.ring_reduce_scatter(torch.zeros(8), ("pod", "data"),
-                                {"pod": 2, "data": 2}, None)
+def test_ring_over_two_axes_is_refused(monkeypatch):
+    """A ring over two axes of size > 1 runs a ring an axis, each on its
+    axis's communicator of the chain's communicators (``get(axes)``): a
+    communicator whose size is not its axis's is refused; the
+    reduce-scatter runs the data ring, then the model ring on the data
+    ring's shard, and the all-gather the two in reverse (the reference's
+    decomposition).  The rings themselves run on 4 gloo ranks in
+    tests/test_torch_tp.py."""
+    sizes = {"data": 2, "model": 4}
+    calls = []
+
+    class Comms:
+        def get(self, axes):
+            return axes[0]
+
+    class OneGroup:
+        def get(self, axes):
+            return "world"
+
+    monkeypatch.setattr(ops.dist, "get_world_size", lambda group: 8)
+    with pytest.raises(ValueError, match="makes a ring of 2"):
+        ops.ring_reduce_scatter(torch.zeros(8), ("data", "model"), sizes, OneGroup())
+
+    def rs(buf, group, **kw):
+        calls.append(("rs", group, buf.numel()))
+        return buf[:buf.numel() // sizes[group]]
+
+    def ag(shard, group, **kw):
+        calls.append(("ag", group, shard.numel()))
+        return torch.cat([shard] * sizes[group])
+
+    monkeypatch.setattr(ops.dist, "get_world_size", lambda group: sizes[group])
+    monkeypatch.setattr(ops.ref, "ring_reduce_scatter_ref", rs)
+    monkeypatch.setattr(ops.ref, "ring_all_gather_ref", ag)
+    out = ops.ring_allreduce(torch.arange(14.0), ("data", "model"), sizes, Comms())
+    assert calls == [("rs", "data", 16), ("rs", "model", 8), ("ag", "model", 2),
+                     ("ag", "data", 8)]
+    assert out.shape == (14,)
 
 
 @pytest.fixture(scope="module")
@@ -147,15 +181,34 @@ def test_rank_r_owns_chunk_r(results, case):
 
 
 @pytest.mark.parametrize("name", ["hierarchical", "hierarchical_ring"])
-def test_hierarchical_reducers_are_registered_and_refused(name):
-    """Ported (tests/test_torch_hierarchical.py); what they still refuse is
-    a pod reduction that also spans another axis of size > 1 (item 9)."""
-    from repro_torch.core import Bucket, LeafInfo, make_reducer, reducer_names
+def test_hierarchical_reducers_are_registered_and_refused(name, monkeypatch):
+    """Ported (tests/test_torch_hierarchical.py).  A pod reduction that
+    also spans "model" runs the pod stages at the rank's model coordinate,
+    then a psum over "model" on the chain's model communicator; given a
+    chain's communicators without a PodComm it is refused.  On 4 gloo
+    ranks: tests/test_torch_tp.py (pod 2 x data 1 x model 2)."""
+    from repro_torch.core import Bucket, LeafInfo, make_reducer, reducer_names, strategies
+    from repro_torch.core import dependency as dep
+    from repro_torch.launch.mesh import make_pod_mesh
 
     assert name in reducer_names()
     shape = {"pod": 2, "data": 2, "model": 2}
     bucket = Bucket(leaves=(LeafInfo(name="x", index=0, shape=(8,),
                                      dtype=torch.float32, size=8),),
                     reduce_axes=("pod", "data", "model"), channel=0, bucket_id=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_reducer(name, shape)(torch.zeros(8), bucket, None)
+    calls = []
+    monkeypatch.setattr(strategies, "hierarchical_allreduce",
+                        lambda buf, pod, use_ring=False: calls.append(
+                            ("stages", pod, use_ring)) or buf + 1)
+    monkeypatch.setattr(strategies.dep, "collective",
+                        lambda fn, group, out, *ins: calls.append(("psum", group)) or dep.DONE)
+    mesh = make_pod_mesh(2, 2, 2)
+    comms = dep.ChainComms({("model",): "model-group"}, mesh)
+    with pytest.raises(ValueError, match="PodComm"):
+        make_reducer(name, shape)(torch.zeros(8), bucket, comms)
+    assert calls == []
+    pod = dep.PodComm("intra", "inter")
+    comms.pod = pod
+    out = make_reducer(name, shape)(torch.zeros(8), bucket, comms).wait()
+    assert calls == [("stages", pod, name == "hierarchical_ring"), ("psum", "model-group")]
+    assert torch.equal(out, torch.ones(8))

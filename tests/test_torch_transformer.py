@@ -22,6 +22,7 @@ from repro.models import attention as ref_attn
 from repro.models import common as ref_common
 from repro.models import transformer as ref_tf
 from repro.utils.trees import flatten_with_names as ref_flatten
+from _torch_mdworker import run_tp_ops
 from repro_torch.configs.qwen3_1_7b import make_smoke as qwen3_smoke
 from repro_torch.models import attention, common
 from repro_torch.models import transformer as tf
@@ -127,15 +128,21 @@ def test_apply_rope_bf16_promotes_like_reference():
                                atol=1e-2, rtol=1e-2)
 
 
-def test_embed_lookup_matches_reference(smoke_mesh):
+def test_embed_lookup_matches_reference(smoke_mesh, tmp_path):
     emb = np.random.default_rng(2).standard_normal((11, 4)).astype(np.float32)
     ids = np.array([[0, 3, 10, 11, -1]], np.int32)      # two out of range
     want = _jax_run(smoke_mesh, lambda e, i: ref_common.embed_lookup(e, i, 1),
                     jnp.asarray(emb), jnp.asarray(ids))
     got = common.embed_lookup(torch.from_numpy(emb), torch.from_numpy(ids), 1)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        common.embed_lookup(torch.from_numpy(emb), torch.from_numpy(ids), 2)
+    # vocab-sharded over a model axis of 2 gloo ranks, the table padded to
+    # 12 rows as the reference pads its vocab to a multiple of tp: every
+    # rank looks up the full rows (zero outside the vocab)
+    padded = np.concatenate([emb, np.zeros((1, 4), np.float32)])
+    ranks = run_tp_ops(tmp_path, 2, emb=padded, ids=ids,
+                       emb_cot=np.ones(ids.shape + (4,), np.float32))
+    for got2 in ranks:
+        np.testing.assert_array_equal(got2["embed"], np.asarray(want))
 
 
 @pytest.mark.parametrize("kw", [
@@ -275,6 +282,12 @@ def test_decode_step_paged_matches_reference(smoke_mesh, name):
     dict(moe=object()), dict(cross_attn_every=2), dict(fsdp=True), dict(tp=2)])
 def test_unported_features_raise(over):
     cfg = dataclasses.replace(qwen3_smoke(), **over)
+    if cfg.tp != 1:
+        # tp > 1 trains (tests/test_torch_tp.py); serving it is item 11
+        params = tf.init_params(cfg, device="meta")
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+            tf.prefill(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.init_params(cfg, device="meta")
 

@@ -450,6 +450,7 @@ def test_ring_reduce_scatter_handle_is_recorded_after_the_ring(group, monkeypatc
     from repro_torch.core import dependency as dep
     from repro_torch.core import schedule as sched
     from repro_torch.core.buckets import Bucket, BucketPlan, LeafInfo
+    from repro_torch.parallel.sharding import Mesh
 
     log = []
 
@@ -471,7 +472,9 @@ def test_ring_reduce_scatter_handle_is_recorded_after_the_ring(group, monkeypatc
     plan = BucketPlan((bucket,), flatten_with_names([torch.zeros(8)])[1], 1, torch.float32)
     rs = sched.CollectiveOp(op_id=0, bucket=bucket, chain=0, kind=sched.REDUCE_SCATTER)
     em = sched._OpEmitter(sched.CommSchedule((rs,)), plan, reducer=None,
-                          groups={0: dist.group.WORLD}, mesh_shape={"data": 4},
+                          groups={0: dep.ChainComms({("data",): dist.group.WORLD},
+                                                    Mesh(("data",), {"data": 4}))},
+                          mesh_shape={"data": 4},
                           two_phase_impl="ring")
     em.emit(rs, [torch.arange(8.0)])
     assert log.index(em.handles[0]._work) > log.index("ring")
