@@ -143,6 +143,25 @@ Phases, in order; any failure raises and exits non-zero:
               while planning (ResNet-50, Qwen3-1.7B depcha in-scan,
               Inception-BN; 1 and 8 ranks), and the port analyzer's
               cross-product summary: every planned cell clean.
+  lm_moe_kernels  rows 1-2 bit for bit against their plain versions at
+              this slice's layouts: granite-moe's post-backward buckets
+              (the f32 router beside the bf16 experts, f32 comm) and its
+              two depcha slots a layer (bf16; the router's f32), and rank
+              0's buckets and slots of Qwen3-1.7B with FSDP at data 2 x
+              model 2 (no FSDP leaf in them); granite's step timed.
+  lm_moe      granite-moe-1b-a400m at full width (24 layers, d 1024,
+              16/8 heads of 64, 32 experts, top 8, d_expert 512, bf16,
+              seeded weights) as lm_train (seq 1024 x batch 4, AdamW,
+              clip 1, remat dots, deterministic algorithms): funnel /
+              concom / depcha, 1 warm-up + 2 timed steps; losses
+              bit-identical; pack/unpack = the schedule's (+ two slots a
+              layer under depcha); the share of routed slots the first
+              step's forward drops (C 1280 at 4,096 tokens); a profiled
+              depcha step and its stages by CUDA events.
+  moe_cpu_vs_gpu  granite's and kimi's smoke configs (f32), one forward
+              and backward on the CPU and on the card from the same
+              weights and batch: loss and gradients within
+              ``MOE_CPU_GPU_TOL``.
   lm_tp_kernels  rows 1-2 at the tensor-parallel layout, bit for bit
               against their plain versions: every bucket of rank 0's
               shards of Qwen3-1.7B at data 1 x model 4 (reduce sets
@@ -171,6 +190,22 @@ Phases, in order; any failure raises and exits non-zero:
               hierarchical, and at data 2 x model 2 under ring (row 3 on
               the two-axis ring): loss, grad norm and clipped gradients at
               compare_tp's tolerances.
+  lm_fsdp     FSDP: four rank processes on the one card as lm_tp,
+              Qwen3-1.7B with ``fsdp=True`` at data 2 x model 2 (the
+              block matrices stored sharded over "data" too, gathered a
+              layer): funnel / concom / depcha, 1 warm-up + 2 timed
+              steps: step ms, tokens/s, peak GB and params a rank; the
+              FSDP gathers and reduce-scatters (and the model psums) a
+              step counted and sized against ``lm_fsdp_collectives``; no
+              FSDP leaf in a GradSync bucket, depcha passing them
+              through; the replicated leaves bit-identical across the
+              ranks; the first loss and grad norm against lm_train's
+              tp = 1 funnel.  Then f32 equivalences at the same mesh:
+              check 5 on ``mk_dense`` (one AdamW step against dp 1 x tp
+              1), ring and compressed (rows 3, 6-7) at compare_tp's
+              tolerances, and granite's smoke config with FSDP against
+              tp = 1 at the same dp.  (By hand on four cards:
+              ``phase_lm_fsdp(backend="nccl", data=4, model=1)``.)
   reducers    four rank processes spawned on the one card, each with all
               its compute on cuda:0 and gloo communicators staged through
               pinned host memory (NCCL refuses two ranks on one device;
@@ -308,6 +343,11 @@ Phases, in order; any failure raises and exits non-zero:
               through Server.generate on the CPU (plain versions) and on
               the GPU (kernel): tokens equal, prefill logits within 1e-4,
               one WKV launch a layer a prefill and a decode step.
+  moe_serve   RWKV's weights freed first.  granite-moe-1b-a400m at full
+              width (bf16, use_flash: row 8 at head_dim 64) through the
+              static engine with serve's prompts: greedy tokens, prefill
+              ms, decode ms a step, 48 flash launches (24 x 2 prefills),
+              row 8 on layer 0's q/k/v.
 
 The build compiles every kernel source at once (one nvcc each, in
 parallel).  Then it prints the ``{"kernels": [...]}`` line, the card's
@@ -821,7 +861,8 @@ def time_staging(buckets_and_leaves, comm) -> dict:
         res[name] = dict(ms=sum(turns["ms"]) / 2, library_ms=sum(turns["library_ms"]) / 2,
                          device_ms=device_ms_per_launch(fn, f"{name}_bucket_kernel", reps=10),
                          plain_ms=cuda_ms(plain, reps=5), bound_ms=bound, bound_by="bytes",
-                         launches=len(buckets_and_leaves), turns=turns)
+                         launches=sum(staging_launches(b) for b, _ in buckets_and_leaves),
+                         turns=turns)
     return res
 
 
@@ -962,12 +1003,13 @@ def lm_stage_spans(ts, model, opt_state, pipe, step: int = LM_STEPS + 1) -> dict
             "stages_in_order": list(dict.fromkeys(name for name, _, _ in marks))}
 
 
-def lm_run(strat: str, mesh, pipe, after=None) -> dict:
-    """One strategy's run of Qwen3-1.7B from the seeded weights: AdamW
-    (cosine warm-up), clip 1.0, 1 warm-up + ``LM_STEPS`` - 1 timed steps
-    over ``pipe``.  Pack and unpack must launch exactly the schedule's
-    buckets (plus one slot a layer under depcha) a step, and depcha must
-    issue one in-backward collective a layer a step, the others none.
+def lm_run(strat: str, mesh, pipe, after=None, cfg=None) -> dict:
+    """One strategy's run of Qwen3-1.7B (or ``cfg``) from the seeded
+    weights: AdamW (cosine warm-up), clip 1.0, 1 warm-up + ``LM_STEPS`` -
+    1 timed steps over ``pipe``.  Pack and unpack must launch exactly the
+    schedule's buckets (plus the slots of a layer, a layer, under depcha)
+    a step, and depcha must issue one in-backward collective a slot a
+    layer a step, the others none.
     ``after(ts, model, opt_state, run)`` runs before the run's state is
     freed; its result is kept under "after"."""
     from repro_torch.core import GradSyncConfig
@@ -977,7 +1019,7 @@ def lm_run(strat: str, mesh, pipe, after=None) -> dict:
     from repro_torch.runtime import Trainer, make_train_step
     from repro_torch.utils.trees import flatten_with_names
 
-    cfg = lm_config(strat)
+    cfg = cfg or lm_config(strat)
     model = Transformer(cfg, init_params(cfg, seed=0, device="cuda"))
     opt = adamw(cosine_warmup(3e-4, 10, 100))
     ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
@@ -994,12 +1036,12 @@ def lm_run(strat: str, mesh, pipe, after=None) -> dict:
         norms.append(hist["metrics"]["grad_norm"])
         collectives.append(ts.layer_sync.collectives if ts.layer_sync is not None else 0)
     launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
-    per_step = len(ts.gradsync.schedule.ops) + (
-        cfg.n_layers if ts.layer_sync is not None else 0)
+    slots = cfg.n_layers * len(ts.layer_sync.buckets) if ts.layer_sync is not None else 0
+    per_step = sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops) + slots
     if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
         raise AssertionError(f"lm {strat}: launches {launches}, expected "
                              f"{per_step} a step x {LM_STEPS}")
-    want = cfg.n_layers if strat == "depcha" else 0
+    want = slots if strat == "depcha" else 0
     if collectives != [want] * LM_STEPS:
         raise AssertionError(f"lm {strat}: in-backward collectives {collectives}, "
                              f"expected {want} a step")
@@ -1192,6 +1234,276 @@ def phase_lm_cpu_vs_gpu() -> None:
     log(f"[lm_cpu_vs_gpu] losses cpu {l_cpu} gpu {l_gpu} (rtol 1e-5); {c_gpu} in-backward "
         f"collectives in the last step on each; max param diff after 3 steps {worst} "
         f"(reported)")
+
+
+# ------------------------------------------------------------- MoE (LM)
+
+MOE_CPU_GPU_TOL = (1e-5, 1e-4)   # moe_cpu_vs_gpu: loss rtol; grads' max diff / leaf absmax
+
+
+def moe_config(strategy: str = "funnel"):
+    """granite-moe-1b-a400m at full width (24 layers, d 1024, 16/8 heads
+    of 64, 32 experts, top 8, d_expert 512, bf16), depcha's in-backward
+    sync on exactly under the strategies that use it."""
+    from repro_torch.configs.granite_moe_1b_a400m import make_config
+    from repro_torch.core import get_strategy
+
+    return make_config(depcha_in_scan=get_strategy(strategy).uses_in_scan)
+
+
+def moe_drops(cfg, params, batch) -> dict:
+    """The slots a forward of ``batch`` drops: each MoE layer's routed
+    (token, expert) pairs beyond an expert's capacity C, counted from the
+    layer's router on the layer's input (``moe_ffn`` wrapped by this
+    script, under no_grad)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    real, layers = tf.moe_ffn, []
+
+    def tally(p, x, mcfg, axis):
+        ids = torch.topk(torch.softmax(x.float() @ p["router"].float(), -1), mcfg.top_k).indices
+        counts = torch.bincount(ids.reshape(-1), minlength=mcfg.num_experts)
+        c = moe.capacity(x.shape[0], mcfg)
+        layers.append((int(ids.numel() - counts.clamp(max=c).sum()), ids.numel(), c))
+        return real(p, x, mcfg, axis)
+
+    tf.moe_ffn = tally
+    try:
+        with torch.no_grad():
+            tf.train_forward(params, batch, cfg)
+    finally:
+        tf.moe_ffn = real
+    dropped, routed = sum(d for d, _, _ in layers), sum(n for _, n, _ in layers)
+    return {"capacity": layers[0][2], "tokens": layers[0][1] // cfg.moe.top_k,
+            "dropped": dropped, "routed": routed, "share": dropped / routed,
+            "share_by_layer": [d / n for d, n, _ in layers]}
+
+
+def moe_plan():
+    """granite's post-backward bucket plan as GradSync builds it (4 MiB
+    buckets, 4 channels, f32 comm: the f32 router beside the bf16 experts)
+    and depcha's slots a layer (``layer_slots``: the bf16 leaves', the f32
+    router's), on ``meta``."""
+    from repro_torch.core import make_bucket_plan
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import _depcha_axes, init_params, param_specs
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = moe_config("depcha")
+    params = init_params(cfg, device="meta")
+    plan = make_bucket_plan(params, param_specs(params, cfg), make_smoke_mesh(1),
+                            bucket_bytes=4 * 1024 * 1024, num_channels=4)
+    _, slots = layer_slots(params["blocks"], _depcha_axes(cfg, params["blocks"], "blocks/"))
+    return plan, flatten_with_names(params)[0], slots, cfg
+
+
+def fsdp_plan(data: int = 2, model: int = 2):
+    """Rank 0's post-backward bucket plan of Qwen3-1.7B with FSDP at data
+    ``data`` x model ``model`` (its shards' shapes, 4 MiB buckets, f32
+    comm: no FSDP leaf in it) and its depcha slots (the FSDP leaves pass
+    through), on ``meta``."""
+    from repro_torch.core import make_bucket_plan
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import _depcha_axes, init_params, param_specs
+    from repro_torch.parallel.sharding import localize_structs
+    from repro_torch.utils.trees import flatten_with_names
+
+    mesh = make_smoke_mesh(data, model)
+    cfg = dataclasses.replace(lm_config("depcha"), tp=model, fsdp=True)
+    full = init_params(cfg, device="meta")
+    local = localize_structs(full, param_specs(full, cfg), mesh)
+    plan = make_bucket_plan(local, param_specs(local, cfg), mesh,
+                            bucket_bytes=4 * 1024 * 1024, num_channels=4)
+    return plan, flatten_with_names(local)[0], local["blocks"], \
+        _depcha_axes(cfg, local["blocks"], "blocks/"), cfg
+
+
+def layer_slots(blocks_meta, axes):
+    """The slots ``LayerSync`` stages a layer into, as it builds them: one
+    bucket a (reduce axes, dtype), the leaves with no reduce axes passed
+    through; with the stack's (name, leaf) list."""
+    from repro_torch.core.buckets import Bucket, LeafInfo
+    from repro_torch.utils.trees import flatten_with_names
+
+    stack = flatten_with_names(blocks_meta)[0]
+    groups: dict = {}
+    for j, ((_, w), ax) in enumerate(zip(stack, axes)):
+        if ax:
+            groups.setdefault((tuple(ax), w.dtype), []).append(j)
+    return stack, [(Bucket(tuple(LeafInfo(stack[j][0], j, tuple(stack[j][1].shape[1:]), dt,
+                                          stack[j][1][0].numel()) for j in idx), ax, 0, k), dt)
+                   for k, ((ax, dt), idx) in enumerate(groups.items())]
+
+
+def phase_lm_moe_kernels() -> dict:
+    """Rows 1-2 at this slice's layouts, bit for bit against their plain
+    versions (outputs started as NaN), one launch each way a dtype's group
+    of leaves (``staging_launches``): granite's post-backward buckets (bf16 experts and the f32
+    router, f32 comm) and depcha's two slots a layer (bf16, and the
+    router's f32: bit copies); rank 0's buckets of Qwen3-1.7B with FSDP at
+    data 2 x model 2 (no FSDP leaf in them) and its depcha slots.  Then a
+    step's worth of granite's timed in turns with one PyTorch call."""
+    from repro_torch.kernels.collectives import kernel
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plan, named, slot_buckets, cfg = moe_plan()
+    flat = [torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype) for _, p in named]
+    err, n_checks = 0.0, 0
+
+    def check(bucket, leaves, comm, what):
+        nonlocal err, n_checks
+        before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+        err = max(err, check_bucket(bucket, leaves, comm, 1.0))
+        n = staging_launches(bucket)          # one a dtype's group of leaves
+        if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (n, n):
+            raise AssertionError(f"{what}: expected {n} pack and {n} unpack launches")
+        n_checks += 1
+
+    for b in plan.buckets:
+        check(b, flat, f32, f"granite bucket {b.bucket_id}")
+    blocks = {n[len("blocks/"):]: t for (n, _), t in zip(named, flat) if n.startswith("blocks/")}
+    names = sorted(blocks)
+    rows = [[blocks[n][li] for n in names] for li in range(cfg.n_layers)]
+    for b, dt in slot_buckets:
+        for li in range(cfg.n_layers):
+            check(b, rows[li], dt, f"granite slot {b.bucket_id} of layer {li}")
+    mixed = sum(1 for b in plan.buckets if len({l.dtype for l in b.leaves}) > 1)
+    out = {"granite": {"buckets": len(plan.buckets), "mixed_dtype_buckets": mixed,
+                       "launches_a_way": sum(staging_launches(b) for b in plan.buckets),
+                       "slots_per_layer": [(str(dt), b.size) for b, dt in slot_buckets],
+                       "post_backward": time_staging([(b, flat) for b in plan.buckets], f32),
+                       "slots": {str(dt): time_staging([(b, r) for r in rows], dt)
+                                 for b, dt in slot_buckets}}}
+    del flat, rows, blocks
+    fplan, fnamed, fblocks_meta, faxes, fcfg = fsdp_plan()
+    flat = [torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype) for _, p in fnamed]
+    fsdp_leaves = {n for n, _ in fnamed if n.startswith("blocks/")
+                   and n.split("/")[1] in ("wq", "wo", "wg", "wu", "wdown")}
+    if {l.name for b in fplan.buckets for l in b.leaves} & fsdp_leaves:
+        raise AssertionError("an FSDP leaf in a post-backward bucket")
+    for b in fplan.buckets:
+        check(b, flat, f32, f"fsdp bucket {b.bucket_id}")
+    stack, fslots = layer_slots(fblocks_meta, faxes)
+    fb = {n[len("blocks/"):]: t for (n, _), t in zip(fnamed, flat) if n.startswith("blocks/")}
+    frows = [[fb[n][li] for n, _ in stack] for li in range(fcfg.n_layers)]
+    for b, dt in fslots:
+        for li in range(fcfg.n_layers):
+            check(b, frows[li], dt, f"fsdp slot {b.bucket_id} of layer {li}")
+    torch.cuda.synchronize()
+    out.update(max_abs_err=err, checks=n_checks,
+               fsdp={"buckets": len(fplan.buckets), "elements": sum(b.size for b in fplan.buckets),
+                     "slots_per_layer": [b.size for b, _ in fslots],
+                     "passthrough_per_layer": len(fsdp_leaves)})
+    log(f"[lm_moe_kernels] {n_checks} checks bit-exact (max abs err {err}): granite's "
+        f"{len(plan.buckets)} buckets ({mixed} holding f32 and bf16 leaves) and "
+        f"{len(slot_buckets)} slots a layer; Qwen3-1.7B FSDP rank 0 at 2x2: "
+        f"{len(fplan.buckets)} buckets, {len(fslots)} slots a layer; " + json.dumps(out))
+    return out
+
+
+def phase_lm_moe() -> dict:
+    """granite-moe-1b-a400m at full width on a one-rank NCCL group, seq
+    1024 x batch 4, AdamW, clip 1.0, remat dots, under funnel, concom and
+    depcha (in-scan, two slots a layer: bf16 and the f32 router),
+    ``lm_run`` each under torch.use_deterministic_algorithms (restored
+    after): losses bit-identical across the strategies, pack/unpack
+    launches the schedule's buckets plus the slots a step.  Before the
+    runs, the share of slots the first step's forward drops; after
+    depcha, one profiled step and one with CUDA events at its stages."""
+    import warnings
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils.trees import tree_leaves
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_dp_mesh()
+    cfg = moe_config()
+    pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh, device="cuda")
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    drops = moe_drops(cfg, params, pipe.batch_at(0))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm_moe] {cfg.name}: {n_params} params; first step's forward drops "
+        f"{drops['dropped']} of {drops['routed']} routed slots ({drops['share']}) at C "
+        f"{drops['capacity']} of {drops['tokens']} tokens")
+
+    def profiled(ts, model, opt_state, run):
+        out = lm_profile(ts, model, opt_state, pipe, sum(run["step_ms"]) / len(run["step_ms"]))
+        out["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
+        return out
+
+    runs = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for strat in STRATEGIES:
+                runs[strat] = lm_run(strat, mesh, pipe, cfg=moe_config(strat),
+                                     after=profiled if strat == "depcha" else None)
+                log(f"[lm_moe] {strat}: " + json.dumps(
+                    {k: v for k, v in runs[strat].items() if k != "after"}))
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    profile_out = runs["depcha"].pop("after")
+    nondeterministic = sorted({str(w.message)[:200] for w in caught
+                               if "deterministic" in str(w.message)})
+    base = runs[STRATEGIES[0]]["losses"]
+    for strat, r in runs.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"lm_moe {strat}: non-finite loss {r['losses']}")
+        if r["peak_gb"] >= 80:
+            raise AssertionError(f"lm_moe {strat}: peak {r['peak_gb']} GB")
+        if r["losses"] != base:
+            raise AssertionError(f"lm_moe {strat} losses {r['losses']} are not bit-identical "
+                                 f"to {STRATEGIES[0]}'s {base} (nondeterministic ops: "
+                                 f"{nondeterministic})")
+    out = {"runs": runs, "profile": profile_out, "nondeterministic_ops": nondeterministic,
+           "params": n_params, "first_step_drops": drops,
+           "launches": {k: sum(r["launches"][k] for r in runs.values())
+                        for k in ("pack", "unpack")},
+           "shape": {"seq": LM_SEQ, "global_batch": LM_BATCH, "layers": cfg.n_layers}}
+    log("[lm_moe] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
+def phase_moe_cpu_vs_gpu() -> None:
+    """granite's and kimi's smoke configs (f32, 8 experts, top 2; kimi
+    with a shared expert): one forward and backward of the same weights
+    and batch (seq 64 x batch 4) on the CPU (plain) and on the card, TF32
+    off: the loss within rtol ``MOE_CPU_GPU_TOL[0]``, every gradient
+    within ``MOE_CPU_GPU_TOL[1]`` of its leaf's largest."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.utils.trees import flatten_with_names
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for arch in ("granite-moe-1b-a400m", "kimi-k2-1t-a32b"):
+        cfg = get_arch(arch).make_smoke()
+        weights = init_params(cfg, seed=0, device="cpu")
+        got = {}
+        for device in ("cpu", "cuda"):
+            model = Transformer(cfg, tree_to(copy.deepcopy(weights), device))
+            loss = model(TokenPipeline(cfg.vocab, 64, 4, seed=0, device=device).batch_at(0))
+            loss.backward()
+            got[device] = (loss.item(), {n: p.grad.detach().cpu() for n, p in
+                                         flatten_with_names(model.params_tree())[0]})
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = got["cpu"], got["cuda"]
+        worst = max(((g_gpu[n] - g).abs().max() / (g.abs().max() + 1e-12)).item()
+                    for n, g in g_cpu.items())
+        res[arch] = {"loss_cpu": l_cpu, "loss_gpu": l_gpu, "grad_rel": worst}
+        if abs(l_gpu - l_cpu) > MOE_CPU_GPU_TOL[0] * abs(l_cpu) or worst > MOE_CPU_GPU_TOL[1]:
+            raise AssertionError(f"moe_cpu_vs_gpu {arch}: {res[arch]} beyond {MOE_CPU_GPU_TOL}")
+    log(f"[moe_cpu_vs_gpu] (loss rtol, grad rel) {MOE_CPU_GPU_TOL}: " + json.dumps(res))
 
 
 # ------------------------------------------------------- ZeRO-1 and accumulation
@@ -1619,19 +1931,27 @@ TP_EQ_REDUCERS = ("ring", "compressed", "hierarchical")
 
 class _CountingDep:
     """``core.dependency`` as ``models/common.py`` sees it, counting the
-    model-axis collectives (each ``collective`` call: its bytes, and its
-    host time, the gloo staging being synchronous)."""
+    model-axis and FSDP collectives (each ``collective`` call: its output's
+    bytes, and its host time, the gloo staging being synchronous), in all
+    and by function (``by_fn``: name → [calls, bytes, ms])."""
 
     def __init__(self, dep):
         self._dep = dep
         self.calls, self.bytes, self.ms = 0, 0, 0.0
+        self.by_fn: dict = {}
 
     def collective(self, fn, group, out, *ins):
         t0 = time.perf_counter()
         work = self._dep.collective(fn, group, out, *ins)
-        self.ms += (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        nbytes = out.numel() * out.element_size()
+        self.ms += ms
         self.calls += 1
-        self.bytes += out.numel() * out.element_size()
+        self.bytes += nbytes
+        kind = self.by_fn.setdefault(getattr(fn, "func", fn).__name__, [0, 0, 0.0])
+        kind[0] += 1
+        kind[1] += nbytes
+        kind[2] += ms
         return work
 
     def __getattr__(self, name):
@@ -1938,17 +2258,9 @@ def phase_lm_tp_kernels() -> dict:
         if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (1, 1):
             raise AssertionError(f"tp bucket {b.bucket_id}: expected 1 pack and 1 unpack launch")
         n_checks += 1
-    from repro_torch.core.buckets import Bucket, LeafInfo
-    from repro_torch.utils.trees import flatten_with_names
-
-    stack = flatten_with_names(blocks_meta)[0]
+    stack, slot_dts = layer_slots(blocks_meta, axes)
+    slots = [b for b, _ in slot_dts]
     blocks = {n[len("blocks/"):]: t for (n, _), t in zip(named, flat) if n.startswith("blocks/")}
-    groups: dict = {}
-    for j, ((n, w), ax) in enumerate(zip(stack, axes)):
-        groups.setdefault((tuple(ax), w.dtype), []).append(j)
-    slots = [Bucket(tuple(LeafInfo(stack[j][0], j, tuple(stack[j][1].shape[1:]), dt,
-                                   stack[j][1][0].numel()) for j in idx), ax, 0, k)
-             for k, ((ax, dt), idx) in enumerate(groups.items())]
     rows = [[blocks[n][li] for n, _ in stack] for li in range(cfg.n_layers)]
     for slot in slots:
         for li in range(cfg.n_layers):
@@ -1970,6 +2282,357 @@ def phase_lm_tp_kernels() -> dict:
         f"{len(plan.buckets)} buckets of rank 0's tp={LM_TP} shards over {sets} and "
         f"{len(slots)} slots a layer; {hops} ring-hop pair checks; " + json.dumps(out))
     return out
+
+
+# ------------------------------------------------------------- FSDP (LM)
+
+LM_FSDP_MESH = (2, 2)          # lm_fsdp: (data, model), 4 rank processes on the card
+FSDP_LEAVES = ("wq", "wo", "wg", "wu", "wdown")     # Qwen3-1.7B's _FSDP_DIM leaves
+# the f32 equivalences: check 5's limits (loss, params), compare_tp's
+# (loss, gradients) and the reducers beside concom's flat
+FSDP_CHECK5_TOL = (3e-4, 5e-4)
+FSDP_EQ_REDUCERS = ("ring", "compressed")
+
+
+def lm_fsdp_collectives(cfg, data: int, tokens: int) -> dict:
+    """The FSDP collectives of one training step, counted from the code:
+    each layer gathers each of its FSDP leaves in the forward
+    (``all_gather_into_tensor``) and again in the remat's recompute (the
+    gathers open the layer, before anything the recompute must rebuild),
+    and reduce-scatters each leaf's gradient once in the backward (an
+    ``all_to_all_single`` of its chunks).  Bytes: the gathered blocks (the
+    rank's model shard of a layer's leaf, whole over the dp axes) for
+    each gather and for each all-to-all's output.  Beside them the
+    model-axis collectives of ``lm_tp_collectives`` at ``tokens`` local
+    tokens (none at tp = 1)."""
+    from repro_torch.models.transformer import _FSDP_DIM, init_params, param_specs
+    from repro_torch.parallel.sharding import MODEL_AXIS, local_shape
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    full = init_params(cfg, device="meta")
+    mesh = make_smoke_mesh(1, cfg.tp)
+    specs = param_specs(full, dataclasses.replace(cfg, fsdp=False))
+    layer_bytes = sum(
+        math.prod(local_shape(full["blocks"][n].shape, specs["blocks"][n], mesh)[1:])
+        * cfg.dtype.itemsize for n in _FSDP_DIM if n in full["blocks"])
+    leaves = sum(1 for n in _FSDP_DIM if n in full["blocks"])
+    L = cfg.n_layers
+    gathers = 2 * L * leaves if cfg.remat in ("dots", "full") else L * leaves
+    out = {"all_gather_into_tensor": {"calls": gathers,
+                                      "bytes": gathers // leaves * layer_bytes},
+           "all_to_all_single": {"calls": L * leaves, "bytes": L * layer_bytes},
+           "leaves_per_layer": leaves, "gathered_bytes_per_layer": layer_bytes,
+           "dp": data}
+    if cfg.tp > 1:
+        out["model_axis"] = lm_tp_collectives(cfg, tokens)
+    return out
+
+
+def _fsdp_equivalence(rank: int, mesh, say) -> dict:
+    """f32 equivalences on the card at the lm_fsdp mesh, each through
+    ``make_train_step`` with ``fsdp=True``.  (1) The reference's check 5
+    on its ``mk_dense`` (2 layers, d 64, 8/2 heads, ff 128, vocab 96): one
+    concom AdamW step (lr 1e-3, no clip) against the same step at dp 1 x
+    tp 1 on the whole batch, the loss within 3e-4 and every param shard
+    within 5e-4; then under ring and compressed (rows 3, 6-7), SGD at
+    learning rate 0 without momentum, whose new state is the clipped
+    gradients, at compare_tp's tolerances against tp = 1 on the whole
+    batch, with a binding clip (half the tp = 1 norm).  (2) granite-moe's
+    smoke config (8 experts sharded over "model", vocab 96) with FSDP,
+    the same SGD step, against tp = 1 at the same dp (an expert's
+    capacity follows the rank's tokens): each rank's tp = 1 loss and
+    gradients on its own rows, summed over its dp group, clipped by the
+    norm of the sum, at (3e-4, 2e-3)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core import dependency as dep
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.collectives import kernel as ck
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.optim.optimizers import apply_updates
+    from repro_torch.parallel.sharding import dp_index, shard_tree
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    seq, batch = 32, 4
+
+    def dense(tp, **over):
+        return tf.TransformerConfig(name="dense", n_layers=2, d_model=64, n_heads=8,
+                                    kv_heads=2, d_ff=128, vocab=96, attn_chunk=16, tp=tp,
+                                    dtype=torch.float32, **over)
+
+    def granite(tp, **over):
+        return dataclasses.replace(get_arch("granite-moe-1b-a400m").make_smoke(), vocab=96,
+                                   tp=tp, **over)
+
+    def oracle(cfg1, full, b):
+        """tp = 1 loss and gradients of ``full`` on batch ``b``."""
+        named, treedef = flatten_with_names(full)
+        leaves = {n: p.clone().requires_grad_(True) for n, p in named}
+        loss = tf.train_forward(tree_unflatten(treedef, list(leaves.values())), b, cfg1)
+        loss.backward()
+        return loss.detach(), {n: p.grad for n, p in leaves.items()}
+
+    def step(cfg, full, opt, clip, reducer="flat"):
+        specs = tf.param_specs(full, cfg)
+        local, treedef = flatten_with_names(shard_tree(full, specs, mesh, rank))
+        net = tf.Transformer(cfg, tree_unflatten(treedef, [p.clone() for _, p in local]))
+        ts = make_train_step(cfg, mesh, GradSyncConfig(
+            strategy="concom", reducer=reducer, bucket_bytes=1 << 12, num_channels=3),
+            opt, model=net, clip_norm=clip, device="cuda")
+        def counts():
+            return (ck.ACCUM_LAUNCHES, qk.QUANTIZE_LAUNCHES, qk.SUM_QUANTIZE_LAUNCHES,
+                    qk.DEQUANTIZE_LAUNCHES)
+
+        c0 = counts()
+        net, state, metrics = ts.fn(net, ts.init_opt(), pipe.batch_at(0), 0)
+        torch.cuda.synchronize()
+        launches = [a - b for a, b in zip(counts(), c0)]
+        ts.gradsync.close()
+        return net, state, metrics, specs, launches
+
+    pipe = TokenPipeline(96, seq, batch, seed=3, mesh=mesh, rank=rank, device="cuda")
+    whole = TokenPipeline(96, seq, batch, seed=3, device="cuda").batch_at(0)
+    out = {"cases": {}}
+    # (1) check 5, then the reducers' clipped gradients
+    full = tf.init_params(dense(1), seed=1, device="cuda")
+    want_loss, want = oracle(dense(1), full, whole)
+    opt1 = adamw(1e-3)
+    upd, _ = opt1.update(want, opt1.init(dict(flatten_with_names(full)[0])),
+                         dict(flatten_with_names(full)[0]), 0)
+    after = {n: p.clone() for n, p in flatten_with_names(full)[0]}
+    apply_updates(after, upd)
+    net, _, metrics, specs, _ = step(dense(model, fsdp=True), full, adamw(1e-3), 0.0)
+    cut = dict(flatten_with_names(shard_tree(tree_unflatten(flatten_with_names(full)[1],
+                                                            list(after.values())),
+                                             specs, mesh, rank))[0])
+    dloss = abs(float(metrics["loss"]) - want_loss.item())
+    dparam = max((p.detach() - cut[n]).abs().max().item()
+                 for n, p in flatten_with_names(net.params_tree())[0])
+    if dloss >= FSDP_CHECK5_TOL[0] or dparam >= FSDP_CHECK5_TOL[1]:
+        raise AssertionError(f"fsdp check 5 at {data}x{model}: dloss {dloss}, params {dparam}")
+    out["cases"]["check5"] = {"dloss": dloss, "dparam": dparam, "tol": FSDP_CHECK5_TOL}
+    norm = math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in want.values()))
+    clip = norm / 2
+    for reducer in FSDP_EQ_REDUCERS:
+        _, state, metrics, specs, launches = step(dense(model, fsdp=True), full,
+                                                  sgd(0.0, momentum=0.0), clip, reducer)
+        tol, grad_tol = TP_EQ_TOL[reducer]
+        cut = dict(flatten_with_names(shard_tree(want, specs, mesh, rank))[0])
+        worst = max(((state["mom"][n] - cut[n] * (clip / norm)).abs().max()
+                     / (want[n].abs().max() + 1e-8)).item() for n in state["mom"])
+        dloss = abs(float(metrics["loss"]) - want_loss.item())
+        dnorm = abs(float(metrics["grad_norm"]) - norm) / norm
+        if dloss >= tol or dnorm >= grad_tol or worst >= grad_tol:
+            raise AssertionError(f"fsdp {reducer} at {data}x{model}: dloss {dloss}, norm "
+                                 f"{dnorm}, clipped grads {worst} (tol {tol}, {grad_tol})")
+        if 0 in (launches[:1] if reducer == "ring" else launches[1:]):
+            raise AssertionError(f"fsdp {reducer}: launches (accum, quantize, sum-quantize, "
+                                 f"dequantize) {launches}")
+        out["cases"][reducer] = {"dloss": dloss, "grad_norm_rel": dnorm,
+                                 "clipped_grad_rel": worst, "accum_launches": launches[0],
+                                 "quantize_launches": launches[1],
+                                 "sum_quantize_launches": launches[2],
+                                 "dequantize_launches": launches[3]}
+    # (2) granite's MoE with FSDP against tp = 1 at the same dp
+    full = tf.init_params(granite(1), seed=1, device="cuda")
+    mine = TokenPipeline(96, seq, batch, seed=3, mesh=mesh, rank=rank, device="cuda").batch_at(0)
+    loss1, g1 = oracle(granite(1), full, mine)
+    dp_group = dep.coset_groups([("data",)], mesh, torch.device("cpu"))[
+        dep.reduce_key(("data",), mesh)]
+    sums = torch.cat([loss1.reshape(1)] + [g.reshape(-1) for g in g1.values()]).cpu()
+    if dp_group is not None:
+        dist.all_reduce(sums, group=dp_group)
+    want_loss, off, want = float(sums[0]), 1, {}
+    for n, g in g1.items():
+        want[n] = sums[off:off + g.numel()].view(g.shape).cuda()
+        off += g.numel()
+    norm = math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in want.values()))
+    clip = norm / 2
+    _, state, metrics, specs, _ = step(granite(model, fsdp=True), full,
+                                       sgd(0.0, momentum=0.0), clip)
+    cut = dict(flatten_with_names(shard_tree(want, specs, mesh, rank))[0])
+    worst = max(((state["mom"][n] - cut[n] * (clip / norm)).abs().max()
+                 / (want[n].abs().max() + 1e-8)).item() for n in state["mom"])
+    dloss = abs(float(metrics["loss"]) - want_loss)
+    dnorm = abs(float(metrics["grad_norm"]) - norm) / norm
+    if dloss >= 3e-4 or dnorm >= 2e-3 or worst >= 2e-3:
+        raise AssertionError(f"granite fsdp at {data}x{model} vs tp = 1: dloss {dloss}, norm "
+                             f"{dnorm}, clipped grads {worst}")
+    out["cases"]["granite-fsdp"] = {"dloss": dloss, "grad_norm_rel": dnorm,
+                                    "clipped_grad_rel": worst, "dp_index": dp_index(rank, mesh)}
+    say(f"[lm_fsdp] f32 equivalences at data {data} x model {model}: " + json.dumps(out))
+    return out
+
+
+def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: int) -> None:
+    """One rank of ``phase_lm_fsdp``: Qwen3-1.7B at full width with
+    ``fsdp=True`` on data ``data`` x model ``model`` (seq 1024 x global
+    batch 4, AdamW, clip 1.0, remat dots, bf16), each of funnel, concom
+    and depcha (in-backward: the FSDP leaves pass through) from the
+    seeded weights (each rank draws the global tree and keeps its
+    shards), 1 warm-up + 2 timed steps; each step's collectives counted
+    by kind (``_CountingDep``) against ``lm_fsdp_collectives``; pack and
+    unpack launches against the schedule plus depcha's slots; the fully
+    replicated leaves bit-identical across the ranks after every run;
+    the first loss and grad norm against lm_train's tp = 1 funnel's
+    (``tp1``); one more funnel step with CUDA events around its stages.
+    Then ``_fsdp_equivalence``.  Results to ``workdir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import init_dist, make_mesh
+    from repro_torch.models import common
+    from repro_torch.models.transformer import Transformer, init_params, param_specs
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.parallel.sharding import flat_spec_axes
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    world = data * model
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store", rank=rank,
+              world_size=world, timeout=datetime.timedelta(seconds=600))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda _m: None)
+    host = dist.new_group(backend="gloo")
+    mesh = make_mesh(model)
+    pipe = TokenPipeline(lm_config().vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh, rank=rank,
+                         device="cuda")
+    counting = _CountingDep(common.dep)
+    common.dep = counting
+    out = {"runs": {}, "mesh": {"data": data, "model": model}}
+    try:
+        for strat in STRATEGIES:
+            cfg = dataclasses.replace(lm_config(strat), tp=model, fsdp=True)
+            net = Transformer(cfg, init_params(cfg, seed=0, device="cuda", mesh=mesh, rank=rank))
+            named = flatten_with_names(net.params_tree())[0]
+            n_params = sum(p.numel() for _, p in named)
+            opt = adamw(cosine_warmup(3e-4, 10, 100))
+            ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=net,
+                                 clip_norm=1.0, device="cuda")
+            opt_state = opt.init(dict(named))
+            trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+            losses, norms, kinds = [], [], []
+            for step in range(LM_STEPS):
+                before = {k: list(v) for k, v in counting.by_fn.items()}
+                net, opt_state, hist = trainer.run(net, opt_state, step + 1, start_step=step)
+                losses.append(hist["losses"][-1])
+                norms.append(hist["metrics"]["grad_norm"])
+                kinds.append({k: [v[0] - before.get(k, [0, 0, 0.0])[0],
+                                  v[1] - before.get(k, [0, 0, 0.0])[1],
+                                  v[2] - before.get(k, [0, 0, 0.0])[2]]
+                              for k, v in counting.by_fn.items()})
+            predicted = lm_fsdp_collectives(cfg, data, LM_SEQ * LM_BATCH // data)
+            for k in ("all_gather_into_tensor", "all_to_all_single"):
+                got = [[s.get(k, [0, 0])[0], s.get(k, [0, 0])[1]] for s in kinds]
+                want = [predicted[k]["calls"], predicted[k]["bytes"]]
+                if got != [want] * LM_STEPS:
+                    raise AssertionError(f"lm_fsdp {strat}: {k} (calls, bytes) a step {got}, "
+                                         f"predicted {want}")
+            if model > 1:
+                mp = predicted["model_axis"]
+                got = [s.get("all_reduce", [0, 0])[0] for s in kinds]
+                # the loss all-reduce and the clip's are the train step's, not counted here
+                if got != [mp["calls_per_step"]] * LM_STEPS:
+                    raise AssertionError(f"lm_fsdp {strat}: model-axis all-reduces {got}, "
+                                         f"predicted {mp['calls_per_step']}")
+            slots = (cfg.n_layers * len(ts.layer_sync.buckets)
+                     if ts.layer_sync is not None else 0)
+            per_step = sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops) + slots
+            launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
+            if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
+                raise AssertionError(f"lm_fsdp {strat}: launches {launches}, expected "
+                                     f"{per_step} a step x {LM_STEPS}")
+            bucketed = {l.name for b in ts.gradsync.plan.buckets for l in b.leaves}
+            if any(n.split("/")[-1] in FSDP_LEAVES for n in bucketed):
+                raise AssertionError(f"lm_fsdp {strat}: an FSDP leaf in a GradSync bucket")
+            if ts.layer_sync is not None and len(ts.layer_sync.passthrough) != len(FSDP_LEAVES):
+                raise AssertionError(f"lm_fsdp {strat}: passthrough {ts.layer_sync.passthrough}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"lm_fsdp {strat}: non-finite loss {losses}")
+            specs = dict(flatten_with_names(param_specs(net.params_tree(), cfg))[0])
+            rep = [p for n, p in named if not flat_spec_axes(specs[n])]
+            _same_on_every_rank(rep, f"lm_fsdp {strat} replicated leaves", host)
+            times = trainer.step_times
+            run = {"losses": losses, "grad_norms": norms, "params_per_rank": n_params,
+                   "first_step_ms": trainer.first_step_time * 1e3,
+                   "step_ms": [t * 1e3 for t in times],
+                   "tokens_per_s": [pipe.global_batch * LM_SEQ / t for t in times],
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": launches, "launches_per_step": per_step,
+                   "buckets": len(ts.gradsync.schedule.ops), "slots_per_step": slots,
+                   "collectives_per_step": kinds, "predicted": predicted,
+                   "replicated_leaves": len(rep)}
+            if strat == "funnel":
+                run["stages"] = lm_stage_spans(ts, net, opt_state, pipe)
+            out["runs"][strat] = run
+            say(f"[lm_fsdp] {strat}: " + json.dumps(run))
+            del ts, net, opt_state, trainer, named, rep
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        common.dep = counting._dep
+    if tp1 is not None:
+        for i, (what, key, rtol) in enumerate((
+                ("loss", "losses", LM_TP_FIRST_LOSS_RTOL),
+                ("grad_norm", "grad_norms", LM_TP_FIRST_NORM_RTOL))):
+            first = [r[key][0] for r in out["runs"].values()]
+            worst = max(abs(x - tp1[i]) / abs(tp1[i]) for x in first)
+            out[f"first_{what}_vs_tp1"] = {"tp1": tp1[i], "fsdp": first, "max_rel": worst,
+                                           "rtol": rtol}
+            if worst > rtol:
+                raise AssertionError(f"lm_fsdp first {what} {first} vs tp = 1 {tp1[i]}: "
+                                     f"rel {worst} > {rtol}")
+    out["equivalence"] = _fsdp_equivalence(rank, mesh, say)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_lm_fsdp(tp1=None, backend: str = "gloo", data: int = LM_FSDP_MESH[0],
+                  model: int = LM_FSDP_MESH[1]) -> dict:
+    """FSDP on the card: data x model rank processes (with gloo, as
+    ``main`` runs it, all on the one card, every collective staged
+    through pinned host memory; ``backend="nccl"`` needs a card a rank),
+    each running ``_lm_fsdp_rank``.  ``tp1``: lm_train's first funnel
+    loss and grad norm (tp = 1, the same seeded weights and batch).  By
+    hand on four cards: ``phase_lm_fsdp(backend="nccl", data=4, model=1)``
+    (pure ZeRO-3)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    log(f"[lm_fsdp] {backend} on {cards}, data {data} x model {model}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lm-fsdp-") as wd:
+        mp.spawn(_lm_fsdp_rank, args=(wd, backend, tp1, data, model), nprocs=data * model,
+                 join=True)
+        with open(os.path.join(wd, "rank0.json")) as f:
+            res = json.load(f)
+    res["wall_s"] = time.perf_counter() - t0
+    res["cards"] = cards
+    res["transport"] = (
+        f"gloo over pinned host memory, {data * model} processes on one card: the FSDP "
+        f"gathers and reduce-scatters, the model psums and the sync's all-reduces are host "
+        f"copies, not a wire" if backend == "gloo"
+        else f"{backend}, {data * model} processes on {torch.cuda.device_count()} cards")
+    log("[lm_fsdp] " + json.dumps({k: v for k, v in res.items() if k != "runs"}))
+    return res
 
 
 def _zero1_rank(rank: int, workdir: str, backend: str) -> None:
@@ -3969,24 +4632,30 @@ def check_flash(q, k, v, causal: bool, what: str) -> float:
     return err
 
 
-def device_ms_per_launch(fn, kernel_name: str, reps: int = 50) -> float:
+def device_ms_per_launch(fn, kernel_name: str, reps: int = 50) -> float | None:
     """The device time per call of ``fn`` of the kernels named
     ``kernel_name`` (a whole word of the profiler's name, so that
     ``pack_bucket_kernel`` does not count ``unpack_bucket_kernel``), from
-    torch.profiler."""
+    torch.profiler.  A profiled loop in which the profiler saw no device
+    time of those kernels is tried once more; then None: not measured."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     word = re.compile(rf"(?<![A-Za-z0-9_]){kernel_name}(?![A-Za-z0-9_])")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_device_ms(e, self_only=True) for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA
-               and word.search(e.key)) / reps
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA and word.search(e.key)]
+        total = sum(_device_ms(e, self_only=True) for e in seen)
+        if total > 0:
+            return total / reps
+        log(f"[profiler] no {kernel_name} device time in a profiled loop (attempt {attempt})")
+    return None
 
 
 def device_ms_clock_checked(fn, kernel_name: str | None, reps: int = 50) -> dict:
@@ -4008,15 +4677,23 @@ def device_ms_clock_checked(fn, kernel_name: str | None, reps: int = 50) -> dict
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == DeviceType.CUDA and word.search(e.key)]
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA and word.search(e.key)]
+        if kernels:
+            break
+        log(f"[profiler] no {kernel_name} event in a profiled loop (attempt {attempt})")
     events_ms = start.elapsed_time(end)
+    if not kernels:
+        # the profiler saw no device time: CUDA events alone, device time not measured
+        return dict(device_ms_per_launch=None, events_ms_per_launch=events_ms / reps,
+                    span_over_events=None, device_events_per_call=0)
     span_ms = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) / 1e3
     return dict(device_ms_per_launch=sum(e.time_range.elapsed_us() for e in kernels)
@@ -4517,6 +5194,84 @@ def phase_serve_profile(params, cfg, tag: str = "serve_profile") -> dict:
                             for e in top]}
     log(f"[{tag}] " + json.dumps(out))
     return out
+
+
+def phase_moe_serve() -> dict:
+    """granite-moe-1b-a400m at full width (bf16, seeded weights, use_flash:
+    row 8 at head_dim 64) through the static engine with the prompts and
+    lengths of Qwen3's static run (8 requests of 384-512 tokens, 32 new,
+    batches of 4): greedy tokens (int32, in the vocab), each prefill's ms
+    by CUDA events, decode ms a step (``DecodeLoopTimer``), flash launches
+    exactly 24 x 2 prefills; row 8 held against its plain version on the
+    q/k/v the first prefill feeds to layer 0."""
+    import numpy as np
+
+    from repro_torch.configs.granite_moe_1b_a400m import make_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import RequestQueue, Server
+
+    cfg = make_config(use_flash=True)
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    server = Server(cfg, make_smoke_mesh(1, 1), params, max_len=SERVE_MAX_LEN)
+    prompts = serve_prompts(cfg.vocab)
+    attention, captured, calls = tf.attn_lib.attention, {}, [0]
+
+    def capture(q, k, v, **kw):
+        if calls[0] == 0:
+            captured[0] = (q.clone(), k.clone(), v.clone())
+        calls[0] += 1
+        return attention(q, k, v, **kw)
+
+    timer = DecodeLoopTimer(server)
+    api, prefills = server.api, []
+
+    def timed_prefill(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = api.prefill(*a, **kw)
+        end.record()
+        prefills.append((start, end, tuple(a[1].shape)))
+        return out
+
+    server.api = dataclasses.replace(api, prefill=timed_prefill)
+    flash.FLASH_LAUNCHES = 0
+    tf.attn_lib.attention = capture
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rq = RequestQueue(server, batch=4)
+        handles = [rq.submit(p, SERVE_MAX_NEW) for p in prompts]
+        done = 0
+        while done < len(prompts):
+            done += rq.serve_once()
+        out = _results(handles, "moe static")
+        wall_s = time.perf_counter() - t0
+    finally:
+        tf.attn_lib.attention = attention
+    decode_ms = timer.close(SERVE_MAX_NEW - 1)
+    launches = flash.FLASH_LAUNCHES
+    if launches != cfg.n_self * 2:
+        raise AssertionError(f"moe serve: {launches} flash launches, expected "
+                             f"{cfg.n_self} x 2 prefills")
+    toks = np.stack(out)
+    if toks.dtype != np.int32 or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"moe serve: tokens {toks.dtype} in [{toks.min()}, {toks.max()}]")
+    q, k, v = captured[0]
+    err = check_flash(q, k, v, True, f"moe serve layer 0 {tuple(q.shape)}")
+    res = {"tokens": toks[:, :8].tolist(), "wall_s": wall_s, "decode_ms_per_step": decode_ms,
+           "prefill_ms": [s.elapsed_time(e) for s, e, _ in prefills],
+           "prefill_shapes": [shp for _, _, shp in prefills],
+           "tokens_per_s": len(prompts) * SERVE_MAX_NEW / wall_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "flash_launches": launches,
+           "head_dim": cfg.hd, "flash_layer0_max_abs_err": err}
+    log("[moe_serve] " + json.dumps(res))
+    del server, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_serve_cpu_vs_gpu() -> None:
@@ -5093,13 +5848,20 @@ def main() -> int:
         phase_verify()
         gc.collect()
         torch.cuda.empty_cache()
+        # after lm_zero1, whose monolithic run needs 61 GB of the card
+        lm_moe_rows = phase_lm_moe_kernels()
+        lm_moe = phase_lm_moe()
+        phase_moe_cpu_vs_gpu()
+        gc.collect()
+        torch.cuda.empty_cache()
         lm_tp_rows = phase_lm_tp_kernels()
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    lm_tp = phase_lm_tp((lm["runs"]["funnel"]["losses"][0],
-                         lm["runs"]["funnel"]["grad_norms"][0]))
+    tp1 = (lm["runs"]["funnel"]["losses"][0], lm["runs"]["funnel"]["grad_norms"][0])
+    lm_tp = phase_lm_tp(tp1)
+    lm_fsdp = phase_lm_fsdp(tp1)
     reducers = phase_reducers()
     zero1 = phase_zero1()
     hier = phase_hierarchical()
@@ -5112,6 +5874,9 @@ def main() -> int:
     wkv_rows = phase_wkv()
     rwkv_serve = phase_rwkv_serve(smi)
     phase_rwkv_cpu_vs_gpu()
+    gc.collect()                     # RWKV's weights go before granite's
+    torch.cuda.empty_cache()
+    moe_serve = phase_moe_serve()
 
     src = "src/repro_torch/kernels/collectives/csrc/staging.cu"
     replaces = {"pack": "src/repro/kernels/collectives/kernel.py:76",
@@ -5122,7 +5887,9 @@ def main() -> int:
                    "inception": inception["launches"][name],
                    "lm_zero1": lm_zero1["launches"][name],
                    "zero1": sum(r["launches"][name] for r in zero1["runs"].values()),
-                   "lm_tp": sum(r["launches"][name] for r in lm_tp["runs"].values())}
+                   "lm_tp": sum(r["launches"][name] for r in lm_tp["runs"].values()),
+                   "lm_moe": lm_moe["launches"][name],
+                   "lm_fsdp": sum(r["launches"][name] for r in lm_fsdp["runs"].values())}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -5130,7 +5897,7 @@ def main() -> int:
             # every layout's check: ResNet-50's, the LM's, Inception's, lm_zero1's
             "max_abs_err": max(r["max_abs_err"], lm_rows["max_abs_err"],
                                inception_rows["max_abs_err"], lm_zero1_rows["max_abs_err"],
-                               lm_tp_rows["max_abs_err"]),
+                               lm_tp_rows["max_abs_err"], lm_moe_rows["max_abs_err"]),
             "layouts_built_in_train": train["layouts_built"],   # shared by both
             # the LM's layouts: the post-backward buckets (bf16 leaves, f32
             # comm) and depcha's in-backward slots, one step's worth each
@@ -5161,13 +5928,30 @@ def main() -> int:
                       "max_abs_err": lm_tp_rows["max_abs_err"],
                       "checks": lm_tp_rows["checks"], "buckets": lm_tp_rows["buckets"],
                       "post_backward": lm_tp_rows["post_backward"][name],
-                      "slots": lm_tp_rows["slots"][name]}})
+                      "slots": lm_tp_rows["slots"][name]},
+            # MoE: granite's buckets (f32 router beside bf16 experts) and
+            # two slots a layer; FSDP: rank 0's buckets without the FSDP
+            # leaves at data 2 x model 2 (the launches are rank 0's)
+            "lm_moe": {"launches_per_step": {k: v["launches_per_step"]
+                                             for k, v in lm_moe["runs"].items()},
+                       "max_abs_err": lm_moe_rows["max_abs_err"],
+                       "checks": lm_moe_rows["checks"],
+                       "post_backward": lm_moe_rows["granite"]["post_backward"][name],
+                       "slots": {dt: v[name]
+                                 for dt, v in lm_moe_rows["granite"]["slots"].items()}},
+            "lm_fsdp": {"launches_per_step": {k: v["launches_per_step"]
+                                              for k, v in lm_fsdp["runs"].items()},
+                        "layout": lm_moe_rows["fsdp"]}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCES[torch.bfloat16],
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": serve["launches"], "launches_per_prefill": 28,
+        "launches": serve["launches"] + moe_serve["flash_launches"],
+        "launches_by_path": {"serve": serve["launches"],
+                             "moe_serve": moe_serve["flash_launches"]},
+        "launches_per_prefill": 28, "launches_per_prefill_moe": 24,
+        "moe_serve_layer0_max_abs_err": moe_serve["flash_layer0_max_abs_err"],
         "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
         "device_ms_per_launch": fr["device_ms_per_launch"],
         "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
@@ -5217,6 +6001,10 @@ def main() -> int:
         # kernels of compressed over the world at 1 x 4
         by_run.update({f"lm_tp {k}": v[f"{counter}_launches"]
                        for k, v in lm_tp["equivalence"]["cases"].items()
+                       if f"{counter}_launches" in v})
+        # FSDP's f32 equivalence (rank 0's) under ring and compressed
+        by_run.update({f"lm_fsdp {k}": v[f"{counter}_launches"]
+                       for k, v in lm_fsdp["equivalence"]["cases"].items()
                        if f"{counter}_launches" in v})
         kernels.append({
             "name": name, "row": row, "route": "cuda", "source": RING_QUANT_SOURCES[name],

@@ -80,6 +80,11 @@ class LayerSync:
     ``reducer`` is ``cfg.depcha_reducer``, ``intra_size`` the "data"
     size the compressed branch shards over.
 
+    A leaf with no reduce axes (FSDP's: sharded over every mesh axis,
+    its gradient already the dp sum of its shard) takes no slot: its
+    cotangent passes through the identity's backward to autograd, which
+    writes the stacked leaf's ``.grad`` (``passthrough`` names them).
+
     Construction is collective: it creates the syncer's communicators,
     one a reduce set (and on a pod mesh for ``hierarchical`` or
     ``compressed`` its intra- and inter-pod groups), on every rank in the
@@ -99,11 +104,13 @@ class LayerSync:
         self.reducer = reducer
         self.intra_size = intra_size
         groups: dict[tuple, list[int]] = {}
+        self.passthrough = frozenset(self.names[j] for j, ax in enumerate(axes) if not ax)
         for j, ((_, w), ax) in enumerate(zip(named, axes)):
             if int(w.shape[0]) != self.n_layers:
                 raise ValueError(f"{self.names[j]} stacks {w.shape[0]} layers, "
                                  f"not {self.n_layers}")
-            groups.setdefault((tuple(ax), w.dtype), []).append(j)
+            if ax:
+                groups.setdefault((tuple(ax), w.dtype), []).append(j)
         # (bucket over the layer's cotangent list, reduce axes, slot dtype)
         self.buckets: list[tuple[Bucket, tuple[str, ...], torch.dtype]] = []
         for k, ((ax, dt), idx) in enumerate(groups.items()):
@@ -197,6 +204,8 @@ class LayerSync:
         if len(stacked) != len(self.names):
             raise ValueError(f"expected {len(self.names)} stacked leaves, got {len(stacked)}")
         for name, w in zip(self.names, stacked):
+            if name in self.passthrough:
+                continue
             if w.grad is not None:
                 raise RuntimeError(f"{name} got a gradient outside the in-backward sync")
             w.grad = torch.empty_like(w)
@@ -220,7 +229,8 @@ def _rest(ax: tuple[str, ...]) -> tuple[str, ...]:
 
 class _SyncInBackward(torch.autograd.Function):
     """Identity on a layer's parameter slices; its backward hands the
-    layer's cotangents to the ``LayerSync`` and returns none."""
+    layer's cotangents to the ``LayerSync`` and returns only those of its
+    pass-through leaves."""
 
     @staticmethod
     def forward(ctx, sync: LayerSync, li: int, *params: torch.Tensor):
@@ -230,7 +240,9 @@ class _SyncInBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads: torch.Tensor):
         ctx.sync.issue(ctx.li, grads)
-        return (None, None) + (None,) * len(grads)
+        keep = ctx.sync.passthrough
+        return (None, None) + tuple(g if n in keep else None
+                                    for n, g in zip(ctx.sync.names, grads))
 
 
 def sync_in_backward(params: dict, li: int, sync: LayerSync) -> dict:

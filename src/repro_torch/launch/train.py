@@ -118,7 +118,9 @@ def main(argv=None):
         if api.module is None:
             raise NotImplementedError(
                 f"{api.family} training: ROADMAP queue 1 item 12")
-        init_kw = dict(mesh=mesh, rank=rank) if mesh.shape["model"] > 1 else {}
+        # each rank keeps its shards: of "model" (tp > 1), of the dp axes (FSDP)
+        sharded = mesh.shape["model"] > 1 or getattr(cfg, "fsdp", False)
+        init_kw = dict(mesh=mesh, rank=rank) if sharded else {}
         model = api.module(cfg, api.init(cfg, seed=args.seed, device=args.device,
                                          **init_kw))
         if arch.family in IMAGE_FAMILIES:

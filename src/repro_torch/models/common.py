@@ -7,6 +7,13 @@ Here each rank holds its shards and the collectives run on a
 coordinate on the axis and the axis's extent, built from the mesh
 (``model_axis``) and passed down.
 
+FSDP's per-layer gather runs on an ``FsdpAxes``: the communicator of the
+rank's dp group (its own, shared with no gradient sync), its dp index
+and the dp extent (``fsdp_axes``).  ``fsdp_all_gather`` is the
+reference's tiled ``all_gather`` over the dp axes, whose transpose under
+``check_vma=False`` is ``psum_scatter``: the backward reduce-scatters
+the cotangent to the rank's shard.
+
 ``model_psum`` is the reference's ``psum`` over "model" under
 ``shard_map(check_vma=False)``: an all-reduce whose backward is the same
 all-reduce of the cotangent (psum's transpose there is psum).  So every
@@ -30,7 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import dependency as dep
-from repro_torch.parallel.sharding import MODEL_AXIS
+from repro_torch.parallel.sharding import MODEL_AXIS, dp_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +100,73 @@ def model_pmax(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     dep.collective(functools.partial(dist.all_reduce, op=dist.ReduceOp.MAX),
                    axis.group, out).wait()
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpAxes:
+    """The dp axes as one rank sees them for FSDP's gathers: ``group`` the
+    communicator of its dp group (None at extent 1), ``index`` its dp
+    index (pod-major: the chunk of a sharded dim it holds,
+    ``parallel/sharding.py::shard_leaf``), ``size`` the dp extent."""
+
+    group: dist.ProcessGroup | None
+    index: int
+    size: int
+
+
+NO_FSDP = FsdpAxes(None, 0, 1)
+
+
+def fsdp_axes(mesh, dp_axes, device: str | torch.device = "cuda") -> FsdpAxes:
+    """This rank's ``FsdpAxes`` over ``dp_axes``: a communicator of its
+    own for its dp group (the ranks that share its model coordinate;
+    the group's ranks in rank order, so group rank i is dp index i), its
+    dp index and the extent.  Collective: every rank creates every dp
+    group (none at extent 1)."""
+    size = math.prod(mesh.shape.get(a, 1) for a in dp_axes)
+    if size == 1:
+        return NO_FSDP
+    key = dep.reduce_key(dp_axes, mesh)
+    group = dep.coset_groups([key], mesh, dep.resolve_device(device))[key]
+    return FsdpAxes(group, dp_index(dist.get_rank(), mesh), size)
+
+
+class _FsdpGather(torch.autograd.Function):
+    """Tiled all-gather of a shard along ``dim`` over the dp group (chunk
+    i from dp index i); the backward reduce-scatters (sums) the cotangent
+    back to the shard: an all-to-all of its chunks and the peers' chunks
+    added in rank order, so every rank sums in one order."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, axes: FsdpAxes) -> torch.Tensor:
+        ctx.dim, ctx.axes = dim, axes
+        g = axes.size
+        parts = x.new_empty((g * x.shape[0], *x.shape[1:]))
+        dep.collective(dist.all_gather_into_tensor, axes.group, parts, x.contiguous()).wait()
+        shape = list(x.shape)
+        shape[dim] *= g
+        return parts.view(g, *x.shape).movedim(0, dim).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, gy: torch.Tensor):
+        dim, g = ctx.dim, ctx.axes.size
+        shape = list(gy.shape)
+        shape[dim:dim + 1] = [g, shape[dim] // g]
+        chunks = gy.reshape(shape).movedim(dim, 0).contiguous()
+        recv = torch.empty_like(chunks)
+        dep.collective(dist.all_to_all_single, ctx.axes.group, recv, chunks).wait()
+        out = recv[0].clone()
+        for i in range(1, g):
+            out.add_(recv[i])
+        return out, None, None
+
+
+def fsdp_all_gather(x: torch.Tensor, dim: int, axes: FsdpAxes) -> torch.Tensor:
+    """The whole of a dp-sharded tensor along ``dim`` (identity at dp
+    extent 1); its backward is the reduce-scatter of the cotangent."""
+    if axes.size == 1:
+        return x
+    return _FsdpGather.apply(x, dim, axes)
 
 
 def _check_axis(tp: int, axis: ModelAxis) -> None:

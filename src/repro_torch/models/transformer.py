@@ -1,5 +1,6 @@
 """Decoder-only transformer LM (``repro/models/transformer.py``): the
-dense training path at any tp and the serving paths at tp=1.
+training path (dense or MoE FFN, at any tp, FSDP or not) and the serving
+paths at tp=1.
 
 Parameters are the reference's tree — the same nesting, leaf names and
 stacked ``(n_layers, ...)`` block leaves — so weights carry over by name
@@ -9,12 +10,27 @@ scan_layers``: the stack unbound once a forward).
 
 Ported: ``TransformerConfig`` (every field), ``init_params``,
 ``param_rules`` (with ``_FSDP_DIM``) and ``param_specs``,
-``self_block``, ``backbone``, ``train_forward`` (with ``frame_embeds``
-and depcha's in-backward sync through a ``LayerSync``), ``prefill`` (with
-``last_pos``), ``decode_step`` (ring-buffer slot), ``decode_step_paged``,
-``make_cache`` and the ``Transformer`` module.  A config that needs MoE,
-cross-attention or FSDP raises ``NotImplementedError`` naming its
-ROADMAP item, and so do the serve functions at tp > 1.
+``fsdp_gather``, ``self_block``, ``backbone``, ``train_forward`` (with
+``frame_embeds``, the MoE aux loss, and depcha's in-backward sync through
+a ``LayerSync``), ``prefill`` (with ``last_pos``), ``decode_step``
+(ring-buffer slot), ``decode_step_paged``, ``make_cache`` and the
+``Transformer`` module.  A config with cross-attention raises
+``NotImplementedError`` naming its ROADMAP item, and so do the serve
+functions at tp > 1 or with FSDP.
+
+MoE (``cfg.moe``, ``models/moe.py``): the blocks hold ``router`` (f32),
+``w_gate``/``w_up``/``w_down`` (the experts, sharded over "model" on the
+expert dim) and, with shared experts, ``ws_g``/``ws_u``/``ws_down`` in
+place of the dense FFN; each block adds its aux loss to a carry beside
+``x``, and ``train_forward`` adds the sum × (B·S / global tokens) /
+n_layers.  Serving runs the same FFN and drops the aux.
+
+FSDP (``cfg.fsdp``, ZeRO-3 storage): the leaves of ``_FSDP_DIM`` are
+stored sharded over the dp axes too; ``fsdp_gather`` all-gathers one
+layer's shards at the top of ``self_block``, inside the in-backward
+sync's wrapper and the remat (so the gather runs again in the
+recompute), and its backward reduce-scatters the gradient to the shard:
+the dp sum, so no gradient sync sees those leaves.
 
 Tensor parallelism: each rank holds its shards of the "model"-sharded
 leaves (``param_rules``; ``init_params`` with a mesh and a rank draws
@@ -44,12 +60,15 @@ from repro_torch.core.overlap import LayerSync, scan_layers
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (
     ACTIVATIONS,
+    NO_FSDP,
     NO_MODEL_AXIS,
+    FsdpAxes,
     HeadLayout,
     ModelAxis,
     apply_rope,
     dense_init,
     embed_lookup,
+    fsdp_all_gather,
     pad_heads,
     model_psum,
     rms_norm,
@@ -57,6 +76,7 @@ from repro_torch.models.common import (
     sharded_softmax_xent,
     swiglu,
 )
+from repro_torch.models.moe import MoECfg, moe_ffn
 from repro_torch.parallel.sharding import (MODEL_AXIS, ShardingRules, reduce_axes_tree,
                                            shard_tree)
 from repro_torch.utils.trees import tree_map_with_names
@@ -81,7 +101,7 @@ class TransformerConfig:
     qk_norm: bool = False
     swa_window: Optional[int] = None
     rope_theta: float = 500_000.0
-    moe: Any = None                   # MoECfg in the reference: not ported
+    moe: Optional[MoECfg] = None
     cross_attn_every: Optional[int] = None   # 1 cross layer per N self layers
     n_img_tokens: int = 0
     frame_embeds: bool = False        # musicgen stub conditioning input
@@ -96,7 +116,8 @@ class TransformerConfig:
     chunk_unroll: bool = False        # unroll chunk scans (exact HLO cost)
     depcha_reducer: str = "flat"      # flat | hierarchical (in-scan sync)
     intra_size: int = 16              # intra-pod "data" size (hierarchical)
-    fsdp: bool = False                # ZeRO-3 block weights (not ported)
+    fsdp: bool = False                # ZeRO-3: block weights stored sharded
+                                      # over the dp axes too, gathered a layer
 
     @property
     def hd(self) -> int:
@@ -127,21 +148,19 @@ class TransformerConfig:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for what the port does not run yet, naming its ROADMAP item."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFN — ROADMAP queue 1 item 12")
     if cfg.cross_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention layers — ROADMAP queue 1 item 12")
-    if cfg.fsdp:
-        raise NotImplementedError(f"{cfg.name}: FSDP — ROADMAP queue 1 item 8")
 
 
 def check_serving(cfg: TransformerConfig) -> None:
-    """``check_supported``, and serving runs on one rank only."""
+    """``check_supported``, and serving runs on one rank only: not at tp >
+    1, and not from FSDP's dp-sharded storage."""
     check_supported(cfg)
-    if cfg.tp != 1:
+    if cfg.tp != 1 or cfg.fsdp:
+        what = f"tp={cfg.tp}" if cfg.tp != 1 else "fsdp=True"
         raise NotImplementedError(
-            f"{cfg.name}: serving at tp={cfg.tp} — serving beyond one rank, "
+            f"{cfg.name}: serving at {what} — serving beyond one rank, "
             f"ROADMAP queue 1 item 11")
 
 
@@ -172,9 +191,9 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
         out = tree_map_with_names(lambda _n, t: t.contiguous().clone(), local)
         del full, local
         return out
-    if cfg.tp != 1 and device.type != "meta":
-        raise ValueError(f"tp={cfg.tp}: pass the mesh and the rank, whose shards "
-                         f"init_params keeps")
+    if (cfg.tp != 1 or cfg.fsdp) and device.type != "meta":
+        raise ValueError(f"tp={cfg.tp}, fsdp={cfg.fsdp}: pass the mesh and the rank, "
+                         f"whose shards init_params keeps")
     return _draw_params(cfg, seed, device)
 
 
@@ -204,12 +223,24 @@ def _draw_params(cfg: TransformerConfig, seed: int, device: torch.device) -> dic
     if cfg.qk_norm:
         blocks["qnorm"] = ones(L, hd)
         blocks["knorm"] = ones(L, hd)
-    if cfg.gated:
-        blocks["wg"] = dense((L, d, ff), d)
-        blocks["wu"] = dense((L, d, ff), d)
+    if cfg.moe is not None:
+        m = cfg.moe
+        blocks["router"] = dense_init(gen, (L, d, m.num_experts), d, torch.float32, device)
+        blocks["w_gate"] = dense((L, m.num_experts, d, m.d_expert), d)
+        blocks["w_up"] = dense((L, m.num_experts, d, m.d_expert), d)
+        blocks["w_down"] = dense((L, m.num_experts, m.d_expert, d), m.d_expert)
+        if m.shared_experts:
+            ds = m.d_expert * m.shared_experts
+            blocks["ws_g"] = dense((L, d, ds), d)
+            blocks["ws_u"] = dense((L, d, ds), d)
+            blocks["ws_down"] = dense((L, ds, d), ds)
     else:
-        blocks["wi"] = dense((L, d, ff), d)
-    blocks["wdown"] = dense((L, ff, d), ff)
+        if cfg.gated:
+            blocks["wg"] = dense((L, d, ff), d)
+            blocks["wu"] = dense((L, d, ff), d)
+        else:
+            blocks["wi"] = dense((L, d, ff), d)
+        blocks["wdown"] = dense((L, ff, d), ff)
     return {
         "embed": dense((cfg.vocab_padded, d), d),
         "blocks": blocks,
@@ -218,8 +249,9 @@ def _draw_params(cfg: TransformerConfig, seed: int, device: torch.device) -> dic
     }
 
 
-# FSDP storage: the big per-layer matrices get "data" on a second dim
-# (the reference's table; FSDP itself is ROADMAP queue 1 item 8)
+# FSDP storage: the big per-layer matrices get the dp axes on a second
+# dim, the one that keeps the head/expert structure whole (the reference's
+# table); ``fsdp_gather`` gathers them a layer
 _FSDP_DIM = {
     "wq": 1, "wo": 2, "wi": 1, "wg": 1, "wu": 1, "wdown": 2,
     "w_gate": 3, "w_up": 3, "w_down": 2, "ws_g": 1, "ws_u": 1,
@@ -266,6 +298,20 @@ def param_rules(cfg: TransformerConfig) -> ShardingRules:
 def param_specs(params: dict, cfg: TransformerConfig) -> dict:
     """The params' specs tree under ``param_rules(cfg)``."""
     return param_rules(cfg).tree_specs(params)
+
+
+def fsdp_gather(p: dict, cfg: TransformerConfig, fsdp: FsdpAxes = NO_FSDP) -> dict:
+    """One layer's params with each FSDP-sharded leaf all-gathered over
+    the dp axes (the per-layer tensor has lost the stacking dim, hence
+    ``_FSDP_DIM[name] - 1``); its backward reduce-scatters the gradient
+    back to the shard.  The params as they are without ``cfg.fsdp``."""
+    if not cfg.fsdp:
+        return p
+    out = dict(p)
+    for name, dim in _FSDP_DIM.items():
+        if name in out:
+            out[name] = fsdp_all_gather(out[name], dim - 1, fsdp)
+    return out
 
 
 def in_scan_param_names(params: dict) -> frozenset[str]:
@@ -325,12 +371,17 @@ def _attn_qkv(p: dict, h: torch.Tensor, cfg: TransformerConfig,
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: TransformerConfig,
-         axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+         axis: ModelAxis = NO_MODEL_AXIS) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN of h (B, S, d) and its aux loss (MoE; None when dense)."""
+    if cfg.moe is not None:
+        B, S, d = h.shape
+        out, aux = moe_ffn(p, h.reshape(B * S, d), cfg.moe, axis)
+        return out.reshape(B, S, d), aux
     if cfg.gated:
         a = swiglu(h @ p["wg"], h @ p["wu"])
     else:
         a = ACTIVATIONS[cfg.act](h @ p["wi"])
-    return model_psum(a @ p["wdown"], axis)
+    return model_psum(a @ p["wdown"], axis), None
 
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -339,38 +390,55 @@ def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_residual(p: dict, x: torch.Tensor, o: torch.Tensor,
-                  cfg: TransformerConfig, axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+                  cfg: TransformerConfig, axis: ModelAxis = NO_MODEL_AXIS):
+    """x + attention out o's projection, then + the FFN: (x out, aux)."""
     x = x + model_psum(o @ p["wo"], axis)
-    return x + _ffn(p, rms_norm(x, p["ln2"]), cfg, axis)
+    f, aux = _ffn(p, rms_norm(x, p["ln2"]), cfg, axis)
+    return x + f, aux
 
 
 def self_block(p: dict, x: torch.Tensor, cfg: TransformerConfig, rope,
-               axis: ModelAxis = NO_MODEL_AXIS):
+               axis: ModelAxis = NO_MODEL_AXIS, fsdp: FsdpAxes = NO_FSDP):
     """One decoder block over the whole sequence; rope = (cos, sin).
-    Returns (x out, k, v), k after RoPE (prefill caches k and v)."""
+    Returns (x out, aux, k, v): the MoE aux loss (None when dense), k
+    after RoPE (prefill caches k and v)."""
+    p = fsdp_gather(p, cfg, fsdp)
     cos, sin = rope
     q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg, axis)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = attn_lib.attention(q, k, v, causal=True, window=cfg.swa_window,
                            chunk=cfg.attn_chunk, use_flash=cfg.use_flash)
-    return _mlp_residual(p, x, o.reshape(*x.shape[:2], -1), cfg, axis), k, v
+    x, aux = _mlp_residual(p, x, o.reshape(*x.shape[:2], -1), cfg, axis)
+    return x, aux, k, v
 
 
 def backbone(params: dict, x: torch.Tensor, cfg: TransformerConfig, rope, *,
-             sync: Optional[LayerSync] = None,
-             axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+             sync: Optional[LayerSync] = None, axis: ModelAxis = NO_MODEL_AXIS,
+             fsdp: FsdpAxes = NO_FSDP):
     """Every block, x: (B, S, d) → (B, S, d), under ``cfg.remat``; with
-    ``sync`` each layer's gradient is reduced inside the backward."""
+    ``sync`` each layer's gradient is reduced inside the backward.  With
+    MoE returns (x, the blocks' aux losses summed, f32), the carry the
+    reference scans."""
     check_supported(cfg)
-    return scan_layers(lambda p, h: self_block(p, h, cfg, rope, axis)[0],
-                       params["blocks"], x, sync=sync, remat=cfg.remat)
+    if cfg.moe is None:
+        return scan_layers(lambda p, h: self_block(p, h, cfg, rope, axis, fsdp)[0],
+                           params["blocks"], x, sync=sync, remat=cfg.remat)
+
+    def body(p, carry):
+        h, aux = carry
+        h, a, _, _ = self_block(p, h, cfg, rope, axis, fsdp)
+        return h, aux + a
+
+    carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    return scan_layers(body, params["blocks"], carry, sync=sync, remat=cfg.remat)
 
 
 # ------------------------------------------------------------------ train
 def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
                   layer_sync: Optional[LayerSync] = None,
-                  model_axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+                  model_axis: ModelAxis = NO_MODEL_AXIS,
+                  fsdp: FsdpAxes = NO_FSDP) -> torch.Tensor:
     """Local-shard loss: the summed token cross-entropy over the GLOBAL
     token count (``batch["global_tokens"]``), so a sum of the gradients
     over the data-parallel ranks is the global mean.  ``frame_embeds``
@@ -380,18 +448,28 @@ def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
     At tp > 1 ``params`` are the rank's shards and ``model_axis`` the
     rank's ``ModelAxis``; the loss is then the same on every rank of a
     model group, and (the reference's psum transpose) each gradient comes
-    out tp × its per-shard value."""
+    out tp × its per-shard value.
+
+    With ``cfg.fsdp`` ``params`` hold the rank's dp shards of the
+    ``_FSDP_DIM`` leaves and ``fsdp`` is the rank's ``FsdpAxes``; those
+    leaves' gradients come out as the dp sum of the shard's.  With MoE
+    the blocks' aux losses are added, × (B·S / global tokens) / n_layers:
+    each rank's share of their mean over the dp ranks."""
     tokens = batch["tokens"]
-    S = tokens.shape[1]
+    B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens, cfg.tp, model_axis).to(cfg.dtype)
     if cfg.frame_embeds and "frame_embeds" in batch:
         x = x + batch["frame_embeds"].to(cfg.dtype)
     rope = rope_angles(torch.arange(S, device=tokens.device), cfg.hd, cfg.rope_theta)
-    h = rms_norm(backbone(params, x, cfg, rope, sync=layer_sync, axis=model_axis),
-                 params["ln_f"])
-    per_tok = sharded_softmax_xent(h @ params["lm_head"], batch["labels"], cfg.tp,
-                                   model_axis)
-    return per_tok.sum() / batch["global_tokens"]
+    h = backbone(params, x, cfg, rope, sync=layer_sync, axis=model_axis, fsdp=fsdp)
+    if cfg.moe is not None:
+        h, aux = h
+    per_tok = sharded_softmax_xent(rms_norm(h, params["ln_f"]) @ params["lm_head"],
+                                   batch["labels"], cfg.tp, model_axis)
+    loss = per_tok.sum() / batch["global_tokens"]
+    if cfg.moe is not None:
+        loss = loss + aux * ((B * S) / batch["global_tokens"]) / cfg.n_layers
+    return loss
 
 
 class Transformer(nn.Module):
@@ -415,9 +493,10 @@ class Transformer(nn.Module):
                 "ln_f": self.ln_f, "lm_head": self.lm_head}
 
     def forward(self, batch: dict, layer_sync: Optional[LayerSync] = None,
-                model_axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+                model_axis: ModelAxis = NO_MODEL_AXIS,
+                fsdp: FsdpAxes = NO_FSDP) -> torch.Tensor:
         return train_forward(self.params_tree(), batch, self.cfg,
-                             layer_sync=layer_sync, model_axis=model_axis)
+                             layer_sync=layer_sync, model_axis=model_axis, fsdp=fsdp)
 
 
 # ------------------------------------------------------------------ serve
@@ -440,7 +519,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=tokens.device),
              "v": torch.empty(shape, dtype=cfg.dtype, device=tokens.device)}
     for li in range(cfg.n_self):
-        x, k, v = self_block(_layer(params, li), x, cfg, (cos, sin))
+        x, _, k, v = self_block(_layer(params, li), x, cfg, (cos, sin))
         cache["k"][li] = k
         cache["v"][li] = v
     sel = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
@@ -474,7 +553,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
         kc[:, slot] = k[:, 0]
         vc[:, slot] = v[:, 0]
         o = attn_lib.decode_attention(q, kc, vc, kv_len, window=win)
-        x = _mlp_residual(p, x, o.reshape(B, 1, -1), cfg)
+        x = _mlp_residual(p, x, o.reshape(B, 1, -1), cfg)[0]
     return _head(params, x), cache
 
 
@@ -517,7 +596,7 @@ def decode_step_paged(params: dict, pool_k: torch.Tensor, pool_v: torch.Tensor,
         kf[wr] = k[:, 0]
         vf[wr] = v[:, 0]
         o = attn_lib.decode_attention(q, kf[gat], vf[gat], kv_len, window=win)
-        x = _mlp_residual(p, x, o.reshape(W, 1, -1), cfg)
+        x = _mlp_residual(p, x, o.reshape(W, 1, -1), cfg)[0]
     return _head(params, x), pool_k, pool_v
 
 

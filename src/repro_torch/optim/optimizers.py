@@ -13,7 +13,7 @@ params in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Mapping
 
 import torch
 import torch.distributed
@@ -93,23 +93,31 @@ def adamw(lr: Callable[[int], float] | float, b1: float = 0.9,
 
 
 def clip_by_global_norm(grads: Tensors, max_norm: float, *,
-                        model_sharded: frozenset[str] = frozenset(),
-                        model_group=None) -> tuple[Tensors, torch.Tensor]:
+                        shard_sets: Mapping[str, tuple[str, ...]] | None = None,
+                        comms=None) -> tuple[Tensors, torch.Tensor]:
     """Clip by the global grad norm (summed in the dict's order).
 
-    Under tensor parallelism (``model_group``, the rank's model group)
-    ``model_sharded`` names the leaves sharded over "model": their
-    squares are summed over the group too, and the replicated leaves'
-    (equal on every model rank after the sync) counted once, so every
-    model rank clips by the same, global norm.  (The reference clips by
-    the squares of each model rank's own shards; ROADMAP queue 3.)"""
+    On a mesh ``shard_sets`` maps each leaf sharded over a mesh axis of
+    size > 1 to those axes (its spec's ``reduce_key``: "model" under
+    tensor parallelism, the dp axes and "model" under FSDP); ``comms``
+    (a ``core.dependency.ChainComms``) gives each set's communicator.
+    The squares of the leaves of one set are summed over that set's
+    ranks, one all-reduce a set, and the replicated leaves' (equal on
+    every rank after the sync) counted once, so every rank clips by the
+    same, global norm.  (The reference clips by the squares of each
+    rank's own shards: ROADMAP queue 3.)"""
+    shard_sets = shard_sets or {}
     parts = [torch.sum(torch.square(g.to(torch.float32))) for g in grads.values()]
-    sharded = sum((p for k, p in zip(grads, parts) if k in model_sharded),
-                  torch.zeros(1, device=parts[0].device))
-    if model_group is not None:
-        dep.collective(torch.distributed.all_reduce, model_group, sharded).wait()
-    norm = torch.sqrt(sharded[0] + sum(p for k, p in zip(grads, parts)
-                                       if k not in model_sharded))
+    device = parts[0].device
+    sharded = torch.zeros((), device=device)
+    for key in sorted({shard_sets[k] for k in grads if k in shard_sets}):
+        s = sum((p for k, p in zip(grads, parts) if shard_sets.get(k) == key),
+                torch.zeros(1, device=device))
+        group = comms.get(key)
+        if group is not None:
+            dep.collective(torch.distributed.all_reduce, group, s).wait()
+        sharded = sharded + s[0]
+    norm = torch.sqrt(sharded + sum(p for k, p in zip(grads, parts) if k not in shard_sets))
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {k: (g.to(torch.float32) * scale).to(g.dtype)
             for k, g in grads.items()}, norm

@@ -34,9 +34,18 @@ before the backward, which for tp a power of two is bit-identical.  The
 bucket plan is built on the local shard shapes; a replicated leaf's
 partial gradient is summed over "model" by the sync (its reduce axes
 include "model").  The loss is summed over the dp axes only.  Clipping
-takes the global norm: the model-sharded leaves' squares summed over
-"model", the replicated leaves' counted once (the reference clips by
-each model rank's own shards: ROADMAP queue 3).
+takes the global norm: each leaf's squares summed over exactly the axes
+its spec shards it over (one all-reduce a set of axes, on the clip's own
+communicators), the replicated leaves' counted once (the reference clips
+by each rank's own shards: ROADMAP queue 3).
+
+FSDP (``cfg.fsdp``): the block leaves of ``_FSDP_DIM`` are stored
+sharded over the dp axes and gathered a layer inside the forward (and
+the remat's recompute) on the rank's ``FsdpAxes``, a communicator of
+their own; the backward reduce-scatters their gradients, which are then
+the dp sum: no GradSync bucket holds them, and depcha's in-backward sync
+passes them through.  ZeRO-1 with FSDP is refused, as the reference
+refuses it (its dp plan wants every leaf replicated over dp).
 
 Each stage runs under a profiler label (``step.gather_pending``,
 ``step.forward``, ``step.backward``, ``step.gradsync``,
@@ -58,7 +67,7 @@ from torch.profiler import record_function
 from repro_torch.core import GradSync, GradSyncConfig, get_strategy
 from repro_torch.core import dependency as dep
 from repro_torch.core.dependency import coset_groups, reduce_key, resolve_device
-from repro_torch.models.common import model_axis
+from repro_torch.models.common import fsdp_axes, model_axis
 from repro_torch.models.registry import family_of
 from repro_torch.obs import EventLog, MetricsRegistry, comm_byte_counters, heartbeat_line
 from repro_torch.optim.optimizers import (
@@ -184,6 +193,11 @@ def make_train_step(
             f"ZeRO-1 with depcha's in-backward sum at dp={dp_size} would sum "
             f"the stacked leaves twice; use another strategy, or "
             f"depcha_in_scan=False")
+    fsdp = getattr(cfg, "fsdp", False)
+    if zero1_mode and fsdp:
+        raise ValueError("ZeRO-1 with FSDP: the params are already sharded over the dp "
+                         "axes; refused as in the reference (core/stepprogram.py), "
+                         "ROADMAP queue 3")
     zero1_scheduled = zero1_mode and zero1_plan != "monolithic"
     defer_ag = zero1_mode and zero1_plan == "deferred"
     if zero1_mode:
@@ -210,12 +224,17 @@ def make_train_step(
     loss_group = coset_groups([dp], mesh, device)[reduce_key(dp, mesh)]
     rank = dp_index(dist.get_rank(), mesh)
     fwd_kw = {"layer_sync": layer_sync} if layer_sync is not None else {}
-    clip_kw = {}
     if tp > 1:
-        axis = model_axis(mesh, device)
-        fwd_kw["model_axis"] = axis
-        clip_kw = dict(model_group=axis.group, model_sharded=frozenset(
-            n for n, sp in flatten_with_names(specs)[0] if MODEL_AXIS in flat_spec_axes(sp)))
+        fwd_kw["model_axis"] = model_axis(mesh, device)
+    if fsdp:
+        fwd_kw["fsdp"] = fsdp_axes(mesh, tuple(cfg.dp_axes), device)
+    # the clip's squares: each sharded leaf's summed over its spec's axes
+    shard_sets = {n: key for n, sp in flatten_with_names(specs)[0]
+                  if (key := reduce_key(flat_spec_axes(sp), mesh))}
+    clip_kw = {}
+    if shard_sets and clip_norm and not zero1_mode:
+        clip_kw = dict(shard_sets=shard_sets, comms=dep.mesh_comms(
+            [0], set(shard_sets.values()), mesh, device)[0])
 
     def init_opt():
         if zero1_scheduled:

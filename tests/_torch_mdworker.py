@@ -2,9 +2,10 @@
 
     python tests/_torch_mdworker.py <workdir> <rank> <world> [MODE]
     python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*>
+                                                  (tp-<mesh>+: SPLIT_REFERENCE's second part)
 
 MODE: grads (the default), rings, compressed, hier, lm, inception, zero1,
-tp-2x2, tp-1x4 or tp-ops.
+tp-2x2, tp-1x4, tp-4x1 or tp-ops.
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -76,7 +77,13 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               2x2 also ``TP_STEPS`` AdamW steps through ``Trainer``
               (depcha in-backward), the ZeRO-1 runs of ``TP_ZERO1``, and
               the hierarchical reducer's gradients on the pod mesh
-              ``TP_POD_MESH``; to ``tp-<mesh>_rank<r>.npz``.
+              ``TP_POD_MESH``; on the meshes of ``FSDP_MESHES`` (4x1 is
+              ``MESHES``' FSDP-only mesh, data 4 x model 1) FSDP's loss
+              and gradient shards for each run of ``FSDP_GRADS``, check
+              5's AdamW step, the clipped SGD step and the refusal of
+              ZeRO-1 with FSDP; the MoE runs of ``MOE_RUNS`` (granite's
+              and kimi's smoke configs at vocab 96, weights from
+              ``moe-<arch>_params.npz``); to ``tp-<mesh>_rank<r>.npz``.
   tp-ops      (tests/test_torch_tp.py, test_torch_lm_train.py,
               test_torch_transformer.py) the vocab-sharded embedding and
               cross-entropy and the column/row-parallel matmuls over a
@@ -182,6 +189,44 @@ TP_STEPS, TP_LR, TP_CLIP = 3, 0.1, 0.05
 # run -> zero1 plan (SGD with momentum, 2 steps), the last clipped at TP_CLIP
 TP_ZERO1 = {"zero1-scheduled": "scheduled", "zero1-monolithic": "monolithic",
             "zero1-scheduled-clip": "scheduled"}
+
+
+# FSDP (ZeRO-3 storage) and the MoE FFN on the tp spawns, and FSDP alone
+# on data 4 x model 1 (mode tp-4x1)
+MESHES = {**TP_MESHES, "4x1": (4, 1)}               # (data, model)
+FSDP_MESHES = ("2x2", "4x1")
+TP_STRATEGIES = ("funnel", "concom", "depcha", "priority", "rsag")
+# mesh -> (strategy, reducer) -> run: every registered strategy with flat,
+# and ring at 2 x 2
+FSDP_GRADS = {m: {**{(st, "flat"): f"fsdp-{st}" for st in TP_STRATEGIES},
+                  **({("concom", "ring"): "fsdp-ring"} if m == "2x2" else {})}
+              for m in FSDP_MESHES}
+FSDP_LR = 1e-3                                     # check 5's AdamW, unclipped
+# meshes whose reference runs as two processes: tp-<mesh> and tp-<mesh>+
+# (the FSDP and MoE gradients), so that neither is the spawn's long pole
+SPLIT_REFERENCE = ("2x2",)
+# the MoE archs' smoke configs, at vocab 96 (97 splits over no model axis)
+MOE_ARCHS = {"granite": "granite-moe-1b-a400m", "kimi": "kimi-k2-1t-a32b"}
+# mesh -> run -> (arch, strategy, fsdp): experts sharded over "model"
+MOE_RUNS = {"2x2": {"moe-granite": ("granite", "concom", False),
+                    "moe-granite-depcha": ("granite", "depcha", False),
+                    "moe-granite-fsdp": ("granite", "concom", True),
+                    "moe-kimi": ("kimi", "concom", False)},
+            "1x4": {"moe-granite": ("granite", "concom", False)}}
+
+
+def moe_config(arch: str, tp: int, **over):
+    """``MOE_ARCHS[arch]``'s smoke config at vocab 96 and ``tp``, in
+    either package (``ref=True``)."""
+    import dataclasses
+
+    ref = over.pop("ref", False)
+    if ref:
+        from repro.configs import get_arch
+    else:
+        from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MOE_ARCHS[arch]).make_smoke(), vocab=96, tp=tp,
+                               **over)
 
 
 def tp_config(tp: int, **over):
@@ -578,14 +623,14 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
     from repro_torch.core import dependency as dep
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.mesh import make_pod_mesh, make_smoke_mesh
-    from repro_torch.models.common import model_axis
+    from repro_torch.models.common import NO_FSDP, fsdp_axes, model_axis
     from repro_torch.models import transformer as tf
     from repro_torch.optim import adamw, sgd, zero1
     from repro_torch.runtime import Trainer, make_train_step
     from repro_torch.utils.convert import params_from_numpy
     from repro_torch.utils.trees import flatten_with_names, tree_unflatten
 
-    data, model = TP_MESHES[mesh_name]
+    data, model = MESHES[mesh_name]
     mesh = make_smoke_mesh(data, model)
     named = dict(np.load(os.path.join(workdir, "tp_params.npz")))
     axis = model_axis(mesh, "cpu")
@@ -593,17 +638,17 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
         dep.reduce_key(("data",), mesh)]
     out = {}
 
-    def local_params(cfg, m=mesh):
-        return params_from_numpy(named, "cpu", mesh=m, rank=rank, rules=tf.param_rules(cfg))
+    def local_params(cfg, m=mesh, weights=named):
+        return params_from_numpy(weights, "cpu", mesh=m, rank=rank, rules=tf.param_rules(cfg))
 
     def pipe(m=mesh):
         return TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m,
                              rank=rank, device="cpu")
 
-    def grads(strategy, reducer, m, ax, dp, cfg):
+    def grads(strategy, reducer, m, ax, dp, cfg, weights=named, run=None):
         in_scan = get_strategy(strategy).uses_in_scan
         cfg = dataclasses.replace(cfg, depcha_in_scan=in_scan)
-        tree = local_params(cfg, m)
+        tree = local_params(cfg, m, weights)
         leaves, treedef = flatten_with_names(tree)
         for _, p in leaves:
             p.requires_grad_(True)
@@ -611,9 +656,11 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
         gs = GradSync(GradSyncConfig(strategy=strategy, reducer=reducer, **TP_SYNC), m,
                       tf.param_specs(tree, cfg), tree, device="cpu",
                       in_scan_names=tf.in_scan_param_names(tree) if in_scan else frozenset())
+        fa = fsdp_axes(m, cfg.dp_axes, "cpu") if cfg.fsdp else NO_FSDP
         if ls is not None:
             ls.begin()
-        loss = tf.train_forward(tree, pipe(m).batch_at(0), cfg, layer_sync=ls, model_axis=ax)
+        loss = tf.train_forward(tree, pipe(m).batch_at(0), cfg, layer_sync=ls, model_axis=ax,
+                                fsdp=fa)
         (loss / cfg.tp).backward()
         if ls is not None:
             ls.finish([dict(leaves)[n] for n in ls.names])
@@ -621,19 +668,34 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
         loss = loss.detach()
         if dp is not None:
             dep.collective(dist.all_reduce, dp, loss).wait()
+        if run is not None:
+            # the leaves GradSync buckets, and those depcha passes through
+            bucketed = sorted(l.name for b in gs.plan.buckets for l in b.leaves)
+            out[f"{run}/bucketed"] = np.array(bucketed or [""])
+            if ls is not None:
+                out[f"{run}/passthrough"] = np.array(sorted(ls.passthrough) or [""])
         return loss, reduced
 
+    def save_grads(run, loss, reduced):
+        out[f"{run}/loss"] = loss.numpy()
+        out.update({f"{run}/grad/{n}": g.numpy() for n, g in flatten_with_names(reduced)[0]})
+
     cfg = tp_config(model, dp_axes=("data",))
+    fcfg = tp_config(model, dp_axes=("data",), fsdp=True)
     out["batch"] = pipe().batch_at(0)["tokens"].numpy()
     out.update({f"shard/{n}": p.numpy()
                 for n, p in flatten_with_names(local_params(cfg))[0]})
-    for (strategy, reducer), name in TP_GRADS.items():
-        loss, reduced = grads(strategy, reducer, mesh, axis, dp_group, cfg)
-        out[f"{name}/loss"] = loss.numpy()
-        out.update({f"{name}/grad/{n}": g.numpy() for n, g in flatten_with_names(reduced)[0]})
+    for (strategy, reducer), name in (TP_GRADS.items() if mesh_name in TP_MESHES else ()):
+        save_grads(name, *grads(strategy, reducer, mesh, axis, dp_group, cfg))
+    for (strategy, reducer), name in FSDP_GRADS.get(mesh_name, {}).items():
+        save_grads(name, *grads(strategy, reducer, mesh, axis, dp_group, fcfg, run=name))
+    for run, (arch, strategy, fsdp) in MOE_RUNS.get(mesh_name, {}).items():
+        weights = dict(np.load(os.path.join(workdir, f"moe-{arch}_params.npz")))
+        save_grads(run, *grads(strategy, "flat", mesh, axis, dp_group,
+                               moe_config(arch, model, fsdp=fsdp), weights))
 
-    def train(run, opt, *, clip, steps, strategy="concom", plan=None):
-        c = dataclasses.replace(cfg, depcha_in_scan=get_strategy(strategy).uses_in_scan)
+    def train(run, opt, *, clip, steps, strategy="concom", plan=None, base=cfg):
+        c = dataclasses.replace(base, depcha_in_scan=get_strategy(strategy).uses_in_scan)
         m = tf.Transformer(c, local_params(c))
         sync = GradSyncConfig(strategy=strategy, exclude_axes=("data",) if plan else (),
                               **TP_SYNC)
@@ -650,6 +712,20 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
         out.update({f"{run}/param/{n}": p.detach().numpy()
                     for n, p in flatten_with_names(m.params_tree())[0]})
 
+    if mesh_name in FSDP_MESHES:
+        # check 5: one concom AdamW step, unclipped; then the clipped step
+        train("fsdp-step", adamw(FSDP_LR), clip=0.0, steps=1, base=fcfg)
+        train("fsdp-clip", sgd(TP_LR), clip=TP_CLIP, steps=1, base=fcfg)
+        try:
+            make_train_step(fcfg, mesh, GradSyncConfig(strategy="concom", **TP_SYNC),
+                            zero1(sgd(TP_LR), ("data",), data), zero1_mode=True,
+                            model=tf.Transformer(fcfg, local_params(fcfg)), device="cpu")
+            out["fsdp-zero1-refused"] = np.array(False)
+        except ValueError as e:
+            out["fsdp-zero1-refused"] = np.array("ZeRO-1 with FSDP" in str(e))
+    if mesh_name not in TP_MESHES:
+        np.savez(os.path.join(workdir, f"tp-{mesh_name}_rank{rank}.npz"), **out)
+        return
     train("clip", sgd(TP_LR), clip=TP_CLIP, steps=1)
     # the paper's KVStore over the ranks of this rank's data coordinate
     from repro_torch.core import KVStore
@@ -899,18 +975,19 @@ def peer_rank(rank: int, world: int, workdir: str, case: str) -> None:
         dist.destroy_process_group()
 
 
-def run_all(workdir, mode: str, *, reference_too: bool = False,
+def run_all(workdir, mode: str, *, reference_too=False,
             timeout: int = 300, world: int = WORLD) -> None:
     """Run the ``world`` port ranks of ``mode`` (and the JAX reference of
-    it) in ``workdir`` at once; raise with a failing process's output."""
+    it; ``reference_too`` a tuple of modes: those reference processes) in
+    ``workdir`` at once; raise with a failing process's output."""
     import subprocess
 
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
     cmds = [[sys.executable, __file__, str(workdir), str(r), str(world), mode]
             for r in range(world)]
-    if reference_too:
-        cmds.append([sys.executable, __file__, str(workdir), "jax", mode])
+    refs = (mode,) if reference_too is True else tuple(reference_too or ())
+    cmds += [[sys.executable, __file__, str(workdir), "jax", m] for m in refs]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True, env=env) for c in cmds]
     outs = []
@@ -1075,13 +1152,15 @@ def _zero1_reference(workdir: str, mesh) -> dict:
     return out
 
 
-def _tp_reference(workdir: str, mesh_name: str) -> dict:
+def _tp_reference(workdir: str, mesh_name: str, part: str = "all") -> dict:
     """The JAX package's tensor parallelism on ``TP_MESHES[mesh_name]``
     (4 fake devices): ``tests/_mdworker.py::loss_and_grads`` for each run
     of ``TP_GRADS``, the clipped SGD step, on 2x2 the AdamW steps, the
     ZeRO-1 runs and the pod mesh's hierarchical gradients, and the tp=1
     oracles on one device.  On 1x4 also each model rank's own clip norm
-    and replicated leaves after its clipped step (``fault/...``)."""
+    and replicated leaves after its clipped step (``fault/...``).  The
+    FSDP and MoE gradients are ``part="extra"``, the rest ``"base"``:
+    ``SPLIT_REFERENCE``'s meshes run them as two processes at once."""
     import dataclasses
 
     import jax
@@ -1099,11 +1178,16 @@ def _tp_reference(workdir: str, mesh_name: str) -> dict:
     from repro.utils.trees import flatten_with_names
 
     auto = AxisType.Auto
-    params = tf.init_params(jax.random.PRNGKey(1), tp_config(1, ref=True))
-    saved = np.load(os.path.join(workdir, "tp_params.npz"))
-    for n, p in flatten_with_names(params)[0]:
-        np.testing.assert_array_equal(np.asarray(p), saved[n], err_msg=n)
-    data, model = TP_MESHES[mesh_name]
+
+    def init(cfg, saved_as):
+        out = tf.init_params(jax.random.PRNGKey(1), cfg)
+        saved = np.load(os.path.join(workdir, saved_as))
+        for n, p in flatten_with_names(out)[0]:
+            np.testing.assert_array_equal(np.asarray(p), saved[n], err_msg=n)
+        return out
+
+    params = init(tp_config(1, ref=True), "tp_params.npz")
+    data, model = MESHES[mesh_name]
     mesh = jax.make_mesh((data, model), ("data", "model"), axis_types=(auto,) * 2)
     mesh1 = jax.make_mesh((1, 1), ("data", "model"), axis_types=(auto,) * 2,
                           devices=jax.devices()[:1])
@@ -1112,7 +1196,7 @@ def _tp_reference(workdir: str, mesh_name: str) -> dict:
     def structs(t):
         return jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), t)
 
-    def loss_and_grads(cfg, m, strategy, reducer):
+    def loss_and_grads(cfg, m, strategy, reducer, params=params):
         rules = tf.param_rules(cfg)
         pspecs = rules.tree_specs(params)
         pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m)
@@ -1138,10 +1222,35 @@ def _tp_reference(workdir: str, mesh_name: str) -> dict:
         out[f"{run}/loss"] = np.asarray(lg[0])
         out.update({f"{run}/grad/{n}": np.asarray(v) for n, v in flatten_with_names(lg[1])[0]})
 
-    for (strategy, reducer), name in TP_GRADS.items():
-        cfg = tp_config(model, ref=True, depcha_in_scan=get_strategy(strategy).uses_in_scan)
+    def in_scan(strategy):
+        return get_strategy(strategy).uses_in_scan
+
+    if part != "extra":
+        for (strategy, reducer), name in (TP_GRADS.items() if mesh_name in TP_MESHES
+                                          else ()):
+            cfg = tp_config(model, ref=True, depcha_in_scan=in_scan(strategy))
+            save_grads(name, loss_and_grads(cfg, mesh, strategy, reducer))
+        save_grads("tp1", loss_and_grads(tp_config(1, ref=True), mesh1, "concom", "flat"))
+    for (strategy, reducer), name in (FSDP_GRADS.get(mesh_name, {}).items()
+                                      if part != "base" else ()):
+        cfg = tp_config(model, ref=True, fsdp=True, depcha_in_scan=in_scan(strategy))
         save_grads(name, loss_and_grads(cfg, mesh, strategy, reducer))
-    save_grads("tp1", loss_and_grads(tp_config(1, ref=True), mesh1, "concom", "flat"))
+    # MoE, experts sharded over "model": the same mesh, and the tp = 1
+    # oracle at the same dp (an expert's capacity follows the local tokens)
+    moe_runs = MOE_RUNS.get(mesh_name, {}) if part != "base" else {}
+    mesh_d1 = jax.make_mesh((data, 1), ("data", "model"), axis_types=(auto,) * 2,
+                            devices=jax.devices()[:data])
+    for arch in sorted({a for a, _, _ in moe_runs.values()}):
+        mp = init(moe_config(arch, 1, ref=True), f"moe-{arch}_params.npz")
+        for run, (a, strategy, fsdp) in moe_runs.items():
+            if a == arch:
+                cfg = moe_config(arch, model, ref=True, fsdp=fsdp,
+                                 depcha_in_scan=in_scan(strategy))
+                save_grads(run, loss_and_grads(cfg, mesh, strategy, "flat", mp))
+        save_grads(f"moe-{arch}-tp1", loss_and_grads(moe_config(arch, 1, ref=True), mesh_d1,
+                                                      "concom", "flat", mp))
+    if part == "extra":
+        return out
 
     def train(run, m, cfg, opt, *, clip, steps, strategy="concom", plan=None):
         pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m)
@@ -1160,7 +1269,13 @@ def _tp_reference(workdir: str, mesh_name: str) -> dict:
 
     # the clipped step's oracle: tp = 1 on one device
     train("tp1-clip", mesh1, tp_config(1, ref=True), sgd(TP_LR), clip=TP_CLIP, steps=1)
-    train("clip", mesh, tp_config(model, ref=True), sgd(TP_LR), clip=TP_CLIP, steps=1)
+    if mesh_name in FSDP_MESHES:
+        # check 5's oracle: the AdamW step at dp 1 x tp 1
+        train("tp1-adamw", mesh1, tp_config(1, ref=True), adamw(FSDP_LR), clip=0.0, steps=1)
+    if mesh_name == "4x1":
+        out.update(_fsdp_fault(params, mesh, tp_config(model, ref=True, fsdp=True)))
+    if mesh_name in TP_MESHES:
+        train("clip", mesh, tp_config(model, ref=True), sgd(TP_LR), clip=TP_CLIP, steps=1)
     if mesh_name == "2x2":
         train("adamw", mesh, tp_config(model, ref=True, depcha_in_scan=True), adamw(1e-3),
               clip=0.0, steps=TP_STEPS, strategy="depcha")
@@ -1177,7 +1292,7 @@ def _tp_reference(workdir: str, mesh_name: str) -> dict:
                             depcha_in_scan=get_strategy(strategy).uses_in_scan,
                             depcha_reducer="hierarchical", intra_size=pdata)
             save_grads(f"pod-{strategy}", loss_and_grads(cfg, pm, strategy, "hierarchical"))
-    else:
+    elif mesh_name == "1x4":
         # the reference's plain clipped step inside shard_map, each model
         # rank's norm and replicated leaves kept apart (stacked on "model")
         cfg = tp_config(model, ref=True)
@@ -1229,6 +1344,51 @@ def _tp_reference(workdir: str, mesh_name: str) -> dict:
     return out
 
 
+def _fsdp_fault(params, mesh, cfg) -> dict:
+    """The reference's plain clipped step under FSDP on data 4 x model 1
+    (``train_loop.py``'s ``clip_by_global_norm`` inside ``shard_map``,
+    no sum over any axis): each data rank's grad norm, and each data
+    rank's copy of the leaves replicated over "data" after the SGD step,
+    stacked on "data" (``fsdp-fault/...``)."""
+    import jax
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import GradSync, GradSyncConfig
+    from repro.data import TokenPipeline
+    from repro.models import transformer as tf
+    from repro.optim import sgd
+    from repro.optim.optimizers import apply_updates, clip_by_global_norm
+    from repro.parallel.sharding import batch_spec, flat_spec_axes
+    from repro.utils.trees import flatten_with_names
+
+    pspecs = tf.param_rules(cfg).tree_specs(params)
+    rep = sorted(n for n, sp in flatten_with_names(pspecs)[0]
+                 if "data" not in flat_spec_axes(sp))
+    batch = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED,
+                          mesh=mesh).batch_at(0)
+    bspecs = {k: (P() if np.ndim(v) == 0 else batch_spec(mesh)) for k, v in batch.items()}
+    opt = sgd(TP_LR)
+
+    def step(p, b):
+        _, g = jax.value_and_grad(lambda q: tf.train_forward(q, b, cfg))(p)
+        g = GradSync(GradSyncConfig(strategy="concom", **TP_SYNC), mesh, pspecs,
+                     jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), g))(g)
+        g, gnorm = clip_by_global_norm(g, TP_CLIP)
+        upd, _ = opt.update(g, opt.init(p), p, 0)
+        new = dict(flatten_with_names(apply_updates(p, upd))[0])
+        return gnorm[None], {n: new[n][None] for n in rep}
+
+    f = jax.jit(jax.shard_map(step, mesh=mesh, in_specs=(pspecs, bspecs),
+                              out_specs=(P("data"), {n: P("data") for n in rep}),
+                              check_vma=False))
+    ps = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(mesh, s), pspecs))
+    norms, leaves = f(ps, batch)
+    out = {"fsdp-fault/norms": np.asarray(norms)}
+    out.update({f"fsdp-fault/param/{n}": np.asarray(v) for n, v in leaves.items()})
+    return out
+
+
 def reference(workdir: str, mode: str) -> None:
     """The JAX package's rings, compressed allreduce, hierarchical
     reducers, Inception steps or ZeRO-1 runs on 4 fake devices."""
@@ -1256,7 +1416,12 @@ def reference(workdir: str, mode: str) -> None:
 
     out = {}
     if mode.startswith("tp-"):
-        out = _tp_reference(workdir, mode[len("tp-"):])
+        name = mode[len("tp-"):]
+        if name.endswith("+"):
+            out = _tp_reference(workdir, name[:-1], part="extra")
+        else:
+            out = _tp_reference(workdir, name,
+                                part="base" if name in SPLIT_REFERENCE else "all")
     elif mode in ("inception", "zero1"):
         fn = _inception_reference if mode == "inception" else _zero1_reference
         out = fn(workdir, jax.make_mesh((WORLD, 1), ("data", "model"),

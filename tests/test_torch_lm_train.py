@@ -4,12 +4,14 @@ one process on the CPU.
 ``train_forward``'s loss and every leaf's gradient against JAX's
 ``value_and_grad(train_forward)`` (run inside ``shard_map`` on the
 reference's one-device smoke mesh), rtol 1e-5 / atol 1e-6, on the smoke
-configs of the five dense archs the port trains: qwen3 (qk-norm),
-starcoder2 (gelu), minitron (relu2, 257-token vocab), h2o-danube (a
-sliding window of 16 over 48 tokens) and musicgen (``frame_embeds``),
-with the reference's weights carried over and the reference's batches.
+configs of the seven archs the port trains: qwen3 (qk-norm), starcoder2
+(gelu), minitron (relu2, 257-token vocab), h2o-danube (a sliding window
+of 16 over 48 tokens), musicgen (``frame_embeds``), and the MoE archs
+granite-moe (8 experts, top 2) and kimi-k2 (with a shared expert), with
+the reference's weights carried over and the reference's batches.
 Also the pieces under it: ``TokenPipeline`` draws, rank slices and extra
-inputs; the sharding rules and the in-backward reduce axes; the
+inputs; the sharding rules and the in-backward reduce axes, with and
+without FSDP; the
 cross-entropy at tp=1; the configs the registry resolves; the in-place
 AdamW, bit for bit against the formula it replaced; the flash op's
 refusal of autograd inputs; and the launcher on the CPU.
@@ -44,7 +46,8 @@ from repro_torch.parallel import sharding
 from repro_torch.utils.convert import params_from_numpy
 from repro_torch.utils.trees import flatten_with_names
 
-ARCHS = ("qwen3-1.7b", "starcoder2-3b", "minitron-8b", "h2o-danube-1.8b", "musicgen-large")
+ARCHS = ("qwen3-1.7b", "starcoder2-3b", "minitron-8b", "h2o-danube-1.8b", "musicgen-large",
+         "granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 SEQ, BATCH = 48, 2
 RTOL, ATOL = 1e-5, 1e-6
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -125,10 +128,11 @@ def _spec_tuple(spec):
 
 @pytest.mark.parametrize("arch_id", ARCHS)
 @pytest.mark.parametrize("dp_axes", [("data",), ("pod", "data")])
-def test_param_rules_and_reduce_axes_match_reference(arch_id, dp_axes):
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_param_rules_and_reduce_axes_match_reference(arch_id, dp_axes, fsdp):
     ref_cfg = ref_get_arch(arch_id).make_config(tp=1, dp_axes=dp_axes,
-                                                depcha_in_scan=True)
-    cfg = get_arch(arch_id).make_config(dp_axes=dp_axes, depcha_in_scan=True)
+                                                depcha_in_scan=True, fsdp=fsdp)
+    cfg = get_arch(arch_id).make_config(dp_axes=dp_axes, depcha_in_scan=True, fsdp=fsdp)
     ref_params = jax.eval_shape(lambda: ref_tf.init_params(jax.random.PRNGKey(0), ref_cfg))
     params = param_structs(cfg)
     ref_specs = ref_flatten(ref_tf.param_rules(ref_cfg).tree_specs(ref_params))[0]
@@ -187,13 +191,17 @@ def test_configs_match_reference(arch_id):
     the full configs' parameter counts on the meta device."""
     ref_arch, arch = ref_get_arch(arch_id), get_arch(arch_id)
     ref_cfg, cfg = ref_arch.make_config(tp=1), arch.make_config()
+    def field(c, name):         # a MoECfg of either package as its fields
+        v = getattr(c, name)
+        return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
     for f in dataclasses.fields(cfg):
         if f.name != "dtype":
-            assert getattr(cfg, f.name) == getattr(ref_cfg, f.name), f.name
+            assert field(cfg, f.name) == field(ref_cfg, f.name), f.name
     smoke, ref_smoke = arch.make_smoke(), ref_arch.make_smoke()
     for f in dataclasses.fields(smoke):
         if f.name != "dtype":
-            assert getattr(smoke, f.name) == getattr(ref_smoke, f.name), f.name
+            assert field(smoke, f.name) == field(ref_smoke, f.name), f.name
     assert smoke.dtype == torch.float32 and cfg.dtype == torch.bfloat16
     assert [n for n, _, _ in arch.extra_inputs] == [n for n, _, _ in ref_arch.extra_inputs]
     ref_params = jax.eval_shape(lambda: ref_tf.init_params(jax.random.PRNGKey(0), ref_cfg))

@@ -3,7 +3,8 @@
 static batcher and the continuous-batching engine, on the same weights.
 
 Greedy tokens must be equal: the port's ``Server`` and
-``ContinuousScheduler`` give the JAX ``Server.generate``'s tokens.
+``ContinuousScheduler`` give the JAX ``Server.generate``'s tokens (for
+granite-moe's smoke config, the MoE FFN, through the static engine).
 Sampling at temperature > 0 draws from ``torch.Generator``s, whose bits
 differ from ``jax.random``'s, so it is held to distributions and to the
 identities top-k 1 ≡ greedy and temperature 0 ≡ greedy, never to JAX's
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.granite_moe_1b_a400m import make_smoke as ref_granite_smoke
 from repro.configs.qwen3_1_7b import make_smoke as ref_qwen3_smoke
 from repro.configs.rwkv6_7b import make_smoke as ref_rwkv_smoke
 from repro.models import rwkv as ref_rwkv
@@ -26,6 +28,7 @@ from repro.models import transformer as ref_tf
 from repro.runtime import RequestQueue as RefRequestQueue
 from repro.runtime import Server as RefServer
 from repro.utils.trees import flatten_with_names as ref_flatten
+from repro_torch.configs.granite_moe_1b_a400m import make_smoke as granite_smoke
 from repro_torch.configs.qwen3_1_7b import make_smoke as qwen3_smoke
 from repro_torch.configs.rwkv6_7b import make_smoke as rwkv_smoke
 from repro_torch.launch import serve as serve_launcher
@@ -76,6 +79,13 @@ def qwen3(smoke_mesh):
     cfg = dataclasses.replace(qwen3_smoke(), use_flash=True)
     ref_srv, srv = _pair(ref_qwen3_smoke(), cfg, smoke_mesh, max_len=64)
     return cfg, ref_srv, srv
+
+
+@pytest.fixture(scope="module")
+def granite(smoke_mesh):
+    """granite-moe's smoke config (8 experts, top 2) on both sides."""
+    ref_srv, srv = _pair(ref_granite_smoke(), granite_smoke(), smoke_mesh, max_len=64)
+    return granite_smoke(), ref_srv, srv
 
 
 @pytest.fixture(scope="module")
@@ -149,9 +159,9 @@ def test_metrics_registry_refuses_type_shadowing():
 
 
 # ----------------------------------------------------------- static path
-@pytest.mark.parametrize("which", ["serve", "qwen3"])
-def test_static_greedy_matches_reference(which, setup, qwen3):
-    cfg, ref_srv, srv = (setup[0], setup[1], setup[2]) if which == "serve" else qwen3
+@pytest.mark.parametrize("which", ["serve", "qwen3", "granite"])
+def test_static_greedy_matches_reference(which, setup, qwen3, granite):
+    cfg, ref_srv, srv = {"serve": setup[:3], "qwen3": qwen3, "granite": granite}[which]
     rng = np.random.default_rng(7)
     prompts = rng.integers(1, cfg.vocab, (3, 11)).astype(np.int32)
     want = ref_srv.generate(prompts, 8)

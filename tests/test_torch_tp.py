@@ -31,6 +31,32 @@ tp).  Held to the reference:
   - ZeRO-1 at 2 × 2: scheduled and monolithic against the reference's,
     and the scheduled NORM's clip against the tp = 1 step.
 
+FSDP (ZeRO-3 storage, ``cfg.fsdp``) on data 2 × model 2 and on data 4 ×
+model 1 (a third spawn, mode ``tp-4x1``), held to the reference:
+
+  - each rank's loss and gradient shards against the reference's at the
+    same mesh with FSDP, cut to the rank's blocks (rtol 1e-5 / atol
+    1e-6), for every registered strategy with ``flat`` and for ``ring``
+    at 2 × 2; no FSDP leaf in a GradSync bucket, and depcha's
+    in-backward sync passes exactly the FSDP leaves through;
+  - the reference's check 5 (``tests/_mdworker.py``): one concom AdamW
+    step, unclipped, against the reference at dp 1 × tp 1 (loss 3e-4,
+    params 5e-4);
+  - the clipped SGD step against the reference's dp 1 × tp 1 step: the
+    port clips by the global norm.  The reference under FSDP clips each
+    data rank by its own shards' norm, so its leaves replicated over
+    "data" come out different on different data ranks (the
+    reference-fault test, at data 4 × model 1);
+  - ZeRO-1 with FSDP refused, as in the reference.
+
+The MoE FFN with its experts sharded over "model": granite-moe's smoke
+config (8 experts; vocab 96 so that it splits) at 2 × 2 (concom, depcha,
+and concom under FSDP) and 1 × 4, kimi-k2's (a shared expert) at 2 × 2:
+loss and gradient shards against the reference at the same mesh (rtol
+1e-5 / atol 1e-6), and tp > 1 ≡ tp = 1 at compare_tp's tolerances,
+against the reference's tp = 1 run at the same dp (an expert's capacity
+follows the rank's token count).
+
 And unit checks: ``localize_structs``, ``batch_spec``, the rank ↔
 coordinates map, the shard cut and the batch rows against the
 reference's mesh and ``device_put``; the vocab-sharded embedding and
@@ -46,8 +72,9 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
-from _torch_mdworker import (TP_GRADS, TP_MESHES, TP_POD_MESH, TP_STEPS, WORLD, run_all,
-                             run_tp_ops, tp_config)
+from _torch_mdworker import (FSDP_GRADS, FSDP_MESHES, MESHES, MOE_ARCHS, MOE_RUNS,
+                             SPLIT_REFERENCE, TP_GRADS, TP_MESHES, TP_POD_MESH, TP_STEPS, WORLD,
+                             moe_config, run_all, run_tp_ops, tp_config)
 from repro.launch.mesh import make_smoke_mesh as ref_smoke_mesh
 from repro.models import common as ref_common
 from repro.models import transformer as ref_tf
@@ -69,10 +96,15 @@ def workdir(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_tp")
     params = ref_tf.init_params(jax.random.PRNGKey(1), tp_config(1, ref=True))
     np.savez(d / "tp_params.npz", **{n: np.asarray(v) for n, v in ref_flatten(params)[0]})
+    for arch in MOE_ARCHS:
+        mp = ref_tf.init_params(jax.random.PRNGKey(1), moe_config(arch, 1, ref=True))
+        np.savez(d / f"moe-{arch}_params.npz",
+                 **{n: np.asarray(v) for n, v in ref_flatten(mp)[0]})
     (d / "ops").mkdir()
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
-        runs = [ex.submit(run_all, d, f"tp-{m}", reference_too=True, timeout=400)
-                for m in TP_MESHES]
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        runs = [ex.submit(run_all, d, f"tp-{m}", timeout=400,
+                          reference_too=(f"tp-{m}", f"tp-{m}+") if m in SPLIT_REFERENCE
+                          else True) for m in MESHES]
         ops = ex.submit(run_tp_ops, d / "ops", WORLD)
         for f in runs:
             f.result()
@@ -81,16 +113,20 @@ def workdir(tmp_path_factory):
 
 def _load(d, mesh_name):
     got = [dict(np.load(d / f"tp-{mesh_name}_rank{r}.npz")) for r in range(WORLD)]
-    return got, dict(np.load(d / f"tp-{mesh_name}_jax.npz"))
+    want = dict(np.load(d / f"tp-{mesh_name}_jax.npz"))
+    if mesh_name in SPLIT_REFERENCE:
+        want.update(np.load(d / f"tp-{mesh_name}+_jax.npz"))
+    return got, want
 
 
 def _mesh(mesh_name):
-    return make_smoke_mesh(*TP_MESHES[mesh_name])
+    return make_smoke_mesh(*MESHES[mesh_name])
 
 
-def _cut(full, name, mesh, rank, model):
-    """Rank ``rank``'s block of a global reference array."""
-    spec = tf.param_rules(tp_config(model)).spec(name)
+def _cut(full, name, mesh, rank, model, cfg=None):
+    """Rank ``rank``'s block of a global reference array (under ``cfg``'s
+    rules, by default ``tp_config(model)``'s)."""
+    spec = tf.param_rules(cfg or tp_config(model)).spec(name)
     return sharding.shard_leaf(torch.from_numpy(np.ascontiguousarray(full)), spec, mesh,
                                mesh.coords(rank)).numpy()
 
@@ -371,3 +407,165 @@ def test_zero1_at_data_x_model_matches_reference(workdir):
                                            rtol=RTOL, atol=ATOL, err_msg=f"{run} {n}")
     p0 = dict(np.load(d / "tp_params.npz"))
     _check_clipped_step(got, want, "zero1-scheduled-clip", mesh, 2, p0)
+
+
+# ------------------------------------------------------------------ FSDP
+
+FSDP_MESH_RUNS = [(m, run) for m in FSDP_MESHES for run in FSDP_GRADS[m].values()]
+
+
+def _fsdp_leaves(model):
+    cfg = tp_config(model, fsdp=True)
+    names = [n for n, _ in flatten_with_names(tf.init_params(cfg, device="meta"))[0]]
+    return sorted(n for n in names if "data" in sharding.flat_spec_axes(
+        tf.param_rules(cfg).spec(n)))
+
+
+@pytest.mark.parametrize("mesh_name,run", FSDP_MESH_RUNS)
+def test_fsdp_gradient_shards_match_reference(workdir, mesh_name, run):
+    """Each rank's loss and its gradient shards (the FSDP leaves' the dp
+    sum of their dp shards, reduce-scattered in the backward) against the
+    reference with FSDP at the same mesh, cut to the rank's blocks; the
+    FSDP leaves never enter a GradSync bucket, and depcha's in-backward
+    sync passes exactly them through."""
+    d, _ = workdir
+    got, want = _load(d, mesh_name)
+    mesh, model = _mesh(mesh_name), MESHES[mesh_name][1]
+    cfg = tp_config(model, fsdp=True)
+    fsdp_leaves = _fsdp_leaves(model)
+    assert len(fsdp_leaves) == 5
+    for r in range(WORLD):
+        np.testing.assert_allclose(got[r][f"{run}/loss"], want[f"{run}/loss"], rtol=RTOL)
+        grads = _leaves(got[r], f"{run}/grad/")
+        assert set(grads) == set(_leaves(want, f"{run}/grad/"))
+        for n, g in grads.items():
+            w = _cut(want[f"{run}/grad/{n}"], n, mesh, r, model, cfg)
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=f"{n} rank {r}")
+        assert not set(got[r][f"{run}/bucketed"].tolist()) & set(fsdp_leaves)
+        if run == "fsdp-depcha":
+            assert sorted(got[r][f"{run}/passthrough"].tolist()) == fsdp_leaves
+
+
+@pytest.mark.parametrize("mesh_name", FSDP_MESHES)
+def test_fsdp_step_matches_reference_at_dp1_tp1(workdir, mesh_name):
+    """The reference's check 5: one concom AdamW step (lr 1e-3, no clip)
+    with FSDP against the reference's step at dp 1 × tp 1: the loss
+    within 3e-4, every param shard within 5e-4."""
+    d, _ = workdir
+    got, want = _load(d, mesh_name)
+    mesh, model = _mesh(mesh_name), MESHES[mesh_name][1]
+    cfg = tp_config(model, fsdp=True)
+    for r in range(WORLD):
+        assert abs(float(got[r]["fsdp-step/loss/0"]) - float(want["tp1-adamw/loss/0"])) < 3e-4
+        for n, p in _leaves(got[r], "fsdp-step/param/").items():
+            w = _cut(want[f"tp1-adamw/param/{n}"], n, mesh, r, model, cfg)
+            assert np.max(np.abs(p - w)) < 5e-4, (n, r)
+
+
+def _dp_replicas(mesh, model):
+    """Rank groups that hold the same block of a leaf replicated over
+    "data": the ranks of one model coordinate."""
+    return [[r for r in range(WORLD) if r % model == m] for m in range(model)]
+
+
+@pytest.mark.parametrize("mesh_name", FSDP_MESHES)
+def test_fsdp_clipped_step_matches_reference_at_tp1(workdir, mesh_name):
+    """One SGD step clipped at 0.05 (binding) with FSDP: the norm is the
+    reference's dp 1 × tp 1 norm within 3e-4 (each leaf's squares summed
+    over the axes its spec shards it over) and the update its update
+    within 2e-3 of each leaf's largest; a leaf replicated over "data"
+    is equal bit for bit on every data rank."""
+    d, _ = workdir
+    got, want = _load(d, mesh_name)
+    mesh, model = _mesh(mesh_name), MESHES[mesh_name][1]
+    cfg = tp_config(model, fsdp=True)
+    p0 = dict(np.load(d / "tp_params.npz"))
+    for r in range(WORLD):
+        np.testing.assert_allclose(got[r]["fsdp-clip/grad_norm"], want["tp1-clip/grad_norm"],
+                                   rtol=3e-4)
+        for n, p in _leaves(got[r], "fsdp-clip/param/").items():
+            full = want[f"tp1-clip/param/{n}"] - p0[n]
+            upd = p - _cut(p0[n], n, mesh, r, model, cfg)
+            w = _cut(full, n, mesh, r, model, cfg)
+            assert np.max(np.abs(upd - w)) / (np.max(np.abs(full)) + 1e-12) < 2e-3, (n, r)
+    replicated = [n for n in _leaves(got[0], "fsdp-clip/param/") if n not in _fsdp_leaves(model)]
+    for group in _dp_replicas(mesh, model):
+        for n in replicated:
+            for r in group[1:]:
+                np.testing.assert_array_equal(got[r][f"fsdp-clip/param/{n}"],
+                                              got[group[0]][f"fsdp-clip/param/{n}"], err_msg=n)
+
+
+def test_the_reference_clips_each_data_rank_by_its_own_fsdp_shards(workdir):
+    """The fault this port does not copy (ROADMAP queue 3): at data 4 ×
+    model 1 under FSDP the reference's plain step clips by a norm each
+    data rank takes over its own shards of the FSDP leaves (and the
+    synced replicated leaves), so no rank has the dp 1 norm, the norms
+    differ between data ranks, and the leaves replicated over "data"
+    (equal before the step) come out different on different data
+    ranks."""
+    d, _ = workdir
+    _, want = _load(d, "4x1")
+    norms, tp1 = want["fsdp-fault/norms"], float(want["tp1-clip/grad_norm"])
+    assert norms.shape == (4,)
+    assert np.all(norms < tp1 * 0.9)
+    assert len(set(norms.tolist())) == 4
+    leaves = _leaves(want, "fsdp-fault/param/")
+    names = [n for n, _ in flatten_with_names(tf.init_params(tp_config(1), device="meta"))[0]]
+    assert sorted(leaves) == sorted(n for n in names if n not in _fsdp_leaves(1))
+    differ = [n for n, v in leaves.items() if not all(np.array_equal(v[i], v[0])
+                                                       for i in range(4))]
+    assert sorted(differ) == sorted(leaves)
+
+
+@pytest.mark.parametrize("mesh_name", FSDP_MESHES)
+def test_fsdp_with_zero1_is_refused(workdir, mesh_name):
+    d, _ = workdir
+    got, _ = _load(d, mesh_name)
+    assert all(bool(got[r]["fsdp-zero1-refused"]) for r in range(WORLD))
+
+
+# ------------------------------------------------------------------- MoE
+
+MOE_MESH_RUNS = [(m, run) for m in MOE_RUNS for run in MOE_RUNS[m]]
+
+
+def _moe_cfg(mesh_name, run):
+    arch, _, fsdp = MOE_RUNS[mesh_name][run]
+    return arch, moe_config(arch, MESHES[mesh_name][1], fsdp=fsdp)
+
+
+@pytest.mark.parametrize("mesh_name,run", MOE_MESH_RUNS)
+def test_moe_gradient_shards_match_reference(workdir, mesh_name, run):
+    """MoE with the experts sharded over "model" (each rank runs its
+    e_local experts on every local token and one psum combines them):
+    each rank's loss and gradient shards against the reference at the
+    same mesh, rtol 1e-5 / atol 1e-6."""
+    d, _ = workdir
+    got, want = _load(d, mesh_name)
+    mesh, model = _mesh(mesh_name), MESHES[mesh_name][1]
+    _, cfg = _moe_cfg(mesh_name, run)
+    for r in range(WORLD):
+        np.testing.assert_allclose(got[r][f"{run}/loss"], want[f"{run}/loss"], rtol=RTOL)
+        grads = _leaves(got[r], f"{run}/grad/")
+        assert set(grads) == set(_leaves(want, f"{run}/grad/")) and "blocks/router" in grads
+        for n, g in grads.items():
+            np.testing.assert_allclose(g, _cut(want[f"{run}/grad/{n}"], n, mesh, r, model, cfg),
+                                       rtol=RTOL, atol=ATOL, err_msg=f"{n} rank {r}")
+
+
+@pytest.mark.parametrize("mesh_name,run", MOE_MESH_RUNS)
+def test_moe_tp_equals_tp1(workdir, mesh_name, run):
+    """compare_tp for MoE: the loss within 3e-4 of the reference's tp = 1
+    loss at the same dp, every gradient shard within 2e-3 of the leaf's
+    largest tp = 1 gradient."""
+    d, _ = workdir
+    got, want = _load(d, mesh_name)
+    mesh, model = _mesh(mesh_name), MESHES[mesh_name][1]
+    arch, cfg = _moe_cfg(mesh_name, run)
+    for r in range(WORLD):
+        assert abs(float(got[r][f"{run}/loss"]) - float(want[f"moe-{arch}-tp1/loss"])) < 3e-4
+        for n, g in _leaves(got[r], f"{run}/grad/").items():
+            full = want[f"moe-{arch}-tp1/grad/{n}"]
+            w = _cut(full, n, mesh, r, model, cfg)
+            assert np.max(np.abs(g - w)) / (np.max(np.abs(full)) + 1e-8) < 2e-3, (n, r)

@@ -1,5 +1,7 @@
-"""The port's dense transformer against the JAX package's, with the
-reference's weights carried over by name (``params_from_numpy``).
+"""The port's transformer against the JAX package's, with the
+reference's weights carried over by name (``params_from_numpy``): the
+dense configs and granite-moe's smoke config (8 experts, top 2, the MoE
+FFN in prefill and both decode steps).
 
 The JAX side runs inside ``shard_map`` on the one-device smoke mesh, as
 its own serving runtime runs it, and with ``use_flash=False`` (its
@@ -17,15 +19,18 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from repro.configs.granite_moe_1b_a400m import make_smoke as ref_granite_smoke
 from repro.configs.qwen3_1_7b import make_smoke as ref_qwen3_smoke
 from repro.models import attention as ref_attn
 from repro.models import common as ref_common
 from repro.models import transformer as ref_tf
 from repro.utils.trees import flatten_with_names as ref_flatten
 from _torch_mdworker import run_tp_ops
+from repro_torch.configs.granite_moe_1b_a400m import make_smoke as granite_smoke
 from repro_torch.configs.qwen3_1_7b import make_smoke as qwen3_smoke
 from repro_torch.models import attention, common
 from repro_torch.models import transformer as tf
+from repro_torch.models.moe import MoECfg
 from repro_torch.models.registry import family_of
 from repro_torch.utils.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.utils.trees import flatten_with_names
@@ -34,12 +39,14 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def _serve_cfgs():
-    """(reference config, port config) pairs: the qwen3 smoke config and
-    ``tests/test_serve_runtime.py``'s (head_dim 8, chunk 16)."""
+    """(reference config, port config) pairs: the qwen3 and granite-moe
+    smoke configs and ``tests/test_serve_runtime.py``'s (head_dim 8,
+    chunk 16)."""
     kw = dict(name="serve", n_layers=2, d_model=32, n_heads=4, kv_heads=2,
               d_ff=64, vocab=64, tp=1, attn_chunk=16)
     return {
         "qwen3-smoke": (ref_qwen3_smoke(), qwen3_smoke()),
+        "granite-smoke": (ref_granite_smoke(), granite_smoke()),
         "serve": (ref_tf.TransformerConfig(dtype=jnp.float32, **kw),
                   tf.TransformerConfig(dtype=torch.float32, **kw)),
     }
@@ -220,8 +227,11 @@ def test_prefill_last_pos_matches_reference(smoke_mesh, name):
     want, _ = _ref_prefill(smoke_mesh, ref_cfg, params, toks, last_pos=10)
     got, _ = tf.prefill(tree, torch.from_numpy(toks), cfg, last_pos=10)
     _close(got, want)
-    exact, _ = tf.prefill(tree, torch.from_numpy(toks[:, :11]), cfg)
-    _close(got, exact, "bucketed prefill == exact-length prefill")
+    if cfg.moe is None:
+        # (MoE: an expert's capacity follows the token count, so the
+        # padding's tokens take slots; in the reference too)
+        exact, _ = tf.prefill(tree, torch.from_numpy(toks[:, :11]), cfg)
+        _close(got, exact, "bucketed prefill == exact-length prefill")
 
 
 @pytest.mark.parametrize("name", sorted(CFGS))
@@ -279,16 +289,34 @@ def test_decode_step_paged_matches_reference(smoke_mesh, name):
 
 
 @pytest.mark.parametrize("over", [
-    dict(moe=object()), dict(cross_attn_every=2), dict(fsdp=True), dict(tp=2)])
+    dict(moe=MoECfg(num_experts=4, top_k=2, d_expert=16)), dict(cross_attn_every=2),
+    dict(fsdp=True), dict(tp=2)])
 def test_unported_features_raise(over):
+    """Cross-attention raises (item 12); serving at tp > 1 or from FSDP's
+    storage raises (item 11).  MoE and FSDP train: an MoE FFN replaces
+    the dense one (f32 router) and serves at tp = 1; FSDP's storage needs
+    the mesh and the rank to keep its dp shards."""
     cfg = dataclasses.replace(qwen3_smoke(), **over)
-    if cfg.tp != 1:
-        # tp > 1 trains (tests/test_torch_tp.py); serving it is item 11
+    toks = torch.zeros((1, 5), dtype=torch.long)
+    if cfg.tp != 1 or cfg.fsdp:
+        # tp > 1 and FSDP train (tests/test_torch_tp.py); serving them is item 11
         params = tf.init_params(cfg, device="meta")
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-            tf.prefill(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+            tf.prefill(params, toks, cfg)
+        if cfg.fsdp:
+            with pytest.raises(ValueError, match="pass the mesh"):
+                tf.init_params(cfg, device="cpu")
+            assert tf.param_rules(cfg).spec("blocks/wq") == (None, "data", "model")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if cfg.moe is not None:
+        params = tf.init_params(cfg, device="cpu")
+        blocks = params["blocks"]
+        assert "wg" not in blocks and blocks["router"].dtype == torch.float32
+        assert blocks["w_gate"].shape == (2, 4, 64, 16)
+        logits, _ = tf.prefill(params, toks, cfg)
+        assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tf.init_params(cfg, device="meta")
 
 
