@@ -6,6 +6,42 @@
 Phases, in order; any failure raises and exits non-zero:
 
   build       compile every kernel source from ``csrc/`` for sm_90a.
+  vision_train  in a process of its own with the next three phases
+              (``phase_xr_train``: its 68.9 GB peak and lm_zero1's 61 GB,
+              on an NVIDIA H100 80GB HBM3 at 700.00 W, do not fit beside
+              what each keeps outside PyTorch's allocator):
+              llama-3.2-vision-11b at full width cut to 10
+              layers (8 self, 2 cross: its layer_pair depth; 3,231,805,442
+              params) on a one-rank NCCL group, seq 1024 x global batch 4
+              with img_embeds (4, 576, 4096) from the pipeline, gate_attn
+              perturbed from its zero init, AdamW, clip 1.0, remat dots,
+              deterministic algorithms, TF32 off: funnel, concom and
+              depcha (in-scan: a LayerSync a stack behind one StackSyncs)
+              through ``lm_run``.  Losses bit-identical across the
+              strategies; step ms, tokens/s, peak GB; pack and unpack
+              launches exactly the schedule's buckets plus depcha's slots
+              a step; 10 in-backward collectives a depcha step (one a
+              layer of each stack).  Then one depcha step with CUDA events
+              at its stages.
+  vision_cpu_vs_gpu  the vision smoke config (gate 0.5, the arch's image
+              embeddings): one forward and backward on the CPU and on the
+              card, loss and gradients within ``XR_CPU_GPU_TOL``.
+  rwkv_train  first the WKV kernel's chunk-state output (training's
+              forward) at RWKV-6 7B's training layer (B 4, S 1024, bf16)
+              against the plain version's (5e-4), timed with and without
+              it.  Then RWKV-6 7B at full width cut to 8 layers
+              (2,296,811,520 params), constant leaves perturbed as
+              rwkv_serve's, seq 1024 x batch 4, AdamW, clip 1.0, remat
+              dots, as vision_train: losses bit-identical across the
+              strategies; WKV launches exactly 16 a step (each layer's
+              forward and the remat's recompute; the backward is tensor
+              code); 16 in-backward collectives a depcha step (a bf16 and
+              an f32 slot a layer); one depcha step's stages.
+  rwkv_train_cpu_vs_gpu  the rwkv smoke config (ragged last chunk): one
+              forward and backward on the CPU (plain WKV, float64
+              backward) and on the card (the kernel, f32 backward), loss
+              and gradients within ``XR_CPU_GPU_TOL``, 4 WKV launches on
+              the card.
   kernels     the pack kernel (into a buffer started as NaN, through
               ``out=``) and ``fused_unpack`` against their plain versions
               on the 24 full-width ResNet-50 buckets (comm dtype f32, bf16,
@@ -348,6 +384,14 @@ Phases, in order; any failure raises and exits non-zero:
               static engine with serve's prompts: greedy tokens, prefill
               ms, decode ms a step, 48 flash launches (24 x 2 prefills),
               row 8 on layer 0's q/k/v.
+  vision_serve  granite's weights freed first.  llama-3.2-vision-11b at
+              full width and depth (40 layers: 32 self, 8 cross; bf16,
+              use_flash; gate_attn perturbed): 4 prompts of 384-512
+              tokens, one image each, through prefill, then 32 greedy
+              decode_steps with the images.  32 flash launches a prefill
+              (the self blocks only) and none in decode; row 8 on self
+              layers 0 and 31's q/k/v; finite logits that the image
+              moves; prefill ms and decode ms a step.
 
 The build compiles every kernel source at once (one nvcc each, in
 parallel).  Then it prints the ``{"kernels": [...]}`` line, the card's
@@ -1003,9 +1047,19 @@ def lm_stage_spans(ts, model, opt_state, pipe, step: int = LM_STEPS + 1) -> dict
             "stages_in_order": list(dict.fromkeys(name for name, _, _ in marks))}
 
 
-def lm_run(strat: str, mesh, pipe, after=None, cfg=None) -> dict:
-    """One strategy's run of Qwen3-1.7B (or ``cfg``) from the seeded
-    weights: AdamW (cosine warm-up), clip 1.0, 1 warm-up + ``LM_STEPS`` -
+def sync_slots(layer_sync) -> int:
+    """The slots an in-backward sync stages a step: one a (reduce axes,
+    dtype) group a layer, of every stack it covers (a ``StackSyncs`` holds
+    the transformer's self and cross stacks)."""
+    if layer_sync is None:
+        return 0
+    return sum(s.n_layers * len(s.buckets) for s in getattr(layer_sync, "syncs", (layer_sync,)))
+
+
+def lm_run(strat: str, mesh, pipe, after=None, cfg=None, make_model=None) -> dict:
+    """One strategy's run of Qwen3-1.7B (or ``cfg``; the model from
+    ``make_model(cfg)``, by default a ``Transformer`` of the seeded
+    weights): AdamW (cosine warm-up), clip 1.0, 1 warm-up + ``LM_STEPS`` -
     1 timed steps over ``pipe``.  Pack and unpack must launch exactly the
     schedule's buckets (plus the slots of a layer, a layer, under depcha)
     a step, and depcha must issue one in-backward collective a slot a
@@ -1020,7 +1074,8 @@ def lm_run(strat: str, mesh, pipe, after=None, cfg=None) -> dict:
     from repro_torch.utils.trees import flatten_with_names
 
     cfg = cfg or lm_config(strat)
-    model = Transformer(cfg, init_params(cfg, seed=0, device="cuda"))
+    model = (make_model(cfg) if make_model is not None
+             else Transformer(cfg, init_params(cfg, seed=0, device="cuda")))
     opt = adamw(cosine_warmup(3e-4, 10, 100))
     ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
                          clip_norm=1.0, device="cuda")
@@ -1036,7 +1091,7 @@ def lm_run(strat: str, mesh, pipe, after=None, cfg=None) -> dict:
         norms.append(hist["metrics"]["grad_norm"])
         collectives.append(ts.layer_sync.collectives if ts.layer_sync is not None else 0)
     launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
-    slots = cfg.n_layers * len(ts.layer_sync.buckets) if ts.layer_sync is not None else 0
+    slots = sync_slots(ts.layer_sync)
     per_step = sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops) + slots
     if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
         raise AssertionError(f"lm {strat}: launches {launches}, expected "
@@ -2134,8 +2189,7 @@ def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
                     nbytes != [predicted["bytes_per_step"]] * LM_STEPS:
                 raise AssertionError(f"lm_tp {strat}: model-axis collectives {calls} "
                                      f"({nbytes} B), predicted {predicted}")
-            slots = (cfg.n_layers * len(ts.layer_sync.buckets)
-                     if ts.layer_sync is not None else 0)
+            slots = sync_slots(ts.layer_sync)
             per_step = len(ts.gradsync.schedule.ops) + slots
             launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
             if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
@@ -2548,8 +2602,7 @@ def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: 
                 if got != [mp["calls_per_step"]] * LM_STEPS:
                     raise AssertionError(f"lm_fsdp {strat}: model-axis all-reduces {got}, "
                                          f"predicted {mp['calls_per_step']}")
-            slots = (cfg.n_layers * len(ts.layer_sync.buckets)
-                     if ts.layer_sync is not None else 0)
+            slots = sync_slots(ts.layer_sync)
             per_step = sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops) + slots
             launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
             if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
@@ -5799,6 +5852,568 @@ def phase_rwkv_cpu_vs_gpu() -> None:
         f"(rtol = atol = 1e-4, f32); {n_gpu} WKV launches on the GPU")
 
 
+# ------------------------------------- cross-attention and RWKV-6 training
+
+RWKV_TRAIN_LAYERS = 8
+VISION_GATE = 0.5              # gate_attn's mean once perturbed (0 at init, as the reference)
+XR_CPU_GPU_TOL = (1e-5, 1e-4)  # the cpu_vs_gpu phases: loss rtol; grads' max diff / leaf absmax
+VISION_SERVE_PROMPTS = 4       # one image each, 384-512 tokens
+VISION_SERVE_STEPS = 32        # greedy decode steps after the prefill
+
+
+def vision_config(strategy: str = "funnel", **over):
+    """llama-3.2-vision-11b at full width (d 4096, 32/8 heads of 128, ff
+    14336, vocab 128,256, bf16) cut to its ``layer_pair`` depth of 10
+    layers (two groups of 4 self blocks and a cross block), depcha's
+    in-backward sync on exactly under the strategies that use it."""
+    from repro_torch.configs.llama_3_2_vision_11b import ARCH, make_config
+    from repro_torch.core import get_strategy
+
+    over.setdefault("n_layers", ARCH.layer_pair[1])
+    return make_config(depcha_in_scan=get_strategy(strategy).uses_in_scan, **over)
+
+
+def perturb_gates(params: dict, seed: int = 1) -> dict:
+    """``gate_attn`` from N(VISION_GATE, 0.1), in place: at its zero init
+    the cross blocks add nothing to the loss and their projections get no
+    gradient."""
+    g = params["cross_blocks"]["gate_attn"]
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    noise = torch.randn(g.shape, generator=gen, device=g.device)
+    g.copy_((VISION_GATE + 0.1 * noise).to(g.dtype))
+    return params
+
+
+def vision_model(cfg):
+    from repro_torch.models.transformer import Transformer, init_params
+
+    return Transformer(cfg, perturb_gates(init_params(cfg, seed=0, device=torch.device("cuda"))))
+
+
+def vision_pipe(cfg, mesh=None, seq: int = LM_SEQ, batch: int = LM_BATCH, device="cuda"):
+    """The token pipeline with the arch's extra input, ``img_embeds`` (B,
+    576, d), drawn after the tokens as the reference draws it."""
+    import numpy as np
+
+    from repro_torch.configs.llama_3_2_vision_11b import ARCH
+    from repro_torch.data import TokenPipeline
+
+    extras = {name: (tuple(fn(cfg, seq)), np.float32) for name, fn, _ in ARCH.extra_inputs}
+    return TokenPipeline(cfg.vocab, seq, batch, seed=0, mesh=mesh, extra_specs=extras,
+                         device=device)
+
+
+def rwkv_train_config(strategy: str = "funnel", **over):
+    """RWKV-6 7B at full width (d 4096, 64 heads of 64, ff 14336, vocab
+    65,536, bf16, chunk 32) cut to ``RWKV_TRAIN_LAYERS`` layers."""
+    from repro_torch.configs.rwkv6_7b import make_config
+    from repro_torch.core import get_strategy
+
+    over.setdefault("n_layers", RWKV_TRAIN_LAYERS)
+    return make_config(depcha_in_scan=get_strategy(strategy).uses_in_scan, **over)
+
+
+def rwkv_model(cfg):
+    from repro_torch.models import rwkv
+
+    return rwkv.RWKV(cfg, rwkv.perturb_constant_leaves(
+        rwkv.init_params(cfg, seed=0, device=torch.device("cuda"))))
+
+
+def strategy_runs(tag: str, make_cfg, make_model, pipe, mesh, after=None) -> dict:
+    """``lm_run`` under funnel, concom and depcha from the same seeded
+    weights, under torch.use_deterministic_algorithms (restored after):
+    losses finite, bit-identical across the strategies (the nondeterministic
+    ops the run met are named in the failure) and the peak under 80 GB.
+    ``after(strat)`` gives each run's ``after`` hook."""
+    import warnings
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for strat in STRATEGIES:
+                runs[strat] = lm_run(strat, mesh, pipe, cfg=make_cfg(strat),
+                                     make_model=make_model,
+                                     after=after(strat) if after is not None else None)
+                log(f"[{tag}] {strat}: " + json.dumps(
+                    {k: v for k, v in runs[strat].items() if k != "after"}))
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    nondeterministic = sorted({str(w.message)[:200] for w in caught
+                               if "deterministic" in str(w.message)})
+    base = runs[STRATEGIES[0]]["losses"]
+    for strat, r in runs.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"{tag} {strat}: non-finite loss {r['losses']}")
+        if r["peak_gb"] >= 80:
+            raise AssertionError(f"{tag} {strat}: peak {r['peak_gb']} GB")
+        if r["losses"] != base:
+            raise AssertionError(f"{tag} {strat} losses {r['losses']} are not bit-identical "
+                                 f"to {STRATEGIES[0]}'s {base} (nondeterministic ops: "
+                                 f"{nondeterministic})")
+    return {"runs": runs, "nondeterministic_ops": nondeterministic,
+            "launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in ("pack", "unpack")}}
+
+
+def phase_vision_train() -> dict:
+    """llama-3.2-vision-11b at full width cut to 10 layers (8 self, 2
+    cross: the reference's layer_pair depth) on a one-rank NCCL group,
+    seq 1024 x global batch 4 with ``img_embeds`` (4, 576, 4096) from the
+    pipeline, ``gate_attn`` perturbed from its zero init, AdamW, clip 1.0,
+    remat dots, TF32 off: ``strategy_runs`` (losses bit-identical across
+    funnel, concom and depcha; pack/unpack launches exactly the schedule's
+    buckets plus depcha's slots a step; 10 in-backward collectives a
+    depcha step: one a layer of each stack), then one more depcha step
+    with CUDA events at its stages."""
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils.trees import tree_leaves
+
+    mesh = make_dp_mesh()
+    cfg = vision_config()
+    n_params = sum(p.numel() for p in tree_leaves(init_params(cfg, device="meta")))
+    log(f"[vision_train] {cfg.name}: {cfg.n_layers} layers ({cfg.n_self} self, "
+        f"{cfg.n_cross} cross), {n_params} params, {cfg.dtype}")
+    pipe = vision_pipe(cfg, mesh)
+
+    def after(strat):
+        if strat != "depcha":
+            return None
+        return lambda ts, model, opt_state, run: {
+            "stages": lm_stage_spans(ts, model, opt_state, pipe)}
+
+    out = strategy_runs("vision_train", vision_config, vision_model, pipe, mesh, after)
+    out["stages"] = out["runs"]["depcha"].pop("after")["stages"]
+    want = cfg.n_self + cfg.n_cross
+    got = out["runs"]["depcha"]["in_backward_collectives_per_step"]
+    if got != [want] * LM_STEPS:
+        raise AssertionError(f"vision_train depcha: in-backward collectives {got}, "
+                             f"expected {want} a step")
+    out.update(params=n_params, shape={"seq": LM_SEQ, "global_batch": LM_BATCH,
+                                       "layers": cfg.n_layers, "self": cfg.n_self,
+                                       "cross": cfg.n_cross, "img_tokens": 576})
+    log("[vision_train] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
+def rwkv_chunk_states_check() -> dict:
+    """The WKV kernel's chunk-state output (training's forward) at RWKV-6
+    7B's training layer (B 4, S 1024, H 64, N 64, chunk 32, bf16) against
+    the plain version's, one launch into a buffer started as NaN, y and
+    the final state as without it; then its time with and without the
+    output (CUDA events, in turns) beside the plain version's and the
+    bound, whose bytes now hold the chunk states written once."""
+    from repro_torch.kernels.rwkv6 import kernel, ref
+
+    B, S, H, N, C = 4, LM_SEQ, 64, 64, 32
+    ins = wkv_seq_inputs(B, S, H, N, torch.bfloat16, seed=9)
+    T = S // C
+    states = torch.full((T, B, H, N, N), float("nan"), device="cuda")
+    before = kernel.WKV_LAUNCHES
+    y, s1 = kernel.wkv_sequence_kernel(*ins, C, states=states)
+    launched = kernel.WKV_LAUNCHES - before
+    want = torch.empty_like(states)
+    y_want, s_want = ref.wkv_sequence_ref(*ins, C, states=want)
+    y0, s0 = kernel.wkv_sequence_kernel(*ins, C)
+    torch.cuda.synchronize()
+    err = (states - want).abs().max().item()
+    if launched != 1 or not torch.allclose(states, want, atol=5e-4, rtol=5e-4):
+        raise AssertionError(f"wkv chunk states: {launched} launches, max abs err {err}")
+    if not (torch.equal(y, y0) and torch.equal(s1, s0)):
+        raise AssertionError("wkv chunk states: y or the final state moved with the output")
+    times = cuda_ms_in_turns({
+        "with_states": lambda: kernel.wkv_sequence_kernel(*ins, C, states=states),
+        "without": lambda: kernel.wkv_sequence_kernel(*ins, C)})
+    plain_ms = cuda_ms(lambda: ref.wkv_sequence_ref(*ins, C, states=want), reps=3, warmup=1)
+    bound = wkv_seq_bound(*ins, C)
+    nbytes = bound["bytes"] + states.numel() * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"shape": f"B{B} S{S} H{H} N{N} chunk {C} bfloat16", "chunks": T,
+           "max_abs_err": err, "ms": sum(times["with_states"]) / 2,
+           "ms_without_states": sum(times["without"]) / 2, "turns": times,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, bound["operations_ms"]),
+           "bound_by": "bytes" if bytes_ms >= bound["operations_ms"] else "operations",
+           "bytes": nbytes, "flops": bound["flops"], "library_ms": None}
+    log("[rwkv_train] chunk states: " + json.dumps(out))
+    return out
+
+
+def phase_rwkv_train() -> dict:
+    """RWKV-6 7B at full width cut to 8 layers on a one-rank NCCL group,
+    constant leaves perturbed as rwkv_serve's, seq 1024 x batch 4, AdamW,
+    clip 1.0, remat dots, TF32 off: ``strategy_runs`` (losses
+    bit-identical across funnel, concom and depcha; pack/unpack launches
+    exactly the schedule's buckets plus depcha's slots a step; 16
+    in-backward collectives a depcha step: the bf16 and the f32 (w0, u)
+    slot of each layer).  The WKV kernel launches exactly 2 x 8 times a
+    step: each layer's forward and the remat's recompute of it (the
+    backward is tensor code, ``ops.wkv_sequence_backward``).  Before the
+    runs, ``rwkv_chunk_states_check``."""
+    from repro_torch.kernels.rwkv6 import kernel as wkv
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import rwkv
+    from repro_torch.utils.trees import tree_leaves
+
+    states = rwkv_chunk_states_check()
+    mesh = make_dp_mesh()
+    cfg = rwkv_train_config()
+    n_params = sum(p.numel() for p in tree_leaves(rwkv.init_params(cfg, device="meta")))
+    log(f"[rwkv_train] {cfg.name}: {cfg.n_layers} layers, {n_params} params, {cfg.dtype}, "
+        f"chunk {cfg.chunk}, remat {cfg.remat}")
+    pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh, device="cuda")
+    per_step = 2 * cfg.n_layers if cfg.remat != "none" else cfg.n_layers
+
+    def after(strat):
+        def hook(ts, model, opt_state, run):
+            res = {"wkv_launches": wkv.WKV_LAUNCHES}
+            if strat == "depcha":
+                res["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
+            return res
+        wkv.WKV_LAUNCHES = 0
+        return hook
+
+    out = strategy_runs("rwkv_train", rwkv_train_config, rwkv_model, pipe, mesh, after)
+    launches = {}
+    for strat, r in out["runs"].items():
+        res = r.pop("after")
+        launches[strat] = res["wkv_launches"]
+        if "stages" in res:
+            out["stages"] = res["stages"]
+    if launches != {s: per_step * LM_STEPS for s in STRATEGIES}:
+        raise AssertionError(f"rwkv_train: WKV launches {launches}, expected {per_step} a "
+                             f"step x {LM_STEPS}")
+    want = 2 * cfg.n_layers                    # a bf16 and an f32 slot a layer
+    got = out["runs"]["depcha"]["in_backward_collectives_per_step"]
+    if got != [want] * LM_STEPS:
+        raise AssertionError(f"rwkv_train depcha: in-backward collectives {got}, "
+                             f"expected {want} a step")
+    out.update(params=n_params, chunk_states=states, wkv_launches=launches,
+               wkv_launches_per_step=per_step,
+               shape={"seq": LM_SEQ, "global_batch": LM_BATCH, "layers": cfg.n_layers})
+    log("[rwkv_train] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
+def _rwkv_tp_rank(rank: int, workdir: str, backend: str, n_layers: int) -> None:
+    """One rank of ``phase_rwkv_tp``: RWKV-6 7B at full width, ``n_layers``
+    layers, on data 1 x model ``LM_TP`` (seq 1024 x global batch 4, AdamW,
+    clip 1.0, remat dots, bf16), each of funnel, concom and depcha from
+    the same weights: the global tree drawn on every rank, its constant
+    leaves perturbed as rwkv_serve's, then cut to the rank's shards, so
+    the model is the tp = 1 model of the same seed.  1 warm-up + 2 timed
+    steps; the replicated leaves bit-identical across the ranks after
+    every run; the WKV kernel's launches a step (2 a layer) and the first
+    loss equal across the strategies.  Results to ``workdir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.rwkv6 import kernel as wkv
+    from repro_torch.launch.mesh import init_dist, make_mesh
+    from repro_torch.models import rwkv
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.parallel.sharding import flat_spec_axes, shard_tree
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names, tree_map_with_names
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store", rank=rank,
+              world_size=LM_TP, timeout=datetime.timedelta(seconds=600))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda _m: None)
+    host = dist.new_group(backend="gloo")
+    mesh = make_mesh(LM_TP)
+    out = {"runs": {}}
+    for strat in STRATEGIES:
+        cfg = rwkv_train_config(strat, n_layers=n_layers, tp=LM_TP)
+        full = rwkv.perturb_constant_leaves(rwkv.init_params(
+            dataclasses.replace(cfg, tp=1), seed=0, device="cuda"))
+        local = shard_tree(full, rwkv.param_specs(full, cfg), mesh, rank)
+        model = rwkv.RWKV(cfg, tree_map_with_names(lambda _n, t: t.contiguous().clone(), local))
+        del full, local
+        pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh, rank=rank,
+                             device="cuda")
+        opt = adamw(cosine_warmup(3e-4, 10, 100))
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
+                             clip_norm=1.0, device="cuda")
+        named = flatten_with_names(model.params_tree())[0]
+        opt_state = opt.init(dict(named))
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wkv.WKV_LAUNCHES = 0
+        losses, norms = [], []
+        for step in range(LM_STEPS):
+            model, opt_state, hist = trainer.run(model, opt_state, step + 1, start_step=step)
+            losses.append(hist["losses"][-1])
+            norms.append(hist["metrics"]["grad_norm"])
+        if wkv.WKV_LAUNCHES != 2 * cfg.n_layers * LM_STEPS:
+            raise AssertionError(f"rwkv_tp {strat}: {wkv.WKV_LAUNCHES} WKV launches, "
+                                 f"expected {2 * cfg.n_layers} a step x {LM_STEPS}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"rwkv_tp {strat}: non-finite loss {losses}")
+        specs = dict(flatten_with_names(rwkv.param_specs(model.params_tree(), cfg))[0])
+        rep = [p for n, p in named if not flat_spec_axes(specs[n])]
+        _same_on_every_rank(rep, f"rwkv_tp {strat} replicated leaves", host)
+        times = trainer.step_times
+        run = {"losses": losses, "grad_norms": norms,
+               "params_per_rank": sum(p.numel() for _, p in named),
+               "first_step_ms": trainer.first_step_time * 1e3,
+               "step_ms": [t * 1e3 for t in times],
+               "tokens_per_s": [pipe.global_batch * LM_SEQ / t for t in times],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "wkv_launches": wkv.WKV_LAUNCHES,
+               "in_backward_collectives": (ts.layer_sync.collectives
+                                           if ts.layer_sync is not None else 0),
+               "slots_per_step": sync_slots(ts.layer_sync)}
+        if strat == "depcha":
+            run["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
+        out["runs"][strat] = run
+        say(f"[rwkv_tp] {strat}: " + json.dumps(run))
+        del ts, model, opt_state, trainer, named, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = {s: r["losses"][0] for s, r in out["runs"].items()}
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"rwkv_tp: first losses differ across the strategies {first}")
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_rwkv_tp(backend: str = "nccl", n_layers: int = 32) -> dict:
+    """By hand on a host of four cards: RWKV-6 7B at full width and depth
+    on data 1 x model ``LM_TP`` over NCCL, one rank a card
+    (``_rwkv_tp_rank``): ``cs.phase_build(); cs.phase_rwkv_tp()``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    log(f"[rwkv_tp] {backend} on {cards}, {n_layers} layers, data 1 x model {LM_TP}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rwkv-tp-") as wd:
+        mp.spawn(_rwkv_tp_rank, args=(wd, backend, n_layers), nprocs=LM_TP, join=True)
+        with open(os.path.join(wd, "rank0.json")) as f:
+            res = json.load(f)
+    res.update(wall_s=time.perf_counter() - t0, cards=cards, layers=n_layers)
+    log("[rwkv_tp] " + json.dumps({k: v for k, v in res.items() if k != "runs"}))
+    return res
+
+
+def _xr_train_rank(rank: int, workdir: str) -> None:
+    """``phase_xr_train``'s process: a one-rank NCCL group, then
+    vision_train, vision_cpu_vs_gpu, rwkv_train and rwkv_train_cpu_vs_gpu;
+    results to ``workdir/xr.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_dist
+
+    init_dist("cuda", init_method=f"file://{workdir}/store", rank=rank, world_size=1)
+    try:
+        out = {"vision_train": phase_vision_train()}
+        phase_vision_cpu_vs_gpu()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["rwkv_train"] = phase_rwkv_train()
+        phase_rwkv_train_cpu_vs_gpu()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, "xr.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_xr_train() -> dict:
+    """The cross-attention and RWKV training phases in a process of their
+    own, before any other training phase.  Every three training runs of a
+    process keep about 5 GB of the card outside PyTorch's allocator until
+    the process ends (25.6 GB by the end of ``moe_cpu_vs_gpu``, PERF.md
+    §6; its communicators, by the look of it), and vision_train's 10
+    layers peak at 68.9 GB, so neither these runs nor lm_zero1's 61 GB
+    fit after the other in one process (all on an NVIDIA H100 80GB HBM3
+    at 700.00 W)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="xr-train-") as wd:
+        mp.spawn(_xr_train_rank, args=(wd,), nprocs=1, join=True)
+        with open(os.path.join(wd, "xr.json")) as f:
+            return json.load(f)
+
+
+def _cpu_vs_gpu(tag: str, cfg, params, batch_at, launches_fn=None) -> dict:
+    """One forward and backward of ``cfg``'s model from the same weights
+    and batch on the CPU (plain versions) and on the card (kernels), TF32
+    off: the loss within rtol ``XR_CPU_GPU_TOL[0]``, every gradient within
+    ``XR_CPU_GPU_TOL[1]`` of its leaf's largest.  ``launches_fn()`` reads a
+    launch counter, which must not move on the CPU."""
+    from repro_torch.models.registry import family_of
+    from repro_torch.utils.trees import flatten_with_names
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    module = family_of(cfg).module
+    got, launched = {}, {}
+    for device in ("cpu", "cuda"):
+        model = module(cfg, tree_to(copy.deepcopy(params), device))
+        before = launches_fn() if launches_fn else 0
+        loss = model(batch_at(device))
+        loss.backward()
+        torch.cuda.synchronize()
+        launched[device] = (launches_fn() - before) if launches_fn else 0
+        got[device] = (loss.item(), {n: p.grad.detach().cpu() for n, p in
+                                     flatten_with_names(model.params_tree())[0]})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = got["cpu"], got["cuda"]
+    worst = max(((g_gpu[n] - g).abs().max() / (g.abs().max() + 1e-12)).item()
+                for n, g in g_cpu.items())
+    res = {"loss_cpu": l_cpu, "loss_gpu": l_gpu, "grad_rel": worst, "launches": launched}
+    if (abs(l_gpu - l_cpu) > XR_CPU_GPU_TOL[0] * abs(l_cpu) or worst > XR_CPU_GPU_TOL[1]
+            or launched["cpu"]):
+        raise AssertionError(f"{tag}: {res} beyond {XR_CPU_GPU_TOL}")
+    log(f"[{tag}] {cfg.name} (loss rtol, grad rel) {XR_CPU_GPU_TOL}: " + json.dumps(res))
+    return res
+
+
+def phase_vision_cpu_vs_gpu() -> dict:
+    """The vision smoke config (5 layers: 4 self, 1 cross; f32), its gate
+    set to 0.5, seq 64 x batch 2 with the arch's image embeddings:
+    ``_cpu_vs_gpu``."""
+    from repro_torch.configs.llama_3_2_vision_11b import make_smoke
+    from repro_torch.models.transformer import init_params
+
+    cfg = make_smoke()
+    params = init_params(cfg, seed=0, device="cpu")
+    params["cross_blocks"]["gate_attn"].fill_(VISION_GATE)
+    return _cpu_vs_gpu("vision_cpu_vs_gpu", cfg, params,
+                       lambda dev: vision_pipe(cfg, seq=64, batch=2, device=dev).batch_at(0))
+
+
+def phase_rwkv_train_cpu_vs_gpu() -> dict:
+    """The rwkv smoke config (2 layers, f32, chunk 16), constant leaves
+    perturbed, seq 40 x batch 2 (a ragged last chunk): ``_cpu_vs_gpu``,
+    the card's WKV launches exactly 2 a layer (forward and the remat's
+    recompute), the CPU's backward in float64 against the card's in f32."""
+    from repro_torch.configs.rwkv6_7b import make_smoke
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.rwkv6 import kernel as wkv
+    from repro_torch.models import rwkv
+
+    cfg = make_smoke()
+    params = rwkv.perturb_constant_leaves(rwkv.init_params(cfg, seed=0, device="cpu"))
+    res = _cpu_vs_gpu("rwkv_train_cpu_vs_gpu", cfg, params,
+                      lambda dev: TokenPipeline(cfg.vocab, 40, 2, seed=0,
+                                                device=dev).batch_at(0),
+                      lambda: wkv.WKV_LAUNCHES)
+    if res["launches"]["cuda"] != 2 * cfg.n_layers:
+        raise AssertionError(f"rwkv_train_cpu_vs_gpu: {res['launches']['cuda']} WKV "
+                             f"launches on the card, expected {2 * cfg.n_layers}")
+    return res
+
+
+def phase_vision_serve(smi: str) -> dict:
+    """llama-3.2-vision-11b at full width and depth (40 layers: 32 self, 8
+    cross; bf16, use_flash), seeded weights with ``gate_attn`` perturbed:
+    4 prompts of 384-512 tokens (left-padded to the longest), one seeded
+    image each (4, 576, 4096), through ``prefill`` and then 32 greedy
+    ``decode_step``s with the images (the engines take none, as the
+    reference's).  The flash kernel must launch exactly 32 times in the
+    prefill (the self blocks; a cross block is non-causal over the image
+    and takes the chunked path) and never in decode; the flash kernel held
+    to its plain version on the q/k/v the prefill fed to self layers 0 and
+    31; logits finite; the image must move the logits (the gates are
+    open).  Prefill ms (CUDA events, after a warm-up prefill) and decode
+    ms a step (CUDA events over the 32 steps)."""
+    from repro_torch.configs.llama_3_2_vision_11b import make_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = make_config(use_flash=True)
+    t0 = time.perf_counter()
+    params = perturb_gates(tf.init_params(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in flatten_with_names(params)[0])
+    log(f"[vision_serve] {cfg.name}: {n_params} params ({cfg.n_self} self, {cfg.n_cross} "
+        f"cross layers), {cfg.dtype}, use_flash, init on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = serve_prompts(cfg.vocab)[:VISION_SERVE_PROMPTS]
+    toks = left_pad(prompts).cuda()
+    B, S = toks.shape
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    img = torch.randn((B, 576, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+
+    attention = tf.attn_lib.attention
+    captured, calls = {}, [0]
+
+    def capture(q, k, v, **kw):       # a hook of this script: the prefill's flash inputs
+        if kw.get("use_flash") and calls[0] in (0, cfg.n_self - 1):
+            captured[calls[0]] = (q.clone(), k.clone(), v.clone())
+        calls[0] += bool(kw.get("use_flash"))
+        return attention(q, k, v, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    tf.attn_lib.attention = capture
+    try:
+        before = flash.FLASH_LAUNCHES
+        logits, cache = tf.prefill(params, toks, cfg, img_embeds=img)
+        torch.cuda.synchronize()
+        prefill_launches = flash.FLASH_LAUNCHES - before
+    finally:
+        tf.attn_lib.attention = attention
+    if prefill_launches != cfg.n_self or sorted(captured) != [0, cfg.n_self - 1]:
+        raise AssertionError(f"vision prefill: {prefill_launches} flash launches, expected "
+                             f"{cfg.n_self}; captured layers {sorted(captured)}")
+    errs = {li: check_flash(q, k, v, True, f"vision serve layer {li} {tuple(q.shape)}")
+            for li, (q, k, v) in sorted(captured.items())}
+    del captured
+    no_img, _ = tf.prefill(params, toks, cfg, img_embeds=torch.zeros_like(img))
+    img_moves = (logits.float() - no_img.float()).abs().max().item()
+    if not torch.isfinite(logits).all() or img_moves == 0.0:
+        raise AssertionError(f"vision prefill: finite {bool(torch.isfinite(logits).all())}, "
+                             f"the image moves the logits by {img_moves}")
+    del no_img
+    prefill_ms = cuda_ms(lambda: tf.prefill(params, toks, cfg, img_embeds=img), reps=3,
+                         warmup=1)
+    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, VISION_SERVE_STEPS))
+             for n, c in cache.items()}
+    tok = torch.argmax(logits.float(), dim=-1)
+    out = [tok]
+    before = flash.FLASH_LAUNCHES
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for step in range(VISION_SERVE_STEPS):
+        step_logits, cache = tf.decode_step(params, cache, tok, S + step, cfg, img_embeds=img)
+        tok = torch.argmax(step_logits.float(), dim=-1)
+        out.append(tok)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / VISION_SERVE_STEPS
+    tokens = torch.stack(out, 1).cpu()
+    if (flash.FLASH_LAUNCHES != before or not torch.isfinite(step_logits).all()
+            or tokens.min() < 0 or tokens.max() >= cfg.vocab):
+        raise AssertionError(f"vision decode: {flash.FLASH_LAUNCHES - before} flash launches, "
+                             f"finite {bool(torch.isfinite(step_logits).all())}")
+    report = {"card": smi, "model": cfg.name, "params": n_params,
+              "prompt_lens": [len(p) for p in prompts], "padded_to": S, "img_tokens": 576,
+              "decode_steps": VISION_SERVE_STEPS, "prefill_ms_B4": prefill_ms,
+              "decode_ms_per_step": decode_ms, "flash_launches_per_prefill": prefill_launches,
+              "flash_layer_max_abs_err": errs, "image_moves_logits_by": img_moves,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "tokens": tokens[:, :8].tolist()}
+    log("[vision_serve] " + json.dumps(report))
+    return {"launches": prefill_launches, "per_prefill": cfg.n_self, "report": report}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5809,6 +6424,18 @@ def main() -> int:
     from repro_torch.launch.mesh import init_dist
 
     faulthandler.dump_traceback_later(HANG_LIMIT_S, exit=True)
+    t_start = time.perf_counter()
+
+    def clock(tag: str) -> None:
+        """The script's own wall time (its time budget), and the card's
+        memory in use beside what PyTorch's allocator holds: what the
+        phases so far keep outside the allocator (communicators, library
+        workspaces) is what a later phase cannot have."""
+        free, total = torch.cuda.mem_get_info()
+        log(f"[clock] {tag}: {time.perf_counter() - t_start:.1f} s since the start; "
+            f"{(total - free) / 1e9:.2f} GB of the card in use, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved by PyTorch")
+
     # deterministic cuBLAS for lm_train's bit-identical losses: read when
     # the first CUDA context is made, so set before any
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -5820,6 +6447,10 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} ({smi})")
     phase_build()
+    clock("build")
+    xr = phase_xr_train()
+    vision_train, rwkv_train = xr["vision_train"], xr["rwkv_train"]
+    clock("xr_train")
     init_dist("cuda")
     try:
         rows = phase_kernels()
@@ -5827,6 +6458,7 @@ def main() -> int:
         train = phase_train()
         phase_profile(*train["live"])
         phase_cpu_vs_gpu()
+        clock("cpu_vs_gpu")
         del train["live"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -5835,23 +6467,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm = phase_lm_train()
         phase_lm_cpu_vs_gpu()
+        clock("lm_cpu_vs_gpu")
         gc.collect()
         torch.cuda.empty_cache()
         lm_zero1_rows = phase_lm_zero1_kernels()
         lm_zero1 = phase_lm_zero1(lm_zero1_rows)
         phase_lm_zero1_cpu_vs_gpu()
+        clock("lm_zero1_cpu_vs_gpu")
         gc.collect()
         torch.cuda.empty_cache()
         inception_rows = phase_inception_kernels()
         inception = phase_inception()
         phase_inception_cpu_vs_gpu()
         phase_verify()
+        clock("verify")
         gc.collect()
         torch.cuda.empty_cache()
         # after lm_zero1, whose monolithic run needs 61 GB of the card
         lm_moe_rows = phase_lm_moe_kernels()
         lm_moe = phase_lm_moe()
         phase_moe_cpu_vs_gpu()
+        clock("moe_cpu_vs_gpu")
         gc.collect()
         torch.cuda.empty_cache()
         lm_tp_rows = phase_lm_tp_kernels()
@@ -5861,22 +6497,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp1 = (lm["runs"]["funnel"]["losses"][0], lm["runs"]["funnel"]["grad_norms"][0])
     lm_tp = phase_lm_tp(tp1)
+    clock("lm_tp")
     lm_fsdp = phase_lm_fsdp(tp1)
+    clock("lm_fsdp")
     reducers = phase_reducers()
+    clock("reducers")
     zero1 = phase_zero1()
+    clock("zero1")
     hier = phase_hierarchical()
+    clock("hierarchical")
     flash_rows = phase_flash()
     serve = phase_serve(smi)
     phase_serve_cpu_vs_gpu()
+    clock("serve_cpu_vs_gpu")
     gc.collect()                     # Qwen3's weights go before RWKV's
     torch.cuda.empty_cache()
     log(f"[env] {torch.cuda.memory_allocated() / 1e9} GB held before RWKV")
     wkv_rows = phase_wkv()
     rwkv_serve = phase_rwkv_serve(smi)
     phase_rwkv_cpu_vs_gpu()
+    clock("rwkv_cpu_vs_gpu")
     gc.collect()                     # RWKV's weights go before granite's
     torch.cuda.empty_cache()
     moe_serve = phase_moe_serve()
+    clock("moe_serve")
+    gc.collect()                     # granite's weights go before the vision model's
+    torch.cuda.empty_cache()
+    vision_serve = phase_vision_serve(smi)
+    clock("vision_serve")
 
     src = "src/repro_torch/kernels/collectives/csrc/staging.cu"
     replaces = {"pack": "src/repro/kernels/collectives/kernel.py:76",
@@ -5889,7 +6537,9 @@ def main() -> int:
                    "zero1": sum(r["launches"][name] for r in zero1["runs"].values()),
                    "lm_tp": sum(r["launches"][name] for r in lm_tp["runs"].values()),
                    "lm_moe": lm_moe["launches"][name],
-                   "lm_fsdp": sum(r["launches"][name] for r in lm_fsdp["runs"].values())}
+                   "lm_fsdp": sum(r["launches"][name] for r in lm_fsdp["runs"].values()),
+                   "vision_train": vision_train["launches"][name],
+                   "rwkv_train": rwkv_train["launches"][name]}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -5941,16 +6591,24 @@ def main() -> int:
                                  for dt, v in lm_moe_rows["granite"]["slots"].items()}},
             "lm_fsdp": {"launches_per_step": {k: v["launches_per_step"]
                                               for k, v in lm_fsdp["runs"].items()},
-                        "layout": lm_moe_rows["fsdp"]}})
+                        "layout": lm_moe_rows["fsdp"]},
+            # cross-attention and RWKV training: each run's buckets plus
+            # depcha's slots (one a layer of each stack; RWKV's bf16 and f32)
+            "vision_train": {"launches_per_step": {
+                k: v["launches_per_step"] for k, v in vision_train["runs"].items()}},
+            "rwkv_train": {"launches_per_step": {
+                k: v["launches_per_step"] for k, v in rwkv_train["runs"].items()}}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCES[torch.bfloat16],
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": serve["launches"] + moe_serve["flash_launches"],
+        "launches": serve["launches"] + moe_serve["flash_launches"] + vision_serve["launches"],
         "launches_by_path": {"serve": serve["launches"],
-                             "moe_serve": moe_serve["flash_launches"]},
+                             "moe_serve": moe_serve["flash_launches"],
+                             "vision_serve": vision_serve["launches"]},
         "launches_per_prefill": 28, "launches_per_prefill_moe": 24,
+        "launches_per_prefill_vision": vision_serve["per_prefill"],
         "moe_serve_layer0_max_abs_err": moe_serve["flash_layer0_max_abs_err"],
         "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
         "device_ms_per_launch": fr["device_ms_per_launch"],
@@ -5973,7 +6631,11 @@ def main() -> int:
         "name": "wkv_sequence_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:59",
-        "launches": rwkv_serve["launches"],
+        "launches": rwkv_serve["launches"] + sum(rwkv_train["wkv_launches"].values()),
+        "launches_by_path": {"rwkv_serve": rwkv_serve["launches"],
+                             "rwkv_train": sum(rwkv_train["wkv_launches"].values())},
+        "launches_per_train_step": rwkv_train["wkv_launches_per_step"],
+        "training_shape": rwkv_train["chunk_states"],
         "launches_per_prefill": rwkv_serve["per_prefill"],
         "launches_per_decode_step": rwkv_serve["per_step"],
         "max_abs_err": wr["max_abs_err"], "ms": wr["ms"],

@@ -13,6 +13,7 @@ from repro_torch.configs.granite_moe_1b_a400m import ARCH as _granite
 from repro_torch.configs.h2o_danube_1_8b import ARCH as _danube
 from repro_torch.configs.inception_bn_imagenet import ARCH as _inception
 from repro_torch.configs.kimi_k2_1t_a32b import ARCH as _kimi
+from repro_torch.configs.llama_3_2_vision_11b import ARCH as _vision
 from repro_torch.configs.minitron_8b import ARCH as _minitron
 from repro_torch.configs.musicgen_large import ARCH as _musicgen
 from repro_torch.configs.qwen3_1_7b import ARCH as _qwen3
@@ -21,7 +22,8 @@ from repro_torch.configs.rwkv6_7b import ARCH as _rwkv6
 from repro_torch.configs.starcoder2_3b import ARCH as _starcoder2
 
 ARCHS = {a.arch_id: a for a in (_qwen3, _resnet, _inception, _rwkv6, _minitron,
-                                _danube, _starcoder2, _musicgen, _granite, _kimi)}
+                                _danube, _starcoder2, _musicgen, _granite, _kimi,
+                                _vision)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

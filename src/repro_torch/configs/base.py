@@ -3,7 +3,7 @@ architecture, with the shapes it is run at."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from repro_torch.models.registry import family_of
 
@@ -45,6 +45,10 @@ class ArchSpec:
     shapes: tuple[ShapeSpec, ...]
     # extra per-batch inputs: name -> (per-sample shape fn(cfg, S), dtype)
     extra_inputs: tuple[tuple[str, Callable[[Any, int], tuple[int, ...]], Any], ...] = ()
+    # (L_small, L_large, unit): two depths whose layer structure repeats
+    # with period ``unit`` (the reference's cost extrapolation); a cut of
+    # the model to L_large keeps every kind of layer and group it has
+    layer_pair: Optional[tuple[int, int, int]] = (1, 2, 1)
 
 
 def param_structs(cfg) -> Any:

@@ -8,9 +8,14 @@ the backward scan body (a ``custom_vjp`` around the layer function) and
 lets XLA overlap it.  PyTorch runs eagerly, so the port does it directly:
 
   - ``scan_layers`` runs the layer function over the stacked layer
-    params, unbound ONCE a forward: ``unbind``'s backward is one
-    ``stack``, where indexing ``w[li]`` would make every layer's backward
-    write a zero tensor of the whole stack.
+    params, unbound ONCE a forward (``layer_rows``): ``unbind``'s
+    backward is one ``stack``, where indexing ``w[li]`` would make every
+    layer's backward write a zero tensor of the whole stack.  A stack
+    that runs in groups between the layers of another (the
+    transformer's self blocks around its cross blocks) runs a range at a
+    time from the same rows (``run_layers``); each stack then has its
+    ``LayerSync``, the second sharing the first's communicators and
+    stream, behind one ``StackSyncs``.
   - with a ``LayerSync``, each layer's param slices first pass through
     ``sync_in_backward``, an identity ``torch.autograd.Function``.
     Autograd sums every use of a tensor before it runs the node that made
@@ -88,12 +93,14 @@ class LayerSync:
     Construction is collective: it creates the syncer's communicators,
     one a reduce set (and on a pod mesh for ``hierarchical`` or
     ``compressed`` its intra- and inter-pod groups), on every rank in the
-    same order.
+    same order.  With ``share`` (another stack's ``LayerSync`` on the same
+    mesh) it creates none and uses that one's communicators and stream.
     """
 
     def __init__(self, stacked: dict, axes: Sequence[tuple[str, ...]], mesh, *,
                  prefix: str = "blocks/", reducer: str = "flat",
-                 intra_size: int = 0, device: str | torch.device = "cuda"):
+                 intra_size: int = 0, device: str | torch.device = "cuda",
+                 share: "LayerSync | None" = None):
         named = flatten_with_names(stacked)[0]
         if len(axes) != len(named):
             raise ValueError(f"{len(named)} leaves but {len(axes)} axis groups")
@@ -123,13 +130,18 @@ class LayerSync:
         sets = {ax for _, ax, _ in self.buckets}
         if reducer in ("hierarchical", "compressed"):
             sets |= {_rest(ax) for ax in sets} | {("data",)}
-        self.comms = dep.mesh_comms([0], sets, mesh, self.device)[0]
-        self.pod = None
-        if "pod" in self.mesh_shape and reducer in ("hierarchical", "compressed"):
-            self.pod = dep.pod_comms([0], self.mesh_shape["pod"], self.mesh_shape["data"],
-                                     self.device, self.mesh_shape.get("model", 1))[0]
-        self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+        if share is not None:
+            self.comms, self.pod, self.stream = share.comms, share.pod, share.stream
+            for ax in sets:
+                self.comms.get(ax)          # raises if the shared sync lacks the set
+        else:
+            self.comms = dep.mesh_comms([0], sets, mesh, self.device)[0]
+            self.pod = None
+            if "pod" in self.mesh_shape and reducer in ("hierarchical", "compressed"):
+                self.pod = dep.pod_comms([0], self.mesh_shape["pod"], self.mesh_shape["data"],
+                                         self.device, self.mesh_shape.get("model", 1))[0]
+            self.stream = (torch.cuda.Stream(self.device)
+                           if self.device.type == "cuda" else None)
         self._slots: dict[int, torch.Tensor] = {}
         self.pending: dict[int, list] = {}
         self.collectives = 0          # issued in the current step's backward
@@ -223,6 +235,42 @@ class LayerSync:
                 coll_ops.fused_unpack(self.buckets[k][0], out, rows)
 
 
+class StackSyncs:
+    """The in-backward syncs of several stacks of layers (the
+    transformer's ``blocks`` and ``cross_blocks``) as the train step sees
+    one ``LayerSync``: ``names`` in the stacks' order, ``begin`` and
+    ``finish`` over each, ``collectives`` summed.  ``of(prefix)`` is one
+    stack's ``LayerSync``, which the forward hands that stack's layers."""
+
+    def __init__(self, syncs: Sequence[LayerSync]):
+        self.syncs = tuple(syncs)
+        self.names = tuple(n for s in self.syncs for n in s.names)
+
+    def of(self, prefix: str) -> LayerSync:
+        for s in self.syncs:
+            if s.names[0].startswith(prefix):
+                return s
+        raise KeyError(f"no stack under {prefix!r} in {[s.names[0] for s in self.syncs]}")
+
+    @property
+    def collectives(self) -> int:
+        return sum(s.collectives for s in self.syncs)
+
+    def begin(self) -> None:
+        for s in self.syncs:
+            s.begin()
+
+    def finish(self, stacked: Sequence[torch.Tensor]) -> None:
+        """``LayerSync.finish`` of each stack, on its share of ``stacked``
+        (the leaves of ``names``, in order)."""
+        if len(stacked) != len(self.names):
+            raise ValueError(f"expected {len(self.names)} stacked leaves, got {len(stacked)}")
+        start = 0
+        for s in self.syncs:
+            s.finish(stacked[start:start + len(s.names)])
+            start += len(s.names)
+
+
 def _rest(ax: tuple[str, ...]) -> tuple[str, ...]:
     return tuple(a for a in ax if a not in ("pod", "data"))
 
@@ -272,17 +320,36 @@ def rematted(fn: Callable, remat: str) -> Callable:
     raise ValueError(f"unknown remat {remat!r}, want one of {REMATS}")
 
 
+def layer_rows(stacked: dict) -> list[dict]:
+    """The layers of ``stacked`` (a flat dict of (L, ...) leaves), each a
+    dict of its slices in the stack's leaf order, from ONE ``unbind`` a
+    leaf (whose backward is one ``stack``)."""
+    names = sorted(stacked)            # the stack's leaf order
+    rows = {n: stacked[n].unbind(0) for n in names}
+    return [{n: rows[n][li] for n in names} for li in range(len(rows[names[0]]))]
+
+
+def run_layers(layer_fn: Callable[[dict, Any], Any], rows: Sequence[dict], x: Any,
+               layers: Sequence[int], *, sync: LayerSync | None = None,
+               remat: str = "none") -> Any:
+    """``layer_fn(rows[li], x) -> x`` for ``li`` in ``layers``, in order,
+    under ``remat``; with ``sync`` each layer's gradient is reduced inside
+    the backward in slot ``li``.  A stack that runs in groups (the
+    transformer's self blocks between its cross blocks) unbinds once
+    (``layer_rows``) and runs a range at a time."""
+    f = rematted(layer_fn, remat)
+    for li in layers:
+        p = rows[li]
+        if sync is not None:
+            p = sync_in_backward(p, li, sync)
+        x = f(p, x)
+    return x
+
+
 def scan_layers(layer_fn: Callable[[dict, Any], Any], stacked: dict, x: Any, *,
                 sync: LayerSync | None = None, remat: str = "none") -> Any:
     """``layer_fn(params_i, x) -> x`` over the layers of ``stacked`` (a
     flat dict of (L, ...) leaves), in order; returns the last ``x``.  With
     ``sync`` each layer's gradient is reduced inside the backward."""
-    names = sorted(stacked)            # the stack's leaf order
-    rows = {n: stacked[n].unbind(0) for n in names}
-    f = rematted(layer_fn, remat)
-    for li in range(len(rows[names[0]])):
-        p = {n: rows[n][li] for n in names}
-        if sync is not None:
-            p = sync_in_backward(p, li, sync)
-        x = f(p, x)
-    return x
+    rows = layer_rows(stacked)
+    return run_layers(layer_fn, rows, x, range(len(rows)), sync=sync, remat=remat)

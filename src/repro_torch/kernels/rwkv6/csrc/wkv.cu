@@ -89,6 +89,15 @@
 // 78,592 bytes at N 64, MV 64, C' 32 with bf16 inputs (90,880 with f32), so
 // two blocks an SM; 171,776 at C' 64.
 //
+// Training: where the caller passes `states`, each block also writes its
+// state slice at the top of every chunk (the state the chunk starts from)
+// to states[i] (chunks, B H, N, N) f32: N x MV floats a chunk from shared
+// memory, 16 bytes a thread at a time, which the backward
+// (ops.py::_WKVSequence) recomputes every chunk from at once.  The write
+// adds the chunks' states to the bytes moved (by the shapes, 128 MiB a
+// layer at RWKV-6 7B's training shape, B 4, S 1024: 0.8x the layer's
+// inputs); prefill and decode pass null and move what they did.
+//
 // The one-chunk entry wkv_chunk_fwd (the TPU kernel's flat (BH, C, N)
 // layout, y in f32) is this kernel with one chunk.
 //
@@ -228,6 +237,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
            const float* __restrict__ logw, const float* __restrict__ u,
            const float* state, YT* __restrict__ y, float* s1,   // s1 may be state
+           float* __restrict__ states,                          // null, or (chunks, BH, N, N)
            int H, int S, int C, int chunks, long long sb, long long sh, long long st) {
   using Lo = Layout<T, N, MV, KC>;
   constexpr int RT = Lo::RT, RM = Lo::RM, RN = Lo::RN;
@@ -304,6 +314,18 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict
     const int cv = min(C, S - t0);                  // rows of this chunk inside S
     cp_async_wait_all();
     __syncthreads();
+
+    // the state at the chunk's start, for the backward; no step below
+    // writes the slice before the barrier after step 3
+    if (states != nullptr) {
+      float* dst = states + (static_cast<size_t>(i) * gridDim.x + bh) * N * N + col0;
+      constexpr int U = MV / 4;
+      for (int e = tid; e < N * U; e += kThreads) {
+        const int nn = e / U, c = e % U;
+        *reinterpret_cast<float4*>(dst + static_cast<size_t>(nn) * N + c * 4) =
+            *reinterpret_cast<const float4*>(ss + nn * LDV + c * 4);
+      }
+    }
 
     // 1. the running log-decay of this thread's segment
     float lw[SEG], pre[SEG];
@@ -420,7 +442,7 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict
 
 struct Args {
   const void *r, *k, *v, *logw, *u, *state;
-  void *y, *s1;
+  void *y, *s1, *states;
   int BH, H, S, C, chunks;
   long long sb, sh, st;
   int device;
@@ -444,7 +466,7 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.r), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const float*>(a.logw), static_cast<const float*>(a.u),
       static_cast<const float*>(a.state), static_cast<YT*>(a.y), static_cast<float*>(a.s1),
-      a.H, a.S, a.C, a.chunks, a.sb, a.sh, a.st);
+      static_cast<float*>(a.states), a.H, a.S, a.C, a.chunks, a.sb, a.sh, a.st);
   return cudaGetLastError();
 }
 
@@ -488,14 +510,17 @@ extern "C" {
 // One layer: r, k, v (B, S, H, N) in the dtype of `dtype`, logw (B, S, H, N),
 // u (H, N) and state (B, H, N, N) in f32, all contiguous and 16-byte aligned,
 // in chunks of C = min(chunk, S) rows -> y (B, S, H, N) in r's dtype and the
-// final state s1 (B, H, N, N) f32, which may be the state itself.  Grid
-// (B H, splits).
+// final state s1 (B, H, N, N) f32, which may be the state itself; where
+// `states` is not null, also the state at the start of each chunk into it,
+// (chunks, B, H, N, N) f32 (what the backward recomputes the chunks from).
+// Grid (B H, splits).
 int wkv_seq_fwd(const void* r, const void* k, const void* v, const void* logw,
-                const void* u, const void* state, void* y, void* s1, int B, int S, int H,
-                int N, int C, int splits, int dtype, int device, void* stream) {
+                const void* u, const void* state, void* y, void* s1, void* states, int B,
+                int S, int H, int N, int C, int splits, int dtype, int device,
+                void* stream) {
   if (B < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long row = static_cast<long long>(H) * N;
-  const Args a{r, k, v, logw, u, state, y, s1, B * H, H, S, C, (S + C - 1) / C,
+  const Args a{r, k, v, logw, u, state, y, s1, states, B * H, H, S, C, (S + C - 1) / C,
                static_cast<long long>(S) * row, N, row, device,
                static_cast<cudaStream_t>(stream)};
   return static_cast<int>(run(N, splits, dtype, /*y_f32=*/dtype == kF32, a));
@@ -509,7 +534,7 @@ int wkv_chunk_fwd(const void* r, const void* k, const void* v, const void* logw,
                   int C, int N, int H, int dtype, int device, void* stream) {
   if (H < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(C) * N;
-  const Args a{r, k, v, logw, u, state, y, s1, BH, H, C, C, 1,
+  const Args a{r, k, v, logw, u, state, y, s1, nullptr, BH, H, C, C, 1,
                H * rows, rows, N, device, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(run(N, 1, dtype, /*y_f32=*/true, a));
 }

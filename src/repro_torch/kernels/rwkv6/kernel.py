@@ -22,7 +22,9 @@ tensor (``wkv_sequence_kernel``: or to ``out``, which may be the state
 itself), and count their launches in ``WKV_LAUNCHES`` (one a call).
 ``wkv_sequence_kernel`` cuts the state's columns over ``choose_splits``
 blocks a row, picked from the grid's rows and the card's SMs, and
-logged.  There is no fallback: a failed build or launch raises.
+logged.  For training it also writes, when given ``states``, the state
+each chunk starts from (``ops._WKVSequence``'s backward recomputes the
+chunks from those).  There is no fallback: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -66,6 +68,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     lib.wkv_seq_fwd.argtypes = ptrs + [
+        ctypes.c_void_p,                                          # states or null
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,   # B, S, H, N
         ctypes.c_int, ctypes.c_int,                               # C, splits
         ctypes.c_int, ctypes.c_int,                               # dtype code, device
@@ -137,14 +140,18 @@ def _head(r: torch.Tensor, u: torch.Tensor, name: str) -> None:
 
 def wkv_sequence_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                        chunk: int, out: torch.Tensor | None = None):
+                        chunk: int, out: torch.Tensor | None = None,
+                        states: torch.Tensor | None = None):
     """One layer's WKV in one launch, in chunks of C = min(chunk, S), over
     ``choose_splits`` blocks a (b, h) row.  r, k, v (B, S, H, N) CUDA
     tensors of one dtype (f32 or bf16); logw (B, S, H, N), u (H, N) and
     state (B, H, N, N) in f32; all contiguous and 16-byte aligned.  Returns
     (y (B, S, H, N) in r's dtype, the final state (B, H, N, N) f32): in
     ``out`` where given, which may be ``state`` itself (each block reads
-    its slice of the state before it writes it), else in a new tensor."""
+    its slice of the state before it writes it), else in a new tensor.
+    ``states``, where given (an f32 tensor of (T, B, H, N, N), T = ⌈S / C⌉
+    chunks), gets the state each chunk starts from (the backward's input);
+    without it the launch writes no more than before."""
     global WKV_LAUNCHES
     _head(r, u, "wkv_sequence_kernel")
     if r.dim() != 4:
@@ -157,7 +164,10 @@ def wkv_sequence_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "u": (u, torch.float32, (H, N)),
                 "state": (state, torch.float32, (B, H, N, N)),
                 **({} if out is None else
-                   {"out": (out, torch.float32, (B, H, N, N))})}, device)
+                   {"out": (out, torch.float32, (B, H, N, N))}),
+                **({} if states is None else
+                   {"states": (states, torch.float32, (-(-S // min(max(chunk, 1), S)),
+                                                       B, H, N, N))})}, device)
     if B < 1 or S < 1 or H < 1 or B * H > MAX_GRID_X:
         raise ValueError(f"(B, S, H) = {(B, S, H)}: want B, S, H >= 1 and B·H <= "
                          f"{MAX_GRID_X}")
@@ -172,7 +182,8 @@ def wkv_sequence_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     index = device.index
     rc = _lib().wkv_seq_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-        state.data_ptr(), y.data_ptr(), s1.data_ptr(), B, S, H, N, C, splits,
+        state.data_ptr(), y.data_ptr(), s1.data_ptr(),
+        None if states is None else states.data_ptr(), B, S, H, N, C, splits,
         DTYPE_CODES[r.dtype], index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"wkv_seq_fwd launch failed: CUDA error {rc}")

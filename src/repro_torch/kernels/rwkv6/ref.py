@@ -79,11 +79,14 @@ def wkv_chunk_rows_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv_sequence_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                     chunk: int, out: torch.Tensor | None = None):
+                     chunk: int, out: torch.Tensor | None = None,
+                     states: torch.Tensor | None = None):
     """One layer's WKV in chunks of C = min(chunk, S).  r, k, v, logw:
     (B, S, H, N) (logw ≤ 0); u: (H, N); state: (B, H, N, N) [state[b, h,
     i, j] ~ k-dim i, v-dim j].  Returns (y (B, S, H, N) in r's dtype, the
-    final state (B, H, N, N) f32, copied into ``out`` where given)."""
+    final state (B, H, N, N) f32, copied into ``out`` where given).
+    ``states`` (T, B, H, N, N) f32, where given, gets the state each of the
+    T chunks starts from."""
     B, S, H, N = r.shape
     C = min(chunk, S)
     pad = (-S) % C
@@ -102,6 +105,8 @@ def wkv_sequence_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u = u.float()
     ys = []
     for i in range(T):
+        if states is not None:
+            states[i].copy_(st.view(B, H, N, N))
         y, st = wkv_chunk_rows_ref(
             rc[i].view(B * H, C, N), kc[i].view(B * H, C, N),
             vc[i].view(B * H, C, N), lw[i].view(B * H, C, N), u, st)

@@ -14,6 +14,10 @@ reference's tiled ``all_gather`` over the dp axes, whose transpose under
 ``check_vma=False`` is ``psum_scatter``: the backward reduce-scatters
 the cotangent to the rank's shard.
 
+``model_all_gather`` is the reference's tiled ``all_gather`` over
+"model" (RWKV's channel mix gathers its receptance), with the same
+reduce-scatter backward on the model group.
+
 ``model_psum`` is the reference's ``psum`` over "model" under
 ``shard_map(check_vma=False)``: an all-reduce whose backward is the same
 all-reduce of the cotangent (psum's transpose there is psum).  So every
@@ -37,7 +41,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import dependency as dep
-from repro_torch.parallel.sharding import MODEL_AXIS, dp_index
+from repro_torch.parallel.sharding import MODEL_AXIS, dp_index, shard_tree
+from repro_torch.utils.trees import tree_map_with_names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,14 +136,15 @@ def fsdp_axes(mesh, dp_axes, device: str | torch.device = "cuda") -> FsdpAxes:
     return FsdpAxes(group, dp_index(dist.get_rank(), mesh), size)
 
 
-class _FsdpGather(torch.autograd.Function):
-    """Tiled all-gather of a shard along ``dim`` over the dp group (chunk
-    i from dp index i); the backward reduce-scatters (sums) the cotangent
-    back to the shard: an all-to-all of its chunks and the peers' chunks
-    added in rank order, so every rank sums in one order."""
+class _TiledGather(torch.autograd.Function):
+    """Tiled all-gather of a shard along ``dim`` over the group of
+    ``axes`` (an ``FsdpAxes`` or a ``ModelAxis``: chunk i from group rank
+    i); the backward reduce-scatters (sums) the cotangent back to the
+    shard: an all-to-all of its chunks and the peers' chunks added in rank
+    order, so every rank sums in one order."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, dim: int, axes: FsdpAxes) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
         ctx.dim, ctx.axes = dim, axes
         g = axes.size
         parts = x.new_empty((g * x.shape[0], *x.shape[1:]))
@@ -166,7 +172,19 @@ def fsdp_all_gather(x: torch.Tensor, dim: int, axes: FsdpAxes) -> torch.Tensor:
     extent 1); its backward is the reduce-scatter of the cotangent."""
     if axes.size == 1:
         return x
-    return _FsdpGather.apply(x, dim, axes)
+    return _TiledGather.apply(x, dim, axes)
+
+
+def model_all_gather(x: torch.Tensor, axis: ModelAxis, dim: int = -1) -> torch.Tensor:
+    """The reference's tiled ``all_gather`` over "model" along ``dim``
+    (identity at tp=1): each rank's chunk at its model coordinate.  Its
+    backward reduce-scatters the cotangent over "model", all_gather's
+    transpose: the cotangents of the model ranks summed, so the gradient
+    comes out tp × its per-shard value, as ``model_psum``'s convention
+    has it and the train step's ÷tp expects."""
+    if axis.size == 1:
+        return x
+    return _TiledGather.apply(x, dim % x.dim(), axis)
 
 
 def _check_axis(tp: int, axis: ModelAxis) -> None:
@@ -224,6 +242,35 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # -------------------------------------------------------------- init utils
+def init_tree(draw: Callable, specs: Callable, cfg, *, seed: int,
+              device: str | torch.device, mesh=None, rank: int | None = None) -> dict:
+    """A family's ``init_params``: ``draw(cfg, seed, device)``, its global
+    tree; with a ``mesh`` (and this process's ``rank``, by default the
+    process group's) the global tree is drawn and only the rank's blocks
+    under ``specs(tree, cfg)`` kept (``parallel/sharding.py::shard_tree``),
+    so a leaf replicated over an axis is equal on every rank of it and the
+    shards of any layout put together are the one-rank tree of the same
+    seed.  A config whose storage is sharded (tp > 1, FSDP) needs the
+    mesh, except on ``meta``, where only shapes are made."""
+    device = dep.resolve_device(device)
+    if mesh is not None:
+        if rank is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        if mesh.shape.get(MODEL_AXIS, 1) != cfg.tp:
+            raise ValueError(f"tp={cfg.tp} on a mesh with model extent "
+                             f"{mesh.shape.get(MODEL_AXIS, 1)}")
+        full = draw(cfg, seed, device)
+        local = shard_tree(full, specs(full, cfg), mesh, rank)
+        out = tree_map_with_names(lambda _n, t: t.contiguous().clone(), local)
+        del full, local
+        return out
+    fsdp = getattr(cfg, "fsdp", False)
+    if (cfg.tp != 1 or fsdp) and device.type != "meta":
+        raise ValueError(f"tp={cfg.tp}, fsdp={fsdp}: pass the mesh and the rank, "
+                         f"whose shards init_params keeps")
+    return draw(cfg, seed, device)
+
+
 def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
                device: torch.device) -> torch.Tensor:
     """Normal(0, 1/in_dim) drawn in f32 from ``gen`` (a generator on

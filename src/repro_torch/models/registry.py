@@ -1,7 +1,7 @@
 """Uniform model-family API (``repro/models/registry.py``): each family
 exposes the same hooks so the launchers and loops are family-agnostic.
 Ported so far: ``resnet`` and ``inception`` (training), ``transformer``
-(training and serving at tp=1) and ``rwkv`` (serving at tp=1).  A hook a family does
+and ``rwkv`` (training at any tp, serving at tp=1).  A hook a family does
 not have yet is None."""
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ class ModelAPI:
     module: Optional[Callable[..., torch.nn.Module]] = None  # (cfg, params tree) -> module
     param_specs: Optional[Callable[[Any, Any], Any]] = None  # (params tree, cfg) -> specs tree
     train_forward: Optional[Callable[..., torch.Tensor]] = None
-    # (cfg, params tree, mesh, device) -> core.overlap.LayerSync | None: the
-    # in-backward sync of the leaves ``in_scan_names`` gives (depcha)
+    # (cfg, params tree, mesh, device) -> core.overlap.LayerSync (or
+    # StackSyncs) | None: the in-backward sync of the leaves
+    # ``in_scan_names`` gives (depcha)
     layer_sync: Optional[Callable[..., Any]] = None
     # serving hooks: (params, tokens, cfg, *, last_pos) -> (logits, cache)
     prefill: Optional[Callable[..., Any]] = None
@@ -69,6 +70,10 @@ FAMILIES: dict[str, ModelAPI] = {
         family="rwkv",
         init=rwkv_lib.init_params,
         in_scan_names=rwkv_lib.in_scan_param_names,
+        module=rwkv_lib.RWKV,
+        param_specs=rwkv_lib.param_specs,
+        train_forward=rwkv_lib.train_forward,
+        layer_sync=rwkv_lib.layer_sync,
         prefill=rwkv_lib.prefill,
         decode_step=rwkv_lib.decode_step,
         make_decode_state=_rwkv_make_state,

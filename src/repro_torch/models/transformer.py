@@ -1,22 +1,39 @@
 """Decoder-only transformer LM (``repro/models/transformer.py``): the
-training path (dense or MoE FFN, at any tp, FSDP or not) and the serving
-paths at tp=1.
+training path (dense or MoE FFN, gated cross-attention, at any tp, FSDP
+or not) and the serving paths at tp=1.
 
 Parameters are the reference's tree — the same nesting, leaf names and
 stacked ``(n_layers, ...)`` block leaves — so weights carry over by name
 (``utils/convert.py::params_from_numpy``).  Layers run as a Python loop
 over the stack where the reference scans (``core/overlap.py::
-scan_layers``: the stack unbound once a forward).
+layer_rows`` and ``run_layers``: each stack unbound once a forward).
 
 Ported: ``TransformerConfig`` (every field), ``init_params``,
 ``param_rules`` (with ``_FSDP_DIM``) and ``param_specs``,
-``fsdp_gather``, ``self_block``, ``backbone``, ``train_forward`` (with
-``frame_embeds``, the MoE aux loss, and depcha's in-backward sync through
-a ``LayerSync``), ``prefill`` (with ``last_pos``), ``decode_step``
-(ring-buffer slot), ``decode_step_paged``, ``make_cache`` and the
-``Transformer`` module.  A config with cross-attention raises
-``NotImplementedError`` naming its ROADMAP item, and so do the serve
-functions at tp > 1 or with FSDP.
+``fsdp_gather``, ``self_block``, ``cross_block``, ``backbone``,
+``train_forward`` (with ``frame_embeds``, ``img_embeds``, the MoE aux
+loss, and depcha's in-backward sync through a ``LayerSync``),
+``prefill`` and ``decode_step`` (with ``img_embeds``; ``prefill`` with
+``last_pos``, ``decode_step`` with a ring-buffer slot),
+``decode_step_paged``, ``make_cache`` and the ``Transformer`` module.
+The serve functions raise ``NotImplementedError`` at tp > 1 or with
+FSDP, naming their ROADMAP item.
+
+Cross-attention (``cross_attn_every``, llama-3.2-vision): the params hold
+a second stack, ``cross_blocks`` (``n_cross`` layers: the self block's
+leaves, a dense FFN, ``lnkv`` and a ``gate_attn`` scalar a layer, zero at
+init as in the reference).  The layers run in the reference's order
+(``_layer_order``): for each group ``cross_attn_every`` self blocks, then
+one cross block, then the self blocks that remain.  A cross block attends
+from the text to the image embeddings (B, n_img, d), non-causal, through
+the chunked path (flash takes causal self-attention only, as the
+reference's condition has it), adds ``tanh(gate_attn)`` × its output,
+then its FFN.  Under depcha each stack has its ``LayerSync``
+(``core/overlap.py::StackSyncs``, one set of communicators), as the
+reference wraps each cross block in ``sync_in_backward``.  The KV cache
+holds the self blocks only; a cross block projects the image K/V again
+at every call, as the reference's does.  Paged decode refuses a config
+with cross blocks, as the reference asserts.
 
 MoE (``cfg.moe``, ``models/moe.py``): the blocks hold ``router`` (f32),
 ``w_gate``/``w_up``/``w_down`` (the experts, sharded over "model" on the
@@ -52,11 +69,10 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core.dependency import resolve_device
-from repro_torch.core.overlap import LayerSync, scan_layers
+from repro_torch.core.overlap import LayerSync, StackSyncs, layer_rows, run_layers
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (
     ACTIVATIONS,
@@ -69,6 +85,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_lookup,
     fsdp_all_gather,
+    init_tree,
     pad_heads,
     model_psum,
     rms_norm,
@@ -77,9 +94,7 @@ from repro_torch.models.common import (
     swiglu,
 )
 from repro_torch.models.moe import MoECfg, moe_ffn
-from repro_torch.parallel.sharding import (MODEL_AXIS, ShardingRules, reduce_axes_tree,
-                                           shard_tree)
-from repro_torch.utils.trees import tree_map_with_names
+from repro_torch.parallel.sharding import MODEL_AXIS, ShardingRules, reduce_axes_tree
 
 
 def _round_up(x: int, m: int) -> int:
@@ -146,17 +161,9 @@ class TransformerConfig:
         return self.n_layers - self.n_cross
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for what the port does not run yet, naming its ROADMAP item."""
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention layers — ROADMAP queue 1 item 12")
-
-
 def check_serving(cfg: TransformerConfig) -> None:
-    """``check_supported``, and serving runs on one rank only: not at tp >
-    1, and not from FSDP's dp-sharded storage."""
-    check_supported(cfg)
+    """Serving runs on one rank only: not at tp > 1, and not from FSDP's
+    dp-sharded storage."""
     if cfg.tp != 1 or cfg.fsdp:
         what = f"tp={cfg.tp}" if cfg.tp != 1 else "fsdp=True"
         raise NotImplementedError(
@@ -178,23 +185,8 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
     shards of any tp put together are the tp=1 tree of the same seed.  On
     the ``meta`` device only shapes are made.  CUDA unless the caller
     asks for the CPU; raises without a card."""
-    check_supported(cfg)
-    device = resolve_device(device)
-    if mesh is not None:
-        if rank is None:
-            rank = dist.get_rank() if dist.is_initialized() else 0
-        if mesh.shape.get(MODEL_AXIS, 1) != cfg.tp:
-            raise ValueError(f"tp={cfg.tp} on a mesh with model extent "
-                             f"{mesh.shape.get(MODEL_AXIS, 1)}")
-        full = _draw_params(cfg, seed, device)
-        local = shard_tree(full, param_specs(full, cfg), mesh, rank)
-        out = tree_map_with_names(lambda _n, t: t.contiguous().clone(), local)
-        del full, local
-        return out
-    if (cfg.tp != 1 or cfg.fsdp) and device.type != "meta":
-        raise ValueError(f"tp={cfg.tp}, fsdp={cfg.fsdp}: pass the mesh and the rank, "
-                         f"whose shards init_params keeps")
-    return _draw_params(cfg, seed, device)
+    return init_tree(_draw_params, param_specs, cfg, seed=seed, device=device, mesh=mesh,
+                     rank=rank)
 
 
 def _draw_params(cfg: TransformerConfig, seed: int, device: torch.device) -> dict:
@@ -212,41 +204,53 @@ def _draw_params(cfg: TransformerConfig, seed: int, device: torch.device) -> dic
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
-    blocks = {
-        "ln1": ones(L, d),
-        "wq": dense((L, d, Hq * hd), d),
-        "wk": dense((L, d, Hkv * hd), d),
-        "wv": dense((L, d, Hkv * hd), d),
-        "wo": dense((L, Hq * hd, d), Hq * hd),
-        "ln2": ones(L, d),
-    }
-    if cfg.qk_norm:
-        blocks["qnorm"] = ones(L, hd)
-        blocks["knorm"] = ones(L, hd)
-    if cfg.moe is not None:
-        m = cfg.moe
-        blocks["router"] = dense_init(gen, (L, d, m.num_experts), d, torch.float32, device)
-        blocks["w_gate"] = dense((L, m.num_experts, d, m.d_expert), d)
-        blocks["w_up"] = dense((L, m.num_experts, d, m.d_expert), d)
-        blocks["w_down"] = dense((L, m.num_experts, m.d_expert, d), m.d_expert)
-        if m.shared_experts:
-            ds = m.d_expert * m.shared_experts
-            blocks["ws_g"] = dense((L, d, ds), d)
-            blocks["ws_u"] = dense((L, d, ds), d)
-            blocks["ws_down"] = dense((L, ds, d), ds)
-    else:
-        if cfg.gated:
-            blocks["wg"] = dense((L, d, ff), d)
-            blocks["wu"] = dense((L, d, ff), d)
+    def blk(L: int, cross: bool) -> dict:
+        """A stack of L blocks (the reference's ``blk``); a cross block
+        adds ``lnkv`` and the zero ``gate_attn`` and has a dense FFN."""
+        blocks = {
+            "ln1": ones(L, d),
+            "wq": dense((L, d, Hq * hd), d),
+            "wk": dense((L, d, Hkv * hd), d),
+            "wv": dense((L, d, Hkv * hd), d),
+            "wo": dense((L, Hq * hd, d), Hq * hd),
+            "ln2": ones(L, d),
+        }
+        if cfg.qk_norm:
+            blocks["qnorm"] = ones(L, hd)
+            blocks["knorm"] = ones(L, hd)
+        if cross:
+            blocks["lnkv"] = ones(L, d)
+            blocks["gate_attn"] = torch.zeros((L,), dtype=dt, device=device)
+        if cfg.moe is not None and not cross:
+            m = cfg.moe
+            blocks["router"] = dense_init(gen, (L, d, m.num_experts), d, torch.float32,
+                                          device)
+            blocks["w_gate"] = dense((L, m.num_experts, d, m.d_expert), d)
+            blocks["w_up"] = dense((L, m.num_experts, d, m.d_expert), d)
+            blocks["w_down"] = dense((L, m.num_experts, m.d_expert, d), m.d_expert)
+            if m.shared_experts:
+                ds = m.d_expert * m.shared_experts
+                blocks["ws_g"] = dense((L, d, ds), d)
+                blocks["ws_u"] = dense((L, d, ds), d)
+                blocks["ws_down"] = dense((L, ds, d), ds)
         else:
-            blocks["wi"] = dense((L, d, ff), d)
-        blocks["wdown"] = dense((L, ff, d), ff)
-    return {
+            if cfg.gated:
+                blocks["wg"] = dense((L, d, ff), d)
+                blocks["wu"] = dense((L, d, ff), d)
+            else:
+                blocks["wi"] = dense((L, d, ff), d)
+            blocks["wdown"] = dense((L, ff, d), ff)
+        return blocks
+
+    params = {
         "embed": dense((cfg.vocab_padded, d), d),
-        "blocks": blocks,
+        "blocks": blk(L, cross=False),
         "ln_f": ones(d),
         "lm_head": dense((d, cfg.vocab_padded), d),
     }
+    if cfg.n_cross:
+        params["cross_blocks"] = blk(cfg.n_cross, cross=True)
+    return params
 
 
 # FSDP storage: the big per-layer matrices get the dp axes on a second
@@ -323,8 +327,22 @@ def in_scan_param_names(params: dict) -> frozenset[str]:
                      if n.startswith("blocks/") or n.startswith("cross_blocks/"))
 
 
-def _layer(params: dict, li: int) -> dict:
-    return {n: w[li] for n, w in params["blocks"].items()}
+def _layer(params: dict, li: int, stack: str = "blocks") -> dict:
+    return {n: w[li] for n, w in params[stack].items()}
+
+
+def _layer_order(cfg: TransformerConfig) -> list[tuple[str, int]]:
+    """The blocks in the reference's order, as (stack, index): for each of
+    the ``n_cross`` groups ``cross_attn_every`` self blocks, then one
+    cross block; then the self blocks that remain."""
+    if not cfg.n_cross:
+        return [("blocks", li) for li in range(cfg.n_self)]
+    per = cfg.cross_attn_every
+    order = []
+    for g in range(cfg.n_cross):
+        order += [("blocks", li) for li in range(g * per, (g + 1) * per)]
+        order.append(("cross_blocks", g))
+    return order + [("blocks", li) for li in range(cfg.n_cross * per, cfg.n_self)]
 
 
 def _depcha_axes(cfg: TransformerConfig, stacked: dict, prefix: str):
@@ -337,33 +355,47 @@ def _depcha_axes(cfg: TransformerConfig, stacked: dict, prefix: str):
 
 
 def layer_sync(cfg: TransformerConfig, params: dict, mesh,
-               device: str | torch.device = "cuda") -> Optional[LayerSync]:
+               device: str | torch.device = "cuda") -> LayerSync | StackSyncs | None:
     """The in-backward sync of the ``blocks`` stack (the reference's
     ``_stack_scan`` with ``depcha_axes``), or None without
-    ``depcha_in_scan``.  Collective: it creates communicators."""
+    ``depcha_in_scan``.  With cross blocks, a ``StackSyncs`` of it and the
+    ``cross_blocks`` stack's (the reference's ``sync_in_backward`` around
+    each cross block), which shares its communicators.  Collective: it
+    creates communicators."""
     axes = _depcha_axes(cfg, params["blocks"], "blocks/")
     if not axes:
         return None
-    return LayerSync(params["blocks"], axes, mesh, prefix="blocks/",
-                     reducer=cfg.depcha_reducer, intra_size=cfg.intra_size,
-                     device=device)
+    kw = dict(reducer=cfg.depcha_reducer, intra_size=cfg.intra_size, device=device)
+    sync = LayerSync(params["blocks"], axes, mesh, prefix="blocks/", **kw)
+    if not cfg.n_cross:
+        return sync
+    cross = LayerSync(params["cross_blocks"],
+                      _depcha_axes(cfg, params["cross_blocks"], "cross_blocks/"), mesh,
+                      prefix="cross_blocks/", share=sync, **kw)
+    return StackSyncs((sync, cross))
 
 
 # ----------------------------------------------------------------- blocks
-def _attn_qkv(p: dict, h: torch.Tensor, cfg: TransformerConfig,
-              axis: ModelAxis = NO_MODEL_AXIS):
-    """Project to the rank's q, k, v heads: (B, S, q_local, hd),
-    (B, S, kv_local, hd) × 2.  With kv_heads < tp the replicated wk, wv
-    are sliced to the kv head(s) the rank's q heads read."""
+def _kv(p: dict, h: torch.Tensor, cfg: TransformerConfig, axis: ModelAxis):
+    """The rank's k, v heads of h: (B, S, kv_local, hd) × 2.  With kv_heads
+    < tp the replicated wk, wv are sliced to the kv head(s) the rank's q
+    heads read."""
     lay, hd = cfg.layout, cfg.hd
-    q = (h @ p["wq"]).reshape(*h.shape[:2], lay.q_local, hd)
     wk, wv = p["wk"], p["wv"]
     if not lay.kv_sharded and cfg.tp > 1:
         start = lay.kv_slice_start(axis.index) * hd
         wk = wk.narrow(-1, start, lay.kv_local * hd)
         wv = wv.narrow(-1, start, lay.kv_local * hd)
-    k = (h @ wk).reshape(*h.shape[:2], lay.kv_local, hd)
-    v = (h @ wv).reshape(*h.shape[:2], lay.kv_local, hd)
+    return ((h @ wk).reshape(*h.shape[:2], lay.kv_local, hd),
+            (h @ wv).reshape(*h.shape[:2], lay.kv_local, hd))
+
+
+def _attn_qkv(p: dict, h: torch.Tensor, cfg: TransformerConfig,
+              axis: ModelAxis = NO_MODEL_AXIS):
+    """Project to the rank's q, k, v heads: (B, S, q_local, hd),
+    (B, S, kv_local, hd) × 2."""
+    q = (h @ p["wq"]).reshape(*h.shape[:2], cfg.layout.q_local, cfg.hd)
+    k, v = _kv(p, h, cfg, axis)
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"])
         k = rms_norm(k, p["knorm"])
@@ -413,37 +445,69 @@ def self_block(p: dict, x: torch.Tensor, cfg: TransformerConfig, rope,
     return x, aux, k, v
 
 
+def cross_block(p: dict, x: torch.Tensor, cfg: TransformerConfig, img: torch.Tensor,
+                axis: ModelAxis = NO_MODEL_AXIS, fsdp: FsdpAxes = NO_FSDP) -> torch.Tensor:
+    """One gated cross-attention block (llama-3.2-vision, the reference's
+    ``cross_block``): the text x (B, S, d) attends to the image
+    embeddings img (B, n_img, d), non-causal, through the chunked path;
+    x + tanh(gate_attn) × the projected output, then the FFN."""
+    p = fsdp_gather(p, cfg, fsdp)
+    h = rms_norm(x, p["ln1"])
+    q = (h @ p["wq"]).reshape(*x.shape[:2], cfg.layout.q_local, cfg.hd)
+    k, v = _kv(p, rms_norm(img, p["lnkv"]), cfg, axis)
+    o = attn_lib.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    o = model_psum(o.reshape(*x.shape[:2], -1) @ p["wo"], axis)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
+    f, _ = _ffn(p, rms_norm(x, p["ln2"]), cfg, axis)
+    return x + f
+
+
 def backbone(params: dict, x: torch.Tensor, cfg: TransformerConfig, rope, *,
-             sync: Optional[LayerSync] = None, axis: ModelAxis = NO_MODEL_AXIS,
-             fsdp: FsdpAxes = NO_FSDP):
-    """Every block, x: (B, S, d) → (B, S, d), under ``cfg.remat``; with
-    ``sync`` each layer's gradient is reduced inside the backward.  With
-    MoE returns (x, the blocks' aux losses summed, f32), the carry the
-    reference scans."""
-    check_supported(cfg)
+             img: Optional[torch.Tensor] = None,
+             sync: LayerSync | StackSyncs | None = None,
+             axis: ModelAxis = NO_MODEL_AXIS, fsdp: FsdpAxes = NO_FSDP):
+    """Every block in ``_layer_order``, x: (B, S, d) → (B, S, d), each
+    under ``cfg.remat`` (a cross block too: the same values, less memory
+    than the reference keeps); with ``sync`` each layer's gradient is
+    reduced inside the backward.  ``img``: the image embeddings of the
+    cross blocks.  With MoE returns (x, the blocks' aux losses summed,
+    f32), the carry the reference scans."""
     if cfg.moe is None:
-        return scan_layers(lambda p, h: self_block(p, h, cfg, rope, axis, fsdp)[0],
-                           params["blocks"], x, sync=sync, remat=cfg.remat)
+        fns = {"blocks": lambda p, h: self_block(p, h, cfg, rope, axis, fsdp)[0]}
+        carry = x
+    else:
+        def body(p, carry):
+            h, aux = carry
+            h, a, _, _ = self_block(p, h, cfg, rope, axis, fsdp)
+            return h, aux + a
 
-    def body(p, carry):
-        h, aux = carry
-        h, a, _, _ = self_block(p, h, cfg, rope, axis, fsdp)
-        return h, aux + a
-
-    carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
-    return scan_layers(body, params["blocks"], carry, sync=sync, remat=cfg.remat)
+        fns = {"blocks": body}
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    rows = {"blocks": layer_rows(params["blocks"])}
+    syncs = {"blocks": sync}
+    if cfg.n_cross:
+        if img is None:
+            raise ValueError(f"{cfg.name}: the cross blocks need img_embeds")
+        fns["cross_blocks"] = lambda p, h: cross_block(p, h, cfg, img, axis, fsdp)
+        rows["cross_blocks"] = layer_rows(params["cross_blocks"])
+        syncs = {k: sync.of(k + "/") if sync is not None else None for k in rows}
+    for stack, li in _layer_order(cfg):
+        carry = run_layers(fns[stack], rows[stack], carry, (li,), sync=syncs[stack],
+                           remat=cfg.remat)
+    return carry
 
 
 # ------------------------------------------------------------------ train
 def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
-                  layer_sync: Optional[LayerSync] = None,
+                  layer_sync: LayerSync | StackSyncs | None = None,
                   model_axis: ModelAxis = NO_MODEL_AXIS,
                   fsdp: FsdpAxes = NO_FSDP) -> torch.Tensor:
     """Local-shard loss: the summed token cross-entropy over the GLOBAL
     token count (``batch["global_tokens"]``), so a sum of the gradients
     over the data-parallel ranks is the global mean.  ``frame_embeds``
     (musicgen's stub conditioning, (B, S, d)) is added to the token
-    embeddings when the config asks for it and the batch has it.
+    embeddings when the config asks for it and the batch has it; the
+    cross blocks read ``batch["img_embeds"]`` (B, n_img, d).
 
     At tp > 1 ``params`` are the rank's shards and ``model_axis`` the
     rank's ``ModelAxis``; the loss is then the same on every rank of a
@@ -461,7 +525,11 @@ def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
     if cfg.frame_embeds and "frame_embeds" in batch:
         x = x + batch["frame_embeds"].to(cfg.dtype)
     rope = rope_angles(torch.arange(S, device=tokens.device), cfg.hd, cfg.rope_theta)
-    h = backbone(params, x, cfg, rope, sync=layer_sync, axis=model_axis, fsdp=fsdp)
+    img = batch.get("img_embeds")
+    if img is not None:
+        img = img.to(cfg.dtype)
+    h = backbone(params, x, cfg, rope, img=img, sync=layer_sync, axis=model_axis,
+                 fsdp=fsdp)
     if cfg.moe is not None:
         h, aux = h
     per_tok = sharded_softmax_xent(rms_norm(h, params["ln_f"]) @ params["lm_head"],
@@ -475,24 +543,30 @@ def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
 class Transformer(nn.Module):
     """The parameter tree as an ``nn.Module``: ``params_tree()`` gives the
     reference's nesting (``embed``, ``blocks/<leaf>`` stacked over the
-    layers, ``ln_f``, ``lm_head``); ``forward(batch)`` is the training
-    loss over it."""
+    layers, ``cross_blocks/<leaf>`` with cross-attention, ``ln_f``,
+    ``lm_head``); ``forward(batch)`` is the training loss over it."""
 
     def __init__(self, cfg: TransformerConfig, params: dict):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(params["embed"])
         self.blocks = nn.ParameterDict({k: nn.Parameter(v)
                                         for k, v in params["blocks"].items()})
+        self.cross_blocks = None
+        if "cross_blocks" in params:
+            self.cross_blocks = nn.ParameterDict({k: nn.Parameter(v) for k, v in
+                                                  params["cross_blocks"].items()})
         self.ln_f = nn.Parameter(params["ln_f"])
         self.lm_head = nn.Parameter(params["lm_head"])
 
     def params_tree(self) -> dict:
-        return {"embed": self.embed, "blocks": dict(self.blocks.items()),
+        tree = {"embed": self.embed, "blocks": dict(self.blocks.items()),
                 "ln_f": self.ln_f, "lm_head": self.lm_head}
+        if self.cross_blocks is not None:
+            tree["cross_blocks"] = dict(self.cross_blocks.items())
+        return tree
 
-    def forward(self, batch: dict, layer_sync: Optional[LayerSync] = None,
+    def forward(self, batch: dict, layer_sync: LayerSync | StackSyncs | None = None,
                 model_axis: ModelAxis = NO_MODEL_AXIS,
                 fsdp: FsdpAxes = NO_FSDP) -> torch.Tensor:
         return train_forward(self.params_tree(), batch, self.cfg,
@@ -500,17 +574,30 @@ class Transformer(nn.Module):
 
 
 # ------------------------------------------------------------------ serve
+def _image(cfg: TransformerConfig, img_embeds: Optional[torch.Tensor]):
+    """The serve functions' image embeddings in the model's dtype (None
+    without cross blocks); a config with cross blocks needs them."""
+    if not cfg.n_cross:
+        return None
+    if img_embeds is None:
+        raise ValueError(f"{cfg.name}: the cross blocks need img_embeds")
+    return img_embeds.to(cfg.dtype)
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
-            last_pos: Optional[int] = None):
+            img_embeds: Optional[torch.Tensor] = None, last_pos: Optional[int] = None):
     """Full-sequence forward; returns (next_token_logits (B, V), kv_cache).
 
-    Cache layout: dict of (n_self, B, S, kv_local, hd) stacked tensors.
-    ``last_pos`` selects which position's logits to return (the
-    continuous engine right-pads prompts to a bucket and reads the true
-    last token; causality keeps every earlier position independent of the
-    padding).  None returns the last position's.
+    Cache layout: dict of (n_self, B, S, kv_local, hd) stacked tensors:
+    the self blocks' (a cross block reads the image, which it projects
+    anew each call).  ``img_embeds`` (B, n_img, d): the cross blocks'
+    image embeddings.  ``last_pos`` selects which position's logits to
+    return (the continuous engine right-pads prompts to a bucket and
+    reads the true last token; causality keeps every earlier position
+    independent of the padding).  None returns the last position's.
     """
     check_serving(cfg)
+    img = _image(cfg, img_embeds)
     B, S = tokens.shape
     lay, hd = cfg.layout, cfg.hd
     x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
@@ -518,7 +605,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     shape = (cfg.n_self, B, S, lay.kv_local, hd)
     cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=tokens.device),
              "v": torch.empty(shape, dtype=cfg.dtype, device=tokens.device)}
-    for li in range(cfg.n_self):
+    for stack, li in _layer_order(cfg):
+        if stack == "cross_blocks":
+            x = cross_block(_layer(params, li, stack), x, cfg, img)
+            continue
         x, _, k, v = self_block(_layer(params, li), x, cfg, (cos, sin))
         cache["k"][li] = k
         cache["v"][li] = v
@@ -527,15 +617,17 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, *, img_embeds: Optional[torch.Tensor] = None):
     """One decode step.  token: (B,) int; pos: absolute position (int).
 
     cache: dict k/v of (n_self, B, Smax, kv_local, hd).  When Smax <
     pos+1 the cache is a ring buffer (sliding-window archs: Smax ==
-    window).  The new k/v are written into ``cache`` in place.  Returns
-    (next_logits (B, V), cache).
+    window).  The new k/v are written into ``cache`` in place.
+    ``img_embeds`` (B, n_img, d): the cross blocks' image embeddings.
+    Returns (next_logits (B, V), cache).
     """
     check_serving(cfg)
+    img = _image(cfg, img_embeds)
     B = token.shape[0]
     smax = cache["k"].shape[2]
     slot = pos % smax
@@ -544,7 +636,10 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
     x = embed_lookup(params["embed"], token[:, None], cfg.tp).to(cfg.dtype)
     cos, sin = rope_angles(torch.tensor([pos], device=token.device), cfg.hd,
                            cfg.rope_theta)
-    for li in range(cfg.n_self):
+    for stack, li in _layer_order(cfg):
+        if stack == "cross_blocks":
+            x = cross_block(_layer(params, li, stack), x, cfg, img)
+            continue
         p = _layer(params, li)
         q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg)
         q = apply_rope(q, cos, sin)
@@ -572,6 +667,9 @@ def decode_step_paged(params: dict, pool_k: torch.Tensor, pool_v: torch.Tensor,
     pool_v).
     """
     check_serving(cfg)
+    if cfg.n_cross:
+        raise ValueError(f"{cfg.name}: paged decode serves decoder-only archs, not "
+                         f"cross-attention (the reference asserts the same)")
     W = tokens.shape[0]
     bs = pool_k.shape[2]
     MB = block_tables.shape[1]

@@ -24,6 +24,12 @@ The reference shards slots over data-parallel ranks and heads/vocab over
 "model".  Here both collapse to one rank: ``dp_size`` is 1, the samplers
 take tp=1, and a mesh or process group of more than one rank raises.
 
+A config with cross-attention (llama-3.2-vision) is refused by both
+engines: its prefill and decode need image embeddings, and the
+reference's engines call ``prefill(params, tokens, cfg)`` with none
+(``repro/runtime/serve_loop.py:172``, ``:435``).  Such a model is served
+through ``prefill``/``decode_step`` with ``img_embeds`` directly.
+
 Sampling draws come from a ``torch.Generator`` seeded from ``(seed,
 pos + 1)`` per row, where the reference folds ``pos + 1`` into
 ``PRNGKey(seed)``: the same request and position always draw the same
@@ -151,6 +157,11 @@ class Server:
         self.api = family_of(cfg)
         if self.api.prefill is None:
             raise ValueError(f"{cfg.name} has no serve path")
+        if getattr(cfg, "n_cross", 0):
+            raise ValueError(
+                f"{cfg.name}: the engines take no images, and its cross-attention "
+                f"layers need img_embeds (the reference's engines prefill with none); "
+                f"call prefill/decode_step with img_embeds instead")
         self.params = params
         self.device = flatten_with_names(params)[0][0][1].device
         self.max_len = max_len

@@ -215,18 +215,46 @@ MOE_RUNS = {"2x2": {"moe-granite": ("granite", "concom", False),
             "1x4": {"moe-granite": ("granite", "concom", False)}}
 
 
+# cross-attention (llama-3.2-vision) and RWKV-6 on the tp spawns: their
+# smoke configs at vocab 96 (so that it splits), the vision one with
+# image embeddings of its 8 tokens; mesh -> run -> (kind, fsdp), each
+# run under every strategy of XR_STRATEGIES, held to the reference's
+# tp = 1 (computed by the tp-4x1 reference process)
+XR_ARCHS = {"vision": "llama-3.2-vision-11b", "rwkv": "rwkv6-7b"}
+XR_STRATEGIES = ("funnel", "concom", "depcha")
+XR_RUNS = {"4x1": {"vision": ("vision", False)},
+           "1x4": {"vision": ("vision", False), "rwkv": ("rwkv", False)},
+           "2x2": {"vision": ("vision", False), "vision-fsdp": ("vision", True),
+                   "rwkv": ("rwkv", False)}}
+
+
+def xr_config(kind: str, tp: int, **over):
+    """``XR_ARCHS[kind]``'s smoke config at vocab 96 and ``tp``, in either
+    package (``ref=True``); ``fsdp=False`` is the default of a family
+    without the field."""
+    if not over.get("fsdp", True):
+        del over["fsdp"]
+    return moe_config(kind, tp, archs=XR_ARCHS, **over)
+
+
+def xr_extras(kind: str) -> dict:
+    """The pipelines' extra inputs of a ``kind`` run: the vision config's
+    image embeddings (its 8 tokens, d 64)."""
+    return {"img_embeds": ((8, 64), np.float32)} if kind == "vision" else {}
+
+
 def moe_config(arch: str, tp: int, **over):
     """``MOE_ARCHS[arch]``'s smoke config at vocab 96 and ``tp``, in
     either package (``ref=True``)."""
     import dataclasses
 
     ref = over.pop("ref", False)
+    archs = over.pop("archs", MOE_ARCHS)
     if ref:
         from repro.configs import get_arch
     else:
         from repro_torch.configs import get_arch
-    return dataclasses.replace(get_arch(MOE_ARCHS[arch]).make_smoke(), vocab=96, tp=tp,
-                               **over)
+    return dataclasses.replace(get_arch(archs[arch]).make_smoke(), vocab=96, tp=tp, **over)
 
 
 def tp_config(tp: int, **over):
@@ -623,8 +651,10 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
     from repro_torch.core import dependency as dep
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.mesh import make_pod_mesh, make_smoke_mesh
-    from repro_torch.models.common import NO_FSDP, fsdp_axes, model_axis
+    from repro_torch.models.common import fsdp_axes, model_axis
+    from repro_torch.models import rwkv
     from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import family_of
     from repro_torch.optim import adamw, sgd, zero1
     from repro_torch.runtime import Trainer, make_train_step
     from repro_torch.utils.convert import params_from_numpy
@@ -638,29 +668,33 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
         dep.reduce_key(("data",), mesh)]
     out = {}
 
+    def rules(cfg):
+        return (rwkv if isinstance(cfg, rwkv.RWKVConfig) else tf).param_rules(cfg)
+
     def local_params(cfg, m=mesh, weights=named):
-        return params_from_numpy(weights, "cpu", mesh=m, rank=rank, rules=tf.param_rules(cfg))
+        return params_from_numpy(weights, "cpu", mesh=m, rank=rank, rules=rules(cfg))
 
-    def pipe(m=mesh):
+    def pipe(m=mesh, extras=None):
         return TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m,
-                             rank=rank, device="cpu")
+                             rank=rank, extra_specs=extras, device="cpu")
 
-    def grads(strategy, reducer, m, ax, dp, cfg, weights=named, run=None):
+    def grads(strategy, reducer, m, ax, dp, cfg, weights=named, run=None, extras=None):
         in_scan = get_strategy(strategy).uses_in_scan
         cfg = dataclasses.replace(cfg, depcha_in_scan=in_scan)
+        api = family_of(cfg)
         tree = local_params(cfg, m, weights)
         leaves, treedef = flatten_with_names(tree)
         for _, p in leaves:
             p.requires_grad_(True)
-        ls = tf.layer_sync(cfg, tree, m, "cpu") if in_scan else None
+        ls = api.layer_sync(cfg, tree, m, "cpu") if in_scan else None
         gs = GradSync(GradSyncConfig(strategy=strategy, reducer=reducer, **TP_SYNC), m,
-                      tf.param_specs(tree, cfg), tree, device="cpu",
-                      in_scan_names=tf.in_scan_param_names(tree) if in_scan else frozenset())
-        fa = fsdp_axes(m, cfg.dp_axes, "cpu") if cfg.fsdp else NO_FSDP
+                      api.param_specs(tree, cfg), tree, device="cpu",
+                      in_scan_names=api.in_scan_names(tree) if in_scan else frozenset())
+        kw = {"fsdp": fsdp_axes(m, cfg.dp_axes, "cpu")} if getattr(cfg, "fsdp", False) else {}
         if ls is not None:
             ls.begin()
-        loss = tf.train_forward(tree, pipe(m).batch_at(0), cfg, layer_sync=ls, model_axis=ax,
-                                fsdp=fa)
+        loss = api.train_forward(tree, pipe(m, extras).batch_at(0), cfg, layer_sync=ls,
+                                 model_axis=ax, **kw)
         (loss / cfg.tp).backward()
         if ls is not None:
             ls.finish([dict(leaves)[n] for n in ls.names])
@@ -693,6 +727,12 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
         weights = dict(np.load(os.path.join(workdir, f"moe-{arch}_params.npz")))
         save_grads(run, *grads(strategy, "flat", mesh, axis, dp_group,
                                moe_config(arch, model, fsdp=fsdp), weights))
+    for run, (kind, fsdp) in XR_RUNS.get(mesh_name, {}).items():
+        weights = dict(np.load(os.path.join(workdir, f"xr-{kind}_params.npz")))
+        for strategy in XR_STRATEGIES:
+            save_grads(f"xr-{run}-{strategy}", *grads(
+                strategy, "flat", mesh, axis, dp_group, xr_config(kind, model, fsdp=fsdp),
+                weights, extras=xr_extras(kind)))
 
     def train(run, opt, *, clip, steps, strategy="concom", plan=None, base=cfg):
         c = dataclasses.replace(base, depcha_in_scan=get_strategy(strategy).uses_in_scan)
@@ -1196,18 +1236,19 @@ def _tp_reference(workdir: str, mesh_name: str, part: str = "all") -> dict:
     def structs(t):
         return jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), t)
 
-    def loss_and_grads(cfg, m, strategy, reducer, params=params):
-        rules = tf.param_rules(cfg)
+    def loss_and_grads(cfg, m, strategy, reducer, params=params, lib=tf, extras=None):
+        rules = lib.param_rules(cfg)
         pspecs = rules.tree_specs(params)
-        pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m)
+        pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m,
+                             extra_specs=extras)
         batch = pipe.batch_at(0)
         bspecs = {k: (P() if np.ndim(v) == 0 else batch_spec(m)) for k, v in batch.items()}
         dp = tuple(a for a in ("pod", "data") if a in m.axis_names)
-        in_scan = tf.in_scan_param_names(params) if cfg.depcha_in_scan else frozenset()
+        in_scan = lib.in_scan_param_names(params) if cfg.depcha_in_scan else frozenset()
         sync = GradSyncConfig(strategy=strategy, reducer=reducer, **TP_SYNC)
 
         def step(p, b):
-            loss, g = jax.value_and_grad(lambda q: tf.train_forward(q, b, cfg))(p)
+            loss, g = jax.value_and_grad(lambda q: lib.train_forward(q, b, cfg))(p)
             if cfg.tp > 1:
                 g = jax.tree.map(lambda x: x / cfg.tp, g)
             g = GradSync(sync, m, pspecs, structs(g), in_scan_names=in_scan)(g)
@@ -1251,6 +1292,17 @@ def _tp_reference(workdir: str, mesh_name: str, part: str = "all") -> dict:
                                                       "concom", "flat", mp))
     if part == "extra":
         return out
+    if mesh_name == "4x1":
+        # the cross-attention and RWKV runs' oracle: tp = 1 on one device
+        from repro.models import rwkv
+
+        for kind in XR_ARCHS:
+            lib, xcfg = (rwkv if kind == "rwkv" else tf), xr_config(kind, 1, ref=True)
+            named, treedef = flatten_with_names(lib.init_params(jax.random.PRNGKey(1), xcfg))
+            saved = np.load(os.path.join(workdir, f"xr-{kind}_params.npz"))
+            xp = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(saved[n]) for n, _ in named])
+            save_grads(f"xr-{kind}-tp1", loss_and_grads(xcfg, mesh1, "concom", "flat", xp,
+                                                        lib=lib, extras=xr_extras(kind)))
 
     def train(run, m, cfg, opt, *, clip, steps, strategy="concom", plan=None):
         pipe = TokenPipeline(TP_CFG["vocab"], TP_SEQ, TP_BATCH, seed=TP_SEED, mesh=m)

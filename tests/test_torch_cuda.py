@@ -5,8 +5,9 @@ peer-sum entry and the fused sum-requantize), the
 peer-memory ring reduce-scatter/all-gather (2 and 4 rank processes on
 ``cuda:0``, spawned through ``tests/_torch_mdworker.py::peer_rank``), and
 depcha's in-backward sync (2 rank processes,
-``tests/_torch_mdworker.py::layer_sync_rank``), and the ZeRO-1 and
-gradient-accumulation steps against the CPU.
+``tests/_torch_mdworker.py::layer_sync_rank``), the ZeRO-1 and
+gradient-accumulation steps against the CPU, and the WKV kernel's
+chunk-state output and training backward.
 
 This module imports neither ``jax`` nor ``repro``, so it runs on a
 machine with a GPU and no JAX; there ``tests/conftest.py`` (which imports
@@ -276,6 +277,67 @@ def test_cuda_wkv_sequence_updates_the_state_in_place(cuda, monkeypatch, B, spli
     torch.cuda.synchronize()
     assert wkv_kernel.WKV_LAUNCHES == before + 1 and s1 is state
     assert torch.equal(y, y_new) and torch.equal(s1, s_new)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N,chunk,dtype", [
+    (4, 1024, 64, 64, 32, "bfloat16"),        # RWKV-6 7B's training layer
+    (2, 70, 64, 64, 32, "float32"),           # a ragged last chunk
+    (2, 23, 4, 16, 16, "float32"),            # the smoke config
+])
+def test_cuda_wkv_chunk_states_match_plain(cuda, B, S, H, N, chunk, dtype):
+    """The kernel's chunk-state output (training's forward) against the
+    plain version's, one launch, with y and the final state as without
+    it; every chunk's start state is written (the buffer starts as NaN)."""
+    rng = np.random.default_rng(6)
+
+    def normal(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32).to(cuda)
+
+    r, k, v = (normal(B, S, H, N).to(getattr(torch, dtype)) for _ in range(3))
+    logw = -torch.exp(normal(B, S, H, N) * 0.5 - 2.0)
+    u, state = normal(H, N, scale=0.1), normal(B, H, N, N, scale=0.1)
+    T = -(-S // min(chunk, S))
+    states = torch.full((T, B, H, N, N), float("nan"), device=cuda)
+    before = wkv_kernel.WKV_LAUNCHES
+    y, s1 = wkv_kernel.wkv_sequence_kernel(r, k, v, logw, u, state, chunk, states=states)
+    torch.cuda.synchronize()
+    assert wkv_kernel.WKV_LAUNCHES == before + 1
+    want = torch.empty_like(states)
+    y_want, s_want = wkv_ref.wkv_sequence_ref(r, k, v, logw, u, state, chunk, states=want)
+    torch.testing.assert_close(states, want, atol=5e-4, rtol=5e-4)
+    y0, s0 = wkv_kernel.wkv_sequence_kernel(r, k, v, logw, u, state, chunk)
+    assert torch.equal(y, y0) and torch.equal(s1, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(23, 16), (32, 8)])
+def test_cuda_wkv_backward_matches_cpu(cuda, S, chunk):
+    """``wkv_sequence``'s gradients on the card (the kernel's forward, the
+    f32 backward) against the plain CPU backward (float64) at the smoke
+    size, from a nonzero state, under cotangents on y and the final
+    state: within 1e-4 of each input's largest gradient."""
+    rng = np.random.default_rng(8)
+    B, H, N = 2, 4, 16
+    f32 = np.float32
+    ins = [rng.standard_normal((B, S, H, N)).astype(f32) for _ in range(3)]
+    ins.append(-np.exp(rng.standard_normal((B, S, H, N)) * 0.5 - 1.0).astype(f32))
+    ins.append((rng.standard_normal((H, N)) * 0.5).astype(f32))
+    ins.append((rng.standard_normal((B, H, N, N)) * 0.3).astype(f32))
+    gy = rng.standard_normal((B, S, H, N)).astype(f32)
+    gs = rng.standard_normal((B, H, N, N)).astype(f32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        t = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in ins]
+        before = wkv_kernel.WKV_LAUNCHES
+        y, st = wkv_ops.wkv_sequence(*t, chunk)
+        ((y * torch.from_numpy(gy).to(dev)).sum()
+         + (st * torch.from_numpy(gs).to(dev)).sum()).backward()
+        assert wkv_kernel.WKV_LAUNCHES - before == (dev == "cuda")
+        grads[dev] = [a.grad.cpu() for a in t]
+    for name, a, b in zip(("r", "k", "v", "logw", "u", "state"), grads["cuda"], grads["cpu"]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max(), name
 
 
 @pytest.mark.cuda

@@ -141,8 +141,16 @@ def test_registry_resolves_rwkv():
 
 
 def test_tensor_parallel_config_raises():
-    with pytest.raises(NotImplementedError, match="tp=4"):
-        rwkv.init_params(make_config(tp=4), device="meta")
+    """rwkv trains at tp > 1 (tests/test_torch_rwkv_train.py); serving it
+    there is item 11."""
+    cfg = make_config(tp=4)
+    params = rwkv.init_params(cfg, device="meta")
+    assert params["blocks"]["wr"].shape == (32, 4096, 4096)    # the global tree
+    toks = torch.zeros((1, 3), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="tp=4 .* ROADMAP queue 1 item 11"):
+        rwkv.prefill(params, toks, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        rwkv.decode_step(params, {}, toks[:, 0], 0, cfg)
 
 
 # ----------------------------------------------------------------- pieces

@@ -74,15 +74,19 @@ from jax.sharding import PartitionSpec as P
 
 from _torch_mdworker import (FSDP_GRADS, FSDP_MESHES, MESHES, MOE_ARCHS, MOE_RUNS,
                              SPLIT_REFERENCE, TP_GRADS, TP_MESHES, TP_POD_MESH, TP_STEPS, WORLD,
-                             moe_config, run_all, run_tp_ops, tp_config)
+                             XR_RUNS, XR_STRATEGIES, moe_config, run_all, run_tp_ops, tp_config,
+                             xr_config)
 from repro.launch.mesh import make_smoke_mesh as ref_smoke_mesh
 from repro.models import common as ref_common
+from repro.models import rwkv as ref_rwkv
 from repro.models import transformer as ref_tf
 from repro.parallel import sharding as ref_sharding
 from repro.utils.trees import flatten_with_names as ref_flatten
 from repro_torch.launch.mesh import make_pod_mesh, make_smoke_mesh
+from repro_torch.models import rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.parallel import sharding
+from repro_torch.utils.convert import params_from_numpy
 from repro_torch.utils.trees import flatten_with_names
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -100,6 +104,16 @@ def workdir(tmp_path_factory):
         mp = ref_tf.init_params(jax.random.PRNGKey(1), moe_config(arch, 1, ref=True))
         np.savez(d / f"moe-{arch}_params.npz",
                  **{n: np.asarray(v) for n, v in ref_flatten(mp)[0]})
+    # the cross-attention and RWKV weights: gate_attn nonzero, and RWKV's
+    # constant leaves perturbed as tests/test_torch_rwkv.py perturbs them
+    vp = {n: np.asarray(v) for n, v in ref_flatten(ref_tf.init_params(
+        jax.random.PRNGKey(1), xr_config("vision", 1, ref=True)))[0]}
+    vp["cross_blocks/gate_attn"] = np.full_like(vp["cross_blocks/gate_attn"], 0.7)
+    np.savez(d / "xr-vision_params.npz", **vp)
+    rp = params_from_numpy({n: np.asarray(v) for n, v in ref_flatten(ref_rwkv.init_params(
+        jax.random.PRNGKey(1), xr_config("rwkv", 1, ref=True)))[0]})
+    np.savez(d / "xr-rwkv_params.npz", **{n: t.numpy() for n, t in flatten_with_names(
+        rwkv.perturb_constant_leaves(rp, seed=1))[0]})
     (d / "ops").mkdir()
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         runs = [ex.submit(run_all, d, f"tp-{m}", timeout=400,
@@ -126,7 +140,8 @@ def _mesh(mesh_name):
 def _cut(full, name, mesh, rank, model, cfg=None):
     """Rank ``rank``'s block of a global reference array (under ``cfg``'s
     rules, by default ``tp_config(model)``'s)."""
-    spec = tf.param_rules(cfg or tp_config(model)).spec(name)
+    cfg = cfg or tp_config(model)
+    spec = (rwkv if isinstance(cfg, rwkv.RWKVConfig) else tf).param_rules(cfg).spec(name)
     return sharding.shard_leaf(torch.from_numpy(np.ascontiguousarray(full)), spec, mesh,
                                mesh.coords(rank)).numpy()
 
@@ -569,3 +584,40 @@ def test_moe_tp_equals_tp1(workdir, mesh_name, run):
             full = want[f"moe-{arch}-tp1/grad/{n}"]
             w = _cut(full, n, mesh, r, model, cfg)
             assert np.max(np.abs(g - w)) / (np.max(np.abs(full)) + 1e-8) < 2e-3, (n, r)
+
+
+# ------------------------------------------- cross-attention and RWKV-6
+
+XR_MESH_RUNS = [(m, run) for m in XR_RUNS for run in XR_RUNS[m]]
+
+
+@pytest.mark.parametrize("mesh_name,run", XR_MESH_RUNS)
+def test_cross_attention_and_rwkv_match_reference_at_tp1(workdir, mesh_name, run):
+    """llama-3.2-vision's smoke config (gate_attn 0.7) at data 4, data 1 ×
+    model 4 (kv heads sliced), data 2 × model 2 (kv heads sharded) and
+    FSDP at 2 × 2, and RWKV-6's (constant leaves perturbed) at 1 × 4 and 2
+    × 2: under funnel, concom and depcha each rank's loss and reduced
+    gradient shards equal one another (rtol 1e-5 / atol 1e-6) and
+    compare_tp's 3e-4 loss / 2e-3 gradient of the reference's tp = 1 run
+    (``tests/test_torch_vision.py``, ``tests/test_torch_rwkv_train.py``)."""
+    d, _ = workdir
+    got, _ = _load(d, mesh_name)
+    _, oracle = _load(d, "4x1")
+    kind, fsdp = XR_RUNS[mesh_name][run]
+    mesh, model = _mesh(mesh_name), MESHES[mesh_name][1]
+    cfg = xr_config(kind, model, fsdp=fsdp)
+    want_loss = float(oracle[f"xr-{kind}-tp1/loss"])
+    for r in range(WORLD):
+        base = _leaves(got[r], f"xr-{run}-{XR_STRATEGIES[0]}/grad/")
+        assert set(base) == set(_leaves(oracle, f"xr-{kind}-tp1/grad/"))
+        for strategy in XR_STRATEGIES:
+            tag = f"xr-{run}-{strategy}"
+            loss = float(got[r][f"{tag}/loss"])
+            assert abs(loss - want_loss) < 3e-4, (tag, r, loss, want_loss)
+            np.testing.assert_allclose(loss, float(got[r][f"xr-{run}-funnel/loss"]), rtol=RTOL)
+            for n, g in _leaves(got[r], f"{tag}/grad/").items():
+                np.testing.assert_allclose(g, base[n], rtol=RTOL, atol=ATOL,
+                                           err_msg=f"{tag} {n} rank {r}")
+                full = oracle[f"xr-{kind}-tp1/grad/{n}"]
+                w = _cut(full, n, mesh, r, model, cfg)
+                assert np.max(np.abs(g - w)) / (np.max(np.abs(full)) + 1e-8) < 2e-3, (tag, n, r)

@@ -289,13 +289,15 @@ def test_decode_step_paged_matches_reference(smoke_mesh, name):
 
 
 @pytest.mark.parametrize("over", [
-    dict(moe=MoECfg(num_experts=4, top_k=2, d_expert=16)), dict(cross_attn_every=2),
+    dict(moe=MoECfg(num_experts=4, top_k=2, d_expert=16)), dict(cross_attn_every=1),
     dict(fsdp=True), dict(tp=2)])
 def test_unported_features_raise(over):
-    """Cross-attention raises (item 12); serving at tp > 1 or from FSDP's
-    storage raises (item 11).  MoE and FSDP train: an MoE FFN replaces
-    the dense one (f32 router) and serves at tp = 1; FSDP's storage needs
-    the mesh and the rank to keep its dp shards."""
+    """Serving at tp > 1 or from FSDP's storage raises (item 11); the
+    engines refuse a cross-attention config (they take no images, as the
+    reference's engines take none) and so does paged decode.  MoE and
+    FSDP train: an MoE FFN replaces the dense one (f32 router) and serves
+    at tp = 1; FSDP's storage needs the mesh and the rank to keep its dp
+    shards."""
     cfg = dataclasses.replace(qwen3_smoke(), **over)
     toks = torch.zeros((1, 5), dtype=torch.long)
     if cfg.tp != 1 or cfg.fsdp:
@@ -316,8 +318,18 @@ def test_unported_features_raise(over):
         logits, _ = tf.prefill(params, toks, cfg)
         assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tf.init_params(cfg, device="meta")
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime import Server
+
+    params = tf.init_params(cfg, device="cpu")
+    assert cfg.n_cross == 1 and params["cross_blocks"]["gate_attn"].shape == (1,)
+    with pytest.raises(ValueError, match="the engines take no images"):
+        Server(cfg, make_smoke_mesh(1, 1), params, max_len=16)
+    img = torch.zeros((1, 3, cfg.d_model))
+    logits, _ = tf.prefill(params, toks, cfg, img_embeds=img)
+    assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="paged decode serves decoder-only"):
+        tf.decode_step_paged(params, None, None, None, toks[:, 0], toks[:, 0], cfg)
 
 
 def test_registry_serves_transformer():
