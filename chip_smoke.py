@@ -42,6 +42,22 @@ Phases, in order; any failure raises and exits non-zero:
               backward) and on the card (the kernel, f32 backward), loss
               and gradients within ``XR_CPU_GPU_TOL``, 4 WKV launches on
               the card.
+  zamba2_train  in a process of its own (``phases_in_own_process``):
+              zamba2-2.7b at full width cut to 18 of its 54 Mamba-2
+              layers (three groups, the shared attention block at 2
+              sites; 986,599,136 params), for the script's time,
+              constant leaves perturbed, seq 1024 x global batch 4,
+              AdamW, clip 1.0, remat dots, deterministic algorithms, TF32
+              off: funnel, concom and depcha through ``lm_run``.  Losses
+              bit-identical across the strategies; step ms, tokens/s,
+              peak GB; pack and unpack launches exactly the schedule's
+              buckets plus depcha's slots a step; 36 in-backward
+              collectives a depcha step (a bf16 and an f32 slot a layer);
+              one depcha step under the profiler (kernel time, idle share)
+              and one with CUDA events at its stages.  Then the zamba2
+              smoke config's
+              loss and gradients on the CPU and on the card, within
+              ``ZAMBA2_CPU_GPU_TOL``.
   kernels     the pack kernel (into a buffer started as NaN, through
               ``out=``) and ``fused_unpack`` against their plain versions
               on the 24 full-width ResNet-50 buckets (comm dtype f32, bf16,
@@ -392,6 +408,26 @@ Phases, in order; any failure raises and exits non-zero:
               (the self blocks only) and none in decode; row 8 on self
               layers 0 and 31's q/k/v; finite logits that the image
               moves; prefill ms and decode ms a step.
+  zamba2_kernels  the vision model's weights freed first.  Rows 1-2 at
+              zamba2_train's layouts, the leaves drawn on the card from the
+              plan's shapes (no model): the 14 post-backward buckets that
+              funnel stages (concom's are the same, depcha's a subset; one
+              holds f32 beside bf16 leaves: two launches each way) and
+              depcha's two slots of each of the 18 layers (bf16, and the
+              240 f32 elements of A_log, D and dt_bias), bit for bit
+              against the plain versions, outputs started as NaN, one
+              launch each way a dtype's group of leaves.
+  zamba2_serve  zamba2-2.7b at
+              full width and depth (bf16, constant leaves perturbed): 4
+              prompts of 384-512 tokens through ``Server.generate``, 32
+              greedy tokens each; prefill ms, decode ms a step, peak GB;
+              then decode against prefill at full width in f32 (prefill S
+              − 2 and decode 2 against the prefill of S, atol = rtol =
+              2e-3), and in bf16, report only.
+  zamba2_serve_cpu_vs_gpu  the zamba2 smoke config: a prefill into a ring
+              smaller than the prompt (37 tokens, window 16) and 20 decode
+              steps that wrap it, CPU against card (1e-4), and greedy
+              tokens through ``Server.generate`` equal.
 
 The build compiles every kernel source at once (one nvcc each, in
 parallel).  Then it prints the ``{"kernels": [...]}`` line, the card's
@@ -6211,53 +6247,60 @@ def phase_rwkv_tp(backend: str = "nccl", n_layers: int = 32) -> dict:
     return res
 
 
-def _xr_train_rank(rank: int, workdir: str) -> None:
-    """``phase_xr_train``'s process: a one-rank NCCL group, then
-    vision_train, vision_cpu_vs_gpu, rwkv_train and rwkv_train_cpu_vs_gpu;
-    results to ``workdir/xr.json``."""
+def _phases_rank(rank: int, workdir: str, names: tuple) -> None:
+    """``phases_in_own_process``'s process: a one-rank NCCL group, then
+    ``phase_<name>()`` of each name in turn; results to
+    ``workdir/phases.json``."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_dist
 
     init_dist("cuda", init_method=f"file://{workdir}/store", rank=rank, world_size=1)
+    out = {}
     try:
-        out = {"vision_train": phase_vision_train()}
-        phase_vision_cpu_vs_gpu()
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["rwkv_train"] = phase_rwkv_train()
-        phase_rwkv_train_cpu_vs_gpu()
+        for name in names:
+            out[name] = globals()[f"phase_{name}"]()
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(workdir, "xr.json"), "w") as f:
+    with open(os.path.join(workdir, "phases.json"), "w") as f:
         json.dump(out, f)
 
 
-def phase_xr_train() -> dict:
-    """The cross-attention and RWKV training phases in a process of their
-    own, before any other training phase.  Every three training runs of a
-    process keep about 5 GB of the card outside PyTorch's allocator until
-    the process ends (25.6 GB by the end of ``moe_cpu_vs_gpu``, PERF.md
-    §6; its communicators, by the look of it), and vision_train's 10
-    layers peak at 68.9 GB, so neither these runs nor lm_zero1's 61 GB
-    fit after the other in one process (all on an NVIDIA H100 80GB HBM3
-    at 700.00 W)."""
+def phases_in_own_process(*names: str) -> dict:
+    """``phase_<name>()`` of each name in a process of its own: name →
+    result.  Every three training runs of a process keep about 5 GB of
+    the card outside PyTorch's allocator until the process ends (25.6 GB
+    by the end of ``moe_cpu_vs_gpu``, PERF.md §6; its communicators, by
+    the look of it), so a training phase that peaks near the card's 80 GB
+    runs before the others, in a process of its own (on an NVIDIA H100
+    80GB HBM3 at 700.00 W)."""
     import tempfile
 
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory(prefix="xr-train-") as wd:
-        mp.spawn(_xr_train_rank, args=(wd,), nprocs=1, join=True)
-        with open(os.path.join(wd, "xr.json")) as f:
+    with tempfile.TemporaryDirectory(prefix="phases-") as wd:
+        mp.spawn(_phases_rank, args=(wd, names), nprocs=1, join=True)
+        with open(os.path.join(wd, "phases.json")) as f:
             return json.load(f)
 
 
-def _cpu_vs_gpu(tag: str, cfg, params, batch_at, launches_fn=None) -> dict:
+def phase_xr_train() -> dict:
+    """The cross-attention and RWKV training phases in a process of their
+    own: vision_train's 10 layers peak at 68.9 GB, so neither these runs
+    nor lm_zero1's 61 GB fit after the other in one process."""
+    return phases_in_own_process("vision_train", "vision_cpu_vs_gpu", "rwkv_train",
+                                 "rwkv_train_cpu_vs_gpu")
+
+
+def _cpu_vs_gpu(tag: str, cfg, params, batch_at, launches_fn=None,
+                tol=XR_CPU_GPU_TOL) -> dict:
     """One forward and backward of ``cfg``'s model from the same weights
     and batch on the CPU (plain versions) and on the card (kernels), TF32
-    off: the loss within rtol ``XR_CPU_GPU_TOL[0]``, every gradient within
-    ``XR_CPU_GPU_TOL[1]`` of its leaf's largest.  ``launches_fn()`` reads a
-    launch counter, which must not move on the CPU."""
+    off: the loss within rtol ``tol[0]``, every gradient within ``tol[1]``
+    of its leaf's largest.  ``launches_fn()`` reads a launch counter,
+    which must not move on the CPU."""
     from repro_torch.models.registry import family_of
     from repro_torch.utils.trees import flatten_with_names
 
@@ -6277,10 +6320,9 @@ def _cpu_vs_gpu(tag: str, cfg, params, batch_at, launches_fn=None) -> dict:
     worst = max(((g_gpu[n] - g).abs().max() / (g.abs().max() + 1e-12)).item()
                 for n, g in g_cpu.items())
     res = {"loss_cpu": l_cpu, "loss_gpu": l_gpu, "grad_rel": worst, "launches": launched}
-    if (abs(l_gpu - l_cpu) > XR_CPU_GPU_TOL[0] * abs(l_cpu) or worst > XR_CPU_GPU_TOL[1]
-            or launched["cpu"]):
-        raise AssertionError(f"{tag}: {res} beyond {XR_CPU_GPU_TOL}")
-    log(f"[{tag}] {cfg.name} (loss rtol, grad rel) {XR_CPU_GPU_TOL}: " + json.dumps(res))
+    if abs(l_gpu - l_cpu) > tol[0] * abs(l_cpu) or worst > tol[1] or launched["cpu"]:
+        raise AssertionError(f"{tag}: {res} beyond {tol}")
+    log(f"[{tag}] {cfg.name} (loss rtol, grad rel) {tol}: " + json.dumps(res))
     return res
 
 
@@ -6414,6 +6456,320 @@ def phase_vision_serve(smi: str) -> dict:
     return {"launches": prefill_launches, "per_prefill": cfg.n_self, "report": report}
 
 
+# ------------------------------------------------ the Zamba2 hybrid (Mamba-2)
+
+ZAMBA2_SERVE_PROMPTS = 4       # 384-512 tokens each
+ZAMBA2_HANDOFF_TOL = 2e-3      # tests/test_serve_families.py's atol = rtol
+# zamba2_cpu_vs_gpu, training: loss rtol; grads' max diff / leaf absmax.  A
+# Mamba block's f32 gradients are ill-conditioned: on the CPU the reference's
+# own f32 gradients sit up to 4.3e-5 of a leaf's largest from its float64 run
+# at the smoke config (tests/test_torch_ssm.py)
+ZAMBA2_CPU_GPU_TOL = (1e-5, 5e-4)
+ZAMBA2_RING = (37, 16, 20)     # zamba2_cpu_vs_gpu, serving: prompt, window, decode steps
+# zamba2_train's depth: three of the 9 groups, 2 of the 8 sites.  All 54
+# layers took 81-96 s of the script in their process (PERF.md §4)
+ZAMBA2_TRAIN_LAYERS = 18
+
+
+def zamba2_config(strategy: str = "funnel", **over):
+    """zamba2-2.7b at full width (d 2560, 80 SSM heads of 64, state 64,
+    chunk 64; the shared block's 32 heads of 80 and ff 10,240 after every
+    6th layer; vocab 32,000; bf16) cut to ``ZAMBA2_TRAIN_LAYERS`` layers,
+    depcha's in-backward sync on exactly under the strategies that use
+    it."""
+    from repro_torch.configs.zamba2_2_7b import make_config
+    from repro_torch.core import get_strategy
+
+    return make_config(depcha_in_scan=get_strategy(strategy).uses_in_scan,
+                       n_layers=ZAMBA2_TRAIN_LAYERS, **over)
+
+
+def zamba2_model(cfg):
+    from repro_torch.models import ssm
+
+    return ssm.SSM(cfg, ssm.perturb_constant_leaves(
+        ssm.init_params(cfg, seed=0, device=torch.device("cuda"))))
+
+
+def zamba2_plan():
+    """zamba2's post-backward bucket plan as ``GradSync`` plans it under
+    funnel (4 MiB buckets, 4 channels, f32 comm; concom's buckets are the
+    same and depcha's a subset, which is checked) and depcha's slots a
+    layer at tp = 1 (``layer_slots``: the bf16 leaves', the f32
+    ``A_log``/``D``/``dt_bias``'), on ``meta``."""
+    from repro_torch.core import GradSyncConfig, plan_sync
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import ssm
+    from repro_torch.parallel.sharding import reduce_axes_tree
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = zamba2_config("depcha")
+    params = ssm.init_params(cfg, device="meta")
+    specs, mesh = ssm.param_specs(params, cfg), make_smoke_mesh(1)
+    in_scan = ssm.in_scan_param_names(params)
+
+    def buckets(strat):
+        sched = plan_sync(GradSyncConfig(strategy=strat), mesh, specs, params,
+                          in_scan_names=in_scan).schedule
+        return {(op.bucket.bucket_id, tuple(l.name for l in op.bucket.leaves))
+                for op in sched.ops}
+
+    plan = plan_sync(GradSyncConfig(strategy="funnel"), mesh, specs, params).plan
+    funnel = {(b.bucket_id, tuple(l.name for l in b.leaves)) for b in plan.buckets}
+    if buckets("funnel") != funnel or not buckets("concom") <= funnel \
+            or not buckets("depcha") <= funnel:
+        raise AssertionError("zamba2: a strategy stages a bucket outside funnel's plan")
+    axes = reduce_axes_tree(ssm.param_rules(cfg), params["blocks"], "blocks/", cfg.dp_axes)
+    stack, slots = layer_slots(params["blocks"], axes)
+    return plan, flatten_with_names(params)[0], stack, slots, cfg
+
+
+def phase_zamba2_kernels() -> dict:
+    """Rows 1-2 at ``zamba2_train``'s layouts (``zamba2_config``, leaves
+    drawn on the card from the plan's shapes, no model built), bit for bit
+    against their plain versions (outputs started as NaN), one launch each
+    way a dtype's group of leaves (``staging_launches``): the
+    post-backward buckets (one holds f32 beside bf16 leaves; f32 comm) and
+    depcha's two slots of each layer (bf16, and the f32
+    ``A_log``/``D``/``dt_bias``: bit copies)."""
+    from repro_torch.kernels.collectives import kernel
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plan, named, stack, slots, cfg = zamba2_plan()
+    want_slot = {torch.bfloat16: sum(w[0].numel() for _, w in stack if w.dtype != f32),
+                 f32: 3 * cfg.ssm_heads}
+    if sorted((str(dt), b.size) for b, dt in slots) != sorted(
+            (str(dt), n) for dt, n in want_slot.items()):
+        raise AssertionError(f"zamba2 slots {[(str(dt), b.size) for b, dt in slots]}, "
+                             f"expected {want_slot}")
+    flat = [torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype) for _, p in named]
+    err, n_checks, launches = 0.0, 0, 0
+
+    def check(bucket, leaves, comm, what):
+        nonlocal err, n_checks, launches
+        before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+        err = max(err, check_bucket(bucket, leaves, comm, 1.0))
+        n = staging_launches(bucket)          # one a dtype's group of leaves
+        if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (n, n):
+            raise AssertionError(f"{what}: expected {n} pack and {n} unpack launches")
+        n_checks += 1
+        launches += n
+
+    for b in plan.buckets:
+        check(b, flat, f32, f"zamba2 bucket {b.bucket_id}")
+    buckets_launches = launches
+    by_name = {n: t for (n, _), t in zip(named, flat)}
+    rows = [[by_name["blocks/" + n][li] for n, _ in stack] for li in range(cfg.n_layers)]
+    for b, dt in slots:
+        for li in range(cfg.n_layers):
+            check(b, rows[li], dt, f"zamba2 slot {b.bucket_id} of layer {li}")
+    torch.cuda.synchronize()
+    mixed = sum(1 for b in plan.buckets if len({l.dtype for l in b.leaves}) > 1)
+    out = {"buckets": len(plan.buckets), "mixed_dtype_buckets": mixed,
+           "bucket_launches_a_way": buckets_launches,
+           "slots_per_layer": [(str(dt), b.size) for b, dt in slots],
+           "checks": n_checks, "launches_a_way": launches, "max_abs_err": err}
+    log(f"[zamba2_kernels] {n_checks} checks bit-exact (max abs err {err}): "
+        f"{len(plan.buckets)} buckets ({mixed} holding f32 and bf16 leaves) and "
+        f"{len(slots)} slots a layer x {cfg.n_layers} layers; " + json.dumps(out))
+    del flat, rows, by_name
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zamba2_train() -> dict:
+    """zamba2-2.7b (``zamba2_config``) on a one-rank NCCL group, its
+    constant leaves perturbed (``A_log``, ``dt_bias``, ``D``, the norms),
+    seq 1024 x global batch 4, AdamW, clip 1.0, remat dots, TF32 off:
+    ``strategy_runs`` (losses bit-identical across funnel, concom and
+    depcha; pack/unpack launches exactly the schedule's buckets plus
+    depcha's slots a step; 2 in-backward collectives a layer a depcha
+    step: its bf16 and its f32 slot), then one more depcha
+    step under the profiler and one with CUDA events at its stages."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models import ssm
+    from repro_torch.utils.trees import tree_leaves
+
+    mesh = make_dp_mesh()
+    cfg = zamba2_config()
+    n_params = sum(p.numel() for p in tree_leaves(ssm.init_params(cfg, device="meta")))
+    log(f"[zamba2_train] {cfg.name}: {cfg.n_layers} layers, {ssm.n_attn_sites(cfg)} "
+        f"shared-attention sites, {n_params} params, {cfg.dtype}, chunk {cfg.chunk}, "
+        f"remat {cfg.remat}")
+    pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh, device="cuda")
+
+    def profiled(ts, model, opt_state, run):
+        out = {"profile": lm_profile(ts, model, opt_state, pipe,
+                                     sum(run["step_ms"]) / len(run["step_ms"]))}
+        out["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
+        return out
+
+    out = strategy_runs("zamba2_train", zamba2_config, zamba2_model, pipe, mesh,
+                        lambda strat: profiled if strat == "depcha" else None)
+    out.update(out["runs"]["depcha"].pop("after"))
+    want = 2 * cfg.n_layers                    # a bf16 and an f32 slot a layer
+    got = out["runs"]["depcha"]["in_backward_collectives_per_step"]
+    if got != [want] * LM_STEPS:
+        raise AssertionError(f"zamba2_train depcha: in-backward collectives {got}, "
+                             f"expected {want} a step")
+    out.update(params=n_params, shape={"seq": LM_SEQ, "global_batch": LM_BATCH,
+                                       "layers": cfg.n_layers,
+                                       "sites": ssm.n_attn_sites(cfg)})
+    log("[zamba2_train] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
+def phase_zamba2_train_cpu_vs_gpu() -> dict:
+    """The zamba2 smoke config (4 layers, one shared-attention site, f32,
+    chunk 16), constant leaves perturbed, seq 40 x batch 2 (a ragged last
+    chunk): ``_cpu_vs_gpu`` at ``ZAMBA2_CPU_GPU_TOL``."""
+    from repro_torch.configs.zamba2_2_7b import make_smoke
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import ssm
+
+    cfg = make_smoke()
+    params = ssm.perturb_constant_leaves(ssm.init_params(cfg, seed=0, device="cpu"))
+    return _cpu_vs_gpu("zamba2_train_cpu_vs_gpu", cfg, params,
+                       lambda dev: TokenPipeline(cfg.vocab, 40, 2, seed=0,
+                                                 device=dev).batch_at(0),
+                       tol=ZAMBA2_CPU_GPU_TOL)
+
+
+def zamba2_handoff(params, cfg, toks) -> dict:
+    """Decode against prefill at full width: the logits of a prefill of
+    S − 2 tokens (the ring sized for S) and two ``decode_step``s against a
+    prefill of all S (``tests/test_serve_families.py``'s check), within
+    ``ZAMBA2_HANDOFF_TOL``."""
+    from repro_torch.models import ssm
+
+    S = toks.shape[1]
+    want, _ = ssm.prefill(params, toks, cfg, attn_window=S)
+    _, state = ssm.prefill(params, toks[:, :S - 2], cfg, attn_window=S)
+    _, state = ssm.decode_step(params, state, toks[:, S - 2], S - 2, cfg)
+    got, _ = ssm.decode_step(params, state, toks[:, S - 1], S - 1, cfg)
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return {"dtype": str(cfg.dtype), "S": S, "max_abs_diff": diff.max().item(),
+            "max_rel_to_tol": (diff / (ZAMBA2_HANDOFF_TOL * (1 + want.abs()))).max().item(),
+            "logit_absmax": want.abs().max().item(),
+            "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+            "ok": bool(torch.allclose(got, want, atol=ZAMBA2_HANDOFF_TOL,
+                                      rtol=ZAMBA2_HANDOFF_TOL))}
+
+
+def phase_zamba2_serve(smi: str) -> dict:
+    """zamba2-2.7b at full width and depth (54 layers, 8 shared-attention
+    sites, bf16), constant leaves perturbed: 4 of serve's prompts (384-512
+    tokens, left-padded as ``RequestQueue`` pads them) through
+    ``Server.generate``, 32 greedy tokens each (the prefill's and 31
+    decode steps).  Tokens in the vocab, finite logits; prefill ms (CUDA
+    events, after a warm-up) and decode ms a step (CUDA events over the
+    decode loop), peak GB.  Then the decode-vs-prefill hand-off at full
+    width in f32 (``zamba2_handoff``), and the same in bf16, and a profiled
+    prefill and decode (``phase_serve_profile``), report only."""
+    from repro_torch.configs.zamba2_2_7b import make_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import ssm
+    from repro_torch.runtime import Server
+    from repro_torch.utils.trees import flatten_with_names
+
+    cfg = make_config()
+    t0 = time.perf_counter()
+    params = ssm.perturb_constant_leaves(ssm.init_params(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in flatten_with_names(params)[0])
+    log(f"[zamba2_serve] {cfg.name}: {n_params} params, {cfg.dtype}, "
+        f"{ssm.n_attn_sites(cfg)} sites, init on the card in {time.perf_counter() - t0:.1f} s")
+    server = Server(cfg, make_smoke_mesh(1, 1), params, max_len=SERVE_MAX_LEN)
+    prompts = serve_prompts(cfg.vocab)[:ZAMBA2_SERVE_PROMPTS]
+    toks = left_pad(prompts)
+    timer = DecodeLoopTimer(server)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = server.generate(toks.numpy(), SERVE_MAX_NEW)
+        wall_s = time.perf_counter() - t0
+    finally:
+        server.api = timer.api
+    decode_ms = timer.close(SERVE_MAX_NEW - 1)[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if out.shape != (len(prompts), SERVE_MAX_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
+        raise AssertionError(f"zamba2 generate: tokens {out.shape}, range "
+                             f"[{out.min()}, {out.max()}]")
+    gpu_toks = toks.cuda()
+    logits, _ = ssm.prefill(params, gpu_toks, cfg)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("zamba2 prefill: non-finite logits")
+    prefill_ms = cuda_ms(lambda: ssm.prefill(params, gpu_toks, cfg), reps=3, warmup=1)
+    bf16 = zamba2_handoff(params, cfg, gpu_toks)
+    profile_out = phase_serve_profile(params, cfg, tag="zamba2_serve_profile")
+    p32 = tree_to(params, dtype=torch.float32)
+    del params, server, timer, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = zamba2_handoff(p32, dataclasses.replace(cfg, dtype=torch.float32), gpu_toks)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"card": smi, "model": cfg.name, "params": n_params,
+              "prompt_lens": [len(p) for p in prompts], "padded_to": toks.shape[1],
+              "max_new": SERVE_MAX_NEW, "engine": "Server.generate", "wall_s": wall_s,
+              "prefill_ms_B4": prefill_ms, "decode_ms_per_step": decode_ms,
+              "peak_mem_gb": peak_gb, "handoff_f32": f32, "handoff_bf16_report_only": bf16,
+              "tokens": out[:, :8].tolist(), "profile": profile_out}
+    log("[zamba2_serve] " + json.dumps(report))
+    if not f32["ok"]:
+        raise AssertionError(f"zamba2 decode vs prefill (f32, full width): {f32}")
+    return report
+
+
+def phase_zamba2_serve_cpu_vs_gpu() -> dict:
+    """The zamba2 smoke config, constant leaves perturbed: a prefill of 37
+    tokens into a ring of 16 (37 % 16 = 5: the rows ring-aligned), then 20
+    decode steps that wrap the ring, on the CPU and on the card, f32:
+    every step's logits and the final state within 1e-4; then greedy
+    tokens through ``Server.generate`` equal."""
+    import numpy as np
+
+    from repro_torch.configs.zamba2_2_7b import make_smoke
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import ssm
+    from repro_torch.runtime import Server
+
+    cfg = make_smoke()
+    S, w, steps = ZAMBA2_RING
+    params = ssm.perturb_constant_leaves(ssm.init_params(cfg, seed=0, device="cpu"))
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab, (2, S)).astype(np.int32))
+    feed = torch.from_numpy(rng.integers(1, cfg.vocab, (steps, 2)).astype(np.int32))
+    got = {}
+    for device in ("cpu", "cuda"):
+        p = tree_to(params, device)
+        logits, state = ssm.prefill(p, prompt.to(device), cfg, attn_window=w)
+        seq = [logits.cpu()]
+        for i in range(steps):
+            logits, state = ssm.decode_step(p, state, feed[i].to(device), S + i, cfg)
+            seq.append(logits.cpu())
+        toks = Server(cfg, make_smoke_mesh(1, 1), p, max_len=64).generate(prompt.numpy(), 8)
+        got[device] = (torch.stack(seq), {n: t.cpu() for n, t in state.items()}, toks)
+    (l_cpu, s_cpu, t_cpu), (l_gpu, s_gpu, t_gpu) = got["cpu"], got["cuda"]
+    diff = max([(l_cpu - l_gpu).abs().max().item()]
+               + [(s_cpu[n].float() - s_gpu[n].float()).abs().max().item() for n in s_cpu])
+    ok = torch.allclose(l_cpu, l_gpu, rtol=1e-4, atol=1e-4) and all(
+        torch.allclose(s_cpu[n], s_gpu[n], rtol=1e-4, atol=1e-4) for n in s_cpu)
+    if not ok or not np.array_equal(t_cpu, t_gpu):
+        raise AssertionError(f"zamba2 serving cpu vs gpu: max abs diff {diff}, tokens "
+                             f"cpu {t_cpu} gpu {t_gpu}")
+    res = {"prompt": S, "window": w, "decode_steps": steps, "max_abs_diff": diff,
+           "tokens_equal": True}
+    log(f"[zamba2_serve_cpu_vs_gpu] {cfg.name} (rtol = atol = 1e-4, f32): " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6451,6 +6807,12 @@ def main() -> int:
     xr = phase_xr_train()
     vision_train, rwkv_train = xr["vision_train"], xr["rwkv_train"]
     clock("xr_train")
+    # its own process: at all 54 layers 29 GB of weights, gradients and
+    # AdamW state, peak 61.41 GB on an NVIDIA H100 80GB HBM3 at 700.00 W
+    # (PERF.md §6); cut to ZAMBA2_TRAIN_LAYERS for the script's time
+    zamba2_train = phases_in_own_process("zamba2_train",
+                                         "zamba2_train_cpu_vs_gpu")["zamba2_train"]
+    clock("zamba2_train")
     init_dist("cuda")
     try:
         rows = phase_kernels()
@@ -6525,6 +6887,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision_serve = phase_vision_serve(smi)
     clock("vision_serve")
+    gc.collect()                     # the vision model's weights go before zamba2's
+    torch.cuda.empty_cache()
+    phase_zamba2_kernels()
+    phase_zamba2_serve(smi)
+    phase_zamba2_serve_cpu_vs_gpu()
+    clock("zamba2_serve")
 
     src = "src/repro_torch/kernels/collectives/csrc/staging.cu"
     replaces = {"pack": "src/repro/kernels/collectives/kernel.py:76",
@@ -6539,7 +6907,8 @@ def main() -> int:
                    "lm_moe": lm_moe["launches"][name],
                    "lm_fsdp": sum(r["launches"][name] for r in lm_fsdp["runs"].values()),
                    "vision_train": vision_train["launches"][name],
-                   "rwkv_train": rwkv_train["launches"][name]}
+                   "rwkv_train": rwkv_train["launches"][name],
+                   "zamba2_train": zamba2_train["launches"][name]}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -6597,7 +6966,11 @@ def main() -> int:
             "vision_train": {"launches_per_step": {
                 k: v["launches_per_step"] for k, v in vision_train["runs"].items()}},
             "rwkv_train": {"launches_per_step": {
-                k: v["launches_per_step"] for k, v in rwkv_train["runs"].items()}}})
+                k: v["launches_per_step"] for k, v in rwkv_train["runs"].items()}},
+            # the Zamba2 hybrid: its buckets plus depcha's bf16 and f32 slot
+            # of each Mamba layer (the shared block post-backward)
+            "zamba2_train": {"launches_per_step": {
+                k: v["launches_per_step"] for k, v in zamba2_train["runs"].items()}}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",

@@ -1,4 +1,4 @@
-"""Architecture registry (``repro/configs``): the archs ported so far.
+"""Architecture registry (``repro/configs``): every arch of the reference.
 
 ``--arch <id>`` resolves through ``get_arch``.
 """
@@ -20,16 +20,17 @@ from repro_torch.configs.qwen3_1_7b import ARCH as _qwen3
 from repro_torch.configs.resnet50_cifar import ARCH as _resnet
 from repro_torch.configs.rwkv6_7b import ARCH as _rwkv6
 from repro_torch.configs.starcoder2_3b import ARCH as _starcoder2
+from repro_torch.configs.zamba2_2_7b import ARCH as _zamba2
 
 ARCHS = {a.arch_id: a for a in (_qwen3, _resnet, _inception, _rwkv6, _minitron,
                                 _danube, _starcoder2, _musicgen, _granite, _kimi,
-                                _vision)}
+                                _vision, _zamba2)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ARCHS:
         raise KeyError(
-            f"unknown arch {arch_id!r}; ported so far: {sorted(ARCHS)}")
+            f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
 
 

@@ -9,7 +9,7 @@ Runs on CUDA unless ``--device cpu``.  Without ``--smoke`` the arch's
 full config is served from random weights made from a seeded generator
 on the device.  Greedy decoding (temperature 0) and the continuous
 engine are the defaults; ``--engine static`` runs the ``RequestQueue``
-batcher, and so does a family without a paged decode hook (rwkv):
+batcher, and so does a family without a paged decode hook (rwkv, ssm):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --engine static --max-len 1024

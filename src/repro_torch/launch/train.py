@@ -115,9 +115,6 @@ def main(argv=None):
             over["tp"] = mesh.shape["model"]
         cfg = dataclasses.replace(cfg, **over)
         api = family_of(cfg)
-        if api.module is None:
-            raise NotImplementedError(
-                f"{api.family} training: ROADMAP queue 1 item 12")
         # each rank keeps its shards: of "model" (tp > 1), of the dp axes (FSDP)
         sharded = mesh.shape["model"] > 1 or getattr(cfg, "fsdp", False)
         init_kw = dict(mesh=mesh, rank=rank) if sharded else {}

@@ -1,8 +1,8 @@
 """Uniform model-family API (``repro/models/registry.py``): each family
 exposes the same hooks so the launchers and loops are family-agnostic.
-Ported so far: ``resnet`` and ``inception`` (training), ``transformer``
-and ``rwkv`` (training at any tp, serving at tp=1).  A hook a family does
-not have yet is None."""
+Ported: ``resnet`` and ``inception`` (training), ``transformer``,
+``rwkv`` and ``ssm`` (training at any tp, serving at tp=1).  A hook a
+family does not have is None."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.models import resnet as resnet_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf_lib
 
 
@@ -20,9 +21,9 @@ class ModelAPI:
     family: str
     init: Callable[..., Any]              # (cfg, *, seed, device) -> params tree
     in_scan_names: Callable[[Any], frozenset[str]]
-    module: Optional[Callable[..., torch.nn.Module]] = None  # (cfg, params tree) -> module
-    param_specs: Optional[Callable[[Any, Any], Any]] = None  # (params tree, cfg) -> specs tree
-    train_forward: Optional[Callable[..., torch.Tensor]] = None
+    module: Callable[..., torch.nn.Module]       # (cfg, params tree) -> module
+    param_specs: Callable[[Any, Any], Any]       # (params tree, cfg) -> specs tree
+    train_forward: Callable[..., torch.Tensor]
     # (cfg, params tree, mesh, device) -> core.overlap.LayerSync (or
     # StackSyncs) | None: the in-backward sync of the leaves
     # ``in_scan_names`` gives (depcha)
@@ -49,6 +50,11 @@ def _tf_make_state(cfg, batch, max_len, device="cuda"):
 
 def _rwkv_make_state(cfg, batch, max_len, device="cuda"):
     return rwkv_lib.make_state(cfg, batch, device)
+
+
+def _ssm_make_state(cfg, batch, max_len, device="cuda"):
+    # the shared-attention sites: a ring of at most 4096 k/v rows
+    return ssm_lib.make_state(cfg, batch, min(max_len, 4096), device)
 
 
 FAMILIES: dict[str, ModelAPI] = {
@@ -78,6 +84,19 @@ FAMILIES: dict[str, ModelAPI] = {
         decode_step=rwkv_lib.decode_step,
         make_decode_state=_rwkv_make_state,
     ),
+    "ssm": ModelAPI(
+        family="ssm",
+        init=ssm_lib.init_params,
+        in_scan_names=ssm_lib.in_scan_param_names,
+        module=ssm_lib.SSM,
+        param_specs=ssm_lib.param_specs,
+        train_forward=ssm_lib.train_forward,
+        layer_sync=ssm_lib.layer_sync,
+        prefill=ssm_lib.prefill,
+        decode_step=ssm_lib.decode_step,
+        make_decode_state=_ssm_make_state,
+        seq_cache_leaves=("attn_k", "attn_v"),
+    ),
     "resnet": ModelAPI(
         family="resnet",
         init=resnet_lib.init_params,
@@ -102,6 +121,8 @@ def family_of(cfg) -> ModelAPI:
         return FAMILIES["transformer"]
     if isinstance(cfg, rwkv_lib.RWKVConfig):
         return FAMILIES["rwkv"]
+    if isinstance(cfg, ssm_lib.SSMConfig):
+        return FAMILIES["ssm"]
     if isinstance(cfg, resnet_lib.ResNetConfig):
         return FAMILIES["resnet"]
     if isinstance(cfg, resnet_lib.InceptionConfig):

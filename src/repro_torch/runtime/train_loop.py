@@ -171,9 +171,6 @@ def make_train_step(
                          "together: pass both or neither")
     device = resolve_device(device)
     api = family_of(cfg)
-    if api.train_forward is None:
-        raise NotImplementedError(
-            f"{api.family} training: ROADMAP queue 1 item 12")
     params_like = model.params_tree()
     dp = dp_axes_of(mesh)
     dp_size = math.prod(mesh.shape[a] for a in dp)
@@ -211,10 +208,7 @@ def make_train_step(
             zero1_defer_ag=defer_ag)
     layer_sync = None
     if in_scan:
-        if api.layer_sync is None:
-            raise NotImplementedError(
-                f"{api.family}: in-backward sync, ROADMAP queue 1 item 12")
-        layer_sync = api.layer_sync(cfg, params_like, mesh, device)
+        layer_sync = api.layer_sync(cfg, params_like, mesh, device) if api.layer_sync else None
         if layer_sync is None or set(layer_sync.names) != set(in_scan):
             raise ValueError(f"{api.family}: the in-backward sync does not cover "
                              f"the in-scan leaves")

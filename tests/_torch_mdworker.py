@@ -215,26 +215,42 @@ MOE_RUNS = {"2x2": {"moe-granite": ("granite", "concom", False),
             "1x4": {"moe-granite": ("granite", "concom", False)}}
 
 
-# cross-attention (llama-3.2-vision) and RWKV-6 on the tp spawns: their
-# smoke configs at vocab 96 (so that it splits), the vision one with
-# image embeddings of its 8 tokens; mesh -> run -> (kind, fsdp), each
-# run under every strategy of XR_STRATEGIES, held to the reference's
-# tp = 1 (computed by the tp-4x1 reference process)
-XR_ARCHS = {"vision": "llama-3.2-vision-11b", "rwkv": "rwkv6-7b"}
+# cross-attention (llama-3.2-vision), RWKV-6 and the Zamba2 hybrid on the
+# tp spawns: their smoke configs at vocab 96 (so that it splits), the
+# vision one with image embeddings of its 8 tokens, zamba2's also with 2
+# kv heads (sliced from the replicated wk/wv at model 4); mesh -> run ->
+# (kind, fsdp), each run under every strategy of XR_STRATEGIES, held to
+# the reference's tp = 1 (computed by the tp-4x1 reference process)
+XR_ARCHS = {"vision": "llama-3.2-vision-11b", "rwkv": "rwkv6-7b", "zamba2": "zamba2-2.7b",
+            "zamba2-kv2": "zamba2-2.7b"}
+XR_OVER = {"zamba2-kv2": {"kv_heads": 2}}
 XR_STRATEGIES = ("funnel", "concom", "depcha")
-XR_RUNS = {"4x1": {"vision": ("vision", False)},
-           "1x4": {"vision": ("vision", False), "rwkv": ("rwkv", False)},
+XR_RUNS = {"4x1": {"vision": ("vision", False), "zamba2": ("zamba2", False)},
+           "1x4": {"vision": ("vision", False), "rwkv": ("rwkv", False),
+                   "zamba2": ("zamba2", False), "zamba2-kv2": ("zamba2-kv2", False)},
            "2x2": {"vision": ("vision", False), "vision-fsdp": ("vision", True),
-                   "rwkv": ("rwkv", False)}}
+                   "rwkv": ("rwkv", False), "zamba2": ("zamba2", False)}}
 
 
 def xr_config(kind: str, tp: int, **over):
-    """``XR_ARCHS[kind]``'s smoke config at vocab 96 and ``tp``, in either
-    package (``ref=True``); ``fsdp=False`` is the default of a family
-    without the field."""
+    """``XR_ARCHS[kind]``'s smoke config at vocab 96 and ``tp`` (with
+    ``XR_OVER[kind]``), in either package (``ref=True``); ``fsdp=False`` is
+    the default of a family without the field."""
     if not over.get("fsdp", True):
         del over["fsdp"]
-    return moe_config(kind, tp, archs=XR_ARCHS, **over)
+    return moe_config(kind, tp, archs=XR_ARCHS, **XR_OVER.get(kind, {}), **over)
+
+
+def family_lib(cfg, ref: bool = False):
+    """The model module of ``cfg``'s family (transformer, rwkv or ssm), in
+    the port or in the reference (``ref=True``)."""
+    if ref:
+        from repro.models import rwkv, ssm
+        from repro.models import transformer as tf
+    else:
+        from repro_torch.models import rwkv, ssm
+        from repro_torch.models import transformer as tf
+    return {rwkv.RWKVConfig: rwkv, ssm.SSMConfig: ssm}.get(type(cfg), tf)
 
 
 def xr_extras(kind: str) -> dict:
@@ -652,7 +668,6 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.mesh import make_pod_mesh, make_smoke_mesh
     from repro_torch.models.common import fsdp_axes, model_axis
-    from repro_torch.models import rwkv
     from repro_torch.models import transformer as tf
     from repro_torch.models.registry import family_of
     from repro_torch.optim import adamw, sgd, zero1
@@ -669,7 +684,7 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
     out = {}
 
     def rules(cfg):
-        return (rwkv if isinstance(cfg, rwkv.RWKVConfig) else tf).param_rules(cfg)
+        return family_lib(cfg).param_rules(cfg)
 
     def local_params(cfg, m=mesh, weights=named):
         return params_from_numpy(weights, "cpu", mesh=m, rank=rank, rules=rules(cfg))
@@ -1293,11 +1308,10 @@ def _tp_reference(workdir: str, mesh_name: str, part: str = "all") -> dict:
     if part == "extra":
         return out
     if mesh_name == "4x1":
-        # the cross-attention and RWKV runs' oracle: tp = 1 on one device
-        from repro.models import rwkv
-
+        # the cross-attention, RWKV and Zamba2 runs' oracle: tp = 1 on one device
         for kind in XR_ARCHS:
-            lib, xcfg = (rwkv if kind == "rwkv" else tf), xr_config(kind, 1, ref=True)
+            xcfg = xr_config(kind, 1, ref=True)
+            lib = family_lib(xcfg, ref=True)
             named, treedef = flatten_with_names(lib.init_params(jax.random.PRNGKey(1), xcfg))
             saved = np.load(os.path.join(workdir, f"xr-{kind}_params.npz"))
             xp = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(saved[n]) for n, _ in named])

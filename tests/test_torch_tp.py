@@ -74,16 +74,17 @@ from jax.sharding import PartitionSpec as P
 
 from _torch_mdworker import (FSDP_GRADS, FSDP_MESHES, MESHES, MOE_ARCHS, MOE_RUNS,
                              SPLIT_REFERENCE, TP_GRADS, TP_MESHES, TP_POD_MESH, TP_STEPS, WORLD,
-                             XR_RUNS, XR_STRATEGIES, moe_config, run_all, run_tp_ops, tp_config,
-                             xr_config)
+                             XR_RUNS, XR_STRATEGIES, family_lib, moe_config, run_all, run_tp_ops,
+                             tp_config, xr_config)
 from repro.launch.mesh import make_smoke_mesh as ref_smoke_mesh
 from repro.models import common as ref_common
 from repro.models import rwkv as ref_rwkv
+from repro.models import ssm as ref_ssm
 from repro.models import transformer as ref_tf
 from repro.parallel import sharding as ref_sharding
 from repro.utils.trees import flatten_with_names as ref_flatten
 from repro_torch.launch.mesh import make_pod_mesh, make_smoke_mesh
-from repro_torch.models import rwkv
+from repro_torch.models import rwkv, ssm
 from repro_torch.models import transformer as tf
 from repro_torch.parallel import sharding
 from repro_torch.utils.convert import params_from_numpy
@@ -104,16 +105,18 @@ def workdir(tmp_path_factory):
         mp = ref_tf.init_params(jax.random.PRNGKey(1), moe_config(arch, 1, ref=True))
         np.savez(d / f"moe-{arch}_params.npz",
                  **{n: np.asarray(v) for n, v in ref_flatten(mp)[0]})
-    # the cross-attention and RWKV weights: gate_attn nonzero, and RWKV's
-    # constant leaves perturbed as tests/test_torch_rwkv.py perturbs them
+    # the cross-attention, RWKV and Zamba2 weights: gate_attn nonzero, and
+    # RWKV's and Zamba2's constant leaves perturbed as their tests perturb them
     vp = {n: np.asarray(v) for n, v in ref_flatten(ref_tf.init_params(
         jax.random.PRNGKey(1), xr_config("vision", 1, ref=True)))[0]}
     vp["cross_blocks/gate_attn"] = np.full_like(vp["cross_blocks/gate_attn"], 0.7)
     np.savez(d / "xr-vision_params.npz", **vp)
-    rp = params_from_numpy({n: np.asarray(v) for n, v in ref_flatten(ref_rwkv.init_params(
-        jax.random.PRNGKey(1), xr_config("rwkv", 1, ref=True)))[0]})
-    np.savez(d / "xr-rwkv_params.npz", **{n: t.numpy() for n, t in flatten_with_names(
-        rwkv.perturb_constant_leaves(rp, seed=1))[0]})
+    for kind, ref_lib, lib in (("rwkv", ref_rwkv, rwkv), ("zamba2", ref_ssm, ssm),
+                               ("zamba2-kv2", ref_ssm, ssm)):
+        rp = params_from_numpy({n: np.asarray(v) for n, v in ref_flatten(ref_lib.init_params(
+            jax.random.PRNGKey(1), xr_config(kind, 1, ref=True)))[0]})
+        np.savez(d / f"xr-{kind}_params.npz", **{n: t.numpy() for n, t in flatten_with_names(
+            lib.perturb_constant_leaves(rp, seed=1))[0]})
     (d / "ops").mkdir()
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         runs = [ex.submit(run_all, d, f"tp-{m}", timeout=400,
@@ -141,7 +144,7 @@ def _cut(full, name, mesh, rank, model, cfg=None):
     """Rank ``rank``'s block of a global reference array (under ``cfg``'s
     rules, by default ``tp_config(model)``'s)."""
     cfg = cfg or tp_config(model)
-    spec = (rwkv if isinstance(cfg, rwkv.RWKVConfig) else tf).param_rules(cfg).spec(name)
+    spec = family_lib(cfg).param_rules(cfg).spec(name)
     return sharding.shard_leaf(torch.from_numpy(np.ascontiguousarray(full)), spec, mesh,
                                mesh.coords(rank)).numpy()
 
@@ -586,7 +589,7 @@ def test_moe_tp_equals_tp1(workdir, mesh_name, run):
             assert np.max(np.abs(g - w)) / (np.max(np.abs(full)) + 1e-8) < 2e-3, (n, r)
 
 
-# ------------------------------------------- cross-attention and RWKV-6
+# ------------------------------ cross-attention, RWKV-6 and the Zamba2 hybrid
 
 XR_MESH_RUNS = [(m, run) for m in XR_RUNS for run in XR_RUNS[m]]
 
@@ -595,11 +598,13 @@ XR_MESH_RUNS = [(m, run) for m in XR_RUNS for run in XR_RUNS[m]]
 def test_cross_attention_and_rwkv_match_reference_at_tp1(workdir, mesh_name, run):
     """llama-3.2-vision's smoke config (gate_attn 0.7) at data 4, data 1 ×
     model 4 (kv heads sliced), data 2 × model 2 (kv heads sharded) and
-    FSDP at 2 × 2, and RWKV-6's (constant leaves perturbed) at 1 × 4 and 2
-    × 2: under funnel, concom and depcha each rank's loss and reduced
-    gradient shards equal one another (rtol 1e-5 / atol 1e-6) and
-    compare_tp's 3e-4 loss / 2e-3 gradient of the reference's tp = 1 run
-    (``tests/test_torch_vision.py``, ``tests/test_torch_rwkv_train.py``)."""
+    FSDP at 2 × 2, RWKV-6's (constant leaves perturbed) at 1 × 4 and 2 × 2,
+    and Zamba2's (constant leaves perturbed) at data 4, 1 × 4 (kv heads
+    sharded, and with 2 kv heads sliced) and 2 × 2: under funnel, concom
+    and depcha each rank's loss and reduced gradient shards equal one
+    another (rtol 1e-5 / atol 1e-6) and compare_tp's 3e-4 loss / 2e-3
+    gradient of the reference's tp = 1 run (``tests/test_torch_vision.py``,
+    ``tests/test_torch_rwkv_train.py``, ``tests/test_torch_ssm.py``)."""
     d, _ = workdir
     got, _ = _load(d, mesh_name)
     _, oracle = _load(d, "4x1")
