@@ -222,18 +222,31 @@ Phases, in order; any failure raises and exits non-zero:
               3's pair kernel on the hops of the two-axis ring of data 2 x
               model 2 (rings of 2 on each replicated bucket and its half).
   lm_tp       tensor parallelism: four rank processes on the one card
-              (gloo, every collective staged through pinned host memory),
-              Qwen3-1.7B at full width on data 1 x model 4 (16/4 q heads,
+              (gloo, every collective staged through pinned host memory).
+              First serving: Qwen3-1.7B at full width and depth,
+              bf16, use_flash, on data 1 x model 4 from the seeded
+              weights: the model-axis collectives of a prefill and a
+              decode step with its greedy pick counted against
+              ``serve_collectives``; the static engine on the serving
+              prompts' first 4 (left-padded, 32 greedy tokens) and the
+              continuous engine on all 8 (8 slots, blocks of 128, chunk 8,
+              32 tokens): prefill ms, decode ms a step, peak GB a rank,
+              flash launches 28 a prefill, tokens bit-identical on every
+              rank; then the f32 check at 2 layers, tp = 4 against tp = 1
+              (``SERVE_F32_ATOL``, tokens equal).  Then training:
+              Qwen3-1.7B at full width and ``LM_RANKS_LAYERS`` layers on
+              data 1 x model 4 (16/4 q heads,
               8/4 kv heads sharded, ff 6144/4, vocab 151,936/4; seq 1024 x
               batch 4, AdamW, clip 1, remat dots, bf16), funnel / concom /
               depcha from the seeded weights (each rank draws the global
-              tree and keeps its shards), 1 warm-up + 2 timed steps: step
+              tree and keeps its shards), 1 warm-up + 1 timed step: step
               ms, tokens/s, peak GB a rank, the model-axis collectives a
               step counted, sized and timed against ``lm_tp_collectives``,
               pack/unpack launches = the schedule's (+ two slots a layer
               under depcha), the replicated leaves bit-identical across
               the ranks, the first loss and the first (global) grad norm
-              against lm_train's tp = 1 funnel (``LM_TP_FIRST_*_RTOL``),
+              against the tp = 1 funnel of the same depth
+              (``phase_lm_tp1``, ``LM_TP_FIRST_*_RTOL``),
               one funnel step's stages by CUDA events.  Then the
               reference's f32 ``mk_dense``, one step through
               ``make_train_step`` with a binding clip (SGD at lr 0: its new
@@ -242,17 +255,25 @@ Phases, in order; any failure raises and exits non-zero:
               hierarchical, and at data 2 x model 2 under ring (row 3 on
               the two-axis ring): loss, grad norm and clipped gradients at
               compare_tp's tolerances.
-  lm_fsdp     FSDP: four rank processes on the one card as lm_tp,
-              Qwen3-1.7B with ``fsdp=True`` at data 2 x model 2 (the
-              block matrices stored sharded over "data" too, gathered a
-              layer): funnel / concom / depcha, 1 warm-up + 2 timed
-              steps: step ms, tokens/s, peak GB and params a rank; the
+  lm_fsdp     FSDP: four rank processes on the one card as lm_tp.  First
+              serving from FSDP's storage: Qwen3-1.7B at full
+              width and depth with ``fsdp=True`` at data 2 x model 2, the
+              collectives of a prefill and a decode step counted (the
+              FSDP gathers too), the static engine at B 4 and the
+              continuous engine on 4 prompts (4 slots, chunk 4), 8 tokens
+              each, tokens bit-identical on every rank; then at 2 layers
+              in f32 the continuous engine against each prompt served
+              alone by the static one.  Then training: Qwen3-1.7B at
+              ``LM_RANKS_LAYERS`` layers with ``fsdp=True`` at data 2 x
+              model 2 (the block matrices stored sharded over "data" too,
+              gathered a layer): funnel / concom / depcha, 1 warm-up + 1 timed
+              step: step ms, tokens/s, peak GB and params a rank; the
               FSDP gathers and reduce-scatters (and the model psums) a
               step counted and sized against ``lm_fsdp_collectives``; no
               FSDP leaf in a GradSync bucket, depcha passing them
               through; the replicated leaves bit-identical across the
-              ranks; the first loss and grad norm against lm_train's
-              tp = 1 funnel.  Then f32 equivalences at the same mesh:
+              ranks; the first loss and grad norm against the tp = 1
+              funnel of the same depth.  Then f32 equivalences at the same mesh:
               check 5 on ``mk_dense`` (one AdamW step against dp 1 x tp
               1), ring and compressed (rows 3, 6-7) at compare_tp's
               tolerances, and granite's smoke config with FSDP against
@@ -458,7 +479,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores (data sheet)
               torch.float32: 67e12}     # f32 outside the tensor cores
 STRATEGIES = ("funnel", "concom", "depcha")
 TRAIN_STEPS = 4                # 1 warm-up + 3 timed
-HANG_LIMIT_S = 1000             # dump stacks and exit before the 1200 s limit
+HANG_LIMIT_S = 1100             # dump stacks and exit before the 1200 s limit
 
 
 def log(msg: str) -> None:
@@ -1210,6 +1231,23 @@ def phase_lm_train() -> dict:
            "shape": {"seq": LM_SEQ, "global_batch": LM_BATCH, "layers": lm_config().n_layers}}
     log("[lm_train] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
     return out
+
+
+def phase_lm_tp1() -> tuple:
+    """The oracle of lm_tp's and lm_fsdp's first step: Qwen3-1.7B at full
+    width and ``LM_RANKS_LAYERS`` layers on one rank under funnel, as
+    ``lm_train`` runs it (``lm_run``: the same seeded weights and batch,
+    AdamW, clip 1.0); its first loss and first grad norm."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_dp_mesh
+
+    mesh = make_dp_mesh()
+    pipe = TokenPipeline(lm_config().vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh,
+                         device="cuda")
+    run = lm_run("funnel", mesh, pipe,
+                 cfg=dataclasses.replace(lm_config("funnel"), n_layers=LM_RANKS_LAYERS))
+    log(f"[lm_tp1] {LM_RANKS_LAYERS} layers, tp = 1: " + json.dumps(run))
+    return run["losses"][0], run["grad_norms"][0]
 
 
 LM_CARD_TURNS = ("funnel", "concom", "depcha", "depcha", "concom", "funnel")
@@ -2010,6 +2048,12 @@ ZERO1_RANK_RUNS = (("flat", None, "concom", "flat", 1.0),
 # ------------------------------------------------- tensor parallelism (LM)
 
 LM_TP = 4                      # the model axis of lm_tp: 4 rank processes on the card
+# the depth of lm_tp's and lm_fsdp's training (full width), 7 of Qwen3-1.7B's
+# 28 layers, since those spawns also serve the full model, for the
+# script's time; their first loss and grad norm are held to the tp = 1 run
+# of the same depth (``phase_lm_tp1``)
+LM_RANKS_LAYERS = 7
+LM_RANKS_STEPS = 2             # their steps a strategy: 1 warm-up + 1 timed
 # lm_tp's first loss and first (global) grad norm against lm_train's funnel
 # (tp = 1, the same seeded weights and batch), bf16 at full width
 LM_TP_FIRST_LOSS_RTOL = 5e-4
@@ -2157,18 +2201,253 @@ def _tp_equivalence(rank: int, say) -> dict:
     return out
 
 
+# ------------------------------------------------- serving beyond one rank
+# (static rows, tokens a request, continuous prompts, slots, chunk) of the
+# serving runs in the lm_tp spawn (data 1 x model 4) and the lm_fsdp one
+# (data 2 x model 2, fsdp=True); blocks of 128
+SERVE_TP_RUN = (4, 32, 8, 8, 8)
+SERVE_FSDP_RUN = (4, 8, 4, 4, 4)
+# the f32 checks: Qwen3-1.7B at full width and 2 layers (TF32 off): at
+# tp = 4 its prefill and 8 decode steps' logits against tp = 1's, within
+# compare_tp's 3e-4 (tests/_mdworker.py; on the loss there, on logits of
+# order 1 here: the two differ only in the order of the model psums' sums
+# and the GEMMs' shapes, about 1e-6 of a logit at smoke size); under FSDP
+# the engines against each other, prompt by prompt
+SERVE_F32_LAYERS = 2
+SERVE_F32_STEPS = 8
+SERVE_F32_ATOL = 3e-4
+
+
+def serve_collectives(cfg, rows: int, seq: int, data: int = 1) -> dict:
+    """The collectives of one transformer prefill (``seq`` > 1) or decode
+    step (``seq`` 1) on ``rows`` rows with its greedy pick, counted from
+    the code, as (calls, bytes) by function: over "model" the embedding's
+    psum and two a layer (after wo and after wdown) of the (rows, seq, d)
+    activations in the model dtype, and the sampler's one all-gather of
+    each rank's (rows, 2) maximum and index in f64 (its output tp·rows·2·8
+    bytes); under FSDP each layer's gather of each FSDP leaf over the dp
+    axes (``lm_fsdp_collectives``' gathered blocks)."""
+    L = cfg.n_layers
+    act = rows * seq * cfg.d_model * cfg.dtype.itemsize
+    gathers = [1, cfg.tp * rows * 2 * 8]
+    if cfg.fsdp:
+        fs = lm_fsdp_collectives(cfg, data, 0)
+        gathers = [gathers[0] + L * fs["leaves_per_layer"],
+                   gathers[1] + L * fs["gathered_bytes_per_layer"]]
+    return {"all_reduce": [1 + 2 * L, (1 + 2 * L) * act], "all_gather_into_tensor": gathers}
+
+
+def _serve_ranks(rank: int, mesh, counting, host, say, run: tuple, fsdp: bool = False) -> dict:
+    """Qwen3-1.7B at full width (bf16, ``use_flash``) served on this
+    spawn's mesh from the seeded weights (every rank draws the global tree
+    from seed 0 and keeps its shards: ``serve``'s weights), before the
+    spawn's training.  ``run`` is (static rows, tokens, continuous
+    prompts, slots, chunk): the static engine on the first rows of
+    ``serve``'s prompts (left-padded), the collectives of its prefill and
+    of its first decode step on the rank's rows counted (``_CountingDep``)
+    and held to ``serve_collectives``; the continuous engine on the first
+    prompts (blocks of 128); each engine's prefill ms and decode ms a
+    step, flash launches held to 28 a prefill, the peak GB a rank; the
+    tokens bit-identical on every rank; the engines' greedy agreement
+    (reported, as ``serve`` reports it at tp = 1 in bf16)."""
+    import numpy as np
+
+    from repro_torch.configs.qwen3_1_7b import make_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import ContinuousScheduler, Server
+
+    rows, new, n_cont, slots, chunk = run
+    data, tp = mesh.shape["data"], mesh.shape["model"]
+    cfg = make_config(use_flash=True, tp=tp, fsdp=fsdp)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device="cuda", mesh=mesh, rank=rank)
+    server = Server(cfg, mesh, params, max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    out = {"mesh": dict(mesh.shape), "fsdp": fsdp, "setup_s": time.perf_counter() - t0}
+    prompts = serve_prompts(cfg.vocab)
+    batch = left_pad(prompts[:rows]).numpy()
+
+    # the collectives of the static engine's prefill and of its first
+    # decode step, each with its greedy pick, on the rank's rows: the
+    # counts at the start of the prefill and of the first two decode steps
+    api, marks = server.api, []
+
+    def marked(fn):
+        def call(*a, **kw):
+            marks.append({k: v[:2] for k, v in counting.by_fn.items()})
+            return fn(*a, **kw)
+        return call
+
+    server.api = dataclasses.replace(api, prefill=marked(api.prefill),
+                                     decode_step=marked(api.decode_step))
+    timer = DecodeLoopTimer(server)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.FLASH_LAUNCHES = 0
+    t0 = time.perf_counter()
+    static = server.generate(batch, new)
+    static_s = time.perf_counter() - t0
+    decode_ms = timer.close(new - 1)
+    server.api = api
+    static_launches = flash.FLASH_LAUNCHES
+
+    def between(a, b):
+        return {k: [v[0] - a.get(k, [0, 0])[0], v[1] - a.get(k, [0, 0])[1]]
+                for k, v in b.items() if v[0] != a.get(k, [0, 0])[0]}
+
+    local = rows // data
+    want = {"prefill": serve_collectives(cfg, local, batch.shape[1], data),
+            "decode_step": serve_collectives(cfg, local, 1, data)}
+    got = {"prefill": between(marks[0], marks[1]), "decode_step": between(marks[1], marks[2])}
+    if got != want:
+        raise AssertionError(f"serve collectives at {dict(mesh.shape)}: {got}, predicted {want}")
+    out["collectives"] = dict(got, predicted=want)
+    flash.FLASH_LAUNCHES = 0
+    eng = ContinuousScheduler(server, slots=slots, block_size=128, chunk=chunk)
+    decode_chunk, chunk_ms = eng._decode_chunk, []
+
+    def timed_chunk():
+        t = time.perf_counter()
+        res = decode_chunk()                 # ends in a host copy
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    eng._decode_chunk = timed_chunk
+    t0 = time.perf_counter()
+    cont = eng.generate_batch(prompts[:n_cont], new)
+    cont_s = time.perf_counter() - t0
+    cont_launches = flash.FLASH_LAUNCHES
+    launches = {"static": static_launches, "continuous": cont_launches}
+    if launches != {"static": cfg.n_self, "continuous": cfg.n_self * n_cont}:
+        raise AssertionError(f"serve at {dict(mesh.shape)}: flash launches {launches}, "
+                             f"expected {cfg.n_self} a prefill")
+    _same_on_every_rank([torch.as_tensor(static), torch.as_tensor(np.stack(cont))],
+                        f"serve at {dict(mesh.shape)}: tokens", host)
+    steps = len(chunk_ms) * chunk
+    out.update(
+        static=dict(rows=rows, tokens=new, wall_s=static_s, prefill_ms=timer.prefill_ms()[0],
+                    decode_ms_per_step=decode_ms[0], flash_launches=static_launches),
+        continuous=dict(prompts=n_cont, slots=slots, chunk=chunk, tokens=new, wall_s=cont_s,
+                        chunk_ms=chunk_ms, decode_ms_per_step=sum(chunk_ms) / steps,
+                        flash_launches=cont_launches),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        prompt_lens=[len(p) for p in prompts[:max(rows, n_cont)]],
+        static_tokens=static.tolist(),
+        greedy_agreement_static_vs_continuous=float(np.mean(
+            [np.mean(static[i] == cont[i]) for i in range(min(rows, n_cont))])),
+        tokens_identical_on_every_rank=True, flash_launches=static_launches + cont_launches)
+    server.close()
+    del server, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[serve_{'fsdp' if fsdp else 'tp'}] " + json.dumps(
+        {k: v for k, v in out.items() if k != "static_tokens"}))
+    return out
+
+
+def _serve_tp_f32(rank: int, mesh, say) -> dict:
+    """Qwen3-1.7B at full width and ``SERVE_F32_LAYERS`` layers in f32
+    (TF32 off, ``use_flash``: the CUDA-core flash kernel) at this mesh's
+    tp, through ``prefill`` and ``SERVE_F32_STEPS`` greedy ``decode_step``s
+    on ``serve``'s first 2 prompts (left-padded), every rank drawing the
+    global tree from seed 0; rank 0 also runs the tp = 1 model of the same
+    seed the same way.  The tokens must be equal and the logits (the
+    ranks' shards put together) within ``SERVE_F32_ATOL``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.qwen3_1_7b import make_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import NO_MODEL_AXIS, model_all_gather, model_axis
+    from repro_torch.runtime import sharded_argmax
+
+    tp = mesh.shape["model"]
+    cfg = make_config(n_layers=SERVE_F32_LAYERS, dtype=torch.float32, use_flash=True, tp=tp)
+    toks = left_pad(serve_prompts(cfg.vocab)[:2]).cuda()
+    S = toks.shape[1]
+
+    def greedy(cfg, params, axis):
+        logits, cache = tf.prefill(params, toks, cfg, model_axis=axis)
+        cache = {n: F.pad(c, (0, 0, 0, 0, 0, SERVE_F32_STEPS)) for n, c in cache.items()}
+        logs, tokens = [model_all_gather(logits, axis)], []
+        for t in range(SERVE_F32_STEPS):
+            tok = sharded_argmax(logits, cfg.tp, axis)
+            tokens.append(tok)
+            logits, cache = tf.decode_step(params, cache, tok, S + t, cfg, model_axis=axis)
+            logs.append(model_all_gather(logits, axis))
+        return torch.stack(logs), torch.stack(tokens)
+
+    axis = model_axis(mesh, "cuda")
+    flash.FLASH_LAUNCHES = 0
+    logs, tokens = greedy(cfg, tf.init_params(cfg, seed=0, device="cuda", mesh=mesh,
+                                              rank=rank), axis)
+    out = {"layers": SERVE_F32_LAYERS, "steps": SERVE_F32_STEPS, "prompt_lens":
+           [int((toks[i] != 0).sum()) for i in range(2)], "atol": SERVE_F32_ATOL,
+           "flash_launches_f32": flash.FLASH_LAUNCHES}
+    if rank == 0:
+        cfg1 = make_config(n_layers=SERVE_F32_LAYERS, dtype=torch.float32, use_flash=True)
+        want_logs, want_tokens = greedy(cfg1, tf.init_params(cfg1, seed=0, device="cuda"),
+                                        NO_MODEL_AXIS)
+        diff = (logs - want_logs).abs().max().item()
+        out.update(tokens_equal=bool(torch.equal(tokens, want_tokens)), logits_max_abs_diff=diff,
+                   logits_max_abs=want_logs.abs().max().item())
+        if not out["tokens_equal"] or diff > SERVE_F32_ATOL:
+            raise AssertionError(f"f32 tp = {tp} vs tp = 1: tokens equal "
+                                 f"{out['tokens_equal']}, logits differ by {diff} "
+                                 f"(atol {SERVE_F32_ATOL})")
+    import torch.distributed as dist
+
+    dist.destroy_process_group(axis.group)
+    say("[serve_tp_f32] " + json.dumps(out))
+    return out
+
+
+def _serve_fsdp_f32(rank: int, mesh, say) -> dict:
+    """Qwen3-1.7B at full width and ``SERVE_F32_LAYERS`` layers in f32
+    under FSDP on this mesh: the continuous engine (4 slots, blocks of
+    128, chunk 4) on ``serve``'s first 4 prompts against each prompt served
+    alone by the static engine (a row a dp rank), ``SERVE_F32_STEPS``
+    tokens each: equal, as ``serve``'s f32 engines at tp = 1."""
+    import numpy as np
+
+    from repro_torch.configs.qwen3_1_7b import make_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import ContinuousScheduler, Server
+
+    data, tp = mesh.shape["data"], mesh.shape["model"]
+    cfg = make_config(n_layers=SERVE_F32_LAYERS, dtype=torch.float32, use_flash=True, tp=tp,
+                      fsdp=True)
+    server = Server(cfg, mesh, tf.init_params(cfg, seed=0, device="cuda", mesh=mesh, rank=rank),
+                    max_len=SERVE_MAX_LEN)
+    prompts = serve_prompts(cfg.vocab)[:4]
+    alone = [server.generate(np.tile(p[None], (data, 1)), SERVE_F32_STEPS)[0] for p in prompts]
+    cont = ContinuousScheduler(server, slots=4, block_size=128, chunk=4).generate_batch(
+        prompts, SERVE_F32_STEPS)
+    server.close()
+    equal = [bool(np.array_equal(a, c)) for a, c in zip(alone, cont)]
+    if not all(equal):
+        raise AssertionError(f"f32 FSDP engines: static alone {alone} vs continuous {cont}")
+    out = {"layers": SERVE_F32_LAYERS, "tokens": SERVE_F32_STEPS, "prompts": len(prompts),
+           "continuous_equals_static": equal}
+    say("[serve_fsdp_f32] " + json.dumps(out))
+    return out
+
+
 def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
-    """One rank of ``phase_lm_tp``: Qwen3-1.7B at full width on data 1 x
+    """One rank of ``phase_lm_tp``: first serving (``_serve_ranks`` at
+    ``SERVE_TP_RUN``, then ``_serve_tp_f32``), then Qwen3-1.7B at full width and ``LM_RANKS_LAYERS`` layers on data 1 x
     model ``LM_TP`` (seq 1024 x global batch 4, AdamW, clip 1.0, remat
     dots, bf16), each of funnel, concom and depcha (in-backward) from
     the seeded weights (each rank draws the global tree and keeps its
-    shards), 1 warm-up + 2 timed steps; the model-axis collectives of
+    shards), ``LM_RANKS_STEPS`` steps; the model-axis collectives of
     each step counted and timed (``_CountingDep``) against
     ``lm_tp_collectives``; pack/unpack launches against the schedule
     (plus depcha's two slots a layer); the replicated leaves
     bit-identical across the ranks after every run; the first loss and
-    the first grad norm (the global one the clip uses) against
-    lm_train's tp = 1 funnel's (``tp1``: (loss, norm)); one more funnel
+    the first grad norm (the global one the clip uses) against the
+    tp = 1 funnel's of the same depth (``tp1``: (loss, norm),
+    ``phase_lm_tp1``); one more funnel
     step with CUDA events around its stages.  Then the f32 equivalence
     (``_tp_equivalence``).  Results to ``workdir/rank<r>.json``."""
     import datetime
@@ -2197,8 +2476,12 @@ def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
     common.dep = counting
     out = {"runs": {}}
     try:
+        t0 = time.perf_counter()
+        out["serve"] = _serve_ranks(rank, mesh, counting, host, say, SERVE_TP_RUN)
+        out["serve_f32"] = _serve_tp_f32(rank, mesh, say)
+        out["serve"]["phase_s"] = time.perf_counter() - t0
         for strat in STRATEGIES:
-            cfg = dataclasses.replace(lm_config(strat), tp=LM_TP)
+            cfg = dataclasses.replace(lm_config(strat), tp=LM_TP, n_layers=LM_RANKS_LAYERS)
             model = Transformer(cfg, init_params(cfg, seed=0, device="cuda", mesh=mesh,
                                                  rank=rank))
             opt = adamw(cosine_warmup(3e-4, 10, 100))
@@ -2211,7 +2494,7 @@ def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
             torch.cuda.reset_peak_memory_stats()
             kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
             losses, norms, calls, nbytes, coll_ms = [], [], [], [], []
-            for step in range(LM_STEPS):
+            for step in range(LM_RANKS_STEPS):
                 c0, b0, m0 = counting.calls, counting.bytes, counting.ms
                 model, opt_state, hist = trainer.run(model, opt_state, step + 1,
                                                      start_step=step)
@@ -2221,16 +2504,17 @@ def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
                 nbytes.append(counting.bytes - b0)
                 coll_ms.append(counting.ms - m0)
             predicted = lm_tp_collectives(cfg, LM_SEQ * LM_BATCH)
-            if calls != [predicted["calls_per_step"]] * LM_STEPS or \
-                    nbytes != [predicted["bytes_per_step"]] * LM_STEPS:
+            if calls != [predicted["calls_per_step"]] * LM_RANKS_STEPS or \
+                    nbytes != [predicted["bytes_per_step"]] * LM_RANKS_STEPS:
                 raise AssertionError(f"lm_tp {strat}: model-axis collectives {calls} "
                                      f"({nbytes} B), predicted {predicted}")
             slots = sync_slots(ts.layer_sync)
             per_step = len(ts.gradsync.schedule.ops) + slots
             launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
-            if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
+            if launches != {"pack": per_step * LM_RANKS_STEPS,
+                            "unpack": per_step * LM_RANKS_STEPS}:
                 raise AssertionError(f"lm_tp {strat}: launches {launches}, expected "
-                                     f"{per_step} a step x {LM_STEPS}")
+                                     f"{per_step} a step x {LM_RANKS_STEPS}")
             if not all(math.isfinite(x) for x in losses):
                 raise AssertionError(f"lm_tp {strat}: non-finite loss {losses}")
             rep = [p for n, p in named if n not in ts.gradsync.model_sharded]
@@ -2277,8 +2561,9 @@ def phase_lm_tp(tp1=None, backend: str = "gloo") -> dict:
     as ``main`` runs it, all on the one card, every collective staged
     through pinned host memory, since NCCL refuses two ranks on one
     device; ``backend="nccl"`` needs ``LM_TP`` cards, one a rank), each
-    running ``_lm_tp_rank``.  ``tp1``: lm_train's first funnel loss and
-    grad norm (tp = 1, the same seeded weights and batch)."""
+    running ``_lm_tp_rank``: serving, then training.  ``tp1``:
+    ``phase_lm_tp1``'s first funnel loss and grad norm (tp = 1, the same
+    depth, seeded weights and batch)."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2561,18 +2846,21 @@ def _fsdp_equivalence(rank: int, mesh, say) -> dict:
 
 
 def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: int) -> None:
-    """One rank of ``phase_lm_fsdp``: Qwen3-1.7B at full width with
+    """One rank of ``phase_lm_fsdp``: first serving from FSDP's storage
+    (``_serve_ranks`` at ``SERVE_FSDP_RUN``, then ``_serve_fsdp_f32``),
+    then Qwen3-1.7B at full width and
+    ``LM_RANKS_LAYERS`` layers with
     ``fsdp=True`` on data ``data`` x model ``model`` (seq 1024 x global
     batch 4, AdamW, clip 1.0, remat dots, bf16), each of funnel, concom
     and depcha (in-backward: the FSDP leaves pass through) from the
     seeded weights (each rank draws the global tree and keeps its
-    shards), 1 warm-up + 2 timed steps; each step's collectives counted
+    shards), ``LM_RANKS_STEPS`` steps; each step's collectives counted
     by kind (``_CountingDep``) against ``lm_fsdp_collectives``; pack and
     unpack launches against the schedule plus depcha's slots; the fully
     replicated leaves bit-identical across the ranks after every run;
-    the first loss and grad norm against lm_train's tp = 1 funnel's
-    (``tp1``); one more funnel step with CUDA events around its stages.
-    Then ``_fsdp_equivalence``.  Results to ``workdir/rank<r>.json``."""
+    the first loss and grad norm against the tp = 1 funnel's of the same
+    depth (``tp1``, ``phase_lm_tp1``); one more funnel step with CUDA
+    events around its stages.  Then ``_fsdp_equivalence``.  Results to ``workdir/rank<r>.json``."""
     import datetime
 
     import torch.distributed as dist
@@ -2601,8 +2889,13 @@ def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: 
     common.dep = counting
     out = {"runs": {}, "mesh": {"data": data, "model": model}}
     try:
+        t0 = time.perf_counter()
+        out["serve"] = _serve_ranks(rank, mesh, counting, host, say, SERVE_FSDP_RUN, fsdp=True)
+        out["serve_f32"] = _serve_fsdp_f32(rank, mesh, say)
+        out["serve"]["phase_s"] = time.perf_counter() - t0
         for strat in STRATEGIES:
-            cfg = dataclasses.replace(lm_config(strat), tp=model, fsdp=True)
+            cfg = dataclasses.replace(lm_config(strat), tp=model, fsdp=True,
+                                      n_layers=LM_RANKS_LAYERS)
             net = Transformer(cfg, init_params(cfg, seed=0, device="cuda", mesh=mesh, rank=rank))
             named = flatten_with_names(net.params_tree())[0]
             n_params = sum(p.numel() for _, p in named)
@@ -2615,7 +2908,7 @@ def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: 
             torch.cuda.reset_peak_memory_stats()
             kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
             losses, norms, kinds = [], [], []
-            for step in range(LM_STEPS):
+            for step in range(LM_RANKS_STEPS):
                 before = {k: list(v) for k, v in counting.by_fn.items()}
                 net, opt_state, hist = trainer.run(net, opt_state, step + 1, start_step=step)
                 losses.append(hist["losses"][-1])
@@ -2628,22 +2921,23 @@ def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: 
             for k in ("all_gather_into_tensor", "all_to_all_single"):
                 got = [[s.get(k, [0, 0])[0], s.get(k, [0, 0])[1]] for s in kinds]
                 want = [predicted[k]["calls"], predicted[k]["bytes"]]
-                if got != [want] * LM_STEPS:
+                if got != [want] * LM_RANKS_STEPS:
                     raise AssertionError(f"lm_fsdp {strat}: {k} (calls, bytes) a step {got}, "
                                          f"predicted {want}")
             if model > 1:
                 mp = predicted["model_axis"]
                 got = [s.get("all_reduce", [0, 0])[0] for s in kinds]
                 # the loss all-reduce and the clip's are the train step's, not counted here
-                if got != [mp["calls_per_step"]] * LM_STEPS:
+                if got != [mp["calls_per_step"]] * LM_RANKS_STEPS:
                     raise AssertionError(f"lm_fsdp {strat}: model-axis all-reduces {got}, "
                                          f"predicted {mp['calls_per_step']}")
             slots = sync_slots(ts.layer_sync)
             per_step = sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops) + slots
             launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
-            if launches != {"pack": per_step * LM_STEPS, "unpack": per_step * LM_STEPS}:
+            if launches != {"pack": per_step * LM_RANKS_STEPS,
+                            "unpack": per_step * LM_RANKS_STEPS}:
                 raise AssertionError(f"lm_fsdp {strat}: launches {launches}, expected "
-                                     f"{per_step} a step x {LM_STEPS}")
+                                     f"{per_step} a step x {LM_RANKS_STEPS}")
             bucketed = {l.name for b in ts.gradsync.plan.buckets for l in b.leaves}
             if any(n.split("/")[-1] in FSDP_LEAVES for n in bucketed):
                 raise AssertionError(f"lm_fsdp {strat}: an FSDP leaf in a GradSync bucket")
@@ -2695,8 +2989,9 @@ def phase_lm_fsdp(tp1=None, backend: str = "gloo", data: int = LM_FSDP_MESH[0],
     """FSDP on the card: data x model rank processes (with gloo, as
     ``main`` runs it, all on the one card, every collective staged
     through pinned host memory; ``backend="nccl"`` needs a card a rank),
-    each running ``_lm_fsdp_rank``.  ``tp1``: lm_train's first funnel
-    loss and grad norm (tp = 1, the same seeded weights and batch).  By
+    each running ``_lm_fsdp_rank``: serving, then training.
+    ``tp1``: ``phase_lm_tp1``'s first funnel loss and grad norm (tp = 1,
+    the same depth, seeded weights and batch).  By
     hand on four cards: ``phase_lm_fsdp(backend="nccl", data=4, model=1)``
     (pure ZeRO-3)."""
     import tempfile
@@ -4662,7 +4957,11 @@ FLASH_SOURCES = {torch.bfloat16: "src/repro_torch/kernels/flash_attention/csrc/f
                  torch.float32: "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"}
 FLASH_KERNEL_NAMES = {torch.bfloat16: "flash_fwd_tc_kernel", torch.float32: "flash_fwd_kernel"}
 PREFILL_SHAPES = {"static": (4, 512, 16, 8, 128),        # B, S, Hq, Hkv, D
-                  "continuous": (1, 512, 16, 8, 128)}
+                  "continuous": (1, 512, 16, 8, 128),
+                  # a rank's heads in the static prefill of lm_tp's serving
+                  # (model 4) and of lm_fsdp's (model 2)
+                  "static_tp4": (4, 493, 4, 2, 128),
+                  "static_tp2": (4, 493, 8, 4, 128)}
 SERVE_REQUESTS = 8
 SERVE_MAX_LEN = 1024
 SERVE_MAX_NEW = 32
@@ -4892,21 +5191,27 @@ def _results(handles, what: str) -> list:
 class DecodeLoopTimer:
     """Wraps a server's serve hooks (a tool of this script): CUDA events
     from each generate's first decode step's start to its last one's end,
-    the decode loop's time on the device's clock with no extra sync."""
+    the decode loop's time on the device's clock with no extra sync; and
+    around each prefill (``prefill_ms``)."""
 
     def __init__(self, server):
-        self.server, self.api, self.loops = server, server.api, []
+        self.server, self.api, self.loops, self.prefills = server, server.api, [], []
 
         def prefill(*a, **kw):
             self.loops.append([torch.cuda.Event(enable_timing=True),
                                torch.cuda.Event(enable_timing=True), 0])
-            return self.api.prefill(*a, **kw)
+            span = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+            span[0].record()
+            out = self.api.prefill(*a, **kw)
+            span[1].record()
+            self.prefills.append(span)
+            return out
 
-        def decode_step(*a):
+        def decode_step(*a, **kw):
             loop = self.loops[-1]
             if loop[2] == 0:
                 loop[0].record()
-            out = self.api.decode_step(*a)
+            out = self.api.decode_step(*a, **kw)
             loop[1].record()
             loop[2] += 1
             return out
@@ -4923,6 +5228,10 @@ class DecodeLoopTimer:
             raise AssertionError(f"decode steps per generate: "
                                  f"{[n for *_, n in self.loops]}, expected {steps}")
         return [a.elapsed_time(b) / n for a, b, n in self.loops]
+
+    def prefill_ms(self) -> list:
+        """ms of each prefill (CUDA events; after ``close``)."""
+        return [a.elapsed_time(b) for a, b in self.prefills]
 
 
 def tree_to(tree, device=None, dtype=None):
@@ -5088,7 +5397,25 @@ def phase_serve(smi: str) -> dict:
     }
     log("[serve] " + json.dumps(report))
     phase_serve_profile(params, cfg)
-    return {"launches": launches, "f32_launches": f32_launches, "report": report}
+    return {"launches": launches, "f32_launches": f32_launches, "report": report,
+            "static_tokens": [t.tolist() for t in static_out]}
+
+
+def serve_tp_vs_tp1(serve_tp: dict, serve: dict) -> dict:
+    """Report only: lm_tp's bf16 static tokens at model 4 against
+    ``serve``'s at tp = 1 on the same batch (its first 4 prompts,
+    left-padded).  With random weights the 28 layers amplify bf16
+    rounding, and the psums sum in another order, so no bound would tell
+    a fault from rounding; the f32 check (``_serve_tp_f32``) holds them."""
+    import numpy as np
+
+    tp = np.asarray(serve_tp["static_tokens"])
+    one = np.asarray(serve["static_tokens"][:len(tp)])
+    out = {"greedy_agreement": float(np.mean(tp == one)),
+           "first_divergent_token": [int(np.argmax(a != b)) if (a != b).any() else len(a)
+                                     for a, b in zip(tp, one)]}
+    log("[serve_tp] bf16 at model 4 against serve's tp = 1 (reported only): " + json.dumps(out))
+    return out
 
 
 class LogitsRecorder:
@@ -5418,8 +5745,11 @@ WKV_SEQ_SHAPES = (   # (B, S, H, N, chunk, dtype of r, k, v): one launch a layer
     (1, 7, 64, 64, 32, torch.float32),      # below the chunk; B 1: 2 column splits
     (4, 1, 64, 64, 32, torch.bfloat16),     # a decode step
     (2, 23, 4, 16, 16, torch.float32),      # the smoke config
+    (4, 512, 16, 64, 32, torch.bfloat16),   # a rank's prefill layer at model 4
+    (4, 1, 16, 64, 32, torch.bfloat16),     # and its decode step
 )
-WKV_SEQ_TIMED = {"prefill": WKV_SEQ_SHAPES[0], "decode": WKV_SEQ_SHAPES[4]}
+WKV_SEQ_TIMED = {"prefill": WKV_SEQ_SHAPES[0], "decode": WKV_SEQ_SHAPES[4],
+                 "prefill_tp4": WKV_SEQ_SHAPES[6], "decode_tp4": WKV_SEQ_SHAPES[7]}
 # (atol, rtol) of y; the state and f32 y as the chunk checks, bf16 y within
 # one bf16 rounding of the plain version's f32 value
 WKV_Y_TOL = {torch.float32: (5e-4, 5e-4), torch.bfloat16: (5e-4, 2 ** -7)}
@@ -5721,11 +6051,11 @@ def check_rwkv_f32(params, cfg, prompt) -> dict:
 
     block, layer_diffs = rwkv.block, []
 
-    def forced(p, x, cfg, state=None, lasts=None, out=None):
+    def forced(p, x, cfg, state=None, lasts=None, out=None, **kw):
         # both on the same input state, each to a new one; then into ``out``
-        got = block(p, x, cfg, state, lasts)
+        got = block(p, x, cfg, state, lasts, **kw)
         with plain_wkv():
-            want = block(p, x, cfg, state, lasts)
+            want = block(p, x, cfg, state, lasts, **kw)
         for a, b, what in ((got[0], want[0], "output"), (got[1], want[1], "state")):
             if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
                 raise AssertionError(f"f32 layer {len(layer_diffs)} {what}: kernel "
@@ -6828,6 +7158,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lm = phase_lm_train()
+        tp1 = phase_lm_tp1()
         phase_lm_cpu_vs_gpu()
         clock("lm_cpu_vs_gpu")
         gc.collect()
@@ -6857,7 +7188,6 @@ def main() -> int:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    tp1 = (lm["runs"]["funnel"]["losses"][0], lm["runs"]["funnel"]["grad_norms"][0])
     lm_tp = phase_lm_tp(tp1)
     clock("lm_tp")
     lm_fsdp = phase_lm_fsdp(tp1)
@@ -6870,6 +7200,7 @@ def main() -> int:
     clock("hierarchical")
     flash_rows = phase_flash()
     serve = phase_serve(smi)
+    serve_tp_vs_tp1(lm_tp["serve"], serve)
     phase_serve_cpu_vs_gpu()
     clock("serve_cpu_vs_gpu")
     gc.collect()                     # Qwen3's weights go before RWKV's
@@ -6976,10 +7307,13 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCES[torch.bfloat16],
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": serve["launches"] + moe_serve["flash_launches"] + vision_serve["launches"],
+        "launches": (serve["launches"] + moe_serve["flash_launches"] + vision_serve["launches"]
+                     + lm_tp["serve"]["flash_launches"] + lm_fsdp["serve"]["flash_launches"]),
         "launches_by_path": {"serve": serve["launches"],
                              "moe_serve": moe_serve["flash_launches"],
-                             "vision_serve": vision_serve["launches"]},
+                             "vision_serve": vision_serve["launches"],
+                             "serve_tp": lm_tp["serve"]["flash_launches"],
+                             "serve_fsdp": lm_fsdp["serve"]["flash_launches"]},
         "launches_per_prefill": 28, "launches_per_prefill_moe": 24,
         "launches_per_prefill_vision": vision_serve["per_prefill"],
         "moe_serve_layer0_max_abs_err": moe_serve["flash_layer0_max_abs_err"],
@@ -6988,13 +7322,20 @@ def main() -> int:
         "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
         "bound_by": fr["bound_by"], "library_ms": fr["library_ms"],
         "shape": fr["shape"], "continuous_shape": flash_rows["continuous"],
+        # a rank's heads in serve_tp's (model 4) and serve_fsdp's (model 2)
+        # static prefill, launched by rank 0 of each spawn
+        "tp_shapes": {"serve_tp": flash_rows["static_tp4"],
+                      "serve_fsdp": flash_rows["static_tp2"]},
         "sass": fr["sass"],
         # f32 inputs: the CUDA-core kernel, launched by serve's f32 checks
         "f32_kernel": {
             "name": "flash_attention_fwd (f32)", "route": "cuda",
             "source": FLASH_SOURCES[torch.float32],
             "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-            "launches": serve["f32_launches"], "max_abs_err": f32r["max_abs_err"],
+            "launches": serve["f32_launches"] + lm_tp["serve_f32"]["flash_launches_f32"],
+            "launches_by_path": {"serve": serve["f32_launches"],
+                                 "serve_tp_f32": lm_tp["serve_f32"]["flash_launches_f32"]},
+            "max_abs_err": f32r["max_abs_err"],
             "ms": f32r["ms"], "device_ms_per_launch": f32r["device_ms_per_launch"],
             "plain_ms": f32r["plain_ms"], "bound_ms": f32r["bound_ms"],
             "bound_by": f32r["bound_by"], "library_ms": f32r["library_ms"],
@@ -7017,6 +7358,8 @@ def main() -> int:
         "plain_ms": wr["plain_ms"], "bound_ms": wr["bound_ms"],
         "bound_by": wr["bound_by"], "library_ms": None, "library": WKV_LIBRARY,
         "shape": wr["shape"], "decode_shape": wkv_rows["decode"],
+        # a rank's layer of RWKV-6 7B at model 4 (16 heads of 64)
+        "tp4_shapes": {"prefill": wkv_rows["prefill_tp4"], "decode": wkv_rows["decode_tp4"]},
         # the same kernel's one-chunk entry, on the TPU kernel's layout
         "chunk_entry": {"name": "wkv_chunk_kernel", "prefill_chunk": wkv_rows["chunk_prefill"],
                         "decode_chunk": wkv_rows["chunk_decode"]}})

@@ -3,8 +3,8 @@ vocab=128256, cross-attn image layers (8 of 40, gated) with a stub vision
 frontend: ``img_embeds`` (B, 576, d) precomputed patch embeddings
 [hf:meta-llama/Llama-3.2-11B-Vision; unverified]
 (``repro/configs/llama_3_2_vision_11b.py``).  The port trains it at any
-tp and serves it at tp=1 through ``prefill``/``decode_step``; the engines
-take no images (as the reference's).
+tp and serves it at any tp through ``prefill``/``decode_step``; the
+engines take no images (as the reference's).
 """
 import torch
 

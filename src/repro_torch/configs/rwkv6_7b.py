@@ -1,7 +1,7 @@
 """rwkv6-7b [ssm] — Finch: 32L d=4096 (attn-free) ff=14336 vocab=65536,
 data-dependent per-channel decay [arXiv:2404.05892; hf]
 (``repro/configs/rwkv6_7b.py``).  O(1) state ⇒ long_500k decode runs
-natively.  The port serves it at tp=1, the whole model on one card.
+natively.  The port trains and serves it at any tp.
 """
 import torch
 

@@ -3,8 +3,8 @@ head_p=64 → 80 ssm heads, ssm_state=64) + shared attention block
 (32H kv=32, hd=80, ff=10240) applied every 6 mamba layers with reused
 weights [arXiv:2411.15242; hf] (``repro/configs/zamba2_2_7b.py``).
 Hybrid state ⇒ long_500k runs (ssm state O(1); the shared-attention
-sites use a 4096-slot ring KV cache).  The port trains it at any tp and
-serves it at tp=1.
+sites use a 4096-slot ring KV cache).  The port trains and
+serves it at any tp.
 """
 import torch
 

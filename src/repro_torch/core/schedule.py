@@ -54,7 +54,7 @@ KINDS = (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER, UPDATE, NORM,
 _WIRE_KINDS = (ALLREDUCE, REDUCE_SCATTER)
 _PAYLOAD_KINDS = _WIRE_KINDS + (SEND,)
 # the ROADMAP queue 1 item that ports each kind the emitter cannot run
-_NOT_PORTED = {RESHARD: 14, REGROUP: 14, DECODE: 11, SEND: 13, RECV: 13}
+_NOT_PORTED = {RESHARD: 14, REGROUP: 14, DECODE: "15b", SEND: 13, RECV: 13}
 
 # execution phases: POST ops run after this step's backward; PRE ops are
 # deferred to the top of the next step

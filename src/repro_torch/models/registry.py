@@ -1,8 +1,8 @@
 """Uniform model-family API (``repro/models/registry.py``): each family
 exposes the same hooks so the launchers and loops are family-agnostic.
 Ported: ``resnet`` and ``inception`` (training), ``transformer``,
-``rwkv`` and ``ssm`` (training at any tp, serving at tp=1).  A hook a
-family does not have is None."""
+``rwkv`` and ``ssm`` (training and serving at any tp; the transformer
+also under FSDP).  A hook a family does not have is None."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,12 +28,17 @@ class ModelAPI:
     # StackSyncs) | None: the in-backward sync of the leaves
     # ``in_scan_names`` gives (depcha)
     layer_sync: Optional[Callable[..., Any]] = None
-    # serving hooks: (params, tokens, cfg, *, last_pos) -> (logits, cache)
+    # serving hooks: (params, tokens, cfg, *, last_pos, model_axis[, fsdp])
+    # -> (logits of the rank's vocab shard, cache)
     prefill: Optional[Callable[..., Any]] = None
-    # (params, cache, token, pos, cfg) -> (logits, cache), cache in place
+    # (params, cache, token, pos, cfg, *, model_axis[, fsdp]) -> (logits,
+    # cache), cache in place
     decode_step: Optional[Callable[..., Any]] = None
-    # (cfg, batch, max_len, device) -> empty cache
+    # (cfg, batch, max_len, device) -> empty cache (the rank's shard)
     make_decode_state: Optional[Callable[..., Any]] = None
+    # (cfg, batch_entry) -> the cache leaves' specs (``param_specs``' tuple
+    # form): which dim is sharded over "model", which over the dp axes
+    decode_state_specs: Optional[Callable[..., Any]] = None
     # paged (block-table) decode for the continuous-batching engine
     decode_paged: Optional[Callable[..., Any]] = None
     # cache leaves laid out (L, B, S, ...) that the static batcher grows
@@ -69,6 +74,7 @@ FAMILIES: dict[str, ModelAPI] = {
         prefill=tf_lib.prefill,
         decode_step=tf_lib.decode_step,
         make_decode_state=_tf_make_state,
+        decode_state_specs=tf_lib.decode_state_specs,
         decode_paged=tf_lib.decode_step_paged,
         seq_cache_leaves=("k", "v"),
     ),
@@ -83,6 +89,7 @@ FAMILIES: dict[str, ModelAPI] = {
         prefill=rwkv_lib.prefill,
         decode_step=rwkv_lib.decode_step,
         make_decode_state=_rwkv_make_state,
+        decode_state_specs=rwkv_lib.decode_state_specs,
     ),
     "ssm": ModelAPI(
         family="ssm",
@@ -95,6 +102,7 @@ FAMILIES: dict[str, ModelAPI] = {
         prefill=ssm_lib.prefill,
         decode_step=ssm_lib.decode_step,
         make_decode_state=_ssm_make_state,
+        decode_state_specs=ssm_lib.decode_state_specs,
         seq_cache_leaves=("attn_k", "attn_v"),
     ),
     "resnet": ModelAPI(

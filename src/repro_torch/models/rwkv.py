@@ -1,6 +1,6 @@
 """RWKV-6 "Finch" (arXiv:2404.05892; ``repro/models/rwkv.py``): the
-attention-free LM with data-dependent per-channel decay: training at any
-tp, serving at tp=1.
+attention-free LM with data-dependent per-channel decay: training and
+serving at any tp.
 
 The WKV recurrence is evaluated in chunked-parallel form (chunk C):
   S_t = diag(w_t) S_{t-1} + k_t v_t^T          (per head, S: (N, N))
@@ -35,10 +35,12 @@ mesh and a rank draws the global tree and keeps the rank's blocks.
 Ported: ``RWKVConfig``, ``init_params``, ``param_rules``/``param_specs``,
 ``in_scan_param_names``, the block (token shift, ddlerp, decay, time mix
 with its per-head groupnorm, channel mix), ``train_forward``, the ``RWKV``
-module, ``layer_sync``, ``make_state``, ``prefill`` and ``decode_step``.
-Serving at tp > 1 raises (ROADMAP queue 1 item 11), and so the
-reference's ``decode_state_specs`` is not ported.  ``decode_step`` writes
-the new state into the state tensors in place and returns them.
+module, ``layer_sync``, ``make_state``, ``decode_state_specs``,
+``prefill`` and ``decode_step``.  At tp > 1 the serve functions take the
+rank's ``ModelAxis`` and the decode state holds the rank's heads of the
+WKV state (the token shifts are the replicated residual stream).
+``decode_step`` writes the new state into the state tensors in place and
+returns them.
 """
 from __future__ import annotations
 
@@ -91,14 +93,6 @@ class RWKVConfig:
     @property
     def vocab_padded(self) -> int:
         return -(-self.vocab // self.tp) * self.tp
-
-
-def check_serving(cfg: RWKVConfig) -> None:
-    """Serving runs on one rank only: not at tp > 1."""
-    if cfg.tp != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: serving at tp={cfg.tp} — serving beyond one rank, "
-            f"ROADMAP queue 1 item 11")
 
 
 # ------------------------------------------------------------------ params
@@ -381,7 +375,9 @@ class RWKV(nn.Module):
 # ------------------------------------------------------------------ serve
 def make_state(cfg: RWKVConfig, batch: int,
                device: str | torch.device = "cuda") -> dict:
-    """Empty decode state, on CUDA unless the caller asks for the CPU."""
+    """Empty decode state: the WKV state of the rank's ``heads_local``
+    heads, and the token shifts at full ``d_model``; on CUDA unless the
+    caller asks for the CPU."""
     device = resolve_device(device)
     H, N, L = cfg.heads_local, cfg.head_size, cfg.n_layers
     return {
@@ -391,36 +387,47 @@ def make_state(cfg: RWKVConfig, batch: int,
     }
 
 
+def decode_state_specs(cfg: RWKVConfig, batch_entry) -> dict:
+    """Which dim of each decode-state leaf is sharded over which axes (the
+    reference's ``decode_state_specs``): the batch over ``batch_entry``,
+    the WKV state's heads over "model"; the token shifts replicated."""
+    return {"wkv": (None, batch_entry, MODEL_AXIS, None, None),
+            "tm": (None, batch_entry, None),
+            "cm": (None, batch_entry, None)}
+
+
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """(B, 1, d) → next-token logits (B, V)."""
+    """(B, 1, d) → next-token logits (B, V/tp)."""
     return (rms_norm(x, params["ln_f"]) @ params["lm_head"])[:, 0]
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: RWKVConfig):
+def prefill(params: dict, tokens: torch.Tensor, cfg: RWKVConfig, *,
+            model_axis: ModelAxis = NO_MODEL_AXIS):
     """Full-sequence forward; returns (the last position's next-token
-    logits (B, V), decode state)."""
-    check_serving(cfg)
-    x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
+    logits of the rank's vocab shard (B, V/tp), decode state).  At tp > 1
+    ``params`` are the rank's shards and ``model_axis`` its ``ModelAxis``."""
+    x = embed_lookup(params["embed"], tokens, cfg.tp, model_axis).to(cfg.dtype)
     state = make_state(cfg, tokens.shape[0], tokens.device)
     for li in range(cfg.n_layers):   # each layer's WKV from its zero state, in place
         st = state["wkv"][li]
-        x, _, lasts = block(_layer(params, li), x, cfg, state=st, out=st)
+        x, _, lasts = block(_layer(params, li), x, cfg, state=st, out=st, axis=model_axis)
         state["tm"][li] = lasts["tm"]
         state["cm"][li] = lasts["cm"]
     return _head(params, x[:, -1:]), state
 
 
 def decode_step(params: dict, state: dict, token: torch.Tensor, pos: int,
-                cfg: RWKVConfig):
+                cfg: RWKVConfig, *, model_axis: ModelAxis = NO_MODEL_AXIS):
     """One decode step.  token: (B,) int; ``pos`` is not read (the state
     carries the position).  The new state is written into ``state`` in
-    place.  Returns (logits of the token just consumed (B, V), state)."""
-    check_serving(cfg)
-    x = embed_lookup(params["embed"], token[:, None], cfg.tp).to(cfg.dtype)
+    place.  ``model_axis`` as ``prefill``'s.  Returns (logits of the
+    token just consumed (B, V/tp), state)."""
+    x = embed_lookup(params["embed"], token[:, None], cfg.tp, model_axis).to(cfg.dtype)
     for li in range(cfg.n_layers):
         st = state["wkv"][li]
         x, _, lasts = block(_layer(params, li), x, cfg, state=st, out=st,
-                            lasts={"tm": state["tm"][li], "cm": state["cm"][li]})
+                            lasts={"tm": state["tm"][li], "cm": state["cm"][li]},
+                            axis=model_axis)
         state["tm"][li] = lasts["tm"]
         state["cm"][li] = lasts["cm"]
     return _head(params, x), state

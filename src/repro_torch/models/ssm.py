@@ -1,7 +1,7 @@
 """Mamba-2 (SSD, arXiv:2405.21060) and the Zamba2 hybrid
 (arXiv:2411.15242; ``repro/models/ssm.py``): a Mamba-2 backbone with a
 *shared* transformer block applied after every ``attn_every`` layers, its
-weights reused at each application; training at any tp, serving at tp=1.
+weights reused at each application; training and serving at any tp.
 
 SSD recurrence per head (P = head dim, N = ssm state):
   h_t = a_t h_{t-1} + dt_t · x_t B_tᵀ        h: (P, N), a_t a scalar a head
@@ -47,12 +47,13 @@ too (the reference does not checkpoint it): the same values, less memory
 kept for the backward.  Its gradient accumulates over its applications
 and goes through the post-backward buckets.
 
-Serving (tp = 1): ``prefill`` keeps the last ``min(attn_window, S)`` k/v
-rows of each attention site, ring-aligned so that token p lives at slot
-p % window; ``decode_step`` writes the SSM state, the conv state and the
-new k/v rows in place (slot pos % window) and attends to min(pos + 1,
-window) rows.  Serving at tp > 1 raises (ROADMAP queue 1 item 11), and so
-the reference's ``decode_state_specs`` is not ported.
+Serving: ``prefill`` keeps the last ``min(attn_window, S)`` k/v rows of
+each attention site, ring-aligned so that token p lives at slot p %
+window; ``decode_step`` writes the SSM state, the conv state and the new
+k/v rows in place (slot pos % window) and attends to min(pos + 1, window)
+rows.  At tp > 1 both take the rank's ``ModelAxis``; the decode state
+holds the rank's SSM heads and kv heads, and the whole (replicated) conv
+state (``decode_state_specs``).
 """
 from __future__ import annotations
 
@@ -120,14 +121,6 @@ class SSMConfig:
     @property
     def layout(self) -> HeadLayout:
         return HeadLayout(self.n_heads, self.kv_heads, self.hd, self.tp)
-
-
-def check_serving(cfg: SSMConfig) -> None:
-    """Serving runs on one rank only: not at tp > 1."""
-    if cfg.tp != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: serving at tp={cfg.tp} — serving beyond one rank, "
-            f"ROADMAP queue 1 item 11")
 
 
 # ------------------------------------------------------------------ params
@@ -503,9 +496,10 @@ class SSM(nn.Module):
 # ------------------------------------------------------------------ serve
 def make_state(cfg: SSMConfig, batch: int, attn_window: int,
                device: str | torch.device = "cuda") -> dict:
-    """Empty decode state: the SSM and conv states a layer and, a shared
-    attention site, a ring of ``attn_window`` k/v rows.  On CUDA unless
-    the caller asks for the CPU."""
+    """Empty decode state: the SSM state of the rank's ``heads_local``
+    heads and the whole conv state a layer and, a shared attention site, a
+    ring of ``attn_window`` rows of the rank's ``kv_local`` heads.  On
+    CUDA unless the caller asks for the CPU."""
     device = resolve_device(device)
     Hl, Pd, N, L = cfg.heads_local, cfg.head_p, cfg.ssm_state, cfg.n_layers
     st = {
@@ -521,42 +515,55 @@ def make_state(cfg: SSMConfig, batch: int, attn_window: int,
     return st
 
 
+def decode_state_specs(cfg: SSMConfig, batch_entry) -> dict:
+    """Which dim of each decode-state leaf is sharded over which axes (the
+    reference's ``decode_state_specs``): the batch over ``batch_entry``,
+    the SSM heads and the sites' kv heads over "model"; the conv state's
+    channels replicated."""
+    specs = {"ssm": (None, batch_entry, MODEL_AXIS, None, None),
+             "conv": (None, batch_entry, None, None)}
+    if n_attn_sites(cfg):
+        specs["attn_k"] = specs["attn_v"] = (None, batch_entry, None, MODEL_AXIS, None)
+    return specs
+
+
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """(B, 1, d) → next-token logits (B, V)."""
+    """(B, 1, d) → next-token logits (B, V/tp)."""
     return (rms_norm(x, params["ln_f"]) @ params["lm_head"])[:, 0]
 
 
 def _mamba_layers(params: dict, state: dict, x: torch.Tensor, cfg: SSMConfig,
-                  layers: range) -> torch.Tensor:
+                  layers: range, axis: ModelAxis) -> torch.Tensor:
     """``layers`` of the stack over x from the decode state, each layer's
     new SSM and conv state written into ``state`` in place."""
     for li in layers:
         x, ns, nc = mamba_block(_layer(params, li), x, cfg, state=state["ssm"][li],
-                                conv_state=state["conv"][li])
+                                conv_state=state["conv"][li], axis=axis)
         state["ssm"][li].copy_(ns)
         state["conv"][li].copy_(nc)
     return x
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: SSMConfig, attn_window: int = 0):
+def prefill(params: dict, tokens: torch.Tensor, cfg: SSMConfig, attn_window: int = 0, *,
+            model_axis: ModelAxis = NO_MODEL_AXIS):
     """Full-sequence forward.  ``attn_window`` (0: the prompt length) is
     the size of each attention site's ring; its last min(window, S) k/v
     rows are kept, ring-aligned when the window is full so that token p
-    lives at slot p % window.  Returns (the last position's next-token
-    logits (B, V), decode state)."""
-    check_serving(cfg)
+    lives at slot p % window.  At tp > 1 ``params`` are the rank's shards
+    and ``model_axis`` its ``ModelAxis``.  Returns (the last position's
+    next-token logits of the rank's vocab shard (B, V/tp), decode state)."""
     B, S = tokens.shape
-    x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.tp, model_axis).to(cfg.dtype)
     rope = (rope_angles(torch.arange(S, device=tokens.device), cfg.hd, cfg.rope_theta)
             if cfg.attn_every else None)
     w = attn_window or S
     state = make_state(cfg, B, w, tokens.device)
     off = site = 0
     for g in _groups(cfg):
-        x = _mamba_layers(params, state, x, cfg, range(off, off + g))
+        x = _mamba_layers(params, state, x, cfg, range(off, off + g), model_axis)
         off += g
         if cfg.attn_every and off < cfg.n_layers:
-            x, kv = shared_attn_block(params["shared_attn"], x, cfg, rope)
+            x, kv = shared_attn_block(params["shared_attn"], x, cfg, rope, axis=model_axis)
             keep = min(w, S)
             for name, t in zip(("attn_k", "attn_v"), kv):
                 rows = t[:, S - keep:]
@@ -568,21 +575,22 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: SSMConfig, attn_window: int
     return _head(params, x[:, -1:]), state
 
 
-def decode_step(params: dict, state: dict, token: torch.Tensor, pos: int, cfg: SSMConfig):
+def decode_step(params: dict, state: dict, token: torch.Tensor, pos: int, cfg: SSMConfig, *,
+                model_axis: ModelAxis = NO_MODEL_AXIS):
     """One decode step at absolute position ``pos``.  token: (B,) int.
     The new SSM, conv and k/v state is written into ``state`` in place.
-    Returns (logits of the token just consumed (B, V), state)."""
-    check_serving(cfg)
-    x = embed_lookup(params["embed"], token[:, None], cfg.tp).to(cfg.dtype)
+    ``model_axis`` as ``prefill``'s.  Returns (logits of the token just
+    consumed (B, V/tp), state)."""
+    x = embed_lookup(params["embed"], token[:, None], cfg.tp, model_axis).to(cfg.dtype)
     rope = (rope_angles(torch.tensor([pos], device=token.device), cfg.hd, cfg.rope_theta)
             if cfg.attn_every else None)
     off = site = 0
     for g in _groups(cfg):
-        x = _mamba_layers(params, state, x, cfg, range(off, off + g))
+        x = _mamba_layers(params, state, x, cfg, range(off, off + g), model_axis)
         off += g
         if cfg.attn_every and off < cfg.n_layers:
             x, _ = shared_attn_block(params["shared_attn"], x, cfg, rope,
                                      kv_cache=(state["attn_k"][site], state["attn_v"][site]),
-                                     pos=pos)
+                                     pos=pos, axis=model_axis)
             site += 1
     return _head(params, x), state

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM (``repro/models/transformer.py``): the
-training path (dense or MoE FFN, gated cross-attention, at any tp, FSDP
-or not) and the serving paths at tp=1.
+training and serving paths (dense or MoE FFN, gated cross-attention), at
+any tp, FSDP or not.
 
 Parameters are the reference's tree — the same nesting, leaf names and
 stacked ``(n_layers, ...)`` block leaves — so weights carry over by name
@@ -15,9 +15,10 @@ Ported: ``TransformerConfig`` (every field), ``init_params``,
 loss, and depcha's in-backward sync through a ``LayerSync``),
 ``prefill`` and ``decode_step`` (with ``img_embeds``; ``prefill`` with
 ``last_pos``, ``decode_step`` with a ring-buffer slot),
-``decode_step_paged``, ``make_cache`` and the ``Transformer`` module.
-The serve functions raise ``NotImplementedError`` at tp > 1 or with
-FSDP, naming their ROADMAP item.
+``decode_step_paged``, ``make_cache``, ``decode_state_specs`` and the
+``Transformer`` module.  The serve functions run on the rank's shards
+with its ``ModelAxis`` and ``FsdpAxes``, as ``train_forward`` does, and
+return the logits of the rank's vocab shard.
 
 Cross-attention (``cross_attn_every``, llama-3.2-vision): the params hold
 a second stack, ``cross_blocks`` (``n_cross`` layers: the self block's
@@ -159,16 +160,6 @@ class TransformerConfig:
     @property
     def n_self(self) -> int:
         return self.n_layers - self.n_cross
-
-
-def check_serving(cfg: TransformerConfig) -> None:
-    """Serving runs on one rank only: not at tp > 1, and not from FSDP's
-    dp-sharded storage."""
-    if cfg.tp != 1 or cfg.fsdp:
-        what = f"tp={cfg.tp}" if cfg.tp != 1 else "fsdp=True"
-        raise NotImplementedError(
-            f"{cfg.name}: serving at {what} — serving beyond one rank, "
-            f"ROADMAP queue 1 item 11")
 
 
 # ------------------------------------------------------------------ params
@@ -585,8 +576,10 @@ def _image(cfg: TransformerConfig, img_embeds: Optional[torch.Tensor]):
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
-            img_embeds: Optional[torch.Tensor] = None, last_pos: Optional[int] = None):
-    """Full-sequence forward; returns (next_token_logits (B, V), kv_cache).
+            img_embeds: Optional[torch.Tensor] = None, last_pos: Optional[int] = None,
+            model_axis: ModelAxis = NO_MODEL_AXIS, fsdp: FsdpAxes = NO_FSDP):
+    """Full-sequence forward; returns (next_token_logits (B, V/tp), kv_cache):
+    the logits of the rank's vocab shard.
 
     Cache layout: dict of (n_self, B, S, kv_local, hd) stacked tensors:
     the self blocks' (a cross block reads the image, which it projects
@@ -595,21 +588,23 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     return (the continuous engine right-pads prompts to a bucket and
     reads the true last token; causality keeps every earlier position
     independent of the padding).  None returns the last position's.
+    At tp > 1 ``params`` are the rank's shards and ``model_axis`` its
+    ``ModelAxis``; with ``cfg.fsdp`` ``fsdp`` is its ``FsdpAxes``, and each
+    layer's dp shards are gathered before the layer runs.
     """
-    check_serving(cfg)
     img = _image(cfg, img_embeds)
     B, S = tokens.shape
     lay, hd = cfg.layout, cfg.hd
-    x = embed_lookup(params["embed"], tokens, cfg.tp).to(cfg.dtype)
+    x = embed_lookup(params["embed"], tokens, cfg.tp, model_axis).to(cfg.dtype)
     cos, sin = rope_angles(torch.arange(S, device=tokens.device), hd, cfg.rope_theta)
     shape = (cfg.n_self, B, S, lay.kv_local, hd)
     cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=tokens.device),
              "v": torch.empty(shape, dtype=cfg.dtype, device=tokens.device)}
     for stack, li in _layer_order(cfg):
         if stack == "cross_blocks":
-            x = cross_block(_layer(params, li, stack), x, cfg, img)
+            x = cross_block(_layer(params, li, stack), x, cfg, img, model_axis, fsdp)
             continue
-        x, _, k, v = self_block(_layer(params, li), x, cfg, (cos, sin))
+        x, _, k, v = self_block(_layer(params, li), x, cfg, (cos, sin), model_axis, fsdp)
         cache["k"][li] = k
         cache["v"][li] = v
     sel = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
@@ -617,44 +612,46 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
-                cfg: TransformerConfig, *, img_embeds: Optional[torch.Tensor] = None):
+                cfg: TransformerConfig, *, img_embeds: Optional[torch.Tensor] = None,
+                model_axis: ModelAxis = NO_MODEL_AXIS, fsdp: FsdpAxes = NO_FSDP):
     """One decode step.  token: (B,) int; pos: absolute position (int).
 
     cache: dict k/v of (n_self, B, Smax, kv_local, hd).  When Smax <
     pos+1 the cache is a ring buffer (sliding-window archs: Smax ==
     window).  The new k/v are written into ``cache`` in place.
     ``img_embeds`` (B, n_img, d): the cross blocks' image embeddings.
-    Returns (next_logits (B, V), cache).
+    ``model_axis`` and ``fsdp`` as ``prefill``'s.  Returns (next_logits
+    (B, V/tp), cache).
     """
-    check_serving(cfg)
     img = _image(cfg, img_embeds)
     B = token.shape[0]
     smax = cache["k"].shape[2]
     slot = pos % smax
     kv_len = min(pos + 1, smax)
     win = cfg.swa_window if (cfg.swa_window and smax > cfg.swa_window) else None
-    x = embed_lookup(params["embed"], token[:, None], cfg.tp).to(cfg.dtype)
+    x = embed_lookup(params["embed"], token[:, None], cfg.tp, model_axis).to(cfg.dtype)
     cos, sin = rope_angles(torch.tensor([pos], device=token.device), cfg.hd,
                            cfg.rope_theta)
     for stack, li in _layer_order(cfg):
         if stack == "cross_blocks":
-            x = cross_block(_layer(params, li, stack), x, cfg, img)
+            x = cross_block(_layer(params, li, stack), x, cfg, img, model_axis, fsdp)
             continue
-        p = _layer(params, li)
-        q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg)
+        p = fsdp_gather(_layer(params, li), cfg, fsdp)
+        q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg, model_axis)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         kc, vc = cache["k"][li], cache["v"][li]
         kc[:, slot] = k[:, 0]
         vc[:, slot] = v[:, 0]
         o = attn_lib.decode_attention(q, kc, vc, kv_len, window=win)
-        x = _mlp_residual(p, x, o.reshape(B, 1, -1), cfg)[0]
+        x = _mlp_residual(p, x, o.reshape(B, 1, -1), cfg, model_axis)[0]
     return _head(params, x), cache
 
 
 def decode_step_paged(params: dict, pool_k: torch.Tensor, pool_v: torch.Tensor,
                       block_tables: torch.Tensor, tokens: torch.Tensor,
-                      positions: torch.Tensor, cfg: TransformerConfig):
+                      positions: torch.Tensor, cfg: TransformerConfig, *,
+                      model_axis: ModelAxis = NO_MODEL_AXIS, fsdp: FsdpAxes = NO_FSDP):
     """One decode step over a paged KV pool with per-slot positions.
 
     pool_k/pool_v: (n_self, num_blocks, block_size, kv_local, hd), the
@@ -663,17 +660,16 @@ def decode_step_paged(params: dict, pool_k: torch.Tensor, pool_v: torch.Tensor,
     absolute position.  Logical position ``p`` of slot ``w`` lives at
     flat pool row ``table[w, p // bs] * bs + p % bs``.  The per-position
     math is ``decode_step``'s with a per-slot kv_len.  The new k/v rows
-    are written into the pools in place.  Returns (logits (W, V), pool_k,
-    pool_v).
+    are written into the pools in place.  ``model_axis`` and ``fsdp`` as
+    ``prefill``'s.  Returns (logits (W, V/tp), pool_k, pool_v).
     """
-    check_serving(cfg)
     if cfg.n_cross:
         raise ValueError(f"{cfg.name}: paged decode serves decoder-only archs, not "
                          f"cross-attention (the reference asserts the same)")
     W = tokens.shape[0]
     bs = pool_k.shape[2]
     MB = block_tables.shape[1]
-    x = embed_lookup(params["embed"], tokens[:, None], cfg.tp).to(cfg.dtype)
+    x = embed_lookup(params["embed"], tokens[:, None], cfg.tp, model_axis).to(cfg.dtype)
     cos, sin = rope_angles(positions[:, None], cfg.hd, cfg.rope_theta)
     tables = block_tables.long()
     pos = positions.long()
@@ -685,8 +681,8 @@ def decode_step_paged(params: dict, pool_k: torch.Tensor, pool_v: torch.Tensor,
     win = (cfg.swa_window
            if (cfg.swa_window and MB * bs > cfg.swa_window) else None)
     for li in range(cfg.n_self):
-        p = _layer(params, li)
-        q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg)
+        p = fsdp_gather(_layer(params, li), cfg, fsdp)
+        q, k, v = _attn_qkv(p, rms_norm(x, p["ln1"]), cfg, model_axis)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         kf = pool_k[li].view(-1, *pool_k.shape[3:])
@@ -694,15 +690,26 @@ def decode_step_paged(params: dict, pool_k: torch.Tensor, pool_v: torch.Tensor,
         kf[wr] = k[:, 0]
         vf[wr] = v[:, 0]
         o = attn_lib.decode_attention(q, kf[gat], vf[gat], kv_len, window=win)
-        x = _mlp_residual(p, x, o.reshape(W, 1, -1), cfg)[0]
+        x = _mlp_residual(p, x, o.reshape(W, 1, -1), cfg, model_axis)[0]
     return _head(params, x), pool_k, pool_v
 
 
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
-    """Empty KV cache, on CUDA unless the caller asks for the CPU."""
+    """Empty KV cache of the rank's ``kv_local`` heads, on CUDA unless the
+    caller asks for the CPU."""
     device = resolve_device(device)
     lay = cfg.layout
     shape = (cfg.n_self, batch, max_len, lay.kv_local, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def decode_state_specs(cfg: TransformerConfig, batch_entry) -> dict:
+    """Which dim of each cache leaf is sharded over which axes (the
+    reference's ``decode_state_specs``, in ``param_specs``' tuple form):
+    the batch over ``batch_entry`` (the dp axes), the kv heads over
+    "model".  With kv_heads < tp each rank holds the slice its q heads
+    read, so the global dim is tp × kv_local with per-rank content."""
+    s = (None, batch_entry, None, MODEL_AXIS, None)
+    return {"k": s, "v": s}

@@ -6,10 +6,11 @@ from repro_torch.runtime.serve_loop import (
     SamplingParams,
     Server,
     sharded_argmax,
+    sharded_candidates,
     sharded_sample,
 )
 from repro_torch.runtime.train_loop import Trainer, TrainStep, make_train_step
 
 __all__ = ["BlockAllocator", "ContinuousScheduler", "PagedLayout",
            "RequestQueue", "SamplingParams", "Server", "TrainStep", "Trainer",
-           "make_train_step", "sharded_argmax", "sharded_sample"]
+           "make_train_step", "sharded_argmax", "sharded_candidates", "sharded_sample"]

@@ -1,5 +1,5 @@
 """Serving runtime (``repro/runtime/serve_loop.py``): static batcher and
-continuous-batching engine, on one rank.
+continuous-batching engine, on a ("data", "model") mesh of any extent.
 
 - ``Server``/``RequestQueue`` — the static batcher: one padded batch
   prefills together and decodes to the batch-wide ``max_new``.  Decode
@@ -20,9 +20,27 @@ updates the cache and pool tensors in place: ``decode_step`` and
 ``decode_step_paged`` write each new k/v row into them, and admission
 writes a prompt's rows into the pool.
 
-The reference shards slots over data-parallel ranks and heads/vocab over
-"model".  Here both collapse to one rank: ``dp_size`` is 1, the samplers
-take tp=1, and a mesh or process group of more than one rank raises.
+Sharding is the reference's: heads and vocab over "model", batch rows and
+slots over the dp axes.  Every rank runs the same host code on the same
+requests (SPMD); its ``Server`` holds the rank's shards, its
+``ModelAxis`` and its dp group (an ``FsdpAxes``, which FSDP's per-layer
+gathers share), built once from the mesh.  ``generate`` prefills and
+decodes dp rank d's rows of the batch and all-gathers the tokens over
+the dp group once at the end.  The continuous engine's slot w belongs to
+dp rank ``w // W_local`` and its blocks index that rank's pool; a
+request's prefill runs on every rank (every model group's psums, every
+FSDP gather) and only the owner writes its rows; each chunk decodes each
+rank's ``W_local`` slots, masked where inactive, and all-gathers the
+(chunk, W_local) tokens over the dp group, so that every rank's host
+mirror replays the same (chunk, W) tokens.  Every rank thus issues the
+same collectives in the same order on each group.
+
+The samplers work on the vocab-sharded logits (B, V/tp) without a
+full-vocab gather: ``sharded_argmax`` all-gathers each shard's maximum
+and its global index, ``sharded_sample`` each shard's ``K_CAND`` best
+candidates; each makes one all-gather over the model group.  The draw's
+inputs are then bitwise equal on every rank of a model group, and so is
+the token each draws.
 
 A config with cross-attention (llama-3.2-vision) is refused by both
 engines: its prefill and decode need image embeddings, and the
@@ -35,11 +53,12 @@ pos + 1)`` per row, where the reference folds ``pos + 1`` into
 ``PRNGKey(seed)``: the same request and position always draw the same
 token, but the bits differ from ``jax.random``'s.  Greedy picks are exact
 and equal the reference's: ``torch.argmax`` returns the first maximum,
-as ``jnp.argmax`` does.
+as ``jnp.argmax`` does, and across shards the lowest shard wins a tie.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import queue
 import time
 from typing import Optional, Sequence
@@ -48,30 +67,39 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import dependency as dep
+from repro_torch.models.common import (NO_FSDP, NO_MODEL_AXIS, FsdpAxes, ModelAxis,
+                                       _check_axis, fsdp_all_gather, model_all_gather,
+                                       model_axis)
 from repro_torch.models.registry import family_of
 from repro_torch.obs import MetricsRegistry
-from repro_torch.parallel.sharding import dp_axes_of
+from repro_torch.parallel.sharding import MODEL_AXIS, batch_spec, dp_axes_of, dp_index
 from repro_torch.runtime.kvcache import SCRATCH_BLOCK, BlockAllocator, PagedLayout
 from repro_torch.utils.trees import flatten_with_names
 
 
-def _tp1(tp: int) -> None:
-    if tp != 1:
-        raise NotImplementedError(
-            "vocab-sharded sampling (tp > 1): serving beyond one rank, "
-            "ROADMAP queue 1 item 11")
-
-
 # ------------------------------------------------------------- samplers
-def sharded_argmax(logits_local: torch.Tensor, tp: int) -> torch.Tensor:
-    """Greedy token from (B, V) logits → (B,) int32 ids (the first
-    maximum on ties)."""
-    _tp1(tp)
-    return torch.argmax(logits_local, dim=-1).to(torch.int32)
+def sharded_argmax(logits_local: torch.Tensor, tp: int,
+                   axis: ModelAxis = NO_MODEL_AXIS) -> torch.Tensor:
+    """Greedy token from (B, V/tp) vocab-sharded logits → (B,) int32
+    global ids.  Each shard's maximum and its first index (plus the
+    shard's offset) go to every rank in one all-gather; the highest wins,
+    the lowest shard on ties, and within it the lowest index."""
+    _check_axis(tp, axis)
+    arg = torch.argmax(logits_local, dim=-1)
+    if tp == 1:
+        return arg.to(torch.int32)
+    B, v_local = logits_local.shape
+    # f32 values and int ids are exact in f64: one tensor, one collective
+    mine = torch.stack([logits_local.gather(-1, arg[:, None])[:, 0].double(),
+                        (arg + axis.index * v_local).double()], dim=-1)
+    every = model_all_gather(mine, axis, dim=0).view(tp, B, 2)
+    best = torch.argmax(every[..., 0], dim=0)            # the first shard on ties
+    return every[..., 1].gather(0, best[None])[0].to(torch.int32)
 
 
 _U64 = (1 << 64) - 1
-K_CAND = 16          # sampling candidates per row (the reference's default)
+K_CAND = 16          # sampling candidates per row and shard (the reference's default)
 
 
 def draw_generator(seed: int, pos: int, device) -> torch.Generator:
@@ -87,33 +115,58 @@ def draw_generator(seed: int, pos: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(x ^ (x >> 31))
 
 
+def sharded_candidates(logits_local: torch.Tensor, tp: int,
+                       axis: ModelAxis = NO_MODEL_AXIS) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sampling candidates of (B, V/tp) vocab-sharded logits: each
+    shard's ``K_CAND`` best in the order (value desc, index asc), by a
+    stable sort; at tp > 1 one all-gather moves the tp × K_CAND of every
+    shard (values and global ids, shard-major), and a stable sort by
+    value, descending, orders them (value desc, shard asc, index asc).
+    Returns (values (B, K) in the logits' dtype, global ids (B, K) int64),
+    the same on every rank of the model group."""
+    _check_axis(tp, axis)
+    B, v_local = logits_local.shape
+    k = min(K_CAND, v_local)
+    vals, idx = torch.sort(logits_local, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    if tp == 1:
+        return vals, idx
+    mine = torch.stack([vals.double(), (idx + axis.index * v_local).double()], dim=-1)
+    every = model_all_gather(mine, axis, dim=0).view(tp, B, k, 2)
+    every = every.transpose(0, 1).reshape(B, tp * k, 2)
+    order = torch.sort(every[..., 0], dim=-1, descending=True, stable=True).indices
+    every = every.gather(1, order[..., None].expand(-1, -1, 2))
+    return every[..., 0].to(logits_local.dtype), every[..., 1].long()
+
+
 def sharded_sample(
-    logits_local: torch.Tensor,          # (B, V) f32 logits
+    logits_local: torch.Tensor,          # (B, V/tp) f32 vocab-sharded logits
     tp: int,
     generators: Optional[Sequence[torch.Generator]],   # one per row, or None
     temperature: torch.Tensor,           # (B,) f32; 0 → greedy (exact argmax)
     top_k: torch.Tensor,                 # (B,) int; 0 → no top-k cap
     top_p: torch.Tensor,                 # (B,) f32; 1.0 → no nucleus cap
+    axis: ModelAxis = NO_MODEL_AXIS,
 ) -> torch.Tensor:
-    """Temperature/top-k/top-p sampling → (B,) int32 ids.
+    """Temperature/top-k/top-p sampling → (B,) int32 global ids.
 
-    The ``K_CAND`` best logits are the candidates, ordered by (value
-    desc, index asc) with a stable sort, so the head candidate is exactly
-    ``sharded_argmax``'s pick; at temperature 0 a row takes it.  The draw
-    among the candidates uses each row's generator.  ``generators=None``
-    says that no row samples (every temperature is 0): then no draw is
-    made and the result is the greedy pick.
+    The candidates are ``sharded_candidates``': the head candidate is
+    exactly ``sharded_argmax``'s pick, and at temperature 0 a row takes
+    it.  The draw among the candidates uses each row's generator.  As the
+    reference's, the draw is exact whenever the effective top-k is at
+    most ``K_CAND``; an unbounded draw (top_k 0, top_p 1) is truncated to
+    the tp × ``K_CAND`` candidates.  ``generators=None`` says that no row
+    samples (every temperature is 0): then no draw is made and the result
+    is ``sharded_argmax``'s.
     """
-    _tp1(tp)
-    greedy = sharded_argmax(logits_local, tp)
     if generators is None:
-        return greedy
-    B, v_local = logits_local.shape
+        return sharded_argmax(logits_local, tp, axis)
+    B = logits_local.shape[0]
     if len(generators) != B:
         raise ValueError(f"{len(generators)} generators for {B} rows")
-    K = min(K_CAND, v_local)
-    vals, idx = torch.sort(logits_local, dim=-1, descending=True, stable=True)
-    vals, idx = vals[:, :K], idx[:, :K]
+    vals, idx = sharded_candidates(logits_local, tp, axis)
+    K = vals.shape[-1]
+    greedy = idx[:, 0].to(torch.int32)
     t = temperature.clamp_min(1e-6)[:, None]
     scaled = vals.float() / t
     ranks = torch.arange(K, device=logits_local.device)[None, :]
@@ -144,9 +197,13 @@ class SamplingParams:
 class Server:
     """Batched greedy-decoding server for any family with serve hooks.
 
-    ``mesh`` is the port's ``launch.mesh.Mesh``; its data-parallel axes
-    must have extent 1.  ``params`` is the family's parameter tree, on the
-    device that serves.
+    ``mesh`` is the port's ``launch.mesh.Mesh``: its size must be the
+    process group's world (1 without one) and its "model" extent the
+    config's tp.  ``params`` is the family's parameter tree as this rank
+    holds it (its shards at tp > 1 or under FSDP), on the device that
+    serves.  The rank's ``ModelAxis`` and dp group are made here, once
+    (collective: every rank makes its ``Server`` together); ``close``
+    destroys them.
     """
 
     def __init__(self, cfg, mesh, params, *, max_len: int = 256,
@@ -166,13 +223,45 @@ class Server:
         self.device = flatten_with_names(params)[0][0][1].device
         self.max_len = max_len
         self.tp = getattr(cfg, "tp", 1)
-        _tp1(self.tp)
-        self.dp_size = int(np.prod([mesh.shape[a] for a in dp_axes_of(mesh)])) or 1
+        if mesh.shape.get(MODEL_AXIS, 1) != self.tp:
+            raise ValueError(f"tp={self.tp} on a mesh with model extent "
+                             f"{mesh.shape.get(MODEL_AXIS, 1)}")
         world = dist.get_world_size() if dist.is_initialized() else 1
-        if self.dp_size != 1 or world != 1:
-            raise NotImplementedError(
-                f"serving over dp={self.dp_size} / world={world} ranks: one "
-                f"rank only (ROADMAP queue 1 item 11)")
+        if mesh.size != world:
+            raise ValueError(f"a mesh of {mesh.size} ranks ({dict(mesh.shape)}) does not "
+                             f"fit a world of {world}")
+        dp_axes = dp_axes_of(mesh)
+        self.dp_size = math.prod(mesh.shape[a] for a in dp_axes)
+        self.dp_index = dp_index(dist.get_rank() if world > 1 else 0, mesh)
+        fsdp = getattr(cfg, "fsdp", False)
+        if fsdp and dep.reduce_key(cfg.dp_axes, mesh) != dep.reduce_key(dp_axes, mesh):
+            raise ValueError(f"{cfg.name}: FSDP shards over {cfg.dp_axes}, the mesh's dp "
+                             f"axes are {dp_axes}")
+        self.axis = model_axis(mesh, self.device) if self.tp > 1 else NO_MODEL_AXIS
+        self.dp = NO_FSDP
+        if self.dp_size > 1:     # the dp group: the tokens' gather, FSDP's gathers
+            key = dep.reduce_key(dp_axes, mesh)
+            self.dp = FsdpAxes(dep.coset_groups([key], mesh, self.device)[key],
+                               self.dp_index, self.dp_size)
+        # the family functions' keywords: the rank's axes, where they shard
+        self.fwd_kw = {}
+        if self.tp > 1:
+            self.fwd_kw["model_axis"] = self.axis
+        if fsdp and self.dp_size > 1:
+            self.fwd_kw["fsdp"] = self.dp
+        # the cache leaves that carry batch rows, and their batch dim (the
+        # continuous engine takes its one prefill row by it)
+        entry = batch_spec(mesh)[0]
+        self.batch_dims = {n: spec.index(entry)
+                           for n, spec in self.api.decode_state_specs(cfg, entry).items()}
+
+    def close(self) -> None:
+        """Destroy the communicators ``__init__`` made (collective)."""
+        for group in (self.axis.group, self.dp.group):
+            if group is not None:
+                dist.destroy_process_group(group)
+        self.axis, self.dp = NO_MODEL_AXIS, NO_FSDP
+        self.fwd_kw = {}
 
     def _pad_cache(self, cache: dict, prompt_len: int) -> dict:
         """Grow the family's sequence-laid cache leaves (dim 2 =
@@ -186,28 +275,35 @@ class Server:
                 for n, c in cache.items()}
 
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
-        """prompts: (B, S) int → (B, max_new) int32 greedy continuations.
+        """prompts: (B, S) int, the global batch → (B, max_new) int32 greedy
+        continuations, the same on every rank.
 
-        Tokens accumulate on the device and come to the host once at the
-        end.
+        The rank prefills and decodes its dp rank's rows of the batch (B /
+        dp of them, in ``batch_spec``'s order).  Tokens accumulate on the
+        device, are all-gathered over the dp group once, and come to the
+        host once at the end.
         """
         cfg, api = self.cfg, self.api
         B, S = prompts.shape
+        if B % self.dp_size:
+            raise ValueError(f"batch {B} not divisible by dp={self.dp_size}")
+        rows = B // self.dp_size
         t_start = time.perf_counter()
-        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
-                               device=self.device)
-        logits, cache = api.prefill(self.params, toks, cfg)
-        tok = sharded_argmax(logits.float(), self.tp)
+        mine = np.asarray(prompts)[self.dp_index * rows:(self.dp_index + 1) * rows]
+        toks = torch.as_tensor(mine, dtype=torch.int32, device=self.device)
+        logits, cache = api.prefill(self.params, toks, cfg, **self.fwd_kw)
+        tok = sharded_argmax(logits.float(), self.tp, self.axis)
         cache = self._pad_cache(cache, S)
         t_prefill = time.perf_counter()
         out = [tok]
         pos = S
         for _ in range(max_new - 1):
-            logits, cache = api.decode_step(self.params, cache, tok, pos, cfg)
-            tok = sharded_argmax(logits.float(), self.tp)
+            logits, cache = api.decode_step(self.params, cache, tok, pos, cfg, **self.fwd_kw)
+            tok = sharded_argmax(logits.float(), self.tp, self.axis)
             out.append(tok)
             pos += 1
-        result = torch.stack(out, dim=1).cpu().numpy()     # ONE host sync
+        every = fsdp_all_gather(torch.stack(out, dim=1), 0, self.dp)
+        result = every.cpu().numpy()                     # ONE host sync
         t_end = time.perf_counter()
         self.metrics.counter("serve.requests_total").inc(B)
         self.metrics.counter("serve.tokens_generated").inc(B * max_new)
@@ -317,6 +413,13 @@ class ContinuousScheduler:
     positions contribute exactly 0, and the write-then-attend order
     matches ``decode_step``.
 
+    The slots are spread over the server's dp ranks, ``W_local = slots /
+    dp`` each: slot w belongs to dp rank ``w // W_local``, whose pool
+    (the rank's kv heads) holds its blocks, from that rank's allocator.
+    Every rank keeps the whole host mirror (every slot, every allocator)
+    and runs every admission's prefill; each chunk decodes the rank's own
+    slots and all-gathers their tokens over the dp group.
+
     Failure semantics match ``RequestQueue``: a raise during admission
     fails that request's done queue; a raise during a decode chunk fails
     every in-flight request (the pool state is indeterminate) and the
@@ -336,12 +439,19 @@ class ContinuousScheduler:
             raise ValueError(
                 f"block_size {block_size} must divide max_len "
                 f"{server.max_len} (bit-exact decode extent)")
+        self.dp_size = server.dp_size
+        if slots % self.dp_size:
+            raise ValueError(f"slots {slots} not divisible by dp={self.dp_size}")
         self.W = slots
+        self.W_local = slots // self.dp_size
+        self._own = slice(server.dp_index * self.W_local,
+                          (server.dp_index + 1) * self.W_local)
         self.chunk = chunk
         self.eos_id = -1 if eos_id is None else int(eos_id)
         self.layout = PagedLayout.for_requests(
-            server.max_len, block_size, slots)
-        self.allocator = BlockAllocator(self.layout)
+            server.max_len, block_size, self.W_local)
+        # one allocator a dp rank: slot w's blocks index rank w // W_local's pool
+        self.allocators = [BlockAllocator(self.layout) for _ in range(self.dp_size)]
         self.slots = [_Slot() for _ in range(self.W)]
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._backlog: list[Request] = []    # popped but not yet admitted
@@ -352,6 +462,7 @@ class ContinuousScheduler:
         self.pool_k, self.pool_v = self._init_pool()
 
     def _init_pool(self):
+        """The rank's pool: its blocks, its kv heads."""
         cfg = self.cfg
         shape = (cfg.n_self, self.layout.num_blocks, self.layout.block_size,
                  cfg.layout.kv_local, cfg.hd)
@@ -381,10 +492,13 @@ class ContinuousScheduler:
         bs = self.layout.block_size
         return -(-L // bs) * bs
 
+    def _allocator(self, w: int) -> BlockAllocator:
+        return self.allocators[w // self.W_local]
+
     def _retire(self, w: int) -> None:
         s = self.slots[w]
         r = s.req
-        self.allocator.free(s.blocks)
+        self._allocator(w).free(s.blocks)
         self._tables[w, :] = SCRATCH_BLOCK
         self.slots[w] = _Slot()
         r.done.put(np.asarray(r.tokens, np.int32))
@@ -395,7 +509,6 @@ class ContinuousScheduler:
     def _admit(self) -> int:
         """Fill free slots from the queue (FIFO, no reordering)."""
         admitted = 0
-        alloc = self.allocator
         while True:
             if not self._backlog:
                 try:
@@ -405,7 +518,7 @@ class ContinuousScheduler:
             req = self._backlog[0]
             need = len(req.prompt) + req.max_new
             w = next((i for i, s in enumerate(self.slots)
-                      if s.free and alloc.can_fit(need)), None)
+                      if s.free and self._allocator(i).can_fit(need)), None)
             if w is None:
                 break                            # head-of-line blocks: FIFO
             self._backlog.pop(0)
@@ -421,9 +534,11 @@ class ContinuousScheduler:
 
     def _start(self, w: int, req: Request) -> None:
         """Prefill ``req`` into slot ``w``: sample its first token and
-        write the prompt's KV rows into the pool."""
-        cfg = self.cfg
-        alloc = self.allocator
+        write the prompt's KV rows into the pool.  Every rank runs the
+        prefill (its collectives are every rank's); the owner of ``w``
+        writes the rows."""
+        cfg, srv = self.cfg, self.server
+        alloc = self._allocator(w)
         L = len(req.prompt)
         blocks = alloc.alloc(L + req.max_new)
         if blocks is None:
@@ -434,22 +549,24 @@ class ContinuousScheduler:
         sp = req.sampling
         try:
             logits, cache = self.api.prefill(
-                self.server.params, self._vec(toks, torch.int32), cfg,
-                last_pos=L - 1)
+                srv.params, self._vec(toks, torch.int32), cfg, last_pos=L - 1,
+                **srv.fwd_kw)
             gens = ([draw_generator(sp.seed, L - 1, self.device)]
                     if sp.temperature > 0 else None)
             tok = sharded_sample(
                 logits.float(), cfg.tp, gens,
                 self._vec([sp.temperature], torch.float32),
                 self._vec([sp.top_k], torch.int32),
-                self._vec([sp.top_p], torch.float32))
-            bs = self.layout.block_size
-            row = np.asarray(alloc.table_row(blocks))
-            p = np.arange(L)
-            dest = self._vec(row[p // bs] * bs + p % bs, torch.long)
-            rows = self.layout.num_blocks * bs
-            for pool, c in ((self.pool_k, cache["k"]), (self.pool_v, cache["v"])):
-                pool.view(pool.shape[0], rows, *pool.shape[3:])[:, dest] = c[:, 0, :L]
+                self._vec([sp.top_p], torch.float32), srv.axis)
+            if w // self.W_local == srv.dp_index:
+                bs = self.layout.block_size
+                row = np.asarray(alloc.table_row(blocks))
+                p = np.arange(L)
+                dest = self._vec(row[p // bs] * bs + p % bs, torch.long)
+                rows = self.layout.num_blocks * bs
+                for name, pool in (("k", self.pool_k), ("v", self.pool_v)):
+                    c = cache[name].select(srv.batch_dims[name], 0)
+                    pool.view(pool.shape[0], rows, *pool.shape[3:])[:, dest] = c[:, :L]
             first = int(tok[0])
         except Exception:
             alloc.free(blocks)
@@ -468,41 +585,45 @@ class ContinuousScheduler:
             self._retire(w)
 
     def _decode_chunk(self) -> np.ndarray:
-        """``chunk`` decode steps of every slot on the device; returns the
-        (chunk, W) emitted tokens, -1 where a slot was inactive."""
-        cfg, W = self.cfg, self.W
-        live = [s for s in self.slots if not s.free]
-        sps = [s.req.sampling if not s.free else SamplingParams()
-               for s in self.slots]
-        pos0 = [s.pos for s in self.slots]
-        toks = self._vec([s.tok for s in self.slots], torch.int32)
+        """``chunk`` decode steps of the rank's slots on the device, every
+        step of the chunk whether or not a slot is active (inactive rows
+        rewrite their own next row); returns the (chunk, W) emitted tokens
+        of every rank's slots, -1 where a slot was inactive."""
+        cfg, srv = self.cfg, self.server
+        mine = self.slots[self._own]
+        live = [s for s in mine if not s.free]
+        sps = [s.req.sampling if not s.free else SamplingParams() for s in mine]
+        pos0 = [s.pos for s in mine]
+        toks = self._vec([s.tok for s in mine], torch.int32)
         pos = self._vec(pos0, torch.int32)
-        rem = self._vec([s.rem for s in self.slots], torch.int32)
+        rem = self._vec([s.rem for s in mine], torch.int32)
         temps = self._vec([sp.temperature for sp in sps], torch.float32)
         topks = self._vec([sp.top_k for sp in sps], torch.int32)
         topps = self._vec([sp.top_p for sp in sps], torch.float32)
-        tables = self._vec(self._tables, torch.int32)
+        tables = self._vec(self._tables[self._own], torch.int32)
         sampling = any(s.req.sampling.temperature > 0 for s in live)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         outs = []
         for t in range(self.chunk):
             active = rem > 0
             logits, self.pool_k, self.pool_v = self.api.decode_paged(
-                self.server.params, self.pool_k, self.pool_v, tables, toks,
-                pos, cfg)
+                srv.params, self.pool_k, self.pool_v, tables, toks, pos, cfg,
+                **srv.fwd_kw)
             # a row active at step t has been active since the chunk
             # began, so its position is pos0 + t: the host seeds its draw
             # without reading the device
             gens = ([draw_generator(sp.seed, p + t, self.device)
                      for sp, p in zip(sps, pos0)] if sampling else None)
             nxt = sharded_sample(logits.float(), cfg.tp, gens, temps, topks,
-                                 topps)
+                                 topps, srv.axis)
             outs.append(torch.where(active, nxt, -1))
             fin = active & (nxt == self.eos_id)
             toks = torch.where(active, nxt, toks)
             pos = torch.where(active, pos + 1, pos)
             rem = torch.where(fin, zero, torch.where(active, rem - 1, zero))
-        return torch.stack(outs).cpu().numpy()   # ONE host sync per chunk
+        # every rank's (chunk, W_local) side by side: slot d·W_local + j
+        every = fsdp_all_gather(torch.stack(outs), 1, srv.dp)
+        return every.cpu().numpy()               # ONE host sync per chunk
 
     def step(self) -> int:
         """Admit waiting requests, decode one chunk, retire finished
@@ -510,7 +631,8 @@ class ContinuousScheduler:
         self._admit()
         active = [w for w, s in enumerate(self.slots) if not s.free]
         self.metrics.gauge("serve.batch_fill").set(len(active) / self.W)
-        self.metrics.gauge("serve.kv_util").set(self.allocator.utilization)
+        self.metrics.gauge("serve.kv_util").set(
+            max(a.utilization for a in self.allocators))
         if not active:
             return 0
         try:
@@ -518,7 +640,7 @@ class ContinuousScheduler:
         except Exception as e:                   # noqa: BLE001 — delivered
             for w in active:
                 self.slots[w].req.done.put(e)
-                self.allocator.free(self.slots[w].blocks)
+                self._allocator(w).free(self.slots[w].blocks)
                 self._tables[w, :] = SCRATCH_BLOCK
                 self.slots[w] = _Slot()
             self.pool_k, self.pool_v = self._init_pool()

@@ -1,11 +1,11 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
     python tests/_torch_mdworker.py <workdir> <rank> <world> [MODE]
-    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*>
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*|serve-*>
                                                   (tp-<mesh>+: SPLIT_REFERENCE's second part)
 
 MODE: grads (the default), rings, compressed, hier, lm, inception, zero1,
-tp-2x2, tp-1x4, tp-4x1 or tp-ops.
+tp-2x2, tp-1x4, tp-4x1, tp-ops, serve-2x2 or serve-1x4.
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -90,6 +90,15 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               model axis of ``world`` ranks, with their gradients, on
               the inputs of ``workdir/tp_ops.npz``, to
               ``tp-ops_rank<r>.npz``.
+
+  serve-<mesh> (tests/test_torch_serve_tp.py) serving on the ("data",
+              "model") mesh ``SERVE_MESHES[<mesh>]`` from the reference's
+              weights in ``serve-<weights>_params.npz`` and the inputs of
+              ``serve_inputs.npz``, each rank holding its shards
+              (``_serve``): the engines' tokens and the logits of the
+              rank's rows and vocab shard, the model functions' runs, the
+              refusals at data 2, the samplers at model 4 and the
+              padded-vocab witness at 2 x 2; to ``serve-<mesh>_rank<r>.npz``.
 
 ``layer_sync_rank`` is one of 2 processes on ``cuda:0`` for
 tests/test_torch_cuda.py: depcha's in-backward slot staging and the
@@ -230,6 +239,98 @@ XR_RUNS = {"4x1": {"vision": ("vision", False), "zamba2": ("zamba2", False)},
                    "zamba2": ("zamba2", False), "zamba2-kv2": ("zamba2-kv2", False)},
            "2x2": {"vision": ("vision", False), "vision-fsdp": ("vision", True),
                    "rwkv": ("rwkv", False), "zamba2": ("zamba2", False)}}
+
+
+# serving on the ("data", "model") meshes of SERVE_MESHES (modes serve-2x2,
+# serve-1x4; tests/test_torch_serve_tp.py): the reference's mk_serve
+# (check 13 of tests/_mdworker.py), f32, with kv 4 (sharded over "model")
+# and kv 2 (sliced at model 4), its prompt lengths, engines and budgets
+SERVE_CFG = dict(name="dense", n_layers=2, d_model=64, n_heads=8, d_ff=128, vocab=96,
+                 attn_chunk=16)
+SERVE_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}       # (data, model)
+SERVE_LENS = (5, 12, 17, 3, 30, 9)
+SERVE_NEW, SERVE_MAX_LEN, SERVE_SLOTS, SERVE_BLOCK, SERVE_CHUNK = 10, 64, 8, 16, 4
+# the static engine's batch of rwkv's and zamba2's runs and the model
+# functions' (MoE, cross-attention): prompt lengths padded to 13, off the
+# dims the reference's _pad_cache would take for the prompt's (the heads
+# of the recurrent states at tp 1, 2, 4, zamba2's conv 3, d_model 64)
+SERVE_RECURRENT_LENS = (13, 7, 11, 5)
+SERVE_FN_STEPS = 4
+# mesh -> run -> (kind, weights, overrides): the engines' runs
+SERVE_RUNS = {
+    "2x2": {"kv4": ("dense", "kv4", {"kv_heads": 4}),
+            "kv4-fsdp": ("dense", "kv4", {"kv_heads": 4, "fsdp": True}),
+            "rwkv": ("rwkv", "rwkv", {}), "zamba2": ("zamba2", "zamba2", {})},
+    "1x4": {"kv4": ("dense", "kv4", {"kv_heads": 4}),
+            "kv2": ("dense", "kv2", {"kv_heads": 2}),
+            "rwkv": ("rwkv", "rwkv", {}), "zamba2": ("zamba2", "zamba2", {})}}
+# mesh -> run -> kind: prefill and decode_step called directly
+SERVE_FN_RUNS = {"2x2": {"granite": "granite", "vision": "vision"}}
+# the reference fault: qwen3's smoke vocab 97 at model 2 pads to 98 columns
+SERVE_PAD_VOCAB = 97
+
+
+def serve_config(kind: str, tp: int, ref: bool = False, **over):
+    """A serving run's config at ``tp`` in either package: ``dense`` is
+    ``SERVE_CFG``, f32; the others the smoke configs at vocab 96
+    (``xr_config``, ``moe_config``); ``qwen3-pad`` qwen3's smoke config at
+    its own vocab, 97."""
+    import dataclasses
+
+    if kind == "dense":
+        if ref:
+            import jax.numpy as jnp
+
+            from repro.models.transformer import TransformerConfig
+            return TransformerConfig(**SERVE_CFG, tp=tp, dtype=jnp.float32, **over)
+        import torch
+
+        from repro_torch.models.transformer import TransformerConfig
+        return TransformerConfig(**SERVE_CFG, tp=tp, dtype=torch.float32, **over)
+    if kind == "granite":
+        return moe_config("granite", tp, ref=ref, **over)
+    if kind == "qwen3-pad":
+        if ref:
+            from repro.configs import get_arch
+        else:
+            from repro_torch.configs import get_arch
+        return dataclasses.replace(get_arch("qwen3-1.7b").make_smoke(), tp=tp, **over)
+    return xr_config(kind, tp, ref=ref, **over)
+
+
+def serve_prompts() -> list:
+    """Check 13's prompts (``tests/_mdworker.py``)."""
+    rng = np.random.default_rng(11)
+    return [rng.integers(1, 96, size=int(n)).astype(np.int32) for n in SERVE_LENS]
+
+
+def left_padded(prompts) -> np.ndarray:
+    """The batch ``RequestQueue`` builds: prompts left-padded with 0."""
+    S = max(len(p) for p in prompts)
+    out = np.zeros((len(prompts), S), np.int32)
+    for i, p in enumerate(prompts):
+        out[i, S - len(p):] = p
+    return out
+
+
+def serve_inputs() -> dict:
+    """The serving runs' inputs: the engines' prompts, the recurrent runs'
+    and model functions' batch, the cross-attention run's images, and
+    check 13's sampler logits (``tie``: equal maxima on shards 1 and 3,
+    and in row 0 a second one inside shard 1; ``rand``: normal, its row 2
+    the tie row)."""
+    rng = np.random.default_rng(5)
+    recurrent = [rng.integers(1, 96, size=n).astype(np.int32) for n in SERVE_RECURRENT_LENS]
+    v_local = 96 // 4
+    tie = np.full((2, 96), -5.0, np.float32)
+    tie[:, 1 * v_local + 3] = 7.0
+    tie[:, 3 * v_local + 0] = 7.0
+    tie[0, 1 * v_local + 5] = 7.0
+    rand = np.random.default_rng(3).normal(size=(4, 96)).astype(np.float32)
+    rand[2] = tie[0]
+    return {"batch": left_padded(serve_prompts()), "recurrent": left_padded(recurrent),
+            "img": rng.standard_normal((len(recurrent), 8, 64)).astype(np.float32),
+            "tie": tie, "rand": rand}
 
 
 def xr_config(kind: str, tp: int, **over):
@@ -814,6 +915,179 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
     np.savez(os.path.join(workdir, f"tp-{mesh_name}_rank{rank}.npz"), **out)
 
 
+def _serve(workdir: str, rank: int, mesh_name: str) -> None:
+    """Serving on the mesh ``SERVE_MESHES[mesh_name]``, each rank holding
+    its shards of the weights in ``serve-<weights>_params.npz`` (the
+    reference's global trees): for each run of ``SERVE_RUNS`` the static
+    engine's tokens on the run's batch, the logits of the rank's rows
+    and vocab shard at its prefill and each decode step, and the decode
+    state a prefill of the rank's rows leaves; for the dense
+    runs also the continuous engine on check 13's prompts, each prompt
+    alone through the static engine, and (kv4) check 13's sampling runs
+    through the continuous engine; the runs of ``SERVE_FN_RUNS`` through
+    ``prefill``/``decode_step``; at data 2 the refusals of a batch or
+    slots that dp does not divide; at model 4 the samplers on check 13's
+    logits; at 2 x 2 the padded-vocab witness.  Results to
+    ``serve-<mesh>_rank<r>.npz``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.common import model_all_gather
+    from repro_torch.parallel.sharding import dp_index
+    from repro_torch.runtime import (ContinuousScheduler, SamplingParams, Server,
+                                     sharded_argmax, sharded_candidates, sharded_sample)
+    from repro_torch.runtime.serve_loop import draw_generator
+    from repro_torch.utils.convert import params_from_numpy
+
+    data, model = SERVE_MESHES[mesh_name]
+    mesh = make_smoke_mesh(data, model)
+    inp = dict(np.load(os.path.join(workdir, "serve_inputs.npz")))
+    prompts = serve_prompts()
+    d = dp_index(rank, mesh)
+    out = {}
+
+    def weights(name):
+        return dict(np.load(os.path.join(workdir, f"serve-{name}_params.npz")))
+
+    def local(cfg, named):
+        return params_from_numpy(named, "cpu", mesh=mesh, rank=rank,
+                                 rules=family_lib(cfg).param_rules(cfg))
+
+    def recording(server):
+        """The server's prefill and decode_step outputs' logits, kept."""
+        api, logs = server.api, []
+
+        def rec(fn):
+            def call(*a, **kw):
+                res = fn(*a, **kw)
+                logs.append(res[0].clone())
+                return res
+            return call
+
+        server.api = dataclasses.replace(api, prefill=rec(api.prefill),
+                                         decode_step=rec(api.decode_step))
+        return logs
+
+    for run, (kind, wname, over) in SERVE_RUNS[mesh_name].items():
+        cfg = serve_config(kind, model, dp_axes=("data",), **over)
+        srv = Server(cfg, mesh, local(cfg, weights(wname)), max_len=SERVE_MAX_LEN)
+        batch = inp["batch"] if kind == "dense" else inp["recurrent"]
+        api, logs = srv.api, recording(srv)
+        out[f"{run}/static"] = srv.generate(batch, SERVE_NEW)
+        srv.api = api
+        out.update({f"{run}/logits/{t}": lg.numpy() for t, lg in enumerate(logs)})
+        rows = slice(d * len(batch) // data, (d + 1) * len(batch) // data)
+        _, state = family_lib(cfg).prefill(srv.params, torch.from_numpy(batch[rows]), cfg,
+                                           **srv.fwd_kw)
+        out.update({f"{run}/state/{n}": t.numpy() for n, t in state.items()})
+        if kind == "dense":
+            eng = ContinuousScheduler(srv, slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                                      chunk=SERVE_CHUNK)
+            for i, o in enumerate(eng.generate_batch(prompts, SERVE_NEW)):
+                out[f"{run}/cont/{i}"] = o
+            for i, p in enumerate(prompts):       # a row a dp rank, as check 13's
+                out[f"{run}/alone/{i}"] = srv.generate(np.tile(p[None], (data, 1)),
+                                                       SERVE_NEW)[0]
+            if run == "kv4":
+                for name, sp in (("s42a", SamplingParams(0.8, 8, 1.0, 42)),
+                                 ("s42b", SamplingParams(0.8, 8, 1.0, 42)),
+                                 ("s9", SamplingParams(0.8, 8, 1.0, 9)),
+                                 ("k1", SamplingParams(0.9, 1, 1.0, 3))):
+                    for i, o in enumerate(eng.generate_batch(prompts[:3], SERVE_NEW, sp)):
+                        out[f"{run}/{name}/{i}"] = o
+            if data > 1:
+                for what, call in (
+                        ("batch", lambda: srv.generate(batch[:data + 1], 2)),
+                        ("slots", lambda: ContinuousScheduler(srv, slots=data + 1))):
+                    try:
+                        call()
+                        out[f"{run}/refused/{what}"] = np.array("")
+                    except ValueError as e:
+                        out[f"{run}/refused/{what}"] = np.array(str(e))
+        srv.close()
+
+    axis = None
+    if SERVE_FN_RUNS.get(mesh_name) or model == 4:
+        from repro_torch.models.common import model_axis
+
+        axis = model_axis(mesh, "cpu")
+
+    def greedy_loop(cfg, params, toks, kw, steps):
+        """prefill, then ``steps`` greedy decode steps over a cache grown
+        to SERVE_MAX_LEN: each step's logits and the tokens."""
+        lib = family_lib(cfg)
+        S = toks.shape[1]
+        logits, cache = lib.prefill(params, toks, cfg, **kw)
+        logs, tokens = [logits], []
+        for t in range(steps):
+            tok = sharded_argmax(logits, cfg.tp, axis)
+            tokens.append(tok)
+            if t == 0:
+                cache = {n: F.pad(c, (0, 0, 0, 0, 0, SERVE_MAX_LEN - S)) for n, c in
+                         cache.items()}
+            logits, cache = lib.decode_step(params, cache, tok, S + t, cfg, **kw)
+            logs.append(logits)
+        return logs, torch.stack(tokens, 1)
+
+    rows = slice(d * len(inp["recurrent"]) // data, (d + 1) * len(inp["recurrent"]) // data)
+    toks = torch.from_numpy(inp["recurrent"][rows])
+    for run, kind in SERVE_FN_RUNS.get(mesh_name, {}).items():
+        cfg = serve_config(kind, model, dp_axes=("data",))
+        kw = {"model_axis": axis}
+        if kind == "vision":
+            kw["img_embeds"] = torch.from_numpy(inp["img"][rows])
+        logs, tokens = greedy_loop(cfg, local(cfg, weights(kind)), toks, kw, SERVE_FN_STEPS)
+        out.update({f"{run}/logits/{t}": lg.numpy() for t, lg in enumerate(logs)})
+        out[f"{run}/tokens"] = tokens.numpy()
+
+    if mesh_name == "2x2":
+        # the padded vocab: column 97 of lm_head is drawn, and nothing
+        # masks it; doubling column k*'s weights into it (k* row 0's
+        # greedy pick among the 97 real ids) makes id 97 the pick
+        cfg = serve_config("qwen3-pad", model, dp_axes=("data",))
+        named = weights("qwen3-pad")
+        logits, _ = family_lib(cfg).prefill(local(cfg, named), torch.from_numpy(
+            inp["recurrent"]), cfg, model_axis=axis)
+        every = model_all_gather(logits, axis)
+        k = int(torch.argmax(every[0, :SERVE_PAD_VOCAB]))
+        named["lm_head"] = named["lm_head"].copy()
+        named["lm_head"][:, SERVE_PAD_VOCAB] = 2 * named["lm_head"][:, k]
+        srv = Server(cfg, mesh, local(cfg, named), max_len=SERVE_MAX_LEN)
+        out["pad/k"] = np.array(k)
+        out["pad/logit_k"] = every[0, k].numpy()
+        out["pad/tokens"] = srv.generate(inp["recurrent"], 2)
+        srv.close()
+
+    if model == 4:
+        cols = slice(axis.index * 24, (axis.index + 1) * 24)
+        tie = torch.from_numpy(inp["tie"][:, cols])
+        rand = torch.from_numpy(inp["rand"][:, cols])
+        B = rand.shape[0]
+        out["sample/argmax_tie"] = sharded_argmax(tie, 4, axis).numpy()
+        out["sample/argmax_rand"] = sharded_argmax(rand, 4, axis).numpy()
+        vals, ids = sharded_candidates(rand, 4, axis)
+        out["sample/cand_vals"], out["sample/cand_ids"] = vals.numpy(), ids.numpy()
+
+        def draws(seed, temp, top_k, top_p=1.0, positions=8):
+            return np.stack([sharded_sample(
+                rand, 4, [draw_generator(seed, pos, "cpu") for _ in range(B)],
+                torch.full((B,), temp), torch.full((B,), top_k, dtype=torch.int32),
+                torch.full((B,), top_p), axis).numpy() for pos in range(positions)])
+
+        out["sample/temp0"] = draws(0, 0.0, 0, positions=1)[0]
+        out["sample/topk1"] = draws(3, 0.9, 1)
+        out["sample/s42a"], out["sample/s42b"] = draws(42, 0.8, 8), draws(42, 0.8, 8)
+        out["sample/s9"] = draws(9, 0.8, 8)
+        out["sample/unbounded"] = draws(1, 5.0, 0, positions=64)
+    if axis is not None:
+        dist.destroy_process_group(axis.group)
+    np.savez(os.path.join(workdir, f"serve-{mesh_name}_rank{rank}.npz"), **out)
+
+
 def _tp_ops(workdir: str, rank: int, world: int) -> None:
     """The model-axis building blocks over a model axis of ``world`` ranks
     (mesh data 1 x model world), each with its gradient."""
@@ -1079,6 +1353,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _inception(workdir, rank)
         elif mode == "zero1":
             _zero1(workdir, rank)
+        elif mode.startswith("serve-"):
+            _serve(workdir, rank, mode[len("serve-"):])
         elif mode.startswith("tp-") and mode != "tp-ops":
             _tp(workdir, rank, mode[len("tp-"):])
         elif mode == "tp-ops":
@@ -1410,6 +1686,140 @@ def _tp_reference(workdir: str, mesh_name: str, part: str = "all") -> dict:
     return out
 
 
+def _serve_reference(workdir: str, mesh_name: str) -> dict:
+    """The JAX package's serving on ``SERVE_MESHES[mesh_name]`` (4 fake
+    devices) from the same weights and inputs as ``_serve``: each run's
+    static engine, its greedy prefill/decode_step loop through
+    ``shard_map`` (the logits and the prefill's decode state, global), the
+    dense runs' continuous engine,
+    the model functions' runs, the padded-vocab witness at 2 x 2; at 1 x 4
+    check 13's samplers and the tp = 1 engines on one device."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType
+    from jax.sharding import PartitionSpec as P
+
+    from repro.models.registry import family_of
+    from repro.parallel.sharding import batch_spec
+    from repro.runtime import ContinuousScheduler, Server, sharded_argmax, sharded_sample
+    from repro.utils.trees import flatten_with_names
+
+    data, model = SERVE_MESHES[mesh_name]
+    auto = (AxisType.Auto,) * 2
+    mesh = jax.make_mesh((data, model), ("data", "model"), axis_types=auto)
+    inp = dict(np.load(os.path.join(workdir, "serve_inputs.npz")))
+    out = {}
+    seq_leaves = ("k", "v", "attn_k", "attn_v")
+
+    def weights(cfg, named):
+        lib = family_lib(cfg, ref=True)
+        leaves, treedef = flatten_with_names(jax.eval_shape(
+            lambda: lib.init_params(jax.random.PRNGKey(0), cfg)))   # the tree, not its draws
+        return jax.tree_util.tree_unflatten(treedef, [jnp.asarray(named[n]) for n, _ in leaves])
+
+    def saved(name):
+        return dict(np.load(os.path.join(workdir, f"serve-{name}_params.npz")))
+
+    def greedy_loop(cfg, params, toks, steps, img=None):
+        """prefill, then ``steps`` greedy decode steps over a cache grown
+        to SERVE_MAX_LEN, in shard_map on the mesh: the global logits of
+        each step, the tokens (argmax over the whole vocab: the lowest
+        shard and index on ties, as sharded_argmax) and the prefill's
+        decode state (global, as ``decode_state_specs`` lays it out)."""
+        api, lib = family_of(cfg), family_lib(cfg, ref=True)
+        pspecs = api.param_rules(cfg).tree_specs(params)
+        bspec = batch_spec(mesh)
+        cspecs = api.decode_state_specs(cfg, bspec[0])
+        lspec = P(bspec[0], "model")
+        ex, espec = ((), ()) if img is None else ((jnp.asarray(img),), (bspec,))
+
+        def kw(e):
+            return {"img_embeds": e[0]} if e else {}
+
+        pf = jax.jit(jax.shard_map(
+            lambda p, t, *e: lib.prefill(p, t, cfg, **kw(e)), mesh=mesh,
+            in_specs=(pspecs, bspec) + espec, out_specs=(lspec, cspecs), check_vma=False))
+        dc = jax.jit(jax.shard_map(
+            lambda p, c, t, pos, *e: lib.decode_step(p, c, t, pos, cfg, **kw(e)), mesh=mesh,
+            in_specs=(pspecs, cspecs, bspec, P()) + espec, out_specs=(lspec, cspecs),
+            check_vma=False))
+        S = toks.shape[1]
+        logits, cache = pf(params, jnp.asarray(toks), *ex)
+        state = {n: np.asarray(c) for n, c in cache.items()}
+        logs, tokens = [np.asarray(logits)], []
+        for t in range(steps):
+            tok = np.argmax(logs[-1], axis=-1).astype(np.int32)
+            tokens.append(tok)
+            if t == 0:
+                cache = {n: (jnp.pad(c, [(0, 0), (0, 0), (0, SERVE_MAX_LEN - S)]
+                                     + [(0, 0)] * (c.ndim - 3)) if n in seq_leaves else c)
+                         for n, c in cache.items()}
+            logits, cache = dc(params, cache, jnp.asarray(tok), jnp.int32(S + t), *ex)
+            logs.append(np.asarray(logits))
+        return logs, (np.stack(tokens, 1) if tokens else None), state
+
+    for run, (kind, wname, over) in SERVE_RUNS[mesh_name].items():
+        cfg = serve_config(kind, model, ref=True, dp_axes=("data",), **over)
+        params = weights(cfg, saved(wname))
+        batch = inp["batch"] if kind == "dense" else inp["recurrent"]
+        srv = Server(cfg, mesh, params, max_len=SERVE_MAX_LEN)
+        out[f"{run}/static"] = srv.generate(batch, SERVE_NEW)
+        logs, toks, state = greedy_loop(cfg, params, batch, SERVE_NEW - 1)
+        out.update({f"{run}/logits/{t}": lg for t, lg in enumerate(logs)})
+        out.update({f"{run}/state/{n}": v for n, v in state.items()})
+        out[f"{run}/loop"] = toks
+        if kind == "dense":
+            eng = ContinuousScheduler(srv, slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                                      chunk=SERVE_CHUNK)
+            for i, o in enumerate(eng.generate_batch(serve_prompts(), SERVE_NEW)):
+                out[f"{run}/cont/{i}"] = o
+    for run, kind in SERVE_FN_RUNS.get(mesh_name, {}).items():
+        cfg = serve_config(kind, model, ref=True, dp_axes=("data",))
+        logs, toks, _ = greedy_loop(cfg, weights(cfg, saved(kind)), inp["recurrent"],
+                                    SERVE_FN_STEPS, img=inp["img"] if kind == "vision" else None)
+        out.update({f"{run}/logits/{t}": lg for t, lg in enumerate(logs)})
+        out[f"{run}/tokens"] = toks
+    if mesh_name == "2x2":
+        cfg = serve_config("qwen3-pad", model, ref=True, dp_axes=("data",))
+        named = saved("qwen3-pad")
+        every = greedy_loop(cfg, weights(cfg, named), inp["recurrent"], 0)[0][0]
+        k = int(np.argmax(every[0, :SERVE_PAD_VOCAB]))
+        named["lm_head"] = named["lm_head"].copy()
+        named["lm_head"][:, SERVE_PAD_VOCAB] = 2 * named["lm_head"][:, k]
+        srv = Server(cfg, mesh, weights(cfg, named), max_len=SERVE_MAX_LEN)
+        out["pad/k"], out["pad/logit_k"] = np.array(k), every[0, k]
+        out["pad/tokens"] = srv.generate(inp["recurrent"], 2)
+    if mesh_name == "1x4":
+        def run_argmax(logits):
+            return np.asarray(jax.jit(lambda l: jax.shard_map(
+                lambda x: sharded_argmax(x, 4), mesh=mesh, in_specs=(P(None, "model"),),
+                out_specs=P(), check_vma=False)(l))(jnp.asarray(logits)))
+
+        def run_sample(logits, temps, topks, topps, seeds):
+            body = (lambda l, t, k, p, s: sharded_sample(
+                l, 4, jax.vmap(jax.random.PRNGKey)(s), t, k, p))
+            return np.asarray(jax.jit(lambda *a: jax.shard_map(
+                body, mesh=mesh, in_specs=(P(None, "model"),) + (P(),) * 4,
+                out_specs=P(), check_vma=False)(*a))(
+                jnp.asarray(logits), jnp.asarray(temps), jnp.asarray(topks),
+                jnp.asarray(topps), jnp.asarray(seeds)))
+
+        out["sample/argmax_tie"] = run_argmax(inp["tie"])
+        out["sample/argmax_rand"] = run_argmax(inp["rand"])
+        out["sample/temp0"] = run_sample(inp["rand"], np.zeros(4, np.float32),
+                                         np.zeros(4, np.int32), np.ones(4, np.float32),
+                                         np.arange(4, dtype=np.uint32))
+        # tp = 1 on one device: the engines' oracle for every mesh
+        mesh1 = jax.make_mesh((1, 1), ("data", "model"), axis_types=auto,
+                              devices=jax.devices()[:1])
+        for name, (kind, wname, over) in SERVE_RUNS["1x4"].items():
+            cfg = serve_config(kind, 1, ref=True, **over)
+            srv = Server(cfg, mesh1, weights(cfg, saved(wname)), max_len=SERVE_MAX_LEN)
+            out[f"tp1/{name}/static"] = srv.generate(
+                inp["batch"] if kind == "dense" else inp["recurrent"], SERVE_NEW)
+    return out
+
+
 def _fsdp_fault(params, mesh, cfg) -> dict:
     """The reference's plain clipped step under FSDP on data 4 x model 1
     (``train_loop.py``'s ``clip_by_global_norm`` inside ``shard_map``,
@@ -1467,7 +1877,7 @@ def reference(workdir: str, mode: str) -> None:
     from repro.core.compression import compressed_allreduce
     from repro.kernels.collectives import ops
 
-    inputs = ({} if mode in ("inception", "zero1") or mode.startswith("tp-")
+    inputs = ({} if mode in ("inception", "zero1") or mode.startswith(("tp-", "serve-"))
               else dict(np.load(os.path.join(workdir, "inputs.npz"))))
     mesh4 = jax.make_mesh((WORLD,), ("data",), axis_types=(AxisType.Auto,))
     mesh22 = jax.make_mesh((2, 2), ("pair", "ring"),
@@ -1481,7 +1891,9 @@ def reference(workdir: str, mode: str) -> None:
         return np.asarray(run(x.reshape(-1))).reshape(WORLD, -1)
 
     out = {}
-    if mode.startswith("tp-"):
+    if mode.startswith("serve-"):
+        out = _serve_reference(workdir, mode[len("serve-"):])
+    elif mode.startswith("tp-"):
         name = mode[len("tp-"):]
         if name.endswith("+"):
             out = _tp_reference(workdir, name[:-1], part="extra")

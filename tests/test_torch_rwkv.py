@@ -141,16 +141,19 @@ def test_registry_resolves_rwkv():
 
 
 def test_tensor_parallel_config_raises():
-    """rwkv trains at tp > 1 (tests/test_torch_rwkv_train.py); serving it
-    there is item 11."""
+    """rwkv serves at tp > 1 on the rank's shards with its ``ModelAxis``
+    (tests/test_torch_serve_tp.py); without one the serve functions raise,
+    and the decode state is the rank's: its heads of the WKV state."""
     cfg = make_config(tp=4)
     params = rwkv.init_params(cfg, device="meta")
     assert params["blocks"]["wr"].shape == (32, 4096, 4096)    # the global tree
     toks = torch.zeros((1, 3), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="tp=4 .* ROADMAP queue 1 item 11"):
+    with pytest.raises(ValueError, match="tp=4 but the model axis has extent 1"):
         rwkv.prefill(params, toks, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        rwkv.decode_step(params, {}, toks[:, 0], 0, cfg)
+    state = rwkv.make_state(cfg, 1, "meta")
+    assert state["wkv"].shape == (32, 1, 16, 64, 64) and state["tm"].shape == (32, 1, 4096)
+    with pytest.raises(ValueError, match="pass the rank's ModelAxis"):
+        rwkv.decode_step(params, state, toks[:, 0], 0, cfg)
 
 
 # ----------------------------------------------------------------- pieces

@@ -202,9 +202,14 @@ def test_request_queue_delivers_errors(setup):
 
 
 def test_server_refuses_more_than_one_rank(setup):
+    """Without a process group the world is one rank: a mesh of more
+    ranks, or whose model extent is not the config's tp, is refused (the
+    engines on several ranks: tests/test_torch_serve_tp.py)."""
     cfg, _, srv, _ = setup
-    with pytest.raises(NotImplementedError, match="one rank"):
+    with pytest.raises(ValueError, match="does not fit a world of 1"):
         Server(cfg, make_smoke_mesh(2, 1), srv.params)
+    with pytest.raises(ValueError, match="tp=1 on a mesh with model extent 2"):
+        Server(cfg, make_smoke_mesh(1, 2), srv.params)
 
 
 # Prompt lengths of the rwkv tests stay off H (4) and d_model (64): the
@@ -277,7 +282,7 @@ def test_continuous_oversubscribed_slots_drain(setup):
     assert len(outs) == 11
     assert all(o.shape == (5,) for o in outs)
     assert eng.idle
-    assert eng.allocator.in_use == 0
+    assert eng.allocators[0].in_use == 0
 
 
 def test_continuous_rejects_oversized_request(setup):
@@ -329,7 +334,7 @@ def test_continuous_eos_stops_early(setup):
     out = eng.generate_batch([prompt], 8)[0]
     stop = int(np.argmax(ref == eos))
     np.testing.assert_array_equal(out, ref[:stop + 1])
-    assert eng.allocator.in_use == 0
+    assert eng.allocators[0].in_use == 0
 
 
 def test_continuous_decode_failure_fails_every_request(setup, monkeypatch):
@@ -343,7 +348,7 @@ def test_continuous_decode_failure_fails_every_request(setup, monkeypatch):
     monkeypatch.setattr(eng, "_decode_chunk", boom)
     eng.step()
     assert all(isinstance(d.get_nowait(), RuntimeError) for d in dones)
-    assert eng.idle and eng.allocator.in_use == 0
+    assert eng.idle and eng.allocators[0].in_use == 0
 
 
 # ------------------------------------------------------------- sampling

@@ -555,13 +555,21 @@ def test_launcher_trains_zamba2_on_cpu():
 
 # ------------------------------------------------------------- serving
 def test_tensor_parallel_serving_raises():
+    """zamba2 serves at tp > 1 with the rank's ``ModelAxis``
+    (tests/test_torch_serve_tp.py); without one the serve functions raise,
+    and the decode state is the rank's: its SSM heads and kv heads, the
+    whole conv state."""
     cfg = make_config(tp=4)
     params = ssm.init_params(cfg, device="meta")
     toks = torch.zeros((1, 3), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="tp=4 .* ROADMAP queue 1 item 11"):
+    with pytest.raises(ValueError, match="tp=4 but the model axis has extent 1"):
         ssm.prefill(params, toks, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        ssm.decode_step(params, {}, toks[:, 0], 0, cfg)
+    state = ssm.make_state(cfg, 1, 8, "meta")
+    assert state["ssm"].shape == (54, 1, 20, 64, 64)
+    assert state["conv"].shape == (54, 1, 3, 5120 + 128)
+    assert state["attn_k"].shape == (8, 1, 8, 8, 80)
+    with pytest.raises(ValueError, match="pass the rank's ModelAxis"):
+        ssm.decode_step(params, state, toks[:, 0], 0, cfg)
 
 
 def _ref_prefill(mesh, jparams, ref_cfg, toks, window=0):

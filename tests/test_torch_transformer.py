@@ -292,23 +292,37 @@ def test_decode_step_paged_matches_reference(smoke_mesh, name):
     dict(moe=MoECfg(num_experts=4, top_k=2, d_expert=16)), dict(cross_attn_every=1),
     dict(fsdp=True), dict(tp=2)])
 def test_unported_features_raise(over):
-    """Serving at tp > 1 or from FSDP's storage raises (item 11); the
-    engines refuse a cross-attention config (they take no images, as the
-    reference's engines take none) and so does paged decode.  MoE and
-    FSDP train: an MoE FFN replaces the dense one (f32 router) and serves
-    at tp = 1; FSDP's storage needs the mesh and the rank to keep its dp
-    shards."""
+    """The serve functions at tp > 1 need the rank's ``ModelAxis`` and
+    raise without one (``models/common.py::_check_axis``; on several
+    ranks in tests/test_torch_serve_tp.py); FSDP's storage needs the mesh
+    and the rank to keep its dp shards, and on a mesh of one rank serves
+    as the tree it is.  The engines refuse a cross-attention config (they
+    take no images, as the reference's engines take none) and so does
+    paged decode.  An MoE FFN replaces the dense one (f32 router)."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
     cfg = dataclasses.replace(qwen3_smoke(), **over)
     toks = torch.zeros((1, 5), dtype=torch.long)
-    if cfg.tp != 1 or cfg.fsdp:
-        # tp > 1 and FSDP train (tests/test_torch_tp.py); serving them is item 11
+    if cfg.tp != 1:
         params = tf.init_params(cfg, device="meta")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-            tf.prefill(params, toks, cfg)
-        if cfg.fsdp:
-            with pytest.raises(ValueError, match="pass the mesh"):
-                tf.init_params(cfg, device="cpu")
-            assert tf.param_rules(cfg).spec("blocks/wq") == (None, "data", "model")
+        pool = torch.empty((cfg.n_self, 2, 4, cfg.layout.kv_local, cfg.hd), device="meta")
+        tables = torch.zeros((1, 2), dtype=torch.int32)
+        for call in (lambda: tf.prefill(params, toks, cfg),
+                     lambda: tf.decode_step(params, tf.make_cache(cfg, 1, 8, "meta"),
+                                            toks[:, 0], 5, cfg),
+                     lambda: tf.decode_step_paged(params, pool, pool, tables, toks[:, 0],
+                                                  toks[:, 0], cfg)):
+            with pytest.raises(ValueError, match="pass the rank's ModelAxis"):
+                call()
+        return
+    if cfg.fsdp:
+        with pytest.raises(ValueError, match="pass the mesh"):
+            tf.init_params(cfg, device="cpu")
+        assert tf.param_rules(cfg).spec("blocks/wq") == (None, "data", "model")
+        params = tf.init_params(cfg, device="cpu", mesh=make_smoke_mesh(1, 1), rank=0)
+        want = tf.prefill(tf.init_params(qwen3_smoke(), device="cpu"), toks, qwen3_smoke())
+        got = tf.prefill(params, toks, cfg)
+        assert torch.equal(got[0], want[0])
         return
     if cfg.moe is not None:
         params = tf.init_params(cfg, device="cpu")
@@ -318,7 +332,6 @@ def test_unported_features_raise(over):
         logits, _ = tf.prefill(params, toks, cfg)
         assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
         return
-    from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.runtime import Server
 
     params = tf.init_params(cfg, device="cpu")
