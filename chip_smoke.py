@@ -7,9 +7,9 @@ Phases, in order; any failure raises and exits non-zero:
 
   build       compile every kernel source from ``csrc/`` for sm_90a.
   vision_train  in a process of its own with the next three phases
-              (``phase_xr_train``: its 68.9 GB peak and lm_zero1's 61 GB,
-              on an NVIDIA H100 80GB HBM3 at 700.00 W, do not fit beside
-              what each keeps outside PyTorch's allocator):
+              (``phase_xr_train``: its 68.9 GB peak, on an NVIDIA H100
+              80GB HBM3 at 700.00 W, does not fit beside what the other
+              phases keep outside PyTorch's allocator):
               llama-3.2-vision-11b at full width cut to 10
               layers (8 self, 2 cross: its layer_pair depth; 3,231,805,442
               params) on a one-rank NCCL group, seq 1024 x global batch 4
@@ -149,8 +149,21 @@ Phases, in order; any failure raises and exits non-zero:
               (kernels) from the same weights and batches, TF32 off:
               losses within rtol 1e-5, 4 in-backward collectives a step
               on each.
-  lm_zero1    Qwen3-1.7B at full width as lm_train (seq 1024 x global
-              batch 4, AdamW, remat dots, deterministic algorithms), 4
+  ckpt        the checkpoint manager under the Trainer's rungs: Qwen3-1.7B
+              at full width cut to 2 layers (723,003,904 params, bf16;
+              for disk and time), seq 1024 x batch 4, AdamW, clip 1.0,
+              funnel, deterministic algorithms: 4 steps with an async
+              ``CheckpointManager`` (every 2, keep 1) and a failure at
+              step 3, recovered from step 2 and replayed, bit-equal to an
+              uninterrupted run (params and AdamW state); the loop's hold
+              a save, the background writes, the restore's read, the
+              bytes a checkpoint takes and the free bytes under the temp
+              directory; pack and unpack launches the plan's a step x the
+              5 steps staged.
+  lm_zero1    Qwen3-1.7B at full width cut to ``LM_ZERO1_LAYERS`` (7 of
+              28, 974,683,904 params, for the script's time), as lm_train
+              (seq 1024 x global batch 4, AdamW, remat dots, deterministic
+              algorithms), 4
               microbatches a step (f32 accumulators), one rank: ZeRO-1
               scheduled and deferred (concom, clip 1.0; the optimizer runs
               inside GradSync's StepProgram, clipped by its NORM op),
@@ -199,8 +212,9 @@ Phases, in order; any failure raises and exits non-zero:
               this slice's layouts: granite-moe's post-backward buckets
               (the f32 router beside the bf16 experts, f32 comm) and its
               two depcha slots a layer (bf16; the router's f32), and rank
-              0's buckets and slots of Qwen3-1.7B with FSDP at data 2 x
-              model 2 (no FSDP leaf in them); granite's step timed.
+              0's buckets and slots of Qwen3-1.7B with FSDP at lm_fsdp's
+              depth and data 2 x model 2 (no FSDP leaf in them); granite's
+              step timed.
   lm_moe      granite-moe-1b-a400m at full width (24 layers, d 1024,
               16/8 heads of 64, 32 experts, top 8, d_expert 512, bf16,
               seeded weights) as lm_train (seq 1024 x batch 4, AdamW,
@@ -216,22 +230,24 @@ Phases, in order; any failure raises and exits non-zero:
               ``MOE_CPU_GPU_TOL``.
   lm_tp_kernels  rows 1-2 at the tensor-parallel layout, bit for bit
               against their plain versions: every bucket of rank 0's
-              shards of Qwen3-1.7B at data 1 x model 4 (reduce sets
+              shards of Qwen3-1.7B at lm_tp's depth (``LM_RANKS_LAYERS``)
+              and data 1 x model 4 (reduce sets
               ("data",) and ("data", "model"), bf16 → f32) and each
               layer's two depcha slots (bf16), a step's worth timed; row
               3's pair kernel on the hops of the two-axis ring of data 2 x
               model 2 (rings of 2 on each replicated bucket and its half).
   lm_tp       tensor parallelism: four rank processes on the one card
               (gloo, every collective staged through pinned host memory).
-              First serving: Qwen3-1.7B at full width and depth,
-              bf16, use_flash, on data 1 x model 4 from the seeded
+              First serving: Qwen3-1.7B at full width and
+              ``SERVE_RANKS_LAYERS`` layers (4 of 28, for the script's
+              time), bf16, use_flash, on data 1 x model 4 from the seeded
               weights: the model-axis collectives of a prefill and a
               decode step with its greedy pick counted against
               ``serve_collectives``; the static engine on the serving
               prompts' first 4 (left-padded, 32 greedy tokens) and the
               continuous engine on all 8 (8 slots, blocks of 128, chunk 8,
               32 tokens): prefill ms, decode ms a step, peak GB a rank,
-              flash launches 28 a prefill, tokens bit-identical on every
+              flash launches one a layer a prefill, tokens bit-identical on every
               rank; then the f32 check at 2 layers, tp = 4 against tp = 1
               (``SERVE_F32_ATOL``, tokens equal).  Then training:
               Qwen3-1.7B at full width and ``LM_RANKS_LAYERS`` layers on
@@ -257,7 +273,8 @@ Phases, in order; any failure raises and exits non-zero:
               compare_tp's tolerances.
   lm_fsdp     FSDP: four rank processes on the one card as lm_tp.  First
               serving from FSDP's storage: Qwen3-1.7B at full
-              width and depth with ``fsdp=True`` at data 2 x model 2, the
+              width and ``SERVE_RANKS_LAYERS`` layers with ``fsdp=True``
+              at data 2 x model 2, the
               collectives of a prefill and a decode step counted (the
               FSDP gathers too), the static engine at B 4 and the
               continuous engine on 4 prompts (4 slots, chunk 4), 8 tokens
@@ -316,6 +333,20 @@ Phases, in order; any failure raises and exits non-zero:
               pack, unpack and ring-combine launches exactly the plan's;
               each rank's ``mem.state_bytes``, its optimizer state the flat
               run's / 4 plus the buckets' padding.
+  elastic     rows 1-2 bit for bit at the state codec's layouts (rank 0's
+              dp plans of both rungs, f32 both ways); then four rank
+              processes on the one card over gloo: Qwen3-1.7B's widths in
+              f32 cut to 1 layer, seq 256 x global batch 4, ZeRO-1
+              scheduled, concom, AdamW, clip 0, the ``Supervisor`` over
+              the ladder data 2 x model 2 → data 2 x model 1 (world ranks
+              0 and 1): a transient at step 1, a rank loss at 2, 2
+              checkpoint-I/O faults, grow-back after 1, 4 steps; then its
+              clean scripted replay.  The script ((2, tp1), (3, tp2)) and
+              faulty ≡ clean bit for bit on every rank; each transition's
+              bytes >= 3 x the params x 4 B; each codec program one pack
+              or unpack launch a RESHARD op; each transition's latency and
+              bytes, each rung's and rank's peak GB, the host seconds by
+              piece.
   hierarchical four rank processes on the one card as ``reducers``, on
               pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
               reduce-scatter and all-gather (the intra-pod rings, through
@@ -479,7 +510,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores (data sheet)
               torch.float32: 67e12}     # f32 outside the tensor cores
 STRATEGIES = ("funnel", "concom", "depcha")
 TRAIN_STEPS = 4                # 1 warm-up + 3 timed
-HANG_LIMIT_S = 1100             # dump stacks and exit before the 1200 s limit
+HANG_LIMIT_S = 1180             # dump stacks and exit before the 1200 s limit
 
 
 def log(msg: str) -> None:
@@ -1428,8 +1459,9 @@ def moe_plan():
 
 
 def fsdp_plan(data: int = 2, model: int = 2):
-    """Rank 0's post-backward bucket plan of Qwen3-1.7B with FSDP at data
-    ``data`` x model ``model`` (its shards' shapes, 4 MiB buckets, f32
+    """Rank 0's post-backward bucket plan of Qwen3-1.7B at lm_fsdp's depth
+    (``LM_RANKS_LAYERS``) with FSDP at data ``data`` x model ``model`` (its
+    shards' shapes, 4 MiB buckets, f32
     comm: no FSDP leaf in it) and its depcha slots (the FSDP leaves pass
     through), on ``meta``."""
     from repro_torch.core import make_bucket_plan
@@ -1439,7 +1471,8 @@ def fsdp_plan(data: int = 2, model: int = 2):
     from repro_torch.utils.trees import flatten_with_names
 
     mesh = make_smoke_mesh(data, model)
-    cfg = dataclasses.replace(lm_config("depcha"), tp=model, fsdp=True)
+    cfg = dataclasses.replace(lm_config("depcha"), tp=model, fsdp=True,
+                              n_layers=LM_RANKS_LAYERS)
     full = init_params(cfg, device="meta")
     local = localize_structs(full, param_specs(full, cfg), mesh)
     plan = make_bucket_plan(local, param_specs(local, cfg), mesh,
@@ -1638,7 +1671,10 @@ def phase_moe_cpu_vs_gpu() -> None:
 # ------------------------------------------------------- ZeRO-1 and accumulation
 
 LM_ZERO1_MB = 4                # microbatches a step: 1,024 tokens each
-STATE_STRIDE = 64              # the moments sampled to check the clip: 32M of 2G elements
+STATE_STRIDE = 64              # the moments sampled to check the clip: 15M of 974M elements
+# lm_zero1's depth (full width), 7 of Qwen3-1.7B's 28 layers, for the
+# script's time: its steps are host-bound (idle share 0.80 at 28 layers)
+LM_ZERO1_LAYERS = 7
 # (run, zero1 plan or None for the plain step, strategy, clip)
 LM_ZERO1_RUNS = (("scheduled", "scheduled", "concom", 1.0),
                  ("deferred", "deferred", "concom", 1.0),
@@ -1711,9 +1747,15 @@ def optimizer_bytes(state) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def lm_zero1_config(strategy: str = "concom"):
+    """Qwen3-1.7B at full width cut to ``LM_ZERO1_LAYERS`` layers."""
+    return dataclasses.replace(lm_config(strategy), n_layers=LM_ZERO1_LAYERS)
+
+
 def lm_zero1_run(run: str, plan, strat: str, clip: float, mesh, pipe, after=None) -> dict:
-    """One run of Qwen3-1.7B with ``LM_ZERO1_MB`` microbatches a step from
-    the seeded weights, 1 warm-up + ``LM_STEPS`` - 1 timed steps; pack and
+    """One run of Qwen3-1.7B (``lm_zero1_config``) with ``LM_ZERO1_MB``
+    microbatches a step from the seeded weights, 1 warm-up +
+    ``LM_STEPS`` - 1 timed steps; pack and
     unpack must launch exactly the plan's a step.  A deferred run is
     flushed by ``finalize`` before its params are digested."""
     from repro_torch.core import GradSyncConfig
@@ -1723,7 +1765,7 @@ def lm_zero1_run(run: str, plan, strat: str, clip: float, mesh, pipe, after=None
     from repro_torch.runtime import Trainer, make_train_step
     from repro_torch.utils.trees import flatten_with_names
 
-    cfg = lm_config(strat)
+    cfg = lm_zero1_config(strat)
     model = Transformer(cfg, init_params(cfg, seed=0, device="cuda"))
     opt = adamw(cosine_warmup(3e-4, 10, 100))
     if plan is not None:
@@ -1784,7 +1826,7 @@ def lm_zero1_run(run: str, plan, strat: str, clip: float, mesh, pipe, after=None
 
 
 def lm_zero1_layouts():
-    """What lm_zero1's packs and unpacks see, on ``meta``: Qwen3-1.7B's
+    """What lm_zero1's packs and unpacks see, on ``meta``: ``lm_zero1_config``'s
     zero1 dp plan as its scheduled runs plan it (concom, 4 MiB buckets, f32
     leaves and wire), the monolithic optimizer's one bucket of every leaf,
     the named params, and each leaf's dtype when the reduce-scatter packs
@@ -1797,7 +1839,7 @@ def lm_zero1_layouts():
     from repro_torch.models.transformer import init_params, param_specs
     from repro_torch.utils.trees import flatten_with_names
 
-    cfg = lm_config("concom")
+    cfg = lm_zero1_config("concom")
     params = init_params(cfg, device="meta")
     planned = plan_sync(GradSyncConfig(strategy="concom", exclude_axes=("data",),
                                        zero1_dp_axes=("data",), zero1_clip=True),
@@ -1833,7 +1875,7 @@ def phase_lm_zero1_kernels() -> dict:
     sync's bf16 leaves, packed to f32; the gathered f32 updates unpacked
     into fresh f32 tensors) and its bf16 params packed to f32 (the
     UPDATE's param shard); then the monolithic optimizer's one bucket of
-    all 2,031,739,904 elements the same three ways (8.13 GB of f32: byte
+    all 974,683,904 elements the same three ways (3.90 GB of f32: byte
     offsets past 2^31).  One step's worth of the dp plan's packs and
     unpacks timed as lm_kernels times its layouts."""
     from repro_torch.kernels.collectives import kernel
@@ -1914,9 +1956,9 @@ def clip_check(runs: dict) -> dict:
 
 
 def phase_lm_zero1(lm_zero1_kernels: dict) -> dict:
-    """Qwen3-1.7B under ZeRO-1 and accumulation on a one-rank NCCL group
-    (``LM_ZERO1_RUNS``), deterministic algorithms on as in lm_train, on
-    the dp plan ``lm_zero1_kernels`` checked.  Then one more scheduled
+    """Qwen3-1.7B (``lm_zero1_config``) under ZeRO-1 and accumulation on a
+    one-rank NCCL group (``LM_ZERO1_RUNS``), deterministic algorithms on
+    as in lm_train, on the dp plan ``lm_zero1_kernels`` checked.  Then one more scheduled
     step under the profiler and one with CUDA events around its stages."""
     import warnings
 
@@ -1983,7 +2025,7 @@ def phase_lm_zero1(lm_zero1_kernels: dict) -> dict:
            "launches": {k: sum(r["launches"][k] for r in runs.values())
                         for k in ("pack", "unpack")},
            "shape": {"seq": LM_SEQ, "global_batch": LM_BATCH, "microbatch": LM_ZERO1_MB,
-                     "layers": lm_config().n_layers}}
+                     "layers": LM_ZERO1_LAYERS}}
     log("[lm_zero1] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
     return out
 
@@ -2048,11 +2090,11 @@ ZERO1_RANK_RUNS = (("flat", None, "concom", "flat", 1.0),
 # ------------------------------------------------- tensor parallelism (LM)
 
 LM_TP = 4                      # the model axis of lm_tp: 4 rank processes on the card
-# the depth of lm_tp's and lm_fsdp's training (full width), 7 of Qwen3-1.7B's
-# 28 layers, since those spawns also serve the full model, for the
-# script's time; their first loss and grad norm are held to the tp = 1 run
-# of the same depth (``phase_lm_tp1``)
-LM_RANKS_LAYERS = 7
+# the depth of lm_tp's and lm_fsdp's training (full width), 2 of Qwen3-1.7B's
+# 28 layers, since those spawns also serve
+# (``SERVE_RANKS_LAYERS``), for the script's time; their first loss and grad
+# norm are held to the tp = 1 run of the same depth (``phase_lm_tp1``)
+LM_RANKS_LAYERS = 2
 LM_RANKS_STEPS = 2             # their steps a strategy: 1 warm-up + 1 timed
 # lm_tp's first loss and first (global) grad norm against lm_train's funnel
 # (tp = 1, the same seeded weights and batch), bf16 at full width
@@ -2205,6 +2247,9 @@ def _tp_equivalence(rank: int, say) -> dict:
 # (static rows, tokens a request, continuous prompts, slots, chunk) of the
 # serving runs in the lm_tp spawn (data 1 x model 4) and the lm_fsdp one
 # (data 2 x model 2, fsdp=True); blocks of 128
+# the depth of the spawns' serving (full width): 4 of the 28 layers, for the
+# script's time (its checks count by layer)
+SERVE_RANKS_LAYERS = 4
 SERVE_TP_RUN = (4, 32, 8, 8, 8)
 SERVE_FSDP_RUN = (4, 8, 4, 4, 4)
 # the f32 checks: Qwen3-1.7B at full width and 2 layers (TF32 off): at
@@ -2238,7 +2283,8 @@ def serve_collectives(cfg, rows: int, seq: int, data: int = 1) -> dict:
 
 
 def _serve_ranks(rank: int, mesh, counting, host, say, run: tuple, fsdp: bool = False) -> dict:
-    """Qwen3-1.7B at full width (bf16, ``use_flash``) served on this
+    """Qwen3-1.7B at full width and ``SERVE_RANKS_LAYERS`` layers (bf16,
+    ``use_flash``) served on this
     spawn's mesh from the seeded weights (every rank draws the global tree
     from seed 0 and keeps its shards: ``serve``'s weights), before the
     spawn's training.  ``run`` is (static rows, tokens, continuous
@@ -2247,9 +2293,9 @@ def _serve_ranks(rank: int, mesh, counting, host, say, run: tuple, fsdp: bool = 
     of its first decode step on the rank's rows counted (``_CountingDep``)
     and held to ``serve_collectives``; the continuous engine on the first
     prompts (blocks of 128); each engine's prefill ms and decode ms a
-    step, flash launches held to 28 a prefill, the peak GB a rank; the
-    tokens bit-identical on every rank; the engines' greedy agreement
-    (reported, as ``serve`` reports it at tp = 1 in bf16)."""
+    step, flash launches held to one a layer a prefill, the peak GB a
+    rank; the tokens bit-identical on every rank; the engines' greedy
+    agreement (reported, as ``serve`` reports it at tp = 1 in bf16)."""
     import numpy as np
 
     from repro_torch.configs.qwen3_1_7b import make_config
@@ -2259,7 +2305,7 @@ def _serve_ranks(rank: int, mesh, counting, host, say, run: tuple, fsdp: bool = 
 
     rows, new, n_cont, slots, chunk = run
     data, tp = mesh.shape["data"], mesh.shape["model"]
-    cfg = make_config(use_flash=True, tp=tp, fsdp=fsdp)
+    cfg = make_config(use_flash=True, tp=tp, fsdp=fsdp, n_layers=SERVE_RANKS_LAYERS)
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0, device="cuda", mesh=mesh, rank=rank)
     server = Server(cfg, mesh, params, max_len=SERVE_MAX_LEN)
@@ -2556,6 +2602,24 @@ def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
     dist.destroy_process_group()
 
 
+def spawn_ranks(fn, args: tuple, nprocs: int) -> tuple[list, float]:
+    """``fn(rank, workdir, *args)`` on ``nprocs`` spawned rank processes,
+    each writing ``workdir/rank<r>.json``: those files in rank order, and
+    the spawn's seconds (its processes' start included)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=fn.__name__.strip("_") + "-") as wd:
+        mp.spawn(fn, args=(wd, *args), nprocs=nprocs, join=True)
+        ranks = []
+        for r in range(nprocs):
+            with open(os.path.join(wd, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
 def phase_lm_tp(tp1=None, backend: str = "gloo") -> dict:
     """Tensor parallelism on the card: ``LM_TP`` rank processes (with gloo,
     as ``main`` runs it, all on the one card, every collective staged
@@ -2564,20 +2628,13 @@ def phase_lm_tp(tp1=None, backend: str = "gloo") -> dict:
     running ``_lm_tp_rank``: serving, then training.  ``tp1``:
     ``phase_lm_tp1``'s first funnel loss and grad norm (tp = 1, the same
     depth, seeded weights and batch)."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     log(f"[lm_tp] {backend} on {cards}")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="lm-tp-") as wd:
-        mp.spawn(_lm_tp_rank, args=(wd, backend, tp1), nprocs=LM_TP, join=True)
-        with open(os.path.join(wd, "rank0.json")) as f:
-            res = json.load(f)
-    res["wall_s"] = time.perf_counter() - t0
+    ranks, wall = spawn_ranks(_lm_tp_rank, (backend, tp1), LM_TP)
+    res = ranks[0]
+    res["wall_s"] = wall
     res["cards"] = cards
     res["transport"] = (
         f"gloo over pinned host memory, {LM_TP} processes on one card: the model-axis "
@@ -2588,10 +2645,11 @@ def phase_lm_tp(tp1=None, backend: str = "gloo") -> dict:
 
 
 def lm_tp_plan():
-    """Rank 0's post-backward bucket plan of Qwen3-1.7B at data 1 x model
-    ``LM_TP`` (its shards' shapes; 4 MiB buckets, 4 channels, f32 comm)
-    and its depcha syncer's slots (the model-sharded leaves' and the
-    replicated leaves'), on ``meta``."""
+    """Rank 0's post-backward bucket plan of Qwen3-1.7B at lm_tp's depth
+    (``LM_RANKS_LAYERS``) and data 1 x model ``LM_TP`` (its shards'
+    shapes; 4 MiB buckets, 4 channels, f32 comm) and its depcha syncer's
+    slots (the model-sharded leaves' and the replicated leaves'), on
+    ``meta``."""
     from repro_torch.core import make_bucket_plan
     from repro_torch.core.overlap import LayerSync
     from repro_torch.launch.mesh import make_smoke_mesh
@@ -2600,7 +2658,7 @@ def lm_tp_plan():
     from repro_torch.utils.trees import flatten_with_names
 
     mesh = make_smoke_mesh(1, LM_TP)
-    cfg = dataclasses.replace(lm_config("depcha"), tp=LM_TP)
+    cfg = dataclasses.replace(lm_config("depcha"), tp=LM_TP, n_layers=LM_RANKS_LAYERS)
     full = init_params(cfg, device="meta")
     local = localize_structs(full, param_specs(full, cfg), mesh)
     plan = make_bucket_plan(local, param_specs(local, cfg), mesh,
@@ -2994,21 +3052,13 @@ def phase_lm_fsdp(tp1=None, backend: str = "gloo", data: int = LM_FSDP_MESH[0],
     the same depth, seeded weights and batch).  By
     hand on four cards: ``phase_lm_fsdp(backend="nccl", data=4, model=1)``
     (pure ZeRO-3)."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     log(f"[lm_fsdp] {backend} on {cards}, data {data} x model {model}")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="lm-fsdp-") as wd:
-        mp.spawn(_lm_fsdp_rank, args=(wd, backend, tp1, data, model), nprocs=data * model,
-                 join=True)
-        with open(os.path.join(wd, "rank0.json")) as f:
-            res = json.load(f)
-    res["wall_s"] = time.perf_counter() - t0
+    ranks, wall = spawn_ranks(_lm_fsdp_rank, (backend, tp1, data, model), data * model)
+    res = ranks[0]
+    res["wall_s"] = wall
     res["cards"] = cards
     res["transport"] = (
         f"gloo over pinned host memory, {data * model} processes on one card: the FSDP "
@@ -3180,17 +3230,7 @@ def _zero1_rank(rank: int, workdir: str, backend: str) -> None:
 def phase_zero1(backend: str = "gloo") -> dict:
     """Four rank processes on the one card (as ``reducers``): ZeRO-1 at
     full ResNet-50/CIFAR width (``ZERO1_RANK_RUNS``)."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="zero1-") as wd:
-        mp.spawn(_zero1_rank, args=(wd, backend), nprocs=RING, join=True)
-        ranks = []
-        for r in range(RING):
-            with open(os.path.join(wd, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+    ranks, wall = spawn_ranks(_zero1_rank, (backend,), RING)
     for r, res in enumerate(ranks):
         if {k: v["launches"] for k, v in res["runs"].items()} != \
                 {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
@@ -3198,7 +3238,7 @@ def phase_zero1(backend: str = "gloo") -> dict:
     res = ranks[0]
     res["state_bytes_by_rank"] = {k: [rk["runs"][k]["state_bytes"] for rk in ranks]
                                   for k in res["runs"]}
-    res["wall_s"] = time.perf_counter() - t0
+    res["wall_s"] = wall
     res["transport"] = (
         f"gloo over pinned host memory, {RING} processes on one card" if backend == "gloo"
         else f"{backend}, {RING} processes on {torch.cuda.device_count()} cards")
@@ -4350,23 +4390,13 @@ def phase_reducers(backend: str = "gloo") -> dict:
     ``main`` runs it) all four share the one card and their communicators
     stage through pinned host memory; ``backend="nccl"`` needs four cards,
     one a rank."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="reducers-") as wd:
-        mp.spawn(_reducers_rank, args=(wd, backend), nprocs=RING, join=True)
-        ranks = []
-        for r in range(RING):
-            with open(os.path.join(wd, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+    ranks, wall = spawn_ranks(_reducers_rank, (backend,), RING)
     for r, res in enumerate(ranks):
         if {k: v["launches"] for k, v in res["runs"].items()} != \
                 {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
             raise AssertionError(f"rank {r} launched other counts than rank 0")
     res = ranks[0]
-    res["wall_s"] = time.perf_counter() - t0
+    res["wall_s"] = wall
     res["transport"] = (
         f"gloo over pinned host memory, {RING} processes on one card: times the "
         f"kernels and the schedule's order, not a wire" if backend == "gloo"
@@ -4913,23 +4943,13 @@ def phase_hierarchical(backend: str = "gloo") -> dict:
     data 2 and pod 1 x data 4.  With gloo (as ``main`` runs it) all four
     share the one card; ``backend="nccl"`` needs four cards, one a rank,
     and the intra-pod rings then cross NVLink."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="hierarchical-") as wd:
-        mp.spawn(_hier_rank, args=(wd, backend), nprocs=RING, join=True)
-        ranks = []
-        for r in range(RING):
-            with open(os.path.join(wd, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+    ranks, wall = spawn_ranks(_hier_rank, (backend,), RING)
     for r, res in enumerate(ranks):
         if {k: v["launches"] for k, v in res["runs"].items()} != \
                 {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
             raise AssertionError(f"rank {r} launched other counts than rank 0")
     res = ranks[0]
-    res["wall_s"] = time.perf_counter() - t0
+    res["wall_s"] = wall
     res["transport"] = (
         f"gloo over pinned host memory for the stock collectives, {RING} processes on "
         f"one card; the intra-pod rings through CUDA IPC on that card"
@@ -5399,23 +5419,6 @@ def phase_serve(smi: str) -> dict:
     phase_serve_profile(params, cfg)
     return {"launches": launches, "f32_launches": f32_launches, "report": report,
             "static_tokens": [t.tolist() for t in static_out]}
-
-
-def serve_tp_vs_tp1(serve_tp: dict, serve: dict) -> dict:
-    """Report only: lm_tp's bf16 static tokens at model 4 against
-    ``serve``'s at tp = 1 on the same batch (its first 4 prompts,
-    left-padded).  With random weights the 28 layers amplify bf16
-    rounding, and the psums sum in another order, so no bound would tell
-    a fault from rounding; the f32 check (``_serve_tp_f32``) holds them."""
-    import numpy as np
-
-    tp = np.asarray(serve_tp["static_tokens"])
-    one = np.asarray(serve["static_tokens"][:len(tp)])
-    out = {"greedy_agreement": float(np.mean(tp == one)),
-           "first_divergent_token": [int(np.argmax(a != b)) if (a != b).any() else len(a)
-                                     for a, b in zip(tp, one)]}
-    log("[serve_tp] bf16 at model 4 against serve's tp = 1 (reported only): " + json.dumps(out))
-    return out
 
 
 class LogitsRecorder:
@@ -7100,6 +7103,454 @@ def phase_zamba2_serve_cpu_vs_gpu() -> dict:
     return res
 
 
+# ckpt: the checkpoint manager under the Trainer's fault rungs
+CKPT_LAYERS = 1                # of Qwen3-1.7B's 28: 672,667,904 params, for disk and time
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 4, 2, 3
+# elastic: the Supervisor over the ladder ("tp2", "tp1") on 4 rank processes
+ELASTIC_RANKS = 4
+ELASTIC_LAYERS = 1            # of 28: the state is the vocab's (embed and head), for the time
+ELASTIC_SEQ, ELASTIC_BATCH = 256, 4
+ELASTIC_MESHES = {"tp2": ((2, 2), (0, 1, 2, 3)), "tp1": ((2, 1), (0, 1))}
+ELASTIC_LADDER = ("tp2", "tp1")
+# 4 steps, grow-back after 1 and a save every 8 steps (none of the 4 but the
+# transitions' anchors), for the script's time
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_GROW = 4, 8, 1
+ELASTIC_PLAN = dict(rank_loss=frozenset({2}), transient=frozenset({1}), step_retries=1,
+                    ckpt_io_faults=2, ckpt_retries=3)
+ELASTIC_SCRIPT = ((2, "tp1"), (3, "tp2"))
+
+
+def disk(path: str) -> dict:
+    """Bytes of the files under ``path`` and the free bytes of its disk."""
+    import shutil
+
+    used = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+    return {"bytes": used, "free_bytes": shutil.disk_usage(path).free}
+
+
+def phase_ckpt() -> dict:
+    """The checkpoint manager under the Trainer's rungs on the card:
+    Qwen3-1.7B at full width cut to ``CKPT_LAYERS`` layers, bf16, on the
+    one-rank NCCL group, seq 1024 x batch 4, AdamW, clip 1.0, funnel,
+    deterministic algorithms as lm_train.  ``CKPT_STEPS`` steps with an
+    async ``CheckpointManager`` (every ``CKPT_EVERY``, keep 1) and a
+    failure at step ``CKPT_FAIL_AT``: recovered from step 2 and replayed,
+    the final params and AdamW state must equal an uninterrupted run's
+    bit for bit.  Times: the loop held by each save (the host snapshot,
+    and the wait for the save before), each background write, each
+    restore read; the bytes a checkpoint takes and the free bytes under
+    the temp directory."""
+    import tempfile
+    import warnings
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    class Timed(CheckpointManager):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.times = {"hold_ms": [], "write_s": [], "read_s": []}
+            self.sizes: list = []
+
+        def maybe_save(self, step, tree):
+            t0 = time.perf_counter()
+            saved = super().maybe_save(step, tree)
+            if saved:
+                self.times["hold_ms"].append((time.perf_counter() - t0) * 1e3)
+            return saved
+
+        def _with_retries(self, op, fn):
+            t0 = time.perf_counter()
+            out = fn_out = super()._with_retries(op, fn)
+            self.times["write_s" if op == "save" else "read_s"].append(
+                time.perf_counter() - t0)
+            if op == "save":
+                self.sizes.append(disk(fn_out))
+            return out
+
+    cfg = dataclasses.replace(lm_config("funnel"), n_layers=CKPT_LAYERS)
+    mesh = make_dp_mesh()
+    pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh, device="cuda")
+
+    def run(root):
+        model = Transformer(cfg, init_params(cfg, seed=0, device="cuda"))
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="funnel"),
+                             adamw(cosine_warmup(3e-4, 10, 100)), model=model, clip_norm=1.0,
+                             device="cuda")
+        mgr = Timed(root, every=CKPT_EVERY, keep=1) if root else None
+        tr = Trainer(ts, pipe, mgr, fail_at=frozenset({CKPT_FAIL_AT}) if root else frozenset(),
+                     log_every=10 ** 9, printer=lambda _m: None)
+        kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+        t0 = time.perf_counter()
+        model, state, hist = tr.run(model, ts.init_opt(), CKPT_STEPS)
+        torch.cuda.synchronize()
+        out = {"wall_s": time.perf_counter() - t0, "losses": hist["losses"],
+               "events": [(e["kind"], e["step"]) for e in hist["events"]],
+               "launches": {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES},
+               "per_step": sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops),
+               "params": bit_sums(flatten_with_names(model.params_tree())[0]),
+               "state": bit_sums(flatten_with_names(state)[0]),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "n_params": sum(p.numel() for p in model.parameters())}
+        if mgr is not None:
+            out.update(mgr.times, checkpoints=mgr.sizes)
+        del model, state, ts, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with warnings.catch_warnings(record=True) as caught, \
+            tempfile.TemporaryDirectory(prefix="ckpt-") as root:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            faulty = run(root)
+            clean = run(None)
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    nondeterministic = sorted({str(w.message)[:200] for w in caught
+                               if "deterministic" in str(w.message)})
+    want_events = [("compile", 0), ("failure", CKPT_FAIL_AT), ("recover", CKPT_EVERY)]
+    if faulty["events"] != want_events:
+        raise AssertionError(f"ckpt: events {faulty['events']}, expected {want_events}")
+    # steps 0-2, the failed 3, the replay of 2 and 3: 5 steps staged
+    executed = CKPT_STEPS + (CKPT_FAIL_AT - CKPT_EVERY)
+    for r, n in ((faulty, executed), (clean, CKPT_STEPS)):
+        want = {"pack": r["per_step"] * n, "unpack": r["per_step"] * n}
+        if r["launches"] != want:
+            raise AssertionError(f"ckpt: launches {r['launches']}, expected {want}")
+    if faulty["params"] != clean["params"] or faulty["state"] != clean["state"]:
+        raise AssertionError(f"ckpt: the recovered run is not bit-equal to the "
+                             f"uninterrupted one (nondeterministic ops: {nondeterministic})")
+    out = {"layers": CKPT_LAYERS, "seq": LM_SEQ, "global_batch": LM_BATCH,
+           "faulty": {k: v for k, v in faulty.items() if k not in ("params", "state")},
+           "clean_wall_s": clean["wall_s"], "bit_equal": True,
+           "nondeterministic_ops": nondeterministic,
+           "launches": faulty["launches"], "n_params": faulty["n_params"]}
+    log("[ckpt] " + json.dumps(out))
+    return out
+
+
+def elastic_layouts() -> dict:
+    """Rank 0's dp plans of the elastic phase's two rungs (its shards'
+    shapes, f32), planned on ``meta`` as the step plans them."""
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core.kvstore import plan_sync
+    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.parallel.sharding import Mesh, localize_structs
+
+    out = {}
+    for key, ((data, model), ranks) in ELASTIC_MESHES.items():
+        cfg = elastic_config(model)
+        mesh = Mesh(("data", "model"), {"data": data, "model": model}, ranks)
+        glob = init_params(cfg, device="meta")
+        local = localize_structs(glob, param_specs(glob, cfg), mesh)
+        out[key] = plan_sync(GradSyncConfig(strategy="concom", exclude_axes=("data",),
+                                            zero1_dp_axes=("data",)),
+                             mesh, param_specs(local, cfg), local).program.dp_plan
+    return out
+
+
+def elastic_config(tp: int):
+    return dataclasses.replace(lm_config("concom"), n_layers=ELASTIC_LAYERS, tp=tp,
+                               dtype=torch.float32)
+
+
+def phase_elastic_kernels() -> dict:
+    """Rows 1-2 at the state codec's layouts, bit for bit against their
+    plain versions (outputs started as NaN): every bucket of rank 0's dp
+    plan on each rung, f32 leaves packed to f32 (the scatter side) and
+    unpacked into f32 leaves at scale 1 (the gather side)."""
+    plans = elastic_layouts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err, checks = 0.0, 0
+    for key, plan in plans.items():
+        leaves = {l.index: l for b in plan.buckets for l in b.leaves}
+        flat = [torch.randn(leaves[i].shape, generator=gen, device="cuda")
+                for i in range(plan.num_leaves)]
+        for b in plan.buckets:
+            err = max(err, check_bucket(b, flat, torch.float32, 1.0))
+            checks += 1
+        del flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"max_abs_err": err, "checks": checks,
+           "buckets": {k: len(p.buckets) for k, p in plans.items()},
+           "launches_a_side": {k: sum(staging_launches(b) for b in p.buckets)
+                               for k, p in plans.items()}}
+    log(f"[elastic_kernels] {checks} buckets bit-exact both ways: " + json.dumps(out))
+    return out
+
+
+def _elastic_rank(rank: int, workdir: str, backend: str, anchor_ab: bool) -> None:
+    """One rank of ``phase_elastic``: the Supervisor's faulty cycle over
+    ``ELASTIC_LADDER``, then its clean scripted replay (and with
+    ``anchor_ab`` the anchor's A/B); results to ``workdir/rank<r>.json``."""
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core import dependency as dep
+    from repro_torch.data import TokenPipeline
+    from repro_torch.elastic import FaultPlan, StateCodec, Supervisor
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import init_dist
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw, zero1
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    # four processes share the card: no memory held in split segments
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store", rank=rank,
+              world_size=ELASTIC_RANKS, timeout=datetime.timedelta(seconds=600))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    say = log if rank == 0 else (lambda _m: None)
+    steps: dict = {}
+
+    def step_for(key):
+        if key not in steps:
+            (data, model), ranks = ELASTIC_MESHES[key]
+            mesh = Mesh(("data", "model"), {"data": data, "model": model}, ranks)
+            cfg = elastic_config(model)
+            me = dep.mesh_rank(mesh)
+            shapes = Transformer(cfg, init_params(cfg, device="meta", mesh=mesh,
+                                                  rank=0 if me is None else me))
+            ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="concom",
+                                                           exclude_axes=("data",)),
+                                 zero1(adamw(1e-3), ("data",), data), model=shapes,
+                                 zero1_mode=True, zero1_plan="scheduled", clip_norm=0.0,
+                                 device="cuda")
+            pipe = (TokenPipeline(cfg.vocab, ELASTIC_SEQ, ELASTIC_BATCH, seed=0, mesh=mesh,
+                                  rank=me, device="cuda") if me is not None else None)
+            steps[key] = (ts, pipe, mesh, cfg, me)
+        return steps[key]
+
+    def build(key):
+        ts, pipe, mesh, cfg, me = step_for(key)
+        if me is None:
+            return ts, None, None
+        return ts, pipe, Transformer(cfg, init_params(cfg, seed=0, device="cuda", mesh=mesh,
+                                                      rank=me))
+
+    # the codec's programs: each call's staging launches against its plan
+    reshard = {"gather_calls": 0, "scatter_calls": 0, "unpack": 0, "pack": 0,
+               "expected_unpack": 0, "expected_pack": 0}
+
+    def counted(fn, side):
+        def wrapped(self, *a, **kw):
+            p0, u0 = kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES
+            out = fn(self, *a, **kw)
+            reshard[f"{side}_calls"] += 1
+            reshard["pack"] += kernel.PACK_LAUNCHES - p0
+            reshard["unpack"] += kernel.UNPACK_LAUNCHES - u0
+            n = sum(staging_launches(b) for b in self.dp_plan.buckets)
+            reshard["expected_unpack" if side == "gather" else "expected_pack"] += n
+            return out
+        return wrapped
+
+    StateCodec._gather = counted(StateCodec._gather, "gather")
+    StateCodec._scatter = counted(StateCodec._scatter, "scatter")
+
+    # where a run's time goes: host seconds in each piece, summed, and
+    # each call's
+    spent: dict = {}
+    each: dict = {}
+
+    def timed(owner, name, key):
+        fn = getattr(owner, name)
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                spent[key] = spent.get(key, 0.0) + dt
+                each.setdefault(key, []).append(dt)
+        setattr(owner, name, wrapped)
+
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.elastic import reshard as el_reshard
+    from repro_torch.elastic import supervisor as el_supervisor
+
+    timed(el_supervisor, "reshard_state", "reshard_state")
+    timed(StateCodec, "encode", "codec.encode")
+    timed(StateCodec, "decode", "codec.decode")
+    timed(ckpt_manager, "host_global", "host_global")
+    timed(el_reshard, "host_global", "host_global(reshard)")
+    timed(ckpt_manager, "_write", "write")
+    timed(ckpt_manager, "restore", "read")
+    timed(el_supervisor.ElasticCheckpointer, "save_view", "anchor save")
+    timed(el_supervisor.ElasticCheckpointer, "save_now", "save_now")
+    timed(el_supervisor.ElasticCheckpointer, "maybe_save", "periodic save")
+    timed(el_supervisor.ElasticCheckpointer, "restore", "restore")
+
+    class Peaks(Supervisor):
+        """The card's peak memory while on each rung (its transition out
+        included)."""
+        peaks: dict = {}
+
+        def _transition(self, resume_step, from_key, to_key, *a, **kw):
+            torch.cuda.synchronize()
+            self.peaks[from_key] = max(self.peaks.get(from_key, 0.0),
+                                       torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            out = super()._transition(resume_step, from_key, to_key, *a, **kw)
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
+
+    def digest(model, state):
+        if model is None:
+            return None
+        return (bit_sums(flatten_with_names(model.params_tree())[0]),
+                bit_sums(flatten_with_names(state)[0]))
+
+    out = {}
+    for name, kw in (("faulty", {"plan": FaultPlan(**ELASTIC_PLAN)}), ("clean", {})):
+        if name == "clean":
+            kw["script"] = out["faulty"]["script"]
+        root = os.path.join(workdir, f"ckpt-{name}")
+        Peaks.peaks = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+        for k in reshard:
+            reshard[k] = 0
+        spent.clear()
+        each.clear()
+        t0 = time.perf_counter()
+        sup = Peaks(build, ELASTIC_LADDER, root, every=ELASTIC_EVERY,
+                    grow_back_after=ELASTIC_GROW, printer=say, **kw)
+        model, state, rep = sup.run(ELASTIC_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        Peaks.peaks[rep["final_mesh"]] = max(Peaks.peaks.get(rep["final_mesh"], 0.0),
+                                             torch.cuda.max_memory_allocated() / 1e9)
+        dist.barrier()
+        files = disk(root) if rank == 0 else None
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+        dist.barrier()
+        out[name] = {"wall_s": wall, "script": [list(r) for r in rep["script"]],
+                     "transitions": rep["transitions"],
+                     "events": [(e["kind"], e.get("step")) for e in rep["events"]],
+                     "peak_gb": dict(Peaks.peaks), "digest": digest(model, state),
+                     "launches": {"pack": kernel.PACK_LAUNCHES,
+                                  "unpack": kernel.UNPACK_LAUNCHES},
+                     "reshard_launches": dict(reshard), "disk_after_run": files,
+                     "host_s": dict(spent), "anchor_s": each.get("anchor save", [])}
+        if name == "clean" and anchor_ab:
+            # the anchor's write from the transfer's view (the last
+            # transition's, onto this rung) against ``save_now`` of the
+            # final state on the same rung: the state encoded and gathered
+            # to the writer again, then written
+            ab_root = os.path.join(workdir, "ckpt-ab")
+            ab = el_supervisor.ElasticCheckpointer(
+                ckpt_manager.CheckpointManager(ab_root, keep=0, blocking=True),
+                sup._codec(rep["final_mesh"]))
+            before = dict(spent)
+            ab.save_now(ELASTIC_STEPS, {"params": model.params_tree(), "opt": state})
+            dist.barrier()
+            if rank == 0:
+                shutil.rmtree(ab_root, ignore_errors=True)
+            out["anchor_ab"] = {"mesh": rep["final_mesh"],
+                                "from_view_s": each["anchor save"][-1],
+                                "save_now_s": each["save_now"][-1],
+                                "save_now_pieces_s": {k: v - before.get(k, 0.0)
+                                                      for k, v in spent.items()
+                                                      if v != before.get(k)}}
+        say(f"[elastic] {name}: " + json.dumps({k: v for k, v in out[name].items()
+                                                 if k != "digest"}))
+        del model, state, sup
+        gc.collect()
+        torch.cuda.empty_cache()
+    ts2 = step_for("tp2")[0]
+    n_params = sum(p.numel() for _, p in flatten_with_names(
+        StateCodec(ts2)._params_like())[0])
+    out["n_params"] = n_params
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_elastic(backend: str = "gloo", anchor_ab: bool = False) -> dict:
+    """Elastic training on the card: ``ELASTIC_RANKS`` rank processes on
+    the one card over gloo (every collective staged through pinned host
+    memory, as lm_tp; ``backend="nccl"`` needs ``ELASTIC_RANKS`` cards,
+    one a rank), each running ``_elastic_rank``.  Qwen3-1.7B's
+    widths in f32 (the state codec's rule) cut to ``ELASTIC_LAYERS``
+    layers, seq 256 x global batch 4, ZeRO-1 scheduled, concom, AdamW,
+    clip 0, over the ladder data 2 x model 2 → data 2 x model 1: a
+    transient at step 1, a rank loss at 2, 2 checkpoint-I/O faults,
+    grow-back after 1, 4 steps, saves every ``ELASTIC_EVERY`` (so only
+    the two transitions' anchors, all kept; each run's directory deleted
+    after it), then the clean scripted replay.  With ``anchor_ab`` (by
+    hand: 25 s more), one ``save_now`` of its final state on its final
+    rung after it: the A/B of the anchor written from the transfer's
+    view.  Required: the script ``ELASTIC_SCRIPT``, the faulty
+    run bit-equal to the clean one on every rank, each transition's bytes
+    at least 3 x the params x 4 B (params, m and v), and every codec
+    program launching rows 1-2 once a RESHARD op (its bucket's
+    ``staging_launches``)."""
+    kernels = phase_elastic_kernels()
+    ranks, wall = spawn_ranks(_elastic_rank, (backend, anchor_ab), ELASTIC_RANKS)
+    res = ranks[0]
+    for r, got in enumerate(ranks):
+        if got["faulty"]["digest"] != got["clean"]["digest"]:
+            raise AssertionError(f"elastic: rank {r}'s faulty run is not bit-equal to its "
+                                 f"clean replay")
+        for name in ("faulty", "clean"):
+            if [tuple(x) for x in got[name]["script"]] != list(ELASTIC_SCRIPT):
+                raise AssertionError(f"elastic {name}: rank {r}'s script "
+                                     f"{got[name]['script']}, expected {ELASTIC_SCRIPT}")
+            rl = got[name]["reshard_launches"]
+            if (rl["unpack"], rl["pack"]) != (rl["expected_unpack"], rl["expected_pack"]):
+                raise AssertionError(f"elastic {name}: rank {r}'s codec launches {rl}")
+    floor = 3 * res["n_params"] * 4
+    for t in res["faulty"]["transitions"]:
+        if t["reshard_bytes"] < floor:
+            raise AssertionError(f"elastic: transition {t} moves fewer than {floor} B")
+    out = {"wall_s": wall, "kernels": kernels,
+           "n_params": res["n_params"], "reshard_bytes_floor": floor,
+           "transitions": {n: res[n]["transitions"] for n in ("faulty", "clean")},
+           "peak_gb_by_rank": [{n: g[n]["peak_gb"] for n in ("faulty", "clean")}
+                               for g in ranks],
+           "reshard_launches": {n: res[n]["reshard_launches"] for n in ("faulty", "clean")},
+           "launches": res["faulty"]["launches"],
+           "run_wall_s": {n: res[n]["wall_s"] for n in ("faulty", "clean")},
+           "host_s_by_rank": [{n: g[n]["host_s"] for n in ("faulty", "clean")} for g in ranks],
+           "events": res["faulty"]["events"],
+           "anchor_ab": res.get("anchor_ab"),
+           "disk": {n: res[n]["disk_after_run"] for n in ("faulty", "clean")},
+           "bit_equal": True, "transport": (
+               f"gloo over pinned host memory, {ELASTIC_RANKS} processes on one card"
+               if backend == "gloo" else
+               f"{backend}, {ELASTIC_RANKS} processes on {torch.cuda.device_count()} cards")}
+    log("[elastic] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -7147,8 +7598,10 @@ def main() -> int:
     try:
         rows = phase_kernels()
         ring_quant = phase_ring_quant()
+        clock("ring_quant")
         train = phase_train()
         phase_profile(*train["live"])
+        clock("train")
         phase_cpu_vs_gpu()
         clock("cpu_vs_gpu")
         del train["live"]
@@ -7157,14 +7610,22 @@ def main() -> int:
         lm_rows = phase_lm_kernels()
         gc.collect()
         torch.cuda.empty_cache()
+        clock("lm_kernels")
         lm = phase_lm_train()
+        clock("lm_train")
         tp1 = phase_lm_tp1()
         phase_lm_cpu_vs_gpu()
         clock("lm_cpu_vs_gpu")
         gc.collect()
         torch.cuda.empty_cache()
+        ckpt = phase_ckpt()
+        clock("ckpt")
+        gc.collect()
+        torch.cuda.empty_cache()
         lm_zero1_rows = phase_lm_zero1_kernels()
+        clock("lm_zero1_kernels")
         lm_zero1 = phase_lm_zero1(lm_zero1_rows)
+        clock("lm_zero1")
         phase_lm_zero1_cpu_vs_gpu()
         clock("lm_zero1_cpu_vs_gpu")
         gc.collect()
@@ -7172,6 +7633,7 @@ def main() -> int:
         inception_rows = phase_inception_kernels()
         inception = phase_inception()
         phase_inception_cpu_vs_gpu()
+        clock("inception_cpu_vs_gpu")
         phase_verify()
         clock("verify")
         gc.collect()
@@ -7179,15 +7641,18 @@ def main() -> int:
         # after lm_zero1, whose monolithic run needs 61 GB of the card
         lm_moe_rows = phase_lm_moe_kernels()
         lm_moe = phase_lm_moe()
+        clock("lm_moe")
         phase_moe_cpu_vs_gpu()
         clock("moe_cpu_vs_gpu")
         gc.collect()
         torch.cuda.empty_cache()
         lm_tp_rows = phase_lm_tp_kernels()
+        clock("lm_tp_kernels")
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    clock("destroy")
     lm_tp = phase_lm_tp(tp1)
     clock("lm_tp")
     lm_fsdp = phase_lm_fsdp(tp1)
@@ -7196,11 +7661,13 @@ def main() -> int:
     clock("reducers")
     zero1 = phase_zero1()
     clock("zero1")
+    elastic = phase_elastic()
+    clock("elastic")
     hier = phase_hierarchical()
     clock("hierarchical")
     flash_rows = phase_flash()
+    clock("flash")
     serve = phase_serve(smi)
-    serve_tp_vs_tp1(lm_tp["serve"], serve)
     phase_serve_cpu_vs_gpu()
     clock("serve_cpu_vs_gpu")
     gc.collect()                     # Qwen3's weights go before RWKV's
@@ -7239,7 +7706,9 @@ def main() -> int:
                    "lm_fsdp": sum(r["launches"][name] for r in lm_fsdp["runs"].values()),
                    "vision_train": vision_train["launches"][name],
                    "rwkv_train": rwkv_train["launches"][name],
-                   "zamba2_train": zamba2_train["launches"][name]}
+                   "zamba2_train": zamba2_train["launches"][name],
+                   "ckpt": ckpt["launches"][name],
+                   "elastic": elastic["launches"][name]}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -7247,7 +7716,8 @@ def main() -> int:
             # every layout's check: ResNet-50's, the LM's, Inception's, lm_zero1's
             "max_abs_err": max(r["max_abs_err"], lm_rows["max_abs_err"],
                                inception_rows["max_abs_err"], lm_zero1_rows["max_abs_err"],
-                               lm_tp_rows["max_abs_err"], lm_moe_rows["max_abs_err"]),
+                               lm_tp_rows["max_abs_err"], lm_moe_rows["max_abs_err"],
+                               elastic["kernels"]["max_abs_err"]),
             "layouts_built_in_train": train["layouts_built"],   # shared by both
             # the LM's layouts: the post-backward buckets (bf16 leaves, f32
             # comm) and depcha's in-backward slots, one step's worth each
@@ -7301,7 +7771,14 @@ def main() -> int:
             # the Zamba2 hybrid: its buckets plus depcha's bf16 and f32 slot
             # of each Mamba layer (the shared block post-backward)
             "zamba2_train": {"launches_per_step": {
-                k: v["launches_per_step"] for k, v in zamba2_train["runs"].items()}}})
+                k: v["launches_per_step"] for k, v in zamba2_train["runs"].items()}},
+            # the checkpoint's recovered run (5 steps staged: 3, the failed
+            # one, 2 replayed) and the elastic ladder's faulty run on rank 0:
+            # its steps and the state codec's RESHARD programs, one launch a
+            # RESHARD op (f32 → f32 packs, unpacks into f32 leaves)
+            "ckpt": {"launches_per_step": ckpt["faulty"]["per_step"]},
+            "elastic": {"codec": elastic["reshard_launches"]["faulty"],
+                        "codec_layouts": elastic["kernels"]}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",

@@ -223,22 +223,39 @@ def coset_ranks(axes: Iterable[str], mesh) -> list[list[int]]:
     return [groups[b] for b in sorted(groups)]
 
 
+def mesh_rank(mesh) -> int | None:
+    """This process's rank in ``mesh`` (``Mesh.rank_in`` of its world
+    rank; 0 without a process group), or None outside the mesh."""
+    world_rank = dist.get_rank() if dist.is_initialized() else 0
+    rank_in = getattr(mesh, "rank_in", None)
+    return rank_in(world_rank) if rank_in is not None else world_rank
+
+
+def _world_ranks(mesh) -> tuple[int, ...]:
+    ranks = getattr(mesh, "world_ranks", None)
+    size = math.prod(mesh.shape[a] for a in mesh.axis_names)
+    return tuple(ranks) if ranks is not None else tuple(range(size))
+
+
 def coset_groups(keys: Iterable[tuple[str, ...]], mesh, device: torch.device
                  ) -> dict[tuple[str, ...], dist.ProcessGroup | None]:
     """For each reduce set of ``keys``, under its ``reduce_key``, this
     rank's communicator on ``backend_for(device)``, or None for a group
-    of one in a larger world (nothing to reduce).  Collective: every rank
-    creates the group of every coset (``new_group`` is), the sets in
-    sorted order, the cosets by first rank, and keeps its own."""
+    of one in a larger world (nothing to reduce) and on a rank outside
+    the mesh.  Collective over the WORLD: every world rank creates the
+    group of every coset (``new_group`` is), the sets in sorted order,
+    the cosets by first rank, and keeps its own; a mesh that spans fewer
+    ranks than the world (``Mesh.ranks``) groups its own world ranks, and
+    the ranks outside it create the groups too and keep none."""
     if not dist.is_initialized():
         raise RuntimeError(
             "torch.distributed is not initialized: call "
             "repro_torch.launch.mesh.init_dist(device) first")
     rank, world = dist.get_rank(), dist.get_world_size()
-    size = math.prod(mesh.shape[a] for a in mesh.axis_names)
-    if size != world:
-        raise ValueError(f"a mesh of {size} ranks ({dict(mesh.shape)}) does not "
-                         f"fit a world of {world}")
+    members = _world_ranks(mesh)
+    if members[-1] >= world:
+        raise ValueError(f"a mesh over the world ranks {members} ({dict(mesh.shape)}) "
+                         f"does not fit a world of {world}")
     backend = backend_for(device)
     out: dict[tuple[str, ...], dist.ProcessGroup | None] = {}
     for key in sorted({reduce_key(k, mesh) for k in keys}):
@@ -246,6 +263,7 @@ def coset_groups(keys: Iterable[tuple[str, ...]], mesh, device: torch.device
         if not key and world > 1:
             continue
         for ranks in coset_ranks(key, mesh):
+            ranks = [members[r] for r in ranks]
             g = dist.new_group(ranks, backend=backend)
             if rank in ranks:
                 out[key] = g
@@ -295,35 +313,43 @@ class PodComm:
     ring of ``hierarchical_ring`` on CUDA
     (``kernels/collectives/kernel.py::PeerRing``), None otherwise."""
 
-    intra: dist.ProcessGroup
-    inter: dist.ProcessGroup
+    intra: dist.ProcessGroup | None
+    inter: dist.ProcessGroup | None
     ring: Any = None
 
 
 def pod_comms(chains: Iterable[int], pods: int, data: int, device: torch.device,
-              model: int = 1) -> dict[int, PodComm]:
+              model: int = 1, ranks: Sequence[int] | None = None) -> dict[int, PodComm]:
     """A ``PodComm`` per chain: one intra-pod group per (pod, model
     coordinate) and one inter-pod group
     per (data, model coordinate), created anew for each chain on
-    ``backend_for(device)``, rank (p·data + d)·model + m at (p, d, m).
-    Collective: every rank creates every group (``new_group`` is),
-    chains in sorted order, the intra-pod groups before the inter-pod
-    ones, each by first rank."""
-    if pods * data * model != dist.get_world_size():
-        raise ValueError(f"a mesh of {pods} pods x {data} x {model} ranks does not "
-                         f"fit a world of {dist.get_world_size()}")
-    p, rem = divmod(dist.get_rank(), data * model)
-    d, m = divmod(rem, model)
+    ``backend_for(device)``, mesh rank (p·data + d)·model + m at (p, d,
+    m), world rank ``ranks[mesh rank]`` (by default the mesh rank).
+    Collective over the world: every world rank creates every group
+    (``new_group`` is), chains in sorted order, the intra-pod groups
+    before the inter-pod ones, each by first rank; a rank outside the
+    mesh keeps None for both."""
+    size = pods * data * model
+    ranks = tuple(range(size)) if ranks is None else tuple(ranks)
+    if size != len(ranks) or ranks[-1] >= dist.get_world_size():
+        raise ValueError(f"a mesh of {pods} pods x {data} x {model} ranks over the world "
+                         f"ranks {ranks} does not fit a world of {dist.get_world_size()}")
+    me = dist.get_rank()
     backend = backend_for(device)
+
+    def group(mesh_ranks):
+        members = [ranks[r] for r in mesh_ranks]
+        g = dist.new_group(members, backend=backend)
+        return g if me in members else None
+
     out = {}
     for c in sorted(set(chains)):
-        intra = [[dist.new_group([(q * data + j) * model + mm for j in range(data)],
-                                 backend=backend) for mm in range(model)]
-                 for q in range(pods)][p][m]
-        inter = [[dist.new_group([(q * data + j) * model + mm for q in range(pods)],
-                                 backend=backend) for mm in range(model)]
-                 for j in range(data)][d][m]
-        out[c] = PodComm(intra, inter)
+        intra = [group([(q * data + j) * model + mm for j in range(data)])
+                 for q in range(pods) for mm in range(model)]
+        inter = [group([(q * data + j) * model + mm for q in range(pods)])
+                 for j in range(data) for mm in range(model)]
+        out[c] = PodComm(next((g for g in intra if g is not None), None),
+                         next((g for g in inter if g is not None), None))
     return out
 
 

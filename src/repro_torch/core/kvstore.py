@@ -38,6 +38,7 @@ from repro_torch.core.schedule import (
     ALL_GATHER,
     ALLREDUCE,
     REDUCE_SCATTER,
+    REGROUP,
     CollectiveOp,
     CommSchedule,
     emit_gated,
@@ -189,10 +190,13 @@ class GradSync:
         # one communicator a reduce set, on every chain (the model axis's
         # for the NORM's sum over it; each axis's for a ring over several)
         sets = set(self.schedule.axes_used())
+        specs = dict(flatten_with_names(param_specs)[0])
+        # each leaf's spec axes: gathering a leaf's global view (a
+        # checkpoint's, ``repro_torch.checkpoint``) runs on them
+        sets |= {dep.reduce_key(flat_spec_axes(spec), mesh) for spec in specs.values()}
         self.model_sharded = frozenset()
         if self.mesh_shape.get("model", 1) > 1:
             sets.add(("model",))
-            specs = dict(flatten_with_names(param_specs)[0])
             self.model_sharded = frozenset(
                 n for n, spec in specs.items() if "model" in flat_spec_axes(spec))
         hier = cfg.reducer.startswith("hierarchical") and "pod" in self.mesh_shape
@@ -205,7 +209,8 @@ class GradSync:
         self.rings: list[PeerRing] = []
         if hier:
             pods = dep.pod_comms(self.groups, self.mesh_shape["pod"], self.mesh_shape["data"],
-                                 self.device, self.mesh_shape.get("model", 1))
+                                 self.device, self.mesh_shape.get("model", 1),
+                                 ranks=getattr(mesh, "world_ranks", None))
             for c, comms in self.groups.items():
                 comms.pod = pods[c]
             if (cfg.reducer == "hierarchical_ring" and self.device.type == "cuda"
@@ -293,7 +298,8 @@ class GradSync:
 
 
 class KVStore:
-    """Paper API: create / init / push / pull / barrier  (Figs 3, 5, 8, 10).
+    """Paper API: create / init / push / pull / barrier / regroup  (Figs 3,
+    5, 8, 10; the regroup is the MXNET-MPI companion paper's).
 
     Any registered strategy name is a valid ``kind``; semantics derive
     from the strategy's registry metadata, not name strings:
@@ -320,17 +326,8 @@ class KVStore:
         self.num_channels = 1 if self.info.single_chain else num_channels
         self.mesh_shape = mesh_shape
         self.device = dep.resolve_device(device)
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if mesh_shape is not None:
-            mesh, axes = Mesh(tuple(mesh_shape), dict(mesh_shape)), self.reduce_axes
-        else:
-            # without a mesh every channel spans every rank: one data axis
-            mesh, axes = Mesh(("data",), {"data": world}), ("data",)
-        if group_size(axes, mesh.shape) == 1 < world:
-            raise ValueError(f"a KVStore over {self.reduce_axes} of {mesh_shape} "
-                             f"would reduce over one rank of {world}")
-        comms = dep.mesh_comms(range(self.num_channels), [axes], mesh, self.device)
-        self._groups = {c: cc.get(axes) for c, cc in comms.items()}
+        self._groups = self._make_groups()
+        self._regroups = 0
         self._handles: dict[int, dep.Handle] = {}
         self._staged: dict[int, torch.Tensor] = {}
         self._reduced: dict[int, tuple[dep.Handle, int]] = {}
@@ -340,6 +337,21 @@ class KVStore:
         self._last_op: dict[int, int] = {}   # channel -> last op_id
         self._rs_ops: dict[int, int] = {}    # key -> its RS op_id
         self._barrier_join: tuple[int, ...] = ()  # chain tails at barrier()
+
+    def _make_groups(self) -> dict[int, dist.ProcessGroup | None]:
+        """A communicator a channel over ``reduce_axes`` (collective)."""
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if self.mesh_shape is not None:
+            mesh = Mesh(tuple(self.mesh_shape), dict(self.mesh_shape))
+            axes = self.reduce_axes
+        else:
+            # without a mesh every channel spans every rank: one data axis
+            mesh, axes = Mesh(("data",), {"data": world}), ("data",)
+        if group_size(axes, mesh.shape) == 1 < world:
+            raise ValueError(f"a KVStore over {self.reduce_axes} of {self.mesh_shape} "
+                             f"would reduce over one rank of {world}")
+        comms = dep.mesh_comms(range(self.num_channels), [axes], mesh, self.device)
+        return {c: cc.get(axes) for c, cc in comms.items()}
 
     @classmethod
     def create(cls, kind: str, **kw) -> "KVStore":
@@ -444,6 +456,48 @@ class KVStore:
         channel's next op depends on every pre-barrier chain tail."""
         self._barrier_join = tuple(sorted(self._last_op.values()))
         self._last_op = {}
+
+    def regroup(self, *, reduce_axes: tuple[str, ...] | None = None,
+                mesh_shape: dict[str, int] | None = None) -> torch.Tensor:
+        """MXNET-MPI group rebuild: dissolve the channels' communicators
+        and re-form them over ``reduce_axes``/``mesh_shape``.
+
+        Stronger than ``barrier()``: besides joining every outstanding
+        chain, the OLD group runs one scalar all-reduce that every member
+        must reach, recorded as a REGROUP op that depends on every chain
+        tail; every later op's first emission on a channel depends on it.
+        Then the new communicators are created (collective, as at
+        construction).  Returns the barrier's scalar: the old group's
+        size."""
+        tails = tuple(sorted(self._last_op.values())) or self._barrier_join
+        bucket = Bucket(
+            leaves=(LeafInfo(name=f"__regroup{self._regroups}", index=0, shape=(),
+                             dtype=torch.float32, size=1),),
+            reduce_axes=self.reduce_axes, channel=0,
+            bucket_id=1_000_000 + self._regroups)
+        op = CollectiveOp(op_id=len(self._ops), bucket=bucket, chain=0,
+                          depends_on=tails, kind=REGROUP)
+        self._ops.append(op)
+        self._regroups += 1
+        group = self._groups[0]
+
+        def psum(v: torch.Tensor) -> dep.Handle:
+            if group is None:
+                return dep.Handle(dep.Recorded(v.device), v)
+            return dep.Handle(dep.collective(dist.all_reduce, group, v), v)
+
+        one = torch.ones((), dtype=torch.float32, device=self.device)
+        done = emit_gated(one, tails, self._handles, psum)
+        self._handles[op.op_id] = done
+        self._last_op = {}
+        self._barrier_join = (op.op_id,)
+        if reduce_axes is not None:
+            self.reduce_axes = tuple(reduce_axes)
+        if mesh_shape is not None:
+            self.mesh_shape = mesh_shape
+        out = done.wait()
+        self._groups = self._make_groups()
+        return out
 
     def schedule(self, verify: bool = True) -> CommSchedule:
         """The IR of every collective this store has issued so far.

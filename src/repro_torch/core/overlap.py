@@ -139,7 +139,8 @@ class LayerSync:
             self.pod = None
             if "pod" in self.mesh_shape and reducer in ("hierarchical", "compressed"):
                 self.pod = dep.pod_comms([0], self.mesh_shape["pod"], self.mesh_shape["data"],
-                                         self.device, self.mesh_shape.get("model", 1))[0]
+                                         self.device, self.mesh_shape.get("model", 1),
+                                         ranks=getattr(mesh, "world_ranks", None))[0]
             self.stream = (torch.cuda.Stream(self.device)
                            if self.device.type == "cuda" else None)
         self._slots: dict[int, torch.Tensor] = {}

@@ -13,9 +13,10 @@ inspectable data — the port of ``repro/core/schedule.py``.
 
 The IR half is the reference's unchanged, so planners here and in
 ``repro`` produce equal schedules.  The emitter runs the sync kinds
-(ALLREDUCE, REDUCE_SCATTER, ALL_GATHER) and the StepProgram's UPDATE and
-NORM (``core/stepprogram.py``); the elastic, serving and pipeline kinds
-raise ``NotImplementedError`` until their ROADMAP items port them.
+(ALLREDUCE, REDUCE_SCATTER, ALL_GATHER), the StepProgram's UPDATE and
+NORM (``core/stepprogram.py``) and the elastic RESHARD and REGROUP
+(``repro_torch.elastic``); the serving and pipeline kinds raise
+``NotImplementedError`` until their ROADMAP items port them.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ KINDS = (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER, UPDATE, NORM,
 _WIRE_KINDS = (ALLREDUCE, REDUCE_SCATTER)
 _PAYLOAD_KINDS = _WIRE_KINDS + (SEND,)
 # the ROADMAP queue 1 item that ports each kind the emitter cannot run
-_NOT_PORTED = {RESHARD: 14, REGROUP: 14, DECODE: "15b", SEND: 13, RECV: 13}
+_NOT_PORTED = {DECODE: "15b", SEND: 13, RECV: 13}
 
 # execution phases: POST ops run after this step's backward; PRE ops are
 # deferred to the top of the next step
@@ -318,6 +319,7 @@ class _OpEmitter:
         aux: dict | None = None,
         pending: Mapping[int, torch.Tensor] | None = None,
         model_sharded: frozenset[str] = frozenset(),
+        device: torch.device = torch.device("cpu"),
     ):
         if two_phase_impl not in ("psum", "ring"):
             raise ValueError(f"unknown two_phase_impl {two_phase_impl!r}")
@@ -334,6 +336,7 @@ class _OpEmitter:
         self.aux = aux
         self.pending = pending
         self.model_sharded = model_sharded
+        self.device = device
         self.by_id = {op.op_id: op for op in schedule.ops}
         self.handles: dict[int, dep.Handle] = {}
         # op_id -> (handle of the op that made the shard, unpadded size);
@@ -642,6 +645,64 @@ class _OpEmitter:
             self.handles[op.op_id] = dep.Handle(dep.Recorded(full.device), None)
             del full
 
+        elif op.kind == RESHARD:
+            # elastic state movement: one kind, two sides, told apart as a
+            # deferred gather is.  A shard in ``pending`` is the GATHER
+            # side (the old mesh: the bucket's whole view rebuilt from the
+            # dp shards); none is the SCATTER side (the new mesh: pack the
+            # leaves, keep this rank's dp shard).  State values, never
+            # gradients: no dp mean, no loss scale.
+            g = self._group_size(bucket, group)
+            comm = group.get(bucket.reduce_axes) if g > 1 else None
+            if self.pending is not None and bucket.bucket_id in self.pending:
+                shard, n = self.pending[bucket.bucket_id], bucket.size
+
+                def rag(b):
+                    if g == 1:
+                        return dep.Handle(dep.Recorded(b.device), b)
+                    if self.two_phase_impl == "ring":
+                        full = coll_ops.ring_all_gather(b, bucket.reduce_axes,
+                                                        self.mesh_shape, group)
+                        return dep.Handle(dep.Recorded(b.device), full)
+                    full = torch.empty(b.numel() * g, dtype=b.dtype, device=b.device)
+                    return dep.Handle(dep.collective(
+                        dist.all_gather_into_tensor, comm, full, b), full)
+
+                full = emit_gated(shard, op.depends_on, self.handles, rag).wait()[:n]
+                self._stage_out(bucket, full, 1.0, flat_out)
+                self.handles[op.op_id] = dep.Handle(dep.Recorded(full.device), None)
+                del full
+            else:
+                dep.gate(self.handles, op.depends_on)
+                buf = self._stage_in(bucket, flat_out)
+                n = buf.numel()
+                if (-n) % g:
+                    buf = F.pad(buf, (0, (-n) % g))
+                n_shard = buf.numel() // g
+                idx = dist.get_rank(comm) if comm is not None else 0
+                shard = buf[idx * n_shard:(idx + 1) * n_shard].clone()
+                del buf
+                self.handles[op.op_id] = dep.Handle(dep.Recorded(shard.device), shard)
+                if self.aux is not None:
+                    self.aux.setdefault("reshard_shards", {})[bucket.bucket_id] = shard
+
+        elif op.kind == REGROUP:
+            # the group-rebuild barrier: a scalar sum every member of the
+            # dissolving communicator joins (the MXNET-MPI regroup moment)
+            g = self._group_size(bucket, group)
+            one = torch.ones((), dtype=torch.float32, device=self.device)
+
+            def psum(v):
+                if g == 1:
+                    return dep.Handle(dep.Recorded(v.device), v)
+                return dep.Handle(dep.collective(
+                    dist.all_reduce, group.get(bucket.reduce_axes), v), v)
+
+            h = emit_gated(one, op.depends_on, self.handles, psum)
+            self.handles[op.op_id] = h
+            if self.aux is not None:
+                self.aux["regroup_done"] = h.wait()
+
         elif op.kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"op kind {op.kind!r} is not ported yet (ROADMAP queue 1 "
@@ -707,6 +768,17 @@ def execute(
         PRE program's) gathers it.  UPDATEs record their shards in
         ``aux["update_shards"]`` (bucket_id-keyed) for the next step.
 
+    Elastic ops (``repro_torch.elastic.reshard``), as the reference's:
+      RESHARD — with a shard for its bucket in ``pending`` (the gather
+        side, on the old mesh): all-gathers it over the bucket's axes,
+        trims it and unpacks it into the leaves at scale 1; without (the
+        scatter side, on the new mesh): packs the leaves, pads to the
+        group and keeps this rank's dp shard in
+        ``aux["reshard_shards"]`` (bucket_id-keyed).
+      REGROUP — a scalar all-reduce over the bucket's axes that every
+        member of the old group joins after its deps; the sum (the old
+        group's size) lands in ``aux["regroup_done"]``.
+
     Ops are issued in schedule order; each waits on its ``depends_on``
     before it is issued.  The fused path writes reduced values into the
     gradient tensors in place; gathered updates go into new f32 tensors,
@@ -722,7 +794,8 @@ def execute(
         schedule, plan, reducer=reducer, groups=groups, mesh_shape=mesh_shape, mean_axes=mean_axes,
         use_fused_staging=use_fused_staging, loss_scale=loss_scale,
         two_phase_impl=two_phase_impl, update_fn=update_fn, clip_norm=clip_norm,
-        aux=aux, pending=pending, model_sharded=model_sharded)
+        aux=aux, pending=pending, model_sharded=model_sharded,
+        device=getattr(streams, "device", torch.device("cpu")))
     with streams:
         for op in schedule.ops:
             with streams.on(op.chain), torch.profiler.record_function(

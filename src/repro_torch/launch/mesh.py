@@ -49,7 +49,8 @@ def make_mesh(model: int = 1, multi_pod: bool = False) -> Mesh:
     """The initialized process group as the production mesh: a "model"
     axis of extent ``model`` and the rest of the world on "data" (with
     ``multi_pod`` on two pods of equal "data" extent).  A world that
-    does not split so raises."""
+    does not split so raises.  (A mesh over fewer ranks than the world,
+    an elastic rung, is a ``Mesh`` with ``ranks``.)"""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if model < 1 or world % model:
         raise ValueError(f"a model axis of {model} does not divide a world of {world}")

@@ -36,6 +36,13 @@ the next step's top) or ``monolithic`` (one bucket after the sync).
 ``--microbatch M`` accumulates M microbatches a step into f32
 accumulators, the adds running inside each backward.
 
+``--ckpt-dir DIR`` checkpoints the params and the optimizer state every
+``--ckpt-every`` steps (``repro_torch.checkpoint.CheckpointManager``,
+async, the reference's format); a second launch with the same directory
+resumes from its latest step.  ZeRO-1 state under ``--model`` > 1 has no
+plain checkpoint (the step refuses it at the first save: it moves through
+``repro_torch.elastic``).
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
         --device cpu --strategy concom --zero1 --zero1-plan deferred \\
         --microbatch 4 --steps 3 --seq 32 --batch 8
@@ -48,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch.distributed as dist
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.core import GradSyncConfig, get_strategy, reducer_names, strategy_names
 from repro_torch.data import ImagePipeline, TokenPipeline
@@ -94,6 +102,8 @@ def main(argv=None):
                     help="two pods over the world: a (pod, data, model) mesh")
     ap.add_argument("--model", type=int, default=1,
                     help="extent of the mesh's model axis (tensor parallelism)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
@@ -142,13 +152,15 @@ def main(argv=None):
                              clip_norm=args.clip_norm, zero1_mode=args.zero1,
                              zero1_plan=args.zero1_plan, microbatch=args.microbatch,
                              device=args.device)
-        trainer = Trainer(ts, pipe, log_every=1,
+        ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
+                if args.ckpt_dir else None)
+        trainer = Trainer(ts, pipe, ckpt, log_every=1,
                           printer=print if rank == 0 else (lambda _s: None))
         model, opt_state, hist = trainer.run(model, ts.init_opt(), args.steps)
         if ts.finalize is not None:
             ts.finalize(model, opt_state)     # the last step's deferred updates
         ts.gradsync.close()
-        if rank == 0:
+        if rank == 0 and hist["losses"]:
             times = hist["step_times"]
             avg = sum(times) / len(times) * 1e3 if times else float("nan")
             print(f"[train] {args.arch} {args.strategy}: loss "

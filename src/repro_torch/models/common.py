@@ -63,13 +63,15 @@ NO_MODEL_AXIS = ModelAxis(None, 0, 1)
 def model_axis(mesh, device: str | torch.device = "cuda") -> ModelAxis:
     """This rank's ``ModelAxis``: the communicator of its model group
     (the ranks that share its other coordinates), its coordinate on
-    "model" and the axis's extent.  Collective: every rank creates every
-    model group (none at extent 1)."""
+    "model" and the axis's extent.  Collective: every world rank creates
+    every model group (none at extent 1); a rank outside the mesh gets
+    no group."""
     tp = mesh.shape.get(MODEL_AXIS, 1)
     if tp == 1:
         return NO_MODEL_AXIS
     group = dep.coset_groups([(MODEL_AXIS,)], mesh, dep.resolve_device(device))[(MODEL_AXIS,)]
-    return ModelAxis(group, mesh.coords(dist.get_rank())[MODEL_AXIS], tp)
+    me = dep.mesh_rank(mesh)
+    return ModelAxis(group, 0 if me is None else mesh.coords(me)[MODEL_AXIS], tp)
 
 
 class _ModelPsum(torch.autograd.Function):
@@ -126,14 +128,15 @@ def fsdp_axes(mesh, dp_axes, device: str | torch.device = "cuda") -> FsdpAxes:
     """This rank's ``FsdpAxes`` over ``dp_axes``: a communicator of its
     own for its dp group (the ranks that share its model coordinate;
     the group's ranks in rank order, so group rank i is dp index i), its
-    dp index and the extent.  Collective: every rank creates every dp
-    group (none at extent 1)."""
+    dp index and the extent.  Collective: every world rank creates every
+    dp group (none at extent 1); a rank outside the mesh gets no group."""
     size = math.prod(mesh.shape.get(a, 1) for a in dp_axes)
     if size == 1:
         return NO_FSDP
     key = dep.reduce_key(dp_axes, mesh)
     group = dep.coset_groups([key], mesh, dep.resolve_device(device))[key]
-    return FsdpAxes(group, dp_index(dist.get_rank(), mesh), size)
+    me = dep.mesh_rank(mesh)
+    return FsdpAxes(group, 0 if me is None else dp_index(me, mesh), size)
 
 
 class _TiledGather(torch.autograd.Function):
@@ -255,7 +258,11 @@ def init_tree(draw: Callable, specs: Callable, cfg, *, seed: int,
     device = dep.resolve_device(device)
     if mesh is not None:
         if rank is None:
-            rank = dist.get_rank() if dist.is_initialized() else 0
+            rank = dep.mesh_rank(mesh)
+            if rank is None:
+                raise ValueError(f"rank {dist.get_rank()} is outside the mesh over the "
+                                 f"world ranks {mesh.world_ranks}: pass the mesh rank "
+                                 f"whose blocks to keep")
         if mesh.shape.get(MODEL_AXIS, 1) != cfg.tp:
             raise ValueError(f"tp={cfg.tp} on a mesh with model extent "
                              f"{mesh.shape.get(MODEL_AXIS, 1)}")

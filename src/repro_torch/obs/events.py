@@ -2,11 +2,13 @@
 
 One event per line, each a self-describing JSON object with a ``kind``
 and a UTC timestamp.  The port's train loop emits a ``compile`` event
-for its first step and a ``step`` event per optimizer step; the
-reference's lifecycle events (failure / restore / straggler / remesh)
-come with checkpointing and elastic training (ROADMAP queue 1 items 10
-and 14).  Anything downstream can replay the stream without knowing the
-writer's version.
+for its first step, a ``step`` event per optimizer step and the
+reference's lifecycle events (``restore``, ``recover``, ``retry``,
+``retry_exhausted``, ``rank_lost``, ``failure``, ``straggler``,
+``remesh_requested``; ``runtime/train_loop.py::Trainer``); the elastic
+supervisor adds one ``transition`` event a mesh change
+(``repro_torch.elastic``).  Anything downstream can replay the stream
+without knowing the writer's version.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ params in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping
 
 import torch
 import torch.distributed
@@ -30,6 +30,10 @@ class Optimizer:
     # update(grads, state, params, step) -> (updates, new_state)
     # (inner optimizer, dp size, dp axes) of a ``zero1`` wrapper, else None
     zero1_meta: tuple | None = None
+    # a ``zero1`` wrapper's setup(mesh, device): its dp communicator on the
+    # mesh, created at once (collective); without it the first update
+    # creates one as if the mesh were the world
+    zero1_setup: Callable[[Any, Any], None] | None = None
 
 
 def sgd(lr: Callable[[int], float] | float, momentum: float = 0.9,

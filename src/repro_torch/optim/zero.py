@@ -18,8 +18,8 @@ its update math drop to 1/dp a rank.  Two shapes, both running through
 The port's optimizers work on name → tensor dicts: the inner optimizer
 runs on a one-entry dict ``{"shard": flat f32 shard}``, so its state of a
 bucket is, for AdamW, ``{"m": {"shard": ...}, "v": {"shard": ...}}``.
-The rank's dp index is its rank in the world (the dp mesh of the
-data-parallel slice).
+The rank's dp index is its rank in its dp group (the ranks of its model
+coordinate on the step's mesh, ``Optimizer.zero1_setup``).
 """
 from __future__ import annotations
 
@@ -80,9 +80,16 @@ def zero1(inner: Optimizer, dp_axes: tuple[str, ...], dp_size: int) -> Optimizer
 
     The UNREDUCED gradients go in (the reduce-scatter is the dp sum): run
     the step's sync with the dp axes excluded.  ``update`` runs the
-    3-op schedule on a communicator of its own, created on the first
-    call (collectively: every rank updates at the same point)."""
+    3-op schedule on a communicator of its own: the dp group of the mesh
+    given to ``zero1_setup(mesh, device)`` (``make_train_step`` calls it;
+    collective over the world), else created on the first call as if
+    the mesh were the world (every rank updates at the same point)."""
     comms: dict[torch.device, tuple] = {}
+
+    def setup(mesh, device):
+        device = dep.resolve_device(device)
+        comms[device] = (dep.mesh_comms([0], [dp_axes], mesh, device),
+                         dep.ChainStreams([0], device))
 
     def init(params):
         n = sum(p.numel() for p in params.values())
@@ -115,12 +122,9 @@ def zero1(inner: Optimizer, dp_axes: tuple[str, ...], dp_size: int) -> Optimizer
         mesh_shape = {a: 1 for a in dp_axes}
         mesh_shape[dp_axes[0]] = dp_size
         if device not in comms:
-            # the dp group: the ranks of this rank's model coordinate
-            # (ranks are row-major with "model" last: tp = world / dp)
-            mesh = Mesh((*dp_axes, MODEL_AXIS),
-                        {**mesh_shape, MODEL_AXIS: dist.get_world_size() // dp_size})
-            comms[device] = (dep.mesh_comms([0], [dp_axes], mesh, device),
-                             dep.ChainStreams([0], device))
+            # no mesh given: the world, ranks row-major with "model" last
+            setup(Mesh((*dp_axes, MODEL_AXIS),
+                       {**mesh_shape, MODEL_AXIS: dist.get_world_size() // dp_size}), device)
         groups, streams = comms[device]
         dp_group = groups[0].get(dp_axes)
         rank = dist.get_rank(dp_group) if dp_group is not None else 0
@@ -140,7 +144,8 @@ def zero1(inner: Optimizer, dp_axes: tuple[str, ...], dp_size: int) -> Optimizer
                           mesh_shape=mesh_shape, update_fn=update_fn)
         return dict(zip(names, updates)), {"inner": carry["inner"]}
 
-    return Optimizer(init, update, zero1_meta=(inner, dp_size, tuple(dp_axes)))
+    return Optimizer(init, update, zero1_meta=(inner, dp_size, tuple(dp_axes)),
+                     zero1_setup=setup)
 
 
 # ------------------------------------------------- scheduled (StepProgram)

@@ -17,7 +17,11 @@ rank holds, by the rank's coordinates (``Mesh.coords``).
 ``Mesh`` is the reference mesh's shape alone: axis names and sizes.  Its
 ranks follow the reference mesh's device order, row-major over the axes
 (the last fastest): on ("data", "model") rank d·tp + m is at (d, m); on
-("pod", "data", "model") rank (p·data + d)·tp + m is at (p, d, m).
+("pod", "data", "model") rank (p·data + d)·tp + m is at (p, d, m).  A
+mesh may span fewer ranks than the process group (a rung of an elastic
+ladder, ``repro_torch.elastic``): ``ranks`` lists the world ranks it
+spans, ascending, mesh rank i being world rank ``ranks[i]``; by default
+the first ``size`` world ranks, so the mesh rank is the world rank.
 ``localize_structs`` gives the shapes of those blocks, as the
 reference's does for its ``ShapeDtypeStruct``s.
 """
@@ -36,10 +40,34 @@ DP_AXES = ("pod", "data")  # subset actually present in the mesh is used
 class Mesh:
     axis_names: tuple[str, ...]
     shape: dict[str, int]
+    # the world ranks the mesh spans, ascending; None: range(size)
+    ranks: tuple[int, ...] | None = None
+
+    def __post_init__(self):
+        if self.ranks is not None:
+            r = tuple(self.ranks)
+            if len(r) != self.size or list(r) != sorted(set(r)) or r[0] < 0:
+                raise ValueError(f"a mesh of {self.size} ranks cannot span the world "
+                                 f"ranks {r}: want {self.size} distinct ones, ascending")
+            object.__setattr__(self, "ranks", r)
 
     @property
     def size(self) -> int:
         return math.prod(self.shape[a] for a in self.axis_names)
+
+    @property
+    def world_ranks(self) -> tuple[int, ...]:
+        """The world ranks of mesh ranks 0, 1, ... (ascending)."""
+        return tuple(range(self.size)) if self.ranks is None else self.ranks
+
+    def rank_in(self, world_rank: int) -> int | None:
+        """A world rank's mesh rank, or None for a rank outside the mesh."""
+        if self.ranks is None:
+            return world_rank if 0 <= world_rank < self.size else None
+        try:
+            return self.ranks.index(world_rank)
+        except ValueError:
+            return None
 
     def coords(self, rank: int) -> dict[str, int]:
         """Rank → its coordinate on every axis (row-major, the last axis
@@ -116,9 +144,10 @@ def localize_structs(tree: Any, specs: Any, mesh) -> Any:
 
 
 def shard_leaf(x, spec: Iterable, mesh, coords: dict[str, int]):
-    """The block of ``x`` that the rank at ``coords`` holds under
-    ``spec`` (a view; a dim sharded over several axes is split
-    row-major over them, as the reference's mesh lays them out)."""
+    """The block of ``x`` (a tensor, or a numpy array) that the rank at
+    ``coords`` holds under ``spec`` (a view; a dim sharded over several
+    axes is split row-major over them, as the reference's mesh lays them
+    out)."""
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
         if not axes:
@@ -131,7 +160,7 @@ def shard_leaf(x, spec: Iterable, mesh, coords: dict[str, int]):
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
         size = x.shape[dim] // n
-        x = x.narrow(dim, idx * size, size)
+        x = x[(slice(None),) * dim + (slice(idx * size, (idx + 1) * size),)]
     return x
 
 
@@ -155,9 +184,9 @@ def batch_spec(mesh) -> tuple:
 
 
 def dp_index(rank: int, mesh) -> int:
-    """The rank's data-parallel index: its coordinates on the dp axes,
-    row-major (the batch slice ``batch_spec`` gives it; every rank of a
-    model group reads the same one)."""
+    """The mesh rank's data-parallel index: its coordinates on the dp
+    axes, row-major (the batch slice ``batch_spec`` gives it; every rank
+    of a model group reads the same one)."""
     return rank // mesh.shape.get(MODEL_AXIS, 1)
 
 

@@ -9,8 +9,17 @@ from repro_torch.runtime.serve_loop import (
     sharded_candidates,
     sharded_sample,
 )
-from repro_torch.runtime.train_loop import Trainer, TrainStep, make_train_step
+from repro_torch.runtime.train_loop import (
+    RankLost,
+    RemeshRequest,
+    SimulatedFailure,
+    Trainer,
+    TrainStep,
+    TransientStepError,
+    make_train_step,
+)
 
-__all__ = ["BlockAllocator", "ContinuousScheduler", "PagedLayout",
-           "RequestQueue", "SamplingParams", "Server", "TrainStep", "Trainer",
+__all__ = ["BlockAllocator", "ContinuousScheduler", "PagedLayout", "RankLost",
+           "RemeshRequest", "RequestQueue", "SamplingParams", "Server",
+           "SimulatedFailure", "TrainStep", "Trainer", "TransientStepError",
            "make_train_step", "sharded_argmax", "sharded_candidates", "sharded_sample"]

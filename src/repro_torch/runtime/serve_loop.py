@@ -227,12 +227,16 @@ class Server:
             raise ValueError(f"tp={self.tp} on a mesh with model extent "
                              f"{mesh.shape.get(MODEL_AXIS, 1)}")
         world = dist.get_world_size() if dist.is_initialized() else 1
-        if mesh.size != world:
+        if mesh.world_ranks[-1] >= world:
             raise ValueError(f"a mesh of {mesh.size} ranks ({dict(mesh.shape)}) does not "
                              f"fit a world of {world}")
+        me = dep.mesh_rank(mesh)
+        if me is None:
+            raise ValueError(f"rank {dist.get_rank()} is outside the mesh over the "
+                             f"world ranks {mesh.world_ranks}: it serves nothing")
         dp_axes = dp_axes_of(mesh)
         self.dp_size = math.prod(mesh.shape[a] for a in dp_axes)
-        self.dp_index = dp_index(dist.get_rank() if world > 1 else 0, mesh)
+        self.dp_index = dp_index(me, mesh)
         fsdp = getattr(cfg, "fsdp", False)
         if fsdp and dep.reduce_key(cfg.dp_axes, mesh) != dep.reduce_key(dp_axes, mesh):
             raise ValueError(f"{cfg.name}: FSDP shards over {cfg.dp_axes}, the mesh's dp "

@@ -56,7 +56,9 @@ trace splits the step by layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import statistics
 import time
 from typing import IO, Any, Callable
 
@@ -82,22 +84,84 @@ from repro_torch.utils.trees import flatten_with_names, tree_leaves, tree_unflat
 ZERO1_PLANS = ("scheduled", "deferred", "monolithic")
 
 
+class SimulatedFailure(RuntimeError):
+    """Injected node failure (testing the recovery path)."""
+
+
+class TransientStepError(RuntimeError):
+    """Injected transient step fault, retried IN PLACE (rung 1 of the
+    elastic policy ladder): the step committed no state, so the same step
+    runs again up to ``step_retries`` times before escalating to
+    checkpoint recovery."""
+
+
+class RankLost(SimulatedFailure):
+    """Injected loss of mesh member(s): THIS mesh cannot continue.  The
+    Trainer attaches the last committed state (``.step``, ``.params`` —
+    the model, whose parameters hold it — and ``.opt_state``) and
+    re-raises: recovery is a NEW mesh, the supervisor's job
+    (``repro_torch.elastic.supervisor``)."""
+
+    def __init__(self, message: str = "rank lost"):
+        super().__init__(message)
+        self.step: int = 0
+        self.params: Any = None
+        self.opt_state: Any = None
+
+
+class RemeshRequest(SimulatedFailure):
+    """Straggler-driven shrink request (opt-in through ``remesh_hook``):
+    carries the post-step state as ``RankLost`` does, for the
+    supervisor's shrink; the state is healthy, the mesh is slow."""
+
+    def __init__(self, message: str = "remesh requested"):
+        super().__init__(message)
+        self.step: int = 0
+        self.params: Any = None
+        self.opt_state: Any = None
+
+
 @dataclasses.dataclass
 class TrainStep:
     fn: Callable[..., Any]   # (model, opt_state, batch, step) -> (model, opt_state, metrics)
     gradsync: GradSync
     device: torch.device
     layer_sync: Any = None   # core.overlap.LayerSync under depcha in-scan, else None
-    opt_init: Callable[[], Any] | None = None
+    opt_init: Callable[..., Any] | None = None
     # deferred zero1 only: (model, opt_state) -> model, applying the carried
     # update shards (what the next step's top would) and zeroing the carry
     finalize: Callable[..., Any] | None = None
+    # what a checkpoint or the state codec reads: the mesh, the params'
+    # specs (a tree like the params) and whether the optimizer is ZeRO-1's
+    mesh: Any = None
+    param_specs: Any = None
+    zero1: bool = False
 
     def init_opt(self) -> Any:
         """Zero-initialized optimizer state: under ZeRO-1 sharded, sized
         from the dp plan (scheduled, deferred) or the local params
         (monolithic); else the optimizer's ``init`` of the params."""
         return self.opt_init()
+
+    @property
+    def opt_state_like(self) -> Any:
+        """``init_opt()``'s tree on ``meta``: its structure, shapes and
+        dtypes, no memory."""
+        return self.opt_init(torch.device("meta"))
+
+    @property
+    def member(self) -> bool:
+        """Whether this process is a rank of the step's mesh (a rank
+        outside an elastic rung builds the step, for its collectives,
+        and runs none)."""
+        return dep.mesh_rank(self.mesh) is not None
+
+    @property
+    def mesh_group(self) -> Any:
+        """The communicator over every rank of the mesh (None for a
+        mesh of one rank in a larger world, and outside the mesh)."""
+        comms = self.gradsync.groups[min(self.gradsync.groups)]
+        return comms.get(self.mesh.axis_names)
 
 
 def split_microbatches(batch: dict, microbatch: int) -> list[dict]:
@@ -216,7 +280,12 @@ def make_train_step(
     gs = GradSync(sync, mesh, specs, params_like, in_scan_names=in_scan, device=device)
     # the loss is summed over the dp axes (None: a dp group of one)
     loss_group = coset_groups([dp], mesh, device)[reduce_key(dp, mesh)]
-    rank = dp_index(dist.get_rank(), mesh)
+    # a rank outside the mesh (an elastic rung of fewer ranks than the
+    # world) creates every communicator with the members and steps never
+    me = dep.mesh_rank(mesh)
+    rank = dp_index(me, mesh) if me is not None else 0
+    if zero1_mode and not zero1_scheduled and optimizer.zero1_setup is not None:
+        optimizer.zero1_setup(mesh, device)
     fwd_kw = {"layer_sync": layer_sync} if layer_sync is not None else {}
     if tp > 1:
         fwd_kw["model_axis"] = model_axis(mesh, device)
@@ -230,14 +299,17 @@ def make_train_step(
         clip_kw = dict(shard_sets=shard_sets, comms=dep.mesh_comms(
             [0], set(shard_sets.values()), mesh, device)[0])
 
-    def init_opt():
+    def init_opt(on: torch.device | None = None):
+        on = device if on is None else on
         if zero1_scheduled:
-            state = zero1_state(inner, gs.dp_plan, dp_size, device)
+            state = zero1_state(inner, gs.dp_plan, dp_size, on)
             if defer_ag:
-                state["pending"] = zero1_pending(gs.dp_plan, dp_size, device)
+                state["pending"] = zero1_pending(gs.dp_plan, dp_size, on)
             return state
         named = flatten_with_names(model.params_tree())[0]
-        return optimizer.init({n: p.detach() for n, p in named})
+        return optimizer.init({n: p.detach() if on.type != "meta"
+                               else torch.empty(p.shape, dtype=p.dtype, device=on)
+                               for n, p in named})
 
     pend_keys = ()
     post_sched = None
@@ -307,6 +379,9 @@ def make_train_step(
     late_finish = microbatch == 1 and not zero1_scheduled
 
     def step(model, opt_state, batch, step_idx: int):
+        if me is None:
+            raise RuntimeError(f"rank {dist.get_rank()} is outside the mesh over the "
+                               f"world ranks {mesh.world_ranks}: it makes no step")
         model.zero_grad(set_to_none=True)
         tree = model.params_tree()
         named, treedef = flatten_with_names(tree)
@@ -384,13 +459,40 @@ def make_train_step(
         return model, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return TrainStep(step, gs, device, layer_sync, init_opt,
-                     finalize if defer_ag else None)
+                     finalize if defer_ag else None, mesh=mesh, param_specs=specs,
+                     zero1=zero1_mode)
 
 
 class Trainer:
-    """Training driver: runs the step over the pipeline's batches, times
-    each step and keeps the losses, with the reference's ``repro.obs``
-    accounting (``repro/runtime/train_loop.py::Trainer``).
+    """Fault-tolerant training driver (``repro/runtime/train_loop.py::
+    Trainer``): runs the step over the pipeline's batches, times each
+    step and keeps the losses, with the reference's ``repro.obs``
+    accounting and its rungs of the elastic policy ladder.
+
+    - checkpoint/restart through ``ckpt`` (a ``repro_torch.checkpoint.
+      CheckpointManager``, or the elastic ``ElasticCheckpointer``):
+      ``run`` first restores the latest checkpoint, if there is one,
+      saves every ``ckpt.every`` steps, and waits for the last save.  A
+      restore writes into the live parameters and optimizer tensors
+      (``copy_``): the step and its syncers hold references to them.  A
+      ``zero1_plan="deferred"`` step restores only a checkpoint that
+      holds its ``pending`` carry (``_guard_pending``).
+    - batches are a function of (seed, step), so a resume is exact.
+    - ``fail_at``: a ``SimulatedFailure`` at those steps (once each),
+      recovered by restoring the latest checkpoint and replaying (rung 2).
+    - ``fault_injector(step)`` runs at the top of every step attempt: a
+      ``TransientStepError`` is retried in place up to ``step_retries``
+      times (rung 1; ``retry``), then recovered as a failure
+      (``retry_exhausted``); a ``RankLost`` carries the step and the
+      committed state out to the caller (``rank_lost``: the supervisor
+      builds a new mesh).
+    - stragglers: a step slower than ``straggler_factor`` × the running
+      median is a ``straggler`` event; ``straggler_patience`` in a row
+      make a ``remesh_requested`` event, and when ``remesh_hook(step)``
+      answers ``"shrink"`` a ``RemeshRequest`` with the post-step state.
+      With a hook each step's time is the MAX over the mesh's ranks (one
+      scalar all-reduce a step), so every rank decides alike; without
+      one each rank's events are its own and nothing more is issued.
 
     The first step is reported apart, as ``compile_time`` (the gauge
     ``compile_time_s`` and a ``compile`` event, the reference's names):
@@ -402,24 +504,39 @@ class Trainer:
     steps, ``steps_total``, ``loss`` and ``grad_norm`` (and
     ``tokens_total`` / ``tokens_per_s`` for token batches) each step.
     ``events_path`` (a path or file object) gets one JSONL ``step`` event
-    a step.  Each logged step prints the trainer line and the heartbeat.
+    a step and every lifecycle event (``restore``, ``recover``,
+    ``retry``, ``retry_exhausted``, ``rank_lost``, ``failure``,
+    ``straggler``, ``remesh_requested``).  Each logged step prints the
+    trainer line and the heartbeat.
 
     Under ZeRO-1 ``mem.state_bytes`` counts the rank's sharded optimizer
     state (and, deferred, the carried update shards).
 
     Not here: the reference's simulator gauges (``sim.step_time_s``,
-    ``sim.exposed_comm_s``; ROADMAP queue 1 item 15b), and its
-    checkpoint, retry, straggler and fault-injection rungs with their
-    events (items 10 and 14), among them the check that a deferred run
-    resumes from a checkpoint holding its carry (``_guard_pending``,
-    item 10)."""
+    ``sim.exposed_comm_s``; ROADMAP queue 1 item 15b)."""
 
-    def __init__(self, step_fn: TrainStep, pipeline, *, log_every: int = 10,
+    def __init__(self, step_fn: TrainStep, pipeline, ckpt=None, *,
+                 fail_at: frozenset[int] = frozenset(),
+                 straggler_factor: float = 3.0,
+                 straggler_patience: int = 3,
+                 step_retries: int = 0,
+                 fault_injector: Callable[[int], None] | None = None,
+                 remesh_hook: Callable[[int], str | None] | None = None,
+                 log_every: int = 10,
                  printer: Callable[[str], None] = print,
                  metrics: MetricsRegistry | None = None,
                  events_path: str | IO[str] | None = None):
         self.step_fn = step_fn
         self.pipeline = pipeline
+        self.ckpt = ckpt
+        if ckpt is not None and hasattr(ckpt, "attach_step"):
+            ckpt.attach_step(step_fn)
+        self.fail_at = set(fail_at)
+        self.straggler_factor = straggler_factor
+        self.straggler_patience = straggler_patience
+        self.step_retries = step_retries
+        self.fault_injector = fault_injector
+        self.remesh_hook = remesh_hook
         self.log_every = log_every
         self.printer = printer
         self.step_times: list[float] = []
@@ -427,6 +544,13 @@ class Trainer:
         self.events: list[dict] = []
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.events_path = events_path
+        self._log: EventLog | None = None
+
+    def _event(self, kind: str, **fields) -> None:
+        """A lifecycle event, in memory and on the JSONL stream."""
+        self.events.append({"kind": kind, **fields})
+        if self._log is not None:
+            self._log.emit(kind, **fields)
 
     def _account_static(self, model, opt_state) -> None:
         """The per-run gauges and counters: resident state bytes and one
@@ -439,33 +563,163 @@ class Trainer:
         comm_byte_counters(gs.schedule, self.metrics,
                            itemsize=gs.cfg.comm_dtype.itemsize)
 
+    def _guard_pending(self, step: int) -> None:
+        """Deferred-plan restore guard: a step that carries an
+        ``opt_state["pending"]`` tree restores only a checkpoint that
+        holds one, else the resume would read a zero carry where the
+        saved run had live update shards, and diverge."""
+        like = self.step_fn.opt_state_like
+        if not isinstance(like, dict) or "pending" not in like:
+            return
+        manifest = getattr(self.ckpt, "manifest", None)
+        if manifest is None:
+            return
+        try:
+            names = manifest(step)
+        except (OSError, KeyError, ValueError):
+            return      # no manifest to check against: restore decides
+        if not any("pending" in n for n in names):
+            raise RuntimeError(
+                f"checkpoint at step {step} has no opt_state['pending'] "
+                f"carry but this zero1_plan='deferred' step requires one "
+                f"— resuming would silently drop the deferred updates "
+                f"(flush via TrainStep.finalize before saving, or restore "
+                f"into a scheduled-plan step)")
+
+    def _restore(self, model, opt_state) -> int:
+        """Restore the latest checkpoint into the live tensors; its step."""
+        self._guard_pending(self.ckpt.latest())
+        s, state = self.ckpt.restore({"params": model.params_tree(), "opt": opt_state})
+        copy_into({"params": model.params_tree(), "opt": opt_state}, state)
+        return s
+
+    def _recover(self, model, opt_state) -> int | None:
+        """Restore and replay (rung 2): the step to resume at, or None
+        without a checkpoint."""
+        if self.ckpt is None or self.ckpt.latest() is None:
+            return None
+        s = self._restore(model, opt_state)
+        self._event("recover", step=s)
+        return s
+
+    def _step_time(self, dt: float) -> float:
+        """The step's time; with a remesh hook the max over the mesh."""
+        if self.remesh_hook is None:
+            return dt
+        group = self.step_fn.mesh_group
+        if group is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64, device=self.step_fn.device)
+        dep.collective(functools.partial(dist.all_reduce, op=dist.ReduceOp.MAX),
+                       group, t).wait()
+        return float(t[0])
+
     def run(self, model, opt_state, num_steps: int, start_step: int = 0
             ) -> tuple[Any, Any, dict]:
         with EventLog(self.events_path) as event_log:
-            return self._run(model, opt_state, num_steps, start_step, event_log)
+            self._log = event_log
+            try:
+                return self._run(model, opt_state, num_steps, start_step)
+            finally:
+                self._log = None
 
-    def _run(self, model, opt_state, num_steps: int, start_step: int,
-             event_log: EventLog) -> tuple[Any, Any, dict]:
+    def _run(self, model, opt_state, num_steps: int, start_step: int
+             ) -> tuple[Any, Any, dict]:
         device = self.step_fn.device
+        step = start_step
+        if self.ckpt is not None and self.ckpt.latest() is not None:
+            step = self._restore(model, opt_state)
+            self._event("restore", step=step)
+            self.printer(f"[trainer] restored checkpoint at step {step}")
         self._account_static(model, opt_state)
         losses: list[float] = []
-        for step in range(start_step, num_steps):
+        consec_slow = 0
+        retries_used = 0
+        while step < num_steps:
             batch = self.pipeline.batch_at(step)
             tokens = batch["tokens"].numel() if "tokens" in batch else 0
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            model, opt_state, metrics = self.step_fn.fn(
-                model, opt_state, batch, step)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            dt = time.perf_counter() - t0
+            try:
+                # injected faults fire at the top of the attempt, after
+                # t0: a straggler's sleep counts in its time
+                if self.fault_injector is not None:
+                    self.fault_injector(step)
+                if step in self.fail_at:
+                    self.fail_at.discard(step)
+                    raise SimulatedFailure(f"injected node loss @ {step}")
+                model, opt_state, metrics = self.step_fn.fn(
+                    model, opt_state, batch, step)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                retries_used = 0
+            except TransientStepError as e:
+                # rung 1: the step committed nothing; retry it in place
+                retries_used += 1
+                if retries_used <= self.step_retries:
+                    self._event("retry", step=step, attempt=retries_used)
+                    self.printer(f"[trainer] transient fault @ {step} ({e}); "
+                                 f"retry {retries_used}/{self.step_retries}")
+                    continue
+                retries_used = 0
+                self._event("retry_exhausted", step=step)
+                self.printer(f"[trainer] {e}; retries exhausted — recovering "
+                             f"from checkpoint")
+                recovered = self._recover(model, opt_state)
+                if recovered is None:
+                    self.printer("[trainer] no checkpoint; restart from 0")
+                    step = start_step
+                    continue
+                step = recovered
+                continue
+            except RankLost as e:
+                # rung 3 is outside the loop: this mesh is gone; hand the
+                # last committed state to the supervisor
+                e.step = step
+                e.params, e.opt_state = model, opt_state
+                self._event("rank_lost", step=step)
+                self.printer(f"[trainer] {e}; surrendering to supervisor")
+                raise
+            except SimulatedFailure as e:
+                self._event("failure", step=step)
+                self.printer(f"[trainer] {e}; recovering from checkpoint")
+                recovered = self._recover(model, opt_state)
+                if recovered is None:
+                    self.printer("[trainer] no checkpoint; restart from 0")
+                    step = start_step
+                    continue
+                step = recovered
+                continue
+            dt = self._step_time(time.perf_counter() - t0)
             if self.first_step_time is None:
                 self.first_step_time = dt
                 self.metrics.gauge("compile_time_s").set(dt)
-                self.events.append({"kind": "compile", "step": step, "dt": dt})
-                event_log.emit("compile", step=step, dt=dt)
+                self._event("compile", step=step, dt=dt)
             else:
+                if len(self.step_times) >= 5:
+                    med = statistics.median(self.step_times[-50:])
+                    if dt > self.straggler_factor * med:
+                        consec_slow += 1
+                        self._event("straggler", step=step, dt=dt, median=med)
+                        if consec_slow >= self.straggler_patience:
+                            decision = (self.remesh_hook(step)
+                                        if self.remesh_hook else None)
+                            self._event("remesh_requested", step=step,
+                                        decision=decision or "log-only")
+                            self.printer(
+                                f"[trainer] {consec_slow} consecutive straggler "
+                                f"steps — requesting re-shard / hot-spare swap "
+                                f"({decision or 'log-only'})")
+                            consec_slow = 0
+                            if decision == "shrink":
+                                # the committed post-step state; resume at step + 1
+                                e = RemeshRequest(f"straggler shrink @ {step}")
+                                e.step = step + 1
+                                e.params, e.opt_state = model, opt_state
+                                raise e
+                    else:
+                        consec_slow = 0
                 self.step_times.append(dt)
                 self.metrics.histogram("step_time_s").observe(dt)
                 if tokens:
@@ -477,7 +731,7 @@ class Trainer:
             self.metrics.counter("steps_total").inc()
             self.metrics.gauge("loss").set(loss)
             self.metrics.gauge("grad_norm").set(gnorm)
-            event_log.emit(
+            self._log.emit(
                 "step", step=step, loss=loss, dt=dt, grad_norm=gnorm,
                 tokens=tokens, compile_step=self.first_step_time == dt)
             if step % self.log_every == 0:
@@ -489,6 +743,12 @@ class Trainer:
                     avg_ms=sum(recent) / len(recent) * 1e3 if recent else None,
                     tokens_per_s=tokens / dt if tokens else None,
                     grad_norm=gnorm, compile_s=self.first_step_time))
+            step += 1
+            if self.ckpt is not None:
+                self.ckpt.maybe_save(step, {"params": model.params_tree(),
+                                            "opt": opt_state})
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return model, opt_state, {
             "losses": losses,
             "step_times": list(self.step_times),
@@ -496,3 +756,19 @@ class Trainer:
             "events": self.events,
             "metrics": self.metrics.snapshot(),
         }
+
+
+def copy_into(live: Any, restored: Any) -> None:
+    """Write a restored tree into the live one's tensors, leaf by leaf
+    (``copy_``; same names, shapes; the dtype and device are the live
+    tensor's), rebinding none: the step and its syncers hold references
+    to the parameters and the optimizer state."""
+    got = dict(flatten_with_names(restored)[0])
+    with torch.no_grad():
+        for n, t in flatten_with_names(live)[0]:
+            if not isinstance(t, torch.Tensor):
+                continue
+            v = got[n]
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{n}: restored {tuple(v.shape)} != live {tuple(t.shape)}")
+            t.copy_(v)

@@ -1,11 +1,11 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
     python tests/_torch_mdworker.py <workdir> <rank> <world> [MODE]
-    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*|serve-*>
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*|serve-*|elastic>
                                                   (tp-<mesh>+: SPLIT_REFERENCE's second part)
 
 MODE: grads (the default), rings, compressed, hier, lm, inception, zero1,
-tp-2x2, tp-1x4, tp-4x1, tp-ops, serve-2x2 or serve-1x4.
+tp-2x2, tp-1x4, tp-4x1, tp-ops, serve-2x2, serve-1x4 or elastic.
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -99,6 +99,19 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               rank's rows and vocab shard, the model functions' runs, the
               refusals at data 2, the samplers at model 4 and the
               padded-vocab witness at 2 x 2; to ``serve-<mesh>_rank<r>.npz``.
+
+  elastic     (tests/test_torch_elastic.py) the reference elastic worker's
+              model (``el_config``) from ``workdir/elastic_params.npz``
+              over the ladder ``EL_LADDER`` (``EL_MESHES``: data 2 x model
+              2 on the 4 ranks, data 2 x model 1 on ranks 0 and 1), ZeRO-1
+              AdamW: the codec's round trips, the tp2 → tp1 → tp2 reshard,
+              the transition plan, the Supervisor's faulty cycles and their
+              clean replays (scheduled, deferred, the straggler shrink),
+              the deferred plain-checkpoint resume and its guard on the
+              2-rank rung, the plain path's refusal at tp 2, the world-rank
+              repairs on a 2-rank mesh on ranks 2, 3 and on 0, 1
+              (``SUB_RANKS``) and the KVStore's regroup; flags, losses and
+              global params to ``elastic_rank<r>.npz``.
 
 ``layer_sync_rank`` is one of 2 processes on ``cuda:0`` for
 tests/test_torch_cuda.py: depcha's in-backward slot staging and the
@@ -1304,6 +1317,474 @@ def peer_rank(rank: int, world: int, workdir: str, case: str) -> None:
         dist.destroy_process_group()
 
 
+# ``elastic``: the reference's elastic worker (tests/_elworker.py) at its
+# ladder's tp-halving shrink on 4 ranks: data 2 x model 2, then data 2 x
+# model 1 on ranks 0 and 1 (the same dp extent, so the batches agree)
+EL_MESHES = {"tp2": ((2, 2), (0, 1, 2, 3)), "tp1": ((2, 1), (0, 1))}
+EL_LADDER = ("tp2", "tp1")
+EL_SEQ, EL_BATCH, EL_SEED = 32, 8, 5             # TokenPipeline(96, 32, 8, seed=5)
+EL_SYNC = dict(strategy="concom", bucket_bytes=1 << 12, exclude_axes=("data",))
+EL_LR = 1e-3
+EL_TOTAL, EL_EVERY, EL_GROW = 6, 4, 2
+EL_PLAN = dict(rank_loss=(3,), transient=(1,), step_retries=1, ckpt_io_faults=2,
+               ckpt_retries=3)
+EL_SCRIPT = ((3, "tp1"), (5, "tp2"))
+# check 7: two injected slow steps trip the patience window
+EL_STRAGGLE = dict(straggler=(6, 7), straggler_s=3.0, straggler_shrink=True)
+EL_STRAGGLE_RUN = dict(total=11, grow=2, factor=6.0, patience=2)
+# the world-rank repairs: a 2-rank mesh on world ranks 2, 3 against the same
+# mesh on ranks 0, 1 (the layout of a whole world of 2)
+SUB_RANKS = ((2, 3), (0, 1))
+
+
+def el_config(tp: int, ref: bool = False):
+    """The reference elastic worker's ``mk_dense`` at ``tp`` (TP_CFG, f32)."""
+    return tp_config(tp, ref=ref)
+
+
+def _el_plan(**kw):
+    from repro_torch.elastic import FaultPlan
+
+    return FaultPlan(**{k: frozenset(v) if isinstance(v, tuple) else v
+                        for k, v in kw.items()})
+
+
+def _elastic(workdir: str, rank: int) -> None:
+    """Port side of ``tests/test_torch_elastic.py`` (module docstring)."""
+    import dataclasses
+    import shutil
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import host_global, train_state_layout
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core import dependency as dep
+    from repro_torch.core.schedule import CommSchedule
+    from repro_torch.data import TokenPipeline
+    from repro_torch.elastic import (
+        ElasticCheckpointer,
+        StateCodec,
+        Supervisor,
+        plan_reshard,
+        reshard_state,
+    )
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw, zero1
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names
+
+    named = dict(np.load(os.path.join(workdir, "elastic_params.npz")))
+    cpu = torch.device("cpu")
+    out: dict = {}
+    steps: dict = {}
+
+    def mesh_of(key):
+        (data, model), ranks = EL_MESHES[key]
+        return Mesh(("data", "model"), {"data": data, "model": model}, ranks)
+
+    built: dict = {}
+
+    def step_for(mode, key):
+        """(train step, pipeline, mesh), memoized: make_train_step is
+        collective, every rank builds every rung."""
+        if (mode, key) not in built:
+            mesh = mesh_of(key)
+            cfg = el_config(mesh.shape["model"])
+            me = dep.mesh_rank(mesh)
+            model = tf.Transformer(cfg, params_from_numpy(
+                named, "cpu", mesh=mesh, rank=0 if me is None else me,
+                rules=tf.param_rules(cfg)))
+            ts = make_train_step(cfg, mesh, GradSyncConfig(**EL_SYNC),
+                                 zero1(adamw(EL_LR), ("data",), 2), model=model,
+                                 zero1_mode=True, zero1_plan=mode, clip_norm=0.0,
+                                 device="cpu")
+            fn = ts.fn
+
+            def recording(model, opt_state, batch, step, _fn=fn):
+                model, opt_state, m = _fn(model, opt_state, batch, step)
+                steps[step] = float(m["loss"])
+                return model, opt_state, m
+
+            ts = dataclasses.replace(ts, fn=recording)
+            pipe = (TokenPipeline(96, EL_SEQ, EL_BATCH, seed=EL_SEED, mesh=mesh, rank=me,
+                                  device="cpu") if me is not None else None)
+            built[(mode, key)] = (ts, pipe, mesh)
+        return built[(mode, key)]
+
+    def build_for(mode, key):
+        """The Supervisor's builder: a fresh model at the initial weights."""
+        ts, pipe, mesh = step_for(mode, key)
+        me = dep.mesh_rank(mesh)
+        if me is None:
+            return ts, None, None
+        cfg = el_config(mesh.shape["model"])
+        return ts, pipe, tf.Transformer(cfg, params_from_numpy(
+            named, "cpu", mesh=mesh, rank=me, rules=tf.param_rules(cfg)))
+
+    def run_plain(mode, key, n, times=None):
+        ts, pipe, model = build_for(mode, key)
+        st = ts.init_opt() if ts.member else None
+        for k in range(n if ts.member else 0):
+            t0 = time.perf_counter()
+            model, st, _ = ts.fn(model, st, pipe.batch_at(k), k)
+            if times is not None and k:
+                times.append(time.perf_counter() - t0)
+        return ts, model, st
+
+    def flat(model, st, prefix=""):
+        res = {}
+        if model is not None:
+            res.update({f"{prefix}param/{n}": p.detach().numpy().copy()
+                        for n, p in flatten_with_names(model.params_tree())[0]})
+        if st is not None:
+            res.update({f"{prefix}opt/{n}": t.numpy().copy()
+                        for n, t in flatten_with_names(st)[0]})
+        return res
+
+    def same(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+    def flag(name, cond):
+        out[f"check/{name}"] = np.array(bool(cond))
+
+    # each rung's uninterrupted losses (tp1 on ranks 0 and 1 of the 4), and
+    # the full rung's step times on this host
+    step_s: list = []
+    for key in EL_LADDER:
+        steps.clear()
+        run_plain("scheduled", key, EL_TOTAL, times=step_s if key == EL_LADDER[0] else None)
+        if rank == 0:
+            out[f"plain-{key}/losses"] = np.array([steps[k] for k in range(EL_TOTAL)])
+
+    # 1. the codec round trip on one mesh: scheduled (m, v), deferred (+ carry)
+    for mode in ("scheduled", "deferred"):
+        ts, model, st = run_plain(mode, "tp2", 2)
+        codec = StateCodec(ts)
+        enc = codec.encode(model.params_tree(), st)
+        params, st2 = codec.decode(enc)
+        m2 = tf.Transformer(el_config(2), params)
+        flag(f"codec-roundtrip-{mode}", same(flat(model, st), flat(m2, st2))
+             and ("pending" in enc["stats"]) == (mode == "deferred"))
+        if mode == "scheduled":
+            base = (ts, model, st, codec)
+    # 2. a zero-step tp2 -> tp1 -> tp2 round trip is the identity
+    ts2, model2, st2, codec2 = base
+    ts1 = step_for("scheduled", "tp1")[0]
+    codec1 = StateCodec(ts1)
+    view: dict = {}
+    p1, o1 = reshard_state(ts2, ts1, model2.params_tree(), st2, old_codec=codec2,
+                           new_codec=codec1, view=view)
+    m1 = tf.Transformer(el_config(1), p1) if p1 is not None else None
+    # a transition's anchor: written from the transfer's view, the files
+    # ``save_now`` writes of the decoded state, byte for byte
+    if ts1.member:
+        roots = [os.path.join(workdir, f"anchor-{i}") for i in range(2)]
+        ElasticCheckpointer(CheckpointManager(roots[0], blocking=True), codec1).save_view(
+            3, view if rank == 0 else None)
+        ElasticCheckpointer(CheckpointManager(roots[1], blocking=True), codec1).save_now(
+            3, {"params": m1.params_tree(), "opt": o1})
+        if rank == 0:
+            files = [sorted(os.path.relpath(os.path.join(d, f), r)
+                            for d, _, fs in os.walk(r) for f in fs) for r in roots]
+
+            def raw(r, f):
+                with open(os.path.join(r, f), "rb") as fh:
+                    return fh.read()
+            out["anchor/files"] = np.array(files[0])
+            flag("anchor-view-equals-save-now", files[0] == files[1] and all(
+                raw(roots[0], f) == raw(roots[1], f) for f in files[0]))
+    del view
+    p2, o2 = reshard_state(ts1, ts2, m1.params_tree() if m1 is not None else None, o1,
+                           old_codec=codec1, new_codec=codec2)
+    flag("reshard-2-1-2-roundtrip", same(flat(model2, st2),
+                                         flat(tf.Transformer(el_config(2), p2), o2)))
+    # 3. plan_reshard: the byte count covers params, m and v; the reshard
+    # pass rejects a PRE op crossing the REGROUP
+    from repro_torch.analysis import ScheduleError, verify_schedule
+
+    rp = plan_reshard(ts2, ts1, codec2._params_like())
+    n_param = sum(p.numel() for _, p in flatten_with_names(codec2._params_like())[0])
+    out["plan/reshard_bytes"] = np.int64(rp.reshard_bytes)
+    out["plan/n_param"] = np.int64(n_param)
+    out["plan/kinds"] = np.array([op.kind for op in rp.transition.ops])
+    flag("plan-reshard-bytes-cover-streams",
+         rp.reshard_bytes >= 3 * n_param * 4 and rp.streams[0] == "param")
+    mut = list(rp.transition.ops)
+    mut[0] = dataclasses.replace(mut[0], phase="pre")
+    try:
+        verify_schedule(CommSchedule(tuple(mut)), mesh_shape=None,
+                        old_mesh_shape=rp.old_mesh_shape, new_mesh_shape=rp.new_mesh_shape,
+                        leaf_divisibility=rp.leaf_divisibility)
+        caught = False
+    except ScheduleError as e:
+        caught = "pre-crosses-regroup" in str(e)
+    flag("plan-reshard-rejects-pre-crossing-regroup", caught)
+
+    # 5-7. the supervisor's cycles; ``steps`` records every step's loss
+    runs: list = []
+
+    def run_super(mode, plan=None, script=None, total=EL_TOTAL, grow=EL_GROW, **kw):
+        steps.clear()
+        runs.append(mode)
+        root = os.path.join(workdir, f"supervisor-{len(runs)}")     # every rank's
+        sup = Supervisor(lambda key: build_for(mode, key), EL_LADDER, root, plan=plan,
+                         script=script, every=EL_EVERY, grow_back_after=grow,
+                         printer=lambda _s: None, **kw)
+        model, st, rep = sup.run(total)
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+        return model, st, rep, dict(steps)
+
+    def report(tag, rep, losses):
+        out[f"{tag}/script"] = np.array(rep["script"], dtype=object).astype(str)
+        out[f"{tag}/reasons"] = np.array([t["reason"] for t in rep["transitions"]])
+        out[f"{tag}/events"] = np.array([f"{e['kind']}@{e.get('step')}" for e in rep["events"]])
+        out[f"{tag}/latency_count"] = np.int64(rep["metrics"]["recovery_latency_s"]["count"])
+        out[f"{tag}/reshard_bytes_total"] = np.int64(rep["metrics"]["reshard_bytes_total"])
+        out[f"{tag}/final_mesh"] = np.array(rep["final_mesh"])
+        out.update({f"{tag}/loss/{k}": np.float32(v) for k, v in losses.items()})
+
+    finals = {}
+    for mode in ("scheduled", "deferred"):
+        mF, oF, repF, lossF = run_super(mode, plan=_el_plan(**EL_PLAN))
+        report(f"{mode}-faulty", repF, lossF)
+        mC, oC, repC, _ = run_super(mode, script=repF["script"])
+        flag(f"supervisor-{mode}-faulty-equals-clean", same(flat(mF, oF), flat(mC, oC)))
+        ts_f = step_for(mode, "tp2")[0]
+        if ts_f.finalize is not None:
+            mF = ts_f.finalize(mF, oF)
+        finals[mode] = flat(mF, None)
+        # the global params, for the reference's
+        lay = StateCodec(ts_f).layout
+        lay = dataclasses.replace(lay, specs={"params": lay.specs["params"]})
+        out.update({f"{mode}-faulty/{n}": t.numpy() for n, t in
+                    host_global({"param": mF.params_tree()}, dataclasses.replace(
+                        lay, specs={"param": lay.specs["params"]}))})
+    flag("supervisor-deferred-equals-scheduled", same(finals["scheduled"], finals["deferred"]))
+    # an uninterrupted tp2-only run: another reduction order in the middle
+    # segment, so close, not equal
+    _, m_un, _ = run_plain("scheduled", "tp2", EL_TOTAL)
+    out["uninterrupted-maxdiff"] = np.float64(max(
+        float(np.max(np.abs(a - finals["scheduled"][k])))
+        for k, a in flat(m_un, None).items()))
+
+    # 7. straggler-driven shrink (opt-in), then its clean replay
+    sr = EL_STRAGGLE_RUN
+    # the injected straggler must take more than ``factor`` x the median
+    # step under this host's load: the reference's 3 s, or twice that
+    # bound at the slowest rank's median where a loaded host needs more
+    med = torch.tensor([float(np.median(step_s))], dtype=torch.float64)
+    dist.all_reduce(med, op=dist.ReduceOp.MAX)
+    straggle = {**EL_STRAGGLE, "straggler_s": max(EL_STRAGGLE["straggler_s"],
+                                                  2 * sr["factor"] * float(med))}
+    mS, oS, repS, _ = run_super("scheduled", plan=_el_plan(**straggle), total=sr["total"],
+                                grow=sr["grow"], straggler_factor=sr["factor"],
+                                straggler_patience=sr["patience"])
+    report("straggler", repS, {})
+    remesh = [e for e in repS["events"] if e["kind"] == "remesh_requested"]
+    out["straggler/decisions"] = np.array([e["decision"] for e in remesh] or [""])
+    out["straggler/resume"] = np.array([t["resume_step"] for t in repS["transitions"]])
+    mSc, oSc, _, _ = run_super("scheduled", script=repS["script"], total=sr["total"],
+                               grow=sr["grow"])
+    flag("straggler-shrink-faulty-equals-clean", same(flat(mS, oS), flat(mSc, oSc)))
+
+    # 8. deferred exact resume through the PLAIN checkpoint path on the tp1
+    # rung (2 of the 4 ranks): a killed-and-recovered run equals the
+    # uninterrupted one; the guard refuses a checkpoint without the carry
+    ts1d, pipe1d, _ = step_for("deferred", "tp1")
+    if ts1d.member:
+        def run_trainer(root, fail_at=frozenset(), ckpt=True):
+            _, _, model = build_for("deferred", "tp1")
+            ck = CheckpointManager(root, every=2, keep=0, blocking=True) if ckpt else None
+            tr = Trainer(ts1d, pipe1d, ck, fail_at=frozenset(fail_at),
+                         printer=lambda _s: None, log_every=10_000)
+            return tr.run(model, ts1d.init_opt(), 8)
+
+        roots = [os.path.join(workdir, f"plain-{i}") for i in range(3)]
+        m_kill, o_kill, r_kill = run_trainer(roots[0], fail_at={5})
+        m_ok, o_ok, _ = run_trainer(roots[1], ckpt=False)
+        kinds = [e["kind"] for e in r_kill["events"]]
+        flag("deferred-plain-ckpt-exact-resume", "recover" in kinds and same(
+            flat(ts1d.finalize(m_kill, o_kill), None), flat(ts1d.finalize(m_ok, o_ok), None)))
+        _, _, model = build_for("deferred", "tp1")
+        no_pending = {"params": model.params_tree(),
+                      "opt": {k: v for k, v in ts1d.init_opt().items() if k != "pending"}}
+        ck = CheckpointManager(roots[2], every=1, blocking=True)
+        ck.attach_step(ts1d)
+        ck.layout = dataclasses.replace(train_state_layout(ts1d), specs={
+            "params": ts1d.param_specs,
+            "opt": {"inner": train_state_layout(ts1d).specs["opt"]["inner"]}})
+        ck.maybe_save(1, no_pending)
+        try:
+            run_trainer(roots[2])
+            hit = False
+        except RuntimeError as e:
+            hit = "pending" in str(e)
+        flag("deferred-restore-guard-refuses-carry-less-ckpt", hit)
+    # ZeRO-1 at tp > 1 on the plain path: refused, naming the elastic path
+    try:
+        train_state_layout(step_for("scheduled", "tp2")[0])
+        out["plain-zero1-tp2-refusal"] = np.array("")
+    except ValueError as e:
+        out["plain-zero1-tp2-refusal"] = np.array(str(e))
+
+    # the world-rank repairs: each function on a 2-rank mesh inside the
+    # world of 4, on world ranks 2, 3 and on 0, 1
+    from repro_torch.core import GradSync
+    from repro_torch.models.common import fsdp_all_gather, fsdp_axes, model_axis, model_psum
+    from repro_torch.optim.zero import zero1_state
+
+    for ranks in SUB_RANKS:
+        tag = "sub" + "".join(map(str, ranks))
+        me = ranks.index(rank) if rank in ranks else None
+        val = torch.arange(6, dtype=torch.float32) * (1 + (me or 0)) + 0.5
+        res = {}
+        m12 = Mesh(("data", "model"), {"data": 1, "model": 2}, ranks)
+        m21 = Mesh(("data", "model"), {"data": 2, "model": 1}, ranks)
+        cg = dep.coset_groups([("model",)], m12, cpu)[("model",)]
+        pods = dep.pod_comms([0], 2, 1, cpu, 1, ranks=ranks)[0]
+        ax = model_axis(m12, "cpu")
+        fa = fsdp_axes(m21, ("data",), "cpu")
+        cfg = el_config(1)
+        gmodel = tf.Transformer(cfg, params_from_numpy(named, "cpu"))
+        tree = gmodel.params_tree()
+        gs = GradSync(GradSyncConfig(strategy="concom", bucket_bytes=1 << 12), m21,
+                      tf.param_specs(tree, cfg), tree, device="cpu")
+        gs1 = GradSync(GradSyncConfig(**{**EL_SYNC, "zero1_dp_axes": ("data",)}), m21,
+                       tf.param_specs(tree, cfg), tree, device="cpu")
+        if me is not None:
+            t = val.clone()
+            dep.collective(dist.all_reduce, cg, t).wait()
+            res["coset_groups"] = t.numpy()
+            t = val.clone()
+            dep.collective(dist.all_reduce, pods.inter, t).wait()
+            res["pod_comms"] = np.concatenate([t.numpy(), [dist.get_world_size(pods.intra),
+                                                           dist.get_world_size(pods.inter)]])
+            res["model_axis"] = np.concatenate([model_psum(val, ax).detach().numpy(),
+                                                [ax.index, ax.size]])
+            res["fsdp_axes"] = np.concatenate([fsdp_all_gather(val, 0, fa).detach().numpy(),
+                                               [fa.index, fa.size]])
+            res["zero1_state"] = np.array([v.numel() for _, v in flatten_with_names(
+                zero1_state(adamw(EL_LR), gs1.dp_plan, 2, cpu))[0]])
+            grads = {n: torch.full(p.shape, float(1 + me)) for n, p in
+                     flatten_with_names(tree)[0]}
+            from repro_torch.utils.trees import tree_unflatten
+            red = gs(tree_unflatten(flatten_with_names(tree)[1], list(grads.values())))
+            res["gradsync"] = np.array([float(g.sum()) for _, g in flatten_with_names(red)[0]])
+            out.update({f"{tag}/{k}": v for k, v in res.items()})
+        gs.close()
+        gs1.close()
+    # the KVStore's regroup on the 4 ranks: data x model, then "data" alone
+    from repro_torch.core import KVStore
+
+    kv = KVStore("concom", reduce_axes=("data", "model"), num_channels=2,
+                 mesh_shape={"data": 2, "model": 2}, device="cpu")
+    x = torch.full((8,), float(rank + 1))
+    kv.init(0, x)
+    kv.push(0, x)
+    first = kv.pull(0)
+    size = kv.regroup(reduce_axes=("data",), mesh_shape={"data": 2, "model": 2})
+    kv.push(0, x * 3)
+    out["kvstore/before"] = first.numpy()
+    out["kvstore/size"] = size.numpy()
+    out["kvstore/after"] = kv.pull(0).numpy()
+    s = kv.schedule(verify=False)
+    out["kvstore/kinds"] = np.array([op.kind for op in s.ops])
+    out["kvstore/axes"] = np.array(["+".join(op.bucket.reduce_axes) for op in s.ops])
+    np.savez(os.path.join(workdir, f"elastic_rank{rank}.npz"), **out)
+
+
+def _elastic_reference(workdir: str) -> dict:
+    """The JAX package's elastic runs on 4 fake devices: the ``("tp2",
+    "tp1")`` Supervisor cycle of ``EL_PLAN`` under both plans (script,
+    reasons, events, each step's loss, final params, a deferred run after
+    ``finalize``) and the witness of its plain checkpoint's view of ZeRO-1
+    state at tp = 2: the global flat array is model rank 0's shards."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType
+
+    from repro.core import GradSyncConfig
+    from repro.data import TokenPipeline
+    from repro.elastic import FaultPlan, Supervisor
+    from repro.models import transformer as tf
+    from repro.optim import adamw, zero1
+    from repro.runtime import make_train_step
+    from repro.utils.trees import flatten_with_names
+
+    named = dict(np.load(os.path.join(workdir, "elastic_params.npz")))
+    params = tf.init_params(jax.random.PRNGKey(2), el_config(1, ref=True))
+    for n, p in flatten_with_names(params)[0]:
+        np.testing.assert_array_equal(np.asarray(p), named[n], err_msg=n)
+    steps: dict = {}
+    built: dict = {}
+
+    def build_for(mode, key):
+        if (mode, key) not in built:
+            (data, model), ranks = EL_MESHES[key]
+            mesh = jax.make_mesh((data, model), ("data", "model"),
+                                 axis_types=(AxisType.Auto,) * 2,
+                                 devices=jax.devices()[:len(ranks)])
+            cfg = el_config(model, ref=True)
+            pipe = TokenPipeline(96, EL_SEQ, EL_BATCH, seed=EL_SEED, mesh=mesh)
+            ts = make_train_step(cfg, mesh, GradSyncConfig(**EL_SYNC),
+                                 zero1(adamw(EL_LR), ("data",), 2),
+                                 batch_like=pipe.batch_at(0), params_like=params,
+                                 zero1_mode=True, zero1_plan=mode, clip_norm=0.0)
+            fn = ts.fn
+
+            def recording(p, o, b, i, _fn=fn):
+                p, o, m = _fn(p, o, b, i)
+                steps[int(i)] = float(m["loss"])
+                return p, o, m
+
+            ts = dataclasses.replace(ts, fn=recording)
+            built[(mode, key)] = (ts, pipe, jax.device_put(params, ts.shardings(ts.param_specs)))
+        return built[(mode, key)]
+
+    out = {}
+    plan = FaultPlan(**{k: frozenset(v) if isinstance(v, tuple) else v
+                        for k, v in EL_PLAN.items()})
+    for mode in ("scheduled", "deferred"):
+        steps.clear()
+        root = tempfile.mkdtemp(prefix="elastic_ref_", dir=workdir)
+        sup = Supervisor(lambda key, _m=mode: build_for(_m, key), EL_LADDER, root, plan=plan,
+                         every=EL_EVERY, grow_back_after=EL_GROW, printer=lambda _s: None)
+        p, o, rep = sup.run(EL_TOTAL)
+        shutil.rmtree(root, ignore_errors=True)
+        ts = build_for(mode, "tp2")[0]
+        if ts.finalize is not None:
+            p = ts.finalize(p, o)
+        tag = f"{mode}-faulty"
+        out[f"{tag}/script"] = np.array(rep["script"], dtype=object).astype(str)
+        out[f"{tag}/reasons"] = np.array([t["reason"] for t in rep["transitions"]])
+        out[f"{tag}/events"] = np.array([f"{e['kind']}@{e.get('step')}"
+                                         for e in rep["events"]])
+        out.update({f"{tag}/loss/{k}": np.float32(v) for k, v in steps.items()})
+        out.update({f"{tag}/param/{n}": np.asarray(v) for n, v in flatten_with_names(p)[0]})
+    # the plain path's view of ZeRO-1 state at tp = 2 after two steps
+    ts, pipe, p = build_for("scheduled", "tp2")
+    o = ts.init_opt()
+    for k in range(2):
+        p, o, _ = ts.fn(p, o, pipe.batch_at(k), jnp.int32(k))
+    for k, st in o["inner"].items():
+        m = st["m"]
+        out[f"witness/{k}/global"] = np.asarray(jax.device_get(m))
+        for s in m.addressable_shards:       # device 2d + m holds (d, m)
+            out[f"witness/{k}/shard/{s.device.id // 2}{s.device.id % 2}"] = np.asarray(s.data)
+    return out
+
+
 def run_all(workdir, mode: str, *, reference_too=False,
             timeout: int = 300, world: int = WORLD) -> None:
     """Run the ``world`` port ranks of ``mode`` (and the JAX reference of
@@ -1353,6 +1834,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _inception(workdir, rank)
         elif mode == "zero1":
             _zero1(workdir, rank)
+        elif mode == "elastic":
+            _elastic(workdir, rank)
         elif mode.startswith("serve-"):
             _serve(workdir, rank, mode[len("serve-"):])
         elif mode.startswith("tp-") and mode != "tp-ops":
@@ -1877,7 +2360,8 @@ def reference(workdir: str, mode: str) -> None:
     from repro.core.compression import compressed_allreduce
     from repro.kernels.collectives import ops
 
-    inputs = ({} if mode in ("inception", "zero1") or mode.startswith(("tp-", "serve-"))
+    inputs = ({} if mode in ("inception", "zero1", "elastic")
+              or mode.startswith(("tp-", "serve-"))
               else dict(np.load(os.path.join(workdir, "inputs.npz"))))
     mesh4 = jax.make_mesh((WORLD,), ("data",), axis_types=(AxisType.Auto,))
     mesh22 = jax.make_mesh((2, 2), ("pair", "ring"),
@@ -1891,7 +2375,9 @@ def reference(workdir: str, mode: str) -> None:
         return np.asarray(run(x.reshape(-1))).reshape(WORLD, -1)
 
     out = {}
-    if mode.startswith("serve-"):
+    if mode == "elastic":
+        out = _elastic_reference(workdir)
+    elif mode.startswith("serve-"):
         out = _serve_reference(workdir, mode[len("serve-"):])
     elif mode.startswith("tp-"):
         name = mode[len("tp-"):]
