@@ -236,6 +236,11 @@ Phases, in order; any failure raises and exits non-zero:
               layer's two depcha slots (bf16), a step's worth timed; row
               3's pair kernel on the hops of the two-axis ring of data 2 x
               model 2 (rings of 2 on each replicated bucket and its half).
+  pp_kernels  rows 1-2 at the pp phase's layouts, bit for bit against
+              their plain versions: every bucket of rank 0's staged plan
+              (data 1 x stage 2 x model 2, its stage's 2 blocks, the
+              stage-replicated leaves over "stage" too) and of its
+              stage-1 twin's (``pp_plan``), a staged step's worth timed.
   lm_tp       tensor parallelism: four rank processes on the one card
               (gloo, every collective staged through pinned host memory).
               First serving: Qwen3-1.7B at full width and
@@ -270,7 +275,12 @@ Phases, in order; any failure raises and exits non-zero:
               tp = 1 for every strategy and ring / compressed /
               hierarchical, and at data 2 x model 2 under ring (row 3 on
               the two-axis ring): loss, grad norm and clipped gradients at
-              compare_tp's tolerances.
+              compare_tp's tolerances.  Then the pp phase (``_pp_ranks``):
+              Qwen3-1.7B at ``PP_LAYERS`` layers on data 1 x stage 2 x
+              model 2, gpipe, 1f1b and gpipe's stage-1 twin; rank 0's
+              buckets those of ``pp_plan``, pack/unpack launches and hops
+              a step exact, staged gpipe bit-identical to the twin, 1f1b's
+              losses and grad norms against gpipe's (``PP_1F1B_*_RTOL``).
   lm_fsdp     FSDP: four rank processes on the one card as lm_tp.  First
               serving from FSDP's storage: Qwen3-1.7B at full
               width and ``SERVE_RANKS_LAYERS`` layers with ``fsdp=True``
@@ -802,6 +812,8 @@ def phase_train() -> dict:
         model, opt_state, hist = Trainer(ts, pipe, log_every=10 ** 9).run(
             model, opt.init(params), TRAIN_STEPS)
         hists[strat] = hist
+        if live is not None:
+            live[0].close()
         live = (ts, model, opt_state, pipe)
         st = ts.gradsync.schedule.stats()
         log(f"[train] {strat}: {st['num_ops']} ops on {st['num_chains']} "
@@ -896,6 +908,7 @@ def phase_cpu_vs_gpu() -> None:
             model, opt.init(params), 3)
         final[device] = ({n: p.detach().cpu() for n, p in params.items()},
                          hist["losses"])
+        ts.close()
     worst = 0.0
     for n, p_cpu in final["cpu"][0].items():
         p_gpu = final["cuda"][0][n]
@@ -1199,6 +1212,7 @@ def lm_run(strat: str, mesh, pipe, after=None, cfg=None, make_model=None) -> dic
            "in_backward_collectives_per_step": collectives}
     if after is not None:
         run["after"] = after(ts, model, opt_state, run)
+    ts.close()
     del ts, model, opt_state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1383,6 +1397,7 @@ def phase_lm_cpu_vs_gpu() -> None:
             model, opt.init(params), 3)
         final[device] = ({n: p.detach().cpu() for n, p in params.items()}, hist["losses"],
                          ts.layer_sync.collectives)
+        ts.close()
     (p_cpu, l_cpu, c_cpu), (p_gpu, l_gpu, c_gpu) = final["cpu"], final["cuda"]
     for a, b in zip(l_gpu, l_cpu):
         if abs(a - b) > 1e-5 * abs(b):
@@ -1819,6 +1834,7 @@ def lm_zero1_run(run: str, plan, strat: str, clip: float, mesh, pipe, after=None
     out["bit_sums"] = bit_sums(named)      # before ``after`` trains on
     if after is not None:
         out["after"] = after(ts, model, opt_state, out)
+    ts.close()
     del ts, model, opt_state, trainer, named
     gc.collect()
     torch.cuda.empty_cache()
@@ -2060,6 +2076,7 @@ def phase_lm_zero1_cpu_vs_gpu() -> None:
             model, ts.init_opt(), 3)
         final[device] = ({n: p.detach().cpu() for n, p in model.named_parameters()},
                          hist["losses"])
+        ts.close()
     (p_cpu, l_cpu), (p_gpu, l_gpu) = final["cpu"], final["cuda"]
     for a, b in zip(l_gpu, l_cpu):
         if abs(a - b) > 1e-5 * abs(b):
@@ -2236,7 +2253,7 @@ def _tp_equivalence(rank: int, say) -> dict:
                 "dloss": dloss, "grad_norm_rel": dnorm, "clipped_grad_rel": worst,
                 "accum_launches": accum, "quantize_launches": int8[0],
                 "sum_quantize_launches": int8[1], "dequantize_launches": int8[2]}
-            ts.gradsync.close()
+            ts.close()
             del ts, net, state
     say(f"[lm_tp] f32 mk_dense on the card through make_train_step, tp > 1 against "
         f"tp = 1 (compare_tp's tolerances): " + json.dumps(out))
@@ -2480,6 +2497,309 @@ def _serve_fsdp_f32(rank: int, mesh, say) -> dict:
     return out
 
 
+# ------------------------------------------------------ pipeline stages
+# the pp phase, on the lm_tp spawn after its runs: Qwen3-1.7B at full width
+# cut to PP_LAYERS layers (two a stage), data 1 x stage 2 x model 2, seq
+# 1024 x global batch 4 in PP_M microbatches of one sequence; gpipe, then
+# 1f1b, then gpipe on the stage-1 twin (data 1 x stage 1 x model 2 on world
+# ranks 0-1; ranks 2-3 build the step, collective, and stay outside)
+PP_LAYERS = 4
+PP_MESH = (1, 2, 2)            # (data, stage, model)
+PP_M = 4
+PP_RUNS = (("gpipe", 2), ("1f1b", 2), ("twin", 1))     # (run, stage extent)
+# 1f1b against gpipe (its chunks' gradient sums re-associated): the first
+# step's loss and grad norm, then the later steps' (AdamW's first update
+# magnifies the last-bit gradient differences; measured on an H100 at
+# the second step: 7.9e-6 of the loss, 2.4e-5 of the grad norm)
+PP_1F1B_FIRST_RTOL = 1e-5
+PP_1F1B_LATER_RTOL = 1e-4
+
+
+def pp_hops(schedule: str, stages: int, microbatches: int) -> int:
+    """The hops a staged step makes, forward and backward: a wave program
+    of m microbatches hops m + S − 2 times each way (the last wave's carry
+    goes nowhere), gpipe once over M, 1f1b once a chunk of S."""
+    if stages == 1:
+        return 0
+    chunk = microbatches if schedule == "gpipe" else stages
+    return (microbatches // chunk) * 2 * (chunk + stages - 2)
+
+
+def row_sums(named) -> dict:
+    """``bit_sums`` a layer row for the stacked block leaves, a leaf for
+    the rest: the digests a staged rank's slice and its twin's rows are
+    compared by."""
+    out = {}
+    for n, p in named:
+        p = p.detach()
+        if n.startswith("blocks/"):
+            out[n] = [int(bits(r).to(torch.int64).sum()) for r in p]
+        else:
+            out[n] = int(bits(p).to(torch.int64).sum())
+    return out
+
+
+def bucket_layout(buckets) -> list:
+    """Each bucket's id, channel, reduce axes and leaf names, as JSON
+    gives them back: how a rank's plan is held to ``pp_plan``'s."""
+    return [[b.bucket_id, b.channel, list(b.reduce_axes), list(b.names)] for b in buckets]
+
+
+PP_PRIVATE = ("digest", "layout")   # a run's keys read by pp_report, not reported
+
+
+def pp_plan(stages: int):
+    """Rank 0's post-backward buckets of the pp phase's step at ``stages``
+    (its stage's slice of the blocks over "model", the stage-replicated
+    leaves over "stage" too) as ``make_train_step`` plans them
+    (``plan_sync`` of concom on the stage overlay of rank 0's shapes),
+    and its named leaves, on ``meta``."""
+    from repro_torch.core import GradSyncConfig, plan_sync
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.parallel.sharding import stage_shard_specs
+    from repro_torch.utils.trees import flatten_with_names
+
+    data, _, model = PP_MESH
+    mesh = make_smoke_mesh(data, model, stages)
+    cfg = dataclasses.replace(lm_config("concom"), tp=model, n_layers=PP_LAYERS)
+    local = init_params(cfg, device="meta", mesh=mesh, rank=0)
+    specs = stage_shard_specs(param_specs(local, cfg))
+    planned = plan_sync(GradSyncConfig(strategy="concom"), mesh, specs, local)
+    return [op.bucket for op in planned.schedule.ops], flatten_with_names(local)[0]
+
+
+def phase_pp_kernels() -> dict:
+    """Rows 1-2 at the pp phase's layouts, bit for bit against their plain
+    versions (outputs started as NaN): every bucket of rank 0's staged
+    plan (stage 2) and of its stage-1 twin's (bf16 leaves, f32 comm); a
+    step's worth of the staged plan's timed."""
+    from repro_torch.kernels.collectives import kernel
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err, n_checks, out = 0.0, 0, {"buckets": {}}
+    for stages in (PP_MESH[1], 1):
+        buckets, named = pp_plan(stages)
+        flat = [torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype)
+                for _, p in named]
+        for b in buckets:
+            before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+            err = max(err, check_bucket(b, flat, f32, 1.0))
+            n = staging_launches(b)
+            if (kernel.PACK_LAUNCHES - before[0], kernel.UNPACK_LAUNCHES - before[1]) != (n, n):
+                raise AssertionError(f"pp bucket {b.bucket_id} at stage {stages}: expected "
+                                     f"{n} pack and {n} unpack launches")
+            n_checks += 1
+        out["buckets"][f"stage{stages}"] = {str(ax): sum(1 for b in buckets
+                                                         if b.reduce_axes == ax)
+                                            for ax in sorted({b.reduce_axes for b in buckets})}
+        if stages > 1:
+            torch.cuda.synchronize()
+            out["post_backward"] = time_staging([(b, flat) for b in buckets], f32)
+        del flat
+    out.update(max_abs_err=err, checks=n_checks)
+    log(f"[pp_kernels] {n_checks} checks bit-exact (max abs err {err}): rank 0's buckets "
+        f"of the staged plan and of its stage-1 twin; " + json.dumps(out))
+    return out
+
+
+def _pp_ranks(rank: int, say) -> dict:
+    """One rank of the pp phase (``PP_RUNS``): each run ``LM_RANKS_STEPS``
+    steps through ``Trainer`` (AdamW, clip 1.0, concom, remat dots,
+    deterministic algorithms), its losses, grad norms, step times, peak
+    memory, hops (count, bytes, host seconds), pack/unpack launches
+    against the staged plan's buckets and its params' row digests; every
+    step closed after its run."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core import dependency as dep
+    from repro_torch.core.pipeline_program import plan_pipeline
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.parallel import pipeline as pl
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.utils.trees import flatten_with_names
+
+    data, _, model = PP_MESH
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {"runs": {}, "groups_before": dep.live_groups()}
+    t_phase = time.perf_counter()
+    try:
+        for run, stages in PP_RUNS:
+            sched = "gpipe" if run == "twin" else run
+            mesh = make_smoke_mesh(data, model, stages)
+            if stages == 1:
+                mesh = Mesh(mesh.axis_names, mesh.shape, tuple(range(data * model)))
+            me = dep.mesh_rank(mesh)
+            cfg = dataclasses.replace(lm_config("concom"), tp=model, n_layers=PP_LAYERS)
+            net = Transformer(cfg, init_params(cfg, seed=0, device="cuda" if me is not None
+                                               else "meta", mesh=mesh,
+                                               rank=0 if me is None else me))
+            pipe = TokenPipeline(cfg.vocab, LM_SEQ, LM_BATCH, seed=0, mesh=mesh,
+                                 rank=0 if me is None else me, device="cuda")
+            opt = adamw(cosine_warmup(3e-4, 10, 100))
+            ts = make_train_step(cfg, mesh, GradSyncConfig(strategy="concom"), opt, model=net,
+                                 clip_norm=1.0, microbatch=PP_M, pp_stages=stages,
+                                 pp_schedule=sched, batch_like=pipe.batch_at(0),
+                                 device="cuda")
+            if me is not None:
+                named = flatten_with_names(net.params_tree())[0]
+                opt_state = opt.init(dict(named))
+                trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+                losses, norms, hops, hop_bytes, hop_s = [], [], [], [], []
+                for step in range(LM_RANKS_STEPS):
+                    h0, b0, s0 = dep.HOPS, dep.HOP_BYTES, dep.HOP_S
+                    net, opt_state, hist = trainer.run(net, opt_state, step + 1,
+                                                       start_step=step)
+                    losses.append(hist["losses"][-1])
+                    norms.append(hist["metrics"]["grad_norm"])
+                    hops.append(dep.HOPS - h0)
+                    hop_bytes.append(dep.HOP_BYTES - b0)
+                    hop_s.append(dep.HOP_S - s0)
+                per_step = sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops)
+                launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
+                if launches != {"pack": per_step * LM_RANKS_STEPS,
+                                "unpack": per_step * LM_RANKS_STEPS}:
+                    raise AssertionError(f"pp {run}: launches {launches}, expected "
+                                         f"{per_step} a step x {LM_RANKS_STEPS}")
+                want_hops = pp_hops(sched, stages, PP_M)
+                if hops != [want_hops] * LM_RANKS_STEPS:
+                    raise AssertionError(f"pp {run}: hops {hops}, the waves make {want_hops}")
+                if not all(math.isfinite(x) for x in losses):
+                    raise AssertionError(f"pp {run}: non-finite loss {losses}")
+                plan = plan_pipeline(stages, PP_M, kind=sched,
+                                     activation_bytes=ts.gradsync.cfg.pp_activation_bytes,
+                                     itemsize=2)
+                times = trainer.step_times
+                out["runs"][run] = {
+                    "losses": losses, "grad_norms": norms,
+                    "first_step_ms": trainer.first_step_time * 1e3,
+                    "step_ms": [t * 1e3 for t in times],
+                    "tokens_per_s": [LM_BATCH * LM_SEQ / t for t in times],
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "params": sum(p.numel() for _, p in named),
+                    "launches": launches, "launches_per_step": per_step,
+                    "buckets": len(ts.gradsync.schedule.ops),
+                    "hops": hops, "hop_bytes": hop_bytes, "hop_host_s": hop_s,
+                    # the rank's stage span a timed step: its wall less its
+                    # time in the hops (waiting for its neighbour included)
+                    "compute_ms": [(t - h) * 1e3 for t, h in zip(times, hop_s[1:])],
+                    "plan_crossings": sum(op.kind == "send" for op in plan.schedule.ops),
+                    "plan_crossing_bytes": plan.activation_bytes,
+                    "waves": PP_M + stages - 1,
+                    "bubble_fraction": pl.bubble_fraction(stages, PP_M),
+                    "layout": bucket_layout(op.bucket for op in ts.gradsync.schedule.ops),
+                    "digest": row_sums(named)}
+                say(f"[pp] {run}: " + json.dumps({k: v for k, v in out["runs"][run].items()
+                                                 if k not in PP_PRIVATE}))
+                del named, opt_state, trainer
+            ts.close()
+            dist.barrier()
+            del ts, net
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    out["groups_after"] = dep.live_groups()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _pp_rank(rank: int, workdir: str, backend: str) -> None:
+    """The pp phase alone on ``LM_TP`` spawned ranks (``phase_pp``)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_dist
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store", rank=rank,
+              world_size=LM_TP, timeout=datetime.timedelta(seconds=600))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"pp": _pp_ranks(rank, log if rank == 0 else (lambda _m: None))}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_pp(backend: str = "gloo") -> dict:
+    """The pp phase alone (``main`` runs it on the lm_tp spawn, after its
+    runs): ``LM_TP`` rank processes, gloo on one card by default."""
+    ranks, wall = spawn_ranks(_pp_rank, (backend,), LM_TP)
+    res = pp_report(ranks)
+    res["wall_s"] = wall
+    log("[pp] " + json.dumps(res))
+    return res
+
+
+def pp_report(ranks: list) -> dict:
+    """The pp phase across the ranks: rank 0's buckets in every run those
+    of ``pp_plan`` (whose layouts ``phase_pp_kernels`` checks), the
+    staged gpipe's losses and params bit-identical to the stage-1 twin's
+    (a staged rank's block rows against its twin's rows of its stage,
+    every other leaf whole), 1f1b's losses and grad norms against gpipe's
+    (the first step's within ``PP_1F1B_FIRST_RTOL``, the later ones'
+    within ``PP_1F1B_LATER_RTOL``), the communicators all destroyed, and
+    rank 0's runs without the digests and layouts."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    plans = {s: bucket_layout(pp_plan(s)[0]) for s in {s for _, s in PP_RUNS}}
+    for run, s in PP_RUNS:
+        if ranks[0]["pp"]["runs"][run]["layout"] != plans[s]:
+            raise AssertionError(f"pp {run}: rank 0's buckets are not pp_plan({s})'s")
+    mesh = make_smoke_mesh(PP_MESH[0], PP_MESH[2], PP_MESH[1])
+    per = PP_LAYERS // PP_MESH[1]
+    for r, res in enumerate(ranks):
+        pp = res["pp"]
+        if pp["groups_after"] != pp["groups_before"]:
+            raise AssertionError(f"pp rank {r}: {pp['groups_after']} process groups after "
+                                 f"the runs, {pp['groups_before']} before")
+        c = mesh.coords(r)
+        twin = ranks[c["model"]]["pp"]["runs"]["twin"]
+        got = pp["runs"]["gpipe"]
+        if got["losses"] != twin["losses"]:
+            raise AssertionError(f"pp rank {r}: staged gpipe losses {got['losses']} are not "
+                                 f"the twin's {twin['losses']}")
+        for n, d in got["digest"].items():
+            want = twin["digest"][n]
+            if n.startswith("blocks/"):
+                want = want[c["stage"] * per:(c["stage"] + 1) * per]
+            if d != want:
+                raise AssertionError(f"pp rank {r}: {n} differs from the stage-1 twin's")
+        for key in ("losses", "grad_norms"):
+            for k, (a, b) in enumerate(zip(pp["runs"]["1f1b"][key], got[key])):
+                rtol = PP_1F1B_FIRST_RTOL if k == 0 else PP_1F1B_LATER_RTOL
+                if abs(a - b) > rtol * abs(b):
+                    raise AssertionError(f"pp rank {r}: 1f1b's {key}[{k}] {a} vs gpipe's "
+                                         f"{b}: rel {abs(a - b) / abs(b)} > {rtol}")
+    res0 = ranks[0]["pp"]
+    return {"runs": {k: {kk: vv for kk, vv in v.items() if kk not in PP_PRIVATE}
+                     for k, v in res0["runs"].items()},
+            "staged_vs_twin": "bit-identical (losses; every leaf's rows)",
+            "f1b_vs_gpipe_rel": {key: [abs(a - b) / abs(b) for a, b in zip(
+                res0["runs"]["1f1b"][key], res0["runs"]["gpipe"][key])]
+                for key in ("losses", "grad_norms")},
+            "stage_spans": {run: {r: {k: ranks[r]["pp"]["runs"][run][k]
+                                      for k in ("step_ms", "compute_ms", "hop_host_s")}
+                                  for r in range(len(ranks))}
+                            for run in ("gpipe", "1f1b")},
+            "groups": [res0["groups_before"], res0["groups_after"]],
+            "phase_s": max(res["pp"]["phase_s"] for res in ranks)}
+
+
 def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
     """One rank of ``phase_lm_tp``: first serving (``_serve_ranks`` at
     ``SERVE_TP_RUN``, then ``_serve_tp_f32``), then Qwen3-1.7B at full width and ``LM_RANKS_LAYERS`` layers on data 1 x
@@ -2580,6 +2900,7 @@ def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
                 run["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
             out["runs"][strat] = run
             say(f"[lm_tp] {strat}: " + json.dumps(run))
+            ts.close()
             del ts, model, opt_state, trainer, named, rep
             gc.collect()
             torch.cuda.empty_cache()
@@ -2597,6 +2918,7 @@ def _lm_tp_rank(rank: int, workdir: str, backend: str, tp1) -> None:
                 raise AssertionError(f"lm_tp first {what} {first} vs tp = 1 {tp1[i]}: "
                                      f"rel {worst} > {rtol}")
     out["equivalence"] = _tp_equivalence(rank, say)
+    out["pp"] = _pp_ranks(rank, say)
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -2634,6 +2956,8 @@ def phase_lm_tp(tp1=None, backend: str = "gloo") -> dict:
     log(f"[lm_tp] {backend} on {cards}")
     ranks, wall = spawn_ranks(_lm_tp_rank, (backend, tp1), LM_TP)
     res = ranks[0]
+    res["pp"] = pp_report(ranks)
+    log("[pp] " + json.dumps(res["pp"]))
     res["wall_s"] = wall
     res["cards"] = cards
     res["transport"] = (
@@ -2826,7 +3150,7 @@ def _fsdp_equivalence(rank: int, mesh, say) -> dict:
         net, state, metrics = ts.fn(net, ts.init_opt(), pipe.batch_at(0), 0)
         torch.cuda.synchronize()
         launches = [a - b for a, b in zip(counts(), c0)]
-        ts.gradsync.close()
+        ts.close()
         return net, state, metrics, specs, launches
 
     pipe = TokenPipeline(96, seq, batch, seed=3, mesh=mesh, rank=rank, device="cuda")
@@ -3020,6 +3344,7 @@ def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: 
                 run["stages"] = lm_stage_spans(ts, net, opt_state, pipe)
             out["runs"][strat] = run
             say(f"[lm_fsdp] {strat}: " + json.dumps(run))
+            ts.close()
             del ts, net, opt_state, trainer, named, rep
             gc.collect()
             torch.cuda.empty_cache()
@@ -3160,6 +3485,7 @@ def _zero1_rank(rank: int, workdir: str, backend: str) -> None:
             f"{state_bytes} bytes a rank (optimizer {opt_bytes}); first step "
             f"{trainer.first_step_time * 1e3:.1f} ms, then "
             f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms")
+        ts.close()
         del ts, model, opt_state, trainer
         gc.collect()
     for a, b in (("deferred", "scheduled"), ("monolithic", "scheduled_noclip")):
@@ -3500,6 +3826,8 @@ def phase_inception() -> dict:
                                               "compile_time_s", "loss", "grad_norm",
                                               "step_time_s")}}
         log(f"[inception] {strat}: " + json.dumps(runs[strat]))
+        if live is not None:
+            live[0].close()
         live = (ts, model, opt_state)
     launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
     if launches != {"pack": expected, "unpack": expected}:
@@ -3523,6 +3851,7 @@ def phase_inception() -> dict:
                                       "img_size": cfg.img_size, "classes": cfg.num_classes,
                                       "width_mult": cfg.width_mult}}
     log("[inception] " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    ts.close()
     del live, ts, model, opt_state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3559,6 +3888,7 @@ def phase_inception_cpu_vs_gpu() -> None:
         _, _, hist = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None).run(
             model, opt.init(params), 3)
         final[device] = ({n: p.detach().cpu() for n, p in params.items()}, hist["losses"])
+        ts.close()
     (p_cpu, l_cpu), (p_gpu, l_gpu) = final["cpu"], final["cuda"]
     for a, b in zip(l_gpu, l_cpu):
         if abs(a - b) > 1e-5 * abs(b):
@@ -4270,6 +4600,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
             f"bit-identical on the {RING} ranks after each of {REDUCER_STEPS} steps; "
             f"first step {trainer.first_step_time * 1e3:.1f} ms, then "
             f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms")
+        ts.close()
         del ts, model, opt_state, trainer
 
     # ring and flat: the same sums in another order
@@ -4371,6 +4702,7 @@ def _lm_ranks(rank: int, host, say) -> dict:
             raise AssertionError(f"lm {strat}: in-backward collectives {collectives}")
         out[strat] = {"losses": losses, "in_backward_collectives_per_step": collectives,
                       "step_ms": [t * 1e3 for t in trainer.step_times]}
+        ts.close()
     worst = 0.0
     for (n, _), a, b in zip(named, grads0["depcha"], grads0["funnel"]):
         if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
@@ -4800,12 +5132,12 @@ def _hier_rank(rank: int, workdir: str, backend: str) -> None:
                       f"hierarchical_ring of bucket {bucket.bucket_id}: kernels vs plain")
             comm.ring.check()
             out["captured_bucket"] = {"bucket": bucket.bucket_id, "elements": inp.numel()}
-        ts.gradsync.close()
         say(f"[hierarchical] {run}: launches {launches} and stream waits {memops} "
             f"(= predictions), params "
             f"bit-identical on the {RING} ranks after each of {REDUCER_STEPS} steps; "
             f"first step {trainer.first_step_time * 1e3:.1f} ms, then "
             f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms")
+        ts.close()
         del ts, model, opt_state, trainer
 
     # the same sums in another order: within rtol 1e-5 of flat's first-step grads
@@ -6547,6 +6879,7 @@ def _rwkv_tp_rank(rank: int, workdir: str, backend: str, n_layers: int) -> None:
             run["stages"] = lm_stage_spans(ts, model, opt_state, pipe)
         out["runs"][strat] = run
         say(f"[rwkv_tp] {strat}: " + json.dumps(run))
+        ts.close()
         del ts, model, opt_state, trainer, named, rep
         gc.collect()
         torch.cuda.empty_cache()
@@ -7202,6 +7535,7 @@ def phase_ckpt() -> dict:
                "n_params": sum(p.numel() for p in model.parameters())}
         if mgr is not None:
             out.update(mgr.times, checkpoints=mgr.sizes)
+        ts.close()
         del model, state, ts, tr
         gc.collect()
         torch.cuda.empty_cache()
@@ -7488,6 +7822,9 @@ def _elastic_rank(rank: int, workdir: str, backend: str, anchor_ab: bool) -> Non
     n_params = sum(p.numel() for _, p in flatten_with_names(
         StateCodec(ts2)._params_like())[0])
     out["n_params"] = n_params
+    # the steps are shared by both supervisors' runs: closed once both are done
+    for ts, *_ in steps.values():
+        ts.close()
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -7604,6 +7941,7 @@ def main() -> int:
         clock("train")
         phase_cpu_vs_gpu()
         clock("cpu_vs_gpu")
+        train["live"][0].close()
         del train["live"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -7648,6 +7986,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm_tp_rows = phase_lm_tp_kernels()
         clock("lm_tp_kernels")
+        pp_rows = phase_pp_kernels()
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock("pp_kernels")
     finally:
         dist.destroy_process_group()
     gc.collect()
@@ -7704,6 +8046,7 @@ def main() -> int:
                    "lm_tp": sum(r["launches"][name] for r in lm_tp["runs"].values()),
                    "lm_moe": lm_moe["launches"][name],
                    "lm_fsdp": sum(r["launches"][name] for r in lm_fsdp["runs"].values()),
+                   "lm_pp": sum(r["launches"][name] for r in lm_tp["pp"]["runs"].values()),
                    "vision_train": vision_train["launches"][name],
                    "rwkv_train": rwkv_train["launches"][name],
                    "zamba2_train": zamba2_train["launches"][name],
@@ -7717,7 +8060,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"], lm_rows["max_abs_err"],
                                inception_rows["max_abs_err"], lm_zero1_rows["max_abs_err"],
                                lm_tp_rows["max_abs_err"], lm_moe_rows["max_abs_err"],
-                               elastic["kernels"]["max_abs_err"]),
+                               pp_rows["max_abs_err"], elastic["kernels"]["max_abs_err"]),
             "layouts_built_in_train": train["layouts_built"],   # shared by both
             # the LM's layouts: the post-backward buckets (bf16 leaves, f32
             # comm) and depcha's in-backward slots, one step's worth each
@@ -7762,6 +8105,14 @@ def main() -> int:
             "lm_fsdp": {"launches_per_step": {k: v["launches_per_step"]
                                               for k, v in lm_fsdp["runs"].items()},
                         "layout": lm_moe_rows["fsdp"]},
+            # pipeline stages: rank 0's staged plan (its stage's blocks, the
+            # stage-replicated leaves) under gpipe, 1f1b and the stage-1
+            # twin; each plan's buckets checked, the staged one's timed
+            "lm_pp": {"launches_per_step": {k: v["launches_per_step"]
+                                            for k, v in lm_tp["pp"]["runs"].items()},
+                      "max_abs_err": pp_rows["max_abs_err"], "checks": pp_rows["checks"],
+                      "buckets": pp_rows["buckets"],
+                      "post_backward": pp_rows["post_backward"][name]},
             # cross-attention and RWKV training: each run's buckets plus
             # depcha's slots (one a layer of each stack; RWKV's bf16 and f32)
             "vision_train": {"launches_per_step": {

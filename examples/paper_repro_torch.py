@@ -69,7 +69,7 @@ def cifar_strategies(mesh, device, steps=8):
         params = dict(flatten_with_names(model.params_tree())[0])
         tr = Trainer(ts, pipe, log_every=1000, printer=lambda _m: None)
         _, _, hist = tr.run(model, opt.init(params), steps)
-        ts.gradsync.close()
+        ts.close()
         losses[strat] = hist["losses"]
         print(f"[cifar] {strat:7s} loss {hist['losses'][0]:.3f} -> "
               f"{hist['losses'][-1]:.3f} "

@@ -8,18 +8,12 @@ must pass clean.  Every mutation starts from a schedule a real planner
 produced (or the hand-rolled equivalent) and applies one
 ``dataclasses.replace``-style edit.
 
-This module holds every mutation and valid case that the port's
-planners can build: 22 of the reference's 24 mutations and 10 of its 13
-valid cases (the ZeRO-1 ones from the port's own
-``core/stepprogram.py::zero1_schedule``).  The rest build their
-schedules through the pipeline planner (``core/pipeline_program.py::
-plan_pipeline``, ``compose_step``), ROADMAP queue 1 item 13: mutations
-pp-unmatched-send, pp-boundary-bytes; valid cases pp-gpipe, pp-1f1b,
-pp-1f1b-zero1-joint.
-
-The tests hold the port's passes to the reference's findings on all 24,
-building those 2 and 3 with the reference and converting them into the
-port's IR.
+This module holds all 24 of the reference's mutations and all 13 of its
+valid cases, each built by the port's own planners: the ZeRO-1 ones by
+``core/stepprogram.py::zero1_schedule``, the pipeline ones by
+``core/pipeline_program.py::plan_pipeline`` and ``compose_step``.  The
+tests hold each schedule equal to the reference's, converted into the
+port's IR, and the port's passes to the reference's findings.
 """
 from __future__ import annotations
 
@@ -29,6 +23,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.buckets import Bucket, BucketPlan, LeafInfo
+from repro_torch.core.pipeline_program import compose_step, plan_pipeline
 from repro_torch.core.registry import get_strategy
 from repro_torch.core.schedule import (
     ALL_GATHER,
@@ -302,6 +297,25 @@ def _reshard_op_escapes_regroup():
             dict(_RS_CTX))
 
 
+def _pp_unmatched_send():
+    # the final RECV of a 2-stage GPipe round dropped: the cotangent the
+    # last stage packed is never delivered — stage 0 waits forever
+    s = plan_pipeline(2, 1, kind="gpipe", activation_bytes=64).schedule
+    assert s.ops[-1].kind == RECV
+    return CommSchedule(s.ops[:-1]), {"mesh_shape": PP_MESH}
+
+
+def _pp_boundary_bytes():
+    # the RECV's bucket half the SEND's size: the two stages disagree on
+    # the boundary tensor — the delivered activation would be truncated
+    s = plan_pipeline(2, 1, kind="gpipe", activation_bytes=64).schedule
+    rcv = next(op for op in s.ops if op.kind == RECV)
+    leaf = rcv.bucket.leaves[0]
+    half = dataclasses.replace(leaf, shape=(leaf.size // 2,), size=leaf.size // 2)
+    bad = dataclasses.replace(rcv.bucket, leaves=(half,))
+    return _replace_op(s, rcv.op_id, bucket=bad), {"mesh_shape": PP_MESH}
+
+
 def _pp_bucket(bid: int, name: str) -> Bucket:
     return Bucket(
         leaves=(LeafInfo(name=name, index=0, shape=(16,),
@@ -387,9 +401,15 @@ MUTATIONS: tuple[Mutation, ...] = (
     Mutation("unknown-reducer", "accounting", "unknown-reducer",
              "op tagged with an unregistered reducer",
              _unknown_reducer),
+    Mutation("pp-unmatched-send", "deadlock", "send-unmatched",
+             "a pipeline SEND whose RECV was dropped — the payload is "
+             "packed but never delivered", _pp_unmatched_send),
     Mutation("pp-crossed-pairs", "deadlock", "crossed-send-recv",
              "two SEND/RECV pairs crossed recv-first on both chains "
              "(mutual rendezvous wait)", _pp_crossed_pairs),
+    Mutation("pp-boundary-bytes", "accounting", "send-recv-bytes",
+             "stage-boundary RECV sized differently from its SEND",
+             _pp_boundary_bytes),
     Mutation("donated-pre-read", "donation", "donated-pre-read",
              "deferred gather reads a bucket whose buffer is donated",
              _donated_pre_read),
@@ -409,8 +429,7 @@ MUTATIONS: tuple[Mutation, ...] = (
 
 def valid_cases() -> list[tuple[str, CommSchedule, dict[str, Any]]]:
     """Unmutated baselines the analyzer must pass CLEAN — the zero-
-    false-positive half of the corpus contract (the reference's cases
-    that the port's planners can build)."""
+    false-positive half of the corpus contract."""
     out: list[tuple[str, CommSchedule, dict[str, Any]]] = []
     plan = synthetic_plan(n_buckets=6, num_channels=3)
     for name in ("funnel", "concom", "depcha", "priority", "rsag"):
@@ -426,4 +445,14 @@ def valid_cases() -> list[tuple[str, CommSchedule, dict[str, Any]]]:
                  "plan_comm_dtype": torch.float32}))
     out.append(("reshard-transition", synthetic_reshard_schedule(),
                 dict(_RS_CTX)))
+    for kind in ("gpipe", "1f1b"):
+        pp = plan_pipeline(2, 4, kind=kind, activation_bytes=64)
+        out.append((f"pp-{kind}", pp.schedule,
+                    {"mesh_shape": PP_MESH, "expect_defer": False,
+                     "plan_comm_dtype": torch.float32}))
+    pp = plan_pipeline(2, 4, kind="1f1b", activation_bytes=64)
+    joint, _ = compose_step(pp, _zero1("concom", defer=False))
+    out.append(("pp-1f1b-zero1-joint", joint,
+                {"mesh_shape": PP_MESH, "expect_defer": False,
+                 "plan_comm_dtype": torch.float32}))
     return out

@@ -1,8 +1,9 @@
 """Gradient-sync core: bucket plans, the CommSchedule IR and its emitter,
-strategies, the ZeRO-1 StepProgram, GradSync and the paper's KVStore
-(``repro/core``)."""
+strategies, the ZeRO-1 StepProgram, the pipeline planner, GradSync and
+the paper's KVStore (``repro/core``)."""
 from repro_torch.core.buckets import Bucket, BucketPlan, LeafInfo, make_bucket_plan
 from repro_torch.core.kvstore import GradSync, GradSyncConfig, KVStore, SyncPlan, plan_sync
+from repro_torch.core.pipeline_program import PipelinePlan, compose_step, plan_pipeline
 from repro_torch.core.registry import (
     get_reducer,
     get_strategy,
@@ -29,14 +30,17 @@ __all__ = [
     "GradSyncConfig",
     "KVStore",
     "LeafInfo",
+    "PipelinePlan",
     "StepProgram",
     "SyncPlan",
     "build_step_program",
+    "compose_step",
     "execute",
     "get_reducer",
     "get_strategy",
     "make_bucket_plan",
     "make_reducer",
+    "plan_pipeline",
     "plan_sync",
     "reducer_names",
     "register_reducer",

@@ -28,6 +28,12 @@ directly:
   - on CUDA each chain stages its buckets on its own stream
     (``ChainStreams``), so a wait in one chain never holds up the
     staging of another.
+  - every communicator the port creates comes from ``coset_groups`` or
+    ``pod_comms`` (one ``new_group`` call site, ``_new_group``), and is
+    recorded in the innermost open ``comm_scope``: its owner (a train
+    step, a ``GradSync``) destroys what it recorded with
+    ``destroy_groups`` when its life ends.  Each chain keeps its own
+    groups: nothing caches or merges two chains' communicators.
   - every collective the port issues goes through ``collective`` or
     ``exchange``.  On NCCL they pass device tensors straight through.
     On a gloo group with CUDA tensors they stage through pinned host
@@ -40,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 from typing import Any, Iterable, Mapping, Sequence
 
 import torch
@@ -198,6 +205,85 @@ def exchange(group: dist.ProcessGroup,
             t.copy_(h)
 
 
+# stage-ring hops made (``ring_exchange``, forward and backward), their
+# payload bytes and the host seconds spent in them (the transfer's wait
+# with gloo, its issue with NCCL), for the card's accounting
+# (``chip_smoke.py``); a ring of one makes none
+HOPS = 0
+HOP_BYTES = 0
+HOP_S = 0.0
+
+
+def ring_exchange(group: dist.ProcessGroup | None, index: int, size: int, shift: int,
+                  xs: Sequence[torch.Tensor],
+                  tags: Sequence[int] | None = None) -> list[torch.Tensor]:
+    """One hop of every tensor of ``xs`` along a ring of the ``size``
+    ranks of ``group``: group rank ``index`` sends to index + ``shift``
+    and receives from index − ``shift`` (mod ``size``), tensor k under
+    ``tags[k]`` (k by default), in one ``exchange``; counted in
+    ``HOPS``/``HOP_BYTES``/``HOP_S``.  A ring of one gives ``xs`` back."""
+    global HOPS, HOP_BYTES, HOP_S
+    if size == 1:
+        return list(xs)
+    t0 = time.perf_counter()
+    xs = [x.contiguous() for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    tags = range(len(xs)) if tags is None else tags
+    exchange(group, [(x, (index + shift) % size, k) for k, x in zip(tags, xs)],
+             [(o, (index - shift) % size, k) for k, o in zip(tags, outs)])
+    HOPS += 1
+    HOP_BYTES += sum(x.numel() * x.element_size() for x in xs)
+    HOP_S += time.perf_counter() - t0
+    return outs
+
+
+# the open ``comm_scope``s, innermost last: each a list of the
+# communicators made while it was the innermost
+_SCOPES: list[list[dist.ProcessGroup]] = []
+
+
+@contextlib.contextmanager
+def comm_scope():
+    """Record every communicator this rank joins while the scope is the
+    innermost one (``coset_groups``, ``pod_comms``), in creation order:
+    ``with comm_scope() as groups: ...``, then ``destroy_groups(groups)``
+    when their owner is done.  A scope opened inside another keeps its
+    groups from the outer one, so each owner destroys only its own."""
+    made: list[dist.ProcessGroup] = []
+    _SCOPES.append(made)
+    try:
+        yield made
+    finally:
+        _SCOPES.pop()
+
+
+def _new_group(ranks: list[int], backend: str) -> dist.ProcessGroup | None:
+    """``new_group`` (collective over the world: every world rank calls it
+    for every group, in one order); the group if this rank is a member,
+    recorded in the innermost ``comm_scope``, else None."""
+    g = dist.new_group(ranks, backend=backend)
+    if dist.get_rank() not in ranks:
+        return None
+    if _SCOPES:
+        _SCOPES[-1].append(g)
+    return g
+
+
+def destroy_groups(groups: list[dist.ProcessGroup]) -> None:
+    """Destroy the communicators of ``groups`` (a ``comm_scope``'s list),
+    in creation order, emptying the list.  Collective in the sense that
+    every world rank calls it for the same owner at the same point of
+    its program: each destroys the groups it is a member of."""
+    while groups:
+        dist.destroy_process_group(groups.pop(0))
+
+
+def live_groups() -> int:
+    """The process groups this rank holds, the default one included (the
+    size of c10d's group map)."""
+    return len(dist.distributed_c10d._world.pg_map) if dist.is_initialized() else 0
+
+
 def reduce_key(axes: Iterable[str], mesh) -> tuple[str, ...]:
     """The axes of ``axes`` with a size above 1, in the mesh's order: a
     reduction over ``axes`` needs exactly their communicator (an axis of
@@ -251,7 +337,7 @@ def coset_groups(keys: Iterable[tuple[str, ...]], mesh, device: torch.device
         raise RuntimeError(
             "torch.distributed is not initialized: call "
             "repro_torch.launch.mesh.init_dist(device) first")
-    rank, world = dist.get_rank(), dist.get_world_size()
+    world = dist.get_world_size()
     members = _world_ranks(mesh)
     if members[-1] >= world:
         raise ValueError(f"a mesh over the world ranks {members} ({dict(mesh.shape)}) "
@@ -263,9 +349,8 @@ def coset_groups(keys: Iterable[tuple[str, ...]], mesh, device: torch.device
         if not key and world > 1:
             continue
         for ranks in coset_ranks(key, mesh):
-            ranks = [members[r] for r in ranks]
-            g = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
+            g = _new_group([members[r] for r in ranks], backend)
+            if g is not None:
                 out[key] = g
     return out
 
@@ -334,13 +419,10 @@ def pod_comms(chains: Iterable[int], pods: int, data: int, device: torch.device,
     if size != len(ranks) or ranks[-1] >= dist.get_world_size():
         raise ValueError(f"a mesh of {pods} pods x {data} x {model} ranks over the world "
                          f"ranks {ranks} does not fit a world of {dist.get_world_size()}")
-    me = dist.get_rank()
     backend = backend_for(device)
 
     def group(mesh_ranks):
-        members = [ranks[r] for r in mesh_ranks]
-        g = dist.new_group(members, backend=backend)
-        return g if me in members else None
+        return _new_group([ranks[r] for r in mesh_ranks], backend)
 
     out = {}
     for c in sorted(set(chains)):

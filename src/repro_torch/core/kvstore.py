@@ -54,8 +54,11 @@ from repro_torch.utils.trees import flatten_with_names, tree_unflatten
 @dataclasses.dataclass(frozen=True)
 class GradSyncConfig:
     """The reference's sync knobs that the port runs: the strategies and
-    reducers, and the ZeRO-1 StepProgram (``zero1_*``).  The pipeline and
-    simulator fields come with ROADMAP queue 1 items 13 and 15b."""
+    reducers, the ZeRO-1 StepProgram (``zero1_*``) and the pipeline
+    context (``pp_*``, which the train step fills from its pipeline; only
+    the ``auto`` strategy's planning reads them).  The simulator's fields
+    (``sim_compute``, ``zero1_accum``) come with ROADMAP queue 1 item
+    15b."""
 
     strategy: str = "depcha"         # any registered strategy name
     reducer: str = "flat"            # any registered reducer name
@@ -75,6 +78,13 @@ class GradSyncConfig:
     # the NEXT step's top (``GradSync.apply_pending``, with the carried
     # update shards) instead of closing this step
     zero1_defer_ag: bool = False
+    # pipeline context (DESIGN.md §15), set by ``make_train_step`` with
+    # pipeline stages: stages, the resolved schedule, the microbatch
+    # count M and the stage-boundary payload a hop, in bytes
+    pp_stages: int = 1
+    pp_schedule: str = "auto"        # "auto" | "gpipe" | "1f1b"
+    pp_microbatches: int = 0         # 0 → derived (accum, else 2·stages)
+    pp_activation_bytes: int = 0
     # static analysis: validate() and the six repro_torch.analysis passes
     # over the planned schedule, raising ScheduleError (with a printable
     # witness) before any communicator sees it
@@ -204,13 +214,16 @@ class GradSync:
             sets |= {tuple(a for a in ax if a not in ("pod", "data")) for ax in list(sets)}
         if cfg.reducer == "ring" or cfg.reducer.endswith("_ring"):
             sets |= {(a,) for ax in list(sets) for a in ax}
-        self.groups = dep.mesh_comms(chains, sets, mesh, self.device)
+        with dep.comm_scope() as self._made:     # what ``close`` destroys
+            self.groups = dep.mesh_comms(chains, sets, mesh, self.device)
+            pods = (dep.pod_comms(self.groups, self.mesh_shape["pod"],
+                                  self.mesh_shape["data"], self.device,
+                                  self.mesh_shape.get("model", 1),
+                                  ranks=getattr(mesh, "world_ranks", None))
+                    if hier else {})
         self.streams = dep.ChainStreams(chains, self.device)
         self.rings: list[PeerRing] = []
         if hier:
-            pods = dep.pod_comms(self.groups, self.mesh_shape["pod"], self.mesh_shape["data"],
-                                 self.device, self.mesh_shape.get("model", 1),
-                                 ranks=getattr(mesh, "world_ranks", None))
             for c, comms in self.groups.items():
                 comms.pod = pods[c]
             if (cfg.reducer == "hierarchical_ring" and self.device.type == "cuda"
@@ -230,10 +243,14 @@ class GradSync:
                    for op in self.schedule.ops)
 
     def close(self) -> None:
-        """Collective: free the peer rings' buffers (a no-op without them)."""
+        """Collective: free the peer rings' buffers, then destroy the
+        chains' communicators (and their pods'), in creation order.  The
+        syncer runs no schedule after it."""
         rings, self.rings = self.rings, []
         for ring in rings:
             ring.close()
+        dep.destroy_groups(self._made)
+        self.groups = {}
 
     def _two_phase_impl(self) -> str:
         """The reduce-scatter/all-gather transport: ring-family reducers
@@ -326,6 +343,7 @@ class KVStore:
         self.num_channels = 1 if self.info.single_chain else num_channels
         self.mesh_shape = mesh_shape
         self.device = dep.resolve_device(device)
+        self._made: list = []             # every grouping's communicators: ``close``
         self._groups = self._make_groups()
         self._regroups = 0
         self._handles: dict[int, dep.Handle] = {}
@@ -350,8 +368,16 @@ class KVStore:
         if group_size(axes, mesh.shape) == 1 < world:
             raise ValueError(f"a KVStore over {self.reduce_axes} of {self.mesh_shape} "
                              f"would reduce over one rank of {world}")
-        comms = dep.mesh_comms(range(self.num_channels), [axes], mesh, self.device)
+        with dep.comm_scope() as made:
+            comms = dep.mesh_comms(range(self.num_channels), [axes], mesh, self.device)
+        self._made += made
         return {c: cc.get(axes) for c, cc in comms.items()}
+
+    def close(self) -> None:
+        """Collective: destroy every communicator the store created (its
+        channels', and those of earlier groupings), in creation order."""
+        dep.destroy_groups(self._made)
+        self._groups = {}
 
     @classmethod
     def create(cls, kind: str, **kw) -> "KVStore":

@@ -14,9 +14,10 @@ inspectable data — the port of ``repro/core/schedule.py``.
 The IR half is the reference's unchanged, so planners here and in
 ``repro`` produce equal schedules.  The emitter runs the sync kinds
 (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER), the StepProgram's UPDATE and
-NORM (``core/stepprogram.py``) and the elastic RESHARD and REGROUP
-(``repro_torch.elastic``); the serving and pipeline kinds raise
-``NotImplementedError`` until their ROADMAP items port them.
+NORM (``core/stepprogram.py``), the elastic RESHARD and REGROUP
+(``repro_torch.elastic``) and the pipeline's SEND and RECV
+(``core/pipeline_program.py``); the serving kind DECODE raises
+``NotImplementedError`` until ROADMAP queue 1 item 15b ports it.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ KINDS = (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER, UPDATE, NORM,
 _WIRE_KINDS = (ALLREDUCE, REDUCE_SCATTER)
 _PAYLOAD_KINDS = _WIRE_KINDS + (SEND,)
 # the ROADMAP queue 1 item that ports each kind the emitter cannot run
-_NOT_PORTED = {DECODE: "15b", SEND: 13, RECV: 13}
+_NOT_PORTED = {DECODE: "15b"}
 
 # execution phases: POST ops run after this step's backward; PRE ops are
 # deferred to the top of the next step
@@ -703,6 +704,43 @@ class _OpEmitter:
             if self.aux is not None:
                 self.aux["regroup_done"] = h.wait()
 
+        elif op.kind == SEND:
+            # pipeline boundary, sender half (DESIGN.md §15): pack the
+            # payload (row 1 when fused, loss scale folded in) and park it
+            # for the matched RECV, which makes the hop: the one transfer
+            # is both halves, so the SEND carries the sender's deps and
+            # the staging
+            self._gate_data(op)
+            buf = self._stage_in(bucket, flat_out)
+            h = dep.Handle(dep.Recorded(buf.device), buf)
+            self.handles[op.op_id] = h
+            self.shards[op.op_id] = (h, buf.numel())
+
+        elif op.kind == RECV:
+            # receiver half: gate on the matched SEND (the same-bucket dep)
+            # and the receiver's deps, make the hop on the bucket's stage
+            # communicator (group rank i sends to i + shift and receives
+            # from i - shift, mod the group), and deliver through the
+            # unpack (row 2, loss scale undone)
+            if len(bucket.reduce_axes) != 1:
+                raise ValueError(
+                    f"recv op {op.op_id}: SEND/RECV ride exactly one stage axis, "
+                    f"got {bucket.reduce_axes!r}")
+            src = self._shard_src(op, "send")
+            h_src, _ = self.shards.pop(src)
+            g = self._group_size(bucket, group)
+            comm = group.get(bucket.reduce_axes) if g > 1 else None
+
+            def hop(b, _shift=op.shift, _tag=bucket.bucket_id):
+                i = dist.get_rank(comm) if g > 1 else 0
+                out, = dep.ring_exchange(comm, i, g, _shift, [b], tags=[_tag])
+                return dep.Handle(dep.Recorded(out.device), out)
+
+            h = emit_gated(h_src.out, op.depends_on, self.handles, hop)
+            h_src.release()
+            self._stage_out(bucket, h.wait(), 1.0 / self.loss_scale, flat_out)
+            self.handles[op.op_id] = dep.Handle(dep.Recorded(self.device), None)
+
         elif op.kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"op kind {op.kind!r} is not ported yet (ROADMAP queue 1 "
@@ -778,6 +816,15 @@ def execute(
       REGROUP — a scalar all-reduce over the bucket's axes that every
         member of the old group joins after its deps; the sum (the old
         group's size) lands in ``aux["regroup_done"]``.
+
+    Pipeline ops (``core/pipeline_program.py``), as the reference's:
+      SEND — packs the bucket's leaves (loss-scaled) and parks the buffer
+        for its RECV.
+      RECV — after its matched SEND (the same-bucket dep) and its other
+        deps, moves the parked buffer one hop along the bucket's one
+        stage axis (group rank i → i + ``shift``, mod the group; a
+        ``dependency.exchange``, host-staged on gloo with CUDA tensors)
+        and unpacks what arrived into the leaves, the loss scale undone.
 
     Ops are issued in schedule order; each waits on its ``depends_on``
     before it is issued.  The fused path writes reduced values into the

@@ -213,6 +213,17 @@ class Supervisor:
                      else dist.new_group(backend="gloo"))
         self.group = group
 
+    def close(self) -> None:
+        """Collective (every world rank): close every step the builder
+        gave the supervisor (``TrainStep.close``), in build order.  A
+        build is kept for the supervisor's life, a rung's step never
+        replaced, so the steps' communicators end with it.  A builder
+        that shares its steps with other supervisors closes them itself
+        once the last is done, and does not call this."""
+        built, self._built, self._codecs = self._built, {}, {}
+        for ts, _, _ in built.values():
+            ts.close()
+
     # ------------------------------------------------------------ events
 
     def _event(self, kind: str, **fields) -> None:

@@ -24,14 +24,22 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.dependency import backend_for, resolve_device
-from repro_torch.parallel.sharding import Mesh
+from repro_torch.parallel.sharding import STAGE_AXIS, Mesh
 
 
-def make_smoke_mesh(data: int = 1, model: int = 1) -> Mesh:
+def make_smoke_mesh(data: int = 1, model: int = 1, stage: int = 0) -> Mesh:
     """The reference's two-axis ("data", "model") mesh; both axes always
-    present so every collective path runs."""
-    if data < 1 or model < 1:
-        raise ValueError(f"a mesh needs data, model >= 1; got {data} x {model}")
+    present so every collective path runs.  ``stage >= 1`` inserts a
+    "stage" axis between them (pipeline stages, DESIGN.md §15): rank
+    (d·stage + s)·model + m at (d, s, m); extent 1 keeps the staged code
+    path with a trivial pipeline, the reference a staged run is held
+    to."""
+    if data < 1 or model < 1 or stage < 0:
+        raise ValueError(f"a mesh needs data, model >= 1 and stage >= 0; got "
+                         f"{data} x {model}, stage {stage}")
+    if stage >= 1:
+        return Mesh(("data", STAGE_AXIS, "model"),
+                    {"data": data, STAGE_AXIS: stage, "model": model})
     return Mesh(("data", "model"), {"data": data, "model": model})
 
 
@@ -45,18 +53,24 @@ def make_pod_mesh(pods: int, data: int, model: int = 1) -> Mesh:
     return Mesh(("pod", "data", "model"), {"pod": pods, "data": data, "model": model})
 
 
-def make_mesh(model: int = 1, multi_pod: bool = False) -> Mesh:
+def make_mesh(model: int = 1, multi_pod: bool = False, stage: int = 0) -> Mesh:
     """The initialized process group as the production mesh: a "model"
-    axis of extent ``model`` and the rest of the world on "data" (with
+    axis of extent ``model``, with ``stage >= 1`` a "stage" axis of that
+    extent before it, and the rest of the world on "data" (with
     ``multi_pod`` on two pods of equal "data" extent).  A world that
     does not split so raises.  (A mesh over fewer ranks than the world,
     an elastic rung, is a ``Mesh`` with ``ranks``.)"""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if model < 1 or world % model:
-        raise ValueError(f"a model axis of {model} does not divide a world of {world}")
-    dp = world // model
+    per = model * max(stage, 1)
+    if model < 1 or stage < 0 or world % per:
+        raise ValueError(f"a model axis of {model} and {stage} stages do not divide "
+                         f"a world of {world}")
+    dp = world // per
+    if stage and multi_pod:
+        raise ValueError("pipeline stages on a multi-pod mesh: the reference's "
+                         "stage axis is on the smoke mesh only")
     if not multi_pod:
-        return make_smoke_mesh(dp, model)
+        return make_smoke_mesh(dp, model, stage)
     if dp < 2 or dp % 2:
         raise ValueError(f"--multi-pod needs two equal pods; {dp} data-parallel "
                          f"rank(s) do not split into two")

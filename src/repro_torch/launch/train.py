@@ -36,6 +36,23 @@ the next step's top) or ``monolithic`` (one bucket after the sync).
 ``--microbatch M`` accumulates M microbatches a step into f32
 accumulators, the adds running inside each backward.
 
+``--pp-stages S`` trains over S pipeline stages (DESIGN.md §15): the
+mesh gets a "stage" axis of extent S between "data" and "model" (the
+world splits data × S × model), ``--microbatch`` is the pipeline's
+microbatch count M, and ``--pp-schedule`` picks gpipe or 1f1b ("auto",
+the default as in the reference, picks by simulation: ROADMAP queue 1
+item 15b, and raises).  As the reference's, it needs ``--smoke``:
+
+    RANK=r WORLD_SIZE=2 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \
+        PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --smoke --device cpu --pp-stages 2 --pp-schedule gpipe --microbatch 4 \
+        --strategy concom --steps 2 --seq 32 --batch 4
+
+``--events-jsonl PATH`` appends the ``Trainer``'s JSONL events (one
+``step`` a step and the lifecycle events, ``repro_torch.obs``) and
+``--metrics-json PATH`` writes the final metrics snapshot, both from
+rank 0.
+
 ``--ckpt-dir DIR`` checkpoints the params and the optimizer state every
 ``--ckpt-every`` steps (``repro_torch.checkpoint.CheckpointManager``,
 async, the reference's format); a second launch with the same directory
@@ -51,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 
 import numpy as np
 import torch.distributed as dist
@@ -102,14 +120,30 @@ def main(argv=None):
                     help="two pods over the world: a (pod, data, model) mesh")
     ap.add_argument("--model", type=int, default=1,
                     help="extent of the mesh's model axis (tensor parallelism)")
+    ap.add_argument("--pp-stages", type=int, default=1,
+                    help="pipeline stages over a 'stage' mesh axis (smoke config "
+                         "only; --microbatch doubles as the pipeline microbatch "
+                         "count M)")
+    ap.add_argument("--pp-schedule", default="auto", choices=["auto", "gpipe", "1f1b"],
+                    help="pipeline schedule; auto = by simulation (ROADMAP queue 1 "
+                         "item 15b, not ported: it raises)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--events-jsonl", default="",
+                    help="append per-step JSONL telemetry (repro_torch.obs EventLog) "
+                         "to this path")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the final metrics snapshot here")
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
+    if args.pp_stages > 1 and not args.smoke:
+        raise SystemExit("--pp-stages needs the smoke mesh (--smoke); the production "
+                         "mesh has no 'stage' axis")
     rank, _ = init_dist(args.device)
     try:
-        mesh = make_mesh(args.model, multi_pod=args.multi_pod)
+        mesh = make_mesh(args.model, multi_pod=args.multi_pod,
+                         stage=args.pp_stages if args.pp_stages > 1 else 0)
         if args.smoke:
             cfg, batch, seq = arch.make_smoke(), args.batch or 8, args.seq or 64
         else:
@@ -125,8 +159,10 @@ def main(argv=None):
             over["tp"] = mesh.shape["model"]
         cfg = dataclasses.replace(cfg, **over)
         api = family_of(cfg)
-        # each rank keeps its shards: of "model" (tp > 1), of the dp axes (FSDP)
-        sharded = mesh.shape["model"] > 1 or getattr(cfg, "fsdp", False)
+        # each rank keeps its shards: of "model" (tp > 1), of the dp axes
+        # (FSDP), its stage's layers (pipeline stages)
+        sharded = (mesh.shape["model"] > 1 or getattr(cfg, "fsdp", False)
+                   or args.pp_stages > 1)
         init_kw = dict(mesh=mesh, rank=rank) if sharded else {}
         model = api.module(cfg, api.init(cfg, seed=args.seed, device=args.device,
                                          **init_kw))
@@ -148,18 +184,25 @@ def main(argv=None):
                               bucket_bytes=int(args.bucket_mb * 1024 * 1024),
                               num_channels=args.channels,
                               exclude_axes=dp if args.zero1 else ())
+        pp = dict(pp_stages=args.pp_stages, pp_schedule=args.pp_schedule,
+                  batch_like=pipe.batch_at(0)) if args.pp_stages > 1 else {}
         ts = make_train_step(cfg, mesh, sync, opt, model=model,
                              clip_norm=args.clip_norm, zero1_mode=args.zero1,
                              zero1_plan=args.zero1_plan, microbatch=args.microbatch,
-                             device=args.device)
+                             device=args.device, **pp)
         ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
                 if args.ckpt_dir else None)
         trainer = Trainer(ts, pipe, ckpt, log_every=1,
-                          printer=print if rank == 0 else (lambda _s: None))
+                          printer=print if rank == 0 else (lambda _s: None),
+                          events_path=(args.events_jsonl or None) if rank == 0 else None)
         model, opt_state, hist = trainer.run(model, ts.init_opt(), args.steps)
         if ts.finalize is not None:
             ts.finalize(model, opt_state)     # the last step's deferred updates
-        ts.gradsync.close()
+        ts.close()
+        if rank == 0 and args.metrics_json:
+            with open(args.metrics_json, "w") as f:
+                json.dump(hist.get("metrics", {}), f, indent=1, sort_keys=True)
+            print(f"[train] metrics snapshot -> {args.metrics_json}")
         if rank == 0 and hist["losses"]:
             times = hist["step_times"]
             avg = sum(times) / len(times) * 1e3 if times else float("nan")

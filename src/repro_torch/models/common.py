@@ -41,7 +41,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import dependency as dep
-from repro_torch.parallel.sharding import MODEL_AXIS, dp_index, shard_tree
+from repro_torch.parallel.sharding import (
+    MODEL_AXIS,
+    STAGE_AXIS,
+    dp_index,
+    shard_tree,
+    stage_shard_specs,
+)
 from repro_torch.utils.trees import tree_map_with_names
 
 
@@ -253,7 +259,9 @@ def init_tree(draw: Callable, specs: Callable, cfg, *, seed: int,
     under ``specs(tree, cfg)`` kept (``parallel/sharding.py::shard_tree``),
     so a leaf replicated over an axis is equal on every rank of it and the
     shards of any layout put together are the one-rank tree of the same
-    seed.  A config whose storage is sharded (tp > 1, FSDP) needs the
+    seed.  On a mesh with a "stage" axis each rank keeps its stage's
+    slice of the stacked layers too (``stage_shard_specs``).  A config
+    whose storage is sharded (tp > 1, FSDP) needs the
     mesh, except on ``meta``, where only shapes are made."""
     device = dep.resolve_device(device)
     if mesh is not None:
@@ -267,7 +275,10 @@ def init_tree(draw: Callable, specs: Callable, cfg, *, seed: int,
             raise ValueError(f"tp={cfg.tp} on a mesh with model extent "
                              f"{mesh.shape.get(MODEL_AXIS, 1)}")
         full = draw(cfg, seed, device)
-        local = shard_tree(full, specs(full, cfg), mesh, rank)
+        sp = specs(full, cfg)
+        if STAGE_AXIS in mesh.axis_names:       # each stage keeps its layers
+            sp = stage_shard_specs(sp)
+        local = shard_tree(full, sp, mesh, rank)
         out = tree_map_with_names(lambda _n, t: t.contiguous().clone(), local)
         del full, local
         return out

@@ -39,6 +39,10 @@ class ModelAPI:
     # (cfg, batch_entry) -> the cache leaves' specs (``param_specs``' tuple
     # form): which dim is sharded over "model", which over the dp axes
     decode_state_specs: Optional[Callable[..., Any]] = None
+    # the staged wave-pipeline loss (DESIGN.md §15) for pipeline stages:
+    # (params, mbs, cfg, *, stage_axis, model_axis[, fsdp]) -> loss;
+    # a family without it refuses pipeline training
+    pipeline_train_forward: Optional[Callable[..., Any]] = None
     # paged (block-table) decode for the continuous-batching engine
     decode_paged: Optional[Callable[..., Any]] = None
     # cache leaves laid out (L, B, S, ...) that the static batcher grows
@@ -70,6 +74,7 @@ FAMILIES: dict[str, ModelAPI] = {
         module=tf_lib.Transformer,
         param_specs=tf_lib.param_specs,
         train_forward=tf_lib.train_forward,
+        pipeline_train_forward=tf_lib.pipeline_train_forward,
         layer_sync=tf_lib.layer_sync,
         prefill=tf_lib.prefill,
         decode_step=tf_lib.decode_step,

@@ -13,6 +13,7 @@ Ported: ``TransformerConfig`` (every field), ``init_params``,
 ``fsdp_gather``, ``self_block``, ``cross_block``, ``backbone``,
 ``train_forward`` (with ``frame_embeds``, ``img_embeds``, the MoE aux
 loss, and depcha's in-backward sync through a ``LayerSync``),
+``pipeline_train_forward`` (pipeline stages, DESIGN.md §15),
 ``prefill`` and ``decode_step`` (with ``img_embeds``; ``prefill`` with
 ``last_pos``, ``decode_step`` with a ring-buffer slot),
 ``decode_step_paged``, ``make_cache``, ``decode_state_specs`` and the
@@ -95,6 +96,7 @@ from repro_torch.models.common import (
     swiglu,
 )
 from repro_torch.models.moe import MoECfg, moe_ffn
+from repro_torch.parallel.pipeline import NO_STAGE_AXIS, StageAxis, pipeline_wave_loss
 from repro_torch.parallel.sharding import MODEL_AXIS, ShardingRules, reduce_axes_tree
 
 
@@ -529,6 +531,64 @@ def train_forward(params: dict, batch: dict, cfg: TransformerConfig, *,
     if cfg.moe is not None:
         loss = loss + aux * ((B * S) / batch["global_tokens"]) / cfg.n_layers
     return loss
+
+
+def pipeline_train_forward(params: dict, mbs: dict, cfg: TransformerConfig, *,
+                           stage_axis: StageAxis = NO_STAGE_AXIS,
+                           model_axis: ModelAxis = NO_MODEL_AXIS,
+                           fsdp: FsdpAxes = NO_FSDP) -> torch.Tensor:
+    """The staged wave-pipeline loss (DESIGN.md §15, the reference's
+    ``pipeline_train_forward``): the sum over the microbatches of the
+    local-shard loss, nonzero on the last stage only.
+
+    ``mbs`` is the batch split into M microbatches with a leading M dim
+    (``global_tokens`` of shape (M,), each 1/M of the batch's, as the
+    accumulation path splits it).  ``params`` hold this stage's slice of
+    the stacked blocks (dim 0 sharded over "stage").  Stage 0 embeds
+    the injected microbatch, every stage runs its layer slice through
+    ``self_block`` under ``cfg.remat``, the carry (activation, MoE aux)
+    hops to the next stage (``parallel/pipeline.py``), and the last
+    stage runs ``ln_f``, the head and ``sharded_softmax_xent``, folding
+    the aux in as ``train_forward`` does.  The caller sums the result
+    over the stage axis outside the backward.  Cross-attention is
+    refused, as in the reference."""
+    if cfg.n_cross:
+        raise ValueError("pipeline stages do not support cross-attention layers")
+    tokens = mbs["tokens"]
+    M, B, S = tokens.shape
+    rope = rope_angles(torch.arange(S, device=tokens.device), cfg.hd, cfg.rope_theta)
+    gtok = mbs["global_tokens"]
+    moe = cfg.moe is not None
+    rows = layer_rows(params["blocks"])
+
+    def inject(m: int) -> tuple:
+        x = embed_lookup(params["embed"], tokens[m], cfg.tp, model_axis).to(cfg.dtype)
+        if cfg.frame_embeds and "frame_embeds" in mbs:
+            x = x + mbs["frame_embeds"][m].to(cfg.dtype)
+        if moe:
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return (x,)
+
+    def body(p, carry):
+        h, a, _, _ = self_block(p, carry[0], cfg, rope, model_axis, fsdp)
+        return (h, carry[1] + a) if moe else (h,)
+
+    def stage(carry: tuple) -> tuple:
+        return run_layers(body, rows, carry, range(len(rows)), remat=cfg.remat)
+
+    def head_loss(carry: tuple, m: int) -> torch.Tensor:
+        per_tok = sharded_softmax_xent(rms_norm(carry[0], params["ln_f"]) @ params["lm_head"],
+                                       mbs["labels"][m], cfg.tp, model_axis)
+        loss = per_tok.sum() / gtok[m]
+        if moe:
+            loss = loss + carry[1] * ((B * S) / gtok[m]) / cfg.n_layers
+        return loss
+
+    like = [torch.empty((B, S, cfg.d_model), dtype=cfg.dtype, device=tokens.device)]
+    if moe:
+        like.append(torch.empty((), dtype=torch.float32, device=tokens.device))
+    return pipeline_wave_loss(inject, stage, head_loss, M, axis=stage_axis,
+                              carry_like=like).sum()
 
 
 class Transformer(nn.Module):

@@ -96,9 +96,32 @@ def adamw(lr: Callable[[int], float] | float, b1: float = 0.9,
     return Optimizer(init, update)
 
 
+def _staged_squares(grads: Tensors, staged, stage_group) -> dict[str, torch.Tensor]:
+    """Each staged leaf's sum of squares over the whole stack: its layer
+    rows' sums (one reduction a row), gathered over the stage axis into
+    the stack's layer order, then summed.  Every layout of the stages
+    then sums the same vector of rows, bit for bit."""
+    names = [k for k in grads if k in staged]
+    if not names:
+        return {}
+    rows = torch.stack([torch.stack([torch.sum(torch.square(r))
+                                     for r in grads[k].to(torch.float32)])
+                        for k in names])                 # (leaves, layers here)
+    if stage_group is not None:
+        n = torch.distributed.get_world_size(stage_group)
+        full = rows.new_empty((n * rows.shape[0], rows.shape[1]))
+        dep.collective(torch.distributed.all_gather_into_tensor, stage_group, full,
+                       rows).wait()
+        rows = full.view(n, *rows.shape).transpose(0, 1)     # (leaves, stages, here)
+    else:
+        rows = rows[:, None]
+    return {k: torch.sum(rows[j].contiguous().view(-1)) for j, k in enumerate(names)}
+
+
 def clip_by_global_norm(grads: Tensors, max_norm: float, *,
                         shard_sets: Mapping[str, tuple[str, ...]] | None = None,
-                        comms=None) -> tuple[Tensors, torch.Tensor]:
+                        comms=None, staged: frozenset[str] = frozenset(),
+                        stage_group=None) -> tuple[Tensors, torch.Tensor]:
     """Clip by the global grad norm (summed in the dict's order).
 
     On a mesh ``shard_sets`` maps each leaf sharded over a mesh axis of
@@ -109,9 +132,19 @@ def clip_by_global_norm(grads: Tensors, max_norm: float, *,
     ranks, one all-reduce a set, and the replicated leaves' (equal on
     every rank after the sync) counted once, so every rank clips by the
     same, global norm.  (The reference clips by the squares of each
-    rank's own shards: ROADMAP queue 3.)"""
+    rank's own shards: ROADMAP queue 3.)
+
+    Under pipeline stages ``staged`` names the leaves whose layer stack is
+    sharded over "stage" and ``stage_group`` is the stage communicator
+    (None at one stage): their squares are summed a layer row at a time,
+    the rows gathered over the stages and summed in layer order
+    (``_staged_squares``), so a staged run clips by the norm of its
+    stage = 1 twin bit for bit; their ``shard_sets`` key leaves "stage"
+    out."""
     shard_sets = shard_sets or {}
-    parts = [torch.sum(torch.square(g.to(torch.float32))) for g in grads.values()]
+    rows = _staged_squares(grads, staged, stage_group)
+    parts = [rows[k] if k in rows else torch.sum(torch.square(g.to(torch.float32)))
+             for k, g in grads.items()]
     device = parts[0].device
     sharded = torch.zeros((), device=device)
     for key in sorted({shard_sets[k] for k in grads if k in shard_sets}):

@@ -1,1 +1,2 @@
-"""Sharding rules (the data-parallel subset)."""
+"""Sharding rules and meshes (``parallel/sharding.py``) and pipeline
+stages over a "stage" mesh axis (``parallel/pipeline.py``)."""

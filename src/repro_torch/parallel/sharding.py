@@ -33,6 +33,7 @@ import re
 from typing import Any, Iterable
 
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"       # pipeline stages (DESIGN.md §15), between data and model
 DP_AXES = ("pod", "data")  # subset actually present in the mesh is used
 
 
@@ -177,6 +178,31 @@ def shard_tree(tree: Any, specs: Any, mesh, rank: int) -> Any:
                                     for n, l in named])
 
 
+def stage_shard_specs(specs: Any, *, axis: str = STAGE_AXIS,
+                      prefixes: tuple[str, ...] = ("blocks/",)) -> Any:
+    """Overlay pipeline-stage sharding on a spec tree (the reference's
+    ``stage_shard_specs``): dim 0, the layer stack, of every leaf under
+    ``prefixes`` is sharded over ``axis``, so each stage holds a
+    contiguous slice of the stacked layers.  Every other leaf keeps its
+    spec, replicated over the stage axis, which ``missing_axes`` turns
+    into a gradient sum over it (the stages that do not use the leaf
+    add exact zeros)."""
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    named, treedef = flatten_with_names(specs)
+    out = []
+    for n, s in named:
+        if any(n.startswith(p) for p in prefixes):
+            entries = list(s) if len(s) else [None]
+            if entries[0] is not None:
+                raise ValueError(f"stage overlay: {n} already shards its stack dim "
+                                 f"over {entries[0]!r}")
+            entries[0] = axis
+            s = tuple(entries)
+        out.append(s)
+    return tree_unflatten(treedef, out)
+
+
 def batch_spec(mesh) -> tuple:
     """Batch dim sharded over every data-parallel axis present."""
     dp = dp_axes_of(mesh)
@@ -185,9 +211,11 @@ def batch_spec(mesh) -> tuple:
 
 def dp_index(rank: int, mesh) -> int:
     """The mesh rank's data-parallel index: its coordinates on the dp
-    axes, row-major (the batch slice ``batch_spec`` gives it; every rank
-    of a model group reads the same one)."""
-    return rank // mesh.shape.get(MODEL_AXIS, 1)
+    axes, row-major (the batch slice ``batch_spec`` gives it).  The dp
+    axes lead the mesh, so it is the rank over the extent of the axes
+    after them: every rank of a replica ("stage" × "model") reads the
+    same one."""
+    return rank // math.prod(mesh.shape[a] for a in mesh.axis_names if a not in DP_AXES)
 
 
 def local_batch(global_batch: int, mesh) -> int:

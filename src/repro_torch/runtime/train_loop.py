@@ -47,6 +47,18 @@ the dp sum: no GradSync bucket holds them, and depcha's in-backward sync
 passes them through.  ZeRO-1 with FSDP is refused, as the reference
 refuses it (its dp plan wants every leaf replicated over dp).
 
+Pipeline stages (a "stage" mesh axis, ``pp_stages``): each rank holds
+its stage's slice of the stacked blocks and runs the family's
+``pipeline_train_forward`` over the ``microbatch`` waves
+(``parallel/pipeline.py``), gpipe in one backward or 1f1b a chunk of S
+microbatches at a time; the stage-replicated leaves are summed over
+"stage" by the sync, and the clip gathers the staged leaves' row sums
+over "stage" so a staged run clips as its stage = 1 twin, bit for bit.
+
+Every communicator a step creates is recorded (``dependency.comm_scope``)
+and destroyed by ``TrainStep.close``, collective: the step's life ends
+there.
+
 Each stage runs under a profiler label (``step.gather_pending``,
 ``step.forward``, ``step.backward``, ``step.gradsync``,
 ``step.depcha_wait``, ``step.optimizer``, ``step.loss_allreduce``;
@@ -78,10 +90,19 @@ from repro_torch.optim.optimizers import (
     clip_by_global_norm,
 )
 from repro_torch.optim.zero import scheduled_update, zero1_pending, zero1_state
-from repro_torch.parallel.sharding import MODEL_AXIS, dp_axes_of, dp_index, flat_spec_axes
+from repro_torch.parallel.pipeline import NO_STAGE_AXIS, stage_axis
+from repro_torch.parallel.sharding import (
+    MODEL_AXIS,
+    STAGE_AXIS,
+    dp_axes_of,
+    dp_index,
+    flat_spec_axes,
+    stage_shard_specs,
+)
 from repro_torch.utils.trees import flatten_with_names, tree_leaves, tree_unflatten
 
 ZERO1_PLANS = ("scheduled", "deferred", "monolithic")
+PP_SCHEDULES = ("gpipe", "1f1b")     # "auto" is ROADMAP queue 1 item 15b
 
 
 class SimulatedFailure(RuntimeError):
@@ -136,6 +157,18 @@ class TrainStep:
     mesh: Any = None
     param_specs: Any = None
     zero1: bool = False
+    # the communicators the step made besides its GradSync's (the loss
+    # group, the clip's, the in-backward sync's, the model, FSDP and stage
+    # axes), in creation order: what ``close`` destroys
+    comms: list = dataclasses.field(default_factory=list)
+
+    def close(self) -> None:
+        """Collective (every world rank, the same step): destroy every
+        communicator the step made, in creation order, the GradSync's
+        first (its peer rings, then its chains' and pods' groups), then
+        the step's own.  The step runs no more after it."""
+        self.gradsync.close()
+        dep.destroy_groups(self.comms)
 
     def init_opt(self) -> Any:
         """Zero-initialized optimizer state: under ZeRO-1 sharded, sized
@@ -164,25 +197,54 @@ class TrainStep:
         return comms.get(self.mesh.axis_names)
 
 
-def split_microbatches(batch: dict, microbatch: int) -> list[dict]:
-    """The reference's ``split``: every batch tensor cut into
-    ``microbatch`` equal slices along dim 0; a scalar repeated, except
-    ``global_tokens``, which becomes its 1/M share (so each microbatch's
-    loss is its share of the batch mean)."""
-    mbs: list[dict] = [{} for _ in range(microbatch)]
+def pipeline_split(batch: dict, microbatch: int) -> dict:
+    """The reference's ``split``: every batch tensor reshaped to
+    (M, rows / M, ...); a scalar broadcast to (M,), ``global_tokens`` as
+    its 1/M share (so each microbatch's loss is its share of the batch
+    mean)."""
+    out = {}
     for k, x in batch.items():
         if x.dim() == 0:
             x = x / microbatch if k == "global_tokens" else x
-            for mb in mbs:
-                mb[k] = x
+            out[k] = x.expand(microbatch)
             continue
         if x.shape[0] % microbatch:
             raise ValueError(f"batch {k!r} of {x.shape[0]} rows does not split "
                              f"into {microbatch} microbatches")
-        for mb, part in zip(mbs, x.reshape(microbatch, x.shape[0] // microbatch,
-                                           *x.shape[1:]).unbind(0)):
-            mb[k] = part
-    return mbs
+        out[k] = x.reshape(microbatch, x.shape[0] // microbatch, *x.shape[1:])
+    return out
+
+
+def split_microbatches(batch: dict, microbatch: int) -> list[dict]:
+    """``pipeline_split``'s microbatches, one dict each."""
+    split = pipeline_split(batch, microbatch)
+    return [{k: v[i] for k, v in split.items()} for i in range(microbatch)]
+
+
+def _pp_check(cfg, api, mesh, pp_stages: int, pp_schedule: str) -> str:
+    """The reference's refusals of a staged step (``ValueError``), and the
+    schedule it runs."""
+    if STAGE_AXIS not in mesh.axis_names:
+        raise ValueError(f"pp_stages={pp_stages} needs a {STAGE_AXIS!r} mesh axis "
+                         f"(make_smoke_mesh(..., stage=N)); mesh has {mesh.axis_names}")
+    if mesh.shape[STAGE_AXIS] != pp_stages:
+        raise ValueError(f"pp_stages={pp_stages} != mesh {STAGE_AXIS!r} extent "
+                         f"{mesh.shape[STAGE_AXIS]}")
+    if api.pipeline_train_forward is None:
+        raise ValueError(f"family {api.family!r} has no pipeline_train_forward")
+    if getattr(cfg, "depcha_in_scan", False):
+        raise ValueError("depcha_in_scan is not supported with pipeline stages")
+    n_layers = getattr(cfg, "n_layers", 0)
+    if n_layers and n_layers % pp_stages:
+        raise ValueError(f"n_layers={n_layers} not divisible by pp_stages={pp_stages}")
+    if pp_schedule == "auto":
+        raise NotImplementedError(
+            "pp_schedule='auto' picks the schedule by simulation "
+            "(choose_pp_schedule): ROADMAP queue 1 item 15b; pass 'gpipe' or '1f1b'")
+    if pp_schedule not in PP_SCHEDULES:
+        raise ValueError(f"pp_schedule must be 'auto', 'gpipe' or '1f1b', "
+                         f"got {pp_schedule!r}")
+    return pp_schedule
 
 
 def make_train_step(
@@ -197,6 +259,8 @@ def make_train_step(
     zero1_plan: str = "scheduled",
     microbatch: int = 1,
     pp_stages: int = 1,
+    pp_schedule: str = "auto",
+    batch_like: dict | None = None,
     device: str | torch.device = "cuda",
 ) -> TrainStep:
     """Build the train step for one (arch, mesh, sync).
@@ -222,9 +286,28 @@ def make_train_step(
     added after it.  The sync starts after the last backward: launching
     buckets from inside it (the reference's ``accum_overlap``) is not
     ported.
+
+    Pipeline stages (DESIGN.md §15): with a "stage" mesh axis
+    (``make_smoke_mesh(..., stage=S)``, S = ``pp_stages``; extent 1 runs
+    the staged path with a trivial pipeline) the stacked block params
+    are sharded over "stage" on dim 0 (``stage_shard_specs``) and the
+    step runs the family's ``pipeline_train_forward``: ``microbatch`` is
+    the pipeline's M, the batch split by ``pipeline_split``, as the
+    accumulation path splits it.  ``pp_schedule`` "gpipe" differentiates
+    one M-wave program in one backward; "1f1b" runs chunks of S
+    microbatches, each through its own backward, the gradients summed in
+    f32 (the reference's executed 1F1B: at most S microbatches of
+    activations live).  "auto" picks by
+    simulation, ROADMAP queue 1 item 15b, and raises here.  Loss and
+    gradients are divided by M; the loss is summed over "stage" and the
+    dp axes.  The stage-replicated leaves (the embedding, ``ln_f``, the
+    head) are summed over "stage" by the sync, the stages that do not
+    use them adding zeros.  ``batch_like`` (a batch of the step's shape)
+    sizes the stage-boundary payload for ``GradSyncConfig``'s pipeline
+    context.  Refused as in the reference: a mesh without "stage" or of
+    another extent, a family without the hook, ``depcha_in_scan``,
+    ``n_layers`` not divisible by S, scheduled ZeRO-1 with clipping.
     """
-    if pp_stages != 1:
-        raise NotImplementedError("pipeline stages: ROADMAP queue 1 item 13")
     if zero1_plan not in ZERO1_PLANS:
         raise ValueError(f"unknown zero1_plan {zero1_plan!r}, want one of {ZERO1_PLANS}")
     if microbatch < 1:
@@ -236,6 +319,8 @@ def make_train_step(
     device = resolve_device(device)
     api = family_of(cfg)
     params_like = model.params_tree()
+    pp_active = pp_stages > 1 or STAGE_AXIS in mesh.axis_names
+    pp_sched = _pp_check(cfg, api, mesh, pp_stages, pp_schedule) if pp_active else None
     dp = dp_axes_of(mesh)
     dp_size = math.prod(mesh.shape[a] for a in dp)
     tp = mesh.shape.get(MODEL_AXIS, 1)
@@ -261,6 +346,22 @@ def make_train_step(
                          "ROADMAP queue 3")
     zero1_scheduled = zero1_mode and zero1_plan != "monolithic"
     defer_ag = zero1_mode and zero1_plan == "deferred"
+    if pp_active and zero1_scheduled and clip_norm:
+        # the NORM op sums squared shard norms over the dp axes only: the
+        # stage-sharded blocks' terms would be missing from the norm
+        raise ValueError("scheduled ZeRO-1 clipping is not supported with pipeline "
+                         "stages; pass clip_norm=0")
+    if pp_active:
+        # the stage-boundary payload a hop: one microbatch of (local rows,
+        # seq, d_model) in the compute dtype
+        act_bytes = 0
+        if batch_like is not None and batch_like["tokens"].dim() == 2:
+            rows, seq = batch_like["tokens"].shape
+            act_bytes = (rows // max(microbatch, 1) * seq * cfg.d_model
+                         * torch.empty((), dtype=cfg.dtype).element_size())
+        sync = dataclasses.replace(sync, pp_stages=pp_stages, pp_schedule=pp_sched,
+                                   pp_microbatches=max(microbatch, 1),
+                                   pp_activation_bytes=act_bytes)
     if zero1_mode:
         inner, z_dp_size, _ = zmeta
         if z_dp_size != dp_size:
@@ -270,34 +371,48 @@ def make_train_step(
         sync = dataclasses.replace(
             sync, zero1_dp_axes=tuple(dp), zero1_clip=bool(clip_norm),
             zero1_defer_ag=defer_ag)
-    layer_sync = None
-    if in_scan:
-        layer_sync = api.layer_sync(cfg, params_like, mesh, device) if api.layer_sync else None
-        if layer_sync is None or set(layer_sync.names) != set(in_scan):
-            raise ValueError(f"{api.family}: the in-backward sync does not cover "
-                             f"the in-scan leaves")
     specs = api.param_specs(params_like, cfg)
-    gs = GradSync(sync, mesh, specs, params_like, in_scan_names=in_scan, device=device)
-    # the loss is summed over the dp axes (None: a dp group of one)
-    loss_group = coset_groups([dp], mesh, device)[reduce_key(dp, mesh)]
+    if pp_active:
+        specs = stage_shard_specs(specs)
+    # every communicator made here is the step's (``close`` destroys them)
+    with dep.comm_scope() as made:
+        layer_sync = None
+        if in_scan:
+            layer_sync = (api.layer_sync(cfg, params_like, mesh, device)
+                          if api.layer_sync else None)
+            if layer_sync is None or set(layer_sync.names) != set(in_scan):
+                raise ValueError(f"{api.family}: the in-backward sync does not cover "
+                                 f"the in-scan leaves")
+        gs = GradSync(sync, mesh, specs, params_like, in_scan_names=in_scan, device=device)
+        # the loss is summed over "stage" and the dp axes (None: a group of one)
+        loss_axes = dp + ((STAGE_AXIS,) if pp_active else ())
+        loss_group = coset_groups([loss_axes], mesh, device)[reduce_key(loss_axes, mesh)]
+        stage_ax = stage_axis(mesh, device) if pp_active else NO_STAGE_AXIS
+        fwd_kw = {"layer_sync": layer_sync} if layer_sync is not None else {}
+        if tp > 1:
+            fwd_kw["model_axis"] = model_axis(mesh, device)
+        if fsdp:
+            fwd_kw["fsdp"] = fsdp_axes(mesh, tuple(cfg.dp_axes), device)
+        # the clip's squares: each sharded leaf's summed over its spec's
+        # axes; a staged leaf's rows gathered over "stage" by the clip itself
+        staged = frozenset(n for n, sp in flatten_with_names(specs)[0]
+                           if pp_active and sp and sp[0] == STAGE_AXIS)
+        shard_sets = {n: key for n, sp in flatten_with_names(specs)[0]
+                      if (key := reduce_key(flat_spec_axes(sp) - (
+                          {STAGE_AXIS} if n in staged else set()), mesh))}
+        clip_kw = {}
+        if clip_norm and not zero1_mode:
+            if shard_sets:
+                clip_kw.update(shard_sets=shard_sets, comms=dep.mesh_comms(
+                    [0], set(shard_sets.values()), mesh, device)[0])
+            if staged:
+                clip_kw.update(staged=staged, stage_group=stage_ax.group)
+        if zero1_mode and not zero1_scheduled and optimizer.zero1_setup is not None:
+            optimizer.zero1_setup(mesh, device)
     # a rank outside the mesh (an elastic rung of fewer ranks than the
     # world) creates every communicator with the members and steps never
     me = dep.mesh_rank(mesh)
     rank = dp_index(me, mesh) if me is not None else 0
-    if zero1_mode and not zero1_scheduled and optimizer.zero1_setup is not None:
-        optimizer.zero1_setup(mesh, device)
-    fwd_kw = {"layer_sync": layer_sync} if layer_sync is not None else {}
-    if tp > 1:
-        fwd_kw["model_axis"] = model_axis(mesh, device)
-    if fsdp:
-        fwd_kw["fsdp"] = fsdp_axes(mesh, tuple(cfg.dp_axes), device)
-    # the clip's squares: each sharded leaf's summed over its spec's axes
-    shard_sets = {n: key for n, sp in flatten_with_names(specs)[0]
-                  if (key := reduce_key(flat_spec_axes(sp), mesh))}
-    clip_kw = {}
-    if shard_sets and clip_norm and not zero1_mode:
-        clip_kw = dict(shard_sets=shard_sets, comms=dep.mesh_comms(
-            [0], set(shard_sets.values()), mesh, device)[0])
 
     def init_opt(on: torch.device | None = None):
         on = device if on is None else on
@@ -378,6 +493,34 @@ def make_train_step(
     # after the post-backward schedule is issued, so the two overlap
     late_finish = microbatch == 1 and not zero1_scheduled
 
+    def pipeline_grads(tree, named, batch) -> tuple[torch.Tensor, list]:
+        """The staged step's loss and f32 gradients, both divided by M: one
+        backward over the M-wave program (gpipe) or one a chunk of S
+        microbatches, summed into f32 (1f1b).  A leaf this stage does not
+        use (the embedding past stage 0, the head before the last) has a
+        zero gradient."""
+        mbs = pipeline_split(batch, microbatch)
+        chunk = microbatch if pp_sched == "gpipe" else pp_stages
+        acc = {n: None for n, _ in named}
+        loss = None
+        for c0 in range(0, microbatch, chunk):
+            part = {k: v[c0:c0 + chunk] for k, v in mbs.items()}
+            with record_function("step.forward"):
+                l = api.pipeline_train_forward(tree, part, cfg, stage_axis=stage_ax,
+                                               **fwd_kw)
+            with record_function("step.backward"):
+                (l / tp if tp > 1 else l).backward()
+            loss = l.detach() if loss is None else loss + l.detach()
+            for n, p in named:
+                if p.grad is not None:
+                    g = p.grad.to(torch.float32)
+                    acc[n] = g if acc[n] is None else acc[n].add_(g)
+                    p.grad = None
+        return loss / microbatch, [
+            (a if a is not None else torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=p.device)).div_(microbatch)
+            for (_, p), a in zip(named, acc.values())]
+
     def step(model, opt_state, batch, step_idx: int):
         if me is None:
             raise RuntimeError(f"rank {dist.get_rank()} is outside the mesh over the "
@@ -390,7 +533,9 @@ def make_train_step(
             with record_function("step.gather_pending"):
                 # last step's deferred updates land before the forward
                 gather_pending(model, opt_state.pop("pending"))
-        if microbatch == 1:
+        if pp_active:
+            loss, grad_list = pipeline_grads(tree, named, batch)
+        elif microbatch == 1:
             loss, _ = backward(tree, named, batch)
             if late_finish:
                 # the in-scan leaves' gradients come from the in-backward sync
@@ -460,7 +605,7 @@ def make_train_step(
 
     return TrainStep(step, gs, device, layer_sync, init_opt,
                      finalize if defer_ag else None, mesh=mesh, param_specs=specs,
-                     zero1=zero1_mode)
+                     zero1=zero1_mode, comms=made)
 
 
 class Trainer:

@@ -7,7 +7,8 @@ parameter tree: the same nesting, the same names, torch tensors on
 ``device``.  Both packages then compute the same function.  With a
 ``mesh`` and a ``rank`` it keeps only that rank's block of each leaf
 (``parallel/sharding.py::shard_leaf`` by the leaf's spec under
-``rules``): what the reference's ``device_put`` with a ``NamedSharding``
+``rules``, with the layer stacks over "stage" on a mesh with pipeline
+stages): what the reference's ``device_put`` with a ``NamedSharding``
 puts on that device.
 """
 from __future__ import annotations
@@ -59,9 +60,12 @@ def params_from_numpy(named: Mapping[str, np.ndarray],
     if mesh is None:
         return unflatten_names({n: tensor_from_numpy(a).to(device)
                                 for n, a in named.items()})
-    from repro_torch.parallel.sharding import shard_leaf
+    from repro_torch.parallel.sharding import STAGE_AXIS, shard_leaf, stage_shard_specs
 
     coords = mesh.coords(rank)
+    specs = {n: rules.spec(n) for n in named}
+    if STAGE_AXIS in mesh.axis_names:         # each stage keeps its layers
+        specs = stage_shard_specs(specs)
     return unflatten_names({
-        n: shard_leaf(tensor_from_numpy(a), rules.spec(n), mesh, coords)
+        n: shard_leaf(tensor_from_numpy(a), specs[n], mesh, coords)
         .contiguous().to(device) for n, a in named.items()})

@@ -1,11 +1,12 @@
 """Multi-rank workers of the port's CPU checks, and their JAX counterpart.
 
     python tests/_torch_mdworker.py <workdir> <rank> <world> [MODE]
-    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*|serve-*|elastic>
+    python tests/_torch_mdworker.py <workdir> jax <rings|compressed|hier|inception|zero1|tp-*|serve-*|elastic|pp>
                                                   (tp-<mesh>+: SPLIT_REFERENCE's second part)
 
 MODE: grads (the default), rings, compressed, hier, lm, inception, zero1,
-tp-2x2, tp-1x4, tp-4x1, tp-ops, serve-2x2, serve-1x4 or elastic.
+tp-2x2, tp-1x4, tp-4x1, tp-ops, serve-2x2, serve-1x4, elastic, pp,
+sendrecv or close.
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -112,6 +113,28 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
               repairs on a 2-rank mesh on ranks 2, 3 and on 0, 1
               (``SUB_RANKS``) and the KVStore's regroup; flags, losses and
               global params to ``elastic_rank<r>.npz``.
+
+  pp          (tests/test_torch_pipeline.py) pipeline stages on the
+              (data, stage, model) meshes of ``PP_MESHES``: for each run
+              of ``PP_RUNS`` (gpipe and 1f1b staged, their stage-1 twins,
+              the clipped step, the plain accumulation path, granite's
+              MoE smoke config) ``PP_STEPS`` AdamW steps of
+              ``make_train_step`` from ``pp_params.npz`` (granite's from
+              ``pp-granite_params.npz``): losses, grad norms, hops and the
+              rank's final param shards, the live process groups before
+              and after (every step closed); a staged run recovered from
+              its checkpoint against the same run uninterrupted; then
+              ``pipeline_forward`` on four stages, both broadcasts; to
+              ``pp_rank<r>.npz``.
+  sendrecv    (tests/test_torch_pipeline_program.py) a SEND/RECV pair
+              through ``execute`` on 2 and 4 stages, shift +1 and -1;
+              what each rank received to ``sendrecv_rank<r>.npz``.
+
+  close       (tests/test_torch_comms.py) build-step-close cycles of the
+              runs of ``CLOSE_RUNS`` (concom on 4 channels, depcha's
+              in-backward sync at tp 2, FSDP at 2 x 2), a regrouped
+              ``KVStore`` and a ``GradSync``, counting the live process
+              groups; to ``close_rank<r>.npz``.
 
 ``layer_sync_rank`` is one of 2 processes on ``cuda:0`` for
 tests/test_torch_cuda.py: depcha's in-backward slot staging and the
@@ -281,6 +304,41 @@ SERVE_RUNS = {
 SERVE_FN_RUNS = {"2x2": {"granite": "granite", "vision": "vision"}}
 # the reference fault: qwen3's smoke vocab 97 at model 2 pads to 98 columns
 SERVE_PAD_VOCAB = 97
+
+
+# pipeline stages (tests/test_torch_pipeline.py): the reference's mk_pp
+# (tests/_mdworker.py check 14: TP_CFG, f32) on (data, stage, model) meshes
+PP_MESHES = {"1x2x2": (1, 2, 2), "2x2x1": (2, 2, 1)}
+PP_SEQ, PP_BATCH, PP_SEED, PP_STEPS, PP_LR, PP_CLIP = 32, 8, 5, 2, 1e-3, 0.05
+PP_SYNC = dict(strategy="concom", bucket_bytes=1 << 12)
+# run -> (stage extent, schedule, M, clip, MoE arch): extent 1 is the
+# stage = 1 twin on the first data x model ranks, 0 the plain
+# accumulation path (no stage axis)
+PP_RUNS = {
+    "gpipe": (2, "gpipe", 4, 0.0, None),
+    "gpipe-s1": (1, "gpipe", 4, 0.0, None),
+    "1f1b-m2": (2, "1f1b", 2, 0.0, None),
+    "gpipe-s1-m2": (1, "gpipe", 2, 0.0, None),
+    "1f1b": (2, "1f1b", 4, 0.0, None),
+    "1f1b-s1": (1, "1f1b", 4, 0.0, None),
+    "clip": (2, "gpipe", 4, PP_CLIP, None),
+    "plain": (0, None, 4, 0.0, None),
+    "granite": (2, "gpipe", 4, 0.0, "granite"),
+}
+# the reference's runs: its staged gpipe and 1f1b (two chunks at M 4),
+# its stage-1 clipped step at model 1 (the staged one's norm is its own
+# fault, and at tp > 1 it clips by each model rank's shards: ROADMAP
+# queue 3), granite and its plain accumulation path (no stage axis)
+PP_REF_RUNS = ("gpipe", "1f1b", "clip-s1", "granite", "plain")
+PP_MOE_MESHES = ("1x2x2",)           # granite's runs: experts over "model"
+PP_FORWARD = (4, 6, 8)               # pipeline_forward's check: S, M, width
+
+
+def pp_config(mesh_name: str, arch: str | None = None, ref: bool = False):
+    """The pp runs' config at ``PP_MESHES[mesh_name]``'s model extent: mk_pp,
+    or ``arch``'s MoE smoke config at vocab 96."""
+    tp = PP_MESHES[mesh_name][2]
+    return moe_config(arch, tp, ref=ref) if arch else tp_config(tp, ref=ref)
 
 
 def serve_config(kind: str, tp: int, ref: bool = False, **over):
@@ -754,7 +812,7 @@ def _zero1(workdir: str, rank: int) -> None:
         out["param_bytes"] = np.int64(sum(p.numel() * p.element_size() for _, p in params))
         if ts.gradsync.dp_plan is not None:
             out["bucket_sizes"] = np.array([b.size for b in ts.gradsync.dp_plan.buckets])
-        ts.gradsync.close()
+        ts.close()
         np.savez(os.path.join(workdir, f"zero1-{run}_rank{rank}.npz"), **out)
 
     # zero1 with depcha's in-backward sum at dp 4: the port refuses
@@ -875,7 +933,7 @@ def _tp(workdir: str, rank: int, mesh_name: str) -> None:
         m, state, hist = trainer.run(m, ts.init_opt(), steps)
         if ts.finalize is not None:
             m = ts.finalize(copy.deepcopy(m), copy.deepcopy(state))
-        ts.gradsync.close()
+        ts.close()
         out.update({f"{run}/loss/{k}": np.float32(v) for k, v in enumerate(hist["losses"])})
         out[f"{run}/grad_norm"] = np.float32(hist["metrics"]["grad_norm"])
         out.update({f"{run}/param/{n}": p.detach().numpy()
@@ -1785,6 +1843,211 @@ def _elastic_reference(workdir: str) -> dict:
     return out
 
 
+def _pp(workdir: str, rank: int) -> None:
+    """Port side of ``tests/test_torch_pipeline.py``: for each mesh of
+    ``PP_MESHES`` and run of ``PP_RUNS``, ``PP_STEPS`` AdamW steps of
+    ``make_train_step`` from the carried weights (each rank keeping its
+    stage slice and model shards): each step's loss, grad norm and hops,
+    and the final param shards, to ``pp_rank<r>.npz`` (nothing from a
+    rank outside a stage-1 twin's mesh).  Then ``pipeline_forward`` on
+    four stages."""
+    import torch
+
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.core import dependency as dep
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import pipeline as pl
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.runtime import make_train_step
+    from repro_torch.utils.convert import params_from_numpy
+    from repro_torch.utils.trees import flatten_with_names
+
+    out = {"groups_before": np.int64(dep.live_groups())}
+    for mesh_name, (data, stage, model) in PP_MESHES.items():
+        for run, (s, sched, mb, clip, arch) in PP_RUNS.items():
+            if arch and mesh_name not in PP_MOE_MESHES:
+                continue
+            mesh = make_smoke_mesh(data, model, s)
+            if s == 1:
+                mesh = Mesh(mesh.axis_names, mesh.shape, tuple(range(data * model)))
+            me = dep.mesh_rank(mesh)
+            cfg = pp_config(mesh_name, arch)
+            weights = dict(np.load(os.path.join(
+                workdir, f"pp-{arch}_params.npz" if arch else "pp_params.npz")))
+            # a rank outside the twin's mesh builds the step on mesh rank 0's
+            # shapes (``make_train_step`` is collective) and steps never
+            net = tf.Transformer(cfg, params_from_numpy(
+                weights, "cpu", mesh=mesh, rank=me or 0, rules=tf.param_rules(cfg)))
+            pipe = TokenPipeline(TP_CFG["vocab"], PP_SEQ, PP_BATCH, seed=PP_SEED, mesh=mesh,
+                                 rank=me or 0, device="cpu")
+            kw = dict(pp_stages=s, pp_schedule=sched) if s else {}
+            opt = adamw(PP_LR)
+            ts = make_train_step(cfg, mesh, GradSyncConfig(**PP_SYNC), opt, model=net,
+                                 clip_norm=clip, microbatch=mb, batch_like=pipe.batch_at(0),
+                                 device="cpu", **kw)
+            key = f"{mesh_name}/{run}"
+            if me is not None:
+                state = ts.init_opt()
+                for k in range(PP_STEPS):
+                    h0 = dep.HOPS
+                    net, state, m = ts.fn(net, state, pipe.batch_at(k), k)
+                    out[f"{key}/loss/{k}"] = m["loss"].numpy()
+                    out[f"{key}/gnorm/{k}"] = m["grad_norm"].numpy()
+                    out[f"{key}/hops/{k}"] = np.int64(dep.HOPS - h0)
+                out.update({f"{key}/param/{n}": p.detach().numpy()
+                            for n, p in flatten_with_names(net.params_tree())[0]})
+                out[f"{key}/pp_context"] = np.array([
+                    ts.gradsync.cfg.pp_stages, ts.gradsync.cfg.pp_microbatches,
+                    ts.gradsync.cfg.pp_activation_bytes])
+            ts.close()
+    out["groups_after"] = np.int64(dep.live_groups())
+
+    # a staged run's checkpoint: recovered from a failure at step 3 (the
+    # checkpoint of step 2 restored, step 2 replayed) ≡ uninterrupted
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import Trainer
+
+    name = PP_MOE_MESHES[0]
+    data, stage, model = PP_MESHES[name]
+    mesh = make_smoke_mesh(data, model, stage)
+    cfg = pp_config(name)
+    weights = dict(np.load(os.path.join(workdir, "pp_params.npz")))
+    finals = {}
+    for tag, fail in (("clean", frozenset()), ("recovered", frozenset({3}))):
+        net = tf.Transformer(cfg, params_from_numpy(weights, "cpu", mesh=mesh, rank=rank,
+                                                    rules=tf.param_rules(cfg)))
+        pipe = TokenPipeline(TP_CFG["vocab"], PP_SEQ, PP_BATCH, seed=PP_SEED, mesh=mesh,
+                             rank=rank, device="cpu")
+        ts = make_train_step(cfg, mesh, GradSyncConfig(**PP_SYNC), adamw(PP_LR), model=net,
+                             clip_norm=1.0, microbatch=4, pp_stages=stage,
+                             pp_schedule="gpipe", device="cpu")
+        ckpt = CheckpointManager(os.path.join(workdir, "pp-ckpt"), every=2) if fail else None
+        trainer = Trainer(ts, pipe, ckpt, fail_at=fail, log_every=10 ** 9,
+                          printer=lambda _m: None)
+        net, _, hist = trainer.run(net, ts.init_opt(), 4)
+        finals[tag] = [p.detach().clone() for _, p in flatten_with_names(net.params_tree())[0]]
+        out[f"ckpt/{tag}/events"] = np.array([e["kind"] for e in hist["events"]])
+        ts.close()
+    out["ckpt/same"] = np.bool_(all(torch.equal(a, b) for a, b in
+                                    zip(finals["clean"], finals["recovered"])))
+
+    # pipeline_forward: stage i multiplies by i + 1, both broadcasts
+    S, M, D = PP_FORWARD
+    axis = pl.stage_axis(make_smoke_mesh(1, 1, S), "cpu")
+    mbs = torch.arange(M * D, dtype=torch.float32).reshape(M, D) + 1.0
+    w = torch.tensor([float(axis.index + 1)])
+    for b in ("psum", "hop"):
+        out[f"forward/{b}"] = pl.pipeline_forward(lambda wi, x: x * wi[0], w, mbs,
+                                                  axis=axis, broadcast=b).numpy()
+    out["forward/stage"] = np.int64(axis.index)
+    dep.destroy_groups([axis.group])
+    np.savez(os.path.join(workdir, f"pp_rank{rank}.npz"), **out)
+
+
+def _sendrecv(workdir: str, rank: int) -> None:
+    """Port side of ``tests/test_torch_pipeline_program.py``: a SEND/RECV
+    pair through ``execute`` over the stage axis of ("data", "stage")
+    meshes of 2 and 4 stages, shift +1 and -1, fused staging and not, at
+    loss scale 1 and 4; what each rank received, and the hops and bytes
+    ``dependency.ring_exchange`` counted, to ``sendrecv_rank<r>.npz``."""
+    import torch
+
+    from repro_torch.core import dependency as dep
+    from repro_torch.core.buckets import Bucket, BucketPlan, LeafInfo
+    from repro_torch.core.schedule import RECV, SEND, CollectiveOp, CommSchedule, execute
+    from repro_torch.core.strategies import make_reducer
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.utils.trees import flatten_with_names
+
+    N = 8
+    out = {}
+    for stages in (2, 4):
+        mesh = Mesh(("data", "stage"), {"data": WORLD // stages, "stage": stages})
+        comms = dep.mesh_comms([0], [("stage",)], mesh, torch.device("cpu"))
+        bucket = Bucket(leaves=(LeafInfo(name="act", index=0, shape=(N,), dtype=torch.float32,
+                                         size=N),),
+                        reduce_axes=("stage",), channel=0, bucket_id=0)
+        plan = BucketPlan(buckets=(bucket,), treedef=flatten_with_names([0])[1], num_leaves=1,
+                          comm_dtype=torch.float32)
+        for shift in (1, -1):
+            sched = CommSchedule((
+                CollectiveOp(op_id=0, bucket=bucket, chain=0, kind=SEND, shift=shift),
+                CollectiveOp(op_id=1, bucket=bucket, chain=0, depends_on=(0,), kind=RECV,
+                             shift=shift),
+            )).validate()
+            for fused in (True, False):
+                for scale in (1.0, 4.0):
+                    x = torch.arange(rank * N, (rank + 1) * N, dtype=torch.float32) / 3
+                    h0, b0 = dep.HOPS, dep.HOP_BYTES
+                    got = execute(sched, [x.clone()], plan,
+                                  reducer=make_reducer("flat", dict(mesh.shape)),
+                                  groups=comms, streams=dep.ChainStreams([0], x.device),
+                                  mesh_shape=dict(mesh.shape), use_fused_staging=fused,
+                                  loss_scale=scale)
+                    out[f"{stages}/{shift}/{int(fused)}/{scale}"] = got[0].numpy()
+                    out[f"{stages}/{shift}/{int(fused)}/{scale}/hops"] = np.array(
+                        [dep.HOPS - h0, dep.HOP_BYTES - b0])
+        for c in comms.values():
+            dep.destroy_groups([g for g in c.groups.values() if g is not None])
+    np.savez(os.path.join(workdir, f"sendrecv_rank{rank}.npz"), **out)
+
+
+# the communicators' life (tests/test_torch_comms.py): build-step-close
+# cycles of these runs, (strategy, (data, model), config overrides)
+CLOSE_RUNS = {"concom": ("concom", (4, 1), {}),
+              "depcha-tp2": ("depcha", (2, 2), {"depcha_in_scan": True}),
+              "fsdp": ("concom", (2, 2), {"fsdp": True})}
+CLOSE_CYCLES = 3
+
+
+def _close(workdir: str, rank: int) -> None:
+    """Port side of ``tests/test_torch_comms.py``: ``CLOSE_CYCLES`` cycles
+    of every run of ``CLOSE_RUNS``, each a ``make_train_step``, one AdamW
+    step and ``TrainStep.close``; the live process groups before the
+    first cycle and after each run (``dependency.live_groups``), and the
+    groups a step held, to ``close_rank<r>.npz``.  Then a ``KVStore``
+    regrouped once and closed, and a ``GradSync`` closed alone."""
+    import torch
+
+    from repro_torch.core import GradSync, GradSyncConfig, KVStore
+    from repro_torch.core import dependency as dep
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    out = {"before": np.int64(dep.live_groups())}
+    for cycle in range(CLOSE_CYCLES):
+        for run, (strategy, (data, model), over) in CLOSE_RUNS.items():
+            mesh = make_smoke_mesh(data, model)
+            cfg = tp_config(model, dp_axes=("data",), **over)
+            net = tf.Transformer(cfg, tf.init_params(cfg, seed=0, device="cpu", mesh=mesh,
+                                                     rank=rank))
+            pipe = TokenPipeline(TP_CFG["vocab"], 16, 8, seed=1, mesh=mesh, rank=rank,
+                                 device="cpu")
+            opt = adamw(1e-3)
+            ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strategy, num_channels=4),
+                                 opt, model=net, clip_norm=1.0, device="cpu")
+            out[f"{run}/held/{cycle}"] = np.int64(dep.live_groups())
+            _, _, m = ts.fn(net, ts.init_opt(), pipe.batch_at(cycle), cycle)
+            out[f"{run}/loss/{cycle}"] = m["loss"].numpy()
+            ts.close()
+            out[f"{run}/after/{cycle}"] = np.int64(dep.live_groups())
+    kv = KVStore("concom", reduce_axes=("data",), num_channels=2,
+                 mesh_shape={"data": 4}, device="cpu")
+    kv.regroup()
+    kv.close()
+    gs = GradSync(GradSyncConfig(strategy="concom"), make_smoke_mesh(4, 1),
+                  {"w": ()}, {"w": torch.zeros(4)}, device="cpu")
+    gs.close()
+    out["end"] = np.int64(dep.live_groups())
+    np.savez(os.path.join(workdir, f"close_rank{rank}.npz"), **out)
+
+
 def run_all(workdir, mode: str, *, reference_too=False,
             timeout: int = 300, world: int = WORLD) -> None:
     """Run the ``world`` port ranks of ``mode`` (and the JAX reference of
@@ -1836,6 +2099,12 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _zero1(workdir, rank)
         elif mode == "elastic":
             _elastic(workdir, rank)
+        elif mode == "pp":
+            _pp(workdir, rank)
+        elif mode == "sendrecv":
+            _sendrecv(workdir, rank)
+        elif mode == "close":
+            _close(workdir, rank)
         elif mode.startswith("serve-"):
             _serve(workdir, rank, mode[len("serve-"):])
         elif mode.startswith("tp-") and mode != "tp-ops":
@@ -2348,6 +2617,63 @@ def _fsdp_fault(params, mesh, cfg) -> dict:
     return out
 
 
+def _pp_reference(workdir: str) -> dict:
+    """The JAX package's pipeline runs of ``PP_REF_RUNS`` on the 4 devices
+    (check 14 of ``tests/_mdworker.py``): each step's loss and grad norm,
+    the global params after ``PP_STEPS`` AdamW steps, and, for the staged
+    gpipe step, its GradSync's schedule (pickled)."""
+    import pickle
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import GradSyncConfig
+    from repro.data import TokenPipeline
+    from repro.launch.mesh import make_smoke_mesh
+    from repro.models import transformer as tf
+    from repro.optim import adamw
+    from repro.runtime import make_train_step
+    from repro.utils.trees import flatten_with_names
+
+    out = {}
+    runs = {"gpipe": (2, 0.0, None, "gpipe"), "1f1b": (2, 0.0, None, "1f1b"),
+            "clip-s1": (1, PP_CLIP, None, "gpipe"),
+            "granite": (2, 0.0, "granite", "gpipe"), "plain": (0, 0.0, None, "gpipe")}
+    for mesh_name, (data, _, model) in PP_MESHES.items():
+        for run in PP_REF_RUNS:
+            stage, clip, arch, sched = runs[run]
+            if arch and mesh_name not in PP_MOE_MESHES:
+                continue
+            # the clipped step at tp = 1: at tp > 1 the reference clips
+            # each model rank by its own shards (ROADMAP queue 3)
+            tp = 1 if run == "clip-s1" else model
+            mesh = make_smoke_mesh(data, tp, stage=stage)
+            cfg = moe_config(arch, tp, ref=True) if arch else tp_config(tp, ref=True)
+            params = tf.init_params(jax.random.PRNGKey(2), cfg)
+            saved = np.load(os.path.join(
+                workdir, f"pp-{arch}_params.npz" if arch else "pp_params.npz"))
+            for n, p in flatten_with_names(params)[0]:
+                np.testing.assert_array_equal(np.asarray(p), saved[n], err_msg=n)
+            pipe = TokenPipeline(TP_CFG["vocab"], PP_SEQ, PP_BATCH, seed=PP_SEED, mesh=mesh)
+            ts = make_train_step(cfg, mesh, GradSyncConfig(**PP_SYNC), adamw(PP_LR),
+                                 batch_like=pipe.batch_at(0), params_like=params,
+                                 clip_norm=clip, microbatch=4, pp_stages=max(stage, 1),
+                                 pp_schedule=sched)
+            ps = jax.device_put(params, ts.shardings(ts.param_specs))
+            st = ts.init_opt()
+            key = f"{mesh_name}/{run}"
+            for k in range(PP_STEPS):
+                ps, st, m = ts.fn(ps, st, pipe.batch_at(k), jnp.int32(k))
+                out[f"{key}/loss/{k}"] = np.asarray(m["loss"])
+                out[f"{key}/gnorm/{k}"] = np.asarray(m["grad_norm"])
+            out.update({f"{key}/param/{n}": np.asarray(v)
+                        for n, v in flatten_with_names(ps)[0]})
+            if run == "gpipe":
+                with open(os.path.join(workdir, f"pp-{mesh_name}_schedule.pkl"), "wb") as f:
+                    pickle.dump(ts.gradsync.schedule, f)
+    return out
+
+
 def reference(workdir: str, mode: str) -> None:
     """The JAX package's rings, compressed allreduce, hierarchical
     reducers, Inception steps or ZeRO-1 runs on 4 fake devices."""
@@ -2360,7 +2686,7 @@ def reference(workdir: str, mode: str) -> None:
     from repro.core.compression import compressed_allreduce
     from repro.kernels.collectives import ops
 
-    inputs = ({} if mode in ("inception", "zero1", "elastic")
+    inputs = ({} if mode in ("inception", "zero1", "elastic", "pp")
               or mode.startswith(("tp-", "serve-"))
               else dict(np.load(os.path.join(workdir, "inputs.npz"))))
     mesh4 = jax.make_mesh((WORLD,), ("data",), axis_types=(AxisType.Auto,))
@@ -2377,6 +2703,8 @@ def reference(workdir: str, mode: str) -> None:
     out = {}
     if mode == "elastic":
         out = _elastic_reference(workdir)
+    elif mode == "pp":
+        out = _pp_reference(workdir)
     elif mode.startswith("serve-"):
         out = _serve_reference(workdir, mode[len("serve-"):])
     elif mode.startswith("tp-"):

@@ -1,12 +1,14 @@
 """The port's static verifier against the JAX package's: the six passes
 give the reference's exact findings (pass, code, message, ops and the
 witness's rendering) on all 24 mutations of its corpus, pass all 13 of
-its valid cases clean, and the port's own corpus (22 mutations and 10
-valid cases, the ZeRO-1 ones built by the port's ``zero1_schedule``),
+its valid cases clean, and the port's own corpus (all 24 mutations and
+13 valid cases, the ZeRO-1 ones built by the port's ``zero1_schedule``,
+the pipeline ones by its ``plan_pipeline`` and ``compose_step``),
 planning hook and CLI agree with it.  Tolerance: exact — the passes are
-pure functions of the IR.  The reference builds the schedules the port
-cannot plan yet (its pipeline planner) and ``_from_reference`` carries
-them into the port's IR, torch dtypes and all.
+pure functions of the IR.  ``_from_reference`` carries the reference's
+schedules into the port's IR, torch dtypes and all; the pipeline
+entries are run as the port builds them, each held equal to the
+reference's first.
 """
 import dataclasses
 import json
@@ -36,6 +38,23 @@ from test_torch_plan import _from_reference
 
 REF_MUTATIONS = {m.name: m for m in ref_mutations.MUTATIONS}
 REF_VALID = {name: (s, ctx) for name, s, ctx in ref_mutations.valid_cases()}
+PORT_MUTATIONS = {m.name: m for m in mutations.MUTATIONS}
+PORT_VALID = {name: (s, ctx) for name, s, ctx in mutations.valid_cases()}
+# the entries the port's pipeline planner builds (core/pipeline_program.py)
+PIPELINE = {"pp-unmatched-send", "pp-boundary-bytes", "pp-gpipe", "pp-1f1b",
+            "pp-1f1b-zero1-joint"}
+
+
+def _built(name: str, ref_s, ref_ctx) -> tuple:
+    """The schedule and context the passes run on: a pipeline entry as the
+    port's planner builds it (held equal to the reference's first), any
+    other as the reference built it, carried into the port's IR."""
+    if name not in PIPELINE:
+        return _from_reference(ref_s), _ctx(ref_ctx)
+    s, ctx = (PORT_MUTATIONS[name].build() if name in PORT_MUTATIONS
+              else PORT_VALID[name])
+    assert s == _from_reference(ref_s) and ctx == _ctx(ref_ctx), name
+    return s, ctx
 
 
 def _ctx(ctx: dict) -> dict:
@@ -54,31 +73,34 @@ def _findings(report) -> list:
 
 def test_corpus_sizes():
     assert len(ref_mutations.MUTATIONS) == 24 and len(REF_VALID) == 13
-    assert len(mutations.MUTATIONS) == 22 and len(mutations.valid_cases()) == 10
+    assert len(mutations.MUTATIONS) == 24 and len(mutations.valid_cases()) == 13
+    assert set(PORT_MUTATIONS) == set(REF_MUTATIONS) and set(PORT_VALID) == set(REF_VALID)
+    assert PIPELINE <= set(PORT_MUTATIONS) | set(PORT_VALID)
     assert PASS_NAMES == ("deadlock", "spmd", "carry", "accounting", "donation",
                           "reshard")
 
 
 @pytest.mark.parametrize("name", sorted(REF_VALID))
 def test_reference_valid_cases_pass_clean(name):
-    s, ctx = REF_VALID[name]
-    report = run_passes(_from_reference(s), **_ctx(ctx))
+    s, ctx = _built(name, *REF_VALID[name])
+    report = run_passes(s, **ctx)
     assert report.ok, report.render()
-    verify_schedule(_from_reference(s), **_ctx(ctx))
+    verify_schedule(s, **ctx)
 
 
 @pytest.mark.parametrize("name", sorted(REF_MUTATIONS))
 def test_reference_mutations_get_the_reference_findings(name):
     m = REF_MUTATIONS[name]
-    s, ctx = m.build()
-    want = ref_run_passes(s, **ctx)
-    got = run_passes(_from_reference(s), **_ctx(ctx))
+    ref_s, ref_ctx = m.build()
+    want = ref_run_passes(ref_s, **ref_ctx)
+    s, ctx = _built(name, ref_s, ref_ctx)
+    got = run_passes(s, **ctx)
     assert (m.owner, m.code) in {(f.pass_name, f.code) for f in got.findings}
     assert _findings(got) == _findings(want)
     assert got.error_classes == want.error_classes
     assert got.to_dict() == want.to_dict()
     with pytest.raises(ScheduleError) as e:
-        verify_schedule(_from_reference(s), **_ctx(ctx))
+        verify_schedule(s, **ctx)
     assert str(e.value) == "\n".join(f.render() for f in want.findings)
 
 

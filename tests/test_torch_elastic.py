@@ -217,7 +217,10 @@ def test_kvstore_regroup_on_four_ranks(workdir):
 # ------------------------------------------------------ the IR, on one rank
 
 def test_emitter_runs_the_elastic_kinds():
-    assert set(sched._NOT_PORTED) == {sched.DECODE, sched.SEND, sched.RECV}
+    # the elastic kinds run (and, since the pipeline slice, SEND/RECV):
+    # only the serving kind DECODE is left to ROADMAP queue 1 item 15b
+    assert set(sched._NOT_PORTED) == {sched.DECODE}
+    assert not {sched.RESHARD, sched.REGROUP, sched.SEND, sched.RECV} & set(sched._NOT_PORTED)
 
 
 def test_synthetic_transition_verifies_clean():
