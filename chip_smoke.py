@@ -6,10 +6,10 @@
 Phases, in order; any failure raises and exits non-zero:
 
   build       compile every kernel source from ``csrc/`` for sm_90a.
-  vision_train  in a process of its own with the next three phases
+  vision_train  in a process of its own with the next five phases
               (``phase_xr_train``: its 68.9 GB peak, on an NVIDIA H100
-              80GB HBM3 at 700.00 W, does not fit beside what the other
-              phases keep outside PyTorch's allocator):
+              80GB HBM3 at 700.00 W, does not fit beside what the main
+              process caches):
               llama-3.2-vision-11b at full width cut to 10
               layers (8 self, 2 cross: its layer_pair depth; 3,231,805,442
               params) on a one-rank NCCL group, seq 1024 x global batch 4
@@ -42,7 +42,7 @@ Phases, in order; any failure raises and exits non-zero:
               backward) and on the card (the kernel, f32 backward), loss
               and gradients within ``XR_CPU_GPU_TOL``, 4 WKV launches on
               the card.
-  zamba2_train  in a process of its own (``phases_in_own_process``):
+  zamba2_train  in the same process, after them:
               zamba2-2.7b at full width cut to 18 of its 54 Mamba-2
               layers (three groups, the shared attention block at 2
               sites; 986,599,136 params), for the script's time,
@@ -242,7 +242,10 @@ Phases, in order; any failure raises and exits non-zero:
               stage-replicated leaves over "stage" too) and of its
               stage-1 twin's (``pp_plan``), a staged step's worth timed.
   lm_tp       tensor parallelism: four rank processes on the one card
-              (gloo, every collective staged through pinned host memory).
+              (gloo, every collective staged through pinned host memory),
+              which then run lm_fsdp, reducers, zero1, hierarchical and
+              elastic in turn (``spawn_turns``: the processes start and
+              end once).
               First serving: Qwen3-1.7B at full width and
               ``SERVE_RANKS_LAYERS`` layers (4 of 28, for the script's
               time), bf16, use_flash, on data 1 x model 4 from the seeded
@@ -343,20 +346,6 @@ Phases, in order; any failure raises and exits non-zero:
               pack, unpack and ring-combine launches exactly the plan's;
               each rank's ``mem.state_bytes``, its optimizer state the flat
               run's / 4 plus the buckets' padding.
-  elastic     rows 1-2 bit for bit at the state codec's layouts (rank 0's
-              dp plans of both rungs, f32 both ways); then four rank
-              processes on the one card over gloo: Qwen3-1.7B's widths in
-              f32 cut to 1 layer, seq 256 x global batch 4, ZeRO-1
-              scheduled, concom, AdamW, clip 0, the ``Supervisor`` over
-              the ladder data 2 x model 2 → data 2 x model 1 (world ranks
-              0 and 1): a transient at step 1, a rank loss at 2, 2
-              checkpoint-I/O faults, grow-back after 1, 4 steps; then its
-              clean scripted replay.  The script ((2, tp1), (3, tp2)) and
-              faulty ≡ clean bit for bit on every rank; each transition's
-              bytes >= 3 x the params x 4 B; each codec program one pack
-              or unpack launch a RESHARD op; each transition's latency and
-              bytes, each rung's and rank's peak GB, the host seconds by
-              piece.
   hierarchical four rank processes on the one card as ``reducers``, on
               pod 2 x data 2 and pod 1 x data 4.  The peer-memory ring
               reduce-scatter and all-gather (the intra-pod rings, through
@@ -383,6 +372,22 @@ Phases, in order; any failure raises and exits non-zero:
               rows 3, 6, 7 (nor the peer sum or the fused entry).  (By hand:
               ``peer_rings_in_turns`` times another tree's rings in turns
               with these.)
+  elastic     rows 1-2 bit for bit at the state codec's layouts (rank 0's
+              dp plans of both rungs, f32 both ways), before the spawn;
+              then, the spawn's last turn (it wraps library functions for
+              the process's life), four rank processes on the one card
+              over gloo: Qwen3-1.7B's widths in
+              f32 cut to 1 layer, seq 256 x global batch 4, ZeRO-1
+              scheduled, concom, AdamW, clip 0, the ``Supervisor`` over
+              the ladder data 2 x model 2 → data 2 x model 1 (world ranks
+              0 and 1): a transient at step 1, a rank loss at 2, 2
+              checkpoint-I/O faults, grow-back after 1, 4 steps; then its
+              clean scripted replay.  The script ((2, tp1), (3, tp2)) and
+              faulty ≡ clean bit for bit on every rank; each transition's
+              bytes >= 3 x the params x 4 B; each codec program one pack
+              or unpack launch a RESHARD op; each transition's latency and
+              bytes, each rung's and rank's peak GB, the host seconds by
+              piece.
   flash       cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA) code in
               the bf16 library.  The flash-attention kernels against
               their plain version:
@@ -921,6 +926,309 @@ def phase_cpu_vs_gpu() -> None:
         f"gpu {final['cuda'][1]}")
 
 
+# ------------------------------------------------------- the simulator
+
+SIM_REPS = 3                   # the measured replay's timed runs an op
+SIM_FIT_KIB = (16, 64, 256, 1024, 4096)    # bucket sizes of the staging fit
+SIM_FIT_BUCKETS = 8            # buckets timed a size (spread over the plan)
+FIELDS = ("op_id", "bucket_id", "chain", "depends_on", "kind", "phase")
+
+
+def op_fields(schedule) -> list:
+    return [tuple(getattr(op, f) if f != "bucket_id" else op.bucket.bucket_id
+                  for f in FIELDS) for op in schedule.ops]
+
+
+L2_FLUSH_BYTES = 256 << 20     # written before each timed call: 5x the H100's 50 MB L2
+
+
+def device_ms_each(fn, reps: int = 10, cold: bool = True) -> float:
+    """The least device time of one call of ``fn``: CUDA events around
+    each call, recorded behind a sleep kernel that holds the stream while
+    the host enqueues them, so the host's launch gaps fall inside the
+    sleep and not between the events.  ``cold``: a 256 MiB buffer is
+    written before each call (outside its events), so ``fn`` reads and
+    writes through HBM, not a warm L2."""
+    fn()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(2_000_000)
+    for start, end in pairs:
+        if flush is not None:
+            flush.fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return min(start.elapsed_time(end) for start, end in pairs)
+
+
+def staging_fit_rows(plan_of, flat) -> list:
+    """One-direction staging rows (``obs/calibrate.py::fit_staging``'s
+    input) of rows 1–2 on ResNet-50's gradients: for each bucket size of
+    ``SIM_FIT_KIB``, ``SIM_FIT_BUCKETS`` of the plan's buckets spread over
+    it, each pack and each unpack's device time (``device_ms_each``)."""
+    from repro_torch.kernels.collectives import ops
+
+    rows = []
+    outs = [torch.empty_like(t) for t in flat]
+    for kib in SIM_FIT_KIB:
+        buckets = plan_of(kib << 10).buckets
+        step = max(1, len(buckets) // SIM_FIT_BUCKETS)
+        for b in buckets[::step][:SIM_FIT_BUCKETS]:
+            buf = ops.fused_pack(b, flat, torch.float32)
+            for way, fn in (("pack", lambda: ops.fused_pack(b, flat, torch.float32)),
+                            ("unpack", lambda: ops.fused_unpack(b, buf, outs))):
+                rows.append({"nbytes": float(b.size * 4), "num_leaves": len(b.leaves),
+                             "fused": True, "t": device_ms_each(fn) / 1e3,
+                             "warm_t": device_ms_each(fn, cold=False) / 1e3,
+                             "bucket_kib": kib, "way": way})
+    return rows
+
+
+def phase_sim(train: dict) -> dict:
+    """The simulator on the card, on ``phase_train``'s ResNet-50/CIFAR setup
+    (batch 256, 24 buckets, ``TRAIN_STEPS`` steps):
+
+    1. ``TRAIN_STEPS`` steps under ``GradSyncConfig(strategy="auto")``:
+       ``last_auto_report()`` names a winner, the delegated schedule is the
+       winner's own op for op, and the losses are bit-equal to the
+       winner's fixed run (``phase_train``'s, else one here).
+    2. One step's schedule replayed op by op (``measured_gradsync``,
+       ``SIM_REPS`` reps): the replayed gradients bit-equal to ``execute``'s,
+       rows 1–2 launched once a bucket a rep; each op's measured time
+       beside ``simulate``'s under the port's defaults.
+    3. ``fit_staging`` from rows 1–2 timed across bucket sizes
+       (``SIM_FIT_KIB``), beside the data sheet's 3.35 TB/s and the
+       port's defaults (fitted so in earlier runs).
+    4. The Trainer's ``sim.step_time_s`` beside the measured steps."""
+    from repro_torch.configs.resnet50_cifar import make_config
+    from repro_torch.core import GradSyncConfig, make_bucket_plan, plan_sync
+    from repro_torch.data import ImagePipeline
+    from repro_torch.kernels.collectives import kernel
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.resnet import ResNet, init_params, param_specs
+    from repro_torch.obs.calibrate import fit_staging
+    from repro_torch.obs.measure import measured_gradsync
+    from repro_torch.optim import linear_scaling_rule, sgd
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.sim import default_network, last_auto_report, simulate
+    from repro_torch.utils.trees import flatten_with_names, tree_unflatten
+
+    t0 = time.perf_counter()
+    cfg = make_config()
+    mesh = make_dp_mesh()
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, 256, seed=0, mesh=mesh, device="cuda")
+    lr = linear_scaling_rule(0.1, 256, 256)
+
+    def run(strategy: str, keep: bool = False):
+        model = ResNet(cfg, init_params(cfg, seed=0, device="cuda"))
+        opt = sgd(lr, momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strategy), opt, model=model,
+                             clip_norm=1.0, batch_like=pipe.batch_at(0), device="cuda")
+        report = last_auto_report() if strategy == "auto" else None
+        params = dict(flatten_with_names(model.params_tree())[0])
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+        model, _, hist = trainer.run(model, opt.init(params), TRAIN_STEPS)
+        if not keep:
+            ts.close()
+        return ts, model, hist, report
+
+    kernel.PACK_LAUNCHES = kernel.UNPACK_LAUNCHES = 0
+    ts, model, hist, report = run("auto", keep=True)
+    launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
+    gs = ts.gradsync
+    winner = report.get("winner")
+    if not winner or len(gs.plan.buckets) != 24:
+        raise AssertionError(f"sim: auto report {report}, {len(gs.plan.buckets)} buckets")
+    want_steps = 24 * TRAIN_STEPS
+    if launches != {"pack": want_steps, "unpack": want_steps}:
+        raise AssertionError(f"sim: auto run launched {launches}, expected {want_steps} each")
+    params_like = model.params_tree()
+    fixed = plan_sync(GradSyncConfig(strategy=winner), mesh, param_specs(params_like),
+                      params_like)
+    if op_fields(gs.schedule) != op_fields(fixed.schedule):
+        raise AssertionError(f"sim: auto's schedule is not {winner}'s op for op")
+    if winner in train["hists"]:
+        want_losses, source = train["hists"][winner]["losses"], "phase_train"
+    else:
+        want_losses, source = run(winner)[2]["losses"], "a fixed run here"
+    if hist["losses"] != want_losses:
+        raise AssertionError(f"sim: auto losses {hist['losses']} are not bit-equal to "
+                             f"{winner}'s {want_losses} ({source})")
+    log(f"[sim] auto -> {winner} (network model: {report['net']}); ranking "
+        + json.dumps(report["ranking"]) + f"; schedule = {winner}'s op for op; losses "
+        f"{hist['losses']} bit-equal to {winner}'s ({source})")
+
+    # 2. the measured replay of one step's schedule, against execute
+    named = flatten_with_names(params_like)[0]
+    grads = [p.grad.detach().clone() for _, p in named]
+
+    def tree():
+        return tree_unflatten(gs.plan.treedef, [g.clone() for g in grads])
+
+    want = flatten_with_names(gs(tree()))[0]
+    before = (kernel.PACK_LAUNCHES, kernel.UNPACK_LAUNCHES)
+    got, tl, info = measured_gradsync(gs, tree(), reps=SIM_REPS)
+    replay_launches = {"pack": kernel.PACK_LAUNCHES - before[0],
+                       "unpack": kernel.UNPACK_LAUNCHES - before[1]}
+    for (n, a), (_, b) in zip(flatten_with_names(got)[0], want):
+        same_bits(a, b, f"sim: replayed {n}")
+    if replay_launches != {"pack": 24 * SIM_REPS, "unpack": 24 * SIM_REPS}:
+        raise AssertionError(f"sim: the replay launched {replay_launches}, expected "
+                             f"{24 * SIM_REPS} each (one a bucket a rep)")
+    launches = {k: launches[k] + replay_launches[k] for k in launches}
+    predicted = {e.op_id: e for e in simulate(gs.schedule, gs.mesh_shape).events}
+    ops_us = [{"op": e.op_id, "kind": e.kind, "bucket": e.bucket_id, "bytes": e.nbytes,
+               "measured_us": e.duration * 1e6,
+               "simulated_us": predicted[e.op_id].duration * 1e6} for e in tl.events]
+    log(f"[sim] replay of {winner}'s {len(tl.events)} ops, {SIM_REPS} reps, min a rep "
+        f"(serial clock, synchronize around each op): grads bit-equal to execute's; "
+        f"rows 1-2 launched {replay_launches} (one a bucket a rep); measured "
+        f"{tl.step_time * 1e3:.3f} ms in all vs simulated {sum(o['simulated_us'] for o in ops_us) / 1e3:.3f} ms; "
+        "per op " + json.dumps(ops_us))
+    ts.close()
+
+    # 3. the staging fit from rows 1-2 across bucket sizes
+    specs = param_specs(params_like)
+
+    def plan_of(bucket_bytes):
+        return make_bucket_plan(params_like, specs, mesh, bucket_bytes=bucket_bytes)
+
+    flat = [g.clone() for g in grads]
+    rows = staging_fit_rows(plan_of, flat)
+    fitted, fit = fit_staging(rows)
+    warm, warm_fit = fit_staging([dict(r, t=r["warm_t"]) for r in rows])
+    default = default_network().staging
+    log(f"[sim] staging fit over {len(rows)} rows ({SIM_FIT_BUCKETS} buckets a size of "
+        f"{list(SIM_FIT_KIB)} KiB, pack and unpack, fused; device time a call, L2 "
+        f"flushed before each): hbm_bw {fitted.hbm_bw / 1e12:.4f} TB/s = "
+        f"{fitted.hbm_bw / HBM_BYTES_PER_S:.4f} of the data sheet's "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (the port's default {default.hbm_bw / 1e12:.4f}, "
+        f"fitted so earlier); leaf_overhead {fitted.leaf_overhead * 1e6:.3f} us a launch "
+        f"(default {default.leaf_overhead * 1e6:.3f} us); rel residual "
+        f"{fit['rel_residual']:.4f} ({fit['quality']}); warm L2: "
+        f"{warm.hbm_bw / 1e12:.4f} TB/s, {warm.leaf_overhead * 1e6:.3f} us "
+        f"({warm_fit['quality']}); rows " + json.dumps(rows))
+
+    # 4. the Trainer's gauges beside the measured steps
+    gauges = {"auto": {"sim_step_time_s": hist["metrics"]["sim.step_time_s"],
+                       "sim_exposed_comm_s": hist["metrics"]["sim.exposed_comm_s"],
+                       "step_s": hist["step_times"], "sim_compute": True}}
+    for strat, h in train["hists"].items():
+        gauges[strat] = {"sim_step_time_s": h["metrics"]["sim.step_time_s"],
+                         "step_s": h["step_times"], "sim_compute": False}
+    for k, g in gauges.items():
+        g["ratio"] = g["sim_step_time_s"] / (sum(g["step_s"]) / len(g["step_s"]))
+    log("[sim] ResNet-50 gauges (sim.step_time_s beside the timed steps; sim_compute "
+        "only under auto): " + json.dumps(gauges))
+    seconds = time.perf_counter() - t0
+    out = {"winner": winner, "ranking": report["ranking"], "net": report["net"],
+           "launches": launches, "replay_launches": replay_launches, "ops": ops_us,
+           "fit": {"hbm_bw": fitted.hbm_bw, "leaf_overhead": fitted.leaf_overhead,
+                   "share_of_sheet": fitted.hbm_bw / HBM_BYTES_PER_S,
+                   "default": {"hbm_bw": default.hbm_bw,
+                               "leaf_overhead": default.leaf_overhead}, **fit,
+                   "warm": {"hbm_bw": warm.hbm_bw, "leaf_overhead": warm.leaf_overhead,
+                            **warm_fit}},
+           "gauges": gauges, "seconds": seconds}
+    log(f"[clock] sim phase: {seconds:.1f} s")
+    return out
+
+
+AUTO_CARDS_TURNS = ("funnel", "concom", "depcha", "depcha", "concom", "funnel")
+AUTO_CARDS_STEPS = 6           # 1 warm-up + 5 timed
+
+
+def _auto_cards_rank(rank: int, workdir: str, backend: str) -> None:
+    """One rank of ``phase_auto_cards``: ``auto``'s ResNet-50 run at data 4
+    (ranked under the profile in ``$REPRO_TORCH_NETPROFILE_DIR``, if a
+    good one is there), then funnel, concom and depcha in turns
+    (``AUTO_CARDS_TURNS``); to ``workdir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.resnet50_cifar import make_config
+    from repro_torch.core import GradSyncConfig
+    from repro_torch.data import ImagePipeline
+    from repro_torch.launch.mesh import init_dist, make_dp_mesh
+    from repro_torch.models.resnet import ResNet, init_params
+    from repro_torch.optim import linear_scaling_rule, sgd
+    from repro_torch.runtime import Trainer, make_train_step
+    from repro_torch.sim import last_auto_report
+    from repro_torch.utils.trees import flatten_with_names
+
+    init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store",
+              rank=rank, world_size=RING, timeout=datetime.timedelta(seconds=300))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_dp_mesh()
+    out: dict = {}
+    cfg = make_config()
+    pipe = ImagePipeline(cfg.img_size, cfg.num_classes, 256, seed=0, mesh=mesh,
+                         rank=rank, device="cuda")
+    runs: dict = {}
+    for strat in ("auto",) + AUTO_CARDS_TURNS:
+        model = ResNet(cfg, init_params(cfg, seed=0, device="cuda"))
+        opt = sgd(linear_scaling_rule(0.1, 256, 256), momentum=0.9)
+        ts = make_train_step(cfg, mesh, GradSyncConfig(strategy=strat), opt, model=model,
+                             clip_norm=1.0, batch_like=pipe.batch_at(0), device="cuda")
+        if strat == "auto":
+            out["auto"] = last_auto_report()
+        params = dict(flatten_with_names(model.params_tree())[0])
+        trainer = Trainer(ts, pipe, log_every=10 ** 9, printer=lambda _m: None)
+        _, _, hist = trainer.run(model, opt.init(params), AUTO_CARDS_STEPS)
+        runs.setdefault(strat, []).append({
+            "step_s": hist["step_times"], "losses": hist["losses"],
+            "sim_step_time_s": hist["metrics"]["sim.step_time_s"]})
+        ts.close()
+        del ts, model, trainer
+    out["runs"] = runs
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_auto_cards(backend: str = "nccl") -> dict:
+    """By hand on one host with four cards (not in ``main``), after the
+    NVLink fit (``python -m repro_torch.obs --fit`` on the same four cards,
+    under the same ``REPRO_TORCH_NETPROFILE_DIR``): whether ``auto``
+    under that profile picks the fastest of funnel, concom and depcha as
+    measured in repeated pairs (a reading, not a check).  Writes
+    ``chiprun_out/auto_cards.json``."""
+    ranks, wall = spawn_ranks(_auto_cards_rank, (backend,), RING)
+    res = ranks[0]
+    mean = {k: [sum(r["step_s"]) / len(r["step_s"]) for r in v]
+            for k, v in res["runs"].items()}
+    pairs = {k: v for k, v in mean.items() if k in STRATEGIES}
+    fastest = min(pairs, key=lambda k: sum(pairs[k]))
+    res.update(wall_s=wall, mean_step_s=mean, fastest_measured=fastest,
+               auto_picked_fastest=res["auto"]["winner"] == fastest,
+               cards=[torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())])
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "auto_cards.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    log("[auto_cards] " + json.dumps({k: v for k, v in res.items() if k != "runs"}))
+    return res
+
+
+def lm_gauges(lm: dict) -> dict:
+    """``lm_train``'s runs' ``sim.step_time_s`` (no ``sim_compute`` under a
+    fixed strategy: the schedule's communication alone) beside their
+    timed steps."""
+    out = {strat: {"sim_step_time_s": r["sim_step_time_s"],
+                   "step_s": [t / 1e3 for t in r["step_ms"]],
+                   "ratio": r["sim_step_time_s"] * 1e3 / (sum(r["step_ms"]) / len(r["step_ms"]))}
+           for strat, r in lm["runs"].items()}
+    log("[sim] Qwen3-1.7B gauges (lm_train's runs): " + json.dumps(out))
+    return out
+
+
 # ------------------------------------------------------- the transformer LM
 
 LM_SEQ, LM_BATCH = 1024, 4     # tokens a sequence, global batch: 4,096 tokens a step
@@ -1191,6 +1499,7 @@ def lm_run(strat: str, mesh, pipe, after=None, cfg=None, make_model=None) -> dic
         losses.append(hist["losses"][-1])
         norms.append(hist["metrics"]["grad_norm"])
         collectives.append(ts.layer_sync.collectives if ts.layer_sync is not None else 0)
+    sim_step = hist["metrics"]["sim.step_time_s"]
     launches = {"pack": kernel.PACK_LAUNCHES, "unpack": kernel.UNPACK_LAUNCHES}
     slots = sync_slots(ts.layer_sync)
     per_step = sum(staging_launches(op.bucket) for op in ts.gradsync.schedule.ops) + slots
@@ -1209,7 +1518,8 @@ def lm_run(strat: str, mesh, pipe, after=None, cfg=None, make_model=None) -> dic
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches, "launches_per_step": per_step,
            "buckets": len(ts.gradsync.schedule.ops),
-           "in_backward_collectives_per_step": collectives}
+           "in_backward_collectives_per_step": collectives,
+           "sim_step_time_s": sim_step}
     if after is not None:
         run["after"] = after(ts, model, opt_state, run)
     ts.close()
@@ -2942,19 +3252,94 @@ def spawn_ranks(fn, args: tuple, nprocs: int) -> tuple[list, float]:
     return ranks, time.perf_counter() - t0
 
 
-def phase_lm_tp(tp1=None, backend: str = "gloo") -> dict:
+def _process_settings() -> tuple:
+    """What a rank function may set for its whole process: the cuDNN and
+    TF32 flags, deterministic algorithms and the environment."""
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(), dict(os.environ))
+
+
+def _restore_process_settings(saved: tuple) -> None:
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     det, warn_only, env) = saved
+    torch.use_deterministic_algorithms(det, warn_only=warn_only)
+    os.environ.clear()
+    os.environ.update(env)
+
+
+def _turns_rank(rank: int, workdir: str, t_spawn: float, turns: tuple) -> None:
+    """One process of ``spawn_turns``: each turn's ``fn(rank,
+    workdir/turn<i>, *args)`` in order (``fn`` a rank function's name),
+    the process-wide settings a turn changes put back after it, so each
+    turn starts as in a process of its own; rank 0 writes each turn's
+    seconds, and when the processes reached their first turn and left
+    their last, to ``workdir/turns.json``."""
+    t_start = time.time()
+    seconds = []
+    for i, (fn, args) in enumerate(turns):
+        sub = os.path.join(workdir, f"turn{i}")
+        os.makedirs(sub, exist_ok=True)
+        saved = _process_settings()
+        t0 = time.perf_counter()
+        globals()[fn](rank, sub, *args)
+        seconds.append(time.perf_counter() - t0)
+        _restore_process_settings(saved)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            log(f"[clock] {fn.strip('_')}: {seconds[-1]:.1f} s in the shared spawn")
+    if rank == 0:
+        with open(os.path.join(workdir, "turns.json"), "w") as f:
+            json.dump({"start_s": t_start - t_spawn, "seconds": seconds,
+                       "end": time.time()}, f)
+
+
+def spawn_turns(turns: tuple, nprocs: int) -> list:
+    """``spawn_ranks`` for several rank functions in ONE spawn of
+    ``nprocs`` processes, one after the other: ``turns`` holds
+    ``(fn name, args)`` pairs; each turn's ``(rank files, seconds)``, in
+    order.  The processes start and end once, not once a turn, and a
+    later turn finds them warm (PERF.md §6 has what that saves)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_spawn = time.time()
+    with tempfile.TemporaryDirectory(prefix="turns-") as wd:
+        mp.spawn(_turns_rank, args=(wd, t_spawn, tuple(turns)), nprocs=nprocs, join=True)
+        t_join = time.time()
+        with open(os.path.join(wd, "turns.json")) as f:
+            meta = json.load(f)
+        out = []
+        for i in range(len(turns)):
+            ranks = []
+            for r in range(nprocs):
+                with open(os.path.join(wd, f"turn{i}", f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            out.append((ranks, meta["seconds"][i]))
+    log(f"[clock] shared spawn of {nprocs} processes: started in {meta['start_s']:.1f} s, "
+        f"turns {sum(meta['seconds']):.1f} s, ended in {t_join - meta['end']:.1f} s")
+    return out
+
+
+def phase_lm_tp(tp1=None, backend: str = "gloo", spawned=None) -> dict:
     """Tensor parallelism on the card: ``LM_TP`` rank processes (with gloo,
     as ``main`` runs it, all on the one card, every collective staged
     through pinned host memory, since NCCL refuses two ranks on one
     device; ``backend="nccl"`` needs ``LM_TP`` cards, one a rank), each
     running ``_lm_tp_rank``: serving, then training.  ``tp1``:
     ``phase_lm_tp1``'s first funnel loss and grad norm (tp = 1, the same
-    depth, seeded weights and batch)."""
+    depth, seeded weights and batch).  ``spawned``: its turn of
+    ``spawn_turns`` (the rank files and the turn's seconds), as ``main``
+    runs it; else a spawn of its own."""
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     log(f"[lm_tp] {backend} on {cards}")
-    ranks, wall = spawn_ranks(_lm_tp_rank, (backend, tp1), LM_TP)
+    ranks, wall = spawned or spawn_ranks(_lm_tp_rank, (backend, tp1), LM_TP)
     res = ranks[0]
     res["pp"] = pp_report(ranks)
     log("[pp] " + json.dumps(res["pp"]))
@@ -3368,7 +3753,7 @@ def _lm_fsdp_rank(rank: int, workdir: str, backend: str, tp1, data: int, model: 
 
 
 def phase_lm_fsdp(tp1=None, backend: str = "gloo", data: int = LM_FSDP_MESH[0],
-                  model: int = LM_FSDP_MESH[1]) -> dict:
+                  model: int = LM_FSDP_MESH[1], spawned=None) -> dict:
     """FSDP on the card: data x model rank processes (with gloo, as
     ``main`` runs it, all on the one card, every collective staged
     through pinned host memory; ``backend="nccl"`` needs a card a rank),
@@ -3376,12 +3761,15 @@ def phase_lm_fsdp(tp1=None, backend: str = "gloo", data: int = LM_FSDP_MESH[0],
     ``tp1``: ``phase_lm_tp1``'s first funnel loss and grad norm (tp = 1,
     the same depth, seeded weights and batch).  By
     hand on four cards: ``phase_lm_fsdp(backend="nccl", data=4, model=1)``
-    (pure ZeRO-3)."""
+    (pure ZeRO-3).  ``spawned``: its turn of
+    ``spawn_turns`` (the rank files and the turn's seconds), as ``main``
+    runs it; else a spawn of its own."""
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     log(f"[lm_fsdp] {backend} on {cards}, data {data} x model {model}")
-    ranks, wall = spawn_ranks(_lm_fsdp_rank, (backend, tp1, data, model), data * model)
+    ranks, wall = spawned or spawn_ranks(_lm_fsdp_rank, (backend, tp1, data, model),
+                                         data * model)
     res = ranks[0]
     res["wall_s"] = wall
     res["cards"] = cards
@@ -3553,10 +3941,12 @@ def _zero1_rank(rank: int, workdir: str, backend: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_zero1(backend: str = "gloo") -> dict:
+def phase_zero1(backend: str = "gloo", spawned=None) -> dict:
     """Four rank processes on the one card (as ``reducers``): ZeRO-1 at
-    full ResNet-50/CIFAR width (``ZERO1_RANK_RUNS``)."""
-    ranks, wall = spawn_ranks(_zero1_rank, (backend,), RING)
+    full ResNet-50/CIFAR width (``ZERO1_RANK_RUNS``).
+    ``spawned``: its turn of ``spawn_turns`` (the rank files and the
+    turn's seconds), as ``main`` runs it; else a spawn of its own."""
+    ranks, wall = spawned or spawn_ranks(_zero1_rank, (backend,), RING)
     for r, res in enumerate(ranks):
         if {k: v["launches"] for k, v in res["runs"].items()} != \
                 {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
@@ -4646,6 +5036,7 @@ def _reducers_rank(rank: int, workdir: str, backend: str) -> None:
               f"{bucket.bucket_id}: kernel vs plain add")
     out["captured_bucket"] = {"bucket": bucket.bucket_id, "elements": inp.numel()}
     out["lm"] = _lm_ranks(rank, host, say)
+    out["sim"] = _sim_ranks(rank, workdir, mesh, host, say)
     say(f"[reducers] ring vs flat first-step grads within rtol 1e-5 (max diff / leaf "
         f"absmax {worst}); compressed_ring = compressed bit for bit (grads and params); "
         f"compressed within the quantization bound of the flat sum (max err/bound "
@@ -4716,19 +5107,82 @@ def _lm_ranks(rank: int, host, say) -> dict:
     return out
 
 
-def phase_reducers(backend: str = "gloo") -> dict:
+def _resnet_auto_plan(mesh, batch: int = 256) -> dict:
+    """``auto``'s plan of ResNet-50/CIFAR's gradients on ``mesh`` (no
+    process group: ``plan_sync``), ranked with the step's compute model at
+    global ``batch``; its report."""
+    from repro_torch.configs.resnet50_cifar import make_config
+    from repro_torch.core import GradSyncConfig, plan_sync
+    from repro_torch.models.resnet import init_params, param_specs
+    from repro_torch.sim import compute_model_for, last_auto_report
+
+    cfg = make_config()
+    params = init_params(cfg, device="meta")
+    compute = compute_model_for(cfg, global_batch=batch, seq_len=1, n_devices=mesh.size)
+    plan_sync(GradSyncConfig(strategy="auto", sim_compute=compute), mesh,
+              param_specs(params), params)
+    return last_auto_report()
+
+
+def _fit(rows, mesh_shape, prof_dir: str) -> dict:
+    """``fit_network`` over measured rows, saved under ``prof_dir``;
+    ``fitted_network`` must give it back exactly when its quality is ok."""
+    from repro_torch.obs.calibrate import fit_network, fitted_network, save_profile
+
+    model, info = fit_network(rows)
+    path = save_profile(model, mesh_shape, dir=prof_dir, info=info)
+    got, _ = fitted_network(mesh_shape, prof_dir)
+    if (got is None) != (info["quality"] != "ok"):
+        raise AssertionError(f"fitted_network gave {got} for a fit of quality "
+                             f"{info['quality']}")
+    return {"path": path, "used_by_auto": got is not None, **info}
+
+
+def _sim_ranks(rank: int, workdir: str, mesh, host, say) -> dict:
+    """The simulator's multi-rank share, on the reducers phase's spawn:
+    ``python -m repro_torch.obs --fit``'s rows (concom's allreduces and
+    rsag's reduce-scatters and all-gathers of ``obs/cli.py``'s stack at
+    16, 64 and 256 KiB, 3 reps, on this world), ``fit_network`` and its
+    quality (a host-staged gloo fit may be poor: ``fitted_network`` must
+    then treat it as absent), and ``auto``'s plan of ResNet-50 at this
+    data extent with its ranking, under the fitted profile when it is
+    ok."""
+    import torch.distributed as dist
+
+    from repro_torch.obs.cli import fit_rows
+
+    t0 = time.perf_counter()
+    rows, mesh_shape = fit_rows(mesh, "cuda", reps=3)
+    prof_dir = os.path.join(workdir, "profiles")
+    out = {"rows": len(rows)}
+    if rank == 0:
+        out["fit"] = _fit(rows, mesh_shape, prof_dir)
+    dist.barrier(group=host)
+    os.environ["REPRO_TORCH_NETPROFILE_DIR"] = prof_dir
+    out["auto"] = _resnet_auto_plan(mesh)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[sim] {len(rows)} fit rows on {mesh.size} ranks: " + json.dumps(out.get("fit"))
+        + f"; auto at data {mesh.shape['data']}: " + json.dumps(out["auto"])
+        + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def phase_reducers(backend: str = "gloo", spawned=None) -> dict:
     """Four rank processes: the ring, compressed and compressed_ring
     reducers under GradSync at full ResNet-50/CIFAR width.  With gloo (as
     ``main`` runs it) all four share the one card and their communicators
     stage through pinned host memory; ``backend="nccl"`` needs four cards,
-    one a rank."""
-    ranks, wall = spawn_ranks(_reducers_rank, (backend,), RING)
+    one a rank.
+    ``spawned``: its turn of ``spawn_turns`` (the rank files and the
+    turn's seconds), as ``main`` runs it; else a spawn of its own."""
+    ranks, wall = spawned or spawn_ranks(_reducers_rank, (backend,), RING)
     for r, res in enumerate(ranks):
         if {k: v["launches"] for k, v in res["runs"].items()} != \
                 {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
             raise AssertionError(f"rank {r} launched other counts than rank 0")
     res = ranks[0]
     res["wall_s"] = wall
+    log(f"[clock] sim share of the reducers spawn: {res['sim']['seconds']:.1f} s")
     res["transport"] = (
         f"gloo over pinned host memory, {RING} processes on one card: times the "
         f"kernels and the schedule's order, not a wire" if backend == "gloo"
@@ -5269,13 +5723,15 @@ def ring_quant_in_turns(parent: str) -> list:
     return trees_in_turns(parent, turn, "ring_quant", brief=brief)
 
 
-def phase_hierarchical(backend: str = "gloo") -> dict:
+def phase_hierarchical(backend: str = "gloo", spawned=None) -> dict:
     """Four rank processes: the peer-ring kernels and the hierarchical
     reducers under GradSync at full ResNet-50/CIFAR width, on pod 2 x
     data 2 and pod 1 x data 4.  With gloo (as ``main`` runs it) all four
     share the one card; ``backend="nccl"`` needs four cards, one a rank,
-    and the intra-pod rings then cross NVLink."""
-    ranks, wall = spawn_ranks(_hier_rank, (backend,), RING)
+    and the intra-pod rings then cross NVLink.
+    ``spawned``: its turn of ``spawn_turns`` (the rank files and the
+    turn's seconds), as ``main`` runs it; else a spawn of its own."""
+    ranks, wall = spawned or spawn_ranks(_hier_rank, (backend,), RING)
     for r, res in enumerate(ranks):
         if {k: v["launches"] for k, v in res["runs"].items()} != \
                 {k: v["launches"] for k, v in ranks[0]["runs"].items()}:
@@ -6925,9 +7381,11 @@ def _phases_rank(rank: int, workdir: str, names: tuple) -> None:
     out = {}
     try:
         for name in names:
+            t0 = time.perf_counter()
             out[name] = globals()[f"phase_{name}"]()
             gc.collect()
             torch.cuda.empty_cache()
+            log(f"[clock] {name}: {time.perf_counter() - t0:.1f} s in its process")
     finally:
         dist.destroy_process_group()
     with open(os.path.join(workdir, "phases.json"), "w") as f:
@@ -6935,13 +7393,10 @@ def _phases_rank(rank: int, workdir: str, names: tuple) -> None:
 
 
 def phases_in_own_process(*names: str) -> dict:
-    """``phase_<name>()`` of each name in a process of its own: name →
-    result.  Every three training runs of a process keep about 5 GB of
-    the card outside PyTorch's allocator until the process ends (25.6 GB
-    by the end of ``moe_cpu_vs_gpu``, PERF.md §6; its communicators, by
-    the look of it), so a training phase that peaks near the card's 80 GB
-    runs before the others, in a process of its own (on an NVIDIA H100
-    80GB HBM3 at 700.00 W)."""
+    """``phase_<name>()`` of each name in turn, in one process of its own
+    (a one-rank NCCL group): name → result.  A training phase that peaks
+    near the card's 80 GB runs there, before the others, so that nothing
+    the main process caches stands beside it."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -6953,11 +7408,14 @@ def phases_in_own_process(*names: str) -> dict:
 
 
 def phase_xr_train() -> dict:
-    """The cross-attention and RWKV training phases in a process of their
-    own: vision_train's 10 layers peak at 68.9 GB, so neither these runs
-    nor lm_zero1's 61 GB fit after the other in one process."""
+    """The cross-attention, RWKV and Zamba2 training phases in one process
+    of their own, before the others: vision_train's 10 layers peak at
+    68.9 GB (on an NVIDIA H100 80GB HBM3 at 700.00 W), more than is left
+    beside the one-rank section's cached memory; zamba2_train at
+    ``ZAMBA2_TRAIN_LAYERS`` peaks at 23 GB after it."""
     return phases_in_own_process("vision_train", "vision_cpu_vs_gpu", "rwkv_train",
-                                 "rwkv_train_cpu_vs_gpu")
+                                 "rwkv_train_cpu_vs_gpu", "zamba2_train",
+                                 "zamba2_train_cpu_vs_gpu")
 
 
 def _cpu_vs_gpu(tag: str, cfg, params, batch_at, launches_fn=None,
@@ -7650,7 +8108,11 @@ def _elastic_rank(rank: int, workdir: str, backend: str, anchor_ab: bool) -> Non
     from repro_torch.utils.trees import flatten_with_names
 
     # four processes share the card: no memory held in split segments
+    # (set at run time too: as a turn of ``spawn_turns`` the process's
+    # allocator is already up)
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     init_dist("cuda", backend=backend, init_method=f"file://{workdir}/store", rank=rank,
               world_size=ELASTIC_RANKS, timeout=datetime.timedelta(seconds=600))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7831,7 +8293,8 @@ def _elastic_rank(rank: int, workdir: str, backend: str, anchor_ab: bool) -> Non
     dist.destroy_process_group()
 
 
-def phase_elastic(backend: str = "gloo", anchor_ab: bool = False) -> dict:
+def phase_elastic(backend: str = "gloo", anchor_ab: bool = False, spawned=None,
+                  kernels: dict | None = None) -> dict:
     """Elastic training on the card: ``ELASTIC_RANKS`` rank processes on
     the one card over gloo (every collective staged through pinned host
     memory, as lm_tp; ``backend="nccl"`` needs ``ELASTIC_RANKS`` cards,
@@ -7849,9 +8312,13 @@ def phase_elastic(backend: str = "gloo", anchor_ab: bool = False) -> dict:
     run bit-equal to the clean one on every rank, each transition's bytes
     at least 3 x the params x 4 B (params, m and v), and every codec
     program launching rows 1-2 once a RESHARD op (its bucket's
-    ``staging_launches``)."""
-    kernels = phase_elastic_kernels()
-    ranks, wall = spawn_ranks(_elastic_rank, (backend, anchor_ab), ELASTIC_RANKS)
+    ``staging_launches``).  ``spawned``: its turn of ``spawn_turns``
+    (the last: it wraps library functions for the process's life) and
+    ``kernels`` its ``phase_elastic_kernels()``, as ``main`` runs it;
+    else both here."""
+    if kernels is None:
+        kernels = phase_elastic_kernels()
+    ranks, wall = spawned or spawn_ranks(_elastic_rank, (backend, anchor_ab), ELASTIC_RANKS)
     res = ranks[0]
     for r, got in enumerate(ranks):
         if got["faulty"]["digest"] != got["clean"]["digest"]:
@@ -7924,13 +8391,8 @@ def main() -> int:
     clock("build")
     xr = phase_xr_train()
     vision_train, rwkv_train = xr["vision_train"], xr["rwkv_train"]
+    zamba2_train = xr["zamba2_train"]
     clock("xr_train")
-    # its own process: at all 54 layers 29 GB of weights, gradients and
-    # AdamW state, peak 61.41 GB on an NVIDIA H100 80GB HBM3 at 700.00 W
-    # (PERF.md §6); cut to ZAMBA2_TRAIN_LAYERS for the script's time
-    zamba2_train = phases_in_own_process("zamba2_train",
-                                         "zamba2_train_cpu_vs_gpu")["zamba2_train"]
-    clock("zamba2_train")
     init_dist("cuda")
     try:
         rows = phase_kernels()
@@ -7939,6 +8401,8 @@ def main() -> int:
         train = phase_train()
         phase_profile(*train["live"])
         clock("train")
+        sim = phase_sim(train)
+        clock("sim")
         phase_cpu_vs_gpu()
         clock("cpu_vs_gpu")
         train["live"][0].close()
@@ -7950,6 +8414,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         clock("lm_kernels")
         lm = phase_lm_train()
+        sim["lm_gauges"] = lm_gauges(lm)
         clock("lm_train")
         tp1 = phase_lm_tp1()
         phase_lm_cpu_vs_gpu()
@@ -7995,18 +8460,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     clock("destroy")
-    lm_tp = phase_lm_tp(tp1)
-    clock("lm_tp")
-    lm_fsdp = phase_lm_fsdp(tp1)
-    clock("lm_fsdp")
-    reducers = phase_reducers()
-    clock("reducers")
-    zero1 = phase_zero1()
-    clock("zero1")
-    elastic = phase_elastic()
-    clock("elastic")
-    hier = phase_hierarchical()
-    clock("hierarchical")
+    # the four-rank gloo phases in one spawn, one after the other: their
+    # processes start and end once (elastic last: it wraps library
+    # functions for the process's life)
+    assert LM_TP == math.prod(LM_FSDP_MESH) == RING == ELASTIC_RANKS
+    elastic_kernels = phase_elastic_kernels()
+    four = spawn_turns((("_lm_tp_rank", ("gloo", tp1)),
+                        ("_lm_fsdp_rank", ("gloo", tp1, *LM_FSDP_MESH)),
+                        ("_reducers_rank", ("gloo",)), ("_zero1_rank", ("gloo",)),
+                        ("_hier_rank", ("gloo",)), ("_elastic_rank", ("gloo", False))), RING)
+    lm_tp = phase_lm_tp(tp1, spawned=four[0])
+    lm_fsdp = phase_lm_fsdp(tp1, spawned=four[1])
+    reducers = phase_reducers(spawned=four[2])
+    zero1 = phase_zero1(spawned=four[3])
+    hier = phase_hierarchical(spawned=four[4])
+    elastic = phase_elastic(spawned=four[5], kernels=elastic_kernels)
+    clock("four_ranks")
     flash_rows = phase_flash()
     clock("flash")
     serve = phase_serve(smi)
@@ -8051,7 +8520,8 @@ def main() -> int:
                    "rwkv_train": rwkv_train["launches"][name],
                    "zamba2_train": zamba2_train["launches"][name],
                    "ckpt": ckpt["launches"][name],
-                   "elastic": elastic["launches"][name]}
+                   "elastic": elastic["launches"][name],
+                   "sim": sim["launches"][name]}
         kernels.append({
             "name": f"{name}_bucket_kernel", "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -8128,6 +8598,13 @@ def main() -> int:
             # its steps and the state codec's RESHARD programs, one launch a
             # RESHARD op (f32 → f32 packs, unpacks into f32 leaves)
             "ckpt": {"launches_per_step": ckpt["faulty"]["per_step"]},
+            # the simulator: auto's delegated ResNet-50 run (24 a step) and
+            # the measured replay of one step (24 a rep); the staging fit's
+            # timing launches are not counted
+            "sim": {"replay": sim["replay_launches"][name], "winner": sim["winner"],
+                    "staging_fit": {k: sim["fit"][k] for k in
+                                    ("hbm_bw", "leaf_overhead", "share_of_sheet",
+                                     "rel_residual", "quality")}},
             "elastic": {"codec": elastic["reshard_launches"]["faulty"],
                         "codec_layouts": elastic["kernels"]}})
     fr, f32r = flash_rows["static"], flash_rows["static_f32"]

@@ -12,9 +12,11 @@ schedule and reports.  Cells the constructor contract refuses (a
 two-phase strategy with a hierarchical or compressed reducer) are
 counted as rejected.  A zero1 cell plans the StepProgram (the dp-axes
 RS→UPDATE→AG triples with the NORM op, deferred or not) as the
-reference's cell does.  Cells the port cannot plan yet are counted as
-not ported, with the ROADMAP queue 1 item that brings it — never as
-clean: the ``auto`` strategy, item 15b (the simulator).
+reference's cell does.  The ``auto`` strategy's cells plan by
+simulation (``repro_torch.sim``, registered on import here) with the
+cell's accumulation in the planning context.  A cell the port could not
+plan would be counted as not ported, with the ROADMAP queue 1 item that
+brings it — never as clean; today every cell plans.
 
 Every dp2×tp4 cell plans (the "model" axis only shapes the reduce sets).
 To run one, ``GradSync`` gives each chain a communicator per reduce set
@@ -33,14 +35,15 @@ from typing import Any
 
 import torch
 
+import repro_torch.sim.autotune  # noqa: F401  (registers the "auto" strategy)
 from repro_torch.analysis.verifier import run_passes
 from repro_torch.core.kvstore import GradSyncConfig, plan_sync
 from repro_torch.core.registry import reducer_names, strategy_names
 from repro_torch.parallel.sharding import Mesh
 
 # the reference's strategies that the port has not registered, with the
-# ROADMAP queue 1 item that ports them
-NOT_PORTED_STRATEGIES = {"auto": "15b"}
+# ROADMAP queue 1 item that ports them (none since the simulator)
+NOT_PORTED_STRATEGIES: dict[str, str] = {}
 ZERO1_PLANS = ("none", "scheduled", "deferred")
 ACCUMS = (1, 4)
 CHANNELS = (1, 4)
@@ -106,6 +109,7 @@ def lint_cell(mesh_name: str, strategy: str, reducer: str,
         zero1_dp_axes=dp_axes,
         zero1_clip=zero1 != "none",
         zero1_defer_ag=zero1 == "deferred",
+        zero1_accum=accum,
         verify=False,            # run_passes below collects ALL findings
     )
     try:
@@ -183,8 +187,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"repro_torch.analyze: {summary['total']} cells — "
           f"{summary['planned']} planned ({summary['clean']} clean, "
           f"{summary['errors']} with findings), {summary['rejected']} "
-          f"rejected by contract, {summary['not_ported']} not ported "
-          f"(ROADMAP queue 1 {items})")
+          f"rejected by contract, {summary['not_ported']} not ported"
+          + (f" (ROADMAP queue 1 {items})" if items else ""))
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"cells": cells, "summary": summary}, f, indent=2)

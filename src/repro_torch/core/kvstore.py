@@ -53,12 +53,11 @@ from repro_torch.utils.trees import flatten_with_names, tree_unflatten
 
 @dataclasses.dataclass(frozen=True)
 class GradSyncConfig:
-    """The reference's sync knobs that the port runs: the strategies and
-    reducers, the ZeRO-1 StepProgram (``zero1_*``) and the pipeline
-    context (``pp_*``, which the train step fills from its pipeline; only
-    the ``auto`` strategy's planning reads them).  The simulator's fields
-    (``sim_compute``, ``zero1_accum``) come with ROADMAP queue 1 item
-    15b."""
+    """The reference's sync knobs: the strategies and reducers, the
+    ZeRO-1 StepProgram (``zero1_*``), and what a meta strategy's planning
+    (``auto``, ``repro_torch.sim``) reads besides: the step's compute
+    model (``sim_compute``), the accumulation context (``zero1_accum*``)
+    and the pipeline context (``pp_*``), which the train step fills."""
 
     strategy: str = "depcha"         # any registered strategy name
     reducer: str = "flat"            # any registered reducer name
@@ -78,6 +77,15 @@ class GradSyncConfig:
     # the NEXT step's top (``GradSync.apply_pending``, with the carried
     # update shards) instead of closing this step
     zero1_defer_ag: bool = False
+    # gradient accumulation context for ``auto``'s ZeRO-1 ranking: the
+    # microbatch count M and whether releases ride the final microbatch's
+    # backward (``make_train_step`` sets False: the port's sync starts
+    # after the last backward)
+    zero1_accum: int = 1
+    zero1_accum_overlap: bool = True
+    # the PER-MICROBATCH ``repro_torch.sim.compute.ComputeModel`` a meta
+    # strategy ranks with (None: communication alone)
+    sim_compute: Any = None
     # pipeline context (DESIGN.md §15), set by ``make_train_step`` with
     # pipeline stages: stages, the resolved schedule, the microbatch
     # count M and the stage-boundary payload a hop, in bytes
@@ -109,15 +117,14 @@ def plan_sync(cfg: GradSyncConfig, mesh, param_specs: Any, grads_like: Any, *,
     """Plan ``cfg``'s strategy over ``grads_like`` on ``mesh`` (anything
     with a ``shape`` dict and ``axis_names``: a stand-in mesh will do) and,
     under ``cfg.verify``, verify the schedule as the reference's
-    ``GradSync`` does.  Needs no process group.  Raises ``ValueError`` for
-    a strategy/reducer pair the constructor contract refuses,
-    ``NotImplementedError`` for a meta strategy and ``ScheduleError`` for a
-    schedule that fails a pass."""
+    ``GradSync`` does.  Needs no process group.  A meta strategy
+    (``auto``) gets the reference's planning ``context``: the mesh, the
+    reducer, the comm itemsize, the staging mode, ``sim_compute``, the
+    pipeline context and, under ZeRO-1, the dp axes, clip, defer and
+    accumulation.  Raises ``ValueError`` for a strategy/reducer pair the
+    constructor contract refuses and ``ScheduleError`` for a schedule
+    that fails a pass."""
     info = get_strategy(cfg.strategy)  # fail fast
-    if info.meta:
-        raise NotImplementedError(
-            f"meta strategy {cfg.strategy!r} plans by simulation: "
-            f"ROADMAP queue 1 item 15b")
     if info.two_phase and cfg.reducer not in ("flat", "ring"):
         raise ValueError(
             f"strategy {cfg.strategy!r} emits raw reduce-scatter/"
@@ -134,8 +141,26 @@ def plan_sync(cfg: GradSyncConfig, mesh, param_specs: Any, grads_like: Any, *,
     reducer = make_reducer(cfg.reducer, mesh_shape, mean_axes=cfg.mean_axes)
     # leaves whose sum already happened inside the backward scan
     skip_names = in_scan_names if info.uses_in_scan else frozenset()
+    # meta strategies (auto) plan by simulating candidates: hand them the
+    # real topology so the cost model is calibrated
+    plan_kw: dict[str, Any] = {}
+    if info.meta:
+        plan_kw["context"] = {
+            "mesh_shape": mesh_shape,
+            "reducer": cfg.reducer,
+            "itemsize": cfg.comm_dtype.itemsize,
+            "fused_staging": cfg.use_fused_staging,
+            "compute": cfg.sim_compute,
+        }
+        if cfg.pp_stages > 1:
+            plan_kw["context"]["pp"] = {
+                "stages": cfg.pp_stages,
+                "schedule": cfg.pp_schedule,
+                "microbatches": cfg.pp_microbatches,
+                "activation_bytes": cfg.pp_activation_bytes,
+            }
     # the strategy's dependency structure, planned once, inspectable
-    schedule = info.plan(plan, skip_names=skip_names)
+    schedule = info.plan(plan, skip_names=skip_names, **plan_kw)
     # StepProgram: the ZeRO-1 RS→UPDATE→AG triples, planned by the SAME
     # strategy over the dp-axes bucket plan, appended to the sync ops
     program = None
@@ -149,10 +174,22 @@ def plan_sync(cfg: GradSyncConfig, mesh, param_specs: Any, grads_like: Any, *,
             bucket_bytes=cfg.bucket_bytes,
             num_channels=1 if info.single_chain else cfg.num_channels,
             id_offset=id_offset)
-        base = info.plan(dp_plan, skip_names=frozenset())
+        dp_size = group_size(cfg.zero1_dp_axes, mesh_shape)
+        plan_kw2 = {}
+        if info.meta:
+            plan_kw2["context"] = {
+                **plan_kw["context"],
+                "zero1": {"dp_axes": tuple(cfg.zero1_dp_axes),
+                          "dp_size": dp_size,
+                          "clip": cfg.zero1_clip,
+                          "defer": cfg.zero1_defer_ag,
+                          "accum": cfg.zero1_accum,
+                          "accum_overlap": cfg.zero1_accum_overlap},
+            }
+        base = info.plan(dp_plan, skip_names=frozenset(), **plan_kw2)
         program = build_step_program(
             schedule, plan, base, dp_plan, dp_axes=tuple(cfg.zero1_dp_axes),
-            dp_size=group_size(cfg.zero1_dp_axes, mesh_shape),
+            dp_size=dp_size,
             clip=cfg.zero1_clip, defer_ag=cfg.zero1_defer_ag)
         schedule = program.schedule
     if cfg.verify:

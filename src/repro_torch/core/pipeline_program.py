@@ -28,10 +28,9 @@ Three schedule kinds:
 The 1F1B and interleaved slot orders come from one deterministic list
 scheduler over unit-cost slots (prefer-drain: a runnable backward beats
 a runnable forward; forwards fill lowest-virtual-chunk first under the
-per-stage in-flight cap).  The reference's simulator replays the SAME
-committed order with real per-stage times (its
-``sim/compute.py::pipeline_timeline``; ROADMAP queue 1 item 15b ports
-it), so the plan and its costing cannot drift.
+per-stage in-flight cap).  The simulator replays the SAME committed
+order with real per-stage times (``repro_torch.sim.compute.
+pipeline_timeline``), so the plan and its costing cannot drift.
 
 Composition with the ZeRO-1 StepProgram (§9/§10): ``compose_step``
 splices a sync/step schedule after the pipeline ops, wiring each

@@ -15,9 +15,9 @@ The IR half is the reference's unchanged, so planners here and in
 ``repro`` produce equal schedules.  The emitter runs the sync kinds
 (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER), the StepProgram's UPDATE and
 NORM (``core/stepprogram.py``), the elastic RESHARD and REGROUP
-(``repro_torch.elastic``) and the pipeline's SEND and RECV
-(``core/pipeline_program.py``); the serving kind DECODE raises
-``NotImplementedError`` until ROADMAP queue 1 item 15b ports it.
+(``repro_torch.elastic``), the pipeline's SEND and RECV
+(``core/pipeline_program.py``) and the serving kind DECODE (a scheduling
+point of ``repro_torch.sim.serve``'s decode plans).
 """
 from __future__ import annotations
 
@@ -55,8 +55,6 @@ KINDS = (ALLREDUCE, REDUCE_SCATTER, ALL_GATHER, UPDATE, NORM,
 # pairs are counted at the RS; SEND/RECV pairs at the SEND)
 _WIRE_KINDS = (ALLREDUCE, REDUCE_SCATTER)
 _PAYLOAD_KINDS = _WIRE_KINDS + (SEND,)
-# the ROADMAP queue 1 item that ports each kind the emitter cannot run
-_NOT_PORTED = {DECODE: "15b"}
 
 # execution phases: POST ops run after this step's backward; PRE ops are
 # deferred to the top of the next step
@@ -741,10 +739,16 @@ class _OpEmitter:
             self._stage_out(bucket, h.wait(), 1.0 / self.loss_scale, flat_out)
             self.handles[op.op_id] = dep.Handle(dep.Recorded(self.device), None)
 
-        elif op.kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"op kind {op.kind!r} is not ported yet (ROADMAP queue 1 "
-                f"item {_NOT_PORTED[op.kind]})")
+        elif op.kind == DECODE:
+            # local decode compute placeholder: the serving engine runs the
+            # real math (``repro_torch.runtime.serve_loop``); here the node
+            # is a pure scheduling point — it waits on its deps and is done,
+            # so decode plans execute and replay without special cases
+            dep.gate(self.handles, op.depends_on)
+            self.handles[op.op_id] = dep.Handle(dep.Recorded(self.device), None)
+            if self.aux is not None:
+                self.aux.setdefault("decode_nodes", []).append(bucket.bucket_id)
+
         else:
             raise ValueError(f"unknown op kind {op.kind!r}")
 
@@ -825,6 +829,10 @@ def execute(
         stage axis (group rank i → i + ``shift``, mod the group; a
         ``dependency.exchange``, host-staged on gloo with CUDA tensors)
         and unpacks what arrived into the leaves, the loss scale undone.
+
+    DECODE (``repro_torch.sim.serve``'s decode plans), as the reference's:
+      a scheduling point that waits on its deps; its bucket_id is
+      appended to ``aux["decode_nodes"]``.
 
     Ops are issued in schedule order; each waits on its ``depends_on``
     before it is issued.  The fused path writes reduced values into the

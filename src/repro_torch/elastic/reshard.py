@@ -18,8 +18,10 @@ param being 0 too).
 the old mesh, ONE REGROUP barrier every old member joins, then
 per-stream scatters on the new mesh) with GLOBAL leaf sizes and the
 per-leaf divisibility facts of the new mesh, and verifies it with the
-reshard analysis pass (``analysis/passes.py::check_reshard``).  Its
-simulator costing comes with ROADMAP queue 1 item 15b.
+reshard analysis pass (``analysis/passes.py::check_reshard``).
+``repro_torch.sim.simulate`` costs it: the gather side's RESHARDs as
+all-gathers plus their unpack, the REGROUP as a scalar allreduce, the
+scatter side's RESHARDs as a local pack.
 
 ``reshard_state`` is the execution.  The reference's one ``device_get``
 crosses processes here: the old members' gather outputs (param-shaped,

@@ -28,6 +28,10 @@ global weights from the seed and keeps its shards:
         PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --device cpu --model 2 --strategy depcha --steps 2 --seq 32 --batch 4
 
+``--strategy auto`` simulates every fixed strategy on the step's bucket
+plan and runs the predicted winner (``repro_torch.sim``; rank 0 prints
+the ranking).
+
 ``--zero1`` shards the optimizer state over the dp ranks (the optimizer
 wrapped in ``optim.zero1``, the dp axes excluded from the sync):
 ``--zero1-plan scheduled`` (per-bucket RS→UPDATE→AG in GradSync's
@@ -40,8 +44,9 @@ accumulators, the adds running inside each backward.
 mesh gets a "stage" axis of extent S between "data" and "model" (the
 world splits data × S × model), ``--microbatch`` is the pipeline's
 microbatch count M, and ``--pp-schedule`` picks gpipe or 1f1b ("auto",
-the default as in the reference, picks by simulation: ROADMAP queue 1
-item 15b, and raises).  As the reference's, it needs ``--smoke``:
+the default as in the reference, picks the one of least simulated
+pipeline wall: ``repro_torch.sim.choose_pp_schedule``).  As the
+reference's, it needs ``--smoke``:
 
     RANK=r WORLD_SIZE=2 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \
         PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
@@ -73,6 +78,7 @@ import json
 import numpy as np
 import torch.distributed as dist
 
+import repro_torch.sim  # noqa: F401  (registers "auto" → --strategy auto)
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.core import GradSyncConfig, get_strategy, reducer_names, strategy_names
@@ -125,8 +131,8 @@ def main(argv=None):
                          "only; --microbatch doubles as the pipeline microbatch "
                          "count M)")
     ap.add_argument("--pp-schedule", default="auto", choices=["auto", "gpipe", "1f1b"],
-                    help="pipeline schedule; auto = by simulation (ROADMAP queue 1 "
-                         "item 15b, not ported: it raises)")
+                    help="pipeline schedule; auto = argmin of the analytic "
+                         "pipeline wall (repro_torch.sim.choose_pp_schedule)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--events-jsonl", default="",
@@ -184,12 +190,18 @@ def main(argv=None):
                               bucket_bytes=int(args.bucket_mb * 1024 * 1024),
                               num_channels=args.channels,
                               exclude_axes=dp if args.zero1 else ())
-        pp = dict(pp_stages=args.pp_stages, pp_schedule=args.pp_schedule,
-                  batch_like=pipe.batch_at(0)) if args.pp_stages > 1 else {}
+        pp = dict(pp_stages=args.pp_stages,
+                  pp_schedule=args.pp_schedule) if args.pp_stages > 1 else {}
         ts = make_train_step(cfg, mesh, sync, opt, model=model,
                              clip_norm=args.clip_norm, zero1_mode=args.zero1,
                              zero1_plan=args.zero1_plan, microbatch=args.microbatch,
-                             device=args.device, **pp)
+                             batch_like=pipe.batch_at(0), device=args.device, **pp)
+        if rank == 0 and get_strategy(args.strategy).meta:
+            report = repro_torch.sim.last_auto_report()
+            print(f"[train] {args.strategy} -> {report['winner']} "
+                  f"(network model: {report['net']}; ranking "
+                  + ", ".join(f"{n} {t * 1e3:.6g} ms" for n, t in report["ranking"])
+                  + ")")
         ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
                 if args.ckpt_dir else None)
         trainer = Trainer(ts, pipe, ckpt, log_every=1,

@@ -102,7 +102,7 @@ from repro_torch.parallel.sharding import (
 from repro_torch.utils.trees import flatten_with_names, tree_leaves, tree_unflatten
 
 ZERO1_PLANS = ("scheduled", "deferred", "monolithic")
-PP_SCHEDULES = ("gpipe", "1f1b")     # "auto" is ROADMAP queue 1 item 15b
+PP_SCHEDULES = ("auto", "gpipe", "1f1b")     # "auto": choose_pp_schedule picks
 
 
 class SimulatedFailure(RuntimeError):
@@ -237,14 +237,64 @@ def _pp_check(cfg, api, mesh, pp_stages: int, pp_schedule: str) -> str:
     n_layers = getattr(cfg, "n_layers", 0)
     if n_layers and n_layers % pp_stages:
         raise ValueError(f"n_layers={n_layers} not divisible by pp_stages={pp_stages}")
-    if pp_schedule == "auto":
-        raise NotImplementedError(
-            "pp_schedule='auto' picks the schedule by simulation "
-            "(choose_pp_schedule): ROADMAP queue 1 item 15b; pass 'gpipe' or '1f1b'")
     if pp_schedule not in PP_SCHEDULES:
-        raise ValueError(f"pp_schedule must be 'auto', 'gpipe' or '1f1b', "
+        raise ValueError(f"pp_schedule must be one of {PP_SCHEDULES}, "
                          f"got {pp_schedule!r}")
     return pp_schedule
+
+
+def _micro_compute(cfg: Any, batch_like: dict | None, mesh, microbatch: int):
+    """The PER-MICROBATCH ``repro_torch.sim.compute.ComputeModel`` a meta
+    strategy (``auto``) ranks with, from the batch the step will run
+    (``batch_like``: this rank's rows; the global batch is them times the
+    dp extent) and the mesh's size, as the reference's ``_micro_compute``.
+    None without a batch, or for a config outside the FLOP model
+    (``auto`` then ranks on communication alone)."""
+    if not batch_like:
+        return None
+    try:
+        from repro_torch.sim.compute import compute_model_for
+
+        dims = next(tuple(batch_like[k].shape) for k in sorted(batch_like)
+                    if batch_like[k].dim() > 0)
+        dp = math.prod(mesh.shape[a] for a in dp_axes_of(mesh))
+        cm = compute_model_for(
+            cfg, global_batch=dims[0] * dp,
+            seq_len=dims[1] if len(dims) > 1 else 1, n_devices=mesh.size)
+        if microbatch > 1:
+            cm = dataclasses.replace(cm, t_fwd=cm.t_fwd / microbatch,
+                                     t_bwd=cm.t_bwd / microbatch)
+        return cm
+    except Exception:
+        return None
+
+
+def pp_activation_bytes(cfg: Any, batch_like: dict | None, microbatch: int) -> int:
+    """The stage-boundary payload a hop: one microbatch of (local rows,
+    seq, d_model) in the compute dtype (0 without a token batch)."""
+    if batch_like is None or "tokens" not in batch_like or batch_like["tokens"].dim() != 2:
+        return 0
+    rows, seq = batch_like["tokens"].shape
+    return (rows // max(microbatch, 1) * seq * cfg.d_model
+            * torch.empty((), dtype=cfg.dtype).element_size())
+
+
+def resolve_pp_schedule(cfg: Any, mesh, pp_stages: int, pp_schedule: str,
+                        microbatch: int, batch_like: dict | None = None) -> str:
+    """The schedule a staged step runs: ``pp_schedule``, or for "auto"
+    ``repro_torch.sim.choose_pp_schedule``'s pick (the argmin of the
+    analytic pipeline wall over gpipe and 1f1b) at the stage-boundary
+    payload and the whole step's compute model, as the reference's
+    ``make_train_step`` resolves it."""
+    if pp_schedule != "auto":
+        return pp_schedule
+    from repro_torch.sim.autotune import choose_pp_schedule
+
+    mb = max(int(microbatch), 1)
+    return choose_pp_schedule(
+        pp_stages, mb, activation_bytes=pp_activation_bytes(cfg, batch_like, mb),
+        compute=_micro_compute(cfg, batch_like, mesh, 1),
+        mesh_shape=dict(mesh.shape))
 
 
 def make_train_step(
@@ -285,7 +335,8 @@ def make_train_step(
     (whose ``.grad`` is dropped then); the in-backward sync's rows are
     added after it.  The sync starts after the last backward: launching
     buckets from inside it (the reference's ``accum_overlap``) is not
-    ported.
+    ported (ROADMAP queue 1 item 15b, part 5), so a meta strategy ranks
+    with ``zero1_accum_overlap=False``, the order the step runs.
 
     Pipeline stages (DESIGN.md §15): with a "stage" mesh axis
     (``make_smoke_mesh(..., stage=S)``, S = ``pp_stages``; extent 1 runs
@@ -297,14 +348,15 @@ def make_train_step(
     one M-wave program in one backward; "1f1b" runs chunks of S
     microbatches, each through its own backward, the gradients summed in
     f32 (the reference's executed 1F1B: at most S microbatches of
-    activations live).  "auto" picks by
-    simulation, ROADMAP queue 1 item 15b, and raises here.  Loss and
+    activations live).  "auto" picks one of them by simulation
+    (``resolve_pp_schedule``).  Loss and
     gradients are divided by M; the loss is summed over "stage" and the
     dp axes.  The stage-replicated leaves (the embedding, ``ln_f``, the
     head) are summed over "stage" by the sync, the stages that do not
     use them adding zeros.  ``batch_like`` (a batch of the step's shape)
     sizes the stage-boundary payload for ``GradSyncConfig``'s pipeline
-    context.  Refused as in the reference: a mesh without "stage" or of
+    context and, under a meta strategy (``auto``), the compute model it
+    ranks with (``sim_compute``, per microbatch).  Refused as in the reference: a mesh without "stage" or of
     another extent, a family without the hook, ``depcha_in_scan``,
     ``n_layers`` not divisible by S, scheduled ZeRO-1 with clipping.
     """
@@ -352,16 +404,12 @@ def make_train_step(
         raise ValueError("scheduled ZeRO-1 clipping is not supported with pipeline "
                          "stages; pass clip_norm=0")
     if pp_active:
-        # the stage-boundary payload a hop: one microbatch of (local rows,
-        # seq, d_model) in the compute dtype
-        act_bytes = 0
-        if batch_like is not None and batch_like["tokens"].dim() == 2:
-            rows, seq = batch_like["tokens"].shape
-            act_bytes = (rows // max(microbatch, 1) * seq * cfg.d_model
-                         * torch.empty((), dtype=cfg.dtype).element_size())
+        pp_sched = resolve_pp_schedule(cfg, mesh, pp_stages, pp_sched, microbatch,
+                                       batch_like)
         sync = dataclasses.replace(sync, pp_stages=pp_stages, pp_schedule=pp_sched,
                                    pp_microbatches=max(microbatch, 1),
-                                   pp_activation_bytes=act_bytes)
+                                   pp_activation_bytes=pp_activation_bytes(
+                                       cfg, batch_like, microbatch))
     if zero1_mode:
         inner, z_dp_size, _ = zmeta
         if z_dp_size != dp_size:
@@ -370,7 +418,11 @@ def make_train_step(
     if zero1_scheduled:
         sync = dataclasses.replace(
             sync, zero1_dp_axes=tuple(dp), zero1_clip=bool(clip_norm),
-            zero1_defer_ag=defer_ag)
+            zero1_defer_ag=defer_ag, zero1_accum=microbatch,
+            zero1_accum_overlap=False)
+    if get_strategy(sync.strategy).meta and sync.sim_compute is None:
+        sync = dataclasses.replace(
+            sync, sim_compute=_micro_compute(cfg, batch_like, mesh, microbatch))
     specs = api.param_specs(params_like, cfg)
     if pp_active:
         specs = stage_shard_specs(specs)
@@ -655,10 +707,11 @@ class Trainer:
     trainer line and the heartbeat.
 
     Under ZeRO-1 ``mem.state_bytes`` counts the rank's sharded optimizer
-    state (and, deferred, the carried update shards).
-
-    Not here: the reference's simulator gauges (``sim.step_time_s``,
-    ``sim.exposed_comm_s``; ROADMAP queue 1 item 15b)."""
+    state (and, deferred, the carried update shards).  Once a run the
+    simulator's estimate of the planned schedule goes into the gauges
+    ``sim.step_time_s`` and ``sim.exposed_comm_s`` (``repro_torch.sim.
+    simulate`` under the sync's ``sim_compute``, comm itemsize, reducer
+    and staging mode); an estimate never fails a step."""
 
     def __init__(self, step_fn: TrainStep, pipeline, ckpt=None, *,
                  fail_at: frozenset[int] = frozenset(),
@@ -698,8 +751,9 @@ class Trainer:
             self._log.emit(kind, **fields)
 
     def _account_static(self, model, opt_state) -> None:
-        """The per-run gauges and counters: resident state bytes and one
-        execution of the planned schedule's comm bytes."""
+        """The per-run gauges and counters: resident state bytes, one
+        execution of the planned schedule's comm bytes, and the
+        simulator's step time and exposed communication for the plan."""
         leaves = list(model.parameters()) + [
             t for t in tree_leaves(opt_state) if isinstance(t, torch.Tensor)]
         self.metrics.gauge("mem.state_bytes").set(
@@ -707,6 +761,17 @@ class Trainer:
         gs = self.step_fn.gradsync
         comm_byte_counters(gs.schedule, self.metrics,
                            itemsize=gs.cfg.comm_dtype.itemsize)
+        try:
+            from repro_torch.sim.engine import SimConfig, simulate
+
+            tl = simulate(gs.schedule, gs.mesh_shape, compute=gs.cfg.sim_compute,
+                          sim=SimConfig(itemsize=gs.cfg.comm_dtype.itemsize,
+                                        reducer=gs.cfg.reducer,
+                                        fused_staging=gs.cfg.use_fused_staging))
+            self.metrics.gauge("sim.step_time_s").set(tl.step_time)
+            self.metrics.gauge("sim.exposed_comm_s").set(tl.exposed_comm)
+        except Exception:
+            pass    # an estimate must never take down training
 
     def _guard_pending(self, step: int) -> None:
         """Deferred-plan restore guard: a step that carries an

@@ -6,7 +6,7 @@
 
 MODE: grads (the default), rings, compressed, hier, lm, inception, zero1,
 tp-2x2, tp-1x4, tp-4x1, tp-ops, serve-2x2, serve-1x4, elastic, pp,
-sendrecv or close.
+sendrecv, measure or close.
 
 A port rank meets the other ranks on a gloo FileStore in ``workdir``:
 
@@ -129,6 +129,15 @@ A port rank meets the other ranks on a gloo FileStore in ``workdir``:
   sendrecv    (tests/test_torch_pipeline_program.py) a SEND/RECV pair
               through ``execute`` on 2 and 4 stages, shift +1 and -1;
               what each rank received to ``sendrecv_rank<r>.npz``.
+
+  measure     (tests/test_torch_measure.py) the measured per-op replay
+              (``repro_torch.obs.measure``) at data 2 x model 2 on
+              ``repro_torch.obs.cli.build_setup``'s stack, for each run of
+              ``MEASURE_RUNS``: the schedule through ``GradSync`` (``execute``)
+              and through ``measured_gradsync`` at reps 1 and 3 from the
+              same gradients, whether their outputs (and a StepProgram's
+              updates, grad norm and update shards) are bit-equal, and the
+              measured Timeline's ops; to ``measure_rank<r>.npz``.
 
   close       (tests/test_torch_comms.py) build-step-close cycles of the
               runs of ``CLOSE_RUNS`` (concom on 4 channels, depcha's
@@ -1947,6 +1956,56 @@ def _pp(workdir: str, rank: int) -> None:
     np.savez(os.path.join(workdir, f"pp_rank{rank}.npz"), **out)
 
 
+MEASURE_MESH = (2, 2)                  # (data, model)
+# run -> (strategy, zero1 StepProgram with clipping)
+MEASURE_RUNS = {"concom": ("concom", False), "rsag": ("rsag", False),
+                "zero1": ("concom", True)}
+MEASURE_KIB = 16
+
+
+def _measure(workdir: str, rank: int) -> None:
+    """Port side of ``tests/test_torch_measure.py`` (module docstring)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.obs.cli import build_setup
+    from repro_torch.obs.measure import measured_gradsync
+    from repro_torch.utils.trees import tree_leaves
+
+    mesh = make_smoke_mesh(*MEASURE_MESH)
+    out = {}
+
+    def same(a, b) -> bool:
+        a, b = tree_leaves(a), tree_leaves(b)
+        return len(a) == len(b) and all(
+            torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+    for run, (strategy, zero1) in MEASURE_RUNS.items():
+        zkw = dict(exclude_axes=("data",), zero1_dp_axes=("data",), zero1_clip=True)
+        gs, grads = build_setup(strategy, "flat", MEASURE_KIB, mesh, "cpu",
+                                **(zkw if zero1 else {}))
+        kw = dict(update_fn=lambda op, g: g * -0.5, clip_norm=1.0) if zero1 else {}
+        aux: dict = {}
+        want = gs({n: g.clone() for n, g in grads.items()}, aux=aux, **kw)
+        for reps in (1, 3):
+            got, tl, info = measured_gradsync(gs, {n: g.clone() for n, g in grads.items()},
+                                              reps=reps, **kw)
+            ok = same(got, want)
+            if zero1:
+                ok = ok and torch.equal(info["grad_norm"], aux["grad_norm"]) and sorted(
+                    info["update_shards"]) == sorted(aux["update_shards"]) and all(
+                    torch.equal(info["update_shards"][k], aux["update_shards"][k])
+                    for k in aux["update_shards"])
+            out[f"{run}/reps{reps}/bit_equal"] = np.array(ok)
+        out[f"{run}/events"] = np.array([(e.op_id, e.bucket_id) for e in tl.events])
+        out[f"{run}/kinds"] = np.array([e.kind for e in tl.events])
+        out[f"{run}/durations"] = np.array([e.duration for e in tl.events])
+        out[f"{run}/schedule"] = np.array([(op.op_id, op.bucket.bucket_id, op.chain)
+                                           for op in gs.schedule.ops])
+        gs.close()
+    np.savez(os.path.join(workdir, f"measure_rank{rank}.npz"), **out)
+
+
 def _sendrecv(workdir: str, rank: int) -> None:
     """Port side of ``tests/test_torch_pipeline_program.py``: a SEND/RECV
     pair through ``execute`` over the stage axis of ("data", "stage")
@@ -2105,6 +2164,8 @@ def main(workdir: str, rank: int, world: int, mode: str = "grads") -> None:
             _sendrecv(workdir, rank)
         elif mode == "close":
             _close(workdir, rank)
+        elif mode == "measure":
+            _measure(workdir, rank)
         elif mode.startswith("serve-"):
             _serve(workdir, rank, mode[len("serve-"):])
         elif mode.startswith("tp-") and mode != "tp-ops":

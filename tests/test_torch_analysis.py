@@ -235,9 +235,6 @@ def test_cli_matches_the_reference_on_every_cell_both_plan(tmp_path, capsys):
     both = 0
     for c in cells:
         r = ref_by[tuple(c[k] for k in key)]
-        if c["status"] == "not_ported":
-            assert (c["item"], c["strategy"]) == ("15b", "auto")
-            continue
         assert c["status"] == r["status"], c
         if c["status"] == "rejected":
             assert c["reason"] == r["reason"]
@@ -246,10 +243,11 @@ def test_cli_matches_the_reference_on_every_cell_both_plan(tmp_path, capsys):
         assert (c["ok"], c["num_ops"], c["findings"]) == (
             r["ok"], r["num_ops"], r["findings"]), c
     s = port["summary"]
-    assert both == s["planned"] == s["clean"] == 624
-    assert (s["rejected"], s["not_ported"], s["not_ported_by_item"]) == (
-        96, 144, {"15b": 144})
-    assert "624 planned (624 clean, 0 with findings)" in out
+    assert both == s["planned"] == s["clean"] == 768
+    assert (s["total"], s["rejected"], s["not_ported"], s["not_ported_by_item"]) == (
+        864, 96, 0, {})
+    assert sum(c["strategy"] == "auto" and c["status"] == "ok" for c in cells) == 144
+    assert "768 planned (768 clean, 0 with findings)" in out
 
 
 def test_cli_module_entry_points(tmp_path):

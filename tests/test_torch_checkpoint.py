@@ -316,6 +316,10 @@ STEPS = 8
 # (fail_at, step_retries, transient steps)
 PLANS = {"fail": ({3}, 0, ()), "retry": (set(), 1, (1, 4)),
          "exhausted": ({6}, 0, (5,))}
+# both Trainers time their steps on the host: a factor this far above any
+# host noise keeps load-dependent ``straggler`` events out of the
+# lifecycles compared
+STRAGGLER_FACTOR = 1e9
 
 
 @pytest.fixture(scope="module")
@@ -351,6 +355,7 @@ def _ref_trainer(root, plan):
 
     tr = RefTrainer(ts, pipe, RefManager(root, every=2, keep=0, blocking=True),
                     fail_at=frozenset(fail_at), step_retries=retries,
+                    straggler_factor=STRAGGLER_FACTOR,
                     fault_injector=_injector(RefTransient, transient),
                     printer=lambda _s: None, log_every=10_000)
     p, _, rep = tr.run(params, ts.init_opt(), STEPS)
@@ -368,6 +373,7 @@ def test_trainer_rungs_match_the_reference(group, tmp_path, plan):
     tr = Trainer(ts, TokenPipeline(64, 16, 4, seed=7, mesh=group, device="cpu"),
                  CheckpointManager(str(tmp_path / "port"), every=2, keep=0, blocking=True),
                  fail_at=frozenset(fail_at), step_retries=retries,
+                 straggler_factor=STRAGGLER_FACTOR,
                  fault_injector=_injector(TransientStepError, transient),
                  printer=lambda _s: None, log_every=10_000)
     model, _, rep = tr.run(model, ts.init_opt(), STEPS)

@@ -38,6 +38,8 @@ ranks 2 and 3 give what the same mesh gives on ranks 0 and 1, the layout
 of a whole world of 2, and the sums expected.  ``KVStore.regroup`` on
 the 4 ranks and on one; the IR's ``split_regroup`` and the reshard pass.
 """
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -217,10 +219,14 @@ def test_kvstore_regroup_on_four_ranks(workdir):
 # ------------------------------------------------------ the IR, on one rank
 
 def test_emitter_runs_the_elastic_kinds():
-    # the elastic kinds run (and, since the pipeline slice, SEND/RECV):
-    # only the serving kind DECODE is left to ROADMAP queue 1 item 15b
-    assert set(sched._NOT_PORTED) == {sched.DECODE}
-    assert not {sched.RESHARD, sched.REGROUP, sched.SEND, sched.RECV} & set(sched._NOT_PORTED)
+    # the elastic kinds run, as every kind of the IR does since the
+    # simulator's slice (SEND/RECV since the pipeline's, DECODE a
+    # scheduling point): the emitter keeps no list of refused kinds
+    assert not hasattr(sched, "_NOT_PORTED")
+    assert {sched.RESHARD, sched.REGROUP, sched.SEND, sched.RECV, sched.DECODE} <= set(
+        sched.KINDS)
+    src = inspect.getsource(sched._OpEmitter.emit)
+    assert all(f"op.kind == {k.upper()}" in src for k in sched.KINDS)
 
 
 def test_synthetic_transition_verifies_clean():

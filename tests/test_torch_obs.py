@@ -36,13 +36,12 @@ from repro_torch.models.resnet import ResNet
 from repro_torch.obs import EventLog, MetricsRegistry, comm_byte_counters, heartbeat_line
 from repro_torch.optim import linear_scaling_rule, sgd
 from repro_torch.runtime import Trainer, make_train_step
+from repro_torch.sim import SimConfig, simulate
 from repro_torch.utils.convert import params_from_numpy
 from repro_torch.utils.trees import flatten_with_names
 from test_torch_plan import _from_reference
 
 STEPS, BATCH = 4, 8
-# the reference Trainer's gauges that the port leaves to ROADMAP queue 1
-# item 15b (the simulator)
 SIM_METRICS = {"sim.step_time_s", "sim.exposed_comm_s"}
 
 
@@ -134,8 +133,15 @@ def test_trainer_metrics_match_reference(group, ref_run, tmp_path):
     _, _, hist = trainer.run(model, opt.init(params), STEPS)
 
     snap, ref_snap = hist["metrics"], want["metrics"]
-    assert set(snap) == set(ref_snap) - SIM_METRICS
-    assert SIM_METRICS <= set(ref_snap)
+    assert set(snap) == set(ref_snap)
+    assert SIM_METRICS <= set(snap)
+    # the simulator's gauges: the port's simulate on the step's schedule
+    gs = ts.gradsync
+    tl = simulate(gs.schedule, gs.mesh_shape, compute=gs.cfg.sim_compute,
+                  sim=SimConfig(itemsize=4, reducer="flat", fused_staging=True))
+    assert (snap["sim.step_time_s"], snap["sim.exposed_comm_s"]) == (
+        tl.step_time, tl.exposed_comm)
+    assert tl.step_time > 0
     for k in snap:
         if k.startswith("comm_bytes.") or k in ("steps_total", "mem.state_bytes"):
             assert snap[k] == ref_snap[k], k

@@ -289,12 +289,13 @@ def _refusal(**kw):
     ("depcha-in-scan", ValueError, "depcha_in_scan"),
     ("layers", ValueError, "not divisible by pp_stages"),
     ("zero1-clip", ValueError, "scheduled ZeRO-1 clipping"),
-    ("auto", NotImplementedError, "ROADMAP queue 1 item 15b"),
+    ("auto", None, None),
     ("schedule", ValueError, "pp_schedule must be"),
 ])
 def test_staged_step_refusals(case, exc, match):
-    """The reference's refusals of a staged step; "auto" picks by
-    simulation, ROADMAP queue 1 item 15b."""
+    """The reference's refusals of a staged step.  "auto" is none: it
+    resolves to the reference's ``choose_pp_schedule`` pick on the same
+    model values (``_auto_resolves``)."""
     base = tf.TransformerConfig(name="t", n_layers=2, d_model=16, n_heads=2, kv_heads=1, d_ff=32,
                                 vocab=32, dtype=torch.float32)
     kw = {
@@ -304,9 +305,11 @@ def test_staged_step_refusals(case, exc, match):
         "layers": dict(cfg=dataclasses.replace(base, n_layers=3)),
         "zero1-clip": dict(opt=zero1(adamw(1e-3), ("data",), 1), zero1_mode=True,
                            clip_norm=1.0),
-        "auto": dict(pp_schedule="auto"),
         "schedule": dict(pp_schedule="interleaved"),
     }.get(case, {})
+    if case == "auto":
+        _auto_resolves()
+        return
     if case == "family":
         from repro_torch.configs import get_arch
         from repro_torch.models import rwkv
@@ -319,6 +322,64 @@ def test_staged_step_refusals(case, exc, match):
         return
     with pytest.raises(exc, match=match):
         _refusal(**kw)
+
+
+def _auto_resolves():
+    """``pp_schedule="auto"`` at stage 2 picks what the reference's
+    ``choose_pp_schedule`` picks from the same compute model, payload and
+    network values, over batches whose hops weigh from nothing to more
+    than the compute; and a one-rank staged run (stage extent 1) under
+    "auto" is bit-equal to the same run under its pick."""
+    from repro.sim import choose_pp_schedule as ref_choose
+    from repro_torch.launch.mesh import init_dist
+    from repro_torch.runtime.train_loop import (
+        _micro_compute,
+        pp_activation_bytes,
+        resolve_pp_schedule,
+    )
+    from repro_torch.sim import default_network
+
+    from test_torch_sim import ref_cm, ref_net
+
+    base = tf.TransformerConfig(name="t", n_layers=2, d_model=16, n_heads=2, kv_heads=1, d_ff=32,
+                                vocab=32, dtype=torch.float32)
+    picks = set()
+    for data, rows, seq, d_model in ((1, 8, 16, 16), (2, 4, 64, 4096), (1, 32, 1024, 8192)):
+        cfg = dataclasses.replace(base, d_model=d_model)
+        mesh = make_smoke_mesh(data, 1, 2)
+        batch = {"tokens": torch.zeros((rows, seq), dtype=torch.int64),
+                 "labels": torch.zeros((rows, seq), dtype=torch.int64),
+                 "global_tokens": torch.tensor(float(rows * data * seq))}
+        got = resolve_pp_schedule(cfg, mesh, 2, "auto", 4, batch)
+        assert got == ref_choose(2, 4, activation_bytes=pp_activation_bytes(cfg, batch, 4),
+                                 compute=ref_cm(_micro_compute(cfg, batch, mesh, 1)),
+                                 mesh_shape=dict(mesh.shape), net=ref_net(default_network()))
+        picks.add(got)
+    assert picks <= {"gpipe", "1f1b"}
+
+    init_dist("cpu")
+    mesh = make_smoke_mesh(1, 1, 1)
+    batch = {"tokens": torch.randint(0, 32, (8, 16), generator=torch.Generator().manual_seed(0)),
+             "global_tokens": torch.tensor(128.0)}
+    batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+    runs = {}
+    pick = resolve_pp_schedule(base, mesh, 1, "auto", 4, batch)
+    for sched in ("auto", pick):
+        model = tf.Transformer(base, tf.init_params(base, seed=0, device="cpu"))
+        opt = adamw(1e-3)
+        ts = make_train_step(base, mesh, GradSyncConfig(**PP_SYNC), opt, model=model,
+                             pp_stages=1, pp_schedule=sched, microbatch=4, clip_norm=0.0,
+                             batch_like=batch, device="cpu")
+        state = ts.init_opt()
+        losses = []
+        for step in range(2):
+            model, state, m = ts.fn(model, state, batch, step)
+            losses.append(float(m["loss"]))
+        ts.close()
+        runs[sched] = (losses, [p.detach().clone() for p in model.parameters()])
+    assert runs["auto"][0] == runs[pick][0]
+    for a, b in zip(runs["auto"][1], runs[pick][1]):
+        assert torch.equal(a, b)
 
 
 def test_cross_attention_is_refused():
